@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py    # needs one H100 SXM
+
+Phases, all run every time:
+  kernels         build csrc/gram.cu with nvcc (sm_90a); hold gram_fwd,
+                  gram_bwd and pooled_gram_fwd against their plain PyTorch
+                  versions at the main path's shapes in f32 and bf16, on
+                  non-negative inputs as the main path's post-ReLU features
+                  are; time the kernel, the plain version and a library call;
+                  compute each bound from the shapes and the card's peak rates.
+  classification  family 2 at full width (truncate 8, S 7, 4 classes, 224²
+                  crops, batch 8, 16 images, seeded random weights) through
+                  the npz writer, the npz reader, the weight bridge and the
+                  function the CLI's ``--mode classification`` calls.
+  style_transfer  the Adam-on-pixels loop through the function the CLI's
+                  ``--mode style_transfer`` calls (layers 5, batch 4,
+                  20 iterations, threshold 0).
+
+Launch counts are set to 0 just before each main-path phase and read just
+after; a kernel of the phase that never launched fails the run, as does any
+kernel that disagrees with its plain version beyond the stated tolerance.
+Prints one JSON line of kernel records, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
+when CUDA is absent or the port's package is not beside this script.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PKG = "heuristique_style_transfer_code_tpu_torch"
+SOURCE = f"{PKG}/csrc/gram.cu"
+PALLAS = "heuristique_style_transfer_code_tpu/ops/pallas/gram_kernel.py"
+
+# Dense peak rates of the H100 SXM (NVIDIA data sheet), the card whose name
+# this is: bytes/s of device memory, FLOP/s of f32 outside the tensor cores
+# (the kernels do not use TF32) and of bf16 on the tensor cores. Bounds on
+# any other card would need its own row, so the run refuses it.
+PEAKS_CARD = "H100 80GB HBM3"
+PEAKS = (3.35e12, 67e12, 989e12)
+
+# Both max|err| / max|plain| and ||err|| / ||plain|| (RMS) must stay under it.
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+GRAM_SHAPES = [(4, 56, 56, 64), (4, 56, 56, 256), (4, 7, 7, 2048)]  # layers 4, 5, 8
+POOLED_SHAPES = [(8, 56, 56, 256), (8, 28, 28, 512), (8, 14, 14, 1024), (8, 7, 7, 2048)]
+POOL_S = 7
+DEVICE = "cuda"
+N_IMAGES, STYLE_ITERS = 16, 20
+# the main-path shapes that the kernel records report
+MAIN_SHAPE = {"gram_fwd": (4, 56, 56, 256), "gram_bwd": (4, 56, 56, 256),
+              "pooled_gram_fwd": (8, 56, 56, 256)}
+
+
+def _require(ok: bool, what: str) -> None:
+    """A failed check ends the run (unlike ``assert``, also under -O)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _peaks(name: str):
+    if PEAKS_CARD not in name:
+        raise RuntimeError(f"chip_smoke knows the peak rates of the {PEAKS_CARD} only, "
+                           f"not of {name!r}")
+    return PEAKS
+
+
+def _time_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, replayed ``replays`` times between two events. The graph takes
+    the host (Python, ctypes, allocator) out of the measurement, which
+    eager back-to-back launches of a few-microsecond kernel would time
+    instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: library handles, the build, workspaces
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def _bound(flops: float, nbytes: float, dtype, peaks):
+    import torch
+
+    mem, f32, bf16 = peaks
+    t_ops = flops / (bf16 if dtype == torch.bfloat16 else f32)
+    t_bytes = nbytes / mem
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels(kg, peaks) -> dict:
+    """Every kernel against its plain version, f32 and bf16, at the main
+    path's shapes; returns {kernel: [row per shape and dtype]}."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {name: [] for name in kg.KERNELS}
+
+    def check(got, want, dtype):
+        """Max and RMS error, each relative to the plain result's own scale.
+        The RMS one weighs every entry alike, so a wrong off-diagonal block
+        fails it even where the diagonal dominates max|plain|."""
+        torch.cuda.synchronize()
+        diff = got.float() - want.float()
+        err = diff.abs().max().item()
+        rel = err / want.float().abs().max().item()
+        rms = (diff.norm() / want.float().norm()).item()
+        tol = TOL[str(dtype).split(".")[1]]
+        ok = bool(torch.isfinite(got.float()).all()) and rel <= tol and rms <= tol
+        return err, rel, rms, ok
+
+    def features(shape, dtype):
+        """Post-ReLU-like features: non-negative, so the Gram's off-diagonal
+        entries are of the same order as its diagonal."""
+        return torch.relu(torch.randn(shape, device=dev, generator=gen)).to(dtype)
+
+    from heuristique_style_transfer_code_tpu_torch.ops.pooling import adaptive_pool_matrix
+
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        dname = str(dtype).split(".")[1]
+        for (n, h, w, c) in GRAM_SHAPES:
+            hw = h * w
+            f = features((n, hw, c), dtype)
+            # the style loss's cotangent 2(G - target)/C² is signed
+            dg = torch.randn((n, c, c), device=dev, generator=gen).to(dtype)
+            # forward
+            err, rel, rms, ok = check(kg.gram_fwd(f), kg.gram_fwd_plain(f), dtype)
+            out = torch.empty((n, c, c), device=dev, dtype=dtype)
+            ft = f.transpose(1, 2)
+            bound, by = _bound(2.0 * n * hw * c * c, (n * hw * c + n * c * c) * es, dtype, peaks)
+            rows["gram_fwd"].append(dict(
+                shape=[n, h, w, c], dtype=dname, max_abs_err=err, rel_err=rel, rms_err=rms,
+                tol=TOL[dname],
+                ok=ok, ms=_time_ms(lambda: kg.gram_fwd(f)),
+                plain_ms=_time_ms(lambda: kg.gram_fwd_plain(f)),
+                library_ms=_time_ms(lambda: torch.baddbmm(out, ft, f, beta=0, alpha=1.0 / hw)),
+                bound_ms=bound, bound_by=by))
+            # backward
+            err, rel, rms, ok = check(kg.gram_bwd(f, dg), kg.gram_bwd_plain(f, dg), dtype)
+            bound, by = _bound(2.0 * n * hw * c * c + n * c * c,
+                               (2 * n * hw * c + n * c * c) * es, dtype, peaks)
+            rows["gram_bwd"].append(dict(
+                shape=[n, h, w, c], dtype=dname, max_abs_err=err, rel_err=rel, rms_err=rms,
+                tol=TOL[dname],
+                ok=ok, ms=_time_ms(lambda: kg.gram_bwd(f, dg)),
+                plain_ms=_time_ms(lambda: kg.gram_bwd_plain(f, dg)),
+                library_ms=None,  # no single PyTorch call symmetrises dG inside a product
+                bound_ms=bound, bound_by=by))
+            del f, dg, out, ft
+        for (n, h, w, c) in POOLED_SHAPES:
+            hw = h * w
+            s = POOL_S
+            f = features((n, hw, c), dtype)
+            p = adaptive_pool_matrix(c, s, dev)
+            err, rel, rms, ok = check(kg.pooled_gram_fwd(f, p),
+                                      kg.pooled_gram_fwd_plain(f, p), dtype)
+            bound, by = _bound(2.0 * n * hw * c * s + 2.0 * n * hw * s * s,
+                               n * hw * c * es + s * c * 4 + n * s * s * es, dtype, peaks)
+            pl = p.to(dtype)
+            rows["pooled_gram_fwd"].append(dict(
+                shape=[n, h, w, c], s=s, dtype=dname, max_abs_err=err, rel_err=rel,
+                rms_err=rms, tol=TOL[dname], ok=ok, ms=_time_ms(lambda: kg.pooled_gram_fwd(f, p)),
+                plain_ms=_time_ms(lambda: kg.pooled_gram_fwd_plain(f, p)),
+                # one call, the same contraction without the 1/HW scale of S*S outputs
+                library_ms=_time_ms(lambda: torch.einsum("nkc,oc,nkd,pd->nop", f, pl, f, pl)),
+                bound_ms=bound, bound_by=by))
+            del f
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"[kernels] {name} {r['dtype']} {tuple(r['shape'])}: max_abs_err={r['max_abs_err']:.3e} "
+                  f"rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    bad = [(name, r["dtype"], r["shape"]) for name, rs in rows.items() for r in rs if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: {bad}")
+    return rows
+
+
+def _batches(n_images: int, batch: int, seed: int):
+    """In-memory batches with HostLoader's contract: staged 256² uint8."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(0, n_images, batch):
+        out.append({
+            "image": rng.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8),
+            "label": rng.randint(0, 4, (batch,)).astype(np.int32),
+            "indices": np.arange(i, i + batch),
+            "n_valid": batch,
+        })
+    return out
+
+
+def phase_classification(kg, tmp: str, timings: dict):
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import (
+        load_gram_attention,
+        run_classification,
+    )
+    from heuristique_style_transfer_code_tpu_torch.core.device import resolve_device
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+        gram_attention_init,
+    )
+
+    dev = resolve_device(DEVICE)
+    truncate, s, classes, batch = 8, POOL_S, 4, 8
+    seeded = gram_attention_init(torch.Generator().manual_seed(0), truncate, classes, s,
+                                 device="cpu")
+    ckpt = os.path.join(tmp, "family2.npz")
+    save_pytree_npz(to_jax_tree(seeded), ckpt)
+    model = load_gram_attention(ckpt, truncate, classes, s, dev)
+    batches = _batches(N_IMAGES, batch, seed=1)
+    out_dir = os.path.join(tmp, "classification")
+
+    kg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_classification(model, batches, out_dir, truncate=truncate,
+                                 gram_matrix_size=s, num_classes=classes)
+    torch.cuda.synchronize()
+    timings["classification_s"] = time.perf_counter() - t0
+    launches = dict(kg.LAUNCHES)
+    print(f"[classification] {json.dumps(results)} launches={launches} "
+          f"seconds={timings['classification_s']:.3f}")
+    _require(os.path.exists(os.path.join(out_dir, "classification_results.json")),
+             "classification_results.json written")
+    _require(launches["pooled_gram_fwd"] == 4 * len(batches),
+             f"pooled_gram_fwd launched 4 times per batch: {launches}")
+    _require(all(np.isfinite(v) for v in results.values()), f"finite metrics: {results}")
+
+    # reference on a small input: the same weights on the CPU (plain Grams)
+    with torch.inference_mode():
+        x = eval_preprocess(torch.from_numpy(batches[0]["image"][:2]))
+        emb_c, logits_c = gram_attention_apply(model, x.to(dev), truncate, s, classes)
+        emb_r, logits_r = gram_attention_apply(seeded, x, truncate, s, classes)
+    err = (logits_c.cpu() - logits_r).abs().max().item() / logits_r.abs().max().item()
+    err_e = (emb_c.cpu() - emb_r).abs().max().item() / emb_r.abs().max().item()
+    print(f"[classification] card vs CPU reference (2 images, f32): logits rel err {err:.3e}, "
+          f"embeddings rel err {err_e:.3e} (tol 1e-3)")
+    _require(logits_c.shape == (2, classes) and bool(torch.isfinite(logits_c).all()),
+             f"finite logits of shape (2, {classes})")
+    _require(err <= 1e-3 and err_e <= 1e-3, f"card agrees with the CPU: {err}, {err_e}")
+    return model, seeded, launches
+
+
+def phase_style_transfer(kg, model, seeded, tmp: str, timings: dict):
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_gram_fn_gram_attention,
+        make_style_transfer_optimizer,
+        style_transfer_gram_attention,
+    )
+
+    layers, batch, iters = 5, 4, STYLE_ITERS
+    batches = _batches(N_IMAGES, batch, seed=2)
+    out_dir = os.path.join(tmp, "style")
+    history = []
+
+    kg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    saved = style_transfer_gram_attention(
+        model, batches, out_dir, layers=layers, threshold=0.0, num_iterations=iters,
+        truncate_layer=8, generator=torch.Generator().manual_seed(0), history=history,
+        log_fn=lambda msg: None,
+    )
+    torch.cuda.synchronize()
+    timings["style_transfer_s"] = time.perf_counter() - t0
+    launches = dict(kg.LAUNCHES)
+    first = [h[0].mean().item() for h in history]
+    last = [h[-1].mean().item() for h in history]
+    print(f"[style_transfer] {len(saved)} PNGs, iterations per batch {[len(h) for h in history]}, "
+          f"mean loss it1 {first} -> it{iters} {last}, launches={launches}, "
+          f"seconds={timings['style_transfer_s']:.3f}")
+    _require(all(len(h) == iters for h in history), f"{iters} iterations per batch")
+    _require(launches["gram_fwd"] >= iters and launches["gram_bwd"] >= iters,
+             f"gram_fwd and gram_bwd launched at least {iters} times: {launches}")
+    _require(all(b < a for a, b in zip(first, last)), f"mean loss fell: {first} -> {last}")
+    _require(len(saved) == N_IMAGES and all(os.path.exists(p) for p in saved),
+             f"{N_IMAGES} PNGs written")
+
+    # reference on a small input: 3 iterations at 64 px, card vs CPU
+    noise0 = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    traj = {}
+    for name, m, dev in (("card", model, DEVICE), ("cpu", seeded, "cpu")):
+        gram_fn = make_gram_fn_gram_attention(m, 8, layers=layers)
+        with torch.no_grad():
+            targets = gram_fn(noise0.to(dev) * 0.5 + 0.1)
+        run = make_style_transfer_optimizer(gram_fn, 0.01, 3, 0.0)
+        h = []
+        run(noise0.to(dev), targets, h)
+        traj[name] = torch.stack([p.cpu() for p in h])
+    err = ((traj["card"] - traj["cpu"]).abs() / traj["cpu"].abs()).max().item()
+    print(f"[style_transfer] card vs CPU reference (2 images 64 px, 3 iterations): "
+          f"loss trajectory rel err {err:.3e} (tol 1e-3)")
+    _require(bool(torch.isfinite(traj["card"]).all()) and err <= 1e-3,
+             f"card loss trajectory agrees with the CPU: {err}")
+    return launches
+
+
+def main() -> int:
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, PKG)):
+        print(f"chip_smoke: the port's package {PKG}/ is not beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from heuristique_style_transfer_code_tpu_torch.core.device import resolve_device
+    from heuristique_style_transfer_code_tpu_torch.ops.kernels import gram as kg
+
+    resolve_device("cuda")  # f32 stays f32: no TF32 in cuDNN or cuBLAS
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    peaks = _peaks(name)
+
+    t0 = time.perf_counter()
+    lib = kg.build()
+    print(f"[build] {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.2f} s")
+
+    timings = {}
+    rows = phase_kernels(kg, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        model, seeded, cls_launches = phase_classification(kg, tmp, timings)
+        st_launches = phase_style_transfer(kg, model, seeded, tmp, timings)
+    launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
+                "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"]}
+    idle = [k for k in kg.KERNELS if launches[k] == 0]
+    _require(not idle, f"every kernel launched on the main path: {idle}")
+
+    records = []
+    replaces = {"gram_fwd": f"{PALLAS}:60", "gram_bwd": f"{PALLAS}:60",
+                "pooled_gram_fwd": f"{PALLAS}:100"}
+    for kname in kg.KERNELS:
+        main_row = next(r for r in rows[kname]
+                        if tuple(r["shape"]) == MAIN_SHAPE[kname] and r["dtype"] == "float32")
+        records.append({
+            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces[kname],
+            "launches": launches[kname], "shape": list(MAIN_SHAPE[kname]), "dtype": "float32",
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+        })
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump({"device": name, "power": smi, "rows": rows, "timings": timings,
+                   "records": records}, f, indent=1)
+    print(json.dumps({"kernels": records}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

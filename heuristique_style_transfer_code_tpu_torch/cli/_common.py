@@ -1,0 +1,65 @@
+"""Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
+that the family-2 evaluation CLI needs)."""
+from __future__ import annotations
+
+import os
+import random
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def maybe_subset(samples, num_samples: Optional[int], seed: Optional[int] = None):
+    """--num_samples random subsetting, the same draw as the JAX CLI's."""
+    if num_samples is None or num_samples >= len(samples):
+        return samples
+    rng = random.Random(seed)
+    indices = list(range(len(samples)))
+    rng.shuffle(indices)
+    return [samples[i] for i in indices[:num_samples]]
+
+
+def load_checkpoint_tree(model_path: str) -> Any:
+    """A flat-key ``.npz`` checkpoint -> tree of numpy arrays."""
+    if model_path.endswith((".pth", ".pt")) or os.path.isdir(model_path):
+        raise NotImplementedError(
+            f"{model_path}: .pth and orbax checkpoints are not ported yet (npz only)"
+        )
+    from ..checkpoint.io import load_pytree_npz
+
+    return load_pytree_npz(model_path)
+
+
+def count_params(tree: Any) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return int(np.prod(tree.shape)) if hasattr(tree, "shape") else 0
+
+
+def resolve_compute_dtype(precision: Optional[str]) -> Optional[torch.dtype]:
+    """--precision -> compute dtype (None = float32 passthrough)."""
+    if precision in (None, "float32"):
+        return None
+    if precision == "bf16":
+        return torch.bfloat16
+    raise NotImplementedError(f"--precision {precision} is not ported yet (float32, bf16)")
+
+
+def weighted_auc_or_none(labels, probs):
+    """Reference ``--compute_auc``: weighted one-vs-rest AUC for more than
+    two label values, ``probs[:, 1]`` for two; None (with the reference's
+    warning) when it cannot be computed. Imports scikit-learn."""
+    from sklearn.metrics import roc_auc_score
+
+    labels = np.asarray(labels)
+    probs = np.asarray(probs)
+    try:
+        if len(np.unique(labels)) > 2:
+            return float(roc_auc_score(labels, probs, multi_class="ovr", average="weighted"))
+        return float(roc_auc_score(labels, probs[:, 1]))
+    except ValueError as e:
+        print(f"[WARNING] Impossible de calculer l'AUC : {e}")
+        return None

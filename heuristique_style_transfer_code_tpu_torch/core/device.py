@@ -1,0 +1,28 @@
+"""Device selection for the port's entry points.
+
+Entry points run on ``cuda`` unless the caller asks for ``cpu``; a request
+for CUDA on a host without it raises instead of falling back. On the card,
+float32 stays float32: cuDNN would otherwise run f32 convolutions in TF32
+(about three decimal digits) and parity with the JAX f32 path is lost.
+"""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+
+def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available on this host; pass --device cpu "
+                "(device='cpu') to run on the CPU"
+            )
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+

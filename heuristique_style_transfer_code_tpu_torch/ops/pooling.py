@@ -1,0 +1,38 @@
+"""Adaptive average pooling as a constant averaging matrix
+(``ops/pooling.py:21-33``).
+
+torch's adaptive bins are start = floor(i*In/Out), end = ceil((i+1)*In/Out);
+when Out does not divide In the bins overlap (C=256, S=7 is such a case), so
+the pooled-Gram kernel takes this exact matrix rather than assuming disjoint
+equal bins.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_matrix_np(in_size: int, out_size: int) -> np.ndarray:
+    P = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        start = (i * in_size) // out_size
+        end = -((-(i + 1) * in_size) // out_size)  # ceil
+        P[i, start:end] = 1.0 / (end - start)
+    return P
+
+
+@functools.lru_cache(maxsize=64)
+def _pool_matrix_on(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_pool_matrix_np(in_size, out_size), device=device)
+
+
+def adaptive_pool_matrix(
+    in_size: int, out_size: int, device: torch.device = torch.device("cpu")
+) -> torch.Tensor:
+    """(out, in) float32 averaging matrix, kept on ``device`` after its first
+    use there (the forward takes it at every stage; a fresh host copy each
+    time would stall the stream)."""
+    return _pool_matrix_on(in_size, out_size, torch.device(device))

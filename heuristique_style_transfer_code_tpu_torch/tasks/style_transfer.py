@@ -1,0 +1,205 @@
+"""Heuristic style transfer, family 2 (``tasks/style_transfer.py:44-129,
+167-292,459-545`` of the JAX package).
+
+Per batch of test images: the target Gram of the truncated encoder's
+output, then Adam on the pixels of a noise image minimising the per-image
+MSE between its Gram and the target, each image stopping once its loss
+falls below ``threshold``, capped at ``num_iterations``; then the
+[original | stylised] PNG into ``style_transfer_<date>/<label>/``.
+
+Every iteration runs the encoder forward, the ``gram_fwd`` kernel, the
+encoder backward and the ``gram_bwd`` kernel (``ops/kernels/gram.py``).
+``compute_dtype=torch.bfloat16`` runs the encoder in bf16 while the pixels,
+the Adam state and the loss stay f32.
+"""
+from __future__ import annotations
+
+import copy
+import os
+from datetime import datetime
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.gram import gram_matrix_nhwc
+from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.png import float_to_uint8, write_png
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def make_style_transfer_optimizer(
+    gram_fn: Callable[[torch.Tensor], Sequence[torch.Tensor]],
+    learning_rate: float = 0.01,
+    num_iterations: int = 500,
+    threshold: float = 1e-4,
+):
+    """Build the batched optimiser ``run(noise0, targets, history=None) ->
+    (final_noise, iterations_run, final_per_image_loss)``.
+
+    ``gram_fn(images_nhwc)`` returns a list of per-image Grams (batch
+    first). ``history``, when a list, receives each iteration's per-image
+    losses (device tensors; the loop syncs once per iteration anyway).
+
+    Masked Adam, written out to optax's ``adam`` formulas (b1 0.9, b2 0.999,
+    eps 1e-8 outside the square root, bias-corrected moments). The loss of
+    an inactive image is masked out of the sum, so its gradient is zero —
+    but its moments still update every step, exactly as optax's state does
+    in the JAX loop; only the pixel update is masked. ``torch.optim.Adam``
+    would instead move an inactive image on its momentum. The threshold
+    check comes after the step, as in the reference. The moments are
+    updated in place (the JAX loop carries new arrays)."""
+
+    def per_image_loss(noise, targets):
+        total = 0.0
+        for g, t in zip(gram_fn(noise), targets):
+            dims = tuple(range(1, g.dim()))
+            total = total + torch.mean(torch.square(g.float() - t.float()), dim=dims)
+        return total  # (B,)
+
+    def run(noise0: torch.Tensor, targets: Sequence[torch.Tensor],
+            history: Optional[list] = None):
+        noise = noise0.detach().to(torch.float32).clone()
+        mu = torch.zeros_like(noise)
+        nu = torch.zeros_like(noise)
+        b = noise.shape[0]
+        active = torch.ones((b,), dtype=torch.bool, device=noise.device)
+        per = torch.full((b,), float("inf"), device=noise.device)
+        i = 0
+        # One host sync per iteration for the exit test; capturing the step
+        # in a CUDA graph and testing less often is the place to win it back.
+        while i < num_iterations and bool(active.any()):
+            x = noise.detach().requires_grad_(True)
+            per = per_image_loss(x, targets)
+            (grad,) = torch.autograd.grad((per * active.to(per.dtype)).sum(), x)
+            per = per.detach()
+            with torch.no_grad():
+                mu.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
+                nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
+                count = i + 1
+                mu_hat = mu / (1 - ADAM_B1 ** count)
+                nu_hat = nu / (1 - ADAM_B2 ** count)
+                update = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS) * (-learning_rate)
+                mask = active.view((b,) + (1,) * (noise.dim() - 1))
+                noise = noise + update * mask
+                active = active & (per >= threshold)
+            if history is not None:
+                history.append(per)
+            i += 1
+        return noise, i, per
+
+    return run
+
+
+def make_feature_fn_gram_attention(
+    model,
+    truncate_layer: int = 8,
+    layers: Optional[int] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Truncated-encoder features ``images (B, H, W, 3) -> (B, h, w, C)``.
+    ``layers`` truncates the encoder's child list like the reference's
+    Sequential slice. In bf16 the encoder is a bf16 copy of the model's
+    (weights and running statistics, as the JAX policy casts them)."""
+    from ..nn.resnet import resnet50_apply
+
+    truncate = min(layers if layers is not None else truncate_layer, truncate_layer, 8)
+    enc = model.encoder
+    if compute_dtype is not None:
+        enc = copy.deepcopy(enc).to(compute_dtype)
+
+    def feature_fn(images):
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        feats, _ = resnet50_apply(enc, images, truncate=truncate)
+        return feats
+
+    return feature_fn
+
+
+def make_gram_fn_gram_attention(
+    model,
+    truncate_layer: int = 8,
+    layers: Optional[int] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[[torch.Tensor], List[torch.Tensor]]:
+    """Per-image target-Gram program: truncated encoder features -> one
+    (C, C) Gram per image, in the encoder's dtype."""
+    feature_fn = make_feature_fn_gram_attention(model, truncate_layer, layers, compute_dtype)
+
+    def gram_fn(images):
+        return [gram_matrix_nhwc(feature_fn(images))]
+
+    return gram_fn
+
+
+def denormalize_to_uint8(img_nhwc: np.ndarray) -> np.ndarray:
+    """Invert the ImageNet normalisation and clamp to [0, 1] (a float image,
+    despite the reference's name)."""
+    img = np.asarray(img_nhwc, dtype=np.float32) * IMAGENET_STD + IMAGENET_MEAN
+    return np.clip(img, 0.0, 1.0)
+
+
+def _save_side_by_side(original: np.ndarray, stylised: np.ndarray, path: str) -> None:
+    write_png(path, float_to_uint8(np.hstack((original, stylised))))
+
+
+def style_transfer_gram_attention(
+    model,
+    loader,
+    save_dir: str,
+    *,
+    layers: Optional[int] = None,
+    threshold: float = 1e-4,
+    num_iterations: int = 500,
+    learning_rate: float = 0.01,
+    truncate_layer: int = 8,
+    generator: Optional[torch.Generator] = None,
+    log_fn=print,
+    compute_dtype: Optional[torch.dtype] = None,
+    history: Optional[list] = None,
+) -> List[str]:
+    """Family-2 style transfer over any iterable of ``HostLoader`` batches;
+    returns the saved paths. Noise comes from ``generator`` (a CPU
+    ``torch.Generator``; JAX's ``jax.random`` noise cannot be reproduced).
+    ``history``, when a list, receives one list of per-iteration losses per
+    batch."""
+    from ..data.augment import eval_preprocess
+
+    device = next(model.parameters()).device
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    gram_fn = make_gram_fn_gram_attention(model, truncate_layer, layers, compute_dtype)
+    optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold)
+
+    out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
+    os.makedirs(out_dir, exist_ok=True)
+
+    saved = []
+    img_counter = 0
+    for batch in loader:
+        n = batch["n_valid"]
+        images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
+        with torch.no_grad():
+            targets = gram_fn(images)
+        noise0 = torch.randn(images.shape, generator=generator, dtype=torch.float32)
+        trace = [] if history is not None else None
+        noise, iters, per_loss = optimise(noise0.to(device), targets, trace)
+        if history is not None:
+            history.append(trace)
+        log_fn(
+            f"Batch optimised in {iters} iterations, "
+            f"final losses: {per_loss.cpu().numpy()[:n].round(6).tolist()}"
+        )
+        noise = noise.cpu().numpy()
+        originals = images.cpu().numpy()
+        for j in range(n):
+            label = int(batch["label"][j])
+            path = os.path.join(out_dir, str(label), f"style_transfer_{img_counter}.png")
+            _save_side_by_side(denormalize_to_uint8(originals[j]),
+                               denormalize_to_uint8(noise[j]), path)
+            saved.append(path)
+            log_fn(f"Style transferred for image {img_counter}, saved to {path}")
+            img_counter += 1
+    return saved

@@ -1,0 +1,119 @@
+"""The port's family-2 evaluation CLI against the JAX CLI on the
+``tiny_imagefolder`` fixture, its device rule, its "not ported yet" errors,
+and the rule that the port imports neither JAX nor the JAX package."""
+import ast
+import json
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "heuristique_style_transfer_code_tpu_torch")
+
+
+@pytest.fixture(scope="module")
+def f2_model(tmp_path_factory):
+    """A tiny family-2 checkpoint (truncate 5, S 4) written by the port's
+    npz writer from seeded weights, which both CLIs read, and its config."""
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+
+    d = tmp_path_factory.mktemp("f2torch")
+    ckpt = str(d / "model.npz")
+    model = gram_attention_init(torch.Generator().manual_seed(0), 5, 4, 4, device="cpu")
+    save_pytree_npz(to_jax_tree(model), ckpt)
+    cfg = str(d / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": 4, "lr": 0.01, "truncate_layer": 5,
+                   "gram_matrix_size": 4, "num_classes": 4, "seed": 0}, f)
+    return cfg, ckpt
+
+
+def _args(data, f2_model, save_dir, *extra):
+    cfg, ckpt = f2_model
+    return ["--data", str(data), "--config_path", cfg, "--model_path", ckpt,
+            "--save_dir", str(save_dir), *extra]
+
+
+def test_classification_results_equal_jax_cli(tiny_imagefolder, f2_model, tmp_path):
+    from heuristique_style_transfer_code_tpu.cli.test_gram_attention import main as j_main
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    flags = ["--mode", "classification", "--compute_auc"]
+    j_main(_args(tiny_imagefolder, f2_model, tmp_path / "jax", *flags))
+    main(_args(tiny_imagefolder, f2_model, tmp_path / "torch", *flags, "--device", "cpu"))
+    results = []
+    for side in ("jax", "torch"):
+        with open(tmp_path / side / "classification_results.json") as f:
+            results.append(json.load(f))
+    assert set(results[1]) == {"precision", "recall", "f1_score", "auc"}
+    assert results[1] == results[0]
+
+
+def test_style_transfer_writes_png_tree(tiny_imagefolder, f2_model, tmp_path):
+    from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    main(_args(tiny_imagefolder, f2_model, tmp_path, "--mode", "style_transfer",
+               "--layers", "5", "--num_iterations", "2", "--num_samples", "3",
+               "--batch_size", "2", "--device", "cpu"))
+    (st,) = [d for d in os.listdir(tmp_path) if d.startswith("style_transfer_")]
+    pngs = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(tmp_path / st) for f in fs)
+    assert sorted(os.path.basename(p) for p in pngs) == [
+        f"style_transfer_{i}.png" for i in range(3)]
+    for p in pngs:  # <label>/style_transfer_<i>.png, [original | stylised]
+        assert os.path.basename(os.path.dirname(p)) in {"0", "1", "2", "3"}
+        with Image.open(p) as im:
+            assert im.size == (448, 224) and im.mode == "RGB"
+
+
+def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, f2_model,
+                                                               tmp_path):
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(_args(tiny_imagefolder, f2_model, tmp_path, "--mode", "classification"))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mode", "tsne"], ["--mode", "camera"], ["--precision", "int8"],
+    ["--style_image", "x.png"], ["--remat"], ["--shard_spatial", "2"], ["--devices", "2"],
+    ["--steps_per_dispatch", "2"],
+])
+def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, extra):
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        main(_args(tiny_imagefolder, f2_model, tmp_path, *extra, "--device", "cpu"))
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dp, dirs, fs in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not the package's source
+        files += [os.path.join(dp, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "optax") or top == "heuristique_style_transfer_code_tpu":
+                bad.append((os.path.relpath(path, REPO), name))
+    assert not bad, bad
