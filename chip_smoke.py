@@ -4,12 +4,18 @@
     python3 chip_smoke.py    # needs one H100 SXM
 
 Phases, all run every time:
-  kernels         build csrc/gram.cu with nvcc (sm_90a); hold gram_fwd,
-                  gram_bwd and pooled_gram_fwd against their plain PyTorch
-                  versions at the main path's shapes in f32 and bf16, on
-                  non-negative inputs as the main path's post-ReLU features
-                  are; time the kernel, the plain version and a library call;
-                  compute each bound from the shapes and the card's peak rates.
+  build           csrc/gram.cu and csrc/instance_norm.cu, one nvcc each,
+                  started together (sm_90a).
+  kernels         hold gram_fwd, gram_bwd and pooled_gram_fwd against their
+                  plain PyTorch versions at the main path's shapes in f32
+                  and bf16, on non-negative inputs as the main path's
+                  post-ReLU features are; instance_norm_fwd likewise at the
+                  fast-style net's shapes (B = 8, with and without ReLU,
+                  per-image affine rows that differ), at C = 48, C = 5,
+                  (1,512,512,32) bf16 and on channels of mean 1e3, on signed
+                  inputs as conv outputs are; time the kernel, the plain
+                  version and a library call; compute each bound from the
+                  shapes and the card's peak rates.
   classification  family 2 at full width (truncate 8, S 7, 4 classes, 224²
                   crops, batch 8, 16 images, seeded random weights) through
                   the npz writer, the npz reader, the weight bridge and the
@@ -17,6 +23,16 @@ Phases, all run every time:
   style_transfer  the Adam-on-pixels loop through the function the CLI's
                   ``--mode style_transfer`` calls (layers 5, batch 4,
                   20 iterations, threshold 0).
+  fast_style      ``serve_style --net`` through the CLI's ``start``: the
+                  classic net (width 32, 5 residual blocks, crop 224, seeded
+                  weights) written as style_net.npz and its hyperparameters,
+                  batch sizes 4,8, 16 raw 224² POSTs from 8 threads; one
+                  answer against the same net on the CPU.
+  conditional     a 3-style conditional net through make_net_job_fn with
+                  blended rows that differ per image, against the CPU; the
+                  same net in bf16 through make_stylize_fn against f32.
+  texture_serve   ``serve_style`` texture mode on the classification
+                  phase's model (layers 5, 5 iterations, batch 2, 2 POSTs).
 
 Launch counts are set to 0 just before each main-path phase and read just
 after; a kernel of the phase that never launched fails the run, as does any
@@ -33,12 +49,16 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "heuristique_style_transfer_code_tpu_torch"
-SOURCE = f"{PKG}/csrc/gram.cu"
+SOURCE = {"gram": f"{PKG}/csrc/gram.cu", "instance_norm": f"{PKG}/csrc/instance_norm.cu"}
 PALLAS = "heuristique_style_transfer_code_tpu/ops/pallas/gram_kernel.py"
+PALLAS_IN = "heuristique_style_transfer_code_tpu/ops/pallas/instance_norm_kernel.py"
 
 # Dense peak rates of the H100 SXM (NVIDIA data sheet), the card whose name
 # this is: bytes/s of device memory, FLOP/s of f32 outside the tensor cores
@@ -49,6 +69,8 @@ PEAKS = (3.35e12, 67e12, 989e12)
 
 # Both max|err| / max|plain| and ||err|| / ||plain|| (RMS) must stay under it.
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# instance_norm_fwd: (max, RMS) bounds of the same two relative errors
+TOL_IN = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-3)}
 
 GRAM_SHAPES = [(4, 56, 56, 64), (4, 56, 56, 256), (4, 7, 7, 2048)]  # layers 4, 5, 8
 POOLED_SHAPES = [(8, 56, 56, 256), (8, 28, 28, 512), (8, 14, 14, 1024), (8, 7, 7, 2048)]
@@ -57,7 +79,12 @@ DEVICE = "cuda"
 N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
 MAIN_SHAPE = {"gram_fwd": (4, 56, 56, 256), "gram_bwd": (4, 56, 56, 256),
-              "pooled_gram_fwd": (8, 56, 56, 256)}
+              "pooled_gram_fwd": (8, 56, 56, 256), "instance_norm_fwd": (8, 224, 224, 32)}
+# the fast-style net's norms at crop 224, width 32, batch 8: in1 and in_up2,
+# in2 and in_up1, in3 and the residual blocks' 10
+IN_SHAPES = [(8, 224, 224, 32), (8, 112, 112, 64), (8, 56, 56, 128)]
+NORMS_PER_FORWARD = 15
+N_REQUESTS, REQUEST_THREADS = 16, 8
 
 
 def _require(ok: bool, what: str) -> None:
@@ -202,6 +229,80 @@ def phase_kernels(kg, peaks) -> dict:
     return rows
 
 
+def phase_in_kernels(kin, peaks) -> list:
+    """instance_norm_fwd against its plain version; returns one row per
+    case. Inputs are signed, like conv outputs (randn * 2 + 0.5 plus
+    per-channel offsets), with per-image scale and bias rows that differ.
+    The mean-1e3 case is held against the plain version run in float64 on
+    the same values: in f32 the plain version's own mean rounds by about
+    3e-5 at 1e3, which is 1e-5 of the output, the tolerance itself."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(shape, dtype, relu, "signed") for shape in IN_SHAPES
+             for dtype in (torch.float32, torch.bfloat16) for relu in (False, True)]
+    cases += [((3, 37, 29, 48), dtype, True, "signed") for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((2, 13, 11, 5), dtype, True, "signed") for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((1, 512, 512, 32), torch.bfloat16, True, "signed"),
+              ((2, 224, 224, 32), torch.float32, False, "mean 1e3")]
+    rows = []
+    for (b, h, w, c), dtype, relu, kind in cases:
+        hw = h * w
+        dname = str(dtype).split(".")[1]
+        if kind == "mean 1e3":  # std 1 around 1e3: a one-pass variance fails here
+            xf = torch.randn((b, hw, c), device=dev, generator=gen) + 1e3
+        else:
+            xf = (torch.randn((b, hw, c), device=dev, generator=gen) * 2 + 0.5
+                  + torch.randn((c,), device=dev, generator=gen))
+        x = xf.to(dtype)
+        scale = torch.randn((b, c), device=dev, generator=gen)
+        bias = torch.randn((b, c), device=dev, generator=gen)
+        got = kin.instance_norm_fwd(x, scale, bias, relu=relu)
+        torch.cuda.synchronize()
+        ref = x.double() if kind == "mean 1e3" else x
+        want = kin.instance_norm_fwd_plain(ref, scale, bias, relu=relu).double()
+        diff = got.double() - want
+        err = diff.abs().max().item()
+        rel = err / want.abs().max().item()
+        rms = (diff.norm() / want.norm()).item()
+        tol_max, tol_rms = TOL_IN[dname]
+        ok = bool(torch.isfinite(got.float()).all()) and rel <= tol_max and rms <= tol_rms
+        extra = {}
+        if kind == "mean 1e3":  # what the f32 plain version itself is off by here
+            p32 = kin.instance_norm_fwd_plain(x, scale, bias, relu=relu).double()
+            extra["plain_f32_rel_err"] = ((p32 - want).abs().max() / want.abs().max()).item()
+        # 1 read of x, 1 write of y, the (B, C) rows; about 7 f32 operations
+        # per element (shift, sums, deviation square, apply), on CUDA cores
+        es = x.element_size()
+        bound, by = _bound(7.0 * b * hw * c, 2 * b * hw * c * es + 2 * b * c * 4,
+                           torch.float32, peaks)
+        x4 = x.view(b, h, w, c).permute(0, 3, 1, 2)  # channels_last NCHW view
+        s0, b0 = scale[0], bias[0]
+        rows.append(dict(
+            shape=[b, h, w, c], dtype=dname, relu=relu, input=kind, max_abs_err=err,
+            rel_err=rel, rms_err=rms, tol=[tol_max, tol_rms], ok=ok,
+            ms=_time_ms(lambda: kin.instance_norm_fwd(x, scale, bias, relu=relu)),
+            plain_ms=_time_ms(lambda: kin.instance_norm_fwd_plain(x, scale, bias, relu=relu)),
+            # one library call: a single (C,) affine, no ReLU
+            library_ms=_time_ms(lambda: F.instance_norm(x4, weight=s0, bias=b0, eps=kin.EPS)),
+            bound_ms=bound, bound_by=by, **extra))
+        del x, xf, got, want, diff
+    for r in rows:
+        print(f"[kernels] instance_norm_fwd {r['dtype']} {tuple(r['shape'])} relu={r['relu']} "
+              f"{r['input']}: max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} "
+              f"rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
+              + (f" plain_f32_rel_err={r['plain_f32_rel_err']:.3e}" if "plain_f32_rel_err" in r
+                 else ""))
+    bad = [(r["dtype"], r["shape"], r["relu"], r["input"]) for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"instance_norm_fwd disagrees with its plain version: {bad}")
+    return rows
+
+
 def _batches(n_images: int, batch: int, seed: int):
     """In-memory batches with HostLoader's contract: staged 256² uint8."""
     import numpy as np
@@ -218,7 +319,7 @@ def _batches(n_images: int, batch: int, seed: int):
     return out
 
 
-def phase_classification(kg, tmp: str, timings: dict):
+def phase_classification(kernels, tmp: str, timings: dict):
     import numpy as np
     import torch
 
@@ -245,14 +346,14 @@ def phase_classification(kg, tmp: str, timings: dict):
     batches = _batches(N_IMAGES, batch, seed=1)
     out_dir = os.path.join(tmp, "classification")
 
-    kg.reset_launch_counts()
+    kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = run_classification(model, batches, out_dir, truncate=truncate,
                                  gram_matrix_size=s, num_classes=classes)
     torch.cuda.synchronize()
     timings["classification_s"] = time.perf_counter() - t0
-    launches = dict(kg.LAUNCHES)
+    launches = kernels.launch_counts()
     print(f"[classification] {json.dumps(results)} launches={launches} "
           f"seconds={timings['classification_s']:.3f}")
     _require(os.path.exists(os.path.join(out_dir, "classification_results.json")),
@@ -276,7 +377,7 @@ def phase_classification(kg, tmp: str, timings: dict):
     return model, seeded, launches
 
 
-def phase_style_transfer(kg, model, seeded, tmp: str, timings: dict):
+def phase_style_transfer(kernels, model, seeded, tmp: str, timings: dict):
     import torch
 
     from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
@@ -290,7 +391,7 @@ def phase_style_transfer(kg, model, seeded, tmp: str, timings: dict):
     out_dir = os.path.join(tmp, "style")
     history = []
 
-    kg.reset_launch_counts()
+    kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     saved = style_transfer_gram_attention(
@@ -300,7 +401,7 @@ def phase_style_transfer(kg, model, seeded, tmp: str, timings: dict):
     )
     torch.cuda.synchronize()
     timings["style_transfer_s"] = time.perf_counter() - t0
-    launches = dict(kg.LAUNCHES)
+    launches = kernels.launch_counts()
     first = [h[0].mean().item() for h in history]
     last = [h[-1].mean().item() for h in history]
     print(f"[style_transfer] {len(saved)} PNGs, iterations per batch {[len(h) for h in history]}, "
@@ -332,6 +433,174 @@ def phase_style_transfer(kg, model, seeded, tmp: str, timings: dict):
     return launches
 
 
+def _serve(argv):
+    """The port's serve_style as its CLI builds it: ``start(args)``, then
+    the HTTP server on a thread; returns (server, service, base url)."""
+    from heuristique_style_transfer_code_tpu_torch.cli.serve_style import build_parser, start
+
+    srv, service = start(build_parser().parse_args(argv))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, service, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _stop(srv, service) -> None:
+    srv.shutdown()
+    srv.server_close()
+    service.stop(drain=True)
+
+
+def _post_raw(url: str, img):
+    req = urllib.request.Request(url + "/style", data=img.tobytes(), method="POST",
+                                 headers={"X-Raw-Shape": ",".join(map(str, img.shape))})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.status, r.read(), dict(r.headers)
+
+
+def _get(url: str, path: str):
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def _u8_gap(a, b) -> int:
+    import numpy as np
+
+    return int(np.abs(np.asarray(a).astype(np.int16) - np.asarray(b).astype(np.int16)).max())
+
+
+def phase_fast_style(kernels, tmp: str, timings: dict) -> dict:
+    """serve_style --net at full width: 16 concurrent raw POSTs."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import (
+        save_model_and_hyperparameters,
+    )
+    from heuristique_style_transfer_code_tpu_torch.nn.transformer_net import (
+        count_params,
+        transformer_net_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.fast_style import make_stylize_fn
+    from heuristique_style_transfer_code_tpu_torch.utils.png import decode_png
+
+    net_cpu = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5,
+                                   device="cpu")
+    net_path = save_model_and_hyperparameters(
+        to_jax_tree(net_cpu), {"crop": 224, "style_names": ["seeded"]}, tmp, "style_net")
+    t0 = time.perf_counter()
+    srv, service, url = _serve(["--net", net_path, "--batch_size", "4,8", "--port", "0",
+                                "--device", DEVICE])
+    timings["fast_style_start_s"] = time.perf_counter() - t0
+    images = np.random.RandomState(4).randint(0, 256, (N_REQUESTS, 224, 224, 3)).astype(np.uint8)
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(REQUEST_THREADS) as pool:
+            answers = list(pool.map(lambda im: _post_raw(url, im), images))
+        timings["fast_style_16_requests_s"] = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        stats = json.loads(_get(url, "/stats")[1])
+        health = _get(url, "/healthz")
+    finally:
+        _stop(srv, service)
+    print(f"[fast_style] {count_params(net_cpu)} parameters; {N_REQUESTS} requests in "
+          f"{timings['fast_style_16_requests_s']:.3f} s (start {timings['fast_style_start_s']:.2f} s); "
+          f"stats {json.dumps(stats)}; launches={launches}")
+    outs = [decode_png(body) for _, body, _ in answers]
+    _require(all(st == 200 and h.get("X-Iterations") == "1" for st, _, h in answers),
+             "every answer is 200 with X-Iterations: 1")
+    _require(all(o.shape == (224, 224, 3) for o in outs), "every answer is a 224x224 RGB PNG")
+    _require(stats["jobs"] == N_REQUESTS, f"/stats counts {N_REQUESTS} jobs: {stats}")
+    _require(health[0] == 200, f"/healthz answers 200: {health}")
+    _require(launches["instance_norm_fwd"] == NORMS_PER_FORWARD * stats["batches"],
+             f"instance_norm_fwd launched {NORMS_PER_FORWARD} times per batch "
+             f"({stats['batches']} batches): {launches}")
+    ref = make_stylize_fn(net_cpu, crop=224)(images[:1]).numpy()[0]
+    gap = _u8_gap(outs[0], ref)
+    print(f"[fast_style] served answer vs the same net on the CPU: max gap {gap} uint8 steps "
+          f"(tol 1)")
+    _require(gap <= 1, f"served answer within 1 uint8 step of the CPU: {gap}")
+    return launches
+
+
+def phase_conditional(kernels) -> None:
+    """A 3-style conditional net with blended per-image rows, card vs CPU;
+    then bf16 against f32 on the card."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.nn.transformer_net import (
+        InstanceNorm,
+        transformer_net_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.fast_style import (
+        make_net_job_fn,
+        make_stylize_fn,
+    )
+
+    gen = torch.Generator().manual_seed(5)
+    net_cpu = transformer_net_init(gen, width=32, n_res=5, n_styles=3, device="cpu")
+    with torch.no_grad():  # styles that differ: init gives every style ones and zeros
+        for m in net_cpu.modules():
+            if isinstance(m, InstanceNorm):
+                m.weight.add_(0.3 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.add_(0.3 * torch.randn(m.bias.shape, generator=gen))
+    net = transformer_net_init(None, width=32, n_res=5, n_styles=3, device=DEVICE)
+    net.load_state_dict(net_cpu.state_dict())
+    images = np.random.RandomState(6).randint(0, 256, (4, 224, 224, 3)).astype(np.uint8)
+    w = np.array([[1, 0, 0], [0.2, 0.5, 0.3], [0, 0.4, 0.6], [1 / 3, 1 / 3, 1 / 3]], np.float32)
+    ids = np.arange(4, dtype=np.int32)
+    kernels.reset_launch_counts()
+    got = make_net_job_fn(net, crop=224)(images, w, ids)[0].cpu().numpy()
+    launches = kernels.launch_counts()["instance_norm_fwd"]
+    want = make_net_job_fn(net_cpu, crop=224)(images, w, ids)[0].numpy()
+    gap = _u8_gap(got, want)
+    f32 = make_stylize_fn(net, crop=224, style_weights=w)(images).cpu().numpy()
+    bf16 = make_stylize_fn(net, crop=224, style_weights=w,
+                           compute_dtype=torch.bfloat16)(images).cpu().numpy()
+    gap16 = np.abs(f32.astype(np.float32) - bf16.astype(np.float32)).max() / 255.0
+    print(f"[conditional] 3 styles, blended rows: card vs CPU max gap {gap} uint8 steps (tol 1), "
+          f"instance_norm_fwd launches {launches}; bf16 vs f32 max {gap16:.4f} in [0, 1] "
+          f"(tol 0.05)")
+    _require(launches == NORMS_PER_FORWARD, f"{NORMS_PER_FORWARD} norms per forward: {launches}")
+    _require(gap <= 1, f"conditional net on the card within 1 step of the CPU: {gap}")
+    _require(gap16 <= 0.05, f"bf16 within 0.05 of f32: {gap16}")
+
+
+def phase_texture_serve(kernels, tmp: str) -> dict:
+    """serve_style texture mode on the classification phase's model."""
+    import numpy as np
+    import torch
+
+    ckpt = os.path.join(tmp, "family2.npz")  # written by phase_classification
+    cfg = os.path.join(tmp, "family2.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": 8, "truncate_layer": 8, "gram_matrix_size": POOL_S}, f)
+    srv, service, url = _serve(["--config_path", cfg, "--model_path", ckpt, "--layers", "5",
+                                "--num_iterations", "5", "--threshold", "0",
+                                "--batch_size", "2", "--port", "0", "--device", DEVICE])
+    images = np.random.RandomState(7).randint(0, 256, (2, 224, 224, 3)).astype(np.uint8)
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        with ThreadPoolExecutor(2) as pool:
+            answers = list(pool.map(lambda im: _post_raw(url, im), images))
+        launches = kernels.launch_counts()
+        stats = json.loads(_get(url, "/stats")[1])
+    finally:
+        _stop(srv, service)
+    iters = [h.get("X-Iterations") for _, _, h in answers]
+    print(f"[texture_serve] X-Iterations {iters}, X-Final-Loss "
+          f"{[h.get('X-Final-Loss') for _, _, h in answers]}, stats {json.dumps(stats)}, "
+          f"launches={launches}")
+    _require(all(st == 200 for st, _, _ in answers) and iters == ["5", "5"],
+             f"both answers carry X-Iterations: 5: {iters}")
+    _require(launches["gram_fwd"] > 0 and launches["gram_bwd"] > 0,
+             f"gram_fwd and gram_bwd launched: {launches}")
+    return launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -346,7 +615,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from heuristique_style_transfer_code_tpu_torch.core.device import resolve_device
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
     from heuristique_style_transfer_code_tpu_torch.ops.kernels import gram as kg
+    from heuristique_style_transfer_code_tpu_torch.ops.kernels import instance_norm as kin
 
     resolve_device("cuda")  # f32 stays f32: no TF32 in cuDNN or cuBLAS
     name = torch.cuda.get_device_name(0)
@@ -358,28 +629,39 @@ def main() -> int:
     peaks = _peaks(name)
 
     t0 = time.perf_counter()
-    lib = kg.build()
-    print(f"[build] {os.path.relpath(lib, REPO)} in {time.perf_counter() - t0:.2f} s")
+    libs = kernels.build_all()
+    print(f"[build] {', '.join(os.path.relpath(p, REPO) for p in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     timings = {}
     rows = phase_kernels(kg, peaks)
+    rows["instance_norm_fwd"] = phase_in_kernels(kin, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        model, seeded, cls_launches = phase_classification(kg, tmp, timings)
-        st_launches = phase_style_transfer(kg, model, seeded, tmp, timings)
+        model, seeded, cls_launches = phase_classification(kernels, tmp, timings)
+        st_launches = phase_style_transfer(kernels, model, seeded, tmp, timings)
+        fs_launches = phase_fast_style(kernels, tmp, timings)
+        phase_conditional(kernels)
+        phase_texture_serve(kernels, tmp)
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
-                "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"]}
-    idle = [k for k in kg.KERNELS if launches[k] == 0]
+                "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"],
+                "instance_norm_fwd": fs_launches["instance_norm_fwd"]}
+    idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
     records = []
     replaces = {"gram_fwd": f"{PALLAS}:60", "gram_bwd": f"{PALLAS}:60",
-                "pooled_gram_fwd": f"{PALLAS}:100"}
-    for kname in kg.KERNELS:
+                "pooled_gram_fwd": f"{PALLAS}:100", "instance_norm_fwd": f"{PALLAS_IN}:192"}
+    sources = {"gram_fwd": SOURCE["gram"], "gram_bwd": SOURCE["gram"],
+               "pooled_gram_fwd": SOURCE["gram"], "instance_norm_fwd": SOURCE["instance_norm"]}
+    for kname in launches:
+        # the net's first norm (in1, with its ReLU) stands for K3's record
         main_row = next(r for r in rows[kname]
-                        if tuple(r["shape"]) == MAIN_SHAPE[kname] and r["dtype"] == "float32")
+                        if tuple(r["shape"]) == MAIN_SHAPE[kname] and r["dtype"] == "float32"
+                        and r.get("relu", True))
         records.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces[kname],
-            "launches": launches[kname], "shape": list(MAIN_SHAPE[kname]), "dtype": "float32",
+            "name": kname, "route": "cuda", "source": sources[kname],
+            "replaces": replaces[kname], "launches": launches[kname],
+            "shape": list(MAIN_SHAPE[kname]), "dtype": "float32",
             **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
         })

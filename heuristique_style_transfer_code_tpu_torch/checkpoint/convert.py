@@ -1,12 +1,13 @@
-"""Weight bridge between the JAX package's parameter tree and the port's
-family-2 module (``models/gram_attention.py``).
+"""Weight bridge between the JAX package's parameter trees and the port's
+modules (``models/gram_attention.py``, ``nn/transformer_net.py``).
 
 The module tree mirrors the JAX tree, so a leaf's state-dict key is its
 path with the leaf renamed:
 
     kernel (4-D, HWIO)   -> weight (OIHW)
     kernel (2-D, in,out) -> weight (out, in)
-    scale / bias         -> weight / bias            (batch norm)
+    scale / bias         -> weight / bias            (batch and instance norm;
+                                                      (C,) or (S, C) tables)
     mean / var           -> running_mean / running_var
     in_proj_weight, ...  -> unchanged                (attention)
 
@@ -50,15 +51,20 @@ def from_jax_tree(tree: Any) -> Dict[str, torch.Tensor]:
 
 def to_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
     """The port's module -> the JAX package's tree of numpy float32 arrays
-    (what its ``save_pytree_npz`` writes)."""
+    (what its ``save_pytree_npz`` writes). The ``weight`` of a module marked
+    ``is_affine_norm`` is a norm's scale whatever its rank: a conditional
+    net's (S, C) table stays (S, C), untransposed."""
     tree: Dict[str, Any] = {}
     inverse = {"running_mean": "mean", "running_var": "var"}
+    norms = {name for name, m in module.named_modules() if getattr(m, "is_affine_norm", False)}
     for key, t in module.state_dict().items():
         parts = key.split(".")
         arr = t.detach().to("cpu", torch.float32).numpy()
         leaf = parts[-1]
         if leaf == "weight":
-            if arr.ndim == 4:
+            if ".".join(parts[:-1]) in norms:
+                leaf = "scale"
+            elif arr.ndim == 4:
                 leaf, arr = "kernel", oihw_to_hwio(arr)
             elif arr.ndim == 2:
                 leaf, arr = "kernel", arr.T

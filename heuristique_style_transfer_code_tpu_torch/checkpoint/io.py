@@ -10,6 +10,7 @@ values (a bf16 number is the top half of an f32 one).
 """
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 from typing import Any, Dict
@@ -100,3 +101,20 @@ def load_pytree_npz(path: str) -> Any:
     with np.load(path) as data:
         flat = {k: _decode(data[k]) for k in data.files}
     return _unflatten(flat)
+
+
+def save_model_and_hyperparameters(tree: Any, hyperparameters: dict, save_dir: str,
+                                   filename: str) -> str:
+    """The artifact pair ``<filename>.npz`` + ``<filename>_hyperparameters.json``
+    (``checkpoint/io.py:102-109`` of the JAX package); returns the npz path."""
+    os.makedirs(save_dir, exist_ok=True)
+    model_path = os.path.join(save_dir, f"{filename}.npz")
+    save_pytree_npz(tree, model_path)
+    with open(os.path.join(save_dir, f"{filename}_hyperparameters.json"), "w") as f:
+        json.dump(hyperparameters, f, indent=4)
+    return model_path
+
+
+def load_hyperparameters(config_path: str) -> dict:
+    with open(config_path, "r") as f:
+        return json.load(f)

@@ -1,5 +1,5 @@
 """Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
-that the family-2 evaluation CLI needs)."""
+that the family-2 evaluation CLI and ``serve_style`` need)."""
 from __future__ import annotations
 
 import os
@@ -63,3 +63,23 @@ def weighted_auc_or_none(labels, probs):
     except ValueError as e:
         print(f"[WARNING] Impossible de calculer l'AUC : {e}")
         return None
+
+
+def add_device_args(parser, precisions=("float32", "bf16")) -> None:
+    """The JAX CLIs' ``add_tpu_args`` flags (``--devices``, ``--profile_dir``
+    and ``--debug_nans`` parse but are not ported yet) plus ``--device``."""
+    parser.add_argument("--precision", choices=list(precisions), default="float32",
+                        help="Compute precision policy")
+    parser.add_argument("--devices", type=int, default=None, help="Not ported yet")
+    parser.add_argument("--profile_dir", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--debug_nans", action="store_true", help="Not ported yet")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu; there is no silent fallback")
+
+
+def check_ported(args, not_ported: dict) -> None:
+    """Raise "not ported yet" for any flag of ``not_ported`` ({flag: its
+    default}) given another value."""
+    for flag, default in not_ported.items():
+        if getattr(args, flag) != default:
+            raise NotImplementedError(f"--{flag} is not ported yet")

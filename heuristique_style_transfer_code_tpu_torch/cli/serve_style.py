@@ -1,0 +1,249 @@
+"""Serve style transfer over HTTP with job batching, on PyTorch — the flags
+of ``heuristique_style_transfer_code_tpu/cli/serve_style.py`` plus
+``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``).
+
+Ported: ``--net`` (a feed-forward style net, one forward per job, its 15
+instance norms through the hand-written kernel on the card) and texture
+mode (the family-2 Adam-on-pixels loop), with ``--batch_size`` ladders,
+``--precision float32|bf16`` and SIGTERM drain. The flags listed in
+``_NOT_PORTED`` raise a "not ported yet" error.
+
+    python -m heuristique_style_transfer_code_tpu_torch.cli.serve_style \\
+        --net style_net.npz --batch_size 4,8 --port 8001 [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from ._common import (
+    add_device_args,
+    check_ported,
+    count_params,
+    load_checkpoint_tree,
+    resolve_compute_dtype,
+)
+
+FAMILIES = ["gram_attention", "multi_patchgan"]
+
+# flag -> its default; any other value raises "not ported yet"
+_NOT_PORTED = {
+    "family": "gram_attention",
+    "artifact": None,
+    "export_artifact": None,
+    "export_platforms": None,
+    "transport": "rgb",
+    "style_image": None,
+    "style_weight": 1.0,
+    "content_weight": 1.0,
+    "tv_weight": 0.0,
+    "style_init": "content",
+    "style_layers": "last",
+    "remat": False,
+    "recycle_after_requests": 0,
+    "devices": None,
+    "profile_dir": None,
+    "debug_nans": False,
+}
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        description="HTTP style-transfer job server with dynamic batching (PyTorch)")
+    parser.add_argument("--family", choices=FAMILIES, default="gram_attention",
+                        help="gram_attention (multi_patchgan is not ported yet)")
+    parser.add_argument("--config_path", type=str, default=None,
+                        help="Required unless --net is given")
+    parser.add_argument("--model_path", type=str, default=None,
+                        help="Required unless --net is given")
+    parser.add_argument("--artifact", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--export_artifact", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--export_platforms", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8001,
+                        help="0 picks a free port (printed at startup)")
+    parser.add_argument("--batch_size", type=str, default="8",
+                        help="Jobs per dispatch; a comma list ('4,8') serves several sizes "
+                        "and each dispatch uses the smallest that fits the queued jobs")
+    parser.add_argument("--transport", choices=["rgb", "yuv420"], default="rgb",
+                        help="rgb (yuv420 is not ported yet)")
+    parser.add_argument("--max_delay_ms", type=float, default=200.0,
+                        help="Flush deadline for a partially filled batch")
+    parser.add_argument("--max_in_flight", type=int, default=2)
+    parser.add_argument("--num_iterations", type=int, default=500)
+    parser.add_argument("--threshold", type=float, default=1e-4)
+    parser.add_argument("--lr", type=float, default=0.01)
+    parser.add_argument("--layers", type=int, default=None,
+                        help="Family-2 encoder truncation, the reference's Sequential slice")
+    parser.add_argument("--style_image", action="append", default=None, metavar="NAME=PATH",
+                        help="Not ported yet (content+style mode)")
+    parser.add_argument("--style_weight", type=float, default=1.0)
+    parser.add_argument("--content_weight", type=float, default=1.0)
+    parser.add_argument("--tv_weight", type=float, default=0.0)
+    parser.add_argument("--style_init", choices=["content", "noise"], default="content")
+    parser.add_argument("--style_layers", choices=["last", "all"], default="last")
+    parser.add_argument("--net", type=str, default=None,
+                        help="Serve a trained feed-forward style network (style_net.npz): "
+                        "each job is ONE forward pass; crop and the style names come from "
+                        "its hyperparameters file")
+    parser.add_argument("--remat", action="store_true", help="Not ported yet")
+    parser.add_argument("--afficher_params", action="store_true")
+    parser.add_argument("--max_seconds", type=float, default=None,
+                        help="Exit after this many seconds (smoke tests)")
+    parser.add_argument("--request_timeout", type=float, default=300.0,
+                        help="Per-request wait on the job Future (s)")
+    parser.add_argument("--no_warmup", action="store_true",
+                        help="Skip the kernel build and warm forward before binding the port")
+    parser.add_argument("--recycle_after_requests", type=int, default=0, help="Not ported yet")
+    add_device_args(parser)
+    return parser
+
+
+def _sizes(args):
+    return [int(s) for s in str(args.batch_size).split(",") if s.strip()]
+
+
+def _build_net_service(args, device, crop: int):
+    from ..checkpoint.io import load_hyperparameters
+    from ..nn.transformer_net import net_n_styles
+    from ..tasks.fast_style import make_net_job_fn, net_from_tree
+    from ..tasks.style_service import StyleTransferService
+
+    net = net_from_tree(load_checkpoint_tree(args.net), device)
+    hyper_path = args.net.replace(".npz", "_hyperparameters.json")
+    hyper = load_hyperparameters(hyper_path) if os.path.exists(hyper_path) else {}
+    net_crop = int(hyper.get("crop", crop))
+    fallback = os.path.splitext(str(hyper.get("style_image", "style")))[0]
+    style_names = [str(n) for n in hyper.get("style_names", [fallback])]
+    n_styles = net_n_styles(net)
+    if n_styles is not None and n_styles != len(style_names):
+        raise SystemExit(f"--net has {n_styles} conditional styles but its "
+                         f"hyperparameters name {len(style_names)}: {style_names}")
+    kind = (f"conditional gallery {style_names}" if n_styles is not None
+            else f"style {style_names[0]!r}")
+    print(f"Feed-forward net: {kind}, crop {net_crop} (one forward per job)", flush=True)
+    net_job = make_net_job_fn(net, crop=net_crop,
+                              compute_dtype=resolve_compute_dtype(args.precision))
+    return StyleTransferService(
+        job_fn={s: net_job for s in _sizes(args)},
+        style_names=style_names,
+        crop=net_crop,
+        num_iterations=1,
+        max_delay_ms=args.max_delay_ms,
+        max_in_flight=args.max_in_flight,
+        device=device,
+    )
+
+
+def _build_gram_fn(args, device):
+    """Texture mode's per-image Gram program, family 2, precision applied."""
+    from ..config.schema import GramAttentionConfig
+    from ..tasks.style_transfer import make_gram_fn_gram_attention
+    from .test_gram_attention import load_gram_attention
+
+    cfg = GramAttentionConfig.from_json(args.config_path)
+    if args.afficher_params:
+        total = count_params(load_checkpoint_tree(args.model_path))
+        print(f"Nombre total de paramètres du modèle : {total}")
+    model = load_gram_attention(args.model_path, cfg.truncate_layer, None,
+                                cfg.gram_matrix_size, device)
+    return make_gram_fn_gram_attention(model, cfg.truncate_layer, layers=args.layers,
+                                       compute_dtype=resolve_compute_dtype(args.precision))
+
+
+def build_service(args, crop: int = 224):
+    """The configured (unstarted) StyleTransferService on ``--device``."""
+    from ..core.device import resolve_device
+    from ..tasks.style_service import StyleTransferService
+
+    check_ported(args, _NOT_PORTED)
+    resolve_compute_dtype(args.precision)
+    device = resolve_device(args.device)
+    if args.net:
+        return _build_net_service(args, device, crop)
+    if not args.config_path or not args.model_path:
+        raise SystemExit("--config_path and --model_path are required unless --net is given")
+    sizes = _sizes(args)
+    return StyleTransferService(
+        gram_fn=_build_gram_fn(args, device),
+        crop=crop,
+        batch_size=sizes if len(sizes) > 1 else sizes[0],
+        max_delay_ms=args.max_delay_ms,
+        num_iterations=args.num_iterations,
+        threshold=args.threshold,
+        learning_rate=args.lr,
+        max_in_flight=args.max_in_flight,
+        seed=0,
+        device=device,
+    )
+
+
+def start(args, crop: int = 224):
+    """Build the service and the HTTP server and start the service (returns
+    (srv, service); used by main() and callable from tests)."""
+    from ..tasks.style_http import make_style_http_server
+
+    service = build_service(args, crop=crop).start()
+    if not args.no_warmup:
+        print("Warming up (kernel build, warm forward)...", flush=True)
+        t0 = time.time()
+        service.warmup()
+        print(f"Warmup done in {time.time() - t0:.1f}s")
+    srv = make_style_http_server(service, args.host, args.port, timeout_s=args.request_timeout)
+    return srv, service
+
+
+def main(argv=None):
+    import signal
+    import threading
+
+    args = build_parser().parse_args(argv)
+    # SIGTERM = orchestrated shutdown: stop accepting, drain submitted jobs,
+    # exit — registered before the warmup so a signal landing then still
+    # shuts down cleanly; the previous handler comes back on return
+    stop_requested = threading.Event()
+    try:
+        previous = signal.signal(signal.SIGTERM, lambda signum, frame: stop_requested.set())
+    except ValueError:
+        previous = None  # not the main thread (programmatic use)
+    try:
+        _serve(args, stop_requested)
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
+def _serve(args, stop_requested) -> None:
+    import threading
+
+    srv, service = start(args)
+    host, port = srv.server_address[:2]
+    batch_str = ",".join(str(s) for s in service.batch_sizes)
+    print(f"Serving style transfer on http://{host}:{port} "
+          f"(batch {batch_str}, {service.num_iterations} iters, {args.precision}, "
+          f"{service.device})", flush=True)
+    if service.style_names:
+        print(f"Style gallery: {service.style_names}", flush=True)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        t0 = time.time()
+        while args.max_seconds is None or time.time() - t0 < args.max_seconds:
+            if stop_requested.is_set():
+                print("SIGTERM: draining and shutting down")
+                break
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.stop(drain=True)
+        stats = service.stats()
+        print(f"Stats: {stats['jobs']} jobs in {stats['batches']} batches "
+              f"(mean occupancy {stats['mean_batch_occupancy']:.2f}, "
+              f"mean iterations {stats['mean_iterations']:.0f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -28,6 +28,7 @@ from ..data.imagefolder import ImageFolderIndex
 from ..data.loader import HostLoader
 from ..models.gram_attention import GramAttention, gram_attention_apply, gram_attention_init
 from ._common import (
+    check_ported,
     count_params,
     load_checkpoint_tree,
     maybe_subset,
@@ -101,16 +102,15 @@ def build_parser():
 def _check_ported(args) -> None:
     if args.mode not in PORTED_MODES:
         raise NotImplementedError(f"--mode {args.mode} is not ported yet ({', '.join(PORTED_MODES)})")
-    for flag, default in _NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    check_ported(args, _NOT_PORTED)
     resolve_compute_dtype(args.precision)
 
 
-def load_gram_attention(model_path: str, truncate: int, num_classes: int, s: int,
+def load_gram_attention(model_path: str, truncate: int, num_classes: Optional[int], s: int,
                         device: torch.device) -> GramAttention:
     """npz checkpoint -> family-2 model on ``device`` (the weight bridge
-    fails on any leaf missing or left over)."""
+    fails on any leaf missing or left over). ``num_classes=None`` reads the
+    class count from the checkpoint's classifier."""
     tree = load_checkpoint_tree(model_path)
     if "encoder" not in tree and isinstance(tree.get("moco"), dict):
         raise NotImplementedError(
@@ -122,6 +122,8 @@ def load_gram_attention(model_path: str, truncate: int, num_classes: int, s: int
             f"Checkpoint {model_path} has no encoder for the gram-attention "
             "architecture (expected 'encoder' or a family-1 'moco' tree)."
         )
+    if num_classes is None:
+        num_classes = int(np.shape(tree["classifier"]["kernel"])[-1])
     model = gram_attention_init(None, truncate, num_classes, s, device=device)
     return load_jax_tree(model, tree)
 

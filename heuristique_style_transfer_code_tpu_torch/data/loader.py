@@ -23,17 +23,18 @@ DECODE_WORKERS = 8
 PREFETCH_BATCHES = 2
 
 
-def decode_image_staged_bytes(data: bytes) -> np.ndarray:
-    """Encoded image bytes -> staged uint8 (STAGING_SIZE, STAGING_SIZE, 3)."""
+def decode_image_staged_bytes(data: bytes, staging: int = STAGING_SIZE) -> np.ndarray:
+    """Encoded image bytes -> staged uint8 (staging, staging, 3): shorter
+    side resized to ``staging`` (bilinear), center crop."""
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as im:
         im = im.convert("RGB")
         w, h = im.size
-        tw, th, left, top = staging_geometry(w, h, STAGING_SIZE)
+        tw, th, left, top = staging_geometry(w, h, staging)
         im = im.resize((tw, th), Image.BILINEAR)
         arr = np.asarray(im, dtype=np.uint8)
-    return arr[top : top + STAGING_SIZE, left : left + STAGING_SIZE]
+    return arr[top : top + staging, left : left + staging]
 
 
 def load_image_staged(path: str) -> np.ndarray:

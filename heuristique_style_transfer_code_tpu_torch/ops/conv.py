@@ -10,7 +10,7 @@ Cross-correlation, output in x's dtype, as ``ops/conv.py:60-80``.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,9 +33,14 @@ def conv2d(
     weight: torch.Tensor,
     stride: IntPair = 1,
     padding: IntPair = 0,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """x: (N, H, W, C), weight (O, C, kh, kw) -> (N, H', W', O)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), stride=stride, padding=padding)
+    """x: (N, H, W, C), weight (O, C, kh, kw), optional bias (O,) ->
+    (N, H', W', O) in x's dtype. The bias goes into the convolution call
+    (cuDNN adds it in its epilogue); in bf16 JAX adds the f32 bias before
+    the one rounding, so the two may differ by a bf16 step."""
+    b = bias.to(x.dtype) if bias is not None else None
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), b, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
 
 

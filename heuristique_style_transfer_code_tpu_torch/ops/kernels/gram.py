@@ -7,31 +7,21 @@ use it); a CUDA tensor launches the kernel or raises — there is no fallback.
 ``LAUNCHES[name]`` counts kernel launches only, so a run can show that its
 main path went through the kernels.
 
-The kernels are compiled on first use with ``nvcc`` into one shared library
-under ``_build/`` of this package and bound with ``ctypes``.
+The kernels are compiled on first use with ``nvcc`` into a shared library
+under ``_build/`` of this package and bound with ``ctypes`` (``_nvcc.py``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from typing import Dict
 
 import torch
 
+from ._nvcc import CudaLibrary, check
+
 KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "gram.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64  # gram_fwd output tile edge (csrc/gram.cu TILE)
@@ -40,68 +30,22 @@ _PG_WARPS = 8  # pooled_gram_fwd warps per block (csrc/gram.cu PG_WARPS)
 MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S
 _MAX_SMEM = 200 * 1024  # dynamic shared memory left for P (S x C f32)
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hst_gram_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, p]
+    lib.hst_pooled_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd):
+        fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("gram", _bind)
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda/bin)")
-    return path
-
-
-def build() -> str:
-    """Compile csrc/gram.cu for sm_90a unless a library built from the same
-    source already exists; returns the library's path. The file name carries
-    the source's hash, so an edited source is never served a stale build."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libhst_gram_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], check=True,
-                       capture_output=True, text=True)
-        os.replace(tmp, lib_path)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.hst_gram_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
-            lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, p]
-            lib.hst_pooled_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-            for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd):
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _check(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _check_input(name: str, f: torch.Tensor) -> None:
@@ -173,11 +117,11 @@ def gram_fwd(f: torch.Tensor) -> torch.Tensor:
     splits = math.ceil(hw / rows)
     ws = (torch.empty((n, splits, c, c), device=f.device, dtype=torch.float32)
           if splits > 1 else None)
-    err = _load().hst_gram_fwd(
+    err = LIBRARY.load().hst_gram_fwd(
         f.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
         n, hw, c, splits, rows, _DTYPE_CODE[f.dtype], _stream(f.device),
     )
-    _check("gram_fwd", err)
+    check("gram_fwd", err)
     LAUNCHES["gram_fwd"] += 1
     return g
 
@@ -196,11 +140,11 @@ def gram_bwd(f: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
     if not dg.is_contiguous():
         raise ValueError("gram_bwd: dG is not contiguous")
     df = torch.empty_like(f)
-    err = _load().hst_gram_bwd(
+    err = LIBRARY.load().hst_gram_bwd(
         f.data_ptr(), dg.data_ptr(), df.data_ptr(), n, hw, c,
         _DTYPE_CODE[f.dtype], _stream(f.device),
     )
-    _check("gram_bwd", err)
+    check("gram_bwd", err)
     LAUNCHES["gram_bwd"] += 1
     return df
 
@@ -232,12 +176,12 @@ def pooled_gram_fwd(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     splits = math.ceil(hw / rows)
     ws = (torch.empty((n, splits, s, s), device=f.device, dtype=torch.float32)
           if splits > 1 else None)
-    err = _load().hst_pooled_gram_fwd(
+    err = LIBRARY.load().hst_pooled_gram_fwd(
         f.data_ptr(), p.data_ptr(), g.data_ptr(),
         ws.data_ptr() if ws is not None else None,
         n, hw, c, s, splits, rows, _DTYPE_CODE[f.dtype], _stream(f.device),
     )
-    _check("pooled_gram_fwd", err)
+    check("pooled_gram_fwd", err)
     LAUNCHES["pooled_gram_fwd"] += 1
     return g
 

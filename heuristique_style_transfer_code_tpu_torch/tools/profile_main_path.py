@@ -2,18 +2,22 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Two cells, each at full model width with seeded random weights:
+Three cells, each at full model width with seeded random weights:
 
-  classification  family 2, truncate 8, S 7, 224² crops, batch 8, f32
-                  (``run_classification``'s per-batch work)
-  style_transfer  the Adam-on-pixels loop, layers 5, batch 4, f32 and bf16
-                  (``make_style_transfer_optimizer``'s iterations)
+  classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
+                    (``run_classification``'s per-batch work)
+  style_transfer    the Adam-on-pixels loop, layers 5, batch 4, f32 and bf16
+                    (``make_style_transfer_optimizer``'s iterations)
+  fast_style_serve  the classic fast-style net (width 32, 5 residual blocks),
+                    crop 224, batch 8, f32 and bf16: a served batch's work,
+                    uint8 in, ``make_net_job_fn``'s forward, uint8 back
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
 from run to run), and over a short ``torch.profiler`` window the device busy time, the idle share
 (1 - busy / window) and the device time by kernel, the hand-written Gram
-kernels first. Prints one JSON object per cell; writes them all to
+and instance-norm kernels first, with their share of busy. Prints one JSON
+object per cell; writes them all to
 ``chiprun_out/profile_main_path.json`` when that directory exists.
 """
 from __future__ import annotations
@@ -28,10 +32,13 @@ import torch
 from ..core.device import resolve_device
 from ..data.augment import eval_preprocess
 from ..models.gram_attention import gram_attention_apply, gram_attention_init
-from ..ops.kernels import gram as kg
+from ..nn.transformer_net import transformer_net_init
+from ..ops.kernels import build_all
+from ..tasks.fast_style import make_net_job_fn
 from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_transfer_optimizer
 
 GRAM_KERNELS = ("gram_fwd_kernel", "gram_bwd_kernel", "pooled_gram_kernel", "split_reduce_kernel")
+IN_KERNELS = ("in_stats_kernel", "in_finalize_kernel", "in_apply_kernel")
 
 
 def _device_us(evt) -> float:
@@ -63,12 +70,15 @@ def _profile(step, n_steps: int) -> dict:
     busy_ms = sum(r[1] for r in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
     gram = {k: v / 1e3 for k, v, _ in rows if any(g in k for g in GRAM_KERNELS)}
+    norm = {k: v / 1e3 for k, v, _ in rows if any(g in k for g in IN_KERNELS)}
     return {
         "window_ms": window_ms,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / window_ms if busy_ms else None,
         "gram_kernels_ms": gram,
         "gram_share_of_busy": sum(gram.values()) / busy_ms if busy_ms else None,
+        "instance_norm_kernels_ms": norm,
+        "instance_norm_share_of_busy": sum(norm.values()) / busy_ms if busy_ms else None,
         "top_kernels": [{"name": k[:90], "ms": v / 1e3, "count": c} for k, v, c in rows[:12]],
     }
 
@@ -125,12 +135,33 @@ def style_cell(model, dev, dtype) -> dict:
             **{k: v for k, v in _profile(lambda: run(5), 1).items()}, "profiled_iterations": 5}
 
 
+def fast_style_cell(net, dtype) -> dict:
+    job = make_net_job_fn(net, crop=224, compute_dtype=dtype)
+    rng = np.random.RandomState(3)
+    u8 = rng.randint(0, 256, (8, 224, 224, 3)).astype(np.uint8)
+    w = np.ones((8, 1), np.float32)
+    ids = np.arange(8, dtype=np.int32)
+
+    def step():
+        job(u8, w, ids)[0].cpu()
+
+    step()
+    runs = _timed(step, 10)
+    ms = float(np.median(runs))
+    return {"cell": "fast_style_serve", "width": 32, "n_res": 5, "crop": 224, "batch": 8,
+            "dtype": str(dtype or torch.float32).split(".")[1], "step_ms": ms,
+            "step_ms_runs": runs, "images_per_s": 8 / ms * 1e3, **_profile(step, 3),
+            "profiled_steps": 3}
+
+
 def main() -> None:
     dev = resolve_device("cuda")
     model = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, 7, device=dev)
-    kg.build()
+    net = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5, device=dev)
+    build_all()
     cells = [classification_cell(model, dev), style_cell(model, dev, None),
-             style_cell(model, dev, torch.bfloat16)]
+             style_cell(model, dev, torch.bfloat16), fast_style_cell(net, None),
+             fast_style_cell(net, torch.bfloat16)]
     for c in cells:
         print(json.dumps(c))
     if os.path.isdir("chiprun_out"):
