@@ -9,7 +9,9 @@ Phases, all run every time:
   kernels         hold gram_fwd, gram_bwd and pooled_gram_fwd against their
                   plain PyTorch versions at the main path's shapes in f32
                   and bf16, on non-negative inputs as the main path's
-                  post-ReLU features are; instance_norm_fwd likewise at the
+                  post-ReLU features are (gram_fwd also at two ragged
+                  shapes; each gram_fwd row names its route and HW
+                  splits); instance_norm_fwd likewise at the
                   fast-style net's shapes (B = 8, with and without ReLU,
                   per-image affine rows that differ), at C = 48, C = 5,
                   (1,512,512,32) bf16 and on channels of mean 1e3, on signed
@@ -73,6 +75,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_IN = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-3)}
 
 GRAM_SHAPES = [(4, 56, 56, 64), (4, 56, 56, 256), (4, 7, 7, 2048)]  # layers 4, 5, 8
+# gram_fwd only: C not a multiple of 64, HW not of 64 (TMA's zero fill, the
+# clipped stores, a partial diagonal tile)
+RAGGED_GRAM_SHAPES = [(1, 13, 11, 200), (2, 7, 7, 48)]
 POOLED_SHAPES = [(8, 56, 56, 256), (8, 28, 28, 512), (8, 14, 14, 1024), (8, 7, 7, 2048)]
 POOL_S = 7
 DEVICE = "cuda"
@@ -161,33 +166,44 @@ def phase_kernels(kg, peaks) -> dict:
         ok = bool(torch.isfinite(got.float()).all()) and rel <= tol and rms <= tol
         return err, rel, rms, ok
 
-    def features(shape, dtype):
+    def features(shape, dtype, generator=gen):
         """Post-ReLU-like features: non-negative, so the Gram's off-diagonal
         entries are of the same order as its diagonal."""
-        return torch.relu(torch.randn(shape, device=dev, generator=gen)).to(dtype)
+        return torch.relu(torch.randn(shape, device=dev, generator=generator)).to(dtype)
+
+    # the ragged shapes draw from their own generator, so the main shapes'
+    # inputs stay those of the runs before they were added
+    gen_ragged = torch.Generator(device=dev).manual_seed(2)
 
     from heuristique_style_transfer_code_tpu_torch.ops.pooling import adaptive_pool_matrix
 
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         dname = str(dtype).split(".")[1]
-        for (n, h, w, c) in GRAM_SHAPES:
+        for (n, h, w, c) in GRAM_SHAPES + RAGGED_GRAM_SHAPES:
             hw = h * w
-            f = features((n, hw, c), dtype)
-            # the style loss's cotangent 2(G - target)/C² is signed
-            dg = torch.randn((n, c, c), device=dev, generator=gen).to(dtype)
+            main = (n, h, w, c) in GRAM_SHAPES
+            f = features((n, hw, c), dtype, gen if main else gen_ragged)
             # forward
             err, rel, rms, ok = check(kg.gram_fwd(f), kg.gram_fwd_plain(f), dtype)
             out = torch.empty((n, c, c), device=dev, dtype=dtype)
             ft = f.transpose(1, 2)
-            bound, by = _bound(2.0 * n * hw * c * c, (n * hw * c + n * c * c) * es, dtype, peaks)
+            route, _, splits, _ = kg.gram_fwd_plan_for(f)
+            # the work that is needed: G's C(C+1)/2 distinct entries
+            bound, by = _bound(1.0 * n * hw * c * (c + 1), (n * hw * c + n * c * c) * es,
+                               dtype, peaks)
             rows["gram_fwd"].append(dict(
-                shape=[n, h, w, c], dtype=dname, max_abs_err=err, rel_err=rel, rms_err=rms,
-                tol=TOL[dname],
+                shape=[n, h, w, c], dtype=dname, route=route, splits=splits, max_abs_err=err,
+                rel_err=rel, rms_err=rms, tol=TOL[dname],
                 ok=ok, ms=_time_ms(lambda: kg.gram_fwd(f)),
                 plain_ms=_time_ms(lambda: kg.gram_fwd_plain(f)),
                 library_ms=_time_ms(lambda: torch.baddbmm(out, ft, f, beta=0, alpha=1.0 / hw)),
                 bound_ms=bound, bound_by=by))
+            if not main:
+                del f, out, ft
+                continue
+            # the style loss's cotangent 2(G - target)/C² is signed
+            dg = torch.randn((n, c, c), device=dev, generator=gen).to(dtype)
             # backward
             err, rel, rms, ok = check(kg.gram_bwd(f, dg), kg.gram_bwd_plain(f, dg), dtype)
             bound, by = _bound(2.0 * n * hw * c * c + n * c * c,
@@ -220,7 +236,8 @@ def phase_kernels(kg, peaks) -> dict:
             del f
     for name, rs in rows.items():
         for r in rs:
-            print(f"[kernels] {name} {r['dtype']} {tuple(r['shape'])}: max_abs_err={r['max_abs_err']:.3e} "
+            route = f" route={r['route']} splits={r['splits']}" if "route" in r else ""
+            print(f"[kernels] {name} {r['dtype']} {tuple(r['shape'])}{route}: max_abs_err={r['max_abs_err']:.3e} "
                   f"rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [(name, r["dtype"], r["shape"]) for name, rs in rows.items() for r in rs if not r["ok"]]

@@ -11,21 +11,48 @@
 // nothing: the wrapper passes every output and scratch buffer in. Each C
 // entry returns cudaGetLastError() so that a refused launch is seen.
 //
-// Sums are deterministic: a split of the HW axis writes f32 partials to a
-// scratch buffer and a second pass adds them in split order (no atomics).
+// Sums are deterministic and no sum is taken with atomics: gram_fwd adds
+// the partials of its HW splits in split order within a thread-block
+// cluster; pooled_gram_fwd writes them to a scratch buffer and a second
+// pass adds them in split order.
 //
 // ---------------------------------------------------------------------------
 // gram_fwd replaces heuristique_style_transfer_code_tpu/ops/pallas/
-// gram_kernel.py::gram_pallas (pallas_call at :60). Bound on an H100: the
-// exact f32 path does 2*N*HW*C^2 FMA-operations without TF32, so it is bound
-// by the 67 TFLOP/s f32 rate (about 25 us at (4,56,56,256)); bf16 inputs are
-// bound by bytes or the tensor-core rate. Design: the Pallas kernel ran one
-// grid program per image, which lost to XLA's batched einsum; here ONE
-// launch covers all N images as a grid of 64x64 output tiles per image,
-// HW streamed through shared memory 16 rows at a time, 4x4 outputs per
-// thread in registers. When tiles x N would leave most of the 132 SMs idle
-// (C = 64 or 256 at small N), HW is split across blocks and reduced in a
-// second pass. wgmma/TMA and the symmetry of G are left for later work.
+// gram_kernel.py::gram_pallas (pallas_call at :60). G is symmetric, so the
+// work that is needed is its C(C+1)/2 distinct entries: N*HW*C*(C+1)
+// operations. What bounds it on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16,
+// 67 TFLOP/s f32 without TF32) at the main path's shapes:
+//   (4,56,56,256) bf16  bytes: 6.95 MB, 2.1 us (operations 0.8 us)
+//   (4,56,56,256) f32   operations: 0.83 GFLOP, 12.3 us (bytes 4.1 us)
+//   (4,7,7,2048)  bf16  bytes: 33.5 MB of output, 10.3 us
+//   (4,7,7,2048)  f32   bytes: 67 MB of output, 20.5 us (operations 12.3 us)
+//   (4,56,56,64)        bytes: 1.6 MB (bf16), 3.3 MB (f32), under 1 us
+// Design. One launch covers every image. A block computes one 64x64 tile
+// (bi <= bj) of the upper triangle for one image and one split of HW; a
+// diagonal tile loads its operand once and uses it as both. The epilogue
+// stages the tile in shared memory and writes it to (bi, bj) and its
+// transpose to (bj, bi) with TMA or 16-byte row stores, so every output
+// byte is written once, coalesced. Where the tiles leave the SMs idle
+// (C = 64 or 256 at N = 4), HW is split over the blocks of a cluster, which
+// reduce their partials through distributed shared memory (below): one
+// launch, no scratch in device memory. Two mainloops:
+//   wgmma (bf16, C % 8 == 0, 16-byte-aligned F): a producer warp issues TMA
+//     loads (3-D map over (C, HW, N), 64 channels x 64 or 128 rows a box,
+//     128-byte swizzle, zeros past HW and C) into a ring of stages on
+//     mbarriers; one consumer warpgroup runs wgmma.m64n64k16 with both
+//     operands MN-major (A = F^T, B = F) and releases each stage when the
+//     group that read it retires. The epilogue's tiles leave by TMA stores.
+//   ffma (f32, and bf16 that TMA cannot take): 256 threads, 4x4 outputs
+//     each from float4 shared-memory reads, 16 HW rows per stage through a
+//     4-stage ring of 16-byte cp.async copies (scalar loads where C % 4 != 0
+//     or for bf16). f32 stays off the tensor cores: TF32 would break the
+//     1e-4 parity with the JAX f32 path.
+// What the card showed (PERF.md, Findings): each mainloop stage pays a fixed
+// cost in barrier wait and release, so wgmma stages hold 128 rows (8
+// wgmmas) where HW allows; at (4,56,56,256) the 64x64 tiles pull about 25 MB
+// from L2 (from the shapes), which bounds the bf16 kernel there (128x128
+// tiles halve that but lost more in their reduction); a division per output
+// entry took its slow path, so the epilogue multiplies by one reciprocal.
 //
 // gram_bwd is the VJP the style loop needs every iteration (JAX derives it
 // by autodiff of the einsum). Same tiling over (HW, C) output tiles, the
@@ -43,10 +70,12 @@
 // few images still fill the SMs; the second pass adds the splits in order.
 // ---------------------------------------------------------------------------
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -73,22 +102,204 @@ constexpr int BK = 16;         // contraction rows per shared-memory stage
 constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr int PAD = TILE + 1;  // row pitch that spreads transposed stores over banks
 
-// One (i, j) tile of G for image n over the HW rows [k_begin, k_end).
+// (bi, bj), bi <= bj, of upper-triangle tile t, numbered t = bj (bj + 1) / 2 + bi
+// (ops/kernels/gram.py _triangle_tile mirrors it).
+__device__ __forceinline__ void tri_tile(int t, int& bi, int& bj) {
+  int j = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  if ((j + 1) * (j + 2) / 2 <= t) ++j;
+  if (j * (j + 1) / 2 > t) --j;
+  bj = j;
+  bi = t - j * (j + 1) / 2;
+}
+
+// ---- split reduction over a thread-block cluster ---------------------------
+// The blocks of one tile's HW splits form one cluster (1, splits, 1), so the
+// split index is the block's rank in it. The tile is cut into one sub-block
+// per split; block r owns sub-block r. After its mainloop every block stores
+// each sub-block of its f32 partial into slot `split` of the owner's receive
+// buffer (distributed shared memory), one cluster barrier makes them visible,
+// and each owner adds its slots in split order (deterministic, no atomics, no
+// scratch in device memory, one launch) and writes its sub-block and mirror.
+constexpr int MAX_SPLITS = 16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// Splits s = 1, 2, 4, 8, 16 cut the 64 x 64 tile into sr x sc sub-blocks of
+// br x bc = (64 / sr) x (64 / sc): at least 16 x 16, so every row of a
+// sub-block and of its mirror is a whole number of 16-byte stores. All are
+// powers of two, so owners and offsets are shifts and masks.
+struct SubGrid {
+  int lsc, lbr, lbc;  // log2 of sc, br, bc
+  int br, bc;
+  __host__ __device__ explicit SubGrid(int splits) {
+    int ls = 0;  // log2 of splits
+    while ((1 << ls) < splits) ++ls;
+    const int lsr = ls >= 3 ? 2 : (ls >= 1 ? 1 : 0);
+    lsc = ls - lsr;
+    lbr = 6 - lsr;
+    lbc = 6 - lsc;
+    br = 1 << lbr;
+    bc = 1 << lbc;
+  }
+  __host__ __device__ int row0(int split) const { return (split >> lsc) << lbr; }
+  __host__ __device__ int col0(int split) const { return (split & ((1 << lsc) - 1)) << lbc; }
+};
+
+// Stores N = 2 or 4 partial columns (row, col..col + N) of split `split`,
+// v.x.., into the receive buffer [splits][br][bc] of the block that owns them.
+template <int N>
+__device__ __forceinline__ void push_partial(float* recv, const SubGrid& sg, int split, int row,
+                                             int col, float4 v) {
+  const int owner = ((row >> sg.lbr) << sg.lsc) + (col >> sg.lbc);
+  const float* slot =
+      recv + (((split << sg.lbr) + (row & (sg.br - 1))) << sg.lbc) + (col & (sg.bc - 1));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(slot)), "r"(owner));
+  if constexpr (N == 4) {
+    asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "f"(v.x),
+                 "f"(v.y), "f"(v.z), "f"(v.w)
+                 : "memory");
+  } else {
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(remote), "f"(v.x), "f"(v.y)
+                 : "memory");
+  }
+}
+
+// After the cluster barrier: adds the received slots in split order and
+// hands each sum of 4 columns to out(row, col), relative to the sub-block.
+template <typename Out>
+__device__ __forceinline__ void sum_received(const float* recv, const SubGrid& sg, int splits,
+                                             Out out) {
+  const int lq = sg.lbc - 2;  // log2 of the float4s in a sub-block row
+  const int slot = sg.br * sg.bc;
+  for (int e = threadIdx.x; e < slot / 4; e += blockDim.x) {
+    const float* p = recv + 4 * e;
+    float4 s = *reinterpret_cast<const float4*>(p);
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 v = *reinterpret_cast<const float4*>(p + sp * slot);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out(e >> lq, 4 * (e & ((1 << lq) - 1)), s);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Writes the staged f32 block s (rows x cols, pitch cols + 1) to G at
+// (r0, c0), or its transpose (cols x rows), 16 bytes per store along G's
+// rows where C allows it.
 template <typename T>
+__device__ __forceinline__ void store_block(const float* s, int rows, int cols, T* g, int c,
+                                            int r0, int c0, bool transpose) {
+  constexpr int V = 16 / sizeof(T);
+  const int pitch = cols + 1;
+  const int out_rows = transpose ? cols : rows;
+  const int out_cols = transpose ? rows : cols;
+  auto at = [&](int r, int cc) { return transpose ? s[cc * pitch + r] : s[r * pitch + cc]; };
+  if (c % V == 0) {
+    const int chunks = out_cols / V;
+    for (int e = threadIdx.x; e < out_rows * chunks; e += blockDim.x) {
+      const int r = e / chunks;
+      const int q = e % chunks;
+      const int row = r0 + r;
+      const int col = c0 + q * V;
+      if (row >= c || col >= c) continue;
+      alignas(16) T v[V];
+#pragma unroll
+      for (int m = 0; m < V; ++m) v[m] = from_f32<T>(at(r, q * V + m));
+      *reinterpret_cast<uint4*>(g + static_cast<size_t>(row) * c + col) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  } else {
+    for (int e = threadIdx.x; e < out_rows * out_cols; e += blockDim.x) {
+      const int r = e / out_cols;
+      const int cc = e % out_cols;
+      if (r0 + r < c && c0 + cc < c)
+        g[static_cast<size_t>(r0 + r) * c + c0 + cc] = from_f32<T>(at(r, cc));
+    }
+  }
+}
+
+// ---- ffma route -------------------------------------------------------------
+constexpr int FFMA_STAGES = 4;  // cp.async ring: 3 stages in flight during the FMAs
+
+// One triangle tile (blockIdx.x) of image blockIdx.z over split blockIdx.y
+// of HW. ASYNC: f32 with C % 4 == 0 and a 16-byte-aligned F, loaded by
+// cp.async; otherwise (bf16, ragged C) scalar loads through the same ring.
+// SPLIT: more than one split, reduced over the cluster.
+template <typename T, bool ASYNC, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
-gram_fwd_kernel(const T* __restrict__ f, T* __restrict__ g, float* __restrict__ ws,
-                int hw, int c, int splits, int rows_per_split) {
-  __shared__ float As[BK][TILE];
-  __shared__ float Bs[BK][TILE];
-  const int n = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int i0 = blockIdx.y * TILE;
-  const int j0 = blockIdx.x * TILE;
+gram_fwd_kernel(const T* __restrict__ f, T* __restrict__ g, int hw, int c, int splits,
+                int rows_per_split) {
+  // the ring [FFMA_STAGES][2][BK][TILE] (after the mainloop: the staged
+  // output block), then for SPLIT the receive buffer: 48 KB in all
+  constexpr int RING = FFMA_STAGES * 2 * BK * TILE;
+  static_assert(RING >= TILE * PAD, "the staged tile reuses the ring");
+  __shared__ __align__(16) float smem[RING + (SPLIT ? TILE * TILE : 0)];
+  const int t = blockIdx.x;
+  const int split = blockIdx.y;
+  const int n = blockIdx.z;
+  int bi, bj;
+  tri_tile(t, bi, bj);
+  const bool diag = bi == bj;
+  const int i0 = bi * TILE;
+  const int j0 = bj * TILE;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int k_begin = split * rows_per_split;
-  const int k_end = min(hw, k_begin + rows_per_split);
+  const int k_end = split == splits - 1 ? hw : min(hw, k_begin + rows_per_split);
+  const int stages = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const T* fn = f + static_cast<size_t>(n) * hw * c;
+  auto As = [&](int buf) { return smem + buf * 2 * BK * TILE; };
+  auto Bs = [&](int buf) { return diag ? As(buf) : As(buf) + BK * TILE; };  // diagonal: B = A
+
+  auto load = [&](int st) {
+    float* a = As(st % FFMA_STAGES);
+    float* b = a + BK * TILE;
+    const int k0 = k_begin + st * BK;
+    if constexpr (ASYNC) {  // one 16-byte chunk per thread and operand
+      const int kk = threadIdx.x / 16;
+      const int col = 4 * (threadIdx.x % 16);
+      const int k = k0 + kk;
+      const bool kin = k < k_end;
+      const bool ain = kin && i0 + col < c;
+      const bool bin = kin && j0 + col < c;
+      cp_async16(a + kk * TILE + col, ain ? fn + static_cast<size_t>(k) * c + i0 + col : fn, ain);
+      if (!diag)
+        cp_async16(b + kk * TILE + col, bin ? fn + static_cast<size_t>(k) * c + j0 + col : fn, bin);
+    } else {
+      for (int e = threadIdx.x; e < BK * TILE; e += THREADS) {
+        const int kk = e / TILE;
+        const int col = e % TILE;
+        const int k = k0 + kk;
+        const bool kin = k < k_end;
+        const size_t row = static_cast<size_t>(k) * c;
+        a[e] = (kin && i0 + col < c) ? to_f32(fn[row + i0 + col]) : 0.f;
+        if (!diag) b[e] = (kin && j0 + col < c) ? to_f32(fn[row + j0 + col]) : 0.f;
+      }
+    }
+  };
+  // every iteration commits one group (empty past the end), so once at most
+  // FFMA_STAGES - 1 groups are pending this stage has landed
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::: "memory"); };
 
   float acc[4][4];
 #pragma unroll
@@ -96,48 +307,328 @@ gram_fwd_kernel(const T* __restrict__ f, T* __restrict__ g, float* __restrict__ 
 #pragma unroll
     for (int s = 0; s < 4; ++s) acc[r][s] = 0.f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int e = threadIdx.x; e < BK * TILE; e += THREADS) {
-      const int kk = e / TILE;
-      const int col = e % TILE;
-      const int k = k0 + kk;
-      const bool kin = k < k_end;
-      const size_t row = static_cast<size_t>(k) * c;
-      As[kk][col] = (kin && i0 + col < c) ? to_f32(fn[row + i0 + col]) : 0.f;
-      Bs[kk][col] = (kin && j0 + col < c) ? to_f32(fn[row + j0 + col]) : 0.f;
-    }
+#pragma unroll
+  for (int st = 0; st < FFMA_STAGES - 1; ++st) {
+    if (st < stages) load(st);
+    commit();
+  }
+  for (int st = 0; st < stages; ++st) {
+    if (st + FFMA_STAGES - 1 < stages) load(st + FFMA_STAGES - 1);
+    commit();
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(FFMA_STAGES - 1) : "memory");
     __syncthreads();
+    const float* a = As(st % FFMA_STAGES);
+    const float* b = Bs(st % FFMA_STAGES);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = As[kk][ty + 16 * r];
-        b[r] = Bs[kk][tx + 16 * r];
-      }
+      const float4 av4 = *reinterpret_cast<const float4*>(a + kk * TILE + ty * 4);
+      const float4 bv4 = *reinterpret_cast<const float4*>(b + kk * TILE + tx * 4);
+      const float av[4] = {av4.x, av4.y, av4.z, av4.w};
+      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
+        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
     }
     __syncthreads();
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
 
-  const float hwf = static_cast<float>(hw);
+  const float inv = 1.f / static_cast<float>(hw);  // one division, not one per entry
+  T* gn = g + static_cast<size_t>(n) * c * c;
+  if constexpr (!SPLIT) {
+    float* blk = smem;  // the whole tile, pitch PAD
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-    if (i >= c) continue;
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (j >= c) continue;
-      if (splits == 1) {
-        g[(static_cast<size_t>(n) * c + i) * c + j] = from_f32<T>(acc[r][s] / hwf);
-      } else {
-        ws[((static_cast<size_t>(n) * splits + split) * c + i) * c + j] = acc[r][s];
+      for (int s = 0; s < 4; ++s) blk[(ty * 4 + r) * PAD + tx * 4 + s] = acc[r][s] * inv;
+    __syncthreads();
+    store_block<T>(blk, TILE, TILE, gn, c, i0, j0, false);
+    if (!diag) store_block<T>(blk, TILE, TILE, gn, c, j0, i0, true);
+    return;
+  }
+  float* recv = smem + RING;
+  float* blk = smem;  // the reduced sub-block, pitch bc + 1
+  const SubGrid sg(splits);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    push_partial<4>(recv, sg, split, ty * 4 + r, tx * 4,
+                    make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+  cluster_sync();  // every split's partial has reached its owner
+  sum_received(recv, sg, splits, [&](int r, int cq, float4 s) {
+    float* d = blk + r * (sg.bc + 1) + cq;
+    d[0] = s.x * inv;
+    d[1] = s.y * inv;
+    d[2] = s.z * inv;
+    d[3] = s.w * inv;
+  });
+  __syncthreads();
+  const int gr = i0 + sg.row0(split);
+  const int gc = j0 + sg.col0(split);
+  store_block<T>(blk, sg.br, sg.bc, gn, c, gr, gc, false);
+  if (!diag) store_block<T>(blk, sg.br, sg.bc, gn, c, gc, gr, true);
+}
+
+// ---- wgmma route ----------------------------------------------------------
+// A block computes one 64 x 64 tile with one consumer warpgroup (warps 0-3)
+// and a producer warp (warp 4) that issues the TMA loads, so no block
+// barrier sits in the mainloop. A stage holds KROWS HW rows of A =
+// F[k, i0..] and B = F[k, j0..], 128 bytes a row: 64 rows (HW <= 64) or 128,
+// so each barrier wait and release is spread over 4 or 8 wgmmas.
+constexpr int WG = 160;
+constexpr int RING_BYTES = 96 * 1024;        // two blocks fit on an SM
+constexpr int MAX_STAGES = 6;
+constexpr int TILE_BYTES = TILE * TILE * 2;  // one 64 x 64 bf16 tile
+constexpr int RECV_BYTES = TILE * TILE * 4;  // splits x (64 * 64 / splits) f32
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Suspends the thread until the phase completes (the hint bounds the
+// suspension, as CUTLASS's ClusterBarrier::wait does).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity), "r"(0x989680)
+        : "memory");
+  }
+}
+
+// TMA at coordinates (column, row, image) of a 3-D map.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                         int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int x, int y,
+                                          int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a 64 (MN) x 16 (K) bf16 operand stored
+// MN-major with the 128-byte swizzle (CUTLASS make_gmma_desc<GMMA::Major::MN>,
+// LayoutType B128): 8 K rows of 128 bytes form one swizzle atom, so the
+// stride-byte offset (next 8 K rows) is 1024 bytes; the leading-byte offset
+// steps between 64-wide atoms along MN and is unused at MN = 64. The tile
+// base is 1024-byte aligned, so the base offset stays 0.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// D(64x64, f32) += A(64x16) B(16x64), A = F^T and B = F, both MN-major.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads across a wgmma wait.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Byte offset of bf16 element (r, col) in a 64x64 tile of 128-byte rows
+// under the 128-byte swizzle (16-byte chunk index XOR r % 8), as TMA
+// writes and reads it from a 1024-byte-aligned base.
+__device__ __forceinline__ uint32_t sw128(int r, int col) {
+  const int byte = col * 2;
+  return r * 128 + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
+}
+
+// One triangle tile (blockIdx.x) of image blockIdx.z over split blockIdx.y.
+// Accumulator fragment of consumer thread tid: element i sits at row
+// 16 (tid / 32) + (tid % 32) / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (tid % 4) + i % 2. SPLIT: gmap_d and gmap_m store the
+// sub-block (box bc x br) and its mirror (box br x bc); otherwise both are
+// the 128-byte-swizzled 64 x 64 map of G and the epilogue stages straight
+// from the fragments.
+template <bool SPLIT, int KROWS>
+__global__ void __launch_bounds__(WG)
+gram_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap fmap,
+                      const __grid_constant__ CUtensorMap gmap_d,
+                      const __grid_constant__ CUtensorMap gmap_m, int hw, int splits,
+                      int rows_per_split, int stages, int ring_bytes) {
+  constexpr int OPERAND_BYTES = KROWS * TILE * 2;
+  constexpr int STAGE_BYTES = 2 * OPERAND_BYTES;
+  // dynamic shared memory, with no static shared memory before it, starts
+  // 1024-byte aligned as the 128-byte swizzle needs: the ring of stages
+  // (after the mainloop: the output staging), for SPLIT the receive buffer,
+  // then the mbarriers
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw;
+  float* recv = reinterpret_cast<float*>(smem_raw + ring_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + ring_bytes + (SPLIT ? RECV_BYTES : 0));
+  uint64_t* empty = full + MAX_STAGES;  // full: stage landed; empty: stage read by the wgmmas
+  if ((smem_u32(smem_raw) & 1023) != 0) __trap();
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);  // warp-uniform for the compiler
+  const int lane = tid % 32;
+  const int t = blockIdx.x;
+  const int split = blockIdx.y;
+  const int n = blockIdx.z;
+  int bi, bj;
+  tri_tile(t, bi, bj);
+  const bool diag = bi == bj;
+  const int i0 = bi * TILE;
+  const int j0 = bj * TILE;
+  const int k_begin = split * rows_per_split;
+  const int k_end = split == splits - 1 ? hw : min(hw, k_begin + rows_per_split);
+  const int nkb = k_end > k_begin ? (k_end - k_begin + KROWS - 1) / KROWS : 0;
+  if (nkb > stages && stages < 2) __trap();  // the ring could not turn over
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  if (warp == 4) {
+    // producer: keeps up to `stages` blocks of KROWS HW rows in flight; rows
+    // past HW (the last block of a split that ends HW) arrive as zeros
+    if (lane == 0) {
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % stages;
+        if (kb >= stages) mbar_wait(&empty[s], (kb / stages - 1) & 1);
+        uint8_t* a = ring + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], diag ? OPERAND_BYTES : STAGE_BYTES);
+        tma_load(a, &fmap, &full[s], i0, k_begin + kb * KROWS, n);
+        if (!diag) tma_load(a + OPERAND_BYTES, &fmap, &full[s], j0, k_begin + kb * KROWS, n);
       }
     }
+  } else {
+    // consumers: one wgmma group per stage; a stage goes back to the producer
+    // once the group after it has been issued and it has retired
+    fence_acc(acc);
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = kb % stages;
+      mbar_wait(&full[s], (kb / stages) & 1);
+      const uint32_t a = smem_u32(ring + s * STAGE_BYTES);
+      const uint32_t b = diag ? a : a + OPERAND_BYTES;  // a diagonal tile is its own B
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k16 = 0; k16 < KROWS / 16; ++k16)
+        wgmma_m64n64k16(acc, desc_mn_sw128(a + k16 * 2048), desc_mn_sw128(b + k16 * 2048));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (kb >= 1 && lane == 0) mbar_arrive(&empty[(kb - 1) % stages]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+  __syncthreads();  // every wgmma has retired and every stage has landed: the ring is free
+
+  const float inv = 1.f / static_cast<float>(hw);  // one division, not one per entry
+  if constexpr (!SPLIT) {  // G[i0.., j0..] and its transpose, swizzled
+    uint8_t* direct = ring;
+    uint8_t* mirror = ring + TILE_BYTES;
+    if (warp < 4) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+        const int col = 8 * (i >> 2) + 2 * (lane & 3);
+        const __nv_bfloat16 lo = __float2bfloat16(acc[i] * inv);
+        const __nv_bfloat16 hi = __float2bfloat16(acc[i + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(direct + sw128(row, col)) = __halves2bfloat162(lo, hi);
+        if (!diag) {
+          *reinterpret_cast<__nv_bfloat16*>(mirror + sw128(col, row)) = lo;
+          *reinterpret_cast<__nv_bfloat16*>(mirror + sw128(col + 1, row)) = hi;
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {  // rows and columns past a ragged C are clipped
+      tma_store(&gmap_d, direct, j0, i0, n);
+      if (!diag) tma_store(&gmap_d, mirror, i0, j0, n);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    return;
+  }
+  const SubGrid sg(splits);
+  if (warp < 4) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + 2 * (lane & 3);
+      push_partial<2>(recv, sg, split, row, col, make_float4(acc[i], acc[i + 1], 0.f, 0.f));
+    }
+  }
+  cluster_sync();  // every split's partial has reached its owner
+  __nv_bfloat16* direct = reinterpret_cast<__nv_bfloat16*>(ring);  // [br][bc]
+  __nv_bfloat16* mirror = direct + sg.br * sg.bc;                    // [bc][br]
+  sum_received(recv, sg, splits, [&](int r, int cq, float4 s) {
+    const float v[4] = {s.x * inv, s.y * inv, s.z * inv, s.w * inv};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const __nv_bfloat16 h = __float2bfloat16(v[m]);
+      direct[r * sg.bc + cq + m] = h;
+      mirror[(cq + m) * sg.br + r] = h;
+    }
+  });
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {  // rows and columns past a ragged C are clipped
+    const int gr = i0 + sg.row0(split);
+    const int gc = j0 + sg.col0(split);
+    tma_store(&gmap_d, direct, gc, gr, n);
+    if (!diag) tma_store(&gmap_m, mirror, gr, gc, n);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -322,18 +813,123 @@ cudaError_t launch_reduce(const float* ws, T* out, int m, int splits, int n, flo
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t gram_fwd(const void* f, void* g, void* ws, int n, int hw, int c, int splits,
-                     int rows_per_split, cudaStream_t stream) {
-  const unsigned tiles = static_cast<unsigned>((c + TILE - 1) / TILE);
-  const dim3 grid(tiles, tiles, static_cast<unsigned>(n * splits));
-  gram_fwd_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(f), static_cast<T*>(g), static_cast<float*>(ws), hw, c, splits,
-      rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  return launch_reduce<T>(static_cast<const float*>(ws), static_cast<T*>(g), c * c, splits, n,
-                          static_cast<float>(hw), stream);
+// Launch with the split axis as a cluster (1, splits, 1); above 8 blocks a
+// cluster is non-portable and has to be allowed per kernel.
+template <typename Kernel, typename... Args>
+cudaError_t launch_clustered(Kernel kernel, dim3 grid, int threads, size_t smem, int splits,
+                             cudaStream_t stream, Args... args) {
+  if (splits > 8) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = static_cast<unsigned>(splits);
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, bool ASYNC>
+cudaError_t gram_fwd_ffma(const void* f, void* g, int n, int hw, int c, int n_tri, int splits,
+                          int rows_per_split, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(n_tri), static_cast<unsigned>(splits),
+                  static_cast<unsigned>(n));
+  const T* fp = static_cast<const T*>(f);
+  T* gp = static_cast<T*>(g);
+  if (splits == 1)
+    return launch_clustered(gram_fwd_kernel<T, ASYNC, false>, grid, THREADS, 0, 1, stream, fp, gp,
+                            hw, c, 1, rows_per_split);
+  return launch_clustered(gram_fwd_kernel<T, ASYNC, true>, grid, THREADS, 0, splits, stream, fp,
+                          gp, hw, c, splits, rows_per_split);
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda; looked up once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 3-D map over a (depth, rows, inner) bf16 array, inner contiguous, with a
+// box of box_inner x box_rows x 1; zeros are read and nothing is written out
+// of bounds.
+bool encode_bf16(CUtensorMap* map, const void* base, int inner, int rows, int depth,
+                 int box_inner, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner) * rows * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 only; TMA needs 16-byte global strides and base addresses, and the
+// splits must start on a stage boundary. A tensor map that cannot be
+// encoded is reported as cudaErrorInvalidValue.
+template <int KROWS>
+cudaError_t gram_fwd_wgmma(const void* f, void* g, int n, int hw, int c, int n_tri, int splits,
+                           int rows_per_split, cudaStream_t stream) {
+  if (c % 8 != 0 || (reinterpret_cast<uintptr_t>(f) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(g) & 15) != 0 || rows_per_split % KROWS != 0)
+    return cudaErrorInvalidValue;
+  const bool split = splits > 1;
+  const SubGrid sg(splits);
+  CUtensorMap fmap, gmap_d, gmap_m;
+  if (!encode_bf16(&fmap, f, c, hw, n, TILE, KROWS, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  if (split ? !encode_bf16(&gmap_d, g, c, c, n, sg.bc, sg.br, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+                  !encode_bf16(&gmap_m, g, c, c, n, sg.br, sg.bc, CU_TENSOR_MAP_SWIZZLE_NONE)
+            : !encode_bf16(&gmap_d, g, c, c, n, TILE, TILE, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  if (!split) gmap_m = gmap_d;
+  const int stage_bytes = 2 * KROWS * TILE * 2;
+  // the longest split (the last takes the rest of HW) sets the ring's depth;
+  // a split of two or more blocks needs two stages or more
+  const int longest = max(min(rows_per_split, hw), hw - (splits - 1) * rows_per_split);
+  const int blocks = (longest + KROWS - 1) / KROWS;
+  const int stages = min(min(MAX_STAGES, RING_BYTES / stage_bytes), blocks);
+  const int ring_bytes = max(stages * stage_bytes, 2 * TILE_BYTES);  // and the output staging
+  const size_t smem = static_cast<size_t>(ring_bytes) + (split ? RECV_BYTES : 0) +
+                      2 * MAX_STAGES * sizeof(uint64_t);
+  const auto kernel =
+      split ? gram_fwd_wgmma_kernel<true, KROWS> : gram_fwd_wgmma_kernel<false, KROWS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(n_tri), static_cast<unsigned>(splits),
+                  static_cast<unsigned>(n));
+  return launch_clustered(kernel, grid, WG, smem, splits, stream, fmap, gmap_d, gmap_m, hw, splits,
+                          rows_per_split, stages, ring_bytes);
 }
 
 template <typename T>
@@ -370,11 +966,26 @@ cudaError_t pooled_gram_fwd(const void* f, const void* p, void* g, void* ws, int
 // dtype: 0 = float32, 1 = bfloat16. Every entry returns a cudaError_t as int.
 extern "C" {
 
-int hst_gram_fwd(const void* f, void* g, void* ws, int n, int hw, int c, int splits,
-                 int rows_per_split, int dtype, void* stream) {
+// route: 0 = ffma, 1 = wgmma (bf16 only; stages of 128 HW rows when HW > 64,
+// so rows_per_split must then be a multiple of 128); splits: 1, 2, 4, 8 or 16.
+int hst_gram_fwd(const void* f, void* g, int n, int hw, int c, int splits, int rows_per_split,
+                 int route, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return gram_fwd<float>(f, g, ws, n, hw, c, splits, rows_per_split, st);
-  return gram_fwd<__nv_bfloat16>(f, g, ws, n, hw, c, splits, rows_per_split, st);
+  if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) != 0)
+    return cudaErrorInvalidValue;
+  const int side = (c + TILE - 1) / TILE;
+  const int n_tri = side * (side + 1) / 2;
+  if (route == 1) {
+    if (dtype != 1) return cudaErrorInvalidValue;
+    return hw > 64 ? gram_fwd_wgmma<128>(f, g, n, hw, c, n_tri, splits, rows_per_split, st)
+                   : gram_fwd_wgmma<64>(f, g, n, hw, c, n_tri, splits, rows_per_split, st);
+  }
+  if (dtype == 1)
+    return gram_fwd_ffma<__nv_bfloat16, false>(f, g, n, hw, c, n_tri, splits, rows_per_split,
+                                               st);
+  if (c % 4 == 0 && (reinterpret_cast<uintptr_t>(f) & 15) == 0)
+    return gram_fwd_ffma<float, true>(f, g, n, hw, c, n_tri, splits, rows_per_split, st);
+  return gram_fwd_ffma<float, false>(f, g, n, hw, c, n_tri, splits, rows_per_split, st);
 }
 
 int hst_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int dtype,

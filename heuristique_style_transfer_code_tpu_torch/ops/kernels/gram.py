@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -24,8 +24,11 @@ KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODE = {"ffma": 0, "wgmma": 1}
 _TILE = 64  # gram_fwd output tile edge (csrc/gram.cu TILE)
-_BK = 16  # gram_fwd rows per shared-memory stage (csrc/gram.cu BK)
+_FFMA_STAGE_ROWS = 16  # csrc/gram.cu BK
+_MAX_SPLITS = 16  # csrc/gram.cu MAX_SPLITS: one cluster per tile
+_MIN_SPLIT_ROWS = 128  # gram_fwd splits HW no finer than this
 _PG_WARPS = 8  # pooled_gram_fwd warps per block (csrc/gram.cu PG_WARPS)
 MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S
 _MAX_SMEM = 200 * 1024  # dynamic shared memory left for P (S x C f32)
@@ -33,7 +36,7 @@ _MAX_SMEM = 200 * 1024  # dynamic shared memory left for P (S x C f32)
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hst_gram_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.hst_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
     lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, p]
     lib.hst_pooled_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
     for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd):
@@ -101,25 +104,75 @@ def pooled_gram_fwd_plain(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ kernels
 
 
+def _gram_fwd_plan(n: int, hw: int, c: int, sms: int, dtype: torch.dtype,
+                   aligned: bool = True) -> Tuple[str, int, int, int]:
+    """How ``gram_fwd`` launches on an (n, hw, c) input: (route, tiles,
+    splits, rows_per_split).
+
+    route: "wgmma" for bf16 with C % 8 == 0 on a 16-byte-aligned pointer
+    (TMA needs 16-byte strides), else "ffma". tiles: the 64x64 tiles
+    (bi <= bj) of one image's upper triangle, numbered as
+    ``_triangle_tile``. splits: a power of two up to 16, the blocks of one
+    tile's cluster; HW is split until the blocks reach the SM count (wgmma,
+    whose blocks fit two to an SM) or twice it (ffma), keeping at least 128
+    rows a split. ``_split_rows`` gives each split's rows: rows_per_split
+    each, a whole number of the route's stages (csrc/gram.cu BK, KROWS), and
+    the last split the rest of HW."""
+    route = "wgmma" if dtype == torch.bfloat16 and c % 8 == 0 and aligned else "ffma"
+    side = -(-c // _TILE)
+    tiles = side * (side + 1) // 2
+    waves = 1 if route == "wgmma" else 2
+    splits = 1
+    while (splits < _MAX_SPLITS and tiles * n * splits < waves * sms
+           and hw // (2 * splits) >= _MIN_SPLIT_ROWS):
+        splits *= 2
+    step = _FFMA_STAGE_ROWS if route == "ffma" else (64 if hw <= 64 else 128)
+    # round each split's share up or down to whole stages, whichever leaves
+    # the longest split (the last takes the rest) shortest
+    share = hw / splits
+    up = math.ceil(share / step) * step
+    down = max(step, math.floor(share / step) * step) if splits > 1 else up
+    rows = min((up, down), key=lambda r: (max(r, hw - (splits - 1) * r), r))
+    return route, tiles, splits, rows
+
+
+def _split_rows(hw: int, splits: int, rows: int) -> List[Tuple[int, int]]:
+    """[begin, end) of HW rows for each split, as the kernels take them:
+    rows each, the last split the rest (empty where HW ends earlier)."""
+    out = []
+    for s in range(splits):
+        begin = min(hw, s * rows)
+        end = hw if s == splits - 1 else min(hw, begin + rows)
+        out.append((begin, end))
+    return out
+
+
+def _triangle_tile(t: int) -> Tuple[int, int]:
+    """(bi, bj), bi <= bj, of upper-triangle tile t = bj (bj + 1) / 2 + bi,
+    as csrc/gram.cu ``tri_tile`` numbers the blocks."""
+    bj = (math.isqrt(8 * t + 1) - 1) // 2
+    return t - bj * (bj + 1) // 2, bj
+
+
+def gram_fwd_plan_for(f: torch.Tensor) -> Tuple[str, int, int, int]:
+    """``_gram_fwd_plan`` for a CUDA (N, HW, C) tensor."""
+    n, hw, c = f.shape
+    return _gram_fwd_plan(n, hw, c, _sm_count(f.device), f.dtype,
+                          aligned=f.data_ptr() % 16 == 0)
+
+
 def gram_fwd(f: torch.Tensor) -> torch.Tensor:
-    """(N, HW, C) -> (N, C, C). CPU: plain version; CUDA: the kernel."""
+    """(N, HW, C) -> (N, C, C). CPU: plain version; CUDA: the kernel, on
+    the route that ``gram_fwd_plan_for`` picks from dtype, C and alignment."""
     if f.device.type == "cpu":
         return gram_fwd_plain(f)
     _check_input("gram_fwd", f)
     n, hw, c = f.shape
+    route, _, splits, rows = gram_fwd_plan_for(f)
     g = torch.empty((n, c, c), device=f.device, dtype=f.dtype)
-    blocks = math.ceil(c / _TILE) ** 2 * n
-    splits = 1
-    sms = _sm_count(f.device)
-    if blocks < sms:  # too few tiles to fill the SMs: split HW, reduce after
-        splits = max(1, min(math.ceil(2 * sms / blocks), hw // 128))
-    rows = math.ceil(math.ceil(hw / splits) / _BK) * _BK
-    splits = math.ceil(hw / rows)
-    ws = (torch.empty((n, splits, c, c), device=f.device, dtype=torch.float32)
-          if splits > 1 else None)
     err = LIBRARY.load().hst_gram_fwd(
-        f.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
-        n, hw, c, splits, rows, _DTYPE_CODE[f.dtype], _stream(f.device),
+        f.data_ptr(), g.data_ptr(), n, hw, c, splits, rows, _ROUTE_CODE[route],
+        _DTYPE_CODE[f.dtype], _stream(f.device),
     )
     check("gram_fwd", err)
     LAUNCHES["gram_fwd"] += 1

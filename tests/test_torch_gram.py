@@ -110,3 +110,93 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         kgram.gram_bwd(f, torch.empty(2, 8, 8, device="meta"))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kgram.pooled_gram_fwd(f, torch.empty(3, 8, device="meta"))
+
+
+# ------------------------------------------------- gram_fwd launch plan
+# (n, hw, c): the main path's three shapes, then C in {48, 200} by HW in
+# {49, 143} at N = 1, then two that split HW at small C
+_PLAN_SHAPES = [(4, 3136, 64), (4, 3136, 256), (4, 49, 2048),
+                (1, 49, 48), (1, 143, 48), (1, 49, 200), (1, 143, 200),
+                (1, 1024, 80), (2, 4096, 40)]
+_SMS = 132  # the H100 SXM
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_gram_fwd_plan_covers_g_and_hw_once(shape, dtype):
+    """The triangle tiles and their mirrors cover every (i, j) of every
+    image once; the splits cover every HW row once; wgmma exactly for bf16
+    with C % 8 == 0."""
+    n, hw, c = shape
+    route, tiles, splits, rows = kgram._gram_fwd_plan(n, hw, c, _SMS, dtype)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and c % 8 == 0 else "ffma")
+    edge = kgram._TILE
+    side = -(-c // edge)
+    assert tiles == side * (side + 1) // 2
+    cover = np.zeros((n, c, c), np.int32)
+    for img in range(n):  # the grid's z axis: every image gets every tile
+        for t in range(tiles):
+            bi, bj = kgram._triangle_tile(t)
+            assert 0 <= bi <= bj < side
+            rs = slice(bi * edge, (bi + 1) * edge)
+            cs = slice(bj * edge, (bj + 1) * edge)
+            cover[img, rs, cs] += 1
+            if bi != bj:
+                cover[img, cs, rs] += 1
+    assert (cover == 1).all()
+
+    assert splits in (1, 2, 4, 8, 16) and splits <= max(1, hw // 128)
+    step = 16 if route == "ffma" else (64 if hw <= 64 else 128)
+    assert rows % step == 0  # splits start on a stage boundary
+    ranges = kgram._split_rows(hw, splits, rows)
+    assert len(ranges) == splits
+    covered = np.zeros(hw, np.int32)
+    for begin, end in ranges:
+        covered[begin:end] += 1
+    assert (covered == 1).all()
+
+
+def test_gram_fwd_plan_misaligned_bf16_takes_ffma():
+    """TMA needs a 16-byte-aligned base: a misaligned bf16 view goes FFMA."""
+    assert kgram._gram_fwd_plan(2, 100, 64, _SMS, torch.bfloat16)[0] == "wgmma"
+    assert kgram._gram_fwd_plan(2, 100, 64, _SMS, torch.bfloat16, aligned=False)[0] == "ffma"
+
+
+def _assemble_as_kernel(f: torch.Tensor, splits: int, rows: int) -> torch.Tensor:
+    """G built as gram_fwd's blocks build it, in f32: per upper-triangle
+    tile, one plain product per HW split, the splits added in order, scaled
+    by the reciprocal of HW, written to the tile and its mirror."""
+    n, hw, c = f.shape
+    edge = kgram._TILE
+    side = -(-c // edge)
+    inv = torch.tensor(1.0, dtype=torch.float32) / hw
+    g = torch.full((n, c, c), float("nan"), dtype=torch.float32)
+    for img in range(n):
+        for t in range(side * (side + 1) // 2):
+            bi, bj = kgram._triangle_tile(t)
+            rs = slice(bi * edge, (bi + 1) * edge)
+            cs = slice(bj * edge, (bj + 1) * edge)
+            acc = None
+            for begin, end in kgram._split_rows(hw, splits, rows):
+                part = f[img, begin:end, rs].t() @ f[img, begin:end, cs]
+                acc = part if acc is None else acc + part
+            tile = acc * inv
+            g[img, rs, cs] = tile
+            if bi != bj:
+                g[img, cs, rs] = tile.t()
+    return g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7, 7, 48), (1, 13, 11, 200), (1, 32, 32, 80),
+                                   (2, 64, 64, 40)])
+def test_gram_fwd_tiles_and_splits_assemble_g(shape, dtype):
+    """The kernels' decomposition (plan of the given dtype, computed in f32)
+    against the plain version and the JAX XLA Gram on the same input."""
+    n, h, w, c = shape
+    x = np.abs(_x(shape, 5))  # post-ReLU-like: off-diagonal entries matter
+    f = torch.from_numpy(x).reshape(n, h * w, c)
+    _, _, splits, rows = kgram._gram_fwd_plan(n, h * w, c, _SMS, dtype)
+    got = _assemble_as_kernel(f, splits, rows)
+    np.testing.assert_allclose(got.numpy(), kgram.gram_fwd_plain(f).numpy(), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_gram(jnp.asarray(x))), **F32)
