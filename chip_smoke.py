@@ -10,10 +10,11 @@ Phases, all run every time:
                   plain PyTorch versions at the main path's shapes in f32
                   and bf16, on non-negative inputs as the main path's
                   post-ReLU features are (gram_fwd also at two ragged
-                  shapes; each gram_fwd row names its route and HW
-                  splits); instance_norm_fwd likewise at the
-                  fast-style net's shapes (B = 8, with and without ReLU,
-                  per-image affine rows that differ), at C = 48, C = 5,
+                  shapes; pooled_gram_fwd also at three ragged shapes;
+                  each row of both names its route and HW splits);
+                  instance_norm_fwd likewise at the fast-style net's
+                  shapes (B = 8, with and without ReLU, per-image affine
+                  rows that differ), at C = 48, C = 5,
                   (1,512,512,32) bf16 and on channels of mean 1e3, on signed
                   inputs as conv outputs are; time the kernel, the plain
                   version and a library call; compute each bound from the
@@ -80,6 +81,9 @@ GRAM_SHAPES = [(4, 56, 56, 64), (4, 56, 56, 256), (4, 7, 7, 2048)]  # layers 4, 
 RAGGED_GRAM_SHAPES = [(1, 13, 11, 200), (2, 7, 7, 48)]
 POOLED_SHAPES = [(8, 56, 56, 256), (8, 28, 28, 512), (8, 14, 14, 1024), (8, 7, 7, 2048)]
 POOL_S = 7
+# pooled_gram_fwd only, (shape, S): C % S != 0 at odd HW; C % 4 != 0 (the
+# scalar-load path) at the largest S; C < S (a channel in several bins)
+RAGGED_POOLED = [((2, 13, 11, 200), 7), ((1, 9, 7, 203), 16), ((2, 5, 5, 5), 7)]
 DEVICE = "cuda"
 N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
@@ -174,6 +178,7 @@ def phase_kernels(kg, peaks) -> dict:
     # the ragged shapes draw from their own generator, so the main shapes'
     # inputs stay those of the runs before they were added
     gen_ragged = torch.Generator(device=dev).manual_seed(2)
+    gen_pooled_ragged = torch.Generator(device=dev).manual_seed(3)
 
     from heuristique_style_transfer_code_tpu_torch.ops.pooling import adaptive_pool_matrix
 
@@ -216,27 +221,34 @@ def phase_kernels(kg, peaks) -> dict:
                 library_ms=None,  # no single PyTorch call symmetrises dG inside a product
                 bound_ms=bound, bound_by=by))
             del f, dg, out, ft
-        for (n, h, w, c) in POOLED_SHAPES:
+        for (n, h, w, c), s in [(shape, POOL_S) for shape in POOLED_SHAPES] + RAGGED_POOLED:
             hw = h * w
-            s = POOL_S
-            f = features((n, hw, c), dtype)
-            p = adaptive_pool_matrix(c, s, dev)
-            err, rel, rms, ok = check(kg.pooled_gram_fwd(f, p),
-                                      kg.pooled_gram_fwd_plain(f, p), dtype)
-            bound, by = _bound(2.0 * n * hw * c * s + 2.0 * n * hw * s * s,
-                               n * hw * c * es + s * c * 4 + n * s * s * es, dtype, peaks)
-            pl = p.to(dtype)
+            main = (n, h, w, c) in POOLED_SHAPES
+            f = features((n, hw, c), dtype, gen if main else gen_pooled_ragged)
+            err, rel, rms, ok = check(kg.pooled_gram_fwd(f, s),
+                                      kg.pooled_gram_fwd_plain(f, s), dtype)
+            splits, _ = kg._pooled_gram_plan(n, hw, kg._sm_count(dev))
+            route = kg.pooled_gram_route_for(f)
+            # one read of F, one write of G; an add per element, the bin
+            # weights and the S(S+1)/2 distinct products per row
+            bound, by = _bound(1.0 * n * hw * (c + s + s * (s + 1)),
+                               n * hw * c * es + n * s * s * es, dtype, peaks)
+            pl = adaptive_pool_matrix(c, s, dev).to(dtype)
             rows["pooled_gram_fwd"].append(dict(
-                shape=[n, h, w, c], s=s, dtype=dname, max_abs_err=err, rel_err=rel,
-                rms_err=rms, tol=TOL[dname], ok=ok, ms=_time_ms(lambda: kg.pooled_gram_fwd(f, p)),
-                plain_ms=_time_ms(lambda: kg.pooled_gram_fwd_plain(f, p)),
+                shape=[n, h, w, c], s=s, dtype=dname, route=route, splits=splits,
+                max_abs_err=err,
+                rel_err=rel, rms_err=rms, tol=TOL[dname], ok=ok,
+                ms=_time_ms(lambda: kg.pooled_gram_fwd(f, s)),
+                plain_ms=_time_ms(lambda: kg.pooled_gram_fwd_plain(f, s)),
                 # one call, the same contraction without the 1/HW scale of S*S outputs
                 library_ms=_time_ms(lambda: torch.einsum("nkc,oc,nkd,pd->nop", f, pl, f, pl)),
                 bound_ms=bound, bound_by=by))
             del f
     for name, rs in rows.items():
         for r in rs:
-            route = f" route={r['route']} splits={r['splits']}" if "route" in r else ""
+            route = f" S={r['s']}" if "s" in r else ""
+            route += f" route={r['route']}" if "route" in r else ""
+            route += f" splits={r['splits']}" if "splits" in r else ""
             print(f"[kernels] {name} {r['dtype']} {tuple(r['shape'])}{route}: max_abs_err={r['max_abs_err']:.3e} "
                   f"rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")

@@ -4,17 +4,17 @@
 //   gram_fwd         G[n] = F[n]^T F[n] / HW                      (N, C, C)
 //   gram_bwd         dF[n] = F[n] (dG[n] + dG[n]^T) / HW          (N, HW, C)
 //   pooled_gram_fwd  G[n] = (F[n] P^T)^T (F[n] P^T) / HW          (N, S, S)
+//                    with P = adaptive_pool_matrix(C, S), never built
 //
 // F is the (N, HW, C) view of an NHWC activation (C contiguous), f32 or
 // bf16; every sum is taken in f32 and the result is cast to F's type once.
 // Launches go on the caller's stream, never synchronise and allocate
-// nothing: the wrapper passes every output and scratch buffer in. Each C
-// entry returns cudaGetLastError() so that a refused launch is seen.
+// nothing: the wrapper passes every output buffer in. Each C entry returns
+// cudaGetLastError() so that a refused launch is seen.
 //
-// Sums are deterministic and no sum is taken with atomics: gram_fwd adds
-// the partials of its HW splits in split order within a thread-block
-// cluster; pooled_gram_fwd writes them to a scratch buffer and a second
-// pass adds them in split order.
+// Sums are deterministic and no sum is taken with atomics: gram_fwd and
+// pooled_gram_fwd add the partials of their HW splits in split order within
+// a thread-block cluster, in one launch with no scratch in device memory.
 //
 // ---------------------------------------------------------------------------
 // gram_fwd replaces heuristique_style_transfer_code_tpu/ops/pallas/
@@ -60,14 +60,36 @@
 // in shared memory, so the symmetrised matrix never reaches device memory.
 //
 // pooled_gram_fwd replaces gram_kernel.py::pooled_gram_pallas (pallas_call at
-// :100). Bound: bytes (it reads F once; S <= 16 makes it ~S FLOPs/element),
-// about 7.7 us for (8,56,56,256) f32 at 3.35 TB/s. Design: as in the Pallas
-// kernel the (HW, S) projection PF never leaves the chip. P sits in shared
-// memory; each warp projects one row of F at a time (lanes stride over C,
-// coalesced), reduces the S partial sums with a shuffle butterfly (every
-// lane ends with bit-identical sums) and adds the row's S x S outer product
-// into per-lane f32 registers. HW is split across blocks so that layer1's
-// few images still fill the SMs; the second pass adds the splits in order.
+// :100). Bound: bytes. It must read F once, and its work is about one add
+// per element plus S(S+1)/2 FMAs per row: 7.7 us for (8,56,56,256) f32 and
+// 3.8 us in bf16 at 3.35 TB/s, under 1 us at layer4's (8,7,7,2048). Design:
+// P is the adaptive-pooling matrix, whose row o is 1/len on the contiguous
+// bin [floor(o C / S), ceil((o + 1) C / S)), so the kernel computes the bins
+// from (C, S) and never reads P: the projection is S bin sums per row, each
+// times its f32 weight 1/len. One launch: image n's HW rows are split over
+// the blocks of one thread-block cluster (balanced, up to 16, chosen so that
+// N x splits fills the SMs), and a split's rows are one contiguous span of F
+// that the block streams once through a ring of ~20 KB shared-memory stages,
+// each filled by one TMA bulk copy onto an mbarrier (scalar loads where C or
+// the base is not 16-byte aligned). Per stage, each thread sums one (bin,
+// part) of a row from 16-byte groups, the lanes of a warp on the bins of a
+// row so that they read distinct bank groups; the edge groups, which a bin
+// shares with its neighbour, are read again and weighted 0/1 (a long bin, as
+// layer4's 293 channels, is cut into parts added in order). The same barrier
+// that frees a stage lets each thread add its (row group, pair) products of
+// the S(S+1)/2 distinct entries for the stage before. Each block pushes its
+// partial into block 0's shared memory (st.shared::cluster), one cluster
+// barrier follows, and block 0 adds the splits in order, scales by one
+// reciprocal of HW and writes G and its mirror.
+// The first stages' copies go out before the rest of the setup, so their
+// latency hides it.
+// What the card showed (PERF.md, Findings; tools/pooled_gram_phases.py):
+// one TMA copy per row into a padded layout cost more to issue than a
+// stage's work, so a stage is one copy; above the stream alone the
+// per-stage bin sums, latency-bound on 8 warps, are what remain. More
+// threads a block, two rows a thread, larger stages (16-block clusters of
+// more than ~113 KB blocks fit only 7 at a time), and bf16 bin sums on
+// mma.sync from swizzled TMA tiles all lost.
 // ---------------------------------------------------------------------------
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no -lcuda
@@ -632,21 +654,6 @@ gram_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap fmap,
   }
 }
 
-// Second pass of a split sum: out[n, e] = sum over splits of ws[n, split, e],
-// in split order, divided by HW and cast once. m = elements per image.
-template <typename T>
-__global__ void split_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                                    int m, int splits, size_t total, float hwf) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const size_t n = idx / m;
-  const size_t e = idx % m;
-  const float* src = ws + n * splits * m + e;
-  float sum = 0.f;
-  for (int sp = 0; sp < splits; ++sp) sum += src[static_cast<size_t>(sp) * m];
-  out[idx] = from_f32<T>(sum / hwf);
-}
-
 // One (r, j) tile of dF for image n: sum over k of F[r, k] * (dG[k, j] + dG[j, k]).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -721,96 +728,288 @@ gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ dg, T* __restrict
   }
 }
 
+// ---- pooled_gram_fwd --------------------------------------------------------
 constexpr int PG_THREADS = 256;
-constexpr int PG_WARPS = PG_THREADS / 32;
 constexpr int MAX_S = 16;
-constexpr int PAIRS_PER_LANE = MAX_S * MAX_S / 32;
+constexpr int MAX_PAIRS = MAX_S * (MAX_S + 1) / 2;  // distinct entries of a 16 x 16 G
+constexpr int PG_MAX_STAGE_ROWS = 64;
+constexpr int PG_SUMS = PG_MAX_STAGE_ROWS * MAX_S;  // >= rows x S x parts (pooled_gram_launch)
+constexpr int PG_STAGE_BYTES = 20 * 1024;           // rows per stage: as many as fit
+constexpr int PG_MAX_SLOTS = 4;                     // with the static arrays, 2 blocks an SM
+constexpr int PG_MAX_ROW_BYTES = 96 * 1024;         // two one-row stages fit
 
-// Rows [k_begin, k_end) of image n: each warp projects a row onto the S bins
-// and adds the row's outer product; the block then sums its warps in order.
-template <typename T>
-__global__ void __launch_bounds__(PG_THREADS)
-pooled_gram_kernel(const T* __restrict__ f, const float* __restrict__ p, T* __restrict__ g,
-                   float* __restrict__ ws, int hw, int c, int s, int splits,
-                   int rows_per_split) {
-  extern __shared__ float p_s[];  // (S, C) bin-averaging matrix
-  __shared__ float pf_s[PG_WARPS][MAX_S];
-  __shared__ float red_s[PG_WARPS][MAX_S * MAX_S];
-  const int n = blockIdx.y;
-  const int split = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int ss2 = s * s;
-  const int k_begin = split * rows_per_split;
-  const int k_end = min(hw, k_begin + rows_per_split);
-
-  for (int e = threadIdx.x; e < s * c; e += PG_THREADS) p_s[e] = p[e];
-  __syncthreads();
-
-  float acc[PAIRS_PER_LANE];
-  int pa[PAIRS_PER_LANE], pb[PAIRS_PER_LANE];
-#pragma unroll
-  for (int t = 0; t < PAIRS_PER_LANE; ++t) {
-    const int pair = lane + 32 * t;
-    acc[t] = 0.f;
-    pa[t] = pair < ss2 ? pair / s : 0;
-    pb[t] = pair < ss2 ? pair % s : 0;
-  }
-
-  const T* fn = f + static_cast<size_t>(n) * hw * c;
-  for (int k = k_begin + warp; k < k_end; k += PG_WARPS) {
-    const T* row = fn + static_cast<size_t>(k) * c;
-    float part[MAX_S];
-#pragma unroll
-    for (int o = 0; o < MAX_S; ++o) part[o] = 0.f;
-    for (int cc = lane; cc < c; cc += 32) {
-      const float x = to_f32(row[cc]);
-#pragma unroll
-      for (int o = 0; o < MAX_S; ++o)
-        if (o < s) part[o] = fmaf(x, p_s[o * c + cc], part[o]);
-    }
-#pragma unroll
-    for (int o = 0; o < MAX_S; ++o) {
-      if (o < s) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part[o] += __shfl_xor_sync(0xffffffffu, part[o], off);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int o = 0; o < MAX_S; ++o)
-        if (o < s) pf_s[warp][o] = part[o];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < PAIRS_PER_LANE; ++t)
-      if (lane + 32 * t < ss2) acc[t] = fmaf(pf_s[warp][pa[t]], pf_s[warp][pb[t]], acc[t]);
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int t = 0; t < PAIRS_PER_LANE; ++t)
-    if (lane + 32 * t < ss2) red_s[warp][lane + 32 * t] = acc[t];
-  __syncthreads();
-  for (int e = threadIdx.x; e < ss2; e += PG_THREADS) {
-    float sum = 0.f;
-    for (int w = 0; w < PG_WARPS; ++w) sum += red_s[w][e];
-    if (splits == 1) {
-      g[static_cast<size_t>(n) * ss2 + e] = from_f32<T>(sum / static_cast<float>(hw));
-    } else {
-      ws[(static_cast<size_t>(n) * splits + split) * ss2 + e] = sum;
-    }
-  }
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
 }
 
+// Bytes from global memory into shared memory by TMA, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The channels of one 16-byte group of a staged row, as f32 (bf16 widens
+// exactly by a shift).
 template <typename T>
-cudaError_t launch_reduce(const float* ws, T* out, int m, int splits, int n, float hwf,
-                          cudaStream_t stream) {
-  const size_t total = static_cast<size_t>(n) * m;
-  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  split_reduce_kernel<T><<<blocks, 256, 0, stream>>>(ws, out, m, splits, total, hwf);
-  return cudaGetLastError();
+struct Group;
+template <>
+struct Group<float> {
+  static constexpr int V = 4;
+  __device__ static void unpack(uint4 u, float (&x)[4]) {
+    x[0] = __uint_as_float(u.x);
+    x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z);
+    x[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Group<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ static void unpack(uint4 u, float (&x)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// Adds a group's channels into four running sums, channel j into a[j % 4].
+template <typename T>
+__device__ __forceinline__ void add_group(float (&a)[4], uint4 u) {
+  float x[Group<T>::V];
+  Group<T>::unpack(u, x);
+#pragma unroll
+  for (int j = 0; j < Group<T>::V; ++j) a[j & 3] += x[j];
+}
+
+// The same for an edge group: channel j weighted by m[j], 1 inside the bin
+// and 0 outside it.
+template <typename T>
+__device__ __forceinline__ void add_group(float (&a)[4], uint4 u, const float (&m)[Group<T>::V]) {
+  float x[Group<T>::V];
+  Group<T>::unpack(u, x);
+#pragma unroll
+  for (int j = 0; j < Group<T>::V; ++j) a[j & 3] = fmaf(x[j], m[j], a[j & 3]);
+}
+
+// Split i = blockIdx.y (the block's rank in its cluster) of image
+// blockIdx.z: HW / splits rows from i (HW / splits) + min(i, HW % splits),
+// one more for the first HW % splits splits. ASYNC: C * sizeof(T) a multiple of
+// 16 on a 16-byte-aligned F; thread 0 stages each stage's rows, one span of
+// F, with one TMA bulk copy onto the slot's mbarrier. Otherwise every thread
+// stages by scalar loads into the same layout, zeros past C. The dynamic
+// ring holds `slots` stages of stage_rows rows, `pitch` bytes a row.
+// Thread t sums part t % (S parts) % parts of bin t % (S parts) / parts
+// over rows t / (S parts), + row_groups, ... of each stage (the lanes of a
+// warp on the bins of a row read distinct bank groups), and adds the
+// products of pair t % pairs over rows t / pairs, + groups, ... of the stage
+// before.
+template <typename T, bool ASYNC>
+__global__ void __launch_bounds__(PG_THREADS)
+pooled_gram_kernel(const T* __restrict__ f, T* __restrict__ g, int hw, int c, int s, int splits,
+                   int stage_rows, int parts, int row_groups, int pitch, int slots) {
+  extern __shared__ __align__(16) uint8_t pg_ring[];
+  __shared__ float part_s[2][PG_SUMS];             // [stage % 2][row][bin][part]
+  __shared__ float red_s[PG_THREADS];              // [row group][pair] at the end
+  __shared__ float recv[MAX_SPLITS * MAX_PAIRS];   // block 0: [split][pair]
+  __shared__ uint64_t full[PG_MAX_SLOTS];          // ASYNC: a slot's rows have landed
+  __shared__ int bin_lo[MAX_S], bin_hi[MAX_S];
+  __shared__ float bin_w[MAX_S];
+  __shared__ uint16_t pair_s[MAX_PAIRS];
+  using G = Group<T>;
+  constexpr int V = G::V;
+
+  // Every block of the cluster must have started before any writes into
+  // block 0's shared memory: arrive now, wait just before the push.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int tid = threadIdx.x;
+  const int split = blockIdx.y;
+  const int n = blockIdx.z;
+  const int base_rows = hw / splits;
+  const int extra = hw - base_rows * splits;
+  const int k_begin = split * base_rows + min(split, extra);
+  const int k_end = k_begin + base_rows + (split < extra ? 1 : 0);
+  const int stages = (k_end - k_begin + stage_rows - 1) / stage_rows;
+  const size_t row_bytes = static_cast<size_t>(c) * sizeof(T);
+  const uint8_t* fn = reinterpret_cast<const uint8_t*>(f) + static_cast<size_t>(n) * hw * row_bytes;
+  const uint32_t ring = smem_u32(pg_ring);
+  auto slot = [&](int st) { return (st % slots) * stage_rows * pitch; };  // byte offset
+  auto stage_len = [&](int st) { return min(stage_rows, k_end - k_begin - st * stage_rows); };
+  auto load = [&](int st) {  // the stage's rows are one contiguous span of F
+    const int rows = stage_len(st);
+    const uint8_t* src = fn + static_cast<size_t>(k_begin + st * stage_rows) * row_bytes;
+    if constexpr (ASYNC) {  // one bulk copy: the layout is F's own (pitch = row bytes)
+      if (tid != 0) return;
+      uint64_t* bar = &full[st % slots];
+      // the slot's last reads (generic proxy) come before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, static_cast<uint32_t>(rows * row_bytes));
+      bulk_load(ring + slot(st), src, static_cast<uint32_t>(rows * row_bytes), bar);
+    } else {
+      uint8_t* dst = pg_ring + slot(st);
+      const T* sp = reinterpret_cast<const T*>(src);
+      const int width = pitch / static_cast<int>(sizeof(T));
+      for (int i = tid; i < rows * width; i += PG_THREADS) {
+        const int r = i / width;
+        const int col = i - r * width;
+        reinterpret_cast<T*>(dst + r * pitch)[col] = col < c ? sp[r * c + col] : from_f32<T>(0.f);
+      }
+    }
+  };
+
+  // The first stages' copies go out before the rest of the setup, which
+  // their latency then hides.
+  const int ahead = max(1, slots - 1);
+  if (ASYNC && tid == 0) {
+    for (int i = 0; i < slots; ++i) mbar_init(&full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int st = 0; st < ahead && st < stages; ++st) load(st);
+
+  const int pairs = s * (s + 1) / 2;
+  // Block tables, so that each thread's setup needs few divisions:
+  // adaptive-pooling bin o = [floor(o C / S), ceil((o + 1) C / S)) with
+  // weight 1 / len, and pair e = (pa, pb), pa <= pb, numbered row by row of
+  // the upper triangle.
+  if (tid < s) {
+    bin_lo[tid] = tid * c / s;
+    bin_hi[tid] = ((tid + 1) * c + s - 1) / s;
+    bin_w[tid] = __frcp_rn(static_cast<float>(bin_hi[tid] - bin_lo[tid]));
+  }
+  if (tid < pairs) {
+    int a = 0, b = tid;
+    while (b >= s - a) {
+      b -= s - a;
+      ++a;
+    }
+    pair_s[tid] = static_cast<uint16_t>(a << 8 | (a + b));
+  }
+  __syncthreads();  // the tables, the mbarriers and (scalar path) the first stages
+
+  // bin sums: this thread's (bin, part) and first row; its 16-byte groups
+  // [ga, gb): an edge group at ga where the bin starts inside it, whole
+  // groups [body, tail), an edge group at tail where the bin ends inside it
+  const int bins_parts = s * parts;
+  const int rg = tid / bins_parts;
+  const int bp = tid - rg * bins_parts;
+  const bool summing = rg < row_groups;
+  const int o = bp / parts;
+  const int lo = bin_lo[o];
+  const int hi = bin_hi[o];
+  const int g0 = lo / V;
+  const int per = ((hi + V - 1) / V - g0 + parts - 1) / parts;
+  const int ga = g0 + (bp - o * parts) * per;
+  const int gb = min((hi + V - 1) / V, ga + per);
+  const bool head = ga < gb && (ga * V < lo || ga * V + V > hi);
+  const int body = head ? ga + 1 : ga;
+  const int tail = gb - 1 >= body && gb * V > hi ? gb - 1 : gb;
+  float mh[V], mt[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    mh[j] = ga * V + j >= lo && ga * V + j < hi ? 1.f : 0.f;
+    mt[j] = tail * V + j >= lo && tail * V + j < hi ? 1.f : 0.f;
+  }
+  const float scale = parts == 1 ? bin_w[o] : 1.f;  // a whole bin's sum leaves as its mean
+
+  // products: this thread's pair (pa, pb) and its row group q
+  const int groups = PG_THREADS / pairs;
+  const int q = tid / pairs;
+  const int e = tid - q * pairs;
+  const int pa = pair_s[e] >> 8;
+  const int pb = pair_s[e] & 0xff;
+  const float wa = bin_w[pa];
+  const float wb = bin_w[pb];
+
+  auto sum_bins = [&](int st) {  // stage st's rows into part_s[st % 2]
+    const int rows = stage_len(st);
+    const uint32_t base = ring + slot(st);
+    float* out = part_s[st & 1] + bp;
+#pragma unroll 1
+    for (int r = rg; r < rows; r += row_groups) {
+      const uint32_t row = base + r * pitch;
+      // the edge groups' loads go out with the first whole groups', and the
+      // whole groups eight at a time: a row costs one or two round trips
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const uint4 uh = head ? lds128(row + 16 * ga) : zero;
+      const uint4 ut = tail < gb ? lds128(row + 16 * tail) : zero;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+      for (int gi = body; gi < tail; gi += 8) {
+        uint4 u[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) u[k] = gi + k < tail ? lds128(row + 16 * (gi + k)) : zero;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) add_group<T>(a, u[k]);
+      }
+      add_group<T>(a, uh, mh);
+      add_group<T>(a, ut, mt);
+      out[r * bins_parts] = ((a[0] + a[1]) + (a[2] + a[3])) * scale;
+    }
+  };
+  float acc = 0.f;
+  auto add_products = [&](int st) {  // stage st's rows, from part_s[st % 2]
+    const int rows = stage_len(st);
+    const float* sums = part_s[st & 1];
+#pragma unroll 4
+    for (int r = q; r < rows; r += groups) {
+      const float* ra = sums + (r * s + pa) * parts;
+      const float* rb = sums + (r * s + pb) * parts;
+      float ma = ra[0], mb = rb[0];
+      if (parts > 1) {  // the parts in order, then the weight
+        for (int p = 1; p < parts; ++p) {
+          ma += ra[p];
+          mb += rb[p];
+        }
+        ma *= wa;
+        mb *= wb;
+      }
+      acc = fmaf(ma, mb, acc);
+    }
+  };
+
+  // Stage st + ahead goes into the slot that stage st - 1 has left, once the
+  // barrier shows every thread has summed it. One barrier a stage: the
+  // products of stage st - 1 overlap the sums of stage st.
+  for (int st = 0; st < stages; ++st) {
+    if (ASYNC) mbar_wait(&full[st % slots], (st / slots) & 1);
+    __syncthreads();
+    if (st + ahead < stages) load(st + ahead);
+    if (summing) sum_bins(st);
+    if (st > 0 && q < groups) add_products(st - 1);
+  }
+  __syncthreads();
+  if (stages > 0 && q < groups) add_products(stages - 1);
+
+  if (q < groups) red_s[q * pairs + e] = acc;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < pairs) {  // this block's partial, row groups in order, to slot `split` of block 0
+    float part = red_s[tid];
+    for (int j = 1; j < groups; ++j) part += red_s[j * pairs + tid];
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote)
+                 : "r"(smem_u32(recv + split * pairs + tid)), "r"(0));
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(part) : "memory");
+  }
+  cluster_sync();  // every split's partial has reached block 0
+  if (split != 0 || tid >= pairs) return;
+  float sum = recv[tid];
+  for (int sp = 1; sp < splits; ++sp) sum += recv[sp * pairs + tid];
+  const T v = from_f32<T>(sum * (1.f / static_cast<float>(hw)));
+  T* gn = g + static_cast<size_t>(n) * s * s;
+  gn[pa * s + pb] = v;
+  gn[pb * s + pa] = v;
 }
 
 // Launch with the split axis as a cluster (1, splits, 1); above 8 blocks a
@@ -942,23 +1141,49 @@ cudaError_t gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t pooled_gram_fwd(const void* f, const void* p, void* g, void* ws, int n, int hw,
-                            int c, int s, int splits, int rows_per_split,
-                            cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(s) * c * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(pooled_gram_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// Stage rows, ring slots, and the threads' (bin, part, row group) layout
+// follow from C, S and the longest split; see the design note at the top. A
+// row of F over PG_MAX_ROW_BYTES is refused as cudaErrorInvalidValue.
+template <typename T, bool ASYNC>
+cudaError_t pooled_gram_launch(const void* f, void* g, int n, int hw, int c, int s, int splits,
+                               cudaStream_t stream) {
+  if (static_cast<size_t>(c) * sizeof(T) > PG_MAX_ROW_BYTES) return cudaErrorInvalidValue;
+  const int pitch = static_cast<int>((static_cast<size_t>(c) * sizeof(T) + 15) / 16 * 16);
+  const int longest = (hw + splits - 1) / splits;
+  // (bin, part, row group) pieces for the threads: a stage holds up to
+  // 256 / S rows (a thread for each row and bin) or a whole multiple of that
+  // many; fewer rows take more parts a bin. rows x S x parts <= max(256,
+  // 64 S) stays within PG_SUMS.
+  int stage_rows = max(1, min(min(PG_MAX_STAGE_ROWS, PG_STAGE_BYTES / pitch), longest));
+  const int row_cap = PG_THREADS / s;
+  if (stage_rows > row_cap) stage_rows -= stage_rows % row_cap;
+  const int parts = max(1, PG_THREADS / (s * stage_rows));
+  const int row_groups = min(stage_rows, PG_THREADS / (s * parts));
+  const int stage_bytes = stage_rows * pitch;
+  const int stages = (longest + stage_rows - 1) / stage_rows;
+  // every stage in flight at once where there are few; two slots at least
+  // once there are two stages
+  const int slots = stages == 1 ? 1 : max(2, min(min(PG_MAX_SLOTS, stages + 1),
+                                                 2 * PG_MAX_ROW_BYTES / stage_bytes));
+  const size_t smem = static_cast<size_t>(slots) * stage_bytes;
+  const auto kernel = pooled_gram_kernel<T, ASYNC>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(n));
-  pooled_gram_kernel<T><<<grid, PG_THREADS, smem, stream>>>(
-      static_cast<const T*>(f), static_cast<const float*>(p), static_cast<T*>(g),
-      static_cast<float*>(ws), hw, c, s, splits, rows_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  return launch_reduce<T>(static_cast<const float*>(ws), static_cast<T*>(g), s * s, splits, n,
-                          static_cast<float>(hw), stream);
+  const dim3 grid(1, static_cast<unsigned>(splits), static_cast<unsigned>(n));
+  return launch_clustered(kernel, grid, PG_THREADS, smem, splits, stream, static_cast<const T*>(f),
+                          static_cast<T*>(g), hw, c, s, splits, stage_rows, parts, row_groups,
+                          pitch, slots);
+}
+
+// Route: bulk copies where C * sizeof(T) % 16 == 0 on a 16-byte-aligned F,
+// scalar loads otherwise (ops/kernels/gram.py _pooled_gram_route mirrors it).
+template <typename T>
+cudaError_t pooled_gram_fwd(const void* f, void* g, int n, int hw, int c, int s, int splits,
+                            cudaStream_t stream) {
+  const bool aligned = c % Group<T>::V == 0 && (reinterpret_cast<uintptr_t>(f) & 15) == 0;
+  return aligned ? pooled_gram_launch<T, true>(f, g, n, hw, c, s, splits, stream)
+                 : pooled_gram_launch<T, false>(f, g, n, hw, c, s, splits, stream);
 }
 
 }  // namespace
@@ -995,12 +1220,13 @@ int hst_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, 
   return gram_bwd<__nv_bfloat16>(f, dg, df, n, hw, c, st);
 }
 
-int hst_pooled_gram_fwd(const void* f, const void* p, void* g, void* ws, int n, int hw, int c,
-                        int s, int splits, int rows_per_split, int dtype, void* stream) {
+// s: 1..16; splits: 1..16, the blocks of one image's cluster; any C and HW.
+int hst_pooled_gram_fwd(const void* f, void* g, int n, int hw, int c, int s, int splits, int dtype,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return pooled_gram_fwd<float>(f, p, g, ws, n, hw, c, s, splits, rows_per_split, st);
-  return pooled_gram_fwd<__nv_bfloat16>(f, p, g, ws, n, hw, c, s, splits, rows_per_split, st);
+  if (s < 1 || s > MAX_S || splits < 1 || splits > MAX_SPLITS || hw < 1) return cudaErrorInvalidValue;
+  if (dtype == 0) return pooled_gram_fwd<float>(f, g, n, hw, c, s, splits, st);
+  return pooled_gram_fwd<__nv_bfloat16>(f, g, n, hw, c, s, splits, st);
 }
 
 }  // extern "C"

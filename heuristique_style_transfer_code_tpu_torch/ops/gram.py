@@ -3,7 +3,8 @@
 Reference semantics (``ops/gram.py``): f = x.reshape(N, HW, C),
 G = fᵀf / HW, and the family-2 head's adaptive_avg_pool2d(G, (S, S)) taken
 through the exact identity P G Pᵀ = (fPᵀ)ᵀ(fPᵀ) with the bin-averaging
-matrix P (``ops/pooling.py``).
+matrix P (``ops/pooling.py``); the kernel computes P's bins from (C, S)
+and never reads P.
 
 Both functions hand the (N, HW, C) view to ``ops/kernels/gram.py``: on a
 CUDA tensor that launches the hand-written kernel, on a CPU tensor it takes
@@ -17,7 +18,6 @@ from __future__ import annotations
 import torch
 
 from .kernels import gram as gram_kernels
-from .pooling import adaptive_pool_matrix
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -39,5 +39,4 @@ def gram_matrix_nhwc(x: torch.Tensor) -> torch.Tensor:
 def pooled_gram_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """x: (N, H, W, C) -> (N, S, S) = adaptive_avg_pool2d(gram(x), S).
     Forward only (the family-2 classifier in eval)."""
-    p = adaptive_pool_matrix(x.shape[-1], out_size, x.device)
-    return gram_kernels.pooled_gram_fwd(_flat(x), p)
+    return gram_kernels.pooled_gram_fwd(_flat(x), out_size)

@@ -18,6 +18,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..pooling import adaptive_pool_matrix
 from ._nvcc import CudaLibrary, check
 
 KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd")
@@ -29,16 +30,15 @@ _TILE = 64  # gram_fwd output tile edge (csrc/gram.cu TILE)
 _FFMA_STAGE_ROWS = 16  # csrc/gram.cu BK
 _MAX_SPLITS = 16  # csrc/gram.cu MAX_SPLITS: one cluster per tile
 _MIN_SPLIT_ROWS = 128  # gram_fwd splits HW no finer than this
-_PG_WARPS = 8  # pooled_gram_fwd warps per block (csrc/gram.cu PG_WARPS)
 MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S
-_MAX_SMEM = 200 * 1024  # dynamic shared memory left for P (S x C f32)
+_MAX_ROW_BYTES = 96 * 1024  # pooled_gram_fwd stages whole rows (PG_MAX_ROW_BYTES)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hst_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
     lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, p]
-    lib.hst_pooled_gram_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.hst_pooled_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, p]
     for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd):
         fn.restype = ctypes.c_int
 
@@ -93,10 +93,12 @@ def gram_bwd_plain(f: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
     return (torch.bmm(f.to(acc), dga + dga.transpose(1, 2)) / f.shape[1]).to(f.dtype)
 
 
-def pooled_gram_fwd_plain(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(N, HW, C), P (S, C) f32 -> (N, S, S) = (f P^T)^T (f P^T) / HW with
-    P and the projection kept in f32, as the kernel keeps them."""
+def pooled_gram_fwd_plain(f: torch.Tensor, out_size: int) -> torch.Tensor:
+    """(N, HW, C) -> (N, S, S) = (f P^T)^T (f P^T) / HW with P =
+    ``adaptive_pool_matrix(C, S)``, P and the projection kept in f32 as the
+    kernel keeps them."""
     acc = _acc_dtype(f.dtype)
+    p = adaptive_pool_matrix(f.shape[-1], out_size, f.device)
     pf = torch.matmul(f.to(acc), p.to(acc).t())  # (N, HW, S)
     return (torch.bmm(pf.transpose(1, 2), pf) / f.shape[1]).to(f.dtype)
 
@@ -202,37 +204,73 @@ def gram_bwd(f: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
     return df
 
 
-def pooled_gram_fwd(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """(N, HW, C), P (S, C) f32 -> (N, S, S). CPU: plain; CUDA: the kernel.
-    Forward only: the kernel has no backward yet, so a CUDA input that
-    needs a gradient raises."""
+def _pool_bins(c: int, s: int) -> List[Tuple[int, int, float]]:
+    """(start, end, weight) of each adaptive-pooling bin over C channels, as
+    ``pooled_gram_kernel`` computes them: [floor(o C / S), ceil((o + 1) C /
+    S)) and the f32 weight 1 / len, the support and values of row o of
+    ``adaptive_pool_matrix(C, S)``."""
+    bins = []
+    for o in range(s):
+        lo, hi = o * c // s, ((o + 1) * c + s - 1) // s
+        bins.append((lo, hi, (torch.ones((), dtype=torch.float32) / (hi - lo)).item()))
+    return bins
+
+
+def _pooled_gram_plan(n: int, hw: int, sms: int) -> Tuple[int, int]:
+    """How ``pooled_gram_fwd`` splits HW: (splits, rows_per_split). splits:
+    a power of two up to 16, the blocks of one image's cluster, doubled
+    while N x splits is short of the SM count and every split keeps a row;
+    ``_pooled_split_rows`` gives each split's rows, rows_per_split at most."""
+    splits = 1
+    while splits < _MAX_SPLITS and 2 * splits <= hw and n * splits < sms:
+        splits *= 2
+    return splits, -(-hw // splits)
+
+
+def _pooled_split_rows(hw: int, splits: int) -> List[Tuple[int, int]]:
+    """[begin, end) of HW rows for each split, as the kernel takes them:
+    HW // splits rows each, one more for the first HW % splits splits."""
+    base, extra = divmod(hw, splits)
+    out = []
+    for i in range(splits):
+        begin = i * base + min(i, extra)
+        out.append((begin, begin + base + (1 if i < extra else 0)))
+    return out
+
+
+def _pooled_gram_route(dtype: torch.dtype, c: int, aligned: bool = True) -> str:
+    """How ``pooled_gram_kernel`` stages F, as csrc/gram.cu picks it: "bulk"
+    (one TMA bulk copy a stage: C * size a multiple of 16 bytes on a
+    16-byte-aligned F) or "scalar" (scalar loads)."""
+    return "bulk" if aligned and c * (2 if dtype == torch.bfloat16 else 4) % 16 == 0 else "scalar"
+
+
+def pooled_gram_route_for(f: torch.Tensor) -> str:
+    """``_pooled_gram_route`` for a CUDA (N, HW, C) tensor."""
+    return _pooled_gram_route(f.dtype, f.shape[-1], aligned=f.data_ptr() % 16 == 0)
+
+
+def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
+    """(N, HW, C) -> (N, S, S) with S = out_size, as
+    ``pooled_gram_pallas(x, out_size)``. CPU: plain; CUDA: the kernel, which
+    computes the pooling bins itself. Forward only: the kernel has no
+    backward yet, so a CUDA input that needs a gradient raises."""
     if f.device.type == "cpu":
-        return pooled_gram_fwd_plain(f, p)
+        return pooled_gram_fwd_plain(f, out_size)
     _check_input("pooled_gram_fwd", f)
     if torch.is_grad_enabled() and f.requires_grad:
         raise NotImplementedError("pooled_gram_fwd has no backward kernel yet")
     n, hw, c = f.shape
-    s = p.shape[0]
-    if p.device != f.device or p.dtype != torch.float32 or tuple(p.shape) != (s, c):
-        raise ValueError(f"pooled_gram_fwd: P must be (S, {c}) float32 on {f.device}")
-    if not p.is_contiguous():
-        raise ValueError("pooled_gram_fwd: P is not contiguous")
-    if s > MAX_POOL_SIZE or s * c * 4 > _MAX_SMEM:
+    s = int(out_size)
+    if not 1 <= s <= MAX_POOL_SIZE or hw < 1 or c * f.element_size() > _MAX_ROW_BYTES:
         raise ValueError(
-            f"pooled_gram_fwd: S={s}, C={c} exceeds the kernel's limits "
-            f"(S <= {MAX_POOL_SIZE}, S*C*4 <= {_MAX_SMEM} bytes)"
+            f"pooled_gram_fwd: S={s}, HW={hw}, C={c} outside the kernel's limits "
+            f"(1 <= S <= {MAX_POOL_SIZE}, HW >= 1, a row of F <= {_MAX_ROW_BYTES} bytes)"
         )
+    splits, _ = _pooled_gram_plan(n, hw, _sm_count(f.device))
     g = torch.empty((n, s, s), device=f.device, dtype=f.dtype)
-    # enough blocks for two waves over the SMs, at least one row per warp
-    splits = max(1, min(math.ceil(hw / _PG_WARPS), math.ceil(2 * _sm_count(f.device) / n)))
-    rows = math.ceil(hw / splits)
-    splits = math.ceil(hw / rows)
-    ws = (torch.empty((n, splits, s, s), device=f.device, dtype=torch.float32)
-          if splits > 1 else None)
     err = LIBRARY.load().hst_pooled_gram_fwd(
-        f.data_ptr(), p.data_ptr(), g.data_ptr(),
-        ws.data_ptr() if ws is not None else None,
-        n, hw, c, s, splits, rows, _DTYPE_CODE[f.dtype], _stream(f.device),
+        f.data_ptr(), g.data_ptr(), n, hw, c, s, splits, _DTYPE_CODE[f.dtype], _stream(f.device),
     )
     check("pooled_gram_fwd", err)
     LAUNCHES["pooled_gram_fwd"] += 1

@@ -19,6 +19,7 @@ from heuristique_style_transfer_code_tpu.ops.pallas.gram_kernel import (
     gram_pallas,
     pooled_gram_pallas,
 )
+from heuristique_style_transfer_code_tpu.ops.pooling import _pool_matrix_np
 from heuristique_style_transfer_code_tpu_torch.ops import gram as tgram
 from heuristique_style_transfer_code_tpu_torch.ops.kernels import gram as kgram
 
@@ -96,7 +97,7 @@ def test_plain_versions_do_not_count_launches():
     kgram.GramFunction.apply(f).sum().backward()
     kgram.gram_fwd(f)
     kgram.gram_bwd(f, torch.randn(2, 8, 8))
-    kgram.pooled_gram_fwd(f, torch.rand(3, 8))
+    kgram.pooled_gram_fwd(f, 3)
     assert kgram.LAUNCHES == {name: 0 for name in kgram.KERNELS}
 
 
@@ -109,7 +110,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kgram.gram_bwd(f, torch.empty(2, 8, 8, device="meta"))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        kgram.pooled_gram_fwd(f, torch.empty(3, 8, device="meta"))
+        kgram.pooled_gram_fwd(f, 3)
 
 
 # ------------------------------------------------- gram_fwd launch plan
@@ -200,3 +201,127 @@ def test_gram_fwd_tiles_and_splits_assemble_g(shape, dtype):
     got = _assemble_as_kernel(f, splits, rows)
     np.testing.assert_allclose(got.numpy(), kgram.gram_fwd_plain(f).numpy(), **F32)
     np.testing.assert_allclose(got.numpy(), np.asarray(j_gram(jnp.asarray(x))), **F32)
+
+
+# ------------------------------------------ pooled_gram_fwd bins and plan
+# (C, S): S | C, C % S != 0 (the main path's 256/7), C < S, S = 1, S = 16,
+# C = 2048 (bins of 292-293 channels)
+_BIN_CASES = [(64, 8), (256, 7), (5, 7), (3, 16), (64, 1), (256, 16), (203, 16), (2048, 7)]
+
+
+@pytest.mark.parametrize("c,s", _BIN_CASES)
+def test_pool_bins_equal_the_pool_matrix(c, s):
+    """The kernel's bin formula gives exactly the support and the f32
+    weights of ``adaptive_pool_matrix(C, S)`` (the JAX package's P)."""
+    want = _pool_matrix_np(c, s)
+    got = np.zeros_like(want)
+    for o, (lo, hi, w) in enumerate(kgram._pool_bins(c, s)):
+        got[o, lo:hi] = w
+    np.testing.assert_array_equal(got, want)
+
+
+# (n, hw): the classification path's four stages at b8, then ragged and
+# small ones (hw < 16 keeps fewer splits)
+_POOLED_PLAN = [(8, 3136), (8, 784), (8, 196), (8, 49), (2, 143), (1, 63), (2, 25),
+                (1, 1), (1, 6), (16, 49), (4, 3136), (200, 49)]
+
+
+@pytest.mark.parametrize("n,hw", _POOLED_PLAN)
+def test_pooled_gram_plan_covers_hw_once(n, hw):
+    splits, rows = kgram._pooled_gram_plan(n, hw, _SMS)
+    assert splits in (1, 2, 4, 8, 16) and splits <= hw
+    if splits < 16 and 2 * splits <= hw:
+        assert n * splits >= _SMS  # stopped only once the SMs are filled
+    ranges = kgram._pooled_split_rows(hw, splits)
+    assert len(ranges) == splits
+    covered = np.zeros(hw, np.int32)
+    for begin, end in ranges:
+        assert 1 <= end - begin <= rows
+        covered[begin:end] += 1
+    assert (covered == 1).all()
+    assert kgram._pooled_gram_plan(8, 3136, _SMS)[0] == 16  # 128 blocks at b8
+
+
+def _pooled_as_kernel(f: torch.Tensor, s: int, splits: int) -> torch.Tensor:
+    """The pooled Gram built as pooled_gram_kernel builds it, in f32: per
+    HW split, each row's bin sums times the bin's weight, the split's
+    partial sum of outer products; partials added in split order, scaled by
+    the reciprocal of HW and cast once."""
+    n, hw, c = f.shape
+    ff = f.float()
+    bins = kgram._pool_bins(c, s)
+    inv = torch.tensor(1.0, dtype=torch.float32) / hw
+    out = torch.empty((n, s, s), dtype=torch.float32)
+    for img in range(n):
+        acc = None
+        for begin, end in kgram._pooled_split_rows(hw, splits):
+            rows = ff[img, begin:end]
+            means = torch.stack([rows[:, lo:hi].sum(1) * w for lo, hi, w in bins], 1)
+            part = means.t() @ means
+            acc = part if acc is None else acc + part
+        out[img] = acc * inv
+    return out.to(f.dtype)
+
+
+@pytest.mark.parametrize("shape,s", [((2, 7, 7, 256), 7), ((2, 13, 11, 200), 7),
+                                     ((1, 9, 7, 203), 16), ((2, 5, 5, 5), 7),
+                                     ((1, 4, 4, 2048), 7), ((3, 6, 6, 64), 1)])
+def test_pooled_gram_decomposition_matches_jax_f32(shape, s):
+    """The kernel's decomposition against JAX's XLA pooled Gram and the
+    Pallas kernel in interpret mode, at 1e-4 (only the order of sums
+    differs)."""
+    n, h, w, c = shape
+    x = np.abs(_x(shape, 6))
+    f = torch.from_numpy(x).reshape(n, h * w, c)
+    splits, _ = kgram._pooled_gram_plan(n, h * w, _SMS)
+    got = _pooled_as_kernel(f, s, splits).numpy()
+    np.testing.assert_allclose(got, np.asarray(j_pooled(jnp.asarray(x), s)), **F32)
+    np.testing.assert_allclose(
+        got, np.asarray(pooled_gram_pallas(jnp.asarray(x), s, interpret=True)), **F32
+    )
+    np.testing.assert_allclose(got, kgram.pooled_gram_fwd_plain(f, s).numpy(), **F32)
+
+
+@pytest.mark.parametrize("shape,s", [((2, 7, 7, 256), 7), ((2, 5, 5, 5), 7),
+                                     ((1, 9, 7, 203), 16)])
+def test_pooled_gram_decomposition_matches_jax_bf16(shape, s):
+    """On bf16 inputs, cast once at the end: within 2e-2 of max|G| of JAX's
+    XLA pooled Gram and of the Pallas kernel in interpret mode."""
+    n, h, w, c = shape
+    x = np.abs(_x(shape, 7))
+    jx = jnp.asarray(x, jnp.bfloat16)
+    f = torch.from_numpy(x).to(torch.bfloat16).reshape(n, h * w, c)
+    splits, _ = kgram._pooled_gram_plan(n, h * w, _SMS)
+    got = _pooled_as_kernel(f, s, splits)
+    assert got.dtype == torch.bfloat16
+    for want in (j_pooled(jx, s), pooled_gram_pallas(jx, s, interpret=True)):
+        want = np.asarray(want, np.float32)
+        assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
+def test_pooled_gram_phases_tool_finds_its_anchors():
+    """tools/pooled_gram_phases.py builds gram.cu with the sums, or the sums
+    and the products, taken out; the lines it takes out must still exist."""
+    from heuristique_style_transfer_code_tpu_torch.tools import pooled_gram_phases as tool
+
+    with open(kgram.LIBRARY.source) as f:
+        src = f.read()
+    variants = tool._variants(src)
+    assert variants["full"] == src
+    assert tool.SUMS not in variants["no_sums"]
+    assert all(a in variants["no_sums"] for a in tool.PRODUCTS)
+    assert not any(a in variants["stream_only"] for a in (tool.SUMS, *tool.PRODUCTS))
+
+
+@pytest.mark.parametrize("dtype,c,aligned,want", [
+    (torch.float32, 256, True, "bulk"), (torch.bfloat16, 2048, True, "bulk"),
+    (torch.float32, 200, True, "bulk"),       # 800 bytes a row
+    (torch.bfloat16, 200, True, "bulk"),      # 400
+    (torch.float32, 203, True, "scalar"), (torch.bfloat16, 204, True, "scalar"),
+    (torch.float32, 5, True, "scalar"),       # C = 5 < S
+    (torch.bfloat16, 256, False, "scalar"),   # a base off 16 bytes
+])
+def test_pooled_gram_route(dtype, c, aligned, want):
+    """Bulk copies exactly where a row is a whole number of 16-byte chunks on
+    an aligned base, as gram_fwd's cp.async route and TMA need."""
+    assert kgram._pooled_gram_route(dtype, c, aligned) == want
