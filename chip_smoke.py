@@ -10,8 +10,10 @@ Phases, all run every time:
                   plain PyTorch versions at the main path's shapes in f32
                   and bf16, on non-negative inputs as the main path's
                   post-ReLU features are (gram_fwd also at two ragged
-                  shapes; pooled_gram_fwd also at three ragged shapes;
-                  each row of both names its route and HW splits);
+                  shapes, gram_bwd at three, each row naming its route and
+                  splits, gram_bwd's also its two-call yardstick;
+                  pooled_gram_fwd also at three ragged shapes and three
+                  with S > 16, each row naming S, its route and splits);
                   instance_norm_fwd likewise at the fast-style net's
                   shapes (B = 8, with and without ReLU, per-image affine
                   rows that differ), at C = 48, C = 5,
@@ -84,6 +86,12 @@ POOL_S = 7
 # pooled_gram_fwd only, (shape, S): C % S != 0 at odd HW; C % 4 != 0 (the
 # scalar-load path) at the largest S; C < S (a channel in several bins)
 RAGGED_POOLED = [((2, 13, 11, 200), 7), ((1, 9, 7, 203), 16), ((2, 5, 5, 5), 7)]
+# gram_bwd only: C not a multiple of 64 at HW 143 and 49, and C % 8 != 0
+# (bf16 then takes the FFMA route, f32 its scalar loads)
+RAGGED_BWD_SHAPES = [(1, 13, 11, 200), (2, 7, 7, 48), (1, 9, 7, 203)]
+# pooled_gram_fwd past 16 bins (the "project" route): layer4, C % S != 0 at
+# odd HW, and C < S
+LARGE_S_POOLED = [((8, 7, 7, 2048), 24), ((2, 13, 11, 200), 24), ((2, 5, 5, 5), 20)]
 DEVICE = "cuda"
 N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
@@ -179,6 +187,29 @@ def phase_kernels(kg, peaks) -> dict:
     # inputs stay those of the runs before they were added
     gen_ragged = torch.Generator(device=dev).manual_seed(2)
     gen_pooled_ragged = torch.Generator(device=dev).manual_seed(3)
+    gen_bwd_ragged = torch.Generator(device=dev).manual_seed(4)
+    gen_pooled_large_s = torch.Generator(device=dev).manual_seed(5)
+
+    def bwd_row(f, dg, shape, dtype, dname, es):
+        n, h, w, c = shape
+        hw = h * w
+        err, rel, rms, ok = check(kg.gram_bwd(f, dg), kg.gram_bwd_plain(f, dg), dtype)
+        route, row_tile, _, k_splits, _ = kg.gram_bwd_plan_for(f, dg, torch.empty_like(f))
+        bound, by = _bound(2.0 * n * hw * c * c + n * c * c,
+                           (2 * n * hw * c + n * c * c) * es, dtype, peaks)
+        sym, out = torch.empty_like(dg), torch.empty_like(f)
+
+        def two_calls():  # the yardstick: symmetrise dG, then one batched product
+            torch.add(dg, dg.transpose(1, 2), out=sym)
+            torch.baddbmm(out, f, sym, beta=0, alpha=1.0 / hw)
+
+        return dict(
+            shape=[n, h, w, c], dtype=dname, route=route, row_tile=row_tile, k_splits=k_splits,
+            max_abs_err=err, rel_err=rel, rms_err=rms, tol=TOL[dname],
+            ok=ok, ms=_time_ms(lambda: kg.gram_bwd(f, dg)),
+            plain_ms=_time_ms(lambda: kg.gram_bwd_plain(f, dg)),
+            library_ms=None,  # no single PyTorch call symmetrises dG inside a product
+            two_call_ms=_time_ms(two_calls), bound_ms=bound, bound_by=by)
 
     from heuristique_style_transfer_code_tpu_torch.ops.pooling import adaptive_pool_matrix
 
@@ -209,26 +240,27 @@ def phase_kernels(kg, peaks) -> dict:
                 continue
             # the style loss's cotangent 2(G - target)/C² is signed
             dg = torch.randn((n, c, c), device=dev, generator=gen).to(dtype)
-            # backward
-            err, rel, rms, ok = check(kg.gram_bwd(f, dg), kg.gram_bwd_plain(f, dg), dtype)
-            bound, by = _bound(2.0 * n * hw * c * c + n * c * c,
-                               (2 * n * hw * c + n * c * c) * es, dtype, peaks)
-            rows["gram_bwd"].append(dict(
-                shape=[n, h, w, c], dtype=dname, max_abs_err=err, rel_err=rel, rms_err=rms,
-                tol=TOL[dname],
-                ok=ok, ms=_time_ms(lambda: kg.gram_bwd(f, dg)),
-                plain_ms=_time_ms(lambda: kg.gram_bwd_plain(f, dg)),
-                library_ms=None,  # no single PyTorch call symmetrises dG inside a product
-                bound_ms=bound, bound_by=by))
+            rows["gram_bwd"].append(bwd_row(f, dg, (n, h, w, c), dtype, dname, es))
             del f, dg, out, ft
-        for (n, h, w, c), s in [(shape, POOL_S) for shape in POOLED_SHAPES] + RAGGED_POOLED:
+        for (n, h, w, c) in RAGGED_BWD_SHAPES:
+            f = features((n, h * w, c), dtype, gen_bwd_ragged)
+            dg = torch.randn((n, c, c), device=dev, generator=gen_bwd_ragged).to(dtype)
+            rows["gram_bwd"].append(bwd_row(f, dg, (n, h, w, c), dtype, dname, es))
+            del f, dg
+        pooled_gens = {"main": gen, "ragged": gen_pooled_ragged, "large_s": gen_pooled_large_s}
+        pooled_cases = ([(shape, POOL_S, "main") for shape in POOLED_SHAPES]
+                        + [(shape, s, "ragged") for shape, s in RAGGED_POOLED]
+                        + [(shape, s, "large_s") for shape, s in LARGE_S_POOLED])
+        for (n, h, w, c), s, kind in pooled_cases:
             hw = h * w
-            main = (n, h, w, c) in POOLED_SHAPES
-            f = features((n, hw, c), dtype, gen if main else gen_pooled_ragged)
+            f = features((n, hw, c), dtype, pooled_gens[kind])
             err, rel, rms, ok = check(kg.pooled_gram_fwd(f, s),
                                       kg.pooled_gram_fwd_plain(f, s), dtype)
-            splits, _ = kg._pooled_gram_plan(n, hw, kg._sm_count(dev))
-            route = kg.pooled_gram_route_for(f)
+            route = kg.pooled_gram_route_for(f, s)
+            if route == "project":  # the splits of gram_fwd on the f32 projection
+                splits = kg._gram_fwd_plan(n, hw, s, kg._sm_count(dev), torch.float32)[2]
+            else:
+                splits, _ = kg._pooled_gram_plan(n, hw, kg._sm_count(dev))
             # one read of F, one write of G; an add per element, the bin
             # weights and the S(S+1)/2 distinct products per row
             bound, by = _bound(1.0 * n * hw * (c + s + s * (s + 1)),
@@ -249,9 +281,11 @@ def phase_kernels(kg, peaks) -> dict:
             route = f" S={r['s']}" if "s" in r else ""
             route += f" route={r['route']}" if "route" in r else ""
             route += f" splits={r['splits']}" if "splits" in r else ""
+            route += f" row_tile={r['row_tile']} k_splits={r['k_splits']}" if "k_splits" in r else ""
+            two = f" two_call_ms={r['two_call_ms']:.4f}" if "two_call_ms" in r else ""
             print(f"[kernels] {name} {r['dtype']} {tuple(r['shape'])}{route}: max_abs_err={r['max_abs_err']:.3e} "
                   f"rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+                  f"library_ms={r['library_ms']}{two} bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [(name, r["dtype"], r["shape"]) for name, rs in rows.items() for r in rs if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: {bad}")

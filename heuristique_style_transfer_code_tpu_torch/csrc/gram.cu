@@ -55,9 +55,37 @@
 // entry took its slow path, so the epilogue multiplies by one reciprocal.
 //
 // gram_bwd is the VJP the style loop needs every iteration (JAX derives it
-// by autodiff of the einsum). Same tiling over (HW, C) output tiles, the
-// contraction over C; dG and dG^T are both read in the tile load and added
-// in shared memory, so the symmetrised matrix never reaches device memory.
+// by autodiff of the einsum): dF = F (dG + dG^T) / HW for any dG, a product
+// of M = HW, N = C, K = C per image, 2 N HW C^2 operations. What bounds it
+// on an H100 SXM: at (4,56,56,256) f32 operations, 1.64 GFLOP in 24.5 us;
+// bf16 bytes (F, dG, dF: 13.4 MB, 4.0 us; operations 1.7 us, 3.3 us with
+// both halves of the dual product); at (4,7,7,2048) the bytes of dG (33.5 MB
+// bf16, 67 MB f32), about 10 and 21 us. Design: one launch over (row tile,
+// col tile) of dF for every image; where those leave the SMs idle (layer4:
+// 4 x 32 tiles of 49 rows, K = 2048) the contraction is split over the
+// blocks of a cluster and reduced through distributed shared memory, as
+// gram_fwd's HW splits. dG and dG^T are both loaded as tiles of dG, so the
+// symmetrised matrix never reaches device memory. Two mainloops:
+//   wgmma (bf16, C % 8 == 0, 16-byte-aligned F, dG, dF): gram_fwd's producer
+//     warp, TMA ring and consumer warpgroup; A = F K-major, and for each 16
+//     channels two wgmmas into one f32 accumulator, B = dG[k, j] (MN-major)
+//     and B = dG[j, k] (K-major): twice the tensor work, no rounding of
+//     dG + dG^T and no barrier for the sum; 128 x 128 tiles where C % 128
+//     == 0 and they fill the SMs, else 64 x 64.
+//   ffma (f32, and bf16 that TMA cannot take): 8 x 8 outputs a thread in a
+//     64 x 128 (or, where C <= 64 < HW, 128 x 64) tile, a 3-stage 16-byte
+//     cp.async ring of F, dG[k, j] and dG[j, k] tiles; the transposed tile
+//     is added into the other one stage ahead, under the one barrier a
+//     stage; 3 blocks an SM.
+// What the card showed (PERF.md, Findings): bf16 at (4,56,56,256) is
+// bound by the dual-B tiles' traffic from L2 (a build without the wgmmas
+// took 9.8 of 11.3 us with 128 x 64 tiles; 128 x 128 tiles cut it); f32
+// there ran at 74-84 us whatever its stages, unrolling or tile, until the
+// tile count fit one round of the SMs' block slots.
+//
+// pooled_gram_fwd for S > MAX_S (16) takes two launches instead:
+// pooled_project_kernel writes Y = F P^T in f32 from the same bins, then
+// gram_fwd's FFMA route computes Y^T Y / HW (the wrapper casts G once).
 //
 // pooled_gram_fwd replaces gram_kernel.py::pooled_gram_pallas (pallas_call at
 // :100). Bound: bytes. It must read F once, and its work is about one add
@@ -155,20 +183,21 @@ __device__ __forceinline__ void cluster_sync() {
           : "memory");
 }
 
-// Splits s = 1, 2, 4, 8, 16 cut the 64 x 64 tile into sr x sc sub-blocks of
-// br x bc = (64 / sr) x (64 / sc): at least 16 x 16, so every row of a
-// sub-block and of its mirror is a whole number of 16-byte stores. All are
-// powers of two, so owners and offsets are shifts and masks.
+// Splits s = 1, 2, 4, 8, 16 cut the tile of 2^lrows x 2^lcols (64 x 64 in
+// gram_fwd; 64 or 128 a side in gram_bwd) into sr x sc sub-blocks of br x bc
+// = (rows / sr) x (cols / sc): at least 16 x 16, so every row of a sub-block
+// and of its mirror is a whole number of 16-byte stores. All are powers of
+// two, so owners and offsets are shifts and masks.
 struct SubGrid {
   int lsc, lbr, lbc;  // log2 of sc, br, bc
   int br, bc;
-  __host__ __device__ explicit SubGrid(int splits) {
+  __host__ __device__ explicit SubGrid(int splits, int lrows = 6, int lcols = 6) {
     int ls = 0;  // log2 of splits
     while ((1 << ls) < splits) ++ls;
     const int lsr = ls >= 3 ? 2 : (ls >= 1 ? 1 : 0);
     lsc = ls - lsr;
-    lbr = 6 - lsr;
-    lbc = 6 - lsc;
+    lbr = lrows - lsr;
+    lbc = lcols - lsc;
     br = 1 << lbr;
     bc = 1 << lbc;
   }
@@ -455,18 +484,23 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       : "memory");
 }
 
-// Shared-memory matrix descriptor of a 64 (MN) x 16 (K) bf16 operand stored
-// MN-major with the 128-byte swizzle (CUTLASS make_gmma_desc<GMMA::Major::MN>,
-// LayoutType B128): 8 K rows of 128 bytes form one swizzle atom, so the
-// stride-byte offset (next 8 K rows) is 1024 bytes; the leading-byte offset
-// steps between 64-wide atoms along MN and is unused at MN = 64. The tile
-// base is 1024-byte aligned, so the base offset stays 0.
-__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr) {
+// Shared-memory matrix descriptor of a bf16 operand tile of 128-byte rows
+// under the 128-byte swizzle (CUTLASS make_gmma_desc, LayoutType B128), the
+// tile base 1024-byte aligned so the base offset stays 0. 8 rows of 128
+// bytes form one swizzle atom, so the stride-byte offset (next 8 rows) is
+// 1024 bytes; the leading-byte offset is unused with one atom across. The
+// same bits serve both majors:
+//   MN-major (64 MN x 16 K): the rows are K; the next 16 K start 2048 bytes on.
+//   K-major (64 MN x 16 K of a 64-wide K row): the rows are MN; the next 16 K
+//     start 32 bytes on, inside the atom (as CUTLASS's descriptor iterator).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
-// D(64x64, f32) += A(64x16) B(16x64), A = F^T and B = F, both MN-major.
+// D(64x64, f32) += A(64x16) B(16x64); TA, TB: 1 where the operand is
+// MN-major, 0 where it is K-major (gram_fwd: A = F^T and B = F, both 1).
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n"
@@ -475,14 +509,14 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n"
+      "%32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 template <int N>
@@ -582,7 +616,7 @@ gram_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap fmap,
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int k16 = 0; k16 < KROWS / 16; ++k16)
-        wgmma_m64n64k16(acc, desc_mn_sw128(a + k16 * 2048), desc_mn_sw128(b + k16 * 2048));
+        wgmma_m64n64k16<1, 1>(acc, desc_sw128(a + k16 * 2048), desc_sw128(b + k16 * 2048));
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       wgmma_wait<1>();
       fence_acc(acc);
@@ -654,78 +688,403 @@ gram_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap fmap,
   }
 }
 
-// One (r, j) tile of dF for image n: sum over k of F[r, k] * (dG[k, j] + dG[j, k]).
+// ---- gram_bwd -----------------------------------------------------------------
+// dF[n] = F[n] (dG[n] + dG[n]^T) / HW, a product of M = HW, N = C, K = C per
+// image. Block (blockIdx.x, blockIdx.y, blockIdx.z) computes output tile
+// blockIdx.x = row tile * col_tiles + col tile of image blockIdx.z over
+// split blockIdx.y of the contraction: channels [split k_per_split, ...),
+// the last split taking the rest of C. More than one split reduces over the
+// cluster, as gram_fwd's HW splits do, except that the partials land in the
+// owners' rings: a first cluster barrier shows that every block has left its
+// mainloop, the pushes follow, then a second barrier.
+
+// Channels [begin, end) of split `split`: k_per_split each, the last the rest.
+__device__ __forceinline__ void k_range(int c, int split, int splits, int k_per_split, int& begin,
+                                        int& end) {
+  begin = min(c, split * k_per_split);
+  end = split == splits - 1 ? c : min(c, begin + k_per_split);
+}
+
+__host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
+
+// Writes 4 consecutive entries of a dF row from column col, clipped at C,
+// times inv; one 16- (f32) or 8-byte (bf16) store where C % 4 == 0.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ dg, T* __restrict__ df,
-                int hw, int c) {
-  __shared__ float As[BK][PAD];  // As[kk][row] = F[r0 + row, k0 + kk]
-  __shared__ float Bs[BK][PAD];  // Bs[kk][col] = dG[k0 + kk, j0 + col] + dG[j0 + col, k0 + kk]
+__device__ __forceinline__ void store4(T* row, int col, int c, float4 v, float inv) {
+  const float e[4] = {v.x * inv, v.y * inv, v.z * inv, v.w * inv};
+  if (c % 4 == 0) {
+    if (col >= c) return;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(row + col) = make_float4(e[0], e[1], e[2], e[3]);
+    } else {
+      alignas(8) const __nv_bfloat162 p[2] = {__floats2bfloat162_rn(e[0], e[1]),
+                                              __floats2bfloat162_rn(e[2], e[3])};
+      *reinterpret_cast<uint2*>(row + col) = *reinterpret_cast<const uint2*>(p);
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (col + q < c) row[col + q] = from_f32<T>(e[q]);
+}
+
+// ffma route: 128 threads, 8 x 8 outputs each, in a BM x BN tile of 64 x 128
+// or, where C <= 64 < HW, 128 x 64. A stage holds BWD_BK channels: A =
+// F[r0.., k0..] as [row][k], B = dG[k0.., j0..] as [k][col] and B' =
+// dG[j0.., k0..] as [col][k], each by 16-byte cp.async (or scalar loads).
+// Stage st + 1's B' is added into its B while stage st's FMAs run, so the
+// one block barrier a stage also publishes that sum. Three stages and at
+// most 170 registers a thread let 3 blocks share an SM: at (4,56,56,256)
+// the 392 tiles of 64 x 128 then run in one round (PERF.md, Findings).
+constexpr int BWD_BK = 16;
+constexpr int BWD_STAGES = 3;  // one stage in flight under the FMAs; 3 blocks an SM
+constexpr int BWD_PITCH = BWD_BK + 4;    // rows of A and B': 16-byte aligned, 4 banks apart
+
+template <int BM, int BN>
+struct BwdTile {
+  static constexpr int TX = BN / 8;  // threads across the columns
+  static constexpr int TY = BM / 8;  // and down the rows
+  static constexpr int THREADS = TX * TY;
+  static constexpr int A = BM * BWD_PITCH;
+  static constexpr int B = BWD_BK * BN;
+  static constexpr int B2 = BN * BWD_PITCH;
+  static constexpr int STAGE = A + B + B2;  // floats
+  static constexpr size_t SMEM = BWD_STAGES * STAGE * sizeof(float);
+  static_assert(BM * BN * sizeof(float) <= SMEM, "the split partials land in the ring");
+  static_assert(BM * BWD_BK % (4 * THREADS) == 0 && BN * BWD_BK % (4 * THREADS) == 0,
+                "every thread loads the same number of chunks");
+};
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// Thread (tx, ty) owns rows ty + TY r (r < 8) and columns BN/2 h + 4 tx + q
+// (h < 2, q < 4) of the tile, so a warp's float4 reads of A and B hit
+// distinct banks. ASYNC: f32 with C % 4 == 0 on 16-byte-aligned F and dG.
+template <typename T, bool ASYNC, int BM, int BN>
+__global__ void __launch_bounds__(BwdTile<BM, BN>::THREADS, 3)
+gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ dg, T* __restrict__ df, int hw,
+                int c, int col_tiles, int splits, int k_per_split) {
+  using Tl = BwdTile<BM, BN>;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const int tid = threadIdx.x;
+  const int tx = tid % Tl::TX;
+  const int ty = tid / Tl::TX;
+  const int r0 = (blockIdx.x / col_tiles) * BM;
+  const int j0 = (blockIdx.x % col_tiles) * BN;
+  const int split = blockIdx.y;
   const int n = blockIdx.z;
-  const int r0 = blockIdx.y * TILE;
-  const int j0 = blockIdx.x * TILE;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  int k_begin, k_end;
+  k_range(c, split, splits, k_per_split, k_begin, k_end);
+  const int stages = (k_end - k_begin + BWD_BK - 1) / BWD_BK;
   const T* fn = f + static_cast<size_t>(n) * hw * c;
   const T* dgn = dg + static_cast<size_t>(n) * c * c;
+  auto stage_a = [&](int st) { return bwd_smem + (st % BWD_STAGES) * Tl::STAGE; };
 
-  float acc[4][4];
+  auto load = [&](int st) {
+    float* a = stage_a(st);
+    float* b = a + Tl::A;
+    float* b2 = b + Tl::B;
+    const int k0 = k_begin + st * BWD_BK;
+    // fixed trip counts, so a stage's copies go out back to back; k_end and C
+    // are multiples of 4, so a chunk is all in or all out
+    if constexpr (ASYNC) {
+      constexpr int Q = BWD_BK / 4;  // 16-byte chunks of a row of A or B'
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = 0.f;
-
-  for (int k0 = 0; k0 < c; k0 += BK) {
-    // F rows: 16 consecutive k per row; dG[k, j]: 64 consecutive j per k
-    for (int e = threadIdx.x; e < BK * TILE; e += THREADS) {
-      const int row = e / BK;
-      const int kk = e % BK;
-      const int r = r0 + row;
-      const int k = k0 + kk;
-      As[kk][row] = (r < hw && k < c) ? to_f32(fn[static_cast<size_t>(r) * c + k]) : 0.f;
-      const int kb = k0 + e / TILE;
-      const int col = e % TILE;
-      const int j = j0 + col;
-      Bs[e / TILE][col] =
-          (kb < c && j < c) ? to_f32(dgn[static_cast<size_t>(kb) * c + j]) : 0.f;
-    }
-    __syncthreads();
-    // dG[j, k]: 16 consecutive k per j, added onto the tile loaded above
-    for (int e = threadIdx.x; e < BK * TILE; e += THREADS) {
-      const int col = e / BK;
-      const int kk = e % BK;
-      const int j = j0 + col;
-      const int k = k0 + kk;
-      if (j < c && k < c) Bs[kk][col] += to_f32(dgn[static_cast<size_t>(j) * c + k]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[r] = As[kk][ty + 16 * r];
-        b[r] = Bs[kk][tx + 16 * r];
+      for (int i = 0; i < BM * Q / Tl::THREADS; ++i) {
+        const int e = tid + i * Tl::THREADS;
+        const int row = e / Q, k = k0 + 4 * (e % Q), r = r0 + row;
+        const bool in = r < hw && k < k_end;
+        cp_async16(a + row * BWD_PITCH + 4 * (e % Q), in ? fn + static_cast<size_t>(r) * c + k : fn,
+                   in);
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(a[r], b[s], acc[r][s]);
+      for (int i = 0; i < BN * Q / Tl::THREADS; ++i) {
+        const int e = tid + i * Tl::THREADS;
+        const int kk = e / (BN / 4), j = j0 + 4 * (e % (BN / 4)), k = k0 + kk;
+        const bool in = k < k_end && j < c;
+        cp_async16(b + kk * BN + 4 * (e % (BN / 4)), in ? dgn + static_cast<size_t>(k) * c + j : dgn,
+                   in);
+        const int col = e / Q, kt = k0 + 4 * (e % Q), jt = j0 + col;
+        const bool in_t = jt < c && kt < k_end;
+        cp_async16(b2 + col * BWD_PITCH + 4 * (e % Q),
+                   in_t ? dgn + static_cast<size_t>(jt) * c + kt : dgn, in_t);
+      }
+    } else {  // scalar loads: unrolled like the copies above, they spill
+      for (int e = tid; e < BM * BWD_BK; e += Tl::THREADS) {
+        const int row = e / BWD_BK, kk = e % BWD_BK, r = r0 + row, k = k0 + kk;
+        a[row * BWD_PITCH + kk] = r < hw && k < k_end ? to_f32(fn[static_cast<size_t>(r) * c + k]) : 0.f;
+      }
+      for (int e = tid; e < BWD_BK * BN; e += Tl::THREADS) {
+        const int kk = e / BN, col = e % BN, k = k0 + kk, j = j0 + col;
+        b[e] = k < k_end && j < c ? to_f32(dgn[static_cast<size_t>(k) * c + j]) : 0.f;
+      }
+      for (int e = tid; e < BN * BWD_BK; e += Tl::THREADS) {
+        const int col = e / BWD_BK, kk = e % BWD_BK, j = j0 + col, k = k0 + kk;
+        b2[col * BWD_PITCH + kk] = j < c && k < k_end ? to_f32(dgn[static_cast<size_t>(j) * c + k]) : 0.f;
+      }
     }
-    __syncthreads();
-  }
+  };
+  // B[k][col] += B'[col][k] for stage st, four k a thread from one float4
+  auto add_transpose = [&](int st) {
+    float* b = stage_a(st) + Tl::A;
+    const float* b2 = b + Tl::B;
+#pragma unroll
+    for (int i = 0; i < BN * BWD_BK / 4 / Tl::THREADS; ++i) {
+      const int e = tid + i * Tl::THREADS;
+      const int col = e % BN, k4 = 4 * (e / BN);
+      const float4 t = *reinterpret_cast<const float4*>(b2 + col * BWD_PITCH + k4);
+      b[k4 * BN + col] += t.x;
+      b[(k4 + 1) * BN + col] += t.y;
+      b[(k4 + 2) * BN + col] += t.z;
+      b[(k4 + 3) * BN + col] += t.w;
+    }
+  };
+  // every load commits one group (empty past the end), so group i is stage i
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::: "memory"); };
 
-  const float hwf = static_cast<float>(hw);
+  float acc[8][8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty + 16 * r;
-    if (row >= hw) continue;
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int j = j0 + tx + 16 * s;
-      if (j < c) df[(static_cast<size_t>(n) * hw + row) * c + j] = from_f32<T>(acc[r][s] / hwf);
+    for (int s = 0; s < 8; ++s) acc[r][s] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < BWD_STAGES - 1; ++st) {
+    if (st < stages) load(st);
+    commit();
+  }
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(BWD_STAGES - 2) : "memory");  // stage 0
+  __syncthreads();
+  if (stages > 0) add_transpose(0);
+  for (int st = 0; st < stages; ++st) {
+    // Stage st + 1 has landed; after the barrier every thread's copies of it
+    // and its sums of stage st are visible, and stage st - 1's slot is free.
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(BWD_STAGES - 3) : "memory");
+    __syncthreads();
+    if (st + BWD_STAGES - 1 < stages) load(st + BWD_STAGES - 1);
+    commit();
+    if (st + 1 < stages) add_transpose(st + 1);
+    const float* a = stage_a(st);
+    const float* b = a + Tl::A;
+#pragma unroll
+    for (int k4 = 0; k4 < BWD_BK; k4 += 4) {
+      float4 av[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        av[r] = *reinterpret_cast<const float4*>(a + (ty + Tl::TY * r) * BWD_PITCH + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = *reinterpret_cast<const float4*>(b + (k4 + kk) * BN + 4 * tx);
+        const float4 b1 = *reinterpret_cast<const float4*>(b + (k4 + kk) * BN + BN / 2 + 4 * tx);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float ar = lane_of(av[r], kk);
+#pragma unroll
+          for (int s = 0; s < 8; ++s) acc[r][s] = fmaf(ar, bv[s], acc[r][s]);
+        }
+      }
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const float inv = 1.f / static_cast<float>(hw);  // one division, not one per entry
+  T* dfn = df + static_cast<size_t>(n) * hw * c;
+  if (splits == 1) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = r0 + ty + Tl::TY * r;
+      if (row >= hw) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4<T>(dfn + static_cast<size_t>(row) * c, j0 + BN / 2 * h + 4 * tx, c,
+                  make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2], acc[r][4 * h + 3]),
+                  inv);
+    }
+    return;
+  }
+  cluster_sync();  // every block of the cluster has left its mainloop: the rings are free
+  float* recv = bwd_smem;
+  const SubGrid sg(splits, ilog2(BM), ilog2(BN));
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      push_partial<4>(recv, sg, split, ty + Tl::TY * r, BN / 2 * h + 4 * tx,
+                      make_float4(acc[r][4 * h], acc[r][4 * h + 1], acc[r][4 * h + 2],
+                                  acc[r][4 * h + 3]));
+  cluster_sync();  // every split's partial has reached its owner
+  const int gr = r0 + sg.row0(split);
+  const int gc = j0 + sg.col0(split);
+  sum_received(recv, sg, splits, [&](int r, int cq, float4 s) {
+    if (gr + r < hw) store4<T>(dfn + static_cast<size_t>(gr + r) * c, gc + cq, c, s, inv);
+  });
+}
+
+// wgmma route (bf16, C % 8 == 0, 16-byte-aligned F, dG and dF): one
+// consumer warpgroup (warps 0-3) and a producer warp (warp 4), as
+// gram_fwd_wgmma_kernel. A stage holds 64 channels k0..: A = F[r0.., k0..]
+// (BM = 64 or 128 rows of 128 bytes, K-major), B = dG[k0.., j0..] (MN-major)
+// and B' = dG[j0.., k0..] (K-major) for each 64 columns, TMA loads from two
+// 3-D maps, all 128-byte swizzled with zeros past HW and C. The tile is
+// 64 x 64 or 128 x 128 (C % 128 == 0, so no column tile lies wholly past
+// C). Per 16 channels and 64 x 64 quarter, wgmma adds A B and A B' into
+// one f32 accumulator: the symmetrised
+// dG is never formed and nothing is rounded before the product. The
+// epilogue scales by one reciprocal of HW and leaves by TMA stores that clip
+// the HW and C tails; with splits, by 8-byte row stores after the cluster
+// reduction.
+template <int BM, int BN>
+__global__ void __launch_bounds__(WG, 2)
+gram_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap fmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap dfmap, __nv_bfloat16* __restrict__ df,
+                      int hw, int c, int col_tiles, int splits, int k_per_split, int stages,
+                      int ring_bytes) {
+  constexpr int MH = BM / 64;  // 64-row halves of the tile
+  constexpr int NH = BN / 64;  // and 64-column ones
+  constexpr int A_BYTES = BM * 128;
+  constexpr int STAGE_BYTES = A_BYTES + 2 * NH * TILE_BYTES;  // A, then NH B, then NH B'
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + ring_bytes);
+  uint64_t* empty = full + MAX_STAGES;
+  if ((smem_u32(smem_raw) & 1023) != 0) __trap();
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32;
+  const int r0 = (blockIdx.x / col_tiles) * BM;
+  const int j0 = (blockIdx.x % col_tiles) * BN;
+  const int split = blockIdx.y;
+  const int n = blockIdx.z;
+  int k_begin, k_end;
+  k_range(c, split, splits, k_per_split, k_begin, k_end);
+  const int nkb = (k_end - k_begin + TILE - 1) / TILE;
+  if (nkb > stages && stages < 2) __trap();  // the ring could not turn over
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[MH][NH][32];
+#pragma unroll
+  for (int h = 0; h < MH; ++h)
+#pragma unroll
+    for (int q = 0; q < NH; ++q)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[h][q][i] = 0.f;
+  if (warp == 4) {
+    if (lane == 0) {
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int s = kb % stages;
+        const int k0 = k_begin + kb * TILE;
+        if (kb >= stages) mbar_wait(&empty[s], (kb / stages - 1) & 1);
+        uint8_t* a = ring + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load(a, &fmap, &full[s], k0, r0, n);
+        for (int q = 0; q < NH; ++q) {
+          tma_load(a + A_BYTES + q * TILE_BYTES, &gmap, &full[s], j0 + TILE * q, k0, n);
+          tma_load(a + A_BYTES + (NH + q) * TILE_BYTES, &gmap, &full[s], k0, j0 + TILE * q, n);
+        }
+      }
+    }
+  } else {
+    auto fence_all = [&] {
+#pragma unroll
+      for (int h = 0; h < MH; ++h)
+#pragma unroll
+        for (int q = 0; q < NH; ++q) fence_acc(acc[h][q]);
+    };
+    fence_all();
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int s = kb % stages;
+      mbar_wait(&full[s], (kb / stages) & 1);
+      const uint32_t a = smem_u32(ring + s * STAGE_BYTES);
+      const uint32_t b = a + A_BYTES;
+      const uint32_t bt = b + NH * TILE_BYTES;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k16 = 0; k16 < TILE / 16; ++k16) {
+#pragma unroll
+        for (int h = 0; h < MH; ++h) {
+          const uint64_t da = desc_sw128(a + h * TILE_BYTES + k16 * 32);
+#pragma unroll
+          for (int q = 0; q < NH; ++q) {
+            const uint32_t bq = b + q * TILE_BYTES;
+            const uint32_t btq = bt + q * TILE_BYTES;
+            wgmma_m64n64k16<0, 1>(acc[h][q], da, desc_sw128(bq + k16 * 2048));  // F dG
+            wgmma_m64n64k16<0, 0>(acc[h][q], da, desc_sw128(btq + k16 * 32));   // F dG^T
+          }
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      wgmma_wait<1>();
+      fence_all();
+      if (kb >= 1 && lane == 0) mbar_arrive(&empty[(kb - 1) % stages]);
+    }
+    wgmma_wait<0>();
+    fence_all();
+  }
+  __syncthreads();  // every wgmma has retired and every stage has landed: the ring is free
+
+  const float inv = 1.f / static_cast<float>(hw);  // one division, not one per entry
+  if (splits == 1) {  // each 64 x 64 quarter of the tile, swizzled, then one TMA store
+    if (warp < 4) {
+#pragma unroll
+      for (int h = 0; h < MH; ++h)
+#pragma unroll
+        for (int q = 0; q < NH; ++q)
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int row = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+            const int col = 8 * (i >> 2) + 2 * (lane & 3);
+            *reinterpret_cast<__nv_bfloat162*>(ring + (h * NH + q) * TILE_BYTES + sw128(row, col)) =
+                __floats2bfloat162_rn(acc[h][q][i] * inv, acc[h][q][i + 1] * inv);
+          }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (tid == 0) {  // rows past HW and columns past C are clipped
+      for (int h = 0; h < MH; ++h)
+        for (int q = 0; q < NH; ++q)
+          if (r0 + 64 * h < hw && j0 + 64 * q < c)
+            tma_store(&dfmap, ring + (h * NH + q) * TILE_BYTES, j0 + 64 * q, r0 + 64 * h, n);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    return;
+  }
+  cluster_sync();  // every block of the cluster has left its mainloop: the rings are free
+  float* recv = reinterpret_cast<float*>(ring);
+  const SubGrid sg(splits, ilog2(BM), ilog2(BN));
+  if (warp < 4) {
+#pragma unroll
+    for (int h = 0; h < MH; ++h)
+#pragma unroll
+      for (int q = 0; q < NH; ++q)
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int row = 64 * h + 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
+          const int col = 64 * q + 8 * (i >> 2) + 2 * (lane & 3);
+          push_partial<2>(recv, sg, split, row, col,
+                          make_float4(acc[h][q][i], acc[h][q][i + 1], 0.f, 0.f));
+        }
+  }
+  cluster_sync();  // every split's partial has reached its owner
+  const int gr = r0 + sg.row0(split);
+  const int gc = j0 + sg.col0(split);
+  __nv_bfloat16* dfn = df + static_cast<size_t>(n) * hw * c;
+  sum_received(recv, sg, splits, [&](int r, int cq, float4 s) {
+    if (gr + r < hw) store4(dfn + static_cast<size_t>(gr + r) * c, gc + cq, c, s, inv);
+  });
 }
 
 // ---- pooled_gram_fwd --------------------------------------------------------
@@ -1012,6 +1371,27 @@ pooled_gram_kernel(const T* __restrict__ f, T* __restrict__ g, int hw, int c, in
   gn[pb * s + pa] = v;
 }
 
+// pooled_gram_fwd past MAX_S, first launch: Y[row, o] = w_o x (sum of row's
+// channels in bin o), f32, one thread per (row, bin); the bins and weights
+// are pooled_gram_kernel's. A byte-bound pass over F that gram_fwd's FFMA
+// route on Y (N, HW, S) follows.
+constexpr int PP_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(PP_THREADS)
+pooled_project_kernel(const T* __restrict__ f, float* __restrict__ y, size_t rows, int c, int s) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * PP_THREADS + threadIdx.x;
+  if (i >= rows * s) return;
+  const size_t row = i / s;
+  const int o = static_cast<int>(i - row * s);
+  const int lo = o * c / s;
+  const int hi = ((o + 1) * c + s - 1) / s;
+  const T* fr = f + row * c;
+  float sum = 0.f;
+  for (int k = lo; k < hi; ++k) sum += to_f32(fr[k]);
+  y[i] = sum * __frcp_rn(static_cast<float>(hi - lo));
+}
+
 // Launch with the split axis as a cluster (1, splits, 1); above 8 blocks a
 // cluster is non-portable and has to be allowed per kernel.
 template <typename Kernel, typename... Args>
@@ -1131,14 +1511,65 @@ cudaError_t gram_fwd_wgmma(const void* f, void* g, int n, int hw, int c, int n_t
                           rows_per_split, stages, ring_bytes);
 }
 
-template <typename T>
-cudaError_t gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c,
-                     cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((c + TILE - 1) / TILE),
-                  static_cast<unsigned>((hw + TILE - 1) / TILE), static_cast<unsigned>(n));
-  gram_bwd_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(f), static_cast<const T*>(dg), static_cast<T*>(df), hw, c);
-  return cudaGetLastError();
+// The longest split's channels (the last takes the rest of C).
+int longest_k(int c, int splits, int k_per_split) {
+  return max(min(k_per_split, c), c - (splits - 1) * k_per_split);
+}
+
+template <typename T, bool ASYNC, int BM, int BN>
+cudaError_t gram_bwd_ffma(const void* f, const void* dg, void* df, int n, int hw, int c,
+                          int splits, int k_per_split, cudaStream_t stream) {
+  const auto kernel = gram_bwd_kernel<T, ASYNC, BM, BN>;
+  constexpr size_t smem = BwdTile<BM, BN>::SMEM;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int col_tiles = (c + BN - 1) / BN;
+  const dim3 grid(static_cast<unsigned>((hw + BM - 1) / BM * col_tiles),
+                  static_cast<unsigned>(splits), static_cast<unsigned>(n));
+  return launch_clustered(kernel, grid, BwdTile<BM, BN>::THREADS, smem, splits, stream,
+                          static_cast<const T*>(f), static_cast<const T*>(dg), static_cast<T*>(df),
+                          hw, c, col_tiles, splits, k_per_split);
+}
+
+// col_tile 128 takes the 64 x 128 tile, 64 the 128 x 64 one.
+template <typename T, bool ASYNC>
+cudaError_t gram_bwd_ffma(const void* f, const void* dg, void* df, int n, int hw, int c,
+                          int col_tile, int splits, int k_per_split, cudaStream_t stream) {
+  return col_tile == 128
+             ? gram_bwd_ffma<T, ASYNC, 64, 128>(f, dg, df, n, hw, c, splits, k_per_split, stream)
+             : gram_bwd_ffma<T, ASYNC, 128, 64>(f, dg, df, n, hw, c, splits, k_per_split, stream);
+}
+
+// bf16 only; TMA needs 16-byte global strides and base addresses. A tensor
+// map that cannot be encoded is reported as cudaErrorInvalidValue.
+template <int BM, int BN>
+cudaError_t gram_bwd_wgmma(const void* f, const void* dg, void* df, int n, int hw, int c,
+                           int splits, int k_per_split, cudaStream_t stream) {
+  if (c % 8 != 0 || k_per_split % TILE != 0 || ((reinterpret_cast<uintptr_t>(f) |
+      reinterpret_cast<uintptr_t>(dg) | reinterpret_cast<uintptr_t>(df)) & 15) != 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap fmap, gmap, dfmap;
+  if (!encode_bf16(&fmap, f, c, hw, n, TILE, BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bf16(&gmap, dg, c, c, n, TILE, TILE, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_bf16(&dfmap, df, c, hw, n, TILE, TILE, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  constexpr int stage_bytes = BM * 128 + 2 * (BN / TILE) * TILE_BYTES;
+  const int blocks = (longest_k(c, splits, k_per_split) + TILE - 1) / TILE;
+  const int stages = max(1, min(min(MAX_STAGES, RING_BYTES / stage_bytes), blocks));
+  // the ring also holds the output staging and, with splits, the partials
+  const int ring_bytes = max(stages * stage_bytes, splits > 1 ? BM * BN * 4 : BM * BN * 2);
+  const size_t smem = static_cast<size_t>(ring_bytes) + 2 * MAX_STAGES * sizeof(uint64_t);
+  const auto kernel = gram_bwd_wgmma_kernel<BM, BN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int col_tiles = (c + BN - 1) / BN;
+  const dim3 grid(static_cast<unsigned>((hw + BM - 1) / BM * col_tiles),
+                  static_cast<unsigned>(splits), static_cast<unsigned>(n));
+  return launch_clustered(kernel, grid, WG, smem, splits, stream, fmap, gmap, dfmap,
+                          static_cast<__nv_bfloat16*>(df), hw, c, col_tiles, splits, k_per_split,
+                          stages, ring_bytes);
 }
 
 // Stage rows, ring slots, and the threads' (bin, part, row group) layout
@@ -1213,11 +1644,50 @@ int hst_gram_fwd(const void* f, void* g, int n, int hw, int c, int splits, int r
   return gram_fwd_ffma<float, false>(f, g, n, hw, c, n_tri, splits, rows_per_split, st);
 }
 
-int hst_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int dtype,
+// route: 0 = ffma (tiles of row_tile x col_tile = 64 x 128 or 128 x 64),
+// 1 = wgmma (bf16 only, C % 8 == 0, k_per_split a multiple of 64; 64 x 64
+// tiles, or 128 x 128 where C % 128 == 0); splits: 1, 2, 4,
+// 8 or 16, the blocks of one cluster, each over k_per_split channels (a
+// multiple of 16) and the last over the rest of C (ops/kernels/gram.py
+// _gram_bwd_plan).
+int hst_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int route,
+                 int row_tile, int col_tile, int splits, int k_per_split, int dtype,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return gram_bwd<float>(f, dg, df, n, hw, c, st);
-  return gram_bwd<__nv_bfloat16>(f, dg, df, n, hw, c, st);
+  if (splits < 1 || splits > MAX_SPLITS || (splits & (splits - 1)) != 0 ||
+      (row_tile != 64 && row_tile != 128) || (col_tile != 64 && col_tile != 128) ||
+      k_per_split < BWD_BK || k_per_split % BWD_BK != 0)
+    return cudaErrorInvalidValue;
+  if (route == 1) {
+    if (dtype != 1 || row_tile != col_tile || (col_tile == 128 && c % 128 != 0))
+      return cudaErrorInvalidValue;
+    return row_tile == 64 ? gram_bwd_wgmma<64, 64>(f, dg, df, n, hw, c, splits, k_per_split, st)
+                          : gram_bwd_wgmma<128, 128>(f, dg, df, n, hw, c, splits, k_per_split, st);
+  }
+  if (row_tile * col_tile != 64 * 128) return cudaErrorInvalidValue;  // 64 x 128 or 128 x 64
+  if (dtype == 1)
+    return gram_bwd_ffma<__nv_bfloat16, false>(f, dg, df, n, hw, c, col_tile, splits, k_per_split,
+                                               st);
+  if (c % 4 == 0 && ((reinterpret_cast<uintptr_t>(f) | reinterpret_cast<uintptr_t>(dg)) & 15) == 0)
+    return gram_bwd_ffma<float, true>(f, dg, df, n, hw, c, col_tile, splits, k_per_split, st);
+  return gram_bwd_ffma<float, false>(f, dg, df, n, hw, c, col_tile, splits, k_per_split, st);
+}
+
+// Y = F P^T as f32 (N, HW, S) into y, for pooled_gram_fwd's route past
+// MAX_S (the wrapper then takes gram_fwd's FFMA route on Y); s >= 1.
+int hst_pooled_project(const void* f, void* y, int n, int hw, int c, int s, int dtype,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s < 1 || hw < 1 || c < 1) return cudaErrorInvalidValue;
+  const size_t rows = static_cast<size_t>(n) * hw;
+  const unsigned blocks = static_cast<unsigned>((rows * s + PP_THREADS - 1) / PP_THREADS);
+  if (dtype == 0)
+    pooled_project_kernel<float><<<blocks, PP_THREADS, 0, st>>>(static_cast<const float*>(f),
+                                                                static_cast<float*>(y), rows, c, s);
+  else
+    pooled_project_kernel<__nv_bfloat16><<<blocks, PP_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(f), static_cast<float*>(y), rows, c, s);
+  return cudaGetLastError();
 }
 
 // s: 1..16; splits: 1..16, the blocks of one image's cluster; any C and HW.

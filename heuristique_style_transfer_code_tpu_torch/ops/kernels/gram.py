@@ -30,16 +30,21 @@ _TILE = 64  # gram_fwd output tile edge (csrc/gram.cu TILE)
 _FFMA_STAGE_ROWS = 16  # csrc/gram.cu BK
 _MAX_SPLITS = 16  # csrc/gram.cu MAX_SPLITS: one cluster per tile
 _MIN_SPLIT_ROWS = 128  # gram_fwd splits HW no finer than this
-MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S
+_BWD_STAGE_K = {"ffma": 16, "wgmma": 64}  # gram_bwd channels a stage (BWD_BK, TILE)
+_MIN_SPLIT_K = 256  # gram_bwd splits C no finer than this
+_BWD_BLOCKS_PER_SM = {"ffma": 3, "wgmma": 2}  # gram_bwd blocks an SM holds
+MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S: larger S takes the "project" route
 _MAX_ROW_BYTES = 96 * 1024  # pooled_gram_fwd stages whole rows (PG_MAX_ROW_BYTES)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hst_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
-    lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, p]
+    lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.hst_pooled_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, p]
-    for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd):
+    lib.hst_pooled_project.argtypes = [p, p, i, i, i, i, i, p]
+    for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd,
+               lib.hst_pooled_project):
         fn.restype = ctypes.c_int
 
 
@@ -181,8 +186,68 @@ def gram_fwd(f: torch.Tensor) -> torch.Tensor:
     return g
 
 
+def _bwd_col_tile(route: str, row_tile: int) -> int:
+    """Columns of dF a ``gram_bwd`` block covers: on ffma the 64 x 128 tile
+    or the 128 x 64 one; on wgmma square tiles, 64 x 64 or 128 x 128."""
+    if route == "ffma":
+        return 128 if row_tile == 64 else 64
+    return row_tile
+
+
+def _gram_bwd_plan(n: int, hw: int, c: int, sms: int, dtype: torch.dtype,
+                   aligned: bool = True) -> Tuple[str, int, int, int, int]:
+    """How ``gram_bwd`` launches on an (n, hw, c) input: (route, row_tile,
+    col_tiles, k_splits, k_per_split).
+
+    route: "wgmma" for bf16 with C % 8 == 0 on 16-byte-aligned F, dG and dF,
+    else "ffma". row_tile: ffma takes 64 x 128 tiles (64 rows) where HW <=
+    64 or C > 64, else 128 x 64; wgmma takes 128 x 128 tiles where HW > 64,
+    C % 128 == 0 (no column tile lies wholly past C) and such tiles still
+    give every SM a block, else 64 x 64. col_tiles: of
+    ``_bwd_col_tile`` columns each. k_splits: a power of two up to 16, the
+    blocks of one tile's cluster; C is split until the blocks fill the
+    slots the SMs hold at once (3 an SM on ffma, 2 on wgmma), keeping at
+    least 256 channels a split. ``_k_ranges`` gives each split's channels:
+    k_per_split each, a whole number of the route's stages, the last the
+    rest of C."""
+    route = "wgmma" if dtype == torch.bfloat16 and c % 8 == 0 and aligned else "ffma"
+    if route == "ffma":
+        row_tile = 64 if hw <= 64 or c > 64 else 128
+    else:
+        big = hw > 64 and c % 128 == 0 and n * -(-hw // 128) * (c // 128) >= sms
+        row_tile = 128 if big else 64
+    col_tiles = -(-c // _bwd_col_tile(route, row_tile))
+    blocks = n * -(-hw // row_tile) * col_tiles
+    k_splits = 1
+    while (k_splits < _MAX_SPLITS and blocks * k_splits < _BWD_BLOCKS_PER_SM[route] * sms
+           and c // (2 * k_splits) >= _MIN_SPLIT_K):
+        k_splits *= 2
+    step = _BWD_STAGE_K[route]
+    share = -(-c // k_splits)
+    return route, row_tile, col_tiles, k_splits, -(-share // step) * step
+
+
+def _k_ranges(c: int, k_splits: int, k_per_split: int) -> List[Tuple[int, int]]:
+    """[begin, end) of channels for each split, as ``gram_bwd`` takes them
+    (csrc/gram.cu ``k_range``): k_per_split each, the last the rest."""
+    out = []
+    for s in range(k_splits):
+        begin = min(c, s * k_per_split)
+        out.append((begin, c if s == k_splits - 1 else min(c, begin + k_per_split)))
+    return out
+
+
+def gram_bwd_plan_for(f: torch.Tensor, dg: torch.Tensor,
+                      df: torch.Tensor) -> Tuple[str, int, int, int, int]:
+    """``_gram_bwd_plan`` for CUDA tensors F, dG and dF."""
+    n, hw, c = f.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (f, dg, df))
+    return _gram_bwd_plan(n, hw, c, _sm_count(f.device), f.dtype, aligned=aligned)
+
+
 def gram_bwd(f: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
-    """dF (N, HW, C) from f and dG (N, C, C). CPU: plain; CUDA: the kernel."""
+    """dF (N, HW, C) from f and dG (N, C, C). CPU: plain; CUDA: the kernel,
+    on the route and splits that ``gram_bwd_plan_for`` picks."""
     if f.device.type == "cpu":
         return gram_bwd_plain(f, dg)
     _check_input("gram_bwd", f)
@@ -195,9 +260,11 @@ def gram_bwd(f: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
     if not dg.is_contiguous():
         raise ValueError("gram_bwd: dG is not contiguous")
     df = torch.empty_like(f)
+    route, row_tile, _, k_splits, k_per_split = gram_bwd_plan_for(f, dg, df)
     err = LIBRARY.load().hst_gram_bwd(
-        f.data_ptr(), dg.data_ptr(), df.data_ptr(), n, hw, c,
-        _DTYPE_CODE[f.dtype], _stream(f.device),
+        f.data_ptr(), dg.data_ptr(), df.data_ptr(), n, hw, c, _ROUTE_CODE[route], row_tile,
+        _bwd_col_tile(route, row_tile), k_splits, k_per_split, _DTYPE_CODE[f.dtype],
+        _stream(f.device),
     )
     check("gram_bwd", err)
     LAUNCHES["gram_bwd"] += 1
@@ -238,23 +305,30 @@ def _pooled_split_rows(hw: int, splits: int) -> List[Tuple[int, int]]:
     return out
 
 
-def _pooled_gram_route(dtype: torch.dtype, c: int, aligned: bool = True) -> str:
-    """How ``pooled_gram_kernel`` stages F, as csrc/gram.cu picks it: "bulk"
-    (one TMA bulk copy a stage: C * size a multiple of 16 bytes on a
-    16-byte-aligned F) or "scalar" (scalar loads)."""
+def _pooled_gram_route(dtype: torch.dtype, c: int, s: int, aligned: bool = True) -> str:
+    """How ``pooled_gram_fwd`` runs, as the wrapper and csrc/gram.cu pick it:
+    for S <= ``MAX_POOL_SIZE`` one ``pooled_gram_kernel`` that stages F by
+    "bulk" (one TMA bulk copy a stage: C * size a multiple of 16 bytes on a
+    16-byte-aligned F) or by "scalar" loads; for larger S "project":
+    ``pooled_project_kernel`` writes Y = F P^T in f32, then gram_fwd's FFMA
+    route computes Y^T Y / HW."""
+    if s > MAX_POOL_SIZE:
+        return "project"
     return "bulk" if aligned and c * (2 if dtype == torch.bfloat16 else 4) % 16 == 0 else "scalar"
 
 
-def pooled_gram_route_for(f: torch.Tensor) -> str:
+def pooled_gram_route_for(f: torch.Tensor, s: int) -> str:
     """``_pooled_gram_route`` for a CUDA (N, HW, C) tensor."""
-    return _pooled_gram_route(f.dtype, f.shape[-1], aligned=f.data_ptr() % 16 == 0)
+    return _pooled_gram_route(f.dtype, f.shape[-1], s, aligned=f.data_ptr() % 16 == 0)
 
 
 def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
     """(N, HW, C) -> (N, S, S) with S = out_size, as
-    ``pooled_gram_pallas(x, out_size)``. CPU: plain; CUDA: the kernel, which
-    computes the pooling bins itself. Forward only: the kernel has no
-    backward yet, so a CUDA input that needs a gradient raises."""
+    ``pooled_gram_pallas(x, out_size)``. CPU: plain; CUDA: the kernels,
+    which compute the pooling bins themselves, on the route that
+    ``pooled_gram_route_for`` names (one call counts one launch). Forward
+    only: there is no backward kernel yet, so a CUDA input that needs a
+    gradient raises."""
     if f.device.type == "cpu":
         return pooled_gram_fwd_plain(f, out_size)
     _check_input("pooled_gram_fwd", f)
@@ -262,15 +336,28 @@ def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
         raise NotImplementedError("pooled_gram_fwd has no backward kernel yet")
     n, hw, c = f.shape
     s = int(out_size)
-    if not 1 <= s <= MAX_POOL_SIZE or hw < 1 or c * f.element_size() > _MAX_ROW_BYTES:
+    project = s > MAX_POOL_SIZE
+    if s < 1 or hw < 1 or (not project and c * f.element_size() > _MAX_ROW_BYTES):
         raise ValueError(
-            f"pooled_gram_fwd: S={s}, HW={hw}, C={c} outside the kernel's limits "
-            f"(1 <= S <= {MAX_POOL_SIZE}, HW >= 1, a row of F <= {_MAX_ROW_BYTES} bytes)"
+            f"pooled_gram_fwd: S={s}, HW={hw}, C={c} outside the kernels' limits "
+            f"(S >= 1, HW >= 1; for S <= {MAX_POOL_SIZE} a row of F <= {_MAX_ROW_BYTES} bytes)"
         )
+    lib, stream = LIBRARY.load(), _stream(f.device)
+    if project:
+        y = torch.empty((n, hw, s), device=f.device, dtype=torch.float32)
+        check("pooled_gram_fwd", lib.hst_pooled_project(
+            f.data_ptr(), y.data_ptr(), n, hw, c, s, _DTYPE_CODE[f.dtype], stream))
+        route, _, splits, rows = _gram_fwd_plan(n, hw, s, _sm_count(f.device), torch.float32)
+        g = torch.empty((n, s, s), device=f.device, dtype=torch.float32)
+        check("pooled_gram_fwd", lib.hst_gram_fwd(
+            y.data_ptr(), g.data_ptr(), n, hw, s, splits, rows, _ROUTE_CODE[route],
+            _DTYPE_CODE[torch.float32], stream))
+        LAUNCHES["pooled_gram_fwd"] += 1
+        return g.to(f.dtype)
     splits, _ = _pooled_gram_plan(n, hw, _sm_count(f.device))
     g = torch.empty((n, s, s), device=f.device, dtype=f.dtype)
-    err = LIBRARY.load().hst_pooled_gram_fwd(
-        f.data_ptr(), g.data_ptr(), n, hw, c, s, splits, _DTYPE_CODE[f.dtype], _stream(f.device),
+    err = lib.hst_pooled_gram_fwd(
+        f.data_ptr(), g.data_ptr(), n, hw, c, s, splits, _DTYPE_CODE[f.dtype], stream,
     )
     check("pooled_gram_fwd", err)
     LAUNCHES["pooled_gram_fwd"] += 1

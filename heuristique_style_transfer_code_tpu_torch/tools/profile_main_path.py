@@ -38,7 +38,7 @@ from ..tasks.fast_style import make_net_job_fn
 from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_transfer_optimizer
 
 GRAM_KERNELS = ("gram_fwd_kernel", "gram_fwd_wgmma_kernel", "gram_bwd_kernel",
-                "pooled_gram_kernel")
+                "gram_bwd_wgmma_kernel", "pooled_gram_kernel", "pooled_project_kernel")
 IN_KERNELS = ("in_stats_kernel", "in_finalize_kernel", "in_apply_kernel")
 
 

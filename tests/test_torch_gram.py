@@ -324,4 +324,173 @@ def test_pooled_gram_phases_tool_finds_its_anchors():
 def test_pooled_gram_route(dtype, c, aligned, want):
     """Bulk copies exactly where a row is a whole number of 16-byte chunks on
     an aligned base, as gram_fwd's cp.async route and TMA need."""
-    assert kgram._pooled_gram_route(dtype, c, aligned) == want
+    assert kgram._pooled_gram_route(dtype, c, 7, aligned) == want
+    assert kgram._pooled_gram_route(dtype, c, kgram.MAX_POOL_SIZE, aligned) == want
+
+
+# ------------------------------------------- pooled_gram_fwd for S > 16
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,s", [(256, 17), (200, 24), (2048, 40), (5, 20)])
+def test_pooled_gram_route_projects_past_16(dtype, c, s):
+    """Past MAX_POOL_SIZE every input takes the two-launch "project" route,
+    aligned or not."""
+    for aligned in (True, False):
+        assert kgram._pooled_gram_route(dtype, c, s, aligned) == "project"
+
+
+def _pooled_projected_as_kernels(f: torch.Tensor, s: int) -> torch.Tensor:
+    """The pooled Gram built as the "project" route builds it: Y = each
+    row's bin sums times the bin's f32 weight, in f32 (pooled_project_kernel),
+    then gram_fwd's FFMA decomposition of Y (plan of an f32 (N, HW, S)
+    input), cast once to f's dtype."""
+    n, hw, c = f.shape
+    ff = f.float()
+    y = torch.stack([ff[..., lo:hi].sum(-1) * w for lo, hi, w in kgram._pool_bins(c, s)], -1)
+    route, _, splits, rows = kgram._gram_fwd_plan(n, hw, s, _SMS, torch.float32)
+    assert route == "ffma"
+    return _assemble_as_kernel(y, splits, rows).to(f.dtype)
+
+
+@pytest.mark.parametrize("s", [24, 40])
+@pytest.mark.parametrize("shape", [(2, 13, 11, 200), (1, 4, 4, 2048), (2, 5, 5, 5)])
+def test_pooled_gram_projection_matches_jax_f32(shape, s):
+    """The "project" route's decomposition against JAX's XLA pooled Gram and
+    the Pallas kernel in interpret mode at 1e-4; C = 5 < S puts a channel
+    in several bins."""
+    n, h, w, c = shape
+    x = np.abs(_x(shape, 8))
+    f = torch.from_numpy(x).reshape(n, h * w, c)
+    got = _pooled_projected_as_kernels(f, s).numpy()
+    assert got.shape == (n, s, s)
+    np.testing.assert_allclose(got, np.asarray(j_pooled(jnp.asarray(x), s)), **F32)
+    np.testing.assert_allclose(
+        got, np.asarray(pooled_gram_pallas(jnp.asarray(x), s, interpret=True)), **F32
+    )
+    np.testing.assert_allclose(got, kgram.pooled_gram_fwd_plain(f, s).numpy(), **F32)
+
+
+@pytest.mark.parametrize("s", [24, 40])
+@pytest.mark.parametrize("shape", [(2, 13, 11, 200), (1, 4, 4, 2048), (2, 5, 5, 5)])
+def test_pooled_gram_projection_matches_jax_bf16(shape, s):
+    """On bf16 inputs, cast once at the end: within 2e-2 of max|G| of JAX's
+    XLA pooled Gram and of the Pallas kernel in interpret mode."""
+    n, h, w, c = shape
+    x = np.abs(_x(shape, 9))
+    jx = jnp.asarray(x, jnp.bfloat16)
+    f = torch.from_numpy(x).to(torch.bfloat16).reshape(n, h * w, c)
+    got = _pooled_projected_as_kernels(f, s)
+    assert got.dtype == torch.bfloat16
+    for want in (j_pooled(jx, s), pooled_gram_pallas(jx, s, interpret=True)):
+        want = np.asarray(want, np.float32)
+        assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
+# ------------------------------------------------- gram_bwd launch plan
+# (n, hw, c): the style loop's three shapes, then the ragged ones of
+# chip_smoke.py: C = 200 at HW = 143, C = 48 at HW = 49, C = 203 at HW = 63
+_BWD_PLAN_SHAPES = [(4, 3136, 64), (4, 3136, 256), (4, 49, 2048),
+                    (1, 143, 200), (2, 49, 48), (1, 63, 203)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _BWD_PLAN_SHAPES)
+def test_gram_bwd_plan_covers_df_and_c_once(shape, dtype):
+    """The row and column tiles cover every (row, col) of dF once, no tile
+    lies wholly past the edge, and the k-splits cover every channel once in
+    whole stages."""
+    n, hw, c = shape
+    route, row_tile, col_tiles, k_splits, k_per_split = kgram._gram_bwd_plan(n, hw, c, _SMS, dtype)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and c % 8 == 0 else "ffma")
+    assert row_tile == 64 or (row_tile == 128 and hw > 64)
+    assert row_tile * kgram._bwd_col_tile(route, row_tile) in (64 * 128, 64 * 64, 128 * 128)
+    col = kgram._bwd_col_tile(route, row_tile)
+    row_tiles = -(-hw // row_tile)
+    assert (row_tiles - 1) * row_tile < hw and (col_tiles - 1) * col < c <= col_tiles * col
+    cover = np.zeros((hw, c), np.int32)
+    for rt in range(row_tiles):
+        for ct in range(col_tiles):
+            cover[rt * row_tile:(rt + 1) * row_tile, ct * col:(ct + 1) * col] += 1
+    assert (cover == 1).all()
+
+    assert k_splits in (1, 2, 4, 8, 16)
+    assert k_per_split % kgram._BWD_STAGE_K[route] == 0
+    ranges = kgram._k_ranges(c, k_splits, k_per_split)
+    assert len(ranges) == k_splits
+    covered = np.zeros(c, np.int32)
+    for begin, end in ranges:
+        covered[begin:end] += 1
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("dtype,c,aligned,want", [
+    (torch.bfloat16, 256, True, "wgmma"), (torch.bfloat16, 48, True, "wgmma"),
+    (torch.bfloat16, 256, False, "ffma"),   # a base off 16 bytes: no TMA
+    (torch.bfloat16, 203, True, "ffma"),    # C % 8 != 0
+    (torch.bfloat16, 60, True, "ffma"),
+    (torch.float32, 256, True, "ffma"),     # f32 stays off the tensor cores
+])
+def test_gram_bwd_route(dtype, c, aligned, want):
+    assert kgram._gram_bwd_plan(2, 100, c, _SMS, dtype, aligned)[0] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_bwd_plan_splits_c_at_layer4_only(dtype):
+    """Layer4's (4, 49, 2048) leaves the SMs idle without a split of C; the
+    other main shapes fill them with output tiles alone."""
+    assert kgram._gram_bwd_plan(4, 49, 2048, _SMS, dtype)[3] > 1
+    assert kgram._gram_bwd_plan(4, 3136, 256, _SMS, dtype)[3] == 1
+    assert kgram._gram_bwd_plan(4, 3136, 64, _SMS, dtype)[3] == 1
+
+
+def _gram_bwd_as_kernel(f: torch.Tensor, dg: torch.Tensor, plan) -> torch.Tensor:
+    """dF built as gram_bwd's blocks build it, in f32: per (row tile, col
+    tile), one partial per k-split (wgmma: F dG + F dG^T as two products
+    into one sum; ffma: F (dG + dG^T) with the transposed tile added first),
+    the splits added in order, scaled by the reciprocal of HW, cast once."""
+    route, row_tile, col_tiles, k_splits, k_per_split = plan
+    n, hw, c = f.shape
+    col = kgram._bwd_col_tile(route, row_tile)
+    ff, dgf = f.float(), dg.float()
+    inv = torch.tensor(1.0, dtype=torch.float32) / hw
+    out = torch.full((n, hw, c), float("nan"), dtype=torch.float32)
+    for img in range(n):
+        for rt in range(-(-hw // row_tile)):
+            rs = slice(rt * row_tile, (rt + 1) * row_tile)
+            for ct in range(col_tiles):
+                cs = slice(ct * col, (ct + 1) * col)
+                acc = None
+                for kb, ke in kgram._k_ranges(c, k_splits, k_per_split):
+                    a = ff[img, rs, kb:ke]
+                    b, bt = dgf[img, kb:ke, cs], dgf[img, cs, kb:ke].t()
+                    part = a @ b + a @ bt if route == "wgmma" else a @ (b + bt)
+                    acc = part if acc is None else acc + part
+                out[img, rs, cs] = acc * inv
+    return out.to(f.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 7, 7, 48), (1, 13, 11, 200), (1, 7, 7, 512),
+                                   (1, 12, 12, 64)])
+def test_gram_bwd_decomposition_matches_jax_vjp(shape, dtype):
+    """The kernels' decomposition (plan of the given dtype) against jax.vjp
+    of JAX's ``gram_matrix_nhwc`` under a non-symmetric cotangent: 1e-4 in
+    f32, 2e-2 of max|dF| in bf16. C = 48 and 200 leave ragged column
+    tiles; (1, 7, 7, 512) splits C; HW = 144 takes a partial row tile."""
+    n, h, w, c = shape
+    x = np.abs(_x(shape, 10))
+    cot = _x((n, c, c), 11)
+    plan = kgram._gram_bwd_plan(n, h * w, c, _SMS, dtype)
+    if shape == (1, 7, 7, 512):
+        assert plan[3] > 1
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    _, vjp = jax.vjp(j_gram, jnp.asarray(x, jdt))
+    want = np.asarray(vjp(jnp.asarray(cot, jdt))[0], np.float32).reshape(n, h * w, c)
+    f = torch.from_numpy(x).to(dtype).reshape(n, h * w, c)
+    dg = torch.from_numpy(cot).to(dtype)
+    got = _gram_bwd_as_kernel(f, dg, plan)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, **F32)
+        np.testing.assert_allclose(got.numpy(), kgram.gram_bwd_plain(f, dg).numpy(), **F32)
+    else:
+        assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
