@@ -17,8 +17,13 @@ Phases, all run every time:
                   instance_norm_fwd likewise at the fast-style net's
                   shapes (B = 8, with and without ReLU, per-image affine
                   rows that differ), at C = 48, C = 5,
-                  (1,512,512,32) bf16 and on channels of mean 1e3, on signed
-                  inputs as conv outputs are; time the kernel, the plain
+                  (1,512,512,32) bf16, (1|4,224,224,32) and on channels of
+                  mean 1e3, on signed inputs as conv outputs are, each row
+                  naming its route (cluster or split), cluster size,
+                  resident share, bytes read twice and the clusters the card
+                  holds at once, cluster rows also timing the split route;
+                  the cluster route forced onto ragged shapes and a
+                  misaligned bf16 input; time the kernel, the plain
                   version and a library call; compute each bound from the
                   shapes and the card's peak rates.
   classification  family 2 at full width (truncate 8, S 7, 4 classes, 224²
@@ -100,6 +105,8 @@ MAIN_SHAPE = {"gram_fwd": (4, 56, 56, 256), "gram_bwd": (4, 56, 56, 256),
 # the fast-style net's norms at crop 224, width 32, batch 8: in1 and in_up2,
 # in2 and in_up1, in3 and the residual blocks' 10
 IN_SHAPES = [(8, 224, 224, 32), (8, 112, 112, 64), (8, 56, 56, 128)]
+# in1's shape at the smaller sizes of a --batch_size ladder
+LADDER_IN_SHAPES = [(1, 224, 224, 32), (4, 224, 224, 32)]
 NORMS_PER_FORWARD = 15
 N_REQUESTS, REQUEST_THREADS = 16, 8
 
@@ -292,36 +299,134 @@ def phase_kernels(kg, peaks) -> dict:
     return rows
 
 
-def phase_in_kernels(kin, peaks) -> list:
+def _cluster_candidates(kin, x) -> list:
+    """Every configuration ``_plan`` examined for x, with the clusters the
+    card holds at once (cudaOccupancyMaxActiveClusters), in its order."""
+    seen = []
+
+    def active(plan):
+        n = kin._occupancy(x.device.index or 0, x.shape[1], x.shape[2], x.element_size(), plan)
+        seen.append(dict(k=plan.k, resident_rows=plan.res_rows, ring_slots=plan.slots,
+                         smem=plan.smem, clusters=n))
+        return n
+
+    b, hw, c = x.shape
+    kin._plan(b, hw, c, x.element_size(), kin._aligned(x), active)
+    return seen
+
+
+def _run_plan(kin, x, scale, bias, relu, plan):
+    """instance_norm_fwd's kernel on a given plan; counts no launch."""
+    import torch
+
+    y = torch.empty_like(x)
+    kin._launch(kin.LIBRARY.load(), x, scale, bias, y, plan, kin.EPS, relu)
+    return y
+
+
+def _forced_in_checks(kin) -> list:
+    """The cluster route forced onto ragged shapes (C = 48, an odd HW, a
+    prime HW that does not divide into the blocks, streamed rows that do
+    not divide into stages), and a misaligned bf16 input, which the plan
+    sends to the split route's scalar loads; each against the plain
+    version at TOL_IN. Not timed; outside the main path's launch counts."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = []
+    for (b, h, w, c) in [(3, 37, 29, 48), (2, 1, 1009, 16)]:
+        hw = h * w
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((b, hw, c), device=dev, generator=gen) * 2 + 0.5).to(dtype)
+            scale = torch.randn((b, c), device=dev, generator=gen)
+            bias = torch.randn((b, c), device=dev, generator=gen)
+            want = kin.instance_norm_fwd_plain(x, scale, bias, relu=True).double()
+            plans = []
+            for k in (3, 16):  # every row resident
+                res = -(-hw // k)
+                plans.append(kin.Plan("cluster", k, res, max(1, -(-res // 16)), 0, 0))
+            for k, stage in ((2, 7), (5, 13)):  # a third resident, the rest streamed
+                res = -(-hw // k) // 3
+                plans.append(kin.Plan("cluster", k, res, max(1, -(-res // 16)), stage, 2))
+            for plan in plans:
+                got = _run_plan(kin, x, scale, bias, True, plan).double()
+                torch.cuda.synchronize()
+                diff = got - want
+                rel = (diff.abs().max() / want.abs().max()).item()
+                rms = (diff.norm() / want.norm()).item()
+                tol_max, tol_rms = TOL_IN[str(dtype).split(".")[1]]
+                out.append(dict(shape=[b, h, w, c], dtype=str(dtype).split(".")[1],
+                                plan=plan._asdict(), rel_err=rel, rms_err=rms,
+                                ok=rel <= tol_max and rms <= tol_rms))
+    flat = torch.randn((1 + 4 * 99 * 24,), device=dev, generator=gen).to(torch.bfloat16)
+    x = flat[1:].view(4, 99, 24)  # 2 bytes past a 16-byte boundary
+    scale = torch.randn((4, 24), device=dev, generator=gen)
+    bias = torch.randn((4, 24), device=dev, generator=gen)
+    plan = kin.instance_norm_plan_for(x)
+    got = kin.instance_norm_fwd(x, scale, bias, relu=True).double()
+    want = kin.instance_norm_fwd_plain(x, scale, bias, relu=True).double()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    rms = ((got - want).norm() / want.norm()).item()
+    out.append(dict(shape=[4, 1, 99, 24], dtype="bfloat16", misaligned=True, plan=plan._asdict(),
+                    rel_err=rel, rms_err=rms,
+                    ok=plan.route == "split" and rel <= TOL_IN["bfloat16"][0]
+                    and rms <= TOL_IN["bfloat16"][1]))
+    for r in out:
+        p = r["plan"]
+        print(f"[kernels] instance_norm_fwd forced {r['dtype']} {tuple(r['shape'])}"
+              f"{' misaligned' if r.get('misaligned') else ''} route={p['route']} k={p['k']} "
+              f"resident_rows={p['res_rows']} stage_rows={p['stage_rows']}: "
+              f"rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} ok={r['ok']}")
+    bad = [(r["dtype"], r["shape"], r["plan"]) for r in out if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"instance_norm_fwd disagrees with its plain version: {bad}")
+    return out
+
+
+def phase_in_kernels(kin, peaks):
     """instance_norm_fwd against its plain version; returns one row per
-    case. Inputs are signed, like conv outputs (randn * 2 + 0.5 plus
-    per-channel offsets), with per-image scale and bias rows that differ.
-    The mean-1e3 case is held against the plain version run in float64 on
-    the same values: in f32 the plain version's own mean rounds by about
-    3e-5 at 1e3, which is 1e-5 of the output, the tolerance itself."""
+    case, and the forced-route checks. Inputs are signed, like conv outputs
+    (randn * 2 + 0.5 plus per-channel offsets), with per-image scale and
+    bias rows that differ. The mean-1e3 cases are held against the plain
+    version run in float64 on the same values: in f32 the plain version's
+    own mean rounds by about 3e-5 at 1e3, which is 1e-5 of the output, the
+    tolerance itself. Each row names the route the plan took, its cluster
+    size k, the share of x that stays in shared memory, the bytes of x read
+    a second time and how many such clusters the card holds at once; rows
+    on the cluster route also time the split route on the same inputs
+    (``split_ms``: PR 2's three launches)."""
     import torch
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = [(shape, dtype, relu, "signed") for shape in IN_SHAPES
+    # the ladder's smaller batches and a net shape at mean 1e3 draw from
+    # their own generator, so the earlier cases' inputs stay as they were
+    gen_more = torch.Generator(device=dev).manual_seed(8)
+    cases = [(shape, dtype, relu, "signed", gen) for shape in IN_SHAPES
              for dtype in (torch.float32, torch.bfloat16) for relu in (False, True)]
-    cases += [((3, 37, 29, 48), dtype, True, "signed") for dtype in (torch.float32, torch.bfloat16)]
-    cases += [((2, 13, 11, 5), dtype, True, "signed") for dtype in (torch.float32, torch.bfloat16)]
-    cases += [((1, 512, 512, 32), torch.bfloat16, True, "signed"),
-              ((2, 224, 224, 32), torch.float32, False, "mean 1e3")]
+    cases += [((3, 37, 29, 48), dtype, True, "signed", gen)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((2, 13, 11, 5), dtype, True, "signed", gen)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((1, 512, 512, 32), torch.bfloat16, True, "signed", gen),
+              ((2, 224, 224, 32), torch.float32, False, "mean 1e3", gen)]
+    cases += [(shape, dtype, True, "signed", gen_more) for shape in LADDER_IN_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [((8, 56, 56, 128), torch.float32, False, "mean 1e3", gen_more)]
     rows = []
-    for (b, h, w, c), dtype, relu, kind in cases:
+    for (b, h, w, c), dtype, relu, kind, g in cases:
         hw = h * w
         dname = str(dtype).split(".")[1]
         if kind == "mean 1e3":  # std 1 around 1e3: a one-pass variance fails here
-            xf = torch.randn((b, hw, c), device=dev, generator=gen) + 1e3
+            xf = torch.randn((b, hw, c), device=dev, generator=g) + 1e3
         else:
-            xf = (torch.randn((b, hw, c), device=dev, generator=gen) * 2 + 0.5
-                  + torch.randn((c,), device=dev, generator=gen))
+            xf = (torch.randn((b, hw, c), device=dev, generator=g) * 2 + 0.5
+                  + torch.randn((c,), device=dev, generator=g))
         x = xf.to(dtype)
-        scale = torch.randn((b, c), device=dev, generator=gen)
-        bias = torch.randn((b, c), device=dev, generator=gen)
+        scale = torch.randn((b, c), device=dev, generator=g)
+        bias = torch.randn((b, c), device=dev, generator=g)
         got = kin.instance_norm_fwd(x, scale, bias, relu=relu)
         torch.cuda.synchronize()
         ref = x.double() if kind == "mean 1e3" else x
@@ -336,6 +441,13 @@ def phase_in_kernels(kin, peaks) -> list:
         if kind == "mean 1e3":  # what the f32 plain version itself is off by here
             p32 = kin.instance_norm_fwd_plain(x, scale, bias, relu=relu).double()
             extra["plain_f32_rel_err"] = ((p32 - want).abs().max() / want.abs().max()).item()
+        plan = kin.instance_norm_plan_for(x)
+        share, reread = kin.plan_traffic(plan, b, hw, c, x.element_size())
+        if plan.route == "cluster":
+            extra["split_ms"] = _time_ms(
+                lambda: _run_plan(kin, x, scale, bias, relu, kin.SPLIT))
+            if (b, h, w, c) in IN_SHAPES and relu:
+                extra["candidates"] = _cluster_candidates(kin, x)
         # 1 read of x, 1 write of y, the (B, C) rows; about 7 f32 operations
         # per element (shift, sums, deviation square, apply), on CUDA cores
         es = x.element_size()
@@ -346,6 +458,8 @@ def phase_in_kernels(kin, peaks) -> list:
         rows.append(dict(
             shape=[b, h, w, c], dtype=dname, relu=relu, input=kind, max_abs_err=err,
             rel_err=rel, rms_err=rms, tol=[tol_max, tol_rms], ok=ok,
+            route=plan.route, k=plan.k, resident_share=share, reread_bytes=reread,
+            clusters=plan.clusters, plan=plan._asdict(),
             ms=_time_ms(lambda: kin.instance_norm_fwd(x, scale, bias, relu=relu)),
             plain_ms=_time_ms(lambda: kin.instance_norm_fwd_plain(x, scale, bias, relu=relu)),
             # one library call: a single (C,) affine, no ReLU
@@ -354,16 +468,24 @@ def phase_in_kernels(kin, peaks) -> list:
         del x, xf, got, want, diff
     for r in rows:
         print(f"[kernels] instance_norm_fwd {r['dtype']} {tuple(r['shape'])} relu={r['relu']} "
-              f"{r['input']}: max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} "
+              f"{r['input']}: route={r['route']} k={r['k']} resident={r['resident_share']:.3f} "
+              f"reread_bytes={r['reread_bytes']} clusters={r['clusters']} "
+              f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} "
               f"rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+              + (f"split_ms={r['split_ms']:.4f} " if "split_ms" in r else "")
+              + f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})"
               + (f" plain_f32_rel_err={r['plain_f32_rel_err']:.3e}" if "plain_f32_rel_err" in r
                  else ""))
+        if "candidates" in r:
+            print(f"[kernels]   cluster configurations the plan examined (k, resident rows, "
+                  f"ring slots, smem, clusters at once): "
+                  + ", ".join(f"({q['k']}, {q['resident_rows']}, {q['ring_slots']}, {q['smem']}, "
+                              f"{q['clusters']})" for q in r["candidates"]))
     bad = [(r["dtype"], r["shape"], r["relu"], r["input"]) for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"instance_norm_fwd disagrees with its plain version: {bad}")
-    return rows
+    return rows, _forced_in_checks(kin)
 
 
 def _batches(n_images: int, batch: int, seed: int):
@@ -698,7 +820,7 @@ def main() -> int:
 
     timings = {}
     rows = phase_kernels(kg, peaks)
-    rows["instance_norm_fwd"] = phase_in_kernels(kin, peaks)
+    rows["instance_norm_fwd"], in_checks = phase_in_kernels(kin, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model, seeded, cls_launches = phase_classification(kernels, tmp, timings)
         st_launches = phase_style_transfer(kernels, model, seeded, tmp, timings)
@@ -731,7 +853,7 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "power": smi, "rows": rows, "timings": timings,
-                   "records": records}, f, indent=1)
+                   "instance_norm_checks": in_checks, "records": records}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

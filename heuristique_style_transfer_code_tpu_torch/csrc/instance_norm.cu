@@ -1,4 +1,4 @@
-// Instance-norm kernel for Hopper (sm_90a), bound to Python through ctypes
+// Instance-norm kernels for Hopper (sm_90a), bound to Python through ctypes
 // (ops/kernels/instance_norm.py):
 //
 //   instance_norm_fwd  y[b, r, c] = (x[b, r, c] - mu[b, c]) * a[b, c] + bias[b, c],
@@ -9,8 +9,9 @@
 // blended affines, or one style's row repeated). mu and var are f32 and
 // two-pass accurate; the output is cast to x's type once. Launches go on
 // the caller's stream, never synchronise and allocate nothing: the wrapper
-// passes the output and the scratch buffers in. The C entry returns
-// cudaGetLastError() so that a refused launch is seen.
+// passes the output (and the split route's scratch) in. Each C entry
+// returns cudaGetLastError() (or the error of the launch itself) so that a
+// refused launch is seen.
 //
 // ---------------------------------------------------------------------------
 // Replaces heuristique_style_transfer_code_tpu/ops/pallas/
@@ -20,38 +21,87 @@
 // read and written; at 1 read and 1 write, (8,224,224,32) f32 moves
 // 102.8 MB, about 31 us at 3.35 TB/s.
 //
-// Design. The TPU kernel kept one whole image in VMEM per grid step, so its
-// statistics and its apply shared one read of x. A Hopper SM has 227 KB of
-// shared memory against a 6.4 MB image, and one block per image would leave
-// most of the 132 SMs idle at B = 8, so here each image's HW rows are split
-// over many blocks and the work takes three launches:
+// Both routes shift x by the image's first row K[c] before any sum: x - K
+// is exact where x and K are within a factor 2 of each other, and keeps the
+// sums small whatever the mean. The statistics are of u = x - K. The split
+// route applies y = ((x - K) - u_mean) * a + bias, the cluster route
+// y = (x - K) * a + (bias - u_mean * a), which is one FADD an element less
+// and as accurate: both subtract the large part, K, first. Not
+// x * a + (bias - mu * a), as the TPU kernel had it: at a channel mean of
+// 1e3 that cancels two numbers of size 1e3, and even x - mu carries mu's
+// rounding at 1e3 (3e-5), about 1e-5 of the output. No sum is taken with
+// atomics: every result is the same from run to run.
 //
+// Route "cluster" (in_cluster_kernel; the wrapper's plan picks it for the
+// fast-style net's shapes): one launch, one thread-block cluster of k <= 16
+// blocks per image, 1 read of x and 1 write of y where the image fits in
+// the cluster's shared memory. The TPU kernel kept a whole image in VMEM;
+// here the cluster's blocks together take its place:
+//   1. Block r of the cluster owns a contiguous stretch of the image's rows
+//      (HW / k, one more for the first HW % k blocks). Thread 0 issues TMA
+//      bulk copies of all of it at once: the resident rows (as many as fit
+//      in the block's 227 KB) in chunks onto one mbarrier each (L2
+//      evict-first: they are not read again), and the rest, where the image
+//      does not fit, through a ring of stages (L2 evict-last: they are read
+//      again for the apply). Each thread sums u over its rows as the chunks
+//      land (f32). A streamed stage is taken two-pass over the thread's
+//      rows of it, about their own mean, and merged exactly into the
+//      thread's running (n, mean, M2) (Chan et al.: M2 += M2_g +
+//      n n_g / (n + n_g) (mean_g - mean)^2), in stage order.
+//   2. The block's per-channel sums (threads added in a fixed tree) go to
+//      every block of the cluster through distributed shared memory: st.async
+//      into slot r of each block, each store counted on the receiver's
+//      mbarrier, which waits for all k x C x 4 bytes. Every block adds the k
+//      slots in rank order: the same mean in every block, no scratch in
+//      device memory, no cluster barrier.
+//   3. Each thread sums (u - mean)^2 over its resident rows, from shared
+//      memory, and adds its streamed rows' M2 + n (mean_s - mean)^2: a true
+//      two-pass over the whole image. A second exchange, into a second
+//      buffer on a second mbarrier, gives var and a = scale * rsqrt(var +
+//      eps).
+//   4. The apply writes y with 16-byte stores: first the streamed rows,
+//      re-read through the ring while they are still in L2, then the
+//      resident rows from shared memory. Where the block streams rows, y
+//      leaves with evict-first stores that keep those rows in L2; where
+//      the image is resident, with plain stores that leave y in L2 for the
+//      next layer.
+// One cluster barrier a call, arrived at once the mbarriers are set up and
+// waited on before the first remote store (every arrive has its wait). All
+// stores into a block's shared memory are counted on its two exchange
+// mbarriers, so once it has waited on them no other block touches it, and
+// it may leave as soon as its own stores are issued.
+// What the card showed (tools/instance_norm_sweep.py; PERF.md, Findings):
+// blocks that fill an SM are needed to spread a cluster over k SMs, and an
+// H100 SXM then holds at most 7 clusters of 10..16 such blocks, 9 of 9 and
+// 15 of 8 at once, so B = 8 takes k = 8 (64 SMs): 16 would run the eighth
+// image in a second round. Where the image does not fit in 8 x 227 KB,
+// rows stream through 3 stages of 64 KB and keep only what is left
+// resident: more bytes in flight an SM beat more resident rows, since the
+// second read comes from L2. The per-SM rate of the stream in and of the
+// stores out, and the chain of two exchanges, bound the small images.
+// The plan picks k, the resident rows and the ring so that all B clusters
+// are resident at once (cudaOccupancyMaxActiveClusters, queried on the
+// card). Needs C % (16 / sizeof(T)) == 0, C <= 256 and 16-byte-aligned x
+// and y.
+//
+// Route "split" (in_stats, in_finalize, in_apply: three launches; the plan
+// takes it where a cluster per image cannot serve: few images, which would
+// leave most SMs idle, C that is not a whole number of 16-byte vectors,
+// misaligned pointers, C > 256):
 //   1. in_stats: each block holds ITEMS 16-byte vectors per thread in
-//      registers (1 read of x). It shifts them by the image's first row
-//      K[c] (x - K is exact where x and K are within a factor 2 of each
-//      other, and keeps the sums small whatever the mean), sums them, takes
-//      the block mean u_b, then sums (u - u_b)^2 over the same registers: a
-//      true two-pass within the block, never E[x^2] - E[x]^2. Each block
-//      writes (sum u, sum (u - u_b)^2) per channel to a workspace.
+//      registers (1 read of x), sums u, takes the block mean u_b, then sums
+//      (u - u_b)^2 over the same registers: a true two-pass within the
+//      block. Each block writes (sum u, sum (u - u_b)^2) per channel to a
+//      workspace.
 //   2. in_finalize: per (b, c), the image's blocks are merged in a fixed
-//      order (Chan et al.: M2 = sum_b [M2_b + n_b (u_b - u)^2]), so the
-//      result is bit-identical from run to run (no atomics). It writes K,
-//      the mean of u and a = scale * rsqrt(M2 / HW + eps); mu = K + u.
+//      order (Chan: M2 = sum_b [M2_b + n_b (u_b - u)^2]). It writes K, the
+//      mean of u and a = scale * rsqrt(M2 / HW + eps).
 //   3. in_apply: y = ((x - K) - u) * a + bias (+ ReLU), 1 read and 1 write.
-//      Not x * a + (bias - mu * a), as the TPU kernel had it: at a channel
-//      mean of 1e3 that cancels two numbers of size 1e3, and even x - mu
-//      carries mu's rounding at 1e3 (3e-5), about 1e-5 of the output.
-//
-// So the kernel moves 2 reads and 1 write where the TPU kernel moved 1 and
-// 1; the bound above is the 1 + 1. Thread-block clusters with distributed
-// shared memory (one image per cluster, x kept on chip between the passes),
-// or the statistics fused into the convolution's epilogue, are the ways to
-// the one read, left for later work.
-//
-// Any C >= 1 and any HW: 16-byte vectors (4 f32 or 8 bf16 channels) where
-// C is a multiple of the vector and the pointers are 16-byte aligned, one
-// channel per lane otherwise. None of the TPU kernel's limits (C dividing
-// 128, H*W*C a multiple of 128, the VMEM budget) applies.
+// So it moves 2 reads and 1 write. It takes any C >= 1 and any HW:
+// 16-byte vectors (4 f32 or 8 bf16 channels) where C is a multiple of the
+// vector and the pointers are 16-byte aligned, one channel per lane
+// otherwise. None of the TPU kernel's limits (C dividing 128, H*W*C a
+// multiple of 128, the VMEM budget) applies to either route.
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -294,9 +344,9 @@ in_apply_kernel(const T* __restrict__ x, const float4* __restrict__ coef,
 }
 
 template <typename T, int V>
-int launch(const void* x_, const void* scale, const void* bias, void* y_, void* ws, void* coef,
-           int batch, int hw, int c, int cb, int rl, int splits, int groups, float eps, int relu,
-           cudaStream_t st) {
+int split_launch(const void* x_, const void* scale, const void* bias, void* y_, void* ws,
+                 void* coef, int batch, int hw, int c, int cb, int rl, int splits, int groups,
+                 float eps, int relu, cudaStream_t st) {
   const T* x = static_cast<const T*>(x_);
   T* y = static_cast<T*>(y_);
   const Geometry g{hw, c, cb, rl};
@@ -315,29 +365,681 @@ int launch(const void* x_, const void* scale, const void* bias, void* y_, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- route "cluster" -------------------------------------------------------
+
+constexpr int CL_THREADS = 256;
+constexpr int MAX_CLUSTER = 16;      // non-portable above 8
+constexpr int MAX_CHUNKS = 16;       // resident chunks, one mbarrier each
+constexpr int MAX_SLOTS = 4;         // ring stages
+constexpr int MAX_CL_C = 256;        // a thread per channel in the exchanges
+constexpr size_t MAX_SMEM = 232448;  // a block's shared memory on sm_90
+constexpr int UNROLL = 4;            // shared-memory loads in flight a thread
+
+// What the wrapper's plan chose (ops/kernels/instance_norm.py _plan).
+struct ClusterPlan {
+  int hw, c, k;    // rows and channels of an image, blocks of its cluster
+  int res_rows;    // rows a block keeps resident, at most
+  int chunk_rows;  // resident rows a TMA chunk
+  int stage_rows;  // streamed rows a ring stage (0 where every row is resident)
+  int slots;       // ring stages (0 likewise)
+  int min_smem;    // shared memory a block asks for at least: above half an SM's,
+                   // no two blocks share an SM
+};
+
+// in_cluster_kernel's dynamic shared memory, region by region, as byte
+// offsets (ops/kernels/instance_norm.py _cluster_smem mirrors it): the
+// resident rows at 0, the ring, the two exchange buffers [2][k][C] f32, the
+// block sum's partials (at most [threads][V] f32), the per-channel mean, a
+// and bias - mean * a [3][C] f32, the mbarriers (resident chunks, ring
+// slots, the two exchanges); `total` is what a block asks for, at least
+// min_smem.
+struct ClusterLayout {
+  size_t ring, recv, red, coef, bars, used, total;
+  __host__ __device__ ClusterLayout(const ClusterPlan& p, int elem) {
+    const size_t row = static_cast<size_t>(p.c) * elem;
+    ring = static_cast<size_t>(p.res_rows) * row;
+    recv = ring + static_cast<size_t>(p.slots) * p.stage_rows * row;
+    red = recv + 2 * static_cast<size_t>(p.k) * p.c * 4;
+    coef = red + static_cast<size_t>(CL_THREADS) * (16 / elem) * 4;
+    bars = coef + 3 * static_cast<size_t>(p.c) * 4;
+    used = bars + 8 * (MAX_CHUNKS + MAX_SLOTS + 2);
+    total = used > static_cast<size_t>(p.min_smem) ? used : static_cast<size_t>(p.min_smem);
+  }
+};
+
+bool cluster_plan_ok(const ClusterPlan& p, int elem) {
+  const int v = 16 / elem;
+  if (p.k < 1 || p.k > MAX_CLUSTER || p.hw < 1 || p.c < v || p.c % v != 0 || p.c > MAX_CL_C ||
+      p.res_rows < 0 || p.chunk_rows < 1 || p.min_smem < 0 ||
+      p.stage_rows < 0 || p.slots < 0 ||
+      p.slots > MAX_SLOTS || (p.res_rows + p.chunk_rows - 1) / p.chunk_rows > MAX_CHUNKS)
+    return false;
+  const int longest = (p.hw + p.k - 1) / p.k;
+  if (longest > p.res_rows && (p.stage_rows < 1 || p.slots < 1)) return false;
+  return ClusterLayout(p, elem).total <= MAX_SMEM;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Suspends the thread until the phase completes (the hint bounds the
+// suspension, as CUTLASS's ClusterBarrier::wait does).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity), "r"(0x989680)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  return pol;
+}
+
+// Bytes from global memory into shared memory by TMA, completing on `bar`,
+// under an L2 cache policy.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar, uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(pol)
+      : "memory");
+}
+
+// The channels of one 16-byte vector, as f32 (bf16 widens exactly by a
+// shift), and back.
+template <typename T>
+struct Group;
+template <>
+struct Group<float> {
+  static constexpr int V = 4;
+  __device__ static void unpack(uint4 u, float (&x)[4]) {
+    x[0] = __uint_as_float(u.x);
+    x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z);
+    x[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float (&x)[4]) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]), __float_as_uint(x[2]),
+                      __float_as_uint(x[3]));
+  }
+};
+template <>
+struct Group<__nv_bfloat16> {
+  static constexpr int V = 8;
+  __device__ static void unpack(uint4 u, float (&x)[8]) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  // two channels a conversion (cvt.rn.bf16x2.f32), rounded to nearest even
+  __device__ static uint4 pack(const float (&x)[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// Per-channel sum of every thread's V values (clobbered), added in a fixed
+// order, into threads tid < C / 4 as channels 4 tid .. 4 tid + 3. Where
+// C / V divides 32, the lanes of a warp that share a column are added by
+// shuffles first and each warp's partial goes to red[warp][C]; otherwise
+// each row lane's values go to red[lane_r][C]. Then the rows of red, in
+// order. Every thread of the block must call it, and a block barrier must
+// come between two calls (the second writes red).
+template <int V>
+__device__ float4 block_sum(float (&v)[V], bool active, int lane_r, int lane_c, int cv, int rl,
+                            int c, float* red) {
+  const int tid = threadIdx.x;
+  int rows = rl;
+  if (32 % cv == 0) {
+    for (int off = cv; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+    }
+    if ((tid & 31) < cv) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) red[(tid >> 5) * c + lane_c * V + i] = v[i];
+    }
+    rows = CL_THREADS / 32;
+  } else if (active) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) red[lane_r * c + lane_c * V + i] = v[i];
+  }
+  __syncthreads();
+  float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (tid < c / 4) {
+    for (int r = 0; r < rows; ++r) {
+      const float4 t = reinterpret_cast<const float4*>(red + r * c)[tid];
+      out.x += t.x;
+      out.y += t.y;
+      out.z += t.z;
+      out.w += t.w;
+    }
+  }
+  return out;
+}
+
+// Channels 4 threadIdx.x .. + 3 summed over the k slots of buf[k][C], in
+// rank order (every block adds them alike).
+__device__ __forceinline__ float4 slot_sum4(const float* buf, int k, int c) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r = 0; r < k; ++r) {
+    const float4 t = reinterpret_cast<const float4*>(buf + r * c)[threadIdx.x];
+    s.x += t.x;
+    s.y += t.y;
+    s.z += t.z;
+    s.w += t.w;
+  }
+  return s;
+}
+
+// Phase marks for tools/instance_norm_sweep.py, which builds this source
+// with -DIN_PHASE_TRACE: thread 0 of each block stores %clock64 at mark i
+// to in_phase_clock[block][i] and %globaltimer to in_phase_time, and at
+// mark 0 its SM (%smid) to in_phase_clock[block][7]. Empty otherwise.
+#ifdef IN_PHASE_TRACE
+constexpr int IN_MARKS = 8;
+__device__ unsigned long long in_phase_clock[1 << 16];
+__device__ unsigned long long in_phase_time[1 << 16];
+#define IN_MARK(i)                                                                   \
+  do {                                                                               \
+    if (threadIdx.x == 0) {                                                          \
+      unsigned long long t_, c_;                                                     \
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t_));                       \
+      asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(c_));                           \
+      const size_t at_ = (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * \
+                             IN_MARKS + (i);                                          \
+      in_phase_clock[at_] = c_;                                                      \
+      in_phase_time[at_] = t_;                                                       \
+      if ((i) == 0) {                                                                \
+        unsigned int sm_;                                                            \
+        asm volatile("mov.u32 %0, %%smid;\n" : "=r"(sm_));                            \
+        in_phase_clock[at_ + 7] = sm_;                                               \
+      }                                                                              \
+    }                                                                                \
+  } while (0)
+#else
+#define IN_MARK(i) \
+  do {             \
+  } while (0)
+#endif
+
+// Calls f(r, v) for rows r = first, first + step, ... < end, v the 16-byte
+// vector at base + r * pitch in shared memory, loading U rows before the
+// first of them is used.
+template <int U, typename F>
+__device__ __forceinline__ void for_rows(const uint8_t* base, uint32_t pitch, int first, int end,
+                                         int step, F f) {
+  int r = first;
+  for (; r + (U - 1) * step < end; r += U * step) {
+    uint4 v[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      v[j] = *reinterpret_cast<const uint4*>(base + static_cast<uint32_t>(r + j * step) * pitch);
+#pragma unroll
+    for (int j = 0; j < U; ++j) f(r + j * step, v[j]);
+  }
+  for (; r < end; r += step)
+    f(r, *reinterpret_cast<const uint4*>(base + static_cast<uint32_t>(r) * pitch));
+}
+
+// Stores v into slot `rank` of buf[k][C] (channels 4 threadIdx.x .. + 3)
+// in every block of the cluster, this one included, each store counted on
+// that block's mbarrier `bar` (st.async: the receiver waits for its
+// k x C x 4 bytes, no cluster barrier).
+__device__ __forceinline__ void push_all(float* buf, uint64_t* bar, uint32_t rank, int k, int c,
+                                         float4 v) {
+  const uint32_t local = smem_u32(buf + rank * c + 4 * threadIdx.x);
+  const uint32_t local_bar = smem_u32(bar);
+  for (int dst = 0; dst < k; ++dst) {
+    uint32_t remote, remote_bar;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(dst));
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote_bar)
+                 : "r"(local_bar), "r"(dst));
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+        "[%5];\n" ::"r"(remote),
+        "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
+        : "memory");
+  }
+}
+
+// y = (x - K) * a + (bias - u_mean * a) (+ ReLU) of one 16-byte vector, in
+// x's type.
+template <typename T, bool RELU, int V>
+__device__ __forceinline__ uint4 apply_vec(uint4 raw, const float (&k)[V], const float (&a)[V],
+                                           const float (&shift)[V]) {
+  float u[V];
+  Group<T>::unpack(raw, u);
+  float t[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    t[i] = fmaf(u[i] - k[i], a[i], shift[i]);
+    if (RELU) t[i] = fmaxf(t[i], 0.f);
+  }
+  return Group<T>::pack(t);
+}
+
+// One image per cluster (blockIdx.y), block `rank` of it over its stretch
+// of rows; see the design note at the top. Thread t takes vector column
+// t % (C / V) and rows t / (C / V), + rl, ... of every region, so a warp
+// reads and writes contiguous memory.
+template <typename T, bool RELU>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+in_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const float* __restrict__ bias, T* __restrict__ y, ClusterPlan p, float eps) {
+  extern __shared__ __align__(128) uint8_t cl_smem[];
+  constexpr int V = Group<T>::V;
+  IN_MARK(0);
+  const int tid = threadIdx.x;
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const int b = blockIdx.y;
+  const int c = p.c;
+  const ClusterLayout L(p, sizeof(T));
+  const uint32_t row_bytes = static_cast<uint32_t>(c * sizeof(T));
+  const int base = p.hw / p.k, extra = p.hw % p.k;
+  const int r0 = static_cast<int>(rank) * base + min(static_cast<int>(rank), extra);
+  const int n = base + (static_cast<int>(rank) < extra ? 1 : 0);
+  const int res = min(n, p.res_rows);  // resident rows: [r0 + nstr, r0 + n)
+  const int nstr = n - res;            // streamed rows: [r0, r0 + nstr)
+  const int stages = nstr > 0 ? (nstr + p.stage_rows - 1) / p.stage_rows : 0;
+  const int chunks = (res + p.chunk_rows - 1) / p.chunk_rows;
+  const size_t img = static_cast<size_t>(b) * p.hw * c;
+  const uint8_t* src = reinterpret_cast<const uint8_t*>(x + img);
+  uint64_t* landed = reinterpret_cast<uint64_t*>(cl_smem + L.bars);  // resident chunks
+  uint64_t* full = landed + MAX_CHUNKS;                              // ring slots
+  uint64_t* got = full + MAX_SLOTS;  // the two exchanges' k x C partials have landed
+  const uint32_t sbase = smem_u32(cl_smem);
+  const uint32_t stage_bytes = static_cast<uint32_t>(p.stage_rows) * row_bytes;
+  const uint64_t keep = l2_evict_last(), drop = l2_evict_first();
+
+  // Ring stage g < stages is streamed stage g's first read; stage g >=
+  // stages reads streamed stage g - stages again, for the apply.
+  auto load_stage = [&](int g) {
+    const int s = g < stages ? g : g - stages;
+    const uint32_t bytes = min(p.stage_rows, nstr - s * p.stage_rows) * row_bytes;
+    uint64_t* bar = &full[g % p.slots];
+    // the slot's last reads (generic proxy) come before the copy's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar, bytes);
+    bulk_load(sbase + static_cast<uint32_t>(L.ring) + (g % p.slots) * stage_bytes,
+              src + static_cast<size_t>(r0 + s * p.stage_rows) * row_bytes, bytes, bar,
+              g < stages ? keep : drop);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < chunks; ++i) mbar_init(&landed[i], 1);
+    for (int i = 0; i < p.slots; ++i) mbar_init(&full[i], 1);
+    for (int e = 0; e < 2; ++e) {
+      mbar_init(&got[e], 1);
+      mbar_expect_tx(&got[e], static_cast<uint32_t>(p.k * c * 4));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Every block of the cluster must have initialised its mbarriers before
+  // any remote store: arrive now, wait just before the first exchange.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (tid == 0) {  // every copy of the block's rows goes out at once
+    // (with fewer stages than slots, the second reads go out now too)
+    for (int g = 0; g < min(p.slots, 2 * stages); ++g) load_stage(g);
+    for (int i = 0; i < chunks; ++i) {
+      const uint32_t bytes = min(p.chunk_rows, res - i * p.chunk_rows) * row_bytes;
+      mbar_expect_tx(&landed[i], bytes);
+      bulk_load(sbase + i * p.chunk_rows * row_bytes,
+                src + static_cast<size_t>(r0 + nstr + i * p.chunk_rows) * row_bytes, bytes,
+                &landed[i], drop);
+    }
+  }
+
+  const int cv = c / V;
+  const int rl = CL_THREADS / cv;
+  const int lane_c = tid % cv, lane_r = tid / cv;
+  const bool active = lane_r < rl;
+  const uint8_t* col = cl_smem + lane_c * 16;  // this thread's column of the resident rows
+  float sc[4] = {}, bi[4] = {};  // the image's scale and bias of channels 4 tid .. + 3
+  if (tid < c / 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sc[i] = __ldg(scale + b * c + 4 * tid + i);
+      bi[i] = __ldg(bias + b * c + 4 * tid + i);
+    }
+  }
+  float kf[V];  // the shift K: the image's first row
+  Group<T>::unpack(active ? __ldg(reinterpret_cast<const uint4*>(x + img) + lane_c)
+                          : make_uint4(0u, 0u, 0u, 0u),
+                   kf);
+  float s_all[V], m_s[V], q_s[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) s_all[i] = m_s[i] = q_s[i] = 0.f;
+  float n_s = 0.f;
+  __syncthreads();  // the mbarriers are initialised
+
+  // 1a. streamed stages: two-pass over the thread's rows of the stage, then
+  // a Chan merge into (n_s, m_s, q_s)
+  for (int g = 0; g < stages; ++g) {
+    mbar_wait(&full[g % p.slots], (g / p.slots) & 1);
+    const int rows = min(p.stage_rows, nstr - g * p.stage_rows);
+    if (active && lane_r < rows) {
+      const uint8_t* st = col + L.ring + (g % p.slots) * stage_bytes;
+      float sg[V], qg[V], mg[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) sg[i] = qg[i] = 0.f;
+      for_rows<UNROLL>(st, row_bytes, lane_r, rows, rl, [&](int, uint4 raw) {
+        float u[V];
+        Group<T>::unpack(raw, u);
+#pragma unroll
+        for (int i = 0; i < V; ++i) sg[i] += u[i] - kf[i];
+      });
+      const float fg = static_cast<float>((rows - lane_r + rl - 1) / rl);
+#pragma unroll
+      for (int i = 0; i < V; ++i) mg[i] = sg[i] / fg;
+      for_rows<UNROLL>(st, row_bytes, lane_r, rows, rl, [&](int, uint4 raw) {
+        float u[V];
+        Group<T>::unpack(raw, u);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float d = (u[i] - kf[i]) - mg[i];
+          qg[i] = fmaf(d, d, qg[i]);
+        }
+      });
+      const float nn = n_s + fg;
+      const float w = fg / nn, w2 = n_s * w;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = mg[i] - m_s[i];
+        m_s[i] = fmaf(d, w, m_s[i]);
+        q_s[i] += qg[i] + d * d * w2;
+        s_all[i] += sg[i];
+      }
+      n_s = nn;
+    }
+    __syncthreads();  // every thread has read the slot
+    if (tid == 0 && g + p.slots < 2 * stages) load_stage(g + p.slots);
+  }
+  IN_MARK(1);
+  // 1b. resident chunks, summed as they land
+  for (int i = 0; i < chunks; ++i) {
+    mbar_wait(&landed[i], 0);
+    if (active)
+      for_rows<UNROLL>(col, row_bytes, i * p.chunk_rows + lane_r,
+                       min(res, (i + 1) * p.chunk_rows), rl, [&](int, uint4 raw) {
+                         float u[V];
+                         Group<T>::unpack(raw, u);
+#pragma unroll
+                         for (int j = 0; j < V; ++j) s_all[j] += u[j] - kf[j];
+                       });
+  }
+  IN_MARK(2);
+
+  // 2. the mean of u over the cluster
+  float* recv = reinterpret_cast<float*>(cl_smem + L.recv);  // [2][k][C]
+  float* red = reinterpret_cast<float*>(cl_smem + L.red);
+  float4* coef = reinterpret_cast<float4*>(cl_smem + L.coef);  // mean, a, shift: [3][C / 4]
+  const int c4 = c / 4;
+  // this thread's V channels of coefficient row j
+  auto coefs = [&](int j, float (&out)[V]) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const float4 t = coef[j * c4 + lane_c * (V / 4) + q];
+      out[4 * q] = t.x;
+      out[4 * q + 1] = t.y;
+      out[4 * q + 2] = t.z;
+      out[4 * q + 3] = t.w;
+    }
+  };
+  const float4 sum_u = block_sum<V>(s_all, active, lane_r, lane_c, cv, rl, c, red);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every block has started
+  if (tid < c4) push_all(recv, &got[0], rank, p.k, c, sum_u);
+  mbar_wait(&got[0], 0);  // every block's sums have reached this one
+  IN_MARK(3);
+  const float inv_hw = 1.f / static_cast<float>(p.hw);
+  if (tid < c4) {
+    const float4 t = slot_sum4(recv, p.k, c);
+    coef[tid] = make_float4(t.x * inv_hw, t.y * inv_hw, t.z * inv_hw, t.w * inv_hw);
+  }
+  __syncthreads();
+  float ubar[V];
+  coefs(0, ubar);
+
+  // 3. sum of (u - mean)^2: the resident rows from shared memory, the
+  // streamed ones from their merged (n_s, m_s, q_s)
+  float q[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float d = m_s[i] - ubar[i];
+    q[i] = fmaf(n_s * d, d, q_s[i]);
+  }
+  if (active)
+    for_rows<UNROLL>(col, row_bytes, lane_r, res, rl, [&](int, uint4 raw) {
+      float u[V];
+      Group<T>::unpack(raw, u);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = (u[i] - kf[i]) - ubar[i];
+        q[i] = fmaf(d, d, q[i]);
+      }
+    });
+  const float4 m2 = block_sum<V>(q, active, lane_r, lane_c, cv, rl, c, red);
+  if (tid < c4) push_all(recv + p.k * c, &got[1], rank, p.k, c, m2);
+  // Every store into this block's shared memory is counted on got[0] or
+  // got[1], so once they complete no other block touches it and it may
+  // leave whenever it is done.
+  mbar_wait(&got[1], 0);
+  IN_MARK(4);
+  if (tid < c4) {
+    const float4 t = slot_sum4(recv + p.k * c, p.k, c);
+    const float4 m = coef[tid];
+    float4 a4;
+    a4.x = sc[0] * rsqrtf(fmaf(t.x, inv_hw, eps));
+    a4.y = sc[1] * rsqrtf(fmaf(t.y, inv_hw, eps));
+    a4.z = sc[2] * rsqrtf(fmaf(t.z, inv_hw, eps));
+    a4.w = sc[3] * rsqrtf(fmaf(t.w, inv_hw, eps));
+    coef[c4 + tid] = a4;
+    // bias - u_mean * a
+    coef[2 * c4 + tid] = make_float4(fmaf(-m.x, a4.x, bi[0]), fmaf(-m.y, a4.y, bi[1]),
+                                     fmaf(-m.z, a4.z, bi[2]), fmaf(-m.w, a4.w, bi[3]));
+  }
+  __syncthreads();
+  float a[V], shift[V];
+  coefs(1, a);
+  coefs(2, shift);
+  // y stays in L2 for the next layer, unless this block streams rows that
+  // are still to be read again there
+  const bool streaming = nstr > 0;
+
+  // 4. the apply: streamed rows first, through the ring, while they are in
+  // L2; then the resident rows
+  uint4* yv = reinterpret_cast<uint4*>(y + img) + lane_c;  // cv 16-byte vectors a row
+  for (int s = 0; s < stages; ++s) {
+    const int g = stages + s;
+    mbar_wait(&full[g % p.slots], (g / p.slots) & 1);
+    const int rows = min(p.stage_rows, nstr - s * p.stage_rows);
+    if (active) {
+      uint4* out = yv + static_cast<size_t>(r0 + s * p.stage_rows) * cv;
+      for_rows<UNROLL>(col + L.ring + (g % p.slots) * stage_bytes, row_bytes, lane_r, rows, rl,
+                       [&](int r, uint4 raw) {
+                         __stcs(out + static_cast<size_t>(r) * cv,
+                                apply_vec<T, RELU, V>(raw, kf, a, shift));
+                       });
+    }
+    __syncthreads();  // every thread has read the slot
+    if (tid == 0 && g + p.slots < 2 * stages) load_stage(g + p.slots);
+  }
+  IN_MARK(5);
+  if (active) {
+    uint4* out = yv + static_cast<size_t>(r0 + nstr) * cv;
+    for_rows<UNROLL>(col, row_bytes, lane_r, res, rl, [&](int r, uint4 raw) {
+      const uint4 v = apply_vec<T, RELU, V>(raw, kf, a, shift);
+      if (streaming)
+        __stcs(out + static_cast<size_t>(r) * cv, v);
+      else
+        out[static_cast<size_t>(r) * cv] = v;
+    });
+  }
+  IN_MARK(6);
+}
+
+template <typename T>
+cudaError_t cluster_attributes(void (*kernel)(const T*, const float*, const float*, T*,
+                                              ClusterPlan, float),
+                               const ClusterPlan& p, cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& attr, int batch, cudaStream_t st) {
+  const size_t smem = ClusterLayout(p, sizeof(T)).total;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (p.k > 8) {  // above 8 blocks a cluster is non-portable and has to be allowed
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(p.k), static_cast<unsigned>(batch));
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(p.k);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename T, bool RELU>
+cudaError_t cluster_launch(const void* x, const void* scale, const void* bias, void* y, int batch,
+                           const ClusterPlan& p, float eps, cudaStream_t st) {
+  const auto kernel = in_cluster_kernel<T, RELU>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_attributes<T>(kernel, p, cfg, attr, batch, st);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                           static_cast<const float*>(scale), static_cast<const float*>(bias),
+                           static_cast<T*>(y), p, eps);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t cluster_occupancy(const ClusterPlan& p, int* clusters) {
+  const auto kernel = in_cluster_kernel<T, true>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_attributes<T>(kernel, p, cfg, attr, 1, nullptr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 }  // namespace
 
 extern "C" {
 
-// vec: 1 to read 16-byte vectors (C a multiple of 16 / sizeof(T), pointers
-// 16-byte aligned), 0 for one channel per lane. cb, rl, splits and groups
-// are the block geometry the wrapper computed (ops/kernels/instance_norm.py).
-int hst_instance_norm_fwd(const void* x, const void* scale, const void* bias, void* y, void* ws,
-                          void* coef, int batch, int hw, int c, int cb, int rl, int splits,
-                          int groups, float eps, int relu, int vec, int dtype, void* stream) {
+// Route "split". vec: 1 to read 16-byte vectors (C a multiple of 16 /
+// sizeof(T), pointers 16-byte aligned), 0 for one channel per lane. cb, rl,
+// splits and groups are the block geometry the wrapper computed
+// (ops/kernels/instance_norm.py _geometry). dtype: 0 = float32, 1 = bfloat16.
+int hst_instance_norm_split(const void* x, const void* scale, const void* bias, void* y, void* ws,
+                            void* coef, int batch, int hw, int c, int cb, int rl, int splits,
+                            int groups, float eps, int relu, int vec, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (vec)
-      return launch<float, 4>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits, groups,
-                              eps, relu, st);
-    return launch<float, 1>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits, groups,
-                            eps, relu, st);
+      return split_launch<float, 4>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits,
+                                    groups, eps, relu, st);
+    return split_launch<float, 1>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits,
+                                  groups, eps, relu, st);
   }
   if (vec)
-    return launch<__nv_bfloat16, 8>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits,
-                                    groups, eps, relu, st);
-  return launch<__nv_bfloat16, 1>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits,
-                                  groups, eps, relu, st);
+    return split_launch<__nv_bfloat16, 8>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl,
+                                          splits, groups, eps, relu, st);
+  return split_launch<__nv_bfloat16, 1>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits,
+                                        groups, eps, relu, st);
+}
+
+// Route "cluster": k blocks an image (a cluster), each keeping up to
+// res_rows rows resident in chunks of chunk_rows and streaming the rest
+// through `slots` stages of stage_rows, asking for at least min_smem bytes
+// of shared memory. A plan the kernel cannot take (C % vector, C > 256,
+// misaligned x or y, more than 16 chunks or 4 slots, shared memory over
+// 227 KB) is refused with cudaErrorInvalidValue.
+int hst_instance_norm_cluster(const void* x, const void* scale, const void* bias, void* y,
+                              int batch, int hw, int c, int k, int res_rows, int chunk_rows,
+                              int stage_rows, int slots, int min_smem, float eps, int relu,
+                              int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ClusterPlan p{hw, c,       k,       res_rows,  chunk_rows,
+                      stage_rows, slots, min_smem};
+  const int elem = dtype == 0 ? 4 : 2;
+  if (!cluster_plan_ok(p, elem) || batch < 1 || batch > 65535 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) != 0)
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return relu ? cluster_launch<float, true>(x, scale, bias, y, batch, p, eps, st)
+                : cluster_launch<float, false>(x, scale, bias, y, batch, p, eps, st);
+  return relu ? cluster_launch<__nv_bfloat16, true>(x, scale, bias, y, batch, p, eps, st)
+              : cluster_launch<__nv_bfloat16, false>(x, scale, bias, y, batch, p, eps, st);
+}
+
+// How many clusters of this plan's shape the card holds at once
+// (cudaOccupancyMaxActiveClusters) into *clusters, and the plan's dynamic
+// shared memory a block into *smem.
+int hst_instance_norm_cluster_occupancy(int hw, int c, int k, int res_rows, int chunk_rows,
+                                        int stage_rows, int slots, int min_smem, int dtype,
+                                        int* clusters, int* smem) {
+  const ClusterPlan p{hw, c,       k,       res_rows,  chunk_rows,
+                      stage_rows, slots, min_smem};
+  const int elem = dtype == 0 ? 4 : 2;
+  if (!cluster_plan_ok(p, elem)) return cudaErrorInvalidValue;
+  *smem = static_cast<int>(ClusterLayout(p, elem).total);
+  return dtype == 0 ? cluster_occupancy<float>(p, clusters)
+                    : cluster_occupancy<__nv_bfloat16>(p, clusters);
 }
 
 }  // extern "C"
+
+#ifdef IN_PHASE_TRACE
+// The phase marks of the last launches: n entries of each array.
+extern "C" int hst_instance_norm_phase_marks(void* clocks, void* times, int n) {
+  const size_t bytes = n * sizeof(unsigned long long);
+  const cudaError_t err = cudaMemcpyFromSymbol(clocks, in_phase_clock, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaMemcpyFromSymbol(times, in_phase_time, bytes);
+}
+#endif

@@ -1,18 +1,23 @@
-"""Wrapper of the hand-written instance-norm kernel (csrc/instance_norm.cu),
-its plain PyTorch version and its launch count.
+"""Wrapper of the hand-written instance-norm kernels (csrc/instance_norm.cu),
+their plain PyTorch version, the launch plan and the launch count.
 
 The wrapper takes the (B, HW, C) view of an NHWC activation and per-image
 (B, C) float32 scale and bias rows. A tensor on the CPU goes through the
-plain version; a CUDA tensor launches the kernel or raises — there is no
-fallback. The kernel is forward only, as the TPU kernel it replaces was, so
-a CUDA input that needs a gradient raises. ``LAUNCHES["instance_norm_fwd"]``
-counts kernel launches only.
+plain version; a CUDA tensor launches a kernel or raises — there is no
+fallback. ``_plan`` picks the route: "cluster" (one launch, one
+thread-block cluster per image, x read once where the image fits in the
+cluster's shared memory) or "split" (three launches, x read twice), and
+``instance_norm_plan_for`` reports it for a tensor. The kernels are forward
+only, as the TPU kernel they replace was, so a CUDA input that needs a
+gradient raises. ``LAUNCHES["instance_norm_fwd"]`` counts calls that
+launched a kernel (one a call, whichever route).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,16 +28,33 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 EPS = 1e-5
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256  # csrc/instance_norm.cu THREADS
+_THREADS = 256  # csrc/instance_norm.cu THREADS (split route)
 _ITEMS = 8  # csrc/instance_norm.cu ITEMS
 _MAX_GRID_YZ = 65535
+# the cluster route (csrc/instance_norm.cu)
+_CL_THREADS = 256  # CL_THREADS
+_MAX_CLUSTER = 16  # MAX_CLUSTER
+_MAX_CHUNKS = 16  # MAX_CHUNKS: resident chunks, one mbarrier each
+_MAX_SLOTS = 4  # MAX_SLOTS: ring stages
+_MAX_CL_C = 256  # MAX_CL_C
+_MAX_SMEM = 232448  # MAX_SMEM: a block's shared memory on sm_90
+_CHUNK_BYTES = 16 * 1024  # a resident chunk's TMA copy (larger past 16 chunks)
+_STAGE_BYTES = 64 * 1024  # a streamed stage
+_SLOTS = 3  # ring stages where rows are streamed
+_CLUSTER_SIZES = (16, 8, 4, 2, 1)  # k the plan tries, largest first
+_SPREAD_SMEM = 120 * 1024  # more than half an SM's shared memory: one block an SM
+_MIN_BLOCKS = 64  # fewer blocks than this in all (B x k) take the split route
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hst_instance_norm_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                          ctypes.c_float, i, i, i, p]
-    lib.hst_instance_norm_fwd.restype = ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hst_instance_norm_split.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
+    lib.hst_instance_norm_split.restype = i
+    lib.hst_instance_norm_cluster.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, i, i, p]
+    lib.hst_instance_norm_cluster.restype = i
+    ip = ctypes.POINTER(i)
+    lib.hst_instance_norm_cluster_occupancy.argtypes = [i, i, i, i, i, i, i, i, i, ip, ip]
+    lib.hst_instance_norm_cluster_occupancy.restype = i
 
 
 LIBRARY = CudaLibrary("instance_norm", _bind)
@@ -60,9 +82,9 @@ def instance_norm_fwd_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
 
 
 def _geometry(c: int, hw: int, vec_width: int):
-    """Block geometry of csrc/instance_norm.cu for C channels read
-    ``vec_width`` at a time: (cb, rl, splits, groups) — vector columns and
-    row lanes per block, blocks along HW and along C."""
+    """Block geometry of the split route for C channels read ``vec_width``
+    at a time: (cb, rl, splits, groups) — vector columns and row lanes per
+    block, blocks along HW and along C."""
     cv = c // vec_width
     cb = min(cv, _THREADS)
     rl = _THREADS // cb
@@ -71,10 +93,181 @@ def _geometry(c: int, hw: int, vec_width: int):
     return cb, rl, splits, groups
 
 
+class Plan(NamedTuple):
+    """How ``instance_norm_fwd`` launches. route: "cluster" or "split".
+    On the cluster route: k blocks an image (its cluster); each keeps up to
+    res_rows of its rows resident in shared memory, in TMA chunks of
+    chunk_rows, and streams the rest through `slots` ring stages of
+    stage_rows (0 and 0 where every row is resident); smem is what a block
+    asks for (at least ``_SPREAD_SMEM`` where spread, so that no two blocks
+    share an SM); clusters is how many such clusters the card holds at
+    once. On the split route every number is 0."""
+    route: str
+    k: int = 0
+    res_rows: int = 0
+    chunk_rows: int = 0
+    stage_rows: int = 0
+    slots: int = 0
+    smem: int = 0
+    clusters: int = 0
+
+
+SPLIT = Plan("split")
+
+
+def _block_rows(hw: int, k: int) -> List[Tuple[int, int]]:
+    """[begin, end) of HW rows for each block of an image's cluster, as the
+    kernel takes them: HW // k rows each, one more for the first HW % k."""
+    base, extra = divmod(hw, k)
+    out = []
+    for r in range(k):
+        begin = r * base + min(r, extra)
+        out.append((begin, begin + base + (1 if r < extra else 0)))
+    return out
+
+
+def _block_split(hw: int, k: int, res_rows: int) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
+    """For each block, its streamed rows [begin, end) (read twice: for the
+    statistics and again for the apply) and its resident rows (read once),
+    as the kernel takes them: the streamed ones first."""
+    out = []
+    for begin, end in _block_rows(hw, k):
+        split = end - min(end - begin, res_rows)
+        out.append(((begin, split), (split, end)))
+    return out
+
+
+def _cluster_smem(c: int, elem: int, k: int, res_rows: int, stage_rows: int, slots: int) -> int:
+    """Shared memory a cluster-route block uses, as csrc/instance_norm.cu
+    ClusterLayout counts it: resident rows, ring, two [k][C] exchange
+    buffers, the block sum's [threads][V] partials, [3][C] coefficients,
+    the mbarriers (chunks, ring slots, two exchanges)."""
+    row = c * elem
+    return (res_rows * row + slots * stage_rows * row + 2 * k * c * 4
+            + _CL_THREADS * (16 // elem) * 4 + 3 * c * 4 + 8 * (_MAX_CHUNKS + _MAX_SLOTS + 2))
+
+
+def _chunk_rows(res_rows: int, row: int) -> int:
+    """Resident rows a TMA chunk: ``_CHUNK_BYTES`` of them, or more where
+    that would make more than ``_MAX_CHUNKS`` chunks."""
+    return max(1, _CHUNK_BYTES // row, -(-res_rows // _MAX_CHUNKS))
+
+
+def _cluster_candidate(hw: int, c: int, elem: int, k: int, spread: bool, full: bool,
+                       stage_bytes: int = _STAGE_BYTES,
+                       slots: int = _SLOTS, cap: int = _MAX_SMEM) -> Optional[Plan]:
+    """The cluster-route plan of k blocks an image: every row resident
+    (full), or as many as fit in ``cap`` bytes beside a ring of `slots`
+    stages of ``stage_bytes`` that streams the rest; None where it does not
+    fit."""
+    row = c * elem
+    longest = -(-hw // k)
+    if full or _cluster_smem(c, elem, k, longest, 0, 0) <= cap:  # every row resident: no ring
+        res, stage_rows, slots = longest, 0, 0
+    else:
+        stage_rows = max(1, stage_bytes // row)
+        res = (cap - _cluster_smem(c, elem, k, 0, stage_rows, slots)) // row
+        if res < 1:
+            return None
+    used = _cluster_smem(c, elem, k, res, stage_rows, slots)
+    if used > cap:
+        return None
+    return Plan("cluster", k, res, _chunk_rows(res, row), stage_rows, slots,
+                max(used, _SPREAD_SMEM if spread else 0))
+
+
+def _cluster_route_ok(b: int, c: int, elem: int, aligned: bool) -> bool:
+    """Whether the cluster route takes the input at all: whole 16-byte
+    vectors of C <= 256 channels on 16-byte-aligned x and y, and enough
+    images to fill the card's SMs with their clusters' blocks."""
+    return (aligned and c % (16 // elem) == 0 and c <= _MAX_CL_C and b <= _MAX_GRID_YZ
+            and b * _MAX_CLUSTER >= _MIN_BLOCKS)
+
+
+def _plan(b: int, hw: int, c: int, elem: int, aligned: bool,
+          active: Callable[[Plan], int]) -> Plan:
+    """How ``instance_norm_fwd`` launches on a (b, hw, c) input of elem-byte
+    elements. ``active(plan)`` is how many clusters of the plan's shape the
+    card holds at once (cudaOccupancyMaxActiveClusters on the card).
+
+    The split route where the cluster route does not take the input
+    (``_cluster_route_ok``). Otherwise, of k in ``_CLUSTER_SIZES``, the
+    largest (the most SMs streaming) that keeps every row resident with one
+    block an SM and all b clusters resident at once; failing that, the
+    largest whose blocks fill an SM, keep the rows that fit beside a ring of
+    ``_SLOTS`` stages of ``_STAGE_BYTES`` and stream the rest, with all b
+    clusters at once; failing that (more images than the card holds
+    clusters), the largest k that keeps every row resident, or k = 16 and
+    streaming. On an H100 SXM at most 7 clusters of 16 such blocks are
+    resident at once, and 15 of 8, so B = 8 takes k = 8."""
+    if not _cluster_route_ok(b, c, elem, aligned):
+        return SPLIT
+    for full in (True, False):
+        for k in _CLUSTER_SIZES:
+            plan = _cluster_candidate(hw, c, elem, k, spread=True, full=full)
+            if plan is None:
+                continue
+            n = active(plan)
+            if n >= b:
+                return plan._replace(clusters=n)
+    for k in _CLUSTER_SIZES:
+        plan = _cluster_candidate(hw, c, elem, k, spread=True, full=True)
+        if plan is not None:
+            return plan._replace(clusters=active(plan))
+    plan = _cluster_candidate(hw, c, elem, _MAX_CLUSTER, spread=True, full=False)
+    return plan._replace(clusters=active(plan))
+
+
+@functools.lru_cache(maxsize=256)
+def _occupancy(device_index: int, hw: int, c: int, elem: int, plan: Plan) -> int:
+    """cudaOccupancyMaxActiveClusters of the plan's kernel and shape."""
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = LIBRARY.load().hst_instance_norm_cluster_occupancy(
+            hw, c, plan.k, plan.res_rows, plan.chunk_rows, plan.stage_rows, plan.slots,
+            plan.smem, 0 if elem == 4 else 1, ctypes.byref(clusters),
+            ctypes.byref(smem))
+    check("instance_norm_fwd occupancy", err)
+    if smem.value != plan.smem:
+        raise RuntimeError(f"instance_norm_fwd: shared memory {plan.smem} planned, the kernel "
+                           f"counts {smem.value}")
+    return clusters.value
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_on(device_index: int, b: int, hw: int, c: int, elem: int, aligned: bool) -> Plan:
+    return _plan(b, hw, c, elem, aligned,
+                 lambda p: _occupancy(device_index, hw, c, elem, p._replace(clusters=0)))
+
+
+def _aligned(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> bool:
+    return x.data_ptr() % 16 == 0 and (y is None or y.data_ptr() % 16 == 0)
+
+
+def instance_norm_plan_for(x: torch.Tensor) -> Plan:
+    """``_plan`` for a CUDA (B, HW, C) tensor, the card queried for its
+    cluster occupancy (the output, fresh from the allocator, is aligned)."""
+    b, hw, c = x.shape
+    return _plan_on(x.device.index if x.device.index is not None else torch.cuda.current_device(),
+                    b, hw, c, x.element_size(), _aligned(x))
+
+
+def plan_traffic(plan: Plan, b: int, hw: int, c: int, elem: int) -> Tuple[float, int]:
+    """(resident share, bytes read a second time) of a plan: the share of
+    x's rows that stay in shared memory between the passes, and the bytes
+    of x read again for the apply (streamed rows on the cluster route,
+    every row on the split route)."""
+    if plan.route == "split":
+        return 0.0, b * hw * c * elem
+    streamed = sum(s1 - s0 for (s0, s1), _ in _block_split(hw, plan.k, plan.res_rows))
+    return 1.0 - streamed / hw, b * streamed * c * elem
+
+
 def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                       eps: float = EPS, relu: bool = False) -> torch.Tensor:
     """(B, HW, C), (B, C) f32 scale and bias -> (B, HW, C) in x's dtype.
-    CPU: the plain version; CUDA: the kernel."""
+    CPU: the plain version; CUDA: the kernel, on the route that
+    ``instance_norm_plan_for`` picks."""
     if x.device.type == "cpu":
         return instance_norm_fwd_plain(x, scale, bias, eps, relu)
     name = "instance_norm_fwd"
@@ -101,18 +294,37 @@ def instance_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if b == 0 or hw == 0 or c == 0:
         raise ValueError(f"{name}: empty input {tuple(x.shape)}")
     y = torch.empty_like(x)
-    width = 16 // x.element_size()
-    vec = c % width == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    cb, rl, splits, groups = _geometry(c, hw, width if vec else 1)
-    if b > _MAX_GRID_YZ or groups > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: B={b} or C={c} exceeds the kernel's grid")
-    ws = torch.empty((b, splits, c, 2), device=x.device, dtype=torch.float32)
-    coef = torch.empty((b, c, 4), device=x.device, dtype=torch.float32)
-    err = LIBRARY.load().hst_instance_norm_fwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(),
-        coef.data_ptr(), b, hw, c, cb, rl, splits, groups, float(eps), int(relu), int(vec),
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check(name, err)
+    _launch(LIBRARY.load(), x, scale, bias, y, instance_norm_plan_for(x), eps, relu)
     LAUNCHES[name] += 1
     return y
+
+
+def _launch(lib: ctypes.CDLL, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            y: torch.Tensor, plan: Plan, eps: float, relu: bool) -> None:
+    """One launch of ``plan`` from ``lib`` (the library, or a build of the
+    same source with its phase marks on) on checked tensors; counts
+    nothing. Measurements that compare plans call it directly."""
+    name = "instance_norm_fwd"
+    b, hw, c = x.shape
+    if plan.route == "cluster" and not _aligned(x, y):
+        plan = SPLIT  # the allocator's output is aligned; x may not be
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dtype = _DTYPE_CODE[x.dtype]
+    if plan.route == "cluster":
+        err = lib.hst_instance_norm_cluster(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), b, hw, c, plan.k,
+            plan.res_rows, plan.chunk_rows, plan.stage_rows, plan.slots, plan.smem,
+            float(eps), int(relu), dtype, stream)
+    else:
+        width = 16 // x.element_size()
+        vec = c % width == 0 and _aligned(x, y)
+        cb, rl, splits, groups = _geometry(c, hw, width if vec else 1)
+        if b > _MAX_GRID_YZ or groups > _MAX_GRID_YZ:
+            raise ValueError(f"{name}: B={b} or C={c} exceeds the kernel's grid")
+        ws = torch.empty((b, splits, c, 2), device=x.device, dtype=torch.float32)
+        coef = torch.empty((b, c, 4), device=x.device, dtype=torch.float32)
+        err = lib.hst_instance_norm_split(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            coef.data_ptr(), b, hw, c, cb, rl, splits, groups, float(eps), int(relu), int(vec),
+            dtype, stream)
+    check(name, err)

@@ -39,7 +39,7 @@ from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_trans
 
 GRAM_KERNELS = ("gram_fwd_kernel", "gram_fwd_wgmma_kernel", "gram_bwd_kernel",
                 "gram_bwd_wgmma_kernel", "pooled_gram_kernel", "pooled_project_kernel")
-IN_KERNELS = ("in_stats_kernel", "in_finalize_kernel", "in_apply_kernel")
+IN_KERNELS = ("in_cluster_kernel", "in_stats_kernel", "in_finalize_kernel", "in_apply_kernel")
 
 
 def _device_us(evt) -> float:
