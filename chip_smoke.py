@@ -43,6 +43,27 @@ Phases, all run every time:
                   same net in bf16 through make_stylize_fn against f32.
   texture_serve   ``serve_style`` texture mode on the classification
                   phase's model (layers 5, 5 iterations, batch 2, 2 POSTs).
+  family1_classification
+                  family 1 at full width (truncate 8, dim 256, 4 classes,
+                  seeded weights through the npz writer and the CLI's
+                  loader): ``--mode classification``'s device loop and text
+                  artifacts over 4 b32 batches of staged 256² uint8,
+                  threshold 0, f32 and bf16; images/s from the per-batch
+                  spans; batch 0 against the same model on the CPU.
+  family1_inference
+                  ``run_inference`` over 40 PNGs written here, with timing;
+                  the JSON's schema and its probabilities against the CPU.
+  camera          the camera infer functions at b1, f32 and bf16, 100
+                  frames each after one warm-up: host-downscaled 224² RGB,
+                  480x640 RGB resized on the card, planar I420 and the
+                  stateful I420 delta (whose probabilities must equal the
+                  I420 path's on the same frames); frames/s and p50 per
+                  path, frame 1 against the CPU.
+  camera_video    ``--mode camera`` through the CLI on a 30-frame 640x480
+                  MJPG file written here (OpenCV is on the card machine),
+                  then ``run_camera`` on the card and on the CPU.
+  Family 1 and the camera launch no hand-written kernel (their convs,
+  norms and pools are cuDNN work): a launch there fails the run.
 
 Launch counts are set to 0 just before each main-path phase and read just
 after; a kernel of the phase that never launched fails the run, as does any
@@ -109,6 +130,9 @@ IN_SHAPES = [(8, 224, 224, 32), (8, 112, 112, 64), (8, 56, 56, 128)]
 LADDER_IN_SHAPES = [(1, 224, 224, 32), (4, 224, 224, 32)]
 NORMS_PER_FORWARD = 15
 N_REQUESTS, REQUEST_THREADS = 16, 8
+# family 1 at full width: truncate 8, dim 256, 4 classes, the CLI's batch
+F1_TRUNCATE, F1_DIM, F1_CLASSES, F1_BATCH = 8, 256, 4, 32
+F1_IMAGES, F1_INFER_IMAGES, CAMERA_FRAMES, VIDEO_FRAMES = 128, 40, 100, 30
 
 
 def _require(ok: bool, what: str) -> None:
@@ -786,6 +810,286 @@ def phase_texture_serve(kernels, tmp: str) -> dict:
     return launches
 
 
+def _family1(tmp: str):
+    """The family-1 model at full width (truncate 8, dim 256, 4 classes),
+    seeded on the CPU, written as npz and read back onto the card by the
+    CLI's loader; returns (card model, CPU model, forward)."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.cli._common import load_truncated_resnet50
+    from heuristique_style_transfer_code_tpu_torch.models.truncated_resnet50 import (
+        combined_apply,
+        truncated_resnet50_init,
+    )
+
+    seeded = truncated_resnet50_init(torch.Generator().manual_seed(8), F1_TRUNCATE, F1_CLASSES,
+                                     F1_DIM, device="cpu")
+    ckpt = os.path.join(tmp, "family1.npz")
+    save_pytree_npz(to_jax_tree(seeded), ckpt)
+    model = load_truncated_resnet50(ckpt, F1_TRUNCATE, torch.device(DEVICE))
+
+    def forward(m, images):
+        return combined_apply(m.moco, m.classifier, images, F1_TRUNCATE)
+
+    return model, seeded, forward
+
+
+def _probs_gap(card, cpu) -> float:
+    import numpy as np
+
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    return float(np.abs(card - cpu).max() / np.abs(cpu).max())
+
+
+def phase_family1_classification(kernels, family1, tmp: str, timings: dict) -> None:
+    """Family 1's ``--mode classification`` through its device loop and
+    text artifacts (``evaluate_classification``, ``write_metrics_text``,
+    ``write_auc_and_times``) at b32, f32 and bf16, threshold 0."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli._common import cast_forward
+    from heuristique_style_transfer_code_tpu_torch.tasks.classification import (
+        evaluate_classification,
+        write_auc_and_times,
+        write_metrics_text,
+    )
+
+    model, seeded, forward = family1
+    batches = _batches(F1_IMAGES, F1_BATCH, seed=8)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        fwd = cast_forward(forward, None if dtype == torch.float32 else dtype)
+        out_dir = os.path.join(tmp, f"family1_{name}")
+
+        def run(m, bs, measure):
+            return evaluate_classification(fwd, m, bs, F1_CLASSES, prob_threshold=0.0,
+                                           measure_time=measure)
+
+        run(model, batches[:1], False)  # warm-up: cuDNN plans, allocator
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(model, batches, True)
+        timings[f"family1_classification_{name}_s"] = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        write_metrics_text(res, out_dir, log_fn=lambda msg: None)
+        write_auc_and_times(res, out_dir, compute_auc=False, measure_time=True,
+                            log_fn=lambda msg: None)
+        times = np.asarray(res["timer"].times)
+        ips = F1_BATCH / float(np.median(times))
+        card1 = run(model, batches[:1], False)
+        cpu1 = run(seeded, batches[:1], False)
+        gap = _probs_gap(card1["probs"], cpu1["probs"])
+        loss_gap = abs(card1["loss"] - cpu1["loss"]) / abs(cpu1["loss"])
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        print(f"[family1_classification] {name} b{F1_BATCH}: {F1_BATCH * len(batches)} images, "
+              f"{ips:.1f} images/s (median of {len(times)} batch spans "
+              f"{[round(float(t) * 1e3, 3) for t in times]} ms), accuracy {res['accuracy']}, "
+              f"loss {res['loss']:.6f}, confusion matrix {res['confusion_matrix'].tolist()}; "
+              f"card vs CPU on batch 0: probabilities {gap:.3e} of max|p|, loss {loss_gap:.3e} "
+              f"(tol {tol}); hand-written launches {launches}")
+        timings[f"family1_classification_{name}_images_per_s"] = ips
+        _require(os.path.exists(os.path.join(out_dir, "metrics.txt"))
+                 and os.path.exists(os.path.join(out_dir, "times_test.json")),
+                 "metrics.txt and times_test.json written")
+        _require(len(times) == len(batches), f"one span a batch: {len(times)}")
+        _require(int(res["confusion_matrix"].sum()) == F1_BATCH * len(batches),
+                 "threshold 0 counts every image in the confusion matrix")
+        _require(bool(np.isfinite(res["probs"]).all()) and np.isfinite(res["loss"]),
+                 "finite probabilities and loss")
+        _require(gap <= tol and loss_gap <= tol, f"card agrees with the CPU: {gap}, {loss_gap}")
+        _require(not any(launches.values()), f"family 1 launches no hand-written kernel: "
+                                              f"{launches}")
+
+
+def phase_family1_inference(kernels, family1, tmp: str) -> None:
+    """``run_inference`` over 40 PNGs written here, with ``measure_time``."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch.tasks.inference import run_inference
+
+    model, seeded, forward = family1
+    src = os.path.join(tmp, "inference_input")
+    rng = np.random.RandomState(9)
+    for i in range(F1_INFER_IMAGES):
+        d = os.path.join(src, f"part{i % 3}")
+        os.makedirs(d, exist_ok=True)
+        h, w = (300, 400) if i % 2 else (256, 256)
+        Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(np.uint8)).save(
+            os.path.join(d, f"img_{i:03d}.png"))
+    classes = ["fog", "rain", "snow", "sun"]
+    kernels.reset_launch_counts()
+    got = run_inference(forward, model, src, classes, os.path.join(tmp, "inference_card"),
+                        batch_size=F1_BATCH, measure_time=True)
+    launches = kernels.launch_counts()
+    want = run_inference(forward, seeded, src, classes, os.path.join(tmp, "inference_cpu"),
+                         batch_size=F1_BATCH)
+    with open(os.path.join(tmp, "inference_card", "inference_predictions.json")) as f:
+        on_disk = json.load(f)
+    p_card = [list(r["class_probabilities"].values()) for r in got["predictions"]]
+    p_cpu = [list(r["class_probabilities"].values()) for r in want["predictions"]]
+    gap = _probs_gap(p_card, p_cpu)
+    print(f"[family1_inference] {got['num_images']} images, timing {json.dumps(got['timing'])}, "
+          f"card vs CPU probabilities {gap:.3e} of max|p| (tol 1e-4); hand-written launches "
+          f"{launches}")
+    _require(on_disk == got and list(got) == ["num_images", "classes", "predictions", "timing"],
+             f"inference_predictions.json keys: {list(on_disk)}")
+    _require(got["num_images"] == F1_INFER_IMAGES and got["classes"] == classes,
+             f"{F1_INFER_IMAGES} images and the classes")
+    _require(all(list(r) == ["image_path", "predicted_class_index", "predicted_class",
+                             "predicted_probability", "class_probabilities"]
+                 for r in got["predictions"]), "prediction records' keys")
+    _require([r["image_path"] for r in got["predictions"]]
+             == [r["image_path"] for r in want["predictions"]], "the same images in order")
+    _require(gap <= 1e-4, f"card agrees with the CPU: {gap}")
+    _require(not any(launches.values()), f"family 1 launches no hand-written kernel: {launches}")
+
+
+def _camera_frames(seed: int):
+    """CAMERA_FRAMES + 1 consecutive frames of each kind: 224² RGB (the
+    host-downscaled ship), 480x640 RGB, and planar I420 (336, 224), a
+    base plus a small drift a frame. Any planar uint8 buffer of that
+    shape is a valid I420 frame, so no OpenCV is needed."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for key, shape in (("rgb224", (224, 224, 3)), ("rgb480", (480, 640, 3)),
+                       ("yuv420", (336, 224))):
+        base = rng.randint(0, 256, shape).astype(np.int16)
+        drift = rng.randint(-2, 3, (CAMERA_FRAMES + 1,) + shape).cumsum(axis=0)
+        out[key] = np.clip(base + drift, 0, 255).astype(np.uint8)
+    return out
+
+
+def phase_camera(kernels, family1, timings: dict) -> None:
+    """The camera infer functions at b1, f32 and bf16: host-downscaled
+    RGB, RGB resized on the card, I420, and the stateful I420 delta. One
+    warm-up frame, then CAMERA_FRAMES frames, each timed from the ship to
+    its probabilities on the host."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli._common import cast_forward
+    from heuristique_style_transfer_code_tpu_torch.tasks import camera as cam
+
+    model, seeded, forward = family1
+    frames = _camera_frames(10)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        fwd = cast_forward(forward, None if dtype == torch.float32 else dtype)
+        paths = {
+            "rgb_host_downscale": (cam.make_camera_infer_fn(fwd, host_downscale=True), "rgb224"),
+            "rgb_device_resize": (cam.make_camera_infer_fn(fwd, host_downscale=False), "rgb480"),
+            "yuv420": (cam.make_camera_infer_fn_yuv(fwd, 224), "yuv420"),
+        }
+        probs = {}
+        for path, (infer, key) in paths.items():
+            seq = frames[key]
+            infer(model, seq[0]).cpu()  # warm-up
+            kernels.reset_launch_counts()
+            out, times = [], []
+            for f in seq[1:]:
+                t0 = time.perf_counter()
+                out.append(infer(model, f).cpu())
+                times.append(time.perf_counter() - t0)
+            launches = kernels.launch_counts()
+            probs[path] = torch.stack(out).numpy()
+            gap = _probs_gap(probs[path][0], infer(seeded, seq[1]).numpy())
+            _camera_report(path, name, times, gap, launches, timings)
+        # the stateful delta over the yuv420 path's frames: the same inputs
+        delta1 = cam.make_camera_infer_fn_yuv_delta1(fwd, 224)
+        seq = frames["yuv420"]
+        prev = torch.zeros(seq[0].shape, dtype=torch.uint8, device=DEVICE)
+        delta1(model, prev, prev)[0].cpu()  # warm-up, state-neutral
+        prev_host = seq[0]
+        prev = torch.as_tensor(seq[0]).to(DEVICE)
+        kernels.reset_launch_counts()
+        out, times = [], []
+        for f in seq[1:]:
+            t0 = time.perf_counter()
+            p, prev = delta1(model, prev, f - prev_host)  # uint8 wraparound
+            out.append(p.cpu())
+            times.append(time.perf_counter() - t0)
+            prev_host = f
+        launches = kernels.launch_counts()
+        got = torch.stack(out).numpy()
+        same = float(np.abs(got - probs["yuv420"]).max())
+        want, _ = delta1(seeded, torch.as_tensor(seq[0]), seq[1] - seq[0])
+        gap = _probs_gap(got[0], want.numpy())
+        _camera_report("yuv420_delta1", name, times, gap, launches, timings)
+        print(f"[camera] {name} yuv420_delta1 vs yuv420 on the same {len(seq) - 1} frames: "
+              f"max |dp| {same:.3e} (tol 1e-6); carried frame exact: "
+              f"{bool(torch.equal(prev.cpu(), torch.as_tensor(seq[-1])))}")
+        _require(same <= 1e-6, f"the delta path's probabilities are the yuv420 path's: {same}")
+        _require(torch.equal(prev.cpu(), torch.as_tensor(seq[-1])), "the carried frame is exact")
+
+
+def phase_camera_video(family1, tmp: str, timings: dict) -> None:
+    """``--mode camera`` on a short MJPG file written here (OpenCV is on
+    the card machine): the CLI on the card, then ``run_camera`` on the card
+    and on the CPU, whose summaries must agree."""
+    import cv2
+    import numpy as np
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 import (
+        main as cli_main,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.camera import run_camera
+
+    model, seeded, forward = family1
+    video = os.path.join(tmp, "camera.avi")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 30, (640, 480))
+    for f in _camera_frames(11)["rgb480"][:VIDEO_FRAMES]:
+        writer.write(f)
+    writer.release()
+    cfg = os.path.join(tmp, "family1.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": F1_BATCH, "truncate_layer": F1_TRUNCATE, "dim": F1_DIM}, f)
+    out = os.path.join(tmp, "camera_cli")
+    cli_main(["--config_path", cfg, "--model_path", os.path.join(tmp, "family1.npz"),
+              "--mode", "camera", "--camera_index", video, "--measure_time",
+              "--prob_threshold", "0", "--save_dir", out, "--device", DEVICE])
+    with open(os.path.join(out, "times_camera.json")) as f:
+        cli_times = json.load(f)
+    common = dict(camera_index=video, display=False, prob_threshold=0.0,
+                  log_fn=lambda msg: None)
+    card = run_camera(forward, model, ["fog", "rain", "snow", "sun"], **common)
+    cpu = run_camera(forward, seeded, ["fog", "rain", "snow", "sun"], **common)
+    timings["camera_video"] = card
+    print(f"[camera_video] CLI --mode camera on a {VIDEO_FRAMES}-frame 640x480 MJPG file: "
+          f"{len(cli_times)} spans, p50 {np.percentile(cli_times, 50) * 1e3:.3f} ms; "
+          f"run_camera card {json.dumps(card)}; CPU last {cpu['last_label']} "
+          f"{cpu['last_prob']:.6f}")
+    _require(len(cli_times) == VIDEO_FRAMES, f"one span a frame: {len(cli_times)}")
+    _require(card["frames"] == cpu["frames"] == VIDEO_FRAMES, "every frame read")
+    _require(card["last_label"] == cpu["last_label"]
+             and abs(card["last_prob"] - cpu["last_prob"]) <= 1e-4,
+             "run_camera's last prediction agrees with the CPU")
+
+
+def _camera_report(path: str, dtype: str, times, gap: float, launches: dict,
+                   timings: dict) -> None:
+    import numpy as np
+
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    fps = 1.0 / float(np.mean(times))
+    p50 = float(np.percentile(times, 50) * 1e3)
+    timings[f"camera_{path}_{dtype}"] = {"fps": fps, "p50_ms": p50}
+    print(f"[camera] {dtype} {path} b1: {len(times)} frames, {fps:.1f} frames/s, p50 "
+          f"{p50:.3f} ms, p90 {np.percentile(times, 90) * 1e3:.3f} ms; card vs CPU on frame 1 "
+          f"{gap:.3e} of max|p| (tol {tol}); hand-written launches {launches}")
+    _require(len(times) == CAMERA_FRAMES, f"{CAMERA_FRAMES} frames")
+    _require(gap <= tol, f"camera {path} {dtype} agrees with the CPU: {gap}")
+    _require(not any(launches.values()), f"the camera path launches no hand-written kernel: "
+                                          f"{launches}")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -827,6 +1131,14 @@ def main() -> int:
         fs_launches = phase_fast_style(kernels, tmp, timings)
         phase_conditional(kernels)
         phase_texture_serve(kernels, tmp)
+        t0 = time.perf_counter()
+        family1 = _family1(tmp)
+        phase_family1_classification(kernels, family1, tmp, timings)
+        phase_family1_inference(kernels, family1, tmp)
+        phase_camera(kernels, family1, timings)
+        phase_camera_video(family1, tmp, timings)
+        timings["family1_and_camera_phases_s"] = time.perf_counter() - t0
+        print(f"[family1+camera] {timings['family1_and_camera_phases_s']:.2f} s in all")
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
                 "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"],
                 "instance_norm_fwd": fs_launches["instance_norm_fwd"]}

@@ -1,13 +1,32 @@
 """Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
-that the family-2 evaluation CLI and ``serve_style`` need)."""
+that the family-1 and family-2 evaluation CLIs and ``serve_style`` need)."""
 from __future__ import annotations
 
 import os
 import random
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
+
+
+def resolve_class_names(
+    args_classes: Optional[List[str]],
+    config: dict,
+    data_root: Optional[str],
+    split: str = "test",
+) -> List[str]:
+    """--classes > config["classes"] > the dataset's class directories >
+    the reference's four weather classes."""
+    if args_classes:
+        return list(args_classes)
+    if "classes" in config:
+        return list(config["classes"])
+    if data_root:
+        from ..data.imagefolder import ImageFolderIndex
+
+        return ImageFolderIndex(os.path.join(data_root, split)).classes
+    return ["fog", "rain", "snow", "sun"]
 
 
 def maybe_subset(samples, num_samples: Optional[int], seed: Optional[int] = None):
@@ -31,6 +50,27 @@ def load_checkpoint_tree(model_path: str) -> Any:
     return load_pytree_npz(model_path)
 
 
+def load_truncated_resnet50(model_path: str, truncate: int, device: torch.device,
+                            tree: Any = None):
+    """npz checkpoint (or its ``tree``) -> the family-1 model on ``device``;
+    ``dim`` and the class count come from the checkpoint's fc kernels. The
+    weight bridge fails on any leaf missing or left over."""
+    from ..checkpoint.convert import load_jax_tree
+    from ..models.truncated_resnet50 import truncated_resnet50_init
+
+    if tree is None:
+        tree = load_checkpoint_tree(model_path)
+    if "moco" not in tree or "classifier" not in tree:
+        raise KeyError(
+            f"Checkpoint {model_path} does not contain the family-1 "
+            "{'moco', 'classifier'} tree."
+        )
+    dim = int(np.shape(tree["moco"]["fc"]["kernel"])[-1])
+    num_classes = int(np.shape(tree["classifier"]["fc"]["kernel"])[-1])
+    model = truncated_resnet50_init(None, truncate, num_classes, dim, device=device)
+    return load_jax_tree(model, tree)
+
+
 def count_params(tree: Any) -> int:
     if isinstance(tree, dict):
         return sum(count_params(v) for v in tree.values())
@@ -46,6 +86,18 @@ def resolve_compute_dtype(precision: Optional[str]) -> Optional[torch.dtype]:
     if precision == "bf16":
         return torch.bfloat16
     raise NotImplementedError(f"--precision {precision} is not ported yet (float32, bf16)")
+
+
+def cast_forward(forward, compute_dtype: Optional[torch.dtype]):
+    """``forward(model, images)`` with the images cast to
+    ``compute_dtype`` (parameters stay f32 and are cast at each op)."""
+    if compute_dtype is None:
+        return forward
+
+    def wrapped(model, images):
+        return forward(model, images.to(compute_dtype))
+
+    return wrapped
 
 
 def weighted_auc_or_none(labels, probs):

@@ -1,0 +1,199 @@
+"""Evaluation CLI, family 1, on PyTorch: the flags of
+``heuristique_style_transfer_code_tpu/cli/test_truncated_resnet50.py`` plus
+``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``).
+
+Ported: ``--mode classification`` (metrics.txt, confusion_matrix.png,
+auc_score.txt with ``--compute_auc``, times_test.json with
+``--measure_time``, the PNG tree with ``--save_test_images``),
+``--mode inference`` (``inference_predictions.json``) and ``--mode camera``
+(a camera or a video file; ``--transport rgb|yuv420|yuv420_delta``,
+``--device_preprocess``, ``--kalman_filter``, ``--save_camera_video``),
+``--list_cameras``, ``--precision float32|bf16``. The other modes and the
+flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
+
+    python -m heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 \\
+        --data DATA --config_path cfg.json --model_path model.npz \\
+        --mode classification --save_dir out [--device cpu]
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..config.schema import TruncatedResNetConfig
+from ..core.device import resolve_device
+from ..data.imagefolder import ImageFolderIndex
+from ..data.loader import HostLoader
+from ..models.truncated_resnet50 import combined_apply
+from ._common import (
+    add_device_args,
+    cast_forward,
+    check_ported,
+    count_params,
+    load_checkpoint_tree,
+    load_truncated_resnet50,
+    maybe_subset,
+    resolve_class_names,
+    resolve_compute_dtype,
+)
+
+MODES = ["classification", "tsne", "tsne_interactive", "camera", "inference", "clustering"]
+PORTED_MODES = ("classification", "inference", "camera")
+
+# flag -> its default; any other value raises "not ported yet"
+_NOT_PORTED = {
+    "visualize_gradcam": False,
+    "save_gradcam_images": False,
+    "tensorboard": False,
+    "devices": None,
+    "profile_dir": None,
+    "debug_nans": False,
+}
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description="Truncated ResNet50 weather classifier (PyTorch)")
+    parser.add_argument("--data", type=str)
+    parser.add_argument("--config_path", type=str, required=True)
+    parser.add_argument("--model_path", type=str, required=True)
+    parser.add_argument("--batch_size", default=32, type=int)
+    parser.add_argument("--num_samples", type=int, default=None)
+    parser.add_argument("--save_dir", default="results", type=str)
+    parser.add_argument("--tensorboard", action="store_true", help="Not ported yet")
+    parser.add_argument("--save_camera_video", action="store_true")
+    parser.add_argument("--prob_threshold", default=0.5, type=float)
+    parser.add_argument("--visualize_gradcam", action="store_true", help="Not ported yet")
+    parser.add_argument("--save_gradcam_images", action="store_true", help="Not ported yet")
+    parser.add_argument("--measure_time", action="store_true")
+    parser.add_argument("--mode", choices=MODES, default="classification")
+    parser.add_argument("--colors", nargs="+", default=None)
+    parser.add_argument("--clustering_class", type=str)
+    parser.add_argument("--min_cluster_size", type=int, nargs="+", default=[10, 15, 20])
+    parser.add_argument("--min_samples", type=int, nargs="+", default=[5, 10])
+    parser.add_argument("--kalman_filter", action="store_true")
+    parser.add_argument("--save_test_images", action="store_true")
+    parser.add_argument("--test_data", type=str)
+    parser.add_argument("--list_cameras", action="store_true")
+    parser.add_argument("--camera_index", type=str, default="0")
+    parser.add_argument("--transport", choices=["rgb", "yuv420", "yuv420_delta"], default="rgb",
+                        help="Camera-mode frame transport: planar I420 halves the bytes to "
+                        "the device (needs the host downscale); yuv420_delta ships its "
+                        "temporal delta, reconstructed bit-exactly on the device")
+    parser.add_argument("--device_preprocess", action="store_true",
+                        help="Resize each frame on the device instead of downscaling it "
+                        "on the host before the transfer")
+    parser.add_argument("--colormap", type=str, default="hot")
+    parser.add_argument("--compute_auc", action="store_true")
+    parser.add_argument("--classes", nargs="+", type=str)
+    parser.add_argument("--afficher_params", action="store_true")
+    parser.add_argument("--inference_input", type=str,
+                        help="Chemin vers un dossier d’images ou une image unique pour le "
+                        "mode inference")
+    parser.add_argument("--inference_json_name", type=str,
+                        default="inference_predictions.json",
+                        help="Nom du fichier JSON de sortie pour le mode inference")
+    parser.add_argument("--num_workers", type=int, default=4,
+                        help="Nombre de workers pour les DataLoader")
+    add_device_args(parser, precisions=("float32", "bf16", "int8"))
+    parser.add_argument("--steps_per_dispatch", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--calib_data", type=str, default=None)
+    parser.add_argument("--qat_steps", type=int, default=0)
+    parser.add_argument("--qat_lr", type=float, default=1e-4)
+    parser.add_argument("--quantized_path", type=str, default=None)
+    return parser
+
+
+def _check_ported(args) -> None:
+    if args.mode not in PORTED_MODES:
+        raise NotImplementedError(f"--mode {args.mode} is not ported yet ({', '.join(PORTED_MODES)})")
+    check_ported(args, _NOT_PORTED)
+    resolve_compute_dtype(args.precision)
+
+
+def _inference_guards(args) -> None:
+    """The JAX CLI's guards of ``--mode inference``, word for word."""
+    if not args.inference_input:
+        raise ValueError(
+            "Le chemin --inference_input doit être spécifié pour le mode inference"
+        )
+    if args.steps_per_dispatch > 1 and args.measure_time:
+        raise SystemExit(
+            "--steps_per_dispatch > 1 dispatche K batches à la fois; le "
+            "temps par image ne peut pas être mesuré — utilisez "
+            "--steps_per_dispatch 1 avec --measure_time"
+        )
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    _check_ported(args)
+    if args.mode == "inference":
+        _inference_guards(args)
+    if args.steps_per_dispatch > 1:
+        raise NotImplementedError("--steps_per_dispatch is not ported yet")
+
+    if args.list_cameras:
+        from ..tasks.camera import list_available_cameras
+
+        print(f"Caméras disponibles : {list_available_cameras()}")
+        return
+
+    device = resolve_device(args.device)
+    cfg = TruncatedResNetConfig.from_json(args.config_path)
+    class_names = resolve_class_names(args.classes, cfg.to_dict(), args.data)
+    truncate = cfg.truncate_layer
+
+    tree = load_checkpoint_tree(args.model_path)
+    model = load_truncated_resnet50(args.model_path, truncate, device, tree=tree)
+    if args.afficher_params:
+        print(f"Nombre total de paramètres du modèle (MoCo + Classifier) : {count_params(tree)}")
+    del tree
+
+    def forward_eval(m, images):
+        return combined_apply(m.moco, m.classifier, images, truncate)
+
+    forward_eval = cast_forward(forward_eval, resolve_compute_dtype(args.precision))
+
+    if args.mode == "inference":
+        from ..tasks.inference import run_inference
+
+        run_inference(forward_eval, model, args.inference_input, class_names, args.save_dir,
+                      batch_size=args.batch_size, json_name=args.inference_json_name,
+                      measure_time=args.measure_time, num_workers=args.num_workers)
+
+    elif args.mode == "classification":
+        from ..tasks.classification import run_classification_test
+
+        if not args.data:
+            raise ValueError("Le chemin du dataset doit être spécifié pour ce mode")
+        idx = ImageFolderIndex(os.path.join(args.data, "test"))
+        samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
+        loader = HostLoader(samples, args.batch_size, shuffle=False,
+                            num_workers=args.num_workers)
+        res = run_classification_test(
+            forward_eval, model, loader, samples, class_names, args.save_dir,
+            prob_threshold=args.prob_threshold, measure_time=args.measure_time,
+            save_test_images=args.save_test_images, compute_auc=args.compute_auc,
+        )
+        print(
+            f"Précision du test: {res['accuracy']}, Perte du test: {res['loss']}, "
+            f"Précision: {res['precision']}, Rappel: {res['recall']}, Score F1: {res['f1']}"
+        )
+        if res["auc"] is not None:
+            print(f"Score AUC: {res['auc']}")
+
+    else:
+        from ..tasks.camera import run_camera
+
+        cam_index = int(args.camera_index) if args.camera_index.isdigit() else args.camera_index
+        run_camera(
+            forward_eval, model, class_names,
+            save_video=args.save_camera_video, save_dir=args.save_dir,
+            prob_threshold=args.prob_threshold, measure_time=args.measure_time,
+            kalman_filter=args.kalman_filter, camera_index=cam_index,
+            host_downscale=not args.device_preprocess, transport=args.transport,
+        )
+
+
+if __name__ == "__main__":
+    main()

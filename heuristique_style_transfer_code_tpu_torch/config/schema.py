@@ -1,4 +1,4 @@
-"""Config schema of model family 2, JSON-compatible with the reference's
+"""Config schemas of model families 1 and 2, JSON-compatible with the reference's
 hyperparameter files (``config/schema.py`` of the JAX package). Unknown keys
 are kept in ``extra`` and round-trip on save."""
 from __future__ import annotations
@@ -42,6 +42,12 @@ class _BaseConfig:
 
 
 @dataclasses.dataclass
+class TruncatedResNetConfig(_BaseConfig):
+    truncate_layer: int = 8
+    dim: int = 256  # MoCo projection size (fixed 256 in the reference CLIs)
+
+
+@dataclasses.dataclass
 class GramAttentionConfig(_BaseConfig):
     truncate_layer: Optional[int] = None
     num_layers: Optional[int] = None  # reference alias for the truncation depth
@@ -52,3 +58,13 @@ class GramAttentionConfig(_BaseConfig):
         # either key; absent both, the reference test CLI's default of 7
         if self.truncate_layer is None:
             self.truncate_layer = self.num_layers if self.num_layers is not None else 7
+
+
+_FAMILY = {
+    "truncated_resnet50": TruncatedResNetConfig,
+    "gram_attention": GramAttentionConfig,
+}
+
+
+def load_config(family: str, path: str):
+    return _FAMILY[family].from_json(path)

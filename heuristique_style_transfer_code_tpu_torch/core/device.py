@@ -26,3 +26,8 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
 
+
+
+def device_of(module: torch.nn.Module) -> torch.device:
+    """The device of a model's parameters (where its inputs must go)."""
+    return next(module.parameters()).device

@@ -49,11 +49,16 @@ class HostLoader:
     Yields dicts ``{"image": uint8 (B, S, S, 3), "label": int32 (B,),
     "indices": (B,), "n_valid": int}``. The last short batch is padded to
     ``batch_size`` by cycling samples from the start of the epoch order;
-    pad entries carry label -1 and are not counted in ``n_valid``."""
+    pad entries carry label -1 and are not counted in ``n_valid``.
+    ``num_workers`` threads decode; ``shuffle`` must stay False."""
 
-    def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int):
+    def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int,
+                 shuffle: bool = False, num_workers: int = DECODE_WORKERS):
+        if shuffle:
+            raise NotImplementedError("HostLoader(shuffle=True) is not ported yet")
         self.samples = list(samples)
         self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
 
     def __len__(self):
         return (len(self.samples) + self.batch_size - 1) // self.batch_size
@@ -64,7 +69,7 @@ class HostLoader:
         batches: List[np.ndarray] = [order[i : i + bs] for i in range(0, len(order), bs)]
 
         # separate pools, so an assembler waiting on decodes never starves them
-        decode_pool = cf.ThreadPoolExecutor(max_workers=DECODE_WORKERS)
+        decode_pool = cf.ThreadPoolExecutor(max_workers=self.num_workers)
         batch_pool = cf.ThreadPoolExecutor(max_workers=PREFETCH_BATCHES)
 
         def make_batch(idxs: np.ndarray) -> dict:

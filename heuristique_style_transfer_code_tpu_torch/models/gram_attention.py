@@ -16,24 +16,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn.resnet import ResNet50Encoder, resnet50_apply
 from ..ops.attention import multihead_attention
-from ..ops.linear import linear
-
-
-class Linear(nn.Module):
-    """torch (out, in) weight; U(-1/sqrt(in), 1/sqrt(in)) init."""
-
-    def __init__(self, cin: int, cout: int, generator=None, device=None, dtype=torch.float32):
-        super().__init__()
-        bound = 1.0 / cin ** 0.5
-        self.weight = nn.Parameter(
-            (torch.rand((cout, cin), generator=generator, dtype=dtype) * 2 - 1).mul_(bound).to(device)
-        )
-        self.bias = nn.Parameter(
-            (torch.rand((cout,), generator=generator, dtype=dtype) * 2 - 1).mul_(bound).to(device)
-        )
-
-    def forward(self, x):
-        return linear(x, self.weight, self.bias)
+from ..ops.linear import Linear
 
 
 class MultiheadAttention(nn.Module):

@@ -3,7 +3,7 @@
 
 Child index map (torchvision resnet50.children() order):
     0 conv1   1 bn1   2 relu   3 maxpool
-    4 layer1  5 layer2  6 layer3  7 layer4
+    4 layer1  5 layer2  6 layer3  7 layer4   8 avgpool
 
 The module tree mirrors the JAX parameter tree, so the weight bridge
 (``checkpoint/convert.py``) is a renaming: ``layer2.1.conv3.weight`` is
@@ -22,6 +22,7 @@ from torch import nn
 from ..ops.conv import conv2d, max_pool2d
 from ..ops.gram import gram_matrix_nhwc, pooled_gram_nhwc
 from ..ops.norm import batch_norm
+from ..ops.pooling import global_avg_pool
 
 RESNET50_CHILDREN = (
     "conv1", "bn1", "relu", "maxpool",
@@ -44,6 +45,19 @@ def _prune_encoder(full: Dict[str, object], truncate: int) -> Dict[str, object]:
         for name in RESNET50_CHILDREN[: min(truncate, 8)]
         if name in full
     }
+
+
+def truncated_feature_channels(truncate: int) -> int:
+    """Channels of the truncated encoder's output (``nn/resnet.py:48-57``):
+    3 for no child, 64 through the stem, the last executed stage's width
+    times 4 after it."""
+    if truncate <= 0:
+        return 3
+    c = 64
+    for i, (_, _, width, _) in enumerate(_STAGES):
+        if truncate > 4 + i:
+            c = width * EXPANSION
+    return c
 
 
 class Conv2d(nn.Module):
@@ -117,12 +131,13 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50Encoder(nn.Module):
-    """The children [0:truncate] of ResNet50 (truncate 0..8), eval only."""
+    """The children [0:truncate] of ResNet50 (truncate 0..9), eval only;
+    the avgpool child (9) holds no parameters."""
 
     def __init__(self, truncate_layer: int, generator: Optional[torch.Generator] = None,
                  device=None, dtype=torch.float32):
         super().__init__()
-        self.truncate = min(truncate_layer, 8)
+        self.truncate = min(truncate_layer, 9)
         builders = {
             "conv1": lambda: Conv2d(3, 64, 7, 2, 3, generator, device, dtype),
             "bn1": lambda: BatchNorm(64, device, dtype),
@@ -153,12 +168,14 @@ def resnet50_apply(
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Run children [0:truncate] on x (N, H, W, 3).
 
-    Returns (features NHWC, grams). ``collect_grams``: one Gram per executed
-    stage (layer1..layer4); ``gram_pool_size``: the (S, S) pooled Gram
-    instead of the (C, C) one. Eval only (``nn/resnet.py:162-224``)."""
+    Returns (features, grams): NHWC features, or (N, 2048) at truncate 9,
+    whose avgpool child is the global average pool. ``collect_grams``: one
+    Gram per executed stage (layer1..layer4); ``gram_pool_size``: the
+    (S, S) pooled Gram instead of the (C, C) one. Eval only
+    (``nn/resnet.py:162-224``)."""
     grams: List[torch.Tensor] = []
-    if truncate > 8:
-        raise NotImplementedError("truncate 9/10 (avgpool, fc) is not ported yet")
+    if truncate > 9:
+        raise NotImplementedError("truncate 10 (the fc child) is not ported yet")
     if truncate < 1:
         return x, grams
     # a contiguous NHWC input is the channels_last layout the convs run in
@@ -179,4 +196,6 @@ def resnet50_apply(
                 grams.append(pooled_gram_nhwc(h, gram_pool_size))
             else:
                 grams.append(gram_matrix_nhwc(h))
+    if truncate >= 9:
+        h = global_avg_pool(h)
     return h, grams

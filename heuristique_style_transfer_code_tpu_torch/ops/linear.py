@@ -5,8 +5,26 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """x (..., in), weight (out, in), bias (out,) -> (..., out)."""
     return F.linear(x, weight.to(x.dtype), bias.to(x.dtype))
+
+
+class Linear(nn.Module):
+    """torch (out, in) weight; U(-1/sqrt(in), 1/sqrt(in)) init."""
+
+    def __init__(self, cin: int, cout: int, generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        bound = 1.0 / cin ** 0.5
+        self.weight = nn.Parameter(
+            (torch.rand((cout, cin), generator=generator, dtype=dtype) * 2 - 1).mul_(bound).to(device)
+        )
+        self.bias = nn.Parameter(
+            (torch.rand((cout,), generator=generator, dtype=dtype) * 2 - 1).mul_(bound).to(device)
+        )
+
+    def forward(self, x):
+        return linear(x, self.weight, self.bias)

@@ -1,5 +1,6 @@
 """Adaptive average pooling as a constant averaging matrix
-(``ops/pooling.py:21-33``).
+(``ops/pooling.py:21-33``), and the global average pool of the avgpool
+child (``ops/pooling.py:46-54``).
 
 torch's adaptive bins are start = floor(i*In/Out), end = ceil((i+1)*In/Out);
 when Out does not divide In the bins overlap (C=256, S=7 is such a case), so
@@ -36,3 +37,11 @@ def adaptive_pool_matrix(
     use there (the forward takes it at every stage; a fresh host copy each
     time would stall the stream)."""
     return _pool_matrix_on(in_size, out_size, torch.device(device))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NHWC (N, H, W, C) -> (N, C): AdaptiveAvgPool2d((1, 1)) + Flatten.
+    Reduces in f32 for f32 and bf16 inputs (f64 stays f64); returns x's
+    dtype."""
+    ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return x.to(ctype).mean(dim=(1, 2)).to(x.dtype)

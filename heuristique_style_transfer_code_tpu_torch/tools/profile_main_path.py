@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Three cells, each at full model width with seeded random weights:
+Five cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -11,6 +11,13 @@ Three cells, each at full model width with seeded random weights:
   fast_style_serve  the classic fast-style net (width 32, 5 residual blocks),
                     crop 224, batch 8, f32 and bf16: a served batch's work,
                     uint8 in, ``make_net_job_fn``'s forward, uint8 back
+  family1_classification
+                    family 1, truncate 8, dim 256, 4 classes, 224² crops of
+                    256² staged uint8, batch 32, f32 and bf16 (one
+                    ``evaluate_classification`` call on one batch)
+  camera            family 1 at batch 1, host-downscaled 224² RGB frames,
+                    f32 and bf16 (``make_camera_infer_fn``, one frame in,
+                    its probabilities fetched)
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -29,11 +36,15 @@ import time
 import numpy as np
 import torch
 
+from ..cli._common import cast_forward
 from ..core.device import resolve_device
 from ..data.augment import eval_preprocess
 from ..models.gram_attention import gram_attention_apply, gram_attention_init
+from ..models.truncated_resnet50 import combined_apply, truncated_resnet50_init
 from ..nn.transformer_net import transformer_net_init
 from ..ops.kernels import build_all
+from ..tasks.camera import make_camera_infer_fn
+from ..tasks.classification import evaluate_classification
 from ..tasks.fast_style import make_net_job_fn
 from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_transfer_optimizer
 
@@ -97,6 +108,10 @@ def _timed(step, n_steps: int, runs: int = 3) -> list[float]:
     return out
 
 
+def _dtype_name(dtype) -> str:
+    return str(dtype or torch.float32).split(".")[1]
+
+
 def classification_cell(model, dev) -> dict:
     rng = np.random.RandomState(1)
     u8 = torch.from_numpy(rng.randint(0, 256, (8, 256, 256, 3)).astype(np.uint8))
@@ -131,7 +146,7 @@ def style_cell(model, dev, dtype) -> dict:
     runs = [t / iters for t in _timed(lambda: run(iters), 1)]
     ms = float(np.median(runs))
     return {"cell": "style_transfer", "layers": 5, "batch": 4,
-            "dtype": str(dtype or torch.float32).split(".")[1], "iteration_ms": ms,
+            "dtype": _dtype_name(dtype), "iteration_ms": ms,
             "iteration_ms_runs": runs, "image_iterations_per_s": 4 / ms * 1e3,
             **{k: v for k, v in _profile(lambda: run(5), 1).items()}, "profiled_iterations": 5}
 
@@ -150,19 +165,59 @@ def fast_style_cell(net, dtype) -> dict:
     runs = _timed(step, 10)
     ms = float(np.median(runs))
     return {"cell": "fast_style_serve", "width": 32, "n_res": 5, "crop": 224, "batch": 8,
-            "dtype": str(dtype or torch.float32).split(".")[1], "step_ms": ms,
+            "dtype": _dtype_name(dtype), "step_ms": ms,
             "step_ms_runs": runs, "images_per_s": 8 / ms * 1e3, **_profile(step, 3),
             "profiled_steps": 3}
+
+
+def _family1_forward(dtype):
+    return cast_forward(lambda m, images: combined_apply(m.moco, m.classifier, images, 8), dtype)
+
+
+def family1_cell(model, dtype) -> dict:
+    rng = np.random.RandomState(4)
+    batch = [{"image": rng.randint(0, 256, (32, 256, 256, 3)).astype(np.uint8),
+              "label": rng.randint(0, 4, (32,)).astype(np.int32),
+              "indices": np.arange(32), "n_valid": 32}]
+    fwd = _family1_forward(dtype)
+
+    def step():
+        evaluate_classification(fwd, model, batch, 4, prob_threshold=0.0)
+
+    step()
+    runs = _timed(step, 5)
+    ms = float(np.median(runs))
+    return {"cell": "family1_classification", "truncate": 8, "dim": 256, "batch": 32,
+            "dtype": _dtype_name(dtype), "step_ms": ms, "step_ms_runs": runs,
+            "images_per_s": 32 / ms * 1e3, **_profile(step, 3), "profiled_steps": 3}
+
+
+def camera_cell(model, dtype) -> dict:
+    infer = make_camera_infer_fn(_family1_forward(dtype), host_downscale=True)
+    frame = np.random.RandomState(5).randint(0, 256, (224, 224, 3)).astype(np.uint8)
+
+    def step():
+        infer(model, frame).cpu()
+
+    step()
+    runs = _timed(step, 50)
+    ms = float(np.median(runs))
+    return {"cell": "camera", "transport": "rgb", "host_downscale": True, "batch": 1,
+            "dtype": _dtype_name(dtype), "frame_ms": ms, "frame_ms_runs": runs,
+            "frames_per_s": 1e3 / ms, **_profile(step, 10), "profiled_steps": 10}
 
 
 def main() -> None:
     dev = resolve_device("cuda")
     model = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, 7, device=dev)
     net = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5, device=dev)
+    family1 = truncated_resnet50_init(torch.Generator().manual_seed(8), 8, 4, 256, device=dev)
     build_all()
     cells = [classification_cell(model, dev), style_cell(model, dev, None),
              style_cell(model, dev, torch.bfloat16), fast_style_cell(net, None),
-             fast_style_cell(net, torch.bfloat16)]
+             fast_style_cell(net, torch.bfloat16), family1_cell(family1, None),
+             family1_cell(family1, torch.bfloat16), camera_cell(family1, None),
+             camera_cell(family1, torch.bfloat16)]
     for c in cells:
         print(json.dumps(c))
     if os.path.isdir("chiprun_out"):
