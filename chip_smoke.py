@@ -10,15 +10,19 @@ Phases, all run every time:
                   plain PyTorch versions at the main path's shapes in f32
                   and bf16, on non-negative inputs as the main path's
                   post-ReLU features are (gram_fwd also at two ragged
-                  shapes, gram_bwd at three, each row naming its route and
+                  shapes and at family 3's (32|1,4,4,64), gram_bwd at
+                  three, each row naming its route and
                   splits, gram_bwd's also its two-call yardstick;
-                  pooled_gram_fwd also at three ragged shapes and three
-                  with S > 16, each row naming S, its route and splits);
+                  pooled_gram_fwd also at three ragged shapes, three
+                  with S > 16 and the family-2 camera's (1,56,56,256) S 7,
+                  each row naming S, its route and splits);
                   instance_norm_fwd likewise at the fast-style net's
                   shapes (B = 8, with and without ReLU, per-image affine
                   rows that differ), at C = 48, C = 5,
-                  (1,512,512,32) bf16, (1|4,224,224,32) and on channels of
-                  mean 1e3, on signed inputs as conv outputs are, each row
+                  (1,512,512,32) bf16, (1|4,224,224,32), on channels of
+                  mean 1e3, and at family 3's shapes under norm "instance"
+                  (unit scale, zero bias, ReLU; B = 32 up to C = 1024, and
+                  (1,13,13,1024)), on signed inputs as conv outputs are, each row
                   naming its route (cluster or split), cluster size,
                   resident share, bytes read twice and the clusters the card
                   holds at once, cluster rows also timing the split route;
@@ -62,7 +66,24 @@ Phases, all run every time:
   camera_video    ``--mode camera`` through the CLI on a 30-frame 640x480
                   MJPG file written here (OpenCV is on the card machine),
                   then ``run_camera`` on the card and on the CPU.
-  Family 1 and the camera launch no hand-written kernel (their convs,
+  family3_classification
+                  family 3 at full width (the config defaults: patch sizes
+                  10/70/150, ndf 64, gram dim 64, 4 classes; seeded weights
+                  through the npz writer and the CLI's loader):
+                  ``--mode classification``'s device loop and JSON writer
+                  over 4 b32 batches of staged 256² uint8, f32 and bf16;
+                  images/s from the per-batch spans; batch 0's logits,
+                  embeddings and Gram norms against the same model on the
+                  CPU; gram_fwd launched 16 times a forward. Then the same
+                  at norm "instance" over 2 batches, instance_norm_fwd
+                  launched 13 times a forward.
+  embeddings      ``compute_embeddings_with_paths`` for families 1 (b32), 2
+                  (b8) and 3 (b32) at full width, 2 batches each, against
+                  the CPU; family 1 writes its ``<model>_embeddings.json``.
+  family3_camera, family2_camera
+                  the host-downscaled RGB camera path at b1, f32, 50
+                  frames each: p50 and frames/s, frame 1 against the CPU.
+  Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work): a launch there fails the run.
 
 Launch counts are set to 0 just before each main-path phase and read just
@@ -118,6 +139,16 @@ RAGGED_BWD_SHAPES = [(1, 13, 11, 200), (2, 7, 7, 48), (1, 9, 7, 203)]
 # pooled_gram_fwd past 16 bins (the "project" route): layer4, C % S != 0 at
 # odd HW, and C < S
 LARGE_S_POOLED = [((8, 7, 7, 2048), 24), ((2, 13, 11, 200), 24), ((2, 5, 5, 5), 20)]
+# gram_fwd at the family-3 Gram's shape (HW = 16 pooled positions, C = the
+# gram dim 64), at the classification batch and at the camera's b1
+F3_GRAM_SHAPES = [(32, 4, 4, 64), (1, 4, 4, 64)]
+# pooled_gram_fwd at the family-2 camera's b1 (layer1's output)
+F2_CAMERA_POOLED = [((1, 56, 56, 256), 7)]
+# instance_norm_fwd at family-3 shapes under norm "instance" (unit scale,
+# zero bias, ReLU): more images than the clusters the card holds at once,
+# and C > 256 (the split route) at B = 32 and at the camera's B = 1
+F3_IN_SHAPES = [(32, 112, 112, 64), (32, 28, 28, 256), (32, 14, 14, 512), (32, 13, 13, 1024),
+                (1, 13, 13, 1024)]
 DEVICE = "cuda"
 N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
@@ -133,6 +164,16 @@ N_REQUESTS, REQUEST_THREADS = 16, 8
 # family 1 at full width: truncate 8, dim 256, 4 classes, the CLI's batch
 F1_TRUNCATE, F1_DIM, F1_CLASSES, F1_BATCH = 8, 256, 4, 32
 F1_IMAGES, F1_INFER_IMAGES, CAMERA_FRAMES, VIDEO_FRAMES = 128, 40, 100, 30
+# family 3 at full width: the config defaults (patch sizes 10/70/150, ndf
+# 64, gram dim 64, 4 classes), the CLI's batch 32; a forward runs 16 convs
+# (so 16 Grams) and, under norm "instance", 13 instance norms
+F3_BATCH, F3_BATCHES, F3_INSTANCE_BATCHES, F3_GRAMS, F3_NORMS = 32, 4, 2, 16, 13
+F2_BATCH, EMBED_BATCHES, F3_CAMERA_FRAMES = 8, 2, 50
+# card vs CPU on the family-3 and embedding phases, each relative to the
+# CPU result's own scale: (max, RMS); f32 sums run in other orders (cuDNN
+# vs oneDNN) through up to 8 convs and 3 norms; bf16 rounds each stage's
+# output at 2^-8 on both sides, at other places
+TOL_MODEL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 2e-2)}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -220,6 +261,7 @@ def phase_kernels(kg, peaks) -> dict:
     gen_pooled_ragged = torch.Generator(device=dev).manual_seed(3)
     gen_bwd_ragged = torch.Generator(device=dev).manual_seed(4)
     gen_pooled_large_s = torch.Generator(device=dev).manual_seed(5)
+    gen_family = torch.Generator(device=dev).manual_seed(6)
 
     def bwd_row(f, dg, shape, dtype, dname, es):
         n, h, w, c = shape
@@ -247,10 +289,11 @@ def phase_kernels(kg, peaks) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         dname = str(dtype).split(".")[1]
-        for (n, h, w, c) in GRAM_SHAPES + RAGGED_GRAM_SHAPES:
+        for (n, h, w, c) in GRAM_SHAPES + RAGGED_GRAM_SHAPES + F3_GRAM_SHAPES:
             hw = h * w
             main = (n, h, w, c) in GRAM_SHAPES
-            f = features((n, hw, c), dtype, gen if main else gen_ragged)
+            g_in = gen if main else gen_family if (n, h, w, c) in F3_GRAM_SHAPES else gen_ragged
+            f = features((n, hw, c), dtype, g_in)
             # forward
             err, rel, rms, ok = check(kg.gram_fwd(f), kg.gram_fwd_plain(f), dtype)
             out = torch.empty((n, c, c), device=dev, dtype=dtype)
@@ -278,10 +321,12 @@ def phase_kernels(kg, peaks) -> dict:
             dg = torch.randn((n, c, c), device=dev, generator=gen_bwd_ragged).to(dtype)
             rows["gram_bwd"].append(bwd_row(f, dg, (n, h, w, c), dtype, dname, es))
             del f, dg
-        pooled_gens = {"main": gen, "ragged": gen_pooled_ragged, "large_s": gen_pooled_large_s}
+        pooled_gens = {"main": gen, "ragged": gen_pooled_ragged, "large_s": gen_pooled_large_s,
+                       "camera": gen_family}
         pooled_cases = ([(shape, POOL_S, "main") for shape in POOLED_SHAPES]
                         + [(shape, s, "ragged") for shape, s in RAGGED_POOLED]
-                        + [(shape, s, "large_s") for shape, s in LARGE_S_POOLED])
+                        + [(shape, s, "large_s") for shape, s in LARGE_S_POOLED]
+                        + [(shape, s, "camera") for shape, s in F2_CAMERA_POOLED])
         for (n, h, w, c), s, kind in pooled_cases:
             hw = h * w
             f = features((n, hw, c), dtype, pooled_gens[kind])
@@ -439,6 +484,9 @@ def phase_in_kernels(kin, peaks):
     cases += [(shape, dtype, True, "signed", gen_more) for shape in LADDER_IN_SHAPES
               for dtype in (torch.float32, torch.bfloat16)]
     cases += [((8, 56, 56, 128), torch.float32, False, "mean 1e3", gen_more)]
+    gen_family = torch.Generator(device=dev).manual_seed(12)
+    cases += [(shape, dtype, True, "unit affine", gen_family) for shape in F3_IN_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)]
     rows = []
     for (b, h, w, c), dtype, relu, kind, g in cases:
         hw = h * w
@@ -449,8 +497,12 @@ def phase_in_kernels(kin, peaks):
             xf = (torch.randn((b, hw, c), device=dev, generator=g) * 2 + 0.5
                   + torch.randn((c,), device=dev, generator=g))
         x = xf.to(dtype)
-        scale = torch.randn((b, c), device=dev, generator=g)
-        bias = torch.randn((b, c), device=dev, generator=g)
+        if kind == "unit affine":  # the family-3 discriminator's non-affine norm
+            scale = torch.ones((b, c), device=dev)
+            bias = torch.zeros((b, c), device=dev)
+        else:
+            scale = torch.randn((b, c), device=dev, generator=g)
+            bias = torch.randn((b, c), device=dev, generator=g)
         got = kin.instance_norm_fwd(x, scale, bias, relu=relu)
         torch.cuda.synchronize()
         ref = x.double() if kind == "mean 1e3" else x
@@ -1090,6 +1142,266 @@ def _camera_report(path: str, dtype: str, times, gap: float, launches: dict,
                                           f"{launches}")
 
 
+def _rel_errs(got, want):
+    """(max, RMS) of got - want, each relative to want's own scale."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = got - want
+    return (float(np.abs(diff).max() / np.abs(want).max()),
+            float(np.linalg.norm(diff) / np.linalg.norm(want)))
+
+
+def _within(errs, dtype_name: str) -> bool:
+    tol_max, tol_rms = TOL_MODEL[dtype_name]
+    return errs[0] <= tol_max and errs[1] <= tol_rms
+
+
+def _family3(tmp: str, norm: str):
+    """The family-3 test model at the config defaults with ``norm``, seeded
+    on the CPU, written as npz and read back onto the card by the CLI's
+    loader; returns (card model, CPU model, config)."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.cli._common import load_multi_patchgan
+    from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_init,
+    )
+
+    cfg = MultiPatchGANConfig(norm=norm)
+    seeded = multiscale_test_init(torch.Generator().manual_seed(13), cfg.patch_sizes, ndf=cfg.ndf,
+                                  num_classes=cfg.num_classes,
+                                  gram_matrix_dim=cfg.gram_matrix_dim, norm=norm, device="cpu")
+    ckpt = os.path.join(tmp, f"family3_{norm}.npz")
+    save_pytree_npz(to_jax_tree(seeded), ckpt)
+    return load_multi_patchgan(ckpt, cfg, torch.device(DEVICE)), seeded, cfg
+
+
+def _family2(tmp: str):
+    """The classification phase's family-2 model (written there as
+    family2.npz), read onto the card by the CLI's loader; returns (card
+    model, CPU model)."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import (
+        load_gram_attention,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+
+    seeded = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, POOL_S, device="cpu")
+    return (load_gram_attention(os.path.join(tmp, "family2.npz"), 8, 4, POOL_S,
+                                torch.device(DEVICE)), seeded)
+
+
+def phase_family3_classification(kernels, family3, timings: dict, tmp: str,
+                                 n_batches: int) -> dict:
+    """Family 3's ``--mode classification`` through the CLI's device loop
+    (``evaluate``) and its JSON writer at b32, f32 and bf16; images/s from
+    the per-batch spans; batch 0's logits and embeddings against the same
+    model on the CPU. Every forward launches ``gram_fwd`` 16 times and,
+    under norm "instance", ``instance_norm_fwd`` 13 times."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan import (
+        classification_results,
+        evaluate,
+        write_classification_results,
+    )
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_apply,
+    )
+
+    model, seeded, cfg = family3
+    gdim, norm = cfg.gram_matrix_dim, cfg.norm
+    batches = _batches(F3_BATCH * n_batches, F3_BATCH, seed=14)
+    x0 = eval_preprocess(torch.from_numpy(batches[0]["image"]))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        compute = None if dtype == torch.float32 else dtype
+        evaluate(model, batches[:1], gram_matrix_dim=gdim, norm=norm, compute_dtype=compute)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate(model, batches, gram_matrix_dim=gdim, norm=norm, compute_dtype=compute,
+                       measure_time=True)
+        timings[f"family3_{norm}_{name}_s"] = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        results = classification_results(res)
+        path = write_classification_results(results, os.path.join(tmp, f"family3_{norm}_{name}"))
+        spans = [t for t, _ in res["spans"]]
+        ips = F3_BATCH / float(np.median(spans))
+        with torch.inference_mode():
+            card = multiscale_test_apply(model, x0.to(DEVICE, dtype), gdim, norm)
+            cpu = multiscale_test_apply(seeded, x0.to(dtype), gdim, norm)
+        errs = {"logits": _rel_errs(card[1].float().cpu(), cpu[1].float()),
+                "embeddings": _rel_errs(card[0].float().cpu(), cpu[0].float()),
+                "gram_norms": _rel_errs(torch.stack(card[2]).float().cpu(),
+                                        torch.stack(cpu[2]).float())}
+        want = {"gram_fwd": F3_GRAMS * n_batches,
+                "instance_norm_fwd": F3_NORMS * n_batches if norm == "instance" else 0}
+        print(f"[family3_classification] norm {norm} {name} b{F3_BATCH}: "
+              f"{F3_BATCH * n_batches} images, {ips:.1f} images/s (median of {len(spans)} batch "
+              f"spans {[round(t * 1e3, 3) for t in spans]} ms), accuracy {results['accuracy']}, "
+              f"predictions per class {np.bincount(results['predictions'], minlength=4).tolist()}; "
+              f"card vs CPU on batch 0 (max, RMS) {json.dumps(errs)} (tol {TOL_MODEL[name]}); "
+              f"launches {launches}")
+        timings[f"family3_{norm}_{name}_images_per_s"] = ips
+        out[name] = {"images_per_s": ips, "spans_ms": [t * 1e3 for t in spans], "errs": errs,
+                     "launches": launches}
+        _require(os.path.exists(path), "classification_results.json written")
+        _require(len(results["predictions"]) == F3_BATCH * n_batches, "a prediction an image")
+        _require(len(spans) == n_batches, f"one span a batch: {len(spans)}")
+        _require(bool(torch.isfinite(card[1]).all()) and tuple(card[1].shape)
+                 == (F3_BATCH, cfg.num_classes) and len(card[2]) == F3_GRAMS,
+                 "finite logits of shape (32, 4) and 16 Gram norms")
+        _require(all(_within(e, name) for e in errs.values()),
+                 f"card agrees with the CPU: {errs}")
+        _require(all(launches[k] == v for k, v in want.items()),
+                 f"launches {want} for {n_batches} batches: {launches}")
+    return out
+
+
+def _samples_for(batches):
+    """(path, label) records that a loader's batches index, for the image
+    paths that the embedding task returns."""
+    out = {}
+    for b in batches:
+        for i, label in zip(b["indices"], b["label"]):
+            out[int(i)] = (f"img_{int(i):04d}.png", int(label))
+    return [out[i] for i in sorted(out)]
+
+
+def phase_embeddings(kernels, family1, family2, family3, tmp: str) -> dict:
+    """``compute_embeddings_with_paths`` for families 1, 2 and 3 at full
+    width over 2 batches each, card against CPU; family 1 also writes its
+    ``<model>_embeddings.json``. t-SNE and HDBSCAN (scikit-learn, absent on
+    the card machine) are held on the CPU by the tests."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 import (
+        write_embeddings_json,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.truncated_resnet50 import (
+        truncated_moco_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.embeddings import (
+        compute_embeddings_with_paths,
+    )
+
+    f1_model, f1_seeded, _ = family1
+    f2_model, f2_seeded = family2
+    f3_model, f3_seeded, cfg = family3
+    families = {
+        "family1": (f1_model, f1_seeded, lambda m, x: truncated_moco_apply(m.moco, x, F1_TRUNCATE),
+                    F1_BATCH, {}),
+        "family2": (f2_model, f2_seeded,
+                    lambda m, x: gram_attention_apply(m, x, 8, POOL_S, 4)[0], F2_BATCH,
+                    {"pooled_gram_fwd": 4 * EMBED_BATCHES}),
+        "family3": (f3_model, f3_seeded,
+                    lambda m, x: multiscale_test_apply(m, x, cfg.gram_matrix_dim, cfg.norm)[0],
+                    F3_BATCH, {"gram_fwd": F3_GRAMS * EMBED_BATCHES}),
+    }
+    out = {}
+    for fam, (model, seeded, embed_fn, batch, want) in families.items():
+        batches = _batches(batch * EMBED_BATCHES, batch, seed=15)
+        samples = _samples_for(batches)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb, labels, paths = compute_embeddings_with_paths(embed_fn, model, batches, samples)
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        emb_cpu, labels_cpu, paths_cpu = compute_embeddings_with_paths(embed_fn, seeded, batches,
+                                                                       samples)
+        errs = _rel_errs(emb, emb_cpu)
+        extra = ""
+        if fam == "family1":
+            path = write_embeddings_json(emb, labels, os.path.join(tmp, "family1.npz"), tmp)
+            with open(path) as f:
+                saved = json.load(f)
+            _require(os.path.basename(path) == "family1_embeddings.json"
+                     and len(saved["embeddings"]) == len(labels)
+                     and saved["labels"] == labels.tolist(), f"{path} holds every embedding")
+            extra = f", wrote {os.path.basename(path)}"
+        print(f"[embeddings] {fam}: {emb.shape} in {seconds:.3f} s ({EMBED_BATCHES} batches of "
+              f"{batch}); card vs CPU (max, RMS) {errs[0]:.3e}, {errs[1]:.3e} "
+              f"(tol {TOL_MODEL['float32']}); launches {launches}{extra}")
+        out[fam] = {"shape": list(emb.shape), "seconds": seconds, "errs": errs,
+                    "launches": launches}
+        _require(emb.shape[0] == batch * EMBED_BATCHES and paths == paths_cpu
+                 and labels.tolist() == labels_cpu.tolist(), f"{fam}: every sample in order")
+        _require(_within(errs, "float32"), f"{fam} embeddings agree with the CPU: {errs}")
+        _require(all(launches[k] == want.get(k, 0) for k in launches),
+                 f"{fam} launches {want}: {launches}")
+    return out
+
+
+def phase_family_cameras(kernels, family2, family3, timings: dict) -> dict:
+    """The host-downscaled RGB camera path at b1, f32, for family 3 (16
+    ``gram_fwd`` a frame) and family 2 (4 ``pooled_gram_fwd`` a frame at
+    N = 1): F3_CAMERA_FRAMES frames each after one warm-up, p50 and
+    frames/s, frame 1 against the CPU."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.camera import make_camera_infer_fn
+
+    f2_model, f2_seeded = family2
+    f3_model, f3_seeded, cfg = family3
+    paths = {
+        "family3": (f3_model, f3_seeded,
+                    lambda m, x: multiscale_test_apply(m, x, cfg.gram_matrix_dim, cfg.norm)[1],
+                    {"gram_fwd": F3_GRAMS}),
+        "family2": (f2_model, f2_seeded, lambda m, x: gram_attention_apply(m, x, 8, POOL_S, 4)[1],
+                    {"pooled_gram_fwd": 4}),
+    }
+    frames = _camera_frames(16)["rgb224"][: F3_CAMERA_FRAMES + 1]
+    out = {}
+    for fam, (model, seeded, forward, per_frame) in paths.items():
+        infer = make_camera_infer_fn(forward, host_downscale=True)
+        infer(model, frames[0]).cpu()  # warm-up
+        kernels.reset_launch_counts()
+        probs, times = [], []
+        for f in frames[1:]:
+            t0 = time.perf_counter()
+            probs.append(infer(model, f).cpu())
+            times.append(time.perf_counter() - t0)
+        launches = kernels.launch_counts()
+        errs = _rel_errs(probs[0], infer(seeded, frames[1]))
+        p50 = float(sorted(times)[len(times) // 2] * 1e3)
+        fps = len(times) / sum(times)
+        timings[f"{fam}_camera_float32"] = {"fps": fps, "p50_ms": p50}
+        print(f"[{fam}_camera] float32 rgb_host_downscale b1: {len(times)} frames, {fps:.1f} "
+              f"frames/s, p50 {p50:.3f} ms; card vs CPU on frame 1 (max, RMS) {errs[0]:.3e}, "
+              f"{errs[1]:.3e} (tol {TOL_MODEL['float32']}); launches {launches}")
+        out[fam] = {"fps": fps, "p50_ms": p50, "times_ms": [t * 1e3 for t in times],
+                    "errs": errs, "launches": launches}
+        _require(len(times) == F3_CAMERA_FRAMES, f"{F3_CAMERA_FRAMES} frames")
+        _require(_within(errs, "float32"), f"{fam} camera agrees with the CPU: {errs}")
+        _require(all(launches[k] == v * F3_CAMERA_FRAMES for k, v in per_frame.items()),
+                 f"{fam} launches {per_frame} a frame: {launches}")
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -1139,6 +1451,19 @@ def main() -> int:
         phase_camera_video(family1, tmp, timings)
         timings["family1_and_camera_phases_s"] = time.perf_counter() - t0
         print(f"[family1+camera] {timings['family1_and_camera_phases_s']:.2f} s in all")
+        t0 = time.perf_counter()
+        family2 = _family2(tmp)
+        family3 = {norm: _family3(tmp, norm) for norm in ("batch", "instance")}
+        f3_results = {
+            "batch": phase_family3_classification(kernels, family3["batch"], timings, tmp,
+                                                  F3_BATCHES),
+            "instance": phase_family3_classification(kernels, family3["instance"], timings,
+                                                     tmp, F3_INSTANCE_BATCHES)}
+        embeddings = phase_embeddings(kernels, family1, family2, family3["batch"], tmp)
+        cameras = phase_family_cameras(kernels, family2, family3["batch"], timings)
+        timings["family3_embeddings_cameras_phases_s"] = time.perf_counter() - t0
+        print(f"[family3+embeddings+cameras] "
+              f"{timings['family3_embeddings_cameras_phases_s']:.2f} s in all")
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
                 "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"],
                 "instance_norm_fwd": fs_launches["instance_norm_fwd"]}
@@ -1165,7 +1490,8 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "power": smi, "rows": rows, "timings": timings,
-                   "instance_norm_checks": in_checks, "records": records}, f, indent=1)
+                   "instance_norm_checks": in_checks, "records": records, "family3": f3_results,
+                   "embeddings": embeddings, "cameras": cameras}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 """Weight bridge between the JAX package's parameter trees and the port's
-modules (``models/gram_attention.py``, ``nn/transformer_net.py``).
+modules (``models/gram_attention.py``, ``models/truncated_resnet50.py``,
+``models/multi_patchgan.py``, ``nn/transformer_net.py``).
 
 The module tree mirrors the JAX tree, so a leaf's state-dict key is its
 path with the leaf renamed:
@@ -11,7 +12,10 @@ path with the leaf renamed:
     mean / var           -> running_mean / running_var
     in_proj_weight, ...  -> unchanged                (attention)
 
-Loading fails on any leaf left over or missing, and on any shape mismatch.
+A None leaf of the JAX tree (a family-3 norm without parameters) is a
+node with no parameters here: nothing to load, and ``to_jax_tree`` writes
+it back as None where a module names it in ``none_leaves``. Loading fails
+on any leaf left over or missing, and on any shape mismatch.
 """
 from __future__ import annotations
 
@@ -40,7 +44,9 @@ def from_jax_tree(tree: Any) -> Dict[str, torch.Tensor]:
     module (float32 CPU tensors; ``load_jax_tree`` moves them)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(tree).items():
-        if path.endswith(("__none__", "__empty_dict__", "__empty_list__")):
+        if path.endswith(".__none__"):  # a parameter-free node
+            continue
+        if path.endswith(("__empty_dict__", "__empty_list__")):
             raise KeyError(f"weight bridge: unexpected empty leaf {path!r}")
         parts = path.split("/")
         leaf = parts[-1]
@@ -53,7 +59,8 @@ def to_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
     """The port's module -> the JAX package's tree of numpy float32 arrays
     (what its ``save_pytree_npz`` writes). The ``weight`` of a module marked
     ``is_affine_norm`` is a norm's scale whatever its rank: a conditional
-    net's (S, C) table stays (S, C), untransposed."""
+    net's (S, C) table stays (S, C), untransposed. A child that a module
+    names in ``none_leaves`` and that is None becomes a None leaf."""
     tree: Dict[str, Any] = {}
     inverse = {"running_mean": "mean", "running_var": "var"}
     norms = {name for name, m in module.named_modules() if getattr(m, "is_affine_norm", False)}
@@ -75,6 +82,13 @@ def to_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
+    for name, m in module.named_modules():
+        for leaf in getattr(m, "none_leaves", ()):
+            if getattr(m, leaf) is None:
+                node = tree
+                for p in name.split(".") if name else ():
+                    node = node.setdefault(p, {})
+                node[leaf] = None
     return _listify(tree)
 
 

@@ -1,5 +1,6 @@
 """Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
-that the family-1 and family-2 evaluation CLIs and ``serve_style`` need)."""
+that the evaluation CLIs of families 1, 2 and 3 and ``serve_style``
+need)."""
 from __future__ import annotations
 
 import os
@@ -71,6 +72,28 @@ def load_truncated_resnet50(model_path: str, truncate: int, device: torch.device
     return load_jax_tree(model, tree)
 
 
+def load_multi_patchgan(model_path: str, cfg, device: torch.device, tree: Any = None):
+    """npz checkpoint (or its ``tree``) of the family-3 test variant ->
+    the model on ``device``, built from ``cfg`` (a ``MultiPatchGANConfig``).
+    A train-variant checkpoint, which the JAX CLI loads partially by
+    ``shape_filtered_update``, raises: that path is not ported yet."""
+    from ..checkpoint.convert import load_jax_tree
+    from ..models.multi_patchgan import SCALES, multiscale_test_init
+
+    if tree is None:
+        tree = load_checkpoint_tree(model_path)
+    if not all(isinstance(tree.get(s), dict) and "features" in tree[s] for s in SCALES):
+        raise NotImplementedError(
+            f"{model_path}: a train-variant Multi-PatchGAN checkpoint (loaded partially by "
+            "shape_filtered_update) is not ported yet; pass a test-variant checkpoint"
+        )
+    model = multiscale_test_init(None, cfg.patch_sizes, ndf=cfg.ndf,
+                                 num_classes=cfg.num_classes,
+                                 gram_matrix_dim=cfg.gram_matrix_dim, norm=cfg.norm,
+                                 device=device)
+    return load_jax_tree(model, tree)
+
+
 def count_params(tree: Any) -> int:
     if isinstance(tree, dict):
         return sum(count_params(v) for v in tree.values())
@@ -100,16 +123,25 @@ def cast_forward(forward, compute_dtype: Optional[torch.dtype]):
     return wrapped
 
 
-def weighted_auc_or_none(labels, probs):
-    """Reference ``--compute_auc``: weighted one-vs-rest AUC for more than
-    two label values, ``probs[:, 1]`` for two; None (with the reference's
-    warning) when it cannot be computed. Imports scikit-learn."""
+def weighted_auc_or_none(labels, probs, branch_on: str = "labels"):
+    """Reference ``--compute_auc``: weighted one-vs-rest AUC for the
+    multiclass case, ``probs[:, 1]`` for the binary one; None (with the
+    reference's warning) when it cannot be computed. Imports scikit-learn.
+
+    The references test "multiclass" differently: the gram-attention one
+    on the labels, ``len(np.unique(labels)) > 2`` (``branch_on="labels"``),
+    the Multi-PatchGAN one on the probability matrix, ``probs.shape[1] > 2``
+    (``branch_on="probs"``). They part where a model of more than two
+    classes is evaluated on labels that cover two or fewer: the labels
+    branch takes the binary AUC of ``probs[:, 1]``, the probs branch stays
+    multiclass, which raises for the absent classes and gives None."""
     from sklearn.metrics import roc_auc_score
 
     labels = np.asarray(labels)
     probs = np.asarray(probs)
+    multiclass = probs.shape[1] > 2 if branch_on == "probs" else len(np.unique(labels)) > 2
     try:
-        if len(np.unique(labels)) > 2:
+        if multiclass:
             return float(roc_auc_score(labels, probs, multi_class="ovr", average="weighted"))
         return float(roc_auc_score(labels, probs[:, 1]))
     except ValueError as e:

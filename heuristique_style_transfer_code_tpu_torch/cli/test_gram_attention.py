@@ -2,10 +2,13 @@
 ``heuristique_style_transfer_code_tpu/cli/test_gram_attention.py`` plus
 ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``).
 
-Ported: ``--mode classification`` (``classification_results.json``) and
-``--mode style_transfer`` (``style_transfer_<date>/<label>/*.png``) with
-``--precision float32|bf16``. The other modes and the flags listed in
-``_NOT_PORTED`` raise a "not ported yet" error.
+Ported: ``--mode classification`` (``classification_results.json``),
+``--mode style_transfer`` (``style_transfer_<date>/<label>/*.png``),
+``--mode tsne`` (``tsne_visualization.png``), ``--mode tsne_interactive``
+(the Tk GUI, or the static plot without ``DISPLAY``) and ``--mode camera``
+(a camera or a video file, ``--classes`` required), with ``--precision
+float32|bf16``. The flags listed in ``_NOT_PORTED`` raise a "not ported
+yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -28,6 +31,7 @@ from ..data.imagefolder import ImageFolderIndex
 from ..data.loader import HostLoader
 from ..models.gram_attention import GramAttention, gram_attention_apply, gram_attention_init
 from ._common import (
+    cast_forward,
     check_ported,
     count_params,
     load_checkpoint_tree,
@@ -37,7 +41,7 @@ from ._common import (
 )
 
 MODES = ["tsne", "tsne_interactive", "classification", "camera", "style_transfer"]
-PORTED_MODES = ("classification", "style_transfer")
+PORTED_MODES = ("classification", "style_transfer", "tsne", "tsne_interactive", "camera")
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
@@ -193,10 +197,45 @@ def main(argv=None):
     loader = HostLoader(samples, args.batch_size or cfg.batch_size)
     dtype = resolve_compute_dtype(args.precision)
 
+    def apply_eval(m, images):
+        return gram_attention_apply(m, images, truncate, s, num_classes)
+
     if args.mode == "classification":
         run_classification(model, loader, args.save_dir, truncate=truncate,
                            gram_matrix_size=s, num_classes=num_classes,
                            compute_dtype=dtype, compute_auc=args.compute_auc)
+    elif args.mode in ("tsne", "tsne_interactive"):
+        from ..tasks.embeddings import compute_embeddings_with_paths
+
+        emb, labels, img_paths = compute_embeddings_with_paths(
+            cast_forward(lambda m, images: apply_eval(m, images)[0], dtype), model, loader,
+            samples)
+        if args.mode == "tsne":
+            from ..tasks.tsne import perform_tsne
+
+            # the family-2 artifact name (test_RESNET50_Truncate_gram_attention.py:110)
+            perform_tsne(emb, labels, idx.classes, args.colors, args.save_dir,
+                         filename="tsne_visualization.png")
+        else:
+            from ..tasks.tsne import plot_tsne_interactive
+
+            plot_tsne_interactive(emb, labels, idx.classes, img_paths, args.colors,
+                                  save_dir=args.save_dir)
+    elif args.mode == "camera":
+        from ..tasks.camera import run_camera
+
+        # the reference's camera mode needs --classes, with no config or data fallback
+        if args.classes is None:
+            raise ValueError(
+                "You must specify classes with the --classes option for camera mode."
+            )
+        cam_index = int(args.camera_index) if args.camera_index.isdigit() else args.camera_index
+        run_camera(
+            cast_forward(lambda m, images: apply_eval(m, images)[1], dtype), model,
+            args.classes, save_video=args.save_camera_video, save_dir=args.save_dir,
+            prob_threshold=args.prob_threshold, measure_time=args.measure_time,
+            camera_index=cam_index, host_downscale=not args.device_preprocess,
+        )
     else:
         from ..tasks.style_transfer import style_transfer_gram_attention
 

@@ -5,11 +5,14 @@
 Ported: ``--mode classification`` (metrics.txt, confusion_matrix.png,
 auc_score.txt with ``--compute_auc``, times_test.json with
 ``--measure_time``, the PNG tree with ``--save_test_images``),
-``--mode inference`` (``inference_predictions.json``) and ``--mode camera``
+``--mode inference`` (``inference_predictions.json``), ``--mode camera``
 (a camera or a video file; ``--transport rgb|yuv420|yuv420_delta``,
 ``--device_preprocess``, ``--kalman_filter``, ``--save_camera_video``),
-``--list_cameras``, ``--precision float32|bf16``. The other modes and the
-flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
+``--mode tsne|tsne_interactive|clustering`` (``<model>_embeddings.json``,
+then ``tsne_plot.png``, the Tk GUI or its static fallback without
+``DISPLAY``, or ``<class>_clustering_results.json``), ``--list_cameras``,
+``--precision float32|bf16``. The flags listed in ``_NOT_PORTED`` raise a
+"not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -18,13 +21,16 @@ flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
 from __future__ import annotations
 
 import argparse
+import json
 import os
+
+import numpy as np
 
 from ..config.schema import TruncatedResNetConfig
 from ..core.device import resolve_device
 from ..data.imagefolder import ImageFolderIndex
 from ..data.loader import HostLoader
-from ..models.truncated_resnet50 import combined_apply
+from ..models.truncated_resnet50 import combined_apply, truncated_moco_apply
 from ._common import (
     add_device_args,
     cast_forward,
@@ -38,7 +44,8 @@ from ._common import (
 )
 
 MODES = ["classification", "tsne", "tsne_interactive", "camera", "inference", "clustering"]
-PORTED_MODES = ("classification", "inference", "camera")
+PORTED_MODES = ("classification", "inference", "camera", "tsne", "tsne_interactive",
+                "clustering")
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
@@ -124,6 +131,23 @@ def _inference_guards(args) -> None:
         )
 
 
+def write_embeddings_json(emb, labels, model_path: str, save_dir: str) -> str:
+    """``<model>_embeddings.json`` ({"embeddings", "labels"}), the model's
+    file name without a checkpoint suffix (.pth, .pt, .npz, .orbax), as the
+    JAX CLI names it."""
+    base = os.path.basename(os.path.normpath(model_path))
+    for suffix in (".pth", ".pt", ".npz", ".orbax"):
+        if base.endswith(suffix):
+            base = base[: -len(suffix)]
+            break
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"{base}_embeddings.json")
+    with open(path, "w") as f:
+        json.dump({"embeddings": np.asarray(emb).tolist(), "labels": np.asarray(labels).tolist()},
+                  f)
+    return path
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
@@ -152,7 +176,20 @@ def main(argv=None):
     def forward_eval(m, images):
         return combined_apply(m.moco, m.classifier, images, truncate)
 
-    forward_eval = cast_forward(forward_eval, resolve_compute_dtype(args.precision))
+    def embed_fn(m, images):
+        return truncated_moco_apply(m.moco, images, truncate)
+
+    dtype = resolve_compute_dtype(args.precision)
+    forward_eval = cast_forward(forward_eval, dtype)
+    embed_fn = cast_forward(embed_fn, dtype)
+
+    def make_loader():
+        if not args.data:
+            raise ValueError("Le chemin du dataset doit être spécifié pour ce mode")
+        idx = ImageFolderIndex(os.path.join(args.data, "test"))
+        samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
+        return samples, HostLoader(samples, args.batch_size, shuffle=False,
+                                   num_workers=args.num_workers)
 
     if args.mode == "inference":
         from ..tasks.inference import run_inference
@@ -164,12 +201,7 @@ def main(argv=None):
     elif args.mode == "classification":
         from ..tasks.classification import run_classification_test
 
-        if not args.data:
-            raise ValueError("Le chemin du dataset doit être spécifié pour ce mode")
-        idx = ImageFolderIndex(os.path.join(args.data, "test"))
-        samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
-        loader = HostLoader(samples, args.batch_size, shuffle=False,
-                            num_workers=args.num_workers)
+        samples, loader = make_loader()
         res = run_classification_test(
             forward_eval, model, loader, samples, class_names, args.save_dir,
             prob_threshold=args.prob_threshold, measure_time=args.measure_time,
@@ -181,6 +213,31 @@ def main(argv=None):
         )
         if res["auc"] is not None:
             print(f"Score AUC: {res['auc']}")
+
+    elif args.mode in ("tsne", "tsne_interactive", "clustering"):
+        from ..tasks.embeddings import compute_embeddings_with_paths
+
+        samples, loader = make_loader()
+        emb, labels, img_paths = compute_embeddings_with_paths(embed_fn, model, loader, samples)
+        write_embeddings_json(emb, labels, args.model_path, args.save_dir)
+        if args.mode == "tsne":
+            from ..tasks.tsne import perform_tsne
+
+            perform_tsne(emb, labels, class_names, args.colors, args.save_dir)
+        elif args.mode == "tsne_interactive":
+            from ..tasks.tsne import plot_tsne_interactive
+
+            plot_tsne_interactive(emb, labels, class_names, img_paths, args.colors,
+                                  save_dir=args.save_dir)
+        else:
+            from ..tasks.clustering import run_clustering
+
+            if not args.clustering_class:
+                raise ValueError(
+                    "L'option --clustering_class doit être spécifiée pour le mode clustering"
+                )
+            run_clustering(emb, labels, img_paths, class_names, args.clustering_class,
+                           args.min_cluster_size, args.min_samples, args.save_dir, args.colors)
 
     else:
         from ..tasks.camera import run_camera

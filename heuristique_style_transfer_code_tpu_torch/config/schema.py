@@ -1,4 +1,4 @@
-"""Config schemas of model families 1 and 2, JSON-compatible with the reference's
+"""Config schemas of model families 1, 2 and 3, JSON-compatible with the reference's
 hyperparameter files (``config/schema.py`` of the JAX package). Unknown keys
 are kept in ``extra`` and round-trip on save."""
 from __future__ import annotations
@@ -60,9 +60,23 @@ class GramAttentionConfig(_BaseConfig):
             self.truncate_layer = self.num_layers if self.num_layers is not None else 7
 
 
+@dataclasses.dataclass
+class MultiPatchGANConfig(_BaseConfig):
+    patch_sizes: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"small": 10, "medium": 70, "large": 150}
+    )
+    num_classes: int = 4
+    gram_matrix_dim: int = 64
+    lambda_reg: float = 0.0
+    pooling_type: str = "avg"
+    ndf: int = 64
+    norm: str = "batch"
+
+
 _FAMILY = {
     "truncated_resnet50": TruncatedResNetConfig,
     "gram_attention": GramAttentionConfig,
+    "multi_patchgan": MultiPatchGANConfig,
 }
 
 

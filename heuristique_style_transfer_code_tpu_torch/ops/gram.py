@@ -4,7 +4,8 @@ Reference semantics (``ops/gram.py``): f = x.reshape(N, HW, C),
 G = fᵀf / HW, and the family-2 head's adaptive_avg_pool2d(G, (S, S)) taken
 through the exact identity P G Pᵀ = (fPᵀ)ᵀ(fPᵀ) with the bin-averaging
 matrix P (``ops/pooling.py``); the kernel computes P's bins from (C, S)
-and never reads P.
+and never reads P. The family-3 discriminator's Gram of its pooled maps
+(``gram_matrix_ncl``) divides by L + eps.
 
 Both functions hand the (N, HW, C) view to ``ops/kernels/gram.py``: on a
 CUDA tensor that launches the hand-written kernel, on a CPU tensor it takes
@@ -14,6 +15,8 @@ tensor is contiguous and the view costs nothing; on the card a tensor that
 is not raises rather than being copied behind the caller's back.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -40,3 +43,17 @@ def pooled_gram_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """x: (N, H, W, C) -> (N, S, S) = adaptive_avg_pool2d(gram(x), S).
     Forward only (the family-2 classifier in eval)."""
     return gram_kernels.pooled_gram_fwd(_flat(x), out_size)
+
+
+def gram_matrix_ncl(f: torch.Tensor, denom: Optional[float] = None) -> torch.Tensor:
+    """f: (N, C, L) -> (N, C, C) = f fᵀ / denom (default L), in f's dtype
+    (``ops/gram.py:34``; the family-3 discriminator passes L + 1e-6).
+    ``gram_fwd`` takes fᵀ, the (N, L, C) view: f32 sums of f fᵀ / L, cast
+    once; a ``denom`` other than L then rescales by L / denom in f32. The
+    discriminator's f is the transpose of its pooled NHWC map (N, L, C), so
+    on the card fᵀ is contiguous; any other layout raises there."""
+    g = gram_kernels.gram_fwd(f.transpose(1, 2))
+    length = f.shape[-1]
+    if denom is None or denom == length:
+        return g
+    return (g.float() * (length / denom)).to(f.dtype)

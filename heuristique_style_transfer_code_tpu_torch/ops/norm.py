@@ -1,9 +1,17 @@
-"""Eval-mode batch norm on NHWC tensors (``ops/norm.py:29-47``): statistics
-and arithmetic in f32 (f64 stays f64), one cast back to x's dtype. Train
-mode, with its running-stat updates, comes with training."""
+"""Norms on NHWC tensors (``ops/norm.py`` of the JAX package): eval-mode
+batch norm (``:29-47``), the non-affine instance norm (``:70``) and the
+layer norm over every non-batch dimension (``:78``). Statistics and
+arithmetic in f32 (f64 stays f64), one cast back to x's dtype. Train-mode
+batch norm, with its running-stat updates, comes with training."""
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
+
+from .kernels.instance_norm import instance_norm_fwd
 
 EPS = 1e-5
 
@@ -21,3 +29,31 @@ def batch_norm(
     inv = scale.to(ctype) * torch.rsqrt(var.to(ctype) + eps)
     shift = bias.to(ctype) - mean.to(ctype) * inv
     return (x.to(ctype) * inv + shift).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _unit_affine(b: int, c: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C) float32 ones and zeros on ``device``, made once per shape."""
+    return (torch.ones((b, c), device=device, dtype=torch.float32),
+            torch.zeros((b, c), device=device, dtype=torch.float32))
+
+
+def instance_norm(x: torch.Tensor, eps: float = EPS, relu: bool = False) -> torch.Tensor:
+    """Per-image, per-channel normalisation of x (N, H, W, C) over H and W,
+    no affine; with ``relu`` the ReLU that follows it in the family-3
+    discriminator is fused. The (N, HW, C) view goes to the K3 wrapper with
+    unit scale and zero bias: on a CUDA tensor that launches
+    ``instance_norm_fwd``, on a CPU tensor it takes the kernel's plain
+    version (f32 two-pass statistics)."""
+    n, h, w, c = x.shape
+    scale, bias = _unit_affine(n, c, x.device)
+    y = instance_norm_fwd(x.reshape(n, h * w, c), scale, bias, eps, relu)
+    return y.reshape(n, h, w, c)
+
+
+def layer_norm_tail(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """``F.layer_norm(x, x.shape[1:])`` without affine, in f32, cast back
+    once. It normalises H, W and C together, so the NHWC layout gives the
+    result of the reference's NCHW one. The JAX package computes it as an
+    XLA composition (no Pallas kernel), so PyTorch's own op serves here."""
+    return F.layer_norm(x.float(), x.shape[1:], eps=eps).to(x.dtype)

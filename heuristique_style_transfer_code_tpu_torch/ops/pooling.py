@@ -1,6 +1,7 @@
 """Adaptive average pooling as a constant averaging matrix
-(``ops/pooling.py:21-33``), and the global average pool of the avgpool
-child (``ops/pooling.py:46-54``).
+(``ops/pooling.py:21-33``), the adaptive average pool of NHWC maps
+(``ops/pooling.py:35``), and the global average pool of the avgpool child
+(``ops/pooling.py:46-54``).
 
 torch's adaptive bins are start = floor(i*In/Out), end = ceil((i+1)*In/Out);
 when Out does not divide In the bins overlap (C=256, S=7 is such a case), so
@@ -13,6 +14,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,6 +39,15 @@ def adaptive_pool_matrix(
     use there (the forward takes it at every stage; a fresh host copy each
     time would stall the stream)."""
     return _pool_matrix_on(in_size, out_size, torch.device(device))
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
+    """NHWC (N, H, W, C) -> (N, oh, ow, C), ``F.adaptive_avg_pool2d``'s
+    bins (those of ``adaptive_pool_matrix``). The JAX package computes it
+    as two XLA products with the averaging matrices, not as a kernel, so
+    PyTorch's op runs here, on the channels_last view of x."""
+    y = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), output_size)
+    return y.permute(0, 2, 3, 1)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,45 @@
+"""Embedding extraction over a loader (``tasks/embeddings.py`` of the JAX
+package; the reference's functions_RESNET50_Truncate.py:391-420, with the
+image paths taken from the loader's own sample order, once each).
+
+One loop on the model's device: a batch's staged uint8 goes up once,
+``eval_preprocess`` and ``embed_fn`` run there, the embeddings come back in
+one fetch a batch (as float32: numpy has no bfloat16)."""
+from __future__ import annotations
+
+from typing import Callable, List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import device_of
+from ..data.augment import eval_preprocess
+
+
+def compute_embeddings_with_paths(
+    embed_fn: Callable,
+    model,
+    loader,
+    samples,
+    mesh=None,
+    steps_per_dispatch: int = 1,
+) -> Tuple[np.ndarray, np.ndarray, List[str]]:
+    """``embed_fn(model, images)`` -> embeddings over every ``HostLoader``
+    batch, pad rows trimmed (``n_valid``). Returns (embeddings (N, D),
+    labels (N,), img_paths) in the loader's sample order. A data-parallel
+    ``mesh`` and ``steps_per_dispatch > 1`` are not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("a data-parallel mesh is not ported yet")
+    if steps_per_dispatch > 1:
+        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
+    device = device_of(model)
+    all_emb, all_labels, img_paths = [], [], []
+    with torch.inference_mode():
+        for batch in loader:
+            images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
+            emb = embed_fn(model, images).float().cpu().numpy()
+            n = batch["n_valid"]
+            all_emb.append(emb[:n])
+            all_labels.append(np.asarray(batch["label"])[:n])
+            img_paths.extend(samples[i][0] for i in batch["indices"][:n])
+    return np.concatenate(all_emb), np.concatenate(all_labels), img_paths

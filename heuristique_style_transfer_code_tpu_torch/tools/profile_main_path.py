@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Five cells, each at full model width with seeded random weights:
+Six cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -18,6 +18,13 @@ Five cells, each at full model width with seeded random weights:
   camera            family 1 at batch 1, host-downscaled 224² RGB frames,
                     f32 and bf16 (``make_camera_infer_fn``, one frame in,
                     its probabilities fetched)
+  family3_classification
+                    family 3 at the config defaults (patch sizes 10/70/150,
+                    ndf 64, gram dim 64, norm "batch", 4 classes), 224²
+                    crops of 256² staged uint8, batch 32, f32 and bf16 (one
+                    ``evaluate`` call of the CLI on one batch); and the
+                    same model at norm "instance", f32, whose 13 norms a
+                    forward are ``instance_norm_fwd`` launches
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -37,9 +44,12 @@ import numpy as np
 import torch
 
 from ..cli._common import cast_forward
+from ..cli.test_multi_patchgan import evaluate
+from ..config.schema import MultiPatchGANConfig
 from ..core.device import resolve_device
 from ..data.augment import eval_preprocess
 from ..models.gram_attention import gram_attention_apply, gram_attention_init
+from ..models.multi_patchgan import multiscale_test_init
 from ..models.truncated_resnet50 import combined_apply, truncated_resnet50_init
 from ..nn.transformer_net import transformer_net_init
 from ..ops.kernels import build_all
@@ -207,17 +217,45 @@ def camera_cell(model, dtype) -> dict:
             "frames_per_s": 1e3 / ms, **_profile(step, 10), "profiled_steps": 10}
 
 
+def family3_cell(model, cfg, dtype) -> dict:
+    rng = np.random.RandomState(6)
+    batch = [{"image": rng.randint(0, 256, (32, 256, 256, 3)).astype(np.uint8),
+              "label": rng.randint(0, 4, (32,)).astype(np.int32),
+              "indices": np.arange(32), "n_valid": 32}]
+
+    def step():
+        evaluate(model, batch, gram_matrix_dim=cfg.gram_matrix_dim, norm=cfg.norm,
+                 compute_dtype=dtype)
+
+    step()
+    runs = _timed(step, 5)
+    ms = float(np.median(runs))
+    return {"cell": "family3_classification", "norm": cfg.norm, "ndf": cfg.ndf,
+            "gram_matrix_dim": cfg.gram_matrix_dim, "batch": 32,
+            "dtype": _dtype_name(dtype), "step_ms": ms, "step_ms_runs": runs,
+            "images_per_s": 32 / ms * 1e3, **_profile(step, 3), "profiled_steps": 3}
+
+
 def main() -> None:
     dev = resolve_device("cuda")
     model = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, 7, device=dev)
     net = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5, device=dev)
     family1 = truncated_resnet50_init(torch.Generator().manual_seed(8), 8, 4, 256, device=dev)
+    family3 = {norm: (multiscale_test_init(torch.Generator().manual_seed(13),
+                                           cfg.patch_sizes, ndf=cfg.ndf,
+                                           num_classes=cfg.num_classes,
+                                           gram_matrix_dim=cfg.gram_matrix_dim, norm=norm,
+                                           device=dev), cfg)
+               for norm, cfg in (("batch", MultiPatchGANConfig()),
+                                 ("instance", MultiPatchGANConfig(norm="instance")))}
     build_all()
     cells = [classification_cell(model, dev), style_cell(model, dev, None),
              style_cell(model, dev, torch.bfloat16), fast_style_cell(net, None),
              fast_style_cell(net, torch.bfloat16), family1_cell(family1, None),
              family1_cell(family1, torch.bfloat16), camera_cell(family1, None),
-             camera_cell(family1, torch.bfloat16)]
+             camera_cell(family1, torch.bfloat16), family3_cell(*family3["batch"], None),
+             family3_cell(*family3["batch"], torch.bfloat16),
+             family3_cell(*family3["instance"], None)]
     for c in cells:
         print(json.dumps(c))
     if os.path.isdir("chiprun_out"):

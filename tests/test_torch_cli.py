@@ -5,6 +5,7 @@ import ast
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -72,6 +73,57 @@ def test_style_transfer_writes_png_tree(tiny_imagefolder, f2_model, tmp_path):
             assert im.size == (448, 224) and im.mode == "RGB"
 
 
+@pytest.mark.parametrize("mode,png", [("tsne", "tsne_visualization.png"),
+                                      ("tsne_interactive", "tsne_plot.png")])
+def test_tsne_modes_write_the_jax_artifacts(tiny_imagefolder, f2_model, tmp_path, monkeypatch,
+                                            mode, png):
+    """The family-2 t-SNE file name; without a display the interactive
+    mode falls back to the static plot, whose default name it keeps."""
+    from heuristique_style_transfer_code_tpu.cli.test_gram_attention import main as j_main
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    from threadpoolctl import threadpool_limits
+
+    monkeypatch.delenv("DISPLAY", raising=False)
+    flags = ["--mode", mode, "--num_samples", "8"]
+    # t-SNE's OpenMP team per call, beside the other test workers,
+    # oversubscribes the host's cores: one thread keeps it quick
+    with threadpool_limits(limits=1, user_api="openmp"):
+        j_main(_args(tiny_imagefolder, f2_model, tmp_path / "jax", *flags))
+        main(_args(tiny_imagefolder, f2_model, tmp_path / "torch", *flags, "--device", "cpu"))
+    for side in ("jax", "torch"):
+        assert os.listdir(tmp_path / side) == [png]
+        assert os.path.getsize(tmp_path / side / png) > 0
+
+
+def test_camera_on_a_video_file_matches_jax_cli(tiny_imagefolder, f2_model, tmp_path):
+    import cv2
+
+    from heuristique_style_transfer_code_tpu.cli.test_gram_attention import main as j_main
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    video = str(tmp_path / "in.avi")
+    w = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 10, (64, 48))
+    rng = np.random.RandomState(0)
+    for _ in range(3):
+        w.write(rng.randint(0, 255, (48, 64, 3), dtype=np.uint8))
+    w.release()
+    flags = ["--mode", "camera", "--camera_index", video, "--measure_time", "--classes", "fog",
+             "rain", "snow", "sun"]
+    j_main(_args(tiny_imagefolder, f2_model, tmp_path / "jax", *flags))
+    main(_args(tiny_imagefolder, f2_model, tmp_path / "torch", *flags, "--device", "cpu"))
+    for side in ("jax", "torch"):
+        with open(tmp_path / side / "times_camera.json") as f:
+            assert len(json.load(f)) == 3
+
+
+def test_camera_without_classes_keeps_the_jax_message(tiny_imagefolder, f2_model, tmp_path):
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    with pytest.raises(ValueError, match="specify classes with the --classes option"):
+        main(_args(tiny_imagefolder, f2_model, tmp_path, "--mode", "camera", "--device", "cpu"))
+
+
 def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, f2_model,
                                                                tmp_path):
     from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
@@ -83,7 +135,7 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mode", "tsne"], ["--mode", "camera"], ["--precision", "int8"],
+    ["--precision", "int8"],
     ["--style_image", "x.png"], ["--remat"], ["--shard_spatial", "2"], ["--devices", "2"],
     ["--steps_per_dispatch", "2"],
 ])

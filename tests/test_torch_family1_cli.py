@@ -140,7 +140,6 @@ def test_parser_has_every_jax_flag():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--mode", "tsne"], ["--mode", "tsne_interactive"], ["--mode", "clustering"],
     ["--precision", "int8"], ["--visualize_gradcam"], ["--save_gradcam_images"],
     ["--tensorboard"], ["--steps_per_dispatch", "2"], ["--devices", "2"],
     ["--profile_dir", "p"], ["--debug_nans"],
