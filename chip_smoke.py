@@ -27,9 +27,15 @@ Phases, all run every time:
                   resident share, bytes read twice and the clusters the card
                   holds at once, cluster rows also timing the split route;
                   the cluster route forced onto ragged shapes and a
-                  misaligned bf16 input; time the kernel, the plain
-                  version and a library call; compute each bound from the
-                  shapes and the card's peak rates.
+                  misaligned bf16 input; instance_norm_bwd (dx, dscale,
+                  dbias) at the family-3 style loop's b1 shapes and
+                  (32,112,112,64) (ReLU, unit affine) and at the net's b8
+                  shapes (affine rows, with and without ReLU), f32 and
+                  bf16; gram_bwd also at the loop's (1,4,4,64); the
+                  forward-only wrappers refuse inputs that need a gradient;
+                  time the kernel, the plain version and a library call;
+                  compute each bound from the shapes and the card's peak
+                  rates.
   classification  family 2 at full width (truncate 8, S 7, 4 classes, 224²
                   crops, batch 8, 16 images, seeded random weights) through
                   the npz writer, the npz reader, the weight bridge and the
@@ -83,6 +89,26 @@ Phases, all run every time:
   family3_camera, family2_camera
                   the host-downscaled RGB camera path at b1, f32, 50
                   frames each: p50 and frames/s, frame 1 against the CPU.
+  family3_style_transfer
+                  ``style_transfer_patches`` (the CLI's ``--mode
+                  style_transfer``, b1) at full width, f32 and bf16 at norm
+                  "batch" and f32 at norm "instance": 2 images of 20
+                  iterations, threshold 0, every launch counted (16
+                  gram_fwd and 16 gram_bwd an iteration, and 13
+                  instance_norm_fwd and 13 instance_norm_bwd under
+                  "instance", plus each image's target forward); image 0
+                  against the CPU from the same noise: the first-step
+                  pixel gradient, and a 20-iteration loop towards its Gram
+                  plus a seeded offset that makes Adam move the pixels
+                  (every loss, and the pixels' change by RMS, within twice
+                  the CPU loop's own spread from noise nudged by 1e-7;
+                  bf16 against the CPU's f32 loop); image-iterations/s and
+                  the device idle share.
+  pth             each family's seeded full-width model (family 3 the test
+                  variant) through the port's exporter to a reference-layout
+                  .pth, read back by the CLI's loader: logits on the card
+                  equal to the .npz model's bit for bit; convert_checkpoint
+                  npz -> pth -> npz gives back the same tree.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work): a launch there fails the run.
 
@@ -149,11 +175,34 @@ F2_CAMERA_POOLED = [((1, 56, 56, 256), 7)]
 # and C > 256 (the split route) at B = 32 and at the camera's B = 1
 F3_IN_SHAPES = [(32, 112, 112, 64), (32, 28, 28, 256), (32, 14, 14, 512), (32, 13, 13, 1024),
                 (1, 13, 13, 1024)]
+# gram_bwd at the family-3 style loop's Gram (16 an iteration, b1)
+F3_BWD_SHAPES = [(1, 4, 4, 64)]
+# instance_norm_bwd at the family-3 style loop's 13 norms (b1, norm
+# "instance"; the distinct shapes, with ReLU, unit scale, zero bias) and at
+# b32, and at the fast-style net's shapes with affine rows that differ
+F3_STYLE_IN_SHAPES = [(1, 112, 112, 64), (1, 56, 56, 128), (1, 55, 55, 256), (1, 28, 28, 256),
+                      (1, 14, 14, 512), (1, 13, 13, 1024), (32, 112, 112, 64)]
+NET_IN_BWD_SHAPES = [(8, 224, 224, 32), (8, 56, 56, 128)]
+# the family-3 style loop: b1 (the CLI's loader), 2 images, 20 iterations;
+# each iteration launches 16 gram_fwd and 16 gram_bwd and, under norm
+# "instance", 13 instance_norm_fwd and 13 instance_norm_bwd; each image's
+# target forward 16 gram_fwd (and 13 instance_norm_fwd)
+F3_STYLE_IMAGES, F3_STYLE_ITERS, F3_STYLE_LR = 2, 20, 0.01
+# with seeded weights an image's own Gram gives a loss of about 1e-11 and a
+# pixel gradient near 1e-15, far below Adam's eps (1e-8): the pixels would
+# not move. The card-vs-CPU loop chases the image's Gram plus this many
+# times a seeded symmetric unit offset instead, where the gradient is
+# about eps (RMS) at full width and each step moves pixels by up to lr
+F3_STYLE_OFFSET = 100.0
+# relative size of the nudge to the CPU loop's starting noise that measures
+# the loop's own spread (the f32 yardstick of the card's pixel change)
+F3_STYLE_NUDGE = 1e-7
 DEVICE = "cuda"
 N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
 MAIN_SHAPE = {"gram_fwd": (4, 56, 56, 256), "gram_bwd": (4, 56, 56, 256),
-              "pooled_gram_fwd": (8, 56, 56, 256), "instance_norm_fwd": (8, 224, 224, 32)}
+              "pooled_gram_fwd": (8, 56, 56, 256), "instance_norm_fwd": (8, 224, 224, 32),
+              "instance_norm_bwd": (1, 112, 112, 64)}
 # the fast-style net's norms at crop 224, width 32, batch 8: in1 and in_up2,
 # in2 and in_up1, in3 and the residual blocks' 10
 IN_SHAPES = [(8, 224, 224, 32), (8, 112, 112, 64), (8, 56, 56, 128)]
@@ -262,6 +311,7 @@ def phase_kernels(kg, peaks) -> dict:
     gen_bwd_ragged = torch.Generator(device=dev).manual_seed(4)
     gen_pooled_large_s = torch.Generator(device=dev).manual_seed(5)
     gen_family = torch.Generator(device=dev).manual_seed(6)
+    gen_f3_bwd = torch.Generator(device=dev).manual_seed(15)
 
     def bwd_row(f, dg, shape, dtype, dname, es):
         n, h, w, c = shape
@@ -309,6 +359,10 @@ def phase_kernels(kg, peaks) -> dict:
                 plain_ms=_time_ms(lambda: kg.gram_fwd_plain(f)),
                 library_ms=_time_ms(lambda: torch.baddbmm(out, ft, f, beta=0, alpha=1.0 / hw)),
                 bound_ms=bound, bound_by=by))
+            if (n, h, w, c) in F3_BWD_SHAPES:  # the family-3 style loop's Gram backward
+                dg = torch.randn((n, c, c), device=dev, generator=gen_f3_bwd).to(dtype)
+                rows["gram_bwd"].append(bwd_row(f, dg, (n, h, w, c), dtype, dname, es))
+                del dg
             if not main:
                 del f, out, ft
                 continue
@@ -1402,6 +1456,349 @@ def phase_family_cameras(kernels, family2, family3, timings: dict) -> dict:
     return out
 
 
+def _gradient_guards(kg, kin) -> None:
+    """The forward-only wrappers refuse a CUDA input that needs a gradient
+    (their outputs carry no graph): ``gram_fwd`` names ``GramFunction``,
+    ``instance_norm_fwd`` its own limit; the Functions take such inputs."""
+    import torch
+
+    f = torch.rand((1, 16, 64), device=DEVICE, requires_grad=True)
+    x = torch.rand((1, 16, 64), device=DEVICE, requires_grad=True)
+    ones, zeros = torch.ones((1, 64), device=DEVICE), torch.zeros((1, 64), device=DEVICE)
+    refused = []
+    for name, call in (("gram_fwd", lambda: kg.gram_fwd(f)),
+                       ("instance_norm_fwd", lambda: kin.instance_norm_fwd(x, ones, zeros))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused.append((name, str(e)))
+    print(f"[kernels] forward-only wrappers on inputs that need a gradient: {refused}")
+    _require(len(refused) == 2 and "GramFunction" in refused[0][1],
+             f"gram_fwd and instance_norm_fwd refuse inputs that need a gradient: {refused}")
+    g = kg.GramFunction.apply(f)
+    y = kin.InstanceNormFunction.apply(x, ones, zeros, kin.EPS, True)
+    (df,) = torch.autograd.grad(g.sum(), f)
+    (dx,) = torch.autograd.grad(y.sum(), x)
+    _require(bool(torch.isfinite(df).all() and torch.isfinite(dx).all()),
+             "GramFunction and InstanceNormFunction differentiate on the card")
+
+
+def phase_in_bwd_kernels(kin, peaks) -> list:
+    """instance_norm_bwd against its plain version (dx, dscale and dbias,
+    each max-relative and RMS, 1e-4 f32 and 2e-2 bf16) at the family-3 style
+    loop's B = 1 shapes and at (32,112,112,64) (ReLU, unit scale, zero bias,
+    the mask from the forward's output), and at the fast-style net's B = 8
+    shapes with affine rows that differ per image, with and without ReLU;
+    f32 and bf16. Each row times the kernel, the plain version and the
+    library: ``torch.autograd.grad`` through ``F.instance_norm`` (+ ReLU)
+    with one (C,) affine, its forward's time taken off; the bound is x and
+    dy read once and dx written once at the card's HBM rate."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    cases = [(shape, dtype, True, "unit affine") for shape in F3_STYLE_IN_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(shape, dtype, relu, "affine rows") for shape in NET_IN_BWD_SHAPES
+              for dtype in (torch.float32, torch.bfloat16) for relu in (False, True)]
+    rows = []
+    for (b, h, w, c), dtype, relu, kind in cases:
+        hw = h * w
+        dname = str(dtype).split(".")[1]
+        x = (torch.randn((b, hw, c), device=dev, generator=g) * 2 + 0.5
+             + torch.randn((c,), device=dev, generator=g)).to(dtype)
+        dy = torch.randn((b, hw, c), device=dev, generator=g).to(dtype)
+        if kind == "unit affine":
+            scale = torch.ones((b, c), device=dev)
+            bias = torch.zeros((b, c), device=dev)
+        else:
+            scale = torch.randn((b, c), device=dev, generator=g)
+            bias = torch.randn((b, c), device=dev, generator=g)
+        y = kin.instance_norm_fwd(x, scale, bias, relu=relu) if relu else None
+        got = kin.instance_norm_bwd(x, dy, scale, bias, relu=relu, y=y)
+        want = kin.instance_norm_bwd_plain(x, dy, scale, bias, relu=relu, y=y)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for name, a, wnt in zip(("dx", "dscale", "dbias"), got, want):
+            diff = a.double() - wnt.double()
+            rel = (diff.abs().max() / wnt.double().abs().max()).item()
+            rms = (diff.norm() / wnt.double().norm()).item()
+            errs[name] = [rel, rms]
+            ok = ok and bool(torch.isfinite(a.float()).all()) and rel <= TOL[dname] \
+                and rms <= TOL[dname]
+        es = x.element_size()
+        width = 16 // es
+        _, _, splits, groups = kin._geometry(c, hw, width if c % width == 0 else 1,
+                                             kin._BWD_ITEMS)
+        # 1 read of x and dy, 1 write of dx, the (B, C) rows; about 12 f32
+        # operations an element over the two passes, on CUDA cores
+        bound, by = _bound(12.0 * b * hw * c, 3 * b * hw * c * es + 3 * b * c * 4,
+                           torch.float32, peaks)
+        x4 = x.view(b, h, w, c).permute(0, 3, 1, 2).detach().requires_grad_(True)
+        dy4 = dy.view(b, h, w, c).permute(0, 3, 1, 2)
+        s0 = scale[0].clone().requires_grad_(True)
+        b0 = bias[0].clone().requires_grad_(True)
+
+        def lib_fwd():
+            out = F.instance_norm(x4, weight=s0, bias=b0, eps=kin.EPS)
+            return torch.relu(out) if relu else out
+
+        lib_fwd_ms = _time_ms(lib_fwd)
+        lib_both_ms = _time_ms(lambda: torch.autograd.grad(lib_fwd(), (x4, s0, b0), dy4))
+        rows.append(dict(
+            shape=[b, h, w, c], dtype=dname, relu=relu, input=kind, errs=errs,
+            max_abs_err=(got[0].double() - want[0].double()).abs().max().item(),
+            tol=TOL[dname], ok=ok, blocks=splits * groups * b,
+            ms=_time_ms(lambda: kin.instance_norm_bwd(x, dy, scale, bias, relu=relu, y=y)),
+            plain_ms=_time_ms(lambda: kin.instance_norm_bwd_plain(x, dy, scale, bias,
+                                                                  relu=relu, y=y)),
+            library_ms=lib_both_ms - lib_fwd_ms, library_fwd_bwd_ms=lib_both_ms,
+            bound_ms=bound, bound_by=by))
+        del x, dy, y, got, want, x4, dy4
+    for r in rows:
+        print(f"[kernels] instance_norm_bwd {r['dtype']} {tuple(r['shape'])} relu={r['relu']} "
+              f"{r['input']}: blocks={r['blocks']} (max, rms) rel "
+              + " ".join(f"{k}=({v[0]:.2e}, {v[1]:.2e})" for k, v in r["errs"].items())
+              + f" (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f} (fwd+bwd {r['library_fwd_bwd_ms']:.4f}) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    bad = [(r["dtype"], r["shape"], r["relu"]) for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"instance_norm_bwd disagrees with its plain version: {bad}")
+    return rows
+
+
+def phase_family3_style_transfer(kernels, family3, timings: dict, tmp: str) -> dict:
+    """Family 3's ``--mode style_transfer`` through ``style_transfer_patches``
+    (what the CLI calls, with its b1 loader) at full width: f32 and bf16 at
+    norm "batch", f32 at norm "instance"; 2 images of 20 iterations at
+    threshold 0. Checks every launch count, then image 0 again on the card
+    and on the CPU from the same noise: the first step's pixel gradient,
+    and a loop of 20 iterations towards the image's Gram plus an offset
+    that makes the pixels move (every iteration's loss, and the pixels'
+    change); and the device idle share over 5 profiled iterations."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_gram_fn_patches,
+        make_style_transfer_optimizer,
+        style_transfer_patches,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tools.profile_main_path import _profile
+
+    out = {}
+    batches = _batches(F3_STYLE_IMAGES, 1, seed=17)
+    n, iters = F3_STYLE_IMAGES, F3_STYLE_ITERS
+    for norm, dtype in (("batch", torch.float32), ("batch", torch.bfloat16),
+                        ("instance", torch.float32)):
+        model, seeded, cfg = family3[norm]
+        gdim = cfg.gram_matrix_dim
+        name = str(dtype).split(".")[1]
+        compute = None if dtype == torch.float32 else dtype
+        quiet = lambda msg: None  # noqa: E731
+        style_transfer_patches(model, batches[:1], os.path.join(tmp, "f3_style_warm"),
+                               gram_matrix_dim=gdim, norm=norm, threshold=0.0,
+                               num_iterations=2, compute_dtype=compute, log_fn=quiet)
+        history = []
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = style_transfer_patches(
+            model, batches, os.path.join(tmp, f"f3_style_{norm}_{name}"), gram_matrix_dim=gdim,
+            norm=norm, threshold=0.0, num_iterations=iters, compute_dtype=compute,
+            generator=torch.Generator().manual_seed(18), history=history, log_fn=quiet)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        inst = norm == "instance"
+        want = {"gram_fwd": n * F3_GRAMS * (iters + 1), "gram_bwd": n * F3_GRAMS * iters,
+                "pooled_gram_fwd": 0,
+                "instance_norm_fwd": n * F3_NORMS * (iters + 1) if inst else 0,
+                "instance_norm_bwd": n * F3_NORMS * iters if inst else 0}
+
+        gram_fn = make_gram_fn_patches(model, gdim, norm, compute)
+        x0 = eval_preprocess(torch.from_numpy(batches[0]["image"]))
+        noise0 = torch.randn(x0.shape, generator=torch.Generator().manual_seed(18))
+        with torch.no_grad():
+            targets = gram_fn(x0.to(DEVICE))
+        prof = _profile(lambda: make_style_transfer_optimizer(gram_fn, F3_STYLE_LR, 5, 0.0)(
+            noise0.to(DEVICE), targets), 1)
+        # image 0's loop on the card and on the CPU from the same noise
+        cpu_fn = make_gram_fn_patches(seeded, gdim, norm, compute)
+        nudged = noise0 * (1 + F3_STYLE_NUDGE * torch.randn(
+            noise0.shape, generator=torch.Generator().manual_seed(20)))
+        sides = [("card", gram_fn, targets, DEVICE, noise0)]
+        with torch.no_grad():
+            sides.append(("cpu", cpu_fn, cpu_fn(x0), "cpu", noise0))
+            if compute is None:  # the CPU's own spread: the f32 yardstick
+                sides.append(("cpu_nudged", cpu_fn, sides[-1][2], "cpu", nudged))
+            else:  # the same loop in f32 on the CPU: the bf16 yardstick
+                fn32 = make_gram_fn_patches(seeded, gdim, norm)
+                sides.append(("cpu_f32", fn32, fn32(x0), "cpu", noise0))
+        r = torch.randn((1, cfg.ndf, cfg.ndf), generator=torch.Generator().manual_seed(19))
+        offset = F3_STYLE_OFFSET * (r + r.transpose(1, 2)) / 2
+        grads, losses, moves = {}, {}, {}
+        t_cpu = time.perf_counter()
+        for side, fn, tg, dev, start in sides:
+            if side != "cpu_nudged":
+                nz = start.detach().to(dev).requires_grad_(True)
+                loss = torch.mean(torch.square(fn(nz)[0] - tg[0]), dim=(1, 2)).sum()
+                (grads[side],) = torch.autograd.grad(loss, nz)
+            h = []
+            final = make_style_transfer_optimizer(fn, F3_STYLE_LR, iters, 0.0)(
+                start.to(dev), [tg[0] + offset.to(dev)], h)[0]
+            moves[side] = final.cpu() - start
+            losses[side] = torch.stack([p.cpu() for p in h])
+        t_cpu = time.perf_counter() - t_cpu
+        g_errs = _rel_errs(grads["card"].cpu(), grads["cpu"])
+        move_errs = _rel_errs(moves["card"], moves["cpu"])
+        loss_err = ((losses["card"] - losses["cpu"]).abs() / losses["cpu"].abs()).max().item()
+        moved = moves["cpu"].abs().max().item()
+        # f32: pixels crossing the discriminators' ReLU kinks make the loop
+        # chaotic. Starting the CPU's own loop from noise nudged by 1e-7 (f32
+        # rounding's size) moves single pixels by 0.4% of the largest change
+        # at norm "batch" and 3% at "instance" (RMS 2e-4 and 4e-3) within 20
+        # iterations, so the card's pixel change is held by RMS to the larger
+        # of TOL_MODEL's and twice that spread, and its max only reported.
+        # bf16: the card and the CPU round at other places through 16 convs
+        # forward and back, each about 4% (RMS) from the f32 gradient; the
+        # card's bf16 gradient and pixel change are held to 1.5 times the
+        # CPU's own bf16 error against the f32 ones (RMS), as the CPU tests
+        # hold bf16 embeddings
+        spread = _rel_errs(moves["cpu_nudged"], moves["cpu"]) if compute is None else None
+        g32_errs, move32_errs = (
+            ({side: _rel_errs(grads[side].cpu(), grads["cpu_f32"]) for side in ("card", "cpu")},
+             {side: _rel_errs(moves[side], moves["cpu_f32"]) for side in ("card", "cpu")})
+            if compute is not None else (None, None))
+        ips = n * iters / seconds
+        first = [h[0].item() for h in history]
+        last = [h[-1].item() for h in history]
+        print(f"[family3_style_transfer] norm {norm} {name} b1: {n} images x {iters} "
+              f"iterations in {seconds:.3f} s, launches {launches}; losses it1 {first} -> "
+              f"it{iters} {last}; card vs CPU on image 0: first-step pixel gradient (max, RMS) "
+              f"{[round(e, 9) for e in g_errs]}; offset-target loop: pixels moved up to "
+              f"{moved:.4f} (lr {F3_STYLE_LR}), pixel change (max, RMS) "
+              f"{[round(e, 9) for e in move_errs]} "
+              + (f"(the CPU's own spread from noise nudged by {F3_STYLE_NUDGE}: {spread}; "
+                 f"RMS tol max({TOL_MODEL[name][1]}, 2x the spread's))" if compute is None else
+                 f"(against the CPU's f32 loop: gradient card {g32_errs['card']}, CPU "
+                 f"{g32_errs['cpu']}; pixel change card {move32_errs['card']}, CPU "
+                 f"{move32_errs['cpu']}; tol 1.5x the CPU's RMS)")
+              + f", all {iters} losses rel {loss_err:.3e} (tol {TOL_MODEL[name][0]}); "
+              f"CPU loops and gradients {t_cpu:.1f} s")
+        print(f"[family3_style_transfer] norm {norm} {name}: {ips:.2f} image-iterations/s, "
+              f"device idle share {prof['idle_share']:.3f} over 5 profiled iterations "
+              f"(busy {prof['device_busy_ms']:.3f} of {prof['window_ms']:.3f} ms; Gram kernels "
+              f"{prof['gram_share_of_busy']:.4f} of busy, instance-norm kernels "
+              f"{prof['instance_norm_share_of_busy']:.4f})")
+        timings[f"family3_style_{norm}_{name}_s"] = seconds
+        out[f"{norm}_{name}"] = {
+            "image_iterations_per_s": ips, "seconds": seconds, "launches": launches,
+            "gradient_errs": g_errs, "gradient_errs_vs_f32": g32_errs,
+            "loss_rel_err": loss_err, "pixel_change_errs": move_errs,
+            "pixel_change_errs_vs_f32": move32_errs, "pixel_change_spread": spread,
+            "pixels_moved": moved,
+            "first_losses": first, "last_losses": last, "profile": prof}
+        _require(launches == want, f"launches {want} for {n} images of {iters} iterations: "
+                 f"{launches}")
+        _require(len(saved) == n and all(os.path.exists(p) for p in saved), f"{n} PNGs written")
+        _require(all(len(h) == iters for h in history), f"{iters} iterations an image")
+        _require(all(np.isfinite(first + last)), f"finite losses: {first}, {last}")
+        _require(_within(g_errs, name) if compute is None
+                 else g32_errs["card"][1] <= 1.5 * g32_errs["cpu"][1],
+                 f"card pixel gradient agrees with the CPU: {g_errs}, {g32_errs}")
+        _require(moved >= F3_STYLE_LR, f"the offset-target loop moved pixels: {moved}")
+        _require(move_errs[1] <= max(TOL_MODEL[name][1], 2 * spread[1]) if compute is None
+                 else move32_errs["card"][1] <= 1.5 * move32_errs["cpu"][1],
+                 f"card pixel change agrees with the CPU: {move_errs}, {spread}, {move32_errs}")
+        _require(loss_err <= TOL_MODEL[name][0],
+                 f"all {iters} losses agree with the CPU: {loss_err}")
+    return out
+
+
+def phase_pth(family1, family2, family3, tmp: str) -> dict:
+    """Reference ``.pth`` checkpoints at full width: each family's seeded
+    model (family 3 the test variant, norm "batch") through ``to_jax_tree``,
+    the port's exporter and ``torch.save``; read back through the CLI's
+    ``load_checkpoint_tree(path, family, config)`` and its loader onto the
+    card, where its logits must equal the ``.npz``-loaded model's bit for
+    bit. Then ``convert_checkpoint`` npz -> pth -> npz of each, which must
+    give back the same tree."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, load_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.pth_exporter import (
+        export_checkpoint_tree,
+        save_pth,
+    )
+    from heuristique_style_transfer_code_tpu_torch.cli._common import (
+        load_checkpoint_tree,
+        load_multi_patchgan,
+        load_truncated_resnet50,
+    )
+    from heuristique_style_transfer_code_tpu_torch.cli.convert_checkpoint import main as convert
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import (
+        load_gram_attention,
+    )
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_apply,
+    )
+
+    dev = torch.device(DEVICE)
+    x = eval_preprocess(torch.from_numpy(_batches(8, 8, seed=19)[0]["image"]).to(dev))
+    f3_model, f3_seeded, f3_cfg = family3["batch"]
+    cases = {
+        "truncated_resnet50": (family1[1], family1[0], {}, os.path.join(tmp, "family1.npz"),
+                               lambda p, t: load_truncated_resnet50(p, F1_TRUNCATE, dev, tree=t),
+                               lambda m: family1[2](m, x)),
+        "gram_attention": (family2[1], family2[0], {}, os.path.join(tmp, "family2.npz"),
+                           lambda p, t: load_gram_attention(p, 8, 4, POOL_S, dev, tree=t),
+                           lambda m: gram_attention_apply(m, x, 8, POOL_S, 4)[1]),
+        "multi_patchgan_test": (f3_seeded, f3_model, f3_cfg.to_dict(),
+                                os.path.join(tmp, "family3_batch.npz"),
+                                lambda p, t: load_multi_patchgan(p, f3_cfg, dev, tree=t),
+                                lambda m: multiscale_test_apply(m, x, f3_cfg.gram_matrix_dim,
+                                                                "batch")[1]),
+    }
+    out = {}
+    for family, (seeded, npz_model, config, npz, load, logits_of) in cases.items():
+        pth = os.path.join(tmp, f"{family}.pth")
+        save_pth(export_checkpoint_tree(to_jax_tree(seeded), family, config), pth)
+        model = load(pth, load_checkpoint_tree(pth, family, config))
+        with torch.inference_mode():
+            got, want = logits_of(model), logits_of(npz_model)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        cfg_path = os.path.join(tmp, f"{family}_cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(config, f)
+        back = os.path.join(tmp, f"{family}_back.npz")
+        convert(["--family", family, "--input", npz, "--output",
+                 os.path.join(tmp, f"{family}_cli.pth"), "--config", cfg_path])
+        convert(["--family", family, "--input", os.path.join(tmp, f"{family}_cli.pth"),
+                 "--output", back, "--config", cfg_path])
+        fa, fb = _flatten(load_pytree_npz(npz)), _flatten(load_pytree_npz(back))
+        same = sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+        print(f"[pth] {family}: {os.path.getsize(pth)} bytes; logits {tuple(got.shape)} from the "
+              f".pth equal the .npz model's bit for bit: {equal}; convert_checkpoint npz -> pth "
+              f"-> npz gives back {len(fa)} leaves: {same}")
+        out[family] = {"pth_bytes": os.path.getsize(pth), "logits_equal": equal,
+                       "roundtrip_equal": same}
+        _require(equal and bool(torch.isfinite(got).all()),
+                 f"{family}: .pth logits equal the .npz model's")
+        _require(same, f"{family}: convert_checkpoint npz -> pth -> npz is an identity")
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -1437,6 +1834,8 @@ def main() -> int:
     timings = {}
     rows = phase_kernels(kg, peaks)
     rows["instance_norm_fwd"], in_checks = phase_in_kernels(kin, peaks)
+    rows["instance_norm_bwd"] = phase_in_bwd_kernels(kin, peaks)
+    _gradient_guards(kg, kin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model, seeded, cls_launches = phase_classification(kernels, tmp, timings)
         st_launches = phase_style_transfer(kernels, model, seeded, tmp, timings)
@@ -1464,19 +1863,28 @@ def main() -> int:
         timings["family3_embeddings_cameras_phases_s"] = time.perf_counter() - t0
         print(f"[family3+embeddings+cameras] "
               f"{timings['family3_embeddings_cameras_phases_s']:.2f} s in all")
+        t0 = time.perf_counter()
+        f3_style = phase_family3_style_transfer(kernels, family3, timings, tmp)
+        pth = phase_pth(family1, family2, family3, tmp)
+        timings["family3_style_pth_phases_s"] = time.perf_counter() - t0
+        print(f"[family3_style_transfer+pth] {timings['family3_style_pth_phases_s']:.2f} s in all")
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
                 "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"],
-                "instance_norm_fwd": fs_launches["instance_norm_fwd"]}
+                "instance_norm_fwd": fs_launches["instance_norm_fwd"],
+                "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]}
     idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
     records = []
     replaces = {"gram_fwd": f"{PALLAS}:60", "gram_bwd": f"{PALLAS}:60",
-                "pooled_gram_fwd": f"{PALLAS}:100", "instance_norm_fwd": f"{PALLAS_IN}:192"}
+                "pooled_gram_fwd": f"{PALLAS}:100", "instance_norm_fwd": f"{PALLAS_IN}:192",
+                "instance_norm_bwd": f"{PALLAS_IN}:192"}
     sources = {"gram_fwd": SOURCE["gram"], "gram_bwd": SOURCE["gram"],
-               "pooled_gram_fwd": SOURCE["gram"], "instance_norm_fwd": SOURCE["instance_norm"]}
+               "pooled_gram_fwd": SOURCE["gram"], "instance_norm_fwd": SOURCE["instance_norm"],
+               "instance_norm_bwd": SOURCE["instance_norm"]}
     for kname in launches:
-        # the net's first norm (in1, with its ReLU) stands for K3's record
+        # the net's first norm (in1, with its ReLU) stands for K3's record, the
+        # style loop's first (b1, 112², ReLU) for its backward's
         main_row = next(r for r in rows[kname]
                         if tuple(r["shape"]) == MAIN_SHAPE[kname] and r["dtype"] == "float32"
                         and r.get("relu", True))
@@ -1491,7 +1899,8 @@ def main() -> int:
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "power": smi, "rows": rows, "timings": timings,
                    "instance_norm_checks": in_checks, "records": records, "family3": f3_results,
-                   "embeddings": embeddings, "cameras": cameras}, f, indent=1)
+                   "embeddings": embeddings, "cameras": cameras, "family3_style": f3_style,
+                   "pth": pth}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

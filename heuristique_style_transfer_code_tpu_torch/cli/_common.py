@@ -40,12 +40,28 @@ def maybe_subset(samples, num_samples: Optional[int], seed: Optional[int] = None
     return [samples[i] for i in indices[:num_samples]]
 
 
-def load_checkpoint_tree(model_path: str) -> Any:
-    """A flat-key ``.npz`` checkpoint -> tree of numpy arrays."""
-    if model_path.endswith((".pth", ".pt")) or os.path.isdir(model_path):
-        raise NotImplementedError(
-            f"{model_path}: .pth and orbax checkpoints are not ported yet (npz only)"
-        )
+def load_checkpoint_tree(model_path: str, family: str, config: dict) -> Any:
+    """A checkpoint -> JAX-layout tree of numpy arrays: a reference ``.pth``
+    (or ``.pt``) through the converter for ``family`` (truncated_resnet50,
+    gram_attention, multi_patchgan, multi_patchgan_test; the PatchGAN ones
+    read patch_sizes, ndf and norm from ``config``), a flat-key ``.npz``
+    through the npz reader. An orbax directory raises: not ported yet."""
+    if model_path.endswith((".pth", ".pt")):
+        from ..checkpoint import pth_converter as pc
+
+        if family == "truncated_resnet50":
+            return pc.convert_moco_checkpoint(model_path)
+        if family == "gram_attention":
+            return pc.convert_gram_attention_checkpoint(model_path)
+        if family in ("multi_patchgan", "multi_patchgan_test"):
+            convert = (pc.convert_multi_patchgan_checkpoint if family == "multi_patchgan"
+                       else pc.convert_multi_patchgan_test_checkpoint)
+            return convert(model_path, config.get("patch_sizes", {}), ndf=config.get("ndf", 64),
+                           norm=config.get("norm", "batch"))
+        raise ValueError(family)
+    if os.path.isdir(model_path):
+        raise NotImplementedError(f"{model_path}: orbax checkpoints are not ported yet "
+                                  "(.npz and .pth only)")
     from ..checkpoint.io import load_pytree_npz
 
     return load_pytree_npz(model_path)
@@ -53,14 +69,14 @@ def load_checkpoint_tree(model_path: str) -> Any:
 
 def load_truncated_resnet50(model_path: str, truncate: int, device: torch.device,
                             tree: Any = None):
-    """npz checkpoint (or its ``tree``) -> the family-1 model on ``device``;
+    """Checkpoint (or its ``tree``) -> the family-1 model on ``device``;
     ``dim`` and the class count come from the checkpoint's fc kernels. The
     weight bridge fails on any leaf missing or left over."""
     from ..checkpoint.convert import load_jax_tree
     from ..models.truncated_resnet50 import truncated_resnet50_init
 
     if tree is None:
-        tree = load_checkpoint_tree(model_path)
+        tree = load_checkpoint_tree(model_path, "truncated_resnet50", {})
     if "moco" not in tree or "classifier" not in tree:
         raise KeyError(
             f"Checkpoint {model_path} does not contain the family-1 "
@@ -73,24 +89,36 @@ def load_truncated_resnet50(model_path: str, truncate: int, device: torch.device
 
 
 def load_multi_patchgan(model_path: str, cfg, device: torch.device, tree: Any = None):
-    """npz checkpoint (or its ``tree``) of the family-3 test variant ->
-    the model on ``device``, built from ``cfg`` (a ``MultiPatchGANConfig``).
-    A train-variant checkpoint, which the JAX CLI loads partially by
-    ``shape_filtered_update``, raises: that path is not ported yet."""
-    from ..checkpoint.convert import load_jax_tree
+    """Checkpoint (or its ``tree``) of family 3 -> the test-variant model on
+    ``device``, built from ``cfg`` (a ``MultiPatchGANConfig``). A
+    train-variant tree is loaded as the JAX CLI loads it
+    (``cli/test_multi_patchgan.py:89-111`` there, the reference's partial
+    load): the test architecture initialised from a generator seeded with
+    ``cfg.seed or 0``, then every same-path, same-shape leaf of the
+    checkpoint through ``shape_filtered_update``, with a "N/M tensors
+    matched" line."""
+    from ..checkpoint.convert import load_jax_tree, to_jax_tree
     from ..models.multi_patchgan import SCALES, multiscale_test_init
 
     if tree is None:
-        tree = load_checkpoint_tree(model_path)
-    if not all(isinstance(tree.get(s), dict) and "features" in tree[s] for s in SCALES):
-        raise NotImplementedError(
-            f"{model_path}: a train-variant Multi-PatchGAN checkpoint (loaded partially by "
-            "shape_filtered_update) is not ported yet; pass a test-variant checkpoint"
-        )
-    model = multiscale_test_init(None, cfg.patch_sizes, ndf=cfg.ndf,
+        tree = load_checkpoint_tree(model_path, "multi_patchgan_test", cfg.to_dict())
+    train_variant = not all(isinstance(tree.get(s), dict) and "features" in tree[s]
+                            for s in SCALES)
+    generator = torch.Generator().manual_seed(cfg.seed or 0) if train_variant else None
+    model = multiscale_test_init(generator, cfg.patch_sizes, ndf=cfg.ndf,
                                  num_classes=cfg.num_classes,
                                  gram_matrix_dim=cfg.gram_matrix_dim, norm=cfg.norm,
                                  device=device)
+    if train_variant:
+        from ..checkpoint.pth_converter import shape_filtered_update
+
+        stats: dict = {}
+        tree = shape_filtered_update(to_jax_tree(model), tree, stats)
+        print(
+            "Train-variant checkpoint detected: shape-filtered partial load "
+            f"into the test architecture ({stats.get('loaded', 0)}/"
+            f"{stats.get('total', 0)} tensors matched)."
+        )
     return load_jax_tree(model, tree)
 
 

@@ -4,7 +4,8 @@ of ``heuristique_style_transfer_code_tpu/cli/serve_style.py`` plus
 
 Ported: ``--net`` (a feed-forward style net, one forward per job, its 15
 instance norms through the hand-written kernel on the card) and texture
-mode (the family-2 Adam-on-pixels loop), with ``--batch_size`` ladders,
+mode (the family-2 Adam-on-pixels loop; ``--model_path`` an ``.npz`` or a
+reference ``.pth``), with ``--batch_size`` ladders,
 ``--precision float32|bf16`` and SIGTERM drain. The flags listed in
 ``_NOT_PORTED`` raise a "not ported yet" error.
 
@@ -105,12 +106,12 @@ def _sizes(args):
 
 
 def _build_net_service(args, device, crop: int):
-    from ..checkpoint.io import load_hyperparameters
+    from ..checkpoint.io import load_hyperparameters, load_pytree_npz
     from ..nn.transformer_net import net_n_styles
     from ..tasks.fast_style import make_net_job_fn, net_from_tree
     from ..tasks.style_service import StyleTransferService
 
-    net = net_from_tree(load_checkpoint_tree(args.net), device)
+    net = net_from_tree(load_pytree_npz(args.net), device)
     hyper_path = args.net.replace(".npz", "_hyperparameters.json")
     hyper = load_hyperparameters(hyper_path) if os.path.exists(hyper_path) else {}
     net_crop = int(hyper.get("crop", crop))
@@ -143,11 +144,11 @@ def _build_gram_fn(args, device):
     from .test_gram_attention import load_gram_attention
 
     cfg = GramAttentionConfig.from_json(args.config_path)
+    tree = load_checkpoint_tree(args.model_path, "gram_attention", cfg.to_dict())
     if args.afficher_params:
-        total = count_params(load_checkpoint_tree(args.model_path))
-        print(f"Nombre total de paramètres du modèle : {total}")
+        print(f"Nombre total de paramètres du modèle : {count_params(tree)}")
     model = load_gram_attention(args.model_path, cfg.truncate_layer, None,
-                                cfg.gram_matrix_size, device)
+                                cfg.gram_matrix_size, device, tree=tree)
     return make_gram_fn_gram_attention(model, cfg.truncate_layer, layers=args.layers,
                                        compute_dtype=resolve_compute_dtype(args.precision))
 

@@ -9,6 +9,8 @@ Ported: ``--mode classification`` (``classification_results.json``),
 (a camera or a video file, ``--classes`` required), with ``--precision
 float32|bf16``. The flags listed in ``_NOT_PORTED`` raise a "not ported
 yet" error.
+``--model_path`` takes the JAX package's ``.npz`` or a reference ``.pth``
+(``checkpoint/pth_converter.py``).
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -111,11 +113,13 @@ def _check_ported(args) -> None:
 
 
 def load_gram_attention(model_path: str, truncate: int, num_classes: Optional[int], s: int,
-                        device: torch.device) -> GramAttention:
-    """npz checkpoint -> family-2 model on ``device`` (the weight bridge
-    fails on any leaf missing or left over). ``num_classes=None`` reads the
-    class count from the checkpoint's classifier."""
-    tree = load_checkpoint_tree(model_path)
+                        device: torch.device, tree=None) -> GramAttention:
+    """Checkpoint (``.npz`` or a reference ``.pth``), or its ``tree`` ->
+    family-2 model on ``device`` (the weight bridge fails on any leaf
+    missing or left over). ``num_classes=None`` reads the class count from
+    the checkpoint's classifier."""
+    if tree is None:
+        tree = load_checkpoint_tree(model_path, "gram_attention", {})
     if "encoder" not in tree and isinstance(tree.get("moco"), dict):
         raise NotImplementedError(
             "a family-1 checkpoint in the family-2 CLI (encoder reuse with a "
@@ -188,10 +192,12 @@ def main(argv=None):
     truncate = cfg.truncate_layer
     s = cfg.gram_matrix_size
 
+    tree = load_checkpoint_tree(args.model_path, "gram_attention", cfg.to_dict())
     if args.afficher_params:
-        total = count_params(load_checkpoint_tree(args.model_path))
+        total = count_params(tree)
         print(f"Nombre total de paramètres du modèle (TruncatedResNet50_for_test) : {total}")
-    model = load_gram_attention(args.model_path, truncate, num_classes, s, device)
+    model = load_gram_attention(args.model_path, truncate, num_classes, s, device, tree=tree)
+    del tree
 
     samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
     loader = HostLoader(samples, args.batch_size or cfg.batch_size)

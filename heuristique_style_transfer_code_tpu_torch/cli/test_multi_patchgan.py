@@ -6,12 +6,17 @@ PyTorch: the flags of
 Ported: ``--mode classification`` (``classification_results.json`` and
 ``confusion_matrix.png``; ``--compute_auc``, ``--measure_time``),
 ``--mode tsne`` (``tsne_plot.png``), ``--mode tsne_interactive`` (the Tk
-GUI, or the static plot without ``DISPLAY``) and ``--mode camera`` (a
-camera or a video file, ``--classes`` required), with ``--precision
-float32|bf16``. ``--precision`` also sets the classification forward's
-dtype, where the JAX CLI's classification step runs float32 whatever it
-says. ``--mode style_transfer``, a train-variant checkpoint and the flags
-listed in ``_NOT_PORTED`` raise a "not ported yet" error.
+GUI, or the static plot without ``DISPLAY``), ``--mode camera`` (a
+camera or a video file, ``--classes`` required) and ``--mode
+style_transfer`` (one image at a time, ``--threshold``,
+``--learning_rate``, ``--num_iterations``;
+``style_transfer_<date>/<label>/style_transfer_<label>_<n>_<ms>.png``),
+with ``--precision float32|bf16``. ``--precision`` also sets the
+classification forward's dtype, where the JAX CLI's classification step
+runs float32 whatever it says. ``--model_path`` takes an ``.npz`` or a
+reference ``.pth`` of the test variant, or a train-variant tree, which is
+loaded partially as the JAX CLI loads it (``shape_filtered_update``). The
+flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -28,6 +33,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..checkpoint.convert import to_jax_tree
 from ..config.schema import MultiPatchGANConfig
 from ..core.device import device_of, resolve_device
 from ..data.augment import eval_preprocess
@@ -48,7 +54,7 @@ from ._common import (
 )
 
 MODES = ["tsne", "tsne_interactive", "camera", "style_transfer", "classification"]
-PORTED_MODES = ("classification", "tsne", "tsne_interactive", "camera")
+PORTED_MODES = ("classification", "tsne", "tsne_interactive", "camera", "style_transfer")
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
@@ -77,7 +83,7 @@ def build_parser():
     parser.add_argument("--classes", nargs="+", default=None)
     parser.add_argument("--colors", nargs="+")
     parser.add_argument("--layers", type=int, default=None,
-                        help="Style transfer (not ported yet)")
+                        help="(reference flag; its truncation path is broken upstream)")
     parser.add_argument("--threshold", default=1e-4, type=float)
     parser.add_argument("--learning_rate", default=0.01, type=float)
     parser.add_argument("--num_iterations", default=500, type=int)
@@ -181,12 +187,12 @@ def main(argv=None):
     samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
     loader = HostLoader(samples, args.batch_size or cfg.batch_size, shuffle=False)
 
-    tree = load_checkpoint_tree(args.model_path)
+    tree = load_checkpoint_tree(args.model_path, "multi_patchgan_test", cfg.to_dict())
     model = load_multi_patchgan(args.model_path, cfg, device, tree=tree)
-    if args.afficher_params:
-        print("Nombre total de paramètres du modèle (MultiScaleDiscriminator_test) : "
-              f"{count_params(tree)}")
     del tree
+    if args.afficher_params:  # the test architecture's, as loaded
+        print("Nombre total de paramètres du modèle (MultiScaleDiscriminator_test) : "
+              f"{count_params(to_jax_tree(model))}")
     dtype = resolve_compute_dtype(args.precision)
 
     def forward_eval(m, images):
@@ -208,6 +214,16 @@ def main(argv=None):
             save_video=args.save_camera_video, save_dir=args.save_dir,
             prob_threshold=args.prob_threshold, measure_time=args.measure_time,
             camera_index=cam_index, host_downscale=not args.device_preprocess,
+        )
+
+    elif args.mode == "style_transfer":
+        from ..tasks.style_transfer import style_transfer_patches
+
+        style_transfer_patches(
+            model, HostLoader(samples, 1, shuffle=False), args.save_dir,
+            gram_matrix_dim=gdim, norm=norm, layers=args.layers, threshold=args.threshold,
+            num_iterations=args.num_iterations, learning_rate=args.learning_rate,
+            compute_dtype=dtype,
         )
 
     elif args.mode in ("tsne", "tsne_interactive"):

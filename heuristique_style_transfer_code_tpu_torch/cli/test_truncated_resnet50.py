@@ -13,6 +13,8 @@ then ``tsne_plot.png``, the Tk GUI or its static fallback without
 ``DISPLAY``, or ``<class>_clustering_results.json``), ``--list_cameras``,
 ``--precision float32|bf16``. The flags listed in ``_NOT_PORTED`` raise a
 "not ported yet" error.
+``--model_path`` takes the JAX package's ``.npz`` or a reference ``.pth``
+(``checkpoint/pth_converter.py``).
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -167,7 +169,7 @@ def main(argv=None):
     class_names = resolve_class_names(args.classes, cfg.to_dict(), args.data)
     truncate = cfg.truncate_layer
 
-    tree = load_checkpoint_tree(args.model_path)
+    tree = load_checkpoint_tree(args.model_path, "truncated_resnet50", cfg.to_dict())
     model = load_truncated_resnet50(args.model_path, truncate, device, tree=tree)
     if args.afficher_params:
         print(f"Nombre total de paramètres du modèle (MoCo + Classifier) : {count_params(tree)}")

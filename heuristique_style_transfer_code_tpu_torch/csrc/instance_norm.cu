@@ -3,6 +3,9 @@
 //
 //   instance_norm_fwd  y[b, r, c] = (x[b, r, c] - mu[b, c]) * a[b, c] + bias[b, c],
 //                      a = scale * rsqrt(var + eps), optional ReLU     (B, HW, C)
+//   instance_norm_bwd  its VJP: dx, dscale, dbias from x, dy (and y under ReLU)
+//
+// The backward is at the end of the "split" section below.
 //
 // x is the (B, HW, C) view of an NHWC activation (C contiguous), f32 or
 // bf16; scale and bias are per-image (B, C) f32 rows (a conditional net's
@@ -363,6 +366,281 @@ int split_launch(const void* x_, const void* scale, const void* bias, void* y_, 
     in_apply_kernel<T, V, false><<<grid, THREADS, 0, st>>>(
         x, static_cast<const float4*>(coef), static_cast<const float*>(bias), y, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- instance_norm_bwd -----------------------------------------------------
+//
+// The VJP of the forward (JAX differentiates its XLA composition,
+// ops/norm.py:70-75 and nn/transformer_net.py:94-105; the TPU kernel had
+// no backward). With u = x - K, mean ubar and r = rsqrt(var + eps) of u,
+// xhat = (u - ubar) r, g = dy (times 1[y > 0] under ReLU):
+//   dbias  = sum_HW g
+//   dscale = sum_HW g xhat = r sum_HW g (u - ubar)
+//   dx     = scale r (g - dbias / HW - xhat dscale / HW)
+// Under ReLU the mask comes from the forward's output y, so the backward
+// agrees with the forward about every unit, however the statistics round
+// (a mask recomputed from x would flip where the pre-activation lies
+// within an ulp of 0, and each flip moves dbias by a whole dy).
+//
+// Three launches on the split route's geometry, no atomics (the same result
+// from run to run):
+//   1. in_bwd_reduce: each block holds BWD_ITEMS vectors of u and of g per
+//      thread in registers and writes, per channel, (sum u, sum (u - u_b)^2,
+//      sum g, sum g (u - u_b)) about its own mean u_b: one read of x, dy
+//      (and y). HW is split over many blocks, so a single image (the style
+//      loop runs at B = 1) still fills the card.
+//   2. in_bwd_finalize: per (b, c), the image's blocks merged in a fixed
+//      order (Chan: M2 = sum [M2_b + n_b d_b^2], sum g (u - ubar) =
+//      sum [H_b + d_b G_b], d_b = u_b - ubar); writes dscale, dbias and the
+//      apply's coefficients.
+//   3. in_bwd_apply: dx = a ((g - dbias / HW) - (u - ubar) r dscale / HW),
+//      a = scale r, a second read of x, dy (and y), one write of dx in x's
+//      type.
+// Bound on an H100: bytes. It moves 2 reads of x and dy (and y) and a write
+// of dx, where the function needs one read of x and dy and a write of dx.
+
+constexpr int BWD_ITEMS = 4;  // vectors of u and of g each thread keeps in registers
+
+// Per-channel sums of a per-thread value over the block's row lanes, in a
+// fixed order, into out[0, ncol); `part` is [rl][ncol] scratch. Every
+// thread of the block calls it.
+template <int V>
+__device__ __forceinline__ void column_sums(float* part, float* out, const float (&val)[V],
+                                            const Geometry& g, int lane_r, int lane_c) {
+  const int ncol = g.cb * V;
+  if (lane_r < g.rl) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) part[lane_r * ncol + lane_c * V + v] = val[v];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < ncol; j += THREADS) {
+    float acc = 0.f;
+    for (int r = 0; r < g.rl; ++r) acc += part[r * ncol + j];
+    out[j] = acc;
+  }
+  __syncthreads();
+}
+
+// g = dy, masked by y > 0 under ReLU.
+template <typename T, int V, bool RELU>
+__device__ __forceinline__ void load_grad(const T* __restrict__ dy, const T* __restrict__ y,
+                                          size_t off, float (&out)[V]) {
+  load_vec<T, V>(dy + off, out);
+  if constexpr (RELU) {
+    float yv[V];
+    load_vec<T, V>(y + off, yv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v] = yv[v] > 0.f ? out[v] : 0.f;
+  }
+}
+
+// Pass 1: per block and channel (sum u, sum (u - u_b)^2, sum g,
+// sum g (u - u_b)).
+template <typename T, int V, bool RELU>
+__global__ void __launch_bounds__(THREADS)
+in_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ y,
+                     float4* __restrict__ ws, Geometry g) {
+  extern __shared__ float smem[];
+  const int split = blockIdx.x, group = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane_c = tid % g.cb, lane_r = tid / g.cb;
+  const int cvec = group * g.cb + lane_c;
+  const bool active = lane_r < g.rl && cvec * V < g.c;
+  const int row0 = split * g.rl * BWD_ITEMS;
+  const int n_b = min(g.rl * BWD_ITEMS, g.hw - row0);
+  const int ncol = g.cb * V;
+  float* part = smem;               // [rl][ncol]
+  float* sum_u = part + g.rl * ncol;  // [ncol] each
+  float* sum_g = sum_u + ncol;
+  float* m2_s = sum_g + ncol;
+  float* h_s = m2_s + ncol;
+  const size_t img = static_cast<size_t>(b) * g.hw * g.c;
+
+  float u[BWD_ITEMS][V], gr[BWD_ITEMS][V];
+  float s[V], sg[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) s[v] = sg[v] = 0.f;
+  if (active) {
+    float k[V];
+    load_vec<T, V>(x + img + cvec * V, k);
+#pragma unroll
+    for (int i = 0; i < BWD_ITEMS; ++i) {
+      const int r = i * g.rl + lane_r;
+      if (r < n_b) {
+        const size_t off = img + static_cast<size_t>(row0 + r) * g.c + cvec * V;
+        load_vec<T, V>(x + off, u[i]);
+        load_grad<T, V, RELU>(dy, y, off, gr[i]);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          u[i][v] -= k[v];
+          s[v] += u[i][v];
+          sg[v] += gr[i][v];
+        }
+      }
+    }
+  }
+  column_sums<V>(part, sum_u, s, g, lane_r, lane_c);
+  column_sums<V>(part, sum_g, sg, g, lane_r, lane_c);
+  float q[V], h[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) q[v] = h[v] = 0.f;
+  if (active) {
+    float m[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) m[v] = sum_u[lane_c * V + v] / static_cast<float>(n_b);
+#pragma unroll
+    for (int i = 0; i < BWD_ITEMS; ++i) {
+      if (i * g.rl + lane_r < n_b) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float d = u[i][v] - m[v];
+          q[v] = fmaf(d, d, q[v]);
+          h[v] = fmaf(gr[i][v], d, h[v]);
+        }
+      }
+    }
+  }
+  column_sums<V>(part, m2_s, q, g, lane_r, lane_c);
+  column_sums<V>(part, h_s, h, g, lane_r, lane_c);
+  for (int j = tid; j < ncol; j += THREADS) {
+    const int ch = group * ncol + j;
+    if (ch < g.c)
+      ws[(static_cast<size_t>(b) * gridDim.x + split) * g.c + ch] =
+          make_float4(sum_u[j], m2_s[j], sum_g[j], h_s[j]);
+  }
+}
+
+// Pass 2: per (b, c), merge the image's blocks in a fixed order; writes
+// dscale, dbias and, for the apply, coef[2 bc] = (K, ubar, a, r dscale / HW)
+// and coef[2 bc + 1].x = dbias / HW.
+template <typename T>
+__global__ void __launch_bounds__(FIN_C * FIN_S)
+in_bwd_finalize_kernel(const T* __restrict__ x, const float4* __restrict__ ws,
+                       const float* __restrict__ scale, float4* __restrict__ coef,
+                       float* __restrict__ dscale, float* __restrict__ dbias, int hw, int c,
+                       int splits, int rows, float eps) {
+  __shared__ float red[3][FIN_S][FIN_C];
+  __shared__ float ubar_s[FIN_C];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ch = blockIdx.x * FIN_C + tx, b = blockIdx.y;
+  const bool valid = ch < c;
+  const float4* w = ws + static_cast<size_t>(b) * splits * c + ch;
+  float acc = 0.f;
+  if (valid)
+    for (int s = ty; s < splits; s += FIN_S) acc += w[static_cast<size_t>(s) * c].x;
+  red[0][ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0) {
+    float t = 0.f;
+    for (int i = 0; i < FIN_S; ++i) t += red[0][i][tx];
+    ubar_s[tx] = t / static_cast<float>(hw);
+  }
+  __syncthreads();
+  const float ubar = ubar_s[tx];
+  float m2 = 0.f, gs = 0.f, hs = 0.f;
+  if (valid) {
+    for (int s = ty; s < splits; s += FIN_S) {
+      const float4 p = w[static_cast<size_t>(s) * c];
+      const float n_s = static_cast<float>(min(rows, hw - s * rows));
+      const float d = p.x / n_s - ubar;
+      m2 += p.y + n_s * d * d;
+      gs += p.z;
+      hs += p.w + d * p.z;
+    }
+  }
+  red[0][ty][tx] = m2;  // thread row 0 read red[0] before the barrier above
+  red[1][ty][tx] = gs;
+  red[2][ty][tx] = hs;
+  __syncthreads();
+  if (ty == 0 && valid) {
+    float tm = 0.f, tg = 0.f, th = 0.f;
+    for (int i = 0; i < FIN_S; ++i) {
+      tm += red[0][i][tx];
+      tg += red[1][i][tx];
+      th += red[2][i][tx];
+    }
+    const size_t bc = static_cast<size_t>(b) * c + ch;
+    const float inv_hw = 1.f / static_cast<float>(hw);
+    const float r = rsqrtf(tm * inv_hw + eps);
+    const float ds = r * th;
+    dbias[bc] = tg;
+    dscale[bc] = ds;
+    const float k = to_f32<T>(x[static_cast<size_t>(b) * hw * c + ch]);
+    coef[2 * bc] = make_float4(k, ubar, scale[bc] * r, r * ds * inv_hw);
+    coef[2 * bc + 1] = make_float4(tg * inv_hw, 0.f, 0.f, 0.f);
+  }
+}
+
+// Pass 3: dx = a ((g - dbias / HW) - (u - ubar) r dscale / HW) in x's type.
+template <typename T, int V, bool RELU>
+__global__ void __launch_bounds__(THREADS)
+in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ y,
+                    const float4* __restrict__ coef, T* __restrict__ dx, Geometry g) {
+  const int split = blockIdx.x, group = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane_c = tid % g.cb, lane_r = tid / g.cb;
+  const int cvec = group * g.cb + lane_c;
+  if (lane_r >= g.rl || cvec * V >= g.c) return;
+  const int row0 = split * g.rl * BWD_ITEMS;
+  const int n_b = min(g.rl * BWD_ITEMS, g.hw - row0);
+  float k[V], ubar[V], a[V], rds[V], db[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const size_t bc = static_cast<size_t>(b) * g.c + cvec * V + v;
+    const float4 p = coef[2 * bc];
+    k[v] = p.x;
+    ubar[v] = p.y;
+    a[v] = p.z;
+    rds[v] = p.w;
+    db[v] = coef[2 * bc + 1].x;
+  }
+  const size_t base = static_cast<size_t>(b) * g.hw * g.c + cvec * V;
+#pragma unroll
+  for (int i = 0; i < BWD_ITEMS; ++i) {
+    const int r = i * g.rl + lane_r;
+    if (r < n_b) {
+      const size_t off = base + static_cast<size_t>(row0 + r) * g.c;
+      float xv[V], gv[V];
+      load_vec<T, V>(x + off, xv);
+      load_grad<T, V, RELU>(dy, y, off, gv);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        xv[v] = a[v] * ((gv[v] - db[v]) - ((xv[v] - k[v]) - ubar[v]) * rds[v]);
+      store_vec<T, V>(dx + off, xv);
+    }
+  }
+}
+
+template <typename T, int V, bool RELU>
+int bwd_launch(const void* x_, const void* dy_, const void* y_, const void* scale, void* dx_,
+               void* dscale, void* dbias, void* ws, void* coef, int batch, int hw, int c, int cb,
+               int rl, int splits, int groups, float eps, cudaStream_t st) {
+  const T* x = static_cast<const T*>(x_);
+  const T* dy = static_cast<const T*>(dy_);
+  const T* y = static_cast<const T*>(y_);
+  const Geometry g{hw, c, cb, rl};
+  const dim3 grid(splits, groups, batch);
+  const size_t smem = static_cast<size_t>(rl + 4) * cb * V * sizeof(float);
+  in_bwd_reduce_kernel<T, V, RELU><<<grid, THREADS, smem, st>>>(x, dy, y,
+                                                                static_cast<float4*>(ws), g);
+  in_bwd_finalize_kernel<T><<<dim3((c + FIN_C - 1) / FIN_C, batch), dim3(FIN_C, FIN_S), 0, st>>>(
+      x, static_cast<const float4*>(ws), static_cast<const float*>(scale),
+      static_cast<float4*>(coef), static_cast<float*>(dscale), static_cast<float*>(dbias), hw, c,
+      splits, rl * BWD_ITEMS, eps);
+  in_bwd_apply_kernel<T, V, RELU><<<grid, THREADS, 0, st>>>(
+      x, dy, y, static_cast<const float4*>(coef), static_cast<T*>(dx_), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int bwd_dispatch(const void* x, const void* dy, const void* y, const void* scale, void* dx,
+                 void* dscale, void* dbias, void* ws, void* coef, int batch, int hw, int c,
+                 int cb, int rl, int splits, int groups, float eps, int relu, cudaStream_t st) {
+  if (relu)
+    return bwd_launch<T, V, true>(x, dy, y, scale, dx, dscale, dbias, ws, coef, batch, hw, c, cb,
+                                  rl, splits, groups, eps, st);
+  return bwd_launch<T, V, false>(x, dy, y, scale, dx, dscale, dbias, ws, coef, batch, hw, c, cb,
+                                 rl, splits, groups, eps, st);
 }
 
 // ---- route "cluster" -------------------------------------------------------
@@ -991,6 +1269,31 @@ int hst_instance_norm_split(const void* x, const void* scale, const void* bias, 
                                           splits, groups, eps, relu, st);
   return split_launch<__nv_bfloat16, 1>(x, scale, bias, y, ws, coef, batch, hw, c, cb, rl, splits,
                                         groups, eps, relu, st);
+}
+
+// instance_norm_bwd: dx (x's type), dscale and dbias ((B, C) f32) from x,
+// dy (x's type) and, where relu, the forward's output y. ws is (B, splits,
+// C) float4 scratch, coef (B, C, 2) float4. cb, rl, splits and groups are
+// the split geometry of BWD_ITEMS rows a thread (ops/kernels/instance_norm.py
+// _geometry); vec and dtype as for the split route.
+int hst_instance_norm_bwd(const void* x, const void* dy, const void* y, const void* scale,
+                          void* dx, void* dscale, void* dbias, void* ws, void* coef, int batch,
+                          int hw, int c, int cb, int rl, int splits, int groups, float eps,
+                          int relu, int vec, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (relu && y == nullptr) return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (vec)
+      return bwd_dispatch<float, 4>(x, dy, y, scale, dx, dscale, dbias, ws, coef, batch, hw, c,
+                                    cb, rl, splits, groups, eps, relu, st);
+    return bwd_dispatch<float, 1>(x, dy, y, scale, dx, dscale, dbias, ws, coef, batch, hw, c, cb,
+                                  rl, splits, groups, eps, relu, st);
+  }
+  if (vec)
+    return bwd_dispatch<__nv_bfloat16, 8>(x, dy, y, scale, dx, dscale, dbias, ws, coef, batch, hw,
+                                          c, cb, rl, splits, groups, eps, relu, st);
+  return bwd_dispatch<__nv_bfloat16, 1>(x, dy, y, scale, dx, dscale, dbias, ws, coef, batch, hw,
+                                        c, cb, rl, splits, groups, eps, relu, st);
 }
 
 // Route "cluster": k blocks an image (a cluster), each keeping up to

@@ -47,12 +47,13 @@ def pooled_gram_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:
 
 def gram_matrix_ncl(f: torch.Tensor, denom: Optional[float] = None) -> torch.Tensor:
     """f: (N, C, L) -> (N, C, C) = f fᵀ / denom (default L), in f's dtype
-    (``ops/gram.py:34``; the family-3 discriminator passes L + 1e-6).
-    ``gram_fwd`` takes fᵀ, the (N, L, C) view: f32 sums of f fᵀ / L, cast
-    once; a ``denom`` other than L then rescales by L / denom in f32. The
-    discriminator's f is the transpose of its pooled NHWC map (N, L, C), so
-    on the card fᵀ is contiguous; any other layout raises there."""
-    g = gram_kernels.gram_fwd(f.transpose(1, 2))
+    (``ops/gram.py:34``; the family-3 discriminator passes L + 1e-6),
+    differentiable: ``GramFunction`` takes fᵀ, the (N, L, C) view (f32 sums
+    of f fᵀ / L, cast once; backward ``gram_bwd``); a ``denom`` other than
+    L then rescales by L / denom in f32. The discriminator's f is the
+    transpose of its pooled NHWC map (N, L, C), so on the card fᵀ is
+    contiguous; any other layout raises there."""
+    g = gram_kernels.GramFunction.apply(f.transpose(1, 2))
     length = f.shape[-1]
     if denom is None or denom == length:
         return g

@@ -170,10 +170,15 @@ def gram_fwd_plan_for(f: torch.Tensor) -> Tuple[str, int, int, int]:
 
 def gram_fwd(f: torch.Tensor) -> torch.Tensor:
     """(N, HW, C) -> (N, C, C). CPU: plain version; CUDA: the kernel, on
-    the route that ``gram_fwd_plan_for`` picks from dtype, C and alignment."""
+    the route that ``gram_fwd_plan_for`` picks from dtype, C and alignment.
+    The kernel's output has no autograd graph, so a CUDA input that needs a
+    gradient raises: ``GramFunction`` is the differentiable Gram."""
     if f.device.type == "cpu":
         return gram_fwd_plain(f)
     _check_input("gram_fwd", f)
+    if torch.is_grad_enabled() and f.requires_grad:
+        raise NotImplementedError("gram_fwd is forward only: call GramFunction.apply for a "
+                                  "Gram that needs a gradient (its backward is gram_bwd)")
     n, hw, c = f.shape
     route, _, splits, rows = gram_fwd_plan_for(f)
     g = torch.empty((n, c, c), device=f.device, dtype=f.dtype)

@@ -7,10 +7,13 @@ plain version; a CUDA tensor launches a kernel or raises — there is no
 fallback. ``_plan`` picks the route: "cluster" (one launch, one
 thread-block cluster per image, x read once where the image fits in the
 cluster's shared memory) or "split" (three launches, x read twice), and
-``instance_norm_plan_for`` reports it for a tensor. The kernels are forward
-only, as the TPU kernel they replace was, so a CUDA input that needs a
-gradient raises. ``LAUNCHES["instance_norm_fwd"]`` counts calls that
-launched a kernel (one a call, whichever route).
+``instance_norm_plan_for`` reports it for a tensor. ``instance_norm_fwd``
+is forward only, as the TPU kernel it replaces was, so a CUDA input that
+needs a gradient raises there; ``InstanceNormFunction`` pairs it with
+``instance_norm_bwd`` (three launches on the split geometry: per-block
+sums, their merge, the apply) and is what the models call.
+``LAUNCHES["instance_norm_fwd"]`` and ``LAUNCHES["instance_norm_bwd"]``
+count calls that launched a kernel (one a call, whichever route).
 """
 from __future__ import annotations
 
@@ -23,13 +26,14 @@ import torch
 
 from ._nvcc import CudaLibrary, check
 
-KERNELS = ("instance_norm_fwd",)
+KERNELS = ("instance_norm_fwd", "instance_norm_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 EPS = 1e-5
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _THREADS = 256  # csrc/instance_norm.cu THREADS (split route)
 _ITEMS = 8  # csrc/instance_norm.cu ITEMS
+_BWD_ITEMS = 4  # csrc/instance_norm.cu BWD_ITEMS
 _MAX_GRID_YZ = 65535
 # the cluster route (csrc/instance_norm.cu)
 _CL_THREADS = 256  # CL_THREADS
@@ -55,6 +59,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     ip = ctypes.POINTER(i)
     lib.hst_instance_norm_cluster_occupancy.argtypes = [i, i, i, i, i, i, i, i, i, ip, ip]
     lib.hst_instance_norm_cluster_occupancy.restype = i
+    lib.hst_instance_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
+                                          i, p]
+    lib.hst_instance_norm_bwd.restype = i
 
 
 LIBRARY = CudaLibrary("instance_norm", _bind)
@@ -81,14 +88,42 @@ def instance_norm_fwd_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     return y.to(x.dtype)
 
 
-def _geometry(c: int, hw: int, vec_width: int):
-    """Block geometry of the split route for C channels read ``vec_width``
-    at a time: (cb, rl, splits, groups) — vector columns and row lanes per
-    block, blocks along HW and along C."""
+def instance_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, eps: float = EPS, relu: bool = False,
+                            y: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of ``instance_norm_fwd_plain``: (dx in x's dtype, dscale and
+    dbias (B, C) in f32, f64 for f64 x). With xhat the normalised x, r =
+    rsqrt(var + eps) and g = dy, times 1[y > 0] under ReLU (y the forward's
+    output; recomputed here where not given): dbias = sum_HW g, dscale =
+    sum_HW g xhat, dx = r scale (g - dbias / HW - xhat dscale / HW)."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(acc)
+    mean = xf.mean(dim=1, keepdim=True)
+    r = torch.rsqrt(torch.square(xf - mean).mean(dim=1, keepdim=True) + eps)
+    xhat = (xf - mean) * r
+    g = dy.to(acc)
+    if relu:
+        if y is None:
+            y = instance_norm_fwd_plain(x, scale, bias, eps, relu)
+        g = torch.where(y > 0, g, torch.zeros_like(g))
+    hw = x.shape[1]
+    dbias = g.sum(dim=1)
+    dscale = (g * xhat).sum(dim=1)
+    dx = r * scale.to(acc)[:, None, :] * (g - dbias[:, None, :] / hw
+                                          - xhat * dscale[:, None, :] / hw)
+    return dx.to(x.dtype), dscale, dbias
+
+
+def _geometry(c: int, hw: int, vec_width: int, items: int = _ITEMS):
+    """Block geometry of the split route (and, with ``_BWD_ITEMS``, of the
+    backward) for C channels read ``vec_width`` at a time: (cb, rl, splits,
+    groups) — vector columns and row lanes per block, blocks along HW and
+    along C."""
     cv = c // vec_width
     cb = min(cv, _THREADS)
     rl = _THREADS // cb
-    splits = math.ceil(hw / (rl * _ITEMS))
+    splits = math.ceil(hw / (rl * items))
     groups = math.ceil(cv / cb)
     return cb, rl, splits, groups
 
@@ -328,3 +363,79 @@ def _launch(lib: ctypes.CDLL, x: torch.Tensor, scale: torch.Tensor, bias: torch.
             coef.data_ptr(), b, hw, c, cb, rl, splits, groups, float(eps), int(relu), int(vec),
             dtype, stream)
     check(name, err)
+
+
+def instance_norm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, eps: float = EPS, relu: bool = False,
+                      y: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, HW, C) x and dy (x's dtype), (B, C) f32 scale and bias, and under
+    ReLU the forward's output y -> (dx, dscale, dbias). CPU: the plain
+    version; CUDA: the kernel (``hst_instance_norm_bwd``: three launches,
+    HW split over many blocks an image), which reads the ReLU mask from y
+    and needs no bias."""
+    if x.device.type == "cpu":
+        return instance_norm_bwd_plain(x, dy, scale, bias, eps, relu, y)
+    name = "instance_norm_bwd"
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: expected (B, HW, C), got shape {tuple(x.shape)}")
+    b, hw, c = x.shape
+    if relu and y is None:
+        raise ValueError(f"{name}: relu needs the forward's output y for its mask")
+    for label, t in (("x", x), ("dy", dy)) + ((("y", y),) if relu else ()):
+        if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape:
+            raise ValueError(f"{name}: {label} must be {tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} is not contiguous (strides {t.stride()})")
+    if scale.device != x.device or scale.dtype != torch.float32 or tuple(scale.shape) != (b, c) \
+            or not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be contiguous ({b}, {c}) float32 on {x.device}, "
+                         f"got {tuple(scale.shape)} {scale.dtype} on {scale.device}")
+    if b == 0 or hw == 0 or c == 0:
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    dscale = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    dbias = torch.empty_like(dscale)
+    width = 16 // x.element_size()
+    vec = c % width == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (x, dy, dx) + ((y,) if relu else ()))
+    cb, rl, splits, groups = _geometry(c, hw, width if vec else 1, _BWD_ITEMS)
+    if b > _MAX_GRID_YZ or groups > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: B={b} or C={c} exceeds the kernel's grid")
+    ws = torch.empty((b, splits, c, 4), device=x.device, dtype=torch.float32)
+    coef = torch.empty((b, c, 2, 4), device=x.device, dtype=torch.float32)
+    err = LIBRARY.load().hst_instance_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), y.data_ptr() if relu else None, scale.data_ptr(),
+        dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(), coef.data_ptr(),
+        b, hw, c, cb, rl, splits, groups, float(eps), int(relu), int(vec), _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(name, err)
+    LAUNCHES[name] += 1
+    return dx, dscale, dbias
+
+
+class InstanceNormFunction(torch.autograd.Function):
+    """``instance_norm_fwd`` with ``instance_norm_bwd`` as its backward:
+    apply(x (B, HW, C), scale, bias (B, C) f32, eps, relu). On CPU tensors
+    both directions take the plain versions, so the CPU tests check the
+    backward's formula itself. Under ReLU the output is saved for the
+    backward's mask."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps=EPS, relu=False):
+        y = instance_norm_fwd(x, scale, bias, eps, relu)
+        ctx.eps, ctx.relu = eps, relu
+        ctx.save_for_backward(x, scale, bias, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, y = ctx.saved_tensors
+        dx, dscale, dbias = instance_norm_bwd(x, dy.contiguous(), scale, bias, ctx.eps,
+                                              ctx.relu, y)
+        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None

@@ -11,7 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .kernels.instance_norm import instance_norm_fwd
+from .kernels.instance_norm import InstanceNormFunction
 
 EPS = 1e-5
 
@@ -33,21 +33,26 @@ def batch_norm(
 
 @functools.lru_cache(maxsize=64)
 def _unit_affine(b: int, c: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, C) float32 ones and zeros on ``device``, made once per shape."""
-    return (torch.ones((b, c), device=device, dtype=torch.float32),
-            torch.zeros((b, c), device=device, dtype=torch.float32))
+    """(B, C) float32 ones and zeros on ``device``, made once per shape,
+    and never as inference tensors: made first under ``inference_mode``
+    (evaluation, the camera), they would be refused later where
+    ``InstanceNormFunction`` saves them for a backward (the style loop)."""
+    with torch.inference_mode(False):
+        return (torch.ones((b, c), device=device, dtype=torch.float32),
+                torch.zeros((b, c), device=device, dtype=torch.float32))
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS, relu: bool = False) -> torch.Tensor:
     """Per-image, per-channel normalisation of x (N, H, W, C) over H and W,
     no affine; with ``relu`` the ReLU that follows it in the family-3
-    discriminator is fused. The (N, HW, C) view goes to the K3 wrapper with
-    unit scale and zero bias: on a CUDA tensor that launches
-    ``instance_norm_fwd``, on a CPU tensor it takes the kernel's plain
-    version (f32 two-pass statistics)."""
+    discriminator is fused. The (N, HW, C) view goes through
+    ``InstanceNormFunction`` with unit scale and zero bias: on a CUDA
+    tensor that launches ``instance_norm_fwd`` and, where a gradient flows
+    (the family-3 style loop), ``instance_norm_bwd``; on a CPU tensor it
+    takes the kernels' plain versions (f32 two-pass statistics)."""
     n, h, w, c = x.shape
     scale, bias = _unit_affine(n, c, x.device)
-    y = instance_norm_fwd(x.reshape(n, h * w, c), scale, bias, eps, relu)
+    y = InstanceNormFunction.apply(x.reshape(n, h * w, c), scale, bias, eps, relu)
     return y.reshape(n, h, w, c)
 
 

@@ -1,21 +1,27 @@
-"""Heuristic style transfer, family 2 (``tasks/style_transfer.py:44-129,
-167-292,459-545`` of the JAX package).
+"""Heuristic style transfer, families 2 and 3 (``tasks/style_transfer.py:44-129,
+167-292,429-456,459-545,646-725`` of the JAX package).
 
-Per batch of test images: the target Gram of the truncated encoder's
-output, then Adam on the pixels of a noise image minimising the per-image
-MSE between its Gram and the target, each image stopping once its loss
-falls below ``threshold``, capped at ``num_iterations``; then the
-[original | stylised] PNG into ``style_transfer_<date>/<label>/``.
+Per batch of test images: the target Gram, then Adam on the pixels of a
+noise image minimising the per-image MSE between its Gram and the target,
+each image stopping once its loss falls below ``threshold``, capped at
+``num_iterations``; then the [original | stylised] PNG into
+``style_transfer_<date>/<label>/``.
 
-Every iteration runs the encoder forward, the ``gram_fwd`` kernel, the
-encoder backward and the ``gram_bwd`` kernel (``ops/kernels/gram.py``).
-``compute_dtype=torch.bfloat16`` runs the encoder in bf16 while the pixels,
+Family 2's Gram is the truncated encoder's output's: every iteration runs
+the encoder forward, the ``gram_fwd`` kernel, the encoder backward and the
+``gram_bwd`` kernel (``ops/kernels/gram.py``). Family 3's is the outer
+product of the three discriminators' mean embedding over its width
+(``make_gram_fn_patches``); each iteration runs their forward (16
+``gram_fwd`` launches and, under norm "instance", 13 ``instance_norm_fwd``)
+and its backward (16 ``gram_bwd``, 13 ``instance_norm_bwd``).
+``compute_dtype=torch.bfloat16`` runs the model in bf16 while the pixels,
 the Adam state and the loss stay f32.
 """
 from __future__ import annotations
 
 import copy
 import os
+import time
 from datetime import datetime
 from typing import Callable, List, Optional, Sequence
 
@@ -134,6 +140,34 @@ def make_gram_fn_gram_attention(
     return gram_fn
 
 
+def make_gram_fn_patches(
+    model,
+    gram_matrix_dim: int,
+    norm: str = "batch",
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Callable[[torch.Tensor], List[torch.Tensor]]:
+    """Family-3 per-image target-Gram program: the embedding e (B, ndf) of
+    ``multiscale_test_apply``, then outer(e, e) / ndf per image as one f32
+    (B, ndf, ndf) Gram. The product is a plain one outside any kernel; it
+    accumulates in f32 for f32 operands and rounds to the embedding's dtype
+    for bf16 ones, as the JAX einsum's preferred type does. In bf16 the
+    discriminators are a bf16 copy of the model's (weights and running
+    statistics, as the JAX policy casts them), made once."""
+    from ..models.multi_patchgan import multiscale_test_apply
+
+    if compute_dtype is not None:
+        model = copy.deepcopy(model).to(compute_dtype)
+
+    def gram_fn(images):
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        emb, _, _ = multiscale_test_apply(model, images, gram_matrix_dim, norm)
+        g = torch.einsum("bi,bj->bij", emb, emb)
+        return [g.float() / emb.shape[-1]]
+
+    return gram_fn
+
+
 def denormalize_to_uint8(img_nhwc: np.ndarray) -> np.ndarray:
     """Invert the ImageNet normalisation and clamp to [0, 1] (a float image,
     despite the reference's name)."""
@@ -202,4 +236,79 @@ def style_transfer_gram_attention(
             saved.append(path)
             log_fn(f"Style transferred for image {img_counter}, saved to {path}")
             img_counter += 1
+    return saved
+
+
+def style_transfer_patches(
+    model,
+    loader,
+    save_dir: str,
+    *,
+    gram_matrix_dim: int,
+    norm: str = "batch",
+    layers: Optional[int] = None,
+    threshold: float = 1e-4,
+    num_iterations: int = 500,
+    learning_rate: float = 0.01,
+    max_images: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+    log_fn=print,
+    compute_dtype: Optional[torch.dtype] = None,
+    history: Optional[list] = None,
+) -> List[str]:
+    """Family-3 style transfer over the embedding's outer-product Grams
+    (the reference's ``functions_Multi_PatchGAN.py:211-306``, its working
+    ``layers=None`` path; its layers slicing crashes upstream and is
+    rejected). Noise comes from ``generator`` (a CPU ``torch.Generator``;
+    JAX's ``jax.random`` noise cannot be reproduced). ``history``, when a
+    list, receives one list of per-iteration losses per batch. Returns the
+    saved paths, ``style_transfer_<date>/<label>/style_transfer_<label>_<n>_<ms>.png``."""
+    from ..data.augment import eval_preprocess
+
+    if layers is not None:
+        raise ValueError(
+            "The reference's --layers truncation for PatchGAN style transfer is "
+            "non-functional upstream (nn.Sequential over a ModuleDict, "
+            "functions_Multi_PatchGAN.py:242); run without --layers."
+        )
+    device = next(model.parameters()).device
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    gram_fn = make_gram_fn_patches(model, gram_matrix_dim, norm, compute_dtype)
+    optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold)
+
+    out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
+    os.makedirs(out_dir, exist_ok=True)
+
+    saved = []
+    img_counter = 0
+    for batch in loader:
+        n = batch["n_valid"]
+        if max_images is not None:
+            n = min(n, max_images - img_counter)
+            if n <= 0:
+                log_fn(f"Maximum number of images ({max_images}) reached.")
+                return saved
+        images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
+        with torch.no_grad():
+            targets = gram_fn(images)
+        noise0 = torch.randn(images.shape, generator=generator, dtype=torch.float32)
+        trace = [] if history is not None else None
+        noise, _, _ = optimise(noise0.to(device), targets, trace)
+        if history is not None:
+            history.append(trace)
+        noise = noise.cpu().numpy()
+        originals = images.cpu().numpy()
+        for j in range(n):
+            label = int(batch["label"][j])
+            timestamp = int(time.time() * 1000)
+            path = os.path.join(out_dir, str(label),
+                                f"style_transfer_{label}_{img_counter}_{timestamp}.png")
+            _save_side_by_side(denormalize_to_uint8(originals[j]),
+                               denormalize_to_uint8(noise[j]), path)
+            saved.append(path)
+            img_counter += 1
+        if max_images is not None and img_counter >= max_images:
+            log_fn(f"Maximum number of images ({max_images}) reached.")
+            return saved
     return saved

@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Six cells, each at full model width with seeded random weights:
+Eight cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -25,6 +25,18 @@ Six cells, each at full model width with seeded random weights:
                     ``evaluate`` call of the CLI on one batch); and the
                     same model at norm "instance", f32, whose 13 norms a
                     forward are ``instance_norm_fwd`` launches
+  family3_camera    family 3 at the config defaults at batch 1, norm
+                    "batch" and norm "instance", f32: the camera path
+                    (``make_camera_infer_fn`` over ``multiscale_test_apply``,
+                    host-downscaled 224² RGB frames, the logits fetched)
+  family3_style_transfer
+                    family 3's Adam-on-pixels loop at the config defaults,
+                    batch 1 (the CLI's loader), 224², f32 and bf16 at norm
+                    "batch", f32 at norm "instance"
+                    (``make_style_transfer_optimizer`` over
+                    ``make_gram_fn_patches``: 16 ``gram_fwd`` and 16
+                    ``gram_bwd`` an iteration, and under "instance" 13
+                    ``instance_norm_fwd`` and 13 ``instance_norm_bwd``)
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -33,9 +45,15 @@ from run to run), and over a short ``torch.profiler`` window the device busy tim
 and instance-norm kernels first, with their share of busy. Prints one JSON
 object per cell; writes them all to
 ``chiprun_out/profile_main_path.json`` when that directory exists.
+``--cells family3_camera,family3_classification`` runs only the cells
+named. ``make_gram_fn_patches`` is imported only in the cell that uses
+it, so a copy of this file placed in an older checkout of the port, one
+without it, times that checkout's other cells: a parent and its change
+compared on the same card.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import time
@@ -49,7 +67,7 @@ from ..config.schema import MultiPatchGANConfig
 from ..core.device import resolve_device
 from ..data.augment import eval_preprocess
 from ..models.gram_attention import gram_attention_apply, gram_attention_init
-from ..models.multi_patchgan import multiscale_test_init
+from ..models.multi_patchgan import multiscale_test_apply, multiscale_test_init
 from ..models.truncated_resnet50 import combined_apply, truncated_resnet50_init
 from ..nn.transformer_net import transformer_net_init
 from ..ops.kernels import build_all
@@ -60,7 +78,8 @@ from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_trans
 
 GRAM_KERNELS = ("gram_fwd_kernel", "gram_fwd_wgmma_kernel", "gram_bwd_kernel",
                 "gram_bwd_wgmma_kernel", "pooled_gram_kernel", "pooled_project_kernel")
-IN_KERNELS = ("in_cluster_kernel", "in_stats_kernel", "in_finalize_kernel", "in_apply_kernel")
+IN_KERNELS = ("in_cluster_kernel", "in_stats_kernel", "in_finalize_kernel", "in_apply_kernel",
+              "in_bwd_reduce_kernel", "in_bwd_finalize_kernel", "in_bwd_apply_kernel")
 
 
 def _device_us(evt) -> float:
@@ -139,11 +158,12 @@ def classification_cell(model, dev) -> dict:
             "step_ms_runs": runs, "images_per_s": 8 / ms * 1e3, **_profile(step, 3)}
 
 
-def style_cell(model, dev, dtype) -> dict:
-    gram_fn = make_gram_fn_gram_attention(model, 8, layers=5, compute_dtype=dtype)
-    rng = np.random.RandomState(2)
+def _loop_cell(gram_fn, dev, batch: int, seed: int) -> dict:
+    """Iteration time (host clock, 20 iterations, three runs) and a profile
+    of 5 iterations of the Adam-on-pixels loop over ``gram_fn``."""
+    rng = np.random.RandomState(seed)
     images = eval_preprocess(torch.from_numpy(
-        rng.randint(0, 256, (4, 256, 256, 3)).astype(np.uint8)).to(dev))
+        rng.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8)).to(dev))
     with torch.no_grad():
         targets = gram_fn(images)
     noise0 = torch.randn(images.shape, generator=torch.Generator().manual_seed(0)).to(dev)
@@ -155,10 +175,24 @@ def style_cell(model, dev, dtype) -> dict:
     iters = 20
     runs = [t / iters for t in _timed(lambda: run(iters), 1)]
     ms = float(np.median(runs))
-    return {"cell": "style_transfer", "layers": 5, "batch": 4,
-            "dtype": _dtype_name(dtype), "iteration_ms": ms,
-            "iteration_ms_runs": runs, "image_iterations_per_s": 4 / ms * 1e3,
-            **{k: v for k, v in _profile(lambda: run(5), 1).items()}, "profiled_iterations": 5}
+    return {"iteration_ms": ms, "iteration_ms_runs": runs,
+            "image_iterations_per_s": batch / ms * 1e3, **_profile(lambda: run(5), 1),
+            "profiled_iterations": 5}
+
+
+def style_cell(model, dev, dtype) -> dict:
+    gram_fn = make_gram_fn_gram_attention(model, 8, layers=5, compute_dtype=dtype)
+    return {"cell": "style_transfer", "layers": 5, "batch": 4, "dtype": _dtype_name(dtype),
+            **_loop_cell(gram_fn, dev, 4, 2)}
+
+
+def family3_style_cell(model, cfg, dev, dtype) -> dict:
+    from ..tasks.style_transfer import make_gram_fn_patches
+
+    gram_fn = make_gram_fn_patches(model, cfg.gram_matrix_dim, cfg.norm, dtype)
+    return {"cell": "family3_style_transfer", "norm": cfg.norm, "ndf": cfg.ndf,
+            "gram_matrix_dim": cfg.gram_matrix_dim, "batch": 1, "dtype": _dtype_name(dtype),
+            **_loop_cell(gram_fn, dev, 1, 7)}
 
 
 def fast_style_cell(net, dtype) -> dict:
@@ -202,8 +236,10 @@ def family1_cell(model, dtype) -> dict:
             "images_per_s": 32 / ms * 1e3, **_profile(step, 3), "profiled_steps": 3}
 
 
-def camera_cell(model, dtype) -> dict:
-    infer = make_camera_infer_fn(_family1_forward(dtype), host_downscale=True)
+def _camera(forward, model, dtype) -> dict:
+    """One host-downscaled 224² RGB frame in, its output fetched: frame
+    time over 50 frames (three runs) and a profile of 10."""
+    infer = make_camera_infer_fn(forward, host_downscale=True)
     frame = np.random.RandomState(5).randint(0, 256, (224, 224, 3)).astype(np.uint8)
 
     def step():
@@ -212,9 +248,19 @@ def camera_cell(model, dtype) -> dict:
     step()
     runs = _timed(step, 50)
     ms = float(np.median(runs))
-    return {"cell": "camera", "transport": "rgb", "host_downscale": True, "batch": 1,
+    return {"transport": "rgb", "host_downscale": True, "batch": 1,
             "dtype": _dtype_name(dtype), "frame_ms": ms, "frame_ms_runs": runs,
             "frames_per_s": 1e3 / ms, **_profile(step, 10), "profiled_steps": 10}
+
+
+def camera_cell(model, dtype) -> dict:
+    return {"cell": "camera", **_camera(_family1_forward(dtype), model, dtype)}
+
+
+def family3_camera_cell(model, cfg) -> dict:
+    forward = lambda m, x: multiscale_test_apply(m, x, cfg.gram_matrix_dim, cfg.norm)[1]  # noqa: E731
+    return {"cell": "family3_camera", "norm": cfg.norm, "ndf": cfg.ndf,
+            "gram_matrix_dim": cfg.gram_matrix_dim, **_camera(forward, model, None)}
 
 
 def family3_cell(model, cfg, dtype) -> dict:
@@ -237,25 +283,46 @@ def family3_cell(model, cfg, dtype) -> dict:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
+    parser.add_argument("--cells", default=None,
+                        help="comma-separated cell names to run (default: all)")
+    args = parser.parse_args()
     dev = resolve_device("cuda")
-    model = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, 7, device=dev)
-    net = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5, device=dev)
-    family1 = truncated_resnet50_init(torch.Generator().manual_seed(8), 8, 4, 256, device=dev)
-    family3 = {norm: (multiscale_test_init(torch.Generator().manual_seed(13),
-                                           cfg.patch_sizes, ndf=cfg.ndf,
-                                           num_classes=cfg.num_classes,
-                                           gram_matrix_dim=cfg.gram_matrix_dim, norm=norm,
-                                           device=dev), cfg)
+
+    def seeded(init, seed, *a, **k):
+        return init(torch.Generator().manual_seed(seed), *a, device=dev, **k)
+
+    def f32_and_bf16(cell, model, *a):
+        return [cell(model, *a, None), cell(model, *a, torch.bfloat16)]
+
+    family3 = {norm: (seeded(multiscale_test_init, 13, cfg.patch_sizes, ndf=cfg.ndf,
+                             num_classes=cfg.num_classes,
+                             gram_matrix_dim=cfg.gram_matrix_dim, norm=norm), cfg)
                for norm, cfg in (("batch", MultiPatchGANConfig()),
                                  ("instance", MultiPatchGANConfig(norm="instance")))}
+    # each cell's models are made when it runs, so --cells makes only its own
+    plan = {
+        "classification": lambda: [classification_cell(seeded(gram_attention_init, 0, 8, 4, 7),
+                                                        dev)],
+        "style_transfer": lambda: f32_and_bf16(style_cell, seeded(gram_attention_init, 0, 8, 4, 7),
+                                               dev),
+        "fast_style_serve": lambda: f32_and_bf16(
+            fast_style_cell, seeded(transformer_net_init, 0, width=32, n_res=5)),
+        "family1_classification": lambda: f32_and_bf16(
+            family1_cell, seeded(truncated_resnet50_init, 8, 8, 4, 256)),
+        "camera": lambda: f32_and_bf16(camera_cell, seeded(truncated_resnet50_init, 8, 8, 4, 256)),
+        "family3_classification": lambda: f32_and_bf16(family3_cell, *family3["batch"])
+        + [family3_cell(*family3["instance"], None)],
+        "family3_camera": lambda: [family3_camera_cell(*family3[n]) for n in ("batch", "instance")],
+        "family3_style_transfer": lambda: f32_and_bf16(family3_style_cell, *family3["batch"], dev)
+        + [family3_style_cell(*family3["instance"], dev, None)],
+    }
+    names = args.cells.split(",") if args.cells else list(plan)
+    unknown = sorted(set(names) - set(plan))
+    if unknown:
+        parser.error(f"unknown cells {unknown}; known: {sorted(plan)}")
     build_all()
-    cells = [classification_cell(model, dev), style_cell(model, dev, None),
-             style_cell(model, dev, torch.bfloat16), fast_style_cell(net, None),
-             fast_style_cell(net, torch.bfloat16), family1_cell(family1, None),
-             family1_cell(family1, torch.bfloat16), camera_cell(family1, None),
-             camera_cell(family1, torch.bfloat16), family3_cell(*family3["batch"], None),
-             family3_cell(*family3["batch"], torch.bfloat16),
-             family3_cell(*family3["instance"], None)]
+    cells = [c for name in names for c in plan[name]()]
     for c in cells:
         print(json.dumps(c))
     if os.path.isdir("chiprun_out"):

@@ -162,6 +162,10 @@ def test_port_and_chip_smoke_import_no_jax():
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not the package's source
         files += [os.path.join(dp, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
+    for module in ("checkpoint/pth_converter.py", "checkpoint/pth_exporter.py",
+                   "cli/convert_checkpoint.py", "tasks/style_transfer.py",
+                   "ops/kernels/instance_norm.py"):
+        assert os.path.join(PORT, module) in files, module
     bad = []
     for path in files:
         for name in _imports(path):

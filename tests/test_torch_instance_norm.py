@@ -103,8 +103,10 @@ def test_mean_1e3_channel_is_two_pass_accurate():
 
 def test_plain_version_does_not_count_launches():
     kin.reset_launch_counts()
-    kin.instance_norm_fwd(torch.randn(2, 9, 5), torch.randn(2, 5), torch.randn(2, 5), relu=True)
-    assert kin.LAUNCHES == {"instance_norm_fwd": 0}
+    x, s, b = torch.randn(2, 9, 5), torch.randn(2, 5), torch.randn(2, 5)
+    kin.instance_norm_fwd(x, s, b, relu=True)
+    kin.instance_norm_bwd(x, torch.randn(2, 9, 5), s, b, relu=True)
+    assert kin.LAUNCHES == {"instance_norm_fwd": 0, "instance_norm_bwd": 0}
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():
