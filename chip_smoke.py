@@ -31,7 +31,12 @@ Phases, all run every time:
                   dbias) at the family-3 style loop's b1 shapes and
                   (32,112,112,64) (ReLU, unit affine) and at the net's b8
                   shapes (affine rows, with and without ReLU), f32 and
-                  bf16; gram_bwd also at the loop's (1,4,4,64); the
+                  bf16, each row naming its route (cluster or split), k,
+                  G, clusters at once and bytes read twice, the b1 rows
+                  also on the split route, forced, and every row's two
+                  calls bit-equal; its cluster route forced onto ragged
+                  plans and a misaligned input refused; gram_bwd also at
+                  the loop's (1,4,4,64); the
                   forward-only wrappers refuse inputs that need a gradient;
                   time the kernel, the plain version and a library call;
                   compute each bound from the shapes and the card's peak
@@ -1483,18 +1488,101 @@ def _gradient_guards(kg, kin) -> None:
              "GramFunction and InstanceNormFunction differentiate on the card")
 
 
+def _bwd_check(got, want, dname: str):
+    """({name: [max rel, rms]}, ok) of instance_norm_bwd's (dx, dscale,
+    dbias) against its plain version's, each relative to the plain
+    result's own scale, at TOL."""
+    import torch
+
+    errs, ok = {}, True
+    for name, a, wnt in zip(("dx", "dscale", "dbias"), got, want):
+        diff = a.double() - wnt.double()
+        rel = (diff.abs().max() / wnt.double().abs().max()).item()
+        rms = (diff.norm() / wnt.double().norm()).item()
+        errs[name] = [rel, rms]
+        ok = ok and bool(torch.isfinite(a.float()).all()) and rel <= TOL[dname] \
+            and rms <= TOL[dname]
+    return errs, ok
+
+
+def _forced_in_bwd_checks(kin) -> list:
+    """instance_norm_bwd's cluster route forced onto ragged plans (a partial
+    last channel group, 16-byte groups, k = 1, 3 and 16 at an odd HW, a
+    prime HW over 5 blocks), with ReLU and affine rows, each against the
+    plain version at TOL; a misaligned bf16 input, which the plan sends to
+    the split route, and which the cluster route, forced, refuses. Not
+    timed; outside the main path's launch counts."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    out = []
+    for (b, h, w, c), dtype in [((3, 37, 29, 48), torch.float32),
+                                ((3, 37, 29, 48), torch.bfloat16),
+                                ((2, 1, 1009, 16), torch.float32)]:
+        hw, es = h * w, torch.tensor([], dtype=dtype).element_size()
+        v = 16 // es
+        x = (torch.randn((b, hw, c), device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        dy = torch.randn((b, hw, c), device=dev, generator=gen).to(dtype)
+        scale = torch.randn((b, c), device=dev, generator=gen)
+        bias = torch.randn((b, c), device=dev, generator=gen)
+        y = kin.instance_norm_fwd(x, scale, bias, relu=True)
+        want = kin.instance_norm_bwd_plain(x, dy, scale, bias, relu=True, y=y)
+        for g, k in ((32, 3), (2 * v, 1), (v, 16), (2 * v, 5)):
+            plan = kin.BwdPlan("cluster", g, k)
+            got = kin.instance_norm_bwd(x, dy, scale, bias, relu=True, y=y, _plan=plan)
+            torch.cuda.synchronize()
+            errs, ok = _bwd_check(got, want, str(dtype).split(".")[1])
+            out.append(dict(shape=[b, h, w, c], dtype=str(dtype).split(".")[1], g=g, k=k,
+                            errs=errs, ok=ok))
+    flat = torch.randn((1 + 2 * 99 * 24,), device=dev, generator=gen).to(torch.bfloat16)
+    x = flat[1:].view(2, 99, 24)  # 2 bytes past a 16-byte boundary
+    dy = torch.randn((2, 99, 24), device=dev, generator=gen).to(torch.bfloat16)
+    ones, zeros = torch.ones((2, 24), device=dev), torch.zeros((2, 24), device=dev)
+    plan = kin.instance_norm_bwd_plan_for(x, False, dy)
+    forced = kin.BwdPlan("cluster", 16, 2)
+    try:
+        kin.instance_norm_bwd(x, dy, ones, zeros, _plan=forced)
+        refused = False
+    except RuntimeError:
+        refused = True
+    out.append(dict(shape=[2, 1, 99, 24], dtype="bfloat16", misaligned=True,
+                    route=plan.route, cluster_refused=refused,
+                    ok=plan.route == "split" and refused))
+    for r in out:
+        print(f"[kernels] instance_norm_bwd forced {r['dtype']} {tuple(r['shape'])} "
+              + (f"misaligned: plan route={r['route']}, cluster forced refused="
+                 f"{r['cluster_refused']}" if r.get("misaligned") else
+                 f"cluster G={r['g']} k={r['k']}: (max, rms) rel "
+                 + " ".join(f"{k}=({e[0]:.2e}, {e[1]:.2e})" for k, e in r["errs"].items()))
+              + f" ok={r['ok']}")
+    bad = [r for r in out if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"instance_norm_bwd forced checks failed: {bad}")
+    return out
+
+
 def phase_in_bwd_kernels(kin, peaks) -> list:
     """instance_norm_bwd against its plain version (dx, dscale and dbias,
     each max-relative and RMS, 1e-4 f32 and 2e-2 bf16) at the family-3 style
     loop's B = 1 shapes and at (32,112,112,64) (ReLU, unit scale, zero bias,
     the mask from the forward's output), and at the fast-style net's B = 8
     shapes with affine rows that differ per image, with and without ReLU;
-    f32 and bf16. Each row times the kernel, the plain version and the
-    library: ``torch.autograd.grad`` through ``F.instance_norm`` (+ ReLU)
-    with one (C,) affine, its forward's time taken off; the bound is x and
-    dy read once and dx written once at the card's HBM rate."""
+    f32 and bf16. Each row names the route the plan took (cluster or
+    split), its cluster size k, channel group G, the clusters the card holds
+    at once and the bytes read a second time; the B = 1 rows also run the
+    split route, forced, held to the same checks and timed (``split_ms``).
+    Two calls on each route must give bit-equal dx, dscale and dbias. Each
+    row times the kernel, the plain version and the library:
+    ``torch.autograd.grad`` through ``F.instance_norm`` (+ ReLU) with one
+    (C,) affine, its forward's time taken off; the bound is x, dy (and y
+    under ReLU) read once and dx written once at the card's HBM rate."""
     import torch
     import torch.nn.functional as F
+
+    def repeatable(call) -> bool:
+        first, second = call(), call()
+        return all(torch.equal(a, b) for a, b in zip(first, second))
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(16)
@@ -1516,24 +1604,38 @@ def phase_in_bwd_kernels(kin, peaks) -> list:
             scale = torch.randn((b, c), device=dev, generator=g)
             bias = torch.randn((b, c), device=dev, generator=g)
         y = kin.instance_norm_fwd(x, scale, bias, relu=relu) if relu else None
+        plan = kin.instance_norm_bwd_plan_for(x, relu, dy, y)
         got = kin.instance_norm_bwd(x, dy, scale, bias, relu=relu, y=y)
         want = kin.instance_norm_bwd_plain(x, dy, scale, bias, relu=relu, y=y)
         torch.cuda.synchronize()
-        errs, ok = {}, True
-        for name, a, wnt in zip(("dx", "dscale", "dbias"), got, want):
-            diff = a.double() - wnt.double()
-            rel = (diff.abs().max() / wnt.double().abs().max()).item()
-            rms = (diff.norm() / wnt.double().norm()).item()
-            errs[name] = [rel, rms]
-            ok = ok and bool(torch.isfinite(a.float()).all()) and rel <= TOL[dname] \
-                and rms <= TOL[dname]
+        errs, ok = _bwd_check(got, want, dname)
+        same = repeatable(lambda: kin.instance_norm_bwd(x, dy, scale, bias, relu=relu, y=y))
         es = x.element_size()
-        width = 16 // es
-        _, _, splits, groups = kin._geometry(c, hw, width if c % width == 0 else 1,
-                                             kin._BWD_ITEMS)
-        # 1 read of x and dy, 1 write of dx, the (B, C) rows; about 12 f32
-        # operations an element over the two passes, on CUDA cores
-        bound, by = _bound(12.0 * b * hw * c, 3 * b * hw * c * es + 3 * b * c * 4,
+        tensors_in = 3 if relu else 2  # x, dy (and y)
+        extra = {}
+        if plan.route == "cluster":
+            blocks = b * -(-c // plan.g) * plan.k
+            reread = 0
+        else:
+            width = 16 // es
+            _, _, splits, groups = kin._geometry(c, hw, width if c % width == 0 else 1,
+                                                 kin._BWD_ITEMS)
+            blocks = splits * groups * b
+            reread = tensors_in * b * hw * c * es
+        if b == 1:  # the split route, forced, on the same inputs
+
+            def split():
+                return kin.instance_norm_bwd(x, dy, scale, bias, relu=relu, y=y,
+                                             _plan=kin.BWD_SPLIT)
+
+            extra["split_errs"], split_ok = _bwd_check(split(), want, dname)
+            extra["split_repeatable"] = repeatable(split)
+            extra["split_ms"] = _time_ms(split)
+            ok = ok and split_ok and extra["split_repeatable"]
+        ok = ok and same
+        # 1 read of x, dy (and y), 1 write of dx, the (B, C) rows; about 12
+        # f32 operations an element over the two passes, on CUDA cores
+        bound, by = _bound(12.0 * b * hw * c, (tensors_in + 1) * b * hw * c * es + 3 * b * c * 4,
                            torch.float32, peaks)
         x4 = x.view(b, h, w, c).permute(0, 3, 1, 2).detach().requires_grad_(True)
         dy4 = dy.view(b, h, w, c).permute(0, 3, 1, 2)
@@ -1549,18 +1651,25 @@ def phase_in_bwd_kernels(kin, peaks) -> list:
         rows.append(dict(
             shape=[b, h, w, c], dtype=dname, relu=relu, input=kind, errs=errs,
             max_abs_err=(got[0].double() - want[0].double()).abs().max().item(),
-            tol=TOL[dname], ok=ok, blocks=splits * groups * b,
+            tol=TOL[dname], ok=ok, repeatable=same, route=plan.route, k=plan.k, g=plan.g,
+            clusters=plan.clusters, blocks=blocks, reread_bytes=reread, plan=plan._asdict(),
             ms=_time_ms(lambda: kin.instance_norm_bwd(x, dy, scale, bias, relu=relu, y=y)),
             plain_ms=_time_ms(lambda: kin.instance_norm_bwd_plain(x, dy, scale, bias,
                                                                   relu=relu, y=y)),
             library_ms=lib_both_ms - lib_fwd_ms, library_fwd_bwd_ms=lib_both_ms,
-            bound_ms=bound, bound_by=by))
+            bound_ms=bound, bound_by=by, **extra))
         del x, dy, y, got, want, x4, dy4
     for r in rows:
         print(f"[kernels] instance_norm_bwd {r['dtype']} {tuple(r['shape'])} relu={r['relu']} "
-              f"{r['input']}: blocks={r['blocks']} (max, rms) rel "
+              f"{r['input']}: route={r['route']} k={r['k']} G={r['g']} clusters={r['clusters']} "
+              f"blocks={r['blocks']} reread_bytes={r['reread_bytes']} "
+              f"repeatable={r['repeatable']} (max, rms) rel "
               + " ".join(f"{k}=({v[0]:.2e}, {v[1]:.2e})" for k, v in r["errs"].items())
-              + f" (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              + f" (tol {r['tol']}) ms={r['ms']:.4f} "
+              + (f"split_ms={r['split_ms']:.4f} split (max, rms) rel "
+                 + " ".join(f"{k}=({v[0]:.2e}, {v[1]:.2e})" for k, v in r["split_errs"].items())
+                 + f" split_repeatable={r['split_repeatable']} " if "split_ms" in r else "")
+              + f"plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f} (fwd+bwd {r['library_fwd_bwd_ms']:.4f}) "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [(r["dtype"], r["shape"], r["relu"]) for r in rows if not r["ok"]]
@@ -1835,6 +1944,7 @@ def main() -> int:
     rows = phase_kernels(kg, peaks)
     rows["instance_norm_fwd"], in_checks = phase_in_kernels(kin, peaks)
     rows["instance_norm_bwd"] = phase_in_bwd_kernels(kin, peaks)
+    in_bwd_checks = _forced_in_bwd_checks(kin)
     _gradient_guards(kg, kin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model, seeded, cls_launches = phase_classification(kernels, tmp, timings)
@@ -1898,7 +2008,8 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "power": smi, "rows": rows, "timings": timings,
-                   "instance_norm_checks": in_checks, "records": records, "family3": f3_results,
+                   "instance_norm_checks": in_checks, "instance_norm_bwd_checks": in_bwd_checks,
+                   "records": records, "family3": f3_results,
                    "embeddings": embeddings, "cameras": cameras, "family3_style": f3_style,
                    "pth": pth}, f, indent=1)
     print(json.dumps({"kernels": records}))

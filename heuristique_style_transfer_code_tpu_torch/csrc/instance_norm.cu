@@ -5,7 +5,8 @@
 //                      a = scale * rsqrt(var + eps), optional ReLU     (B, HW, C)
 //   instance_norm_bwd  its VJP: dx, dscale, dbias from x, dy (and y under ReLU)
 //
-// The backward is at the end of the "split" section below.
+// The backward's split route (three launches) is at the end of the "split"
+// section below, its cluster route (one launch) at the end of the file.
 //
 // x is the (B, HW, C) view of an NHWC activation (C contiguous), f32 or
 // bf16; scale and bias are per-image (B, C) f32 rows (a conditional net's
@@ -382,8 +383,10 @@ int split_launch(const void* x_, const void* scale, const void* bias, void* y_, 
 // (a mask recomputed from x would flip where the pre-activation lies
 // within an ulp of 0, and each flip moves dbias by a whole dy).
 //
-// Three launches on the split route's geometry, no atomics (the same result
-// from run to run):
+// Route "split": three launches on the split route's geometry, no atomics
+// (the same result from run to run); the wrapper's plan takes it where the
+// cluster route (in_bwd_cluster_kernel, below) cannot hold the image's
+// strips in the card's shared memory at once, or C or a pointer is odd:
 //   1. in_bwd_reduce: each block holds BWD_ITEMS vectors of u and of g per
 //      thread in registers and writes, per channel, (sum u, sum (u - u_b)^2,
 //      sum g, sum g (u - u_b)) about its own mean u_b: one read of x, dy
@@ -847,10 +850,12 @@ __device__ __forceinline__ float4 slot_sum4(const float* buf, int k, int c) {
   return s;
 }
 
-// Phase marks for tools/instance_norm_sweep.py, which builds this source
-// with -DIN_PHASE_TRACE: thread 0 of each block stores %clock64 at mark i
-// to in_phase_clock[block][i] and %globaltimer to in_phase_time, and at
-// mark 0 its SM (%smid) to in_phase_clock[block][7]. Empty otherwise.
+// Phase marks for tools/instance_norm_sweep.py and
+// tools/instance_norm_bwd_sweep.py, which build this source with
+// -DIN_PHASE_TRACE: thread 0 of each block (blockIdx.y x gridDim.x +
+// blockIdx.x; the backward's at B = 1) stores %clock64 at mark i to
+// in_phase_clock[block][i] and %globaltimer to in_phase_time, and at mark 0
+// its SM (%smid) to in_phase_clock[block][7]. Empty otherwise.
 #ifdef IN_PHASE_TRACE
 constexpr int IN_MARKS = 8;
 __device__ unsigned long long in_phase_clock[1 << 16];
@@ -897,13 +902,12 @@ __device__ __forceinline__ void for_rows(const uint8_t* base, uint32_t pitch, in
     f(r, *reinterpret_cast<const uint4*>(base + static_cast<uint32_t>(r) * pitch));
 }
 
-// Stores v into slot `rank` of buf[k][C] (channels 4 threadIdx.x .. + 3)
-// in every block of the cluster, this one included, each store counted on
-// that block's mbarrier `bar` (st.async: the receiver waits for its
-// k x C x 4 bytes, no cluster barrier).
-__device__ __forceinline__ void push_all(float* buf, uint64_t* bar, uint32_t rank, int k, int c,
-                                         float4 v) {
-  const uint32_t local = smem_u32(buf + rank * c + 4 * threadIdx.x);
+// Stores v at `slot` (an address in this block's shared memory) in every
+// block of the cluster, this one included, each store counted on that
+// block's mbarrier `bar` (st.async: the receiver waits for its bytes, no
+// cluster barrier).
+__device__ __forceinline__ void push_slot(const void* slot, uint64_t* bar, int k, float4 v) {
+  const uint32_t local = smem_u32(slot);
   const uint32_t local_bar = smem_u32(bar);
   for (int dst = 0; dst < k; ++dst) {
     uint32_t remote, remote_bar;
@@ -917,6 +921,13 @@ __device__ __forceinline__ void push_all(float* buf, uint64_t* bar, uint32_t ran
         "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
         : "memory");
   }
+}
+
+// Stores v into slot `rank` of buf[k][C] (channels 4 threadIdx.x .. + 3)
+// in every block of the cluster (the receiver waits for k x C x 4 bytes).
+__device__ __forceinline__ void push_all(float* buf, uint64_t* bar, uint32_t rank, int k, int c,
+                                         float4 v) {
+  push_slot(buf + rank * c + 4 * threadIdx.x, bar, k, v);
 }
 
 // y = (x - K) * a + (bias - u_mean * a) (+ ReLU) of one 16-byte vector, in
@@ -1194,31 +1205,40 @@ in_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   IN_MARK(6);
 }
 
-template <typename T>
-cudaError_t cluster_attributes(void (*kernel)(const T*, const float*, const float*, T*,
-                                              ClusterPlan, float),
-                               const ClusterPlan& p, cudaLaunchConfig_t& cfg,
-                               cudaLaunchAttribute& attr, int batch, cudaStream_t st) {
-  const size_t smem = ClusterLayout(p, sizeof(T)).total;
+// The launch configuration of a kernel whose clusters are k blocks along
+// x, asking for `smem` bytes of dynamic shared memory a block.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, size_t smem, int k, dim3 grid, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute& attr, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  if (p.k > 8) {  // above 8 blocks a cluster is non-portable and has to be allowed
+  if (k > 8) {  // above 8 blocks a cluster is non-portable and has to be allowed
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(p.k), static_cast<unsigned>(batch));
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(CL_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = static_cast<unsigned>(p.k);
+  attr.val.clusterDim.x = static_cast<unsigned>(k);
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t cluster_attributes(void (*kernel)(const T*, const float*, const float*, T*,
+                                              ClusterPlan, float),
+                               const ClusterPlan& p, cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& attr, int batch, cudaStream_t st) {
+  return cluster_config(kernel, ClusterLayout(p, sizeof(T)).total, p.k,
+                        dim3(static_cast<unsigned>(p.k), static_cast<unsigned>(batch)), cfg, attr,
+                        st);
 }
 
 template <typename T, bool RELU>
@@ -1243,6 +1263,369 @@ cudaError_t cluster_occupancy(const ClusterPlan& p, int* clusters) {
   cudaError_t err = cluster_attributes<T>(kernel, p, cfg, attr, 1, nullptr);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// ---- instance_norm_bwd, route "cluster" ------------------------------------
+//
+// in_bwd_cluster_kernel: the backward in one launch (the design note at the
+// backward's split route gives the formulas). One thread-block cluster of k
+// <= 16 blocks covers an (image b, group of G channels); G is a power-of-two
+// number of 16-byte vectors (the plan takes 64 or 32 bytes of a row, whole
+// sectors), so that a style loop's single image still spreads over the card
+// as B x ceil(C / G) x k blocks. Block `rank` owns the image's rows
+// [r0, r0 + n) (HW / k rows, one more for the first HW % k blocks, as the
+// forward splits them):
+//   1. Each thread cp.async-copies its own 16-byte vectors of the block's
+//      G-channel strips of x and dy (and y under ReLU) into shared memory,
+//      every copy at once in LOAD_GROUPS commit groups, and reads back only
+//      what it copied: no block barrier. Under ReLU it writes g = dy 1[y >
+//      0] over dy (exact in x's type), so y is read once and never again.
+//   2. Per channel, about the block's own mean u_b of u = x - K (K the
+//      image's first row): sum u and sum g, each group as it lands, a block
+//      sum, u_b; then M2 = sum (u - u_b)^2 and H = sum g (u - u_b): two
+//      passes over shared memory, none over HBM. Block sums add a warp's
+//      lanes by shuffles and the 8 warps in order.
+//   3. The block's (sum u, M2, sum g, H), a float4 a channel, goes to slot
+//      `rank` of every block of the cluster through distributed shared
+//      memory (st.async, counted on the receiver's mbarrier). Every block
+//      merges the k slots in rank order as in_bwd_finalize does (Chan's M2
+//      and the cross term), so every block holds bit-identical dscale,
+//      dbias and apply coefficients; rank 0 writes the (b, c) rows of
+//      dscale and dbias. No atomics: the same result from run to run.
+//   4. dx = a ((g - dbias / HW) - (u - ubar) r dscale / HW) from shared
+//      memory, one 16-byte store a vector, in x's type.
+// Traffic: one read of x, dy (and y), one write of dx, no workspace. Two
+// cluster barriers, each arrive paired with its wait: the first orders every
+// block's mbarrier init before any remote store; the second is arrived
+// (relaxed) once a block's own mbarrier has completed and waited on before
+// it exits, so that no block leaves while its stores into a peer are in
+// flight. Bound on an H100: bytes, but at the style loop's b1 shapes (0.7-3
+// MB a tensor) the chain of phases sets the time (tools/
+// instance_norm_bwd_sweep.py marks them): the copies in at about the HBM
+// rate, two block sums, the exchange, the apply.
+// Needs C % (16 / sizeof(T)) == 0, 16-byte-aligned x, dy, dx (and y), k <=
+// HW, and the block's strips within 227 KB of shared memory.
+
+constexpr int MAX_BWD_GV = 32;  // 16-byte vectors a group: one warp's lanes at most
+
+// What the wrapper's plan chose (ops/kernels/instance_norm.py _bwd_plan).
+struct BwdClusterPlan {
+  int hw, c;  // rows and channels of an image
+  int g, k;   // channels of a group, blocks of its cluster
+};
+
+// in_bwd_cluster_kernel's dynamic shared memory as byte offsets
+// (ops/kernels/instance_norm.py _bwd_smem mirrors it): the longest block's
+// strips of x at 0, g and y (ReLU only), each [rows][G] in x's type; the
+// exchange [k][G] float4; the block sums' partials [8 warps][2][G] f32; the
+// apply's coefficients [4][G] f32; one mbarrier. `total` is what a block
+// asks for.
+struct BwdLayout {
+  size_t g_off, y_off, recv, red, coef, bar, total;
+  __host__ __device__ BwdLayout(const BwdClusterPlan& p, int elem, bool relu) {
+    const size_t strip = static_cast<size_t>((p.hw + p.k - 1) / p.k) * p.g * elem;
+    g_off = strip;
+    y_off = 2 * strip;
+    recv = (relu ? 3 : 2) * strip;
+    red = recv + static_cast<size_t>(p.k) * p.g * 16;
+    coef = red + 2 * 8 * static_cast<size_t>(p.g) * 4;
+    bar = coef + 4 * static_cast<size_t>(p.g) * 4;
+    total = bar + 8;
+  }
+};
+
+bool bwd_plan_ok(const BwdClusterPlan& p, int elem, bool relu) {
+  const int v = 16 / elem;
+  const int gv = p.g / v;
+  if (p.hw < 1 || p.c < v || p.c % v != 0 || p.g < v || p.g % v != 0 || gv > MAX_BWD_GV ||
+      (gv & (gv - 1)) != 0 || p.k < 1 || p.k > MAX_CLUSTER || p.k > p.hw ||
+      (p.c + p.g - 1) / p.g > 65535)
+    return false;
+  return BwdLayout(p, elem, relu).total <= MAX_SMEM;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+constexpr int LOAD_GROUPS = 4;  // cp.async groups a thread commits
+
+// Waits until at most `pending` (< LOAD_GROUPS) of the thread's cp.async
+// groups are still in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Per-channel block sums of two per-thread values (a, b: V channels from
+// vector column `col` of gv), added in a fixed order: the lanes of a warp
+// that share a column by shuffles, then each warp's partial into
+// red[warp][2][G]; the caller adds the 8 rows in order after the barrier
+// this ends with. Every thread of the block calls it, and a block barrier
+// must come between the caller's reads of red and the next call.
+template <int V>
+__device__ __forceinline__ void block_sum2(float (&a)[V], float (&b)[V], int gv, int col,
+                                          float* red, int g) {
+  for (int off = gv; off < 32; off <<= 1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      a[i] += __shfl_xor_sync(0xffffffffu, a[i], off);
+      b[i] += __shfl_xor_sync(0xffffffffu, b[i], off);
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane < gv) {  // here lane == col
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      red[(2 * warp) * g + col * V + i] = a[i];
+      red[(2 * warp + 1) * g + col * V + i] = b[i];
+    }
+  }
+  __syncthreads();
+}
+
+// One cluster an (image, channel group): blockIdx.x is the block's rank in
+// it, blockIdx.y the group, blockIdx.z the image; see the note above.
+// Thread t takes vector column t % gv of the strip and its vectors t, t +
+// 256, ... ([rows][gv] row-major), so a warp reads and writes whole 32-byte
+// sectors of consecutive rows.
+template <typename T, bool RELU>
+__global__ void __launch_bounds__(CL_THREADS, 2)
+in_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy, const T* __restrict__ y,
+                      const float* __restrict__ scale, T* __restrict__ dx,
+                      float* __restrict__ dscale, float* __restrict__ dbias, BwdClusterPlan p,
+                      float eps) {
+  extern __shared__ __align__(128) uint8_t bw_smem[];
+  constexpr int V = Group<T>::V;
+  IN_MARK(0);
+  const int tid = threadIdx.x;
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const int grp = blockIdx.y, b = blockIdx.z;
+  const int c = p.c, g = p.g, gv = g / V;
+  const BwdLayout L(p, sizeof(T), RELU);
+  const int base = p.hw / p.k, extra = p.hw % p.k;
+  const int r0 = static_cast<int>(rank) * base + min(static_cast<int>(rank), extra);
+  const int n = base + (static_cast<int>(rank) < extra ? 1 : 0);
+  const int c0 = grp * g;                   // the group's first channel
+  const int gvn = min(gv, (c - c0) / V);    // its vectors: fewer in a partial last group
+  const int col = tid % gv;                 // gv divides the block's 256 threads
+  const int row_shift = __ffs(gv) - 1;      // vector j lies in row j >> row_shift
+  const bool active = col < gvn;
+  const int nvec = n * gv;
+  const size_t img = static_cast<size_t>(b) * p.hw * c;
+  const size_t first = img + static_cast<size_t>(r0) * c + c0 + col * V;  // (row r0, col)
+  uint4* xs = reinterpret_cast<uint4*>(bw_smem);
+  uint4* gs = reinterpret_cast<uint4*>(bw_smem + L.g_off);
+  uint4* ys = reinterpret_cast<uint4*>(bw_smem + L.y_off);
+  float4* recv = reinterpret_cast<float4*>(bw_smem + L.recv);  // [k][G]
+  float* red = reinterpret_cast<float*>(bw_smem + L.red);       // [8][2][G]
+  float* coef = reinterpret_cast<float*>(bw_smem + L.coef);     // [4][G]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(bw_smem + L.bar);
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_expect_tx(bar, static_cast<uint32_t>(p.k * g * 16));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block's mbarrier is initialised before any remote store: arrive
+  // now, wait just before the exchange
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // 1. the strips, every copy at once, in LOAD_GROUPS runs of the thread's
+  // vectors j = tid + i x 256; a thread copies and reads its own
+  const int per = active && tid < nvec ? (nvec - tid + CL_THREADS - 1) / CL_THREADS : 0;
+  const int run = (per + LOAD_GROUPS - 1) / LOAD_GROUPS;
+  for (int s = 0; s < LOAD_GROUPS; ++s) {
+    for (int i = s * run; i < min(per, (s + 1) * run); ++i) {
+      const int j = tid + i * CL_THREADS;
+      const size_t off = first + static_cast<size_t>(j >> row_shift) * c;
+      cp_async16(xs + j, x + off);
+      cp_async16(gs + j, dy + off);
+      if (RELU) cp_async16(ys + j, y + off);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  float kf[V];  // the shift K: the image's first row
+  Group<T>::unpack(active ? __ldg(reinterpret_cast<const uint4*>(x + img + c0 + col * V))
+                          : make_uint4(0u, 0u, 0u, 0u),
+                   kf);
+  const float sc = tid < g && c0 + tid < c ? __ldg(scale + static_cast<size_t>(b) * c + c0 + tid)
+                                           : 0.f;
+
+  // 2a. sum u and sum g (g written over dy under ReLU), each run as it lands
+  float su[V], sg[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) su[i] = sg[i] = 0.f;
+  for (int s = 0; s < LOAD_GROUPS; ++s) {
+    cp_async_wait(LOAD_GROUPS - 1 - s);
+    for (int i = s * run; i < min(per, (s + 1) * run); ++i) {
+      const int j = tid + i * CL_THREADS;
+      float u[V], gr[V];
+      Group<T>::unpack(xs[j], u);
+      Group<T>::unpack(gs[j], gr);
+      if (RELU) {
+        float yv[V];
+        Group<T>::unpack(ys[j], yv);
+#pragma unroll
+        for (int v = 0; v < V; ++v) gr[v] = yv[v] > 0.f ? gr[v] : 0.f;
+        gs[j] = Group<T>::pack(gr);
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        su[v] += u[v] - kf[v];
+        sg[v] += gr[v];
+      }
+    }
+  }
+  IN_MARK(1);
+  block_sum2<V>(su, sg, gv, col, red, g);
+  IN_MARK(2);
+  float tot_u = 0.f, tot_g = 0.f;  // thread t < G: channel c0 + t's block sums
+  if (tid < g) {
+    for (int r = 0; r < 8; ++r) {
+      tot_u += red[(2 * r) * g + tid];
+      tot_g += red[(2 * r + 1) * g + tid];
+    }
+    coef[tid] = tot_u / static_cast<float>(n);  // u_b
+  }
+  __syncthreads();
+  float mb[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) mb[i] = coef[col * V + i];
+
+  // 2b. M2 and H about u_b
+  float q[V], h[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) q[i] = h[i] = 0.f;
+  if (active) {
+#pragma unroll 4
+    for (int j = tid; j < nvec; j += CL_THREADS) {
+      float u[V], gr[V];
+      Group<T>::unpack(xs[j], u);
+      Group<T>::unpack(gs[j], gr);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = (u[i] - kf[i]) - mb[i];
+        q[i] = fmaf(d, d, q[i]);
+        h[i] = fmaf(gr[i], d, h[i]);
+      }
+    }
+  }
+  block_sum2<V>(q, h, gv, col, red, g);  // its barrier also orders the reads of coef above
+  IN_MARK(3);
+
+  // 3. the exchange and the merge, in rank order
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < g) {
+    float m2 = 0.f, hs = 0.f;
+    for (int r = 0; r < 8; ++r) {
+      m2 += red[(2 * r) * g + tid];
+      hs += red[(2 * r + 1) * g + tid];
+    }
+    push_slot(recv + rank * g + tid, bar, p.k, make_float4(tot_u, m2, tot_g, hs));
+  }
+  mbar_wait(bar, 0);  // every block's partials have reached this one
+  IN_MARK(4);
+  // no peer stores into this block any more (relaxed: an arrive with
+  // release semantics cost about 1 us here, and nothing is published by it)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const float inv_hw = 1.f / static_cast<float>(p.hw);
+  if (tid < g) {
+    const float4* slot = recv + tid;
+    float s = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < p.k; ++r) s += slot[r * g].x;
+    const float ubar = s / static_cast<float>(p.hw);
+    float m2 = 0.f, gsum = 0.f, hs = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < p.k; ++r) {
+      const float4 t = slot[r * g];
+      const float n_r = static_cast<float>(base + (r < extra ? 1 : 0));
+      const float d = t.x / n_r - ubar;
+      m2 += t.y + n_r * d * d;
+      gsum += t.z;
+      hs += t.w + d * t.z;
+    }
+    const float rr = rsqrtf(m2 * inv_hw + eps);
+    const float ds = rr * hs;
+    coef[tid] = ubar;
+    coef[g + tid] = sc * rr;
+    coef[2 * g + tid] = rr * ds * inv_hw;
+    coef[3 * g + tid] = gsum * inv_hw;
+    if (rank == 0 && c0 + tid < c) {
+      const size_t bc = static_cast<size_t>(b) * c + c0 + tid;
+      dscale[bc] = ds;
+      dbias[bc] = gsum;
+    }
+  }
+  __syncthreads();
+  IN_MARK(5);
+  float ub[V], a[V], rds[V], db[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    ub[i] = coef[col * V + i];
+    a[i] = coef[g + col * V + i];
+    rds[i] = coef[2 * g + col * V + i];
+    db[i] = coef[3 * g + col * V + i];
+  }
+
+  // 4. the apply
+  if (active) {
+    uint4* out = reinterpret_cast<uint4*>(dx + first);
+    const size_t pitch = c / V;  // 16-byte vectors a row
+#pragma unroll 4
+    for (int j = tid; j < nvec; j += CL_THREADS) {
+      float u[V], gr[V];
+      Group<T>::unpack(xs[j], u);
+      Group<T>::unpack(gs[j], gr);
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        u[i] = a[i] * ((gr[i] - db[i]) - ((u[i] - kf[i]) - ub[i]) * rds[i]);
+      out[static_cast<size_t>(j >> row_shift) * pitch] = Group<T>::pack(u);
+    }
+  }
+  IN_MARK(6);
+  // 5. every peer has received this block's partials before it leaves
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <typename T, bool RELU>
+cudaError_t bwd_cluster_config(const BwdClusterPlan& p, int batch, cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& attr, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>(p.k), static_cast<unsigned>((p.c + p.g - 1) / p.g),
+                  static_cast<unsigned>(batch));
+  return cluster_config(in_bwd_cluster_kernel<T, RELU>, BwdLayout(p, sizeof(T), RELU).total, p.k,
+                        grid, cfg, attr, st);
+}
+
+template <typename T, bool RELU>
+cudaError_t bwd_cluster_launch(const void* x, const void* dy, const void* y, const void* scale,
+                               void* dx, void* dscale, void* dbias, int batch,
+                               const BwdClusterPlan& p, float eps, cudaStream_t st) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = bwd_cluster_config<T, RELU>(p, batch, cfg, attr, st);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, in_bwd_cluster_kernel<T, RELU>, static_cast<const T*>(x),
+                           static_cast<const T*>(dy), static_cast<const T*>(y),
+                           static_cast<const float*>(scale), static_cast<T*>(dx),
+                           static_cast<float*>(dscale), static_cast<float*>(dbias), p, eps);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, bool RELU>
+cudaError_t bwd_cluster_occupancy(const BwdClusterPlan& p, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = bwd_cluster_config<T, RELU>(p, 1, cfg, attr, nullptr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, in_bwd_cluster_kernel<T, RELU>, &cfg);
 }
 
 }  // namespace
@@ -1333,6 +1716,51 @@ int hst_instance_norm_cluster_occupancy(int hw, int c, int k, int res_rows, int 
   *smem = static_cast<int>(ClusterLayout(p, elem).total);
   return dtype == 0 ? cluster_occupancy<float>(p, clusters)
                     : cluster_occupancy<__nv_bfloat16>(p, clusters);
+}
+
+// instance_norm_bwd on route "cluster": one launch, a cluster of k blocks an
+// (image, group of g channels). Arguments otherwise as
+// hst_instance_norm_bwd's, without scratch. A plan the kernel cannot take
+// (C % vector, g not a power-of-two number of vectors up to 32, k > HW,
+// shared memory over 227 KB, misaligned x, dy, dx or y) is refused with
+// cudaErrorInvalidValue, a refused launch with its own error.
+int hst_instance_norm_bwd_cluster(const void* x, const void* dy, const void* y,
+                                  const void* scale, void* dx, void* dscale, void* dbias,
+                                  int batch, int hw, int c, int g, int k, float eps, int relu,
+                                  int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BwdClusterPlan p{hw, c, g, k};
+  const int elem = dtype == 0 ? 4 : 2;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(dx) |
+                         (relu ? reinterpret_cast<uintptr_t>(y) : 0);
+  if (!bwd_plan_ok(p, elem, relu != 0) || batch < 1 || batch > 65535 || (addr & 15) != 0 ||
+      (relu && y == nullptr))
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return relu ? bwd_cluster_launch<float, true>(x, dy, y, scale, dx, dscale, dbias, batch, p,
+                                                  eps, st)
+                : bwd_cluster_launch<float, false>(x, dy, y, scale, dx, dscale, dbias, batch, p,
+                                                   eps, st);
+  return relu ? bwd_cluster_launch<__nv_bfloat16, true>(x, dy, y, scale, dx, dscale, dbias, batch,
+                                                        p, eps, st)
+              : bwd_cluster_launch<__nv_bfloat16, false>(x, dy, y, scale, dx, dscale, dbias,
+                                                         batch, p, eps, st);
+}
+
+// How many clusters of this backward plan's shape the card holds at once
+// into *clusters, and the plan's dynamic shared memory a block into *smem.
+int hst_instance_norm_bwd_cluster_occupancy(int hw, int c, int g, int k, int relu, int dtype,
+                                            int* clusters, int* smem) {
+  const BwdClusterPlan p{hw, c, g, k};
+  const int elem = dtype == 0 ? 4 : 2;
+  if (!bwd_plan_ok(p, elem, relu != 0)) return cudaErrorInvalidValue;
+  *smem = static_cast<int>(BwdLayout(p, elem, relu != 0).total);
+  if (dtype == 0)
+    return relu ? bwd_cluster_occupancy<float, true>(p, clusters)
+                : bwd_cluster_occupancy<float, false>(p, clusters);
+  return relu ? bwd_cluster_occupancy<__nv_bfloat16, true>(p, clusters)
+              : bwd_cluster_occupancy<__nv_bfloat16, false>(p, clusters);
 }
 
 }  // extern "C"

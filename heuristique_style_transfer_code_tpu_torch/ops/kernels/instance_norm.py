@@ -10,10 +10,13 @@ cluster's shared memory) or "split" (three launches, x read twice), and
 ``instance_norm_plan_for`` reports it for a tensor. ``instance_norm_fwd``
 is forward only, as the TPU kernel it replaces was, so a CUDA input that
 needs a gradient raises there; ``InstanceNormFunction`` pairs it with
-``instance_norm_bwd`` (three launches on the split geometry: per-block
-sums, their merge, the apply) and is what the models call.
-``LAUNCHES["instance_norm_fwd"]`` and ``LAUNCHES["instance_norm_bwd"]``
-count calls that launched a kernel (one a call, whichever route).
+``instance_norm_bwd`` and is what the models call. ``_bwd_plan`` picks the
+backward's route: "cluster" (one launch, a thread-block cluster per (image,
+channel group), x, dy and y read once) or "split" (three launches on the
+split geometry: per-block sums, their merge, the apply), and
+``instance_norm_bwd_plan_for`` reports it. ``LAUNCHES["instance_norm_fwd"]``
+and ``LAUNCHES["instance_norm_bwd"]`` count calls that launched a kernel
+(one a call, whichever route).
 """
 from __future__ import annotations
 
@@ -48,6 +51,10 @@ _SLOTS = 3  # ring stages where rows are streamed
 _CLUSTER_SIZES = (16, 8, 4, 2, 1)  # k the plan tries, largest first
 _SPREAD_SMEM = 120 * 1024  # more than half an SM's shared memory: one block an SM
 _MIN_BLOCKS = 64  # fewer blocks than this in all (B x k) take the split route
+# the backward's cluster route (csrc/instance_norm.cu in_bwd_cluster_kernel)
+_BWD_GROUP_BYTES = (64, 32)  # a channel group's bytes of a row, in the order the plan tries
+_BWD_CLUSTER_SIZES = (1, 2, 4, 8, 16)  # k the backward's plan tries, smallest first
+_BWD_MIN_BLOCKS = 64  # blocks in all below which a larger k is tried
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -62,6 +69,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hst_instance_norm_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i,
                                           i, p]
     lib.hst_instance_norm_bwd.restype = i
+    lib.hst_instance_norm_bwd_cluster.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+    lib.hst_instance_norm_bwd_cluster.restype = i
+    lib.hst_instance_norm_bwd_cluster_occupancy.argtypes = [i, i, i, i, i, i, ip, ip]
+    lib.hst_instance_norm_bwd_cluster_occupancy.restype = i
 
 
 LIBRARY = CudaLibrary("instance_norm", _bind)
@@ -365,15 +376,123 @@ def _launch(lib: ctypes.CDLL, x: torch.Tensor, scale: torch.Tensor, bias: torch.
     check(name, err)
 
 
+class BwdPlan(NamedTuple):
+    """How ``instance_norm_bwd`` launches. route: "cluster" or "split". On
+    the cluster route: one cluster of k blocks an (image, group of g
+    channels); smem is the shared memory a block asks for; clusters is how
+    many such clusters the card holds at once. On the split route every
+    number is 0."""
+    route: str
+    g: int = 0
+    k: int = 0
+    smem: int = 0
+    clusters: int = 0
+
+
+BWD_SPLIT = BwdPlan("split")
+
+
+def _bwd_smem(hw: int, g: int, k: int, elem: int, relu: bool) -> int:
+    """Shared memory a cluster-route backward block uses, as
+    csrc/instance_norm.cu BwdLayout counts it: the longest block's strips
+    of x, g and (under ReLU) y, the [k][G] float4 exchange, the block sums'
+    [8][2][G] f32 partials, the [4][G] f32 coefficients, one mbarrier."""
+    strip = -(-hw // k) * g * elem
+    return (3 if relu else 2) * strip + k * g * 16 + 2 * 8 * g * 4 + 4 * g * 4 + 8
+
+
+def bwd_tiles(plan: BwdPlan, hw: int, c: int) -> List[List[Tuple[int, int, int, int]]]:
+    """The cluster route's partition of one image: for each channel group,
+    its blocks in rank order as (first channel, end channel, first row, end
+    row); the last group is partial where g does not divide C."""
+    return [[(c0, min(c, c0 + plan.g), r0, r1) for r0, r1 in _block_rows(hw, plan.k)]
+            for c0 in range(0, c, plan.g)]
+
+
+def _bwd_plan(b: int, hw: int, c: int, elem: int, aligned: bool, relu: bool,
+              active: Callable[[BwdPlan], int]) -> BwdPlan:
+    """How ``instance_norm_bwd`` launches on a (b, hw, c) input of
+    elem-byte elements. ``active(plan)`` is how many clusters of the plan's
+    shape the card holds at once (cudaOccupancyMaxActiveClusters).
+
+    The split route where C is not a whole number of 16-byte vectors or a
+    pointer is not 16-byte aligned. Otherwise the first (g, k) that gives
+    at least ``_BWD_MIN_BLOCKS`` blocks in all (b x ceil(c / g) x k), keeps
+    each block's strips in its shared memory and all clusters resident at
+    once: groups of 64 bytes of a row, then of 32, each with k = 1, 2, 4,
+    8; then k = 16 (non-portable) with 32-byte groups, then 64-byte ones,
+    whatever the blocks. On an H100 (tools/instance_norm_bwd_sweep.py) 64
+    blocks of 64-byte rows beat 128 of 32-byte rows at the style loop's b1
+    shapes, k = 16 is the slowest size, and the card spreads the blocks
+    over distinct SMs by itself. The split route where nothing fits (the
+    net's f32 b8 shapes under ReLU, b32: their strips outgrow the card's
+    shared memory)."""
+    v = 16 // elem
+    if not aligned or c % v != 0 or b > _MAX_GRID_YZ:
+        return BWD_SPLIT
+    order = [(gb // elem, k) for gb in _BWD_GROUP_BYTES for k in _BWD_CLUSTER_SIZES[:-1]]
+    order += [(gb // elem, _BWD_CLUSTER_SIZES[-1]) for gb in reversed(_BWD_GROUP_BYTES)]
+    for g, k in order:
+        groups = -(-c // g)
+        if k > hw or groups > _MAX_GRID_YZ:
+            continue
+        if b * groups * k < _BWD_MIN_BLOCKS and k < _BWD_CLUSTER_SIZES[-1]:
+            continue
+        plan = BwdPlan("cluster", g, k, _bwd_smem(hw, g, k, elem, relu))
+        if plan.smem > _MAX_SMEM:
+            continue
+        n = active(plan)
+        if n >= b * groups:
+            return plan._replace(clusters=n)
+    return BWD_SPLIT
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_occupancy(device_index: int, hw: int, c: int, elem: int, relu: bool,
+                   plan: BwdPlan) -> int:
+    """cudaOccupancyMaxActiveClusters of the backward plan's kernel and shape."""
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = LIBRARY.load().hst_instance_norm_bwd_cluster_occupancy(
+            hw, c, plan.g, plan.k, int(relu), 0 if elem == 4 else 1, ctypes.byref(clusters),
+            ctypes.byref(smem))
+    check("instance_norm_bwd occupancy", err)
+    if smem.value != plan.smem:
+        raise RuntimeError(f"instance_norm_bwd: shared memory {plan.smem} planned, the kernel "
+                           f"counts {smem.value}")
+    return clusters.value
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan_on(device_index: int, b: int, hw: int, c: int, elem: int, aligned: bool,
+                 relu: bool) -> BwdPlan:
+    return _bwd_plan(b, hw, c, elem, aligned, relu,
+                     lambda p: _bwd_occupancy(device_index, hw, c, elem, relu,
+                                              p._replace(clusters=0)))
+
+
+def instance_norm_bwd_plan_for(x: torch.Tensor, relu: bool = False,
+                               dy: Optional[torch.Tensor] = None,
+                               y: Optional[torch.Tensor] = None) -> BwdPlan:
+    """``_bwd_plan`` for a CUDA (B, HW, C) x (and the dy and, under ReLU,
+    the y given with it), the card queried for its cluster occupancy (dx,
+    fresh from the allocator, is aligned)."""
+    b, hw, c = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, y) if t is not None)
+    return _bwd_plan_on(x.device.index if x.device.index is not None
+                        else torch.cuda.current_device(),
+                        b, hw, c, x.element_size(), aligned, relu)
+
+
 def instance_norm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, eps: float = EPS, relu: bool = False,
-                      y: Optional[torch.Tensor] = None
+                      y: Optional[torch.Tensor] = None, *, _plan: Optional[BwdPlan] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, HW, C) x and dy (x's dtype), (B, C) f32 scale and bias, and under
     ReLU the forward's output y -> (dx, dscale, dbias). CPU: the plain
-    version; CUDA: the kernel (``hst_instance_norm_bwd``: three launches,
-    HW split over many blocks an image), which reads the ReLU mask from y
-    and needs no bias."""
+    version; CUDA: the kernel on the route that
+    ``instance_norm_bwd_plan_for`` picks (``_plan`` forces one, for
+    measurements), which reads the ReLU mask from y and needs no bias."""
     if x.device.type == "cpu":
         return instance_norm_bwd_plain(x, dy, scale, bias, eps, relu, y)
     name = "instance_norm_bwd"
@@ -398,22 +517,30 @@ def instance_norm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
                          f"got {tuple(scale.shape)} {scale.dtype} on {scale.device}")
     if b == 0 or hw == 0 or c == 0:
         raise ValueError(f"{name}: empty input {tuple(x.shape)}")
+    plan = _plan or instance_norm_bwd_plan_for(x, relu, dy, y if relu else None)
     dx = torch.empty_like(x)
     dscale = torch.empty((b, c), device=x.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
-    width = 16 // x.element_size()
-    vec = c % width == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (x, dy, dx) + ((y,) if relu else ()))
-    cb, rl, splits, groups = _geometry(c, hw, width if vec else 1, _BWD_ITEMS)
-    if b > _MAX_GRID_YZ or groups > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: B={b} or C={c} exceeds the kernel's grid")
-    ws = torch.empty((b, splits, c, 4), device=x.device, dtype=torch.float32)
-    coef = torch.empty((b, c, 2, 4), device=x.device, dtype=torch.float32)
-    err = LIBRARY.load().hst_instance_norm_bwd(
-        x.data_ptr(), dy.data_ptr(), y.data_ptr() if relu else None, scale.data_ptr(),
-        dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(), coef.data_ptr(),
-        b, hw, c, cb, rl, splits, groups, float(eps), int(relu), int(vec), _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib, stream = LIBRARY.load(), torch.cuda.current_stream(x.device).cuda_stream
+    y_ptr = y.data_ptr() if relu else None
+    if plan.route == "cluster":  # a plan the kernel cannot take is refused, not rerouted
+        err = lib.hst_instance_norm_bwd_cluster(
+            x.data_ptr(), dy.data_ptr(), y_ptr, scale.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), b, hw, c, plan.g, plan.k, float(eps), int(relu),
+            _DTYPE_CODE[x.dtype], stream)
+    else:
+        width = 16 // x.element_size()
+        vec = c % width == 0 and all(t.data_ptr() % 16 == 0
+                                     for t in (x, dy, dx) + ((y,) if relu else ()))
+        cb, rl, splits, groups = _geometry(c, hw, width if vec else 1, _BWD_ITEMS)
+        if b > _MAX_GRID_YZ or groups > _MAX_GRID_YZ:
+            raise ValueError(f"{name}: B={b} or C={c} exceeds the kernel's grid")
+        ws = torch.empty((b, splits, c, 4), device=x.device, dtype=torch.float32)
+        coef = torch.empty((b, c, 2, 4), device=x.device, dtype=torch.float32)
+        err = lib.hst_instance_norm_bwd(
+            x.data_ptr(), dy.data_ptr(), y_ptr, scale.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), ws.data_ptr(), coef.data_ptr(), b, hw, c, cb, rl,
+            splits, groups, float(eps), int(relu), int(vec), _DTYPE_CODE[x.dtype], stream)
     check(name, err)
     LAUNCHES[name] += 1
     return dx, dscale, dbias

@@ -98,10 +98,7 @@ def make_net_job_fn(
 
 def _not_ported(name: str):
     def raiser(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (fast-style training) is not ported yet: it needs the instance "
-            "norm's backward, which has no kernel yet"
-        )
+        raise NotImplementedError(f"{name} (fast-style training) is not ported yet")
 
     raiser.__name__ = name
     return raiser

@@ -176,7 +176,10 @@ def denormalize_to_uint8(img_nhwc: np.ndarray) -> np.ndarray:
 
 
 def _save_side_by_side(original: np.ndarray, stylised: np.ndarray, path: str) -> None:
-    write_png(path, float_to_uint8(np.hstack((original, stylised))))
+    """[original | stylised] as RGBA with an opaque alpha, the file that
+    matplotlib's ``imsave`` writes for a float RGB image."""
+    rgb = float_to_uint8(np.hstack((original, stylised)))
+    write_png(path, np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1))
 
 
 def style_transfer_gram_attention(

@@ -79,7 +79,8 @@ from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_trans
 GRAM_KERNELS = ("gram_fwd_kernel", "gram_fwd_wgmma_kernel", "gram_bwd_kernel",
                 "gram_bwd_wgmma_kernel", "pooled_gram_kernel", "pooled_project_kernel")
 IN_KERNELS = ("in_cluster_kernel", "in_stats_kernel", "in_finalize_kernel", "in_apply_kernel",
-              "in_bwd_reduce_kernel", "in_bwd_finalize_kernel", "in_bwd_apply_kernel")
+              "in_bwd_cluster_kernel", "in_bwd_reduce_kernel", "in_bwd_finalize_kernel",
+              "in_bwd_apply_kernel")
 
 
 def _device_us(evt) -> float:
@@ -119,6 +120,8 @@ def _profile(step, n_steps: int) -> dict:
         "gram_kernels_ms": gram,
         "gram_share_of_busy": sum(gram.values()) / busy_ms if busy_ms else None,
         "instance_norm_kernels_ms": norm,
+        "instance_norm_kernel_launches": {k: c for k, _, c in rows
+                                          if any(g in k for g in IN_KERNELS)},
         "instance_norm_share_of_busy": sum(norm.values()) / busy_ms if busy_ms else None,
         "top_kernels": [{"name": k[:90], "ms": v / 1e3, "count": c} for k, v, c in rows[:12]],
     }

@@ -1,9 +1,11 @@
-"""Minimal PNG codec (stdlib ``zlib`` + ``struct``) for 8-bit RGB: the
-style-transfer task writes its images with it and the style server answers
-with it, so neither path needs Pillow or matplotlib.
+"""Minimal PNG codec (stdlib ``zlib`` + ``struct``) for 8-bit RGB and RGBA:
+the style-transfer task writes its images with it (RGBA with an opaque
+alpha, as matplotlib's ``imsave`` does) and the style server answers with it
+(RGB), so neither path needs Pillow or matplotlib.
 
-``encode_png`` writes no filtering; ``decode_png`` reads 8-bit RGB,
-non-interlaced files with any of the five scanline filters."""
+``encode_png`` writes no filtering; ``decode_png`` reads 8-bit RGB or RGBA
+(colour types 2 and 6), non-interlaced files with any of the five scanline
+filters."""
 from __future__ import annotations
 
 import os
@@ -13,6 +15,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_COLOUR_TYPE = {3: 2, 4: 6}  # channels -> PNG colour type (RGB, RGBA)
 
 
 def _chunk(tag: bytes, payload: bytes) -> bytes:
@@ -20,22 +23,22 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
     return struct.pack(">I", len(payload)) + tag + payload + struct.pack(">I", crc)
 
 
-def encode_png(rgb: np.ndarray) -> bytes:
-    """uint8 (H, W, 3) -> PNG bytes."""
-    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
-    if rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"encode_png expects (H, W, 3) uint8, got {rgb.shape}")
-    h, w, _ = rgb.shape
+def encode_png(pixels: np.ndarray) -> bytes:
+    """uint8 (H, W, 3) RGB or (H, W, 4) RGBA -> PNG bytes."""
+    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+    if pixels.ndim != 3 or pixels.shape[2] not in _COLOUR_TYPE:
+        raise ValueError(f"encode_png expects (H, W, 3|4) uint8, got {pixels.shape}")
+    h, w, ch = pixels.shape
     # one filter-type byte (0 = none) in front of every scanline
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, w * ch)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPE[ch], 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """rgb: uint8 (H, W, 3)."""
-    data = encode_png(rgb)
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """pixels: uint8 (H, W, 3) RGB or (H, W, 4) RGBA."""
+    data = encode_png(pixels)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
         f.write(data)
@@ -58,7 +61,8 @@ def _unfilter_pixelwise(kind: int, line: bytearray, prev: bytes, bpp: int) -> No
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit RGB, not interlaced) -> uint8 (H, W, 3)."""
+    """PNG bytes (8-bit RGB or RGBA, not interlaced) -> uint8 (H, W, 3) or
+    (H, W, 4)."""
     if not data.startswith(_SIGNATURE):
         raise ValueError("not a PNG file")
     pos = len(_SIGNATURE)
@@ -78,10 +82,11 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG has no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color != 2 or interlace != 0:
-        raise ValueError(f"decode_png reads 8-bit RGB non-interlaced PNGs only "
+    channels = {t: ch for ch, t in _COLOUR_TYPE.items()}.get(color)
+    if depth != 8 or channels is None or interlace != 0:
+        raise ValueError(f"decode_png reads 8-bit RGB or RGBA non-interlaced PNGs only "
                          f"(bit depth {depth}, colour type {color}, interlace {interlace})")
-    bpp, stride = 3, w * 3
+    bpp, stride = channels, w * channels
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError("PNG image data has the wrong size")
@@ -104,7 +109,7 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError(f"PNG scanline filter {kind} is not one of 0-4")
         out[y] = cur
         prev = out[y]
-    return out.reshape(h, w, 3)
+    return out.reshape(h, w, channels)
 
 
 def float_to_uint8(img: np.ndarray) -> np.ndarray:

@@ -69,8 +69,9 @@ def test_style_transfer_writes_png_tree(tiny_imagefolder, f2_model, tmp_path):
         f"style_transfer_{i}.png" for i in range(3)]
     for p in pngs:  # <label>/style_transfer_<i>.png, [original | stylised]
         assert os.path.basename(os.path.dirname(p)) in {"0", "1", "2", "3"}
-        with Image.open(p) as im:
-            assert im.size == (448, 224) and im.mode == "RGB"
+        with Image.open(p) as im:  # RGBA with an opaque alpha, as matplotlib's imsave writes
+            assert im.size == (448, 224) and im.mode == "RGBA"
+            assert (np.asarray(im)[..., 3] == 255).all()
 
 
 @pytest.mark.parametrize("mode,png", [("tsne", "tsne_visualization.png"),

@@ -266,10 +266,11 @@ def test_net_plans_decompose_like_the_plain_version(shape, dtype):
 
 def test_profile_tool_names_both_routes():
     """tools/profile_main_path.py sums the instance-norm kernels by name:
-    it must know the cluster route's kernel, the split route's three and
-    the backward's three."""
+    it must know the cluster route's kernel, the split route's three, the
+    backward's cluster-route kernel and its split route's three."""
     from heuristique_style_transfer_code_tpu_torch.tools import profile_main_path as pm
 
     assert set(pm.IN_KERNELS) == {"in_cluster_kernel", "in_stats_kernel", "in_finalize_kernel",
-                                  "in_apply_kernel", "in_bwd_reduce_kernel",
-                                  "in_bwd_finalize_kernel", "in_bwd_apply_kernel"}
+                                  "in_apply_kernel", "in_bwd_cluster_kernel",
+                                  "in_bwd_reduce_kernel", "in_bwd_finalize_kernel",
+                                  "in_bwd_apply_kernel"}

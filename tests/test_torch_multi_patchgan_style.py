@@ -208,7 +208,7 @@ def _args(data, f3_files, save_dir, *extra):
 
 
 def _tree(root):
-    """{label/style_transfer_<label>_<n>: its PNG's RGB pixels}, the
+    """{label/style_transfer_<label>_<n>: its PNG's RGBA pixels}, the
     millisecond stamp dropped, under the one style_transfer_<date>
     directory."""
     from PIL import Image
@@ -219,7 +219,7 @@ def _tree(root):
         for f in fs:
             stem = f.rsplit("_", 1)[0]
             with Image.open(os.path.join(dp, f)) as im:
-                out[f"{os.path.basename(dp)}/{stem}"] = np.asarray(im)[..., :3]
+                out[f"{os.path.basename(dp)}/{stem}"] = np.asarray(im)
     return st, out
 
 
@@ -234,10 +234,12 @@ def test_cli_style_transfer_writes_the_jax_tree(tiny_imagefolder, f3_files, tmp_
     t_st, t_tree = _tree(tmp_path / "torch")
     assert t_st == j_st and sorted(t_tree) == sorted(j_tree) and len(t_tree) == 3
     for key, pixels in t_tree.items():
-        # [original | stylised], 224 x 448; the JAX package's matplotlib
-        # writes RGBA with an opaque alpha, the port's PNG writer RGB. The
-        # originals are the same image, up to one step of rounding to uint8.
-        assert pixels.shape == j_tree[key].shape == (224, 448, 3)
+        # [original | stylised], 224 x 448, RGBA with an opaque alpha on
+        # both sides (the JAX package's matplotlib, the port's PNG writer).
+        # The originals are the same image, up to one step of rounding to
+        # uint8, in all four channels.
+        assert pixels.shape == j_tree[key].shape == (224, 448, 4)
+        assert (pixels[..., 3] == 255).all() and (j_tree[key][..., 3] == 255).all()
         gap = np.abs(pixels[:, :224].astype(int) - j_tree[key][:, :224].astype(int)).max()
         assert gap <= 1, (key, gap)
 

@@ -152,15 +152,16 @@ def test_unported_modes_raise():
 
 
 def _filtered_png(rgb, kind):
-    """A PNG whose every scanline uses filter ``kind`` (0-4), written here
-    so that each filter is read at least once whatever Pillow chooses."""
-    h, w, _ = rgb.shape
-    x = rgb.reshape(h, w * 3).astype(np.int32)
+    """A PNG (RGB, or RGBA for 4 channels) whose every scanline uses filter
+    ``kind`` (0-4), written here so that each filter is read at least once
+    whatever Pillow chooses."""
+    h, w, ch = rgb.shape
+    x = rgb.reshape(h, w * ch).astype(np.int32)
     rows = []
     for y in range(h):
-        cur, up = x[y], (x[y - 1] if y else np.zeros(w * 3, np.int32))
-        left = np.concatenate([np.zeros(3, np.int32), cur[:-3]])
-        ul = np.concatenate([np.zeros(3, np.int32), up[:-3]])
+        cur, up = x[y], (x[y - 1] if y else np.zeros(w * ch, np.int32))
+        left = np.concatenate([np.zeros(ch, np.int32), cur[:-ch]])
+        ul = np.concatenate([np.zeros(ch, np.int32), up[:-ch]])
         if kind == 0:
             f = cur
         elif kind == 1:
@@ -179,7 +180,8 @@ def _filtered_png(rgb, kind):
         return (struct.pack(">I", len(payload)) + tag + payload
                 + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
 
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    colour = {3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(np.stack(rows).tobytes())) + chunk(b"IEND", b""))
 
 
@@ -209,3 +211,34 @@ def test_decode_png_reads_pillow_files_and_pillow_reads_encode_png():
         np.testing.assert_array_equal(np.asarray(im), rgb)
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a")
+
+
+def _rgba(h=23, w=31, seed=2):
+    alpha = np.random.RandomState(seed).randint(0, 256, (h, w, 1)).astype(np.uint8)
+    return np.concatenate([_rgb(h, w, seed), alpha], axis=-1)
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4])
+def test_decode_png_reads_rgba_with_each_filter_type(kind):
+    """Colour type 6 (the style-transfer files): four bytes a pixel, so the
+    Sub, Average and Paeth filters reach four bytes back."""
+    rgba = _rgba()
+    data = _filtered_png(rgba, kind)
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.mode == "RGBA"
+        np.testing.assert_array_equal(np.asarray(im), rgba)
+    np.testing.assert_array_equal(decode_png(data), rgba)
+
+
+def test_encode_png_rgba_round_trips_through_decode_png_and_pillow():
+    rgba = _rgba(40, 24, seed=3)
+    data = encode_png(rgba)
+    np.testing.assert_array_equal(decode_png(data), rgba)
+    with Image.open(io.BytesIO(data)) as im:
+        assert im.mode == "RGBA"
+        np.testing.assert_array_equal(np.asarray(im), rgba)
+    buf = io.BytesIO()
+    Image.fromarray(rgba).save(buf, format="PNG")
+    np.testing.assert_array_equal(decode_png(buf.getvalue()), rgba)
+    with pytest.raises(ValueError, match="3|4"):
+        encode_png(rgba[..., :2])
