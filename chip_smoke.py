@@ -9,7 +9,9 @@ Phases, all run every time:
   kernels         hold gram_fwd, gram_bwd and pooled_gram_fwd against their
                   plain PyTorch versions at the main path's shapes in f32
                   and bf16, on non-negative inputs as the main path's
-                  post-ReLU features are (gram_fwd also at two ragged
+                  post-ReLU features are (gram_fwd and gram_bwd also at
+                  the content+style loop's layer2 and layer3 Grams,
+                  (4,28,28,512) and (4,14,14,1024); gram_fwd also at two ragged
                   shapes and at family 3's (32|1,4,4,64), gram_bwd at
                   three, each row naming its route and
                   splits, gram_bwd's also its two-call yardstick;
@@ -114,8 +116,32 @@ Phases, all run every time:
                   .pth, read back by the CLI's loader: logits on the card
                   equal to the .npz model's bit for bit; convert_checkpoint
                   npz -> pth -> npz gives back the same tree.
+  gradcam         family 1's ``--mode classification`` through its CLI with
+                  ``--save_test_images --visualize_gradcam
+                  --save_gradcam_images --tensorboard`` on 8 PNGs written
+                  here (b4): every overlay at 224x672x3, the card's CAMs
+                  against the CPU's (1e-3 max abs), ms per CAM, and
+                  whether TensorBoard wrote its log.
+  content_style   family 2's content+style loop through
+                  ``content_style_transfer_gram_attention`` at truncate 8,
+                  --layers 8 --style_layers all (a Gram at each of the
+                  four stages), b4, 224², init "content", 20 iterations,
+                  f32 and bf16: exact launch counts (4 gram_fwd and 4
+                  gram_bwd an iteration), the f32 loss falls, the pixels'
+                  change over 2 iterations against the CPU's within the
+                  CPU's own spread, image-iterations/s and busy and idle
+                  per iteration; then the family-2 CLI's --style_image
+                  once (4 images, 2 iterations).
+  content_style_serve
+                  ``serve_style --style_image a=... --style_image b=...``
+                  (--style_layers all, 5 iterations, batch 4): GET
+                  /styles, 8 concurrent POSTs (one-hot a, one-hot b and
+                  a:0.5,b:0.5), each one-hot answer against the service's
+                  job program run in process (99.9% within one uint8
+                  step, all within Adam's 2·lr·iterations).
   Family 1 and its camera launch no hand-written kernel (their convs,
-  norms and pools are cuDNN work): a launch there fails the run.
+  norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
+  there fails the run.
 
 Launch counts are set to 0 just before each main-path phase and read just
 after; a kernel of the phase that never launched fails the run, as does any
@@ -156,6 +182,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_IN = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-3)}
 
 GRAM_SHAPES = [(4, 56, 56, 64), (4, 56, 56, 256), (4, 7, 7, 2048)]  # layers 4, 5, 8
+# the content+style loop's stage Grams at --style_layers all --layers 8 that
+# GRAM_SHAPES lacks: layer2's and layer3's outputs (gram_fwd and gram_bwd)
+STAGE_GRAM_SHAPES = [(4, 28, 28, 512), (4, 14, 14, 1024)]
 # gram_fwd only: C not a multiple of 64, HW not of 64 (TMA's zero fill, the
 # clipped stores, a partial diagonal tile)
 RAGGED_GRAM_SHAPES = [(1, 13, 11, 200), (2, 7, 7, 48)]
@@ -223,6 +252,11 @@ F1_IMAGES, F1_INFER_IMAGES, CAMERA_FRAMES, VIDEO_FRAMES = 128, 40, 100, 30
 # (so 16 Grams) and, under norm "instance", 13 instance norms
 F3_BATCH, F3_BATCHES, F3_INSTANCE_BATCHES, F3_GRAMS, F3_NORMS = 32, 4, 2, 16, 13
 F2_BATCH, EMBED_BATCHES, F3_CAMERA_FRAMES = 8, 2, 50
+# Grad-CAM through family 1's CLI: 8 images in b4 batches; CAMs timed at b1
+GRADCAM_IMAGES, GRADCAM_BATCH, GRADCAM_TIMED = 8, 4, 10
+# the content+style loop (family 2, --layers 8 --style_layers all: 4 stage
+# Grams an iteration): b4, 20 iterations; the server: 5 iterations, 8 POSTs
+CS_BATCH, CS_ITERS, CS_SERVE_ITERS, CS_SERVE_REQUESTS = 4, 20, 5, 8
 # card vs CPU on the family-3 and embedding phases, each relative to the
 # CPU result's own scale: (max, RMS); f32 sums run in other orders (cuDNN
 # vs oneDNN) through up to 8 convs and 3 norms; bf16 rounds each stage's
@@ -317,6 +351,7 @@ def phase_kernels(kg, peaks) -> dict:
     gen_pooled_large_s = torch.Generator(device=dev).manual_seed(5)
     gen_family = torch.Generator(device=dev).manual_seed(6)
     gen_f3_bwd = torch.Generator(device=dev).manual_seed(15)
+    gen_stage = torch.Generator(device=dev).manual_seed(22)
 
     def bwd_row(f, dg, shape, dtype, dname, es):
         n, h, w, c = shape
@@ -344,10 +379,12 @@ def phase_kernels(kg, peaks) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         dname = str(dtype).split(".")[1]
-        for (n, h, w, c) in GRAM_SHAPES + RAGGED_GRAM_SHAPES + F3_GRAM_SHAPES:
+        for (n, h, w, c) in GRAM_SHAPES + STAGE_GRAM_SHAPES + RAGGED_GRAM_SHAPES + F3_GRAM_SHAPES:
             hw = h * w
-            main = (n, h, w, c) in GRAM_SHAPES
-            g_in = gen if main else gen_family if (n, h, w, c) in F3_GRAM_SHAPES else gen_ragged
+            stage = (n, h, w, c) in STAGE_GRAM_SHAPES
+            main = (n, h, w, c) in GRAM_SHAPES or stage
+            g_in = (gen if (n, h, w, c) in GRAM_SHAPES else gen_stage if stage
+                    else gen_family if (n, h, w, c) in F3_GRAM_SHAPES else gen_ragged)
             f = features((n, hw, c), dtype, g_in)
             # forward
             err, rel, rms, ok = check(kg.gram_fwd(f), kg.gram_fwd_plain(f), dtype)
@@ -372,7 +409,7 @@ def phase_kernels(kg, peaks) -> dict:
                 del f, out, ft
                 continue
             # the style loss's cotangent 2(G - target)/C² is signed
-            dg = torch.randn((n, c, c), device=dev, generator=gen).to(dtype)
+            dg = torch.randn((n, c, c), device=dev, generator=g_in).to(dtype)
             rows["gram_bwd"].append(bwd_row(f, dg, (n, h, w, c), dtype, dname, es))
             del f, dg, out, ft
         for (n, h, w, c) in RAGGED_BWD_SHAPES:
@@ -1908,6 +1945,354 @@ def phase_pth(family1, family2, family3, tmp: str) -> dict:
     return out
 
 
+def _image_folder(root: str, per_class: int, seed: int, size=(256, 256)) -> str:
+    """An ImageFolder test split of random PNGs, ``per_class`` under each of
+    the four weather classes; returns ``root``."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    for cls in ("fog", "rain", "snow", "sun"):
+        d = os.path.join(root, "test", cls)
+        os.makedirs(d, exist_ok=True)
+        for i in range(per_class):
+            Image.fromarray(rng.randint(0, 256, size + (3,)).astype(np.uint8)).save(
+                os.path.join(d, f"img_{i:03d}.png"))
+    return root
+
+
+def _real_cam(cam) -> bool:
+    """A CAM (before the resize) whose min-max spans [0, 1] with pixels
+    strictly inside: its range was above the normalisation's 1e-7 floor."""
+    import numpy as np
+
+    cam = np.asarray(cam)
+    inside = float(((cam > 0.01) & (cam < 0.99)).mean())
+    return abs(float(cam.max()) - 1.0) <= 1e-6 and inside > 0.02
+
+
+def phase_gradcam(kernels, family1, tmp: str, timings: dict) -> dict:
+    """Family 1's ``--mode classification`` through its CLI with
+    ``--save_test_images --visualize_gradcam --save_gradcam_images
+    --tensorboard`` on 8 images (b4, two batches) on the card: every overlay
+    written at 224 x 672 x 3, the card's CAMs against the CPU's on the same
+    model and images, ms per CAM, and whether TensorBoard wrote its log
+    (a machine without it prints the JAX CLI's warning and goes on).
+
+    The CLI draws confusion_matrix.png with matplotlib after the PNG tree,
+    the overlays and metrics.txt, as the JAX CLI does. Where matplotlib is
+    not installed, the CLI stops there with ModuleNotFoundError for it, and
+    only then: that one error is expected, and everything written before it
+    is checked; with matplotlib the CLI must run to its end and write the
+    plot."""
+    import importlib.util
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 import main as cli
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.data.imagefolder import ImageFolderIndex
+    from heuristique_style_transfer_code_tpu_torch.data.loader import load_image_staged
+    from heuristique_style_transfer_code_tpu_torch.tasks.gradcam import _cam_for_moco, gradcam_moco
+
+    model, seeded, _ = family1
+    data = _image_folder(os.path.join(tmp, "gradcam_data"), GRADCAM_IMAGES // 4, seed=23,
+                         size=(240, 320))
+    cfg = os.path.join(tmp, "family1.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": GRADCAM_BATCH, "truncate_layer": F1_TRUNCATE, "dim": F1_DIM,
+                   "seed": 0}, f)
+    out = os.path.join(tmp, "gradcam_out")
+    have_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    stopped_at_plot = False
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cli(["--data", data, "--config_path", cfg, "--model_path",
+             os.path.join(tmp, "family1.npz"), "--mode", "classification", "--save_dir", out,
+             "--batch_size", str(GRADCAM_BATCH), "--prob_threshold", "0", "--save_test_images",
+             "--visualize_gradcam", "--save_gradcam_images", "--tensorboard", "--device", DEVICE])
+    except ModuleNotFoundError as e:
+        if have_matplotlib or e.name != "matplotlib":
+            raise
+        stopped_at_plot = True
+    torch.cuda.synchronize()
+    timings["gradcam_cli_s"] = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    samples = ImageFolderIndex(os.path.join(data, "test")).samples
+    classes = ["fog", "rain", "snow", "sun"]
+    want = [os.path.join(out, f"GradCAM_{classes[label]}", f"gradcam_{k // GRADCAM_BATCH}_"
+                         f"{k % GRADCAM_BATCH}.png") for k, (_, label) in enumerate(samples)]
+    shapes = [None if not os.path.exists(p) else cv2.imread(p).shape for p in want]
+    tb_dir = os.path.join(out, "TensorBoard")
+    events = sorted(os.listdir(tb_dir)) if os.path.isdir(tb_dir) else []
+
+    staged = np.stack([load_image_staged(p) for p, _ in samples])
+    labels = [label for _, label in samples]
+    card = gradcam_moco(model, staged, labels, truncate=F1_TRUNCATE).cpu().numpy()
+    cpu = gradcam_moco(seeded, staged, labels, truncate=F1_TRUNCATE).numpy()
+    raw = _cam_for_moco(seeded, eval_preprocess(torch.from_numpy(staged)),
+                        torch.tensor(labels), F1_TRUNCATE).numpy()
+    real = [k for k in range(len(samples)) if _real_cam(raw[k])]
+    zero = [k for k in range(len(samples)) if not raw[k].any()]
+    gap = float(np.abs(card[real] - cpu[real]).max()) if real else float("nan")
+    zero_gap = float(np.abs(card[zero]).max()) if zero else 0.0
+    ms = []
+    for k in range(GRADCAM_TIMED + 1):  # the first call warms cuDNN's plans
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gradcam_moco(model, staged[k % len(samples)][None], [labels[k % len(samples)]],
+                     truncate=F1_TRUNCATE)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    ms_per_cam = float(np.median(ms[1:]))
+    print(f"[gradcam] CLI on {len(samples)} images (b{GRADCAM_BATCH}) in "
+          f"{timings['gradcam_cli_s']:.2f} s; overlays {sum(x is not None for x in shapes)} of "
+          f"{len(want)}, shapes {sorted(set(map(str, shapes)))}; card vs CPU CAMs max abs "
+          f"{gap:.3e} over {len(real)} real CAMs (tol 1e-3; {len(zero)} all-zero ones, card max "
+          f"{zero_gap:.3e}); {ms_per_cam:.3f} ms per CAM (b1, median of {GRADCAM_TIMED}, host "
+          f"clock); TensorBoard writer present: {bool(events)}, event files {events}; "
+          f"matplotlib "
+          f"{'absent: the CLI stopped at confusion_matrix.png' if stopped_at_plot else 'present'}; "
+          f"hand-written launches {launches}")
+    timings["gradcam_ms_per_cam"] = ms_per_cam
+    _require(os.path.exists(os.path.join(out, "metrics.txt"))
+             and os.path.exists(os.path.join(out, "confusion_matrix.png")) != stopped_at_plot,
+             f"metrics.txt, and confusion_matrix.png unless matplotlib is absent: "
+             f"{sorted(os.listdir(out))}")
+    _require(sum(len(os.listdir(os.path.join(out, c))) for c in classes) == len(samples),
+             "one annotated PNG an image")
+    _require(all(x == (224, 672, 3) for x in shapes), f"every overlay at 224x672x3: {shapes}")
+    _require(len(real) >= len(samples) // 2, f"at least half the CAMs are real: {len(real)}")
+    _require(gap <= 1e-3 and zero_gap <= 1e-3, f"card CAMs agree with the CPU: {gap}, {zero_gap}")
+    _require(not any(launches.values()), f"family 1 launches no hand-written kernel: {launches}")
+    return {"overlays": len(want), "real_cams": len(real), "max_abs_err": gap,
+            "ms_per_cam": ms_per_cam, "ms_runs": ms[1:], "tensorboard_events": events,
+            "stopped_at_plot": stopped_at_plot, "launches": launches}
+
+
+def phase_content_style(kernels, model, seeded, tmp: str, timings: dict) -> dict:
+    """Family 2's content+style loop at full width (truncate 8, --layers 8
+    --style_layers all: a Gram at each of the four stages), b4, 224²,
+    init "content", threshold 0, 20 iterations, f32 and bf16, through
+    ``content_style_transfer_gram_attention`` on in-memory batches; exact
+    launch counts (4 gram_fwd and 4 gram_bwd an iteration, and 4 gram_fwd
+    for each of the style and content targets); the f32 loss falls; 2
+    iterations on the card and on the CPU from the same content (2 images):
+    the pixels' change within the CPU loop's own spread; then the family-2
+    CLI once with --style_image on 4 images, 2 iterations."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main as cli
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        content_style_transfer_gram_attention,
+        make_content_style_optimizer,
+        make_extract_fn_gram_attention,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tools.profile_main_path import _profile
+
+    batches = _batches(CS_BATCH, CS_BATCH, seed=24)
+    style_u8 = np.random.RandomState(25).randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    iters, grams = CS_ITERS, 4
+    quiet = lambda msg: None  # noqa: E731
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        compute = None if dtype == torch.float32 else dtype
+        kw = dict(layers=8, truncate_layer=8, style_layers="all", threshold=0.0,
+                  compute_dtype=compute, log_fn=quiet)
+        content_style_transfer_gram_attention(model, batches, style_u8,
+                                              os.path.join(tmp, "cs_warm"), num_iterations=2, **kw)
+        history = []
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = content_style_transfer_gram_attention(
+            model, batches, style_u8, os.path.join(tmp, f"cs_{name}"), num_iterations=iters,
+            history=history, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        want = {"gram_fwd": grams * (iters + 2), "gram_bwd": grams * iters, "pooled_gram_fwd": 0,
+                "instance_norm_fwd": 0, "instance_norm_bwd": 0}
+        first, last = history[0][0].cpu().numpy(), history[0][-1].cpu().numpy()
+
+        extract = make_extract_fn_gram_attention(model, 8, 8, compute, "all")
+        images = eval_preprocess(torch.from_numpy(batches[0]["image"]).to(DEVICE))
+        with torch.no_grad():
+            style = [g[0].expand((CS_BATCH,) + tuple(g.shape[1:])) for g in extract(
+                eval_preprocess(torch.from_numpy(style_u8)[None].to(DEVICE)))[1]]
+            feats = extract(images)[0].float()
+        prof = _profile(lambda: make_content_style_optimizer(extract, learning_rate=0.01,
+                                                             num_iterations=5, threshold=0.0)(
+            images, style, feats), 1)
+        ips = CS_BATCH * iters / seconds
+        busy = prof["device_busy_ms"] / 5
+        print(f"[content_style] {name} b{CS_BATCH}: {iters} iterations in {seconds:.3f} s, "
+              f"{ips:.2f} image-iterations/s; launches {launches}; losses it1 "
+              f"{first.round(6).tolist()} -> it{iters} {last.round(6).tolist()}; device busy "
+              f"{busy:.3f} ms an iteration, idle share {prof['idle_share']:.3f} over 5 profiled "
+              f"iterations ({prof['window_ms']:.3f} ms; Gram kernels "
+              f"{prof['gram_share_of_busy']:.4f} of busy)")
+        timings[f"content_style_{name}_s"] = seconds
+        out[name] = {"image_iterations_per_s": ips, "seconds": seconds, "launches": launches,
+                     "first_losses": first.tolist(), "last_losses": last.tolist(),
+                     "busy_ms_per_iteration": busy, "profile": prof}
+        _require(launches == want, f"launches {want} for one batch of {iters} iterations: "
+                 f"{launches}")
+        _require(len(saved) == CS_BATCH and all(os.path.exists(p) for p in saved),
+                 f"{CS_BATCH} PNGs written")
+        _require(len(history) == 1 and len(history[0]) == iters, f"{iters} iterations")
+        _require(bool(np.isfinite(first).all() and np.isfinite(last).all()),
+                 f"finite losses: {first}, {last}")
+        if compute is None:
+            _require(bool((last < first).all()), f"every f32 loss fell: {first} -> {last}")
+
+    # 2 iterations of 2 images, card vs CPU from the same content image
+    cpu_extract = make_extract_fn_gram_attention(seeded, 8, 8, None, "all")
+    x0 = eval_preprocess(torch.from_numpy(batches[0]["image"][:2]))
+    nudged = x0 * (1 + F3_STYLE_NUDGE * torch.randn(x0.shape,
+                                                    generator=torch.Generator().manual_seed(26)))
+    moves = {}
+    t_cpu = time.perf_counter()
+    for side, fn, dev, start in (("card", make_extract_fn_gram_attention(model, 8, 8, None, "all"),
+                                  DEVICE, x0),
+                                 ("cpu", cpu_extract, "cpu", x0),
+                                 ("cpu_nudged", cpu_extract, "cpu", nudged)):
+        with torch.no_grad():
+            tg = [g[0].expand((2,) + tuple(g.shape[1:])) for g in fn(
+                eval_preprocess(torch.from_numpy(style_u8)[None].to(dev)))[1]]
+            cf = fn(x0.to(dev))[0].float()
+        final = make_content_style_optimizer(fn, learning_rate=0.01, num_iterations=2,
+                                             threshold=0.0)(start.to(dev), tg, cf)[0]
+        moves[side] = final.cpu() - start
+    t_cpu = time.perf_counter() - t_cpu
+    errs, spread = _rel_errs(moves["card"], moves["cpu"]), _rel_errs(moves["cpu_nudged"],
+                                                                     moves["cpu"])
+    print(f"[content_style] card vs CPU, 2 images x 2 iterations f32: pixel change (max, RMS) "
+          f"{[round(e, 9) for e in errs]}; the CPU's own spread from content nudged by "
+          f"{F3_STYLE_NUDGE}: {[round(e, 9) for e in spread]} (RMS tol max("
+          f"{TOL_MODEL['float32'][1]}, 2x the spread's)); CPU loops {t_cpu:.1f} s")
+    out["pixel_change_errs"], out["pixel_change_spread"] = errs, spread
+    _require(errs[1] <= max(TOL_MODEL["float32"][1], 2 * spread[1]),
+             f"card pixel change agrees with the CPU: {errs}, {spread}")
+
+    # the CLI, once
+    data = _image_folder(os.path.join(tmp, "cs_data"), 1, seed=27)
+    cfg = os.path.join(tmp, "family2.json")
+    style_path = os.path.join(tmp, "style.png")
+    from PIL import Image
+
+    Image.fromarray(style_u8).save(style_path)
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": CS_BATCH, "truncate_layer": 8, "gram_matrix_size": POOL_S}, f)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli(["--data", data, "--config_path", cfg, "--model_path", os.path.join(tmp, "family2.npz"),
+         "--mode", "style_transfer", "--save_dir", os.path.join(tmp, "cs_cli"), "--layers", "8",
+         "--num_iterations", "2", "--threshold", "0", "--style_image", style_path,
+         "--style_layers", "all", "--device", DEVICE])
+    torch.cuda.synchronize()
+    timings["content_style_cli_s"] = time.perf_counter() - t0
+    cli_launches = kernels.launch_counts()
+    pngs = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(tmp, "cs_cli")) for f in fs
+            if f.startswith("content_style_")]
+    shapes = sorted({str(Image.open(p).size) + Image.open(p).mode for p in pngs})
+    print(f"[content_style] CLI --style_image on 4 images, 2 iterations: {len(pngs)} PNGs "
+          f"{shapes} in {timings['content_style_cli_s']:.2f} s; launches {cli_launches}")
+    _require(len(pngs) == 4 and shapes == ["(448, 224)RGBA"], f"4 RGBA PNGs: {pngs}, {shapes}")
+    _require(cli_launches["gram_bwd"] == grams * 2 and cli_launches["gram_fwd"] == grams * 4,
+             f"the CLI's launches: {cli_launches}")
+    out["cli_launches"] = cli_launches
+    out["launches"] = {k: out["float32"]["launches"][k] + out["bfloat16"]["launches"][k]
+                       + cli_launches[k] for k in cli_launches}
+    return out
+
+
+def phase_content_style_serve(kernels, tmp: str) -> dict:
+    """``serve_style`` in content+style mode: a 2-style gallery (``--style_image
+    a=... --style_image b=...``), --style_layers all, 5 iterations, batch 4;
+    GET /styles, then 8 concurrent raw POSTs (one-hot a, one-hot b and
+    a:0.5,b:0.5); each one-hot answer against the service's own job
+    program run in process on that image with the same style."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch.utils.png import decode_png
+
+    cfg = os.path.join(tmp, "family2.json")  # written by phase_content_style
+    paths = []
+    rng = np.random.RandomState(28)
+    for name in ("a", "b"):
+        paths.append(os.path.join(tmp, f"gallery_{name}.png"))
+        Image.fromarray(rng.randint(0, 256, (300, 400, 3)).astype(np.uint8)).save(paths[-1])
+    t0 = time.perf_counter()
+    srv, service, url = _serve(["--config_path", cfg, "--model_path",
+                                os.path.join(tmp, "family2.npz"), "--style_image", f"a={paths[0]}",
+                                "--style_image", f"b={paths[1]}", "--style_layers", "all",
+                                "--num_iterations", str(CS_SERVE_ITERS), "--threshold", "0",
+                                "--batch_size", str(CS_BATCH), "--port", "0", "--device", DEVICE])
+    start_s = time.perf_counter() - t0
+    images = rng.randint(0, 256, (CS_SERVE_REQUESTS, 224, 224, 3)).astype(np.uint8)
+    styles = ["a", "b", "a:0.5,b:0.5"] * 3
+
+    def post(k):
+        req = urllib.request.Request(url + "/style", data=images[k].tobytes(), method="POST",
+                                     headers={"X-Raw-Shape": "224,224,3", "X-Style": styles[k]})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), dict(r.headers)
+
+    try:
+        listed = json.loads(_get(url, "/styles")[1])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(CS_SERVE_REQUESTS) as pool:
+            answers = list(pool.map(post, range(CS_SERVE_REQUESTS)))
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        stats = json.loads(_get(url, "/stats")[1])
+    finally:
+        _stop(srv, service)
+    # cuDNN's backward sums in no fixed order, and Adam's first step is
+    # lr·sign(g) for every pixel: one whose gradient is within f32 rounding
+    # of zero may step the other way. So a one-hot answer is held to the
+    # in-process job by 99.9% of values within one uint8 step and all
+    # within 2·lr·iterations (normalised units; std <= 0.229) + 1 step.
+    bound = int(np.ceil(2 * 0.01 * CS_SERVE_ITERS * 0.229 * 255)) + 1
+    gaps, within = [], []
+    for k in range(CS_SERVE_REQUESTS):
+        if "," in styles[k]:
+            continue
+        w = np.zeros((CS_BATCH, 2), np.float32)
+        w[:, "ab".index(styles[k])] = 1.0
+        job = service._jobs_by_size[CS_BATCH](np.stack([images[k]] * CS_BATCH), w,
+                                             np.zeros((CS_BATCH,), np.int32))[0]
+        diff = np.abs(decode_png(answers[k][1]).astype(np.int16)
+                      - job[0].cpu().numpy().astype(np.int16))
+        gaps.append(int(diff.max()))
+        within.append(float((diff <= 1).mean()))
+    print(f"[content_style_serve] GET /styles {listed}; {CS_SERVE_REQUESTS} requests in "
+          f"{seconds:.3f} s (start {start_s:.2f} s), X-Iterations "
+          f"{[h.get('X-Iterations') for _, _, h in answers]}; stats {json.dumps(stats)}; "
+          f"launches {launches}; one-hot answers vs the in-process job: max gaps {gaps} "
+          f"uint8 steps (tol {bound}), share within one step {within} (tol 0.999)")
+    _require(listed == {"styles": ["a", "b"]}, f"GET /styles lists the gallery: {listed}")
+    _require(all(st == 200 and h.get("X-Iterations") == str(CS_SERVE_ITERS)
+                 for st, _, h in answers), "every answer is 200 after the iterations asked for")
+    _require(stats["jobs"] == CS_SERVE_REQUESTS, f"/stats counts the jobs: {stats}")
+    _require(launches["gram_bwd"] == 4 * CS_SERVE_ITERS * stats["batches"],
+             f"4 gram_bwd an iteration in each of {stats['batches']} batches: {launches}")
+    _require(all(g <= bound for g in gaps) and min(within) >= 0.999,
+             f"one-hot answers agree with the in-process job: {gaps}, {within}")
+    return {"seconds": seconds, "stats": stats, "launches": launches, "one_hot_gaps": gaps,
+            "one_hot_within_one_step": within}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -1978,8 +2363,18 @@ def main() -> int:
         pth = phase_pth(family1, family2, family3, tmp)
         timings["family3_style_pth_phases_s"] = time.perf_counter() - t0
         print(f"[family3_style_transfer+pth] {timings['family3_style_pth_phases_s']:.2f} s in all")
+        t0 = time.perf_counter()
+        gradcam = phase_gradcam(kernels, family1, tmp, timings)
+        content_style = phase_content_style(kernels, model, seeded, tmp, timings)
+        cs_serve = phase_content_style_serve(kernels, tmp)
+        timings["gradcam_content_style_phases_s"] = time.perf_counter() - t0
+        print(f"[gradcam+content_style+serve] {timings['gradcam_content_style_phases_s']:.2f} s "
+              f"in all")
+    cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
+                   for k in ("gram_fwd", "gram_bwd")}
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
-                "gram_fwd": st_launches["gram_fwd"], "gram_bwd": st_launches["gram_bwd"],
+                "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"],
+                "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"],
                 "instance_norm_fwd": fs_launches["instance_norm_fwd"],
                 "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]}
     idle = [k for k in launches if launches[k] == 0]
@@ -2011,7 +2406,8 @@ def main() -> int:
                    "instance_norm_checks": in_checks, "instance_norm_bwd_checks": in_bwd_checks,
                    "records": records, "family3": f3_results,
                    "embeddings": embeddings, "cameras": cameras, "family3_style": f3_style,
-                   "pth": pth}, f, indent=1)
+                   "pth": pth, "gradcam": gradcam, "content_style": content_style,
+                   "content_style_serve": cs_serve}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -130,6 +130,21 @@ def count_params(tree: Any) -> int:
     return int(np.prod(tree.shape)) if hasattr(tree, "shape") else 0
 
 
+def make_writer(enabled: bool, save_dir: str, sub: str = "tensorboard"):
+    """``--tensorboard``: a ``SummaryWriter`` logging to ``save_dir/sub``,
+    or None when not asked for; where TensorBoard cannot be imported, the
+    JAX CLI's message and None (the run goes on without the log)."""
+    if not enabled:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir=os.path.join(save_dir, sub))
+    except ImportError:
+        print("TensorBoard unavailable; continuing without it.")
+        return None
+
+
 def resolve_compute_dtype(precision: Optional[str]) -> Optional[torch.dtype]:
     """--precision -> compute dtype (None = float32 passthrough)."""
     if precision in (None, "float32"):

@@ -3,9 +3,12 @@ of ``heuristique_style_transfer_code_tpu/cli/serve_style.py`` plus
 ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``).
 
 Ported: ``--net`` (a feed-forward style net, one forward per job, its 15
-instance norms through the hand-written kernel on the card) and texture
-mode (the family-2 Adam-on-pixels loop; ``--model_path`` an ``.npz`` or a
-reference ``.pth``), with ``--batch_size`` ladders,
+instance norms through the hand-written kernel on the card), texture mode
+(the family-2 Adam-on-pixels loop; ``--model_path`` an ``.npz`` or a
+reference ``.pth``) and content+style mode (``--style_image NAME=PATH``,
+repeatable, a gallery that clients pick from or blend with ``X-Style``,
+with ``--style_weight``, ``--content_weight``, ``--tv_weight``,
+``--style_init`` and ``--style_layers``), with ``--batch_size`` ladders,
 ``--precision float32|bf16`` and SIGTERM drain. The flags listed in
 ``_NOT_PORTED`` raise a "not ported yet" error.
 
@@ -35,12 +38,6 @@ _NOT_PORTED = {
     "export_artifact": None,
     "export_platforms": None,
     "transport": "rgb",
-    "style_image": None,
-    "style_weight": 1.0,
-    "content_weight": 1.0,
-    "tv_weight": 0.0,
-    "style_init": "content",
-    "style_layers": "last",
     "remat": False,
     "recycle_after_requests": 0,
     "devices": None,
@@ -78,12 +75,20 @@ def build_parser():
     parser.add_argument("--layers", type=int, default=None,
                         help="Family-2 encoder truncation, the reference's Sequential slice")
     parser.add_argument("--style_image", action="append", default=None, metavar="NAME=PATH",
-                        help="Not ported yet (content+style mode)")
+                        help="Content+style mode (family gram_attention only): add a named "
+                        "style image to the gallery (repeatable; a bare PATH names the style "
+                        "after the file stem). The gallery is encoded once at startup; "
+                        "clients pick a style per request with the X-Style header (GET "
+                        "/styles lists names). Without this flag the server runs the "
+                        "reference's texture-from-self loop.")
     parser.add_argument("--style_weight", type=float, default=1.0)
     parser.add_argument("--content_weight", type=float, default=1.0)
     parser.add_argument("--tv_weight", type=float, default=0.0)
-    parser.add_argument("--style_init", choices=["content", "noise"], default="content")
-    parser.add_argument("--style_layers", choices=["last", "all"], default="last")
+    parser.add_argument("--style_init", choices=["content", "noise"], default="content",
+                        help="Canvas initialisation for --style_image jobs")
+    parser.add_argument("--style_layers", choices=["last", "all"], default="last",
+                        help="Style Grams at the truncation point only, or at every executed "
+                        "ResNet stage")
     parser.add_argument("--net", type=str, default=None,
                         help="Serve a trained feed-forward style network (style_net.npz): "
                         "each job is ONE forward pass; crop and the style names come from "
@@ -137,10 +142,10 @@ def _build_net_service(args, device, crop: int):
     )
 
 
-def _build_gram_fn(args, device):
-    """Texture mode's per-image Gram program, family 2, precision applied."""
+def _load_family2(args, device):
+    """The family-2 model of ``--config_path`` and ``--model_path`` on
+    ``device``, and its config."""
     from ..config.schema import GramAttentionConfig
-    from ..tasks.style_transfer import make_gram_fn_gram_attention
     from .test_gram_attention import load_gram_attention
 
     cfg = GramAttentionConfig.from_json(args.config_path)
@@ -149,8 +154,42 @@ def _build_gram_fn(args, device):
         print(f"Nombre total de paramètres du modèle : {count_params(tree)}")
     model = load_gram_attention(args.model_path, cfg.truncate_layer, None,
                                 cfg.gram_matrix_size, device, tree=tree)
+    return model, cfg
+
+
+def _build_gram_fn(args, device):
+    """Texture mode's per-image Gram program, family 2, precision applied."""
+    from ..tasks.style_transfer import make_gram_fn_gram_attention
+
+    model, cfg = _load_family2(args, device)
     return make_gram_fn_gram_attention(model, cfg.truncate_layer, layers=args.layers,
                                        compute_dtype=resolve_compute_dtype(args.precision))
+
+
+def _build_content_style_kwargs(args, device):
+    """Service kwargs of ``--style_image`` mode: the family-2 extraction
+    program and the named style gallery (the JAX CLI's checks and
+    messages)."""
+    if args.family != "gram_attention":
+        raise ValueError("--style_image requires --family gram_attention")
+    from ..data.loader import load_image_staged
+    from ..tasks.style_transfer import make_extract_fn_gram_attention
+
+    model, cfg = _load_family2(args, device)
+    extract_fn = make_extract_fn_gram_attention(
+        model, cfg.truncate_layer, layers=args.layers,
+        compute_dtype=resolve_compute_dtype(args.precision), style_layers=args.style_layers)
+    styles = {}
+    for spec in args.style_image:
+        name, sep, path = spec.partition("=")
+        if not sep:
+            name, path = os.path.splitext(os.path.basename(spec))[0], spec
+        if name in styles:
+            raise ValueError(f"duplicate style name {name!r}")
+        styles[name] = load_image_staged(path)
+    return dict(extract_fn=extract_fn, styles=styles, style_weight=args.style_weight,
+                content_weight=args.content_weight, tv_weight=args.tv_weight,
+                init=args.style_init)
 
 
 def build_service(args, crop: int = 224):
@@ -158,17 +197,25 @@ def build_service(args, crop: int = 224):
     from ..core.device import resolve_device
     from ..tasks.style_service import StyleTransferService
 
-    check_ported(args, _NOT_PORTED)
+    not_ported = dict(_NOT_PORTED)
+    if args.style_image and not args.net:
+        # --style_image answers a family other than gram_attention itself
+        del not_ported["family"]
+    check_ported(args, not_ported)
     resolve_compute_dtype(args.precision)
     device = resolve_device(args.device)
     if args.net:
         return _build_net_service(args, device, crop)
     if not args.config_path or not args.model_path:
         raise SystemExit("--config_path and --model_path are required unless --net is given")
+    if args.style_image:
+        kwargs = _build_content_style_kwargs(args, device)
+    else:
+        kwargs = dict(gram_fn=_build_gram_fn(args, device))
     sizes = _sizes(args)
     return StyleTransferService(
-        gram_fn=_build_gram_fn(args, device),
         crop=crop,
+        **kwargs,
         batch_size=sizes if len(sizes) > 1 else sizes[0],
         max_delay_ms=args.max_delay_ms,
         num_iterations=args.num_iterations,

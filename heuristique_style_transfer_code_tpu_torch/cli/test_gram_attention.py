@@ -3,7 +3,10 @@
 ``--device`` (default ``cuda``; the counterpart of ``JAX_PLATFORMS``).
 
 Ported: ``--mode classification`` (``classification_results.json``),
-``--mode style_transfer`` (``style_transfer_<date>/<label>/*.png``),
+``--mode style_transfer`` (``style_transfer_<date>/<label>/*.png``; with
+``--style_image`` the content+style loop, ``content_style_<i>.png``, and
+``--style_weight``, ``--content_weight``, ``--tv_weight``,
+``--style_layers`` and ``--style_init``),
 ``--mode tsne`` (``tsne_visualization.png``), ``--mode tsne_interactive``
 (the Tk GUI, or the static plot without ``DISPLAY``) and ``--mode camera``
 (a camera or a video file, ``--classes`` required), with ``--precision
@@ -47,7 +50,6 @@ PORTED_MODES = ("classification", "style_transfer", "tsne", "tsne_interactive", 
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
-    "style_image": None,
     "remat": False,
     "shard_spatial": 1,
     "devices": None,
@@ -78,13 +80,22 @@ def build_parser():
     parser.add_argument("--batch_size", type=int, default=None,
                         help="Override the config batch size")
     parser.add_argument("--shard_spatial", type=int, default=1, help="Not ported yet")
-    parser.add_argument("--style_image", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--style_image", type=str, default=None,
+                        help="Classic content+style transfer: re-render every test image in "
+                        "this image's style (style Gram + content feature loss) instead of "
+                        "the reference's texture-from-self loop")
     parser.add_argument("--style_weight", type=float, default=1.0)
     parser.add_argument("--content_weight", type=float, default=1.0)
-    parser.add_argument("--tv_weight", type=float, default=0.0)
-    parser.add_argument("--style_layers", choices=["last", "all"], default="last")
+    parser.add_argument("--tv_weight", type=float, default=0.0,
+                        help="Total-variation smoothness term on the canvas "
+                        "(--style_image runs only)")
+    parser.add_argument("--style_layers", choices=["last", "all"], default="last",
+                        help="--style_image runs: match style Grams at the truncation point "
+                        "only, or at every executed ResNet stage (same encoder pass)")
     parser.add_argument("--remat", action="store_true", help="Not ported yet")
-    parser.add_argument("--style_init", choices=["content", "noise"], default="content")
+    parser.add_argument("--style_init", choices=["content", "noise"], default="content",
+                        help="Pixel initialisation for --style_image runs: the content image "
+                        "or normal noise like the texture loop")
     parser.add_argument("--quantized_path", type=str, default=None)
     parser.add_argument("--afficher_params", action="store_true")
     parser.add_argument("--compute_auc", action="store_true",
@@ -241,6 +252,19 @@ def main(argv=None):
             args.classes, save_video=args.save_camera_video, save_dir=args.save_dir,
             prob_threshold=args.prob_threshold, measure_time=args.measure_time,
             camera_index=cam_index, host_downscale=not args.device_preprocess,
+        )
+    elif args.style_image:
+        from ..data.loader import load_image_staged
+        from ..tasks.style_transfer import content_style_transfer_gram_attention
+
+        content_style_transfer_gram_attention(
+            model, loader, load_image_staged(args.style_image), args.save_dir,
+            layers=args.layers, truncate_layer=truncate, style_weight=args.style_weight,
+            content_weight=args.content_weight, tv_weight=args.tv_weight,
+            style_layers=args.style_layers, threshold=args.threshold,
+            num_iterations=args.num_iterations, learning_rate=args.learning_rate,
+            init=args.style_init, compute_dtype=dtype,
+            generator=torch.Generator().manual_seed(cfg.seed or 0),
         )
     else:
         from ..tasks.style_transfer import style_transfer_gram_attention

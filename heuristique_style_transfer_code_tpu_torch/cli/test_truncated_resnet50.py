@@ -4,7 +4,10 @@
 
 Ported: ``--mode classification`` (metrics.txt, confusion_matrix.png,
 auc_score.txt with ``--compute_auc``, times_test.json with
-``--measure_time``, the PNG tree with ``--save_test_images``),
+``--measure_time``, the PNG tree with ``--save_test_images``, and with it
+``--visualize_gradcam`` and ``--save_gradcam_images``
+(``GradCAM_<label>/gradcam_<batch>_<row>.png``); ``--tensorboard`` logs
+each saved image to ``save_dir/TensorBoard``),
 ``--mode inference`` (``inference_predictions.json``), ``--mode camera``
 (a camera or a video file; ``--transport rgb|yuv420|yuv420_delta``,
 ``--device_preprocess``, ``--kalman_filter``, ``--save_camera_video``),
@@ -40,6 +43,7 @@ from ._common import (
     count_params,
     load_checkpoint_tree,
     load_truncated_resnet50,
+    make_writer,
     maybe_subset,
     resolve_class_names,
     resolve_compute_dtype,
@@ -51,9 +55,6 @@ PORTED_MODES = ("classification", "inference", "camera", "tsne", "tsne_interacti
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
-    "visualize_gradcam": False,
-    "save_gradcam_images": False,
-    "tensorboard": False,
     "devices": None,
     "profile_dir": None,
     "debug_nans": False,
@@ -68,11 +69,11 @@ def build_parser():
     parser.add_argument("--batch_size", default=32, type=int)
     parser.add_argument("--num_samples", type=int, default=None)
     parser.add_argument("--save_dir", default="results", type=str)
-    parser.add_argument("--tensorboard", action="store_true", help="Not ported yet")
+    parser.add_argument("--tensorboard", action="store_true")
     parser.add_argument("--save_camera_video", action="store_true")
     parser.add_argument("--prob_threshold", default=0.5, type=float)
-    parser.add_argument("--visualize_gradcam", action="store_true", help="Not ported yet")
-    parser.add_argument("--save_gradcam_images", action="store_true", help="Not ported yet")
+    parser.add_argument("--visualize_gradcam", action="store_true")
+    parser.add_argument("--save_gradcam_images", action="store_true")
     parser.add_argument("--measure_time", action="store_true")
     parser.add_argument("--mode", choices=MODES, default="classification")
     parser.add_argument("--colors", nargs="+", default=None)
@@ -157,6 +158,7 @@ def main(argv=None):
         _inference_guards(args)
     if args.steps_per_dispatch > 1:
         raise NotImplementedError("--steps_per_dispatch is not ported yet")
+    writer = make_writer(args.tensorboard, args.save_dir, "TensorBoard")
 
     if args.list_cameras:
         from ..tasks.camera import list_available_cameras
@@ -204,10 +206,22 @@ def main(argv=None):
         from ..tasks.classification import run_classification_test
 
         samples, loader = make_loader()
+        gradcam_fn = None
+        if args.visualize_gradcam:
+            from ..tasks.gradcam import generate_heatmap_overlays, gradcam_moco
+
+            # on the uncast f32 model, whatever --precision says, as JAX's
+            # gradcam_moco takes the uncast variables
+            def gradcam_fn(m, image_u8, target, img_path, out_path, colormap="hot"):
+                cam = gradcam_moco(m, image_u8[None], [target], truncate=truncate)[0]
+                return generate_heatmap_overlays(cam.cpu().numpy(), img_path, out_path, colormap)
+
         res = run_classification_test(
             forward_eval, model, loader, samples, class_names, args.save_dir,
             prob_threshold=args.prob_threshold, measure_time=args.measure_time,
             save_test_images=args.save_test_images, compute_auc=args.compute_auc,
+            gradcam_fn=gradcam_fn, save_gradcam_images=args.save_gradcam_images,
+            colormap=args.colormap, writer=writer,
         )
         print(
             f"Précision du test: {res['accuracy']}, Perte du test: {res['loss']}, "
@@ -252,6 +266,9 @@ def main(argv=None):
             kalman_filter=args.kalman_filter, camera_index=cam_index,
             host_downscale=not args.device_preprocess, transport=args.transport,
         )
+
+    if writer:
+        writer.close()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ prediction is "Unknown", -1), weighted metrics, the confusion matrix and an
 optional weighted one-vs-rest AUC, written as the reference's artifacts:
 metrics.txt (its French line labels, in its order), auc_score.txt,
 times_test.json, confusion_matrix.png and the per-class PNG tree of
-``--save_test_images``.
+``--save_test_images``, with each saved image's Grad-CAM overlay and
+TensorBoard records where asked for.
 
 The work is split so that a host without matplotlib or OpenCV can run the
 device loop and the text artifacts: ``evaluate_classification`` (device
@@ -170,12 +171,26 @@ def write_auc_and_times(res: Dict, save_dir: str, *, compute_auc: bool, measure_
         log_fn(f"Temps total de traitement: {np.sum(times)} secondes")
 
 
-def write_test_images(res: Dict, samples, class_names: List[str], save_dir: str) -> None:
+def write_test_images(res: Dict, samples, class_names: List[str], save_dir: str, *,
+                      model=None, gradcam_fn: Optional[Callable] = None,
+                      save_gradcam_images: bool = False, colormap: str = "hot",
+                      writer=None) -> None:
     """``--save_test_images``: each valid entry's original image with its
     label, prediction and top probability drawn on it, as
-    ``save_dir/<label>/<batch>_<row>.png``. Imports OpenCV and Pillow."""
+    ``save_dir/<label>/<batch>_<row>.png``. Imports OpenCV and Pillow.
+
+    For each such image, as the JAX loop does: with a ``writer``, the image
+    (CHW RGB) as ``Test/Images/<batch>_<row>`` and the drawn text as
+    ``Test/Prédictions/<batch>_<row>``, at step <batch>; with a
+    ``gradcam_fn``, ``gradcam_fn(model, staged_u8, label, path,
+    overlay_path or None, colormap=...)`` on the staged uint8 image, which
+    ``load_image_staged`` gives again byte for byte (the loader's own
+    decode), the overlay going to ``save_dir/GradCAM_<label>/gradcam_<batch>_<row>.png``
+    with ``save_gradcam_images``."""
     import cv2
     from PIL import Image
+
+    from ..data.loader import load_image_staged
 
     probs, preds, targets = res["probs"], res["preds"], res["targets"]
     for k, (bi, j, sample) in enumerate(res["rows"]):
@@ -186,6 +201,15 @@ def write_test_images(res: Dict, samples, class_names: List[str], save_dir: str)
         text = f"Label: {label_name}, Pred: {pred_name}, Prob: {probs[k].max():.4f}"
         cv2.putText(img, text, (10, 25), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 0), 1)
         cv2.imwrite(os.path.join(save_dir, label_name, f"{bi}_{j}.png"), img)
+        if writer is not None:
+            writer.add_image(f"Test/Images/{bi}_{j}",
+                             cv2.cvtColor(img, cv2.COLOR_BGR2RGB).transpose(2, 0, 1),
+                             global_step=bi)
+            writer.add_text(f"Test/Prédictions/{bi}_{j}", text, global_step=bi)
+        if gradcam_fn is not None:
+            overlay_path = os.path.join(save_dir, f"GradCAM_{label_name}", f"gradcam_{bi}_{j}.png")
+            gradcam_fn(model, load_image_staged(img_path), int(targets[k]), img_path,
+                       overlay_path if save_gradcam_images else None, colormap=colormap)
 
 
 def run_classification_test(
@@ -201,6 +225,8 @@ def run_classification_test(
     save_test_images: bool = False,
     compute_auc: bool = False,
     gradcam_fn: Optional[Callable] = None,
+    save_gradcam_images: bool = False,
+    colormap: str = "hot",
     writer=None,
     log_fn=print,
     mesh=None,
@@ -208,12 +234,11 @@ def run_classification_test(
 ) -> Dict:
     """``--mode classification``: the device loop, then the artifacts in
     the JAX order (the PNG tree, metrics.txt and its console lines,
-    confusion_matrix.png, auc_score.txt, times_test.json). Returns the
-    JAX function's dict (``loss`` formatted "%.4f")."""
-    if gradcam_fn is not None:
-        raise NotImplementedError("Grad-CAM (gradcam_fn) is not ported yet")
-    if writer is not None:
-        raise NotImplementedError("TensorBoard logging (writer) is not ported yet")
+    confusion_matrix.png, auc_score.txt, times_test.json). ``gradcam_fn``
+    and ``writer`` act only under ``save_test_images``, once per saved
+    image (``write_test_images``), after the device loop has left
+    ``torch.inference_mode``. Returns the JAX function's dict (``loss``
+    formatted "%.4f")."""
     if mesh is not None:
         raise NotImplementedError("a data-parallel mesh is not ported yet")
     if steps_per_dispatch > 1:
@@ -226,7 +251,9 @@ def run_classification_test(
                                   prob_threshold=prob_threshold, measure_time=measure_time,
                                   compute_auc=compute_auc)
     if save_test_images:
-        write_test_images(res, samples, class_names, save_dir)
+        write_test_images(res, samples, class_names, save_dir, model=model,
+                          gradcam_fn=gradcam_fn, save_gradcam_images=save_gradcam_images,
+                          colormap=colormap, writer=writer)
     write_metrics_text(res, save_dir, log_fn)
     plot_and_save_confusion_matrix(res["confusion_matrix"], class_names, save_dir)
     write_auc_and_times(res, save_dir, compute_auc=compute_auc, measure_time=measure_time,

@@ -9,7 +9,7 @@ launches are asynchronous, so the dispatcher only enqueues the device work
 and the fetcher's ``.cpu()`` is where the host waits: ``max_in_flight``
 bounds the batches between the two, as in the JAX service.
 
-Two modes:
+Three modes:
 
 - **job_fn** (a feed-forward net through ``fast_style.make_net_job_fn``):
   one program, or a ``{batch_size: program}`` ladder.
@@ -18,9 +18,15 @@ Two modes:
   Job j's noise comes from a ``torch.Generator`` seeded from (seed, j), so
   it is deterministic per job and independent of its batch mates;
   ``jax.random.fold_in``'s numbers cannot be reproduced.
+- **content+style** (``extract_fn=`` and ``styles=``): the gallery of named
+  style images is encoded once, at construction, into one (K, ...) f32
+  Gram stack a style layer on the device; each job's target is its row of
+  blend weights contracted with the stacks (a one-hot row gives the
+  gallery Gram bit for bit), and its canvas, started from the content
+  image (``init="content"``) or from the job's noise, is optimised by
+  ``make_content_style_optimizer``.
 
-Content+style mode (``extract_fn=``/``styles=``) and ``transport="yuv420"``
-are not ported yet and raise.
+``transport="yuv420"`` is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from ..core.device import resolve_device
 from ..data.augment import eval_preprocess
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
 from .camera import downscale_frame
-from .style_transfer import make_style_transfer_optimizer
+from .style_transfer import make_content_style_optimizer, make_style_transfer_optimizer
 
 
 @dataclass
@@ -108,14 +114,19 @@ class StyleTransferService:
     Parameters
     ----------
     gram_fn : per-image target-Gram program (``make_gram_fn_gram_attention``)
-        — texture mode. Exclusive with ``job_fn``.
+        — texture mode. Exclusive with ``extract_fn`` and ``job_fn``.
+    extract_fn : per-image ``(feats, [style Grams])`` program
+        (``make_extract_fn_gram_attention``) — content+style mode; needs
+        ``styles``, a non-empty ``{name: (H, W, 3) uint8}`` mapping, and
+        takes ``style_weight``, ``content_weight``, ``tv_weight`` and
+        ``init`` ("content" or "noise").
     job_fn : a ``(images_u8, style_w, job_ids) -> (u8, iters, per_loss)``
         batch program, or a ``{batch_size: program}`` ladder (which then
         sets the batch sizes).
     batch_size : jobs per dispatch, or a sequence of sizes: each dispatch
         takes the smallest that fits the collected jobs.
-    device : where texture-mode jobs run and where job inputs are copied
-        (``cuda`` unless the caller asks for ``cpu``).
+    device : where the iterative modes' jobs run and where job inputs are
+        copied (``cuda`` unless the caller asks for ``cpu``).
     The other parameters keep the JAX service's meaning.
     """
 
@@ -127,6 +138,10 @@ class StyleTransferService:
         job_fn=None,
         style_names: Optional[List[str]] = None,
         styles: Optional[dict] = None,
+        style_weight: float = 1.0,
+        content_weight: float = 1.0,
+        tv_weight: float = 0.0,
+        init: str = "content",
         crop: int = 224,
         batch_size=8,
         max_delay_ms: float = 200.0,
@@ -139,17 +154,20 @@ class StyleTransferService:
         transport: str = "rgb",
         device="cuda",
     ):
-        if extract_fn is not None or styles:
-            raise NotImplementedError(
-                "content+style mode (extract_fn=/styles=) is not ported yet")
         if transport != "rgb":
             raise NotImplementedError(f"transport={transport!r} is not ported yet (rgb only)")
         self.transport = transport
-        if (gram_fn is None) == (job_fn is None):
-            raise ValueError("pass exactly one of gram_fn (texture mode) or job_fn "
-                             "(a pre-built program)")
+        if sum(f is not None for f in (gram_fn, extract_fn, job_fn)) != 1:
+            raise ValueError("pass exactly one of gram_fn (texture mode), extract_fn "
+                             "(content+style mode) or job_fn (a pre-built/AOT program)")
+        if extract_fn is not None and not styles:
+            raise ValueError("content+style mode requires a non-empty styles=")
+        if extract_fn is None and styles:
+            raise ValueError("styles= only applies to content+style mode")
         if style_names is not None and job_fn is None:
             raise ValueError("style_names= only applies with job_fn=")
+        if init not in ("content", "noise"):
+            raise ValueError(f"init must be 'content' or 'noise', got {init!r}")
         self.device = resolve_device(device)
         self.crop = int(crop)
 
@@ -171,24 +189,55 @@ class StyleTransferService:
         self.batch_size = sizes[-1]
         self.max_delay = max_delay_ms / 1e3
         self.num_iterations = int(num_iterations)
-        self.style_names = list(style_names) if style_names else []
-        self._gram_fn = gram_fn
+        self.style_names = list(styles or style_names or [])  # the two are exclusive
+        self._iterative = job_fn is None
+
+        mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        std = torch.as_tensor(IMAGENET_STD, device=self.device)
+
+        def to_u8(pixels):
+            canvas = torch.clamp(pixels * std + mean, 0.0, 1.0)
+            return torch.round(canvas * 255.0).to(torch.uint8)
+
+        def preprocess(images_u8):
+            return eval_preprocess(torch.as_tensor(images_u8).to(self.device), self.crop)
+
+        def noise0_for(job_ids, shape):
+            return torch.stack([job_noise(seed, j, shape) for j in job_ids]).to(self.device)
 
         if gram_fn is not None:
             optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations,
                                                      threshold)
-            mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
-            std = torch.as_tensor(IMAGENET_STD, device=self.device)
 
             def job(images_u8, style_w, job_ids):
                 del style_w  # texture mode: the target is the job's own Gram
-                images = eval_preprocess(torch.as_tensor(images_u8).to(self.device), self.crop)
+                images = preprocess(images_u8)
                 with torch.no_grad():
                     targets = gram_fn(images)
-                noise0 = torch.stack([job_noise(seed, j, images.shape[1:]) for j in job_ids])
-                pixels, iters, per_loss = optimise(noise0.to(self.device), targets)
-                canvas = torch.clamp(pixels * std + mean, 0.0, 1.0)
-                return torch.round(canvas * 255.0).to(torch.uint8), iters, per_loss
+                pixels, iters, per_loss = optimise(noise0_for(job_ids, images.shape[1:]),
+                                                   targets)
+                return to_u8(pixels), iters, per_loss
+
+            self._jobs_by_size = {s: job for s in sizes}
+        elif extract_fn is not None:
+            style_u8 = np.stack([_to_canvas(im, self.crop) for im in styles.values()])
+            with torch.no_grad():  # per style layer, the (K, ...) gallery stack
+                gram_stacks = [g.float() for g in extract_fn(preprocess(style_u8))[1]]
+            optimise = make_content_style_optimizer(extract_fn, style_weight, content_weight,
+                                                    learning_rate, num_iterations, threshold,
+                                                    tv_weight=tv_weight)
+
+            def job(images_u8, style_w, job_ids):
+                images = preprocess(images_u8)
+                with torch.no_grad():
+                    content_feats = extract_fn(images)[0].float()
+                w = torch.as_tensor(style_w, dtype=torch.float32, device=self.device)
+                # each job's convex Gram blend; a one-hot row is exact in f32
+                grams = [torch.einsum("bk,k...->b...", w, gs) for gs in gram_stacks]
+                pixels0 = (images.float() if init == "content"
+                           else noise0_for(job_ids, images.shape[1:]))
+                pixels, iters, per_loss = optimise(pixels0, grams, content_feats)
+                return to_u8(pixels), iters, per_loss
 
             self._jobs_by_size = {s: job for s in sizes}
         elif jobs_by_size is not None:
@@ -224,13 +273,14 @@ class StyleTransferService:
 
     def warmup(self) -> None:
         """Build the kernels; in job_fn mode also run one forward per ladder
-        size on zeros (cuDNN's algorithm choice, the allocator). Texture mode
-        only builds: a warm dispatch would run the whole iteration cap."""
+        size on zeros (cuDNN's algorithm choice, the allocator). The
+        iterative modes only build: a warm dispatch would run the whole
+        iteration cap."""
         if self.device.type == "cuda":
             from ..ops.kernels import build_all
 
             build_all()
-        if self._gram_fn is not None:
+        if self._iterative:
             return
         width = max(1, len(self.style_names))
         for b in self.batch_sizes:

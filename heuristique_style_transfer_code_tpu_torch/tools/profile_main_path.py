@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Eight cells, each at full model width with seeded random weights:
+Nine cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -37,6 +37,12 @@ Eight cells, each at full model width with seeded random weights:
                     ``make_gram_fn_patches``: 16 ``gram_fwd`` and 16
                     ``gram_bwd`` an iteration, and under "instance" 13
                     ``instance_norm_fwd`` and 13 ``instance_norm_bwd``)
+  content_style     family 2's content+style loop at --layers 8
+                    --style_layers all, batch 4, 224², f32 and bf16, from
+                    the content images (``make_content_style_optimizer``
+                    over ``make_extract_fn_gram_attention``: 4 ``gram_fwd``
+                    and 4 ``gram_bwd`` an iteration, at (4,56,56,256),
+                    (4,28,28,512), (4,14,14,1024) and (4,7,7,2048))
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -46,10 +52,11 @@ and instance-norm kernels first, with their share of busy. Prints one JSON
 object per cell; writes them all to
 ``chiprun_out/profile_main_path.json`` when that directory exists.
 ``--cells family3_camera,family3_classification`` runs only the cells
-named. ``make_gram_fn_patches`` is imported only in the cell that uses
-it, so a copy of this file placed in an older checkout of the port, one
-without it, times that checkout's other cells: a parent and its change
-compared on the same card.
+named. ``make_gram_fn_patches`` and the content+style functions are
+imported only in the cells that use them, so a copy of this file placed
+in an older checkout of the port, one without them, times that
+checkout's other cells: a parent and its change compared on the same
+card.
 """
 from __future__ import annotations
 
@@ -161,32 +168,63 @@ def classification_cell(model, dev) -> dict:
             "step_ms_runs": runs, "images_per_s": 8 / ms * 1e3, **_profile(step, 3)}
 
 
-def _loop_cell(gram_fn, dev, batch: int, seed: int) -> dict:
+def _loop_timing(run, batch: int) -> dict:
     """Iteration time (host clock, 20 iterations, three runs) and a profile
-    of 5 iterations of the Adam-on-pixels loop over ``gram_fn``."""
-    rng = np.random.RandomState(seed)
-    images = eval_preprocess(torch.from_numpy(
-        rng.randint(0, 256, (batch, 256, 256, 3)).astype(np.uint8)).to(dev))
-    with torch.no_grad():
-        targets = gram_fn(images)
-    noise0 = torch.randn(images.shape, generator=torch.Generator().manual_seed(0)).to(dev)
-
-    def run(iters):
-        return make_style_transfer_optimizer(gram_fn, 0.01, iters, 0.0)(noise0, targets)
-
+    of 5 iterations of an Adam-on-pixels loop ``run(iterations)``, with
+    the device busy time an iteration."""
     run(2)
     iters = 20
     runs = [t / iters for t in _timed(lambda: run(iters), 1)]
     ms = float(np.median(runs))
+    prof = _profile(lambda: run(5), 1)
     return {"iteration_ms": ms, "iteration_ms_runs": runs,
-            "image_iterations_per_s": batch / ms * 1e3, **_profile(lambda: run(5), 1),
-            "profiled_iterations": 5}
+            "image_iterations_per_s": batch / ms * 1e3, **prof, "profiled_iterations": 5,
+            "busy_ms_per_iteration": prof["device_busy_ms"] / 5}
+
+
+def _staged_images(dev, n: int, seed: int) -> torch.Tensor:
+    rng = np.random.RandomState(seed)
+    return eval_preprocess(torch.from_numpy(
+        rng.randint(0, 256, (n, 256, 256, 3)).astype(np.uint8)).to(dev))
+
+
+def _loop_cell(gram_fn, dev, batch: int, seed: int) -> dict:
+    """``_loop_timing`` of the texture loop over ``gram_fn`` from noise."""
+    images = _staged_images(dev, batch, seed)
+    with torch.no_grad():
+        targets = gram_fn(images)
+    noise0 = torch.randn(images.shape, generator=torch.Generator().manual_seed(0)).to(dev)
+    return _loop_timing(
+        lambda iters: make_style_transfer_optimizer(gram_fn, 0.01, iters, 0.0)(noise0, targets),
+        batch)
 
 
 def style_cell(model, dev, dtype) -> dict:
     gram_fn = make_gram_fn_gram_attention(model, 8, layers=5, compute_dtype=dtype)
     return {"cell": "style_transfer", "layers": 5, "batch": 4, "dtype": _dtype_name(dtype),
             **_loop_cell(gram_fn, dev, 4, 2)}
+
+
+def content_style_cell(model, dev, dtype) -> dict:
+    """Family 2's content+style loop at --layers 8 --style_layers all (a
+    Gram at each of the four stages), b4, from the content images, toward
+    one style image's Grams."""
+    from ..tasks.style_transfer import (
+        make_content_style_optimizer,
+        make_extract_fn_gram_attention,
+    )
+
+    extract = make_extract_fn_gram_attention(model, 8, 8, dtype, "all")
+    images = _staged_images(dev, 4, 8)
+    with torch.no_grad():
+        style = [g.expand((4,) + tuple(g.shape[1:]))
+                 for g in extract(_staged_images(dev, 1, 9))[1]]
+        feats = extract(images)[0].float()
+    return {"cell": "content_style", "layers": 8, "style_layers": "all", "batch": 4,
+            "dtype": _dtype_name(dtype),
+            **_loop_timing(lambda iters: make_content_style_optimizer(
+                extract, learning_rate=0.01, num_iterations=iters, threshold=0.0)(
+                images, style, feats), 4)}
 
 
 def family3_style_cell(model, cfg, dev, dtype) -> dict:
@@ -319,6 +357,8 @@ def main() -> None:
         "family3_camera": lambda: [family3_camera_cell(*family3[n]) for n in ("batch", "instance")],
         "family3_style_transfer": lambda: f32_and_bf16(family3_style_cell, *family3["batch"], dev)
         + [family3_style_cell(*family3["instance"], dev, None)],
+        "content_style": lambda: f32_and_bf16(content_style_cell,
+                                              seeded(gram_attention_init, 0, 8, 4, 7), dev),
     }
     names = args.cells.split(",") if args.cells else list(plan)
     unknown = sorted(set(names) - set(plan))

@@ -137,7 +137,7 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
 
 @pytest.mark.parametrize("extra", [
     ["--precision", "int8"],
-    ["--style_image", "x.png"], ["--remat"], ["--shard_spatial", "2"], ["--devices", "2"],
+    ["--remat"], ["--shard_spatial", "2"], ["--devices", "2"],
     ["--steps_per_dispatch", "2"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, extra):

@@ -140,8 +140,7 @@ def test_parser_has_every_jax_flag():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--precision", "int8"], ["--visualize_gradcam"], ["--save_gradcam_images"],
-    ["--tensorboard"], ["--steps_per_dispatch", "2"], ["--devices", "2"],
+    ["--precision", "int8"], ["--steps_per_dispatch", "2"], ["--devices", "2"],
     ["--profile_dir", "p"], ["--debug_nans"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f1_checkpoint, tmp_path, extra):

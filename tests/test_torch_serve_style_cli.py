@@ -2,9 +2,11 @@
 ``style_net.npz`` and hyperparameters file that the JAX package wrote, on
 ``--port 0``, and answer the same raw POST with decoded pixels within one
 uint8 step (the same f32 arithmetic in another order; a value within
-rounding of a half step may round either way). Also: texture mode, the
-"not ported yet" flags and the device rule."""
+rounding of a half step may round either way). Also: texture mode,
+content+style mode (``--style_image``) and its errors, the "not ported
+yet" flags and the device rule."""
 import json
+import re
 import threading
 import urllib.request
 
@@ -109,11 +111,78 @@ def test_port_texture_server_runs_the_loop(tmp_path):
         _stop(srv, service)
 
 
+@pytest.fixture(scope="module")
+def content_style_files(tmp_path_factory):
+    """A seeded family-2 npz (truncate 5), its config and two style PNGs."""
+    from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+
+    d = tmp_path_factory.mktemp("content_style")
+    ckpt = str(d / "model.npz")
+    save_pytree_npz(to_jax_tree(gram_attention_init(torch.Generator().manual_seed(0), 5, 4, 4,
+                                                    device="cpu")), ckpt)
+    cfg = str(d / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": 2, "truncate_layer": 5, "gram_matrix_size": 4}, f)
+    rng = np.random.RandomState(3)
+    paths = []
+    for name in ("a", "b"):
+        paths.append(str(d / f"{name}.png"))
+        Image.fromarray(rng.randint(0, 256, (60, 80, 3)).astype(np.uint8)).save(paths[-1])
+    return cfg, ckpt, paths
+
+
+def test_port_content_style_server(content_style_files):
+    """--style_image NAME=PATH twice: GET /styles lists the gallery, and a
+    named POST and a blended one (X-Style) answer after the iterations
+    asked for."""
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style as p_cli
+
+    cfg, ckpt, (a, b) = content_style_files
+    srv, service, url = _serve(p_cli.start, p_cli.build_parser, [
+        "--config_path", cfg, "--model_path", ckpt, "--layers", "5", "--num_iterations", "2",
+        "--threshold", "0", "--batch_size", "2", "--port", "0", "--max_delay_ms", "20",
+        "--style_image", f"a={a}", "--style_image", b, "--style_layers", "all",
+        "--style_weight", "2", "--content_weight", "0.5", "--tv_weight", "0.05",
+        "--style_init", "noise", "--device", "cpu"])
+    try:
+        assert json.loads(_get(url, "/styles")[1]) == {"styles": ["a", "b"]}
+        img = np.random.RandomState(4).randint(0, 256, (224, 224, 3)).astype(np.uint8)
+        for style in ("b", "a:0.5,b:0.5"):
+            req = urllib.request.Request(url + "/style", data=img.tobytes(), method="POST",
+                                         headers={"X-Raw-Shape": "224,224,3", "X-Style": style})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                png, headers = r.read(), dict(r.headers)
+            assert headers["X-Iterations"] == "2" and float(headers["X-Final-Loss"]) > 0
+            assert decode_png(png).shape == (224, 224, 3)
+    finally:
+        _stop(srv, service)
+
+
+@pytest.mark.parametrize("case", ["duplicate_name", "bare_path_duplicate", "family"])
+def test_style_image_errors_keep_the_jax_messages(content_style_files, case):
+    from heuristique_style_transfer_code_tpu.cli import serve_style as j_cli
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style as p_cli
+
+    cfg, ckpt, (a, b) = content_style_files
+    extra = {"duplicate_name": ["--style_image", f"a={a}", "--style_image", f"a={b}"],
+             "bare_path_duplicate": ["--style_image", a, "--style_image", f"a={b}"],
+             "family": ["--style_image", f"a={a}", "--family", "multi_patchgan"]}[case]
+    argv = ["--config_path", cfg, "--model_path", ckpt, "--port", "0", *extra]
+    with pytest.raises(ValueError) as jax_err:
+        j_cli.build_service(j_cli.build_parser().parse_args(argv))
+    with pytest.raises(ValueError, match=re.escape(str(jax_err.value))):
+        p_cli.build_service(p_cli.build_parser().parse_args(argv + ["--device", "cpu"]))
+
+
 @pytest.mark.parametrize("extra", [
     ["--artifact", "a.npz"], ["--export_artifact", "a.npz"], ["--export_platforms", "cpu"],
-    ["--transport", "yuv420"], ["--style_image", "s.png"], ["--style_weight", "2"],
-    ["--content_weight", "2"], ["--tv_weight", "1"], ["--style_init", "noise"],
-    ["--style_layers", "all"], ["--remat"], ["--recycle_after_requests", "3"],
+    ["--transport", "yuv420"], ["--remat"], ["--recycle_after_requests", "3"],
     ["--family", "multi_patchgan"], ["--devices", "2"], ["--profile_dir", "p"],
     ["--debug_nans"],
 ])

@@ -144,9 +144,107 @@ def test_stop_drains_then_refuses():
         svc.submit(_imgs(1)[0])
 
 
+def _content_style_services(init="content", styles_n=2, crop=32):
+    """The JAX service and the port's in content+style mode on the same
+    seeded family-2 weights (truncate 5, style_layers "all"), gallery and
+    loop settings; neither started (their job programs are called
+    directly)."""
+    from heuristique_style_transfer_code_tpu.tasks import style_transfer as jst
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks import style_transfer as pst
+
+    model = gram_attention_init(torch.Generator().manual_seed(0), 5, 4, 4, device="cpu")
+    tree = to_jax_tree(model)
+    styles = dict(zip("ab", _imgs(styles_n, size=40, seed=9)))
+    kw = dict(styles=styles, style_weight=2.0, content_weight=0.5, tv_weight=0.05, init=init,
+              crop=crop, batch_size=2, num_iterations=2, threshold=0.0, seed=3)
+    j_svc = j_service.StyleTransferService(
+        extract_fn=jst.make_extract_fn_gram_attention(tree, 5, style_layers="all"), **kw)
+    svc = StyleTransferService(
+        extract_fn=pst.make_extract_fn_gram_attention(model, 5, style_layers="all"),
+        device="cpu", **kw)
+    return j_svc, svc
+
+
+@pytest.mark.parametrize("weights", [[1.0, 0.0], [0.0, 1.0], [0.5, 0.5]])
+def test_content_style_job_matches_jax(weights):
+    """One batch of two jobs on each side's job program. Tolerance: after 2
+    Adam steps from the content image a pixel whose gradient is within the
+    f32 error of zero may step the other way (lr each step), so the canvases
+    agree within 1 uint8 step at 99% of values and all within
+    ceil(2·lr·2·0.229·255) + 1 = 4; losses within 1e-4 relative."""
+    j_svc, svc = _content_style_services()
+    assert svc.style_names == j_svc.style_names == ["a", "b"]
+    images = np.stack(_imgs(2, size=32, seed=10))
+    w = np.array([weights, weights], np.float32)
+    ids = np.arange(2, dtype=np.int32)
+    j_u8, j_iters, j_per = (np.asarray(a) for a in j_svc._jobs_by_size[2](images, w, ids))
+    u8, iters, per = svc._jobs_by_size[2](images, w, ids)
+    assert iters == int(j_iters) == 2 and u8.shape == (2, 32, 32, 3)
+    gap = np.abs(u8.numpy().astype(np.int16) - j_u8.astype(np.int16))
+    assert (gap <= 1).mean() >= 0.99 and gap.max() <= 4, gap.max()
+    np.testing.assert_allclose(per.numpy(), j_per, rtol=1e-4)
+
+
+def test_content_style_one_hot_equals_indexing():
+    """A one-hot row of the gallery blend gives that style's Gram bit for
+    bit: the job equals the job of a one-style gallery holding it."""
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_extract_fn_gram_attention,
+    )
+
+    extract = make_extract_fn_gram_attention(
+        gram_attention_init(torch.Generator().manual_seed(0), 5, 4, 4, device="cpu"), 5,
+        style_layers="all")
+    a, b = _imgs(2, size=40, seed=9)
+    kw = dict(crop=32, batch_size=1, num_iterations=2, threshold=0.0, device="cpu")
+    both = StyleTransferService(extract_fn=extract, styles={"a": a, "b": b}, **kw)
+    only_b = StyleTransferService(extract_fn=extract, styles={"b": b}, **kw)
+    image = np.stack(_imgs(1, size=32, seed=10))
+    ids = np.zeros((1,), np.int32)
+    got = both._jobs_by_size[1](image, np.array([[0.0, 1.0]], np.float32), ids)
+    want = only_b._jobs_by_size[1](image, np.array([[1.0]], np.float32), ids)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+
+
+def test_content_style_service_answers_named_and_blended_jobs():
+    _, svc = _content_style_services(init="noise")
+    svc.start()
+    try:
+        futs = [svc.submit(im, style=st) for im, st in
+                zip(_imgs(3, size=32, seed=11), ["a", {"a": 1, "b": 3}, None])]
+        res = [f.result(timeout=TIMEOUT) for f in futs]
+        with pytest.raises(ValueError, match="unknown style"):
+            svc.submit(_imgs(1)[0], style="c")
+    finally:
+        svc.stop()
+    assert all(r.iterations == 2 and r.image.shape == (32, 32, 3) for r in res)
+    assert all(np.isfinite(r.loss) and r.loss > 0 for r in res)
+
+
+@pytest.mark.parametrize("case", ["two_programs", "no_styles", "styles_without_extract",
+                                  "bad_init"])
+def test_content_style_errors_keep_the_jax_messages(case):
+    fn = lambda x: x  # noqa: E731  (never called: the checks come first)
+    styles = {"a": _imgs(1)[0]}
+    kwargs = {"two_programs": dict(gram_fn=fn, extract_fn=fn, styles=styles),
+              "no_styles": dict(extract_fn=fn),
+              "styles_without_extract": dict(gram_fn=fn, styles=styles),
+              "bad_init": dict(extract_fn=fn, styles=styles, init="zeros")}[case]
+    with pytest.raises(ValueError) as jax_err:
+        j_service.StyleTransferService(**kwargs)
+    with pytest.raises(ValueError, match=re.escape(str(jax_err.value))):
+        StyleTransferService(device="cpu", **kwargs)
+
+
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        StyleTransferService(extract_fn=lambda x: x, styles={"a": _imgs(1)[0]}, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         StyleTransferService(job_fn=lambda *a: a, transport="yuv420", device="cpu")
 
