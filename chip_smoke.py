@@ -38,7 +38,13 @@ Phases, all run every time:
                   also on the split route, forced, and every row's two
                   calls bit-equal; its cluster route forced onto ragged
                   plans and a misaligned input refused; gram_bwd also at
-                  the loop's (1,4,4,64); the
+                  the loop's (1,4,4,64); at the fast-style training step's
+                  b16 shapes: gram_fwd and gram_bwd at the four stage
+                  outputs (16,56,56,256) to (16,7,7,2048), each gram_bwd
+                  row also saying whether two calls gave the same bits,
+                  and instance_norm_fwd and instance_norm_bwd at the net's
+                  (16,224,224,32), (16,112,112,64) and (16,56,56,128),
+                  with and without ReLU, affine rows that differ; the
                   forward-only wrappers refuse inputs that need a gradient;
                   time the kernel, the plain version and a library call;
                   compute each bound from the shapes and the card's peak
@@ -139,6 +145,26 @@ Phases, all run every time:
                   a:0.5,b:0.5), each one-hot answer against the service's
                   job program run in process (99.9% within one uint8
                   step, all within Adam's 2·lr·iterations).
+  fast_style_train
+                  fast-style training at full width (the classic net, crop
+                  224, b16, the family-2 encoder at truncate 8 with
+                  --style_layers all, seeded weights), f32 and bf16: 8
+                  steps of train_fast_style with exact launches (a step: 4
+                  gram_fwd and 4 gram_bwd, 15 instance_norm_fwd and 15
+                  instance_norm_bwd), the loss on one batch falling
+                  tenfold, the encoder frozen; one f32 step's loss and
+                  gradients against the CPU (relative L2 per leaf; the
+                  biases whose true gradient is zero held to rounding
+                  noise); a 3-style conditional net's step through
+                  train_multi_style against the CPU; the CLI on 8 PNGs
+                  (b4, 2 epochs), single style and a 2-style gallery, each
+                  run uninterrupted twice and run with --resume
+                  --checkpoint_every 1 (the gallery also
+                  --async_checkpoint), stopped by a SIGTERM after 3
+                  batches and resumed, held to the uninterrupted run;
+                  serve_style --net on the gallery's net, one POST a
+                  style; steps/s, images/s, busy, idle share and peak
+                  memory of the b16 step.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -217,6 +243,12 @@ F3_BWD_SHAPES = [(1, 4, 4, 64)]
 F3_STYLE_IN_SHAPES = [(1, 112, 112, 64), (1, 56, 56, 128), (1, 55, 55, 256), (1, 28, 28, 256),
                       (1, 14, 14, 512), (1, 13, 13, 1024), (32, 112, 112, 64)]
 NET_IN_BWD_SHAPES = [(8, 224, 224, 32), (8, 56, 56, 128)]
+# fast-style training at b16: the frozen encoder's four stage Grams on the
+# stylised output (gram_fwd and gram_bwd), and the net's norms (in1 and
+# in_up2, in2 and in_up1, in3 and the residual blocks': three distinct
+# shapes, with ReLU and, in the blocks' second norms, without)
+B16_GRAM_SHAPES = [(16, 56, 56, 256), (16, 28, 28, 512), (16, 14, 14, 1024), (16, 7, 7, 2048)]
+B16_IN_SHAPES = [(16, 224, 224, 32), (16, 112, 112, 64), (16, 56, 56, 128)]
 # the family-3 style loop: b1 (the CLI's loader), 2 images, 20 iterations;
 # each iteration launches 16 gram_fwd and 16 gram_bwd and, under norm
 # "instance", 13 instance_norm_fwd and 13 instance_norm_bwd; each image's
@@ -257,6 +289,24 @@ GRADCAM_IMAGES, GRADCAM_BATCH, GRADCAM_TIMED = 8, 4, 10
 # the content+style loop (family 2, --layers 8 --style_layers all: 4 stage
 # Grams an iteration): b4, 20 iterations; the server: 5 iterations, 8 POSTs
 CS_BATCH, CS_ITERS, CS_SERVE_ITERS, CS_SERVE_REQUESTS = 4, 20, 5, 8
+# fast-style training at full width: the classic net, crop 224, the CLI's
+# batch 16, the family-2 encoder at truncate 8 with --style_layers all;
+# 8 steps of train_fast_style on one batch, 10 timed steps; the
+# CLI at b4 over 8 images, 2 epochs
+FST_BATCH, FST_CROP, FST_STEPS, FST_TIMED, FST_CLI_BATCH = 16, 224, 8, 10, 4
+# one training step, card vs CPU (f32): the loss, relative; each gradient
+# leaf's relative L2 error, where a pre-ReLU activation within f32 rounding
+# of zero can switch a local part of the data gradient; and the noise of
+# the biases whose true gradient is zero, relative to the largest gradient
+FST_TOL_LOSS, FST_TOL_GRAD, FST_TOL_NOISE = 1e-4, 1e-2, 1e-4
+# the relative nudge of the CPU net's weights that measures the CPU step's
+# own gradient spread (the card's loss lies about 6e-6 from the CPU's)
+FST_NUDGE = 1e-6
+# a resumed fit on the card against an uninterrupted one: parameters' RMS
+# gap per leaf as a share of steps · lr (Adam's largest move), final loss;
+# each raised to twice the gap between two uninterrupted runs where that
+# is larger
+FST_TOL_RESUME, FST_TOL_RESUME_LOSS = 0.25, 1e-2
 # card vs CPU on the family-3 and embedding phases, each relative to the
 # CPU result's own scale: (max, RMS); f32 sums run in other orders (cuDNN
 # vs oneDNN) through up to 8 convs and 3 norms; bf16 rounds each stage's
@@ -352,6 +402,7 @@ def phase_kernels(kg, peaks) -> dict:
     gen_family = torch.Generator(device=dev).manual_seed(6)
     gen_f3_bwd = torch.Generator(device=dev).manual_seed(15)
     gen_stage = torch.Generator(device=dev).manual_seed(22)
+    gen_b16 = torch.Generator(device=dev).manual_seed(44)
 
     def bwd_row(f, dg, shape, dtype, dname, es):
         n, h, w, c = shape
@@ -366,8 +417,11 @@ def phase_kernels(kg, peaks) -> dict:
             torch.add(dg, dg.transpose(1, 2), out=sym)
             torch.baddbmm(out, f, sym, beta=0, alpha=1.0 / hw)
 
+        # whether the k-split merge gives the same bits on a second call
+        repeatable = torch.equal(kg.gram_bwd(f, dg), kg.gram_bwd(f, dg))
         return dict(
             shape=[n, h, w, c], dtype=dname, route=route, row_tile=row_tile, k_splits=k_splits,
+            repeatable=repeatable,
             max_abs_err=err, rel_err=rel, rms_err=rms, tol=TOL[dname],
             ok=ok, ms=_time_ms(lambda: kg.gram_bwd(f, dg)),
             plain_ms=_time_ms(lambda: kg.gram_bwd_plain(f, dg)),
@@ -379,11 +433,14 @@ def phase_kernels(kg, peaks) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         dname = str(dtype).split(".")[1]
-        for (n, h, w, c) in GRAM_SHAPES + STAGE_GRAM_SHAPES + RAGGED_GRAM_SHAPES + F3_GRAM_SHAPES:
+        for (n, h, w, c) in (GRAM_SHAPES + STAGE_GRAM_SHAPES + RAGGED_GRAM_SHAPES + F3_GRAM_SHAPES
+                             + B16_GRAM_SHAPES):
             hw = h * w
             stage = (n, h, w, c) in STAGE_GRAM_SHAPES
-            main = (n, h, w, c) in GRAM_SHAPES or stage
+            b16 = (n, h, w, c) in B16_GRAM_SHAPES
+            main = (n, h, w, c) in GRAM_SHAPES or stage or b16
             g_in = (gen if (n, h, w, c) in GRAM_SHAPES else gen_stage if stage
+                    else gen_b16 if b16
                     else gen_family if (n, h, w, c) in F3_GRAM_SHAPES else gen_ragged)
             f = features((n, hw, c), dtype, g_in)
             # forward
@@ -453,7 +510,8 @@ def phase_kernels(kg, peaks) -> dict:
             route = f" S={r['s']}" if "s" in r else ""
             route += f" route={r['route']}" if "route" in r else ""
             route += f" splits={r['splits']}" if "splits" in r else ""
-            route += f" row_tile={r['row_tile']} k_splits={r['k_splits']}" if "k_splits" in r else ""
+            route += (f" row_tile={r['row_tile']} k_splits={r['k_splits']} "
+                      f"repeatable={r['repeatable']}" if "k_splits" in r else "")
             two = f" two_call_ms={r['two_call_ms']:.4f}" if "two_call_ms" in r else ""
             print(f"[kernels] {name} {r['dtype']} {tuple(r['shape'])}{route}: max_abs_err={r['max_abs_err']:.3e} "
                   f"rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} (tol {r['tol']}) ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -583,6 +641,9 @@ def phase_in_kernels(kin, peaks):
     gen_family = torch.Generator(device=dev).manual_seed(12)
     cases += [(shape, dtype, True, "unit affine", gen_family) for shape in F3_IN_SHAPES
               for dtype in (torch.float32, torch.bfloat16)]
+    gen_b16 = torch.Generator(device=dev).manual_seed(45)
+    cases += [(shape, dtype, relu, "signed", gen_b16) for shape in B16_IN_SHAPES
+              for dtype in (torch.float32, torch.bfloat16) for relu in (False, True)]
     rows = []
     for (b, h, w, c), dtype, relu, kind, g in cases:
         hw = h * w
@@ -1625,7 +1686,7 @@ def phase_in_bwd_kernels(kin, peaks) -> list:
     g = torch.Generator(device=dev).manual_seed(16)
     cases = [(shape, dtype, True, "unit affine") for shape in F3_STYLE_IN_SHAPES
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(shape, dtype, relu, "affine rows") for shape in NET_IN_BWD_SHAPES
+    cases += [(shape, dtype, relu, "affine rows") for shape in NET_IN_BWD_SHAPES + B16_IN_SHAPES
               for dtype in (torch.float32, torch.bfloat16) for relu in (False, True)]
     rows = []
     for (b, h, w, c), dtype, relu, kind in cases:
@@ -2293,6 +2354,387 @@ def phase_content_style_serve(kernels, tmp: str) -> dict:
             "one_hot_within_one_step": within}
 
 
+def _train_grads(extract, net, images_u8, targets, style_w, compute):
+    """One training step's loss and gradients (by parameter name), without
+    the Adam update: the step's own loss through ``autograd.grad``."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.tasks.fast_style import _net_loss
+
+    dev = next(net.parameters()).device
+    images = eval_preprocess(torch.as_tensor(images_u8).to(dev), FST_CROP)
+    w = None if style_w is None else torch.as_tensor(style_w).to(dev)
+    loss = _net_loss(extract, net, images, [t.to(dev) for t in targets], (1.0, 1.0, 0.0),
+                     compute, w)
+    names = [n for n, _ in net.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in net.named_parameters()])
+    return float(loss.detach()), {n: g.detach().cpu() for n, g in zip(names, grads)}
+
+
+def _zero_gradient_bias(name: str) -> bool:
+    """A net bias whose true gradient is zero: a conv bias in front of an
+    instance norm (all but ``out``), and each residual block's second norm
+    bias (no ReLU follows it; its per-channel constant reaches only convs
+    whose norms remove it)."""
+    return name.endswith(".bias") and (".in_b." in name or not (
+        name.split(".")[-2].startswith("in") or name.startswith("out.")))
+
+
+def _grads_vs_cpu(card, cpu, only=None):
+    """(worst relative L2 error over the leaves with a true gradient, worst
+    noise of the zero-gradient biases relative to the largest gradient,
+    every card gradient finite)."""
+    import torch
+
+    largest = max(float(g.abs().max()) for g in cpu.values())
+    worst, noise = 0.0, 0.0
+    for name, g in cpu.items():
+        if only is not None and not only(name):
+            continue
+        if _zero_gradient_bias(name):
+            noise = max(noise, float(card[name].abs().max()) / largest,
+                        float(g.abs().max()) / largest)
+        else:
+            worst = max(worst, float((card[name] - g).norm() / g.norm()))
+    finite = all(bool(torch.isfinite(g).all()) for g in card.values())
+    return worst, noise, finite
+
+
+def _net_pair(seed: int, n_styles=None):
+    """The classic net (width 32, n_res 5) seeded on the CPU, and the same
+    weights on the card; a conditional net's tables perturbed per style."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.nn.transformer_net import (
+        InstanceNorm,
+        transformer_net_init,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    cpu = transformer_net_init(gen, width=32, n_res=5, n_styles=n_styles, device="cpu")
+    if n_styles:
+        with torch.no_grad():
+            for m in cpu.modules():
+                if isinstance(m, InstanceNorm):
+                    m.weight.add_(0.3 * torch.randn(m.weight.shape, generator=gen))
+                    m.bias.add_(0.3 * torch.randn(m.bias.shape, generator=gen))
+    card = transformer_net_init(None, width=32, n_res=5, n_styles=n_styles, device=DEVICE)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _fst_cli(args, preempt_after=None):
+    """``cli/train_style_net.py`` once; with ``preempt_after``, a real SIGTERM
+    to this process at that batch boundary (through the CLI's own handler)."""
+    import signal
+
+    from heuristique_style_transfer_code_tpu_torch.cli.train_style_net import main as cli
+    from heuristique_style_transfer_code_tpu_torch.train import preemption
+
+    real = preemption.preemption_requested
+    if preempt_after is not None:
+        calls = {"n": 0}
+
+        def requested():
+            calls["n"] += 1
+            if calls["n"] == preempt_after + 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+                deadline = time.perf_counter() + 5.0
+                while not real() and time.perf_counter() < deadline:
+                    time.sleep(0.001)  # the handler runs between bytecodes
+            return real()
+
+        preemption.preemption_requested = requested
+    previous = signal.getsignal(signal.SIGTERM)
+    try:
+        cli(args)
+    finally:
+        preemption.preemption_requested = real
+        preemption.clear_preemption()
+        signal.signal(signal.SIGTERM, previous)
+
+
+def _tree_gap(path_a: str, path_b: str, init):
+    """Two ``style_net.npz`` files from the same ``init`` net: the worst RMS
+    gap per leaf over the leaves with a true gradient, and the farthest
+    that a zero-gradient bias moved from ``init`` on either side."""
+    import numpy as np
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, load_pytree_npz
+
+    a, b = _flatten(load_pytree_npz(path_a)), _flatten(load_pytree_npz(path_b))
+    start = _flatten(to_jax_tree(init))
+    rms, bias = 0.0, 0.0
+    for key in a:
+        x, y = np.asarray(a[key], np.float64), np.asarray(b[key], np.float64)
+        if _zero_gradient_bias(key.replace("/", ".")):
+            bias = max(bias, float(np.abs(x - start[key]).max()),
+                       float(np.abs(y - start[key]).max()))
+        else:
+            rms = max(rms, float(np.sqrt(np.mean((x - y) ** 2))))
+    return rms, bias
+
+
+def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> dict:
+    """Fast-style training at full width: the classic net (width 32, n_res
+    5), crop 224, b16, the family-2 encoder at truncate 8 with
+    --style_layers all (a Gram at each of the four stages), seeded weights.
+
+    (a) f32 and bf16: ``train_fast_style`` over one in-memory batch 8
+    times, exact launches (a step: 4 gram_fwd and 4 gram_bwd on the
+    stylised pass, 15 instance_norm_fwd and 15 instance_norm_bwd; 4
+    gram_fwd for the style targets), the last loss under a tenth of the
+    first, no encoder parameter with a gradient; one step's loss and
+    gradients on the card against the CPU (f32). (b) A 3-style conditional
+    net through ``train_multi_style``, one step, launches, and its
+    gradients (the affine tables apart) against the CPU. (c) The CLI on 8
+    PNGs, b4, 2 epochs, a single style and a two-style gallery: two
+    uninterrupted runs (their gap is the card's own spread), then
+    ``--resume --checkpoint_every 1`` stopped by a SIGTERM after 3 batches
+    and resumed to the end (the gallery with ``--async_checkpoint``), held
+    to the first uninterrupted run; then
+    ``serve_style --net`` on the gallery's net, one POST per style. (d)
+    Steps/s and images/s (host clock), device busy and idle share over 3
+    profiled steps, and the peak memory, f32 and bf16."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.nn.transformer_net import transformer_net_init
+    from heuristique_style_transfer_code_tpu_torch.tasks.fast_style import (
+        _style_onehot,
+        encode_style_gram_stacks,
+        encode_style_grams,
+        make_fast_style_train_step,
+        train_fast_style,
+        train_multi_style,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_extract_fn_gram_attention,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tools.profile_main_path import _profile
+    from heuristique_style_transfer_code_tpu_torch.utils.png import decode_png
+
+    rng = np.random.RandomState(40)
+    ab = [rng.randint(0, 256, (FST_BATCH, 256, 256, 3)).astype(np.uint8) for _ in range(2)]
+    batches = [{"image": ab[0]}] * FST_STEPS  # one batch, so that the losses compare
+    style_u8 = rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    gallery = [rng.randint(0, 256, (256, 256, 3)).astype(np.uint8) for _ in range(3)]
+    quiet = lambda msg: None  # noqa: E731
+    out, launches_all = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+
+    cpu_extract = make_extract_fn_gram_attention(seeded, 8, None, None, "all")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        compute = None if dtype == torch.float32 else dtype
+        extract = make_extract_fn_gram_attention(model, 8, None, compute, "all")
+        net, net_cpu = _net_pair(41)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, history = train_fast_style(net, extract, batches, style_u8, epochs=1, crop=FST_CROP,
+                                      compute_dtype=compute, log_every=1, log_fn=quiet)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        add(launches)
+        steps = FST_STEPS
+        want = {"gram_fwd": 4 * steps + 4, "gram_bwd": 4 * steps, "pooled_gram_fwd": 0,
+                "instance_norm_fwd": NORMS_PER_FORWARD * steps,
+                "instance_norm_bwd": NORMS_PER_FORWARD * steps}
+        losses = history[:steps]
+        print(f"[fast_style_train] {name} b{FST_BATCH}: {steps} steps of train_fast_style in "
+              f"{seconds:.3f} s (first step's build and warm-up included); launches {launches}; "
+              f"losses {[round(v, 4) for v in losses]}")
+        _require(launches == want, f"launches {want} for {steps} steps: {launches}")
+        _require(len(losses) == steps and all(np.isfinite(losses)), f"finite losses: {history}")
+        # Adam's first steps at lr 1e-3 move every weight of the net by
+        # about lr at once, so the loss need not fall at every step
+        _require(losses[-1] < 0.1 * losses[0], f"the loss falls a tenfold over the steps: {losses}")
+        _require(all(p.grad is None for p in model.parameters())
+                 and not any(p.requires_grad for p in model.encoder.parameters()),
+                 "the encoder is frozen: no parameter requires or holds a gradient")
+        # one step on the card and on the CPU from the same weights (f32)
+        row = {"seconds": seconds, "launches": launches, "losses": losses}
+        if compute is None:
+            targets = encode_style_grams(extract, style_u8, FST_CROP, DEVICE)
+            t0 = time.perf_counter()
+            cpu_targets = encode_style_grams(cpu_extract, style_u8, FST_CROP, "cpu")
+            loss_cpu, g_cpu = _train_grads(cpu_extract, net_cpu, ab[0], cpu_targets, None, None)
+            # the CPU's own spread: the same step from weights nudged by
+            # FST_NUDGE, about the card's distance from the CPU in the loss
+            gen = torch.Generator().manual_seed(46)
+            with torch.no_grad():
+                for p in net_cpu.parameters():
+                    p.mul_(1 + FST_NUDGE * torch.randn(p.shape, generator=gen))
+            _, g_nudged = _train_grads(cpu_extract, net_cpu, ab[0], cpu_targets, None, None)
+            t_cpu = time.perf_counter() - t0
+            spread = _grads_vs_cpu(g_nudged, g_cpu)[0]
+            tol_grad = max(FST_TOL_GRAD, 2 * spread)
+            card, _ = _net_pair(41)
+            loss_card, g_card = _train_grads(extract, card, ab[0], targets, None, None)
+            worst, noise, finite = _grads_vs_cpu(g_card, g_cpu)
+            rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+            print(f"[fast_style_train] one f32 step, card vs CPU ({t_cpu:.1f} s on the CPU): "
+                  f"loss {loss_card:.6f} vs {loss_cpu:.6f} (rel {rel:.2e}, tol {FST_TOL_LOSS}); "
+                  f"gradients worst relative L2 {worst:.2e} (tol max({FST_TOL_GRAD}, 2x the "
+                  f"CPU's own spread {spread:.2e} from weights nudged by {FST_NUDGE})); the "
+                  f"zero-gradient biases' noise {noise:.2e} of the largest gradient "
+                  f"(tol {FST_TOL_NOISE}); all finite {finite}")
+            row.update(loss_card=loss_card, loss_cpu=loss_cpu, grad_worst_rel_l2=worst,
+                       grad_cpu_spread=spread, bias_noise=noise)
+            _require(finite and rel <= FST_TOL_LOSS and worst <= tol_grad
+                     and noise <= FST_TOL_NOISE, "the card's step agrees with the CPU's")
+        # (d) the step alone: host clock, profile, peak memory
+        init, step = make_fast_style_train_step(extract, crop=FST_CROP, compute_dtype=compute)
+        opt = init(net)
+        targets = encode_style_grams(extract, style_u8, FST_CROP, DEVICE)
+        step(net, opt, ab[0], targets)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(FST_TIMED):
+            step(net, opt, ab[i % 2], targets)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / FST_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = _profile(lambda: step(net, opt, ab[0], targets), 3)
+        busy = prof["device_busy_ms"] / 3
+        print(f"[fast_style_train] {name} b{FST_BATCH} step: {ms:.3f} ms (host clock, "
+              f"{FST_TIMED} steps), {1e3 / ms:.2f} steps/s, {FST_BATCH * 1e3 / ms:.1f} images/s; "
+              f"device busy {busy:.3f} ms a step, idle share {prof['idle_share']:.3f} over 3 "
+              f"profiled steps; Gram kernels {prof['gram_share_of_busy']:.4f} and instance-norm "
+              f"kernels {prof['instance_norm_share_of_busy']:.4f} of busy; peak memory "
+              f"{peak:.2f} GiB")
+        row.update(step_ms=ms, steps_per_s=1e3 / ms, images_per_s=FST_BATCH * 1e3 / ms,
+                   busy_ms_per_step=busy, peak_gib=peak, profile=prof)
+        out[name] = row
+        timings[f"fast_style_train_{name}_step_ms"] = ms
+        del net, net_cpu, opt
+
+    # (b) a 3-style conditional net, one step of train_multi_style, f32
+    extract = make_extract_fn_gram_attention(model, 8, None, None, "all")
+    net, net_cpu = _net_pair(42, n_styles=3)
+    kernels.reset_launch_counts()
+    _, history = train_multi_style(net, extract, batches[:1], gallery, epochs=1, crop=FST_CROP,
+                                   seed=0, log_fn=quiet)
+    launches = kernels.launch_counts()
+    add(launches)
+    w = _style_onehot(0, 0, FST_BATCH, 3, "balanced")
+    stacks = encode_style_gram_stacks(extract, gallery, FST_CROP, DEVICE)
+    cpu_stacks = encode_style_gram_stacks(cpu_extract, gallery, FST_CROP, "cpu")
+    card, _ = _net_pair(42, n_styles=3)
+    targets = [torch.einsum("bk,k...->b...", torch.as_tensor(w).to(DEVICE), s) for s in stacks]
+    cpu_targets = [torch.einsum("bk,k...->b...", torch.as_tensor(w), s) for s in cpu_stacks]
+    loss_card, g_card = _train_grads(extract, card, ab[0], targets, w, None)
+    loss_cpu, g_cpu = _train_grads(cpu_extract, net_cpu, ab[0], cpu_targets, w, None)
+    tables = lambda n: n.split(".")[-2].startswith("in")  # noqa: E731
+    t_worst, t_noise, finite = _grads_vs_cpu(g_card, g_cpu, tables)
+    worst, noise, _ = _grads_vs_cpu(g_card, g_cpu)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"[fast_style_train] 3-style conditional net, one step: launches {launches}; loss "
+          f"{history[0]:.6f}; card vs CPU loss rel {rel:.2e}, affine tables' gradients worst "
+          f"relative L2 {t_worst:.2e} (in_b noise {t_noise:.2e}), all gradients {worst:.2e} "
+          f"(tol {tol_grad:.2e}, as the single-style step's), finite {finite}")
+    _require(launches == {"gram_fwd": 4 + 4, "gram_bwd": 4, "pooled_gram_fwd": 0,
+                          "instance_norm_fwd": NORMS_PER_FORWARD,
+                          "instance_norm_bwd": NORMS_PER_FORWARD},
+             f"one conditional step's launches (and 4 gram_fwd for the stacks): {launches}")
+    _require(finite and rel <= FST_TOL_LOSS and max(t_worst, worst) <= tol_grad
+             and max(noise, t_noise) <= FST_TOL_NOISE,
+             "the conditional step's gradients agree with the CPU's")
+    out["conditional"] = {"launches": launches, "loss": history[0], "loss_rel": rel,
+                          "tables_grad_worst_rel_l2": t_worst, "grad_worst_rel_l2": worst}
+    del net, net_cpu, card
+
+    # (c) the CLI: single style and a 2-style gallery, preempted and resumed
+    from PIL import Image
+
+    data = _image_folder(os.path.join(tmp, "fst_data"), 2, seed=43)
+    paths = []
+    for i, im in enumerate(gallery[:2]):
+        paths.append(os.path.join(tmp, f"fst_style_{i}.png"))
+        Image.fromarray(im).save(paths[-1])
+    base = ["--data", data, "--config_path", os.path.join(tmp, "family2.json"), "--model_path",
+            os.path.join(tmp, "family2.npz"), "--epochs", "2", "--batch_size", str(FST_CLI_BATCH),
+            "--crop", str(FST_CROP), "--log_every", "1", "--device", DEVICE]
+    cli = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for kind, styles in (("single", ["--style_image", paths[0]]),
+                         ("gallery", ["--style_image", f"a={paths[0]}", "--style_image",
+                                      f"b={paths[1]}"])):
+        a, a2, b = (os.path.join(tmp, f"fst_{kind}_{run}") for run in ("a", "a2", "b"))
+        _fst_cli(base + styles + ["--save_dir", a])
+        _fst_cli(base + styles + ["--save_dir", a2])  # the card's own run-to-run spread
+        resume = ["--save_dir", b, "--resume", "--checkpoint_every", "1"]
+        if kind == "gallery":
+            resume.append("--async_checkpoint")
+        _fst_cli(base + styles + resume, preempt_after=3)
+        stopped = (not os.path.exists(os.path.join(b, "style_net.npz"))
+                   and os.path.exists(os.path.join(b, "_inprogress_style_net.npz")))
+        _fst_cli(base + styles + resume)
+        init = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5,
+                                    n_styles=2 if kind == "gallery" else None, device="cpu")
+        gaps = {}
+        for name, d in (("spread", a2), ("resumed", b)):
+            rms, bias = _tree_gap(os.path.join(a, "style_net.npz"),
+                                  os.path.join(d, "style_net.npz"), init)
+            finals = []
+            for run in (a, d):
+                with open(os.path.join(run, "style_net_hyperparameters.json")) as f:
+                    finals.append(json.load(f)["final_loss"])
+            gaps[name] = (abs(finals[1] - finals[0]) / abs(finals[0]), rms, bias, finals[1])
+        steps = 2 * 8 // FST_CLI_BATCH
+        tol_loss = max(FST_TOL_RESUME_LOSS, 2 * gaps["spread"][0])
+        tol_rms = max(FST_TOL_RESUME * steps * 1e-3, 2 * gaps["spread"][1])
+        loss_rel, rms, bias, final = gaps["resumed"]
+        print(f"[fast_style_train] CLI {kind}: preempted after 3 batches with the in-progress "
+              f"file on disk {stopped}; resumed vs uninterrupted: final loss {final:.6f} (rel "
+              f"{loss_rel:.2e}, tol {tol_loss:.2e}), parameters' worst RMS gap {rms:.3e} (tol "
+              f"{tol_rms:.2e}), zero-gradient biases' largest move from the init {bias:.3e} "
+              f"(tol {steps * 1e-3 * 1.01:.3e}: Adam's steps on rounding noise, at most 4.012 · "
+              f"lr in 4 steps); two uninterrupted runs: loss rel {gaps['spread'][0]:.2e}, RMS "
+              f"gap {gaps['spread'][1]:.3e}. Tolerances: max({FST_TOL_RESUME_LOSS}, 2x the "
+              f"spread) and max(0.25 · steps · lr, 2x the spread). Not bit-equal on the card: "
+              f"the reflect pads' backward accumulates with atomics, in no fixed order")
+        cli[kind] = {"stopped": stopped, "resumed": gaps["resumed"], "spread": gaps["spread"]}
+        _require(stopped and loss_rel <= tol_loss and rms <= tol_rms
+                 and max(bias, gaps["spread"][2]) <= steps * 1e-3 * 1.01,
+                 f"the resumed {kind} fit agrees with the uninterrupted one")
+    timings["fast_style_train_cli_s"] = time.perf_counter() - t0
+    cli_launches = kernels.launch_counts()
+    add(cli_launches)
+    net_path = os.path.join(tmp, "fst_gallery_b", "style_net.npz")
+    srv, service, url = _serve(["--net", net_path, "--batch_size", "1", "--port", "0",
+                                "--device", DEVICE])
+    try:
+        img = rng.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+        answers = []
+        for style in ("a", "b"):
+            req = urllib.request.Request(url + "/style", data=img.tobytes(), method="POST",
+                                         headers={"X-Raw-Shape": "224,224,3", "X-Style": style})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                answers.append((r.status, decode_png(r.read())))
+        listed = json.loads(_get(url, "/styles")[1])
+    finally:
+        _stop(srv, service)
+    print(f"[fast_style_train] 8 CLI runs in {timings['fast_style_train_cli_s']:.1f} s, launches "
+          f"{cli_launches}; serve_style --net on the gallery's net: /styles {listed}, answers "
+          f"{[(st, a.shape) for st, a in answers]}")
+    _require(listed == {"styles": ["a", "b"]}
+             and all(st == 200 and a.shape == (FST_CROP, FST_CROP, 3) for st, a in answers),
+             "serve_style --net serves the trained gallery")
+    out["cli"] = cli
+    out["launches"] = launches_all
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -2370,13 +2812,22 @@ def main() -> int:
         timings["gradcam_content_style_phases_s"] = time.perf_counter() - t0
         print(f"[gradcam+content_style+serve] {timings['gradcam_content_style_phases_s']:.2f} s "
               f"in all")
+        t0 = time.perf_counter()
+        fst = phase_fast_style_train(kernels, model, seeded, tmp, timings)
+        timings["fast_style_train_phase_s"] = time.perf_counter() - t0
+        print(f"[fast_style_train] {timings['fast_style_train_phase_s']:.2f} s in all")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
+    fst_launches = fst["launches"]
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
-                "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"],
-                "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"],
-                "instance_norm_fwd": fs_launches["instance_norm_fwd"],
-                "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]}
+                "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"]
+                + fst_launches["gram_fwd"],
+                "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"]
+                + fst_launches["gram_bwd"],
+                "instance_norm_fwd": fs_launches["instance_norm_fwd"]
+                + fst_launches["instance_norm_fwd"],
+                "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]
+                + fst_launches["instance_norm_bwd"]}
     idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
@@ -2407,7 +2858,7 @@ def main() -> int:
                    "records": records, "family3": f3_results,
                    "embeddings": embeddings, "cameras": cameras, "family3_style": f3_style,
                    "pth": pth, "gradcam": gradcam, "content_style": content_style,
-                   "content_style_serve": cs_serve}, f, indent=1)
+                   "content_style_serve": cs_serve, "fast_style_train": fst}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -19,7 +19,7 @@ on any leaf left over or missing, and on any shape mismatch.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -55,18 +55,21 @@ def from_jax_tree(tree: Any) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_jax_tree(module: torch.nn.Module) -> Dict[str, Any]:
+def to_jax_tree(module: torch.nn.Module,
+                tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """The port's module -> the JAX package's tree of numpy float32 arrays
     (what its ``save_pytree_npz`` writes). The ``weight`` of a module marked
     ``is_affine_norm`` is a norm's scale whatever its rank: a conditional
     net's (S, C) table stays (S, C), untransposed. A child that a module
-    names in ``none_leaves`` and that is None becomes a None leaf."""
+    names in ``none_leaves`` and that is None becomes a None leaf.
+    ``tensors`` ({state-dict key: tensor}, such as an optimiser's moments)
+    is written in the layout of the module's own state, in its place."""
     tree: Dict[str, Any] = {}
     inverse = {"running_mean": "mean", "running_var": "var"}
     norms = {name for name, m in module.named_modules() if getattr(m, "is_affine_norm", False)}
-    for key, t in module.state_dict().items():
+    for key, t in (module.state_dict() if tensors is None else tensors).items():
         parts = key.split(".")
-        arr = t.detach().to("cpu", torch.float32).numpy()
+        arr = t.detach().to("cpu", torch.float32, copy=True).numpy()  # owns its memory
         leaf = parts[-1]
         if leaf == "weight":
             if ".".join(parts[:-1]) in norms:

@@ -43,30 +43,57 @@ def load_image_staged(path: str) -> np.ndarray:
 
 
 class HostLoader:
-    """Threaded prefetching batch loader over (path, label) pairs, in
-    order (evaluation; the shuffled training order comes with training).
+    """Threaded prefetching batch loader over (path, label) pairs
+    (``data/loader.py:81-217`` of the JAX package, single host).
 
     Yields dicts ``{"image": uint8 (B, S, S, 3), "label": int32 (B,),
     "indices": (B,), "n_valid": int}``. The last short batch is padded to
     ``batch_size`` by cycling samples from the start of the epoch order;
     pad entries carry label -1 and are not counted in ``n_valid``.
-    ``num_workers`` threads decode; ``shuffle`` must stay False."""
+    ``num_workers`` threads decode. With ``shuffle`` each epoch's order is
+    ``np.random.RandomState(seed + epoch)``'s permutation, and each
+    ``__iter__`` advances the epoch, so a fresh loader gives the JAX
+    loader's orders."""
 
     def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int,
-                 shuffle: bool = False, num_workers: int = DECODE_WORKERS):
-        if shuffle:
-            raise NotImplementedError("HostLoader(shuffle=True) is not ported yet")
+                 shuffle: bool = False, seed: int = 0, num_workers: int = DECODE_WORKERS):
         self.samples = list(samples)
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
         self.num_workers = max(1, num_workers)
+        self._epoch = 0
+        self._skip = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """The next ``__iter__`` gives the order of a fresh loader's
+        ``epoch``-th iteration."""
+        self._epoch = int(epoch)
+
+    def set_position(self, epoch: int, skip_batches: int = 0) -> None:
+        """Mid-epoch seek (resume): the next ``__iter__`` replays epoch
+        ``epoch``'s order and drops its first ``skip_batches`` batches
+        without decoding them; the tail padding comes from the full epoch
+        order. Once only: the epochs after it start at batch 0."""
+        self.set_epoch(epoch)
+        self._skip = int(skip_batches)
 
     def __len__(self):
         return (len(self.samples) + self.batch_size - 1) // self.batch_size
 
-    def __iter__(self) -> Iterator[dict]:
+    def _order(self) -> np.ndarray:
         order = np.arange(len(self.samples))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(order)
+        return order
+
+    def __iter__(self) -> Iterator[dict]:
+        order = self._order()
+        self._epoch += 1
         bs = self.batch_size
         batches: List[np.ndarray] = [order[i : i + bs] for i in range(0, len(order), bs)]
+        skip, self._skip = self._skip, 0
+        batches = batches[skip:]
 
         # separate pools, so an assembler waiting on decodes never starves them
         decode_pool = cf.ThreadPoolExecutor(max_workers=self.num_workers)

@@ -7,10 +7,10 @@ The module tree mirrors the JAX parameter tree, so the weight bridge
 ``params["res"][2]["conv_a"]["kernel"]``, ``in1.weight`` is
 ``params["in1"]["scale"]``. Activations are NHWC tensors stored
 ``channels_last``; each of the 15 instance norms hands its (B, HW, C) view
-to ``instance_norm_fwd`` (``ops/kernels/instance_norm.py``), which on the
-card is the hand-written kernel and on the CPU its plain version — there is
-no backend switch. The kernel is forward only: the net serves here, and
-training (which needs the norm's gradient) is not ported yet.
+to ``InstanceNormFunction`` (``ops/kernels/instance_norm.py``): on the card
+``instance_norm_fwd`` forward and, where a gradient flows (training),
+``instance_norm_bwd`` backward; on the CPU their plain versions. There is
+no backend switch.
 
 ``compute_dtype=torch.bfloat16`` runs the conv stack in bf16; the
 statistics, the [0, 1] boundary affines and the sigmoid stay f32.
@@ -29,7 +29,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..ops.conv import conv2d
-from ..ops.kernels.instance_norm import instance_norm_fwd
+from ..ops.kernels.instance_norm import InstanceNormFunction
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
 
 EPS = 1e-5
@@ -140,7 +140,8 @@ def _in_apply(m: InstanceNorm, x: torch.Tensor, style_w: Optional[torch.Tensor],
               relu: bool = False) -> torch.Tensor:
     """Affine instance norm of NHWC ``x`` with f32 statistics; a (S, C)
     table takes the per-image affine ``style_w @ table`` (B, C), a (C,)
-    affine is repeated to (B, C) for the kernel."""
+    affine is repeated to (B, C) for the kernel. Gradients reach the
+    affines through the product or the repeat."""
     b, h, w, c = x.shape
     scale, bias = m.weight.float(), m.bias.float()
     if scale.dim() == 2:
@@ -155,19 +156,22 @@ def _in_apply(m: InstanceNorm, x: torch.Tensor, style_w: Optional[torch.Tensor],
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError(f"instance norm input {tuple(x.shape)} is not contiguous "
                          f"(strides {x.stride()}); keep activations in channels_last")
-    y = instance_norm_fwd(x.reshape(b, h * w, c), scale.contiguous(), bias.contiguous(),
-                          EPS, relu)
+    y = InstanceNormFunction.apply(x.reshape(b, h * w, c), scale.contiguous(),
+                                   bias.contiguous(), EPS, relu)
     return y.reshape(b, h, w, c)
 
 
 @functools.lru_cache(maxsize=64)
 def _reflect_index(n: int, pad: int, device: torch.device) -> torch.Tensor:
     """Source index of each of n + 2*pad positions under reflect padding
-    (no edge repeat, ``jnp.pad(mode="reflect")``)."""
+    (no edge repeat, ``jnp.pad(mode="reflect")``). Never an inference
+    tensor: one made first under ``inference_mode`` (serving) would be
+    refused later where the gather saves it for a backward (training)."""
     if pad >= n:
         raise ValueError(f"reflect padding {pad} needs a side longer than {pad}, got {n}")
-    i = torch.arange(-pad, n + pad).abs()
-    return ((n - 1) - ((n - 1) - i).abs()).to(device)
+    with torch.inference_mode(False):
+        i = torch.arange(-pad, n + pad).abs()
+        return ((n - 1) - ((n - 1) - i).abs()).to(device)
 
 
 def _reflect_conv(m: Conv2d, x: torch.Tensor, pad: int, stride: int = 1) -> torch.Tensor:

@@ -165,23 +165,30 @@ def make_extract_fn_gram_attention(
     ``resnet50_apply(..., collect_grams=True)`` (four at truncate 8). Every
     Gram is ``GramFunction``'s, so on the card each one launches
     ``gram_fwd`` and, under a gradient, ``gram_bwd``. In bf16 the encoder is
-    a bf16 copy of the model's and the Grams come out in bf16 (f32 sums)."""
+    a bf16 copy of the model's and the Grams come out in bf16 (f32 sums).
+    The encoder is frozen: its parameters stop requiring gradients, so a
+    gradient through it (the loops' pixels, the fast-style net) computes no
+    weight gradient. ``extract_fn.features(images)`` gives the features
+    alone, with no Gram taken."""
     from ..nn.resnet import resnet50_apply
 
     if style_layers not in ("last", "all"):
         raise ValueError(f"style_layers must be 'last' or 'all', got {style_layers!r}")
     truncate = min(layers if layers is not None else truncate_layer, truncate_layer, 8)
-    enc = _encoder_in(model, compute_dtype)
+    enc = _encoder_in(model, compute_dtype).requires_grad_(False)
 
-    def extract_fn(images):
+    def encode(images, collect_grams: bool):
         if compute_dtype is not None:
             images = images.to(compute_dtype)
-        feats, grams = resnet50_apply(enc, images, truncate=truncate,
-                                      collect_grams=style_layers == "all")
+        return resnet50_apply(enc, images, truncate=truncate, collect_grams=collect_grams)
+
+    def extract_fn(images):
+        feats, grams = encode(images, style_layers == "all")
         if style_layers != "all" or not grams:
             grams = [gram_matrix_nhwc(feats)]
         return feats, grams
 
+    extract_fn.features = lambda images: encode(images, False)[0]
     return extract_fn
 
 

@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Nine cells, each at full model width with seeded random weights:
+Ten cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -43,6 +43,14 @@ Nine cells, each at full model width with seeded random weights:
                     over ``make_extract_fn_gram_attention``: 4 ``gram_fwd``
                     and 4 ``gram_bwd`` an iteration, at (4,56,56,256),
                     (4,28,28,512), (4,14,14,1024) and (4,7,7,2048))
+
+  fast_style_train  one fast-style training step: the classic net (width 32,
+                    5 residual blocks), crop 224, batch 16, the family-2
+                    encoder at truncate 8 with --style_layers all, f32 and
+                    bf16 (``make_fast_style_train_step``: 15
+                    ``instance_norm_fwd`` and 15 ``instance_norm_bwd``, 4
+                    ``gram_fwd`` and 4 ``gram_bwd`` a step), with the
+                    launches a step and the peak memory
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -255,6 +263,42 @@ def fast_style_cell(net, dtype) -> dict:
             "profiled_steps": 3}
 
 
+def fast_style_train_cell(model, net, dev, dtype) -> dict:
+    """One training step of the classic net at b16 against the frozen
+    family-2 encoder's four stage Grams; staged uint8 batches from the
+    host, as the CLI's loader gives them."""
+    from ..ops.kernels import launch_counts, reset_launch_counts
+    from ..tasks.fast_style import encode_style_grams, make_fast_style_train_step
+    from ..tasks.style_transfer import make_extract_fn_gram_attention
+
+    extract = make_extract_fn_gram_attention(model, 8, None, dtype, "all")
+    rng = np.random.RandomState(10)
+    u8 = rng.randint(0, 256, (16, 256, 256, 3)).astype(np.uint8)
+    init, train_step = make_fast_style_train_step(extract, crop=224, compute_dtype=dtype)
+    opt = init(net)
+    grams = encode_style_grams(extract, rng.randint(0, 256, (256, 256, 3)).astype(np.uint8),
+                               224, dev)
+
+    def step():
+        train_step(net, opt, u8, grams)
+
+    step()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runs = _timed(step, 5)
+    ms = float(np.median(runs))
+    return {"cell": "fast_style_train", "width": 32, "n_res": 5, "crop": 224, "batch": 16,
+            "truncate": 8, "style_layers": "all", "dtype": _dtype_name(dtype), "step_ms": ms,
+            "step_ms_runs": runs, "steps_per_s": 1e3 / ms, "images_per_s": 16 / ms * 1e3,
+            "launches_per_step": launches, "max_memory_allocated_gib": peak / 2**30,
+            **_profile(step, 3), "profiled_steps": 3}
+
+
 def _family1_forward(dtype):
     return cast_forward(lambda m, images: combined_apply(m.moco, m.classifier, images, 8), dtype)
 
@@ -359,6 +403,10 @@ def main() -> None:
         + [family3_style_cell(*family3["instance"], dev, None)],
         "content_style": lambda: f32_and_bf16(content_style_cell,
                                               seeded(gram_attention_init, 0, 8, 4, 7), dev),
+        "fast_style_train": lambda: [
+            fast_style_train_cell(seeded(gram_attention_init, 0, 8, 4, 7),
+                                  seeded(transformer_net_init, 0, width=32, n_res=5), dev, dtype)
+            for dtype in (None, torch.bfloat16)],
     }
     names = args.cells.split(",") if args.cells else list(plan)
     unknown = sorted(set(names) - set(plan))
