@@ -6,7 +6,8 @@
 Phases, all run every time:
   build           csrc/gram.cu and csrc/instance_norm.cu, one nvcc each,
                   started together (sm_90a).
-  kernels         hold gram_fwd, gram_bwd and pooled_gram_fwd against their
+  kernels         hold gram_fwd, gram_bwd, pooled_gram_fwd and
+                  pooled_gram_bwd against their
                   plain PyTorch versions at the main path's shapes in f32
                   and bf16, on non-negative inputs as the main path's
                   post-ReLU features are (gram_fwd and gram_bwd also at
@@ -44,8 +45,16 @@ Phases, all run every time:
                   row also saying whether two calls gave the same bits,
                   and instance_norm_fwd and instance_norm_bwd at the net's
                   (16,224,224,32), (16,112,112,64) and (16,56,56,128),
-                  with and without ReLU, affine rows that differ; the
-                  forward-only wrappers refuse inputs that need a gradient;
+                  with and without ReLU, affine rows that differ;
+                  pooled_gram_bwd (family-2 training) at the b32 stage
+                  outputs (32,56,56,256), (32,28,28,512) and
+                  (32,14,14,1024) at S 7, at overlapping bins (C = 10),
+                  C < S and S = 24, each row also saying whether two calls
+                  gave the same bits and timing autograd through the
+                  two-einsum composition, less its forward, as the
+                  library; the forward-only wrappers (gram_fwd,
+                  pooled_gram_fwd, instance_norm_fwd) refuse inputs that
+                  need a gradient;
                   time the kernel, the plain version and a library call;
                   compute each bound from the shapes and the card's peak
                   rates.
@@ -165,6 +174,20 @@ Phases, all run every time:
                   serve_style --net on the gallery's net, one POST a
                   style; steps/s, images/s, busy, idle share and peak
                   memory of the b16 step.
+  family2_train   family-2 training at full width (truncate 7, S 7, b32,
+                  224² crops of 256² staged uint8, 4 classes, seeded
+                  weights): one step's launches (3 pooled_gram_fwd and 3
+                  pooled_gram_bwd; with the encoder frozen 3 and 0); one
+                  f32 step against the CPU's from the same weights (the
+                  loss, every gradient leaf by relative L2 within the
+                  CPU's own spread, the running statistics); the CLI on 96
+                  PNGs, 2 folds, 2 epochs, with exact launches and the
+                  reference's artifacts, twice uninterrupted, then with
+                  --resume --async_checkpoint stopped by a real SIGTERM
+                  and resumed, held to the first run; its
+                  best_global_model.npz through the family-2 eval CLI;
+                  images/s, busy, idle share, kernel share and peak memory
+                  of the b32 step, f32 and bf16.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -243,6 +266,11 @@ F3_BWD_SHAPES = [(1, 4, 4, 64)]
 F3_STYLE_IN_SHAPES = [(1, 112, 112, 64), (1, 56, 56, 128), (1, 55, 55, 256), (1, 28, 28, 256),
                       (1, 14, 14, 512), (1, 13, 13, 1024), (32, 112, 112, 64)]
 NET_IN_BWD_SHAPES = [(8, 224, 224, 32), (8, 56, 56, 128)]
+# pooled_gram_bwd (family-2 training): the b32 stage outputs at truncate 7,
+# S 7 (layer1..layer3); overlapping bins at C = 10 (a boundary channel in
+# two bins); C < S (a channel in several bins); past 16 bins
+B32_POOLED_SHAPES = [(32, 56, 56, 256), (32, 28, 28, 512), (32, 14, 14, 1024)]
+POOLED_BWD_EXTRA = [((2, 13, 11, 10), 7), ((2, 5, 5, 5), 7), ((2, 13, 11, 200), 24)]
 # fast-style training at b16: the frozen encoder's four stage Grams on the
 # stylised output (gram_fwd and gram_bwd), and the net's norms (in1 and
 # in_up2, in2 and in_up1, in3 and the residual blocks': three distinct
@@ -267,8 +295,8 @@ DEVICE = "cuda"
 N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
 MAIN_SHAPE = {"gram_fwd": (4, 56, 56, 256), "gram_bwd": (4, 56, 56, 256),
-              "pooled_gram_fwd": (8, 56, 56, 256), "instance_norm_fwd": (8, 224, 224, 32),
-              "instance_norm_bwd": (1, 112, 112, 64)}
+              "pooled_gram_fwd": (8, 56, 56, 256), "pooled_gram_bwd": (32, 56, 56, 256),
+              "instance_norm_fwd": (8, 224, 224, 32), "instance_norm_bwd": (1, 112, 112, 64)}
 # the fast-style net's norms at crop 224, width 32, batch 8: in1 and in_up2,
 # in2 and in_up1, in3 and the residual blocks' 10
 IN_SHAPES = [(8, 224, 224, 32), (8, 112, 112, 64), (8, 56, 56, 128)]
@@ -312,6 +340,22 @@ FST_TOL_RESUME, FST_TOL_RESUME_LOSS = 0.25, 1e-2
 # vs oneDNN) through up to 8 convs and 3 norms; bf16 rounds each stage's
 # output at 2^-8 on both sides, at other places
 TOL_MODEL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 2e-2)}
+
+
+# family-2 training at full width: truncate 7, S 7, the CLI's batch 32, 224²
+# crops, 4 classes x 24 PNGs (2 folds: 48 train images a fold, 2 batches an
+# epoch), 2 epochs; the step timed over 10 steps, profiled over 3
+F2T_TRUNCATE, F2T_S, F2T_BATCH, F2T_PER_CLASS, F2T_TIMED = 7, 7, 32, 24, 10
+F2T_LR = 0.01
+# one b32 step, card vs CPU (f32): the loss, relative; each gradient leaf by
+# relative L2, raised to twice the CPU's own spread (the same step from
+# weights nudged by F2T_NUDGE) where that is larger; the running statistics
+# after the step, relative to each leaf's largest entry
+F2T_TOL_LOSS, F2T_TOL_GRAD, F2T_TOL_STATS, F2T_NUDGE = 1e-4, 1e-2, 1e-4, 1e-6
+# a resumed CLI run against an uninterrupted one: each checkpoint leaf's
+# relative L2 gap and each fold's validation loss, relative; raised to
+# twice the gap between two uninterrupted runs where that is larger
+F2T_TOL_RESUME = 1e-5
 
 
 def _require(ok: bool, what: str) -> None:
@@ -1570,20 +1614,26 @@ def _gradient_guards(kg, kin) -> None:
     ones, zeros = torch.ones((1, 64), device=DEVICE), torch.zeros((1, 64), device=DEVICE)
     refused = []
     for name, call in (("gram_fwd", lambda: kg.gram_fwd(f)),
+                       ("pooled_gram_fwd", lambda: kg.pooled_gram_fwd(f, 7)),
                        ("instance_norm_fwd", lambda: kin.instance_norm_fwd(x, ones, zeros))):
         try:
             call()
         except NotImplementedError as e:
             refused.append((name, str(e)))
     print(f"[kernels] forward-only wrappers on inputs that need a gradient: {refused}")
-    _require(len(refused) == 2 and "GramFunction" in refused[0][1],
-             f"gram_fwd and instance_norm_fwd refuse inputs that need a gradient: {refused}")
+    _require(len(refused) == 3 and "GramFunction" in refused[0][1]
+             and "PooledGramFunction" in refused[1][1],
+             f"gram_fwd, pooled_gram_fwd and instance_norm_fwd refuse inputs that need a "
+             f"gradient: {refused}")
     g = kg.GramFunction.apply(f)
+    pg = kg.PooledGramFunction.apply(f, 7)
     y = kin.InstanceNormFunction.apply(x, ones, zeros, kin.EPS, True)
     (df,) = torch.autograd.grad(g.sum(), f)
+    (dpf,) = torch.autograd.grad(pg.sum(), f)
     (dx,) = torch.autograd.grad(y.sum(), x)
-    _require(bool(torch.isfinite(df).all() and torch.isfinite(dx).all()),
-             "GramFunction and InstanceNormFunction differentiate on the card")
+    _require(bool(torch.isfinite(df).all() and torch.isfinite(dpf).all()
+                  and torch.isfinite(dx).all()),
+             "GramFunction, PooledGramFunction and InstanceNormFunction differentiate on the card")
 
 
 def _bwd_check(got, want, dname: str):
@@ -1776,6 +1826,76 @@ def phase_in_bwd_kernels(kin, peaks) -> list:
     return rows
 
 
+def phase_pooled_bwd_kernels(kg, peaks) -> list:
+    """pooled_gram_bwd against pooled_gram_bwd_plain, f32 and bf16, at the
+    family-2 training step's b32 stage outputs (truncate 7, S 7), at
+    overlapping bins (C = 10), C < S and S = 24, on non-negative features
+    and a signed, non-symmetric dG: max|err| and RMS, each relative to the
+    plain result's scale, at TOL; two calls bit-equal. Each row names the
+    kernel's tile (rows a block stages, parts a bin is cut into) and times the
+    kernel, the plain version and the library yardstick: autograd through
+    the two-einsum composition (Y = F P^T, G = Y^T Y / HW), its forward's
+    time taken off. The bound: F and dG read once, dF written once at the
+    card's HBM rate, or the f32 operations (C adds, S^2 FMAs and about C
+    more adds a row) on the CUDA cores."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.ops.pooling import adaptive_pool_matrix
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(60)
+    cases = [(shape, POOL_S) for shape in B32_POOLED_SHAPES] + POOLED_BWD_EXTRA
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        for (n, h, w, c), s in cases:
+            hw = h * w
+            f = torch.relu(torch.randn((n, hw, c), device=dev, generator=gen)).to(dtype)
+            dg = torch.randn((n, s, s), device=dev, generator=gen).to(dtype)
+            got = kg.pooled_gram_bwd(f, dg, s)
+            want = kg.pooled_gram_bwd_plain(f, dg, s)
+            torch.cuda.synchronize()
+            diff = got.float() - want.float()
+            err = diff.abs().max().item()
+            rel = err / want.float().abs().max().item()
+            rms = (diff.norm() / want.float().norm()).item()
+            same = torch.equal(kg.pooled_gram_bwd(f, dg, s), kg.pooled_gram_bwd(f, dg, s))
+            ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
+                  and rms <= TOL[dname] and same)
+            bound, by = _bound(n * hw * (2.0 * c + 2 * s * s), (2 * n * hw * c + n * s * s) * es,
+                               torch.float32, peaks)
+            pl = adaptive_pool_matrix(c, s, dev).to(dtype)
+            fl = f.detach().clone().requires_grad_(True)
+
+            def lib_fwd():
+                y = torch.einsum("nkc,oc->nko", fl, pl)
+                return torch.einsum("nko,nkp->nop", y, y) / hw
+
+            lib_fwd_ms = _time_ms(lib_fwd)
+            lib_both_ms = _time_ms(lambda: torch.autograd.grad(lib_fwd(), fl, dg))
+            tile_rows, parts = kg._pooled_gram_bwd_plan(hw, c, s, es)[:2]
+            rows.append(dict(
+                shape=[n, h, w, c], s=s, dtype=dname, max_abs_err=err, rel_err=rel, rms_err=rms,
+                tol=TOL[dname], ok=ok, repeatable=same, tile_rows=tile_rows, parts=parts,
+                ms=_time_ms(lambda: kg.pooled_gram_bwd(f, dg, s)),
+                plain_ms=_time_ms(lambda: kg.pooled_gram_bwd_plain(f, dg, s)),
+                library_ms=lib_both_ms - lib_fwd_ms, library_fwd_bwd_ms=lib_both_ms,
+                bound_ms=bound, bound_by=by))
+            del f, dg, got, want, fl
+    for r in rows:
+        print(f"[kernels] pooled_gram_bwd {r['dtype']} {tuple(r['shape'])} S={r['s']} "
+              f"tile_rows={r['tile_rows']} parts={r['parts']}: "
+              f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} "
+              f"(tol {r['tol']}) repeatable={r['repeatable']} ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (fwd+bwd "
+              f"{r['library_fwd_bwd_ms']:.4f}) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+    bad = [(r["dtype"], r["shape"], r["s"]) for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"pooled_gram_bwd disagrees with its plain version: {bad}")
+    return rows
+
+
 def phase_family3_style_transfer(kernels, family3, timings: dict, tmp: str) -> dict:
     """Family 3's ``--mode style_transfer`` through ``style_transfer_patches``
     (what the CLI calls, with its b1 loader) at full width: f32 and bf16 at
@@ -1822,7 +1942,7 @@ def phase_family3_style_transfer(kernels, family3, timings: dict, tmp: str) -> d
         launches = kernels.launch_counts()
         inst = norm == "instance"
         want = {"gram_fwd": n * F3_GRAMS * (iters + 1), "gram_bwd": n * F3_GRAMS * iters,
-                "pooled_gram_fwd": 0,
+                "pooled_gram_fwd": 0, "pooled_gram_bwd": 0,
                 "instance_norm_fwd": n * F3_NORMS * (iters + 1) if inst else 0,
                 "instance_norm_bwd": n * F3_NORMS * iters if inst else 0}
 
@@ -2006,15 +2126,16 @@ def phase_pth(family1, family2, family3, tmp: str) -> dict:
     return out
 
 
-def _image_folder(root: str, per_class: int, seed: int, size=(256, 256)) -> str:
-    """An ImageFolder test split of random PNGs, ``per_class`` under each of
-    the four weather classes; returns ``root``."""
+def _image_folder(root: str, per_class: int, seed: int, size=(256, 256),
+                  split: str = "test") -> str:
+    """An ImageFolder split of random PNGs, ``per_class`` under each of the
+    four weather classes; returns ``root``."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.RandomState(seed)
     for cls in ("fog", "rain", "snow", "sun"):
-        d = os.path.join(root, "test", cls)
+        d = os.path.join(root, split, cls)
         os.makedirs(d, exist_ok=True)
         for i in range(per_class):
             Image.fromarray(rng.randint(0, 256, size + (3,)).astype(np.uint8)).save(
@@ -2179,7 +2300,7 @@ def phase_content_style(kernels, model, seeded, tmp: str, timings: dict) -> dict
         seconds = time.perf_counter() - t0
         launches = kernels.launch_counts()
         want = {"gram_fwd": grams * (iters + 2), "gram_bwd": grams * iters, "pooled_gram_fwd": 0,
-                "instance_norm_fwd": 0, "instance_norm_bwd": 0}
+                "pooled_gram_bwd": 0, "instance_norm_fwd": 0, "instance_norm_bwd": 0}
         first, last = history[0][0].cpu().numpy(), history[0][-1].cpu().numpy()
 
         extract = make_extract_fn_gram_attention(model, 8, 8, compute, "all")
@@ -2424,12 +2545,12 @@ def _net_pair(seed: int, n_styles=None):
     return card, cpu
 
 
-def _fst_cli(args, preempt_after=None):
-    """``cli/train_style_net.py`` once; with ``preempt_after``, a real SIGTERM
-    to this process at that batch boundary (through the CLI's own handler)."""
+def _train_cli(cli, args, preempt_after=None):
+    """A train CLI's ``main(args)`` once; with ``preempt_after``, a real
+    SIGTERM to this process at that batch boundary (through the CLI's own
+    handler)."""
     import signal
 
-    from heuristique_style_transfer_code_tpu_torch.cli.train_style_net import main as cli
     from heuristique_style_transfer_code_tpu_torch.train import preemption
 
     real = preemption.preemption_requested
@@ -2545,7 +2666,7 @@ def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> d
         add(launches)
         steps = FST_STEPS
         want = {"gram_fwd": 4 * steps + 4, "gram_bwd": 4 * steps, "pooled_gram_fwd": 0,
-                "instance_norm_fwd": NORMS_PER_FORWARD * steps,
+                "pooled_gram_bwd": 0, "instance_norm_fwd": NORMS_PER_FORWARD * steps,
                 "instance_norm_bwd": NORMS_PER_FORWARD * steps}
         losses = history[:steps]
         print(f"[fast_style_train] {name} b{FST_BATCH}: {steps} steps of train_fast_style in "
@@ -2642,7 +2763,7 @@ def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> d
           f"relative L2 {t_worst:.2e} (in_b noise {t_noise:.2e}), all gradients {worst:.2e} "
           f"(tol {tol_grad:.2e}, as the single-style step's), finite {finite}")
     _require(launches == {"gram_fwd": 4 + 4, "gram_bwd": 4, "pooled_gram_fwd": 0,
-                          "instance_norm_fwd": NORMS_PER_FORWARD,
+                          "pooled_gram_bwd": 0, "instance_norm_fwd": NORMS_PER_FORWARD,
                           "instance_norm_bwd": NORMS_PER_FORWARD},
              f"one conditional step's launches (and 4 gram_fwd for the stacks): {launches}")
     _require(finite and rel <= FST_TOL_LOSS and max(t_worst, worst) <= tol_grad
@@ -2654,6 +2775,8 @@ def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> d
 
     # (c) the CLI: single style and a 2-style gallery, preempted and resumed
     from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch.cli.train_style_net import main as style_cli
 
     data = _image_folder(os.path.join(tmp, "fst_data"), 2, seed=43)
     paths = []
@@ -2670,15 +2793,15 @@ def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> d
                          ("gallery", ["--style_image", f"a={paths[0]}", "--style_image",
                                       f"b={paths[1]}"])):
         a, a2, b = (os.path.join(tmp, f"fst_{kind}_{run}") for run in ("a", "a2", "b"))
-        _fst_cli(base + styles + ["--save_dir", a])
-        _fst_cli(base + styles + ["--save_dir", a2])  # the card's own run-to-run spread
+        _train_cli(style_cli, base + styles + ["--save_dir", a])
+        _train_cli(style_cli, base + styles + ["--save_dir", a2])  # the card's own spread
         resume = ["--save_dir", b, "--resume", "--checkpoint_every", "1"]
         if kind == "gallery":
             resume.append("--async_checkpoint")
-        _fst_cli(base + styles + resume, preempt_after=3)
+        _train_cli(style_cli, base + styles + resume, preempt_after=3)
         stopped = (not os.path.exists(os.path.join(b, "style_net.npz"))
                    and os.path.exists(os.path.join(b, "_inprogress_style_net.npz")))
-        _fst_cli(base + styles + resume)
+        _train_cli(style_cli, base + styles + resume)
         init = transformer_net_init(torch.Generator().manual_seed(0), width=32, n_res=5,
                                     n_styles=2 if kind == "gallery" else None, device="cpu")
         gaps = {}
@@ -2735,6 +2858,261 @@ def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> d
     return out
 
 
+def _f2t_grads(model, u8, labels):
+    """One family-2 train step's loss, gradients (by parameter name, on the
+    host) and the running statistics after its forward, without the SGD
+    update: the step's own augmentation, forward and masked loss."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train.train_loop import masked_cross_entropy
+
+    dev = next(model.parameters()).device
+    images = eval_preprocess(torch.as_tensor(u8).to(dev))
+    model.train()
+    _, logits = gram_attention_apply(model, images, F2T_TRUNCATE, F2T_S, 4)
+    loss = masked_cross_entropy(logits, torch.as_tensor(labels).to(dev))
+    named = list(model.named_parameters())
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(loss.detach()), {n: g.detach().cpu() for (n, _), g in zip(named, grads)}, stats
+
+
+def _worst_rel_l2(a: dict, b: dict):
+    """(the worst relative L2 error of a's leaves against b's, its key)."""
+    errs = {k: float((a[k].double() - b[k].double()).norm() / b[k].double().norm()) for k in b}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _npz_gap(path_a: str, path_b: str):
+    """(the worst relative L2 gap between two checkpoints' leaves, that
+    leaf's key, the relative L2 gap of all leaves together)."""
+    import numpy as np
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, load_pytree_npz
+
+    a, b = _flatten(load_pytree_npz(path_a)), _flatten(load_pytree_npz(path_b))
+    _require(a.keys() == b.keys(), f"{path_a} and {path_b} hold the same leaves")
+    gaps = {k: float(np.linalg.norm(np.asarray(a[k], np.float64) - b[k])
+                     / max(np.linalg.norm(np.asarray(a[k], np.float64)), 1e-30)) for k in a}
+    worst = max(gaps, key=gaps.get)
+    diff = sum(float(np.sum((np.asarray(a[k], np.float64) - b[k]) ** 2)) for k in a)
+    norm = sum(float(np.sum(np.asarray(a[k], np.float64) ** 2)) for k in a)
+    return gaps[worst], worst, (diff / norm) ** 0.5
+
+
+def phase_family2_train(kernels, tmp: str, timings: dict) -> dict:
+    """Family-2 training at full width: truncate 7, S 7, b32, 224² crops,
+    4 classes, seeded weights.
+
+    (a) One step's launches through ``setup_gram_attention``'s train step:
+    3 pooled_gram_fwd and 3 pooled_gram_bwd (one a stage, layer1..layer3),
+    and with the encoder frozen (``--freeze_layers``) 3 and 0. (b) One f32
+    step on the card against the same step on the CPU from the same
+    weights and batch (one pad entry): the loss, every gradient leaf by
+    relative L2 (against twice the CPU's own spread from weights nudged by
+    F2T_NUDGE where that is larger) and the running statistics after the
+    forward. (c) The CLI (``cli/train_gram_attention.py``) on 96 PNGs, 2
+    folds, 2 epochs, without ``--freeze_layers``: exact launches, the
+    reference's artifact files; run twice uninterrupted (the card's own
+    spread), then with ``--resume --async_checkpoint`` stopped by a real
+    SIGTERM after 3 batches and resumed, held to the first run;
+    ``best_global_model.npz`` classifies in the port's
+    ``test_gram_attention`` CLI. (d) The b32 step alone, f32 and bf16:
+    images/s on the host clock over F2T_TIMED steps (staged uint8 to the
+    SGD update), device busy ms and idle share over 3 profiled steps, the
+    hand-written kernels' share of busy, the host's own time by event (ops
+    and CUDA runtime calls, under the profiler), and the peak memory."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main as test_cli
+    from heuristique_style_transfer_code_tpu_torch.cli.train_gram_attention import main as train_cli
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.tools.profile_main_path import _profile
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+    from heuristique_style_transfer_code_tpu_torch.train.kfold import _INPROGRESS_STATE
+
+    cfg = GramAttentionConfig(batch_size=F2T_BATCH, lr=F2T_LR, truncate_layer=F2T_TRUNCATE,
+                              gram_matrix_size=F2T_S, seed=0)
+    combos = [(None, None)]
+    rng = np.random.RandomState(70)
+    u8 = [rng.randint(0, 256, (F2T_BATCH, 256, 256, 3)).astype(np.uint8) for _ in range(2)]
+    labels = [rng.randint(0, 4, (F2T_BATCH,)).astype(np.int32) for _ in range(2)]
+    labels[0][-1] = -1  # one pad entry, as the loader's short batch carries
+    stages = F2T_TRUNCATE - 4  # a pooled Gram at each executed stage
+    out = {}
+
+    # (a) launches a step
+    step_launches = {}
+    for freeze in (False, True):
+        setup = setup_gram_attention(cfg, 4, combos, freeze_encoder=freeze, device=DEVICE)
+        model, opt = setup.init(torch.Generator().manual_seed(71))
+        setup.train_step(model, opt, u8[0], labels[0])  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        setup.train_step(model, opt, u8[1], labels[1])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = {k: 0 for k in launches}
+        want.update(pooled_gram_fwd=stages, pooled_gram_bwd=0 if freeze else stages)
+        step_launches["frozen" if freeze else "trainable"] = launches
+        _require(launches == want, f"one step's launches (freeze={freeze}): {launches}")
+        del model, opt, setup
+    print(f"[family2_train] one b{F2T_BATCH} step's launches: {step_launches}")
+    out["step_launches"] = step_launches
+
+    # (b) one f32 step, card vs CPU
+    t0 = time.perf_counter()
+    cpu_setup = setup_gram_attention(cfg, 4, combos, device="cpu")
+    cpu_model, _ = cpu_setup.init(torch.Generator().manual_seed(72))
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    card_model, _ = setup_gram_attention(cfg, 4, combos, device=DEVICE).init(None)
+    card_model.load_state_dict(start)
+    loss_cpu, g_cpu, s_cpu = _f2t_grads(cpu_model, u8[0], labels[0])
+    cpu_model.load_state_dict(start)
+    gen = torch.Generator().manual_seed(73)
+    with torch.no_grad():
+        for p in cpu_model.parameters():
+            p.mul_(1 + F2T_NUDGE * torch.randn(p.shape, generator=gen))
+    _, g_nudged, _ = _f2t_grads(cpu_model, u8[0], labels[0])
+    t_cpu = time.perf_counter() - t0
+    spread, spread_leaf = _worst_rel_l2(g_nudged, g_cpu)
+    tol_grad = max(F2T_TOL_GRAD, 2 * spread)
+    loss_card, g_card, s_card = _f2t_grads(card_model, u8[0], labels[0])
+    worst, worst_leaf = _worst_rel_l2(g_card, g_cpu)
+    stats = max(float((s_card[k] - s_cpu[k]).abs().max() / s_cpu[k].abs().max()) for k in s_cpu)
+    rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    finite = all(bool(torch.isfinite(g).all()) for g in g_card.values())
+    print(f"[family2_train] one f32 b{F2T_BATCH} step, card vs CPU ({t_cpu:.1f} s for the two "
+          f"CPU steps): loss {loss_card:.6f} vs {loss_cpu:.6f} (rel {rel:.2e}, tol "
+          f"{F2T_TOL_LOSS}); gradients worst relative L2 {worst:.2e} over {len(g_cpu)} leaves, "
+          f"at {worst_leaf} (tol max({F2T_TOL_GRAD}, 2x the CPU's own spread {spread:.2e}, at "
+          f"{spread_leaf}, from weights nudged by {F2T_NUDGE})); running statistics worst "
+          f"{stats:.2e} of each leaf's largest (tol {F2T_TOL_STATS}); all finite {finite}")
+    _require(finite and rel <= F2T_TOL_LOSS and worst <= tol_grad and stats <= F2T_TOL_STATS,
+             "the card's family-2 step agrees with the CPU's")
+    out["card_vs_cpu"] = {"loss_card": loss_card, "loss_cpu": loss_cpu, "loss_rel": rel,
+                          "grad_worst_rel_l2": worst, "grad_worst_leaf": worst_leaf,
+                          "grad_cpu_spread": spread, "grad_spread_leaf": spread_leaf,
+                          "stats_worst_rel": stats, "cpu_seconds": t_cpu}
+    del cpu_model, card_model, cpu_setup
+
+    # (c) the CLI: artifacts, launches, preemption and resume
+    data = _image_folder(os.path.join(tmp, "f2t_data"), F2T_PER_CLASS, seed=74, split="train")
+    _image_folder(data, 2, seed=75, split="test")
+    cfg_path = os.path.join(tmp, "f2t.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    base = ["--data", data, "--config_path", cfg_path, "--k_folds", "2", "--epochs", "2",
+            "--device", DEVICE]
+    a, a2, b = (os.path.join(tmp, f"f2t_{run}") for run in ("a", "a2", "b"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _train_cli(train_cli, base + ["--save_dir", a])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_launches = kernels.launch_counts()
+    # 2 folds x 2 epochs x 2 steps and 2 folds x 2 validation batches, a
+    # pooled Gram a stage each
+    want = {k: 0 for k in cli_launches}
+    want.update(pooled_gram_fwd=(8 + 4) * stages, pooled_gram_bwd=8 * stages)
+    artifacts = ["best_performance_fold_0.json", "best_performance_fold_1.json",
+                 "best_hyperparameters_fold_0.json", "best_hyperparameters_fold_1.json",
+                 "best_model_results.json", "best_global_model.npz",
+                 "best_global_model_hyperparameters.json", "best_model_fold_0.npz",
+                 "best_model_fold_1.npz", "fold_0_performance.json", "fold_1_performance.json",
+                 "training_info.json", "events.jsonl"]
+    missing = [n for n in artifacts if not os.path.exists(os.path.join(a, n))]
+    print(f"[family2_train] CLI, 2 folds x 2 epochs at b{F2T_BATCH}: {cli_s:.1f} s, launches "
+          f"{cli_launches}; artifacts missing: {missing}")
+    _require(cli_launches == want, f"the CLI's launches {want}: {cli_launches}")
+    _require(not missing, f"the reference's artifact set: missing {missing}")
+    _train_cli(train_cli, base + ["--save_dir", a2])  # the card's own run-to-run spread
+    resume = base + ["--save_dir", b, "--resume", "--async_checkpoint"]
+    _train_cli(train_cli, resume, preempt_after=3)
+    stopped = (not os.path.exists(os.path.join(b, "best_model_results.json"))
+               and os.path.exists(os.path.join(b, _INPROGRESS_STATE)))
+    _train_cli(train_cli, resume)
+    gaps, leaves = {}, {}
+    for name, d in (("spread", a2), ("resumed", b)):
+        per_fold = [_npz_gap(os.path.join(a, f"best_model_fold_{k}.npz"),
+                             os.path.join(d, f"best_model_fold_{k}.npz")) for k in (0, 1)]
+        ckpt, leaf, _ = max(per_fold)
+        leaves[name] = (leaf, max(g for _, _, g in per_fold))
+        losses = []
+        for k in (0, 1):
+            with open(os.path.join(a, f"fold_{k}_performance.json")) as f, \
+                    open(os.path.join(d, f"fold_{k}_performance.json")) as g:
+                x, y = json.load(f)["val_loss"], json.load(g)["val_loss"]
+            losses.append(abs(x - y) / abs(x))
+        gaps[name] = (ckpt, max(losses))
+    tol_ckpt = max(F2T_TOL_RESUME, 2 * gaps["spread"][0])
+    tol_loss = max(F2T_TOL_RESUME, 2 * gaps["spread"][1])
+    print(f"[family2_train] CLI --resume --async_checkpoint: preempted after 3 batches with the "
+          f"in-progress file on disk {stopped}; resumed vs uninterrupted: fold checkpoints' "
+          f"worst relative L2 gap {gaps['resumed'][0]:.2e} at {leaves['resumed'][0]} (tol "
+          f"{tol_ckpt:.2e}; all leaves together {leaves['resumed'][1]:.2e}), validation "
+          f"losses' worst relative gap {gaps['resumed'][1]:.2e} (tol {tol_loss:.2e}); two "
+          f"uninterrupted runs: {gaps['spread'][0]:.2e} at {leaves['spread'][0]} (all "
+          f"{leaves['spread'][1]:.2e}) and {gaps['spread'][1]:.2e}. Tolerances: "
+          f"max({F2T_TOL_RESUME}, 2x that spread)")
+    _require(stopped and gaps["resumed"][0] <= tol_ckpt and gaps["resumed"][1] <= tol_loss,
+             "the resumed family-2 run agrees with the uninterrupted one")
+    ev = os.path.join(tmp, "f2t_eval")
+    test_cli(["--data", data, "--config_path", cfg_path, "--model_path",
+              os.path.join(a, "best_global_model.npz"), "--mode", "classification",
+              "--save_dir", ev, "--device", DEVICE])
+    with open(os.path.join(ev, "classification_results.json")) as f:
+        classified = json.load(f)
+    print(f"[family2_train] best_global_model.npz in test_gram_attention: {classified}")
+    _require(all(np.isfinite(v) for v in classified.values()),
+             "the trained checkpoint classifies in the port's family-2 CLI")
+    timings["family2_train_cli_s"] = cli_s
+    out["cli"] = {"seconds": cli_s, "launches": cli_launches, "stopped": stopped,
+                  "resumed": gaps["resumed"], "spread": gaps["spread"], "leaves": leaves,
+                  "classified": classified}
+
+    # (d) the step alone: host clock, profile, peak memory
+    for dtype in (None, torch.bfloat16):
+        name = "float32" if dtype is None else "bfloat16"
+        setup = setup_gram_attention(cfg, 4, combos, compute_dtype=dtype, device=DEVICE)
+        model, opt = setup.init(torch.Generator().manual_seed(76))
+        setup.train_step(model, opt, u8[0], labels[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(F2T_TIMED):
+            setup.train_step(model, opt, u8[i % 2], labels[i % 2])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / F2T_TIMED
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = _profile(lambda: setup.train_step(model, opt, u8[0], labels[0]), 3)
+        busy = prof["device_busy_ms"] / 3
+        host = [(k["name"][:32], round(k["ms"] / 3, 3), round(k["count"] / 3))
+                for k in prof["top_host_events"][:8]]
+        print(f"[family2_train] {name} b{F2T_BATCH} step: {ms:.3f} ms (host clock, {F2T_TIMED} "
+              f"steps, staged uint8 to the SGD update), {F2T_BATCH * 1e3 / ms:.1f} images/s; "
+              f"device busy {busy:.3f} ms a step, idle share {prof['idle_share']:.3f} over 3 "
+              f"profiled steps; hand-written kernels {prof['gram_share_of_busy']:.4f} of busy; "
+              f"peak memory {peak:.2f} GiB; top kernels "
+              f"{[(k['name'][:40], round(k['ms'] / 3, 3)) for k in prof['top_kernels'][:5]]}; "
+              f"host self time {prof['host_self_ms'] / 3:.2f} ms a step (under the profiler), "
+              f"top host events (ms, count a step) {host}")
+        out[name] = {"step_ms": ms, "images_per_s": F2T_BATCH * 1e3 / ms,
+                     "busy_ms_per_step": busy, "idle_share": prof["idle_share"],
+                     "peak_gib": peak, "profile": prof}
+        timings[f"family2_train_{name}_step_ms"] = ms
+        del model, opt, setup
+    out["launches"] = cli_launches
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -2771,6 +3149,7 @@ def main() -> int:
     rows = phase_kernels(kg, peaks)
     rows["instance_norm_fwd"], in_checks = phase_in_kernels(kin, peaks)
     rows["instance_norm_bwd"] = phase_in_bwd_kernels(kin, peaks)
+    rows["pooled_gram_bwd"] = phase_pooled_bwd_kernels(kg, peaks)
     in_bwd_checks = _forced_in_bwd_checks(kin)
     _gradient_guards(kg, kin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2816,10 +3195,16 @@ def main() -> int:
         fst = phase_fast_style_train(kernels, model, seeded, tmp, timings)
         timings["fast_style_train_phase_s"] = time.perf_counter() - t0
         print(f"[fast_style_train] {timings['fast_style_train_phase_s']:.2f} s in all")
+        t0 = time.perf_counter()
+        f2t = phase_family2_train(kernels, tmp, timings)
+        timings["family2_train_phase_s"] = time.perf_counter() - t0
+        print(f"[family2_train] {timings['family2_train_phase_s']:.2f} s in all")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
-    launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"],
+    launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"]
+                + f2t["launches"]["pooled_gram_fwd"],
+                "pooled_gram_bwd": f2t["launches"]["pooled_gram_bwd"],
                 "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"]
                 + fst_launches["gram_fwd"],
                 "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"]
@@ -2833,10 +3218,12 @@ def main() -> int:
 
     records = []
     replaces = {"gram_fwd": f"{PALLAS}:60", "gram_bwd": f"{PALLAS}:60",
-                "pooled_gram_fwd": f"{PALLAS}:100", "instance_norm_fwd": f"{PALLAS_IN}:192",
+                "pooled_gram_fwd": f"{PALLAS}:100", "pooled_gram_bwd": f"{PALLAS}:100",
+                "instance_norm_fwd": f"{PALLAS_IN}:192",
                 "instance_norm_bwd": f"{PALLAS_IN}:192"}
     sources = {"gram_fwd": SOURCE["gram"], "gram_bwd": SOURCE["gram"],
-               "pooled_gram_fwd": SOURCE["gram"], "instance_norm_fwd": SOURCE["instance_norm"],
+               "pooled_gram_fwd": SOURCE["gram"], "pooled_gram_bwd": SOURCE["gram"],
+               "instance_norm_fwd": SOURCE["instance_norm"],
                "instance_norm_bwd": SOURCE["instance_norm"]}
     for kname in launches:
         # the net's first norm (in1, with its ReLU) stands for K3's record, the
@@ -2858,7 +3245,8 @@ def main() -> int:
                    "records": records, "family3": f3_results,
                    "embeddings": embeddings, "cameras": cameras, "family3_style": f3_style,
                    "pth": pth, "gradcam": gradcam, "content_style": content_style,
-                   "content_style_serve": cs_serve, "fast_style_train": fst}, f, indent=1)
+                   "content_style_serve": cs_serve, "fast_style_train": fst,
+                   "family2_train": f2t}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,6 @@
 """Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
-that the evaluation CLIs of families 1, 2 and 3 and ``serve_style``
-need)."""
+that the evaluation CLIs of families 1, 2 and 3, ``serve_style`` and the
+family-2 train CLI need)."""
 from __future__ import annotations
 
 import os
@@ -210,3 +210,138 @@ def check_ported(args, not_ported: dict) -> None:
     for flag, default in not_ported.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(f"--{flag} is not ported yet")
+
+
+def add_train_args(parser) -> None:
+    """The JAX train CLIs' ``add_train_tpu_args`` flags. The ones in
+    ``TRAIN_NOT_PORTED`` parse but raise "not ported yet" at any other
+    value than their default (``check_ported``)."""
+    parser.add_argument("--checkpoint_format", choices=["npz", "orbax"], default="npz",
+                        help="Checkpoint backend for saved models (orbax: not ported yet)")
+    parser.add_argument("--resume", action="store_true",
+                        help="Continue an interrupted run from its last completed epoch "
+                        "(bit-identical on the CPU; uses the in-progress checkpoint the "
+                        "trainer writes every epoch in --save_dir); also arms SIGTERM "
+                        "preemption")
+    parser.add_argument("--grad_accum", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--async_checkpoint", action="store_true",
+                        help="With --resume: write the per-epoch in-progress checkpoint in "
+                        "a background thread (a host copy at submit; the same atomic file)")
+    parser.add_argument("--zero1", action="store_true", help="Not ported yet")
+    parser.add_argument("--remat", action="store_true", help="Not ported yet")
+    parser.add_argument("--parallel_folds", action="store_true", help="Not ported yet")
+    parser.add_argument("--auto_batch", action="store_true", help="Not ported yet")
+    parser.add_argument("--hbm_budget_gb", type=float, default=None, help="Not ported yet")
+    parser.add_argument("--lr_schedule", choices=["constant", "cosine", "linear"],
+                        default="constant",
+                        help="Learning-rate schedule over each fold's steps (default: the "
+                        "reference's fixed rate), evaluated at the update count")
+    parser.add_argument("--warmup_steps", type=int, default=0,
+                        help="Linear LR warmup steps (0 -> config lr) before the schedule")
+    parser.add_argument("--min_lr_ratio", type=float, default=0.0,
+                        help="Schedule floor as a fraction of the config lr")
+    parser.add_argument("--clip_grad_norm", type=float, default=None,
+                        help="Clip gradients to this global norm (trainable leaves only) "
+                        "before the optimiser update")
+    parser.add_argument("--label_smoothing", type=float, default=0.0, metavar="EPS",
+                        help="Label smoothing for the training cross-entropy "
+                        "(F.cross_entropy semantics; validation losses stay unsmoothed)")
+    parser.add_argument("--mixup", type=float, default=None, metavar="ALPHA",
+                        help="Not ported yet")
+    parser.add_argument("--cutmix", type=float, default=None, metavar="ALPHA",
+                        help="Not ported yet")
+    parser.add_argument("--ema_decay", type=float, default=None, metavar="DECAY",
+                        help="Not ported yet")
+    parser.add_argument("--early_stop", type=int, default=None, metavar="PATIENCE",
+                        help="Validate after every epoch and stop a fold after PATIENCE "
+                        "consecutive epochs without a new best validation loss; fold "
+                        "artifacts then describe the best epoch's weights")
+
+
+# the train flags this port does not run yet -> their defaults
+TRAIN_NOT_PORTED = {
+    "grad_accum": 1,
+    "zero1": False,
+    "remat": False,
+    "parallel_folds": False,
+    "auto_batch": False,
+    "hbm_budget_gb": None,
+    "mixup": None,
+    "cutmix": None,
+    "ema_decay": None,
+    "steps_per_dispatch": 1,
+    "checkpoint_format": "npz",
+    "profile_dir": None,
+    "debug_nans": False,
+}
+
+
+def check_train_ported(args) -> None:
+    """``check_ported`` over ``TRAIN_NOT_PORTED``, and ``--devices`` other
+    than 1 (data-parallel training)."""
+    check_ported(args, TRAIN_NOT_PORTED)
+    if args.devices not in (None, 1):
+        raise NotImplementedError("--devices (data-parallel training) is not ported yet; "
+                                  "pass --devices 1 or leave it out")
+
+
+def resolve_seed(config: dict, cli_seed: Optional[int]) -> int:
+    """config > CLI > random, the choice written back into ``config`` (the
+    JAX ``resolve_seed``); seeds Python's, numpy's and torch's generators."""
+    seed = config.get("seed", cli_seed)
+    if seed is None:
+        seed = random.randint(0, 1_000_000)
+        config["seed"] = seed
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return seed
+
+
+def resolve_lr_schedule(args, cfg, n_samples: int, k_folds: int):
+    """(schedule or None, clip norm or None) from the flags; the horizon is
+    each fold's optimiser steps (``train/schedules.steps_per_fold``), and
+    the count restarts with each fold's optimiser."""
+    name = args.lr_schedule or "constant"
+    warmup = int(args.warmup_steps or 0)
+    clip = args.clip_grad_norm
+    if name == "constant" and warmup == 0:
+        return None, clip
+    from ..train.schedules import make_lr_schedule, steps_per_fold
+
+    total = steps_per_fold(n_samples, k_folds, cfg.batch_size, args.epochs)
+    sched = make_lr_schedule(name, cfg.lr, total, warmup, args.min_lr_ratio)
+    if sched is not None:
+        print(f"lr schedule: {name}, warmup {warmup} steps, horizon {total} "
+              f"steps/fold, floor {cfg.lr * args.min_lr_ratio:g}")
+    return sched, clip
+
+
+def signature_extra_from_args(args) -> Optional[dict]:
+    """The step configuration that changes a run's numbers and lives
+    outside the model's hyperparameters, for the resume signature (the JAX
+    ``signature_extra_from_args``, over the flags the port runs; the ones it
+    refuses never get here). Each entry is left out at its default. Unlike
+    the JAX one, it holds ``--freeze_layers``: a resume that freezes
+    another set of parameters is refused."""
+    extra = {}
+    for flag, default in (
+        ("precision", "float32"), ("lr_schedule", "constant"), ("warmup_steps", 0),
+        ("min_lr_ratio", 0.0), ("clip_grad_norm", None), ("label_smoothing", 0.0),
+        ("early_stop", None), ("freeze_layers", False),
+    ):
+        val = getattr(args, flag, default)
+        if val != default and val is not None:
+            extra[flag] = val
+    return extra or None
+
+
+def make_save_fn(checkpoint_format: str):
+    """The checkpoint writer for ``run_kfold``: npz (the
+    ``<name>.npz`` + ``<name>_hyperparameters.json`` pair); orbax raises
+    "not ported yet"."""
+    if checkpoint_format != "npz":
+        raise NotImplementedError(f"--checkpoint_format {checkpoint_format} is not ported yet")
+    from ..checkpoint.io import save_model_and_hyperparameters
+
+    return save_model_and_hyperparameters

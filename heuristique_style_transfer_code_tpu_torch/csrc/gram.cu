@@ -1,10 +1,11 @@
 // Gram-matrix kernels for Hopper (sm_90a), bound to Python through ctypes
-// (ops/kernels/gram.py). Three kernels, one shared library:
+// (ops/kernels/gram.py). Four kernels, one shared library:
 //
 //   gram_fwd         G[n] = F[n]^T F[n] / HW                      (N, C, C)
 //   gram_bwd         dF[n] = F[n] (dG[n] + dG[n]^T) / HW          (N, HW, C)
 //   pooled_gram_fwd  G[n] = (F[n] P^T)^T (F[n] P^T) / HW          (N, S, S)
 //                    with P = adaptive_pool_matrix(C, S), never built
+//   pooled_gram_bwd  dF[n] = F[n] P^T (dG[n] + dG[n]^T) P / HW    (N, HW, C)
 //
 // F is the (N, HW, C) view of an NHWC activation (C contiguous), f32 or
 // bf16; every sum is taken in f32 and the result is cast to F's type once.
@@ -1392,6 +1393,204 @@ pooled_project_kernel(const T* __restrict__ f, float* __restrict__ y, size_t row
   y[i] = sum * __frcp_rn(static_cast<float>(hi - lo));
 }
 
+// ---- pooled_gram_bwd --------------------------------------------------------
+// The VJP of pooled_gram_fwd, for family-2 training. It has no Pallas
+// counterpart: the JAX package differentiates the XLA composition
+// (heuristique_style_transfer_code_tpu/ops/gram.py:56-77). Per image, with
+// Y = F P^T (HW, S) and M = (dG + dG^T) / HW (S x S), dY = Y M and dF = dY P:
+//   dF[r, c] = sum over the bins o that hold channel c of w_o (Y[r] M)[o].
+// Bound: bytes. F is read once and dF written once (dG is S^2 an image); the
+// work is about 2 C + 2 S^2 operations a row. At the training step's b32
+// stage outputs on an H100 SXM (3.35 TB/s): (32,56,56,256) f32 205 MB, 61 us;
+// (32,28,28,512) and (32,14,14,1024) 103 and 51 MB; bf16 half of each.
+// Design: a block takes a tile of one image's rows, as many as fit in
+// PGB_TILE_BYTES (32 rows of C = 256 f32), and stages it in shared memory
+// with coalesced 16-byte cp.async copies (scalar loads where a row is not a
+// whole number of 16 bytes or F is misaligned), each row padded by 16 bytes
+// so that the rows of a warp's reads fall in different banks. It builds M in
+// f32 from dG, and the bins (lo, hi, w) as pooled_gram_kernel computes them
+// (floor(o C / S), ceil((o + 1) C / S), 1 / len by __frcp_rn). Then, each
+// phase over the whole tile, one barrier apart: the (row, bin, part) sums of
+// the staged channels (a long bin cut into parts, so that every thread has
+// one; an edge channel of overlapping bins is read for each bin that holds
+// it); Y = their sums in part order times w; z_o = w_o (Y M)[o]; and dF, 16
+// bytes a store, each channel the sum of z_o over the bins that hold it in
+// increasing o (the first is floor(c S / C), and lo and hi rise with o). F
+// is read once and dF written once; no atomics, every sum in a fixed order,
+// so two calls give the same bits. S up to PGB_MAX_S (64); a row of F up to
+// PG_MAX_ROW_BYTES (96 KB), as pooled_gram_kernel stages.
+// What the card showed (PERF.md, Findings): a first version with a warp a
+// row, summing each bin from device memory with a butterfly reduction,
+// reached 37% (f32) and 20% (bf16) of the bound at (32,56,56,256).
+constexpr int PGB_THREADS = 256;
+constexpr int PGB_MAX_S = 64;
+constexpr int PGB_TILE_BYTES = 32 * 1024;
+constexpr int PGB_MAX_ROWS = 64;
+
+// The tile's rows and the parts a bin is cut into (ops/kernels/gram.py
+// _pooled_gram_bwd_plan mirrors it), and the block's shared memory: the tile,
+// M, w, lo, hi, the part sums, Y and z.
+struct PgbPlan {
+  int rows, parts, pitch;  // pitch: bytes a staged row
+  size_t smem;
+};
+
+PgbPlan pgb_plan(int hw, int c, int s, int es) {
+  PgbPlan p;
+  const int row_bytes = c * es;
+  p.rows = max(1, min(min(PGB_MAX_ROWS, PGB_TILE_BYTES / row_bytes), hw));
+  p.parts = max(1, PGB_THREADS / (p.rows * s));
+  p.pitch = (row_bytes + 16 + 15) / 16 * 16;
+  const size_t pairs = static_cast<size_t>(p.rows) * s;
+  p.smem = static_cast<size_t>(p.rows) * p.pitch +
+           4 * (static_cast<size_t>(s) * s + 3 * s + pairs * p.parts + 2 * pairs);
+  return p;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(PGB_THREADS)
+pooled_gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ dg, T* __restrict__ df,
+                       int hw, int c, int s, int rows_per_tile, int parts, int pitch) {
+  extern __shared__ __align__(16) uint8_t pgb_smem[];
+  const int n = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * rows_per_tile;
+  const int rows = min(rows_per_tile, hw - r0);
+  const size_t base = (static_cast<size_t>(n) * hw + r0) * c;  // the tile's first element
+  uint8_t* tile = pgb_smem;
+  float* m = reinterpret_cast<float*>(pgb_smem + static_cast<size_t>(rows_per_tile) * pitch);
+  float* w = m + s * s;
+  int* lo = reinterpret_cast<int*>(w + s);
+  int* hi = lo + s;
+  float* psum = reinterpret_cast<float*>(hi + s);  // [row][bin][part]
+  float* ys = psum + rows_per_tile * s * parts;    // [row][bin]
+  float* zs = ys + rows_per_tile * s;              // [row][bin]
+
+  // stage the tile's rows (the copies go out first, so the setup hides them)
+  if constexpr (VEC) {
+    const int chunks = c * static_cast<int>(sizeof(T)) / 16;  // 16-byte groups a row
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(f + base);
+    for (int i = tid; i < rows * chunks; i += PGB_THREADS) {
+      const int r = i / chunks;
+      const int k = i - r * chunks;
+      cp_async16(tile + static_cast<size_t>(r) * pitch + 16 * k,
+                 src + static_cast<size_t>(r) * c * sizeof(T) + 16 * k, true);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  } else {
+    for (int i = tid; i < rows * c; i += PGB_THREADS) {
+      const int r = i / c;
+      reinterpret_cast<T*>(tile + static_cast<size_t>(r) * pitch)[i - r * c] = f[base + i];
+    }
+  }
+  const float inv_hw = 1.f / static_cast<float>(hw);
+  const T* dgn = dg + static_cast<size_t>(n) * s * s;
+  for (int i = tid; i < s * s; i += PGB_THREADS) {
+    const int a = i / s;
+    const int b = i - a * s;
+    m[i] = (to_f32(dgn[a * s + b]) + to_f32(dgn[b * s + a])) * inv_hw;
+  }
+  for (int o = tid; o < s; o += PGB_THREADS) {
+    lo[o] = o * c / s;
+    hi[o] = ((o + 1) * c + s - 1) / s;
+    w[o] = __frcp_rn(static_cast<float>(hi[o] - lo[o]));
+  }
+  if constexpr (VEC) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  // (row, bin, part) sums; a part is plen channels of its bin, in order
+  const int pairs = rows * s;
+  const int plen = ((c + s - 1) / s + 1 + parts - 1) / parts;  // a bin holds <= ceil(C/S) + 1
+  for (int i = tid; i < pairs * parts; i += PGB_THREADS) {
+    const int pair = i / parts;
+    const int part = i - pair * parts;
+    const int r = pair / s;
+    const int o = pair - r * s;
+    const T* row = reinterpret_cast<const T*>(tile + static_cast<size_t>(r) * pitch);
+    const int begin = lo[o] + part * plen;
+    const int end = min(hi[o], begin + plen);
+    float a0 = 0.f, a1 = 0.f;
+    int k = begin;
+    for (; k + 1 < end; k += 2) {
+      a0 += to_f32(row[k]);
+      a1 += to_f32(row[k + 1]);
+    }
+    if (k < end) a0 += to_f32(row[k]);
+    psum[i] = a0 + a1;
+  }
+  __syncthreads();
+  for (int i = tid; i < pairs; i += PGB_THREADS) {
+    float sum = 0.f;
+    for (int part = 0; part < parts; ++part) sum += psum[i * parts + part];
+    ys[i] = sum * w[i % s];
+  }
+  __syncthreads();
+  for (int i = tid; i < pairs; i += PGB_THREADS) {
+    const int r = i / s;
+    const int o = i - r * s;
+    const float* y = ys + r * s;
+    float acc = 0.f;
+    for (int q = 0; q < s; ++q) acc = fmaf(y[q], m[q * s + o], acc);
+    zs[i] = acc * w[o];
+  }
+  __syncthreads();
+
+  // dF: each channel the sum of z over the bins that hold it, in bin order
+  T* out = df + base;
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T);
+    const int vecs = c / V;  // 16-byte groups a row
+    for (int i = tid; i < rows * vecs; i += PGB_THREADS) {
+      const int r = i / vecs;
+      const int c0 = (i - r * vecs) * V;
+      const float* z = zs + r * s;
+      int o = static_cast<int>(static_cast<long long>(c0) * s / c);
+      alignas(16) T v[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int ch = c0 + j;
+        while (hi[o] <= ch) ++o;
+        float acc = 0.f;
+        for (int q = o; q < s && lo[q] <= ch; ++q) acc += z[q];
+        v[j] = from_f32<T>(acc);
+      }
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * c + c0) =
+          *reinterpret_cast<const uint4*>(v);
+    }
+  } else {
+    for (int i = tid; i < rows * c; i += PGB_THREADS) {
+      const int r = i / c;
+      const int ch = i - r * c;
+      const float* z = zs + r * s;
+      float acc = 0.f;
+      for (int q = static_cast<int>(static_cast<long long>(ch) * s / c); q < s && lo[q] <= ch;
+           ++q)
+        acc += z[q];
+      out[i] = from_f32<T>(acc);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t pooled_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int s,
+                            cudaStream_t stream) {
+  if (static_cast<size_t>(c) * sizeof(T) > PG_MAX_ROW_BYTES) return cudaErrorInvalidValue;
+  const PgbPlan p = pgb_plan(hw, c, s, static_cast<int>(sizeof(T)));
+  const bool vec = c * sizeof(T) % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(f) | reinterpret_cast<uintptr_t>(df)) & 15) == 0;
+  const auto kernel = vec ? pooled_gram_bwd_kernel<T, true> : pooled_gram_bwd_kernel<T, false>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>((hw + p.rows - 1) / p.rows), static_cast<unsigned>(n));
+  kernel<<<grid, PGB_THREADS, p.smem, stream>>>(static_cast<const T*>(f),
+                                                static_cast<const T*>(dg), static_cast<T*>(df), hw,
+                                                c, s, p.rows, p.parts, p.pitch);
+  return cudaGetLastError();
+}
+
 // Launch with the split axis as a cluster (1, splits, 1); above 8 blocks a
 // cluster is non-portable and has to be allowed per kernel.
 template <typename Kernel, typename... Args>
@@ -1688,6 +1887,16 @@ int hst_pooled_project(const void* f, void* y, int n, int hw, int c, int s, int 
     pooled_project_kernel<__nv_bfloat16><<<blocks, PP_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(f), static_cast<float*>(y), rows, c, s);
   return cudaGetLastError();
+}
+
+// dF (N, HW, C) in F's type from F and dG (N, S, S) of F's type; s: 1..64,
+// any HW, a row of F up to 96 KB (ops/kernels/gram.py pooled_gram_bwd).
+int hst_pooled_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int s,
+                        int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s < 1 || s > PGB_MAX_S || n < 1 || hw < 1 || c < 1) return cudaErrorInvalidValue;
+  if (dtype == 0) return pooled_gram_bwd<float>(f, dg, df, n, hw, c, s, st);
+  return pooled_gram_bwd<__nv_bfloat16>(f, dg, df, n, hw, c, s, st);
 }
 
 // s: 1..16; splits: 1..16, the blocks of one image's cluster; any C and HW.

@@ -36,3 +36,9 @@ class ImageFolderIndex:
 
     def __len__(self):
         return len(self.samples)
+
+    def samples_per_class(self) -> dict:
+        counts = {c: 0 for c in self.classes}
+        for _, y in self.samples:
+            counts[self.classes[y]] += 1
+        return counts

@@ -1,10 +1,14 @@
 """Model family 2: truncated ResNet50 + per-stage pooled Grams + attention
-(``models/gram_attention.py`` of the JAX package), eval only.
+(``models/gram_attention.py`` of the JAX package), eval and train.
 
 Forward: the stem, then at every executed stage (layer1..layer4 up to
 ``truncate``) the (S, S) pooled Gram — the ``pooled_gram_fwd`` kernel on the
-card — stacked into a sequence, one-head self-attention over it, a mean over
-the sequence and Linear(S², num_classes).
+card, differentiated by ``pooled_gram_bwd`` where a gradient flows —
+stacked into a sequence, one-head self-attention over it, a mean over the
+sequence and Linear(S², num_classes). Under ``.train()`` the encoder's batch
+norms take the batch's statistics and update their running buffers in
+place, which is the JAX train forward (``:43-70``) with its new encoder
+tree merged back.
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ def gram_attention_init(
 ) -> GramAttention:
     """A family-2 model in eval mode on ``device`` (``cuda`` unless the
     caller asks for ``cpu``), its random weights drawn from ``generator``
-    (a CPU ``torch.Generator``; None = the global one)."""
+    (a CPU ``torch.Generator``; None = the global one). A fold of training
+    starts from it with ``.train()`` (``train/factories.py``)."""
     return GramAttention(truncate_layer, num_classes, gram_matrix_size,
                          generator, resolve_device(device), dtype).eval()
 
@@ -86,7 +91,9 @@ def gram_attention_apply(
     gram_matrix_size: int,
     num_classes: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (N, H, W, 3) -> (embeddings (N, S²), logits (N, classes))."""
+    """x: (N, H, W, 3) -> (embeddings (N, S²), logits (N, classes)), in
+    the model's mode: eval, or train with the batch norms' running
+    buffers updated in place."""
     _, grams = resnet50_apply(model.encoder, x, truncate=min(truncate, 8),
                               collect_grams=True, gram_pool_size=gram_matrix_size)
     return _gram_head(model, grams, x, gram_matrix_size, num_classes)

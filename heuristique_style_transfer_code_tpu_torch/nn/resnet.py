@@ -1,4 +1,4 @@
-"""ResNet50 (bottleneck v1) encoder in eval, truncatable at a torchvision
+"""ResNet50 (bottleneck v1) encoder, truncatable at a torchvision
 "child" boundary (``nn/resnet.py`` of the JAX package).
 
 Child index map (torchvision resnet50.children() order):
@@ -81,7 +81,9 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm2d in eval mode on NHWC (running statistics only)."""
+    """BatchNorm2d on NHWC: running statistics in eval; under ``.train()``
+    the batch's statistics, with the running buffers updated in place (the
+    JAX train loop's ``_merge_bn_stats``)."""
 
     def __init__(self, c: int, device=None, dtype=torch.float32):
         super().__init__()
@@ -91,9 +93,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c, device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported yet; call .eval()")
-        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var)
+        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                          train=self.training)
 
 
 class Downsample(nn.Module):
@@ -131,8 +132,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50Encoder(nn.Module):
-    """The children [0:truncate] of ResNet50 (truncate 0..9), eval only;
-    the avgpool child (9) holds no parameters."""
+    """The children [0:truncate] of ResNet50 (truncate 0..9); the avgpool
+    child (9) holds no parameters. Its batch norms follow the module's
+    ``.train()``/``.eval()`` mode."""
 
     def __init__(self, truncate_layer: int, generator: Optional[torch.Generator] = None,
                  device=None, dtype=torch.float32):
@@ -171,7 +173,9 @@ def resnet50_apply(
     Returns (features, grams): NHWC features, or (N, 2048) at truncate 9,
     whose avgpool child is the global average pool. ``collect_grams``: one
     Gram per executed stage (layer1..layer4); ``gram_pool_size``: the
-    (S, S) pooled Gram instead of the (C, C) one. Eval only
+    (S, S) pooled Gram instead of the (C, C) one. Both Grams are
+    differentiable. In train mode (``encoder.train()``) the batch norms
+    normalise by the batch and update their running buffers in place
     (``nn/resnet.py:162-224``)."""
     grams: List[torch.Tensor] = []
     if truncate > 9:

@@ -40,9 +40,12 @@ def gram_matrix_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def pooled_gram_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:
-    """x: (N, H, W, C) -> (N, S, S) = adaptive_avg_pool2d(gram(x), S).
-    Forward only (the family-2 classifier in eval)."""
-    return gram_kernels.pooled_gram_fwd(_flat(x), out_size)
+    """x: (N, H, W, C) -> (N, S, S) = adaptive_avg_pool2d(gram(x), S),
+    differentiable: always ``PooledGramFunction``, whose forward is the
+    ``pooled_gram_fwd`` kernel and whose backward, where a gradient flows
+    (family-2 training with the encoder trainable), ``pooled_gram_bwd``.
+    Evaluation and a frozen encoder launch the forward alone."""
+    return gram_kernels.PooledGramFunction.apply(_flat(x), out_size)
 
 
 def gram_matrix_ncl(f: torch.Tensor, denom: Optional[float] = None) -> torch.Tensor:

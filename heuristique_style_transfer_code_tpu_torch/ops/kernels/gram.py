@@ -21,7 +21,7 @@ import torch
 from ..pooling import adaptive_pool_matrix
 from ._nvcc import CudaLibrary, check
 
-KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd")
+KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd", "pooled_gram_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,6 +34,8 @@ _BWD_STAGE_K = {"ffma": 16, "wgmma": 64}  # gram_bwd channels a stage (BWD_BK, T
 _MIN_SPLIT_K = 256  # gram_bwd splits C no finer than this
 _BWD_BLOCKS_PER_SM = {"ffma": 3, "wgmma": 2}  # gram_bwd blocks an SM holds
 MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S: larger S takes the "project" route
+MAX_POOL_BWD_SIZE = 64  # csrc/gram.cu PGB_MAX_S: pooled_gram_bwd's largest S
+_PGB_THREADS, _PGB_TILE_BYTES, _PGB_MAX_ROWS = 256, 32 * 1024, 64  # csrc/gram.cu PGB_*
 _MAX_ROW_BYTES = 96 * 1024  # pooled_gram_fwd stages whole rows (PG_MAX_ROW_BYTES)
 
 
@@ -43,8 +45,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
     lib.hst_pooled_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.hst_pooled_project.argtypes = [p, p, i, i, i, i, i, p]
+    lib.hst_pooled_gram_bwd.argtypes = [p, p, p, i, i, i, i, i, p]
     for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd,
-               lib.hst_pooled_project):
+               lib.hst_pooled_project, lib.hst_pooled_gram_bwd):
         fn.restype = ctypes.c_int
 
 
@@ -106,6 +109,18 @@ def pooled_gram_fwd_plain(f: torch.Tensor, out_size: int) -> torch.Tensor:
     p = adaptive_pool_matrix(f.shape[-1], out_size, f.device)
     pf = torch.matmul(f.to(acc), p.to(acc).t())  # (N, HW, S)
     return (torch.bmm(pf.transpose(1, 2), pf) / f.shape[1]).to(f.dtype)
+
+
+def pooled_gram_bwd_plain(f: torch.Tensor, dg: torch.Tensor, out_size: int) -> torch.Tensor:
+    """The VJP of ``pooled_gram_fwd_plain`` from its formula: with
+    Y = f P^T (N, HW, S) and M = (dG + dG^T) / HW, dF = (Y M) P, summed in
+    f32 (f64 stays f64) with P in f32, cast back to f's dtype once."""
+    acc = _acc_dtype(f.dtype)
+    p = adaptive_pool_matrix(f.shape[-1], out_size, f.device).to(acc)
+    y = torch.matmul(f.to(acc), p.t())
+    dga = dg.to(acc)
+    m = (dga + dga.transpose(1, 2)) / f.shape[1]
+    return torch.matmul(torch.bmm(y, m), p).to(f.dtype)
 
 
 # ------------------------------------------------------------------ kernels
@@ -331,14 +346,17 @@ def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
     """(N, HW, C) -> (N, S, S) with S = out_size, as
     ``pooled_gram_pallas(x, out_size)``. CPU: plain; CUDA: the kernels,
     which compute the pooling bins themselves, on the route that
-    ``pooled_gram_route_for`` names (one call counts one launch). Forward
-    only: there is no backward kernel yet, so a CUDA input that needs a
-    gradient raises."""
+    ``pooled_gram_route_for`` names (one call counts one launch). The
+    kernels' output has no autograd graph, so a CUDA input that needs a
+    gradient raises: ``PooledGramFunction`` is the differentiable pooled
+    Gram (its backward is ``pooled_gram_bwd``)."""
     if f.device.type == "cpu":
         return pooled_gram_fwd_plain(f, out_size)
     _check_input("pooled_gram_fwd", f)
     if torch.is_grad_enabled() and f.requires_grad:
-        raise NotImplementedError("pooled_gram_fwd has no backward kernel yet")
+        raise NotImplementedError(
+            "pooled_gram_fwd is forward only: call PooledGramFunction.apply for a pooled Gram "
+            "that needs a gradient (its backward is pooled_gram_bwd)")
     n, hw, c = f.shape
     s = int(out_size)
     project = s > MAX_POOL_SIZE
@@ -367,6 +385,72 @@ def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
     check("pooled_gram_fwd", err)
     LAUNCHES["pooled_gram_fwd"] += 1
     return g
+
+
+def _pooled_gram_bwd_plan(hw: int, c: int, s: int, es: int) -> Tuple[int, int, int, int]:
+    """How ``pooled_gram_bwd`` tiles an image, as csrc/gram.cu ``pgb_plan``
+    does: (rows, parts, pitch, smem). rows: HW rows a block stages, as many
+    as fit in 32 KB (at most 64, at least 1, at most HW); parts: the pieces
+    a bin's channels are cut into, so that the rows x S (row, bin) sums
+    give each of the 256 threads one; pitch: bytes a staged row, padded by
+    16; smem: the block's shared memory (the tile, M, w, lo, hi, the part
+    sums, Y and z)."""
+    row_bytes = c * es
+    rows = max(1, min(_PGB_MAX_ROWS, _PGB_TILE_BYTES // row_bytes, hw))
+    parts = max(1, _PGB_THREADS // (rows * s))
+    pitch = (row_bytes + 16 + 15) // 16 * 16
+    pairs = rows * s
+    return rows, parts, pitch, rows * pitch + 4 * (s * s + 3 * s + pairs * parts + 2 * pairs)
+
+
+def pooled_gram_bwd(f: torch.Tensor, dg: torch.Tensor, out_size: int) -> torch.Tensor:
+    """dF (N, HW, C) from f and dG (N, S, S), the VJP of ``pooled_gram_fwd``.
+    CPU: plain; CUDA: the kernel, one launch tiled as
+    ``_pooled_gram_bwd_plan`` says, for any S up to ``MAX_POOL_BWD_SIZE``
+    (the forward's "project" route past 16 bins included) and rows of F up
+    to 96 KB, as the forward's one-launch route stages; beyond either it
+    raises. The kernel recomputes the bin sums from f, so nothing of the
+    forward is kept."""
+    if f.device.type == "cpu":
+        return pooled_gram_bwd_plain(f, dg, out_size)
+    _check_input("pooled_gram_bwd", f)
+    n, hw, c = f.shape
+    s = int(out_size)
+    if dg.device != f.device or dg.dtype != f.dtype or tuple(dg.shape) != (n, s, s):
+        raise ValueError(
+            f"pooled_gram_bwd: dG must be ({n}, {s}, {s}) {f.dtype} on {f.device}, "
+            f"got {tuple(dg.shape)} {dg.dtype} on {dg.device}"
+        )
+    if not dg.is_contiguous():
+        raise ValueError("pooled_gram_bwd: dG is not contiguous")
+    if not 1 <= s <= MAX_POOL_BWD_SIZE or c * f.element_size() > _MAX_ROW_BYTES:
+        raise ValueError(f"pooled_gram_bwd: S={s}, C={c} outside the kernel's limits "
+                         f"(1 <= S <= {MAX_POOL_BWD_SIZE}, a row of F <= {_MAX_ROW_BYTES} bytes)")
+    df = torch.empty_like(f)
+    err = LIBRARY.load().hst_pooled_gram_bwd(
+        f.data_ptr(), dg.data_ptr(), df.data_ptr(), n, hw, c, s, _DTYPE_CODE[f.dtype],
+        _stream(f.device),
+    )
+    check("pooled_gram_bwd", err)
+    LAUNCHES["pooled_gram_bwd"] += 1
+    return df
+
+
+class PooledGramFunction(torch.autograd.Function):
+    """G = (f P^T)^T (f P^T) / HW with the hand-written backward
+    (``pooled_gram_bwd``), which recomputes f P^T from the saved f. On CPU
+    tensors both directions take the plain formulas."""
+
+    @staticmethod
+    def forward(ctx, f, out_size):
+        ctx.save_for_backward(f)
+        ctx.out_size = int(out_size)
+        return pooled_gram_fwd(f, out_size)
+
+    @staticmethod
+    def backward(ctx, dg):
+        (f,) = ctx.saved_tensors
+        return pooled_gram_bwd(f, dg.contiguous(), ctx.out_size), None
 
 
 class GramFunction(torch.autograd.Function):

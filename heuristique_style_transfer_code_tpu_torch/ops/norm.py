@@ -1,8 +1,8 @@
-"""Norms on NHWC tensors (``ops/norm.py`` of the JAX package): eval-mode
-batch norm (``:29-47``), the non-affine instance norm (``:70``) and the
-layer norm over every non-batch dimension (``:78``). Statistics and
-arithmetic in f32 (f64 stays f64), one cast back to x's dtype. Train-mode
-batch norm, with its running-stat updates, comes with training."""
+"""Norms on NHWC tensors (``ops/norm.py`` of the JAX package): batch norm
+in eval and train mode (``:29-67``), the non-affine instance norm
+(``:70``) and the layer norm over every non-batch dimension (``:78``).
+Statistics and arithmetic in f32 (f64 stays f64), one cast back to x's
+dtype."""
 from __future__ import annotations
 
 import functools
@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from .kernels.instance_norm import InstanceNormFunction
 
 EPS = 1e-5
+MOMENTUM = 0.1
 
 
 def batch_norm(
@@ -23,8 +24,22 @@ def batch_norm(
     mean: torch.Tensor,
     var: torch.Tensor,
     eps: float = EPS,
+    train: bool = False,
 ) -> torch.Tensor:
-    """x: (N, H, W, C); per-channel (C,) scale/bias and running mean/var."""
+    """x: (N, H, W, C); per-channel (C,) scale/bias and running mean/var.
+
+    Eval: the running statistics normalise. Train (torch's BatchNorm2d,
+    as the JAX package's ``batch_norm(train=True)``): the batch's mean and
+    biased variance over N, H and W normalise, and ``mean`` and ``var``
+    are updated in place to (1 - 0.1) * running + 0.1 * batch, the variance
+    taken unbiased (n = N*H*W). That is ``F.batch_norm``, a library call
+    as the XLA ops were in JAX: on the channels_last view of x, statistics
+    and arithmetic in f32 for f32 and bf16 inputs (f64 stays f64), the
+    output in x's dtype and the f32 running buffers kept f32."""
+    if train:
+        y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias, training=True,
+                         momentum=MOMENTUM, eps=eps)
+        return y.permute(0, 2, 3, 1)
     ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
     inv = scale.to(ctype) * torch.rsqrt(var.to(ctype) + eps)
     shift = bias.to(ctype) - mean.to(ctype) * inv

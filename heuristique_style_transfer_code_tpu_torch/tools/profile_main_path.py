@@ -106,8 +106,9 @@ def _device_us(evt) -> float:
 
 
 def _profile(step, n_steps: int) -> dict:
-    """Run ``step`` n_steps times under the profiler; busy, idle share and
-    the top kernels by device time."""
+    """Run ``step`` n_steps times under the profiler; busy, idle share,
+    the top kernels by device time, and the host's events (ops and CUDA
+    runtime calls) by their own time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -124,6 +125,9 @@ def _profile(step, n_steps: int) -> dict:
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
+    # host-side events (ops and the CUDA runtime calls) by their own time
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
     gram = {k: v / 1e3 for k, v, _ in rows if any(g in k for g in GRAM_KERNELS)}
@@ -139,6 +143,8 @@ def _profile(step, n_steps: int) -> dict:
                                           if any(g in k for g in IN_KERNELS)},
         "instance_norm_share_of_busy": sum(norm.values()) / busy_ms if busy_ms else None,
         "top_kernels": [{"name": k[:90], "ms": v / 1e3, "count": c} for k, v, c in rows[:12]],
+        "host_self_ms": sum(r[1] for r in host),
+        "top_host_events": [{"name": k[:60], "ms": v, "count": c} for k, v, c in host[:10]],
     }
 
 

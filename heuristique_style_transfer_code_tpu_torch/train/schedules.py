@@ -1,5 +1,6 @@
-"""Learning-rate schedules (``train/schedules.py:27-61`` of the JAX
-package), as plain functions of the optimiser's step count.
+"""Learning-rate schedules (``train/schedules.py:27-72`` of the JAX
+package), as plain functions of the optimiser's step count, and the
+steps a cross-validation fold runs (their horizon).
 
 The count is the number of updates applied before the one the rate is for
 (optax evaluates a schedule at the count before its increment), so with a
@@ -70,3 +71,13 @@ def make_lr_schedule(
         return warmup(count) if count < warmup_steps else decay(count - warmup_steps)
 
     return joined
+
+
+def steps_per_fold(n_samples: int, k_folds: int, batch_size: int, epochs: int) -> int:
+    """Optimiser steps one cross-validation fold runs
+    (``train/schedules.py:64-72`` of the JAX package): the fold's train
+    split keeps all but ``n // k`` of the samples, and the loader rounds a
+    partial batch up."""
+    train_size = n_samples - n_samples // int(k_folds) if k_folds > 1 else n_samples
+    per_epoch = max(1, math.ceil(train_size / int(batch_size)))
+    return max(1, per_epoch * int(epochs))
