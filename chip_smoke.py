@@ -46,13 +46,19 @@ Phases, all run every time:
                   and instance_norm_fwd and instance_norm_bwd at the net's
                   (16,224,224,32), (16,112,112,64) and (16,56,56,128),
                   with and without ReLU, affine rows that differ;
-                  pooled_gram_bwd (family-2 training) at the b32 stage
-                  outputs (32,56,56,256), (32,28,28,512) and
-                  (32,14,14,1024) at S 7, at overlapping bins (C = 10),
-                  C < S and S = 24, each row also saying whether two calls
-                  gave the same bits and timing autograd through the
-                  two-einsum composition, less its forward, as the
-                  library; the forward-only wrappers (gram_fwd,
+                  pooled_gram_bwd (family-2 training) from the forward
+                  kernel's Y at the b32 stage outputs (32,56,56,256),
+                  (32,28,28,512) and (32,14,14,1024) at S 7, at
+                  overlapping bins (C = 10), C < S, S = 24, S = 64 and
+                  odd C, each row naming its store mode (bulk or
+                  scalar), saying whether two calls gave the same bits,
+                  giving the new bound (Y, dG, dF) and that of a backward
+                  that reads F (F, dG, dF) and timing autograd through
+                  the two-einsum composition,
+                  less its forward, as the library; pooled_gram_fwd's Y
+                  on the bulk, scalar and project routes against the
+                  plain Y, the forward timed with and without it; the
+                  forward-only wrappers (gram_fwd,
                   pooled_gram_fwd, instance_norm_fwd) refuse inputs that
                   need a gradient;
                   time the kernel, the plain version and a library call;
@@ -268,9 +274,17 @@ F3_STYLE_IN_SHAPES = [(1, 112, 112, 64), (1, 56, 56, 128), (1, 55, 55, 256), (1,
 NET_IN_BWD_SHAPES = [(8, 224, 224, 32), (8, 56, 56, 128)]
 # pooled_gram_bwd (family-2 training): the b32 stage outputs at truncate 7,
 # S 7 (layer1..layer3); overlapping bins at C = 10 (a boundary channel in
-# two bins); C < S (a channel in several bins); past 16 bins
+# two bins); C < S (a channel in several bins); past 16 bins; its largest
+# S, 64; odd C (the scalar store path)
 B32_POOLED_SHAPES = [(32, 56, 56, 256), (32, 28, 28, 512), (32, 14, 14, 1024)]
-POOLED_BWD_EXTRA = [((2, 13, 11, 10), 7), ((2, 5, 5, 5), 7), ((2, 13, 11, 200), 24)]
+POOLED_BWD_EXTRA = [((2, 13, 11, 10), 7), ((2, 5, 5, 5), 7), ((2, 13, 11, 200), 24),
+                    ((4, 14, 14, 1024), 64), ((2, 13, 11, 203), 7)]
+# pooled_gram_fwd's Y (the backward's input) on each route: "bulk" at the
+# classification shape and the b32 stage shapes, "scalar" (C % 4 != 0, and
+# C < S), "project" (S > 16)
+POOLED_Y_CASES = ([((8, 56, 56, 256), 7)] + [(shape, 7) for shape in B32_POOLED_SHAPES]
+                  + [((1, 9, 7, 203), 16), ((2, 5, 5, 5), 7), ((2, 13, 11, 200), 24),
+                     ((8, 7, 7, 2048), 24)])
 # fast-style training at b16: the frozen encoder's four stage Grams on the
 # stylised output (gram_fwd and gram_bwd), and the net's norms (in1 and
 # in_up2, in2 and in_up1, in3 and the residual blocks': three distinct
@@ -1827,17 +1841,19 @@ def phase_in_bwd_kernels(kin, peaks) -> list:
 
 
 def phase_pooled_bwd_kernels(kg, peaks) -> list:
-    """pooled_gram_bwd against pooled_gram_bwd_plain, f32 and bf16, at the
-    family-2 training step's b32 stage outputs (truncate 7, S 7), at
-    overlapping bins (C = 10), C < S and S = 24, on non-negative features
-    and a signed, non-symmetric dG: max|err| and RMS, each relative to the
-    plain result's scale, at TOL; two calls bit-equal. Each row names the
-    kernel's tile (rows a block stages, parts a bin is cut into) and times the
-    kernel, the plain version and the library yardstick: autograd through
-    the two-einsum composition (Y = F P^T, G = Y^T Y / HW), its forward's
-    time taken off. The bound: F and dG read once, dF written once at the
-    card's HBM rate, or the f32 operations (C adds, S^2 FMAs and about C
-    more adds a row) on the CUDA cores."""
+    """pooled_gram_bwd against pooled_gram_bwd_plain from the same Y (the
+    forward kernel's, ``pooled_gram_fwd(..., return_y=True)``), f32 and
+    bf16, at the family-2 training step's b32 stage outputs (truncate 7,
+    S 7), at overlapping bins (C = 10), C < S, S = 24, S = 64 and odd C, on
+    non-negative features and a signed, non-symmetric dG: max|err| and RMS,
+    each relative to the plain result's scale, at TOL; two calls bit-equal.
+    Each row names the store mode the plan chose, its tile rows and blocks,
+    and times the kernel, the plain version and the library yardstick:
+    autograd through the two-einsum composition (Y = F P^T, G = Y^T Y /
+    HW), its forward's time taken off. The bound: Y and dG read once, dF
+    written once at the card's HBM rate, or the f32 operations (S^2 FMAs
+    and up to C adds a row) on the CUDA cores; ``old_bound_ms`` is that of
+    a backward that reads F in Y's place."""
     import torch
 
     from heuristique_style_transfer_code_tpu_torch.ops.pooling import adaptive_pool_matrix
@@ -1853,46 +1869,93 @@ def phase_pooled_bwd_kernels(kg, peaks) -> list:
             hw = h * w
             f = torch.relu(torch.randn((n, hw, c), device=dev, generator=gen)).to(dtype)
             dg = torch.randn((n, s, s), device=dev, generator=gen).to(dtype)
-            got = kg.pooled_gram_bwd(f, dg, s)
-            want = kg.pooled_gram_bwd_plain(f, dg, s)
+            _, y = kg.pooled_gram_fwd(f, s, return_y=True)
+            got = kg.pooled_gram_bwd(y, dg, c, dtype)
+            want = kg.pooled_gram_bwd_plain(y, dg, c, dtype)
             torch.cuda.synchronize()
             diff = got.float() - want.float()
             err = diff.abs().max().item()
             rel = err / want.float().abs().max().item()
             rms = (diff.norm() / want.float().norm()).item()
-            same = torch.equal(kg.pooled_gram_bwd(f, dg, s), kg.pooled_gram_bwd(f, dg, s))
+            same = torch.equal(kg.pooled_gram_bwd(y, dg, c, dtype),
+                               kg.pooled_gram_bwd(y, dg, c, dtype))
             ok = (bool(torch.isfinite(got.float()).all()) and rel <= TOL[dname]
                   and rms <= TOL[dname] and same)
-            bound, by = _bound(n * hw * (2.0 * c + 2 * s * s), (2 * n * hw * c + n * s * s) * es,
+            plan = kg.pooled_gram_bwd_plan_for(y, c, dtype)
+            flops = n * hw * (2.0 * s * s + c)
+            bound, by = _bound(flops, n * hw * s * 4 + (n * s * s + n * hw * c) * es,
                                torch.float32, peaks)
+            old_bound, _ = _bound(flops, (2 * n * hw * c + n * s * s) * es, torch.float32, peaks)
             pl = adaptive_pool_matrix(c, s, dev).to(dtype)
             fl = f.detach().clone().requires_grad_(True)
 
             def lib_fwd():
-                y = torch.einsum("nkc,oc->nko", fl, pl)
-                return torch.einsum("nko,nkp->nop", y, y) / hw
+                yl = torch.einsum("nkc,oc->nko", fl, pl)
+                return torch.einsum("nko,nkp->nop", yl, yl) / hw
 
             lib_fwd_ms = _time_ms(lib_fwd)
             lib_both_ms = _time_ms(lambda: torch.autograd.grad(lib_fwd(), fl, dg))
-            tile_rows, parts = kg._pooled_gram_bwd_plan(hw, c, s, es)[:2]
             rows.append(dict(
                 shape=[n, h, w, c], s=s, dtype=dname, max_abs_err=err, rel_err=rel, rms_err=rms,
-                tol=TOL[dname], ok=ok, repeatable=same, tile_rows=tile_rows, parts=parts,
-                ms=_time_ms(lambda: kg.pooled_gram_bwd(f, dg, s)),
-                plain_ms=_time_ms(lambda: kg.pooled_gram_bwd_plain(f, dg, s)),
+                tol=TOL[dname], ok=ok, repeatable=same, mode=plan.mode,
+                tile_rows=plan.tile_rows, blocks=plan.blocks, smem=plan.smem,
+                ms=_time_ms(lambda: kg.pooled_gram_bwd(y, dg, c, dtype)),
+                plain_ms=_time_ms(lambda: kg.pooled_gram_bwd_plain(y, dg, c, dtype)),
                 library_ms=lib_both_ms - lib_fwd_ms, library_fwd_bwd_ms=lib_both_ms,
-                bound_ms=bound, bound_by=by))
-            del f, dg, got, want, fl
+                bound_ms=bound, bound_by=by, old_bound_ms=old_bound))
+            del f, dg, y, got, want, fl
     for r in rows:
         print(f"[kernels] pooled_gram_bwd {r['dtype']} {tuple(r['shape'])} S={r['s']} "
-              f"tile_rows={r['tile_rows']} parts={r['parts']}: "
+              f"mode={r['mode']} tile_rows={r['tile_rows']} blocks={r['blocks']}: "
               f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} rms={r['rms_err']:.3e} "
               f"(tol {r['tol']}) repeatable={r['repeatable']} ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (fwd+bwd "
-              f"{r['library_fwd_bwd_ms']:.4f}) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+              f"{r['library_fwd_bwd_ms']:.4f}) bound_ms={r['bound_ms']:.4f} ({r['bound_by']}: Y, "
+              f"dG, dF) old_bound_ms={r['old_bound_ms']:.4f} (F, dG, dF)")
     bad = [(r["dtype"], r["shape"], r["s"]) for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"pooled_gram_bwd disagrees with its plain version: {bad}")
+    return rows
+
+
+def phase_pooled_fwd_y(kg) -> list:
+    """pooled_gram_fwd's Y (``return_y=True``) on the bulk, scalar and
+    project routes against ``pooled_gram_y_plain``, f32 and bf16 (Y is f32
+    either way, so TOL's f32 bound holds both), with the Gram it returns
+    bit-equal to the call without Y; the forward timed without and with Y."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(61)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for (n, h, w, c), s in POOLED_Y_CASES:
+            f = torch.relu(torch.randn((n, h * w, c), device=dev, generator=gen)).to(dtype)
+            g0 = kg.pooled_gram_fwd(f, s)
+            g1, y = kg.pooled_gram_fwd(f, s, return_y=True)
+            want = kg.pooled_gram_y_plain(f, s)
+            torch.cuda.synchronize()
+            diff = y - want
+            rel = (diff.abs().max() / want.abs().max()).item()
+            rms = (diff.norm() / want.norm()).item()
+            same = torch.equal(g0, g1)
+            ok = (y.dtype == torch.float32 and tuple(y.shape) == (n, h * w, s)
+                  and rel <= TOL["float32"] and rms <= TOL["float32"] and same)
+            rows.append(dict(
+                shape=[n, h, w, c], s=s, dtype=dname, route=kg.pooled_gram_route_for(f, s),
+                y_rel_err=rel, y_rms_err=rms, tol=TOL["float32"], gram_same=same, ok=ok,
+                ms=_time_ms(lambda: kg.pooled_gram_fwd(f, s)),
+                y_ms=_time_ms(lambda: kg.pooled_gram_fwd(f, s, return_y=True))))
+            del f, g0, g1, y, want
+    for r in rows:
+        print(f"[kernels] pooled_gram_fwd Y {r['dtype']} {tuple(r['shape'])} S={r['s']} "
+              f"route={r['route']}: Y against the plain Y rel={r['y_rel_err']:.3e} "
+              f"rms={r['y_rms_err']:.3e} (tol {r['tol']}), Gram bit-equal without Y "
+              f"{r['gram_same']}; ms without Y {r['ms']:.4f}, with Y {r['y_ms']:.4f}")
+    bad = [(r["dtype"], r["shape"], r["s"]) for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"pooled_gram_fwd's Y disagrees with the plain Y: {bad}")
     return rows
 
 
@@ -3150,6 +3213,7 @@ def main() -> int:
     rows["instance_norm_fwd"], in_checks = phase_in_kernels(kin, peaks)
     rows["instance_norm_bwd"] = phase_in_bwd_kernels(kin, peaks)
     rows["pooled_gram_bwd"] = phase_pooled_bwd_kernels(kg, peaks)
+    rows["pooled_gram_fwd_y"] = phase_pooled_fwd_y(kg)
     in_bwd_checks = _forced_in_bwd_checks(kin)
     _gradient_guards(kg, kin)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

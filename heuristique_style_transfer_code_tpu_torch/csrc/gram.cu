@@ -5,7 +5,8 @@
 //   gram_bwd         dF[n] = F[n] (dG[n] + dG[n]^T) / HW          (N, HW, C)
 //   pooled_gram_fwd  G[n] = (F[n] P^T)^T (F[n] P^T) / HW          (N, S, S)
 //                    with P = adaptive_pool_matrix(C, S), never built
-//   pooled_gram_bwd  dF[n] = F[n] P^T (dG[n] + dG[n]^T) P / HW    (N, HW, C)
+//   pooled_gram_bwd  dF[n] = Y[n] (dG[n] + dG[n]^T) P / HW        (N, HW, C)
+//                    from Y = F P^T (N, HW, S, f32), which the forward writes
 //
 // F is the (N, HW, C) view of an NHWC activation (C contiguous), f32 or
 // bf16; every sum is taken in f32 and the result is cast to F's type once.
@@ -111,7 +112,10 @@
 // barrier follows, and block 0 adds the splits in order, scales by one
 // reciprocal of HW and writes G and its mirror.
 // The first stages' copies go out before the rest of the setup, so their
-// latency hides it.
+// latency hides it. Where a gradient will flow, the wrapper passes Y
+// (N, HW, S) f32 and the kernel also writes each (row, bin) mean there, the
+// number its products used (WRITE_Y; the project route's Y is kept the
+// same way): pooled_gram_bwd's input.
 // What the card showed (PERF.md, Findings; tools/pooled_gram_phases.py):
 // one TMA copy per row into a padded layout cost more to issue than a
 // stage's work, so a stage is one copy; above the stream alone the
@@ -1174,10 +1178,11 @@ __device__ __forceinline__ void add_group(float (&a)[4], uint4 u, const float (&
 // warp on the bins of a row read distinct bank groups), and adds the
 // products of pair t % pairs over rows t / pairs, + groups, ... of the stage
 // before.
-template <typename T, bool ASYNC>
+template <typename T, bool ASYNC, bool WRITE_Y>
 __global__ void __launch_bounds__(PG_THREADS)
-pooled_gram_kernel(const T* __restrict__ f, T* __restrict__ g, int hw, int c, int s, int splits,
-                   int stage_rows, int parts, int row_groups, int pitch, int slots) {
+pooled_gram_kernel(const T* __restrict__ f, T* __restrict__ g, float* __restrict__ y, int hw, int c,
+                   int s, int splits, int stage_rows, int parts, int row_groups, int pitch,
+                   int slots) {
   extern __shared__ __align__(16) uint8_t pg_ring[];
   __shared__ float part_s[2][PG_SUMS];             // [stage % 2][row][bin][part]
   __shared__ float red_s[PG_THREADS];              // [row group][pair] at the end
@@ -1317,9 +1322,15 @@ pooled_gram_kernel(const T* __restrict__ f, T* __restrict__ g, int hw, int c, in
     }
   };
   float acc = 0.f;
+  // WRITE_Y: the thread of pair (o, o) also writes its rows' mean of bin o,
+  // the ma it multiplies, to Y: so the Gram and the Y that pooled_gram_bwd
+  // reads are the same numbers
+  const bool y_writer = WRITE_Y && pa == pb;
   auto add_products = [&](int st) {  // stage st's rows, from part_s[st % 2]
     const int rows = stage_len(st);
     const float* sums = part_s[st & 1];
+    float* ys = y_writer ? y + (static_cast<size_t>(n) * hw + k_begin + st * stage_rows) * s + pa
+                         : nullptr;
 #pragma unroll 4
     for (int r = q; r < rows; r += groups) {
       const float* ra = sums + (r * s + pa) * parts;
@@ -1334,6 +1345,7 @@ pooled_gram_kernel(const T* __restrict__ f, T* __restrict__ g, int hw, int c, in
         mb *= wb;
       }
       acc = fmaf(ma, mb, acc);
+      if (y_writer) ys[r * s] = ma;
     }
   };
 
@@ -1396,199 +1408,312 @@ pooled_project_kernel(const T* __restrict__ f, float* __restrict__ y, size_t row
 // ---- pooled_gram_bwd --------------------------------------------------------
 // The VJP of pooled_gram_fwd, for family-2 training. It has no Pallas
 // counterpart: the JAX package differentiates the XLA composition
-// (heuristique_style_transfer_code_tpu/ops/gram.py:56-77). Per image, with
-// Y = F P^T (HW, S) and M = (dG + dG^T) / HW (S x S), dY = Y M and dF = dY P:
+// (heuristique_style_transfer_code_tpu/ops/gram.py:56-77), whose residual is
+// pf = F P^T. So does the port: the forward writes Y = F P^T (N, HW, S) in
+// f32 when a gradient will flow (pooled_gram_kernel's WRITE_Y, or the
+// project route's Y), and with M = (dG + dG^T) / HW (S x S) an image,
 //   dF[r, c] = sum over the bins o that hold channel c of w_o (Y[r] M)[o].
-// Bound: bytes. F is read once and dF written once (dG is S^2 an image); the
-// work is about 2 C + 2 S^2 operations a row. At the training step's b32
-// stage outputs on an H100 SXM (3.35 TB/s): (32,56,56,256) f32 205 MB, 61 us;
-// (32,28,28,512) and (32,14,14,1024) 103 and 51 MB; bf16 half of each.
-// Design: a block takes a tile of one image's rows, as many as fit in
-// PGB_TILE_BYTES (32 rows of C = 256 f32), and stages it in shared memory
-// with coalesced 16-byte cp.async copies (scalar loads where a row is not a
-// whole number of 16 bytes or F is misaligned), each row padded by 16 bytes
-// so that the rows of a warp's reads fall in different banks. It builds M in
-// f32 from dG, and the bins (lo, hi, w) as pooled_gram_kernel computes them
-// (floor(o C / S), ceil((o + 1) C / S), 1 / len by __frcp_rn). Then, each
-// phase over the whole tile, one barrier apart: the (row, bin, part) sums of
-// the staged channels (a long bin cut into parts, so that every thread has
-// one; an edge channel of overlapping bins is read for each bin that holds
-// it); Y = their sums in part order times w; z_o = w_o (Y M)[o]; and dF, 16
-// bytes a store, each channel the sum of z_o over the bins that hold it in
-// increasing o (the first is floor(c S / C), and lo and hi rise with o). F
-// is read once and dF written once; no atomics, every sum in a fixed order,
-// so two calls give the same bits. S up to PGB_MAX_S (64); a row of F up to
-// PG_MAX_ROW_BYTES (96 KB), as pooled_gram_kernel stages.
-// What the card showed (PERF.md, Findings): a first version with a warp a
-// row, summing each bin from device memory with a butterfly reduction,
-// reached 37% (f32) and 20% (bf16) of the bound at (32,56,56,256).
+// F is never read again.
+// Bound: bytes. Y and dG are read once and dF written once; dF is all but a
+// few percent of them (S floats a row of Y against C values of dF). At the
+// training step's b32 stage outputs, S 7, on an H100 SXM (3.35 TB/s):
+// (32,56,56,256) f32 105.6 MB, 31.5 us; (32,28,28,512) 52.1 MB, 15.5 us;
+// (32,14,14,1024) 25.9 MB, 7.7 us; bf16 about half of each. The work is
+// S^2 FMAs and up to C adds a row, about 2 operations an output element,
+// and dF is of rank S <= 64, so the tensor cores would buy nothing.
+// Design: a write-bound stream. A persistent grid of a few blocks an SM;
+// block b takes the rows [b R / B, (b + 1) R / B) of all N x HW rows and
+// walks them in tiles of at most tile_rows rows of one image. Each block
+// builds once, in shared memory, the bins (lo, hi, w) as pooled_gram_kernel
+// computes them (floor(o C / S), ceil((o + 1) C / S), 1 / len by __frcp_rn)
+// and a table of each group of V channels (16 bytes of dF): its first bin
+// and how many bins touch it; and M of the tile's image, rebuilt only where
+// the image changes. Y tiles (tile_rows x S f32) stream through a ring of
+// PGB_SLOTS slots by 4-byte cp.async, two tiles ahead of the one being
+// worked. A tile takes two barriers: z = w (Y M) for its (row, bin) pairs,
+// S FMAs each in q order; then dF, V channels a thread, neighbouring threads
+// on neighbouring groups of a row, each channel the sum of z over the bins
+// that hold it in increasing bin order (one bin: z itself), so every sum has
+// one order and two calls give the same bits. The store loop has no
+// division and no search: the table gives the bins and a carried (row,
+// group) index the position. No atomics. Two ways out, one kernel; the
+// plan (ops/kernels/gram.py _pooled_gram_bwd_plan) picks one, tile_rows and
+// the grid, and the wrapper passes them in:
+//   bulk    (C V-aligned, 16-byte-aligned dF, two staged tiles fit) each
+//           tile is staged in shared memory, one of two buffers, and leaves
+//           as one TMA bulk store (cp.async.bulk ... bulk_group) issued
+//           after the next barrier; a buffer is rewritten only once its
+//           store has read it.
+//   scalar  (C % V != 0, dF misaligned, or a dF row past about 110 KB,
+//           whose two staged tiles would not fit) one element a thread, in
+//           order.
+// Any S up to PGB_MAX_S (64) and any C whose table fits (about 100 K
+// channels).
+// What the card showed (PERF.md, Findings; NVIDIA H100 80GB HBM3, 700 W):
+// The previous design, staging tiles of F and recomputing its bin sums, took
+// 0.093, 0.052 and 0.031 ms f32 at the three b32 stage shapes (49-66% of
+// its F-reading bound; bf16 29-34%) and lost to autograd through two
+// einsums, which keeps Y. This one takes 0.043, 0.024 and 0.013 ms f32
+// (59-73% of the Y-reading bound) and 0.030, 0.015 and 0.010 bf16
+// (40-54%), against a write-only zero_ of dF at 0.033, 0.017 and 0.008
+// f32 (tools/pooled_gram_bwd_sweep.py). 32 KB tiles beat 8, 16 and 64 KB;
+// more blocks than shared memory holds at once (3 an SM) gained nothing.
+// 16-byte stores straight from registers, once a third mode, took 0.045,
+// 0.024 and 0.011 ms f32 and 0.033, 0.016 and 0.010 bf16: level with the
+// staged tiles at layer 2 f32, 13% ahead at layer 3 f32, 3-8% behind at
+// the other four, so they went.
+// The sweep's store walks, within bulk: a thread that keeps its group on
+// every row (the groups of a row divide the block at all three shapes)
+// takes 0.0303, 0.0155 and 0.0098 ms bf16 against 0.0345, 0.0179 and
+// 0.0108 for the carried (row, group) walk, and 0.0436, 0.0241, 0.0130 f32
+// against 0.0440, 0.0242, 0.0132; its one-bin case (a group inside one
+// bin stores that bin's z) gains 7-10% of it in bf16 and costs 1-2% in f32.
 constexpr int PGB_THREADS = 256;
 constexpr int PGB_MAX_S = 64;
-constexpr int PGB_TILE_BYTES = 32 * 1024;
 constexpr int PGB_MAX_ROWS = 64;
+constexpr int PGB_SLOTS = 3;  // Y tiles: two in flight while one is worked
+enum PgbMode { PGB_SCALAR = 0, PGB_BULK = 1 };
 
-// The tile's rows and the parts a bin is cut into (ops/kernels/gram.py
-// _pooled_gram_bwd_plan mirrors it), and the block's shared memory: the tile,
-// M, w, lo, hi, the part sums, Y and z.
-struct PgbPlan {
-  int rows, parts, pitch;  // pitch: bytes a staged row
-  size_t smem;
-};
-
-PgbPlan pgb_plan(int hw, int c, int s, int es) {
-  PgbPlan p;
-  const int row_bytes = c * es;
-  p.rows = max(1, min(min(PGB_MAX_ROWS, PGB_TILE_BYTES / row_bytes), hw));
-  p.parts = max(1, PGB_THREADS / (p.rows * s));
-  p.pitch = (row_bytes + 16 + 15) / 16 * 16;
-  const size_t pairs = static_cast<size_t>(p.rows) * s;
-  p.smem = static_cast<size_t>(p.rows) * p.pitch +
-           4 * (static_cast<size_t>(s) * s + 3 * s + pairs * p.parts + 2 * pairs);
-  return p;
+// The block's dynamic shared memory (ops/kernels/gram.py _pgb_smem mirrors
+// it): [bulk: 2 staged dF tiles] [Y ring] [z] [M] [group table].
+__host__ __device__ inline size_t pgb_smem(int mode, int c, int s, int tile_rows, int es) {
+  const int v = 16 / es;
+  const size_t staged = mode == PGB_BULK ? 2 * static_cast<size_t>(tile_rows) * c * es : 0;
+  return staged + 4 * (static_cast<size_t>(PGB_SLOTS + 1) * tile_rows * s +
+                       static_cast<size_t>(s) * s) +
+         2 * static_cast<size_t>((c + v - 1) / v);
 }
 
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(PGB_THREADS)
-pooled_gram_bwd_kernel(const T* __restrict__ f, const T* __restrict__ dg, T* __restrict__ df,
-                       int hw, int c, int s, int rows_per_tile, int parts, int pitch) {
-  extern __shared__ __align__(16) uint8_t pgb_smem[];
-  const int n = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * rows_per_tile;
-  const int rows = min(rows_per_tile, hw - r0);
-  const size_t base = (static_cast<size_t>(n) * hw + r0) * c;  // the tile's first element
-  uint8_t* tile = pgb_smem;
-  float* m = reinterpret_cast<float*>(pgb_smem + static_cast<size_t>(rows_per_tile) * pitch);
-  float* w = m + s * s;
-  int* lo = reinterpret_cast<int*>(w + s);
-  int* hi = lo + s;
-  float* psum = reinterpret_cast<float*>(hi + s);  // [row][bin][part]
-  float* ys = psum + rows_per_tile * s * parts;    // [row][bin]
-  float* zs = ys + rows_per_tile * s;              // [row][bin]
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
 
-  // stage the tile's rows (the copies go out first, so the setup hides them)
-  if constexpr (VEC) {
-    const int chunks = c * static_cast<int>(sizeof(T)) / 16;  // 16-byte groups a row
-    const uint8_t* src = reinterpret_cast<const uint8_t*>(f + base);
-    for (int i = tid; i < rows * chunks; i += PGB_THREADS) {
-      const int r = i / chunks;
-      const int k = i - r * chunks;
-      cp_async16(tile + static_cast<size_t>(r) * pitch + 16 * k,
-                 src + static_cast<size_t>(r) * c * sizeof(T) + 16 * k, true);
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(PGB_THREADS, 4)
+pooled_gram_bwd_kernel(const float* __restrict__ y, const T* __restrict__ dg, T* __restrict__ df,
+                       int hw, int c, int s, long long total_rows, int tile_rows) {
+  extern __shared__ __align__(128) uint8_t pgb_smem_buf[];
+  __shared__ int lo[PGB_MAX_S], hi[PGB_MAX_S];
+  __shared__ float w[PGB_MAX_S];
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int tid = threadIdx.x;
+  const int groups = (c + V - 1) / V;
+  const size_t tile_elems = static_cast<size_t>(tile_rows) * c;
+  uint8_t* staged = pgb_smem_buf;
+  float* ring = reinterpret_cast<float*>(pgb_smem_buf +
+                                         (MODE == PGB_BULK ? 2 * tile_elems * sizeof(T) : 0));
+  float* zs = ring + PGB_SLOTS * tile_rows * s;
+  float* m = zs + tile_rows * s;
+  uint16_t* table = reinterpret_cast<uint16_t*>(m + s * s);
+
+  const long long begin = total_rows * blockIdx.x / gridDim.x;
+  const long long end = total_rows * (blockIdx.x + 1) / gridDim.x;
+  // a tile: up to tile_rows rows from `at`, never past the block's range or
+  // the image's last row
+  auto tile_len = [&](long long at) {
+    return static_cast<int>(min(static_cast<long long>(tile_rows), min(end, (at / hw + 1) * hw) - at));
+  };
+  long long ld = begin;  // the next Y row to load
+  auto load_next = [&](int slot) {  // one commit group a tile, empty past the range
+    if (ld < end) {
+      const int len = tile_len(ld);
+      const float* src = y + ld * s;
+      float* dst = ring + slot * tile_rows * s;
+      for (int e = tid; e < len * s; e += PGB_THREADS) cp_async4(dst + e, src + e);
+      ld += len;
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-  } else {
-    for (int i = tid; i < rows * c; i += PGB_THREADS) {
-      const int r = i / c;
-      reinterpret_cast<T*>(tile + static_cast<size_t>(r) * pitch)[i - r * c] = f[base + i];
+  };
+  // M of image (cur / hw); no thread reads M past the last barrier
+  long long image = -1;
+  auto build_m = [&](long long cur) {
+    image = cur / hw;
+    const T* d = dg + image * s * s;
+    for (int e = tid; e < s * s; e += PGB_THREADS) {
+      const int a = e / s;
+      const int b = e - a * s;
+      m[e] = (to_f32(d[a * s + b]) + to_f32(d[b * s + a])) / static_cast<float>(hw);
     }
-  }
-  const float inv_hw = 1.f / static_cast<float>(hw);
-  const T* dgn = dg + static_cast<size_t>(n) * s * s;
-  for (int i = tid; i < s * s; i += PGB_THREADS) {
-    const int a = i / s;
-    const int b = i - a * s;
-    m[i] = (to_f32(dgn[a * s + b]) + to_f32(dgn[b * s + a])) * inv_hw;
-  }
+  };
+  // the first tiles' copies go out before the setup, which hides them
+  for (int k = 0; k < PGB_SLOTS - 1; ++k) load_next(k);
+  if (begin < end) build_m(begin);
+
   for (int o = tid; o < s; o += PGB_THREADS) {
     lo[o] = o * c / s;
     hi[o] = ((o + 1) * c + s - 1) / s;
     w[o] = __frcp_rn(static_cast<float>(hi[o] - lo[o]));
   }
-  if constexpr (VEC) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
+  // group g = channels [g V, min(g V + V, C)): its first bin o0 (the first
+  // whose end lies past g V) and the count of bins o0.. that start before
+  // the group's end; lo and hi rise with o, so those are all that touch it
+  for (int g = tid; g < groups; g += PGB_THREADS) {
+    const int c0 = g * V;
+    const int c1 = min(c0 + V, c);
+    int o0 = 0;
+    while (hi[o0] <= c0) ++o0;
+    int o1 = o0;
+    while (o1 + 1 < s && lo[o1 + 1] < c1) ++o1;
+    table[g] = static_cast<uint16_t>(o0 | (o1 - o0 + 1) << 8);
+  }
 
-  // (row, bin, part) sums; a part is plen channels of its bin, in order
-  const int pairs = rows * s;
-  const int plen = ((c + s - 1) / s + 1 + parts - 1) / parts;  // a bin holds <= ceil(C/S) + 1
-  for (int i = tid; i < pairs * parts; i += PGB_THREADS) {
-    const int pair = i / parts;
-    const int part = i - pair * parts;
-    const int r = pair / s;
-    const int o = pair - r * s;
-    const T* row = reinterpret_cast<const T*>(tile + static_cast<size_t>(r) * pitch);
-    const int begin = lo[o] + part * plen;
-    const int end = min(hi[o], begin + plen);
-    float a0 = 0.f, a1 = 0.f;
-    int k = begin;
-    for (; k + 1 < end; k += 2) {
-      a0 += to_f32(row[k]);
-      a1 += to_f32(row[k + 1]);
-    }
-    if (k < end) a0 += to_f32(row[k]);
-    psum[i] = a0 + a1;
-  }
-  __syncthreads();
-  for (int i = tid; i < pairs; i += PGB_THREADS) {
-    float sum = 0.f;
-    for (int part = 0; part < parts; ++part) sum += psum[i * parts + part];
-    ys[i] = sum * w[i % s];
-  }
-  __syncthreads();
-  for (int i = tid; i < pairs; i += PGB_THREADS) {
-    const int r = i / s;
-    const int o = i - r * s;
-    const float* y = ys + r * s;
-    float acc = 0.f;
-    for (int q = 0; q < s; ++q) acc = fmaf(y[q], m[q * s + o], acc);
-    zs[i] = acc * w[o];
-  }
-  __syncthreads();
+  // the store loop's (row, item) walk: items are groups (bulk) or
+  // channels (scalar); a thread steps PGB_THREADS items with a carry
+  const int per_row = MODE == PGB_SCALAR ? c : groups;
+  const int step_r = PGB_THREADS / per_row;
+  const int step_i = PGB_THREADS - step_r * per_row;
+  const int first_r = tid / per_row;
+  const int first_i = tid - first_r * per_row;
 
-  // dF: each channel the sum of z over the bins that hold it, in bin order
-  T* out = df + base;
-  if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T);
-    const int vecs = c / V;  // 16-byte groups a row
-    for (int i = tid; i < rows * vecs; i += PGB_THREADS) {
-      const int r = i / vecs;
-      const int c0 = (i - r * vecs) * V;
-      const float* z = zs + r * s;
-      int o = static_cast<int>(static_cast<long long>(c0) * s / c);
-      alignas(16) T v[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int ch = c0 + j;
-        while (hi[o] <= ch) ++o;
-        float acc = 0.f;
-        for (int q = o; q < s && lo[q] <= ch; ++q) acc += z[q];
-        v[j] = from_f32<T>(acc);
-      }
-      *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * c + c0) =
-          *reinterpret_cast<const uint4*>(v);
-    }
-  } else {
-    for (int i = tid; i < rows * c; i += PGB_THREADS) {
-      const int r = i / c;
-      const int ch = i - r * c;
-      const float* z = zs + r * s;
+  long long cur = begin, prev = 0;
+  int i = 0, prev_len = 0;
+  for (; cur < end; ++i) {
+    const int len = tile_len(cur);
+    if (cur / hw != image) build_m(cur);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(PGB_SLOTS - 2) : "memory");
+    __syncthreads();  // tile i's Y, M and the table are in; z and tile i-1's staging are free
+    if (MODE == PGB_BULK && tid == 0 && i > 0)
+      bulk_store(df + prev * c, smem_u32(staged + ((i - 1) & 1) * tile_elems * sizeof(T)),
+                 static_cast<uint32_t>(prev_len * c * sizeof(T)));
+    load_next((i + PGB_SLOTS - 1) % PGB_SLOTS);  // into the slot tile i-1 left
+    const float* yt = ring + (i % PGB_SLOTS) * tile_rows * s;
+    for (int p = tid; p < len * s; p += PGB_THREADS) {
+      const int r = p / s;
+      const int o = p - r * s;
+      const float* yr = yt + r * s;
       float acc = 0.f;
-      for (int q = static_cast<int>(static_cast<long long>(ch) * s / c); q < s && lo[q] <= ch;
-           ++q)
-        acc += z[q];
-      out[i] = from_f32<T>(acc);
+      for (int q = 0; q < s; ++q) acc = fmaf(yr[q], m[q * s + o], acc);
+      zs[p] = acc * w[o];
+    }
+    // bulk: the store of tile i-2, which used this tile's buffer, has read it
+    if (MODE == PGB_BULK && tid == 0)
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    __syncthreads();  // z
+
+    if constexpr (MODE == PGB_SCALAR) {
+      T* out = df + cur * c;
+      for (int r = first_r, ch = first_i; r < len;) {
+        const int e = table[static_cast<unsigned>(ch) / V];
+        const float* zr = zs + r * s;
+        float acc = 0.f;
+        for (int k = 0, o = e & 0xff; k < e >> 8; ++k, ++o)
+          if (ch >= lo[o] && ch < hi[o]) acc += zr[o];
+        out[static_cast<size_t>(r) * c + ch] = from_f32<T>(acc);
+        ch += step_i;
+        r += step_r;
+        if (ch >= per_row) {
+          ch -= per_row;
+          ++r;
+        }
+      }
+    } else {
+      uint8_t* buf = staged + (i & 1) * tile_elems * sizeof(T);
+      auto put = [&](int r, int g, const T (&v)[V]) {
+        const size_t at = static_cast<size_t>(r) * c + g * V;
+        *reinterpret_cast<uint4*>(buf + at * sizeof(T)) = *reinterpret_cast<const uint4*>(v);
+      };
+      // each channel of group g, row r: z summed over its bins in order
+      auto group = [&](int r, int g, int e, T (&v)[V]) {
+        const float* zr = zs + r * s;
+        float a[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) a[j] = 0.f;
+        for (int k = 0, o = e & 0xff; k < e >> 8; ++k, ++o) {
+          const float z = zr[o];
+          const int l = lo[o] - g * V;
+          const int h = hi[o] - g * V;
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            if (j >= l && j < h) a[j] += z;
+        }
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = from_f32<T>(a[j]);
+      };
+      if (step_i == 0) {
+        // the groups divide the block: a thread keeps its group, and its
+        // bins, on every row it stages (ahead of the walk below in bf16;
+        // see the note above)
+        const int e = table[first_i];
+        alignas(16) T v[V];
+        if (e >> 8 == 1) {  // one bin holds the whole group
+          for (int r = first_r; r < len; r += step_r) {
+            const T z = from_f32<T>(zs[r * s + (e & 0xff)]);
+#pragma unroll
+            for (int j = 0; j < V; ++j) v[j] = z;
+            put(r, first_i, v);
+          }
+        } else {
+          for (int r = first_r; r < len; r += step_r) {
+            group(r, first_i, e, v);
+            put(r, first_i, v);
+          }
+        }
+      } else {
+        for (int r = first_r, g = first_i; r < len;) {
+          alignas(16) T v[V];
+          group(r, g, table[g], v);
+          put(r, g, v);
+          g += step_i;
+          r += step_r;
+          if (g >= per_row) {
+            g -= per_row;
+            ++r;
+          }
+        }
+      }
+      // the staged tile's generic writes come before the bulk store's reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    prev = cur;
+    prev_len = len;
+    cur += len;
+  }
+  if constexpr (MODE == PGB_BULK) {
+    __syncthreads();
+    if (tid == 0 && i > 0) {
+      bulk_store(df + prev * c, smem_u32(staged + ((i - 1) & 1) * tile_elems * sizeof(T)),
+                 static_cast<uint32_t>(prev_len * c * sizeof(T)));
+      asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename T>
-cudaError_t pooled_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int s,
-                            cudaStream_t stream) {
-  if (static_cast<size_t>(c) * sizeof(T) > PG_MAX_ROW_BYTES) return cudaErrorInvalidValue;
-  const PgbPlan p = pgb_plan(hw, c, s, static_cast<int>(sizeof(T)));
-  const bool vec = c * sizeof(T) % 16 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(f) | reinterpret_cast<uintptr_t>(df)) & 15) == 0;
-  const auto kernel = vec ? pooled_gram_bwd_kernel<T, true> : pooled_gram_bwd_kernel<T, false>;
-  if (p.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(static_cast<unsigned>((hw + p.rows - 1) / p.rows), static_cast<unsigned>(n));
-  kernel<<<grid, PGB_THREADS, p.smem, stream>>>(static_cast<const T*>(f),
-                                                static_cast<const T*>(dg), static_cast<T*>(df), hw,
-                                                c, s, p.rows, p.parts, p.pitch);
+template <typename T, int MODE>
+cudaError_t pgb_launch(const void* y, const void* dg, void* df, int n, int hw, int c, int s,
+                       int tile_rows, int blocks, cudaStream_t stream) {
+  const size_t smem = pgb_smem(MODE, c, s, tile_rows, static_cast<int>(sizeof(T)));
+  const auto kernel = pooled_gram_bwd_kernel<T, MODE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, PGB_THREADS, smem, stream>>>(
+      static_cast<const float*>(y), static_cast<const T*>(dg), static_cast<T*>(df), hw, c, s,
+      static_cast<long long>(n) * hw, tile_rows);
   return cudaGetLastError();
+}
+
+// bulk needs C a whole number of 16-byte groups and a 16-byte-aligned dF;
+// scalar takes anything.
+template <typename T>
+cudaError_t pooled_gram_bwd(const void* y, const void* dg, void* df, int n, int hw, int c, int s,
+                            int mode, int tile_rows, int blocks, cudaStream_t stream) {
+  const bool vec = c % (16 / static_cast<int>(sizeof(T))) == 0 &&
+                   (reinterpret_cast<uintptr_t>(df) & 15) == 0;
+  if (mode != PGB_SCALAR && !vec) return cudaErrorInvalidValue;
+  if (mode == PGB_BULK)
+    return pgb_launch<T, PGB_BULK>(y, dg, df, n, hw, c, s, tile_rows, blocks, stream);
+  return pgb_launch<T, PGB_SCALAR>(y, dg, df, n, hw, c, s, tile_rows, blocks, stream);
 }
 
 // Launch with the split axis as a cluster (1, splits, 1); above 8 blocks a
@@ -1775,8 +1900,8 @@ cudaError_t gram_bwd_wgmma(const void* f, const void* dg, void* df, int n, int h
 // follow from C, S and the longest split; see the design note at the top. A
 // row of F over PG_MAX_ROW_BYTES is refused as cudaErrorInvalidValue.
 template <typename T, bool ASYNC>
-cudaError_t pooled_gram_launch(const void* f, void* g, int n, int hw, int c, int s, int splits,
-                               cudaStream_t stream) {
+cudaError_t pooled_gram_launch(const void* f, void* g, float* y, int n, int hw, int c, int s,
+                               int splits, cudaStream_t stream) {
   if (static_cast<size_t>(c) * sizeof(T) > PG_MAX_ROW_BYTES) return cudaErrorInvalidValue;
   const int pitch = static_cast<int>((static_cast<size_t>(c) * sizeof(T) + 15) / 16 * 16);
   const int longest = (hw + splits - 1) / splits;
@@ -1796,24 +1921,25 @@ cudaError_t pooled_gram_launch(const void* f, void* g, int n, int hw, int c, int
   const int slots = stages == 1 ? 1 : max(2, min(min(PG_MAX_SLOTS, stages + 1),
                                                  2 * PG_MAX_ROW_BYTES / stage_bytes));
   const size_t smem = static_cast<size_t>(slots) * stage_bytes;
-  const auto kernel = pooled_gram_kernel<T, ASYNC>;
+  const auto kernel = y != nullptr ? pooled_gram_kernel<T, ASYNC, true>
+                                   : pooled_gram_kernel<T, ASYNC, false>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(1, static_cast<unsigned>(splits), static_cast<unsigned>(n));
   return launch_clustered(kernel, grid, PG_THREADS, smem, splits, stream, static_cast<const T*>(f),
-                          static_cast<T*>(g), hw, c, s, splits, stage_rows, parts, row_groups,
+                          static_cast<T*>(g), y, hw, c, s, splits, stage_rows, parts, row_groups,
                           pitch, slots);
 }
 
 // Route: bulk copies where C * sizeof(T) % 16 == 0 on a 16-byte-aligned F,
 // scalar loads otherwise (ops/kernels/gram.py _pooled_gram_route mirrors it).
 template <typename T>
-cudaError_t pooled_gram_fwd(const void* f, void* g, int n, int hw, int c, int s, int splits,
-                            cudaStream_t stream) {
+cudaError_t pooled_gram_fwd(const void* f, void* g, float* y, int n, int hw, int c, int s,
+                            int splits, cudaStream_t stream) {
   const bool aligned = c % Group<T>::V == 0 && (reinterpret_cast<uintptr_t>(f) & 15) == 0;
-  return aligned ? pooled_gram_launch<T, true>(f, g, n, hw, c, s, splits, stream)
-                 : pooled_gram_launch<T, false>(f, g, n, hw, c, s, splits, stream);
+  return aligned ? pooled_gram_launch<T, true>(f, g, y, n, hw, c, s, splits, stream)
+                 : pooled_gram_launch<T, false>(f, g, y, n, hw, c, s, splits, stream);
 }
 
 }  // namespace
@@ -1889,23 +2015,28 @@ int hst_pooled_project(const void* f, void* y, int n, int hw, int c, int s, int 
   return cudaGetLastError();
 }
 
-// dF (N, HW, C) in F's type from F and dG (N, S, S) of F's type; s: 1..64,
-// any HW, a row of F up to 96 KB (ops/kernels/gram.py pooled_gram_bwd).
-int hst_pooled_gram_bwd(const void* f, const void* dg, void* df, int n, int hw, int c, int s,
-                        int dtype, void* stream) {
+// dF (N, HW, C) of dtype from Y (N, HW, S) f32 and dG (N, S, S) of dtype;
+// s: 1..64; mode: 0 scalar, 1 bulk; tile_rows: 1..64; blocks >= 1
+// (ops/kernels/gram.py _pooled_gram_bwd_plan).
+int hst_pooled_gram_bwd(const void* y, const void* dg, void* df, int n, int hw, int c, int s,
+                        int mode, int tile_rows, int blocks, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s < 1 || s > PGB_MAX_S || n < 1 || hw < 1 || c < 1) return cudaErrorInvalidValue;
-  if (dtype == 0) return pooled_gram_bwd<float>(f, dg, df, n, hw, c, s, st);
-  return pooled_gram_bwd<__nv_bfloat16>(f, dg, df, n, hw, c, s, st);
+  if (s < 1 || s > PGB_MAX_S || n < 1 || hw < 1 || c < 1 || mode < PGB_SCALAR ||
+      mode > PGB_BULK || tile_rows < 1 || tile_rows > PGB_MAX_ROWS || blocks < 1)
+    return cudaErrorInvalidValue;
+  if (dtype == 0) return pooled_gram_bwd<float>(y, dg, df, n, hw, c, s, mode, tile_rows, blocks, st);
+  return pooled_gram_bwd<__nv_bfloat16>(y, dg, df, n, hw, c, s, mode, tile_rows, blocks, st);
 }
 
 // s: 1..16; splits: 1..16, the blocks of one image's cluster; any C and HW.
-int hst_pooled_gram_fwd(const void* f, void* g, int n, int hw, int c, int s, int splits, int dtype,
-                        void* stream) {
+// y: null, or (N, HW, S) f32 that receives Y = F P^T (pooled_gram_bwd's input).
+int hst_pooled_gram_fwd(const void* f, void* g, void* y, int n, int hw, int c, int s, int splits,
+                        int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (s < 1 || s > MAX_S || splits < 1 || splits > MAX_SPLITS || hw < 1) return cudaErrorInvalidValue;
-  if (dtype == 0) return pooled_gram_fwd<float>(f, g, n, hw, c, s, splits, st);
-  return pooled_gram_fwd<__nv_bfloat16>(f, g, n, hw, c, s, splits, st);
+  float* yf = static_cast<float*>(y);
+  if (dtype == 0) return pooled_gram_fwd<float>(f, g, yf, n, hw, c, s, splits, st);
+  return pooled_gram_fwd<__nv_bfloat16>(f, g, yf, n, hw, c, s, splits, st);
 }
 
 }  // extern "C"

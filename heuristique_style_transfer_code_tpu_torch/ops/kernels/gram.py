@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,7 +35,12 @@ _MIN_SPLIT_K = 256  # gram_bwd splits C no finer than this
 _BWD_BLOCKS_PER_SM = {"ffma": 3, "wgmma": 2}  # gram_bwd blocks an SM holds
 MAX_POOL_SIZE = 16  # csrc/gram.cu MAX_S: larger S takes the "project" route
 MAX_POOL_BWD_SIZE = 64  # csrc/gram.cu PGB_MAX_S: pooled_gram_bwd's largest S
-_PGB_THREADS, _PGB_TILE_BYTES, _PGB_MAX_ROWS = 256, 32 * 1024, 64  # csrc/gram.cu PGB_*
+_PGB_SLOTS, _PGB_MAX_ROWS = 3, 64  # csrc/gram.cu PGB_SLOTS, PGB_MAX_ROWS
+_PGB_MODE_CODE = {"scalar": 0, "bulk": 1}  # csrc/gram.cu PgbMode
+_PGB_TILE_BYTES = 32 * 1024  # dF a pooled_gram_bwd tile aims at
+_PGB_BLOCKS_PER_SM = 4  # its __launch_bounds__ minimum
+_PGB_STATIC_SMEM = 3 * MAX_POOL_BWD_SIZE * 4  # lo, hi, w
+_SMEM_BLOCK, _SMEM_SM, _SMEM_RESERVED = 227 * 1024, 228 * 1024, 1024  # H100 SXM
 _MAX_ROW_BYTES = 96 * 1024  # pooled_gram_fwd stages whole rows (PG_MAX_ROW_BYTES)
 
 
@@ -43,9 +48,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hst_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
     lib.hst_gram_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
-    lib.hst_pooled_gram_fwd.argtypes = [p, p, i, i, i, i, i, i, p]
+    lib.hst_pooled_gram_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.hst_pooled_project.argtypes = [p, p, i, i, i, i, i, p]
-    lib.hst_pooled_gram_bwd.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.hst_pooled_gram_bwd.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     for fn in (lib.hst_gram_fwd, lib.hst_gram_bwd, lib.hst_pooled_gram_fwd,
                lib.hst_pooled_project, lib.hst_pooled_gram_bwd):
         fn.restype = ctypes.c_int
@@ -101,26 +106,35 @@ def gram_bwd_plain(f: torch.Tensor, dg: torch.Tensor) -> torch.Tensor:
     return (torch.bmm(f.to(acc), dga + dga.transpose(1, 2)) / f.shape[1]).to(f.dtype)
 
 
-def pooled_gram_fwd_plain(f: torch.Tensor, out_size: int) -> torch.Tensor:
-    """(N, HW, C) -> (N, S, S) = (f P^T)^T (f P^T) / HW with P =
-    ``adaptive_pool_matrix(C, S)``, P and the projection kept in f32 as the
-    kernel keeps them."""
+def pooled_gram_y_plain(f: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Y = f P^T (N, HW, S) with P = ``adaptive_pool_matrix(C, S)`` in f32,
+    summed in f32 (f64 stays f64): the bin means that the pooled Gram is
+    made of and that its backward reads (JAX's ``pf``, ops/gram.py:73)."""
     acc = _acc_dtype(f.dtype)
     p = adaptive_pool_matrix(f.shape[-1], out_size, f.device)
-    pf = torch.matmul(f.to(acc), p.to(acc).t())  # (N, HW, S)
-    return (torch.bmm(pf.transpose(1, 2), pf) / f.shape[1]).to(f.dtype)
+    return torch.matmul(f.to(acc), p.to(acc).t())
 
 
-def pooled_gram_bwd_plain(f: torch.Tensor, dg: torch.Tensor, out_size: int) -> torch.Tensor:
-    """The VJP of ``pooled_gram_fwd_plain`` from its formula: with
-    Y = f P^T (N, HW, S) and M = (dG + dG^T) / HW, dF = (Y M) P, summed in
-    f32 (f64 stays f64) with P in f32, cast back to f's dtype once."""
-    acc = _acc_dtype(f.dtype)
-    p = adaptive_pool_matrix(f.shape[-1], out_size, f.device).to(acc)
-    y = torch.matmul(f.to(acc), p.t())
+def _pooled_gram_of_y(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (torch.bmm(y.transpose(1, 2), y) / y.shape[1]).to(dtype)
+
+
+def pooled_gram_fwd_plain(f: torch.Tensor, out_size: int) -> torch.Tensor:
+    """(N, HW, C) -> (N, S, S) = Y^T Y / HW with Y = ``pooled_gram_y_plain``,
+    P and the projection kept in f32 as the kernel keeps them."""
+    return _pooled_gram_of_y(pooled_gram_y_plain(f, out_size), f.dtype)
+
+
+def pooled_gram_bwd_plain(y: torch.Tensor, dg: torch.Tensor, channels: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """The VJP of ``pooled_gram_fwd_plain`` from the forward's Y (N, HW, S):
+    with M = (dG + dG^T) / HW, dF = (Y M) P in Y's dtype (f32, or f64), P =
+    ``adaptive_pool_matrix(channels, S)`` in f32, cast to ``dtype`` once."""
+    acc = y.dtype
+    p = adaptive_pool_matrix(channels, y.shape[-1], y.device).to(acc)
     dga = dg.to(acc)
-    m = (dga + dga.transpose(1, 2)) / f.shape[1]
-    return torch.matmul(torch.bmm(y, m), p).to(f.dtype)
+    m = (dga + dga.transpose(1, 2)) / y.shape[1]
+    return torch.matmul(torch.bmm(y, m), p).to(dtype)
 
 
 # ------------------------------------------------------------------ kernels
@@ -342,16 +356,20 @@ def pooled_gram_route_for(f: torch.Tensor, s: int) -> str:
     return _pooled_gram_route(f.dtype, f.shape[-1], s, aligned=f.data_ptr() % 16 == 0)
 
 
-def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
+def pooled_gram_fwd(f: torch.Tensor, out_size: int, return_y: bool = False):
     """(N, HW, C) -> (N, S, S) with S = out_size, as
     ``pooled_gram_pallas(x, out_size)``. CPU: plain; CUDA: the kernels,
     which compute the pooling bins themselves, on the route that
     ``pooled_gram_route_for`` names (one call counts one launch). The
     kernels' output has no autograd graph, so a CUDA input that needs a
     gradient raises: ``PooledGramFunction`` is the differentiable pooled
-    Gram (its backward is ``pooled_gram_bwd``)."""
+    Gram (its backward is ``pooled_gram_bwd``). ``return_y``: also return
+    the bin means Y = f P^T (N, HW, S), f32 (f64 for f64), that G was made
+    of, which ``pooled_gram_bwd`` takes."""
     if f.device.type == "cpu":
-        return pooled_gram_fwd_plain(f, out_size)
+        y = pooled_gram_y_plain(f, out_size)
+        g = _pooled_gram_of_y(y, f.dtype)
+        return (g, y) if return_y else g
     _check_input("pooled_gram_fwd", f)
     if torch.is_grad_enabled() and f.requires_grad:
         raise NotImplementedError(
@@ -376,60 +394,144 @@ def pooled_gram_fwd(f: torch.Tensor, out_size: int) -> torch.Tensor:
             y.data_ptr(), g.data_ptr(), n, hw, s, splits, rows, _ROUTE_CODE[route],
             _DTYPE_CODE[torch.float32], stream))
         LAUNCHES["pooled_gram_fwd"] += 1
-        return g.to(f.dtype)
+        return (g.to(f.dtype), y) if return_y else g.to(f.dtype)
     splits, _ = _pooled_gram_plan(n, hw, _sm_count(f.device))
     g = torch.empty((n, s, s), device=f.device, dtype=f.dtype)
+    y = torch.empty((n, hw, s), device=f.device, dtype=torch.float32) if return_y else None
     err = lib.hst_pooled_gram_fwd(
-        f.data_ptr(), g.data_ptr(), n, hw, c, s, splits, _DTYPE_CODE[f.dtype], stream,
+        f.data_ptr(), g.data_ptr(), None if y is None else y.data_ptr(), n, hw, c, s, splits,
+        _DTYPE_CODE[f.dtype], stream,
     )
     check("pooled_gram_fwd", err)
     LAUNCHES["pooled_gram_fwd"] += 1
-    return g
+    return (g, y) if return_y else g
 
 
-def _pooled_gram_bwd_plan(hw: int, c: int, s: int, es: int) -> Tuple[int, int, int, int]:
-    """How ``pooled_gram_bwd`` tiles an image, as csrc/gram.cu ``pgb_plan``
-    does: (rows, parts, pitch, smem). rows: HW rows a block stages, as many
-    as fit in 32 KB (at most 64, at least 1, at most HW); parts: the pieces
-    a bin's channels are cut into, so that the rows x S (row, bin) sums
-    give each of the 256 threads one; pitch: bytes a staged row, padded by
-    16; smem: the block's shared memory (the tile, M, w, lo, hi, the part
-    sums, Y and z)."""
-    row_bytes = c * es
-    rows = max(1, min(_PGB_MAX_ROWS, _PGB_TILE_BYTES // row_bytes, hw))
-    parts = max(1, _PGB_THREADS // (rows * s))
-    pitch = (row_bytes + 16 + 15) // 16 * 16
-    pairs = rows * s
-    return rows, parts, pitch, rows * pitch + 4 * (s * s + 3 * s + pairs * parts + 2 * pairs)
+class PgbPlan(NamedTuple):
+    """How ``pooled_gram_bwd`` launches: mode ("bulk" or "scalar",
+    csrc/gram.cu PgbMode), tile_rows (rows of one image a tile),
+    blocks (the persistent grid), smem (dynamic shared memory a block)."""
+    mode: str
+    tile_rows: int
+    blocks: int
+    smem: int
 
 
-def pooled_gram_bwd(f: torch.Tensor, dg: torch.Tensor, out_size: int) -> torch.Tensor:
-    """dF (N, HW, C) from f and dG (N, S, S), the VJP of ``pooled_gram_fwd``.
-    CPU: plain; CUDA: the kernel, one launch tiled as
-    ``_pooled_gram_bwd_plan`` says, for any S up to ``MAX_POOL_BWD_SIZE``
-    (the forward's "project" route past 16 bins included) and rows of F up
-    to 96 KB, as the forward's one-launch route stages; beyond either it
-    raises. The kernel recomputes the bin sums from f, so nothing of the
-    forward is kept."""
-    if f.device.type == "cpu":
-        return pooled_gram_bwd_plain(f, dg, out_size)
-    _check_input("pooled_gram_bwd", f)
-    n, hw, c = f.shape
-    s = int(out_size)
-    if dg.device != f.device or dg.dtype != f.dtype or tuple(dg.shape) != (n, s, s):
+def _pgb_smem(mode: str, c: int, s: int, tile_rows: int, es: int) -> int:
+    """csrc/gram.cu ``pgb_smem``: [bulk: two staged dF tiles] [the Y ring of
+    _PGB_SLOTS tiles] [z] [M] [the group table, 2 bytes a group]."""
+    v = 16 // es
+    staged = 2 * tile_rows * c * es if mode == "bulk" else 0
+    return staged + 4 * ((_PGB_SLOTS + 1) * tile_rows * s + s * s) + 2 * -(-c // v)
+
+
+def _pooled_gram_bwd_plan(n: int, hw: int, c: int, s: int, es: int, sms: int,
+                          tile_bytes: int = _PGB_TILE_BYTES,
+                          blocks_per_sm: int = _PGB_BLOCKS_PER_SM) -> PgbPlan:
+    """How ``pooled_gram_bwd`` runs on Y (n, hw, s) into dF (n, hw, c) of
+    element size es (a fresh, 16-byte-aligned tensor). mode: "bulk" where
+    C is a whole number of 16-byte groups and two staged tiles fit in
+    shared memory (a dF row up to about 110 KB); otherwise "scalar".
+    tile_rows: the rows whose dF fills tile_bytes, 1 to _PGB_MAX_ROWS, and
+    no more than a block's share of the rows. blocks: as many as the SMs
+    hold at once, blocks_per_sm each where shared memory allows, and no
+    more than the tiles; ``_pgb_tiles`` gives each block's rows. The
+    defaults are what tools/pooled_gram_bwd_sweep.py found fastest at the
+    b32 stage shapes."""
+    vec = c * es % 16 == 0
+    tile_rows = max(1, min(_PGB_MAX_ROWS, tile_bytes // (c * es)))
+    fits = _pgb_smem("bulk", c, s, tile_rows, es) + _PGB_STATIC_SMEM <= _SMEM_BLOCK
+    mode = "bulk" if vec and fits else "scalar"
+    per_sm = max(1, min(blocks_per_sm, _SMEM_SM // (
+        _pgb_smem(mode, c, s, tile_rows, es) + _PGB_STATIC_SMEM + _SMEM_RESERVED)))
+    tile_rows = min(tile_rows, -(-n * hw // (sms * per_sm)))
+    tiles = n * -(-hw // tile_rows)
+    return PgbPlan(mode, tile_rows, min(sms * per_sm, tiles), _pgb_smem(mode, c, s, tile_rows, es))
+
+
+def _pgb_tiles(n: int, hw: int, tile_rows: int, blocks: int) -> List[List[Tuple[int, int, int]]]:
+    """(image, first row, end row) of each tile of each block, as
+    ``pooled_gram_bwd_kernel`` walks them: block b takes the rows [b R / B,
+    (b + 1) R / B) of all R = n hw rows, in tiles of at most tile_rows rows
+    that never cross an image."""
+    total = n * hw
+    out = []
+    for b in range(blocks):
+        cur, end, tiles = total * b // blocks, total * (b + 1) // blocks, []
+        while cur < end:
+            image = cur // hw
+            nxt = min(cur + tile_rows, end, (image + 1) * hw)
+            tiles.append((image, cur - image * hw, nxt - image * hw))
+            cur = nxt
+        out.append(tiles)
+    return out
+
+
+def _pgb_group_bins(c: int, s: int, es: int) -> List[Tuple[int, int]]:
+    """(first bin, bins) of each 16-byte group of a dF row, as the kernel's
+    table holds them: the first bin whose end lies past the group's first
+    channel, and the count of bins from it that start before the group's
+    end."""
+    v = 16 // es
+    bins = _pool_bins(c, s)
+    out = []
+    for c0 in range(0, c, v):
+        c1 = min(c0 + v, c)
+        o0 = next(o for o, (_, hi, _) in enumerate(bins) if hi > c0)
+        o1 = o0
+        while o1 + 1 < s and bins[o1 + 1][0] < c1:
+            o1 += 1
+        out.append((o0, o1 - o0 + 1))
+    return out
+
+
+def pooled_gram_bwd_plan_for(y: torch.Tensor, channels: int, dtype: torch.dtype,
+                             **choices) -> PgbPlan:
+    """``_pooled_gram_bwd_plan`` for a CUDA Y and a fresh dF of ``dtype``
+    (``torch.empty``: 16-byte aligned); ``choices`` force tile_bytes or
+    blocks_per_sm, for measurements."""
+    n, hw, s = y.shape
+    es = torch.tensor([], dtype=dtype).element_size()
+    return _pooled_gram_bwd_plan(n, hw, channels, s, es, _sm_count(y.device), **choices)
+
+
+def pooled_gram_bwd(y: torch.Tensor, dg: torch.Tensor, channels: int, dtype: torch.dtype,
+                    *, _plan: Optional[PgbPlan] = None) -> torch.Tensor:
+    """dF (N, HW, C) of ``dtype``, the VJP of ``pooled_gram_fwd``, from the
+    forward's Y = f P^T (N, HW, S) and dG (N, S, S) of ``dtype``; C =
+    ``channels``. CPU: plain; CUDA: the kernel, one launch as
+    ``pooled_gram_bwd_plan_for`` plans it (``_plan`` forces one, for
+    measurements), for Y in f32 and any S up to ``MAX_POOL_BWD_SIZE``;
+    beyond it raises. F is not needed."""
+    if y.device.type == "cpu":
+        return pooled_gram_bwd_plain(y, dg, channels, dtype)
+    if y.device.type != "cuda":
+        raise ValueError(f"pooled_gram_bwd: expected a CUDA tensor, got {y.device}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"pooled_gram_bwd: dtype {dtype} not supported (float32 or bfloat16)")
+    if y.dtype != torch.float32 or y.dim() != 3 or not y.is_contiguous():
+        raise ValueError(f"pooled_gram_bwd: Y must be a contiguous (N, HW, S) float32 tensor, "
+                         f"got {tuple(y.shape)} {y.dtype} (contiguous: {y.is_contiguous()})")
+    n, hw, s = y.shape
+    c = int(channels)
+    if not 1 <= s <= MAX_POOL_BWD_SIZE or hw < 1 or c < 1:
+        raise ValueError(f"pooled_gram_bwd: S={s}, HW={hw}, C={c} outside the kernel's limits "
+                         f"(1 <= S <= {MAX_POOL_BWD_SIZE}, HW >= 1, C >= 1)")
+    if dg.device != y.device or dg.dtype != dtype or tuple(dg.shape) != (n, s, s):
         raise ValueError(
-            f"pooled_gram_bwd: dG must be ({n}, {s}, {s}) {f.dtype} on {f.device}, "
+            f"pooled_gram_bwd: dG must be ({n}, {s}, {s}) {dtype} on {y.device}, "
             f"got {tuple(dg.shape)} {dg.dtype} on {dg.device}"
         )
     if not dg.is_contiguous():
         raise ValueError("pooled_gram_bwd: dG is not contiguous")
-    if not 1 <= s <= MAX_POOL_BWD_SIZE or c * f.element_size() > _MAX_ROW_BYTES:
-        raise ValueError(f"pooled_gram_bwd: S={s}, C={c} outside the kernel's limits "
-                         f"(1 <= S <= {MAX_POOL_BWD_SIZE}, a row of F <= {_MAX_ROW_BYTES} bytes)")
-    df = torch.empty_like(f)
+    df = torch.empty((n, hw, c), device=y.device, dtype=dtype)
+    plan = _plan or pooled_gram_bwd_plan_for(y, c, dtype)
+    if plan.smem > _SMEM_BLOCK - _PGB_STATIC_SMEM:
+        raise ValueError(f"pooled_gram_bwd: C={c}, S={s} need {plan.smem} bytes of shared "
+                         f"memory a block, more than the card's {_SMEM_BLOCK}")
     err = LIBRARY.load().hst_pooled_gram_bwd(
-        f.data_ptr(), dg.data_ptr(), df.data_ptr(), n, hw, c, s, _DTYPE_CODE[f.dtype],
-        _stream(f.device),
+        y.data_ptr(), dg.data_ptr(), df.data_ptr(), n, hw, c, s, _PGB_MODE_CODE[plan.mode],
+        plan.tile_rows, plan.blocks, _DTYPE_CODE[dtype], _stream(y.device),
     )
     check("pooled_gram_bwd", err)
     LAUNCHES["pooled_gram_bwd"] += 1
@@ -437,20 +539,25 @@ def pooled_gram_bwd(f: torch.Tensor, dg: torch.Tensor, out_size: int) -> torch.T
 
 
 class PooledGramFunction(torch.autograd.Function):
-    """G = (f P^T)^T (f P^T) / HW with the hand-written backward
-    (``pooled_gram_bwd``), which recomputes f P^T from the saved f. On CPU
-    tensors both directions take the plain formulas."""
+    """G = Y^T Y / HW, Y = f P^T, with the hand-written backward
+    (``pooled_gram_bwd``). Where f needs a gradient the forward also hands
+    over Y (N, HW, S), f32, and that is all it saves: f is not kept, and
+    the backward never reads it. Otherwise no Y is written. On CPU tensors
+    both directions take the plain formulas."""
 
     @staticmethod
     def forward(ctx, f, out_size):
-        ctx.save_for_backward(f)
-        ctx.out_size = int(out_size)
-        return pooled_gram_fwd(f, out_size)
+        ctx.channels, ctx.f_dtype = f.shape[-1], f.dtype
+        if not ctx.needs_input_grad[0]:
+            return pooled_gram_fwd(f, out_size)
+        g, y = pooled_gram_fwd(f, out_size, return_y=True)
+        ctx.save_for_backward(y)
+        return g
 
     @staticmethod
     def backward(ctx, dg):
-        (f,) = ctx.saved_tensors
-        return pooled_gram_bwd(f, dg.contiguous(), ctx.out_size), None
+        (y,) = ctx.saved_tensors
+        return pooled_gram_bwd(y, dg.contiguous(), ctx.channels, ctx.f_dtype), None
 
 
 class GramFunction(torch.autograd.Function):

@@ -106,7 +106,7 @@ def main() -> None:
             for name, lib in libs.items():
                 def call(lib=lib, name=name):
                     kg.check(name, lib.hst_pooled_gram_fwd(
-                        x.data_ptr(), g.data_ptr(), n, hw, c, S, splits,
+                        x.data_ptr(), g.data_ptr(), None, n, hw, c, S, splits,
                         kg._DTYPE_CODE[dtype], kg._stream(dev)))
                 row[f"{name}_ms"] = _time_ms(call)
             rows.append(row)

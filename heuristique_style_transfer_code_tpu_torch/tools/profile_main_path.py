@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Ten cells, each at full model width with seeded random weights:
+Eleven cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -51,6 +51,12 @@ Ten cells, each at full model width with seeded random weights:
                     ``instance_norm_fwd`` and 15 ``instance_norm_bwd``, 4
                     ``gram_fwd`` and 4 ``gram_bwd`` a step), with the
                     launches a step and the peak memory
+  family2_train     one family-2 training step at the reference's defaults
+                    (truncate 7, S 7, batch 32, 224² crops of 256² staged
+                    uint8, 4 classes, the encoder trainable), f32 and bf16
+                    (``setup_gram_attention``'s train step: 3
+                    ``pooled_gram_fwd`` and 3 ``pooled_gram_bwd``), with
+                    the launches a step and the peak memory
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -92,7 +98,8 @@ from ..tasks.fast_style import make_net_job_fn
 from ..tasks.style_transfer import make_gram_fn_gram_attention, make_style_transfer_optimizer
 
 GRAM_KERNELS = ("gram_fwd_kernel", "gram_fwd_wgmma_kernel", "gram_bwd_kernel",
-                "gram_bwd_wgmma_kernel", "pooled_gram_kernel", "pooled_project_kernel")
+                "gram_bwd_wgmma_kernel", "pooled_gram_kernel", "pooled_project_kernel",
+                "pooled_gram_bwd_kernel")
 IN_KERNELS = ("in_cluster_kernel", "in_stats_kernel", "in_finalize_kernel", "in_apply_kernel",
               "in_bwd_cluster_kernel", "in_bwd_reduce_kernel", "in_bwd_finalize_kernel",
               "in_bwd_apply_kernel")
@@ -305,6 +312,40 @@ def fast_style_train_cell(model, net, dev, dtype) -> dict:
             **_profile(step, 3), "profiled_steps": 3}
 
 
+def family2_train_cell(dtype) -> dict:
+    """One family-2 training step (upload, augment, forward in train mode,
+    cross-entropy, backward, SGD) at b32 on staged uint8 batches."""
+    from ..config.schema import GramAttentionConfig
+    from ..ops.kernels import launch_counts, reset_launch_counts
+    from ..train.factories import setup_gram_attention
+
+    cfg = GramAttentionConfig(batch_size=32, lr=0.01, truncate_layer=7, gram_matrix_size=7,
+                              seed=0)
+    setup = setup_gram_attention(cfg, 4, [(None, None)], compute_dtype=dtype, device="cuda")
+    model, opt = setup.init(torch.Generator().manual_seed(76))
+    rng = np.random.RandomState(70)
+    u8 = rng.randint(0, 256, (32, 256, 256, 3)).astype(np.uint8)
+    labels = rng.randint(0, 4, (32,)).astype(np.int32)
+
+    def step():
+        setup.train_step(model, opt, u8, labels)
+
+    step()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    runs = _timed(step, 5)
+    ms = float(np.median(runs))
+    return {"cell": "family2_train", "truncate": 7, "gram_matrix_size": 7, "crop": 224,
+            "batch": 32, "dtype": _dtype_name(dtype), "step_ms": ms, "step_ms_runs": runs,
+            "images_per_s": 32 / ms * 1e3, "launches_per_step": launches,
+            "max_memory_allocated_gib": peak / 2**30, **_profile(step, 3), "profiled_steps": 3}
+
+
 def _family1_forward(dtype):
     return cast_forward(lambda m, images: combined_apply(m.moco, m.classifier, images, 8), dtype)
 
@@ -413,6 +454,7 @@ def main() -> None:
             fast_style_train_cell(seeded(gram_attention_init, 0, 8, 4, 7),
                                   seeded(transformer_net_init, 0, width=32, n_res=5), dev, dtype)
             for dtype in (None, torch.bfloat16)],
+        "family2_train": lambda: [family2_train_cell(dtype) for dtype in (None, torch.bfloat16)],
     }
     names = args.cells.split(",") if args.cells else list(plan)
     unknown = sorted(set(names) - set(plan))
