@@ -1,6 +1,6 @@
 """Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
 that the evaluation CLIs of families 1, 2 and 3, ``serve_style`` and the
-family-2 train CLI need)."""
+train CLIs of families 1, 2 and 3 need)."""
 from __future__ import annotations
 
 import os
@@ -298,6 +298,34 @@ def resolve_seed(config: dict, cli_seed: Optional[int]) -> int:
     return seed
 
 
+def select_augmentations(args):
+    """The reference's transform selection (JAX ``:929-951``):
+    (geometric names, colour names), each list ``[None]`` when not asked
+    for. ``--num_*_transforms`` picks with Python's ``random.sample``,
+    which ``resolve_seed`` seeded as the JAX CLI's ``seed_everything``
+    does, so one seed picks the same transforms in both packages."""
+    from ..data.augment import AVAILABLE_COLOR_TRANSFORMS, AVAILABLE_GEOM_TRANSFORMS
+
+    color = [None]
+    geom = [None]
+    if getattr(args, "color_aug", False) and getattr(args, "num_color_transforms", 0) > 0:
+        n = min(args.num_color_transforms, len(AVAILABLE_COLOR_TRANSFORMS))
+        color = random.sample(list(AVAILABLE_COLOR_TRANSFORMS), n)
+    if getattr(args, "geom_aug", False):
+        if getattr(args, "geom_transforms", None):
+            geom = []
+            for t in args.geom_transforms:
+                if t in AVAILABLE_GEOM_TRANSFORMS:
+                    geom.append(t)
+                else:
+                    print(f"Warning: Geometric transform '{t}' is not recognized.")
+            geom = geom or [None]
+        elif getattr(args, "num_geom_transforms", 0) > 0:
+            n = min(args.num_geom_transforms, len(AVAILABLE_GEOM_TRANSFORMS))
+            geom = random.sample(list(AVAILABLE_GEOM_TRANSFORMS), n)
+    return geom, color
+
+
 def resolve_lr_schedule(args, cfg, n_samples: int, k_folds: int):
     """(schedule or None, clip norm or None) from the flags; the horizon is
     each fold's optimiser steps (``train/schedules.steps_per_fold``), and
@@ -326,9 +354,11 @@ def signature_extra_from_args(args) -> Optional[dict]:
     another set of parameters is refused."""
     extra = {}
     for flag, default in (
-        ("precision", "float32"), ("lr_schedule", "constant"), ("warmup_steps", 0),
+        ("precision", "float32"), ("color_aug", False), ("geom_aug", False),
+        ("num_color_transforms", 0), ("num_geom_transforms", 0), ("geom_transforms", None),
+        ("lr_schedule", "constant"), ("warmup_steps", 0),
         ("min_lr_ratio", 0.0), ("clip_grad_norm", None), ("label_smoothing", 0.0),
-        ("early_stop", None), ("freeze_layers", False),
+        ("early_stop", None), ("freeze_encoder", False), ("freeze_layers", False),
     ):
         val = getattr(args, flag, default)
         if val != default and val is not None:

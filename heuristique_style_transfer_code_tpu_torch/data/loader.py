@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import io
-from typing import Iterator, List, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -47,17 +47,31 @@ class HostLoader:
     (``data/loader.py:81-217`` of the JAX package, single host).
 
     Yields dicts ``{"image": uint8 (B, S, S, 3), "label": int32 (B,),
-    "indices": (B,), "n_valid": int}``. The last short batch is padded to
-    ``batch_size`` by cycling samples from the start of the epoch order;
-    pad entries carry label -1 and are not counted in ``n_valid``.
-    ``num_workers`` threads decode. With ``shuffle`` each epoch's order is
-    ``np.random.RandomState(seed + epoch)``'s permutation, and each
-    ``__iter__`` advances the epoch, so a fresh loader gives the JAX
-    loader's orders."""
+    "combo": int32 (B,), "indices": (B,), "n_valid": int}``. The last
+    short batch is padded to ``batch_size`` by cycling samples from the
+    start of the epoch order; pad entries carry label -1 and are not
+    counted in ``n_valid``, and keep their sample's combination id
+    (``combo_ids``, one per sample, 0 where not given), as the JAX
+    loader's do. ``num_workers`` threads decode. With ``shuffle`` each
+    epoch's order is ``np.random.RandomState(seed + epoch)``'s
+    permutation, and each ``__iter__`` advances the epoch, so a fresh
+    loader gives the JAX loader's orders. With ``draw_key`` (non-negative
+    ints) each batch also carries ``"draws"``, the (B, N_DRAWS)
+    augmentation uniforms of ``data.augment.batch_draws(draw_key + (epoch,
+    batch index))``: the same numbers for a batch however the epoch was
+    reached (``set_epoch``, ``set_position``)."""
 
     def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int,
-                 shuffle: bool = False, seed: int = 0, num_workers: int = DECODE_WORKERS):
+                 combo_ids: Optional[Sequence[int]] = None, shuffle: bool = False,
+                 seed: int = 0, num_workers: int = DECODE_WORKERS,
+                 draw_key: Optional[Sequence[int]] = None):
         self.samples = list(samples)
+        self.combo_ids = (list(combo_ids) if combo_ids is not None
+                          else [0] * len(self.samples))
+        if len(self.combo_ids) != len(self.samples):
+            raise ValueError(f"{len(self.combo_ids)} combination ids for "
+                             f"{len(self.samples)} samples")
+        self.draw_key = tuple(draw_key) if draw_key is not None else None
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -89,9 +103,11 @@ class HostLoader:
 
     def __iter__(self) -> Iterator[dict]:
         order = self._order()
+        epoch = self._epoch
         self._epoch += 1
         bs = self.batch_size
-        batches: List[np.ndarray] = [order[i : i + bs] for i in range(0, len(order), bs)]
+        batches: List[Tuple[int, np.ndarray]] = list(
+            enumerate(order[i : i + bs] for i in range(0, len(order), bs)))
         skip, self._skip = self._skip, 0
         batches = batches[skip:]
 
@@ -99,7 +115,7 @@ class HostLoader:
         decode_pool = cf.ThreadPoolExecutor(max_workers=self.num_workers)
         batch_pool = cf.ThreadPoolExecutor(max_workers=PREFETCH_BATCHES)
 
-        def make_batch(idxs: np.ndarray) -> dict:
+        def make_batch(index: int, idxs: np.ndarray) -> dict:
             n = len(idxs)
             if n < bs:
                 idxs = np.concatenate([idxs, order[np.arange(bs - n) % len(order)]])
@@ -109,12 +125,19 @@ class HostLoader:
                 imgs[j] = arr
             labels = np.full((bs,), -1, dtype=np.int32)
             labels[:n] = [self.samples[i][1] for i in idxs[:n]]
-            return {"image": imgs, "label": labels, "indices": np.asarray(idxs), "n_valid": n}
+            combos = np.asarray([self.combo_ids[i] for i in idxs], dtype=np.int32)
+            batch = {"image": imgs, "label": labels, "combo": combos,
+                     "indices": np.asarray(idxs), "n_valid": n}
+            if self.draw_key is not None:
+                from .augment import batch_draws
+
+                batch["draws"] = batch_draws(self.draw_key + (epoch, index), bs)
+            return batch
 
         pending = []
         try:
-            for idxs in batches:
-                pending.append(batch_pool.submit(make_batch, idxs))
+            for index, idxs in batches:
+                pending.append(batch_pool.submit(make_batch, index, idxs))
                 if len(pending) >= PREFETCH_BATCHES:
                     yield pending.pop(0).result()
             while pending:

@@ -1,5 +1,5 @@
 """Model family 1: the truncated MoCo encoder and the classifier
-(``models/truncated_resnet50.py`` of the JAX package), eval only.
+(``models/truncated_resnet50.py`` of the JAX package), eval and train.
 
     TruncatedMoCo      encoder (ResNet50 children [0:truncate]) -> global
                        average pool -> fc (feat -> dim)
@@ -7,7 +7,10 @@
     TruncatedResNet50  {moco, classifier}, the JAX checkpoint's tree
 
 Truncate <= 8 pools after the encoder; truncate 9 runs the avgpool child
-inside it. The int8 and QAT forwards are not ported yet.
+inside it. In train mode (``train=True``, or the modules' ``.train()``)
+the encoder's batch norms take the batch's statistics and update their
+running buffers in place: the JAX train forward (``:48-84``) with its new
+encoder tree merged back. The int8 and QAT forwards are not ported yet.
 """
 from __future__ import annotations
 
@@ -84,7 +87,7 @@ def truncated_resnet50_init(generator: Optional[torch.Generator], truncate_layer
 
 
 def truncated_moco_apply(moco: TruncatedMoCo, x: torch.Tensor, truncate: int) -> torch.Tensor:
-    """x: (N, H, W, 3) NHWC -> embeddings (N, dim)."""
+    """x: (N, H, W, 3) NHWC -> embeddings (N, dim), in the module's mode."""
     feats, _ = resnet50_apply(moco.encoder, x, truncate=min(truncate, 9))
     if truncate <= 8:
         feats = global_avg_pool(feats)
@@ -96,6 +99,9 @@ def classifier_apply(classifier: Classifier, x: torch.Tensor) -> torch.Tensor:
 
 
 def combined_apply(moco: TruncatedMoCo, classifier: Classifier, x: torch.Tensor,
-                   truncate: int) -> torch.Tensor:
-    """x: (N, H, W, 3) -> logits (N, num_classes)."""
+                   truncate: int, train: Optional[bool] = None) -> torch.Tensor:
+    """x: (N, H, W, 3) -> logits (N, num_classes). ``train`` sets the
+    encoder's mode first (its batch norms'); None keeps it."""
+    if train is not None:
+        moco.train(train)
     return classifier_apply(classifier, truncated_moco_apply(moco, x, truncate))

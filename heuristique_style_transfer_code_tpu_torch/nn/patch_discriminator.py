@@ -1,8 +1,20 @@
-"""The test variant of the family-3 patch discriminator
-(``nn/patch_discriminator.py`` of the JAX package: ``:41``
-``discriminator_layer_plan``, ``:138`` init, ``:171`` apply), eval only.
+"""The family-3 patch discriminators (``nn/patch_discriminator.py`` of the
+JAX package: ``:41`` ``discriminator_layer_plan``; the train variant
+``:77`` init, ``:112`` apply; the test variant ``:138`` init, ``:171``
+apply).
 
-Per discriminator, on NHWC activations:
+The train variant, which training fits: per strided conv of the layer
+plan a 4x4 conv (stride 2, padding 1), its norm and LeakyReLU(0.2); the
+final 4x4 conv (stride 1, padding 1), its norm and LeakyReLU; the out conv
+(4x4, stride 1, padding 1) to the classes, and the spatial mean of its map
+in f32 as the logits. The norm is a batch norm (train mode in training,
+its running buffers updated in place) or the non-affine instance norm,
+which on the card is ``instance_norm_fwd`` and, where a gradient flows,
+``instance_norm_bwd`` (``InstanceNormFunction``); the LeakyReLU stays a
+separate op. Its tree is ``{convs[i].{conv, norm}, final.{conv, norm},
+out_conv}``, a None norm under "instance".
+
+The test variant, eval only, per discriminator, on NHWC activations:
 - 4x4 convs with padding 1: stride 2 on the strided ones that the layer
   plan derives from the patch size, stride 1 on ``final_conv`` and
   ``final_conv_ndf``;
@@ -24,13 +36,14 @@ The module tree mirrors the JAX tree (``features[i].{conv, norm}``,
 (``checkpoint/convert.py``) is a renaming. A norm without parameters (the
 instance norm, and ``final_conv_ndf``'s absent one) is None in the JAX
 tree and no module here; ``FeatureLayer.none_leaves`` tells the bridge to
-write it back as None. The train variant comes with training.
+write it back as None.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..models.gram_attention import MultiheadAttention
@@ -77,6 +90,48 @@ class FeatureLayer(nn.Module):
         super().__init__()
         self.conv = Conv2d(cin, cout, 4, generator, device, dtype)
         self.norm = BatchNorm(cout, device, dtype) if norm == "batch" else None
+
+
+class PatchDiscriminator(nn.Module):
+    """The train variant: ``convs`` (one ``FeatureLayer`` a strided conv),
+    ``final`` and ``out_conv``."""
+
+    def __init__(self, patch_size: int = 70, ndf: int = 64, input_nc: int = 3,
+                 num_classes: int = 10, norm: str = "instance",
+                 generator: Optional[torch.Generator] = None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if norm not in ("batch", "instance"):
+            raise ValueError(f"norm must be 'batch' or 'instance', got {norm!r}")
+        strided, final_in, final_out = discriminator_layer_plan(patch_size, ndf, input_nc)
+        args = (generator, device, dtype)
+        self.convs = nn.ModuleList([FeatureLayer(cin, cout, norm, *args)
+                                    for cin, cout in strided])
+        self.final = FeatureLayer(final_in, final_out, norm, *args)
+        self.out_conv = Conv2d(final_out, num_classes, 4, *args)
+        self.norm = norm
+
+    def forward(self, x):
+        return patch_discriminator_apply(self, x, self.norm)
+
+
+def _conv_norm_lrelu(layer: FeatureLayer, x: torch.Tensor, stride: int, norm: str):
+    x = conv2d(x, layer.conv.weight, stride, 1, layer.conv.bias)
+    x = layer.norm(x) if norm == "batch" else instance_norm(x)
+    return F.leaky_relu(x, 0.2)
+
+
+def patch_discriminator_apply(model: PatchDiscriminator, x: torch.Tensor,
+                              norm: str = "instance") -> torch.Tensor:
+    """x: (N, H, W, 3) -> logits (N, num_classes) in x's dtype, the spatial
+    mean of the out conv's map taken in f32, in the module's mode: in train
+    mode the batch norms normalise by the batch and update their running
+    buffers in place."""
+    for layer in model.convs:
+        x = _conv_norm_lrelu(layer, x, 2, norm)
+    x = _conv_norm_lrelu(model.final, x, 1, norm)
+    x = conv2d(x, model.out_conv.weight, 1, 1, model.out_conv.bias)
+    return x.float().mean(dim=(1, 2)).to(x.dtype)
 
 
 class PatchDiscriminatorTest(nn.Module):

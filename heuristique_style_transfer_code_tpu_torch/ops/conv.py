@@ -1,4 +1,4 @@
-"""NHWC convolution and max pooling.
+"""NHWC convolution, max pooling and average pooling.
 
 The JAX package keeps activations NHWC and kernels HWIO. Here the public
 functions take and return NHWC tensors too, but the work runs on the
@@ -53,3 +53,20 @@ def max_pool2d(
     """x: (N, H, W, C) -> (N, H', W', C); padding counts as -inf."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size, stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool2d(
+    x: torch.Tensor,
+    kernel_size: IntPair,
+    stride: IntPair,
+    padding: IntPair = 0,
+    count_include_pad: bool = True,
+) -> torch.Tensor:
+    """x: (N, H, W, C) -> (N, H', W', C), torch's ``F.avg_pool2d``
+    (``ops/conv.py:211-244`` of the JAX package): window sums in f32 over
+    the count of taps, the padding counted or not, x's dtype back. The
+    multi-scale discriminator's downsampler (3, 2, 1,
+    ``count_include_pad=False``)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).float(), kernel_size, stride, padding,
+                     count_include_pad=count_include_pad)
+    return y.permute(0, 2, 3, 1).to(x.dtype)

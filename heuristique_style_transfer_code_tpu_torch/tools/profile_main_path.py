@@ -2,7 +2,7 @@
 
     python -m heuristique_style_transfer_code_tpu_torch.tools.profile_main_path
 
-Eleven cells, each at full model width with seeded random weights:
+Thirteen cells, each at full model width with seeded random weights:
 
   classification    family 2, truncate 8, S 7, 224² crops, batch 8, f32
                     (``run_classification``'s per-batch work)
@@ -57,6 +57,20 @@ Eleven cells, each at full model width with seeded random weights:
                     (``setup_gram_attention``'s train step: 3
                     ``pooled_gram_fwd`` and 3 ``pooled_gram_bwd``), with
                     the launches a step and the peak memory
+  family1_train     one family-1 training step at full width (truncate 8,
+                    dim 256, batch 32, 224² crops of 256² staged uint8, 4
+                    classes) with the identity and all 25 (geometric,
+                    colour) combinations, f32 and bf16, and with the
+                    identity alone in f32 (``setup_truncated_resnet50``'s
+                    train step: no hand-written kernel), with the peak
+                    memory
+  family3_train     one family-3 training step at the config defaults
+                    (patch sizes 10/70/150, ndf 64, 4 classes), batch 32,
+                    224² crops, f32 and bf16 under norm "batch" and norm
+                    "instance" (``setup_multi_patchgan``'s train step: 13
+                    ``instance_norm_fwd`` and 13 ``instance_norm_bwd`` a
+                    step under "instance"), with the launches a step and
+                    the peak memory
 
 For each: the host-clock time per step (ends in a synchronize; the median
 of three timed runs, each run's time kept beside it, since host time varies
@@ -312,23 +326,19 @@ def fast_style_train_cell(model, net, dev, dtype) -> dict:
             **_profile(step, 3), "profiled_steps": 3}
 
 
-def family2_train_cell(dtype) -> dict:
-    """One family-2 training step (upload, augment, forward in train mode,
-    cross-entropy, backward, SGD) at b32 on staged uint8 batches."""
-    from ..config.schema import GramAttentionConfig
+def _train_cell(cell: str, setup, seed: int, data_seed: int, ids=None, draws=None) -> dict:
+    """One training step of ``setup`` (upload, augment, forward in train
+    mode, cross-entropy, backward, SGD) at b32 on staged uint8 batches: its
+    launches, peak memory, host-clock time and profile."""
     from ..ops.kernels import launch_counts, reset_launch_counts
-    from ..train.factories import setup_gram_attention
 
-    cfg = GramAttentionConfig(batch_size=32, lr=0.01, truncate_layer=7, gram_matrix_size=7,
-                              seed=0)
-    setup = setup_gram_attention(cfg, 4, [(None, None)], compute_dtype=dtype, device="cuda")
-    model, opt = setup.init(torch.Generator().manual_seed(76))
-    rng = np.random.RandomState(70)
+    model, opt = setup.init(torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(data_seed)
     u8 = rng.randint(0, 256, (32, 256, 256, 3)).astype(np.uint8)
     labels = rng.randint(0, 4, (32,)).astype(np.int32)
 
     def step():
-        setup.train_step(model, opt, u8, labels)
+        setup.train_step(model, opt, u8, labels, ids, draws)
 
     step()
     torch.cuda.synchronize()
@@ -340,10 +350,54 @@ def family2_train_cell(dtype) -> dict:
     peak = torch.cuda.max_memory_allocated()
     runs = _timed(step, 5)
     ms = float(np.median(runs))
-    return {"cell": "family2_train", "truncate": 7, "gram_matrix_size": 7, "crop": 224,
-            "batch": 32, "dtype": _dtype_name(dtype), "step_ms": ms, "step_ms_runs": runs,
+    return {"cell": cell, "batch": 32, "crop": 224, "step_ms": ms, "step_ms_runs": runs,
             "images_per_s": 32 / ms * 1e3, "launches_per_step": launches,
             "max_memory_allocated_gib": peak / 2**30, **_profile(step, 3), "profiled_steps": 3}
+
+
+def family2_train_cell(dtype) -> dict:
+    """One family-2 training step at b32 (the encoder trainable)."""
+    from ..config.schema import GramAttentionConfig
+    from ..train.factories import setup_gram_attention
+
+    cfg = GramAttentionConfig(batch_size=32, lr=0.01, truncate_layer=7, gram_matrix_size=7,
+                              seed=0)
+    setup = setup_gram_attention(cfg, 4, [(None, None)], compute_dtype=dtype, device="cuda")
+    return {**_train_cell("family2_train", setup, 76, 70), "truncate": 7,
+            "gram_matrix_size": 7, "dtype": _dtype_name(dtype)}
+
+
+def family1_train_cell(dtype, augmented: bool = True) -> dict:
+    """One family-1 training step, augmented with the identity and the 25
+    (geometric, colour) combinations over the batch, or with the identity
+    alone."""
+    from ..config.schema import TruncatedResNetConfig
+    from ..data.augment import (
+        AVAILABLE_COLOR_TRANSFORMS,
+        AVAILABLE_GEOM_TRANSFORMS,
+        batch_draws,
+    )
+    from ..train.factories import setup_truncated_resnet50
+
+    combos = [(None, None)]
+    if augmented:
+        combos += [(g, c) for g in AVAILABLE_GEOM_TRANSFORMS for c in AVAILABLE_COLOR_TRANSFORMS]
+    cfg = TruncatedResNetConfig(batch_size=32, lr=0.01, truncate_layer=8, dim=256, seed=0)
+    setup = setup_truncated_resnet50(cfg, 4, combos, compute_dtype=dtype, device="cuda")
+    ids = np.arange(32) % len(combos)
+    out = _train_cell("family1_train", setup, 84, 84, ids, batch_draws((84,), 32))
+    return {**out, "truncate": 8, "dim": 256, "combinations": len(combos),
+            "dtype": _dtype_name(dtype)}
+
+
+def family3_train_cell(norm: str, dtype) -> dict:
+    """One family-3 training step (the train-variant discriminators)."""
+    from ..train.factories import setup_multi_patchgan
+
+    cfg = MultiPatchGANConfig(batch_size=32, lr=0.01, norm=norm, seed=0)
+    setup = setup_multi_patchgan(cfg, 4, [(None, None)], compute_dtype=dtype, device="cuda")
+    return {**_train_cell("family3_train", setup, 95, 95), "norm": norm, "ndf": cfg.ndf,
+            "dtype": _dtype_name(dtype)}
 
 
 def _family1_forward(dtype):
@@ -455,6 +509,10 @@ def main() -> None:
                                   seeded(transformer_net_init, 0, width=32, n_res=5), dev, dtype)
             for dtype in (None, torch.bfloat16)],
         "family2_train": lambda: [family2_train_cell(dtype) for dtype in (None, torch.bfloat16)],
+        "family1_train": lambda: [family1_train_cell(None), family1_train_cell(torch.bfloat16),
+                                  family1_train_cell(None, augmented=False)],
+        "family3_train": lambda: [family3_train_cell(norm, dtype) for norm in ("batch", "instance")
+                                  for dtype in (None, torch.bfloat16)],
     }
     names = args.cells.split(",") if args.cells else list(plan)
     unknown = sorted(set(names) - set(plan))

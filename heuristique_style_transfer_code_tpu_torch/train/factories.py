@@ -1,12 +1,16 @@
-"""Family-2 training assembly (``train/factories.py`` of the JAX package:
-``_setup`` ``:101-141`` and ``setup_gram_attention`` ``:225-275``): a
-fresh model per fold (with the pretrained tree loaded shape by shape), the
-SGD optimiser with its trainability mask, and the train and eval steps.
+"""Training assembly of families 1, 2 and 3 (``train/factories.py`` of the
+JAX package: ``_setup`` ``:101-141``, ``setup_truncated_resnet50``
+``:144-206``, ``setup_gram_attention`` ``:225-275``,
+``setup_multi_patchgan`` ``:295-338``): a fresh model per fold (with the
+pretrained tree), the SGD optimiser with its trainability mask, the
+augmentation of the run's transform combinations, and the train and eval
+steps.
 
-``--freeze_layers`` freezes everything but ``classifier`` and ``attention``
-(the reference's ``set_parameter_requires_grad``): those parameters get
-``requires_grad=False`` and the optimiser's mask. The frozen encoder still
-runs in train mode, so its batch-norm statistics update, as in JAX; its
+A frozen subtree (family 1's ``--freeze_encoder``: every ``moco`` path;
+family 2's ``--freeze_layers``: everything but ``classifier`` and
+``attention``, the reference's ``set_parameter_requires_grad``) gets
+``requires_grad=False`` and the optimiser's mask. It still runs in train
+mode, so its batch-norm statistics update, as in JAX; family 2's frozen
 Grams then need no gradient, so only ``pooled_gram_fwd`` launches.
 
 ``compute_dtype`` (``--precision bf16``) follows JAX ``_cast_inputs``
@@ -23,9 +27,11 @@ import torch
 
 from ..checkpoint.convert import load_jax_tree, to_jax_tree
 from ..cli._common import cast_forward
-from ..config.schema import GramAttentionConfig
+from ..config.schema import GramAttentionConfig, MultiPatchGANConfig, TruncatedResNetConfig
 from ..data.augment import make_augment_fn
 from ..models.gram_attention import gram_attention_apply, gram_attention_init
+from ..models.multi_patchgan import multiscale_apply, multiscale_init
+from ..models.truncated_resnet50 import combined_apply, truncated_resnet50_init
 from .optim import sgd_momentum
 from .train_loop import make_eval_step, make_train_step_body
 
@@ -44,6 +50,96 @@ class FamilySetup:
     def init(self, generator: Optional[torch.Generator]):
         model = self._init_model(generator)
         return model, self.optimizer[0](model)
+
+
+def _freeze(model, frozen_fn):
+    if frozen_fn is not None:
+        for name, p in model.named_parameters():
+            p.requires_grad_(not frozen_fn(name))
+    return model
+
+
+def _assemble(init_model, forward, lr, combos, frozen_fn, compute_dtype, clip_norm,
+              label_smoothing, ema_decay) -> FamilySetup:
+    """``forward(model, images, train)`` -> logits; the JAX ``_setup``."""
+    optimizer = sgd_momentum(lr, frozen_fn=frozen_fn, clip_norm=clip_norm, ema_decay=ema_decay)
+    train_step = make_train_step_body(
+        cast_forward(lambda m, x: forward(m, x, True), compute_dtype), optimizer,
+        make_augment_fn(combos), label_smoothing)
+    eval_step = make_eval_step(cast_forward(lambda m, x: forward(m, x, False), compute_dtype))
+    return FamilySetup(init_model, optimizer, train_step, eval_step)
+
+
+def setup_truncated_resnet50(
+    config: TruncatedResNetConfig,
+    num_classes: int,
+    combos: Sequence,
+    pretrained: Optional[Dict] = None,
+    freeze_encoder: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+    lr_schedule=None,
+    clip_norm: Optional[float] = None,
+    label_smoothing: float = 0.0,
+    ema_decay: Optional[float] = None,
+    device="cuda",
+) -> FamilySetup:
+    """The family-1 setup on ``device``. ``pretrained``: a ``{moco,
+    classifier}`` tree that each fold loads whole, or a ``{moco}`` one
+    (the CLI dropped a classifier of the wrong shape) loaded beside the
+    fold's fresh classifier; either must fit the configured truncation
+    leaf for leaf."""
+    t = config.truncate_layer
+    frozen_fn = (lambda path: path.startswith("moco")) if freeze_encoder else None  # noqa: E731
+
+    def init_model(generator):
+        model = truncated_resnet50_init(generator, t, num_classes, config.dim, device=device)
+        if pretrained is not None:
+            if "classifier" in pretrained:
+                load_jax_tree(model, pretrained)
+            else:
+                load_jax_tree(model.moco, pretrained["moco"])
+        return _freeze(model, frozen_fn).train()
+
+    def forward(model, images, train):
+        return combined_apply(model.moco, model.classifier, images, t, train=train)
+
+    return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
+                     combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay)
+
+
+def setup_multi_patchgan(
+    config: MultiPatchGANConfig,
+    num_classes: int,
+    combos: Sequence,
+    pretrained: Optional[Dict] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    lr_schedule=None,
+    clip_norm: Optional[float] = None,
+    label_smoothing: float = 0.0,
+    ema_decay: Optional[float] = None,
+    device="cuda",
+) -> FamilySetup:
+    """The family-3 setup (the train variant) on ``device``. ``pretrained``:
+    a JAX-layout tree whose same-path, same-shape leaves overwrite each
+    fold's fresh init (``shape_filtered_update``). Under norm "instance"
+    a step launches 13 ``instance_norm_fwd`` and 13 ``instance_norm_bwd``
+    at the config defaults."""
+    from ..checkpoint.pth_converter import shape_filtered_update
+
+    norm = config.norm
+
+    def init_model(generator):
+        model = multiscale_init(generator, config.patch_sizes, ndf=config.ndf,
+                                num_classes=num_classes, norm=norm, device=device)
+        if pretrained is not None:
+            load_jax_tree(model, shape_filtered_update(to_jax_tree(model), pretrained))
+        return model.train()
+
+    def forward(model, images, train):
+        return multiscale_apply(model, images, norm, train=train)
+
+    return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
+                     combos, None, compute_dtype, clip_norm, label_smoothing, ema_decay)
 
 
 def setup_gram_attention(
@@ -74,25 +170,12 @@ def setup_gram_attention(
         model = gram_attention_init(generator, t, num_classes, s, device=device)
         if pretrained is not None:
             load_jax_tree(model, shape_filtered_update(to_jax_tree(model), pretrained))
-        if frozen_fn is not None:
-            for name, p in model.named_parameters():
-                p.requires_grad_(not frozen_fn(name))
-        return model.train()
+        return _freeze(model, frozen_fn).train()
 
-    def forward_train(model, images):
-        model.train()
+    def forward(model, images, train):
+        model.train(train)
         _, logits = gram_attention_apply(model, images, t, s, num_classes)
         return logits
 
-    def forward_eval(model, images):
-        model.eval()
-        _, logits = gram_attention_apply(model, images, t, s, num_classes)
-        return logits
-
-    optimizer = sgd_momentum(lr_schedule if lr_schedule is not None else config.lr,
-                             frozen_fn=frozen_fn, clip_norm=clip_norm, ema_decay=ema_decay)
-    augment = make_augment_fn(combos)
-    train_step = make_train_step_body(cast_forward(forward_train, compute_dtype), optimizer,
-                                      augment, label_smoothing)
-    eval_step = make_eval_step(cast_forward(forward_eval, compute_dtype))
-    return FamilySetup(init_model, optimizer, train_step, eval_step)
+    return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
+                     combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay)

@@ -5,12 +5,16 @@ single host):
 - the split of ``sklearn.model_selection.KFold(shuffle=True,
   random_state=seed)``, reproduced by ``kfold_split`` (scikit-learn is not
   needed);
-- per fold: a fresh model (with the pretrained tree), training, evaluation;
+- per fold: a fresh model (with the pretrained tree), training over the
+  augmentation product (each train sample once per transform
+  combination), evaluation;
 - ``fold_<k>_performance.json``, ``best_model_fold_<k>.npz`` (kept across
   reruns through ``best_model_results.json`` while it stays the best),
   ``best_global_model.npz`` by validation loss, ``training_info.json``
   with the per-fold and averaged metrics, ``events.jsonl``, and the
-  caller's ``on_fold_end`` hook (family 2's per-fold JSON files).
+  caller's ``on_fold_end`` hook (family 2's per-fold JSON files); family
+  3's split seed of its own, ``model_fold_<k>.npz`` for every fold and its
+  fold-results file (``:155-158``, ``:229-230``).
 
 ``--resume`` writes one atomic in-progress file per epoch (the model and
 the optimiser state in the JAX layout, the position and the run's
@@ -21,7 +25,10 @@ before the next step with ``PreemptedError``.
 Deviation from the JAX package's ``run_kfold``: each fold's fresh weights
 come from ``torch.Generator().manual_seed(seed + fold)``, not from
 ``jax.random``, so the two packages start a fold from different weights
-(the loader's shuffle is the same numpy one).
+(the loader's shuffle is the same numpy one). Likewise each train batch's
+augmentation parameters come from a CPU ``torch.Generator`` seeded from
+(seed, fold, epoch, batch index) (``data/augment.batch_draws``), not from
+the JAX run's key.
 """
 from __future__ import annotations
 
@@ -139,8 +146,12 @@ def run_kfold(
     save_dir: str,
     hyperparameters: dict,
     init_fn: Callable[[int], tuple],
+    combos_per_sample: int = 1,
     writer=None,
     save_fn: Optional[Callable] = None,
+    kfold_random_state: Optional[int] = None,
+    save_every_fold: bool = False,
+    performance_filename: Optional[str] = None,
     steps_per_dispatch: int = 1,
     resume: bool = False,
     async_checkpoint: bool = False,
@@ -152,7 +163,12 @@ def run_kfold(
     """The cross-validation protocol; returns training_info.
 
     ``init_fn(fold) -> (model, opt_state, train_step, eval_step)`` gives a
-    fold's fresh model and optimiser state. ``on_fold_end(fold, record,
+    fold's fresh model and optimiser state. Each train sample is taken
+    once per combination, ``combos_per_sample`` times, with combination
+    ids 0, 1, ... ``kfold_random_state`` seeds the split in
+    place of ``seed``; ``save_every_fold`` writes ``model_fold_<k>`` after
+    every fold; ``performance_filename`` gets the fold results' list.
+    ``on_fold_end(fold, record,
     model_path)`` gets the retained record of the fold (this run's, or a
     better earlier run's whose checkpoint stays on disk). ``early_stop=P``
     validates every epoch, stops a fold after P epochs without a new best
@@ -165,14 +181,16 @@ def run_kfold(
         raise NotImplementedError("--parallel_folds (fold-parallel training) is not ported yet")
     os.makedirs(save_dir, exist_ok=True)
     logger = StructuredLogger(save_dir)
-    splits = kfold_split(len(dataset), k_folds, seed)
+    split_seed = seed if kfold_random_state is None else kfold_random_state
+    splits = kfold_split(len(dataset), k_folds, split_seed)
     num_classes = len(dataset.classes)
 
     fold_results: List[dict] = []
     best_model_results = load_training_info(save_dir, "best_model_results.json") or []
     best_performance = float("inf")
     best_global_path = None
-    signature = _run_signature(seed, k_folds, epochs, seed, hyperparameters, signature_extra)
+    signature = _run_signature(seed, k_folds, epochs, split_seed, hyperparameters,
+                               signature_extra)
     acw = None
     if resume and async_checkpoint:
         from ..checkpoint.async_io import AsyncCheckpointWriter
@@ -230,8 +248,14 @@ def run_kfold(
                 continue  # done; its results were restored above
             print(f"FOLD {fold}")
             val_loader = HostLoader([dataset.samples[i] for i in val_idx], batch_size)
-            train_loader = HostLoader([dataset.samples[i] for i in train_idx], batch_size,
-                                      shuffle=True, seed=seed + fold)
+            # the augmentation product: each train sample x each combination
+            train_samples, combo_ids = [], []
+            for i in train_idx:
+                for c in range(combos_per_sample):
+                    train_samples.append(dataset.samples[i])
+                    combo_ids.append(c)
+            train_loader = HostLoader(train_samples, batch_size, combo_ids=combo_ids,
+                                      shuffle=True, seed=seed + fold, draw_key=(seed, fold))
             model, opt_state, train_step, eval_step = init_fn(fold)
 
             stopper = None
@@ -302,6 +326,10 @@ def run_kfold(
             print(f"Fold {fold} performance saved to {fold_perf_path}")
 
             variables = to_jax_tree(model)
+            if save_every_fold:
+                fold_model_path = save_fn(variables, hyperparameters, save_dir,
+                                          f"model_fold_{fold}")
+                print(f"Fold {fold}: Poids du modèle sauvegardés à {fold_model_path}")
             if result["val_loss"] < best_performance:
                 best_performance = result["val_loss"]
                 best_global_path = save_fn(variables, hyperparameters, save_dir,
@@ -348,6 +376,9 @@ def run_kfold(
     )
     logger.event("average_results", **training_info["average_results"])
     logger.close()
+    if performance_filename:
+        with open(os.path.join(save_dir, performance_filename), "w") as f:
+            json.dump([{"fold": i, **r} for i, r in enumerate(fold_results)], f, indent=4)
     save_training_info(training_info, save_dir, "training_info.json")
     save_training_info(best_model_results, save_dir, "best_model_results.json")
     _clear_inprogress(save_dir)

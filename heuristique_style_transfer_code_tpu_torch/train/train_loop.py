@@ -1,7 +1,8 @@
 """Train and eval steps and the epoch loops (``train/train_loop.py`` of the
 JAX package, single device).
 
-One train step: the staged uint8 batch to the device, the augmentation,
+One train step: the staged uint8 batch to the device, the augmentation
+(each image's combination and host-drawn parameters, ``data/augment.py``),
 the forward in train mode (the batch norms update their running buffers in
 place: the JAX step's ``_merge_bn_stats``), the masked cross-entropy, the
 gradients of the trainable parameters and the optimiser's update in place.
@@ -45,20 +46,23 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callable,
                          label_smoothing: float = 0.0) -> Callable:
-    """``step(model, opt_state, images_u8, labels, combos=None) -> (model,
-    opt_state, loss)``, the JAX ``make_train_step_body`` (``:69-115``).
-    ``optimizer`` is ``train/optim.sgd_momentum``'s ``(init, update)``;
-    the gradients are those of the parameters its state holds a trace for
-    (the trainable ones). ``forward_train(model, images) -> logits`` runs
-    the model in train mode. ``images_u8`` and ``labels`` are numpy arrays
+    """``step(model, opt_state, images_u8, labels, combos=None, draws=None)
+    -> (model, opt_state, loss)``, the JAX ``make_train_step_body``
+    (``:69-115``). ``optimizer`` is ``train/optim.sgd_momentum``'s
+    ``(init, update)``; the gradients are those of the parameters its state
+    holds a trace for (the trainable ones). ``forward_train(model, images)
+    -> logits`` runs the model in train mode. ``augment_fn(images_u8,
+    combos, draws)`` gets the batch's combination ids and augmentation
+    draws (the loader's ``"combo"`` and ``"draws"``; the JAX step draws
+    from its key instead). ``images_u8`` and ``labels`` are numpy arrays
     or tensors."""
     _, update = optimizer
 
-    def step(model, opt_state, images_u8, labels, combos=None):
+    def step(model, opt_state, images_u8, labels, combos=None, draws=None):
         params = dict(model.named_parameters())
         names = list(opt_state["trace"])
         device = params[names[0]].device
-        images = augment_fn(torch.as_tensor(images_u8).to(device), combos)
+        images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
         labels_t = torch.as_tensor(np.asarray(labels)).to(device)
         logits = forward_train(model, images)
         loss = masked_cross_entropy(logits, labels_t, label_smoothing)
@@ -120,7 +124,8 @@ def train_epochs(
             if preemptible and preemption_requested():
                 raise PreemptedError(fold, epoch)
             model, opt_state, loss = train_step(model, opt_state, batch["image"],
-                                                batch["label"], batch.get("combo"))
+                                                batch["label"], batch.get("combo"),
+                                                batch.get("draws"))
             loss_f, n = float(loss), batch["n_valid"]
             running += loss_f * n
             seen += n
