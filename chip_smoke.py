@@ -224,6 +224,31 @@ Phases, all run every time:
                   under each norm. The kernel rows hold instance_norm_fwd
                   and instance_norm_bwd at the 13 norms' b32 shapes (no
                   ReLU, unit scale, zero bias), f32 and bf16.
+  remat           each hand-written Function inside a remat block
+                  (gram_fwd/gram_bwd, pooled_gram_fwd/bwd at S 7 and on the
+                  project route, instance_norm_fwd/bwd): output and input
+                  gradient bit-equal, one forward launch more; a b32
+                  family-2 step (truncate 7) and a b32 family-3 step (norm
+                  "instance") with and without --remat from the same
+                  weights: loss, gradients, running statistics bit for bit
+                  (cuDNN deterministic), less peak memory, launches; both
+                  steps timed.
+  family3_serve   serve_style --family multi_patchgan over HTTP, 224², norm
+                  "instance" and "batch", rgb and yuv420, 2 POSTs each of 5
+                  iterations: exact launches, each reply against the
+                  service's job run again in process, ms a request; the
+                  device I420 packer against cv2 and the CPU.
+  dispatch        the family-1 classification CLI at --steps_per_dispatch
+                  4 and 1 (metrics.txt byte-equal), its eval loop timed at
+                  K = 1 and 4, a family-2 epoch at K = 4 and 1 (bit-equal).
+  grad_accum      a family-3 (norm "instance") b32 step at --grad_accum 4
+                  and the full batch against the full batch in float64 on
+                  the CPU; a family-2 b32 step at --grad_accum 4 against a
+                  hand-written micro-batch loop (bit-equal); both timed.
+  profile_debug   --profile_dir on family 2's style transfer (the trace
+                  names gram_fwd and gram_bwd); --debug_nans clean, and
+                  with a NaN weight a CLI process exiting with
+                  FloatingPointError.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -422,6 +447,26 @@ F3T_IN_SHAPES = [(32, 112, 112, 64), (32, 56, 56, 128), (32, 55, 55, 256),
                  (32, 6, 6, 1024),
                  (32, 28, 28, 64), (32, 14, 14, 128), (32, 7, 7, 256), (32, 3, 3, 512),
                  (32, 2, 2, 1024)]
+
+# remat: one b32 step with and without --remat, families 2 and 3;
+# each gradient leaf by relative L2 within REMAT_TOL_GRAD (the same cuDNN
+# ops run again under cuDNN's deterministic algorithms), the running
+# statistics bit for bit; REMAT_TIMED timed steps each (also --grad_accum's)
+REMAT_TOL_GRAD, REMAT_TIMED = 1e-5, 5
+# the Functions inside a remat block: (name, shape, S): K1, K2 at S 7 and on
+# its projection route (S 24), K3 with ReLU
+REMAT_FN_CASES = [("gram", (4, 56, 56, 256), None), ("pooled_gram", (8, 56, 56, 256), 7),
+                  ("pooled_gram", (8, 7, 7, 2048), 24), ("instance_norm", (8, 112, 112, 64), None)]
+# family-3 serving: iterations a request (threshold 0) and POSTs per norm and transport
+F3S_ITERS, F3S_REQUESTS = 5, 2
+# --steps_per_dispatch: K; family-1 eval batches timed; family-2 train batches
+DISPATCH_K, DISPATCH_EVAL_BATCHES, DISPATCH_TRAIN_BATCHES = 4, 8, 5
+# --grad_accum: micro-batches of a b32 step; family 3 (no batch statistics)
+# against the full batch in float64, each leaf's move by relative L2 within
+# max(ACCUM_TOL, 2x the card's f32 full-batch step's worst leaf): the
+# weight gradients after an instance norm cancel, and both f32 steps lie
+# up to 5.6e-3 from float64 on the H100
+ACCUM_K, ACCUM_TOL = 4, 1e-3
 
 
 def _require(ok: bool, what: str) -> None:
@@ -3550,6 +3595,599 @@ def phase_family3_train(kernels, tmp: str, timings: dict) -> dict:
     return out
 
 
+# ----------------------- remat, serving, dispatch, accumulation, profile
+
+
+def _remat_recompute_checks(kernels) -> list:
+    """Each hand-written Function inside a remat block (``core/remat.py``:
+    non-reentrant checkpointing, whose recompute must save tensors of the
+    forward's number, shapes and dtypes): the output and the input gradient
+    against the same call without the block, bit for bit, and the launches
+    (the recompute adds one forward)."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.core.remat import remat_call
+    from heuristique_style_transfer_code_tpu_torch.ops.gram import (
+        gram_matrix_nhwc,
+        pooled_gram_nhwc,
+    )
+    from heuristique_style_transfer_code_tpu_torch.ops.norm import instance_norm
+
+    fns = {"gram": gram_matrix_nhwc, "instance_norm": lambda x: instance_norm(x, relu=True)}
+    rows = []
+    for name, shape, s in REMAT_FN_CASES:
+        fn = (lambda x, s=s: pooled_gram_nhwc(x, s)) if s is not None else fns[name]
+        gen = torch.Generator(device=DEVICE).manual_seed(len(rows))
+        x = torch.rand(shape, device=DEVICE, generator=gen)
+        if name == "instance_norm":
+            x = x * 2 - 1
+        out = {}
+        for remat in (False, True):
+            xi = x.clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            y = remat_call(fn, xi) if remat else fn(xi)
+            w = torch.cos(torch.arange(y.numel(), device=DEVICE, dtype=torch.float32)
+                          ).reshape(y.shape)
+            (g,) = torch.autograd.grad((y.float() * w).sum(), xi)
+            torch.cuda.synchronize()
+            out[remat] = (y.detach(), g, kernels.launch_counts())
+        (y0, g0, l0), (y1, g1, l1) = out[False], out[True]
+        fwd = "instance_norm_fwd" if name == "instance_norm" else f"{name}_fwd"
+        row = {"function": name, "shape": list(shape), "S": s,
+               "output_equal": bool(torch.equal(y0, y1)), "grad_equal": bool(torch.equal(g0, g1)),
+               "launches_plain": l0, "launches_remat": l1}
+        rows.append(row)
+        print(f"[remat] {name} {shape}{'' if s is None else f' S {s}'} in a remat block: output "
+              f"equal {row['output_equal']}, input gradient equal {row['grad_equal']}; "
+              f"launches plain {({k: v for k, v in l0.items() if v})}, remat "
+              f"{({k: v for k, v in l1.items() if v})}")
+        _require(row["output_equal"] and row["grad_equal"] and l1[fwd] == l0[fwd] + 1
+                 and all(l1[k] == l0[k] for k in l0 if k != fwd),
+                 f"{name} {shape} recomputes once under remat, bit for bit")
+    return rows
+
+
+def _remat_step_pair(tag: str, kernels, make_model, forward, augment, u8, labels,
+                     zero_grad=lambda name: False) -> dict:
+    """One f32 train step's loss, gradients and running statistics with and
+    without remat from the same weights, under cuDNN's deterministic
+    algorithms: the loss within 1e-6 relative, each gradient leaf by
+    relative L2 within REMAT_TOL_GRAD (the zero-gradient biases by their
+    largest entry against the largest gradient, FST_TOL_NOISE), the
+    running statistics bit for bit (the recompute updates copies); the
+    step's peak memory above the weights (``max_memory_allocated``) and its
+    launches in each."""
+    import torch
+
+    res = {}
+    with _deterministic_cudnn():
+        for remat in (False, True):
+            model = make_model(DEVICE)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            loss, grads, stats = _step_grads(model, lambda m, x, r=remat: forward(m, x, r),
+                                             augment, u8, labels)
+            torch.cuda.synchronize()
+            res[remat] = {"loss": loss, "grads": grads, "stats": stats,
+                          "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                          "launches": kernels.launch_counts()}
+            del model
+    plain, remat = res[False], res[True]
+    largest = max(float(g.abs().max()) for g in plain["grads"].values())
+    real = [k for k in plain["grads"] if not zero_grad(k)]
+    err = {k: float((remat["grads"][k].double() - plain["grads"][k]).norm()
+                    / plain["grads"][k].double().norm()) for k in real}
+    worst = max(real, key=err.get)
+    noise = max([float(remat["grads"][k].abs().max()) / largest
+                 for k in plain["grads"] if zero_grad(k)], default=0.0)
+    bit_grads = sum(torch.equal(remat["grads"][k], plain["grads"][k]) for k in plain["grads"])
+    stats_equal = all(torch.equal(remat["stats"][k], plain["stats"][k]) for k in plain["stats"])
+    rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    out = {"loss_plain": plain["loss"], "loss_remat": remat["loss"], "loss_rel": rel,
+           "grad_worst_rel_l2": err[worst], "grad_worst_leaf": worst,
+           "grad_leaves_bit_equal": int(bit_grads), "grad_leaves": len(plain["grads"]),
+           "zero_grad_noise": noise, "stats_bit_equal": stats_equal,
+           "stats_leaves": len(plain["stats"]),
+           "peak_gib_plain": plain["peak_gib"], "peak_gib_remat": remat["peak_gib"],
+           "launches_plain": plain["launches"], "launches_remat": remat["launches"]}
+    print(f"[remat] {tag} b{len(labels)} step, remat vs plain (cuDNN deterministic): loss "
+          f"{remat['loss']:.9f} vs {plain['loss']:.9f} (rel {rel:.2e}); gradients: "
+          f"{bit_grads}/{len(plain['grads'])} leaves bit-equal, worst {err[worst]:.2e} at "
+          f"{worst} (tol {REMAT_TOL_GRAD}), zero-gradient noise {noise:.2e}; running statistics "
+          f"({len(plain['stats'])} leaves) bit-equal {stats_equal}; peak memory above the "
+          f"weights {plain['peak_gib']:.3f} GiB plain, {remat['peak_gib']:.3f} GiB remat; "
+          f"launches plain {({k: v for k, v in plain['launches'].items() if v})}, remat "
+          f"{({k: v for k, v in remat['launches'].items() if v})}")
+    _require(rel <= 1e-6 and err[worst] <= REMAT_TOL_GRAD and noise <= FST_TOL_NOISE
+             and stats_equal and remat["peak_gib"] < plain["peak_gib"],
+             f"the {tag} remat step equals the plain one, with less memory")
+    return out
+
+
+def phase_remat(kernels, tmp: str, timings: dict) -> dict:
+    """``--remat`` at full width: (a) each hand-written Function inside a
+    remat block (``_remat_recompute_checks``); (b) one family-2 b32 step
+    (truncate 7, S 7, 224² crops) and one family-3 b32 step (the config
+    defaults, norm "instance") with and without remat from the same
+    weights (``_remat_step_pair``): family 2's pooled Grams sit outside
+    the blocks, so its launches are equal; family 3's strided units hold
+    10 of its 13 norms, so the recompute adds 10 instance_norm_fwd; (c)
+    the b32 steps with and without remat by ``_timed_step``: host clock,
+    busy, idle share, peak memory."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.config.schema import (
+        GramAttentionConfig,
+        MultiPatchGANConfig,
+    )
+    from heuristique_style_transfer_code_tpu_torch.data.augment import make_augment_fn
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+        gram_attention_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_apply,
+        multiscale_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.nn.patch_discriminator import (
+        discriminator_layer_plan,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train.factories import (
+        setup_gram_attention,
+        setup_multi_patchgan,
+    )
+
+    out = {"functions": _remat_recompute_checks(kernels)}
+    rng = np.random.RandomState(170)
+    u8 = rng.randint(0, 256, (F2T_BATCH, 256, 256, 3)).astype(np.uint8)
+    labels = rng.randint(0, 4, (F2T_BATCH,)).astype(np.int32)
+    augment = make_augment_fn([(None, None)])
+    f3cfg = MultiPatchGANConfig(batch_size=F3T_BATCH, lr=F3T_LR, norm="instance", seed=0)
+
+    def f2_model(device):
+        return gram_attention_init(torch.Generator().manual_seed(171), F2T_TRUNCATE, 4, F2T_S,
+                                   device=device).train()
+
+    def f2_forward(model, images, remat):
+        return gram_attention_apply(model, images, F2T_TRUNCATE, F2T_S, 4, remat=remat)[1]
+
+    def f3_model(device):
+        return multiscale_init(torch.Generator().manual_seed(172), f3cfg.patch_sizes,
+                               ndf=f3cfg.ndf, num_classes=4, norm="instance",
+                               device=device).train()
+
+    def f3_forward(model, images, remat):
+        return multiscale_apply(model, images, "instance", train=True, remat=remat)
+
+    out["family2"] = _remat_step_pair("family2", kernels, f2_model, f2_forward, augment, u8,
+                                      labels)
+    f2 = out["family2"]
+    _require(f2["launches_remat"] == f2["launches_plain"],
+             "family 2's pooled Grams launch as often under remat")
+    out["family3_instance"] = _remat_step_pair("family3 instance", kernels, f3_model,
+                                               f3_forward, augment, u8, labels,
+                                               zero_grad=_f3_zero_grad)
+    f3 = out["family3_instance"]
+    strided = sum(len(discriminator_layer_plan(p, f3cfg.ndf)[0])
+                  for p in f3cfg.patch_sizes.values())
+    want = dict(f3["launches_plain"], instance_norm_fwd=F3_NORMS + strided)
+    _require(f3["launches_plain"]["instance_norm_fwd"] == F3_NORMS and f3["launches_remat"] == want,
+             f"family 3's recompute adds one instance_norm_fwd per strided unit ({strided})")
+
+    for fam, make_setup in (("family2", lambda r: setup_gram_attention(
+            GramAttentionConfig(batch_size=F2T_BATCH, lr=F2T_LR, truncate_layer=F2T_TRUNCATE,
+                                gram_matrix_size=F2T_S), 4, [(None, None)], remat=r,
+            device=DEVICE)), ("family3_instance", lambda r: setup_multi_patchgan(
+                f3cfg, 4, [(None, None)], remat=r, device=DEVICE))):
+        for remat in (False, True):
+            name = "remat" if remat else "plain"
+            setup = make_setup(remat)
+            model, opt = setup.init(torch.Generator().manual_seed(173))
+            out[fam][name] = _timed_step(f"remat {fam}", name, lambda i=0: setup.train_step(
+                model, opt, u8, labels), F2T_BATCH, REMAT_TIMED)
+            timings[f"remat_{fam}_{name}_step_ms"] = out[fam][name]["step_ms"]
+            del model, opt, setup
+    out["launches"] = f3["launches_remat"]
+    return out
+
+
+def phase_family3_serve(kernels, family3, tmp: str, timings: dict) -> dict:
+    """``serve_style --family multi_patchgan`` over HTTP at 224², norm
+    "instance" and "batch", in rgb and yuv420: F3S_REQUESTS POSTs each
+    (b1, F3S_ITERS iterations, threshold 0), exact launches, every reply
+    within one uint8 step of the service's texture job run again in process
+    on the same canvas and job id (cuDNN deterministic; the gaps are
+    printed, 0 where every kernel of the loop gives the same bits twice;
+    the yuv420 reply is cv2's ``COLOR_YUV2RGB_I420`` of the job's
+    device-packed I420), host ms a request. Before:
+    ``rgb_to_yuv420_device`` on the card within 1 of cv2's
+    ``COLOR_RGB2YUV_I420`` per byte on a smooth 224² image (cv2 takes each
+    2x2 block's top-left chroma, the port and JAX their mean, so only on
+    content smooth over 2x2 blocks are they that close), and within 1 of
+    the CPU's packing on noise."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.tasks.camera import (
+        rgb_to_yuv420,
+        rgb_to_yuv420_device,
+    )
+    from heuristique_style_transfer_code_tpu_torch.utils.png import decode_png
+
+    yy, xx = np.mgrid[0:224, 0:224]
+    smooth = np.stack([yy * 200 // 224 + 20, xx * 180 // 224 + 30, (yy + xx) * 100 // 448 + 60],
+                      -1).astype(np.uint8)
+    card = rgb_to_yuv420_device(torch.from_numpy(smooth).to(DEVICE)).cpu().numpy()
+    cv2_gap = _u8_gap(card, cv2.cvtColor(smooth, cv2.COLOR_RGB2YUV_I420))
+    noise = np.random.RandomState(175).randint(0, 256, (8, 224, 224, 3)).astype(np.uint8)
+    packed = rgb_to_yuv420_device(torch.from_numpy(noise).to(DEVICE)).cpu().numpy()
+    cpu = rgb_to_yuv420_device(torch.from_numpy(noise)).numpy()
+    cpu_gap, cpu_diff = _u8_gap(packed, cpu), int((packed != cpu).sum())
+    print(f"[family3_serve] rgb_to_yuv420_device on the card: a smooth 224² image within "
+          f"{cv2_gap} of cv2's COLOR_RGB2YUV_I420; 8 noise images within {cpu_gap} of the CPU's "
+          f"packing ({cpu_diff} of {packed.size} bytes differ)")
+    _require(cv2_gap <= 1 and cpu_gap <= 1, "the device I420 packer agrees with cv2 and the CPU")
+    out = {"packer_cv2_gap": cv2_gap, "packer_cpu_gap": cpu_gap, "packer_cpu_bytes_differ":
+           cpu_diff}
+    canvases = np.random.RandomState(176).randint(0, 256, (F3S_REQUESTS, 224, 224, 3)).astype(
+        np.uint8)
+    total = {}
+    for norm in ("instance", "batch"):
+        cfg = os.path.join(tmp, f"f3serve_{norm}.json")
+        with open(cfg, "w") as f:
+            json.dump(family3[norm][2].to_dict(), f)
+        per_iter = {"gram_fwd": F3_GRAMS, "gram_bwd": F3_GRAMS}
+        if norm == "instance":
+            per_iter.update(instance_norm_fwd=F3_NORMS, instance_norm_bwd=F3_NORMS)
+        for transport in ("rgb", "yuv420"):
+            with _deterministic_cudnn():
+                srv, service, url = _serve([
+                    "--family", "multi_patchgan", "--config_path", cfg, "--model_path",
+                    os.path.join(tmp, f"family3_{norm}.npz"), "--num_iterations", str(F3S_ITERS),
+                    "--threshold", "0", "--batch_size", "1", "--max_delay_ms", "5",
+                    "--transport", transport, "--port", "0", "--device", DEVICE])
+                try:
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                    served, ms = [], []
+                    for canvas in canvases:
+                        t0 = time.perf_counter()
+                        status, png, headers = _post_raw(url, canvas)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                        _require(status == 200 and headers["X-Iterations"] == str(F3S_ITERS),
+                                 f"a family-3 {transport} reply: {status} {headers}")
+                        served.append(decode_png(png))
+                    torch.cuda.synchronize()
+                    launches = kernels.launch_counts()
+                    gaps = []
+                    for j, canvas in enumerate(canvases):
+                        job_in = rgb_to_yuv420(canvas) if transport == "yuv420" else canvas
+                        pixels = service._jobs_by_size[1](
+                            job_in[None], np.zeros((1, 1), np.float32),
+                            np.full((1,), j, np.int32))[0].cpu().numpy()[0]
+                        if transport == "yuv420":
+                            pixels = cv2.cvtColor(pixels, cv2.COLOR_YUV2RGB_I420)
+                        gaps.append(_u8_gap(served[j], pixels))
+                finally:
+                    _stop(srv, service)
+            want = {k: 0 for k in launches}
+            for k, n in per_iter.items():
+                want[k] = F3S_REQUESTS * n * (F3S_ITERS + (k.endswith("fwd")))
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            key = f"{norm}_{transport}"
+            out[key] = {"ms_per_request": ms, "launches": launches, "served_vs_in_process": gaps}
+            timings[f"family3_serve_{key}_ms"] = float(np.median(ms))
+            print(f"[family3_serve] norm {norm}, {transport}: {F3S_REQUESTS} POSTs of 224² at b1, "
+                  f"{F3S_ITERS} iterations: {[round(t, 1) for t in ms]} ms a request (host "
+                  f"clock, HTTP to PNG); launches {({k: v for k, v in launches.items() if v})}; "
+                  f"served vs in-process pixels max gap {gaps}")
+            _require(launches == want, f"family-3 serving launches {want}: {launches}")
+            _require(all(g <= 1 for g in gaps) and all(s.shape == (224, 224, 3) for s in served),
+                     f"the served {transport} pixels equal the in-process texture loop's")
+    out["launches"] = total
+    return out
+
+
+def phase_dispatch(kernels, family1, tmp: str, timings: dict) -> dict:
+    """``--steps_per_dispatch``: (a) family 1's ``--mode classification``
+    CLI (truncate 8, b32, 4 batches of 256² PNGs) at K = 4 and K = 1,
+    metrics.txt byte for byte (the CLI stops at confusion_matrix.png where
+    matplotlib is missing, after metrics.txt); (b) the family-1 eval loop
+    over DISPATCH_EVAL_BATCHES in-memory b32 batches timed at K = 1 and K =
+    DISPATCH_K, in turns (1, 4, 4, 1); (c) a family-2 training epoch
+    (truncate 7, S 7, b32, DISPATCH_TRAIN_BATCHES batches: a chunk of 4 and
+    a tail of 1) at K = 4 against K = 1 from the same weights, under cuDNN's
+    deterministic algorithms: every parameter and running statistic and
+    every per-batch print equal, and both epochs timed after a warm-up
+    step."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 import main as cli
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.tasks.classification import (
+        evaluate_classification,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+    from heuristique_style_transfer_code_tpu_torch.train.train_loop import train_epochs
+
+    model, _, forward = family1
+    data = _image_folder(os.path.join(tmp, "dispatch_data"), F1_BATCH, seed=180)
+    cfg = os.path.join(tmp, "dispatch_f1.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": F1_BATCH, "truncate_layer": F1_TRUNCATE, "dim": F1_DIM,
+                   "seed": 0}, f)
+    have_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    metrics = {}
+    for k in (1, DISPATCH_K):
+        save = os.path.join(tmp, f"dispatch_k{k}")
+        try:
+            cli(["--data", data, "--config_path", cfg, "--model_path",
+                 os.path.join(tmp, "family1.npz"), "--mode", "classification", "--save_dir", save,
+                 "--prob_threshold", "0", "--steps_per_dispatch", str(k), "--device", DEVICE])
+        except ModuleNotFoundError as e:
+            if have_matplotlib or e.name != "matplotlib":
+                raise
+        with open(os.path.join(save, "metrics.txt"), "rb") as f:
+            metrics[k] = f.read()
+    equal = metrics[1] == metrics[DISPATCH_K]
+    print(f"[dispatch] family-1 --mode classification CLI, {4 * F1_BATCH} PNGs at b{F1_BATCH}: "
+          f"metrics.txt at --steps_per_dispatch {DISPATCH_K} byte-equal to 1: {equal} "
+          f"({len(metrics[1])} bytes)")
+    _require(equal and len(metrics[1]) > 0, "metrics.txt equal at K = 4 and K = 1")
+    out = {"metrics_equal": equal}
+
+    rng = np.random.RandomState(181)
+    batches = [{"image": rng.randint(0, 256, (F1_BATCH, 256, 256, 3)).astype(np.uint8),
+                "label": rng.randint(0, 4, (F1_BATCH,)).astype(np.int32), "n_valid": F1_BATCH,
+                "indices": np.arange(F1_BATCH)} for _ in range(DISPATCH_EVAL_BATCHES)]
+    evaluate_classification(forward, model, batches[:2], 4, prob_threshold=0.0)  # warm-up
+    runs = {1: [], DISPATCH_K: []}
+    for k in (1, DISPATCH_K, DISPATCH_K, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_classification(forward, model, batches, 4, prob_threshold=0.0,
+                                      steps_per_dispatch=k)
+        runs[k].append(len(batches) * F1_BATCH / (time.perf_counter() - t0))
+        out.setdefault("probs", {})[k] = res["probs"]
+    same = np.array_equal(out["probs"][1], out["probs"][DISPATCH_K])
+    out.pop("probs")
+    out["eval_images_per_s"] = {str(k): v for k, v in runs.items()}
+    timings["dispatch_eval_k1_images_per_s"] = float(np.mean(runs[1]))
+    timings[f"dispatch_eval_k{DISPATCH_K}_images_per_s"] = float(np.mean(runs[DISPATCH_K]))
+    print(f"[dispatch] family-1 eval loop, {DISPATCH_EVAL_BATCHES} b{F1_BATCH} batches (host "
+          f"clock, upload to metrics on the host), images/s in turns: K=1 "
+          f"{[round(v, 1) for v in runs[1]]}, K={DISPATCH_K} "
+          f"{[round(v, 1) for v in runs[DISPATCH_K]]}; probabilities equal {same}")
+    _require(same, "the eval loop's probabilities at K = 4 equal K = 1's")
+
+    cfg2 = GramAttentionConfig(batch_size=F2T_BATCH, lr=F2T_LR, truncate_layer=F2T_TRUNCATE,
+                               gram_matrix_size=F2T_S)
+    train = [{"image": rng.randint(0, 256, (F2T_BATCH, 256, 256, 3)).astype(np.uint8),
+              "label": rng.randint(0, 4, (F2T_BATCH,)).astype(np.int32), "n_valid": F2T_BATCH}
+             for _ in range(DISPATCH_TRAIN_BATCHES)]
+    epochs = {}
+    with _deterministic_cudnn():
+        warm = setup_gram_attention(cfg2, 4, [(None, None)], device=DEVICE)
+        warm.train_step(*warm.init(None), train[0]["image"], train[0]["label"])
+        del warm
+        for k in (1, DISPATCH_K):
+            setup = setup_gram_attention(cfg2, 4, [(None, None)], device=DEVICE)
+            m, opt = setup.init(torch.Generator().manual_seed(182))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                train_epochs(setup.train_step, m, opt, train, 1, steps_per_dispatch=k)
+            torch.cuda.synchronize()
+            epochs[k] = (time.perf_counter() - t0, printed.getvalue(),
+                         {n: t.detach().cpu() for n, t in m.state_dict().items()})
+            del m, opt, setup
+    (s1, p1, w1), (sk, pk, wk) = epochs[1], epochs[DISPATCH_K]
+    differ = [n for n in w1 if not torch.equal(w1[n], wk[n])]
+    print(f"[dispatch] family-2 epoch of {DISPATCH_TRAIN_BATCHES} b{F2T_BATCH} steps: K=1 "
+          f"{s1:.3f} s, K={DISPATCH_K} {sk:.3f} s (host clock, after one warm-up step); "
+          f"per-batch prints equal {p1 == pk}; {len(differ)} of {len(w1)} leaves differ "
+          f"{differ[:3]}")
+    _require(p1 == pk and not differ, "the family-2 epoch at K = 4 equals K = 1 bit for bit")
+    out.update(train_epoch_s={"1": s1, str(DISPATCH_K): sk}, train_leaves_differ=differ)
+    return out
+
+
+def phase_grad_accum(kernels, tmp: str, timings: dict) -> dict:
+    """``--grad_accum 4`` at b32: (a) family 3 (the config defaults, norm
+    "instance": no batch statistics) one step against the full-batch step
+    from the same weights, which is its truth: both held against that
+    step in float64 on the CPU, the loss within 1e-5 relative and each
+    leaf's move by relative L2 within max(ACCUM_TOL, twice the card's
+    full-batch f32 step's error at its worst leaf) (only f32 reassociation
+    differs: the micro-batches' gradient sums are added, then divided, and
+    cuDNN picks other algorithms at b8; the weight gradients after an
+    instance norm cancel heavily; the zero-gradient biases excepted); (b)
+    family 2 (truncate 7,
+    S 7: ghost batch norm) one step against a hand-written loop over the
+    four micro-batches of 8 (each one train-mode forward, the unnormalised
+    masked NLL's gradients summed, divided once by the valid count, one SGD
+    update), every parameter and running statistic bit for bit under cuDNN's
+    deterministic algorithms; (c) the family-2 step plain and accumulated
+    by ``_timed_step``."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.config.schema import (
+        GramAttentionConfig,
+        MultiPatchGANConfig,
+    )
+    from heuristique_style_transfer_code_tpu_torch.data.augment import make_augment_fn
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train.factories import (
+        setup_gram_attention,
+        setup_multi_patchgan,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train.train_loop import _masked_nll_parts
+
+    rng = np.random.RandomState(185)
+    u8 = rng.randint(0, 256, (F2T_BATCH, 256, 256, 3)).astype(np.uint8)
+    labels = rng.randint(0, 4, (F2T_BATCH,)).astype(np.int32)
+    labels[3] = -1  # a pad entry in the first micro-batch
+    out = {}
+
+    f3cfg = MultiPatchGANConfig(batch_size=F3T_BATCH, lr=F3T_LR, norm="instance", seed=0)
+    t0 = time.perf_counter()
+    ref = setup_multi_patchgan(f3cfg, 4, [(None, None)], compute_dtype=torch.float64,
+                               device="cpu")
+    model, opt = ref.init(torch.Generator().manual_seed(186))
+    model.double()
+    opt = ref.optimizer[0](model)
+    start = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    _, _, ref_loss = ref.train_step(model, opt, u8, labels)
+    truth = {n: t.detach() - start[n] for n, t in model.state_dict().items()}
+    t_cpu = time.perf_counter() - t0
+    del model, opt, ref
+    f3 = setup_multi_patchgan(f3cfg, 4, [(None, None)], device=DEVICE)
+    moved = {}
+    for name, step in (("full", f3.train_step), ("accum", f3.accum_step(ACCUM_K))):
+        model, opt = f3.init(torch.Generator().manual_seed(186))
+        _, _, loss = step(model, opt, u8, labels)
+        moved[name] = (float(loss), {n: t.detach().cpu().double() - start[n]
+                                     for n, t in model.state_dict().items()})
+        del model, opt
+    real = [n for n in truth if not _f3_zero_grad(n)]
+
+    def errs(moves):
+        return {n: float((moves[n] - truth[n]).norm() / truth[n].norm()) for n in real}
+
+    (full_loss, full), (loss, accum) = moved["full"], moved["accum"]
+    e_full, e_accum = errs(full), errs(accum)
+    tol = max(ACCUM_TOL, 2 * max(e_full.values()))
+    worst = max(real, key=e_accum.get)
+    rel = abs(loss - float(ref_loss)) / abs(float(ref_loss))
+    print(f"[grad_accum] family-3 instance b{F3T_BATCH} step at --grad_accum {ACCUM_K}, each "
+          f"leaf's move against the full-batch step on the CPU in float64 ({t_cpu:.1f} s): loss "
+          f"{loss:.9f} vs {float(ref_loss):.9f} (rel {rel:.2e}; the card's full batch "
+          f"{full_loss:.9f}); worst leaf {e_accum[worst]:.2e} at {worst}, the full batch's "
+          f"there {e_full[worst]:.2e} and at its worst leaf {max(e_full.values()):.2e} (tol "
+          f"{tol:.2e}: max({ACCUM_TOL}, 2x the full-batch step's worst leaf))")
+    _require(rel <= 1e-5 and e_accum[worst] <= tol,
+             "family 3's accumulated step equals the full-batch step")
+    out["family3_instance"] = {"loss_rel": rel, "worst_rel_l2": e_accum[worst],
+                               "worst_leaf": worst, "tol": tol,
+                               "largest_accum": max(e_accum.values()),
+                               "largest_full": max(e_full.values()), "cpu_seconds": t_cpu}
+
+    cfg2 = GramAttentionConfig(batch_size=F2T_BATCH, lr=F2T_LR, truncate_layer=F2T_TRUNCATE,
+                               gram_matrix_size=F2T_S)
+    f2 = setup_gram_attention(cfg2, 4, [(None, None)], device=DEVICE)
+    augment = make_augment_fn([(None, None)])
+    with _deterministic_cudnn():
+        model, opt = f2.init(torch.Generator().manual_seed(187))
+        _, _, loss = f2.accum_step(ACCUM_K)(model, opt, u8, labels)
+        accum = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+        del model, opt
+        model, _ = f2.init(torch.Generator().manual_seed(187))
+        params = dict(model.named_parameters())
+        names = list(params)
+        images = augment(torch.as_tensor(u8).to(DEVICE))
+        labels_d = torch.as_tensor(labels).to(DEVICE)
+        mb = F2T_BATCH // ACCUM_K
+        g_sum, nll_sum, cnt_sum = None, 0.0, 0.0
+        for i in range(ACCUM_K):
+            part = slice(i * mb, (i + 1) * mb)
+            logits = gram_attention_apply(model, images[part], F2T_TRUNCATE, F2T_S, 4)[1]
+            nll, cnt = _masked_nll_parts(logits, labels_d[part])
+            grads = torch.autograd.grad(nll, [params[n] for n in names])
+            g_sum = list(grads) if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
+            nll_sum, cnt_sum = nll_sum + nll.detach(), cnt_sum + cnt
+        with torch.no_grad():  # SGD's first update: the trace is the gradient
+            for n, g in zip(names, g_sum):
+                params[n].add_((g / cnt_sum) * -F2T_LR)
+        hand = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+        hand_loss = float(nll_sum / cnt_sum)
+        del model
+    differ = [n for n in hand if not torch.equal(hand[n], accum[n])]
+    print(f"[grad_accum] family-2 b{F2T_BATCH} step at --grad_accum {ACCUM_K} vs a hand-written "
+          f"loop over {ACCUM_K} micro-batches (cuDNN deterministic): loss {float(loss):.9f} vs "
+          f"{hand_loss:.9f}; {len(differ)} of {len(hand)} leaves differ {differ[:3]}")
+    _require(float(loss) == hand_loss and not differ,
+             "family 2's accumulated step equals the hand-written micro-batch loop")
+    out["family2"] = {"leaves_differ": differ}
+
+    for name, step in (("plain", f2.train_step), ("accum", f2.accum_step(ACCUM_K))):
+        model, opt = f2.init(torch.Generator().manual_seed(188))
+        out["family2"][name] = _timed_step("grad_accum family2", name, lambda i=0: step(
+            model, opt, u8, labels), F2T_BATCH, REMAT_TIMED)
+        timings[f"grad_accum_family2_{name}_step_ms"] = out["family2"][name]["step_ms"]
+        del model, opt
+    return out
+
+
+def phase_profile_debug(kernels, tmp: str, timings: dict) -> dict:
+    """(a) ``--profile_dir`` on the family-2 CLI's ``--mode style_transfer``
+    (the classification phase's model, truncate 8, layers 5, 2 images, 2
+    iterations): the Chrome trace it writes names the hand-written kernels
+    (``gram_fwd``, ``gram_bwd``). (b) ``--debug_nans``: a clean
+    classification run ends normally; with one conv weight set to NaN the
+    CLI, in a process of its own, exits non-zero with FloatingPointError."""
+    import numpy as np
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import (
+        load_pytree_npz,
+        save_pytree_npz,
+    )
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main as cli
+
+    data = _image_folder(os.path.join(tmp, "pd_data"), 1, seed=190)
+    cfg = os.path.join(tmp, "pd_f2.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": 2, "truncate_layer": 8, "gram_matrix_size": POOL_S, "seed": 0},
+                  f)
+    ckpt = os.path.join(tmp, "family2.npz")
+    prof = os.path.join(tmp, "pd_profile")
+    t0 = time.perf_counter()
+    cli(["--data", data, "--config_path", cfg, "--model_path", ckpt, "--mode",
+         "style_transfer", "--layers", "5", "--num_iterations", "2", "--num_samples", "2",
+         "--save_dir", os.path.join(tmp, "pd_st"), "--profile_dir", prof, "--device", DEVICE])
+    traces = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")]
+    with open(os.path.join(prof, traces[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    named = {k: sorted(n for n in names if k in n)[:3] for k in ("gram_fwd", "gram_bwd")}
+    print(f"[profile_debug] --profile_dir on --mode style_transfer: {traces} "
+          f"({time.perf_counter() - t0:.1f} s with the trace), kernels named {named}")
+    _require(len(traces) == 1 and all(named.values()),
+             "the profile's trace names gram_fwd and gram_bwd")
+
+    cli(["--data", data, "--config_path", cfg, "--model_path", ckpt, "--mode", "classification",
+         "--save_dir", os.path.join(tmp, "pd_clean"), "--debug_nans", "--device", DEVICE])
+    tree = load_pytree_npz(ckpt)
+    tree["encoder"]["layer1"][0]["conv2"]["kernel"][0, 0, 0, 0] = np.nan
+    nan_ckpt = os.path.join(tmp, "pd_nan.npz")
+    save_pytree_npz(tree, nan_ckpt)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli.test_gram_attention", "--data", data, "--config_path",
+         cfg, "--model_path", nan_ckpt, "--mode", "classification", "--save_dir",
+         os.path.join(tmp, "pd_nan"), "--debug_nans", "--device", DEVICE],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    print(f"[profile_debug] --debug_nans: a clean run ended normally; with a NaN weight the CLI "
+          f"exited {proc.returncode} in {time.perf_counter() - t0:.1f} s: {last}")
+    _require(proc.returncode != 0 and "FloatingPointError" in last,
+             "--debug_nans stops a NaN forward with FloatingPointError")
+    return {"traces": traces, "kernels_named": named, "nan_exit": proc.returncode,
+            "nan_error": last}
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -3645,6 +4283,15 @@ def main() -> int:
         f3t = phase_family3_train(kernels, tmp, timings)
         timings["family3_train_phase_s"] = time.perf_counter() - t0
         print(f"[family3_train] {timings['family3_train_phase_s']:.2f} s in all")
+        t0 = time.perf_counter()
+        remat = phase_remat(kernels, tmp, timings)
+        f3_serve = phase_family3_serve(kernels, family3, tmp, timings)
+        dispatch = phase_dispatch(kernels, family1, tmp, timings)
+        accum = phase_grad_accum(kernels, tmp, timings)
+        profile_debug = phase_profile_debug(kernels, tmp, timings)
+        timings["pr17_phases_s"] = time.perf_counter() - t0
+        print(f"[remat+family3_serve+dispatch+grad_accum+profile_debug] "
+              f"{timings['pr17_phases_s']:.2f} s in all")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
@@ -3652,13 +4299,17 @@ def main() -> int:
                 + f2t["launches"]["pooled_gram_fwd"],
                 "pooled_gram_bwd": f2t["launches"]["pooled_gram_bwd"],
                 "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"]
-                + fst_launches["gram_fwd"],
+                + fst_launches["gram_fwd"] + f3_serve["launches"]["gram_fwd"],
                 "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"]
-                + fst_launches["gram_bwd"],
+                + fst_launches["gram_bwd"] + f3_serve["launches"]["gram_bwd"],
                 "instance_norm_fwd": fs_launches["instance_norm_fwd"]
-                + fst_launches["instance_norm_fwd"] + f3t["launches"]["instance_norm_fwd"],
+                + fst_launches["instance_norm_fwd"] + f3t["launches"]["instance_norm_fwd"]
+                + remat["launches"]["instance_norm_fwd"]
+                + f3_serve["launches"]["instance_norm_fwd"],
                 "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]
-                + fst_launches["instance_norm_bwd"] + f3t["launches"]["instance_norm_bwd"]}
+                + fst_launches["instance_norm_bwd"] + f3t["launches"]["instance_norm_bwd"]
+                + remat["launches"]["instance_norm_bwd"]
+                + f3_serve["launches"]["instance_norm_bwd"]}
     idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
@@ -3692,8 +4343,9 @@ def main() -> int:
                    "embeddings": embeddings, "cameras": cameras, "family3_style": f3_style,
                    "pth": pth, "gradcam": gradcam, "content_style": content_style,
                    "content_style_serve": cs_serve, "fast_style_train": fst,
-                   "family2_train": f2t, "family1_train": f1t, "family3_train": f3t}, f,
-                  indent=1)
+                   "family2_train": f2t, "family1_train": f1t, "family3_train": f3t,
+                   "remat": remat, "family3_serve": f3_serve, "dispatch": dispatch,
+                   "grad_accum": accum, "profile_debug": profile_debug}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

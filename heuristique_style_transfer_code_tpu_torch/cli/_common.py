@@ -3,6 +3,7 @@ that the evaluation CLIs of families 1, 2 and 3, ``serve_style`` and the
 train CLIs of families 1, 2 and 3 need)."""
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 from typing import Any, List, Optional
@@ -193,15 +194,29 @@ def weighted_auc_or_none(labels, probs, branch_on: str = "labels"):
 
 
 def add_device_args(parser, precisions=("float32", "bf16")) -> None:
-    """The JAX CLIs' ``add_tpu_args`` flags (``--devices``, ``--profile_dir``
-    and ``--debug_nans`` parse but are not ported yet) plus ``--device``."""
+    """The JAX CLIs' ``add_tpu_args`` flags (``--devices`` parses but is
+    not ported yet) plus ``--device``."""
     parser.add_argument("--precision", choices=list(precisions), default="float32",
                         help="Compute precision policy")
     parser.add_argument("--devices", type=int, default=None, help="Not ported yet")
-    parser.add_argument("--profile_dir", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--debug_nans", action="store_true", help="Not ported yet")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="Write a torch.profiler Chrome trace of the run to this directory")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="Raise FloatingPointError at the first NaN of a forward or a "
+                        "backward (module outputs, losses, autograd's anomaly mode)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; there is no silent fallback")
+
+
+@contextlib.contextmanager
+def runtime_flags(args):
+    """A CLI's run under ``--debug_nans`` (``utils/debug.debug_nans``) and
+    ``--profile_dir`` (``utils/logging.maybe_profile``)."""
+    from ..utils.debug import debug_nans
+    from ..utils.logging import maybe_profile
+
+    with debug_nans(args.debug_nans), maybe_profile(args.profile_dir):
+        yield
 
 
 def check_ported(args, not_ported: dict) -> None:
@@ -223,12 +238,21 @@ def add_train_args(parser) -> None:
                         "(bit-identical on the CPU; uses the in-progress checkpoint the "
                         "trainer writes every epoch in --save_dir); also arms SIGTERM "
                         "preemption")
-    parser.add_argument("--grad_accum", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--grad_accum", type=int, default=1,
+                        help="Gradient accumulation: run the configured batch as this many "
+                        "sequential micro-batches with one optimiser update; the loss and "
+                        "gradients are the full batch's masked mean, batch norms use "
+                        "micro-batch statistics (ghost BN). batch_size must divide; "
+                        "exclusive with --steps_per_dispatch>1")
     parser.add_argument("--async_checkpoint", action="store_true",
                         help="With --resume: write the per-epoch in-progress checkpoint in "
                         "a background thread (a host copy at submit; the same atomic file)")
     parser.add_argument("--zero1", action="store_true", help="Not ported yet")
-    parser.add_argument("--remat", action="store_true", help="Not ported yet")
+    parser.add_argument("--remat", action="store_true",
+                        help="Recompute block-internal activations in the backward "
+                        "(torch.utils.checkpoint per bottleneck / per discriminator unit): the "
+                        "same gradients and running statistics, less activation memory, "
+                        "about a third more forward work")
     parser.add_argument("--parallel_folds", action="store_true", help="Not ported yet")
     parser.add_argument("--auto_batch", action="store_true", help="Not ported yet")
     parser.add_argument("--hbm_budget_gb", type=float, default=None, help="Not ported yet")
@@ -260,19 +284,14 @@ def add_train_args(parser) -> None:
 
 # the train flags this port does not run yet -> their defaults
 TRAIN_NOT_PORTED = {
-    "grad_accum": 1,
     "zero1": False,
-    "remat": False,
     "parallel_folds": False,
     "auto_batch": False,
     "hbm_budget_gb": None,
     "mixup": None,
     "cutmix": None,
     "ema_decay": None,
-    "steps_per_dispatch": 1,
     "checkpoint_format": "npz",
-    "profile_dir": None,
-    "debug_nans": False,
 }
 
 
@@ -283,6 +302,22 @@ def check_train_ported(args) -> None:
     if args.devices not in (None, 1):
         raise NotImplementedError("--devices (data-parallel training) is not ported yet; "
                                   "pass --devices 1 or leave it out")
+
+
+def apply_grad_accum(args, setup, batch_size: int) -> None:
+    """``--grad_accum K`` (the JAX ``apply_grad_accum``): the setup's train
+    step becomes the accumulation step (``FamilySetup.accum_step``), after
+    the JAX CLI's checks and with its messages."""
+    n = int(getattr(args, "grad_accum", 1) or 1)
+    if n <= 1:
+        return
+    if getattr(args, "steps_per_dispatch", 1) > 1:
+        raise SystemExit("--grad_accum and --steps_per_dispatch>1 are "
+                         "exclusive (pick one batching of the dispatch)")
+    if batch_size % n:
+        raise SystemExit(f"--grad_accum {n} does not divide batch_size {batch_size}")
+    setup.train_step = setup.accum_step(n)
+    print(f"Gradient accumulation: {n} micro-batches of {batch_size // n} per optimiser step")
 
 
 def resolve_seed(config: dict, cli_seed: Optional[int]) -> int:
@@ -353,6 +388,9 @@ def signature_extra_from_args(args) -> Optional[dict]:
     the JAX one, it holds ``--freeze_layers``: a resume that freezes
     another set of parameters is refused."""
     extra = {}
+    n = int(getattr(args, "grad_accum", 1) or 1)
+    if n > 1:  # ghost-BN micro-batch statistics change the trajectory
+        extra["grad_accum"] = n
     for flag, default in (
         ("precision", "float32"), ("color_aug", False), ("geom_aug", False),
         ("num_color_transforms", 0), ("num_geom_transforms", 0), ("geom_transforms", None),

@@ -4,12 +4,14 @@ of ``heuristique_style_transfer_code_tpu/cli/serve_style.py`` plus
 
 Ported: ``--net`` (a feed-forward style net, one forward per job, its 15
 instance norms through the hand-written kernel on the card), texture mode
-(the family-2 Adam-on-pixels loop; ``--model_path`` an ``.npz`` or a
-reference ``.pth``) and content+style mode (``--style_image NAME=PATH``,
-repeatable, a gallery that clients pick from or blend with ``X-Style``,
-with ``--style_weight``, ``--content_weight``, ``--tv_weight``,
-``--style_init`` and ``--style_layers``), with ``--batch_size`` ladders,
-``--precision float32|bf16`` and SIGTERM drain. The flags listed in
+(the Adam-on-pixels loop of family 2, or of family 3 with ``--family
+multi_patchgan``; ``--model_path`` an ``.npz`` or a reference ``.pth``)
+and content+style mode (``--style_image NAME=PATH``, repeatable, a gallery
+that clients pick from or blend with ``X-Style``, with ``--style_weight``,
+``--content_weight``, ``--tv_weight``, ``--style_init`` and
+``--style_layers``), with ``--batch_size`` ladders, ``--precision
+float32|bf16``, ``--transport rgb|yuv420``, ``--remat`` (family 2),
+``--profile_dir``, ``--debug_nans`` and SIGTERM drain. The flags listed in
 ``_NOT_PORTED`` raise a "not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.serve_style \\
@@ -21,28 +23,26 @@ import argparse
 import os
 import time
 
+import numpy as np
+
 from ._common import (
     add_device_args,
     check_ported,
     count_params,
     load_checkpoint_tree,
     resolve_compute_dtype,
+    runtime_flags,
 )
 
 FAMILIES = ["gram_attention", "multi_patchgan"]
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
-    "family": "gram_attention",
     "artifact": None,
     "export_artifact": None,
     "export_platforms": None,
-    "transport": "rgb",
-    "remat": False,
     "recycle_after_requests": 0,
     "devices": None,
-    "profile_dir": None,
-    "debug_nans": False,
 }
 
 
@@ -50,7 +50,7 @@ def build_parser():
     parser = argparse.ArgumentParser(
         description="HTTP style-transfer job server with dynamic batching (PyTorch)")
     parser.add_argument("--family", choices=FAMILIES, default="gram_attention",
-                        help="gram_attention (multi_patchgan is not ported yet)")
+                        help="Texture mode's model family")
     parser.add_argument("--config_path", type=str, default=None,
                         help="Required unless --net is given")
     parser.add_argument("--model_path", type=str, default=None,
@@ -65,7 +65,9 @@ def build_parser():
                         help="Jobs per dispatch; a comma list ('4,8') serves several sizes "
                         "and each dispatch uses the smallest that fits the queued jobs")
     parser.add_argument("--transport", choices=["rgb", "yuv420"], default="rgb",
-                        help="rgb (yuv420 is not ported yet)")
+                        help="Pixel transport to and from the device: yuv420 ships planar "
+                        "I420 both ways (half the bytes, 4:2:0 chroma); clients still send "
+                        "and receive RGB")
     parser.add_argument("--max_delay_ms", type=float, default=200.0,
                         help="Flush deadline for a partially filled batch")
     parser.add_argument("--max_in_flight", type=int, default=2)
@@ -93,7 +95,9 @@ def build_parser():
                         help="Serve a trained feed-forward style network (style_net.npz): "
                         "each job is ONE forward pass; crop and the style names come from "
                         "its hyperparameters file")
-    parser.add_argument("--remat", action="store_true", help="Not ported yet")
+    parser.add_argument("--remat", action="store_true",
+                        help="Family 2: recompute each bottleneck's activations in the "
+                        "backward instead of keeping them (less memory, the same pixels)")
     parser.add_argument("--afficher_params", action="store_true")
     parser.add_argument("--max_seconds", type=float, default=None,
                         help="Exit after this many seconds (smoke tests)")
@@ -138,6 +142,7 @@ def _build_net_service(args, device, crop: int):
         num_iterations=1,
         max_delay_ms=args.max_delay_ms,
         max_in_flight=args.max_in_flight,
+        transport=args.transport,
         device=device,
     )
 
@@ -158,12 +163,38 @@ def _load_family2(args, device):
 
 
 def _build_gram_fn(args, device):
-    """Texture mode's per-image Gram program, family 2, precision applied."""
-    from ..tasks.style_transfer import make_gram_fn_gram_attention
+    """Texture mode's per-image Gram program of ``--family``, precision
+    applied (JAX ``:155-195``, its ``--layers`` error word for word)."""
+    dtype = resolve_compute_dtype(args.precision)
+    if args.family == "gram_attention":
+        from ..tasks.style_transfer import make_gram_fn_gram_attention
 
-    model, cfg = _load_family2(args, device)
-    return make_gram_fn_gram_attention(model, cfg.truncate_layer, layers=args.layers,
-                                       compute_dtype=resolve_compute_dtype(args.precision))
+        model, cfg = _load_family2(args, device)
+        return make_gram_fn_gram_attention(model, cfg.truncate_layer, layers=args.layers,
+                                           compute_dtype=dtype, remat=args.remat)
+    from ..checkpoint.convert import load_jax_tree
+    from ..config.schema import MultiPatchGANConfig
+    from ..models.multi_patchgan import SCALES, multiscale_test_init
+    from ..tasks.style_transfer import make_gram_fn_patches
+
+    if args.layers is not None:
+        raise ValueError(
+            "The reference's --layers truncation for PatchGAN style transfer "
+            "is non-functional upstream (functions_Multi_PatchGAN.py:242); "
+            "run without --layers."
+        )
+    cfg = MultiPatchGANConfig.from_json(args.config_path)
+    tree = load_checkpoint_tree(args.model_path, "multi_patchgan", cfg.to_dict())
+    if args.afficher_params:
+        print(f"Nombre total de paramètres du modèle : {count_params(tree)}")
+    # the test variant, its class count the checkpoint's (the Gram reads
+    # the embedding only)
+    num_classes = int(np.shape(tree[SCALES[0]]["classifier"]["kernel"])[-1])
+    model = load_jax_tree(
+        multiscale_test_init(None, cfg.patch_sizes, ndf=cfg.ndf, num_classes=num_classes,
+                             gram_matrix_dim=cfg.gram_matrix_dim, norm=cfg.norm, device=device),
+        tree)
+    return make_gram_fn_patches(model, cfg.gram_matrix_dim, norm=cfg.norm, compute_dtype=dtype)
 
 
 def _build_content_style_kwargs(args, device):
@@ -178,7 +209,8 @@ def _build_content_style_kwargs(args, device):
     model, cfg = _load_family2(args, device)
     extract_fn = make_extract_fn_gram_attention(
         model, cfg.truncate_layer, layers=args.layers,
-        compute_dtype=resolve_compute_dtype(args.precision), style_layers=args.style_layers)
+        compute_dtype=resolve_compute_dtype(args.precision), style_layers=args.style_layers,
+        remat=args.remat)
     styles = {}
     for spec in args.style_image:
         name, sep, path = spec.partition("=")
@@ -197,11 +229,7 @@ def build_service(args, crop: int = 224):
     from ..core.device import resolve_device
     from ..tasks.style_service import StyleTransferService
 
-    not_ported = dict(_NOT_PORTED)
-    if args.style_image and not args.net:
-        # --style_image answers a family other than gram_attention itself
-        del not_ported["family"]
-    check_ported(args, not_ported)
+    check_ported(args, _NOT_PORTED)
     resolve_compute_dtype(args.precision)
     device = resolve_device(args.device)
     if args.net:
@@ -223,6 +251,7 @@ def build_service(args, crop: int = 224):
         learning_rate=args.lr,
         max_in_flight=args.max_in_flight,
         seed=0,
+        transport=args.transport,
         device=device,
     )
 
@@ -256,7 +285,8 @@ def main(argv=None):
     except ValueError:
         previous = None  # not the main thread (programmatic use)
     try:
-        _serve(args, stop_requested)
+        with runtime_flags(args):
+            _serve(args, stop_requested)
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)

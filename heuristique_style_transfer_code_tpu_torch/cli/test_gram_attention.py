@@ -10,10 +10,13 @@ Ported: ``--mode classification`` (``classification_results.json``),
 ``--mode tsne`` (``tsne_visualization.png``), ``--mode tsne_interactive``
 (the Tk GUI, or the static plot without ``DISPLAY``) and ``--mode camera``
 (a camera or a video file, ``--classes`` required), with ``--precision
-float32|bf16``. The flags listed in ``_NOT_PORTED`` raise a "not ported
+float32|bf16``, ``--remat`` (style transfer), ``--steps_per_dispatch``
+(classification and the t-SNE modes), ``--profile_dir`` and
+``--debug_nans``. The flags listed in ``_NOT_PORTED`` raise a "not ported
 yet" error.
-``--model_path`` takes the JAX package's ``.npz`` or a reference ``.pth``
-(``checkpoint/pth_converter.py``).
+``--model_path`` takes the JAX package's ``.npz``, a reference ``.pth``
+(``checkpoint/pth_converter.py``) or a family-1 checkpoint, whose encoder
+is reused under a fresh gram/attention head.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -42,6 +45,7 @@ from ._common import (
     load_checkpoint_tree,
     maybe_subset,
     resolve_compute_dtype,
+    runtime_flags,
     weighted_auc_or_none,
 )
 
@@ -50,12 +54,8 @@ PORTED_MODES = ("classification", "style_transfer", "tsne", "tsne_interactive", 
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
-    "remat": False,
     "shard_spatial": 1,
     "devices": None,
-    "steps_per_dispatch": 1,
-    "profile_dir": None,
-    "debug_nans": False,
 }
 
 
@@ -92,7 +92,9 @@ def build_parser():
     parser.add_argument("--style_layers", choices=["last", "all"], default="last",
                         help="--style_image runs: match style Grams at the truncation point "
                         "only, or at every executed ResNet stage (same encoder pass)")
-    parser.add_argument("--remat", action="store_true", help="Not ported yet")
+    parser.add_argument("--remat", action="store_true",
+                        help="Style transfer: recompute each bottleneck's activations in the "
+                        "backward instead of keeping them (less memory, the same pixels)")
     parser.add_argument("--style_init", choices=["content", "noise"], default="content",
                         help="Pixel initialisation for --style_image runs: the content image "
                         "or normal noise like the texture loop")
@@ -105,9 +107,16 @@ def build_parser():
     parser.add_argument("--precision", choices=["float32", "bf16", "int8"], default="float32",
                         help="float32 or bf16 (int8 is not ported yet)")
     parser.add_argument("--devices", type=int, default=None, help="Not ported yet")
-    parser.add_argument("--profile_dir", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--debug_nans", action="store_true", help="Not ported yet")
-    parser.add_argument("--steps_per_dispatch", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="Write a torch.profiler Chrome trace of the run to this directory")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="Raise FloatingPointError at the first NaN of a forward or a "
+                        "backward (module outputs, losses, autograd's anomaly mode)")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="Évaluer K batches par aller-retour device (K batches envoyés "
+                        "ensemble, leurs K passes lancées à la suite, une seule lecture — "
+                        "résultats identiques). Incompatible avec --measure_time "
+                        "(times_test.json est par batch)")
     parser.add_argument("--calib_data", type=str, default=None)
     parser.add_argument("--qat_steps", type=int, default=0)
     parser.add_argument("--qat_lr", type=float, default=1e-4)
@@ -131,11 +140,6 @@ def load_gram_attention(model_path: str, truncate: int, num_classes: Optional[in
     the checkpoint's classifier."""
     if tree is None:
         tree = load_checkpoint_tree(model_path, "gram_attention", {})
-    if "encoder" not in tree and isinstance(tree.get("moco"), dict):
-        raise NotImplementedError(
-            "a family-1 checkpoint in the family-2 CLI (encoder reuse with a "
-            "fresh head) is not ported yet"
-        )
     if "encoder" not in tree:
         raise KeyError(
             f"Checkpoint {model_path} has no encoder for the gram-attention "
@@ -145,6 +149,25 @@ def load_gram_attention(model_path: str, truncate: int, num_classes: Optional[in
         num_classes = int(np.shape(tree["classifier"]["kernel"])[-1])
     model = gram_attention_init(None, truncate, num_classes, s, device=device)
     return load_jax_tree(model, tree)
+
+
+def family1_encoder_tree(tree, truncate: int, num_classes: int, s: int, seed: int):
+    """A family-1 ``{moco, classifier}`` tree -> a family-2 tree: its
+    encoder, and a fresh gram/attention head drawn from a CPU generator
+    seeded with ``seed``, through ``shape_filtered_update`` (JAX
+    ``:123-145``, the reference's encoder-only load; JAX draws the head
+    from ``jax.random``). Any other tree comes back unchanged."""
+    if "encoder" in tree or not isinstance(tree.get("moco"), dict):
+        return tree
+    from ..checkpoint.convert import to_jax_tree
+    from ..checkpoint.pth_converter import shape_filtered_update
+
+    init = gram_attention_init(torch.Generator().manual_seed(seed), truncate, num_classes, s,
+                               device="cpu")
+    tree = shape_filtered_update(to_jax_tree(init), {"encoder": tree["moco"].get("encoder", {})})
+    print("Family-1 checkpoint detected: loaded its encoder; gram/attention "
+          "head freshly initialised.")
+    return tree
 
 
 def run_classification(
@@ -157,28 +180,34 @@ def run_classification(
     num_classes: int,
     compute_dtype: Optional[torch.dtype] = None,
     compute_auc: bool = False,
+    steps_per_dispatch: int = 1,
 ) -> dict:
     """``--mode classification`` over any iterable of ``HostLoader``
     batches: weighted precision/recall/F1 (and AUC) of the valid entries,
-    written to ``save_dir/classification_results.json``."""
+    written to ``save_dir/classification_results.json``. Each batch's
+    argmax and probabilities come back in one fetch, or K batches' with
+    ``steps_per_dispatch`` K (``core/dispatch.py``), the same values."""
+    from ..core.dispatch import dispatched_eval_iter
     from ..data.augment import eval_preprocess
     from ..metrics.classification import weighted_precision_recall_f1
+
+    def step(images_u8):
+        images = eval_preprocess(images_u8)
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        _, logits = gram_attention_apply(model, images, truncate, gram_matrix_size, num_classes)
+        pr = torch.softmax(logits.float(), dim=-1)
+        return torch.cat([torch.argmax(logits, dim=-1, keepdim=True).float(), pr], dim=1)
 
     device = next(model.parameters()).device
     preds, labels, probs = [], [], []
     with torch.inference_mode():
-        for batch in loader:
-            images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
-            if compute_dtype is not None:
-                images = images.to(compute_dtype)
-            _, logits = gram_attention_apply(model, images, truncate, gram_matrix_size,
-                                             num_classes)
-            pr = torch.softmax(logits.float(), dim=-1).cpu().numpy()
-            p = torch.argmax(logits, dim=-1).cpu().numpy()
+        for batch, packed in dispatched_eval_iter(step, loader, device,
+                                                  steps_per_dispatch=steps_per_dispatch):
             n = batch["n_valid"]
-            preds.extend(p[:n].tolist())
+            preds.extend(packed[:n, 0].astype(np.int64).tolist())
             labels.extend(np.asarray(batch["label"])[:n].tolist())
-            probs.append(pr[:n])
+            probs.append(packed[:n, 1:])
 
     results = weighted_precision_recall_f1(labels, preds)
     if compute_auc:
@@ -194,6 +223,11 @@ def run_classification(
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    with runtime_flags(args):
+        _run(args)
+
+
+def _run(args) -> None:
     device = resolve_device(args.device)
     os.makedirs(args.save_dir, exist_ok=True)
 
@@ -203,7 +237,9 @@ def main(argv=None):
     truncate = cfg.truncate_layer
     s = cfg.gram_matrix_size
 
-    tree = load_checkpoint_tree(args.model_path, "gram_attention", cfg.to_dict())
+    tree = family1_encoder_tree(
+        load_checkpoint_tree(args.model_path, "gram_attention", cfg.to_dict()), truncate,
+        num_classes, s, cfg.seed or 0)
     if args.afficher_params:
         total = count_params(tree)
         print(f"Nombre total de paramètres du modèle (TruncatedResNet50_for_test) : {total}")
@@ -220,13 +256,14 @@ def main(argv=None):
     if args.mode == "classification":
         run_classification(model, loader, args.save_dir, truncate=truncate,
                            gram_matrix_size=s, num_classes=num_classes,
-                           compute_dtype=dtype, compute_auc=args.compute_auc)
+                           compute_dtype=dtype, compute_auc=args.compute_auc,
+                           steps_per_dispatch=args.steps_per_dispatch)
     elif args.mode in ("tsne", "tsne_interactive"):
         from ..tasks.embeddings import compute_embeddings_with_paths
 
         emb, labels, img_paths = compute_embeddings_with_paths(
             cast_forward(lambda m, images: apply_eval(m, images)[0], dtype), model, loader,
-            samples)
+            samples, steps_per_dispatch=args.steps_per_dispatch)
         if args.mode == "tsne":
             from ..tasks.tsne import perform_tsne
 
@@ -264,7 +301,7 @@ def main(argv=None):
             style_layers=args.style_layers, threshold=args.threshold,
             num_iterations=args.num_iterations, learning_rate=args.learning_rate,
             init=args.style_init, compute_dtype=dtype,
-            generator=torch.Generator().manual_seed(cfg.seed or 0),
+            generator=torch.Generator().manual_seed(cfg.seed or 0), remat=args.remat,
         )
     else:
         from ..tasks.style_transfer import style_transfer_gram_attention
@@ -274,7 +311,7 @@ def main(argv=None):
             layers=args.layers, threshold=args.threshold,
             num_iterations=args.num_iterations, learning_rate=args.learning_rate,
             truncate_layer=truncate, compute_dtype=dtype,
-            generator=torch.Generator().manual_seed(cfg.seed or 0),
+            generator=torch.Generator().manual_seed(cfg.seed or 0), remat=args.remat,
         )
 
 

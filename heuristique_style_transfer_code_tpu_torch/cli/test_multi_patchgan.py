@@ -15,8 +15,10 @@ with ``--precision float32|bf16``. ``--precision`` also sets the
 classification forward's dtype, where the JAX CLI's classification step
 runs float32 whatever it says. ``--model_path`` takes an ``.npz`` or a
 reference ``.pth`` of the test variant, or a train-variant tree, which is
-loaded partially as the JAX CLI loads it (``shape_filtered_update``). The
-flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
+loaded partially as the JAX CLI loads it (``shape_filtered_update``).
+``--steps_per_dispatch`` (classification and the t-SNE modes),
+``--profile_dir`` and ``--debug_nans`` run. The flags listed in
+``_NOT_PORTED`` raise a "not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -36,6 +38,7 @@ import torch
 from ..checkpoint.convert import to_jax_tree
 from ..config.schema import MultiPatchGANConfig
 from ..core.device import device_of, resolve_device
+from ..core.dispatch import dispatched_eval_iter
 from ..data.augment import eval_preprocess
 from ..data.imagefolder import ImageFolderIndex
 from ..data.loader import HostLoader
@@ -50,6 +53,7 @@ from ._common import (
     load_multi_patchgan,
     maybe_subset,
     resolve_compute_dtype,
+    runtime_flags,
     weighted_auc_or_none,
 )
 
@@ -60,9 +64,6 @@ PORTED_MODES = ("classification", "tsne", "tsne_interactive", "camera", "style_t
 _NOT_PORTED = {
     "shard_spatial": 1,
     "devices": None,
-    "steps_per_dispatch": 1,
-    "profile_dir": None,
-    "debug_nans": False,
 }
 
 
@@ -96,7 +97,11 @@ def build_parser():
                         help="Resize each frame on the device instead of downscaling it "
                         "on the host before the transfer")
     add_device_args(parser)
-    parser.add_argument("--steps_per_dispatch", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="Évaluer K batches par aller-retour device (K batches envoyés "
+                        "ensemble, leurs K passes lancées à la suite, une seule lecture — "
+                        "résultats identiques). Incompatible avec --measure_time "
+                        "(times_test.json est par batch)")
     return parser
 
 
@@ -107,28 +112,38 @@ def _check_ported(args) -> None:
 
 
 def evaluate(model, loader: Iterable[dict], *, gram_matrix_dim: int, norm: str,
-             compute_dtype: Optional[torch.dtype] = None, measure_time: bool = False) -> dict:
+             compute_dtype: Optional[torch.dtype] = None, measure_time: bool = False,
+             steps_per_dispatch: int = 1) -> dict:
     """``--mode classification``'s device loop over ``HostLoader`` batches:
     staged uint8 up, ``eval_preprocess``, the three scales, the f32 softmax;
     argmax and probabilities come back in one fetch a batch. With
-    ``measure_time`` one span a batch, from the upload to the fetch.
-    Returns the valid rows' preds, labels and probs, and the spans with
-    each batch's valid count."""
+    ``measure_time`` one span a batch, from the upload to the fetch;
+    otherwise ``steps_per_dispatch`` batches a round trip
+    (``core/dispatch.py``), the same values. Returns the valid rows' preds,
+    labels and probs, and the spans with each batch's valid count."""
     device = device_of(model)
     preds, labels, probs, spans = [], [], [], []
-    with torch.inference_mode():
-        for batch in loader:
+
+    def step(images_u8):
+        images = eval_preprocess(images_u8)
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        _, logits, _ = multiscale_test_apply(model, images, gram_matrix_dim, norm)
+        pr = torch.softmax(logits.float(), dim=-1)
+        return torch.cat([torch.argmax(logits, dim=-1, keepdim=True).float(), pr], dim=1)
+
+    def timed(batches):
+        for batch in batches:
             t0 = time.perf_counter()
-            images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
-            if compute_dtype is not None:
-                images = images.to(compute_dtype)
-            _, logits, _ = multiscale_test_apply(model, images, gram_matrix_dim, norm)
-            pr = torch.softmax(logits.float(), dim=-1)
-            packed = torch.cat([torch.argmax(logits, dim=-1, keepdim=True).float(), pr],
-                               dim=1).cpu().numpy()
+            packed = step(torch.from_numpy(np.asarray(batch["image"])).to(device)).cpu().numpy()
+            spans.append((time.perf_counter() - t0, batch["n_valid"]))
+            yield batch, packed
+
+    with torch.inference_mode():
+        outputs = (timed(loader) if measure_time else dispatched_eval_iter(
+            step, loader, device, steps_per_dispatch=steps_per_dispatch))
+        for batch, packed in outputs:
             n = batch["n_valid"]
-            if measure_time:
-                spans.append((time.perf_counter() - t0, n))
             preds.extend(packed[:n, 0].astype(np.int64).tolist())
             labels.extend(np.asarray(batch["label"])[:n].tolist())
             probs.append(packed[:n, 1:])
@@ -177,6 +192,11 @@ def write_classification_results(results: dict, save_dir: str) -> str:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    with runtime_flags(args):
+        _run(args)
+
+
+def _run(args) -> None:
     device = resolve_device(args.device)
     os.makedirs(args.save_dir, exist_ok=True)
 
@@ -230,7 +250,8 @@ def main(argv=None):
         from ..tasks.embeddings import compute_embeddings_with_paths
 
         emb, labels, img_paths = compute_embeddings_with_paths(
-            cast_forward(embed_fn, dtype), model, loader, samples)
+            cast_forward(embed_fn, dtype), model, loader, samples,
+            steps_per_dispatch=args.steps_per_dispatch)
         if args.mode == "tsne":
             from ..tasks.tsne import perform_tsne
 
@@ -244,8 +265,15 @@ def main(argv=None):
     else:
         from ..tasks.classification import plot_and_save_confusion_matrix
 
+        if args.steps_per_dispatch > 1 and args.measure_time:
+            raise SystemExit(
+                "--steps_per_dispatch > 1 dispatche K batches à la fois; le "
+                "temps par image ne peut pas être mesuré — utilisez "
+                "--steps_per_dispatch 1 avec --measure_time"
+            )
         res = evaluate(model, loader, gram_matrix_dim=gdim, norm=norm, compute_dtype=dtype,
-                       measure_time=args.measure_time)
+                       measure_time=args.measure_time,
+                       steps_per_dispatch=args.steps_per_dispatch)
         if res["spans"]:  # per-image average, as the reference's evaluate_model_test
             print(f"Temps moyen par image: {np.mean([t / max(n, 1) for t, n in res['spans']]):.6f}"
                   " secondes")

@@ -14,8 +14,10 @@ each saved image to ``save_dir/TensorBoard``),
 ``--mode tsne|tsne_interactive|clustering`` (``<model>_embeddings.json``,
 then ``tsne_plot.png``, the Tk GUI or its static fallback without
 ``DISPLAY``, or ``<class>_clustering_results.json``), ``--list_cameras``,
-``--precision float32|bf16``. The flags listed in ``_NOT_PORTED`` raise a
-"not ported yet" error.
+``--precision float32|bf16``, ``--steps_per_dispatch`` (classification,
+inference and the embedding modes), ``--profile_dir`` and
+``--debug_nans``. The flags listed in ``_NOT_PORTED`` raise a "not ported
+yet" error.
 ``--model_path`` takes the JAX package's ``.npz`` or a reference ``.pth``
 (``checkpoint/pth_converter.py``).
 
@@ -47,6 +49,7 @@ from ._common import (
     maybe_subset,
     resolve_class_names,
     resolve_compute_dtype,
+    runtime_flags,
 )
 
 MODES = ["classification", "tsne", "tsne_interactive", "camera", "inference", "clustering"]
@@ -56,8 +59,6 @@ PORTED_MODES = ("classification", "inference", "camera", "tsne", "tsne_interacti
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
     "devices": None,
-    "profile_dir": None,
-    "debug_nans": False,
 }
 
 
@@ -105,7 +106,11 @@ def build_parser():
     parser.add_argument("--num_workers", type=int, default=4,
                         help="Nombre de workers pour les DataLoader")
     add_device_args(parser, precisions=("float32", "bf16", "int8"))
-    parser.add_argument("--steps_per_dispatch", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="Évaluer K batches par aller-retour device (K batches envoyés "
+                        "ensemble, leurs K passes lancées à la suite, une seule lecture — "
+                        "résultats identiques). Incompatible avec --measure_time "
+                        "(times_test.json est par batch)")
     parser.add_argument("--calib_data", type=str, default=None)
     parser.add_argument("--qat_steps", type=int, default=0)
     parser.add_argument("--qat_lr", type=float, default=1e-4)
@@ -156,8 +161,11 @@ def main(argv=None):
     _check_ported(args)
     if args.mode == "inference":
         _inference_guards(args)
-    if args.steps_per_dispatch > 1:
-        raise NotImplementedError("--steps_per_dispatch is not ported yet")
+    with runtime_flags(args):
+        _run(args)
+
+
+def _run(args) -> None:
     writer = make_writer(args.tensorboard, args.save_dir, "TensorBoard")
 
     if args.list_cameras:
@@ -200,7 +208,8 @@ def main(argv=None):
 
         run_inference(forward_eval, model, args.inference_input, class_names, args.save_dir,
                       batch_size=args.batch_size, json_name=args.inference_json_name,
-                      measure_time=args.measure_time, num_workers=args.num_workers)
+                      measure_time=args.measure_time, num_workers=args.num_workers,
+                      steps_per_dispatch=args.steps_per_dispatch)
 
     elif args.mode == "classification":
         from ..tasks.classification import run_classification_test
@@ -222,6 +231,7 @@ def main(argv=None):
             save_test_images=args.save_test_images, compute_auc=args.compute_auc,
             gradcam_fn=gradcam_fn, save_gradcam_images=args.save_gradcam_images,
             colormap=args.colormap, writer=writer,
+            steps_per_dispatch=args.steps_per_dispatch,
         )
         print(
             f"Précision du test: {res['accuracy']}, Perte du test: {res['loss']}, "
@@ -234,7 +244,8 @@ def main(argv=None):
         from ..tasks.embeddings import compute_embeddings_with_paths
 
         samples, loader = make_loader()
-        emb, labels, img_paths = compute_embeddings_with_paths(embed_fn, model, loader, samples)
+        emb, labels, img_paths = compute_embeddings_with_paths(
+            embed_fn, model, loader, samples, steps_per_dispatch=args.steps_per_dispatch)
         write_embeddings_json(emb, labels, args.model_path, args.save_dir)
         if args.mode == "tsne":
             from ..tasks.tsne import perform_tsne

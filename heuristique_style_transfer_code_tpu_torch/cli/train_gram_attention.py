@@ -18,7 +18,9 @@ package's layout, which the ``test_gram_attention`` CLI of either package
 reads. ``--resume`` (with SIGTERM preemption, exit 0 and the resume hint),
 ``--async_checkpoint``, ``--lr_schedule``, ``--warmup_steps``,
 ``--min_lr_ratio``, ``--clip_grad_norm``, ``--label_smoothing``,
-``--early_stop``, ``--tensorboard`` and ``--precision float32|bf16`` run;
+``--early_stop``, ``--tensorboard``, ``--precision float32|bf16``,
+``--remat``, ``--grad_accum``, ``--steps_per_dispatch``, ``--profile_dir``
+and ``--debug_nans`` run;
 the flags of ``cli/_common.TRAIN_NOT_PORTED`` and ``--devices`` other than
 1 raise "not ported yet".
 
@@ -51,7 +53,9 @@ def build_parser():
     parser.add_argument("--freeze_layers", action="store_true", help="Freeze the encoder layers")
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--seed", type=int, default=None)
-    parser.add_argument("--steps_per_dispatch", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="Train steps launched back to back per host read of their "
+                        "losses: the same batches, draws, losses and weights as 1")
     add_device_args(parser)
     add_train_args(parser)
     return parser
@@ -100,11 +104,13 @@ def main(argv=None):
     from ..train.kfold import run_kfold
     from ..train.preemption import PreemptedError
     from ._common import (
+        apply_grad_accum,
         make_save_fn,
         make_writer,
         resolve_compute_dtype,
         resolve_lr_schedule,
         resolve_seed,
+        runtime_flags,
         signature_extra_from_args,
     )
 
@@ -129,7 +135,8 @@ def main(argv=None):
         cfg, num_classes, combos, pretrained=pretrained, freeze_encoder=args.freeze_layers,
         compute_dtype=resolve_compute_dtype(args.precision), lr_schedule=lr_schedule,
         clip_norm=clip_norm, label_smoothing=args.label_smoothing, ema_decay=args.ema_decay,
-        device=device)
+        remat=args.remat, device=device)
+    apply_grad_accum(args, setup, cfg.batch_size)
 
     def init_fn(fold):
         model, opt_state = setup.init(torch.Generator().manual_seed(seed + fold))
@@ -158,24 +165,25 @@ def main(argv=None):
         print(f"Fold {fold} hyperparameters saved to {hp_path}")
 
     try:
-        run_kfold(
-            dataset,
-            k_folds=args.k_folds,
-            seed=seed,
-            epochs=args.epochs,
-            batch_size=cfg.batch_size,
-            save_dir=args.save_dir,
-            hyperparameters=hyperparameters,
-            init_fn=init_fn,
-            save_fn=save_fn,
-            writer=writer,
-            steps_per_dispatch=args.steps_per_dispatch,
-            resume=args.resume,
-            async_checkpoint=args.async_checkpoint,
-            signature_extra=signature_extra_from_args(args),
-            early_stop=args.early_stop,
-            on_fold_end=on_fold_end,
-        )
+        with runtime_flags(args):
+            run_kfold(
+                dataset,
+                k_folds=args.k_folds,
+                seed=seed,
+                epochs=args.epochs,
+                batch_size=cfg.batch_size,
+                save_dir=args.save_dir,
+                hyperparameters=hyperparameters,
+                init_fn=init_fn,
+                save_fn=save_fn,
+                writer=writer,
+                steps_per_dispatch=args.steps_per_dispatch,
+                resume=args.resume,
+                async_checkpoint=args.async_checkpoint,
+                signature_extra=signature_extra_from_args(args),
+                early_stop=args.early_stop,
+                on_fold_end=on_fold_end,
+            )
     except PreemptedError as e:
         # the last completed epoch is on disk; the same command continues
         print(f"Preempted: {e}")

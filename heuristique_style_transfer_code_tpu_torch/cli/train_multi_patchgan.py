@@ -21,7 +21,9 @@ discriminators is ``instance_norm_fwd`` on the card and its gradient
 ``--resume`` (with SIGTERM preemption, exit 0 and the resume hint),
 ``--async_checkpoint``, ``--lr_schedule``, ``--warmup_steps``,
 ``--min_lr_ratio``, ``--clip_grad_norm``, ``--label_smoothing``,
-``--early_stop``, ``--tensorboard`` and ``--precision float32|bf16`` run;
+``--early_stop``, ``--tensorboard``, ``--precision float32|bf16``,
+``--remat``, ``--grad_accum``, ``--steps_per_dispatch``, ``--profile_dir``
+and ``--debug_nans`` run;
 the flags of ``cli/_common.TRAIN_NOT_PORTED`` and ``--devices`` other than
 1 raise "not ported yet". Each fold's fresh weights come from
 ``torch.Generator().manual_seed(seed + fold)``, not from ``jax.random``.
@@ -52,7 +54,9 @@ def build_parser():
                         help="Weights (.npz or .pth); shape-filtered partial load")
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--seed", type=int, default=None)
-    parser.add_argument("--steps_per_dispatch", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="Train steps launched back to back per host read of their "
+                        "losses: the same batches, draws, losses and weights as 1")
     add_device_args(parser)
     add_train_args(parser)
     return parser
@@ -73,12 +77,14 @@ def main(argv=None):
     from ..train.kfold import run_kfold
     from ..train.preemption import PreemptedError
     from ._common import (
+        apply_grad_accum,
         load_checkpoint_tree,
         make_save_fn,
         make_writer,
         resolve_compute_dtype,
         resolve_lr_schedule,
         resolve_seed,
+        runtime_flags,
         signature_extra_from_args,
     )
 
@@ -108,33 +114,35 @@ def main(argv=None):
         cfg, num_classes, [(None, None)], pretrained=pretrained,
         compute_dtype=resolve_compute_dtype(args.precision), lr_schedule=lr_schedule,
         clip_norm=clip_norm, label_smoothing=args.label_smoothing, ema_decay=args.ema_decay,
-        device=device)
+        remat=args.remat, device=device)
+    apply_grad_accum(args, setup, cfg.batch_size)
 
     def init_fn(fold):
         model, opt_state = setup.init(torch.Generator().manual_seed(seed + fold))
         return model, opt_state, setup.train_step, setup.eval_step
 
     try:
-        run_kfold(
-            dataset,
-            k_folds=args.k_folds,
-            seed=seed,
-            epochs=args.epochs,
-            batch_size=cfg.batch_size,
-            save_dir=args.save_dir,
-            hyperparameters=hyperparameters,
-            init_fn=init_fn,
-            save_fn=save_fn,
-            writer=writer,
-            steps_per_dispatch=args.steps_per_dispatch,
-            resume=args.resume,
-            async_checkpoint=args.async_checkpoint,
-            signature_extra=signature_extra_from_args(args),
-            early_stop=args.early_stop,
-            kfold_random_state=KFOLD_RANDOM_STATE,
-            save_every_fold=True,
-            performance_filename="retrained_performance.json",
-        )
+        with runtime_flags(args):
+            run_kfold(
+                dataset,
+                k_folds=args.k_folds,
+                seed=seed,
+                epochs=args.epochs,
+                batch_size=cfg.batch_size,
+                save_dir=args.save_dir,
+                hyperparameters=hyperparameters,
+                init_fn=init_fn,
+                save_fn=save_fn,
+                writer=writer,
+                steps_per_dispatch=args.steps_per_dispatch,
+                resume=args.resume,
+                async_checkpoint=args.async_checkpoint,
+                signature_extra=signature_extra_from_args(args),
+                early_stop=args.early_stop,
+                kfold_random_state=KFOLD_RANDOM_STATE,
+                save_every_fold=True,
+                performance_filename="retrained_performance.json",
+            )
     except PreemptedError as e:
         # the last completed epoch is on disk; the same command continues
         print(f"Preempted: {e}")

@@ -12,8 +12,8 @@ CLI's keys, which ``serve_style --net`` of either package serves.
 ``--resume``, ``--checkpoint_every``, ``--async_checkpoint``, SIGTERM
 preemption, ``--lr_schedule``, ``--warmup_steps``, ``--min_lr_ratio``,
 ``--clip_grad_norm``, ``--style_sampling``, ``--stylize_dir`` and
-``--precision float32|bf16`` run; ``--devices`` other than 1,
-``--profile_dir`` and ``--debug_nans`` raise "not ported yet".
+``--precision float32|bf16``, ``--profile_dir`` and ``--debug_nans`` run;
+``--devices`` other than 1 raises "not ported yet".
 
 The net's random init comes from ``torch.Generator().manual_seed(seed)``,
 not from ``jax.random``: the two packages start from different weights.
@@ -29,10 +29,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from ._common import add_device_args, check_ported
-
-# flag -> its default; any other value raises "not ported yet"
-_NOT_PORTED = {"profile_dir": None, "debug_nans": False}
+from ._common import add_device_args
 
 
 def build_parser():
@@ -109,7 +106,6 @@ def _content_samples(root: str):
 
 
 def _check_ported(args) -> None:
-    check_ported(args, _NOT_PORTED)
     if args.devices not in (None, 1):
         raise NotImplementedError("--devices (data-parallel training) is not ported yet; "
                                   "pass --devices 1 or leave it out")
@@ -169,7 +165,12 @@ def main(argv=None):
     )
     from ..tasks.style_transfer import make_extract_fn_gram_attention
     from ..train.preemption import PreemptedError
-    from ._common import load_checkpoint_tree, maybe_subset, resolve_compute_dtype
+    from ._common import (
+        load_checkpoint_tree,
+        maybe_subset,
+        resolve_compute_dtype,
+        runtime_flags,
+    )
     from .test_gram_attention import load_gram_attention
 
     device = resolve_device(args.device)
@@ -270,11 +271,13 @@ def main(argv=None):
     if args.resume:
         os.makedirs(args.save_dir, exist_ok=True)
     try:
-        if multi:
-            net, history = train_multi_style(net, extract_fn, loader, styles_u8, seed=args.seed,
-                                             style_sampling=args.style_sampling, **knobs)
-        else:
-            net, history = train_fast_style(net, extract_fn, loader, styles_u8[0], **knobs)
+        with runtime_flags(args):
+            if multi:
+                net, history = train_multi_style(net, extract_fn, loader, styles_u8,
+                                                 seed=args.seed,
+                                                 style_sampling=args.style_sampling, **knobs)
+            else:
+                net, history = train_fast_style(net, extract_fn, loader, styles_u8[0], **knobs)
     except PreemptedError as e:
         # the position is on disk; the same command with --resume continues
         print(f"Preempted: {e}")

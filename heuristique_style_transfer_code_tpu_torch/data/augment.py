@@ -415,7 +415,10 @@ def make_augment_fn(combos: Sequence[Tuple[Optional[str], Optional[str]]],
         ids = np.zeros(b, np.int64) if combo_ids is None else np.asarray(
             combo_ids.cpu() if torch.is_tensor(combo_ids) else combo_ids)
         draws = draws.cpu() if torch.is_tensor(draws) else draws
-        params = torch.as_tensor(augment_params(combos, ids, draws, h, w)).to(images_u8.device)
+        # non_blocking: the host array is staged at once, and the host does
+        # not wait for the steps already queued (``--steps_per_dispatch``)
+        params = torch.as_tensor(augment_params(combos, ids, draws, h, w)).to(
+            images_u8.device, non_blocking=True)
         img = images_u8.to(torch.float32) / 255.0
         if has_geom:
             img = warp(img, params[:, :_GEOM])

@@ -59,7 +59,7 @@ class GramAttention(nn.Module):
         self.truncate = truncate_layer
         self.gram_matrix_size = gram_matrix_size
         self.num_classes = num_classes
-        self.encoder = ResNet50Encoder(truncate_layer, generator, device, dtype)
+        self.encoder = ResNet50Encoder(min(truncate_layer, 9), generator, device, dtype)
         self.classifier = Linear(s2, num_classes, generator, device, dtype)
         self.attention = MultiheadAttention(s2, 1, generator, device, dtype)
 
@@ -90,12 +90,13 @@ def gram_attention_apply(
     truncate: int,
     gram_matrix_size: int,
     num_classes: int,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (N, H, W, 3) -> (embeddings (N, S²), logits (N, classes)), in
     the model's mode: eval, or train with the batch norms' running
-    buffers updated in place."""
+    buffers updated in place. ``remat`` checkpoints each bottleneck."""
     _, grams = resnet50_apply(model.encoder, x, truncate=min(truncate, 8),
-                              collect_grams=True, gram_pool_size=gram_matrix_size)
+                              collect_grams=True, gram_pool_size=gram_matrix_size, remat=remat)
     return _gram_head(model, grams, x, gram_matrix_size, num_classes)
 
 

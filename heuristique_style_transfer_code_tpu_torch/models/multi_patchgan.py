@@ -67,17 +67,18 @@ def multiscale_init(
 
 
 def multiscale_apply(model: MultiScaleDiscriminator, x: torch.Tensor, norm: str = "batch",
-                     train: Optional[bool] = None) -> torch.Tensor:
+                     train: Optional[bool] = None, remat: bool = False) -> torch.Tensor:
     """x: (N, H, W, 3) -> logits (N, classes), the mean of the three
     scales', each scale on x downsampled once more than the one before.
-    ``train`` sets the model's mode first (None keeps it)."""
+    ``train`` sets the model's mode first (None keeps it); ``remat``
+    checkpoints each strided unit (JAX ``:47-52``)."""
     if train is not None:
         model.train(train)
     outs = []
     for i, scale in enumerate(SCALES):
         if i:
             x = avg_pool2d(x, 3, 2, 1, count_include_pad=False)
-        outs.append(patch_discriminator_apply(getattr(model, scale), x, norm))
+        outs.append(patch_discriminator_apply(getattr(model, scale), x, norm, remat))
     return torch.stack(outs).mean(dim=0)
 
 

@@ -31,7 +31,7 @@ class TruncatedMoCo(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.truncate = truncate_layer
-        self.encoder = ResNet50Encoder(truncate_layer, generator, device, dtype)
+        self.encoder = ResNet50Encoder(min(truncate_layer, 9), generator, device, dtype)
         self.fc = Linear(truncated_feature_channels(truncate_layer), dim, generator, device,
                          dtype)
 
@@ -86,9 +86,11 @@ def truncated_resnet50_init(generator: Optional[torch.Generator], truncate_layer
                              resolve_device(device), dtype).eval()
 
 
-def truncated_moco_apply(moco: TruncatedMoCo, x: torch.Tensor, truncate: int) -> torch.Tensor:
-    """x: (N, H, W, 3) NHWC -> embeddings (N, dim), in the module's mode."""
-    feats, _ = resnet50_apply(moco.encoder, x, truncate=min(truncate, 9))
+def truncated_moco_apply(moco: TruncatedMoCo, x: torch.Tensor, truncate: int,
+                         remat: bool = False) -> torch.Tensor:
+    """x: (N, H, W, 3) NHWC -> embeddings (N, dim), in the module's mode;
+    ``remat`` checkpoints each bottleneck."""
+    feats, _ = resnet50_apply(moco.encoder, x, truncate=min(truncate, 9), remat=remat)
     if truncate <= 8:
         feats = global_avg_pool(feats)
     return moco.fc(feats)
@@ -99,9 +101,11 @@ def classifier_apply(classifier: Classifier, x: torch.Tensor) -> torch.Tensor:
 
 
 def combined_apply(moco: TruncatedMoCo, classifier: Classifier, x: torch.Tensor,
-                   truncate: int, train: Optional[bool] = None) -> torch.Tensor:
+                   truncate: int, train: Optional[bool] = None,
+                   remat: bool = False) -> torch.Tensor:
     """x: (N, H, W, 3) -> logits (N, num_classes). ``train`` sets the
-    encoder's mode first (its batch norms'); None keeps it."""
+    encoder's mode first (its batch norms'); None keeps it. ``remat``
+    checkpoints each bottleneck (JAX ``:53-80``)."""
     if train is not None:
         moco.train(train)
-    return classifier_apply(classifier, truncated_moco_apply(moco, x, truncate))
+    return classifier_apply(classifier, truncated_moco_apply(moco, x, truncate, remat))

@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.remat import remat_call
 from ..models.gram_attention import MultiheadAttention
 from ..ops.conv import conv2d
 from ..ops.gram import gram_matrix_ncl
@@ -122,13 +123,19 @@ def _conv_norm_lrelu(layer: FeatureLayer, x: torch.Tensor, stride: int, norm: st
 
 
 def patch_discriminator_apply(model: PatchDiscriminator, x: torch.Tensor,
-                              norm: str = "instance") -> torch.Tensor:
+                              norm: str = "instance", remat: bool = False) -> torch.Tensor:
     """x: (N, H, W, 3) -> logits (N, num_classes) in x's dtype, the spatial
     mean of the out conv's map taken in f32, in the module's mode: in train
     mode the batch norms normalise by the batch and update their running
-    buffers in place."""
+    buffers in place. ``remat`` checkpoints each strided unit (JAX
+    ``:109-120``; the early full-resolution units hold most of the
+    activations), so its conv, norm and LeakyReLU run again in the
+    backward."""
     for layer in model.convs:
-        x = _conv_norm_lrelu(layer, x, 2, norm)
+        if remat:
+            x = remat_call(_conv_norm_lrelu, layer, x, 2, norm)
+        else:
+            x = _conv_norm_lrelu(layer, x, 2, norm)
     x = _conv_norm_lrelu(model.final, x, 1, norm)
     x = conv2d(x, model.out_conv.weight, 1, 1, model.out_conv.bias)
     return x.float().mean(dim=(1, 2)).to(x.dtype)

@@ -3,14 +3,16 @@
 
 Child index map (torchvision resnet50.children() order):
     0 conv1   1 bn1   2 relu   3 maxpool
-    4 layer1  5 layer2  6 layer3  7 layer4   8 avgpool
+    4 layer1  5 layer2  6 layer3  7 layer4   8 avgpool   9 fc
 
 The module tree mirrors the JAX parameter tree, so the weight bridge
 (``checkpoint/convert.py``) is a renaming: ``layer2.1.conv3.weight`` is
 ``params["layer2"][1]["conv3"]["kernel"]``. Only the children a truncation
-uses exist (``_prune_encoder``). Activations are NHWC tensors whose storage
-is ``channels_last`` (``ops/conv.py``), which is what lets the Gram kernels
-read each stage output with no copy.
+uses exist (``_prune_encoder``); the fc child only in the whole network
+(truncate 10), as in the JAX ``resnet50_init`` tree. Activations are NHWC
+tensors whose storage is ``channels_last`` (``ops/conv.py``), which is what
+lets the Gram kernels read each stage output with no copy. ``remat``
+recomputes each bottleneck in the backward (``core/remat.py``).
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.remat import remat_call
 from ..ops.conv import conv2d, max_pool2d
 from ..ops.gram import gram_matrix_nhwc, pooled_gram_nhwc
+from ..ops.linear import Linear
 from ..ops.norm import batch_norm
 from ..ops.pooling import global_avg_pool
 
@@ -132,14 +136,15 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50Encoder(nn.Module):
-    """The children [0:truncate] of ResNet50 (truncate 0..9); the avgpool
-    child (9) holds no parameters. Its batch norms follow the module's
-    ``.train()``/``.eval()`` mode."""
+    """The children [0:truncate] of ResNet50 (truncate 0..10); the avgpool
+    child (9) holds no parameters, the fc child (10: the whole network)
+    maps the pooled 2048 features to ``num_classes``. Its batch norms
+    follow the module's ``.train()``/``.eval()`` mode."""
 
     def __init__(self, truncate_layer: int, generator: Optional[torch.Generator] = None,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, num_classes: int = 1000):
         super().__init__()
-        self.truncate = min(truncate_layer, 9)
+        self.truncate = min(truncate_layer, 10)
         builders = {
             "conv1": lambda: Conv2d(3, 64, 7, 2, 3, generator, device, dtype),
             "bn1": lambda: BatchNorm(64, device, dtype),
@@ -156,6 +161,8 @@ class ResNet50Encoder(nn.Module):
             cin = width * EXPANSION
         for name, build in _prune_encoder(builders, self.truncate).items():
             self.add_module(name, build())
+        if self.truncate >= 10:
+            self.fc = Linear(cin, num_classes, generator, device, dtype)
 
     def forward(self, x, collect_grams: bool = False, gram_pool_size: Optional[int] = None):
         return resnet50_apply(self, x, self.truncate, collect_grams, gram_pool_size)
@@ -167,19 +174,24 @@ def resnet50_apply(
     truncate: int = 8,
     collect_grams: bool = False,
     gram_pool_size: Optional[int] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Run children [0:truncate] on x (N, H, W, 3).
 
-    Returns (features, grams): NHWC features, or (N, 2048) at truncate 9,
-    whose avgpool child is the global average pool. ``collect_grams``: one
-    Gram per executed stage (layer1..layer4); ``gram_pool_size``: the
-    (S, S) pooled Gram instead of the (C, C) one. Both Grams are
-    differentiable. In train mode (``encoder.train()``) the batch norms
-    normalise by the batch and update their running buffers in place
-    (``nn/resnet.py:162-224``)."""
+    Returns (features, grams): NHWC features, (N, 2048) at truncate 9,
+    whose avgpool child is the global average pool, or the fc child's
+    (N, num_classes) at truncate 10 (an encoder built with truncate 10).
+    ``collect_grams``: one Gram per executed stage (layer1..layer4);
+    ``gram_pool_size``: the (S, S) pooled Gram instead of the (C, C) one.
+    Both Grams are differentiable. In train mode (``encoder.train()``) the
+    batch norms normalise by the batch and update their running buffers in
+    place (``nn/resnet.py:162-224``). ``remat`` checkpoints each bottleneck
+    (JAX ``:135-139``): the stage outputs, where the Grams are taken, are
+    block boundaries and are kept either way."""
     grams: List[torch.Tensor] = []
-    if truncate > 9:
-        raise NotImplementedError("truncate 10 (the fc child) is not ported yet")
+    if truncate >= 10 and not hasattr(encoder, "fc"):
+        raise ValueError("truncate 10 runs the fc child: build the encoder with "
+                         "truncate_layer 10")
     if truncate < 1:
         return x, grams
     # a contiguous NHWC input is the channels_last layout the convs run in
@@ -194,7 +206,7 @@ def resnet50_apply(
         if truncate <= 4 + i:
             break
         for block in getattr(encoder, name):
-            h = block(h)
+            h = remat_call(block, h) if remat else block(h)
         if collect_grams:
             if gram_pool_size is not None:
                 grams.append(pooled_gram_nhwc(h, gram_pool_size))
@@ -202,4 +214,6 @@ def resnet50_apply(
                 grams.append(gram_matrix_nhwc(h))
     if truncate >= 9:
         h = global_avg_pool(h)
+    if truncate >= 10:
+        h = encoder.fc(h)
     return h, grams

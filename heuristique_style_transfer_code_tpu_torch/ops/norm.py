@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.remat import recomputing
 from .kernels.instance_norm import InstanceNormFunction
 
 EPS = 1e-5
@@ -35,8 +36,12 @@ def batch_norm(
     taken unbiased (n = N*H*W). That is ``F.batch_norm``, a library call
     as the XLA ops were in JAX: on the channels_last view of x, statistics
     and arithmetic in f32 for f32 and bf16 inputs (f64 stays f64), the
-    output in x's dtype and the f32 running buffers kept f32."""
+    output in x's dtype and the f32 running buffers kept f32. While a remat
+    block is recomputed for its backward (``core/remat.py``) the update
+    goes to copies of the buffers, so a step updates them once."""
     if train:
+        if recomputing():
+            mean, var = mean.clone(), var.clone()
         y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias, training=True,
                          momentum=MOMENTUM, eps=eps)
         return y.permute(0, 2, 3, 1)

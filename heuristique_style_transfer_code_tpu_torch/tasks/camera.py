@@ -75,6 +75,30 @@ def rgb_to_yuv420(rgb: np.ndarray) -> np.ndarray:
     return cv2.cvtColor(rgb, cv2.COLOR_RGB2YUV_I420)
 
 
+def rgb_to_yuv420_device(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """RGB (..., H, W, 3) uint8 -> planar I420 (..., H*3//2, W) uint8 on
+    the tensor's device (JAX ``:76-97``): BT.601 studio swing, the
+    convention of cv2's ``COLOR_RGB2YUV_I420`` and of
+    ``yuv420_to_rgb_device``, so the result decodes with cv2's
+    ``COLOR_YUV2RGB_I420``; chroma the mean of each 2x2 block; rounded
+    (half to even) and clipped. Leading dimensions are frames; H and W
+    even, and W a multiple of 4 where H // 4 chroma rows must hold a
+    plane. The style service packs its results with it."""
+    lead, (h, w) = rgb_u8.shape[:-3], rgb_u8.shape[-3:-1]
+    rgbf = rgb_u8.to(torch.float32)
+    r, g, b = rgbf[..., 0], rgbf[..., 1], rgbf[..., 2]
+    y = 16.0 + 0.256788 * r + 0.504129 * g + 0.097906 * b
+    u = 128.0 - 0.148223 * r - 0.290993 * g + 0.439216 * b
+    v = 128.0 + 0.439216 * r - 0.367788 * g - 0.071427 * b
+
+    def subsample(p):  # (..., H, W) -> (..., H//4, W): the 2x2 means, row-packed
+        return p.reshape(*lead, h // 2, 2, w // 2, 2).mean(dim=(-3, -1)).reshape(*lead,
+                                                                                 h // 4, w)
+
+    packed = torch.cat([y, subsample(u), subsample(v)], dim=-2)
+    return torch.clamp(torch.round(packed), 0.0, 255.0).to(torch.uint8)
+
+
 def yuv420_to_rgb_device(yuv: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Planar I420 (..., H*3//2, W) uint8 -> float RGB (..., H, W, 3) in
     [0, 1], BT.601 studio swing (Y in [16, 235]), the convention of cv2's

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.device import device_of
+from ..core.dispatch import dispatched_eval_iter
 from ..data.augment import eval_preprocess
 from ..metrics.classification import Timer, classification_metrics, weighted_auc_ovr
 
@@ -69,6 +70,7 @@ def evaluate_classification(
     prob_threshold: float = 0.5,
     measure_time: bool = False,
     compute_auc: bool = False,
+    steps_per_dispatch: int = 1,
 ) -> Dict:
     """The device loop over ``HostLoader`` batches. Per batch: staged uint8
     to the device, ``eval_preprocess``, ``forward_eval(model, images)``,
@@ -76,7 +78,8 @@ def evaluate_classification(
     range: pad rows carry -1), the probabilities; loss and probabilities
     come back in one fetch. The loss is the mean over a batch's valid rows,
     then over batches. With ``measure_time`` one span a batch, from the
-    upload to the fetch.
+    upload to the fetch; otherwise ``steps_per_dispatch`` batches go up
+    and come back together (``core/dispatch.py``), with the same values.
 
     Returns accuracy, loss, precision, recall, f1, confusion_matrix, auc,
     preds (thresholded), targets, probs, the ``timer``, and ``rows``:
@@ -87,20 +90,27 @@ def evaluate_classification(
     total = correct = n_batches = 0
     total_loss = 0.0
     preds_all, targets_all, probs_all, rows = [], [], [], []
-    with torch.inference_mode():
-        for bi, batch in enumerate(loader):
-            if measure_time:
-                timer.start()
-            images_u8 = torch.from_numpy(np.asarray(batch["image"])).to(device)
-            labels_d = torch.from_numpy(np.asarray(batch["label"], dtype=np.int64)).to(device)
-            logits = forward_eval(model, eval_preprocess(images_u8))
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            safe = labels_d.clamp(0, logits.shape[-1] - 1)
-            loss = -torch.gather(logp, 1, safe[:, None])
-            packed = torch.cat([loss, torch.exp(logp)], dim=1).cpu().numpy()
-            if measure_time:
-                timer.stop()
 
+    def step(images_u8, labels_d):
+        logits = forward_eval(model, eval_preprocess(images_u8))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        safe = labels_d.long().clamp(0, logits.shape[-1] - 1)
+        loss = -torch.gather(logp, 1, safe[:, None])
+        return torch.cat([loss, torch.exp(logp)], dim=1)
+
+    def timed(batches):
+        for batch in batches:
+            timer.start()
+            packed = step(*(torch.from_numpy(np.asarray(batch[key])).to(device)
+                            for key in ("image", "label"))).cpu().numpy()
+            timer.stop()
+            yield batch, packed
+
+    with torch.inference_mode():
+        outputs = (timed(loader) if measure_time else dispatched_eval_iter(
+            step, loader, device, input_keys=("image", "label"),
+            steps_per_dispatch=steps_per_dispatch))
+        for bi, (batch, packed) in enumerate(outputs):
             n = batch["n_valid"]
             labels = np.asarray(batch["label"])[:n]
             probs = packed[:n, 1:]
@@ -237,19 +247,27 @@ def run_classification_test(
     confusion_matrix.png, auc_score.txt, times_test.json). ``gradcam_fn``
     and ``writer`` act only under ``save_test_images``, once per saved
     image (``write_test_images``), after the device loop has left
-    ``torch.inference_mode``. Returns the JAX function's dict (``loss``
-    formatted "%.4f")."""
+    ``torch.inference_mode``. ``steps_per_dispatch`` K: K batches a
+    device round trip, the same results (exclusive with ``measure_time``,
+    JAX's ValueError). Returns the JAX function's dict (``loss`` formatted
+    "%.4f")."""
     if mesh is not None:
         raise NotImplementedError("a data-parallel mesh is not ported yet")
-    if steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
+    steps_per_dispatch = max(1, int(steps_per_dispatch))
+    if steps_per_dispatch > 1 and measure_time:
+        raise ValueError(
+            "steps_per_dispatch > 1 dispatches K batches at a time, so the "
+            "per-batch times_test.json cannot be measured; use "
+            "steps_per_dispatch=1 with measure_time"
+        )
     os.makedirs(save_dir, exist_ok=True)
     for cls in class_names:
         os.makedirs(os.path.join(save_dir, cls), exist_ok=True)
 
     res = evaluate_classification(forward_eval, model, loader, len(class_names),
                                   prob_threshold=prob_threshold, measure_time=measure_time,
-                                  compute_auc=compute_auc)
+                                  compute_auc=compute_auc,
+                                  steps_per_dispatch=steps_per_dispatch)
     if save_test_images:
         write_test_images(res, samples, class_names, save_dir, model=model,
                           gradcam_fn=gradcam_fn, save_gradcam_images=save_gradcam_images,

@@ -4,7 +4,8 @@ image paths taken from the loader's own sample order, once each).
 
 One loop on the model's device: a batch's staged uint8 goes up once,
 ``eval_preprocess`` and ``embed_fn`` run there, the embeddings come back in
-one fetch a batch (as float32: numpy has no bfloat16)."""
+one fetch a batch (as float32: numpy has no bfloat16), or K batches a
+round trip with ``steps_per_dispatch`` K (``core/dispatch.py``)."""
 from __future__ import annotations
 
 from typing import Callable, List, Tuple
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.device import device_of
+from ..core.dispatch import dispatched_eval_iter
 from ..data.augment import eval_preprocess
 
 
@@ -26,18 +28,19 @@ def compute_embeddings_with_paths(
 ) -> Tuple[np.ndarray, np.ndarray, List[str]]:
     """``embed_fn(model, images)`` -> embeddings over every ``HostLoader``
     batch, pad rows trimmed (``n_valid``). Returns (embeddings (N, D),
-    labels (N,), img_paths) in the loader's sample order. A data-parallel
-    ``mesh`` and ``steps_per_dispatch > 1`` are not ported yet."""
+    labels (N,), img_paths) in the loader's sample order, the same for
+    any ``steps_per_dispatch``. A data-parallel ``mesh`` is not ported
+    yet."""
     if mesh is not None:
         raise NotImplementedError("a data-parallel mesh is not ported yet")
-    if steps_per_dispatch > 1:
-        raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
-    device = device_of(model)
     all_emb, all_labels, img_paths = [], [], []
+
+    def step(images_u8):
+        return embed_fn(model, eval_preprocess(images_u8)).float()
+
     with torch.inference_mode():
-        for batch in loader:
-            images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
-            emb = embed_fn(model, images).float().cpu().numpy()
+        for batch, emb in dispatched_eval_iter(step, loader, device_of(model),
+                                               steps_per_dispatch=steps_per_dispatch):
             n = batch["n_valid"]
             all_emb.append(emb[:n])
             all_labels.append(np.asarray(batch["label"])[:n])

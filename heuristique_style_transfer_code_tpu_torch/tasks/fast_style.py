@@ -42,6 +42,7 @@ from ..nn.transformer_net import (
     transformer_net_init,
 )
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.debug import check_nan
 from .style_transfer import ADAM_B1, ADAM_B2, ADAM_EPS, total_variation
 
 
@@ -449,6 +450,7 @@ def _drive_net_training(
                 net, opt_state, loss = dispatch(net, opt_state, images_u8, seen)
                 seen += 1
                 k += 1
+                check_nan("the style net's loss", loss)  # reads it under --debug_nans only
                 if seen % int(log_every) == 0 or seen == 1:
                     lv = float(loss)
                     history.append(lv)

@@ -55,13 +55,17 @@ def run_inference(
     """Gather, run each batch, write ``save_dir/json_name`` (num_images,
     classes, predictions, and with ``measure_time`` the timing block: one
     span a batch from the upload to the probabilities on the host; the
-    loader's decode stays outside). Returns the JSON's dict."""
+    loader's decode stays outside). Without ``measure_time``,
+    ``steps_per_dispatch`` batches go up and come back together
+    (``core/dispatch.py``; the CLI refuses the two together). Returns the
+    JSON's dict. A data-parallel ``mesh`` is not ported yet."""
     from ..core.device import device_of
+    from ..core.dispatch import dispatched_eval_iter
     from ..data.augment import eval_preprocess
     from ..data.loader import HostLoader
 
-    if mesh is not None or steps_per_dispatch > 1:
-        raise NotImplementedError("a mesh and steps_per_dispatch > 1 are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("a data-parallel mesh is not ported yet")
     image_paths = gather_inference_images(input_path)
     if len(image_paths) == 0:
         raise ValueError(f"Aucune image trouvée dans : {input_path}")
@@ -74,15 +78,23 @@ def run_inference(
     results: List[dict] = []
     total_time = 0.0
     total_images = 0
-    with torch.inference_mode():
-        for batch in loader:
+
+    def step(images_u8):
+        return torch.softmax(forward_eval(model, eval_preprocess(images_u8)).float(), dim=-1)
+
+    def timed(batches):
+        nonlocal total_time
+        for batch in batches:
             t0 = time.perf_counter()
-            images = eval_preprocess(torch.from_numpy(batch["image"]).to(device))
-            logits = forward_eval(model, images)
-            probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
-            elapsed = time.perf_counter() - t0
+            probs = step(torch.from_numpy(batch["image"]).to(device)).cpu().numpy()
+            total_time += time.perf_counter() - t0
+            yield batch, probs
+
+    with torch.inference_mode():
+        outputs = (timed(loader) if measure_time else dispatched_eval_iter(
+            step, loader, device, steps_per_dispatch=steps_per_dispatch))
+        for batch, probs in outputs:
             n = batch["n_valid"]
-            total_time += elapsed
             total_images += n
             for row in probs[:n]:
                 pred_idx = int(np.argmax(row))

@@ -26,7 +26,14 @@ Three modes:
   image (``init="content"``) or from the job's noise, is optimised by
   ``make_content_style_optimizer``.
 
-``transport="yuv420"`` is not ported yet and raises.
+``transport="yuv420"`` (JAX ``:198-211``, ``:345-386``) halves the pixel
+bytes both ways: a job arrives as planar I420 (crop * 3/2, crop), packed
+on the host by cv2 at submit, is unpacked on the device
+(``camera.yuv420_to_rgb_device``, rounded back to uint8) before the mode's
+job, and the stylised uint8 canvas is packed to I420 on the device
+(``camera.rgb_to_yuv420_device``) before the fetch; the fetcher turns it
+back into RGB with cv2, so clients send and receive RGB whatever the
+transport. 4:2:0 chroma is lossy; the transport is opt-in.
 """
 from __future__ import annotations
 
@@ -45,7 +52,12 @@ import torch
 from ..core.device import resolve_device
 from ..data.augment import eval_preprocess
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
-from .camera import downscale_frame
+from .camera import (
+    downscale_frame,
+    rgb_to_yuv420,
+    rgb_to_yuv420_device,
+    yuv420_to_rgb_device,
+)
 from .style_transfer import make_content_style_optimizer, make_style_transfer_optimizer
 
 
@@ -154,8 +166,10 @@ class StyleTransferService:
         transport: str = "rgb",
         device="cuda",
     ):
-        if transport != "rgb":
-            raise NotImplementedError(f"transport={transport!r} is not ported yet (rgb only)")
+        if transport not in ("rgb", "yuv420"):
+            raise ValueError(f"transport must be 'rgb' or 'yuv420', got {transport!r}")
+        if transport == "yuv420" and int(crop) % 4:
+            raise ValueError("yuv420 transport needs crop % 4 == 0")
         self.transport = transport
         if sum(f is not None for f in (gram_fn, extract_fn, job_fn)) != 1:
             raise ValueError("pass exactly one of gram_fn (texture mode), extract_fn "
@@ -244,6 +258,19 @@ class StyleTransferService:
             self._jobs_by_size = jobs_by_size
         else:
             self._jobs_by_size = {s: job_fn for s in sizes}
+        if transport == "yuv420":
+            c = self.crop
+
+            def with_yuv_transport(inner):
+                def yuv_job(yuv_u8, style_w, job_ids):
+                    yuv = torch.as_tensor(yuv_u8).to(self.device)
+                    rgb_u8 = torch.round(yuv420_to_rgb_device(yuv, c, c) * 255.0).to(torch.uint8)
+                    out_u8, iters, per_loss = inner(rgb_u8, style_w, job_ids)
+                    return rgb_to_yuv420_device(out_u8), iters, per_loss
+
+                return yuv_job
+
+            self._jobs_by_size = {s: with_yuv_transport(f) for s, f in self._jobs_by_size.items()}
 
         self._next_id = 0
         self._id_lock = threading.Lock()
@@ -283,19 +310,22 @@ class StyleTransferService:
         if self._iterative:
             return
         width = max(1, len(self.style_names))
+        c = self.crop
+        tail = (c * 3 // 2, c) if self.transport == "yuv420" else (c, c, 3)
         for b in self.batch_sizes:
             w = np.zeros((b, width), np.float32)
             w[:, 0] = 1.0
-            out = self._jobs_by_size[b](np.zeros((b, self.crop, self.crop, 3), np.uint8), w,
+            out = self._jobs_by_size[b](np.zeros((b,) + tail, np.uint8), w,
                                         np.zeros((b,), np.int32))
             out[0].cpu()
 
     def submit(self, image: np.ndarray, style=None) -> Future:
         """Submit one RGB uint8 image; returns a Future resolving to a
         StyleJobResult. Images larger than (crop, crop) are downscaled in
-        the caller's thread. ``style`` picks a gallery style by name or
-        blends several with a ``{name: weight}`` mapping; texture mode
-        takes no style."""
+        the caller's thread (and packed to I420 there under the yuv420
+        transport). ``style`` picks a gallery style by name or blends
+        several with a ``{name: weight}`` mapping; texture mode takes no
+        style."""
         if self._stop.is_set():
             raise RuntimeError("service is stopped")
         if self.style_names:
@@ -305,6 +335,8 @@ class StyleTransferService:
         else:
             style_w = np.zeros((1,), np.float32)
         image = _to_canvas(image, self.crop)
+        if self.transport == "yuv420":
+            image = rgb_to_yuv420(image)  # (crop*3//2, crop), host cv2
         with self._id_lock:
             job_id = self._next_id
             self._next_id += 1
@@ -457,6 +489,12 @@ class StyleTransferService:
                 pixels = pixels.cpu().numpy()  # waits for the batch's kernels
                 iters = int(iters)
                 per_loss = torch.as_tensor(per_loss).cpu().numpy()
+                if self.transport == "yuv420":
+                    # back to RGB on the host, inside this try: a decode
+                    # failure answers the batch instead of killing the thread
+                    import cv2
+
+                    pixels = np.stack([cv2.cvtColor(p, cv2.COLOR_YUV2RGB_I420) for p in pixels])
             except Exception as e:
                 self._fail(futures, e)
                 continue

@@ -40,6 +40,7 @@ import torch
 
 from ..ops.gram import gram_matrix_nhwc
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.debug import check_nan
 from ..utils.png import float_to_uint8, write_png
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -79,6 +80,7 @@ def _masked_adam(per_image_loss: Callable[[torch.Tensor], torch.Tensor],
         per = per_image_loss(x)
         (grad,) = torch.autograd.grad((per * active.to(per.dtype)).sum(), x)
         per = per.detach()
+        check_nan("the style loop's loss", per)  # reads it under --debug_nans only
         with torch.no_grad():
             mu.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
             nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
@@ -134,10 +136,13 @@ def make_feature_fn_gram_attention(
     truncate_layer: int = 8,
     layers: Optional[int] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Truncated-encoder features ``images (B, H, W, 3) -> (B, h, w, C)``.
     ``layers`` truncates the encoder's child list like the reference's
-    Sequential slice. In bf16 the encoder is a bf16 copy of the model's."""
+    Sequential slice. In bf16 the encoder is a bf16 copy of the model's.
+    ``remat`` checkpoints each bottleneck: the loop's backward recomputes
+    the blocks' insides instead of keeping them (JAX ``:165-211``)."""
     from ..nn.resnet import resnet50_apply
 
     truncate = min(layers if layers is not None else truncate_layer, truncate_layer, 8)
@@ -146,7 +151,7 @@ def make_feature_fn_gram_attention(
     def feature_fn(images):
         if compute_dtype is not None:
             images = images.to(compute_dtype)
-        feats, _ = resnet50_apply(enc, images, truncate=truncate)
+        feats, _ = resnet50_apply(enc, images, truncate=truncate, remat=remat)
         return feats
 
     return feature_fn
@@ -158,6 +163,7 @@ def make_extract_fn_gram_attention(
     layers: Optional[int] = None,
     compute_dtype: Optional[torch.dtype] = None,
     style_layers: str = "last",
+    remat: bool = False,
 ) -> Callable[[torch.Tensor], tuple]:
     """Content+style extraction, one encoder pass: ``images (B, H, W, 3) ->
     (feats, [style Grams])``. ``style_layers="last"``: one Gram of the
@@ -169,7 +175,7 @@ def make_extract_fn_gram_attention(
     The encoder is frozen: its parameters stop requiring gradients, so a
     gradient through it (the loops' pixels, the fast-style net) computes no
     weight gradient. ``extract_fn.features(images)`` gives the features
-    alone, with no Gram taken."""
+    alone, with no Gram taken. ``remat`` checkpoints each bottleneck."""
     from ..nn.resnet import resnet50_apply
 
     if style_layers not in ("last", "all"):
@@ -180,7 +186,8 @@ def make_extract_fn_gram_attention(
     def encode(images, collect_grams: bool):
         if compute_dtype is not None:
             images = images.to(compute_dtype)
-        return resnet50_apply(enc, images, truncate=truncate, collect_grams=collect_grams)
+        return resnet50_apply(enc, images, truncate=truncate, collect_grams=collect_grams,
+                              remat=remat)
 
     def extract_fn(images):
         feats, grams = encode(images, style_layers == "all")
@@ -197,10 +204,13 @@ def make_gram_fn_gram_attention(
     truncate_layer: int = 8,
     layers: Optional[int] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
 ) -> Callable[[torch.Tensor], List[torch.Tensor]]:
     """Per-image target-Gram program: truncated encoder features -> one
-    (C, C) Gram per image, in the encoder's dtype."""
-    feature_fn = make_feature_fn_gram_attention(model, truncate_layer, layers, compute_dtype)
+    (C, C) Gram per image, in the encoder's dtype; ``remat`` checkpoints
+    each bottleneck."""
+    feature_fn = make_feature_fn_gram_attention(model, truncate_layer, layers, compute_dtype,
+                                                remat)
 
     def gram_fn(images):
         return [gram_matrix_nhwc(feature_fn(images))]
@@ -327,18 +337,19 @@ def style_transfer_gram_attention(
     log_fn=print,
     compute_dtype: Optional[torch.dtype] = None,
     history: Optional[list] = None,
+    remat: bool = False,
 ) -> List[str]:
     """Family-2 style transfer over any iterable of ``HostLoader`` batches;
     returns the saved paths. Noise comes from ``generator`` (a CPU
     ``torch.Generator``; JAX's ``jax.random`` noise cannot be reproduced).
     ``history``, when a list, receives one list of per-iteration losses per
-    batch."""
+    batch. ``remat`` checkpoints each bottleneck of the encoder."""
     from ..data.augment import eval_preprocess
 
     device = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    gram_fn = make_gram_fn_gram_attention(model, truncate_layer, layers, compute_dtype)
+    gram_fn = make_gram_fn_gram_attention(model, truncate_layer, layers, compute_dtype, remat)
     optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold)
 
     out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
@@ -393,6 +404,7 @@ def content_style_transfer_gram_attention(
     log_fn=print,
     compute_dtype: Optional[torch.dtype] = None,
     history: Optional[list] = None,
+    remat: bool = False,
 ) -> List[str]:
     """Content+style transfer over any iterable of ``HostLoader`` batches:
     every content image re-rendered in the style of the one staged uint8
@@ -402,7 +414,8 @@ def content_style_transfer_gram_attention(
     Writes [content | stylised] RGBA PNGs as
     ``style_transfer_<date>/<label>/content_style_<i>.png`` and returns
     their paths; ``history``, when a list, receives one list of
-    per-iteration losses per batch."""
+    per-iteration losses per batch. ``remat`` checkpoints each bottleneck
+    of the encoder."""
     from ..data.augment import eval_preprocess
 
     if init not in ("content", "noise"):
@@ -411,7 +424,7 @@ def content_style_transfer_gram_attention(
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     extract_fn = make_extract_fn_gram_attention(model, truncate_layer, layers, compute_dtype,
-                                                style_layers)
+                                                style_layers, remat)
     optimise = make_content_style_optimizer(extract_fn, style_weight, content_weight,
                                             learning_rate, num_iterations, threshold,
                                             tv_weight=tv_weight)

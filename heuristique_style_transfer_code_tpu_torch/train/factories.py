@@ -17,7 +17,10 @@ Grams then need no gradient, so only ``pooled_gram_fwd`` launches.
 (``:35-44``; the port's ``cli/_common.cast_forward``): the images are cast
 to it before the forward, so the activations run in bf16 while the
 parameters stay f32 (each op casts its weights) and the loss is taken in
-f32.
+f32. ``remat`` (``--remat``) checkpoints each bottleneck of the ResNet
+encoders and each strided unit of the discriminators in the train
+forward (``core/remat.py``); ``FamilySetup.accum_step`` is
+``--grad_accum``'s step (JAX ``:88-99``).
 """
 from __future__ import annotations
 
@@ -33,23 +36,34 @@ from ..models.gram_attention import gram_attention_apply, gram_attention_init
 from ..models.multi_patchgan import multiscale_apply, multiscale_init
 from ..models.truncated_resnet50 import combined_apply, truncated_resnet50_init
 from .optim import sgd_momentum
-from .train_loop import make_eval_step, make_train_step_body
+from .train_loop import make_eval_step, make_train_step_accum, make_train_step_body
 
 
 class FamilySetup:
     """The steps built once; ``init(generator)`` gives a fold's fresh
-    ``(model, opt_state)``."""
+    ``(model, opt_state)``; ``accum_step(n)`` the gradient-accumulation
+    step over the same forward, optimiser and augmentation."""
 
     def __init__(self, init_model: Callable, optimizer, train_step: Callable,
-                 eval_step: Callable):
+                 eval_step: Callable, forward_train: Callable, augment: Callable,
+                 label_smoothing: float = 0.0):
         self._init_model = init_model
         self.optimizer = optimizer
         self.train_step = train_step
         self.eval_step = eval_step
+        self._forward_train = forward_train
+        self._augment = augment
+        self._label_smoothing = label_smoothing
 
     def init(self, generator: Optional[torch.Generator]):
         model = self._init_model(generator)
         return model, self.optimizer[0](model)
+
+    def accum_step(self, n_accum: int) -> Callable:
+        """``--grad_accum``: one optimiser update from ``n_accum``
+        micro-batches (``train_loop.make_train_step_accum``)."""
+        return make_train_step_accum(self._forward_train, self.optimizer, self._augment,
+                                     n_accum, self._label_smoothing)
 
 
 def _freeze(model, frozen_fn):
@@ -63,11 +77,12 @@ def _assemble(init_model, forward, lr, combos, frozen_fn, compute_dtype, clip_no
               label_smoothing, ema_decay) -> FamilySetup:
     """``forward(model, images, train)`` -> logits; the JAX ``_setup``."""
     optimizer = sgd_momentum(lr, frozen_fn=frozen_fn, clip_norm=clip_norm, ema_decay=ema_decay)
-    train_step = make_train_step_body(
-        cast_forward(lambda m, x: forward(m, x, True), compute_dtype), optimizer,
-        make_augment_fn(combos), label_smoothing)
+    forward_train = cast_forward(lambda m, x: forward(m, x, True), compute_dtype)
+    augment = make_augment_fn(combos)
+    train_step = make_train_step_body(forward_train, optimizer, augment, label_smoothing)
     eval_step = make_eval_step(cast_forward(lambda m, x: forward(m, x, False), compute_dtype))
-    return FamilySetup(init_model, optimizer, train_step, eval_step)
+    return FamilySetup(init_model, optimizer, train_step, eval_step, forward_train, augment,
+                       label_smoothing)
 
 
 def setup_truncated_resnet50(
@@ -81,6 +96,7 @@ def setup_truncated_resnet50(
     clip_norm: Optional[float] = None,
     label_smoothing: float = 0.0,
     ema_decay: Optional[float] = None,
+    remat: bool = False,
     device="cuda",
 ) -> FamilySetup:
     """The family-1 setup on ``device``. ``pretrained``: a ``{moco,
@@ -101,7 +117,8 @@ def setup_truncated_resnet50(
         return _freeze(model, frozen_fn).train()
 
     def forward(model, images, train):
-        return combined_apply(model.moco, model.classifier, images, t, train=train)
+        return combined_apply(model.moco, model.classifier, images, t, train=train,
+                              remat=remat and train)
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
                      combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay)
@@ -117,6 +134,7 @@ def setup_multi_patchgan(
     clip_norm: Optional[float] = None,
     label_smoothing: float = 0.0,
     ema_decay: Optional[float] = None,
+    remat: bool = False,
     device="cuda",
 ) -> FamilySetup:
     """The family-3 setup (the train variant) on ``device``. ``pretrained``:
@@ -136,7 +154,7 @@ def setup_multi_patchgan(
         return model.train()
 
     def forward(model, images, train):
-        return multiscale_apply(model, images, norm, train=train)
+        return multiscale_apply(model, images, norm, train=train, remat=remat and train)
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
                      combos, None, compute_dtype, clip_norm, label_smoothing, ema_decay)
@@ -153,6 +171,7 @@ def setup_gram_attention(
     clip_norm: Optional[float] = None,
     label_smoothing: float = 0.0,
     ema_decay: Optional[float] = None,
+    remat: bool = False,
     device="cuda",
 ) -> FamilySetup:
     """The family-2 setup on ``device``. ``pretrained``: a JAX-layout tree
@@ -174,7 +193,8 @@ def setup_gram_attention(
 
     def forward(model, images, train):
         model.train(train)
-        _, logits = gram_attention_apply(model, images, t, s, num_classes)
+        _, logits = gram_attention_apply(model, images, t, s, num_classes,
+                                         remat=remat and train)
         return logits
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,

@@ -9,7 +9,8 @@ gradients of the trainable parameters and the optimiser's update in place.
 Pad entries of a short batch carry label -1 and are masked out of the loss
 and the metrics. The step returns the loss as a device tensor, without a
 sync; ``train_epochs`` fetches it for the per-batch print, as the JAX loop
-does.
+does, or, with ``steps_per_dispatch`` K > 1, fetches K steps' losses at
+once. ``make_train_step_accum`` is ``--grad_accum``'s step.
 """
 from __future__ import annotations
 
@@ -19,6 +20,13 @@ import numpy as np
 import torch
 
 from ..data.augment import eval_preprocess
+from ..utils.debug import check_nan
+
+
+def _labels_on(labels, device) -> torch.Tensor:
+    """A batch's labels (numpy, or a tensor already on the card) on
+    ``device``."""
+    return (labels if torch.is_tensor(labels) else torch.as_tensor(np.asarray(labels))).to(device)
 
 
 def _masked_nll_parts(logits: torch.Tensor, labels: torch.Tensor,
@@ -63,12 +71,59 @@ def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callabl
         names = list(opt_state["trace"])
         device = params[names[0]].device
         images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
-        labels_t = torch.as_tensor(np.asarray(labels)).to(device)
+        labels_t = _labels_on(labels, device)
         logits = forward_train(model, images)
         loss = masked_cross_entropy(logits, labels_t, label_smoothing)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         update(model, dict(zip(names, grads)), opt_state)
         return model, opt_state, loss.detach()
+
+    return step
+
+
+def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callable,
+                          n_accum: int, label_smoothing: float = 0.0) -> Callable:
+    """``--grad_accum``: ``step`` as ``make_train_step_body``'s, with one
+    optimiser update from ``n_accum`` micro-batches run one after the
+    other (JAX ``make_train_step_accum``, ``:153-271``):
+
+    - the full batch is augmented first, with the plain step's draws, so
+      the model sees the plain step's pixels;
+    - it is cut into ``n_accum`` micro-batches of B / ``n_accum`` (B not a
+      multiple raises JAX's ValueError);
+    - the gradients of each micro-batch's unnormalised masked NLL and the
+      valid counts are summed, then divided once by the total count, so
+      loss and gradients are the full batch's masked mean (equal up to f32
+      reassociation where no batch statistics are taken);
+    - batch norms normalise each micro-batch by its own statistics (ghost
+      BN) and update their running buffers micro-batch after micro-batch,
+      in order (``F.batch_norm`` in place: the JAX scan's chained stats).
+    """
+    _, update = optimizer
+    n_accum = int(n_accum)
+
+    def step(model, opt_state, images_u8, labels, combos=None, draws=None):
+        params = dict(model.named_parameters())
+        names = list(opt_state["trace"])
+        device = params[names[0]].device
+        images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
+        labels_t = _labels_on(labels, device)
+        b = images.shape[0]
+        if b % n_accum:
+            raise ValueError(f"batch {b} not divisible by n_accum {n_accum}")
+        mb = b // n_accum
+        g_sum, nll_sum, cnt_sum = None, 0.0, 0.0
+        for i in range(n_accum):
+            part = slice(i * mb, (i + 1) * mb)
+            nll, cnt = _masked_nll_parts(forward_train(model, images[part]), labels_t[part],
+                                         label_smoothing)
+            grads = torch.autograd.grad(nll, [params[n] for n in names])
+            g_sum = list(grads) if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
+            nll_sum = nll_sum + nll.detach()
+            cnt_sum = cnt_sum + cnt
+        denom = cnt_sum.clamp_min(1.0)
+        update(model, {n: g / denom for n, g in zip(names, g_sum)}, opt_state)
+        return model, opt_state, nll_sum / denom
 
     return step
 
@@ -111,26 +166,59 @@ def train_epochs(
     state and set the loader's epoch). ``on_epoch_end(epoch, model,
     opt_state)`` runs after every epoch; a true return stops the loop.
     With ``preemptible`` a SIGTERM raises ``PreemptedError`` before the
-    next step: the last completed epoch is on disk. ``steps_per_dispatch``
-    above 1 is not ported yet."""
-    if steps_per_dispatch > 1:
-        raise NotImplementedError("--steps_per_dispatch > 1 is not ported yet")
+    next step (or chunk): the last completed epoch is on disk.
+
+    ``steps_per_dispatch`` K > 1 (the JAX ``make_train_step_multi`` and
+    ``_dispatch_chunk``): the loader's batches go in chunks of K (an
+    epoch's tail chunk shorter), each chunk's images and labels uploaded
+    at once, its K steps launched back to back with no host read between
+    them, and their K losses fetched together. Each step is the K = 1
+    step on the same batch and draws, so the prints, the epoch mean and
+    the weights are K = 1's."""
     from .preemption import PreemptedError, preemption_requested
 
     n_batches = len(loader)
+    k = max(1, int(steps_per_dispatch))
+    device = next(model.parameters()).device
     for epoch in range(start_epoch, num_epochs):
         running, seen = 0.0, 0
-        for batch_idx, batch in enumerate(loader):
-            if preemptible and preemption_requested():
-                raise PreemptedError(fold, epoch)
-            model, opt_state, loss = train_step(model, opt_state, batch["image"],
-                                                batch["label"], batch.get("combo"),
-                                                batch.get("draws"))
-            loss_f, n = float(loss), batch["n_valid"]
+
+        def emit(batch_idx, loss_f, n):
+            nonlocal running, seen
+            check_nan("the training loss", loss_f)
             running += loss_f * n
             seen += n
             print(f"Fold {fold}, Epoch [{epoch + 1}/{num_epochs}], "
                   f"Batch [{batch_idx + 1}/{n_batches}], Loss: {loss_f:.4f}")
+
+        def dispatch(chunk, first_idx):
+            nonlocal model, opt_state
+            if preemptible and preemption_requested():
+                raise PreemptedError(fold, epoch)
+            if len(chunk) == 1:
+                b = chunk[0]
+                model, opt_state, loss = train_step(model, opt_state, b["image"], b["label"],
+                                                    b.get("combo"), b.get("draws"))
+                emit(first_idx, float(loss), b["n_valid"])
+                return
+            images = torch.as_tensor(np.stack([b["image"] for b in chunk])).to(device)
+            labels = torch.as_tensor(np.stack([np.asarray(b["label"]) for b in chunk])).to(device)
+            losses = []
+            for i, b in enumerate(chunk):
+                model, opt_state, loss = train_step(model, opt_state, images[i], labels[i],
+                                                    b.get("combo"), b.get("draws"))
+                losses.append(loss)
+            for i, (b, loss_f) in enumerate(zip(chunk, torch.stack(losses).cpu().tolist())):
+                emit(first_idx + i, loss_f, b["n_valid"])
+
+        chunk, batch_idx = [], -1
+        for batch_idx, batch in enumerate(loader):
+            chunk.append(batch)
+            if len(chunk) == k:
+                dispatch(chunk, batch_idx + 1 - k)
+                chunk = []
+        if chunk:
+            dispatch(chunk, batch_idx + 1 - len(chunk))
         epoch_loss = running / max(seen, 1)
         print(f"Fold {fold}, Epoch [{epoch + 1}/{num_epochs}], Loss: {epoch_loss:.4f}")
         if writer is not None:

@@ -137,14 +137,52 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
 
 @pytest.mark.parametrize("extra", [
     ["--precision", "int8"],
-    ["--remat"], ["--shard_spatial", "2"], ["--devices", "2"],
-    ["--steps_per_dispatch", "2"],
+    ["--shard_spatial", "2"], ["--devices", "2"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, extra):
     from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, f2_model, tmp_path, *extra, "--device", "cpu"))
+
+
+def _png_pixels(root):
+    from PIL import Image
+
+    out = {}
+    for dp, _, fs in os.walk(root):
+        for f in fs:
+            if f.endswith(".png"):
+                with Image.open(os.path.join(dp, f)) as im:
+                    out[f] = np.asarray(im)
+    return out
+
+
+@pytest.mark.parametrize("flag", ["--remat", "--steps_per_dispatch"])
+def test_remat_and_steps_per_dispatch_keep_the_results(tiny_imagefolder, f2_model, tmp_path,
+                                                        flag):
+    """``--remat`` on ``--mode style_transfer`` gives the plain run's PNGs
+    bit for bit on the CPU (the same ops, the blocks run again in the
+    backward); ``--steps_per_dispatch 2`` on ``--mode classification``
+    (12 images in b4: a chunk of 2, a tail of 1) the plain run's
+    ``classification_results.json`` byte for byte."""
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    if flag == "--remat":
+        flags, extra = ["--mode", "style_transfer", "--layers", "5", "--num_iterations", "2",
+                        "--num_samples", "2", "--batch_size", "2"], [flag]
+    else:
+        flags, extra = ["--mode", "classification"], [flag, "2"]
+    main(_args(tiny_imagefolder, f2_model, tmp_path / "plain", *flags, "--device", "cpu"))
+    main(_args(tiny_imagefolder, f2_model, tmp_path / "flag", *flags, *extra, "--device", "cpu"))
+    if flag == "--remat":
+        plain, got = _png_pixels(tmp_path / "plain"), _png_pixels(tmp_path / "flag")
+        assert sorted(got) == sorted(plain) and len(got) == 2
+        assert all(np.array_equal(got[k], plain[k]) for k in plain)
+    else:
+        with open(tmp_path / "plain" / "classification_results.json", "rb") as f, \
+                open(tmp_path / "flag" / "classification_results.json", "rb") as g:
+            assert f.read() == g.read()
 
 
 def _imports(path):

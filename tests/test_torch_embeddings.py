@@ -156,12 +156,18 @@ def test_embeddings_equal_jax(tiny_imagefolder, f1_checkpoint, family):
 
 
 def test_embeddings_raise_for_a_mesh_or_several_steps(tiny_imagefolder, f1_checkpoint):
+    """A data-parallel mesh is still refused; several steps a dispatch
+    (``steps_per_dispatch`` 2 over 3 batches: a chunk of 2, a tail of 1)
+    give the one-step embeddings, labels and paths bit for bit."""
     _, _, model, embed = _family1(f1_checkpoint)
-    samples = _samples(tiny_imagefolder, 4)
-    for kwargs in ({"mesh": object()}, {"steps_per_dispatch": 2}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            compute_embeddings_with_paths(embed, model, HostLoader(samples, BATCH), samples,
-                                          **kwargs)
+    samples = _samples(tiny_imagefolder, 3 * BATCH - 1)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        compute_embeddings_with_paths(embed, model, HostLoader(samples, BATCH), samples,
+                                      mesh=object())
+    one, two = (compute_embeddings_with_paths(embed, model, HostLoader(samples, BATCH), samples,
+                                              steps_per_dispatch=k) for k in (1, 2))
+    assert np.array_equal(two[0], one[0]) and np.array_equal(two[1], one[1])
+    assert two[2] == one[2] and one[0].shape[0] == len(samples)
 
 
 def _args(data, f1_checkpoint, save_dir, *extra):

@@ -9,6 +9,7 @@ threshold 0.5 the seeded model's top probability never reaches it, so
 every prediction is "Unknown"; threshold 0.0 makes the metrics count."""
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -139,13 +140,73 @@ def test_parser_has_every_jax_flag():
     assert {k: got[k] for k in want} == want
 
 
-@pytest.mark.parametrize("extra", [
-    ["--precision", "int8"], ["--steps_per_dispatch", "2"], ["--devices", "2"],
-    ["--profile_dir", "p"], ["--debug_nans"],
-])
+@pytest.mark.parametrize("extra", [["--precision", "int8"], ["--devices", "2"]])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f1_checkpoint, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, f1_checkpoint, tmp_path, *extra, "--device", "cpu"))
+
+
+def test_steps_per_dispatch_gives_the_k1_metrics(tiny_imagefolder, f1_checkpoint, tmp_path):
+    """``--steps_per_dispatch 2`` over 3 batches (a chunk of 2, a tail of
+    1): metrics.txt byte for byte the K = 1 run's (the JAX recipe's check),
+    and the JAX CLI's K = 2 run as in the classification test."""
+    runs = {}
+    for k in ("1", "2"):
+        out = tmp_path / f"k{k}"
+        main(_args(tiny_imagefolder, f1_checkpoint, out, "--mode", "classification",
+                   "--prob_threshold", "0.0", "--steps_per_dispatch", k, "--device", "cpu"))
+        with open(out / "metrics.txt", "rb") as f:
+            runs[k] = f.read()
+    assert runs["2"] == runs["1"]
+    j_main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "jax", "--mode", "classification",
+                 "--prob_threshold", "0.0", "--steps_per_dispatch", "2"))
+    (j_lines, j_cm), (t_lines, t_cm) = _metrics(tmp_path / "jax"), _metrics(tmp_path / "k2")
+    assert t_cm == j_cm and t_lines["Score F1"] == j_lines["Score F1"]
+    np.testing.assert_allclose(float(t_lines["Perte du test"]), float(j_lines["Perte du test"]),
+                               rtol=1e-5)
+
+
+def test_steps_per_dispatch_with_measure_time_keeps_the_jax_error(tiny_imagefolder,
+                                                                 f1_checkpoint, tmp_path):
+    flags = ("--mode", "classification", "--steps_per_dispatch", "2", "--measure_time")
+    with pytest.raises(ValueError) as jax_err:
+        j_main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "jax", *flags))
+    with pytest.raises(ValueError, match=re.escape(str(jax_err.value))):
+        main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "torch", *flags, "--device",
+                   "cpu"))
+
+
+def test_profile_dir_writes_a_chrome_trace(tiny_imagefolder, f1_checkpoint, tmp_path, capsys):
+    prof = tmp_path / "prof"
+    main(_args(tiny_imagefolder, f1_checkpoint, tmp_path, "--mode", "classification",
+               "--profile_dir", str(prof), "--device", "cpu"))
+    assert f"Profiler trace written to {prof}" in capsys.readouterr().out
+    (trace,) = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")]
+    with open(prof / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::convolution" in names
+
+
+def test_debug_nans_raises_at_a_nan_weight(tiny_imagefolder, f1_checkpoint, tmp_path):
+    """A clean run with ``--debug_nans`` gives the plain run's metrics; one
+    NaN in a conv kernel stops it with ``FloatingPointError``, as
+    ``jax_debug_nans`` does."""
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import (
+        load_pytree_npz,
+        save_pytree_npz,
+    )
+
+    flags = ("--mode", "classification", "--prob_threshold", "0.0", "--device", "cpu")
+    main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "plain", *flags))
+    main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "debug", *flags, "--debug_nans"))
+    assert _metrics(tmp_path / "debug") == _metrics(tmp_path / "plain")
+    tree = load_pytree_npz(f1_checkpoint[1])
+    tree["moco"]["encoder"]["conv1"]["kernel"][0, 0, 0, 0] = np.nan
+    nan_ckpt = str(tmp_path / "nan.npz")
+    save_pytree_npz(tree, nan_ckpt)
+    with pytest.raises(FloatingPointError, match="invalid value"):
+        main(_args(tiny_imagefolder, (f1_checkpoint[0], nan_ckpt), tmp_path / "nan", *flags,
+                   "--debug_nans"))
 
 
 def test_inference_guards_keep_the_jax_messages(tiny_imagefolder, f1_checkpoint, tmp_path):

@@ -145,11 +145,41 @@ def test_precision_int8_is_refused_as_by_the_jax_parser(tiny_imagefolder, f3_mod
 @pytest.mark.parametrize("extra", [
     ["--mode", "style_transfer", "--shard_spatial", "2"], ["--devices", "2"],
     ["--shard_spatial", "2"],
-    ["--steps_per_dispatch", "2"], ["--profile_dir", "p"], ["--debug_nans"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f3_model, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, f3_model, tmp_path, *extra, "--device", "cpu"))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--steps_per_dispatch", "2"],
+    ["--profile_dir", "PROFILE"],
+    ["--debug_nans"],
+])
+def test_ported_runtime_flags_keep_the_results(tiny_imagefolder, f3_model, tmp_path, extra):
+    """``--steps_per_dispatch 2`` (3 batches: a chunk of 2, a tail of 1),
+    ``--profile_dir`` and ``--debug_nans`` on a clean model: the
+    classification results of the plain run, byte for byte; the profile's
+    Chrome trace is in its directory."""
+    extra = [str(tmp_path / "prof") if e == "PROFILE" else e for e in extra]
+    flags = ("--mode", "classification", "--device", "cpu")
+    main(_args(tiny_imagefolder, f3_model, tmp_path / "plain", *flags))
+    main(_args(tiny_imagefolder, f3_model, tmp_path / "flag", *flags, *extra))
+    with open(tmp_path / "plain" / "classification_results.json", "rb") as f, \
+            open(tmp_path / "flag" / "classification_results.json", "rb") as g:
+        assert f.read() == g.read()
+    if "--profile_dir" in extra:
+        assert any(n.endswith(".pt.trace.json") for n in os.listdir(tmp_path / "prof"))
+
+
+def test_steps_per_dispatch_with_measure_time_keeps_the_jax_exit(tiny_imagefolder, f3_model,
+                                                                  tmp_path):
+    flags = ("--mode", "classification", "--steps_per_dispatch", "2", "--measure_time")
+    with pytest.raises(SystemExit) as jax_exit:
+        j_main(_args(tiny_imagefolder, f3_model, tmp_path / "jax", *flags))
+    with pytest.raises(SystemExit) as port_exit:
+        main(_args(tiny_imagefolder, f3_model, tmp_path / "torch", *flags, "--device", "cpu"))
+    assert str(port_exit.value) == str(jax_exit.value)
 
 
 def test_train_variant_checkpoint_raises(tiny_imagefolder, f3_model, tmp_path, capsys):

@@ -6,6 +6,7 @@ rounding of a half step may round either way). Also: texture mode,
 content+style mode (``--style_image``) and its errors, the "not ported
 yet" flags and the device rule."""
 import json
+import os
 import re
 import threading
 import urllib.request
@@ -182,15 +183,76 @@ def test_style_image_errors_keep_the_jax_messages(content_style_files, case):
 
 @pytest.mark.parametrize("extra", [
     ["--artifact", "a.npz"], ["--export_artifact", "a.npz"], ["--export_platforms", "cpu"],
-    ["--transport", "yuv420"], ["--remat"], ["--recycle_after_requests", "3"],
-    ["--family", "multi_patchgan"], ["--devices", "2"], ["--profile_dir", "p"],
-    ["--debug_nans"],
+    ["--recycle_after_requests", "3"], ["--devices", "2"],
 ])
 def test_unported_flags_raise(net_path, extra):
     from heuristique_style_transfer_code_tpu_torch.cli.serve_style import main
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(["--net", net_path, "--port", "0", "--device", "cpu", *extra])
+
+
+def _post_through_main(cli, argv, img, monkeypatch):
+    """``cli.main(argv)`` (the whole CLI, with its ``--profile_dir`` and
+    ``--debug_nans`` around the server) in a thread until ``--max_seconds``
+    ends it; one POST of ``img`` while it serves. Returns the decoded
+    answer."""
+    started = {}
+    start = cli.start
+
+    def recording_start(args, crop=224):
+        srv, service = start(args, crop)
+        started["url"] = f"http://127.0.0.1:{srv.server_address[1]}"
+        return srv, service
+
+    monkeypatch.setattr(cli, "start", recording_start)
+    runner = threading.Thread(target=cli.main, args=(argv + ["--max_seconds", "2"],))
+    runner.start()
+    try:
+        for _ in range(600):
+            if "url" in started or not runner.is_alive():
+                break
+            runner.join(0.01)
+        answer = decode_png(_post(started["url"], img)[0])
+    finally:
+        runner.join(60)
+    assert not runner.is_alive()
+    return answer
+
+
+@pytest.mark.parametrize("extra", [
+    ["--transport", "yuv420"], ["--remat"], ["--family", "multi_patchgan"],
+    ["--profile_dir", "PROFILE"], ["--debug_nans"],
+])
+def test_flags_ported_with_a_net(net_path, tmp_path, monkeypatch, extra):
+    """With ``--net`` these flags serve the net: ``--remat`` and
+    ``--family`` (texture mode's) leave its answer as it was, as in the
+    JAX CLI, and so do ``--profile_dir`` (whose Chrome trace is in its
+    directory once the CLI returns) and ``--debug_nans`` (a clean net),
+    each through the whole CLI; ``--transport yuv420`` answers RGB within 3
+    uint8 steps of the JAX server's yuv420 answer (the same net in another
+    summation order, through the device packer's rounding and cv2's I420
+    decode on both sides: one chroma step is up to 2 RGB steps; measured
+    2)."""
+    from heuristique_style_transfer_code_tpu.cli import serve_style as j_cli
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style as p_cli
+
+    extra = [str(tmp_path / "prof") if e == "PROFILE" else e for e in extra]
+    img = np.random.RandomState(1).randint(0, 256, (40, 40, 3)).astype(np.uint8)
+    flags = ["--net", net_path, "--port", "0", "--max_delay_ms", "20"]
+    yuv = extra == ["--transport", "yuv420"]
+    want_cli, want_extra = (j_cli, extra) if yuv else (p_cli, ["--device", "cpu"])
+    srv, service, url = _serve(want_cli.start, want_cli.build_parser, flags + want_extra)
+    try:
+        want = decode_png(_post(url, img)[0]).astype(int)
+    finally:
+        _stop(srv, service)
+    got = _post_through_main(p_cli, flags + extra + ["--device", "cpu"], img,
+                             monkeypatch).astype(int)
+    assert got.shape == (CROP, CROP, 3)
+    assert np.abs(got - want).max() <= (3 if yuv else 0)
+    if "--profile_dir" in extra:
+        assert any(n.endswith(".pt.trace.json") for n in os.listdir(tmp_path / "prof"))
 
 
 def test_cli_without_device_cpu_raises_on_a_host_without_cuda(net_path):

@@ -244,9 +244,16 @@ def test_content_style_errors_keep_the_jax_messages(case):
         StyleTransferService(device="cpu", **kwargs)
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        StyleTransferService(job_fn=lambda *a: a, transport="yuv420", device="cpu")
+@pytest.mark.parametrize("kwargs", [dict(transport="yuv422"),
+                                    dict(transport="yuv420", crop=30)])
+def test_unported_modes_raise(kwargs):
+    """The yuv420 transport is ported (``test_torch_serve_style_family3.py``
+    holds it against JAX); an unknown transport and a crop that I420's
+    planes cannot hold keep the JAX service's ValueErrors word for word."""
+    with pytest.raises(ValueError) as jax_err:
+        j_service.StyleTransferService(job_fn=lambda *a: a, **kwargs)
+    with pytest.raises(ValueError, match=re.escape(str(jax_err.value))):
+        StyleTransferService(job_fn=lambda *a: a, device="cpu", **kwargs)
 
 
 def _filtered_png(rgb, kind):

@@ -22,6 +22,7 @@ CLI takes) at truncate 5, S 4, b4, 2 folds. The port's folds start from a
 ``torch.Generator`` init, not JAX's, so the two CLIs' runs are compared by
 their artifacts' names and keys, not by value."""
 import contextlib
+import io
 import json
 import os
 
@@ -367,6 +368,9 @@ def test_early_stopper_matches_jax():
 CFG = {"batch_size": 4, "lr": 0.01, "truncate_layer": 5, "gram_matrix_size": 4, "seed": 0}
 
 
+FOLD_MODEL = "best_model_fold_0.npz"
+ONE_EPOCH = ("--epochs", "1")
+
 @pytest.fixture(scope="module")
 def cfg_path(tmp_path_factory):
     path = tmp_path_factory.mktemp("f2train") / "cfg.json"
@@ -548,13 +552,51 @@ def test_pretrained_tensor_count_matches_jax(f1_checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--grad_accum", "2"), ("--zero1",), ("--remat",), ("--parallel_folds",), ("--auto_batch",),
-    ("--hbm_budget_gb", "8"), ("--mixup", "0.2"), ("--cutmix", "1.0"), ("--ema_decay", "0.99"),
-    ("--steps_per_dispatch", "2"), ("--devices", "2"), ("--checkpoint_format", "orbax"),
-    ("--profile_dir", "p"), ("--debug_nans",)])
+    ("--zero1",), ("--parallel_folds",), ("--auto_batch",), ("--hbm_budget_gb", "8"),
+    ("--mixup", "0.2"), ("--cutmix", "1.0"), ("--ema_decay", "0.99"), ("--devices", "2"),
+    ("--checkpoint_format", "orbax")])
 def test_unported_flags_raise(tiny_imagefolder, cfg_path, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, cfg_path, tmp_path, *extra))
+
+
+@pytest.fixture(scope="module")
+def one_epoch_run(tiny_imagefolder, cfg_path, tmp_path_factory):
+    """The port's CLI for one epoch, no flag: (its directory, its per-batch
+    loss lines)."""
+    out = tmp_path_factory.mktemp("plain_one_epoch")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        main(_args(tiny_imagefolder, cfg_path, out, *ONE_EPOCH))
+    return out, [line for line in printed.getvalue().splitlines() if "Batch [" in line]
+
+
+@pytest.mark.parametrize("extra", [
+    ("--remat",), ("--steps_per_dispatch", "2"), ("--profile_dir", "PROFILE"), ("--debug_nans",),
+    ("--grad_accum", "2")])
+def test_flags_ported_in_this_slice_run(tiny_imagefolder, cfg_path, tmp_path, one_epoch_run,
+                                        extra, capsys):
+    """``--remat``, ``--steps_per_dispatch 2`` (an epoch's 3 batches: a
+    chunk of 2, a tail of 1), ``--profile_dir`` and ``--debug_nans`` give the plain
+    run's fold checkpoint and per-batch losses bit for bit on the CPU (the
+    same ops; remat's recompute updates no running statistic twice);
+    the profile's Chrome trace is in its directory. ``--grad_accum 2``
+    prints the JAX CLI's line and trains (its numbers are held against
+    JAX in ``test_torch_dispatch_accum.py``)."""
+    extra = tuple(str(tmp_path / "prof") if e == "PROFILE" else e for e in extra)
+    plain, plain_lines = one_epoch_run
+    main(_args(tiny_imagefolder, cfg_path, tmp_path / "out", *ONE_EPOCH, *extra))
+    printed = capsys.readouterr().out
+    got, want = (load_pytree_npz(str(d / FOLD_MODEL)) for d in (tmp_path / "out", plain))
+    got, want = _flatten(got), _flatten(want)
+    assert sorted(got) == sorted(want)
+    if extra[0] == "--grad_accum":
+        assert "Gradient accumulation: 2 micro-batches of 2 per optimiser step" in printed
+        assert all(np.isfinite(v).all() for v in got.values())
+        return
+    assert [line for line in printed.splitlines() if "Batch [" in line] == plain_lines
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    if extra[0] == "--profile_dir":
+        assert any(n.endswith(".pt.trace.json") for n in os.listdir(tmp_path / "prof"))
 
 
 def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, cfg_path,

@@ -22,6 +22,8 @@ Sizes: ndf 8, patch sizes 10/20/10 (2, 3 and 2 strided convs) on 64²
 canvases, b3; the train step at patch sizes 10/20/40 on 224² canvases,
 since the JAX step crops 224, b2; the CLI at those on the
 ``tiny_imagefolder`` fixture (24 train images), b4, 2 folds, 1 epoch."""
+import contextlib
+import io
 import json
 import os
 
@@ -32,7 +34,11 @@ import pytest
 import torch
 
 from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import load_jax_tree, to_jax_tree
-from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, save_pytree_npz
+from heuristique_style_transfer_code_tpu_torch.checkpoint.io import (
+    _flatten,
+    load_pytree_npz,
+    save_pytree_npz,
+)
 from heuristique_style_transfer_code_tpu_torch.cli.train_multi_patchgan import build_parser, main
 from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
 from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
@@ -231,6 +237,9 @@ ARTIFACTS = ["best_global_model.npz", "best_global_model_hyperparameters.json",
              "training_info.json"]
 
 
+FOLD_MODEL = "model_fold_0.npz"
+ONE_EPOCH = ()
+
 @pytest.fixture(scope="module")
 def cfg_path(tmp_path_factory):
     path = tmp_path_factory.mktemp("f3train") / "cfg.json"
@@ -306,13 +315,51 @@ def test_parser_has_every_jax_flag():
 
 
 @pytest.mark.parametrize("extra", [
-    ("--grad_accum", "2"), ("--zero1",), ("--remat",), ("--parallel_folds",), ("--auto_batch",),
-    ("--hbm_budget_gb", "8"), ("--mixup", "0.2"), ("--cutmix", "1.0"), ("--ema_decay", "0.99"),
-    ("--steps_per_dispatch", "2"), ("--devices", "2"), ("--checkpoint_format", "orbax"),
-    ("--profile_dir", "p"), ("--debug_nans",)])
+    ("--zero1",), ("--parallel_folds",), ("--auto_batch",), ("--hbm_budget_gb", "8"),
+    ("--mixup", "0.2"), ("--cutmix", "1.0"), ("--ema_decay", "0.99"), ("--devices", "2"),
+    ("--checkpoint_format", "orbax")])
 def test_unported_flags_raise(tiny_imagefolder, cfg_path, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, cfg_path, tmp_path, *extra))
+
+
+@pytest.fixture(scope="module")
+def one_epoch_run(tiny_imagefolder, cfg_path, tmp_path_factory):
+    """The port's CLI for one epoch, no flag: (its directory, its per-batch
+    loss lines)."""
+    out = tmp_path_factory.mktemp("plain_one_epoch")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        main(_args(tiny_imagefolder, cfg_path, out, *ONE_EPOCH))
+    return out, [line for line in printed.getvalue().splitlines() if "Batch [" in line]
+
+
+@pytest.mark.parametrize("extra", [
+    ("--remat",), ("--steps_per_dispatch", "2"), ("--profile_dir", "PROFILE"), ("--debug_nans",),
+    ("--grad_accum", "2")])
+def test_flags_ported_in_this_slice_run(tiny_imagefolder, cfg_path, tmp_path, one_epoch_run,
+                                        extra, capsys):
+    """``--remat``, ``--steps_per_dispatch 2`` (an epoch's 3 batches: a
+    chunk of 2, a tail of 1), ``--profile_dir`` and ``--debug_nans`` give the plain
+    run's fold checkpoint and per-batch losses bit for bit on the CPU (the
+    same ops; remat's recompute updates no running statistic twice);
+    the profile's Chrome trace is in its directory. ``--grad_accum 2``
+    prints the JAX CLI's line and trains (its numbers are held against
+    JAX in ``test_torch_dispatch_accum.py``)."""
+    extra = tuple(str(tmp_path / "prof") if e == "PROFILE" else e for e in extra)
+    plain, plain_lines = one_epoch_run
+    main(_args(tiny_imagefolder, cfg_path, tmp_path / "out", *ONE_EPOCH, *extra))
+    printed = capsys.readouterr().out
+    got, want = (load_pytree_npz(str(d / FOLD_MODEL)) for d in (tmp_path / "out", plain))
+    got, want = _flatten(got), _flatten(want)
+    assert sorted(got) == sorted(want)
+    if extra[0] == "--grad_accum":
+        assert "Gradient accumulation: 2 micro-batches of 2 per optimiser step" in printed
+        assert all(np.isfinite(v).all() for v in got.values())
+        return
+    assert [line for line in printed.splitlines() if "Batch [" in line] == plain_lines
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    if extra[0] == "--profile_dir":
+        assert any(n.endswith(".pt.trace.json") for n in os.listdir(tmp_path / "prof"))
 
 
 def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, cfg_path,

@@ -205,12 +205,29 @@ def test_schedule_and_clip_change_the_fit(tiny_imagefolder, f2_encoder, tmp_path
         assert np.isfinite(json.load(f)["final_loss"])
 
 
-@pytest.mark.parametrize("extra", [("--devices", "2"), ("--profile_dir", "p"),
-                                   ("--debug_nans",)])
+@pytest.mark.parametrize("extra", [("--devices", "2")])
 def test_unported_flags_raise(tiny_imagefolder, f2_encoder, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, f2_encoder, tmp_path, _style(tiny_imagefolder),
                    extra=("--device", "cpu", *extra)))
+
+
+@pytest.mark.parametrize("extra", [("--profile_dir", "PROFILE"), ("--debug_nans",)])
+def test_profile_dir_and_debug_nans_keep_the_net(tiny_imagefolder, f2_encoder, tmp_path, extra):
+    """``--profile_dir`` and ``--debug_nans`` (on a clean run) write the
+    plain run's ``style_net.npz`` bit for bit; the profile's Chrome trace
+    is in its directory."""
+    extra = tuple(str(tmp_path / "prof") if e == "PROFILE" else e for e in extra)
+    style = _style(tiny_imagefolder)
+    main(_args(tiny_imagefolder, f2_encoder, tmp_path / "plain", style, extra=("--device", "cpu"),
+               epochs=1))
+    main(_args(tiny_imagefolder, f2_encoder, tmp_path / "flag", style,
+               extra=("--device", "cpu", *extra), epochs=1))
+    for got, want in zip(_leaves(str(tmp_path / "flag" / "style_net.npz")),
+                         _leaves(str(tmp_path / "plain" / "style_net.npz"))):
+        assert np.array_equal(got, want)
+    if extra[0] != "--debug_nans":
+        assert any(n.endswith(".pt.trace.json") for n in os.listdir(tmp_path / "prof"))
 
 
 def test_odd_crop_is_refused(tiny_imagefolder, f2_encoder, tmp_path):

@@ -162,6 +162,10 @@ def test_encoder_truncate_9_is_the_pooled_layer4():
 
 
 def test_encoder_truncate_10_raises():
+    """Truncate 10 runs the fc child, which only an encoder built at
+    truncate 10 holds (``test_torch_remat.py`` holds that one against
+    JAX); an encoder built at 9 refuses it."""
     enc = ResNet50Encoder(9)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    assert not hasattr(enc, "fc")
+    with pytest.raises(ValueError, match="fc child"):
         resnet50_apply(enc, torch.zeros(1, 32, 32, 3), truncate=10)
