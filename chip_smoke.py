@@ -249,6 +249,29 @@ Phases, all run every time:
                   names gram_fwd and gram_bwd); --debug_nans clean, and
                   with a NaN weight a CLI process exiting with
                   FloatingPointError.
+  ema_mix         --ema_decay 0.999 --mixup 0.2 --cutmix 1.0: one b32
+                  family-2 step (truncate 7, S 7; a CutMix key) and one
+                  b8 family-3 step (norm "instance", --mixup alone)
+                  against the CPU in float64 (the loss, every gradient and
+                  every EMA leaf, the card's EMA its recurrence bit for
+                  bit), with exact launches (3 + 3
+                  pooled_gram_fwd/bwd, 13 + 13 instance_norm_fwd/bwd); the
+                  family-2 CLI with the three flags on 96 PNGs (fold
+                  checkpoints equal to the EMA trees, a SIGTERM and a
+                  bit-equal resume); the b32 step with and without the
+                  flags, f32 and bf16, timed.
+  auto_batch      family 1's train CLI at full width with --auto_batch
+                  --hbm_budget_gb 16: the probes' peaks rise, a larger
+                  batch is adopted and saved, its first real step stays
+                  under 95 % of the budget; the card's total memory.
+  int8            family 1's PTQ on the card (2 b32 calibration batches):
+                  int8 logits against the CPU's from the same q.npz,
+                  features against f32 (cosine > 0.99), b32 images/s in
+                  int8, f32 and bf16, 50 int8 camera frames; family 2's
+                  int8 forward at b8 (4 pooled_gram_fwd) against the CPU;
+                  the family-1 CLI with --precision int8 writing, then
+                  loading, --quantized_path (metrics.txt byte-equal), and
+                  --qat_steps 2.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -256,7 +279,8 @@ Phases, all run every time:
 Launch counts are set to 0 just before each main-path phase and read just
 after; a kernel of the phase that never launched fails the run, as does any
 kernel that disagrees with its plain version beyond the stated tolerance.
-Prints one JSON line of kernel records, the card's name and power limit,
+Prints, before the phases, whether the machine has tensorstore (a JSON
+line, nothing gated on it). Prints one JSON line of kernel records, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, with no result,
 when CUDA is absent or the port's package is not beside this script.
 """
@@ -467,6 +491,21 @@ DISPATCH_K, DISPATCH_EVAL_BATCHES, DISPATCH_TRAIN_BATCHES = 4, 8, 5
 # weight gradients after an instance norm cancel, and both f32 steps lie
 # up to 5.6e-3 from float64 on the H100
 ACCUM_K, ACCUM_TOL = 4, 1e-3
+# ema_mix: family 2 at the config defaults (and family 3 at norm "instance")
+# under --ema_decay 0.999 --mixup 0.2 --cutmix 1.0; the CLI on family2_train's
+# 96 PNGs, 2 folds x 2 epochs
+EMA_DECAY, MIXUP, CUTMIX = 0.999, 0.2, 1.0
+# the family-3 mixed step against the CPU runs on the first 8 images
+EM_F3_CPU_BATCH = 8
+# auto_batch: family 1's train CLI (truncate 8, dim 256, configured b32)
+# under a 16 GiB budget, on 4 classes x 6 PNGs, 2 folds, 1 epoch
+AB_BUDGET_GB, AB_PER_CLASS = 16.0, 6
+# int8: family 1 calibrated on 2 b32 batches; 10 timed b32 forwards; 50 b1
+# camera frames; family 2 at b8; the CLI on 4 classes x 8 train PNGs (and
+# 4 test); card vs CPU int8 logits (and camera probabilities) within 1e-3,
+# the int8 test's tolerance
+INT8_CAL_BATCHES, INT8_TIMED, INT8_CAMERA_FRAMES, INT8_F2_BATCH = 2, 10, 50, 8
+INT8_CLI_PER_CLASS, INT8_TOL_LOGITS = 8, 1e-3
 
 
 def _require(ok: bool, what: str) -> None:
@@ -3210,13 +3249,15 @@ def _step_grads(model, forward, augment, u8, labels, combos=None, draws=None):
 
 
 def _step_vs_cpu(tag: str, make_model, forward, augment, u8, labels, combos=None, draws=None,
-                 zero_grad=lambda name: False) -> dict:
+                 zero_grad=lambda name: False, step_grads=None) -> dict:
     """One f32 train step on the card against the same step on the CPU in
     float64 from the same weights, batch and draws: the loss; every
     gradient leaf by relative L2 within max(F2T_TOL_GRAD, twice the CPU's
     f32 step's own error on that leaf); a gradient whose true value is 0
     (``zero_grad``) by its largest entry against the largest gradient entry
-    (FST_TOL_NOISE); the running statistics after the forward."""
+    (FST_TOL_NOISE); the running statistics after the forward.
+    ``step_grads`` (default ``_step_grads``, same arguments and results)
+    takes the step another way: ``_mixed_step``'s."""
     import torch
 
     t0 = time.perf_counter()
@@ -3225,10 +3266,11 @@ def _step_vs_cpu(tag: str, make_model, forward, augment, u8, labels, combos=None
     ref.load_state_dict(card.state_dict())
     f32.load_state_dict(card.state_dict())
     ref.double()
-    loss_ref, g_ref, s_ref = _step_grads(ref, forward, augment, u8, labels, combos, draws)
-    _, g_f32, _ = _step_grads(f32, forward, augment, u8, labels, combos, draws)
+    step_grads = step_grads or _step_grads
+    loss_ref, g_ref, s_ref = step_grads(ref, forward, augment, u8, labels, combos, draws)
+    _, g_f32, _ = step_grads(f32, forward, augment, u8, labels, combos, draws)
     t_cpu = time.perf_counter() - t0
-    loss_card, g_card, s_card = _step_grads(card, forward, augment, u8, labels, combos, draws)
+    loss_card, g_card, s_card = step_grads(card, forward, augment, u8, labels, combos, draws)
     largest = max(float(g.abs().max()) for g in g_ref.values())
     real = [k for k in g_ref if not zero_grad(k)]
 
@@ -4188,6 +4230,550 @@ def phase_profile_debug(kernels, tmp: str, timings: dict) -> dict:
             "nan_error": last}
 
 
+# ------------------------------------------ EMA and mixing, auto-batch, int8
+
+
+def _mixed_step(model, forward, u8, labels, mix_fn, mix_key, decay):
+    """One train step of ``model`` (train mode) through
+    ``make_train_step_body`` with ``mix_fn`` and, with ``decay``, the
+    parameter EMA, as ``_step_grads`` reports a step: (loss, the gradients
+    by name and, under "ema:<name>", the EMA's leaves, on the host; the
+    running statistics). The EMA's own move is (1 - decay) x the step's,
+    far below an f32 leaf's rounding, so each leaf is also held bit for bit
+    to its recurrence decay * init + (1 - decay) * p_new, recomputed from
+    the step's updated parameters."""
+    from heuristique_style_transfer_code_tpu_torch.data.augment import make_augment_fn
+    from heuristique_style_transfer_code_tpu_torch.train.optim import sgd_momentum
+    from heuristique_style_transfer_code_tpu_torch.train.train_loop import make_train_step_body
+
+    init, update = sgd_momentum(F2T_LR, ema_decay=decay)
+    grads = {}
+
+    def capture(m, g, state):
+        grads.update({n: t.detach().cpu() for n, t in g.items()})
+        update(m, g, state)
+
+    dtype = next(model.parameters()).dtype
+    step = make_train_step_body(lambda m, x: forward(m, x.to(dtype)), (init, capture),
+                                make_augment_fn([(None, None)]), 0.0, mix_fn)
+    state = init(model)
+    start = {n: e.detach().clone() for n, e in state.get("ema", {}).items()}
+    _, state, loss = step(model, state, u8, labels, mix_key=mix_key)
+    params = dict(model.named_parameters())
+    gap = max([float((state["ema"][n] - (start[n] * decay + params[n].detach() * (1.0 - decay)))
+                     .abs().max()) for n in start], default=0.0)
+    _require(gap == 0.0, f"the EMA is its recurrence bit for bit: {gap}")
+    grads.update({f"ema:{n}": state["ema"][n].detach().cpu() for n in start})
+    stats = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(loss), grads, stats
+
+
+def _mixed_step_vs_cpu(tag: str, make_model, forward, u8, labels, mix_fn, mix_key, decay,
+                       zero_grad=lambda name: False) -> dict:
+    """``_step_vs_cpu`` over ``_mixed_step``: the mixed loss, every
+    gradient and every EMA leaf ("ema:<name>") held as gradients are."""
+
+    def step_grads(model, forward, augment, u8, labels, combos, draws):
+        return _mixed_step(model, forward, u8, labels, mix_fn, mix_key, decay)
+
+    return _step_vs_cpu(tag, make_model, forward, None, u8, labels, zero_grad=zero_grad,
+                        step_grads=step_grads)
+
+
+def _cutmix_key(mix_fn_args, batch: int):
+    """The first key (0, 0, 0, i) whose draws pick CutMix under both
+    flags (``mix_fn_args`` = (mixup alpha, cutmix alpha))."""
+    from heuristique_style_transfer_code_tpu_torch.train.mixing import mix_draws
+
+    for i in range(64):
+        key = (0, 0, 0, i)
+        if mix_draws(key, batch, 224, 224, True, True, *mix_fn_args)[0]:
+            return key
+    raise RuntimeError("no CutMix key among the first 64")
+
+
+def phase_ema_mix(kernels, tmp: str, timings: dict) -> dict:
+    """``--ema_decay``, ``--mixup`` and ``--cutmix`` at full width.
+
+    (a) Family 2 at the config defaults (truncate 7, S 7, b32): one f32
+    step with the EMA (decay 0.999) and both mixings (a key whose coin
+    picks CutMix) against the same step on the CPU in float64 from the
+    same weights, batch and draws (``_mixed_step_vs_cpu``: the loss, every
+    gradient and every EMA leaf), and one step's launches on the
+    card: 3 pooled_gram_fwd and 3 pooled_gram_bwd. (b) Family 3 at norm
+    "instance" (the config defaults) under ``--mixup 0.2``: 13
+    instance_norm_fwd and 13 instance_norm_bwd a b32 step, and a b8 step
+    against the CPU as in (a) (the CPU's float64 step at b32 takes 15 s).
+    (c) The family-2 CLI on 96 PNGs, 2 folds x 2 epochs, with all three
+    flags: exact launches; every ``best_model_fold_<k>.npz`` equals the
+    EMA tree ``extract_ema_variables`` gave at its fold's end, bit for
+    bit; then ``--resume`` stopped by a real SIGTERM and resumed, equal to
+    the uninterrupted run bit for bit (cuDNN's deterministic algorithms).
+    (d) The b32 family-2 step with the three flags beside the plain step,
+    f32 and bf16: F2T_TIMED steps on the host clock, 3 profiled, launches
+    a step."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, load_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.cli.train_gram_attention import main as train_cli
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+        gram_attention_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_apply,
+        multiscale_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
+    from heuristique_style_transfer_code_tpu_torch.train import optim as po
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+    from heuristique_style_transfer_code_tpu_torch.train.mixing import make_mix_fn
+
+    cfg = GramAttentionConfig(batch_size=F2T_BATCH, lr=F2T_LR, truncate_layer=F2T_TRUNCATE,
+                              gram_matrix_size=F2T_S, seed=0)
+    rng = np.random.RandomState(300)
+    u8 = [rng.randint(0, 256, (F2T_BATCH, 256, 256, 3)).astype(np.uint8) for _ in range(2)]
+    labels = [rng.randint(0, 4, (F2T_BATCH,)).astype(np.int32) for _ in range(2)]
+    labels[0][-1] = -1
+    mix = make_mix_fn(MIXUP, CUTMIX)
+    key = _cutmix_key((MIXUP, CUTMIX), F2T_BATCH)
+    stages = F2T_TRUNCATE - 4
+    out = {"cutmix_key": list(key)}
+
+    # (a) family 2: launches and card vs CPU
+    def make_f2(device):
+        return gram_attention_init(torch.Generator().manual_seed(301), F2T_TRUNCATE, 4, F2T_S,
+                                   device=device).train()
+
+    def forward_f2(model, images):
+        return gram_attention_apply(model, images, F2T_TRUNCATE, F2T_S, 4)[1]
+
+    setup = setup_gram_attention(cfg, 4, [(None, None)], ema_decay=EMA_DECAY, mix_fn=mix,
+                                 device=DEVICE)
+    model, opt = setup.init(torch.Generator().manual_seed(302))
+    setup.train_step(model, opt, u8[0], labels[0], mix_key=key)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    setup.train_step(model, opt, u8[1], labels[1], mix_key=(0, 0, 1, 0))
+    torch.cuda.synchronize()
+    step_launches = kernels.launch_counts()
+    want = {k: 0 for k in step_launches}
+    want.update(pooled_gram_fwd=stages, pooled_gram_bwd=stages)
+    print(f"[ema_mix] one b{F2T_BATCH} family-2 step with --ema_decay {EMA_DECAY} --mixup "
+          f"{MIXUP} --cutmix {CUTMIX}: launches {step_launches}")
+    _require(step_launches == want, f"one mixed family-2 step's launches {want}")
+    del model, opt, setup
+    out["family2_step_launches"] = step_launches
+    out["family2_card_vs_cpu"] = _mixed_step_vs_cpu("ema_mix family2", make_f2, forward_f2,
+                                                    u8[0], labels[0], mix, key, EMA_DECAY)
+
+    # (b) family 3 at norm "instance" under --mixup
+    f3cfg = MultiPatchGANConfig(batch_size=F3T_BATCH, lr=F3T_LR, norm="instance", seed=0)
+    mixup = make_mix_fn(MIXUP, None)
+
+    def make_f3(device):
+        return multiscale_init(torch.Generator().manual_seed(303), f3cfg.patch_sizes,
+                               ndf=f3cfg.ndf, num_classes=4, norm="instance",
+                               device=device).train()
+
+    def forward_f3(model, images):
+        return multiscale_apply(model, images, "instance", train=True)
+
+    f3 = make_f3(DEVICE)
+    _mixed_step(f3, forward_f3, u8[0], labels[0], mixup, key, None)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _mixed_step(f3, forward_f3, u8[1], labels[1], mixup, key, None)
+    torch.cuda.synchronize()
+    f3_launches = kernels.launch_counts()
+    want = {k: 0 for k in f3_launches}
+    want.update(instance_norm_fwd=F3_NORMS, instance_norm_bwd=F3_NORMS)
+    print(f"[ema_mix] one b{F3T_BATCH} family-3 step (norm instance) with --mixup {MIXUP}: "
+          f"launches {f3_launches}")
+    _require(f3_launches == want, f"one mixed family-3 step's launches {want}")
+    del f3
+    out["family3_step_launches"] = f3_launches
+    out["family3_card_vs_cpu"] = _mixed_step_vs_cpu(
+        "ema_mix family3", make_f3, forward_f3, u8[0][:EM_F3_CPU_BATCH],
+        labels[0][:EM_F3_CPU_BATCH], mixup, key, None, zero_grad=_f3_zero_grad)
+
+    # (c) the family-2 CLI with the three flags: launches, the EMA
+    # artifacts, preemption and resume
+    data = _image_folder(os.path.join(tmp, "em_data"), F2T_PER_CLASS, seed=304, split="train")
+    cfg_path = os.path.join(tmp, "em.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    base = ["--data", data, "--config_path", cfg_path, "--k_folds", "2", "--epochs", "2",
+            "--ema_decay", str(EMA_DECAY), "--mixup", str(MIXUP), "--cutmix", str(CUTMIX),
+            "--device", DEVICE]
+    trees, real = [], po.extract_ema_variables
+
+    def recording(model, opt_state):
+        ev = real(model, opt_state)
+        trees.append(_flatten(to_jax_tree(ev)))
+        return ev
+
+    a = os.path.join(tmp, "em_a")
+    with _deterministic_cudnn():
+        po.extract_ema_variables = recording
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            _train_cli(train_cli, base + ["--save_dir", a])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            cli_launches = kernels.launch_counts()
+        finally:
+            po.extract_ema_variables = real
+        resume = _resume_vs_uninterrupted("ema_mix", train_cli, base, tmp, "em",
+                                          ["best_model_fold_0.npz", "best_model_fold_1.npz"])
+    want = {k: 0 for k in cli_launches}
+    want.update(pooled_gram_fwd=(8 + 4) * stages, pooled_gram_bwd=8 * stages)
+    differ = []
+    for fold, tree in enumerate(trees):
+        saved = _flatten(load_pytree_npz(os.path.join(a, f"best_model_fold_{fold}.npz")))
+        differ += [f"{fold}:{k}" for k in tree if not np.array_equal(saved[k], tree[k])]
+    print(f"[ema_mix] CLI with the three flags, 2 folds x 2 epochs at b{F2T_BATCH}: {cli_s:.1f} "
+          f"s, launches {cli_launches}; {len(trees)} EMA trees taken, fold checkpoint leaves "
+          f"that differ from them: {len(differ)} {differ[:4]}")
+    _require(cli_launches == want, f"the CLI's launches {want}: {cli_launches}")
+    _require(len(trees) == 2 and not differ, "each fold checkpoint is the EMA tree")
+    timings["ema_mix_cli_s"] = cli_s
+    out["cli"] = {"seconds": cli_s, "launches": cli_launches, "ema_trees": len(trees),
+                  "leaves_differ_from_ema": differ, **resume}
+
+    # (d) the step with and without the three flags
+    for dtype in (None, torch.bfloat16):
+        for flags in ("plain", "ema_mix"):
+            name = f"{flags} {'float32' if dtype is None else 'bfloat16'}"
+            setup = setup_gram_attention(
+                cfg, 4, [(None, None)], compute_dtype=dtype,
+                ema_decay=EMA_DECAY if flags == "ema_mix" else None,
+                mix_fn=mix if flags == "ema_mix" else None, device=DEVICE)
+            model, opt = setup.init(torch.Generator().manual_seed(305))
+
+            def step(i=0, setup=setup, model=model, opt=opt):
+                setup.train_step(model, opt, u8[i % 2], labels[i % 2], mix_key=(0, 0, 2, i))
+
+            kernels.reset_launch_counts()
+            out[name] = _timed_step("ema_mix", name, step, F2T_BATCH, F2T_TIMED)
+            out[name]["launches_per_step"] = {
+                k: v / (F2T_TIMED + 4) for k, v in kernels.launch_counts().items() if v}
+            timings[f"ema_mix_{name.replace(' ', '_')}_step_ms"] = out[name]["step_ms"]
+            del model, opt, setup
+    out["launches"] = {k: cli_launches[k] + step_launches[k] + f3_launches[k]
+                       for k in cli_launches}
+    return out
+
+
+def phase_auto_batch(kernels, tmp: str, timings: dict) -> dict:
+    """``--auto_batch --hbm_budget_gb 16`` on family 1's train CLI at full
+    width (truncate 8, dim 256, configured b32, f32, 4 classes x
+    AB_PER_CLASS PNGs, 2 folds, 1 epoch): the probe report (one real step
+    a candidate, the allocator's peak, which must rise with the batch),
+    the adopted batch, its first real step's peak memory under 0.95 x the
+    budget by ``max_memory_allocated``, the adopted batch in the saved
+    hyperparameters, and ``device_hbm_bytes`` for the card."""
+    import contextlib
+    import io
+
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.train_truncated_resnet50 import (
+        main as train_cli,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train import autotune, kfold
+
+    data = _image_folder(os.path.join(tmp, "ab_data"), AB_PER_CLASS, seed=310, split="train")
+    cfg_path = os.path.join(tmp, "ab.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"batch_size": F1T_BATCH, "lr": F1T_LR, "truncate_layer": F1_TRUNCATE,
+                   "dim": F1_DIM, "seed": 0}, f)
+    save = os.path.join(tmp, "ab_out")
+    probes, first = {}, {}
+    real_probe, real_epochs = autotune.train_step_peak_bytes, kfold.train_epochs
+
+    def probe(setup, batch, canvas, device):
+        t0 = time.perf_counter()
+        peak = real_probe(setup, batch, canvas, device)
+        probes[batch] = {"peak_bytes": peak, "seconds": time.perf_counter() - t0}
+        return peak
+
+    def watched(train_step, *args, **kwargs):
+        def step(*a, **k):
+            if "peak_bytes" in first:
+                return train_step(*a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = train_step(*a, **k)
+            torch.cuda.synchronize()
+            first["peak_bytes"] = torch.cuda.max_memory_allocated()
+            return res
+        return real_epochs(step, *args, **kwargs)
+
+    autotune.train_step_peak_bytes, kfold.train_epochs = probe, watched
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            _train_cli(train_cli, ["--data", data, "--config_path", cfg_path, "--k_folds", "2",
+                                   "--epochs", "1", "--save_dir", save, "--auto_batch",
+                                   "--hbm_budget_gb", str(AB_BUDGET_GB), "--device", DEVICE])
+    finally:
+        autotune.train_step_peak_bytes, kfold.train_epochs = real_probe, real_epochs
+    cli_s = time.perf_counter() - t0
+    text = printed.getvalue()
+    report = [line for line in text.splitlines() if "budget" in line or "batch" in line[:9]
+              or line.startswith("--auto_batch")]
+    print("\n".join(f"[auto_batch] {line}" for line in report))
+    with open(os.path.join(save, "best_global_model_hyperparameters.json")) as f:
+        adopted = json.load(f)["batch_size"]
+    peaks = [probes[b]["peak_bytes"] for b in sorted(probes)]
+    hbm = autotune.device_hbm_bytes(DEVICE)
+    limit = 0.95 * AB_BUDGET_GB * autotune.GIB
+    table = {b: (round(p["peak_bytes"] / autotune.GIB, 3), round(p["seconds"], 2))
+             for b, p in sorted(probes.items())}
+    print(f"[auto_batch] probes (batch: GiB, s) {table}; "
+          f"adopted batch {adopted} (the saved hyperparameters; training_info.json holds no "
+          f"batch in either package); its first real step's peak "
+          f"{first.get('peak_bytes', 0) / autotune.GIB:.3f} GiB against {limit / autotune.GIB:.2f} "
+          f"GiB usable; device_hbm_bytes {hbm} ({hbm / autotune.GIB:.2f} GiB); the CLI "
+          f"{cli_s:.1f} s")
+    _require(len(peaks) >= 2 and all(a < b for a, b in zip(peaks, peaks[1:])),
+             "the probes' peaks rise with the batch")
+    _require(adopted > F1T_BATCH and f"adopting batch {adopted}" in text,
+             "a larger batch than the configured one is adopted")
+    _require(0 < first.get("peak_bytes", 0) <= limit,
+             "the adopted batch's first step fits the budget")
+    timings["auto_batch_cli_s"] = cli_s
+    return {"probes": probes, "adopted": adopted, "first_step_peak_bytes": first["peak_bytes"],
+            "budget_bytes": AB_BUDGET_GB * autotune.GIB, "device_hbm_bytes": hbm,
+            "cli_seconds": cli_s, "report": report}
+
+
+def _images_per_s(fn, staged, n: int) -> float:
+    import torch
+
+    fn(staged)
+    fn(staged)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(staged)
+    torch.cuda.synchronize()
+    return staged.shape[0] * n / (time.perf_counter() - t0)
+
+
+def phase_int8(kernels, family1, family2, tmp: str, timings: dict) -> dict:
+    """``--precision int8`` at full width.
+
+    (a) Family 1 (truncate 8, dim 256): the encoder calibrated on the card
+    on INT8_CAL_BATCHES seeded b32 batches and quantised, written as
+    ``q.npz``; one b32 batch's int8 logits on the card against the CPU's
+    int8 forward from the same ``q.npz`` on its first 8 images (within
+    INT8_TOL_LOGITS, argmax equal) and the int8 features against the f32
+    ones on the card (cosine > 0.99 at every image). (b) b32 images/s from
+    staged uint8 (preprocess, forward, logits) in int8, f32 and bf16 in
+    this run, and one profiled int8 forward; INT8_CAMERA_FRAMES b1 camera
+    frames in int8 (host-downscaled RGB), p50 and frames/s, frame 1
+    against the CPU. (c) Family 2 (truncate 8, S 7, b8): calibrated and
+    quantised on the card, one int8 forward launching 4 pooled_gram_fwd
+    and nothing else, its logits against the CPU's. (d) The CLI
+    ``test_truncated_resnet50 --precision int8 --calib_data D
+    --quantized_path q.npz``: a first run writes ``q.npz``, a second loads
+    it and writes metrics.txt byte for byte; then ``--qat_steps 2``
+    fine-tunes on the card and prints JAX's loss line. The family-1 int8
+    path launches no hand-written kernel (cuBLASLt and cuDNN work)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli._common import cast_forward
+    from heuristique_style_transfer_code_tpu_torch.cli.test_truncated_resnet50 import main as cli
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply_int8,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.truncated_resnet50 import (
+        combined_apply_int8,
+    )
+    from heuristique_style_transfer_code_tpu_torch.nn import resnet_int8 as q8
+    from heuristique_style_transfer_code_tpu_torch.nn.resnet import resnet50_apply
+    from heuristique_style_transfer_code_tpu_torch.tasks import camera as cam
+    from heuristique_style_transfer_code_tpu_torch.tools.profile_main_path import _profile
+
+    model, seeded, forward = family1
+    rng = np.random.RandomState(320)
+    u8 = [rng.randint(0, 256, (F1_BATCH, 256, 256, 3)).astype(np.uint8)
+          for _ in range(INT8_CAL_BATCHES + 1)]
+    staged = [torch.as_tensor(b).to(DEVICE) for b in u8]
+    x = [eval_preprocess(s) for s in staged]
+    out = {}
+
+    # (a) PTQ on the card, card vs CPU, int8 vs f32
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    scales = q8.calibrate_activation_scales(model.moco.encoder, x[:INT8_CAL_BATCHES],
+                                            F1_TRUNCATE)
+    q = q8.quantize_resnet50(model.moco.encoder, scales, F1_TRUNCATE, device=DEVICE)
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    qpath = os.path.join(tmp, "int8_family1_q.npz")
+    q8.save_quantized(q, qpath)
+    q_cpu = q8.load_quantized(qpath, device="cpu")
+    with torch.no_grad():
+        logits = combined_apply_int8(q, model.moco, model.classifier, x[-1]).cpu()
+        t0 = time.perf_counter()
+        want = combined_apply_int8(q_cpu, seeded.moco, seeded.classifier, x[-1][:8].cpu())
+        cpu_s = time.perf_counter() - t0
+        gap = float((logits[:8] - want).abs().max())
+        same_argmax = bool(torch.equal(logits[:8].argmax(1), want.argmax(1)))
+        f_i8 = q8.resnet50_apply_int8(q, x[-1]).reshape(F1_BATCH, -1).double()
+        f_32, _ = resnet50_apply(model.moco.encoder, x[-1], F1_TRUNCATE)
+        f_32 = f_32.reshape(F1_BATCH, -1).double()
+        cos = (f_i8 * f_32).sum(1) / (f_i8.norm(dim=1) * f_32.norm(dim=1))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    print(f"[int8] family 1 PTQ on the card ({INT8_CAL_BATCHES} b{F1_BATCH} batches): "
+          f"{ptq_s:.2f} s; b{F1_BATCH} int8 logits vs the CPU's int8 forward from the same "
+          f"q.npz on 8 images ({cpu_s:.1f} s on the CPU): max |dlogit| {gap:.3e} (tol "
+          f"{INT8_TOL_LOGITS}), argmax equal {same_argmax}; int8 vs f32 features on the card: "
+          f"cosine min {float(cos.min()):.5f} (tol 0.99); launches {launches}")
+    _require(gap <= INT8_TOL_LOGITS and same_argmax, "the card's int8 logits are the CPU's")
+    _require(float(cos.min()) > 0.99, "int8 features keep cosine > 0.99 against f32")
+    _require(not any(launches.values()), "the family-1 int8 path launches no hand-written kernel")
+    out["family1"] = {"ptq_seconds": ptq_s, "logit_gap": gap, "argmax_equal": same_argmax,
+                      "cosine_min": float(cos.min()), "cpu_seconds": cpu_s}
+
+    # (b) images/s: int8 beside f32 and bf16, one profiled int8 forward, the camera
+    fwds = {
+        "int8": lambda s: combined_apply_int8(q, model.moco, model.classifier,
+                                              eval_preprocess(s)),
+        "float32": lambda s: forward(model, eval_preprocess(s)),
+        "bfloat16": lambda s: cast_forward(forward, torch.bfloat16)(model, eval_preprocess(s)),
+    }
+    rates = {}
+    with torch.no_grad():
+        for name, fn in fwds.items():
+            rates[name] = _images_per_s(fn, staged[-1], INT8_TIMED)
+        prof = {name: _profile(lambda fn=fwds[name]: fn(staged[-1]), 3)
+                for name in ("int8", "float32")}
+    for name in prof:
+        prof[name]["busy_ms_per_forward"] = prof[name]["device_busy_ms"] / 3
+    print(f"[int8] family 1 b{F1_BATCH} images/s from staged uint8 (preprocess, forward, "
+          f"logits; {INT8_TIMED} forwards on the host clock): "
+          f"{ {k: round(v, 1) for k, v in rates.items()} }; busy a forward (3 profiled): "
+          f"int8 {prof['int8']['busy_ms_per_forward']:.3f} ms, f32 "
+          f"{prof['float32']['busy_ms_per_forward']:.3f} ms; int8 top kernels "
+          f"{[(k['name'][:48], round(k['ms'] / 3, 3)) for k in prof['int8']['top_kernels'][:6]]}")
+    for name, r in rates.items():
+        timings[f"int8_family1_{name}_images_per_s"] = r
+    out["images_per_s"] = rates
+    out["profile"] = {k: {"busy_ms_per_forward": v["busy_ms_per_forward"],
+                          "idle_share": v["idle_share"], "top_kernels": v["top_kernels"][:8]}
+                      for k, v in prof.items()}
+
+    frames = _camera_frames(321)["rgb224"][: INT8_CAMERA_FRAMES + 1]
+    infer = cam.make_camera_infer_fn(
+        lambda m, im: combined_apply_int8(q, m.moco, m.classifier, im), host_downscale=True)
+    infer_cpu = cam.make_camera_infer_fn(
+        lambda m, im: combined_apply_int8(q_cpu, m.moco, m.classifier, im), host_downscale=True)
+    infer(model, frames[0]).cpu()
+    times, first_probs = [], None
+    for f in frames[1:]:
+        t0 = time.perf_counter()
+        p = infer(model, f).cpu()
+        times.append(time.perf_counter() - t0)
+        first_probs = p if first_probs is None else first_probs
+    cam_gap = _probs_gap(first_probs.numpy(), infer_cpu(seeded, frames[1]).numpy())
+    p50 = float(np.median(times)) * 1e3
+    print(f"[int8] camera b1 int8, {len(times)} host-downscaled frames: p50 {p50:.3f} ms, "
+          f"{len(times) / sum(times):.1f} frames/s; frame 1 vs the CPU's int8: {cam_gap:.3e} "
+          f"of the largest probability (tol {INT8_TOL_LOGITS})")
+    _require(cam_gap <= INT8_TOL_LOGITS, "the int8 camera path agrees with the CPU's")
+    timings["int8_camera_p50_ms"] = p50
+    out["camera"] = {"p50_ms": p50, "frames_per_s": len(times) / sum(times), "gap": cam_gap}
+
+    # (c) family 2: pooled_gram_fwd on the dequantised stage maps
+    f2, f2_seeded = family2
+    xb = [x[i][:INT8_F2_BATCH] for i in range(INT8_CAL_BATCHES + 1)]
+    scales2 = q8.calibrate_activation_scales(f2.encoder, xb[:INT8_CAL_BATCHES], 8)
+    q2 = q8.quantize_resnet50(f2.encoder, scales2, 8, device=DEVICE)
+    q2path = os.path.join(tmp, "int8_family2_q.npz")
+    q8.save_quantized(q2, q2path)
+    with torch.no_grad():
+        gram_attention_apply_int8(q2, f2, xb[-1], POOL_S, 4)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        _, logits2 = gram_attention_apply_int8(q2, f2, xb[-1], POOL_S, 4)
+        torch.cuda.synchronize()
+        f2_launches = kernels.launch_counts()
+        _, want2 = gram_attention_apply_int8(q8.load_quantized(q2path, device="cpu"),
+                                             f2_seeded, xb[-1].cpu(), POOL_S, 4)
+    gap2 = float((logits2.cpu() - want2).abs().max())
+    want_l = {k: 0 for k in f2_launches}
+    want_l.update(pooled_gram_fwd=4)
+    print(f"[int8] family 2 b{INT8_F2_BATCH} int8 forward (truncate 8, S {POOL_S}): launches "
+          f"{f2_launches}; logits vs the CPU's int8: max |dlogit| {gap2:.3e} (tol "
+          f"{INT8_TOL_LOGITS})")
+    _require(f2_launches == want_l, f"the family-2 int8 forward's launches {want_l}")
+    _require(gap2 <= INT8_TOL_LOGITS, "the family-2 int8 logits are the CPU's")
+    out["family2"] = {"launches": f2_launches, "logit_gap": gap2}
+
+    # (d) the CLI: write, then load q.npz; --qat_steps on the card
+    data = _image_folder(os.path.join(tmp, "i8_data"), INT8_CLI_PER_CLASS, seed=322,
+                         split="train")
+    _image_folder(data, INT8_CLI_PER_CLASS // 2, seed=323, split="test")
+    cfg = os.path.join(tmp, "i8.json")
+    with open(cfg, "w") as f:
+        json.dump({"batch_size": F1_BATCH, "truncate_layer": F1_TRUNCATE, "dim": F1_DIM,
+                   "seed": 0}, f)
+    have_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    cli_q = os.path.join(tmp, "int8_cli_q.npz")
+
+    def run(save, *extra):
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(printed):
+                cli(["--data", data, "--config_path", cfg, "--model_path",
+                     os.path.join(tmp, "family1.npz"), "--mode", "classification",
+                     "--save_dir", os.path.join(tmp, save), "--prob_threshold", "0",
+                     "--precision", "int8", "--calib_data", data, "--device", DEVICE, *extra])
+        except ModuleNotFoundError as e:  # confusion_matrix.png, after metrics.txt
+            if have_matplotlib or e.name != "matplotlib":
+                raise
+        with open(os.path.join(tmp, save, "metrics.txt"), "rb") as f:
+            return printed.getvalue(), f.read(), time.perf_counter() - t0
+
+    kernels.reset_launch_counts()
+    wrote, m1, s1 = run("i8_a", "--quantized_path", cli_q)
+    loaded, m2, s2 = run("i8_b", "--quantized_path", cli_q)
+    qat, _, s3 = run("i8_qat", "--qat_steps", "2", "--quantized_path",
+                     os.path.join(tmp, "int8_cli_qat.npz"))
+    cli_launches = kernels.launch_counts()
+    qat_line = next((line for line in qat.splitlines() if line.startswith("QAT fine-tune")), "")
+    print(f"[int8] CLI --precision int8: the first run ({s1:.1f} s) wrote q.npz "
+          f"{'Quantised encoder saved' in wrote}, the second ({s2:.1f} s) loaded it "
+          f"{'Quantised encoder saved' not in loaded}, metrics.txt byte-equal {m1 == m2}; "
+          f"--qat_steps 2 ({s3:.1f} s): '{qat_line}'; launches {cli_launches}; matplotlib "
+          f"{have_matplotlib}")
+    _require("Quantised encoder saved" in wrote and "Quantised encoder saved" not in loaded
+             and m1 == m2, "the CLI writes q.npz, then loads it to the same metrics")
+    _require(qat_line.startswith("QAT fine-tune: 2 pas, perte "), "--qat_steps prints its line")
+    _require(not any(cli_launches.values()), "the int8 CLI launches no hand-written kernel")
+    out["cli"] = {"seconds": [s1, s2, s3], "metrics_equal": m1 == m2, "qat_line": qat_line}
+    out["launches"] = {k: f2_launches[k] for k in f2_launches}
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -4214,6 +4800,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     peaks = _peaks(name)
+
+    # whether the card's machine has tensorstore, the storage layer an orbax
+    # checkpoint reader without jax would need (nothing is gated on it)
+    import importlib.metadata
+    import importlib.util
+
+    has_ts = importlib.util.find_spec("tensorstore") is not None
+    print(json.dumps({"tensorstore": has_ts,
+                      "version": importlib.metadata.version("tensorstore") if has_ts else None}))
 
     t0 = time.perf_counter()
     libs = kernels.build_all()
@@ -4292,12 +4887,21 @@ def main() -> int:
         timings["pr17_phases_s"] = time.perf_counter() - t0
         print(f"[remat+family3_serve+dispatch+grad_accum+profile_debug] "
               f"{timings['pr17_phases_s']:.2f} s in all")
+        t0 = time.perf_counter()
+        ema_mix = phase_ema_mix(kernels, tmp, timings)
+        auto_batch = phase_auto_batch(kernels, tmp, timings)
+        int8 = phase_int8(kernels, family1, family2, tmp, timings)
+        timings["ema_mix_auto_batch_int8_phases_s"] = time.perf_counter() - t0
+        print(f"[ema_mix+auto_batch+int8] {timings['ema_mix_auto_batch_int8_phases_s']:.2f} s "
+              f"in all")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"]
-                + f2t["launches"]["pooled_gram_fwd"],
-                "pooled_gram_bwd": f2t["launches"]["pooled_gram_bwd"],
+                + f2t["launches"]["pooled_gram_fwd"] + ema_mix["launches"]["pooled_gram_fwd"]
+                + int8["launches"]["pooled_gram_fwd"],
+                "pooled_gram_bwd": f2t["launches"]["pooled_gram_bwd"]
+                + ema_mix["launches"]["pooled_gram_bwd"],
                 "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"]
                 + fst_launches["gram_fwd"] + f3_serve["launches"]["gram_fwd"],
                 "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"]
@@ -4305,11 +4909,13 @@ def main() -> int:
                 "instance_norm_fwd": fs_launches["instance_norm_fwd"]
                 + fst_launches["instance_norm_fwd"] + f3t["launches"]["instance_norm_fwd"]
                 + remat["launches"]["instance_norm_fwd"]
-                + f3_serve["launches"]["instance_norm_fwd"],
+                + f3_serve["launches"]["instance_norm_fwd"]
+                + ema_mix["launches"]["instance_norm_fwd"],
                 "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]
                 + fst_launches["instance_norm_bwd"] + f3t["launches"]["instance_norm_bwd"]
                 + remat["launches"]["instance_norm_bwd"]
-                + f3_serve["launches"]["instance_norm_bwd"]}
+                + f3_serve["launches"]["instance_norm_bwd"]
+                + ema_mix["launches"]["instance_norm_bwd"]}
     idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
@@ -4345,7 +4951,8 @@ def main() -> int:
                    "content_style_serve": cs_serve, "fast_style_train": fst,
                    "family2_train": f2t, "family1_train": f1t, "family3_train": f3t,
                    "remat": remat, "family3_serve": f3_serve, "dispatch": dispatch,
-                   "grad_accum": accum, "profile_debug": profile_debug}, f, indent=1)
+                   "grad_accum": accum, "profile_debug": profile_debug, "ema_mix": ema_mix,
+                   "auto_batch": auto_batch, "int8": int8}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
 """Shared CLI plumbing (the parts of ``cli/_common.py`` of the JAX package
 that the evaluation CLIs of families 1, 2 and 3, ``serve_style`` and the
-train CLIs of families 1, 2 and 3 need)."""
+train CLIs of families 1, 2 and 3 need): the train flags, ``--auto_batch``,
+the mixing and EMA hooks, and the int8 builders of the family-1 and
+family-2 evaluation CLIs."""
 from __future__ import annotations
 
 import contextlib
@@ -147,8 +149,9 @@ def make_writer(enabled: bool, save_dir: str, sub: str = "tensorboard"):
 
 
 def resolve_compute_dtype(precision: Optional[str]) -> Optional[torch.dtype]:
-    """--precision -> compute dtype (None = float32 passthrough)."""
-    if precision in (None, "float32"):
+    """--precision -> compute dtype (None = float32 passthrough). "int8"
+    gives None, as in JAX: the quantised path handles its dtypes itself."""
+    if precision in (None, "float32", "int8"):
         return None
     if precision == "bf16":
         return torch.bfloat16
@@ -232,7 +235,8 @@ def add_train_args(parser) -> None:
     ``TRAIN_NOT_PORTED`` parse but raise "not ported yet" at any other
     value than their default (``check_ported``)."""
     parser.add_argument("--checkpoint_format", choices=["npz", "orbax"], default="npz",
-                        help="Checkpoint backend for saved models (orbax: not ported yet)")
+                        help="Checkpoint backend for saved models (orbax: not ported yet, "
+                        "since orbax.checkpoint imports jax)")
     parser.add_argument("--resume", action="store_true",
                         help="Continue an interrupted run from its last completed epoch "
                         "(bit-identical on the CPU; uses the in-progress checkpoint the "
@@ -254,8 +258,16 @@ def add_train_args(parser) -> None:
                         "same gradients and running statistics, less activation memory, "
                         "about a third more forward work")
     parser.add_argument("--parallel_folds", action="store_true", help="Not ported yet")
-    parser.add_argument("--auto_batch", action="store_true", help="Not ported yet")
-    parser.add_argument("--hbm_budget_gb", type=float, default=None, help="Not ported yet")
+    parser.add_argument("--auto_batch", action="store_true",
+                        help="Probe doubling batch sizes and adopt the largest whose train "
+                        "step fits the memory budget: on the card one real step each, read "
+                        "from the allocator's peak (an out-of-memory probe is a miss); on "
+                        "the CPU an estimate (parameters, gradients, optimiser state, staged "
+                        "batch and the tensors autograd saves). Exclusive with "
+                        "--grad_accum>1 and --lr_schedule/--warmup_steps")
+    parser.add_argument("--hbm_budget_gb", type=float, default=None,
+                        help="Memory budget for --auto_batch in GiB (default: the card's "
+                        "total memory; required on the CPU)")
     parser.add_argument("--lr_schedule", choices=["constant", "cosine", "linear"],
                         default="constant",
                         help="Learning-rate schedule over each fold's steps (default: the "
@@ -271,26 +283,31 @@ def add_train_args(parser) -> None:
                         help="Label smoothing for the training cross-entropy "
                         "(F.cross_entropy semantics; validation losses stay unsmoothed)")
     parser.add_argument("--mixup", type=float, default=None, metavar="ALPHA",
-                        help="Not ported yet")
+                        help="Mixup with lambda ~ Beta(ALPHA, ALPHA): the augmented batch "
+                        "is blended with a rolled copy of itself and the train loss is "
+                        "lam*CE(y) + (1-lam)*CE(y_partner) (timm batch mode; train loss "
+                        "only)")
     parser.add_argument("--cutmix", type=float, default=None, metavar="ALPHA",
-                        help="Not ported yet")
+                        help="CutMix: a box of area share 1-lambda from a rolled copy of "
+                        "the batch, lambda corrected to the clipped box's pixel share; with "
+                        "--mixup too, a fair coin a batch picks one")
     parser.add_argument("--ema_decay", type=float, default=None, metavar="DECAY",
-                        help="Not ported yet")
+                        help="Keep an exponential moving average of the weights (decay per "
+                        "optimiser step, e.g. 0.999) in the optimiser state and evaluate "
+                        "and save every fold artifact from it (batch-norm statistics stay "
+                        "live); training itself is unchanged")
     parser.add_argument("--early_stop", type=int, default=None, metavar="PATIENCE",
                         help="Validate after every epoch and stop a fold after PATIENCE "
                         "consecutive epochs without a new best validation loss; fold "
                         "artifacts then describe the best epoch's weights")
 
 
-# the train flags this port does not run yet -> their defaults
+# the train flags this port does not run yet -> their defaults: ZeRO-1 and
+# fold-parallel training need several cards; orbax checkpoints need
+# orbax.checkpoint, which imports jax
 TRAIN_NOT_PORTED = {
     "zero1": False,
     "parallel_folds": False,
-    "auto_batch": False,
-    "hbm_budget_gb": None,
-    "mixup": None,
-    "cutmix": None,
-    "ema_decay": None,
     "checkpoint_format": "npz",
 }
 
@@ -370,6 +387,13 @@ def resolve_lr_schedule(args, cfg, n_samples: int, k_folds: int):
     clip = args.clip_grad_norm
     if name == "constant" and warmup == 0:
         return None, clip
+    if getattr(args, "auto_batch", False):
+        raise SystemExit(
+            "--lr_schedule/--warmup_steps are exclusive with --auto_batch: "
+            "the schedule horizon is fixed per batch size before the probe "
+            "runs; pick the batch first (run --auto_batch alone), then "
+            "schedule at that batch"
+        )
     from ..train.schedules import make_lr_schedule, steps_per_fold
 
     total = steps_per_fold(n_samples, k_folds, cfg.batch_size, args.epochs)
@@ -384,8 +408,10 @@ def signature_extra_from_args(args) -> Optional[dict]:
     """The step configuration that changes a run's numbers and lives
     outside the model's hyperparameters, for the resume signature (the JAX
     ``signature_extra_from_args``, over the flags the port runs; the ones it
-    refuses never get here). Each entry is left out at its default. Unlike
-    the JAX one, it holds ``--freeze_layers``: a resume that freezes
+    refuses never get here). Each entry is left out at its default: a
+    resume under another ``--ema_decay`` (the optimiser state's structure),
+    ``--mixup`` or ``--cutmix`` (the trajectory) is refused, as in JAX.
+    Unlike the JAX one, it holds ``--freeze_layers``: a resume that freezes
     another set of parameters is refused."""
     extra = {}
     n = int(getattr(args, "grad_accum", 1) or 1)
@@ -396,7 +422,8 @@ def signature_extra_from_args(args) -> Optional[dict]:
         ("num_color_transforms", 0), ("num_geom_transforms", 0), ("geom_transforms", None),
         ("lr_schedule", "constant"), ("warmup_steps", 0),
         ("min_lr_ratio", 0.0), ("clip_grad_norm", None), ("label_smoothing", 0.0),
-        ("early_stop", None), ("freeze_encoder", False), ("freeze_layers", False),
+        ("early_stop", None), ("ema_decay", None), ("freeze_encoder", False),
+        ("freeze_layers", False), ("mixup", None), ("cutmix", None),
     ):
         val = getattr(args, flag, default)
         if val != default and val is not None:
@@ -406,10 +433,277 @@ def signature_extra_from_args(args) -> Optional[dict]:
 
 def make_save_fn(checkpoint_format: str):
     """The checkpoint writer for ``run_kfold``: npz (the
-    ``<name>.npz`` + ``<name>_hyperparameters.json`` pair); orbax raises
-    "not ported yet"."""
+    ``<name>.npz`` + ``<name>_hyperparameters.json`` pair). orbax raises
+    "not ported yet": ``orbax.checkpoint`` imports jax, which the port
+    never does, and the card's machine lacks ``tensorstore``, its storage
+    layer, which would serve without jax (``chip_smoke.py`` prints
+    whether it is there)."""
     if checkpoint_format != "npz":
         raise NotImplementedError(f"--checkpoint_format {checkpoint_format} is not ported yet")
     from ..checkpoint.io import save_model_and_hyperparameters
 
     return save_model_and_hyperparameters
+
+
+def resolve_mix_fn(args):
+    """``train/mixing.make_mix_fn`` from ``--mixup``/``--cutmix``; None
+    when both are off (the step is then the unmixed one)."""
+    mixup = getattr(args, "mixup", None)
+    cutmix = getattr(args, "cutmix", None)
+    if mixup is None and cutmix is None:
+        return None
+    from ..train.mixing import make_mix_fn
+
+    return make_mix_fn(mixup_alpha=mixup, cutmix_alpha=cutmix)
+
+
+def _ema_eval_fn(args):
+    """``run_kfold(eval_variables_fn=)`` for ``--ema_decay``: every fold
+    artifact is evaluated and saved from the EMA weights the optimiser
+    state carries; None when the flag is off."""
+    if getattr(args, "ema_decay", None) is None:
+        return None
+    from ..train.optim import extract_ema_variables
+
+    return extract_ema_variables
+
+
+def apply_auto_batch(args, setup, cfg, hyperparameters=None, device="cuda") -> None:
+    """``--auto_batch`` (the JAX ``apply_auto_batch``): probe the doubling
+    ladder from ``cfg.batch_size`` with ``train/autotune`` on ``device``
+    and adopt the largest batch that fits the budget. Mutates
+    ``cfg.batch_size`` and ``hyperparameters`` (the saved
+    ``_hyperparameters.json`` files and the resume signature); call it
+    before anything reads them."""
+    if not getattr(args, "auto_batch", False):
+        return
+    if getattr(args, "grad_accum", 1) > 1 or getattr(args, "parallel_folds", False):
+        raise SystemExit(
+            "--auto_batch is exclusive with --grad_accum>1 and "
+            "--parallel_folds (those dispatch different step programs than "
+            "the one the probe measures)"
+        )
+    from ..data.loader import STAGING_SIZE
+    from ..train.autotune import (
+        GIB,
+        autotune_batch,
+        batch_candidates,
+        describe_report,
+        device_hbm_bytes,
+        train_step_peak_bytes,
+    )
+
+    budget = (int(args.hbm_budget_gb * GIB) if args.hbm_budget_gb
+              else device_hbm_bytes(device))
+    if budget is None:
+        raise SystemExit(
+            "--auto_batch: this backend does not report a memory budget; "
+            "pass --hbm_budget_gb"
+        )
+    cands = batch_candidates(cfg.batch_size)
+    chosen, report = autotune_batch(
+        lambda b: train_step_peak_bytes(setup, b, STAGING_SIZE, device), budget, cands)
+    print(describe_report(report, budget))
+    if chosen is None:
+        raise SystemExit(
+            f"--auto_batch: even batch {cands[0]} exceeds the budget; try "
+            "--remat and/or --grad_accum"
+        )
+    if chosen != cfg.batch_size:
+        print(f"--auto_batch: adopting batch {chosen} (configured {cfg.batch_size})")
+        cfg.batch_size = chosen
+        if hyperparameters is not None:
+            hyperparameters["batch_size"] = chosen
+    else:
+        print(f"--auto_batch: keeping configured batch {cfg.batch_size}")
+
+
+# ------------------------------------------------------------------ int8
+
+
+def add_calib_data_arg(parser) -> None:
+    """``--calib_data``, ``--qat_steps`` and ``--qat_lr`` of the int8
+    evaluation CLIs (JAX ``:358-378``)."""
+    parser.add_argument(
+        "--calib_data", type=str, default=None,
+        help="ImageFolder root for int8 activation calibration (its train/ split when "
+        "present, else test/). Default: the --data root's train/ split; the evaluated "
+        "test split only as a last resort, with a printed warning")
+    parser.add_argument(
+        "--qat_steps", type=int, default=0,
+        help="With --precision int8: quantization-aware fine-tune for N SGD steps through "
+        "the fake-quant forward (nn/resnet_qat.py) on the calibration split before export. "
+        "0 (default) = plain PTQ. Ignored when --quantized_path already exists")
+    parser.add_argument("--qat_lr", type=float, default=1e-4,
+                        help="Learning rate for the --qat_steps fine-tune (SGD momentum 0.9)")
+
+
+def make_calibration_loader(args, batch_size: int):
+    """The int8 calibration source (JAX ``make_calibration_loader``):
+    ``--calib_data`` when given, else ``--data``; within it the ``train/``
+    split, else ``test/`` (with JAX's warning when that is the evaluated
+    split). Classes are interleaved round-robin, since only the first
+    batches calibrate."""
+    root = getattr(args, "calib_data", None) or getattr(args, "data", None)
+    if not root:
+        raise ValueError(
+            "--precision int8 nécessite --calib_data (ou --data) pour la "
+            "calibration"
+        )
+    train_dir = os.path.join(root, "train")
+    test_dir = os.path.join(root, "test")
+    if os.path.isdir(train_dir):
+        chosen = train_dir
+    elif os.path.isdir(test_dir):
+        chosen = test_dir
+        if not getattr(args, "calib_data", None):
+            print(
+                "Avertissement: calibration int8 sur le split de test évalué "
+                "(aucun split train/ sous --data) — les métriques int8 "
+                "peuvent être légèrement optimistes; fournissez --calib_data."
+            )
+    else:
+        raise ValueError(
+            f"Aucun split train/ ou test/ trouvé sous {root} pour la "
+            "calibration int8"
+        )
+    from ..data.imagefolder import ImageFolderIndex
+    from ..data.loader import HostLoader
+
+    idx = ImageFolderIndex(chosen)
+    by_class: dict = {}
+    for s in idx.samples:
+        by_class.setdefault(s[1], []).append(s)
+    groups = [by_class[k] for k in sorted(by_class)]
+    samples = []
+    for i in range(max(len(g) for g in groups)):
+        for g in groups:
+            if i < len(g):
+                samples.append(g[i])
+    return HostLoader(samples, min(batch_size, 32), shuffle=False)
+
+
+def collect_calibration_batches(loader, n: int = 2, with_labels: bool = False,
+                                device="cuda"):
+    """The first ``n`` batches through the evaluation preprocess on
+    ``device``: the tensors the quantised encoder will take.
+    ``with_labels``: (images, labels) pairs for the QAT fine-tune (pad
+    entries keep label -1, which the loss masks)."""
+    from ..data.augment import eval_preprocess
+
+    cal = []
+    for bi, b in enumerate(loader):
+        images = eval_preprocess(torch.as_tensor(b["image"]).to(device))
+        if with_labels:
+            cal.append((images, torch.as_tensor(np.asarray(b["label"])).to(device)))
+        else:
+            cal.append(images)
+        if bi >= n - 1:
+            break
+    return cal
+
+
+def calibration_inputs(args, batch_size: int, device):
+    """(calibration batches, labelled batches or None) of the int8 CLIs:
+    the first 2 batches of ``make_calibration_loader``, or with
+    ``--qat_steps`` 4 labelled ones for the fine-tune, whose first 2
+    calibrate (JAX's CLIs); (None, None) when ``--quantized_path`` exists
+    (nothing to calibrate)."""
+    if args.quantized_path and os.path.exists(args.quantized_path):
+        return None, None
+    loader = make_calibration_loader(args, batch_size)
+    if args.qat_steps:
+        labeled = collect_calibration_batches(loader, n=4, with_labels=True, device=device)
+        return [images for images, _ in labeled[:2]], labeled
+    return collect_calibration_batches(loader, device=device), None
+
+
+def _quantized_encoder(model, encoder, truncate: int, cal_batches, quantized_path,
+                       qat_steps: int, qat_lr: float, labeled_batches, qat_logits):
+    """``encoder`` (a part of ``model``) quantised: loaded from
+    ``quantized_path`` when it exists, else calibrated on ``cal_batches``,
+    with ``qat_steps`` > 0 the whole ``model`` fine-tuned first through
+    ``qat_logits(model, scales, images)`` on ``labeled_batches``, then
+    quantised and, with a path, saved."""
+    from ..nn.resnet_int8 import (
+        calibrate_activation_scales,
+        load_quantized,
+        quantize_resnet50,
+        save_quantized,
+    )
+
+    device = next(encoder.parameters()).device
+    if quantized_path and os.path.exists(quantized_path):
+        return load_quantized(quantized_path, device=device)
+    if cal_batches is None:
+        raise ValueError("int8 needs calibration batches (or an existing quantized_path)")
+    scales = calibrate_activation_scales(encoder, cal_batches, truncate)
+    if qat_steps:
+        if not labeled_batches:
+            raise ValueError("--qat_steps needs labeled calibration batches")
+        from ..train.qat import qat_finetune
+
+        qat_finetune(model, lambda m, x: qat_logits(m, scales, x), labeled_batches, qat_steps,
+                     qat_lr)
+    q = quantize_resnet50(encoder, scales, truncate, device=device)
+    if quantized_path:
+        save_quantized(q, quantized_path)
+        print(f"Quantised encoder saved to {quantized_path}")
+    return q
+
+
+def build_int8_family1(model, truncate: int, cal_batches=None, keep_encoder: bool = False,
+                       quantized_path: Optional[str] = None, qat_steps: int = 0,
+                       qat_lr: float = 1e-4, labeled_batches=None):
+    """The family-1 int8 setup (JAX ``build_int8_family1``): the encoder
+    post-training quantised (or loaded from ``quantized_path``), the MoCo
+    fc and the classifier kept in float. ``qat_steps`` > 0 first
+    fine-tunes encoder and heads through the fake-quant forward on
+    ``labeled_batches``. The float encoder is dropped from ``model`` unless
+    ``keep_encoder`` (Grad-CAM needs it). Returns (forward_eval, embed_fn,
+    model) with ``forward_eval(model, images) -> logits`` and
+    ``embed_fn(model, images) -> embeddings``."""
+    from ..models.truncated_resnet50 import combined_apply_int8, combined_apply_qat
+    from ..nn.resnet_int8 import resnet50_apply_int8
+    from ..ops.pooling import global_avg_pool
+
+    q = _quantized_encoder(
+        model, model.moco.encoder, truncate, cal_batches, quantized_path, qat_steps, qat_lr,
+        labeled_batches,
+        lambda m, scales, x: combined_apply_qat(m.moco, m.classifier, scales, x, truncate))
+    if not keep_encoder:
+        model.moco.encoder = None
+
+    def forward_eval(m, images):
+        return combined_apply_int8(q, m.moco, m.classifier, images.float())
+
+    def embed_fn(m, images):
+        return m.moco.fc(global_avg_pool(resnet50_apply_int8(q, images.float())))
+
+    return forward_eval, embed_fn, model
+
+
+def build_int8_family2(model, truncate: int, gram_matrix_size: int, num_classes: int,
+                       cal_batches=None, quantized_path: Optional[str] = None,
+                       qat_steps: int = 0, qat_lr: float = 1e-4, labeled_batches=None):
+    """The family-2 int8 setup (JAX ``build_int8_family2``): the encoder
+    post-training quantised at ``min(truncate, 8)`` (or loaded), the
+    pooled Grams (``pooled_gram_fwd`` on the card) of the dequantised
+    stage maps, attention and classifier in float. ``qat_steps`` > 0
+    fine-tunes the whole model through the fake-quant forward first. The
+    float encoder is dropped. Returns (apply_eval, model) with
+    ``apply_eval(model, images) -> (embeddings, logits)``."""
+    from ..models.gram_attention import gram_attention_apply_int8, gram_attention_apply_qat
+
+    s = gram_matrix_size
+
+    q = _quantized_encoder(
+        model, model.encoder, min(truncate, 8), cal_batches, quantized_path, qat_steps, qat_lr,
+        labeled_batches,
+        lambda m, scales, x: gram_attention_apply_qat(m, scales, x, truncate, s, num_classes)[1])
+    model.encoder = None
+
+    def apply_eval(m, images):
+        return gram_attention_apply_int8(q, m, images.float(), s, num_classes)
+
+    return apply_eval, model

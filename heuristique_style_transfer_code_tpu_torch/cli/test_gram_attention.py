@@ -12,8 +12,14 @@ Ported: ``--mode classification`` (``classification_results.json``),
 (a camera or a video file, ``--classes`` required), with ``--precision
 float32|bf16``, ``--remat`` (style transfer), ``--steps_per_dispatch``
 (classification and the t-SNE modes), ``--profile_dir`` and
-``--debug_nans``. The flags listed in ``_NOT_PORTED`` raise a "not ported
-yet" error.
+``--debug_nans``, and ``--precision int8`` in the classification and
+t-SNE modes (the JAX CLI's): the encoder post-training quantised
+(``nn/resnet_int8.py``; the pooled Grams of its dequantised stage maps
+still through ``pooled_gram_fwd``), calibrated on ``--calib_data``
+(default the ``--data`` train/ split), loaded from ``--quantized_path``
+when that file exists and written there when it does not, with
+``--qat_steps``/``--qat_lr`` a quantization-aware fine-tune first. The
+flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
 ``--model_path`` takes the JAX package's ``.npz``, a reference ``.pth``
 (``checkpoint/pth_converter.py``) or a family-1 checkpoint, whose encoder
 is reused under a fresh gram/attention head.
@@ -27,7 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from ..data.imagefolder import ImageFolderIndex
 from ..data.loader import HostLoader
 from ..models.gram_attention import GramAttention, gram_attention_apply, gram_attention_init
 from ._common import (
+    add_calib_data_arg,
     cast_forward,
     check_ported,
     count_params,
@@ -98,14 +105,18 @@ def build_parser():
     parser.add_argument("--style_init", choices=["content", "noise"], default="content",
                         help="Pixel initialisation for --style_image runs: the content image "
                         "or normal noise like the texture loop")
-    parser.add_argument("--quantized_path", type=str, default=None)
+    parser.add_argument("--quantized_path", type=str, default=None,
+                        help="Persisted quantised-encoder npz (int8, the JAX package's "
+                        "layout): loaded if present (no calibration), else written after "
+                        "calibration")
     parser.add_argument("--afficher_params", action="store_true")
     parser.add_argument("--compute_auc", action="store_true",
                         help="Calculer le score AUC pour le modèle")
     parser.add_argument("--camera_index", type=str, default="0")
     parser.add_argument("--device_preprocess", action="store_true")
     parser.add_argument("--precision", choices=["float32", "bf16", "int8"], default="float32",
-                        help="float32 or bf16 (int8 is not ported yet)")
+                        help="Compute precision: float32, bf16, or int8 (the post-training "
+                        "quantised encoder; classification and t-SNE modes)")
     parser.add_argument("--devices", type=int, default=None, help="Not ported yet")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of the run to this directory")
@@ -117,9 +128,7 @@ def build_parser():
                         "ensemble, leurs K passes lancées à la suite, une seule lecture — "
                         "résultats identiques). Incompatible avec --measure_time "
                         "(times_test.json est par batch)")
-    parser.add_argument("--calib_data", type=str, default=None)
-    parser.add_argument("--qat_steps", type=int, default=0)
-    parser.add_argument("--qat_lr", type=float, default=1e-4)
+    add_calib_data_arg(parser)
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu; there is no silent fallback")
     return parser
@@ -181,12 +190,15 @@ def run_classification(
     compute_dtype: Optional[torch.dtype] = None,
     compute_auc: bool = False,
     steps_per_dispatch: int = 1,
+    apply_fn: Optional[Callable] = None,
 ) -> dict:
     """``--mode classification`` over any iterable of ``HostLoader``
     batches: weighted precision/recall/F1 (and AUC) of the valid entries,
     written to ``save_dir/classification_results.json``. Each batch's
     argmax and probabilities come back in one fetch, or K batches' with
-    ``steps_per_dispatch`` K (``core/dispatch.py``), the same values."""
+    ``steps_per_dispatch`` K (``core/dispatch.py``), the same values.
+    ``apply_fn(model, images) -> (embeddings, logits)`` replaces the float
+    forward (the int8 one)."""
     from ..core.dispatch import dispatched_eval_iter
     from ..data.augment import eval_preprocess
     from ..metrics.classification import weighted_precision_recall_f1
@@ -195,7 +207,11 @@ def run_classification(
         images = eval_preprocess(images_u8)
         if compute_dtype is not None:
             images = images.to(compute_dtype)
-        _, logits = gram_attention_apply(model, images, truncate, gram_matrix_size, num_classes)
+        if apply_fn is not None:
+            _, logits = apply_fn(model, images)
+        else:
+            _, logits = gram_attention_apply(model, images, truncate, gram_matrix_size,
+                                             num_classes)
         pr = torch.softmax(logits.float(), dim=-1)
         return torch.cat([torch.argmax(logits, dim=-1, keepdim=True).float(), pr], dim=1)
 
@@ -218,6 +234,25 @@ def run_classification(
         json.dump(results, f, indent=4)
     print(f"Classification results saved to {results_path}")
     return results
+
+
+def _int8(args, model, cfg, truncate: int, s: int, num_classes: int, device):
+    """``--precision int8`` (JAX ``:159-195``), in the classification and
+    t-SNE modes only: the PTQ encoder, calibrated on the calibration split
+    (``calibration_inputs``) or loaded from ``--quantized_path``. Returns
+    (model, apply_eval)."""
+    if args.mode not in ("classification", "tsne", "tsne_interactive"):
+        raise ValueError(
+            "--precision int8 est disponible pour les modes "
+            "classification/tsne/tsne_interactive uniquement"
+        )
+    from ._common import build_int8_family2, calibration_inputs
+
+    cal, labeled = calibration_inputs(args, args.batch_size or cfg.batch_size, device)
+    apply_eval, model = build_int8_family2(
+        model, truncate, s, num_classes, cal, quantized_path=args.quantized_path,
+        qat_steps=args.qat_steps, qat_lr=args.qat_lr, labeled_batches=labeled)
+    return model, apply_eval
 
 
 def main(argv=None):
@@ -253,11 +288,16 @@ def _run(args) -> None:
     def apply_eval(m, images):
         return gram_attention_apply(m, images, truncate, s, num_classes)
 
+    int8_fn = None
+    if args.precision == "int8":
+        model, int8_fn = _int8(args, model, cfg, truncate, s, num_classes, device)
+        apply_eval = int8_fn
+
     if args.mode == "classification":
         run_classification(model, loader, args.save_dir, truncate=truncate,
                            gram_matrix_size=s, num_classes=num_classes,
                            compute_dtype=dtype, compute_auc=args.compute_auc,
-                           steps_per_dispatch=args.steps_per_dispatch)
+                           steps_per_dispatch=args.steps_per_dispatch, apply_fn=int8_fn)
     elif args.mode in ("tsne", "tsne_interactive"):
         from ..tasks.embeddings import compute_embeddings_with_paths
 

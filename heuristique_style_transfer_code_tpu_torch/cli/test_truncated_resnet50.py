@@ -16,8 +16,14 @@ then ``tsne_plot.png``, the Tk GUI or its static fallback without
 ``DISPLAY``, or ``<class>_clustering_results.json``), ``--list_cameras``,
 ``--precision float32|bf16``, ``--steps_per_dispatch`` (classification,
 inference and the embedding modes), ``--profile_dir`` and
-``--debug_nans``. The flags listed in ``_NOT_PORTED`` raise a "not ported
-yet" error.
+``--debug_nans``, and ``--precision int8`` in every mode: the encoder
+post-training quantised (``nn/resnet_int8.py``), calibrated on
+``--calib_data`` (default the ``--data`` train/ split), loaded from
+``--quantized_path`` when that file exists and written there after
+calibration when it does not, with ``--qat_steps``/``--qat_lr`` a
+quantization-aware fine-tune before the export; Grad-CAM keeps the float
+encoder. The flags listed in ``_NOT_PORTED`` raise a "not ported yet"
+error.
 ``--model_path`` takes the JAX package's ``.npz`` or a reference ``.pth``
 (``checkpoint/pth_converter.py``).
 
@@ -39,6 +45,7 @@ from ..data.imagefolder import ImageFolderIndex
 from ..data.loader import HostLoader
 from ..models.truncated_resnet50 import combined_apply, truncated_moco_apply
 from ._common import (
+    add_calib_data_arg,
     add_device_args,
     cast_forward,
     check_ported,
@@ -111,10 +118,11 @@ def build_parser():
                         "ensemble, leurs K passes lancées à la suite, une seule lecture — "
                         "résultats identiques). Incompatible avec --measure_time "
                         "(times_test.json est par batch)")
-    parser.add_argument("--calib_data", type=str, default=None)
-    parser.add_argument("--qat_steps", type=int, default=0)
-    parser.add_argument("--qat_lr", type=float, default=1e-4)
-    parser.add_argument("--quantized_path", type=str, default=None)
+    add_calib_data_arg(parser)
+    parser.add_argument("--quantized_path", type=str, default=None,
+                        help="Persisted quantised-encoder npz (int8, the JAX package's "
+                        "layout): loaded if present (no calibration), else written after "
+                        "calibration")
     return parser
 
 
@@ -156,6 +164,29 @@ def write_embeddings_json(emb, labels, model_path: str, save_dir: str) -> str:
     return path
 
 
+def _int8(args, model, truncate: int, device):
+    """``--precision int8`` (JAX ``:162-200``): the PTQ encoder, calibrated
+    on the calibration split (``calibration_inputs``) or loaded from
+    ``--quantized_path``. Returns (forward_eval, embed_fn)."""
+    from ._common import build_int8_family1, calibration_inputs
+
+    has_quantized = args.quantized_path and os.path.exists(args.quantized_path)
+    if args.mode in ("camera", "inference") and not (args.data or args.calib_data
+                                                     or has_quantized):
+        raise ValueError(
+            "--precision int8 nécessite un dataset de calibration "
+            "(--calib_data ou --data) ou un --quantized_path existant; "
+            f"utilisez bf16 pour le mode {args.mode} sans dataset"
+        )
+    cal, labeled = calibration_inputs(args, args.batch_size, device)
+    forward_eval, embed_fn, _ = build_int8_family1(
+        model, truncate, cal,
+        keep_encoder=args.visualize_gradcam or args.save_gradcam_images,
+        quantized_path=args.quantized_path, qat_steps=args.qat_steps, qat_lr=args.qat_lr,
+        labeled_batches=labeled)
+    return forward_eval, embed_fn
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
@@ -194,6 +225,8 @@ def _run(args) -> None:
     dtype = resolve_compute_dtype(args.precision)
     forward_eval = cast_forward(forward_eval, dtype)
     embed_fn = cast_forward(embed_fn, dtype)
+    if args.precision == "int8":
+        forward_eval, embed_fn = _int8(args, model, truncate, device)
 
     def make_loader():
         if not args.data:

@@ -22,8 +22,11 @@ discriminators is ``instance_norm_fwd`` on the card and its gradient
 ``--async_checkpoint``, ``--lr_schedule``, ``--warmup_steps``,
 ``--min_lr_ratio``, ``--clip_grad_norm``, ``--label_smoothing``,
 ``--early_stop``, ``--tensorboard``, ``--precision float32|bf16``,
-``--remat``, ``--grad_accum``, ``--steps_per_dispatch``, ``--profile_dir``
-and ``--debug_nans`` run;
+``--remat``, ``--grad_accum``, ``--steps_per_dispatch``, ``--profile_dir``,
+``--debug_nans``, ``--ema_decay`` (every fold artifact from the weights'
+EMA), ``--mixup``/``--cutmix`` (``train/mixing.py``) and ``--auto_batch``
+with ``--hbm_budget_gb`` (``train/autotune.py``: on the CPU an estimate)
+run;
 the flags of ``cli/_common.TRAIN_NOT_PORTED`` and ``--devices`` other than
 1 raise "not ported yet". Each fold's fresh weights come from
 ``torch.Generator().manual_seed(seed + fold)``, not from ``jax.random``.
@@ -77,12 +80,15 @@ def main(argv=None):
     from ..train.kfold import run_kfold
     from ..train.preemption import PreemptedError
     from ._common import (
+        _ema_eval_fn,
+        apply_auto_batch,
         apply_grad_accum,
         load_checkpoint_tree,
         make_save_fn,
         make_writer,
         resolve_compute_dtype,
         resolve_lr_schedule,
+        resolve_mix_fn,
         resolve_seed,
         runtime_flags,
         signature_extra_from_args,
@@ -114,7 +120,8 @@ def main(argv=None):
         cfg, num_classes, [(None, None)], pretrained=pretrained,
         compute_dtype=resolve_compute_dtype(args.precision), lr_schedule=lr_schedule,
         clip_norm=clip_norm, label_smoothing=args.label_smoothing, ema_decay=args.ema_decay,
-        remat=args.remat, device=device)
+        mix_fn=resolve_mix_fn(args), remat=args.remat, device=device)
+    apply_auto_batch(args, setup, cfg, hyperparameters, device)
     apply_grad_accum(args, setup, cfg.batch_size)
 
     def init_fn(fold):
@@ -139,6 +146,7 @@ def main(argv=None):
                 async_checkpoint=args.async_checkpoint,
                 signature_extra=signature_extra_from_args(args),
                 early_stop=args.early_stop,
+                eval_variables_fn=_ema_eval_fn(args),
                 kfold_random_state=KFOLD_RANDOM_STATE,
                 save_every_fold=True,
                 performance_filename="retrained_performance.json",

@@ -59,7 +59,9 @@ class HostLoader:
     ints) each batch also carries ``"draws"``, the (B, N_DRAWS)
     augmentation uniforms of ``data.augment.batch_draws(draw_key + (epoch,
     batch index))``: the same numbers for a batch however the epoch was
-    reached (``set_epoch``, ``set_position``)."""
+    reached (``set_epoch``, ``set_position``), and ``"mix_key"``, that
+    tuple itself, from which ``train/mixing.py`` draws the batch's mixing
+    on a generator of its own."""
 
     def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int,
                  combo_ids: Optional[Sequence[int]] = None, shuffle: bool = False,
@@ -131,7 +133,8 @@ class HostLoader:
             if self.draw_key is not None:
                 from .augment import batch_draws
 
-                batch["draws"] = batch_draws(self.draw_key + (epoch, index), bs)
+                batch["mix_key"] = self.draw_key + (epoch, index)
+                batch["draws"] = batch_draws(batch["mix_key"], bs)
             return batch
 
         pending = []

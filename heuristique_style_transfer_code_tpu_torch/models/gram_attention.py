@@ -8,7 +8,10 @@ stacked into a sequence, one-head self-attention over it, a mean over the
 sequence and Linear(S², num_classes). Under ``.train()`` the encoder's batch
 norms take the batch's statistics and update their running buffers in
 place, which is the JAX train forward (``:43-70``) with its new encoder
-tree merged back.
+tree merged back. ``gram_attention_apply_int8`` takes the Grams of the
+post-training quantised encoder's dequantised stage maps (still through
+``pooled_gram_fwd``) and ``gram_attention_apply_qat`` of its fake-quant
+twin, under the float head (JAX ``:100-140``).
 """
 from __future__ import annotations
 
@@ -112,3 +115,38 @@ def _gram_head(model: GramAttention, grams: List[torch.Tensor], x: torch.Tensor,
     seq = torch.stack([g.reshape(g.shape[0], s * s) for g in grams], dim=0)  # (L, N, S²)
     emb = model.attention(seq).mean(dim=0)
     return emb, model.classifier(emb)
+
+
+def prepare_gram_attention_int8(model: GramAttention, truncate: int, calibration_batches):
+    """PTQ of the encoder at ``min(truncate, 8)``; Grams, attention and
+    classifier stay float. Returns the quantised encoder for
+    ``gram_attention_apply_int8``."""
+    from ..nn.resnet_int8 import prepare_int8_resnet
+
+    return prepare_int8_resnet(model.encoder, calibration_batches, min(truncate, 8))
+
+
+def gram_attention_apply_int8(q_encoder, model: GramAttention, x: torch.Tensor,
+                              gram_matrix_size: int, num_classes: int):
+    """The int8 inference forward: the quantised encoder, each stage's
+    pooled Gram of its dequantised output, the float attention and
+    classifier; (embeddings, logits), as the eval
+    ``gram_attention_apply``."""
+    from ..nn.resnet_int8 import resnet50_apply_int8
+
+    _, grams = resnet50_apply_int8(q_encoder, x, collect_grams=True,
+                                   gram_pool_size=gram_matrix_size)
+    return _gram_head(model, grams, x, gram_matrix_size, num_classes)
+
+
+def gram_attention_apply_qat(model: GramAttention, act_scales, x: torch.Tensor,
+                             truncate: int, gram_matrix_size: int, num_classes: int):
+    """The QAT fine-tune forward: the fake-quant encoder, the pooled Grams
+    of its fake-quantised stage outputs and the float head, the
+    differentiable twin of ``gram_attention_apply_int8``; (embeddings,
+    logits)."""
+    from ..nn.resnet_qat import qat_resnet50_apply
+
+    _, grams = qat_resnet50_apply(model.encoder, act_scales, x, min(truncate, 8),
+                                  collect_grams=True, gram_pool_size=gram_matrix_size)
+    return _gram_head(model, grams, x, gram_matrix_size, num_classes)

@@ -10,7 +10,10 @@ Truncate <= 8 pools after the encoder; truncate 9 runs the avgpool child
 inside it. In train mode (``train=True``, or the modules' ``.train()``)
 the encoder's batch norms take the batch's statistics and update their
 running buffers in place: the JAX train forward (``:48-84``) with its new
-encoder tree merged back. The int8 and QAT forwards are not ported yet.
+encoder tree merged back. ``combined_apply_int8`` runs the post-training
+quantised encoder (``nn/resnet_int8.py``) under the float heads,
+``combined_apply_qat`` its fake-quant twin (``nn/resnet_qat.py``, JAX
+``:87-115``).
 """
 from __future__ import annotations
 
@@ -109,3 +112,32 @@ def combined_apply(moco: TruncatedMoCo, classifier: Classifier, x: torch.Tensor,
     if train is not None:
         moco.train(train)
     return classifier_apply(classifier, truncated_moco_apply(moco, x, truncate, remat))
+
+
+def prepare_combined_int8(moco: TruncatedMoCo, truncate: int, calibration_batches):
+    """PTQ of the MoCo encoder (truncate in [4, 8]); the average pool, the
+    MoCo fc and the classifier stay float. Returns the quantised encoder
+    for ``combined_apply_int8``."""
+    from ..nn.resnet_int8 import prepare_int8_resnet
+
+    return prepare_int8_resnet(moco.encoder, calibration_batches, truncate)
+
+
+def combined_apply_qat(moco: TruncatedMoCo, classifier: Classifier, act_scales,
+                       x: torch.Tensor, truncate: int) -> torch.Tensor:
+    """The QAT fine-tune forward: the fake-quant encoder and the float
+    heads, the training twin of ``combined_apply_int8``. Returns logits."""
+    from ..nn.resnet_qat import qat_resnet50_apply
+
+    feats = qat_resnet50_apply(moco.encoder, act_scales, x, truncate)
+    return classifier.fc(moco.fc(global_avg_pool(feats)))
+
+
+def combined_apply_int8(q_encoder, moco: TruncatedMoCo, classifier: Classifier,
+                        x: torch.Tensor) -> torch.Tensor:
+    """The int8 inference forward: the quantised encoder and the float
+    heads; logits, as the eval ``combined_apply``."""
+    from ..nn.resnet_int8 import resnet50_apply_int8
+
+    feats = resnet50_apply_int8(q_encoder, x)
+    return classifier.fc(moco.fc(global_avg_pool(feats)))

@@ -20,7 +20,10 @@ parameters stay f32 (each op casts its weights) and the loss is taken in
 f32. ``remat`` (``--remat``) checkpoints each bottleneck of the ResNet
 encoders and each strided unit of the discriminators in the train
 forward (``core/remat.py``); ``FamilySetup.accum_step`` is
-``--grad_accum``'s step (JAX ``:88-99``).
+``--grad_accum``'s step (JAX ``:88-99``). ``ema_decay`` (``--ema_decay``)
+keeps the parameter EMA in the optimiser state (``train/optim.py``);
+``mix_fn`` (``--mixup``/``--cutmix``, ``train/mixing.make_mix_fn``) mixes
+each augmented batch in both steps.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ class FamilySetup:
 
     def __init__(self, init_model: Callable, optimizer, train_step: Callable,
                  eval_step: Callable, forward_train: Callable, augment: Callable,
-                 label_smoothing: float = 0.0):
+                 label_smoothing: float = 0.0, mix_fn: Optional[Callable] = None):
         self._init_model = init_model
         self.optimizer = optimizer
         self.train_step = train_step
@@ -54,6 +57,7 @@ class FamilySetup:
         self._forward_train = forward_train
         self._augment = augment
         self._label_smoothing = label_smoothing
+        self.mix_fn = mix_fn
 
     def init(self, generator: Optional[torch.Generator]):
         model = self._init_model(generator)
@@ -63,7 +67,7 @@ class FamilySetup:
         """``--grad_accum``: one optimiser update from ``n_accum``
         micro-batches (``train_loop.make_train_step_accum``)."""
         return make_train_step_accum(self._forward_train, self.optimizer, self._augment,
-                                     n_accum, self._label_smoothing)
+                                     n_accum, self._label_smoothing, self.mix_fn)
 
 
 def _freeze(model, frozen_fn):
@@ -74,15 +78,16 @@ def _freeze(model, frozen_fn):
 
 
 def _assemble(init_model, forward, lr, combos, frozen_fn, compute_dtype, clip_norm,
-              label_smoothing, ema_decay) -> FamilySetup:
+              label_smoothing, ema_decay, mix_fn) -> FamilySetup:
     """``forward(model, images, train)`` -> logits; the JAX ``_setup``."""
     optimizer = sgd_momentum(lr, frozen_fn=frozen_fn, clip_norm=clip_norm, ema_decay=ema_decay)
     forward_train = cast_forward(lambda m, x: forward(m, x, True), compute_dtype)
     augment = make_augment_fn(combos)
-    train_step = make_train_step_body(forward_train, optimizer, augment, label_smoothing)
+    train_step = make_train_step_body(forward_train, optimizer, augment, label_smoothing,
+                                      mix_fn)
     eval_step = make_eval_step(cast_forward(lambda m, x: forward(m, x, False), compute_dtype))
     return FamilySetup(init_model, optimizer, train_step, eval_step, forward_train, augment,
-                       label_smoothing)
+                       label_smoothing, mix_fn)
 
 
 def setup_truncated_resnet50(
@@ -96,6 +101,7 @@ def setup_truncated_resnet50(
     clip_norm: Optional[float] = None,
     label_smoothing: float = 0.0,
     ema_decay: Optional[float] = None,
+    mix_fn: Optional[Callable] = None,
     remat: bool = False,
     device="cuda",
 ) -> FamilySetup:
@@ -121,7 +127,8 @@ def setup_truncated_resnet50(
                               remat=remat and train)
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
-                     combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay)
+                     combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay,
+                     mix_fn)
 
 
 def setup_multi_patchgan(
@@ -134,6 +141,7 @@ def setup_multi_patchgan(
     clip_norm: Optional[float] = None,
     label_smoothing: float = 0.0,
     ema_decay: Optional[float] = None,
+    mix_fn: Optional[Callable] = None,
     remat: bool = False,
     device="cuda",
 ) -> FamilySetup:
@@ -157,7 +165,7 @@ def setup_multi_patchgan(
         return multiscale_apply(model, images, norm, train=train, remat=remat and train)
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
-                     combos, None, compute_dtype, clip_norm, label_smoothing, ema_decay)
+                     combos, None, compute_dtype, clip_norm, label_smoothing, ema_decay, mix_fn)
 
 
 def setup_gram_attention(
@@ -171,6 +179,7 @@ def setup_gram_attention(
     clip_norm: Optional[float] = None,
     label_smoothing: float = 0.0,
     ema_decay: Optional[float] = None,
+    mix_fn: Optional[Callable] = None,
     remat: bool = False,
     device="cuda",
 ) -> FamilySetup:
@@ -198,4 +207,5 @@ def setup_gram_attention(
         return logits
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
-                     combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay)
+                     combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay,
+                     mix_fn)

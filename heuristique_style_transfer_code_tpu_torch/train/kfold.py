@@ -17,8 +17,8 @@ single host):
   fold-results file (``:155-158``, ``:229-230``).
 
 ``--resume`` writes one atomic in-progress file per epoch (the model and
-the optimiser state in the JAX layout, the position and the run's
-signature) and a fold-boundary meta; an interrupted run continues from
+the optimiser state, its parameter EMA included, in the JAX layout, the
+position and the run's signature) and a fold-boundary meta; an interrupted run continues from
 the last completed epoch, bit-identically on the CPU. A SIGTERM stops it
 before the next step with ``PreemptedError``.
 
@@ -99,10 +99,13 @@ def _inprogress_tree(model, opt_state, fold, epochs_done, signature, extra_leave
     """One file per epoch: the model and the SGD state in the JAX layout,
     the position and the signature, so no crash can pair one epoch's
     weights with another's position. The port reads its own files."""
+    opt = {"count": np.int64(opt_state["count"]),
+           "trace": to_jax_tree(model, opt_state["trace"])}
+    if "ema" in opt_state:
+        opt["ema"] = to_jax_tree(model, opt_state["ema"])
     tree = {
         "variables": to_jax_tree(model),
-        "opt": {"count": np.int64(opt_state["count"]),
-                "trace": to_jax_tree(model, opt_state["trace"])},
+        "opt": opt,
         "fold": int(fold),
         "epochs_done": int(epochs_done),
         "signature": np.asarray(signature),
@@ -113,12 +116,14 @@ def _inprogress_tree(model, opt_state, fold, epochs_done, signature, extra_leave
 
 
 def _restore(model, opt_state, st) -> None:
-    """The in-progress file's model and SGD state into ``model`` and
-    ``opt_state``, in place."""
+    """The in-progress file's model and SGD state (with its EMA) into
+    ``model`` and ``opt_state``, in place."""
     load_jax_tree(model, st["variables"])
     with torch.no_grad():
-        for name, t in from_jax_tree(st["opt"]["trace"]).items():
-            opt_state["trace"][name].copy_(t)
+        for part in ("trace", "ema"):
+            if part in opt_state:
+                for name, t in from_jax_tree(st["opt"][part]).items():
+                    opt_state[part][name].copy_(t)
     opt_state["count"] = int(np.asarray(st["opt"]["count"]))
 
 
@@ -158,6 +163,7 @@ def run_kfold(
     foldwise_step: Optional[Callable] = None,
     signature_extra: Optional[Dict] = None,
     early_stop: Optional[int] = None,
+    eval_variables_fn: Optional[Callable] = None,
     on_fold_end: Optional[Callable] = None,
 ) -> Dict:
     """The cross-validation protocol; returns training_info.
@@ -242,6 +248,9 @@ def run_kfold(
     if save_fn is None:
         save_fn = save_model_and_hyperparameters
 
+    def _eval_model(m, o):
+        return eval_variables_fn(m, o) if eval_variables_fn is not None else m
+
     try:
         for fold, (train_idx, val_idx) in enumerate(splits):
             if resume_fold is not None and fold < resume_fold:
@@ -281,9 +290,10 @@ def run_kfold(
                                  _val_loader=val_loader, _eval_step=eval_step):
                     stop = False
                     if _stopper is not None:
-                        r = evaluate(_eval_step, m, _val_loader, num_classes, fold=_fold,
+                        ev = _eval_model(m, o)
+                        r = evaluate(_eval_step, ev, _val_loader, num_classes, fold=_fold,
                                      writer=writer, step=epoch)
-                        stop = _stopper.update(r["val_loss"], to_jax_tree(m), epoch)
+                        stop = _stopper.update(r["val_loss"], to_jax_tree(ev), epoch)
                         if resume and _stopper.improved_last:
                             # the best file before the counters: a crash in
                             # between reruns this epoch and rewrites it
@@ -310,9 +320,12 @@ def run_kfold(
                 steps_per_dispatch=steps_per_dispatch,
                 start_epoch=start_epoch, on_epoch_end=on_epoch_end, preemptible=resume)
             if stopper is not None and stopper.best_variables is not None:
+                # the snapshot is already the evaluation model's (the EMA's)
                 load_jax_tree(model, stopper.best_variables)
                 print(f"Fold {fold}: restored best-epoch weights (epoch "
                       f"{stopper.best_epoch + 1}, val loss {stopper.best_loss:.4f})")
+            else:
+                model = _eval_model(model, opt_state)
             result = evaluate(eval_step, model, val_loader, num_classes, fold=fold,
                               writer=writer, step=max(epochs - 1, 0))
             fold_results.append(result)

@@ -1,5 +1,7 @@
-"""SGD with momentum and the trainability mask (``train/optim.py`` of the
-JAX package: ``label_tree`` ``:38-55``, ``sgd_momentum`` ``:132-150``).
+"""SGD with momentum, the trainability mask and the parameter EMA
+(``train/optim.py`` of the JAX package: ``label_tree`` ``:38-55``,
+``param_ema`` ``:65-104``, ``find_ema_state`` and ``extract_ema_variables``
+``:107-129``, ``sgd_momentum`` ``:132-150``).
 
 The reference trains with ``optim.SGD(params, lr, momentum=0.9)`` over the
 parameters that require a gradient. The JAX package writes that as
@@ -8,10 +10,13 @@ statistics and any user-frozen subtree (``--freeze_layers``) labelled
 "freeze". Here the same update is written out to optax's formulas, on the
 module's parameters in place: the trace m <- g + 0.9 m, then p <- p - lr m,
 with a schedule evaluated at the update count before its increment, and
-``clip_by_global_norm`` over the trainable parameters only.
+``clip_by_global_norm`` over the trainable parameters only. ``ema_decay``
+keeps an exponential moving average of the updated trainable parameters
+in the same state, for evaluation (``--ema_decay``).
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -52,15 +57,27 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
     is a float or a schedule (``train/schedules.py``) of the update count.
     ``clip_norm`` scales the gradients by ``clip_norm / norm`` where their
     global norm exceeds it, as ``optax.clip_by_global_norm`` does.
-    ``ema_decay`` is not ported yet."""
+
+    ``ema_decay`` (the JAX ``param_ema``, timm ModelEmaV2 semantics with no
+    debias) adds ``"ema"``, a copy of the trainable parameters at init,
+    and after each update ``ema <- decay * ema + (1 - decay) * p_new``.
+    A frozen parameter never moves, so its average would be its init,
+    which is its live value: the state keeps none for it. A decay outside
+    (0, 1) raises JAX's ValueError."""
     if ema_decay is not None:
-        raise NotImplementedError("--ema_decay (the parameter EMA) is not ported yet")
+        ema_decay = float(ema_decay)
+        if not 0.0 < ema_decay < 1.0:
+            raise ValueError(f"ema decay must be in (0, 1), got {ema_decay}")
     schedule = learning_rate if callable(learning_rate) else None
 
     def init(model: torch.nn.Module) -> dict:
         labels = label_tree(model, frozen_fn)
-        return {"count": 0, "trace": {n: torch.zeros_like(p) for n, p in model.named_parameters()
-                                      if labels[n] == "train"}}
+        train = [(n, p) for n, p in model.named_parameters() if labels[n] == "train"]
+        state = {"count": 0, "trace": {n: torch.zeros_like(p) for n, p in train}}
+        if ema_decay is not None:
+            # a real copy: the update writes the parameters in place
+            state["ema"] = {n: p.detach().clone() for n, p in train}
+        return state
 
     def update(model: torch.nn.Module, grads: Dict[str, torch.Tensor], state: dict) -> None:
         params = dict(model.named_parameters())
@@ -76,6 +93,36 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
                 trace = state["trace"][n]
                 trace.mul_(momentum).add_(g)
                 params[n].add_(trace * -lr)
+            if "ema" in state:
+                # three multi-tensor launches for all the leaves, each
+                # rounding as the JAX formula's three ops do
+                emas = list(state["ema"].values())
+                torch._foreach_mul_(emas, ema_decay)
+                torch._foreach_add_(emas, torch._foreach_mul(
+                    [params[n] for n in state["ema"]], 1.0 - ema_decay))
         state["count"] = count + 1
 
     return init, update
+
+
+def find_ema_state(opt_state) -> Optional[Dict[str, torch.Tensor]]:
+    """The EMA ({parameter name: average}) an ``sgd_momentum`` state
+    carries, or None."""
+    return opt_state.get("ema") if isinstance(opt_state, dict) else None
+
+
+def extract_ema_variables(model: torch.nn.Module, opt_state) -> torch.nn.Module:
+    """The evaluation model of an EMA run: a copy of ``model`` whose
+    trainable parameters are the EMA's, with the live batch-norm running
+    statistics (the forward updates those, outside the optimiser) and the
+    live frozen parameters. ``model`` itself when the state carries no
+    EMA."""
+    ema = find_ema_state(opt_state)
+    if ema is None:
+        return model
+    out = copy.deepcopy(model)
+    params = dict(out.named_parameters())
+    with torch.no_grad():
+        for n, t in ema.items():
+            params[n].copy_(t)
+    return out

@@ -10,7 +10,12 @@ Pad entries of a short batch carry label -1 and are masked out of the loss
 and the metrics. The step returns the loss as a device tensor, without a
 sync; ``train_epochs`` fetches it for the per-batch print, as the JAX loop
 does, or, with ``steps_per_dispatch`` K > 1, fetches K steps' losses at
-once. ``make_train_step_accum`` is ``--grad_accum``'s step.
+once. ``make_train_step_accum`` is ``--grad_accum``'s step. With a
+``mix_fn`` (``train/mixing.make_mix_fn``: ``--mixup``, ``--cutmix``) the
+augmented batch is mixed with its rolled partner before the forward and
+the loss is ``lam * CE(y) + (1 - lam) * CE(y_partner)``, label smoothing
+applying to both terms; the batch's mixing key is the loader's
+``"mix_key"``.
 """
 from __future__ import annotations
 
@@ -52,28 +57,44 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll / cnt.clamp_min(1.0)
 
 
+def _mixed(mix_fn, images, labels, mix_key):
+    """(images, labels_a, labels_b, lam) of the mixed batch; lam None
+    without ``mix_fn``."""
+    if mix_fn is None:
+        return images, labels, labels, None
+    if mix_key is None:
+        raise ValueError("batch mixing needs the batch's mix_key (the loader's draw_key)")
+    return mix_fn(images, labels, mix_key)
+
+
 def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callable,
-                         label_smoothing: float = 0.0) -> Callable:
-    """``step(model, opt_state, images_u8, labels, combos=None, draws=None)
-    -> (model, opt_state, loss)``, the JAX ``make_train_step_body``
-    (``:69-115``). ``optimizer`` is ``train/optim.sgd_momentum``'s
+                         label_smoothing: float = 0.0,
+                         mix_fn: Optional[Callable] = None) -> Callable:
+    """``step(model, opt_state, images_u8, labels, combos=None, draws=None,
+    mix_key=None) -> (model, opt_state, loss)``, the JAX
+    ``make_train_step_body`` (``:69-115``). ``optimizer`` is ``train/optim.sgd_momentum``'s
     ``(init, update)``; the gradients are those of the parameters its state
     holds a trace for (the trainable ones). ``forward_train(model, images)
     -> logits`` runs the model in train mode. ``augment_fn(images_u8,
     combos, draws)`` gets the batch's combination ids and augmentation
     draws (the loader's ``"combo"`` and ``"draws"``; the JAX step draws
     from its key instead). ``images_u8`` and ``labels`` are numpy arrays
-    or tensors."""
+    or tensors. ``mix_fn`` mixes the augmented batch (the JAX ``:86-103``)
+    with the draws of ``mix_key``."""
     _, update = optimizer
 
-    def step(model, opt_state, images_u8, labels, combos=None, draws=None):
+    def step(model, opt_state, images_u8, labels, combos=None, draws=None, mix_key=None):
         params = dict(model.named_parameters())
         names = list(opt_state["trace"])
         device = params[names[0]].device
         images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
-        labels_t = _labels_on(labels, device)
+        images, labels_a, labels_b, lam = _mixed(mix_fn, images, _labels_on(labels, device),
+                                                 mix_key)
         logits = forward_train(model, images)
-        loss = masked_cross_entropy(logits, labels_t, label_smoothing)
+        loss = masked_cross_entropy(logits, labels_a, label_smoothing)
+        if lam is not None:
+            loss = lam * loss + (1.0 - lam) * masked_cross_entropy(logits, labels_b,
+                                                                   label_smoothing)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         update(model, dict(zip(names, grads)), opt_state)
         return model, opt_state, loss.detach()
@@ -82,7 +103,8 @@ def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callabl
 
 
 def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callable,
-                          n_accum: int, label_smoothing: float = 0.0) -> Callable:
+                          n_accum: int, label_smoothing: float = 0.0,
+                          mix_fn: Optional[Callable] = None) -> Callable:
     """``--grad_accum``: ``step`` as ``make_train_step_body``'s, with one
     optimiser update from ``n_accum`` micro-batches run one after the
     other (JAX ``make_train_step_accum``, ``:153-271``):
@@ -97,17 +119,22 @@ def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callab
       reassociation where no batch statistics are taken);
     - batch norms normalise each micro-batch by its own statistics (ghost
       BN) and update their running buffers micro-batch after micro-batch,
-      in order (``F.batch_norm`` in place: the JAX scan's chained stats).
+      in order (``F.batch_norm`` in place: the JAX scan's chained stats);
+    - with ``mix_fn`` the full batch is mixed before it is cut (JAX
+      ``:190-200``, ``:233-235``), and each micro-batch's NLL is
+      ``lam * nll(y) + (1 - lam) * nll(y_partner)`` over the one valid
+      count of its own labels: the rolled labels are the batch's multiset.
     """
     _, update = optimizer
     n_accum = int(n_accum)
 
-    def step(model, opt_state, images_u8, labels, combos=None, draws=None):
+    def step(model, opt_state, images_u8, labels, combos=None, draws=None, mix_key=None):
         params = dict(model.named_parameters())
         names = list(opt_state["trace"])
         device = params[names[0]].device
         images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
-        labels_t = _labels_on(labels, device)
+        images, labels_t, labels_b, lam = _mixed(mix_fn, images, _labels_on(labels, device),
+                                                 mix_key)
         b = images.shape[0]
         if b % n_accum:
             raise ValueError(f"batch {b} not divisible by n_accum {n_accum}")
@@ -115,8 +142,11 @@ def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callab
         g_sum, nll_sum, cnt_sum = None, 0.0, 0.0
         for i in range(n_accum):
             part = slice(i * mb, (i + 1) * mb)
-            nll, cnt = _masked_nll_parts(forward_train(model, images[part]), labels_t[part],
-                                         label_smoothing)
+            logits = forward_train(model, images[part])
+            nll, cnt = _masked_nll_parts(logits, labels_t[part], label_smoothing)
+            if lam is not None:
+                nll_b, _ = _masked_nll_parts(logits, labels_b[part], label_smoothing)
+                nll = lam * nll + (1.0 - lam) * nll_b
             grads = torch.autograd.grad(nll, [params[n] for n in names])
             g_sum = list(grads) if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
             nll_sum = nll_sum + nll.detach()
@@ -198,7 +228,8 @@ def train_epochs(
             if len(chunk) == 1:
                 b = chunk[0]
                 model, opt_state, loss = train_step(model, opt_state, b["image"], b["label"],
-                                                    b.get("combo"), b.get("draws"))
+                                                    b.get("combo"), b.get("draws"),
+                                                    mix_key=b.get("mix_key"))
                 emit(first_idx, float(loss), b["n_valid"])
                 return
             images = torch.as_tensor(np.stack([b["image"] for b in chunk])).to(device)
@@ -206,7 +237,8 @@ def train_epochs(
             losses = []
             for i, b in enumerate(chunk):
                 model, opt_state, loss = train_step(model, opt_state, images[i], labels[i],
-                                                    b.get("combo"), b.get("draws"))
+                                                    b.get("combo"), b.get("draws"),
+                                                    mix_key=b.get("mix_key"))
                 losses.append(loss)
             for i, (b, loss_f) in enumerate(zip(chunk, torch.stack(losses).cpu().tolist())):
                 emit(first_idx + i, loss_f, b["n_valid"])

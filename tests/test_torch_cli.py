@@ -136,7 +136,6 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
 
 
 @pytest.mark.parametrize("extra", [
-    ["--precision", "int8"],
     ["--shard_spatial", "2"], ["--devices", "2"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, extra):
@@ -213,3 +212,46 @@ def test_port_and_chip_smoke_import_no_jax():
             if top in ("jax", "jaxlib", "flax", "optax") or top == "heuristique_style_transfer_code_tpu":
                 bad.append((os.path.relpath(path, REPO), name))
     assert not bad, bad
+
+
+@pytest.mark.parametrize("case", ["classification", "qat", "tsne", "style_transfer"])
+def test_precision_int8_runs(tiny_imagefolder, f2_model, tmp_path, capsys, case):
+    """``--precision int8`` (calibrated on ``--data``'s train/ split):
+    classification writes ``--quantized_path``, a second run loads it and
+    writes the same ``classification_results.json``, which the JAX CLI on
+    the port's file writes too; ``--qat_steps 2`` prints JAX's fine-tune
+    line; ``--mode tsne`` runs on the int8 encoder; a mode outside
+    classification and t-SNE keeps the JAX CLI's ValueError."""
+    from heuristique_style_transfer_code_tpu.cli.test_gram_attention import main as j_main
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
+
+    q = str(tmp_path / "q.npz")
+    flags = ["--precision", "int8", "--device", "cpu"]
+    if case == "style_transfer":
+        with pytest.raises(ValueError, match="classification/tsne/tsne_interactive"):
+            main(_args(tiny_imagefolder, f2_model, tmp_path, "--mode", case, *flags))
+        return
+    if case == "tsne":
+        from threadpoolctl import threadpool_limits
+
+        with threadpool_limits(limits=1, user_api="openmp"):
+            main(_args(tiny_imagefolder, f2_model, tmp_path, "--mode", "tsne", "--num_samples",
+                       "8", *flags))
+        assert os.listdir(tmp_path) == ["tsne_visualization.png"]
+        return
+    extra = ["--qat_steps", "2"] if case == "qat" else []
+    main(_args(tiny_imagefolder, f2_model, tmp_path / "a", "--quantized_path", q, *flags,
+               *extra))
+    printed = capsys.readouterr().out
+    assert f"Quantised encoder saved to {q}" in printed
+    assert ("QAT fine-tune: 2 pas, perte" in printed) == (case == "qat")
+    if case == "qat":
+        return
+    main(_args(tiny_imagefolder, f2_model, tmp_path / "b", "--quantized_path", q, *flags))
+    j_main(_args(tiny_imagefolder, f2_model, tmp_path / "jax", "--quantized_path", q,
+                 "--precision", "int8"))
+    results = []
+    for side in ("a", "b", "jax"):
+        with open(tmp_path / side / "classification_results.json") as f:
+            results.append(json.load(f))
+    assert results[0] == results[1] == results[2]

@@ -140,7 +140,7 @@ def test_parser_has_every_jax_flag():
     assert {k: got[k] for k in want} == want
 
 
-@pytest.mark.parametrize("extra", [["--precision", "int8"], ["--devices", "2"]])
+@pytest.mark.parametrize("extra", [["--devices", "2"]])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f1_checkpoint, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, f1_checkpoint, tmp_path, *extra, "--device", "cpu"))
@@ -240,3 +240,57 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
         pytest.skip("this host has CUDA: the default device is valid here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(_args(tiny_imagefolder, f1_checkpoint, tmp_path, "--mode", "classification"))
+
+
+@pytest.mark.parametrize("case", ["classification", "qat", "tsne", "inference",
+                                  "camera_without_data"])
+def test_precision_int8_runs(tiny_imagefolder, f1_checkpoint, tmp_path, capsys, case):
+    """``--precision int8`` (calibrated on ``--data``'s train/ split):
+    classification writes ``--quantized_path``, a second run loads it and
+    writes the same metrics.txt byte for byte, and the JAX CLI on the
+    port's file gives the same metrics (the loss within 1e-4 relative; the
+    two int8 forwards round each requant alike up to f32 ties, held in
+    ``test_torch_int8.py``); ``--qat_steps 2`` prints JAX's fine-tune line
+    and writes the file; the t-SNE and inference modes run on the int8
+    encoder; the camera mode without a dataset or a quantised file keeps
+    the JAX CLI's ValueError."""
+    q = str(tmp_path / "q.npz")
+    flags = ["--precision", "int8", "--prob_threshold", "0.0", "--device", "cpu"]
+    if case == "camera_without_data":
+        cfg, ckpt = f1_checkpoint
+        with pytest.raises(ValueError, match="nécessite un dataset de calibration"):
+            main(["--config_path", cfg, "--model_path", ckpt, "--mode", "camera",
+                  "--save_dir", str(tmp_path), *flags])
+        return
+    if case == "tsne":
+        from threadpoolctl import threadpool_limits
+
+        with threadpool_limits(limits=1, user_api="openmp"):
+            main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "a", "--mode", "tsne", *flags))
+        assert os.path.getsize(tmp_path / "a" / "tsne_plot.png") > 0
+        return
+    if case == "inference":
+        main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "a", "--mode", "inference",
+                   "--inference_input", str(tiny_imagefolder / "test"), *flags))
+        with open(tmp_path / "a" / "inference_predictions.json") as f:
+            assert json.load(f)["num_images"] == N_TEST
+        return
+    extra = ["--qat_steps", "2"] if case == "qat" else []
+    main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "a", "--quantized_path", q, *flags,
+               *extra))
+    printed = capsys.readouterr().out
+    assert f"Quantised encoder saved to {q}" in printed
+    assert ("QAT fine-tune: 2 pas, perte" in printed) == (case == "qat")
+    if case == "qat":
+        return
+    main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "b", "--quantized_path", q, *flags))
+    assert "Quantised encoder saved" not in capsys.readouterr().out
+    with open(tmp_path / "a" / "metrics.txt", "rb") as f, \
+            open(tmp_path / "b" / "metrics.txt", "rb") as g:
+        assert f.read() == g.read()
+    j_main(_args(tiny_imagefolder, f1_checkpoint, tmp_path / "jax", "--quantized_path", q,
+                 "--precision", "int8", "--prob_threshold", "0.0"))
+    (j_lines, j_cm), (t_lines, t_cm) = _metrics(tmp_path / "jax"), _metrics(tmp_path / "a")
+    assert t_cm == j_cm and t_lines["Score F1"] == j_lines["Score F1"]
+    np.testing.assert_allclose(float(t_lines["Perte du test"]), float(j_lines["Perte du test"]),
+                               rtol=1e-4)

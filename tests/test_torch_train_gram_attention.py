@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from tests.torch_train_flags import FLAG_CASES, check_flag_run
 
 from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import load_jax_tree, to_jax_tree
 from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, load_pytree_npz
@@ -493,7 +494,9 @@ def test_resume_after_preemption_is_bit_identical(tiny_imagefolder, cfg_path, po
             assert json.load(f) == json.load(g)
 
 
-@pytest.mark.parametrize("change", [("--label_smoothing", "0.1"), ("--freeze_layers",)])
+@pytest.mark.parametrize("change", [
+    ("--label_smoothing", "0.1"), ("--freeze_layers",), ("--ema_decay", "0.9"),
+    ("--mixup", "0.2"), ("--cutmix", "1.0")])
 def test_resume_under_another_configuration_is_refused(tiny_imagefolder, cfg_path, tmp_path,
                                                        monkeypatch, change):
     _preempt_after(monkeypatch, 3)
@@ -552,9 +555,7 @@ def test_pretrained_tensor_count_matches_jax(f1_checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--zero1",), ("--parallel_folds",), ("--auto_batch",), ("--hbm_budget_gb", "8"),
-    ("--mixup", "0.2"), ("--cutmix", "1.0"), ("--ema_decay", "0.99"), ("--devices", "2"),
-    ("--checkpoint_format", "orbax")])
+    ("--zero1",), ("--parallel_folds",), ("--devices", "2"), ("--checkpoint_format", "orbax")])
 def test_unported_flags_raise(tiny_imagefolder, cfg_path, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, cfg_path, tmp_path, *extra))
@@ -606,3 +607,26 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
     args = _args(tiny_imagefolder, cfg_path, tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(args[:-2])
+
+
+@pytest.mark.parametrize("extra", FLAG_CASES)
+def test_ema_mixing_and_auto_batch_flags_run(tiny_imagefolder, cfg_path, tmp_path,
+                                             one_epoch_run, extra, capsys):
+    """``--ema_decay``, ``--mixup``, ``--cutmix``, ``--auto_batch`` with
+    ``--hbm_budget_gb`` and ``--hbm_budget_gb`` alone through the CLI,
+    against its plain run (``tests/torch_train_flags.py`` says what each
+    case holds; the numbers are held against JAX in
+    ``test_torch_ema.py``, ``test_torch_mixing.py`` and
+    ``test_torch_autotune.py``)."""
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+
+    def args_fn(save_dir, *extra, config=cfg_path):
+        return _args(tiny_imagefolder, config, save_dir, *ONE_EPOCH, *extra)
+
+    def make_setup(cfg):
+        return setup_gram_attention(GramAttentionConfig.from_dict(cfg), 4, [(None, None)],
+                                    device="cpu")
+
+    check_flag_run(main, args_fn, tmp_path / "out", one_epoch_run, extra, CFG,
+                   FOLD_MODEL, make_setup, capsys, tmp_path)
