@@ -272,6 +272,32 @@ Phases, all run every time:
                   the family-1 CLI with --precision int8 writing, then
                   loading, --quantized_path (metrics.txt byte-equal), and
                   --qat_steps 2.
+  serve           ``cli/serve.start`` at full width, --batch_size 64:
+                  family 1 (truncate 8, dim 256) in f32, bf16, int8
+                  (calibrated on 32 PNGs, written to --quantized_path, then
+                  a second start from that file alone, answering alike)
+                  and yuv420, family 2 (truncate 8, S 7) and family 3 (the
+                  train variant the JAX CLI serves, config defaults, norm
+                  "instance") in f32; each run 256 raw POSTs from 128
+                  threads in 4 client processes (every 8th frame 300x400),
+                  every answer against the direct batched forward on the
+                  padded batch its dispatcher formed (f32 within 1e-5,
+                  bf16 2e-2, int8 1e-3, the argmax equal), /healthz,
+                  /stats and /metrics; exact launches (family 2: 4
+                  pooled_gram_fwd a batch, family 3: 13 instance_norm_fwd
+                  a batch, family 1 none); images/s, p50 and p95, mean
+                  occupancy, the card's busy share from the direct
+                  forwards' time.
+  recycle         --recycle_after_requests with the proxy's parent in a
+                  child process of this script (which has initialised
+                  CUDA): family 1 f32 at b16, recycled every 48 requests
+                  under 140 POSTs from 32 threads, the worker killed once
+                  with requests in it: 2 recycles, 1 crash, no failed
+                  request, every answer within 1e-5 of in-process serving,
+                  CUDA never initialised in the parent, each handover's
+                  seconds; beside it serve_style texture mode (family 2,
+                  layers 5, 5 iterations) through one recycle, each answer
+                  against the service's job run here.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -506,6 +532,30 @@ AB_BUDGET_GB, AB_PER_CLASS = 16.0, 6
 # the int8 test's tolerance
 INT8_CAL_BATCHES, INT8_TIMED, INT8_CAMERA_FRAMES, INT8_F2_BATCH = 2, 10, 50, 8
 INT8_CLI_PER_CLASS, INT8_TOL_LOGITS = 8, 1e-3
+# serve: cli/serve.start at full width, --batch_size 64; SERVE_REQUESTS raw
+# POSTs a run from SERVE_CLIENTS threads (two batches' worth) spread over
+# SERVE_CLIENT_PROCS client processes, so that the load does not share the
+# server's GIL, after SERVE_WARM untimed ones (every SERVE_OVERSIZED-th
+# frame 300x400, downscaled in submit); each
+# answer against the direct batched
+# forward on its padded batch, max |dprob|: f32 within 1e-5, bf16 within
+# TOL's 2e-2, int8 within the int8 phase's 1e-3, the argmax equal; the
+# int8 calibration folder holds SERVE_CAL_PER_CLASS PNGs a class
+SERVE_BATCH, SERVE_REQUESTS, SERVE_CLIENTS, SERVE_OVERSIZED = 64, 256, 128, 8
+SERVE_CLIENT_PROCS, SERVE_WARM = 4, 16
+SERVE_TOL = {"float32": 1e-5, "bf16": 2e-2, "int8": 1e-3}
+SERVE_CAL_PER_CLASS = 8
+# recycle: family 1 f32 served through --recycle_after_requests in a child
+# process of this script (which has initialised CUDA, so it cannot be the
+# proxy's parent): RECYCLE_REQUESTS POSTs from RECYCLE_CLIENTS threads at
+# batch RECYCLE_BATCH, two recycles and one worker killed with requests in
+# it (4 workers); then serve_style texture mode (family 2, layers 5, 5
+# iterations) through one recycle with 3 POSTs
+RECYCLE_AFTER, RECYCLE_REQUESTS, RECYCLE_CLIENTS, RECYCLE_BATCH = 48, 140, 32, 16
+RECYCLE_KILL_AFTER, RECYCLE_STYLE_ITERS, RECYCLE_STYLE_LR = 100, 5, 0.01
+# a request may wait through a handover (a worker's start: 10-20 s on the
+# card's machine), longer than the CLI's default --request_timeout of 30 s
+RECYCLE_TIMEOUT_S = 300
 
 
 def _require(ok: bool, what: str) -> None:
@@ -4774,8 +4824,500 @@ def phase_int8(kernels, family1, family2, tmp: str, timings: dict) -> dict:
     return out
 
 
+def _post_predict(url: str, img):
+    """One raw POST to /predict: (status, JSON body, seconds on the host clock)."""
+    req = urllib.request.Request(url + "/predict", data=img.tobytes(), method="POST",
+                                 headers={"X-Raw-Shape": ",".join(map(str, img.shape))})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, json.loads(body), time.perf_counter() - t0
+
+
+def _post_share(args):
+    """A client process's share of a serve run: its frames POSTed from
+    ``threads`` threads; the answers in order."""
+    url, frames, threads = args
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(lambda f: _post_predict(url, f), frames))
+
+
+def _serve_frames(seed: int, n: int, oversized_every: int):
+    """``n`` random RGB uint8 frames, 224² but every ``oversized_every``-th
+    300x400 (downscaled in submit)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, ((300, 400) if oversized_every and i % oversized_every == 0
+                                 else (224, 224)) + (3,)).astype(np.uint8) for i in range(n)]
+
+
+def _serve_run(kernels, clients, tag: str, argv: list, frames: list, precision: str) -> dict:
+    """``cli/serve.start(argv)`` (its warmup included), then the frames as
+    concurrent raw POSTs with the launch counts set to 0 just before and
+    read just after; every answer against the direct batched forward (the
+    batcher's own infer function, called here on the default stream) on
+    the padded batch the dispatcher formed, which this run records; GET
+    /healthz, /stats and /metrics."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve
+    from heuristique_style_transfer_code_tpu_torch.tasks.camera import rgb_to_yuv420
+    from heuristique_style_transfer_code_tpu_torch.tasks.serving import prepare_frame
+
+    args = serve.build_parser().parse_args(argv + ["--port", "0", "--device", DEVICE])
+    t0 = time.perf_counter()
+    srv, batcher = serve.start(args)
+    start_s = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    warm = _serve_frames(339, SERVE_WARM, 0)  # the client processes' first requests, untimed
+    list(clients.map(_post_share, [(url, warm[k::SERVE_CLIENT_PROCS], 4)
+                                   for k in range(SERVE_CLIENT_PROCS)]))
+    recorded = []
+    launch = batcher._launch
+
+    def recording(frames):  # the padded batch, as the dispatcher stacks it
+        recorded.append(list(frames))
+        return launch(frames)
+
+    batcher._launch = recording
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        shares = list(clients.map(_post_share, [
+            (url, frames[k::SERVE_CLIENT_PROCS], SERVE_CLIENTS // SERVE_CLIENT_PROCS)
+            for k in range(SERVE_CLIENT_PROCS)]))
+        wall = time.perf_counter() - t0
+        answers = [shares[i % SERVE_CLIENT_PROCS][i // SERVE_CLIENT_PROCS]
+                   for i in range(len(frames))]
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        health = _get(url, "/healthz")
+        stats = json.loads(_get(url, "/stats")[1])
+        metrics = _get(url, "/metrics")[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop(drain=True)
+    direct, outs = {}, []
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for padded in recorded:
+            outs.append(batcher._infer(batcher._model,
+                                       torch.from_numpy(np.stack(padded)).to(DEVICE)))
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3 / len(recorded)
+        for padded, probs in zip(recorded, outs):
+            probs = probs.cpu().numpy()
+            for row, frame in enumerate(padded):
+                direct.setdefault(frame.tobytes(), probs[row])
+    gaps, argmax_equal, served = [], True, []
+    for frame, (status, body, _) in zip(frames, answers):
+        _require(status == 200, f"[serve] {tag}: a /predict answered {status}: {body}")
+        key = prepare_frame(frame, 224)
+        if args.transport == "yuv420":
+            key = rgb_to_yuv420(key)
+        want = direct[key.tobytes()]
+        got = np.asarray(body["probs"], np.float32)
+        gaps.append(float(np.abs(got - want).max()))
+        argmax_equal &= int(got.argmax()) == int(want.argmax())
+        served.append(got)
+    lat = np.asarray([a[2] for a in answers]) * 1e3
+    out = {"start_s": start_s, "requests": len(frames), "batches": len(recorded),
+           "direct_batch_ms": batch_ms, "busy_share": len(recorded) * batch_ms / (wall * 1e3),
+           "images_per_s": len(frames) / wall, "p50_ms": float(np.percentile(lat, 50)),
+           "p95_ms": float(np.percentile(lat, 95)),
+           "mean_occupancy": stats["mean_batch_occupancy"], "stats": stats,
+           "max_gap": max(gaps), "argmax_equal": argmax_equal,
+           "launches": {k: v for k, v in launches.items() if v}, "all_launches": launches}
+    print(f"[serve] {tag}: start {start_s:.2f} s (warmup included); {len(frames)} POSTs from "
+          f"{SERVE_CLIENTS} threads in {SERVE_CLIENT_PROCS} client processes, "
+          f"{len(recorded)} batches of {SERVE_BATCH}: "
+          f"{out['images_per_s']:.1f} images/s, p50 {out['p50_ms']:.2f} ms, p95 "
+          f"{out['p95_ms']:.2f} ms (host clock, POST to JSON), mean occupancy "
+          f"{out['mean_occupancy']:.3f}; a padded batch's direct forward {batch_ms:.2f} ms "
+          f"(upload included, host clock after a synchronize), so the card busy about "
+          f"{out['busy_share']:.2f} of the run; every answer vs the direct batched forward on its "
+          f"padded batch: max |dprob| {out['max_gap']:.3e} (tol {SERVE_TOL[precision]}), "
+          f"argmax equal {argmax_equal}; launches {out['launches']}; /healthz {health[0]}")
+    _require(out["max_gap"] <= SERVE_TOL[precision] and argmax_equal,
+             f"[serve] {tag}: every answer is the direct forward's")
+    _require(health == (200, '{"ok": true}'), f"[serve] {tag}: /healthz {health}")
+    served_n = len(frames) + SERVE_WARM + 1  # and the warmup's frame
+    _require(stats["images"] == served_n, f"[serve] {tag}: /stats counts {stats}")
+    _require(f"hst_images_total {served_n}\n" in metrics and "hst_healthy 1" in metrics
+             and 'hst_latency_ms{quantile="0.95"}' in metrics, f"[serve] {tag}: /metrics")
+    out["probs"] = np.stack(served)
+    return out
+
+
+def phase_serve(kernels, tmp: str, timings: dict) -> dict:
+    """``cli/serve.start`` at full width, --batch_size 64: family 1 (its
+    default config through the family1 phase's npz) in f32, bf16, int8
+    (calibrated on a small ImageFolder and written to --quantized_path,
+    then a second start from that file alone) and yuv420; family 2
+    (truncate 8, S 7) and family 3 (the train variant the JAX CLI serves,
+    config defaults, norm "instance") in f32. Each run answers
+    SERVE_REQUESTS concurrent POSTs (``_serve_run``). Family 1 launches no
+    hand-written kernel, family 2 four ``pooled_gram_fwd`` a batch, family
+    3 thirteen ``instance_norm_fwd`` a batch (its train variant has no
+    Gram)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import multiscale_init
+
+    f1_cfg = os.path.join(tmp, "serve_f1.json")
+    with open(f1_cfg, "w") as f:
+        json.dump({"batch_size": F1_BATCH, "truncate_layer": F1_TRUNCATE, "dim": F1_DIM,
+                   "seed": 0}, f)
+    f2_cfg = os.path.join(tmp, "serve_f2.json")
+    with open(f2_cfg, "w") as f:
+        json.dump({"batch_size": F2_BATCH, "truncate_layer": 8, "gram_matrix_size": POOL_S,
+                   "num_classes": 4}, f)
+    cfg3 = MultiPatchGANConfig(norm="instance")
+    f3_cfg, f3_ckpt = os.path.join(tmp, "serve_f3.json"), os.path.join(tmp, "serve_f3.npz")
+    with open(f3_cfg, "w") as f:
+        json.dump(cfg3.to_dict(), f)
+    save_pytree_npz(to_jax_tree(multiscale_init(
+        torch.Generator().manual_seed(31), cfg3.patch_sizes, ndf=cfg3.ndf,
+        num_classes=cfg3.num_classes, norm="instance", device="cpu")), f3_ckpt)
+    cal = _image_folder(os.path.join(tmp, "serve_cal"), SERVE_CAL_PER_CLASS, seed=330,
+                        split="train")
+    qpath = os.path.join(tmp, "serve_q.npz")
+    f1 = ["--family", "truncated_resnet50", "--config_path", f1_cfg, "--model_path",
+          os.path.join(tmp, "family1.npz"), "--batch_size", str(SERVE_BATCH)]
+    runs = [
+        ("family1_float32", f1, "float32"),
+        ("family1_bf16", f1 + ["--precision", "bf16"], "bf16"),
+        ("family1_int8", f1 + ["--precision", "int8", "--calib_data", cal, "--quantized_path",
+                               qpath], "int8"),
+        ("family1_int8_from_quantized_path", f1 + ["--precision", "int8", "--quantized_path",
+                                                   qpath], "int8"),
+        ("family1_yuv420", f1 + ["--transport", "yuv420"], "float32"),
+        ("family2_float32", ["--family", "gram_attention", "--config_path", f2_cfg,
+                             "--model_path", os.path.join(tmp, "family2.npz"),
+                             "--batch_size", str(SERVE_BATCH)], "float32"),
+        ("family3_instance_float32", ["--family", "multi_patchgan", "--config_path", f3_cfg,
+                                      "--model_path", f3_ckpt, "--batch_size",
+                                      str(SERVE_BATCH)], "float32"),
+    ]
+    out = {}
+    clients = ProcessPoolExecutor(SERVE_CLIENT_PROCS, mp_context=multiprocessing.get_context(
+        "spawn"))
+    clients.submit(time.sleep, 0).result()  # the client processes up before any run
+    try:
+        for i, (tag, argv, precision) in enumerate(runs):
+            frames = _serve_frames(340 + (i if "from_quantized" not in tag else i - 1),
+                                   SERVE_REQUESTS, SERVE_OVERSIZED)
+            out[tag] = _serve_run(kernels, clients, tag, argv, frames, precision)
+    finally:
+        clients.shutdown()
+    for tag, res in out.items():
+        batches, launches = res["batches"], res["all_launches"]
+        want = {k: 0 for k in launches}
+        if tag.startswith("family2"):
+            want["pooled_gram_fwd"] = 4 * batches
+        elif tag.startswith("family3"):
+            want["instance_norm_fwd"] = len(F3T_IN_SHAPES) * batches
+        _require(launches == want, f"[serve] {tag}: launches {want}: {launches}")
+        timings[f"serve_{tag}_images_per_s"] = res["images_per_s"]
+    _require(os.path.exists(qpath), "[serve] the int8 run wrote --quantized_path")
+    same = float(np.abs(out["family1_int8"]["probs"]
+                        - out["family1_int8_from_quantized_path"]["probs"]).max())
+    print(f"[serve] family 1 int8 from --quantized_path alone vs the calibrating run on the "
+          f"same frames: max |dprob| {same:.3e}")
+    _require(same <= SERVE_TOL["int8"], "the int8 server from --quantized_path answers alike")
+    for res in out.values():
+        res.pop("probs")
+    out["launches"] = {"pooled_gram_fwd": out["family2_float32"]["all_launches"][
+        "pooled_gram_fwd"], "instance_norm_fwd": out["family3_instance_float32"][
+        "all_launches"]["instance_norm_fwd"]}
+    return out
+
+
+def _timed_handovers(proxy) -> list:
+    """Each handover of ``proxy`` from then on: whether it was a recycle,
+    whether it was the last worker's exit at stop, its seconds (the old
+    worker joined, the new one spawned and ready), the spawn's seconds and
+    the new worker's builder seconds (``build_s`` of its ready info)."""
+    handovers = []
+    gone, spawn = proxy._on_child_gone, proxy._spawn
+
+    def timed_spawn():
+        t0 = time.perf_counter()
+        spawn()
+        handovers[-1]["spawn_s"] = time.perf_counter() - t0
+        handovers[-1]["build_s"] = proxy.info.get("build_s")
+
+    def timed(expected):
+        handovers.append({"recycle": expected, "final": proxy._stopping})
+        t0 = time.perf_counter()
+        gone(expected)
+        handovers[-1]["seconds"] = time.perf_counter() - t0
+
+    proxy._on_child_gone, proxy._spawn = timed, timed_spawn
+    return handovers
+
+
+def _recycle_serve_style(spec: dict, out: dict) -> None:
+    """``serve_style --recycle_after_requests 2`` in texture mode: 3 POSTs
+    through one recycle (a thread of ``_recycle_parent``)."""
+    import numpy as np
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style
+    from heuristique_style_transfer_code_tpu_torch.utils.png import decode_png
+
+    try:
+        argv = spec["style_argv"]
+        srv, proxy = serve_style.start_recycling(serve_style.build_parser().parse_args(argv),
+                                                 argv)
+        out["first_build_s"] = proxy.info.get("build_s")
+        handovers = _timed_handovers(proxy)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            styled, statuses = [], []
+            for canvas in np.load(spec["canvases"]):
+                status, png, headers = _post_raw(url, canvas)
+                statuses.append([status, headers.get("X-Iterations")])
+                styled.append(decode_png(png))
+            stats = proxy.stats()
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            proxy.stop(drain=True)
+        np.save(spec["styled_out"], np.stack(styled))
+        out.update(statuses=statuses, stats=stats, handovers=handovers)
+    except Exception as e:  # reported by the phase, which fails on it
+        out["error"] = f"{type(e).__name__}: {e}"
+
+
+def _recycle_parent(spec_path: str) -> int:
+    """The recycling proxy's parent, run as a child process of this script
+    (``--recycle-parent SPEC``): it never touches the card. Serves family 1
+    through ``cli/serve.start_recycling`` and POSTs the spec's frames from
+    RECYCLE_CLIENTS threads, killing the worker once RECYCLE_KILL_AFTER
+    answers are in while requests are in it; meanwhile, on a thread,
+    ``serve_style --recycle_after_requests`` in texture mode
+    (``_recycle_serve_style``). Writes the answers, the stats, each
+    handover's seconds and ``torch.cuda.is_initialized()`` to the spec's
+    output."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    frames = np.load(spec["frames"])
+    style = {}
+    style_thread = threading.Thread(target=_recycle_serve_style, args=(spec, style))
+    style_thread.start()
+
+    argv = spec["serve_argv"]
+    t0 = time.perf_counter()
+    srv, proxy = serve.start_recycling(serve.build_parser().parse_args(argv), argv)
+    first_start = time.perf_counter() - t0
+    first_build = proxy.info.get("build_s")
+    handovers = _timed_handovers(proxy)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    done, killed = [0], {}
+    lock = threading.Lock()
+
+    def post(i):
+        res = _post_predict(url, frames[i])
+        with lock:
+            done[0] += 1
+        return res
+
+    def killer():
+        while not killed and done[0] < len(frames):
+            with proxy._lock:
+                proc, in_worker = proxy._proc, proxy._in_worker
+            if done[0] >= RECYCLE_KILL_AFTER and proc is not None and in_worker > 0:
+                proc.kill()
+                killed.update(pid=proc.pid, in_worker=in_worker, after=done[0])
+                return
+            time.sleep(0.002)
+
+    try:
+        watcher = threading.Thread(target=killer, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(RECYCLE_CLIENTS) as pool:
+            answers = list(pool.map(post, range(len(frames))))
+        wall = time.perf_counter() - t0
+        watcher.join(5)
+        stats = proxy.stats()
+        health = _get(url, "/healthz")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        proxy.stop(drain=True)
+    style_thread.join()
+    lat = np.asarray([a[2] for a in answers]) * 1e3
+    result = {"serve": {
+        "statuses": [a[0] for a in answers], "stats": stats, "handovers": handovers,
+        "killed": killed, "first_start_s": first_start, "first_build_s": first_build,
+        "images_per_s": len(frames) / wall, "p50_ms": float(np.percentile(lat, 50)),
+        "p95_ms": float(np.percentile(lat, 95)), "healthz": list(health)},
+        "serve_style": style, "cuda_initialized_in_parent": torch.cuda.is_initialized()}
+    np.save(spec["probs_out"], np.stack([np.asarray(a[1].get("probs", [np.nan] * 4), np.float32)
+                                         for a in answers]))
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_recycle(kernels, tmp: str, timings: dict) -> dict:
+    """``--recycle_after_requests`` on both serve CLIs. The proxy's parent
+    is a child process of this script (``_recycle_parent``), which must
+    never initialise CUDA. (a) Family 1 f32 at batch RECYCLE_BATCH with
+    --recycle_after_requests RECYCLE_AFTER under RECYCLE_REQUESTS
+    concurrent POSTs: at least two recycles, the worker killed once with
+    requests in it (replayed), no failed request, every answer within 1e-5
+    of in-process serving (``cli/serve.start`` here, the same argv without
+    the flag). (b) ``serve_style`` texture mode (family 2, layers 5,
+    RECYCLE_STYLE_ITERS iterations, batch 2, crop 224, the CLI's only one)
+    with --recycle_after_requests 2 over 3 POSTs: one recycle, each answer
+    against the service's job run here on its canvas and job id (ids start
+    again at 0 in each worker), all within Adam's 2·lr·iterations in
+    uint8, 99% within one step."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve, serve_style
+
+    f1 = ["--family", "truncated_resnet50", "--config_path", os.path.join(tmp, "serve_f1.json"),
+          "--model_path", os.path.join(tmp, "family1.npz"), "--batch_size",
+          str(RECYCLE_BATCH), "--device", DEVICE]
+    frames = np.stack(_serve_frames(360, RECYCLE_REQUESTS, 0))
+    f2_cfg = os.path.join(tmp, "serve_f2.json")
+    style = ["--config_path", f2_cfg, "--model_path", os.path.join(tmp, "family2.npz"),
+             "--layers", "5", "--num_iterations", str(RECYCLE_STYLE_ITERS), "--threshold",
+             "0", "--lr", str(RECYCLE_STYLE_LR), "--batch_size", "2", "--max_delay_ms", "5",
+             "--device", DEVICE]
+    canvases = np.random.RandomState(361).randint(0, 256, (3, 224, 224, 3)).astype(np.uint8)
+    paths = {k: os.path.join(tmp, f"recycle_{k}") for k in
+             ("frames.npy", "canvases.npy", "probs.npy", "styled.npy", "out.json", "spec.json")}
+    np.save(paths["frames.npy"], frames)
+    np.save(paths["canvases.npy"], canvases)
+    spec = {"frames": paths["frames.npy"], "canvases": paths["canvases.npy"],
+            "probs_out": paths["probs.npy"], "styled_out": paths["styled.npy"],
+            "out": paths["out.json"],
+            "serve_argv": f1 + ["--port", "0", "--recycle_after_requests", str(RECYCLE_AFTER),
+                                "--request_timeout", str(RECYCLE_TIMEOUT_S)],
+            "style_argv": style + ["--port", "0", "--recycle_after_requests", "2"]}
+    with open(paths["spec.json"], "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--recycle-parent",
+                           paths["spec.json"]], capture_output=True, text=True, timeout=600)
+    parent_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:], file=sys.stderr)
+    _require(proc.returncode == 0, f"the recycling parent exited {proc.returncode}")
+    with open(paths["out.json"]) as f:
+        res = json.load(f)
+    probs = np.load(paths["probs.npy"])
+
+    # (a) against in-process serving of the same frames
+    args = serve.build_parser().parse_args(f1 + ["--port", "0"])
+    srv, batcher = serve.start(args)
+    try:
+        want = np.stack([f.result(timeout=600) for f in [batcher.submit(x) for x in frames]])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        batcher.stop(drain=True)
+    a = res["serve"]
+    gap = float(np.abs(probs - want).max())
+    failed = sum(st != 200 for st in a["statuses"])
+    recycles = [h for h in a["handovers"] if h["recycle"] and not h["final"]]
+    crashes = [h for h in a["handovers"] if not h["recycle"]]
+
+    def seconds(hs):
+        return [f"{h['seconds']:.2f} (spawn {h['spawn_s']:.2f}, builder {h['build_s']:.2f})"
+                for h in hs]
+
+    print(f"[recycle] serve family 1 f32, b{RECYCLE_BATCH}, --recycle_after_requests "
+          f"{RECYCLE_AFTER}: {RECYCLE_REQUESTS} POSTs from {RECYCLE_CLIENTS} threads, "
+          f"{failed} failed; {a['stats']['recycles']} recycles, "
+          f"{a['stats']['worker_crashes']} crash (killed {a['killed']}); handovers (the old "
+          f"worker joined to the new one ready, s) {seconds(recycles)}, after the kill "
+          f"{seconds(crashes)}; first start {a['first_start_s']:.2f} s (builder "
+          f"{a['first_build_s']:.2f}); "
+          f"{a['images_per_s']:.1f} images/s, p50 {a['p50_ms']:.1f} ms, p95 {a['p95_ms']:.1f} ms "
+          f"(host clock, handovers included); vs in-process serving: max |dprob| {gap:.3e} "
+          f"(tol {SERVE_TOL['float32']}); CUDA initialised in the parent: "
+          f"{res['cuda_initialized_in_parent']}; the parent's process {parent_s:.1f} s")
+    _require(failed == 0 and a["stats"]["recycles"] >= 2 and a["stats"]["worker_crashes"] == 1
+             and a["stats"]["pending"] == 0, f"[recycle] no failure, >= 2 recycles, 1 crash: "
+             f"{a['stats']}")
+    _require(a["killed"].get("in_worker", 0) > 0, "[recycle] the killed worker held requests")
+    _require(gap <= SERVE_TOL["float32"] and np.array_equal(probs.argmax(1), want.argmax(1)),
+             "[recycle] the recycled answers are in-process serving's")
+    _require(res["cuda_initialized_in_parent"] is False, "the proxy's parent never used CUDA")
+
+    # (b) serve_style texture mode through one recycle
+    b = res["serve_style"]
+    _require("error" not in b, f"[recycle] serve_style's recycling: {b.get('error')}")
+    styled = np.load(paths["styled.npy"])
+    service = serve_style.build_service(serve_style.build_parser().parse_args(style))
+    ids = [(0, 1), (0,)]  # the first worker's two jobs, the second worker's one
+    expected = []
+    for group, batch in ((ids[0], canvases[:2]), (ids[1], canvases[2:])):
+        pad = np.concatenate([batch, batch[:1]])[:2]
+        job_ids = np.asarray(list(group) + [group[0]], np.int32)[:2]
+        pixels = service._jobs_by_size[2](pad, np.zeros((2, 1), np.float32), job_ids)[0]
+        expected += list(pixels.cpu().numpy()[: len(group)])
+    diffs = np.abs(styled.astype(np.int16) - np.stack(expected).astype(np.int16))
+    bound = int(np.ceil(2 * RECYCLE_STYLE_LR * RECYCLE_STYLE_ITERS * 0.229 * 255))
+    within_one = float((diffs <= 1).mean())
+    print(f"[recycle] serve_style texture (layers 5, {RECYCLE_STYLE_ITERS} iterations, b2), "
+          f"--recycle_after_requests 2, 3 POSTs: statuses {b['statuses']}, "
+          f"{b['stats']['recycles']} recycle, handover "
+          f"{seconds([h for h in b['handovers'] if not h['final']])} s (run beside (a)); vs the "
+          f"job run here: max "
+          f"{int(diffs.max())} uint8 steps (Adam's bound {bound}), {within_one:.4f} within one")
+    _require(all(st == [200, str(RECYCLE_STYLE_ITERS)] for st in b["statuses"])
+             and b["stats"]["recycles"] == 1 and b["stats"]["worker_crashes"] == 0,
+             f"[recycle] serve_style through one recycle: {b}")
+    _require(int(diffs.max()) <= bound and within_one >= 0.99,
+             "[recycle] serve_style's recycled answers are the service's jobs")
+    del service
+    torch.cuda.synchronize()
+    timings["recycle_handover_s"] = [h["seconds"] for h in recycles]
+    return {"serve": {k: a[k] for k in ("stats", "handovers", "killed", "first_start_s",
+                                         "first_build_s", "images_per_s", "p50_ms", "p95_ms")},
+            "max_gap": gap, "serve_style": b, "serve_style_max_u8_gap": int(diffs.max()),
+            "parent_seconds": parent_s,
+            "cuda_initialized_in_parent": res["cuda_initialized_in_parent"]}
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # internal: the recycle phase runs this script again as the proxy's parent
+    parser.add_argument("--recycle-parent", metavar="SPEC", help=argparse.SUPPRESS)
+    cli = parser.parse_args()
+    if cli.recycle_parent:
+        sys.path.insert(0, REPO)
+        return _recycle_parent(cli.recycle_parent)
 
     import torch
 
@@ -4894,12 +5436,20 @@ def main() -> int:
         timings["ema_mix_auto_batch_int8_phases_s"] = time.perf_counter() - t0
         print(f"[ema_mix+auto_batch+int8] {timings['ema_mix_auto_batch_int8_phases_s']:.2f} s "
               f"in all")
+        t0 = time.perf_counter()
+        serving = phase_serve(kernels, tmp, timings)
+        timings["serve_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recycle = phase_recycle(kernels, tmp, timings)
+        timings["recycle_phase_s"] = time.perf_counter() - t0
+        print(f"[serve+recycle] {timings['serve_phase_s']:.2f} + "
+              f"{timings['recycle_phase_s']:.2f} s")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
     launches = {"pooled_gram_fwd": cls_launches["pooled_gram_fwd"]
                 + f2t["launches"]["pooled_gram_fwd"] + ema_mix["launches"]["pooled_gram_fwd"]
-                + int8["launches"]["pooled_gram_fwd"],
+                + int8["launches"]["pooled_gram_fwd"] + serving["launches"]["pooled_gram_fwd"],
                 "pooled_gram_bwd": f2t["launches"]["pooled_gram_bwd"]
                 + ema_mix["launches"]["pooled_gram_bwd"],
                 "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"]
@@ -4910,7 +5460,8 @@ def main() -> int:
                 + fst_launches["instance_norm_fwd"] + f3t["launches"]["instance_norm_fwd"]
                 + remat["launches"]["instance_norm_fwd"]
                 + f3_serve["launches"]["instance_norm_fwd"]
-                + ema_mix["launches"]["instance_norm_fwd"],
+                + ema_mix["launches"]["instance_norm_fwd"]
+                + serving["launches"]["instance_norm_fwd"],
                 "instance_norm_bwd": f3_style["instance_float32"]["launches"]["instance_norm_bwd"]
                 + fst_launches["instance_norm_bwd"] + f3t["launches"]["instance_norm_bwd"]
                 + remat["launches"]["instance_norm_bwd"]
@@ -4952,7 +5503,8 @@ def main() -> int:
                    "family2_train": f2t, "family1_train": f1t, "family3_train": f3t,
                    "remat": remat, "family3_serve": f3_serve, "dispatch": dispatch,
                    "grad_accum": accum, "profile_debug": profile_debug, "ema_mix": ema_mix,
-                   "auto_batch": auto_batch, "int8": int8}, f, indent=1)
+                   "auto_batch": auto_batch, "int8": int8, "serve": serving,
+                   "recycle": recycle}, f, indent=1)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

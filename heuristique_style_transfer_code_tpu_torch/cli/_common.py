@@ -222,6 +222,22 @@ def runtime_flags(args):
         yield
 
 
+def close_on_stop(service, stack: contextlib.ExitStack) -> None:
+    """Close ``stack`` when ``service.stop`` returns: a recycling worker's
+    builder returns its service before the serving that its
+    ``runtime_flags`` scope must cover (the trace is written at the
+    close)."""
+    stop = service.stop
+
+    def stop_then_close(drain: bool = True):
+        try:
+            stop(drain=drain)
+        finally:
+            stack.close()
+
+    service.stop = stop_then_close
+
+
 def check_ported(args, not_ported: dict) -> None:
     """Raise "not ported yet" for any flag of ``not_ported`` ({flag: its
     default}) given another value."""

@@ -11,8 +11,10 @@ that clients pick from or blend with ``X-Style``, with ``--style_weight``,
 ``--content_weight``, ``--tv_weight``, ``--style_init`` and
 ``--style_layers``), with ``--batch_size`` ladders, ``--precision
 float32|bf16``, ``--transport rgb|yuv420``, ``--remat`` (family 2),
-``--profile_dir``, ``--debug_nans`` and SIGTERM drain. The flags listed in
-``_NOT_PORTED`` raise a "not ported yet" error.
+``--recycle_after_requests`` (the service in a spawned worker process,
+``tasks/recycling.py``), ``--profile_dir``, ``--debug_nans`` and SIGTERM
+drain. The flags listed in ``_NOT_PORTED`` raise a "not ported yet"
+error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.serve_style \\
         --net style_net.npz --batch_size 4,8 --port 8001 [--device cpu]
@@ -20,6 +22,7 @@ float32|bf16``, ``--transport rgb|yuv420``, ``--remat`` (family 2),
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -28,6 +31,7 @@ import numpy as np
 from ._common import (
     add_device_args,
     check_ported,
+    close_on_stop,
     count_params,
     load_checkpoint_tree,
     resolve_compute_dtype,
@@ -41,7 +45,6 @@ _NOT_PORTED = {
     "artifact": None,
     "export_artifact": None,
     "export_platforms": None,
-    "recycle_after_requests": 0,
     "devices": None,
 }
 
@@ -105,7 +108,12 @@ def build_parser():
                         help="Per-request wait on the job Future (s)")
     parser.add_argument("--no_warmup", action="store_true",
                         help="Skip the kernel build and warm forward before binding the port")
-    parser.add_argument("--recycle_after_requests", type=int, default=0, help="Not ported yet")
+    parser.add_argument("--recycle_after_requests", type=int, default=0,
+                        help="Run the job service in a spawned worker process and respawn "
+                        "it after this many requests (drained first: no request fails "
+                        "across the handover); the worker's memory, host and device, goes "
+                        "back with each respawn. This process keeps the HTTP server and "
+                        "never initialises CUDA")
     add_device_args(parser)
     return parser
 
@@ -256,26 +264,100 @@ def build_service(args, crop: int = 224):
     )
 
 
-def start(args, crop: int = 224):
-    """Build the service and the HTTP server and start the service (returns
-    (srv, service); used by main() and callable from tests)."""
-    from ..tasks.style_http import make_style_http_server
-
+def _start_service(args, crop: int = 224):
+    """The configured service, started and (unless --no_warmup) warmed."""
     service = build_service(args, crop=crop).start()
     if not args.no_warmup:
         print("Warming up (kernel build, warm forward)...", flush=True)
         t0 = time.time()
         service.warmup()
         print(f"Warmup done in {time.time() - t0:.1f}s")
+    return service
+
+
+def start(args, crop: int = 224):
+    """Build the service and the HTTP server and start the service (returns
+    (srv, service); used by main() and callable from tests)."""
+    from ..tasks.style_http import make_style_http_server
+
+    service = _start_service(args, crop=crop)
     srv = make_style_http_server(service, args.host, args.port, timeout_s=args.request_timeout)
     return srv, service
 
 
+def _recycle_worker(argv):
+    """Builder run inside the recycling worker child (``tasks/recycling.py``;
+    JAX ``:380-401``): the configured style service from the serve argv,
+    under ``--profile_dir`` and ``--debug_nans`` until it stops."""
+    args = build_parser().parse_args(argv)
+    flags = contextlib.ExitStack()
+    flags.enter_context(runtime_flags(args))
+    try:
+        service = _start_service(args)
+    except BaseException:
+        flags.close()
+        raise
+    close_on_stop(service, flags)
+    info = {
+        "crop": service.crop,
+        "transport": service.transport,
+        "style_names": list(service.style_names),
+        "batch_sizes": list(service.batch_sizes),
+        "num_iterations": service.num_iterations,
+        "count_key": "jobs",
+        "max_queue": service.max_queue,
+        "device": str(service.device),
+    }
+    return service, info
+
+
+def _recycle_preprocess(info):
+    """The recycling proxy's submit preprocessing, in the HTTP request
+    thread (JAX ``:404-422``): the canvas validation and downscale and the
+    style-pick validation of ``StyleTransferService.submit`` (bad requests
+    still answer 400 at once)."""
+    crop = int(info["crop"])
+    names = list(info["style_names"])
+
+    def prep(image, style=None):
+        from ..tasks.style_service import _to_canvas, style_weights
+
+        image = _to_canvas(image, crop)
+        if names:
+            style_weights(style, names)  # validated only; the worker computes them again
+        elif style is not None:
+            raise ValueError("texture mode takes no style= (no gallery)")
+        return (image,), {"style": style}
+
+    return prep
+
+
+def start_recycling(args, argv):
+    """--recycle_after_requests: the job service lives in a spawned worker
+    process (drained and respawned after N requests); this process keeps
+    the HTTP server and never touches the card. Returns (srv, proxy), the
+    surface of ``start``."""
+    from ..tasks.recycling import RecyclingServiceProxy, strip_flag
+    from ..tasks.style_http import make_style_http_server
+
+    check_ported(args, _NOT_PORTED)
+    proxy = RecyclingServiceProxy(
+        "heuristique_style_transfer_code_tpu_torch.cli.serve_style:_recycle_worker",
+        strip_flag(list(argv), "--recycle_after_requests"),
+        recycle_after=args.recycle_after_requests,
+        preprocess_factory=_recycle_preprocess,
+    ).start()
+    srv = make_style_http_server(proxy, args.host, args.port, timeout_s=args.request_timeout)
+    return srv, proxy
+
+
 def main(argv=None):
     import signal
+    import sys
     import threading
 
-    args = build_parser().parse_args(argv)
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(raw_argv)
     # SIGTERM = orchestrated shutdown: stop accepting, drain submitted jobs,
     # exit — registered before the warmup so a signal landing then still
     # shuts down cleanly; the previous handler comes back on return
@@ -285,17 +367,20 @@ def main(argv=None):
     except ValueError:
         previous = None  # not the main thread (programmatic use)
     try:
-        with runtime_flags(args):
-            _serve(args, stop_requested)
+        if args.recycle_after_requests:
+            # --profile_dir and --debug_nans act in the worker
+            _serve(args, stop_requested, *start_recycling(args, raw_argv))
+        else:
+            with runtime_flags(args):
+                _serve(args, stop_requested, *start(args))
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
 
 
-def _serve(args, stop_requested) -> None:
+def _serve(args, stop_requested, srv, service) -> None:
     import threading
 
-    srv, service = start(args)
     host, port = srv.server_address[:2]
     batch_str = ",".join(str(s) for s in service.batch_sizes)
     print(f"Serving style transfer on http://{host}:{port} "

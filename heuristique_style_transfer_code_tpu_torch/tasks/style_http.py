@@ -18,7 +18,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..utils.png import encode_png
-from .serving_http import _decode_image
+from .serving_http import HTTPServer, _decode_image
 from .style_service import StyleTransferService
 
 
@@ -129,7 +129,7 @@ def make_style_http_server(
                        [("X-Iterations", str(result.iterations)),
                         ("X-Final-Loss", f"{result.loss:.8g}")])
 
-    return ThreadingHTTPServer((host, port), Handler)
+    return HTTPServer((host, port), Handler)
 
 
 def serve_style_http(

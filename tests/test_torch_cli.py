@@ -203,7 +203,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for module in ("checkpoint/pth_converter.py", "checkpoint/pth_exporter.py",
                    "cli/convert_checkpoint.py", "tasks/style_transfer.py",
                    "ops/kernels/instance_norm.py", "data/augment.py",
-                   "cli/train_truncated_resnet50.py", "cli/train_multi_patchgan.py"):
+                   "cli/train_truncated_resnet50.py", "cli/train_multi_patchgan.py",
+                   "tasks/serving.py", "tasks/serving_http.py", "cli/serve.py",
+                   "tasks/recycling.py"):
         assert os.path.join(PORT, module) in files, module
     bad = []
     for path in files:

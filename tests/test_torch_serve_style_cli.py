@@ -183,7 +183,7 @@ def test_style_image_errors_keep_the_jax_messages(content_style_files, case):
 
 @pytest.mark.parametrize("extra", [
     ["--artifact", "a.npz"], ["--export_artifact", "a.npz"], ["--export_platforms", "cpu"],
-    ["--recycle_after_requests", "3"], ["--devices", "2"],
+    ["--devices", "1"], ["--devices", "2"],
 ])
 def test_unported_flags_raise(net_path, extra):
     from heuristique_style_transfer_code_tpu_torch.cli.serve_style import main
