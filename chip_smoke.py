@@ -298,6 +298,29 @@ Phases, all run every time:
                   seconds; beside it serve_style texture mode (family 2,
                   layers 5, 5 iterations) through one recycle, each answer
                   against the service's job run here.
+  artifact        serving artifacts (``deploy/artifact.py``): host us a
+                  call of gram_fwd and instance_norm_fwd through their
+                  torch.library ops and through the direct wrappers;
+                  ``serve --export_artifact`` on the card for family 1 in
+                  f32 (symbolic batch), bf16, int8 and yuv420, families 2
+                  and 3 (norm "instance") in f32, each file loaded and
+                  held at b1, b7 and b64 to the live forward (f32 1e-5,
+                  bf16 2e-2, int8 1e-3), with 4 pooled_gram_fwd (family
+                  2) or 13 instance_norm_fwd (family 3) a forward and the
+                  graphs' hst nodes; ``serve --artifact`` (family 2) under
+                  the serve phase's load, every answer against the direct
+                  forward and the live model; --recycle_after_requests
+                  with --artifact (one recycle) and a fresh interpreter's
+                  start split into imports, CUDA context, load and first
+                  forward, for the artifact and for the model;
+                  ``serve_style --export_artifact``/``--artifact`` in
+                  texture mode (family 2, layers 5, b2), for family 3
+                  (norm "instance", b1) and content+style (b2), 5
+                  iterations: iterations equal, uint8 within one level,
+                  losses within 1e-5 or twice the live service's own
+                  run-to-run spread, launches equal, one POST; a family-3
+                  style iteration's host time through the ops and through
+                  autograd.Functions that call the wrappers.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -556,6 +579,17 @@ RECYCLE_KILL_AFTER, RECYCLE_STYLE_ITERS, RECYCLE_STYLE_LR = 100, 5, 0.01
 # a request may wait through a handover (a worker's start: 10-20 s on the
 # card's machine), longer than the CLI's default --request_timeout of 30 s
 RECYCLE_TIMEOUT_S = 300
+# the artifact phase: the batches each inference artifact is checked at, the
+# style artifacts' iterations, the calls timed a host cost, and
+# --recycle_after_requests with --artifact (every ART_RECYCLE_AFTER of
+# ART_RECYCLE_REQUESTS requests); the exports' time limit
+ART_BATCHES, ART_STYLE_ITERS, ART_OVERHEAD_CALLS = (1, 7, 64), 5, 2000
+ART_EXPORT_TIMEOUT_S = 600
+ART_RECYCLE_AFTER, ART_RECYCLE_REQUESTS = 24, 40
+# a style artifact's per-image losses against the live service's, relative:
+# this, or twice the live service's own run-to-run spread (cuDNN's backward
+# algorithms may sum in another order from one run to the next)
+ART_STYLE_LOSS_RTOL = 1e-5
 
 
 def _require(ok: bool, what: str) -> None:
@@ -4957,21 +4991,11 @@ def _serve_run(kernels, clients, tag: str, argv: list, frames: list, precision: 
     return out
 
 
-def phase_serve(kernels, tmp: str, timings: dict) -> dict:
-    """``cli/serve.start`` at full width, --batch_size 64: family 1 (its
-    default config through the family1 phase's npz) in f32, bf16, int8
-    (calibrated on a small ImageFolder and written to --quantized_path,
-    then a second start from that file alone) and yuv420; family 2
-    (truncate 8, S 7) and family 3 (the train variant the JAX CLI serves,
-    config defaults, norm "instance") in f32. Each run answers
-    SERVE_REQUESTS concurrent POSTs (``_serve_run``). Family 1 launches no
-    hand-written kernel, family 2 four ``pooled_gram_fwd`` a batch, family
-    3 thirteen ``instance_norm_fwd`` a batch (its train variant has no
-    Gram)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    import numpy as np
+def _serve_inputs(tmp: str):
+    """The serve phase's configs and the family-3 train-variant checkpoint
+    (config defaults, norm "instance"), written here, with the int8
+    calibration folder and the --quantized_path it fills: (f1 config, f2
+    config, f3 config, f3 checkpoint, calibration root, quantized path)."""
     import torch
 
     from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
@@ -4991,12 +5015,33 @@ def phase_serve(kernels, tmp: str, timings: dict) -> dict:
     f3_cfg, f3_ckpt = os.path.join(tmp, "serve_f3.json"), os.path.join(tmp, "serve_f3.npz")
     with open(f3_cfg, "w") as f:
         json.dump(cfg3.to_dict(), f)
-    save_pytree_npz(to_jax_tree(multiscale_init(
-        torch.Generator().manual_seed(31), cfg3.patch_sizes, ndf=cfg3.ndf,
-        num_classes=cfg3.num_classes, norm="instance", device="cpu")), f3_ckpt)
-    cal = _image_folder(os.path.join(tmp, "serve_cal"), SERVE_CAL_PER_CLASS, seed=330,
-                        split="train")
-    qpath = os.path.join(tmp, "serve_q.npz")
+    if not os.path.exists(f3_ckpt):
+        save_pytree_npz(to_jax_tree(multiscale_init(
+            torch.Generator().manual_seed(31), cfg3.patch_sizes, ndf=cfg3.ndf,
+            num_classes=cfg3.num_classes, norm="instance", device="cpu")), f3_ckpt)
+    cal = os.path.join(tmp, "serve_cal")
+    if not os.path.isdir(cal):
+        _image_folder(cal, SERVE_CAL_PER_CLASS, seed=330, split="train")
+    return f1_cfg, f2_cfg, f3_cfg, f3_ckpt, cal, os.path.join(tmp, "serve_q.npz")
+
+
+def phase_serve(kernels, tmp: str, timings: dict) -> dict:
+    """``cli/serve.start`` at full width, --batch_size 64: family 1 (its
+    default config through the family1 phase's npz) in f32, bf16, int8
+    (calibrated on a small ImageFolder and written to --quantized_path,
+    then a second start from that file alone) and yuv420; family 2
+    (truncate 8, S 7) and family 3 (the train variant the JAX CLI serves,
+    config defaults, norm "instance") in f32. Each run answers
+    SERVE_REQUESTS concurrent POSTs (``_serve_run``). Family 1 launches no
+    hand-written kernel, family 2 four ``pooled_gram_fwd`` a batch, family
+    3 thirteen ``instance_norm_fwd`` a batch (its train variant has no
+    Gram)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    f1_cfg, f2_cfg, f3_cfg, f3_ckpt, cal, qpath = _serve_inputs(tmp)
     f1 = ["--family", "truncated_resnet50", "--config_path", f1_cfg, "--model_path",
           os.path.join(tmp, "family1.npz"), "--batch_size", str(SERVE_BATCH)]
     runs = [
@@ -5110,9 +5155,10 @@ def _recycle_parent(spec_path: str) -> int:
     (``--recycle-parent SPEC``): it never touches the card. Serves family 1
     through ``cli/serve.start_recycling`` and POSTs the spec's frames from
     RECYCLE_CLIENTS threads, killing the worker once RECYCLE_KILL_AFTER
-    answers are in while requests are in it; meanwhile, on a thread,
-    ``serve_style --recycle_after_requests`` in texture mode
-    (``_recycle_serve_style``). Writes the answers, the stats, each
+    answers are in while requests are in it (the spec's ``kill_after``, None
+    for no kill); meanwhile, on a thread, ``serve_style
+    --recycle_after_requests`` in texture mode (``_recycle_serve_style``;
+    not where the spec has no ``style_argv``). Writes the answers, the stats, each
     handover's seconds and ``torch.cuda.is_initialized()`` to the spec's
     output."""
     import numpy as np
@@ -5125,7 +5171,9 @@ def _recycle_parent(spec_path: str) -> int:
     frames = np.load(spec["frames"])
     style = {}
     style_thread = threading.Thread(target=_recycle_serve_style, args=(spec, style))
-    style_thread.start()
+    if spec.get("style_argv"):
+        style_thread.start()
+    kill_after = spec.get("kill_after", RECYCLE_KILL_AFTER)
 
     argv = spec["serve_argv"]
     t0 = time.perf_counter()
@@ -5145,10 +5193,10 @@ def _recycle_parent(spec_path: str) -> int:
         return res
 
     def killer():
-        while not killed and done[0] < len(frames):
+        while kill_after is not None and not killed and done[0] < len(frames):
             with proxy._lock:
                 proc, in_worker = proxy._proc, proxy._in_worker
-            if done[0] >= RECYCLE_KILL_AFTER and proc is not None and in_worker > 0:
+            if done[0] >= kill_after and proc is not None and in_worker > 0:
                 proc.kill()
                 killed.update(pid=proc.pid, in_worker=in_worker, after=done[0])
                 return
@@ -5168,7 +5216,8 @@ def _recycle_parent(spec_path: str) -> int:
         srv.shutdown()
         srv.server_close()
         proxy.stop(drain=True)
-    style_thread.join()
+    if spec.get("style_argv"):
+        style_thread.join()
     lat = np.asarray([a[2] for a in answers]) * 1e3
     result = {"serve": {
         "statuses": [a[0] for a in answers], "stats": stats, "handovers": handovers,
@@ -5310,10 +5359,525 @@ def phase_recycle(kernels, tmp: str, timings: dict) -> dict:
             "cuda_initialized_in_parent": res["cuda_initialized_in_parent"]}
 
 
+def _host_us_per_call(fn, calls: int = ART_OVERHEAD_CALLS) -> float:
+    """Host microseconds a call of ``fn`` (a launch of a small kernel, so the
+    host, not the card, sets the pace), after a warm-up; synchronised only
+    before and after."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
+def _op_overhead(kg, kin) -> dict:
+    """Host us a call of ``gram_fwd`` at (1,4,4,64) and of
+    ``instance_norm_fwd`` at (1,112,112,64), f32, through the
+    ``torch.library`` op, through the direct wrapper, and (where a gradient
+    flows) through the differentiable shim."""
+    import torch
+
+    f = torch.rand((1, 16, 64), device=DEVICE)
+    fg = f.clone().requires_grad_(True)
+    x = torch.randn((1, 112 * 112, 64), device=DEVICE)
+    xg = x.clone().requires_grad_(True)
+    ones, zeros = torch.ones((1, 64), device=DEVICE), torch.zeros((1, 64), device=DEVICE)
+    out = {
+        "gram_fwd_op_us": _host_us_per_call(lambda: torch.ops.hst.gram_fwd.default(f)),
+        "gram_fwd_wrapper_us": _host_us_per_call(lambda: kg.gram_fwd(f)),
+        "gram_fwd_op_with_grad_us": _host_us_per_call(lambda: kg.GramFunction.apply(fg)),
+        "instance_norm_fwd_op_us": _host_us_per_call(
+            lambda: torch.ops.hst.instance_norm_fwd.default(x, ones, zeros, kin.EPS, True)),
+        "instance_norm_fwd_wrapper_us": _host_us_per_call(
+            lambda: kin.instance_norm_fwd(x, ones, zeros, kin.EPS, True)),
+        "instance_norm_fwd_op_with_grad_us": _host_us_per_call(
+            lambda: kin.InstanceNormFunction.apply(xg, ones, zeros, kin.EPS, True)),
+    }
+    with torch.inference_mode():  # as evaluation, the camera and the servers call them
+        out.update({
+            "gram_fwd_op_inference_us": _host_us_per_call(
+                lambda: torch.ops.hst.gram_fwd.default(f)),
+            "gram_fwd_wrapper_inference_us": _host_us_per_call(lambda: kg.gram_fwd(f)),
+            "instance_norm_fwd_op_inference_us": _host_us_per_call(
+                lambda: torch.ops.hst.instance_norm_fwd.default(x, ones, zeros, kin.EPS, True)),
+            "instance_norm_fwd_wrapper_inference_us": _host_us_per_call(
+                lambda: kin.instance_norm_fwd(x, ones, zeros, kin.EPS, True)),
+        })
+    print(f"[artifact] host us a call (f32, {ART_OVERHEAD_CALLS} calls): gram_fwd (1,4,4,64) "
+          f"op {out['gram_fwd_op_us']:.2f}, wrapper {out['gram_fwd_wrapper_us']:.2f}, op with "
+          f"a gradient to flow {out['gram_fwd_op_with_grad_us']:.2f}; instance_norm_fwd "
+          f"(1,112,112,64) ReLU op {out['instance_norm_fwd_op_us']:.2f}, wrapper "
+          f"{out['instance_norm_fwd_wrapper_us']:.2f}, op with a gradient to flow "
+          f"{out['instance_norm_fwd_op_with_grad_us']:.2f}; under inference_mode gram_fwd op "
+          f"{out['gram_fwd_op_inference_us']:.2f}, wrapper "
+          f"{out['gram_fwd_wrapper_inference_us']:.2f}, instance_norm_fwd op "
+          f"{out['instance_norm_fwd_op_inference_us']:.2f}, wrapper "
+          f"{out['instance_norm_fwd_wrapper_inference_us']:.2f}")
+    return out
+
+
+def _hst_nodes(ep) -> list:
+    return sorted({str(n.target) for n in ep.graph.nodes if str(n.target).startswith("hst.")})
+
+
+def _export_all(jobs: dict, tmp: str) -> dict:
+    """``python -m <PKG>.cli.<module> <argv> --export_artifact <path>`` for
+    each ``tag: (module, argv, path)`` of ``jobs``, each in a process of
+    its own on the card, all at once (each export is a host-bound trace);
+    returns each one's wall seconds, its interpreter's start included. A
+    failed or late export raises, and every process is stopped."""
+    t0 = time.perf_counter()
+    procs, seconds = {}, {}
+    try:
+        for tag, (module, argv, path) in jobs.items():
+            log = open(os.path.join(tmp, f"export_{tag}.log"), "w")
+            procs[tag] = (subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.cli.{module}", *argv, "--export_artifact", path,
+                 "--device", DEVICE], cwd=REPO, stdout=log, stderr=subprocess.STDOUT), log)
+        while len(seconds) < len(procs):
+            _require(time.perf_counter() - t0 < ART_EXPORT_TIMEOUT_S,
+                     f"[artifact] exports still running after {ART_EXPORT_TIMEOUT_S} s")
+            for tag, (proc, log) in procs.items():
+                if tag not in seconds and proc.poll() is not None:
+                    seconds[tag] = time.perf_counter() - t0
+                    log.close()
+                    if proc.returncode:
+                        with open(log.name) as f:
+                            print(f.read()[-4000:], file=sys.stderr)
+                    _require(proc.returncode == 0,
+                             f"[artifact] the {tag} export exited {proc.returncode}")
+            time.sleep(0.2)
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    print(f"[artifact] {len(jobs)} exports side by side in {max(seconds.values()):.2f} s: "
+          + ", ".join(f"{tag} {sec:.2f}" for tag, sec in seconds.items()))
+    return seconds
+
+
+def _artifact_infer(kernels, tag: str, argv: list, precision: str, path: str, export_s: float,
+                    per_forward: dict) -> dict:
+    """The file ``serve --export_artifact`` of ``argv`` wrote at ``path``,
+    loaded back, and at each of ART_BATCHES its probabilities against the
+    live infer function the batcher builds (``make_camera_infer_fn``) on
+    the same batch, with the launches of a forward (``per_forward`` a
+    forward, every other kernel none) and the graph's ``hst`` nodes."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve
+    from heuristique_style_transfer_code_tpu_torch.deploy import load_infer_artifact
+    from heuristique_style_transfer_code_tpu_torch.tasks.camera import (
+        make_camera_infer_fn,
+        make_camera_infer_fn_yuv,
+    )
+
+    t0 = time.perf_counter()
+    art = load_infer_artifact(path)
+    load_s = time.perf_counter() - t0
+    args = serve.build_parser().parse_args(argv + ["--device", DEVICE])
+    fwd, model, _, _ = serve._resolve_forward(args)
+    tail = (224 * 3 // 2, 224) if args.transport == "yuv420" else (224, 224, 3)
+    rows = []
+    for n in ART_BATCHES:
+        live_fn = (make_camera_infer_fn_yuv(fwd, 224, batch=n) if args.transport == "yuv420"
+                   else make_camera_infer_fn(fwd, batch=n, host_downscale=True))
+        x = torch.from_numpy(np.random.RandomState(n).randint(0, 256, (n,) + tail).astype(
+            np.uint8)).to(DEVICE)
+        live = live_fn(model, x)
+        again = live_fn(model, x)  # the live path's own run-to-run spread
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            got = art(x)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        rows.append({"batch": n, "max_gap": float((got - live).abs().max()),
+                     "bit_equal": bool(torch.equal(got, live)),
+                     "live_twice_bit_equal": bool(torch.equal(again, live)),
+                     "shape": list(got.shape),
+                     "launches": {k: v for k, v in launches.items() if v}})
+        if n == ART_BATCHES[-1]:  # host ms to issue a forward, and with its sync
+            with torch.inference_mode():
+                for side, call in (("live", lambda: live_fn(model, x)), ("artifact",
+                                                                     lambda: art(x))):
+                    host, wall = [], []
+                    for _ in range(6):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        call()
+                        host.append(time.perf_counter() - t0)
+                        torch.cuda.synchronize()
+                        wall.append(time.perf_counter() - t0)
+                    rows[-1][f"{side}_host_ms"] = float(np.median(host[1:]) * 1e3)
+                    rows[-1][f"{side}_wall_ms"] = float(np.median(wall[1:]) * 1e3)
+        want = {k: 0 for k in launches}
+        want.update(per_forward)
+        _require(tuple(got.shape) == (n, 4), f"[artifact] {tag} b{n}: shape {tuple(got.shape)}")
+        _require(launches == want, f"[artifact] {tag} b{n}: launches {want}: {launches}")
+    nodes = _hst_nodes(art.exported)
+    out = {"export_s": export_s, "load_s": load_s, "bytes": os.path.getsize(path),
+           "meta": art.meta, "hst_nodes": nodes, "rows": rows, "path": path}
+    last = rows[-1]
+    print(f"[artifact] {tag}: export process {export_s:.2f} s, {out['bytes'] / 1e6:.1f} MB, loaded "
+          f"in {load_s:.2f} s; b{last['batch']} host ms to issue a forward live "
+          f"{last['live_host_ms']:.2f} artifact {last['artifact_host_ms']:.2f}, with its sync "
+          f"{last['live_wall_ms']:.2f} and {last['artifact_wall_ms']:.2f}; "
+          f"hst nodes {nodes}; vs the live infer function on the same batch: "
+          + ", ".join(f"b{r['batch']} max |dprob| {r['max_gap']:.3e} (bit-equal "
+                      f"{r['bit_equal']}; two live runs bit-equal {r['live_twice_bit_equal']}; "
+                      f"launches {r['launches']})" for r in rows))
+    _require(all(r["max_gap"] <= SERVE_TOL[precision] for r in rows),
+             f"[artifact] {tag}: the artifact answers as the live forward (tol "
+             f"{SERVE_TOL[precision]})")
+    _require(set(nodes) == {f"hst.{k}.default" for k in per_forward},
+             f"[artifact] {tag}: the graph's hst nodes {nodes}")
+    return out
+
+
+def _style_jobs(kernels, services, batch: int, canvases, w, ids, res: dict) -> None:
+    """The batch-``batch`` job of each (name, service) on the same inputs,
+    after a warm run (cuDNN's choices): its uint8 canvases, iterations,
+    per-image losses, seconds (host clock, synchronised) and launches into
+    ``res[name]``."""
+    import torch
+
+    for side, service in services:
+        service._jobs_by_size[batch](canvases, w, ids)[0].cpu()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        u8, iters, per = service._jobs_by_size[batch](canvases, w, ids)
+        u8 = u8.cpu().numpy()
+        res[side] = {"u8": u8, "iters": int(iters), "loss": torch.as_tensor(per).cpu().numpy(),
+                     "job_s": time.perf_counter() - t0, "launches": kernels.launch_counts()}
+
+
+def _iteration_host(service, canvases, w, ids) -> dict:
+    """Host ms to issue one iteration of ``service``'s live loop
+    (``masked_adam_step`` on its loss, nothing synchronised inside) and
+    with its sync: medians over ART_STYLE_ITERS iterations after a warm
+    one."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_service import job_noises
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        bias_corrections,
+        masked_adam_step,
+    )
+
+    loop = service.loop
+    noise = ((job_noises(loop.seed, ids, canvases.shape[1:], DEVICE),) if loop.noise else ())
+    pixels, *rest = loop.prepare(torch.from_numpy(canvases).to(DEVICE),
+                                 torch.from_numpy(w).to(DEVICE), *noise)
+    step = functools.partial(masked_adam_step, loop.loss, loop.learning_rate, loop.threshold)
+    state = (pixels.float(), torch.zeros_like(pixels), torch.zeros_like(pixels),
+             torch.ones((len(ids),), dtype=torch.bool, device=DEVICE))
+    host, wall = [], []
+    for i in range(ART_STYLE_ITERS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = step(*state, *bias_corrections(i + 1), *rest)[:4]
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i:
+            host.append(t1 - t0)
+            wall.append(time.perf_counter() - t0)
+    return {"host_ms": float(np.median(host) * 1e3), "wall_ms": float(np.median(wall) * 1e3)}
+
+
+def _artifact_style(kernels, tag: str, argv: list, path: str, export_s: float, batch: int,
+                    styles: int, iteration_host: bool = False) -> dict:
+    """The file ``serve_style --export_artifact`` of ``argv`` wrote at
+    ``path``, and the service built from ``--artifact`` beside the one
+    built from ``argv``: the batch-``batch`` job of both on
+    the same canvases, blend rows and job ids, under cuDNN's deterministic
+    algorithms, with their launches, the iterations, the per-image losses
+    and the uint8 canvases compared (and the live job's own run-to-run
+    spread beside them), each job timed (host clock, synchronised); with
+    ``iteration_host``, ``_iteration_host`` of the live loop."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style
+
+    live = serve_style.build_service(serve_style.build_parser().parse_args(
+        argv + ["--device", DEVICE]))
+    t0 = time.perf_counter()
+    served = serve_style.build_service(serve_style.build_parser().parse_args(
+        argv + ["--artifact", path, "--device", DEVICE]))
+    load_s = time.perf_counter() - t0
+    canvases = np.random.RandomState(370).randint(0, 256, (batch, 224, 224, 3)).astype(np.uint8)
+    w = np.zeros((batch, styles), np.float32)
+    w[np.arange(batch), np.arange(batch) % styles] = 1.0
+    ids = np.arange(batch, dtype=np.int32)
+    res = {}
+    # cuDNN's deterministic algorithms for the comparison: the default ones
+    # may sum a backward in another order from one run to the next (the
+    # content+style loop's losses then differ by ~2e-5 between two live runs)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _style_jobs(kernels, (("live", live), ("artifact", served), ("live_again", live)),
+                    batch, canvases, w, ids, res)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b, again = res["live"], res["artifact"], res["live_again"]
+
+    def rel(x, y):
+        return float(np.abs(x - y).max() / max(np.abs(x).max(), 1e-30))
+
+    gap = _u8_gap(a["u8"], b["u8"])
+    loss_rel, live_rel = rel(a["loss"], b["loss"]), rel(a["loss"], again["loss"])
+    from heuristique_style_transfer_code_tpu_torch.deploy.artifact import load_style_artifact
+
+    nodes = {name: _hst_nodes(ep)
+             for name, ep in load_style_artifact(path).exported_by_size[batch].items()}
+    out = {"export_s": export_s, "load_s": load_s, "bytes": os.path.getsize(path),
+           "iterations": [a["iters"], b["iters"]], "max_u8_gap": gap, "loss_rel_gap": loss_rel,
+           "launches": {k: v for k, v in b["launches"].items() if v},
+           "live_launches": {k: v for k, v in a["launches"].items() if v},
+           "job_s": {"live": a["job_s"], "artifact": b["job_s"], "live_again": again["job_s"]},
+           "live_loss_rel_spread": live_rel, "live_u8_spread": _u8_gap(a["u8"], again["u8"]),
+           "hst_nodes": nodes, "path": path}
+    if iteration_host:
+        out["iteration"] = _iteration_host(live, canvases, w, ids)
+    print(f"[artifact] serve_style {tag} b{batch}: export process {export_s:.2f} s, "
+          f"{out['bytes'] / 1e6:.1f} MB, served from the file in {load_s:.2f} s; iterations "
+          f"{out['iterations']}, max uint8 gap {gap}, loss rel gap {loss_rel:.2e} (two live "
+          f"runs: {out['live_u8_spread']} and {live_rel:.2e}); launches artifact "
+          f"{out['launches']} live {out['live_launches']}; job s live {a['job_s']:.3f} "
+          f"(again {again['job_s']:.3f}) artifact {b['job_s']:.3f}; hst nodes {nodes}"
+          + (f"; a live iteration: host {out['iteration']['host_ms']:.2f} ms to issue, "
+             f"{out['iteration']['wall_ms']:.2f} ms with its sync" if iteration_host else ""))
+    _require(a["iters"] == b["iters"] and gap <= 1 and loss_rel <= max(ART_STYLE_LOSS_RTOL,
+                                                                      2 * live_rel),
+             f"[artifact] serve_style {tag}: the artifact's job is the live service's")
+    _require(a["launches"] == b["launches"] and b["launches"]["gram_fwd"] > 0
+             and b["launches"]["gram_bwd"] > 0,
+             f"[artifact] serve_style {tag}: launches equal to the live service's")
+    return out
+
+
+def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
+                   recycle=None) -> dict:
+    """Serving artifacts (``deploy/artifact.py``) on the card. The host cost
+    of the ``torch.library`` ops (``_op_overhead``); every export through
+    the CLIs, side by side (``_export_all``); each ``serve
+    --export_artifact`` file loaded back, at b1, b7 and b64 against the
+    live forward (``_artifact_infer``): family 1
+    in f32 (symbolic batch), bf16, int8 (from --quantized_path) and
+    yuv420, family 2 and family 3 (norm "instance") in f32; ``serve
+    --artifact`` (family 2) under SERVE_REQUESTS concurrent POSTs, every
+    answer against the direct forward, beside the serve phase's family-2
+    run; ``--recycle_after_requests`` with ``--artifact`` (family 1, b16,
+    one recycle), its handover beside the recycle phase's; ``serve_style
+    --export_artifact`` and ``--artifact`` for texture mode (family 2,
+    layers 5, b2), family 3 (norm "instance", b1, with a live iteration's
+    host time) and content+style (b2), one POST through the texture
+    artifact's server."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
+    from heuristique_style_transfer_code_tpu_torch.tasks.camera import make_camera_infer_fn
+    from heuristique_style_transfer_code_tpu_torch.tasks.serving import prepare_frame
+
+    t_phase = time.perf_counter()
+    out = {"overhead": _op_overhead(kg, kin)}
+    f1_cfg, f2_cfg, f3_cfg, f3_ckpt, cal, qpath = _serve_inputs(tmp)
+    for name, make in (("family1.npz", lambda: _family1(tmp)),
+                       ("family3_instance.npz", lambda: _family3(tmp, "instance"))):
+        if not os.path.exists(os.path.join(tmp, name)):
+            make()
+    f2_ckpt = os.path.join(tmp, "family2.npz")
+    if not os.path.exists(f2_ckpt):
+        from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+        from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+        from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+            gram_attention_init,
+        )
+
+        save_pytree_npz(to_jax_tree(gram_attention_init(
+            torch.Generator().manual_seed(0), 8, 4, POOL_S, device="cpu")), f2_ckpt)
+    f1 = ["--family", "truncated_resnet50", "--config_path", f1_cfg, "--model_path",
+          os.path.join(tmp, "family1.npz")]
+    f2 = ["--family", "gram_attention", "--config_path", f2_cfg, "--model_path", f2_ckpt]
+    int8 = ["--precision", "int8", "--quantized_path", qpath]
+    if not os.path.exists(qpath):  # the serve phase writes it
+        int8 += ["--calib_data", cal]
+    cfg3 = MultiPatchGANConfig(norm="instance")
+    f3t_cfg = os.path.join(tmp, "artifact_f3t.json")
+    with open(f3t_cfg, "w") as f:
+        json.dump(cfg3.to_dict(), f)
+    style_paths = []
+    for k in range(2):
+        p = os.path.join(tmp, f"artifact_style_{k}.png")
+        Image.fromarray(np.random.RandomState(380 + k).randint(
+            0, 256, (256, 256, 3)).astype(np.uint8)).save(p)
+        style_paths.append(p)
+    loop = ["--num_iterations", str(ART_STYLE_ITERS), "--threshold", "0", "--max_delay_ms", "5"]
+    texture = ["--config_path", f2_cfg, "--model_path", f2_ckpt, "--layers", "5",
+               "--batch_size", "2"] + loop
+    infer_cases = {
+        "family1_float32": (f1, "float32", {}),
+        "family1_bf16": (f1 + ["--precision", "bf16"], "bf16", {}),
+        "family1_int8": (f1 + int8, "int8", {}),
+        "family1_yuv420": (f1 + ["--transport", "yuv420"], "float32", {}),
+        "family2_float32": (f2, "float32", {"pooled_gram_fwd": 4}),
+        "family3_instance_float32": (["--family", "multi_patchgan", "--config_path", f3_cfg,
+                                      "--model_path", f3_ckpt], "float32",
+                                     {"instance_norm_fwd": F3_NORMS})}
+    styles = {
+        "texture_family2": (texture, 2, 1),
+        "texture_family3_instance": (["--family", "multi_patchgan", "--config_path", f3t_cfg,
+                                      "--model_path", os.path.join(tmp, "family3_instance.npz"),
+                                      "--batch_size", "1"] + loop, 1, 1),
+        "content_style": (["--config_path", f2_cfg, "--model_path", f2_ckpt, "--style_image",
+                           f"a={style_paths[0]}", "--style_image", f"b={style_paths[1]}",
+                           "--style_layers", "all", "--batch_size", "2"] + loop, 2, 2),
+    }
+    paths = {tag: os.path.join(tmp, f"artifact_{tag}.npz") for tag in [*infer_cases, *styles]}
+    export_s = _export_all(
+        {**{tag: ("serve", argv, paths[tag]) for tag, (argv, _, _) in infer_cases.items()},
+         **{tag: ("serve_style", argv, paths[tag]) for tag, (argv, _, _) in styles.items()}},
+        tmp)
+    timings["artifact_exports_s"] = max(export_s.values())
+    infer = {tag: _artifact_infer(kernels, tag, argv, precision, paths[tag], export_s[tag],
+                                  per_forward)
+             for tag, (argv, precision, per_forward) in infer_cases.items()}
+    out["infer"] = infer
+
+    # serve --artifact under load, against the direct forward of the live model
+    clients = ProcessPoolExecutor(SERVE_CLIENT_PROCS, mp_context=multiprocessing.get_context(
+        "spawn"))
+    clients.submit(time.sleep, 0).result()
+    frames = _serve_frames(345, SERVE_REQUESTS, SERVE_OVERSIZED)
+    try:
+        run = _serve_run(kernels, clients, "artifact_family2",
+                         ["--artifact", infer["family2_float32"]["path"], "--batch_size",
+                          str(SERVE_BATCH)], frames, "float32")
+    finally:
+        clients.shutdown()
+    from heuristique_style_transfer_code_tpu_torch.cli import serve
+
+    fwd, model, _, _ = serve._resolve_forward(serve.build_parser().parse_args(
+        f2 + ["--device", DEVICE]))
+    staged = torch.from_numpy(np.stack([prepare_frame(f, 224) for f in frames])).to(DEVICE)
+    with torch.inference_mode():
+        live = make_camera_infer_fn(fwd, batch=len(frames), host_downscale=True)(
+            model, staged).cpu().numpy()
+    live_gap = float(np.abs(run.pop("probs") - live).max())
+    run["vs_live_model_max_gap"] = live_gap
+    base = (serving or {}).get("family2_float32", {})
+    nan = float("nan")
+    print(f"[artifact] serve --artifact family 2: {run['images_per_s']:.1f} images/s, p50 "
+          f"{run['p50_ms']:.2f} ms against live serving's {base.get('images_per_s', nan):.1f}"
+          f" images/s, p50 {base.get('p50_ms', nan):.2f} ms (the serve phase, this run); "
+          f"every answer vs the live model's b{len(frames)} forward: max |dprob| {live_gap:.3e}")
+    _require(live_gap <= SERVE_TOL["float32"], "[artifact] serve --artifact answers as the model")
+    _require(run["all_launches"]["pooled_gram_fwd"] == 4 * run["batches"],
+             f"[artifact] serve --artifact: 4 pooled_gram_fwd a batch: {run['all_launches']}")
+    out["serve"] = run
+
+    # --recycle_after_requests with --artifact: the worker built from the file
+    rpaths = {k: os.path.join(tmp, f"artifact_recycle_{k}") for k in
+             ("frames.npy", "probs.npy", "out.json", "spec.json")}
+    rframes = np.stack(_serve_frames(361, ART_RECYCLE_REQUESTS, 0))
+    np.save(rpaths["frames.npy"], rframes)
+    spec = {"frames": rpaths["frames.npy"], "probs_out": rpaths["probs.npy"],
+            "out": rpaths["out.json"], "kill_after": None, "style_argv": None,
+            "serve_argv": ["--artifact", infer["family1_float32"]["path"], "--batch_size",
+                           str(RECYCLE_BATCH), "--device", DEVICE, "--port", "0",
+                           "--recycle_after_requests", str(ART_RECYCLE_AFTER),
+                           "--request_timeout", str(RECYCLE_TIMEOUT_S)]}
+    with open(rpaths["spec.json"], "w") as f:
+        json.dump(spec, f)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--recycle-parent",
+                           rpaths["spec.json"]], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:], file=sys.stderr)
+    _require(proc.returncode == 0, f"the artifact recycling parent exited {proc.returncode}")
+    with open(rpaths["out.json"]) as f:
+        res = json.load(f)["serve"]
+    probs = np.load(rpaths["probs.npy"])
+    f1_fwd, f1_model, _, _ = serve._resolve_forward(serve.build_parser().parse_args(
+        f1 + ["--device", DEVICE]))
+    with torch.inference_mode():
+        want = make_camera_infer_fn(f1_fwd, batch=len(rframes), host_downscale=True)(
+            f1_model, torch.from_numpy(rframes).to(DEVICE)).cpu().numpy()
+    handovers = [h for h in res["handovers"] if h["recycle"] and not h["final"]]
+    model_path = [h["seconds"] for h in ((recycle or {}).get("serve", {}).get("handovers", []))
+                  if h["recycle"] and not h["final"]]
+    gap = float(np.abs(probs - want).max())
+    print(f"[artifact] --recycle_after_requests {ART_RECYCLE_AFTER} with --artifact (family 1 "
+          f"f32, b{RECYCLE_BATCH}): {ART_RECYCLE_REQUESTS} POSTs, {res['stats']['recycles']} "
+          f"recycles; handovers (s) "
+          f"{[round(h['seconds'], 2) for h in handovers]} (the worker's build "
+          f"{[round(h['build_s'], 2) for h in handovers]}) against the model path's "
+          f"{[round(x, 2) for x in model_path]} (the recycle phase, this run); first build "
+          f"{res['first_build_s']:.2f} s; vs the live model: max |dprob| {gap:.3e}")
+    _require(all(st == 200 for st in res["statuses"]) and res["stats"]["recycles"] >= 1,
+             f"[artifact] recycling from the artifact: {res['stats']}")
+    _require(gap <= SERVE_TOL["float32"], "[artifact] the recycled artifact answers as the model")
+    out["recycle"] = {k: res[k] for k in ("stats", "handovers", "first_start_s",
+                                          "first_build_s", "images_per_s", "p50_ms")}
+    out["recycle"]["model_path_handovers_s"] = model_path
+
+    # serve_style artifacts: texture (family 2), family 3 (instance), content+style
+    out["style"] = {tag: _artifact_style(kernels, tag, argv, paths[tag], export_s[tag], batch, k,
+                                         iteration_host=tag == "texture_family3_instance")
+                    for tag, (argv, batch, k) in styles.items()}
+    f3s = out["style"]["texture_family3_instance"]["launches"]
+    _require(f3s.get("instance_norm_fwd", 0) > 0 and f3s.get("instance_norm_bwd", 0) > 0,
+             f"[artifact] the family-3 style artifact runs K3 and K3': {f3s}")
+    srv, service, url = _serve(texture + ["--artifact", out["style"]["texture_family2"]["path"],
+                                          "--port", "0", "--device", DEVICE])
+    try:
+        status, _, headers = _post_raw(url, np.random.RandomState(390).randint(
+            0, 256, (224, 224, 3)).astype(np.uint8))
+    finally:
+        _stop(srv, service)
+    print(f"[artifact] serve_style --artifact (texture) over HTTP: {status}, X-Iterations "
+          f"{headers.get('X-Iterations')}")
+    _require(status == 200 and headers.get("X-Iterations") == str(ART_STYLE_ITERS),
+             "[artifact] serve_style --artifact answers a POST")
+    launches = {k: 0 for k in kernels.launch_counts()}
+    for res_ in infer.values():
+        for row in res_["rows"]:
+            for k, v in row["launches"].items():
+                launches[k] += v
+    for res_ in out["style"].values():
+        for k, v in res_["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    timings["artifact_phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # internal: the recycle phase runs this script again as the proxy's parent
     parser.add_argument("--recycle-parent", metavar="SPEC", help=argparse.SUPPRESS)
+    # the artifact phase alone (prints no result line)
+    parser.add_argument("--only", choices=["artifact"], help=argparse.SUPPRESS)
     cli = parser.parse_args()
     if cli.recycle_parent:
         sys.path.insert(0, REPO)
@@ -5356,6 +5920,16 @@ def main() -> int:
     libs = kernels.build_all()
     print(f"[build] {', '.join(os.path.relpath(p, REPO) for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
+
+    if cli.only == "artifact":
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            artifact = phase_artifact(kernels, kg, kin, tmp, {})
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "chip_smoke_artifact.json"), "w") as f:
+            json.dump({"device": name, "power": smi, "artifact": artifact}, f, indent=1,
+                      default=str)
+        print(smi)
+        return 0
 
     timings = {}
     rows = phase_kernels(kg, peaks)
@@ -5444,6 +6018,8 @@ def main() -> int:
         timings["recycle_phase_s"] = time.perf_counter() - t0
         print(f"[serve+recycle] {timings['serve_phase_s']:.2f} + "
               f"{timings['recycle_phase_s']:.2f} s")
+        artifact = phase_artifact(kernels, kg, kin, tmp, timings, serving, recycle)
+        print(f"[artifact] {timings['artifact_phase_s']:.2f} s in all")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
@@ -5467,6 +6043,8 @@ def main() -> int:
                 + remat["launches"]["instance_norm_bwd"]
                 + f3_serve["launches"]["instance_norm_bwd"]
                 + ema_mix["launches"]["instance_norm_bwd"]}
+    for k, v in artifact["launches"].items():
+        launches[k] += v
     idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
@@ -5504,7 +6082,7 @@ def main() -> int:
                    "remat": remat, "family3_serve": f3_serve, "dispatch": dispatch,
                    "grad_accum": accum, "profile_debug": profile_debug, "ema_mix": ema_mix,
                    "auto_batch": auto_batch, "int8": int8, "serve": serving,
-                   "recycle": recycle}, f, indent=1)
+                   "recycle": recycle, "artifact": artifact}, f, indent=1, default=str)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,10 +8,13 @@ Ported: the three families (``--model_path`` an ``.npz`` or a reference
 ``.pth``), ``--precision float32|bf16|int8`` (int8 for families 1 and 2:
 ``--calib_data``, ``--quantized_path``), ``--transport rgb|yuv420``,
 ``--recycle_after_requests`` (the batcher in a spawned worker process,
-``tasks/recycling.py``), ``--profile_dir``, ``--debug_nans``, the warmup
-(which on the card also builds the kernels and makes cuDNN's first
-choices before the port binds) and the SIGTERM drain. The flags listed in
-``_NOT_PORTED`` raise a "not ported yet" error.
+``tasks/recycling.py``), ``--export_artifact`` (with ``--export_batch``
+and ``--export_platforms``) and ``--artifact`` (``deploy/artifact.py``:
+one ``torch.export`` file, served with no config or checkpoint),
+``--profile_dir``, ``--debug_nans``, the warmup (which on the card also
+builds the kernels and makes cuDNN's first choices before the port binds)
+and the SIGTERM drain. The flags listed in ``_NOT_PORTED`` raise a "not
+ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.serve \\
         --family truncated_resnet50 --config_path cfg.json \\
@@ -42,10 +45,6 @@ FAMILIES = ["truncated_resnet50", "gram_attention", "multi_patchgan"]
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
-    "artifact": None,
-    "export_artifact": None,
-    "export_batch": "any",
-    "export_platforms": None,
     "devices": None,
 }
 
@@ -56,10 +55,21 @@ def build_parser():
     parser.add_argument("--family", choices=FAMILIES, default="truncated_resnet50")
     parser.add_argument("--config_path", type=str, help="Required unless --artifact is given")
     parser.add_argument("--model_path", type=str, help="Required unless --artifact is given")
-    parser.add_argument("--artifact", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--export_artifact", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--export_batch", type=str, default="any", help="Not ported yet")
-    parser.add_argument("--export_platforms", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="Serve from an artifact (deploy/artifact.py): the fused program "
+                        "and its weights as one torch.export file, no model code, config or "
+                        "checkpoint needed (transport, crop and classes come from its "
+                        "metadata; the precision is baked in)")
+    parser.add_argument("--export_artifact", type=str, default=None,
+                        help="Export the serving program (with the current --precision and "
+                        "--transport) to this path and exit instead of serving")
+    parser.add_argument("--export_batch", type=str, default="any",
+                        help="Batch size baked into the exported artifact; 'any' (default) "
+                        "exports a symbolic batch dimension valid for every batch size")
+    parser.add_argument("--export_platforms", type=str, default=None,
+                        help="Comma-separated platforms of the artifact's programs (cuda, "
+                        "gpu, cpu; e.g. 'cuda,cpu' for one file served on the card and "
+                        "checked on a CPU host); default: --device's")
     parser.add_argument("--classes", nargs="+", type=str)
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000,
@@ -209,22 +219,69 @@ def _resolve_forward(args):
     return forward_eval, model, config, class_names
 
 
-def _build_batcher(args):
-    """Build, start and (unless --no_warmup) warm the batcher: everything
-    on the device, shared by ``start`` and ``_recycle_worker`` (JAX
-    ``:278-364`` without the artifact branch). Returns (batcher,
-    class_names, batch_size, served)."""
-    from ..tasks.serving import BatchingInferenceServer
+def export_artifact(args) -> None:
+    """--export_artifact: export the exact serving program (the precision
+    and transport of ``start``) and write one deployable file (JAX
+    ``:227-275`` without the mesh)."""
+    from ..deploy import export_infer_artifact, save_infer_artifact
 
     check_ported(args, _NOT_PORTED)
     forward_eval, model, _, class_names = _resolve_forward(args)
-    batcher = BatchingInferenceServer(
-        forward_eval, model,
-        batch_size=args.batch_size,
-        max_delay_ms=args.max_delay_ms,
-        max_in_flight=args.max_in_flight,
-        transport=args.transport,
-    ).start()
+    batch = None if args.export_batch == "any" else int(args.export_batch)
+    platforms = ([p.strip() for p in args.export_platforms.split(",") if p.strip()]
+                 if args.export_platforms else None)
+    blobs, meta = export_infer_artifact(
+        forward_eval, model, transport=args.transport, batch_size=batch, platforms=platforms,
+        class_names=class_names, extra_meta={"family": args.family, "precision": args.precision})
+    save_infer_artifact(args.export_artifact, blobs, meta)
+    print(f"Artifact exported to {args.export_artifact} (platforms {meta['platforms']}, batch "
+          f"{'symbolic' if batch is None else batch}, "
+          f"{sum(len(b) for b in blobs.values()) / 1e6:.1f} MB)")
+
+
+def _build_batcher(args):
+    """Build, start and (unless --no_warmup) warm the batcher: everything
+    on the device, shared by ``start`` and ``_recycle_worker`` (JAX
+    ``:278-364``). Returns (batcher, class_names, batch_size, served)."""
+    from ..tasks.serving import BatchingInferenceServer
+
+    check_ported(args, _NOT_PORTED)
+    if args.artifact:
+        from ..deploy import load_infer_artifact
+
+        art = load_infer_artifact(args.artifact, device=args.device)
+        meta = art.meta
+        if meta["batch_size"] is not None and meta["batch_size"] != args.batch_size:
+            print(f"Note: artifact pins batch_size={meta['batch_size']} "
+                  f"(overriding --batch_size {args.batch_size})")
+        batch_size = meta["batch_size"] or args.batch_size
+        if meta["transport"] != args.transport:
+            print(f"Note: artifact transport is '{meta['transport']}' "
+                  f"(overriding --transport {args.transport})")
+        class_names = resolve_class_names(
+            args.classes, {"classes": meta["class_names"]} if meta.get("class_names") else {},
+            None)
+        batcher = BatchingInferenceServer(
+            None, None,
+            batch_size=batch_size,
+            max_delay_ms=args.max_delay_ms,
+            max_in_flight=args.max_in_flight,
+            transport=meta["transport"],
+            crop=meta["crop"],
+            infer_fn=art.server_infer_fn(),
+            device=art.device,
+        ).start()
+        served = f"artifact {args.artifact} [{meta.get('family', 'unknown')}]"
+    else:
+        forward_eval, model, _, class_names = _resolve_forward(args)
+        batch_size, served = args.batch_size, args.family
+        batcher = BatchingInferenceServer(
+            forward_eval, model,
+            batch_size=args.batch_size,
+            max_delay_ms=args.max_delay_ms,
+            max_in_flight=args.max_in_flight,
+            transport=args.transport,
+        ).start()
     if not args.no_warmup:
         # the kernels' build and cuDNN's first choices are paid before the
         # port opens, so no live request times out on them
@@ -234,7 +291,7 @@ def _build_batcher(args):
         warm[::2, ::2] = 128  # not constant
         batcher.submit(warm).result()
         print(f"Warmup done in {time.time() - t0:.1f}s")
-    return batcher, class_names, args.batch_size, args.family
+    return batcher, class_names, batch_size, served
 
 
 def _recycle_worker(argv):
@@ -330,6 +387,15 @@ def main(argv=None):
 
     raw_argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(raw_argv)
+    if args.export_artifact:
+        if args.artifact:
+            raise ValueError("--export_artifact and --artifact are exclusive")
+        with runtime_flags(args):
+            export_artifact(args)
+        return
+    if args.artifact and args.precision != "float32":
+        raise ValueError("--precision is baked into the artifact at export "
+                         "time; do not pass it with --artifact")
     # SIGTERM = orchestrated shutdown: stop accepting, drain everything
     # submitted, exit; registered before the warmup so a signal landing then
     # still shuts down cleanly; the previous handler comes back on return

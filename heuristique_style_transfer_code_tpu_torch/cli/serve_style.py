@@ -12,9 +12,12 @@ that clients pick from or blend with ``X-Style``, with ``--style_weight``,
 ``--style_layers``), with ``--batch_size`` ladders, ``--precision
 float32|bf16``, ``--transport rgb|yuv420``, ``--remat`` (family 2),
 ``--recycle_after_requests`` (the service in a spawned worker process,
-``tasks/recycling.py``), ``--profile_dir``, ``--debug_nans`` and SIGTERM
-drain. The flags listed in ``_NOT_PORTED`` raise a "not ported yet"
-error.
+``tasks/recycling.py``), ``--export_artifact`` (with
+``--export_platforms``) and ``--artifact`` (``deploy/artifact.py``: the
+service's programs, weights and style gallery in one file, served with no
+model code, checkpoint or style images), ``--profile_dir``,
+``--debug_nans`` and SIGTERM drain. The flags listed in ``_NOT_PORTED``
+raise a "not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.serve_style \\
         --net style_net.npz --batch_size 4,8 --port 8001 [--device cpu]
@@ -42,9 +45,6 @@ FAMILIES = ["gram_attention", "multi_patchgan"]
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
-    "artifact": None,
-    "export_artifact": None,
-    "export_platforms": None,
     "devices": None,
 }
 
@@ -58,9 +58,18 @@ def build_parser():
                         help="Required unless --net is given")
     parser.add_argument("--model_path", type=str, default=None,
                         help="Required unless --net is given")
-    parser.add_argument("--artifact", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--export_artifact", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--export_platforms", type=str, default=None, help="Not ported yet")
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="Serve from a style artifact (deploy/artifact.py): the service's "
+                        "job programs with the weights and the style gallery in them, no "
+                        "model code, checkpoint or style images on the serving host. Batch "
+                        "sizes, crop, iterations and gallery come from its metadata (those "
+                        "flags are ignored)")
+    parser.add_argument("--export_artifact", type=str, default=None,
+                        help="Write the style artifact of the configured service to this path "
+                        "and exit (serve it later with --artifact)")
+    parser.add_argument("--export_platforms", type=str, default=None,
+                        help="Comma-separated platforms of --export_artifact's programs (cuda, "
+                        "gpu, cpu); default: --device's")
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8001,
                         help="0 picks a free port (printed at startup)")
@@ -242,8 +251,30 @@ def build_service(args, crop: int = 224):
     device = resolve_device(args.device)
     if args.net:
         return _build_net_service(args, device, crop)
+    if args.artifact:
+        from ..deploy.artifact import load_style_artifact
+
+        art = load_style_artifact(args.artifact, device=device)
+        meta = art.meta
+        sizes = sorted(art.job_fns)
+        print(f"Artifact: batch sizes {sizes}, crop {meta['crop']}, "
+              f"{meta['num_iterations']} iters, gallery {meta['style_names']}, "
+              f"platforms {meta['platforms']}", flush=True)
+        # one program (or loop) a size: the dispatcher picks the smallest
+        # that fits, as live serving does
+        return StyleTransferService(
+            job_fn=art.job_fns,
+            style_names=meta["style_names"],
+            crop=meta["crop"],
+            num_iterations=meta["num_iterations"],
+            max_delay_ms=args.max_delay_ms,
+            max_in_flight=args.max_in_flight,
+            transport=args.transport,
+            device=device,
+        )
     if not args.config_path or not args.model_path:
-        raise SystemExit("--config_path and --model_path are required unless --net is given")
+        raise SystemExit("--config_path and --model_path are required unless --artifact "
+                         "or --net is given")
     if args.style_image:
         kwargs = _build_content_style_kwargs(args, device)
     else:
@@ -262,6 +293,23 @@ def build_service(args, crop: int = 224):
         transport=args.transport,
         device=device,
     )
+
+
+def export_artifact(args) -> None:
+    """--export_artifact: export the job programs the server would dispatch
+    (the service ``build_service`` makes) and write them; exits without
+    serving (JAX
+    ``:342-360``)."""
+    from ..deploy.artifact import export_style_artifact, save_style_artifact
+
+    service = build_service(args)
+    platforms = ([p.strip() for p in args.export_platforms.split(",") if p.strip()]
+                 if args.export_platforms else None)
+    blobs, meta = export_style_artifact(service, platforms=platforms)
+    save_style_artifact(args.export_artifact, blobs, meta)
+    total = sum(len(b) for b in blobs.values())
+    print(f"Style artifact written to {args.export_artifact} ({total / 1e6:.1f} MB of "
+          f"programs, batch sizes {meta['batch_sizes']}, platforms {meta['platforms']})")
 
 
 def _start_service(args, crop: int = 224):
@@ -358,6 +406,10 @@ def main(argv=None):
 
     raw_argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(raw_argv)
+    if args.export_artifact:
+        with runtime_flags(args):
+            export_artifact(args)
+        return
     # SIGTERM = orchestrated shutdown: stop accepting, drain submitted jobs,
     # exit — registered before the warmup so a signal landing then still
     # shuts down cleanly; the previous handler comes back on return

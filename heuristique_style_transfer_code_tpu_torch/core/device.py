@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -26,6 +27,14 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
 
+
+def traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a tracer's fake tensor (``torch.export``,
+    ``make_fx``). Its strides are the tracer's own guess: on CUDA it takes
+    cuDNN's channels_last conv output for a contiguous NCHW one, so a
+    layout check waits for the real tensor, which the kernel's wrapper
+    checks when the traced program runs."""
+    return isinstance(t, FakeTensor)
 
 
 def device_of(module: torch.nn.Module) -> torch.device:

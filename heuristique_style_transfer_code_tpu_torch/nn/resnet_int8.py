@@ -37,6 +37,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.fx.experimental.symbolic_shapes import statically_known_true
 
 from ..core.device import resolve_device
 from ..ops.conv import max_pool2d
@@ -255,10 +256,13 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 x (K, N) int8 -> (M, N) int32, exact. On the card
     ``torch._int_mm`` (K zero-padded to a multiple of 8, M to more than
     16 rows); on the CPU a float64 GEMM, exact for these sizes. A failure
-    on the card raises."""
+    on the card raises. Under ``torch.export`` M may be symbolic (B Ho Wo
+    of a symbolic batch): a served conv's M is at least 49, so where M >=
+    17 is known from its range no pad, and no guard, is traced."""
     m, k = a.shape
     if a.device.type == "cuda":
-        pad_k, pad_m = (-k) % 8, max(0, 17 - m)
+        pad_k = (-k) % 8
+        pad_m = 0 if statically_known_true(m >= 17) else max(0, 17 - m)
         if pad_k or pad_m:
             a = torch.nn.functional.pad(a, (0, pad_k, 0, pad_m))
             b = torch.nn.functional.pad(b, (0, 0, 0, pad_k))

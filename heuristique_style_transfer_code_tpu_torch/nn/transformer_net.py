@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core.device import resolve_device
+from ..core.device import resolve_device, traced
 from ..ops.conv import conv2d
 from ..ops.kernels.instance_norm import InstanceNormFunction
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
@@ -153,7 +153,7 @@ def _in_apply(m: InstanceNorm, x: torch.Tensor, style_w: Optional[torch.Tensor],
     else:
         scale = scale.expand(b, c)
         bias = bias.expand(b, c)
-    if x.device.type == "cuda" and not x.is_contiguous():
+    if x.device.type == "cuda" and not x.is_contiguous() and not traced(x):
         raise ValueError(f"instance norm input {tuple(x.shape)} is not contiguous "
                          f"(strides {x.stride()}); keep activations in channels_last")
     y = InstanceNormFunction.apply(x.reshape(b, h * w, c), scale.contiguous(),

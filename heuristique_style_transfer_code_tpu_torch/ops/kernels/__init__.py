@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels: ``gram`` (K1, K2) and ``instance_norm``
 (K3). ``build_all`` compiles every source at once (one nvcc each);
-``reset_launch_counts`` and ``launch_counts`` cover every kernel."""
+``reset_launch_counts`` and ``launch_counts`` cover every kernel.
+Importing this package registers the ``hst`` ``torch.library`` ops, which
+``torch.export.load`` of a program holding them needs first."""
 from __future__ import annotations
 
 from typing import Dict, List

@@ -9,6 +9,9 @@ main path went through the kernels.
 
 The kernels are compiled on first use with ``nvcc`` into a shared library
 under ``_build/`` of this package and bound with ``ctypes`` (``_nvcc.py``).
+Each wrapper is also a ``torch.library`` op (``hst::gram_fwd`` and the
+rest, end of this file; ``_library.py``), which ``GramFunction`` and
+``PooledGramFunction`` call and ``torch.export`` records.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..pooling import adaptive_pool_matrix
+from ._library import backward_op, define
 from ._nvcc import CudaLibrary, check
 
 KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd", "pooled_gram_bwd")
@@ -538,39 +542,82 @@ def pooled_gram_bwd(y: torch.Tensor, dg: torch.Tensor, channels: int, dtype: tor
     return df
 
 
-class PooledGramFunction(torch.autograd.Function):
-    """G = Y^T Y / HW, Y = f P^T, with the hand-written backward
-    (``pooled_gram_bwd``). Where f needs a gradient the forward also hands
-    over Y (N, HW, S), f32, and that is all it saves: f is not kept, and
-    the backward never reads it. Otherwise no Y is written. On CPU tensors
-    both directions take the plain formulas."""
+# ------------------------------------------------------- torch.library ops
+#
+# Each wrapper is also an operator of the ``hst`` namespace (``_library.py``:
+# the wrapper on CPU and CUDA tensors, looked up when the op runs, and a
+# fake implementation giving its output shapes and dtypes), and the
+# forwards' gradients are the backward ops.
+
+
+def _gram_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
+
+
+def _gram_grad(ctx, dg):
+    (f,) = ctx.saved_tensors
+    return (backward_op(ctx, GRAM_BWD, f, dg.contiguous()),)
+
+
+GRAM_BWD = define("gram_bwd(Tensor f, Tensor dg) -> Tensor", lambda *a: gram_bwd(*a),
+                  lambda f, dg: torch.empty_like(f))
+GRAM_FWD = define("gram_fwd(Tensor f) -> Tensor", lambda *a: gram_fwd(*a),
+                  lambda f: f.new_empty((f.shape[0], f.shape[2], f.shape[2])),
+                  _gram_setup, _gram_grad)
+
+
+def _pooled_gram_setup(ctx, inputs, output):
+    f = inputs[0]
+    ctx.channels, ctx.f_dtype = f.shape[-1], f.dtype
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(output[1])
+
+
+def _pooled_gram_grad(ctx, dg, _dy):
+    (y,) = ctx.saved_tensors
+    return backward_op(ctx, POOLED_GRAM_BWD, y, dg.contiguous(), ctx.channels, ctx.f_dtype), None
+
+
+def _pooled_gram_y_fake(f, out_size):
+    n, hw, _ = f.shape
+    return (f.new_empty((n, out_size, out_size)),
+            f.new_empty((n, hw, out_size), dtype=_acc_dtype(f.dtype)))
+
+
+POOLED_GRAM_BWD = define(
+    "pooled_gram_bwd(Tensor y, Tensor dg, int channels, ScalarType dtype) -> Tensor",
+    lambda *a: pooled_gram_bwd(*a),
+    lambda y, dg, channels, dtype: y.new_empty((y.shape[0], y.shape[1], channels), dtype=dtype))
+POOLED_GRAM_FWD = define(
+    "pooled_gram_fwd(Tensor f, int out_size) -> Tensor",
+    lambda *a: pooled_gram_fwd(*a),
+    lambda f, out_size: f.new_empty((f.shape[0], out_size, out_size)))
+POOLED_GRAM_FWD_Y = define(
+    "pooled_gram_fwd_y(Tensor f, int out_size) -> (Tensor, Tensor)",
+    lambda f, out_size: pooled_gram_fwd(f, out_size, return_y=True), _pooled_gram_y_fake,
+    _pooled_gram_setup, _pooled_gram_grad)
+
+
+class PooledGramFunction:
+    """G = Y^T Y / HW, Y = f P^T, differentiable with the hand-written
+    backward (``pooled_gram_bwd``): ``apply(f, out_size)``. Where f needs a
+    gradient it calls ``hst::pooled_gram_fwd_y``, whose forward also hands
+    over Y (N, HW, S), f32, and whose gradient saves that alone: f is not
+    kept, and the backward never reads it. Otherwise ``hst::pooled_gram_fwd``
+    writes no Y. On CPU tensors both directions take the plain formulas."""
 
     @staticmethod
-    def forward(ctx, f, out_size):
-        ctx.channels, ctx.f_dtype = f.shape[-1], f.dtype
-        if not ctx.needs_input_grad[0]:
-            return pooled_gram_fwd(f, out_size)
-        g, y = pooled_gram_fwd(f, out_size, return_y=True)
-        ctx.save_for_backward(y)
-        return g
-
-    @staticmethod
-    def backward(ctx, dg):
-        (y,) = ctx.saved_tensors
-        return pooled_gram_bwd(y, dg.contiguous(), ctx.channels, ctx.f_dtype), None
+    def apply(f: torch.Tensor, out_size: int) -> torch.Tensor:
+        if torch.is_grad_enabled() and f.requires_grad:
+            return POOLED_GRAM_FWD_Y._op(f, int(out_size))[0]
+        return POOLED_GRAM_FWD._op(f, int(out_size))
 
 
-class GramFunction(torch.autograd.Function):
-    """G = f^T f / HW with the hand-written backward. On CPU tensors both
-    directions take the plain formulas, so the CPU tests check the backward
-    formula itself."""
+class GramFunction:
+    """G = f^T f / HW with the hand-written backward: ``apply(f)`` is
+    ``hst::gram_fwd``, whose gradient is ``hst::gram_bwd``. On CPU tensors
+    both directions take the plain formulas, so the CPU tests check the
+    backward formula itself. (The shims call each op's ``_op``, the
+    operator itself, without ``OpOverload.__call__``'s Python frame.)"""
 
-    @staticmethod
-    def forward(ctx, f):
-        ctx.save_for_backward(f)
-        return gram_fwd(f)
-
-    @staticmethod
-    def backward(ctx, dg):
-        (f,) = ctx.saved_tensors
-        return gram_bwd(f, dg.contiguous())
+    apply = staticmethod(GRAM_FWD._op)

@@ -16,7 +16,9 @@ channel group), x, dy and y read once) or "split" (three launches on the
 split geometry: per-block sums, their merge, the apply), and
 ``instance_norm_bwd_plan_for`` reports it. ``LAUNCHES["instance_norm_fwd"]``
 and ``LAUNCHES["instance_norm_bwd"]`` count calls that launched a kernel
-(one a call, whichever route).
+(one a call, whichever route). Both wrappers are also ``torch.library``
+ops (``hst::instance_norm_fwd``, ``hst::instance_norm_bwd``, end of this
+file; ``_library.py``), which ``InstanceNormFunction`` calls and ``torch.export`` records.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ._library import backward_op, define
 from ._nvcc import CudaLibrary, check
 
 KERNELS = ("instance_norm_fwd", "instance_norm_bwd")
@@ -546,23 +549,53 @@ def instance_norm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     return dx, dscale, dbias
 
 
-class InstanceNormFunction(torch.autograd.Function):
-    """``instance_norm_fwd`` with ``instance_norm_bwd`` as its backward:
-    apply(x (B, HW, C), scale, bias (B, C) f32, eps, relu). On CPU tensors
-    both directions take the plain versions, so the CPU tests check the
-    backward's formula itself. Under ReLU the output is saved for the
-    backward's mask."""
+# ------------------------------------------------------- torch.library ops
+#
+# As in ``gram.py``: each wrapper is an operator of the ``hst`` namespace
+# (``_library.py``), and the forward's gradient is the backward op.
+
+
+def _stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _in_bwd_fake(x, dy, scale, bias, eps, relu, y):
+    stats = x.new_empty((x.shape[0], x.shape[2]), dtype=_stat_dtype(x.dtype))
+    return torch.empty_like(x), stats, torch.empty_like(stats)
+
+
+def _in_setup(ctx, inputs, output):
+    x, scale, bias, eps, relu = inputs
+    ctx.eps, ctx.relu = eps, relu
+    ctx.save_for_backward(x, scale, bias, output if relu else None)
+
+
+def _in_grad(ctx, dy):
+    x, scale, bias, y = ctx.saved_tensors
+    dx, dscale, dbias = backward_op(ctx, INSTANCE_NORM_BWD, x, dy.contiguous(), scale, bias,
+                                    ctx.eps, ctx.relu, y)
+    return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+
+
+INSTANCE_NORM_BWD = define(
+    "instance_norm_bwd(Tensor x, Tensor dy, Tensor scale, Tensor bias, float eps, bool relu, "
+    "Tensor? y) -> (Tensor, Tensor, Tensor)",
+    lambda *a: instance_norm_bwd(*a),
+    _in_bwd_fake)
+INSTANCE_NORM_FWD = define(
+    "instance_norm_fwd(Tensor x, Tensor scale, Tensor bias, float eps, bool relu) -> Tensor",
+    lambda *a: instance_norm_fwd(*a),
+    lambda x, scale, bias, eps, relu: torch.empty_like(x), _in_setup, _in_grad)
+
+
+class InstanceNormFunction:
+    """``hst::instance_norm_fwd`` with ``hst::instance_norm_bwd`` as its
+    gradient: apply(x (B, HW, C), scale, bias (B, C) f32, eps, relu). On
+    CPU tensors both directions take the plain versions, so the CPU tests
+    check the backward's formula itself. Under ReLU the output is saved for
+    the backward's mask."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps=EPS, relu=False):
-        y = instance_norm_fwd(x, scale, bias, eps, relu)
-        ctx.eps, ctx.relu = eps, relu
-        ctx.save_for_backward(x, scale, bias, y if relu else None)
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, scale, bias, y = ctx.saved_tensors
-        dx, dscale, dbias = instance_norm_bwd(x, dy.contiguous(), scale, bias, ctx.eps,
-                                              ctx.relu, y)
-        return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
+    def apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = EPS,
+              relu: bool = False) -> torch.Tensor:
+        return INSTANCE_NORM_FWD._op(x, scale, bias, float(eps), bool(relu))

@@ -11,6 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.device import traced
 from ..core.remat import recomputing
 from .kernels.instance_norm import InstanceNormFunction
 
@@ -52,26 +53,42 @@ def batch_norm(
 
 
 @functools.lru_cache(maxsize=64)
-def _unit_affine(b: int, c: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, C) float32 ones and zeros on ``device``, made once per shape,
+def _unit_affine(c: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(1, C) float32 ones and zeros on ``device``, made once per width,
     and never as inference tensors: made first under ``inference_mode``
-    (evaluation, the camera), they would be refused later where
-    ``InstanceNormFunction`` saves them for a backward (the style loop)."""
+    (evaluation, the camera), they would be refused later where the norm's
+    gradient saves them (the style loop). Keyed on C alone, so a traced
+    batch may be symbolic."""
     with torch.inference_mode(False):
-        return (torch.ones((b, c), device=device, dtype=torch.float32),
-                torch.zeros((b, c), device=device, dtype=torch.float32))
+        return (torch.ones((1, c), device=device, dtype=torch.float32),
+                torch.zeros((1, c), device=device, dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _unit_rows(n: int, c: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_unit_affine``'s rows copied to (N, C) once per shape (the kernel
+    reads a dense (N, C) scale and bias), not as inference tensors either."""
+    ones, zeros = _unit_affine(c, device)
+    with torch.inference_mode(False):
+        return ones.expand(n, c).contiguous(), zeros.expand(n, c).contiguous()
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS, relu: bool = False) -> torch.Tensor:
     """Per-image, per-channel normalisation of x (N, H, W, C) over H and W,
     no affine; with ``relu`` the ReLU that follows it in the family-3
     discriminator is fused. The (N, HW, C) view goes through
-    ``InstanceNormFunction`` with unit scale and zero bias: on a CUDA
-    tensor that launches ``instance_norm_fwd`` and, where a gradient flows
-    (the family-3 style loop), ``instance_norm_bwd``; on a CPU tensor it
-    takes the kernels' plain versions (f32 two-pass statistics)."""
+    ``InstanceNormFunction`` with unit scale and zero bias (cached per
+    shape; under ``torch.export``, whose batch may be symbolic, the (1, C)
+    rows expanded in the program): on a CUDA tensor that launches
+    ``instance_norm_fwd`` and, where a gradient flows (the family-3 style
+    loop), ``instance_norm_bwd``; on a CPU tensor it takes the kernels'
+    plain versions (f32 two-pass statistics)."""
     n, h, w, c = x.shape
-    scale, bias = _unit_affine(n, c, x.device)
+    if traced(x):
+        ones, zeros = _unit_affine(c, x.device)
+        scale, bias = ones.expand(n, c).contiguous(), zeros.expand(n, c).contiguous()
+    else:
+        scale, bias = _unit_rows(n, c, x.device)
     y = InstanceNormFunction.apply(x.reshape(n, h * w, c), scale, bias, eps, relu)
     return y.reshape(n, h, w, c)
 

@@ -44,6 +44,28 @@ def _classify(forward_eval: Callable, model, x: torch.Tensor, compute_dtype,
     return probs[0] if single else probs
 
 
+def camera_body(
+    forward_eval: Callable,
+    compute_dtype: Optional[torch.dtype] = None,
+    batch: Optional[int] = None,
+    host_downscale: bool = False,
+):
+    """The tensor program of ``make_camera_infer_fn``: ``body(model,
+    frame_u8)`` with the frame already on the model's device, no grad mode
+    of its own. The infer function and ``deploy/artifact.py``'s export run
+    this same function, so an exported program is the served one."""
+
+    def body(model, frame_u8):
+        x = frame_u8.to(torch.float32) / 255.0
+        if not host_downscale:
+            x = resize_shorter_side(x, 256)
+            x = center_crop(x, 224)
+        x = normalize_imagenet(x)
+        return _classify(forward_eval, model, x, compute_dtype, batch is None)
+
+    return body
+
+
 def make_camera_infer_fn(
     forward_eval: Callable,
     compute_dtype: Optional[torch.dtype] = None,
@@ -54,15 +76,11 @@ def make_camera_infer_fn(
     (B, H, W, 3) with ``batch``, -> probabilities. ``host_downscale``: the
     frame arrives already resized and cropped to 224² (``downscale_frame``),
     so the device only normalises it."""
+    body = camera_body(forward_eval, compute_dtype, batch, host_downscale)
 
     @torch.inference_mode()
     def infer(model, frame_u8):
-        x = _to_device(frame_u8, device_of(model)).to(torch.float32) / 255.0
-        if not host_downscale:
-            x = resize_shorter_side(x, 256)
-            x = center_crop(x, 224)
-        x = normalize_imagenet(x)
-        return _classify(forward_eval, model, x, compute_dtype, batch is None)
+        return body(model, _to_device(frame_u8, device_of(model)))
 
     return infer
 
@@ -122,6 +140,24 @@ def yuv420_to_rgb_device(yuv: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return torch.clamp(rgb / 255.0, 0.0, 1.0)
 
 
+def camera_body_yuv(forward_eval: Callable, crop: int = 224,
+                    compute_dtype: Optional[torch.dtype] = None,
+                    batch: Optional[int] = None, delta: bool = False):
+    """The tensor program of ``make_camera_infer_fn_yuv``: ``body(model,
+    yuv_u8)`` with the frame already on the model's device (as
+    ``camera_body``)."""
+    if delta and batch is None:
+        raise ValueError("delta coding needs a batch of consecutive frames")
+
+    def body(model, yuv):
+        if delta:
+            yuv = yuv420_delta_decode_device(yuv)
+        x = normalize_imagenet(yuv420_to_rgb_device(yuv, crop, crop))
+        return _classify(forward_eval, model, x, compute_dtype, batch is None)
+
+    return body
+
+
 def make_camera_infer_fn_yuv(forward_eval: Callable, crop: int = 224,
                              compute_dtype: Optional[torch.dtype] = None,
                              batch: Optional[int] = None, delta: bool = False):
@@ -130,16 +166,11 @@ def make_camera_infer_fn_yuv(forward_eval: Callable, crop: int = 224,
     the batch arrives temporally delta-coded (``yuv420_delta_encode``) and
     is reconstructed on the device, bit-exact, so the probabilities are
     the plain yuv420 path's."""
-    if delta and batch is None:
-        raise ValueError("delta coding needs a batch of consecutive frames")
+    body = camera_body_yuv(forward_eval, crop, compute_dtype, batch, delta)
 
     @torch.inference_mode()
     def infer(model, yuv_u8):
-        yuv = _to_device(yuv_u8, device_of(model))
-        if delta:
-            yuv = yuv420_delta_decode_device(yuv)
-        x = normalize_imagenet(yuv420_to_rgb_device(yuv, crop, crop))
-        return _classify(forward_eval, model, x, compute_dtype, batch is None)
+        return body(model, _to_device(yuv_u8, device_of(model)))
 
     return infer
 

@@ -96,23 +96,31 @@ def make_net_job_fn(
     """The forward under ``StyleTransferService``'s job contract
     ``(images_u8, style_w, job_ids) -> (u8, iters, per_loss)``: iters is 1,
     the per-image loss 0. On a conditional net the per-job ``style_w`` rows
-    drive the conditional instance-norm affines."""
+    drive the conditional instance-norm affines. ``job.body(images_u8,
+    style_w) -> (u8, per_loss)`` is its tensor program on tensors already on
+    the net's device (``style_w`` read by a conditional net only), which
+    ``deploy/artifact.py`` exports."""
     n_styles = net_n_styles(net)
     device = next(net.parameters()).device
+
+    def body(images_u8, style_w):
+        sw = None
+        if n_styles is not None:
+            sw = style_w.float()
+            if sw.shape[-1] != n_styles:
+                raise ValueError(f"service gallery width {sw.shape[-1]} != the "
+                                 f"net's {n_styles} styles")
+        out = _stylize_body(net, images_u8, crop, compute_dtype, sw)
+        return out, out.new_zeros((out.shape[0],), dtype=torch.float32)
 
     def job(images_u8, style_w, job_ids):
         del job_ids
         with torch.inference_mode():
-            sw = None
-            if n_styles is not None:
-                sw = torch.as_tensor(style_w).to(device).float()
-                if sw.shape[-1] != n_styles:
-                    raise ValueError(f"service gallery width {sw.shape[-1]} != the "
-                                     f"net's {n_styles} styles")
-            out = _stylize_body(net, torch.as_tensor(images_u8).to(device), crop,
-                                compute_dtype, sw)
-            return out, 1, torch.zeros((out.shape[0],), dtype=torch.float32, device=device)
+            sw = torch.as_tensor(style_w).to(device) if n_styles is not None else None
+            out, per_loss = body(torch.as_tensor(images_u8).to(device), sw)
+            return out, 1, per_loss
 
+    job.body = body
     return job
 
 

@@ -14,7 +14,8 @@ Three modes:
 - **job_fn** (a feed-forward net through ``fast_style.make_net_job_fn``):
   one program, or a ``{batch_size: program}`` ladder.
 - **texture** (``gram_fn=``): each job's own Gram is the target and the
-  canvas starts from noise, optimised by ``make_style_transfer_optimizer``.
+  canvas starts from noise, optimised by the masked Adam loop
+  (``tasks/style_transfer``) on ``make_per_image_gram_loss``.
   Job j's noise comes from a ``torch.Generator`` seeded from (seed, j), so
   it is deterministic per job and independent of its batch mates;
   ``jax.random.fold_in``'s numbers cannot be reproduced.
@@ -24,7 +25,7 @@ Three modes:
   blend weights contracted with the stacks (a one-hot row gives the
   gallery Gram bit for bit), and its canvas, started from the content
   image (``init="content"``) or from the job's noise, is optimised by
-  ``make_content_style_optimizer``.
+  the same loop on ``make_per_image_content_style_loss``.
 
 ``transport="yuv420"`` (JAX ``:198-211``, ``:345-386``) halves the pixel
 bytes both ways: a job arrives as planar I420 (crop * 3/2, crop), packed
@@ -37,6 +38,7 @@ transport. 4:2:0 chroma is lossy; the transport is opt-in.
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -44,7 +46,7 @@ from collections import deque
 from collections.abc import Mapping
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -58,7 +60,12 @@ from .camera import (
     rgb_to_yuv420_device,
     yuv420_to_rgb_device,
 )
-from .style_transfer import make_content_style_optimizer, make_style_transfer_optimizer
+from .style_transfer import (
+    drive_masked_adam,
+    make_per_image_content_style_loss,
+    make_per_image_gram_loss,
+    masked_adam_step,
+)
 
 
 @dataclass
@@ -118,6 +125,53 @@ def job_noise(seed: int, job_id: int, shape) -> torch.Tensor:
     state = np.random.SeedSequence([int(seed), int(job_id)]).generate_state(1, np.uint64)[0]
     gen = torch.Generator().manual_seed(int(state) & 0x7FFFFFFFFFFFFFFF)
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
+
+
+def job_noises(seed: int, job_ids, shape, device) -> torch.Tensor:
+    """``job_noise`` of each job id, stacked, on ``device``."""
+    return torch.stack([job_noise(seed, j, shape) for j in job_ids]).to(device)
+
+
+class StyleLoop(NamedTuple):
+    """An iterative mode's job as three programs and its loop's settings
+    (``StyleTransferService.loop``): ``prepare(images_u8, style_w[,
+    noise0]) -> (pixels0, *loop)`` (``noise0`` given where ``noise``),
+    ``loss(pixels, *loop) -> (B,)``, ``finish(pixels) -> uint8``; Adam's
+    learning rate, the stop threshold, the iteration cap and the noise
+    seed."""
+    prepare: Callable
+    loss: Callable
+    finish: Callable
+    noise: bool
+    learning_rate: float
+    threshold: float
+    num_iterations: int
+    seed: int
+
+
+def loop_job(prepare: Callable, step: Callable, finish: Callable, noise_seed: Optional[int],
+             num_iterations: int, crop: int, device: torch.device) -> Callable:
+    """The batch job ``(images_u8, style_w, job_ids) -> (u8, iters,
+    per_loss)`` of an iterative mode, from its three programs (a live
+    service's ``StyleLoop``, or a style artifact's exported ones): the
+    inputs go to ``device``, ``prepare`` (given ``job_noises(noise_seed,
+    job_ids)`` where ``noise_seed`` is not None) gives the starting pixels
+    and the loop's tensors, ``drive_masked_adam`` runs ``step(pixels, mu,
+    nu, active, bc1, bc2, *loop)``, and ``finish`` makes the uint8
+    canvases."""
+
+    def job(images_u8, style_w, job_ids):
+        images_u8 = torch.as_tensor(images_u8).to(device)
+        w = torch.as_tensor(style_w, dtype=torch.float32).to(device)
+        noise = () if noise_seed is None else (
+            job_noises(noise_seed, job_ids, (crop, crop, 3), device),)
+        pixels0, *rest = prepare(images_u8, w, *noise)
+        pixels, iters, per_loss = drive_masked_adam(
+            lambda *state: step(*state, *rest), pixels0, num_iterations)
+        return finish(pixels), iters, per_loss
+
+    job.iterative = True  # a warm dispatch would run the whole iteration cap
+    return job
 
 
 class StyleTransferService:
@@ -204,60 +258,68 @@ class StyleTransferService:
         self.max_delay = max_delay_ms / 1e3
         self.num_iterations = int(num_iterations)
         self.style_names = list(styles or style_names or [])  # the two are exclusive
-        self._iterative = job_fn is None
 
         mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         std = torch.as_tensor(IMAGENET_STD, device=self.device)
 
-        def to_u8(pixels):
+        def finish(pixels):
             canvas = torch.clamp(pixels * std + mean, 0.0, 1.0)
             return torch.round(canvas * 255.0).to(torch.uint8)
 
-        def preprocess(images_u8):
-            return eval_preprocess(torch.as_tensor(images_u8).to(self.device), self.crop)
-
-        def noise0_for(job_ids, shape):
-            return torch.stack([job_noise(seed, j, shape) for j in job_ids]).to(self.device)
-
+        # An iterative mode is three programs and the loop between them:
+        # ``prepare(images_u8, style_w[, noise0]) -> (pixels0, *loop)`` on
+        # the device, ``drive_masked_adam`` over ``masked_adam_step`` on
+        # ``loss(pixels, *loop) -> (B,)`` (``loop_job``), and
+        # ``finish(pixels) -> uint8``.
+        # The live job runs them here; ``deploy/artifact.py`` exports the
+        # same three (``self.loop``), and ``loop_job`` runs them as here.
+        self.loop = None
         if gram_fn is not None:
-            optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations,
-                                                     threshold)
-
-            def job(images_u8, style_w, job_ids):
+            def prepare(images_u8, style_w, noise0):
                 del style_w  # texture mode: the target is the job's own Gram
-                images = preprocess(images_u8)
                 with torch.no_grad():
-                    targets = gram_fn(images)
-                pixels, iters, per_loss = optimise(noise0_for(job_ids, images.shape[1:]),
-                                                   targets)
-                return to_u8(pixels), iters, per_loss
+                    targets = gram_fn(eval_preprocess(images_u8, self.crop))
+                return (noise0, *targets)
 
-            self._jobs_by_size = {s: job for s in sizes}
+            self.loop = StyleLoop(prepare, make_per_image_gram_loss(gram_fn), finish, True, float(learning_rate),
+                                  float(threshold), int(num_iterations), int(seed))
         elif extract_fn is not None:
             style_u8 = np.stack([_to_canvas(im, self.crop) for im in styles.values()])
             with torch.no_grad():  # per style layer, the (K, ...) gallery stack
-                gram_stacks = [g.float() for g in extract_fn(preprocess(style_u8))[1]]
-            optimise = make_content_style_optimizer(extract_fn, style_weight, content_weight,
-                                                    learning_rate, num_iterations, threshold,
-                                                    tv_weight=tv_weight)
+                gram_stacks = [g.float() for g in extract_fn(eval_preprocess(
+                    torch.as_tensor(style_u8).to(self.device), self.crop))[1]]
+            per_image_loss = make_per_image_content_style_loss(extract_fn, style_weight,
+                                                               content_weight, tv_weight)
 
-            def job(images_u8, style_w, job_ids):
-                images = preprocess(images_u8)
+            def prepare(images_u8, style_w, *noise0):
+                images = eval_preprocess(images_u8, self.crop)
                 with torch.no_grad():
                     content_feats = extract_fn(images)[0].float()
-                w = torch.as_tensor(style_w, dtype=torch.float32, device=self.device)
                 # each job's convex Gram blend; a one-hot row is exact in f32
-                grams = [torch.einsum("bk,k...->b...", w, gs) for gs in gram_stacks]
-                pixels0 = (images.float() if init == "content"
-                           else noise0_for(job_ids, images.shape[1:]))
-                pixels, iters, per_loss = optimise(pixels0, grams, content_feats)
-                return to_u8(pixels), iters, per_loss
+                grams = [torch.einsum("bk,k...->b...", style_w, gs) for gs in gram_stacks]
+                pixels0 = images.float() if init == "content" else noise0[0]
+                return (pixels0, *grams, content_feats)
 
+            def loss(pixels, *grams_and_feats):
+                return per_image_loss(pixels, grams_and_feats[:-1], grams_and_feats[-1])
+
+            self.loop = StyleLoop(prepare, loss, finish, init == "noise",
+                                  float(learning_rate), float(threshold), int(num_iterations),
+                                  int(seed))
+        if self.loop is not None:
+            loop = self.loop
+            job = loop_job(loop.prepare, functools.partial(masked_adam_step, loop.loss,
+                                                           loop.learning_rate, loop.threshold),
+                           loop.finish, loop.seed if loop.noise else None, loop.num_iterations,
+                           self.crop, self.device)
             self._jobs_by_size = {s: job for s in sizes}
         elif jobs_by_size is not None:
             self._jobs_by_size = jobs_by_size
         else:
             self._jobs_by_size = {s: job_fn for s in sizes}
+        # the RGB jobs, whatever the transport: what deploy/artifact.py
+        # exports (an artifact is served with either transport)
+        self._raw_jobs_by_size = dict(self._jobs_by_size)
         if transport == "yuv420":
             c = self.crop
 
@@ -307,7 +369,7 @@ class StyleTransferService:
             from ..ops.kernels import build_all
 
             build_all()
-        if self._iterative:
+        if any(getattr(f, "iterative", False) for f in self._raw_jobs_by_size.values()):
             return
         width = max(1, len(self.style_names))
         c = self.crop

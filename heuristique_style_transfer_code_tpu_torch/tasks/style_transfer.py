@@ -30,10 +30,11 @@ the Adam state and the loss stay f32.
 from __future__ import annotations
 
 import copy
+import functools
 import os
 import time
 from datetime import datetime
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,25 +47,57 @@ from ..utils.png import float_to_uint8, write_png
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
-def _masked_adam(per_image_loss: Callable[[torch.Tensor], torch.Tensor],
-                 pixels0: torch.Tensor, learning_rate: float, num_iterations: int,
-                 threshold: float, history: Optional[list] = None):
-    """The batched Adam-on-pixels loop that both optimisers run:
-    ``per_image_loss(pixels) -> (B,)``; returns (final_pixels,
-    iterations_run, final_per_image_loss).
+def bias_corrections(count: int, dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adam's bias corrections at step ``count``, ``1 - b1 ** count`` and
+    ``1 - b2 ** count`` in double, as 0-d CPU tensors of the pixels'
+    ``dtype``: an op takes a CPU scalar tensor as it takes a Python float,
+    so the step divides as it always has, and an exported step takes them
+    as inputs."""
+    return (torch.tensor(1 - ADAM_B1 ** count, dtype=dtype),
+            torch.tensor(1 - ADAM_B2 ** count, dtype=dtype))
 
-    Masked Adam, written out to optax's ``adam`` formulas (b1 0.9, b2 0.999,
-    eps 1e-8 outside the square root, bias-corrected moments). The loss of
-    an inactive image is masked out of the sum, so its gradient is zero —
-    but its moments still update every step, exactly as optax's state does
-    in the JAX loop; only the pixel update is masked, so a converged image
-    stays bit-exactly where it froze. ``torch.optim.Adam`` would instead
-    move an inactive image on its momentum. The threshold check comes after
-    the step, as in the reference. The moments are updated in place (the
-    JAX loop carries new arrays). ``history``, when a list, receives each
-    iteration's per-image losses (device tensors; the loop syncs once per
-    iteration anyway)."""
-    # f32 pixels and moments whatever the model's dtype (f64 stays f64)
+
+def masked_adam_step(per_image_loss: Callable[..., torch.Tensor], learning_rate: float,
+                     threshold: float, pixels: torch.Tensor, mu: torch.Tensor,
+                     nu: torch.Tensor, active: torch.Tensor, bc1: torch.Tensor,
+                     bc2: torch.Tensor, *loss_args: torch.Tensor):
+    """One iteration of the masked Adam loop (``drive_masked_adam``) on
+    ``per_image_loss(pixels, *loss_args) -> (B,)``: returns (pixels, mu,
+    nu, active, per-image loss), all new tensors. Bound to its first three
+    arguments (``functools.partial``) it is the loop's step. The loss's
+    gradient is ``torch.autograd.grad`` of the active images' sum,
+    so an exported step (``deploy/artifact.py``) holds the backward too.
+    Written out to optax's ``adam`` formulas (b1 0.9, b2 0.999, eps 1e-8
+    outside the square root, moments divided by the bias corrections
+    ``bc1``, ``bc2``). The loss of an inactive image is masked out of the
+    sum, so its gradient is zero, but its moments still update, exactly as
+    optax's state does in the JAX loop; only the pixel update is masked,
+    so a converged image stays bit-exactly where it froze
+    (``torch.optim.Adam`` would move it on its momentum). The threshold
+    check comes after the step, as in the reference."""
+    b = pixels.shape[0]
+    with torch.enable_grad():
+        x = pixels.detach().requires_grad_(True)
+        per = per_image_loss(x, *loss_args)
+        (grad,) = torch.autograd.grad((per * active.to(per.dtype)).sum(), x)
+    per = per.detach()
+    mu = mu.mul(ADAM_B1).add(grad, alpha=1 - ADAM_B1)
+    nu = nu.mul(ADAM_B2).addcmul(grad, grad, value=1 - ADAM_B2)
+    update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS) * (-learning_rate)
+    mask = active.view((b,) + (1,) * (pixels.dim() - 1))
+    return pixels + update * mask, mu, nu, active & (per >= threshold), per
+
+
+def drive_masked_adam(step: Callable, pixels0: torch.Tensor, num_iterations: int,
+                      history: Optional[list] = None):
+    """The batched Adam-on-pixels loop: ``step(pixels, mu, nu, active, bc1,
+    bc2) -> (pixels, mu, nu, active, per)`` (``masked_adam_step`` bound to
+    its loss, or an exported step) while fewer than ``num_iterations``
+    iterations ran and an image is active; returns (final_pixels,
+    iterations_run, final_per_image_loss). Pixels and moments are f32
+    whatever the model's dtype (f64 stays f64). ``history``, when a list,
+    receives each iteration's per-image losses (device tensors)."""
     pixels = pixels0.detach().to(torch.float64 if pixels0.dtype == torch.float64
                                  else torch.float32).clone()
     mu = torch.zeros_like(pixels)
@@ -76,21 +109,9 @@ def _masked_adam(per_image_loss: Callable[[torch.Tensor], torch.Tensor],
     # One host sync per iteration for the exit test; capturing the step
     # in a CUDA graph and testing less often is the place to win it back.
     while i < num_iterations and bool(active.any()):
-        x = pixels.detach().requires_grad_(True)
-        per = per_image_loss(x)
-        (grad,) = torch.autograd.grad((per * active.to(per.dtype)).sum(), x)
-        per = per.detach()
+        pixels, mu, nu, active, per = step(pixels, mu, nu, active,
+                                         *bias_corrections(i + 1, pixels.dtype))
         check_nan("the style loop's loss", per)  # reads it under --debug_nans only
-        with torch.no_grad():
-            mu.mul_(ADAM_B1).add_(grad, alpha=1 - ADAM_B1)
-            nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1 - ADAM_B2)
-            count = i + 1
-            mu_hat = mu / (1 - ADAM_B1 ** count)
-            nu_hat = nu / (1 - ADAM_B2 ** count)
-            update = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS) * (-learning_rate)
-            mask = active.view((b,) + (1,) * (pixels.dim() - 1))
-            pixels = pixels + update * mask
-            active = active & (per >= threshold)
         if history is not None:
             history.append(per)
         i += 1
@@ -105,23 +126,31 @@ def make_style_transfer_optimizer(
 ):
     """Build the batched texture optimiser ``run(noise0, targets,
     history=None) -> (final_noise, iterations_run, final_per_image_loss)``:
-    ``_masked_adam`` on the per-image sum over layers of the MSE between
-    ``gram_fn(noise)`` (a list of per-image Grams, batch first) and the
-    targets."""
+    the masked Adam loop on ``make_per_image_gram_loss``'s loss."""
+    per_image_loss = make_per_image_gram_loss(gram_fn)
 
-    def per_image_loss(noise, targets):
+    def run(noise0: torch.Tensor, targets: Sequence[torch.Tensor],
+            history: Optional[list] = None):
+        return drive_masked_adam(
+            functools.partial(masked_adam_step, lambda x: per_image_loss(x, *targets),
+                              learning_rate, threshold), noise0, num_iterations, history)
+
+    return run
+
+
+def make_per_image_gram_loss(gram_fn: Callable[[torch.Tensor], Sequence[torch.Tensor]]):
+    """The texture loss ``loss(noise, *targets) -> (B,)``: per image, the
+    sum over layers of the MSE between ``gram_fn(noise)`` (a list of
+    per-image Grams, batch first) and the targets."""
+
+    def per_image_loss(noise, *targets):
         total = 0.0
         for g, t in zip(gram_fn(noise), targets):
             dims = tuple(range(1, g.dim()))
             total = total + torch.mean(torch.square(g.float() - t.float()), dim=dims)
         return total  # (B,)
 
-    def run(noise0: torch.Tensor, targets: Sequence[torch.Tensor],
-            history: Optional[list] = None):
-        return _masked_adam(lambda x: per_image_loss(x, targets), noise0, learning_rate,
-                            num_iterations, threshold, history)
-
-    return run
+    return per_image_loss
 
 
 def _encoder_in(model, compute_dtype: Optional[torch.dtype]):
@@ -267,16 +296,18 @@ def make_content_style_optimizer(
 ):
     """Classic content+style transfer (Gatys et al.), batched like the
     texture loop: ``run(pixels0, style_grams, content_feats, history=None)
-    -> (pixels, iterations_run, final_per_image_loss)``, ``_masked_adam`` on
-    ``make_per_image_content_style_loss``'s loss, so the same per-image
-    early stop, iteration cap and frozen converged images."""
+    -> (pixels, iterations_run, final_per_image_loss)``, the masked Adam
+    loop on ``make_per_image_content_style_loss``'s loss, so the same
+    per-image early stop, iteration cap and frozen converged images."""
     per_image_loss = make_per_image_content_style_loss(extract_fn, style_weight,
                                                        content_weight, tv_weight)
 
     def run(pixels0: torch.Tensor, style_grams: Sequence[torch.Tensor],
             content_feats: torch.Tensor, history: Optional[list] = None):
-        return _masked_adam(lambda p: per_image_loss(p, style_grams, content_feats), pixels0,
-                            learning_rate, num_iterations, threshold, history)
+        return drive_masked_adam(
+            functools.partial(masked_adam_step,
+                              lambda p: per_image_loss(p, style_grams, content_feats),
+                              learning_rate, threshold), pixels0, num_iterations, history)
 
     return run
 

@@ -205,7 +205,7 @@ def test_port_and_chip_smoke_import_no_jax():
                    "ops/kernels/instance_norm.py", "data/augment.py",
                    "cli/train_truncated_resnet50.py", "cli/train_multi_patchgan.py",
                    "tasks/serving.py", "tasks/serving_http.py", "cli/serve.py",
-                   "tasks/recycling.py"):
+                   "tasks/recycling.py", "deploy/artifact.py"):
         assert os.path.join(PORT, module) in files, module
     bad = []
     for path in files:

@@ -213,11 +213,15 @@ def test_parser_has_every_jax_flag_with_its_default_and_choices():
     assert "TPU" not in helps and "MB" not in helps and "2.2x" not in helps
 
 
-@pytest.mark.parametrize("flag", [["--artifact", "a.npz"], ["--export_artifact", "a.npz"],
-                                  ["--export_batch", "8"], ["--export_platforms", "cpu"],
+@pytest.mark.parametrize("flag", [["--artifact", "a.npz", "--devices", "2"],
+                                  ["--export_artifact", "a.npz", "--devices", "2"],
+                                  ["--export_batch", "8", "--devices", "2"],
+                                  ["--export_platforms", "cpu", "--devices", "2"],
                                   ["--devices", "2"]],
                          ids=lambda f: f[0])
 def test_unported_flags_raise(models, flag):
+    """``--devices`` is not ported, alone or with the artifact flags (a
+    sharded artifact)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tcli.main(_argv(models, "truncated_resnet50", "--device", "cpu", *flag))
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -182,10 +182,11 @@ def test_style_image_errors_keep_the_jax_messages(content_style_files, case):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--artifact", "a.npz"], ["--export_artifact", "a.npz"], ["--export_platforms", "cpu"],
-    ["--devices", "1"], ["--devices", "2"],
+    ["--artifact", "a.npz", "--devices", "2"], ["--export_artifact", "a.npz", "--devices", "2"],
+    ["--export_platforms", "cpu", "--devices", "2"], ["--devices", "1"], ["--devices", "2"],
 ])
 def test_unported_flags_raise(net_path, extra):
+    """``--devices`` is not ported, alone or with the artifact flags."""
     from heuristique_style_transfer_code_tpu_torch.cli.serve_style import main
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
