@@ -320,7 +320,23 @@ Phases, all run every time:
                   losses within 1e-5 or twice the live service's own
                   run-to-run spread, launches equal, one POST; a family-3
                   style iteration's host time through the ops and through
-                  autograd.Functions that call the wrappers.
+                  autograd.Functions that call the wrappers; and the
+                  fast-style net (``--net``, b8) against the live net
+                  job bit for bit, with 15 instance_norm_fwd a forward.
+  style_int8      the style loop's weights_int8: the family-2 texture loop
+                  (layers 5, b2, 224²) with and without it, image-
+                  iterations/s; the int8 weights equal the CPU's, the
+                  quantised Grams against the CPU and against f32.
+  native_decode   whether the machine has g++ and jpeglib.h (a JSON line);
+                  where it has, the native JPEG decoder built under
+                  HST_NATIVE_DECODE=1 and HostLoader's images/s at b32
+                  with it and with PIL, bit-equal batches; else PIL alone.
+  parallel_folds  --parallel_folds: the seven hst ops under vmap on the
+                  card (one launch for the folds); train_gram_attention
+                  and train_multi_patchgan (norm "instance") at b32, 2
+                  folds, one epoch, with and without the flag: weights
+                  and losses, training launches the sequential count / 2;
+                  the b32 steps' images/s both ways.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -590,6 +606,28 @@ ART_RECYCLE_AFTER, ART_RECYCLE_REQUESTS = 24, 40
 # this, or twice the live service's own run-to-run spread (cuDNN's backward
 # algorithms may sum in another order from one run to the next)
 ART_STYLE_LOSS_RTOL = 1e-5
+# the fast-style net's artifact (serve_style --net --export_artifact) at the
+# fast_style phase's larger batch
+ART_NET_BATCH = 8
+# style_int8: the family-2 texture loop at serve_style's texture job shape
+# (layers 5, b2, 224²), SI8_ITERS iterations, SI8_RUNS timed runs a side
+SI8_BATCH, SI8_ITERS, SI8_RUNS = 2, 20, 3
+# native_decode: HostLoader at b32 over ND_IMAGES JPEGs of ND_SIZE (h, w),
+# ND_EPOCHS epochs a decoder
+ND_IMAGES, ND_SIZE, ND_BATCH, ND_EPOCHS = 256, (480, 640), 32, 3
+# parallel_folds: K folds; the CLIs at b32 on 4 classes x PF_PER_CLASS PNGs
+# (2 steps a fold, one epoch), the steps timed over PF_TIMED rounds; an op
+# under vmap against the same kernel fold by fold, max |difference| over the
+# result's scale (the kernels plan their splits by the batch); fold-parallel
+# against sequential training: each fold's move from its init (every leaf
+# of its checkpoint) by relative L2, each printed batch loss (4 decimals) by
+# absolute gap. The two runs' convolutions are different cuDNN kernels
+# (grouped ones under the flag), and an f32 step's gradients at the stem's
+# batch-norm leaves lie 1-3e-2 from float64 on the card (F2T_TOL_GRAD's
+# note), so single leaves are printed, not gated; the CPU tests hold the
+# same code to 1e-12 in float64
+PF_K, PF_BATCH, PF_PER_CLASS, PF_TIMED = 2, 32, 32, 5
+PF_TOL_OP, PF_TOL_MOVE, PF_TOL_LOSS = 1e-5, 1e-2, 2e-4
 
 
 def _require(ok: bool, what: str) -> None:
@@ -5599,7 +5637,7 @@ def _iteration_host(service, canvases, w, ids) -> dict:
 
 
 def _artifact_style(kernels, tag: str, argv: list, path: str, export_s: float, batch: int,
-                    styles: int, iteration_host: bool = False) -> dict:
+                    styles: int, iteration_host: bool = False, net: bool = False) -> dict:
     """The file ``serve_style --export_artifact`` of ``argv`` wrote at
     ``path``, and the service built from ``--artifact`` beside the one
     built from ``argv``: the batch-``batch`` job of both on
@@ -5607,7 +5645,9 @@ def _artifact_style(kernels, tag: str, argv: list, path: str, export_s: float, b
     algorithms, with their launches, the iterations, the per-image losses
     and the uint8 canvases compared (and the live job's own run-to-run
     spread beside them), each job timed (host clock, synchronised); with
-    ``iteration_host``, ``_iteration_host`` of the live loop."""
+    ``iteration_host``, ``_iteration_host`` of the live loop. A ``net``
+    job (the fast-style net: one forward, no loop) is held bit for bit
+    with NORMS_PER_FORWARD instance_norm_fwd launches."""
     import numpy as np
     import torch
 
@@ -5662,6 +5702,15 @@ def _artifact_style(kernels, tag: str, argv: list, path: str, export_s: float, b
           f"(again {again['job_s']:.3f}) artifact {b['job_s']:.3f}; hst nodes {nodes}"
           + (f"; a live iteration: host {out['iteration']['host_ms']:.2f} ms to issue, "
              f"{out['iteration']['wall_ms']:.2f} ms with its sync" if iteration_host else ""))
+    if net:
+        _require(a["iters"] == b["iters"] and gap == 0 and np.array_equal(a["u8"], b["u8"]),
+                 f"[artifact] serve_style {tag}: the artifact's job is the live net job's, bit "
+                 f"for bit")
+        _require(a["launches"] == b["launches"]
+                 and b["launches"]["instance_norm_fwd"] == NORMS_PER_FORWARD,
+                 f"[artifact] serve_style {tag}: {NORMS_PER_FORWARD} instance_norm_fwd a "
+                 f"forward, as the live job's: {b['launches']}")
+        return out
     _require(a["iters"] == b["iters"] and gap <= 1 and loss_rel <= max(ART_STYLE_LOSS_RTOL,
                                                                       2 * live_rel),
              f"[artifact] serve_style {tag}: the artifact's job is the live service's")
@@ -5686,8 +5735,9 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
     one recycle), its handover beside the recycle phase's; ``serve_style
     --export_artifact`` and ``--artifact`` for texture mode (family 2,
     layers 5, b2), family 3 (norm "instance", b1, with a live iteration's
-    host time) and content+style (b2), one POST through the texture
-    artifact's server."""
+    host time), content+style (b2) and the fast-style net (``--net``, the
+    fast_style phase's seeded net, b8: bit for bit, 15 instance_norm_fwd a
+    forward), one POST through the texture artifact's server."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -5744,7 +5794,21 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
         "family3_instance_float32": (["--family", "multi_patchgan", "--config_path", f3_cfg,
                                       "--model_path", f3_ckpt], "float32",
                                      {"instance_norm_fwd": F3_NORMS})}
+    net_path = os.path.join(tmp, "style_net.npz")
+    if not os.path.exists(net_path):  # written by the fast_style phase
+        from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+        from heuristique_style_transfer_code_tpu_torch.checkpoint.io import (
+            save_model_and_hyperparameters,
+        )
+        from heuristique_style_transfer_code_tpu_torch.nn.transformer_net import (
+            transformer_net_init,
+        )
+
+        save_model_and_hyperparameters(to_jax_tree(transformer_net_init(
+            torch.Generator().manual_seed(0), width=32, n_res=5, device="cpu")),
+            {"crop": 224, "style_names": ["seeded"]}, tmp, "style_net")
     styles = {
+        "net": (["--net", net_path, "--batch_size", str(ART_NET_BATCH)], ART_NET_BATCH, 1),
         "texture_family2": (texture, 2, 1),
         "texture_family3_instance": (["--family", "multi_patchgan", "--config_path", f3t_cfg,
                                       "--model_path", os.path.join(tmp, "family3_instance.npz"),
@@ -5843,7 +5907,8 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
 
     # serve_style artifacts: texture (family 2), family 3 (instance), content+style
     out["style"] = {tag: _artifact_style(kernels, tag, argv, paths[tag], export_s[tag], batch, k,
-                                         iteration_host=tag == "texture_family3_instance")
+                                         iteration_host=tag == "texture_family3_instance",
+                                         net=tag == "net")
                     for tag, (argv, batch, k) in styles.items()}
     f3s = out["style"]["texture_family3_instance"]["launches"]
     _require(f3s.get("instance_norm_fwd", 0) > 0 and f3s.get("instance_norm_bwd", 0) > 0,
@@ -5872,12 +5937,523 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
     return out
 
 
+def phase_style_int8(kernels, model, seeded, timings: dict) -> dict:
+    """The style loop's ``weights_int8`` (``tasks/style_transfer.py``) on the
+    family-2 texture loop at serve_style's texture job shape (the
+    classification phase's truncate-8 model, layers 5, b2, 224²,
+    threshold 0): the int8 values and scales of the card's encoder equal
+    the CPU's; the quantised Grams of a 64-px input on the card against the
+    CPU (TOL_MODEL) and against f32 (JAX's bound: relative L2 in (0, 0.1));
+    launches equal to the f32 loop's; image-iterations/s (host clock,
+    synchronised) over SI8_ITERS iterations with and without the keyword,
+    SI8_RUNS runs each, alternating, after a warm run."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_gram_fn_gram_attention,
+        make_style_transfer_optimizer,
+    )
+
+    t_phase = time.perf_counter()
+    fns = {q: make_gram_fn_gram_attention(model, 8, layers=5, weights_int8=q)
+           for q in (False, True)}
+    cpu_fn = make_gram_fn_gram_attention(seeded, 8, layers=5, weights_int8=True)
+    same = all(torch.equal(q.cpu(), cpu_fn.quantised[n][0])
+               and torch.equal(s.cpu(), cpu_fn.quantised[n][1])
+               for n, (q, s) in fns[True].quantised.items())
+    x = torch.from_numpy(np.random.RandomState(401).rand(2, 64, 64, 3).astype(np.float32))
+    with torch.no_grad():
+        card = fns[True](x.to(DEVICE))[0].cpu()
+        f32 = fns[False](x.to(DEVICE))[0].cpu()
+        cpu = cpu_fn(x)[0]
+    vs_cpu = float((card - cpu).abs().max() / cpu.abs().max())
+    vs_f32 = float(torch.linalg.norm(card - f32) / torch.linalg.norm(f32))
+    print(f"[style_int8] {len(fns[True].quantised)} conv weights int8: card's int8 values and "
+          f"scales equal the CPU's: {same}; quantised Grams (2 images 64 px) card vs CPU max rel "
+          f"{vs_cpu:.3e} (tol {TOL_MODEL['float32'][0]}), int8 vs f32 rel L2 {vs_f32:.3e} "
+          f"(JAX's bound (0, 0.1))")
+    _require(same, "[style_int8] the card's int8 weights are the CPU's")
+    _require(vs_cpu <= TOL_MODEL["float32"][0], f"[style_int8] card vs CPU: {vs_cpu}")
+    _require(0.0 < vs_f32 < 0.1, f"[style_int8] int8 Grams within JAX's bound of f32: {vs_f32}")
+
+    rng = np.random.RandomState(402)
+    images = torch.from_numpy(rng.rand(SI8_BATCH, 224, 224, 3).astype(np.float32)).to(DEVICE)
+    noise = torch.from_numpy(rng.randn(SI8_BATCH, 224, 224, 3).astype(np.float32)).to(DEVICE)
+    runs = {}
+    for q, fn in fns.items():
+        with torch.no_grad():
+            targets = fn(images)
+        runs[q] = (make_style_transfer_optimizer(fn, 0.01, SI8_ITERS, 0.0), targets)
+        runs[q][0](noise, targets)  # warm: cuDNN's choices
+    rates, launches, losses = {False: [], True: []}, {}, {}
+    for _ in range(SI8_RUNS):
+        for q, (run, targets) in runs.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, iters, per = run(noise, targets)
+            torch.cuda.synchronize()
+            rates[q].append(SI8_BATCH * int(iters) / (time.perf_counter() - t0))
+            launches[q] = kernels.launch_counts()
+            losses[q] = torch.as_tensor(per).cpu().numpy()
+    med = {q: float(np.median(r)) for q, r in rates.items()}
+    out = {"quantised_equal_cpu": same, "vs_cpu": vs_cpu, "int8_vs_f32": vs_f32,
+           "image_iterations_per_s": {"float32": med[False], "weights_int8": med[True]},
+           "runs": {"float32": rates[False], "weights_int8": rates[True]},
+           "launches": launches[True], "final_losses": {"float32": losses[False].tolist(),
+                                                        "weights_int8": losses[True].tolist()}}
+    print(f"[style_int8] texture loop b{SI8_BATCH} 224² layers 5, {SI8_ITERS} iterations: "
+          f"{med[False]:.2f} image-iterations/s f32, {med[True]:.2f} with weights_int8 "
+          f"(ratio {med[True] / med[False]:.3f}; runs {[round(r, 2) for r in rates[False]]}, "
+          f"{[round(r, 2) for r in rates[True]]}); launches {launches[True]} (f32 "
+          f"{launches[False]}); final losses f32 {losses[False]} int8 {losses[True]}")
+    _require(launches[True] == launches[False] and launches[True]["gram_fwd"] >= SI8_ITERS
+             and launches[True]["gram_bwd"] >= SI8_ITERS,
+             f"[style_int8] the int8 loop's launches are the f32 loop's: {launches}")
+    _require(bool(np.isfinite(losses[True]).all()), "[style_int8] finite losses")
+    timings["style_int8_phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _toolchain() -> dict:
+    """Whether this machine has ``g++`` and libjpeg's ``jpeglib.h`` (what
+    the native decoder's build needs)."""
+    import shutil
+
+    gxx = shutil.which("g++") is not None
+    header = gxx and subprocess.run(
+        ["g++", "-fsyntax-only", "-x", "c++", "-"], input="#include <cstdio>\n#include <jpeglib.h>\n",
+        capture_output=True, text=True, timeout=60).returncode == 0
+    return {"g++": gxx, "jpeglib.h": bool(header)}
+
+
+def phase_native_decode(tmp: str, timings: dict) -> dict:
+    """The host loader's native JPEG decoder (``native/``). First, on a line
+    of its own, whether the machine has ``g++`` and ``jpeglib.h``. Where it
+    has both: the decoder built from the checkout under
+    ``HST_NATIVE_DECODE=1`` (a failed build fails the smoke), its staged
+    canvases bit-equal to PIL's on ND_IMAGES JPEGs; ``HostLoader``'s
+    images/s at b32 with the train CLIs' decode workers, native against
+    PIL (``HST_NATIVE_DECODE=0``), ND_EPOCHS epochs each over the same files
+    (the file cache warm), medians. Where not: PIL alone, and why."""
+    import numpy as np
+    from PIL import Image
+
+    from heuristique_style_transfer_code_tpu_torch import native
+    from heuristique_style_transfer_code_tpu_torch.data import loader
+
+    t_phase = time.perf_counter()
+    tools = _toolchain()
+    print(json.dumps(tools))
+    root = os.path.join(tmp, "nd_data")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(410)
+    h, w = ND_SIZE
+    y, x = np.mgrid[0:h, 0:w]
+    smooth = np.stack([x * 255 // w, y * 255 // h, (x + y) * 255 // (w + h)], -1)
+    samples = []
+    for i in range(ND_IMAGES):
+        arr = np.clip(smooth + rng.randint(-60, 60, (h, w, 3)), 0, 255).astype(np.uint8)
+        path = os.path.join(root, f"img_{i:04d}.jpg")
+        Image.fromarray(arr).save(path, quality=90, subsampling=(0, 1, 2)[i % 3])
+        samples.append((path, i % 4))
+    modes = ("0", "1") if tools["g++"] and tools["jpeglib.h"] else ("0",)
+    if len(modes) == 1:
+        print("[native_decode] g++ or jpeglib.h is missing on this machine: the native decoder "
+              "cannot be built here; PIL alone is measured")
+    old = {k: os.environ.get(k) for k in ("HST_NATIVE_DECODE", "HST_NATIVE_DECODE_FAST")}
+    os.environ.pop("HST_NATIVE_DECODE_FAST", None)
+    out = {"toolchain": tools, "images": ND_IMAGES, "size": list(ND_SIZE), "batch": ND_BATCH,
+           "workers": loader.DECODE_WORKERS, "images_per_s": {}, "epochs": {}}
+    first = {}
+    try:
+        for mode in modes:
+            os.environ["HST_NATIVE_DECODE"] = mode
+            if mode == "1":
+                t0 = time.perf_counter()
+                dec = native.get_decoder()
+                out["build_s"] = time.perf_counter() - t0
+                out["library"] = os.path.relpath(dec.so_path, REPO)
+            rates = []
+            for _ in range(ND_EPOCHS):
+                hl = loader.HostLoader(samples, ND_BATCH)
+                t0 = time.perf_counter()
+                for b, batch in enumerate(hl):
+                    if b == 0:
+                        first[mode] = batch["image"]
+                rates.append(len(samples) / (time.perf_counter() - t0))
+            name = "native" if mode == "1" else "pil"
+            out["epochs"][name] = rates
+            out["images_per_s"][name] = float(np.median(rates))
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rates = out["images_per_s"]
+    if "native" in rates:
+        equal = bool(np.array_equal(first["0"], first["1"]))
+        out["native_equals_pil"] = equal
+        print(f"[native_decode] built {out['library']} in {out['build_s']:.2f} s; HostLoader "
+              f"b{ND_BATCH}, {loader.DECODE_WORKERS} decode workers, {ND_IMAGES} JPEGs "
+              f"{w}x{h} (4:4:4, 4:2:2, 4:2:0; warm file cache): native {rates['native']:.1f} "
+              f"images/s, PIL {rates['pil']:.1f} (x{rates['native'] / rates['pil']:.2f}; epochs "
+              f"{[round(r, 1) for r in out['epochs']['native']]}, "
+              f"{[round(r, 1) for r in out['epochs']['pil']]}); first batch bit-equal: {equal}")
+        _require(equal, "[native_decode] the native batch is PIL's bit for bit")
+    else:
+        print(f"[native_decode] HostLoader b{ND_BATCH}, {loader.DECODE_WORKERS} decode workers, "
+              f"{ND_IMAGES} JPEGs {w}x{h}: PIL {rates['pil']:.1f} images/s")
+    timings["native_decode_phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _vmap_ops_on_card(kernels) -> dict:
+    """The seven ``hst`` ops under ``torch.func.vmap`` on CUDA tensors, K =
+    PF_K folds folded into one launch: each vmapped op (and each shim under
+    ``vmap(grad(...))``: its forward and its backward op) against the same
+    kernels called fold by fold, max |difference| relative to the result's
+    scale within PF_TOL_OP (the kernels plan their splits by the batch, so
+    f32 sums may run in another order), one launch each; each op's folded
+    launch timed (``_time_ms``) beside its K launches fold by fold."""
+    import torch
+    from torch.func import grad, vmap
+
+    from heuristique_style_transfer_code_tpu_torch.ops.kernels import gram as kg
+    from heuristique_style_transfer_code_tpu_torch.ops.kernels import instance_norm as kin
+
+    gen = torch.Generator(device=DEVICE).manual_seed(420)
+    k, n, hw, c, s = PF_K, 4, 56 * 56, 256, POOL_S
+
+    def r(*shape, pos=False):
+        t = torch.randn(shape, device=DEVICE, generator=gen)
+        return t.relu() if pos else t
+
+    f, dg, ds = r(k, n, hw, c, pos=True), r(k, n, c, c), r(k, n, s, s)
+    x, sc, b = r(k, n, hw, 64), r(k, n, 64).abs() + 0.5, r(k, n, 64)
+    with torch.no_grad():
+        y = torch.stack([kg.pooled_gram_fwd(f[i], s, return_y=True)[1] for i in range(k)])
+        yin = torch.stack([kin.instance_norm_fwd(x[i], sc[i], b[i], relu=True) for i in range(k)])
+    cases = {
+        "gram_fwd": (lambda: vmap(torch.ops.hst.gram_fwd)(f),
+                     lambda i: kg.gram_fwd(f[i])),
+        "gram_bwd": (lambda: vmap(torch.ops.hst.gram_bwd)(f, dg),
+                     lambda i: kg.gram_bwd(f[i], dg[i])),
+        "pooled_gram_fwd": (lambda: vmap(torch.ops.hst.pooled_gram_fwd, (0, None))(f, s),
+                            lambda i: kg.pooled_gram_fwd(f[i], s)),
+        "pooled_gram_fwd_y": (lambda: vmap(torch.ops.hst.pooled_gram_fwd_y, (0, None))(f, s)[1],
+                              lambda i: y[i]),
+        "pooled_gram_bwd": (lambda: vmap(torch.ops.hst.pooled_gram_bwd, (0, 0, None, None))(
+            y, ds, c, torch.float32), lambda i: kg.pooled_gram_bwd(y[i], ds[i], c, torch.float32)),
+        "instance_norm_fwd": (lambda: vmap(torch.ops.hst.instance_norm_fwd,
+                                           (0, 0, 0, None, None))(x, sc, b, kin.EPS, True),
+                              lambda i: yin[i]),
+        "instance_norm_bwd": (lambda: vmap(torch.ops.hst.instance_norm_bwd,
+                                           (0, 0, 0, 0, None, None, 0))(
+            x, x, sc, b, kin.EPS, True, yin)[0],
+            lambda i: kin.instance_norm_bwd(x[i], x[i], sc[i], b[i], kin.EPS, True, yin[i])[0]),
+    }
+
+    def gram_loss(f):
+        return kg.GramFunction.apply(f).square().sum() + kg.PooledGramFunction.apply(f, s).sum()
+
+    def norm_loss(x, sc, b):
+        return kin.InstanceNormFunction.apply(x, sc, b, kin.EPS, True).square().sum()
+
+    def loop_grad(fn, *args):
+        outs = []
+        for i in range(k):
+            leaves = [a[i].clone().requires_grad_(True) for a in args]
+            outs.append(torch.autograd.grad(fn(*leaves), leaves)[0])
+        return torch.stack(outs)
+
+    # the kernels fold by fold, for the times beside the folded launch
+    loops = {
+        "gram_fwd": lambda i: kg.gram_fwd(f[i]),
+        "gram_bwd": lambda i: kg.gram_bwd(f[i], dg[i]),
+        "pooled_gram_fwd": lambda i: kg.pooled_gram_fwd(f[i], s),
+        "pooled_gram_fwd_y": lambda i: kg.pooled_gram_fwd(f[i], s, return_y=True),
+        "pooled_gram_bwd": lambda i: kg.pooled_gram_bwd(y[i], ds[i], c, torch.float32),
+        "instance_norm_fwd": lambda i: kin.instance_norm_fwd(x[i], sc[i], b[i], relu=True),
+        "instance_norm_bwd": lambda i: kin.instance_norm_bwd(x[i], x[i], sc[i], b[i], kin.EPS,
+                                                             True, yin[i]),
+    }
+    cases["vmap(grad(gram + pooled gram))"] = (lambda: vmap(grad(gram_loss))(f),
+                                               lambda i: loop_grad(gram_loss, f)[i])
+    cases["vmap(grad(instance norm))"] = (lambda: vmap(grad(norm_loss))(x, sc, b),
+                                          lambda i: loop_grad(norm_loss, x, sc, b)[i])
+    out = {}
+    for name, (batched, per_fold) in cases.items():
+        kernels.reset_launch_counts()
+        got = batched()
+        torch.cuda.synchronize()
+        launched = {kk: v for kk, v in kernels.launch_counts().items() if v}
+        want = torch.stack([per_fold(i) for i in range(k)])
+        err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        out[name] = {"rel_err": err, "launches": launched}
+        if name in loops:
+            out[name]["ms"] = _time_ms(batched)
+            out[name]["folds_one_by_one_ms"] = _time_ms(
+                lambda fn=loops[name]: [fn(i) for i in range(k)])
+        _require(err <= PF_TOL_OP, f"[parallel_folds] {name} under vmap: rel err {err}")
+        _require(launched and all(v == 1 for v in launched.values()),
+                 f"[parallel_folds] {name} under vmap: one launch a kernel for {k} folds: "
+                 f"{launched}")
+    print(f"[parallel_folds] the hst ops under vmap on the card, {k} folds (rel err, launches; "
+          f"device ms of the folded launch and of the {k} launches fold by fold): "
+          + "; ".join(f"{nm} {r['rel_err']:.2e} {r['launches']}"
+                      + (f" {r['ms']:.4f} vs {r['folds_one_by_one_ms']:.4f} ms" if "ms" in r
+                         else "") for nm, r in out.items()))
+    return out
+
+
+def _train_launches(kernels, run) -> tuple:
+    """``run()``'s hand-written kernel launches, all of them and those of
+    its validation passes (``train.kfold.evaluate``) apart."""
+    from heuristique_style_transfer_code_tpu_torch.train import kfold
+
+    real, evals = kfold.evaluate, {}
+
+    def counted(*args, **kw):
+        before = kernels.launch_counts()
+        try:
+            return real(*args, **kw)
+        finally:
+            for kk, v in kernels.launch_counts().items():
+                evals[kk] = evals.get(kk, 0) + v - before[kk]
+
+    kfold.evaluate = counted
+    try:
+        kernels.reset_launch_counts()
+        run()
+        return kernels.launch_counts(), evals
+    finally:
+        kfold.evaluate = real
+
+
+def _batch_losses(text: str) -> dict:
+    """{"fold/batch": loss} of a train CLI's per-batch lines."""
+    import re
+
+    return {f"{m[0]}/{m[1]}": float(m[2]) for m in re.findall(
+        r"Fold (\d+), Epoch \[\d+/\d+\], Batch \[(\d+)/\d+\], Loss: ([-\d.naif]+)", text)}
+
+
+def phase_parallel_folds(kernels, tmp: str, timings: dict) -> dict:
+    """``--parallel_folds`` on the card (``parallel/foldparallel.py``). (a)
+    ``_vmap_ops_on_card``. (b) ``train_gram_attention`` (truncate 7, S 7,
+    b32: K2 and K2′) and ``train_multi_patchgan`` (the config defaults,
+    norm "instance", b32: K3 and K3′) with ``--k_folds 2 --epochs 1`` on 4
+    classes x PF_PER_CLASS PNGs (2 steps a fold), with and without
+    ``--parallel_folds``: each fold's move from its init (its checkpoint
+    against the same init) by relative L2 within PF_TOL_MOVE and each
+    printed batch loss within PF_TOL_LOSS of the sequential run's (see
+    PF_TOL_MOVE's note), and the training's launches of every kernel (the
+    validation passes' apart) the sequential run's divided by K. (c) The b32 steps in memory:
+    images/s of PF_TIMED rounds (both folds stepped) with the fold-parallel
+    step against the two sequential steps, after a warm round, and each
+    one's peak memory, device busy and idle share and top kernels over 2
+    profiled rounds."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import _flatten, load_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.cli.train_gram_attention import main as f2_cli
+    from heuristique_style_transfer_code_tpu_torch.cli.train_multi_patchgan import main as f3_cli
+    from heuristique_style_transfer_code_tpu_torch.config.schema import (
+        GramAttentionConfig,
+        MultiPatchGANConfig,
+    )
+    from heuristique_style_transfer_code_tpu_torch.parallel.foldparallel import (
+        stack_fold_states,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tools.profile_main_path import _profile
+    from heuristique_style_transfer_code_tpu_torch.train.factories import (
+        setup_gram_attention,
+        setup_multi_patchgan,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"ops": _vmap_ops_on_card(kernels)}
+    data = _image_folder(os.path.join(tmp, "pf_data"), PF_PER_CLASS, seed=421, split="train")
+    families = {
+        "family2": (f2_cli, GramAttentionConfig(batch_size=PF_BATCH, lr=F2T_LR,
+                                                truncate_layer=F2T_TRUNCATE,
+                                                gram_matrix_size=F2T_S, seed=0),
+                    setup_gram_attention, ("pooled_gram_fwd", "pooled_gram_bwd")),
+        "family3": (f3_cli, MultiPatchGANConfig(batch_size=PF_BATCH, lr=F3T_LR, norm="instance",
+                                                seed=0),
+                    setup_multi_patchgan, ("instance_norm_fwd", "instance_norm_bwd")),
+    }
+    launches = {kk: 0 for kk in kernels.launch_counts()}
+    for fam, (cli, cfg, setup_fn, used) in families.items():
+        cfg_path = os.path.join(tmp, f"pf_{fam}.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        runs = {}
+        for flag in (False, True):
+            save = os.path.join(tmp, f"pf_{fam}_{'parallel' if flag else 'sequential'}")
+            argv = ["--data", data, "--config_path", cfg_path, "--k_folds", str(PF_K),
+                    "--epochs", "1", "--save_dir", save, "--device", DEVICE]
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                total, evals = _train_launches(
+                    kernels, lambda: cli(argv + (["--parallel_folds"] if flag else [])))
+            torch.cuda.synchronize()
+            train = {kk: total[kk] - evals.get(kk, 0) for kk in total}
+            runs[flag] = {"seconds": time.perf_counter() - t0, "train_launches": train,
+                          "eval_launches": evals, "losses": _batch_losses(printed.getvalue()),
+                          "dir": save}
+            if flag:
+                for kk, v in total.items():
+                    launches[kk] += v
+        seq, par = runs[False], runs[True]
+        leaf, moves = {}, []
+        for fold in range(PF_K):
+            start = setup_fn(cfg, 4, [(None, None)], device="cpu").init(
+                torch.Generator().manual_seed(cfg.seed + fold))[0]
+            w0 = _flatten(to_jax_tree(start))
+            a, b = (_flatten(load_pytree_npz(os.path.join(r["dir"], f"best_model_fold_{fold}.npz")))
+                    for r in (seq, par))
+            d = {key: np.asarray(b[key], np.float64) - a[key] for key in a}
+            m = {key: np.asarray(a[key], np.float64) - w0[key] for key in a}
+            move = sum(float((v * v).sum()) for v in m.values()) ** 0.5
+            moves.append(sum(float((v * v).sum()) for v in d.values()) ** 0.5 / move)
+            for key in a:  # leaves that moved (a bias before a norm has no gradient)
+                if np.linalg.norm(m[key]) > 1e-6 * move:
+                    leaf[f"{fold}/{key}"] = float(np.linalg.norm(d[key]) / np.linalg.norm(m[key]))
+        worst = max(leaf, key=leaf.get)
+        loss_gap = max(abs(seq["losses"][key] - par["losses"][key]) for key in seq["losses"])
+        ratio_ok = all(par["train_launches"][kk] * PF_K == seq["train_launches"][kk]
+                       for kk in par["train_launches"])
+        out[fam] = {"cli": {("parallel" if f else "sequential"): {
+            kk: v for kk, v in r.items() if kk != "dir"} for f, r in runs.items()},
+            "move_gap": moves, "worst_leaf_move_gap": [worst, leaf[worst]],
+            "max_loss_gap": loss_gap}
+        print(f"[parallel_folds] {fam} CLI, {PF_K} folds x 1 epoch at b{PF_BATCH}: sequential "
+              f"{seq['seconds']:.1f} s, --parallel_folds {par['seconds']:.1f} s; training "
+              f"launches {seq['train_launches']} -> {par['train_launches']} (validation "
+              f"{par['eval_launches']}); each fold's move from its init, fold-parallel "
+              f"against sequential, rel L2 {[f'{m:.2e}' for m in moves]} (tol {PF_TOL_MOVE}; "
+              f"worst leaf {leaf[worst]:.2e}, {worst}), batch losses max gap {loss_gap:.1e} "
+              f"(tol {PF_TOL_LOSS}): {sorted(par['losses'].items())}")
+        _require(seq["losses"].keys() == par["losses"].keys() and len(par["losses"]) >= 2 * PF_K,
+                 f"[parallel_folds] {fam}: every fold's batch lines in both runs")
+        _require(ratio_ok and all(par["train_launches"][kk] > 0 for kk in used),
+                 f"[parallel_folds] {fam}: training launches the sequential count / {PF_K}: "
+                 f"{seq['train_launches']} -> {par['train_launches']}")
+        _require(max(moves) <= PF_TOL_MOVE and loss_gap <= PF_TOL_LOSS,
+                 f"[parallel_folds] {fam}: fold-parallel weights and losses are sequential's")
+
+        # (c) the steps in memory
+        setup = setup_fn(cfg, 4, [(None, None)], device=DEVICE)
+        rng = np.random.RandomState(430)
+        batches = [{"image": rng.randint(0, 256, (PF_BATCH, 256, 256, 3)).astype(np.uint8),
+                    "label": rng.randint(0, 4, (PF_BATCH,)).astype(np.int32), "combo": None,
+                    "draws": None} for _ in range(PF_K)]
+        states = [setup.init(torch.Generator().manual_seed(431 + i)) for i in range(PF_K)]
+        step = setup.foldwise_step()
+        rates, peaks, profiles = {}, {}, {}
+        for mode in ("sequential", "parallel"):
+            if mode == "parallel":
+                stacked = stack_fold_states(states)
+
+                def round_():
+                    step(stacked, batches, [True] * PF_K)
+            else:
+                def round_():
+                    for (m, o), bt in zip(states, batches):
+                        setup.train_step(m, o, bt["image"], bt["label"])
+            round_()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(PF_TIMED):
+                round_()
+            torch.cuda.synchronize()
+            rates[mode] = PF_K * PF_BATCH * PF_TIMED / (time.perf_counter() - t0)
+            peaks[mode] = torch.cuda.max_memory_allocated() / 2**30
+            prof = _profile(round_, 2)
+            profiles[mode] = {"busy_ms": prof["device_busy_ms"] / 2,
+                              "idle_share": prof["idle_share"],
+                              "top_kernels": [(k["name"][:60], round(k["ms"] / 2, 3))
+                                              for k in prof["top_kernels"][:6]]}
+        del states, step, setup
+        out[fam]["images_per_s"] = rates
+        out[fam]["peak_gib"] = peaks
+        out[fam]["profile"] = profiles
+        print(f"[parallel_folds] {fam} b{PF_BATCH} f32 steps of {PF_K} folds ({PF_TIMED} rounds, "
+              f"staged uint8 to the SGD update, host clock): --parallel_folds "
+              f"{rates['parallel']:.1f} images/s, sequential {rates['sequential']:.1f} (x"
+              f"{rates['parallel'] / rates['sequential']:.3f}); peak memory "
+              f"{peaks['parallel']:.2f} against {peaks['sequential']:.2f} GiB; a round's device "
+              f"busy {profiles['parallel']['busy_ms']:.2f} against "
+              f"{profiles['sequential']['busy_ms']:.2f} ms, idle share "
+              f"{profiles['parallel']['idle_share']:.3f} against "
+              f"{profiles['sequential']['idle_share']:.3f}; top kernels (ms a round) "
+              f"{profiles['parallel']['top_kernels']} against "
+              f"{profiles['sequential']['top_kernels']}")
+    out["launches"] = launches
+    timings["parallel_folds_phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
+    """``--only a,b``: the named later phases alone (artifact, style_int8,
+    native_decode, parallel_folds), their results in
+    ``chiprun_out/chip_smoke_only.json``; no result line."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import (
+        load_gram_attention,
+    )
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+
+    known = ("artifact", "style_int8", "native_decode", "parallel_folds")
+    _require(set(phases) <= set(known), f"--only takes {known}: {phases}")
+    out, timings = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for phase in phases:
+            t0 = time.perf_counter()
+            if phase == "artifact":
+                out[phase] = phase_artifact(kernels, kg, kin, tmp, timings)
+            elif phase == "style_int8":
+                seeded = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, POOL_S,
+                                             device="cpu")
+                ckpt = os.path.join(tmp, "family2.npz")
+                save_pytree_npz(to_jax_tree(seeded), ckpt)
+                model = load_gram_attention(ckpt, 8, 4, POOL_S, torch.device(DEVICE))
+                out[phase] = phase_style_int8(kernels, model, seeded, timings)
+            elif phase == "native_decode":
+                out[phase] = phase_native_decode(tmp, timings)
+            else:
+                out[phase] = phase_parallel_folds(kernels, tmp, timings)
+            print(f"[{phase}] {time.perf_counter() - t0:.2f} s")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "chip_smoke_only.json"), "w") as f:
+        json.dump({"device": name, "power": smi, "timings": timings, **out}, f, indent=1,
+                  default=str)
+    print(smi)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # internal: the recycle phase runs this script again as the proxy's parent
     parser.add_argument("--recycle-parent", metavar="SPEC", help=argparse.SUPPRESS)
-    # the artifact phase alone (prints no result line)
-    parser.add_argument("--only", choices=["artifact"], help=argparse.SUPPRESS)
+    # some of the later phases alone, comma-separated (prints no result line)
+    parser.add_argument("--only", help=argparse.SUPPRESS)
     cli = parser.parse_args()
     if cli.recycle_parent:
         sys.path.insert(0, REPO)
@@ -5921,15 +6497,8 @@ def main() -> int:
     print(f"[build] {', '.join(os.path.relpath(p, REPO) for p in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    if cli.only == "artifact":
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            artifact = phase_artifact(kernels, kg, kin, tmp, {})
-        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-        with open(os.path.join(REPO, "chiprun_out", "chip_smoke_artifact.json"), "w") as f:
-            json.dump({"device": name, "power": smi, "artifact": artifact}, f, indent=1,
-                      default=str)
-        print(smi)
-        return 0
+    if cli.only:
+        return _only(cli.only.split(","), kernels, kg, kin, name, smi)
 
     timings = {}
     rows = phase_kernels(kg, peaks)
@@ -6020,6 +6589,12 @@ def main() -> int:
               f"{timings['recycle_phase_s']:.2f} s")
         artifact = phase_artifact(kernels, kg, kin, tmp, timings, serving, recycle)
         print(f"[artifact] {timings['artifact_phase_s']:.2f} s in all")
+        style_int8 = phase_style_int8(kernels, model, seeded, timings)
+        native_decode = phase_native_decode(tmp, timings)
+        parallel = phase_parallel_folds(kernels, tmp, timings)
+        print(f"[style_int8+native_decode+parallel_folds] {timings['style_int8_phase_s']:.2f} + "
+              f"{timings['native_decode_phase_s']:.2f} + "
+              f"{timings['parallel_folds_phase_s']:.2f} s")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
@@ -6043,8 +6618,9 @@ def main() -> int:
                 + remat["launches"]["instance_norm_bwd"]
                 + f3_serve["launches"]["instance_norm_bwd"]
                 + ema_mix["launches"]["instance_norm_bwd"]}
-    for k, v in artifact["launches"].items():
-        launches[k] += v
+    for part in (artifact, style_int8, parallel):
+        for k, v in part["launches"].items():
+            launches[k] += v
     idle = [k for k in launches if launches[k] == 0]
     _require(not idle, f"every kernel launched on the main path: {idle}")
 
@@ -6082,7 +6658,9 @@ def main() -> int:
                    "remat": remat, "family3_serve": f3_serve, "dispatch": dispatch,
                    "grad_accum": accum, "profile_debug": profile_debug, "ema_mix": ema_mix,
                    "auto_batch": auto_batch, "int8": int8, "serve": serving,
-                   "recycle": recycle, "artifact": artifact}, f, indent=1, default=str)
+                   "recycle": recycle, "artifact": artifact, "style_int8": style_int8,
+                   "native_decode": native_decode, "parallel_folds": parallel}, f, indent=1,
+                  default=str)
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

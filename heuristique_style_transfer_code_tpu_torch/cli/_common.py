@@ -8,7 +8,7 @@ from __future__ import annotations
 import contextlib
 import os
 import random
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -273,7 +273,13 @@ def add_train_args(parser) -> None:
                         "(torch.utils.checkpoint per bottleneck / per discriminator unit): the "
                         "same gradients and running statistics, less activation memory, "
                         "about a third more forward work")
-    parser.add_argument("--parallel_folds", action="store_true", help="Not ported yet")
+    parser.add_argument("--parallel_folds", action="store_true",
+                        help="Train all --k_folds CV folds SIMULTANEOUSLY as one vmapped "
+                        "program on the one card: per-fold trajectories those of sequential "
+                        "training, every hand-written kernel one launch for all folds "
+                        "(several cards: not ported yet); exclusive with --resume, "
+                        "--steps_per_dispatch, --zero1, --early_stop, --grad_accum, "
+                        "--auto_batch and --remat")
     parser.add_argument("--auto_batch", action="store_true",
                         help="Probe doubling batch sizes and adopt the largest whose train "
                         "step fits the memory budget: on the card one real step each, read "
@@ -318,19 +324,22 @@ def add_train_args(parser) -> None:
                         "artifacts then describe the best epoch's weights")
 
 
-# the train flags this port does not run yet -> their defaults: ZeRO-1 and
-# fold-parallel training need several cards; orbax checkpoints need
-# orbax.checkpoint, which imports jax
+# the train flags this port does not run yet -> their defaults: ZeRO-1
+# shards the optimiser state over several cards (data-parallel training is
+# not ported yet); orbax checkpoints need orbax.checkpoint, which imports jax
 TRAIN_NOT_PORTED = {
     "zero1": False,
-    "parallel_folds": False,
     "checkpoint_format": "npz",
 }
 
 
 def check_train_ported(args) -> None:
     """``check_ported`` over ``TRAIN_NOT_PORTED``, and ``--devices`` other
-    than 1 (data-parallel training)."""
+    than 1 (data-parallel training); first the JAX CLI's refusal of
+    ``--parallel_folds`` with ``--zero1``."""
+    if getattr(args, "parallel_folds", False) and getattr(args, "zero1", False):
+        raise SystemExit("--parallel_folds and --zero1 are exclusive (the optimiser "
+                         "state is already sharded over the fold axis)")
     check_ported(args, TRAIN_NOT_PORTED)
     if args.devices not in (None, 1):
         raise NotImplementedError("--devices (data-parallel training) is not ported yet; "
@@ -347,10 +356,46 @@ def apply_grad_accum(args, setup, batch_size: int) -> None:
     if getattr(args, "steps_per_dispatch", 1) > 1:
         raise SystemExit("--grad_accum and --steps_per_dispatch>1 are "
                          "exclusive (pick one batching of the dispatch)")
+    if getattr(args, "parallel_folds", False):
+        raise SystemExit("--grad_accum and --parallel_folds are exclusive")
     if batch_size % n:
         raise SystemExit(f"--grad_accum {n} does not divide batch_size {batch_size}")
     setup.train_step = setup.accum_step(n)
     print(f"Gradient accumulation: {n} micro-batches of {batch_size // n} per optimiser step")
+
+
+def resolve_fold_parallel(args, setup, k_folds: int, device) -> Optional[Callable]:
+    """``--parallel_folds`` (the JAX ``resolve_fold_parallel``): the
+    fold-parallel train step (``FamilySetup.foldwise_step``), after the
+    JAX CLI's refusal of ``--early_stop`` and the port's of ``--remat``
+    (``torch.func.grad`` refuses checkpointing's saved-tensor hooks);
+    None when the flag is off. The K folds run as one program on the one
+    card (the fold axis of the JAX mesh has one device here), so the
+    partial-sharding warning is always printed."""
+    if not getattr(args, "parallel_folds", False):
+        return None
+    if getattr(args, "early_stop", None) is not None:
+        raise SystemExit("--parallel_folds and --early_stop are exclusive (all folds "
+                         "run as one SPMD program — no per-fold stopping point)")
+    if getattr(args, "remat", False):
+        raise SystemExit("--parallel_folds and --remat are exclusive here: torch.func's "
+                         "grad, which takes each fold's gradients, refuses the saved-tensor "
+                         "hooks of activation checkpointing")
+    print(f"Fold-parallel training: {k_folds} folds as one vmapped program on {device}")
+    warn_partial_fold_sharding(k_folds)
+    return setup.foldwise_step()
+
+
+def warn_partial_fold_sharding(k_folds: int) -> bool:
+    """The JAX CLI's warning that folds share a device, which on one card
+    they all do, with the card's own ratio of fold-parallel to sequential
+    images/s (``chip_smoke.py``'s ``parallel_folds`` phase; PERF.md), not
+    JAX's TPU one."""
+    print(f"WARNING: all {k_folds} folds share one device: their convolutions run as "
+          "grouped ones, and 2 folds of b32 f32 steps ran at 0.45x (family 2) and 0.57x "
+          "(family 3) the sequential images/s on an NVIDIA H100 80GB HBM3 at 700 W "
+          "(chip_smoke.py's parallel_folds phase; PERF.md).")
+    return True
 
 
 def resolve_seed(config: dict, cli_seed: Optional[int]) -> int:

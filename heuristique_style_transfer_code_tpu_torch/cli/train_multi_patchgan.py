@@ -24,9 +24,10 @@ discriminators is ``instance_norm_fwd`` on the card and its gradient
 ``--early_stop``, ``--tensorboard``, ``--precision float32|bf16``,
 ``--remat``, ``--grad_accum``, ``--steps_per_dispatch``, ``--profile_dir``,
 ``--debug_nans``, ``--ema_decay`` (every fold artifact from the weights'
-EMA), ``--mixup``/``--cutmix`` (``train/mixing.py``) and ``--auto_batch``
+EMA), ``--mixup``/``--cutmix`` (``train/mixing.py``), ``--auto_batch``
 with ``--hbm_budget_gb`` (``train/autotune.py``: on the CPU an estimate)
-run;
+and ``--parallel_folds`` (every fold as one vmapped program on the card,
+``parallel/foldparallel.py``) run;
 the flags of ``cli/_common.TRAIN_NOT_PORTED`` and ``--devices`` other than
 1 raise "not ported yet". Each fold's fresh weights come from
 ``torch.Generator().manual_seed(seed + fold)``, not from ``jax.random``.
@@ -88,6 +89,7 @@ def main(argv=None):
         make_writer,
         resolve_compute_dtype,
         resolve_lr_schedule,
+        resolve_fold_parallel,
         resolve_mix_fn,
         resolve_seed,
         runtime_flags,
@@ -123,6 +125,7 @@ def main(argv=None):
         mix_fn=resolve_mix_fn(args), remat=args.remat, device=device)
     apply_auto_batch(args, setup, cfg, hyperparameters, device)
     apply_grad_accum(args, setup, cfg.batch_size)
+    foldwise_step = resolve_fold_parallel(args, setup, args.k_folds, device)
 
     def init_fn(fold):
         model, opt_state = setup.init(torch.Generator().manual_seed(seed + fold))
@@ -142,6 +145,7 @@ def main(argv=None):
                 save_fn=save_fn,
                 writer=writer,
                 steps_per_dispatch=args.steps_per_dispatch,
+                foldwise_step=foldwise_step,
                 resume=args.resume,
                 async_checkpoint=args.async_checkpoint,
                 signature_extra=signature_extra_from_args(args),

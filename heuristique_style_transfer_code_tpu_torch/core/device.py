@@ -37,6 +37,13 @@ def traced(t: torch.Tensor) -> bool:
     return isinstance(t, FakeTensor)
 
 
+def transformed(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``torch.func`` transform's tensor (``vmap``,
+    ``grad``: ``--parallel_folds``). Its layout is one fold's view of the
+    stacked tensor; the ops' vmap rules hand the kernels dense copies."""
+    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+
+
 def device_of(module: torch.nn.Module) -> torch.device:
     """The device of a model's parameters (where its inputs must go)."""
     return next(module.parameters()).device

@@ -3,20 +3,22 @@
 
 The host decodes each image and resizes it to a fixed ``STAGING_SIZE``
 uint8 canvas (PIL bilinear shorter-side resize + center crop); the final
-crop and normalisation run on the device (``data/augment.py``). Decoding
-takes the PIL path only: the JAX package's native JPEG decoder gives
-bit-identical pixels, so the same pixels come out. Pillow is imported when
-a file is decoded, never at import.
+crop and normalisation run on the device (``data/augment.py``). JPEG bytes
+take the native decoder first (``native/``: libjpeg and Pillow's resample
+in C++, bit-identical, without the GIL), other bytes and any native
+failure PIL. Pillow is imported when a file is decoded, never at import.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import io
+import os
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..core.geometry import staging_geometry
+from ..native import get_decoder, is_jpeg
 
 STAGING_SIZE = 256
 DECODE_WORKERS = 8
@@ -25,7 +27,18 @@ PREFETCH_BATCHES = 2
 
 def decode_image_staged_bytes(data: bytes, staging: int = STAGING_SIZE) -> np.ndarray:
     """Encoded image bytes -> staged uint8 (staging, staging, 3): shorter
-    side resized to ``staging`` (bilinear), center crop."""
+    side resized to ``staging`` (bilinear), center crop (JAX
+    ``data/loader.py:27-50``). JPEG bytes take the native decoder where it
+    is on (``native.get_decoder``; ``HST_NATIVE_DECODE_FAST=1`` its fast,
+    not bit-identical path), the rest PIL: the one implementation of the
+    file loader and the classification server, so both feed the same
+    pixels."""
+    dec = get_decoder()
+    if dec is not None and is_jpeg(data):
+        fast = os.environ.get("HST_NATIVE_DECODE_FAST") == "1"
+        arr = dec.decode_staged(data, staging, fast=fast)
+        if arr is not None:
+            return arr
     from PIL import Image
 
     with Image.open(io.BytesIO(data)) as im:

@@ -20,13 +20,14 @@ from typing import Optional
 
 import torch
 
-from ..core.device import traced
+from ..core.device import traced, transformed
 from .kernels import gram as gram_kernels
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
-    if x.device.type == "cuda" and not x.is_contiguous() and not traced(x):
+    if (x.device.type == "cuda" and not x.is_contiguous() and not traced(x)
+            and not transformed(x)):
         raise ValueError(
             f"Gram input (N, H, W, C)={tuple(x.shape)} is not contiguous "
             f"(strides {x.stride()}); keep activations in channels_last"

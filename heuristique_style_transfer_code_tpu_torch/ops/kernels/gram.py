@@ -22,7 +22,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..pooling import adaptive_pool_matrix
-from ._library import backward_op, define
+from ._library import backward_op, call, define
 from ._nvcc import CudaLibrary, check
 
 KERNELS = ("gram_fwd", "gram_bwd", "pooled_gram_fwd", "pooled_gram_bwd")
@@ -609,15 +609,18 @@ class PooledGramFunction:
     @staticmethod
     def apply(f: torch.Tensor, out_size: int) -> torch.Tensor:
         if torch.is_grad_enabled() and f.requires_grad:
-            return POOLED_GRAM_FWD_Y._op(f, int(out_size))[0]
-        return POOLED_GRAM_FWD._op(f, int(out_size))
+            return call(POOLED_GRAM_FWD_Y, f, int(out_size))[0]
+        return call(POOLED_GRAM_FWD, f, int(out_size))
 
 
 class GramFunction:
     """G = f^T f / HW with the hand-written backward: ``apply(f)`` is
     ``hst::gram_fwd``, whose gradient is ``hst::gram_bwd``. On CPU tensors
     both directions take the plain formulas, so the CPU tests check the
-    backward formula itself. (The shims call each op's ``_op``, the
-    operator itself, without ``OpOverload.__call__``'s Python frame.)"""
+    backward formula itself. (The shims go through ``_library.call``: each
+    op's ``_op``, the operator itself, without ``OpOverload.__call__``'s
+    Python frame, or under a ``torch.func`` transform the op's Function.)"""
 
-    apply = staticmethod(GRAM_FWD._op)
+    @staticmethod
+    def apply(f: torch.Tensor) -> torch.Tensor:
+        return call(GRAM_FWD, f)

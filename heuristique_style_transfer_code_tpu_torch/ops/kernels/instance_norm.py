@@ -29,7 +29,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ._library import backward_op, define
+from ._library import backward_op, call, define
 from ._nvcc import CudaLibrary, check
 
 KERNELS = ("instance_norm_fwd", "instance_norm_bwd")
@@ -598,4 +598,4 @@ class InstanceNormFunction:
     @staticmethod
     def apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = EPS,
               relu: bool = False) -> torch.Tensor:
-        return INSTANCE_NORM_FWD._op(x, scale, bias, float(eps), bool(relu))
+        return call(INSTANCE_NORM_FWD, x, scale, bias, float(eps), bool(relu))

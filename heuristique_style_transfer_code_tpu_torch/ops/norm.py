@@ -11,7 +11,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.device import traced
+from ..core.device import traced, transformed
 from ..core.remat import recomputing
 from .kernels.instance_norm import InstanceNormFunction
 
@@ -39,10 +39,14 @@ def batch_norm(
     and arithmetic in f32 for f32 and bf16 inputs (f64 stays f64), the
     output in x's dtype and the f32 running buffers kept f32. While a remat
     block is recomputed for its backward (``core/remat.py``) the update
-    goes to copies of the buffers, so a step updates them once."""
+    goes to copies of the buffers, so a step updates them once. Under a
+    ``torch.func`` transform (``--parallel_folds``) the same arithmetic is
+    written out on the NHWC tensor (``_batch_norm_train_nhwc``)."""
     if train:
         if recomputing():
             mean, var = mean.clone(), var.clone()
+        if transformed(x):
+            return _batch_norm_train_nhwc(x, scale, bias, mean, var, eps)
         y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias, training=True,
                          momentum=MOMENTUM, eps=eps)
         return y.permute(0, 2, 3, 1)
@@ -50,6 +54,26 @@ def batch_norm(
     inv = scale.to(ctype) * torch.rsqrt(var.to(ctype) + eps)
     shift = bias.to(ctype) - mean.to(ctype) * inv
     return (x.to(ctype) * inv + shift).to(x.dtype)
+
+
+def _batch_norm_train_nhwc(x, scale, bias, mean, var, eps):
+    """``F.batch_norm(training=True)``'s arithmetic written out on the NHWC
+    tensor, for a ``torch.func`` transform's tensors (``--parallel_folds``):
+    there cuDNN's batch norm would copy each fold's channels_last view to
+    channels_last, which ``vmap`` refuses, and an NCHW copy instead makes
+    every convolution after it transpose (PERF.md). Statistics in
+    f32 (f64 stays f64); the running buffers updated in place as torch's
+    (the variance unbiased)."""
+    ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xc = x.to(ctype)
+    n = xc.numel() // xc.shape[-1]
+    mu = xc.mean(dim=(0, 1, 2))
+    centred = xc - mu
+    v = centred.square().mean(dim=(0, 1, 2))
+    mean.mul_(1.0 - MOMENTUM).add_(mu.detach() * MOMENTUM)
+    var.mul_(1.0 - MOMENTUM).add_(v.detach() * (MOMENTUM * n / max(n - 1, 1)))
+    y = centred * (torch.rsqrt(v + eps) * scale.to(ctype)) + bias.to(ctype)
+    return y.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=64)

@@ -39,6 +39,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.functional import call_with
 from ..ops.gram import gram_matrix_nhwc
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
 from ..utils.debug import check_nan
@@ -160,29 +161,106 @@ def _encoder_in(model, compute_dtype: Optional[torch.dtype]):
     return copy.deepcopy(enc).to(compute_dtype) if compute_dtype is not None else enc
 
 
+def _int8_encoder(enc, compute_dtype: Optional[torch.dtype], truncate: int):
+    """``weights_int8`` (JAX ``_quantize_conv_kernels``,
+    ``_dequantize_conv_kernels``, ``:132-165``): each 4-D conv weight of
+    ``enc`` (already in the compute dtype, as JAX quantises the cast tree)
+    quantised by ``nn/resnet_int8._quantize_kernel`` on its HWIO view, so
+    the int8 values and per-output-channel f32 scales are JAX's. Returns
+    ``(stored, quantised, dequantise)``: a copy of ``enc`` whose conv
+    weights are empty placeholders (batch-norm and 1-D leaves kept), the
+    ``{name: (int8 OIHW, scale)}`` weights, and ``dequantise()`` the conv
+    weights of the children that ``truncate`` runs (the ones XLA keeps of
+    JAX's dequantised tree), int8 * scale in the compute dtype, made anew
+    at each call and handed to ``core.functional.call_with``: no
+    dequantised copy is kept."""
+    from ..nn.resnet import _STAGES
+    from ..nn.resnet_int8 import _quantize_kernel
+
+    run = {"conv1"} | {name for i, (name, _, _, _) in enumerate(_STAGES) if truncate > 4 + i}
+
+    quantised, memo = {}, {}
+    for name, w in enc.named_parameters():
+        if w.dim() != 4:
+            continue
+        hwio = w.detach().float().cpu().numpy().transpose(2, 3, 1, 0)
+        q, scale = _quantize_kernel(hwio)
+        quantised[name] = (  # OIHW stored channels_last, as the port's conv weights are
+            torch.from_numpy(q.transpose(3, 2, 0, 1)).to(w.device).contiguous(
+                memory_format=torch.channels_last),
+            torch.from_numpy(scale).to(w.device))
+        memo[id(w)] = torch.nn.Parameter(w.new_empty(0), requires_grad=False)
+    stored = copy.deepcopy(enc, memo).requires_grad_(False)
+
+    def dequantise():
+        out = {}
+        for name, (q, scale) in quantised.items():
+            if name.split(".")[0] not in run:
+                continue
+            k = q.float() * scale[:, None, None, None]
+            out[name] = k.to(compute_dtype) if compute_dtype is not None else k
+        return out
+
+    return stored, quantised, dequantise
+
+
+def _encoder_runner(model, truncate: int, compute_dtype: Optional[torch.dtype], remat: bool,
+                    weights_int8: bool, frozen: bool = False):
+    """``run(images, collect_grams) -> (feats, grams)`` over the family-2
+    encoder (a bf16 copy in bf16), or over its ``weights_int8`` form."""
+    from ..nn.resnet import resnet50_apply
+
+    enc = _encoder_in(model, compute_dtype)
+    if frozen:
+        enc = enc.requires_grad_(False)
+
+    def cast(images):
+        return images.to(compute_dtype) if compute_dtype is not None else images
+
+    if not weights_int8:
+        def run(images, collect_grams: bool):
+            return resnet50_apply(enc, cast(images), truncate=truncate,
+                                  collect_grams=collect_grams, remat=remat)
+
+        return run
+    stored, quantised, dequantise = _int8_encoder(enc, compute_dtype, truncate)
+
+    def run_int8(images, collect_grams: bool):
+        return call_with(stored, dequantise(), resnet50_apply, cast(images), truncate,
+                         collect_grams, None, remat)
+
+    run_int8.quantised = quantised
+    return run_int8
+
+
 def make_feature_fn_gram_attention(
     model,
     truncate_layer: int = 8,
     layers: Optional[int] = None,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
+    weights_int8: bool = False,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Truncated-encoder features ``images (B, H, W, 3) -> (B, h, w, C)``.
     ``layers`` truncates the encoder's child list like the reference's
     Sequential slice. In bf16 the encoder is a bf16 copy of the model's.
     ``remat`` checkpoints each bottleneck: the loop's backward recomputes
-    the blocks' insides instead of keeping them (JAX ``:165-211``)."""
-    from ..nn.resnet import resnet50_apply
+    the blocks' insides instead of keeping them (JAX ``:165-211``).
 
+    ``weights_int8`` (JAX ``:167-211``): the conv weights are stored as
+    per-output-channel int8 and an f32 scale and dequantised inside each
+    call (``_int8_encoder``). The loop optimises pixels only, so the
+    dequantised convs pass exact pixel gradients; the features move by the
+    weights' rounding (about 1e-3 relative), so a quantised loop runs
+    against its own targets. ``feature_fn.quantised`` holds the
+    ``{name: (int8 OIHW, scale)}`` weights. No CLI reaches it, as in JAX."""
     truncate = min(layers if layers is not None else truncate_layer, truncate_layer, 8)
-    enc = _encoder_in(model, compute_dtype)
+    run = _encoder_runner(model, truncate, compute_dtype, remat, weights_int8)
 
     def feature_fn(images):
-        if compute_dtype is not None:
-            images = images.to(compute_dtype)
-        feats, _ = resnet50_apply(enc, images, truncate=truncate, remat=remat)
-        return feats
+        return run(images, False)[0]
 
+    feature_fn.quantised = getattr(run, "quantised", None)
     return feature_fn
 
 
@@ -193,6 +271,7 @@ def make_extract_fn_gram_attention(
     compute_dtype: Optional[torch.dtype] = None,
     style_layers: str = "last",
     remat: bool = False,
+    weights_int8: bool = False,
 ) -> Callable[[torch.Tensor], tuple]:
     """Content+style extraction, one encoder pass: ``images (B, H, W, 3) ->
     (feats, [style Grams])``. ``style_layers="last"``: one Gram of the
@@ -204,19 +283,12 @@ def make_extract_fn_gram_attention(
     The encoder is frozen: its parameters stop requiring gradients, so a
     gradient through it (the loops' pixels, the fast-style net) computes no
     weight gradient. ``extract_fn.features(images)`` gives the features
-    alone, with no Gram taken. ``remat`` checkpoints each bottleneck."""
-    from ..nn.resnet import resnet50_apply
-
+    alone, with no Gram taken. ``remat`` checkpoints each bottleneck;
+    ``weights_int8`` as in ``make_feature_fn_gram_attention``."""
     if style_layers not in ("last", "all"):
         raise ValueError(f"style_layers must be 'last' or 'all', got {style_layers!r}")
     truncate = min(layers if layers is not None else truncate_layer, truncate_layer, 8)
-    enc = _encoder_in(model, compute_dtype).requires_grad_(False)
-
-    def encode(images, collect_grams: bool):
-        if compute_dtype is not None:
-            images = images.to(compute_dtype)
-        return resnet50_apply(enc, images, truncate=truncate, collect_grams=collect_grams,
-                              remat=remat)
+    encode = _encoder_runner(model, truncate, compute_dtype, remat, weights_int8, frozen=True)
 
     def extract_fn(images):
         feats, grams = encode(images, style_layers == "all")
@@ -225,6 +297,7 @@ def make_extract_fn_gram_attention(
         return feats, grams
 
     extract_fn.features = lambda images: encode(images, False)[0]
+    extract_fn.quantised = getattr(encode, "quantised", None)
     return extract_fn
 
 
@@ -234,16 +307,19 @@ def make_gram_fn_gram_attention(
     layers: Optional[int] = None,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
+    weights_int8: bool = False,
 ) -> Callable[[torch.Tensor], List[torch.Tensor]]:
     """Per-image target-Gram program: truncated encoder features -> one
     (C, C) Gram per image, in the encoder's dtype; ``remat`` checkpoints
-    each bottleneck."""
+    each bottleneck; ``weights_int8`` as in
+    ``make_feature_fn_gram_attention``."""
     feature_fn = make_feature_fn_gram_attention(model, truncate_layer, layers, compute_dtype,
-                                                remat)
+                                                remat, weights_int8)
 
     def gram_fn(images):
         return [gram_matrix_nhwc(feature_fn(images))]
 
+    gram_fn.quantised = feature_fn.quantised
     return gram_fn
 
 

@@ -45,7 +45,8 @@ from .train_loop import make_eval_step, make_train_step_accum, make_train_step_b
 class FamilySetup:
     """The steps built once; ``init(generator)`` gives a fold's fresh
     ``(model, opt_state)``; ``accum_step(n)`` the gradient-accumulation
-    step over the same forward, optimiser and augmentation."""
+    step and ``foldwise_step()`` the fold-parallel one over the same
+    forward, optimiser and augmentation."""
 
     def __init__(self, init_model: Callable, optimizer, train_step: Callable,
                  eval_step: Callable, forward_train: Callable, augment: Callable,
@@ -62,6 +63,15 @@ class FamilySetup:
     def init(self, generator: Optional[torch.Generator]):
         model = self._init_model(generator)
         return model, self.optimizer[0](model)
+
+    def foldwise_step(self) -> Callable:
+        """``--parallel_folds``: the step of every fold at once over the same
+        forward, optimiser, augmentation and mixing
+        (``parallel.foldparallel.make_foldwise_train_step``)."""
+        from ..parallel.foldparallel import make_foldwise_train_step
+
+        return make_foldwise_train_step(self._forward_train, self.optimizer, self._augment,
+                                        self._label_smoothing, self.mix_fn)
 
     def accum_step(self, n_accum: int) -> Callable:
         """``--grad_accum``: one optimiser update from ``n_accum``

@@ -179,12 +179,24 @@ def run_kfold(
     better earlier run's whose checkpoint stays on disk). ``early_stop=P``
     validates every epoch, stops a fold after P epochs without a new best
     validation loss and evaluates and saves the best epoch's weights.
-    Fold-parallel training (``foldwise_step``) is not ported yet."""
+    ``foldwise_step`` (``FamilySetup.foldwise_step``, ``--parallel_folds``)
+    trains every fold at once first (``parallel.foldparallel``), each fold
+    from its own init and loader as the sequential loop would; the fold
+    loop then evaluates and writes the artifacts. It excludes
+    ``early_stop``, ``resume`` and ``steps_per_dispatch`` > 1."""
     from ..utils.logging import StructuredLogger
     from .preemption import clear_preemption, install_sigterm_handler
 
+    if early_stop is not None and foldwise_step is not None:
+        raise ValueError(
+            "early stopping and fold-parallel training are exclusive: all "
+            "folds run as one SPMD program there, with no per-fold stop point"
+        )
     if foldwise_step is not None:
-        raise NotImplementedError("--parallel_folds (fold-parallel training) is not ported yet")
+        if resume:
+            raise ValueError("fold-parallel training does not support --resume")
+        if steps_per_dispatch > 1:
+            raise ValueError("fold-parallel training and --steps_per_dispatch are exclusive")
     os.makedirs(save_dir, exist_ok=True)
     logger = StructuredLogger(save_dir)
     split_seed = seed if kfold_random_state is None else kfold_random_state
@@ -251,81 +263,100 @@ def run_kfold(
     def _eval_model(m, o):
         return eval_variables_fn(m, o) if eval_variables_fn is not None else m
 
+    def make_train_loader(fold, train_idx) -> HostLoader:
+        # the augmentation product: each train sample x each combination
+        train_samples, combo_ids = [], []
+        for i in train_idx:
+            for c in range(combos_per_sample):
+                train_samples.append(dataset.samples[i])
+                combo_ids.append(c)
+        return HostLoader(train_samples, batch_size, combo_ids=combo_ids, shuffle=True,
+                          seed=seed + fold, draw_key=(seed, fold))
+
+    trained_folds = None
+    if foldwise_step is not None:
+        # every fold trained at once (see the docstring); the fold loop
+        # below then evaluates them and writes their artifacts
+        from ..parallel.foldparallel import train_folds_parallel
+
+        trained_folds = [init_fn(fold) for fold in range(k_folds)]
+        train_folds_parallel(  # writes each fold's trained state back in place
+            foldwise_step, [(m, o) for m, o, _, _ in trained_folds],
+            [make_train_loader(f, splits[f][0]) for f in range(k_folds)], epochs, writer=writer)
+
     try:
         for fold, (train_idx, val_idx) in enumerate(splits):
             if resume_fold is not None and fold < resume_fold:
                 continue  # done; its results were restored above
             print(f"FOLD {fold}")
             val_loader = HostLoader([dataset.samples[i] for i in val_idx], batch_size)
-            # the augmentation product: each train sample x each combination
-            train_samples, combo_ids = [], []
-            for i in train_idx:
-                for c in range(combos_per_sample):
-                    train_samples.append(dataset.samples[i])
-                    combo_ids.append(c)
-            train_loader = HostLoader(train_samples, batch_size, combo_ids=combo_ids,
-                                      shuffle=True, seed=seed + fold, draw_key=(seed, fold))
-            model, opt_state, train_step, eval_step = init_fn(fold)
-
-            stopper = None
-            if early_stop is not None:
-                from .early_stop import EarlyStopper
-
-                stopper = EarlyStopper(early_stop)
-            start_epoch = 0
-            if resume_state is not None and fold == resume_fold and resume_epochs > 0:
-                _restore(model, opt_state, resume_state)
-                start_epoch = resume_epochs
-                train_loader.set_epoch(start_epoch)
-                if stopper is not None and "es_best_loss" in resume_state:
-                    best_path = os.path.join(save_dir, _INPROGRESS_BEST)
-                    best_v = (load_pytree_npz(best_path)["variables"]
-                              if os.path.exists(best_path) else None)
-                    stopper.restore(resume_state, best_v)
-
-            on_epoch_end = None
-            if resume or stopper is not None:
-
-                def on_epoch_end(epoch, m, o, _fold=fold, _stopper=stopper,
-                                 _val_loader=val_loader, _eval_step=eval_step):
-                    stop = False
-                    if _stopper is not None:
-                        ev = _eval_model(m, o)
-                        r = evaluate(_eval_step, ev, _val_loader, num_classes, fold=_fold,
-                                     writer=writer, step=epoch)
-                        stop = _stopper.update(r["val_loss"], to_jax_tree(ev), epoch)
-                        if resume and _stopper.improved_last:
-                            # the best file before the counters: a crash in
-                            # between reruns this epoch and rewrites it
-                            save_pytree_npz({"variables": _stopper.best_variables},
-                                            os.path.join(save_dir, _INPROGRESS_BEST))
-                    if resume:
-                        tree = _inprogress_tree(
-                            m, o, _fold, epoch + 1, signature,
-                            _stopper.state_leaves() if _stopper is not None else None)
-                        path = os.path.join(save_dir, _INPROGRESS_STATE)
-                        if acw is not None:
-                            acw.submit(tree, path)
-                        else:
-                            save_pytree_npz(tree, path)
-                    if stop:
-                        print(f"Fold {_fold}: early stop after epoch {epoch + 1} (no val-loss "
-                              f"improvement in {_stopper.patience} epoch(s); best "
-                              f"{_stopper.best_loss:.4f} at epoch "
-                              f"{(_stopper.best_epoch or 0) + 1})")
-                    return stop
-
-            model, opt_state = train_epochs(
-                train_step, model, opt_state, train_loader, epochs, fold=fold, writer=writer,
-                steps_per_dispatch=steps_per_dispatch,
-                start_epoch=start_epoch, on_epoch_end=on_epoch_end, preemptible=resume)
-            if stopper is not None and stopper.best_variables is not None:
-                # the snapshot is already the evaluation model's (the EMA's)
-                load_jax_tree(model, stopper.best_variables)
-                print(f"Fold {fold}: restored best-epoch weights (epoch "
-                      f"{stopper.best_epoch + 1}, val loss {stopper.best_loss:.4f})")
-            else:
+            if trained_folds is not None:
+                model, opt_state, _, eval_step = trained_folds[fold]
+                trained_folds[fold] = None
                 model = _eval_model(model, opt_state)
+            else:
+                train_loader = make_train_loader(fold, train_idx)
+                model, opt_state, train_step, eval_step = init_fn(fold)
+
+                stopper = None
+                if early_stop is not None:
+                    from .early_stop import EarlyStopper
+
+                    stopper = EarlyStopper(early_stop)
+                start_epoch = 0
+                if resume_state is not None and fold == resume_fold and resume_epochs > 0:
+                    _restore(model, opt_state, resume_state)
+                    start_epoch = resume_epochs
+                    train_loader.set_epoch(start_epoch)
+                    if stopper is not None and "es_best_loss" in resume_state:
+                        best_path = os.path.join(save_dir, _INPROGRESS_BEST)
+                        best_v = (load_pytree_npz(best_path)["variables"]
+                                  if os.path.exists(best_path) else None)
+                        stopper.restore(resume_state, best_v)
+
+                on_epoch_end = None
+                if resume or stopper is not None:
+
+                    def on_epoch_end(epoch, m, o, _fold=fold, _stopper=stopper,
+                                     _val_loader=val_loader, _eval_step=eval_step):
+                        stop = False
+                        if _stopper is not None:
+                            ev = _eval_model(m, o)
+                            r = evaluate(_eval_step, ev, _val_loader, num_classes, fold=_fold,
+                                         writer=writer, step=epoch)
+                            stop = _stopper.update(r["val_loss"], to_jax_tree(ev), epoch)
+                            if resume and _stopper.improved_last:
+                                # the best file before the counters: a crash in
+                                # between reruns this epoch and rewrites it
+                                save_pytree_npz({"variables": _stopper.best_variables},
+                                                os.path.join(save_dir, _INPROGRESS_BEST))
+                        if resume:
+                            tree = _inprogress_tree(
+                                m, o, _fold, epoch + 1, signature,
+                                _stopper.state_leaves() if _stopper is not None else None)
+                            path = os.path.join(save_dir, _INPROGRESS_STATE)
+                            if acw is not None:
+                                acw.submit(tree, path)
+                            else:
+                                save_pytree_npz(tree, path)
+                        if stop:
+                            print(f"Fold {_fold}: early stop after epoch {epoch + 1} (no val-loss "
+                                  f"improvement in {_stopper.patience} epoch(s); best "
+                                  f"{_stopper.best_loss:.4f} at epoch "
+                                  f"{(_stopper.best_epoch or 0) + 1})")
+                        return stop
+
+                model, opt_state = train_epochs(
+                    train_step, model, opt_state, train_loader, epochs, fold=fold, writer=writer,
+                    steps_per_dispatch=steps_per_dispatch,
+                    start_epoch=start_epoch, on_epoch_end=on_epoch_end, preemptible=resume)
+                if stopper is not None and stopper.best_variables is not None:
+                    # the snapshot is already the evaluation model's (the EMA's)
+                    load_jax_tree(model, stopper.best_variables)
+                    print(f"Fold {fold}: restored best-epoch weights (epoch "
+                          f"{stopper.best_epoch + 1}, val loss {stopper.best_loss:.4f})")
+                else:
+                    model = _eval_model(model, opt_state)
             result = evaluate(eval_step, model, val_loader, num_classes, fold=fold,
                               writer=writer, step=max(epochs - 1, 0))
             fold_results.append(result)

@@ -17,7 +17,7 @@ in the same state, for evaluation (``--ema_decay``).
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,8 +58,9 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
     ``clip_norm`` scales the gradients by ``clip_norm / norm`` where their
     global norm exceeds it, as ``optax.clip_by_global_norm`` does.
 
-    ``ema_decay`` (the JAX ``param_ema``, timm ModelEmaV2 semantics with no
-    debias) adds ``"ema"``, a copy of the trainable parameters at init,
+    ``update.folds`` is the same update of K folds' stacked tensors
+    (``--parallel_folds``). ``ema_decay`` (the JAX ``param_ema``, timm
+    ModelEmaV2 semantics with no debias) adds ``"ema"``, a copy of the trainable parameters at init,
     and after each update ``ema <- decay * ema + (1 - decay) * p_new``.
     A frozen parameter never moves, so its average would be its init,
     which is its live value: the state keeps none for it. A decay outside
@@ -102,6 +103,41 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
                     [params[n] for n in state["ema"]], 1.0 - ema_decay))
         state["count"] = count + 1
 
+    def update_folds(params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+                     state: dict, active: Sequence[bool]) -> None:
+        """``update`` of K folds at once (``--parallel_folds``,
+        ``parallel/foldparallel.py``): ``params`` and ``grads`` by name and
+        the state's trace and EMA hold the folds' tensors stacked on a
+        leading axis, the state's ``"count"`` is the K folds' update counts
+        (the schedule's rate is each fold's own), and each fold's gradients
+        are clipped by their own global norm. A fold whose ``active`` entry
+        is False keeps its parameters, trace, EMA and count: a
+        zero-gradient step would still move its momentum."""
+        names = list(state["trace"])
+        counts = state["count"]
+        device = state["trace"][names[0]].device
+        lead = lambda t, like: t.reshape(-1, *([1] * (like.dim() - 1)))  # noqa: E731
+        lrs = torch.tensor([schedule(c) if schedule is not None else learning_rate
+                            for c in counts], dtype=torch.float64, device=device)
+        on_folds = torch.tensor(list(active), device=device)
+        with torch.no_grad():
+            gs = [grads[n] for n in names]
+            if clip_norm is not None:
+                norm = torch.sqrt(sum(torch.sum(g * g, dim=tuple(range(1, g.dim())))
+                                      for g in gs))
+                gs = [torch.where(lead(norm < clip_norm, g), g, g / lead(norm, g) * clip_norm)
+                      for g in gs]
+            for n, g in zip(names, gs):
+                trace, p, on = state["trace"][n], params[n], lead(on_folds, g)
+                new_trace = trace * momentum + g
+                p.copy_(torch.where(on, p + new_trace * lead(-lrs, g).to(g.dtype), p))
+                trace.copy_(torch.where(on, new_trace, trace))
+            for n, ema in state.get("ema", {}).items():
+                new = ema * ema_decay + params[n] * (1.0 - ema_decay)
+                ema.copy_(torch.where(lead(on_folds, ema), new, ema))
+        state["count"] = [c + int(a) for c, a in zip(counts, active)]
+
+    update.folds = update_folds
     return init, update
 
 

@@ -555,7 +555,8 @@ def test_pretrained_tensor_count_matches_jax(f1_checkpoint, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--zero1",), ("--parallel_folds",), ("--devices", "2"), ("--checkpoint_format", "orbax")])
+    ("--zero1",), ("--parallel_folds", "--devices", "2"), ("--devices", "2"),
+    ("--checkpoint_format", "orbax")])
 def test_unported_flags_raise(tiny_imagefolder, cfg_path, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(_args(tiny_imagefolder, cfg_path, tmp_path, *extra))
