@@ -126,7 +126,7 @@ Phases, all run every time:
                   instance_norm_fwd and 13 instance_norm_bwd under
                   "instance", plus each image's target forward); image 0
                   against the CPU from the same noise: the first-step
-                  pixel gradient, and a 20-iteration loop towards its Gram
+                  pixel gradient, and a 10-iteration loop towards its Gram
                   plus a seeded offset that makes Adam move the pixels
                   (every loss, and the pixels' change by RMS, within twice
                   the CPU loop's own spread from noise nudged by 1e-7;
@@ -168,7 +168,8 @@ Phases, all run every time:
                   gram_fwd and 4 gram_bwd, 15 instance_norm_fwd and 15
                   instance_norm_bwd), the loss on one batch falling
                   tenfold, the encoder frozen; one f32 step's loss and
-                  gradients against the CPU (relative L2 per leaf; the
+                  gradients on 4 of its images against the CPU (relative
+                  L2 per leaf; the
                   biases whose true gradient is zero held to rounding
                   noise); a 3-style conditional net's step through
                   train_multi_style against the CPU; the CLI on 8 PNGs
@@ -184,7 +185,8 @@ Phases, all run every time:
                   224² crops of 256² staged uint8, 4 classes, seeded
                   weights): one step's launches (3 pooled_gram_fwd and 3
                   pooled_gram_bwd; with the encoder frozen 3 and 0); one
-                  f32 step against the CPU's in float64 from the same
+                  f32 step on 8 rows of the batch against the CPU's in
+                  float64 from the same
                   weights (the loss, every gradient leaf by relative L2
                   within 5e-3 or twice the CPU's f32 step's own error on
                   it, the running statistics); the CLI on 96 PNGs, 2 folds, 2
@@ -201,8 +203,9 @@ Phases, all run every time:
                   weights) with the identity and all 25 (geometric,
                   colour) combinations: each of the ten transforms, and the
                   26-combination batch, on the card against the CPU on the
-                  same host-drawn parameters; one augmented f32 step
-                  against the CPU's in float64 (held as family2_train's);
+                  same host-drawn parameters; one augmented f32 step on 8
+                  rows against the CPU's in float64 (held as
+                  family2_train's);
                   the CLI on 24 PNGs, 2 folds, 2 epochs, --geom_aug
                   --color_aug with 2 transforms each, uninterrupted and
                   once stopped by a real SIGTERM and resumed, equal to it
@@ -215,7 +218,8 @@ Phases, all run every time:
                   10/70/150, ndf 64, 4 classes), b32, 224², norm "batch"
                   and "instance": one step's launches (13 instance_norm_fwd
                   and 13 instance_norm_bwd under "instance", none under
-                  "batch"); one f32 step under each norm against the CPU's;
+                  "batch"); one f32 step under each norm on 8 rows against
+                  the CPU's;
                   the CLI on 32 PNGs, 2 folds, 2 epochs, norm "instance",
                   with exact launches and the reference's artifacts
                   (model_fold_<k>, retrained_performance.json,
@@ -249,8 +253,8 @@ Phases, all run every time:
                   names gram_fwd and gram_bwd); --debug_nans clean, and
                   with a NaN weight a CLI process exiting with
                   FloatingPointError.
-  ema_mix         --ema_decay 0.999 --mixup 0.2 --cutmix 1.0: one b32
-                  family-2 step (truncate 7, S 7; a CutMix key) and one
+  ema_mix         --ema_decay 0.999 --mixup 0.2 --cutmix 1.0: one
+                  family-2 step on 8 rows (truncate 7, S 7; a CutMix key) and one
                   b8 family-3 step (norm "instance", --mixup alone)
                   against the CPU in float64 (the loss, every gradient and
                   every EMA leaf, the card's EMA its recurrence bit for
@@ -337,6 +341,23 @@ Phases, all run every time:
                   folds, one epoch, with and without the flag: weights
                   and losses, training launches the sequential count / 2;
                   the b32 steps' images/s both ways.
+  data_parallel   data-parallel training (``--devices N`` and ``--zero1``,
+                  ``core/mesh.py``, ``parallel/``): two gloo ranks spawned
+                  on the one card (``create_mesh(devices=[cuda:0] * 2)``,
+                  their collectives staged through host memory), family 2
+                  at full width (truncate 7, S 7, b32 global, K2 and K2')
+                  with and without --zero1 and family 3 (defaults, norm
+                  "instance", K3 and K3'), 3 steps each against one rank
+                  on the same global batches: losses and the parameter and
+                  running-statistics trees within 1e-4, the moves within
+                  PF_TOL_MOVE, or three times the one rank's own spread
+                  (its batches' rows reversed) where that is larger,
+                  ZeRO-1 within 1e-6 of plain data
+                  parallelism at half its state bytes a rank, exact
+                  launches on every rank; images/s and the collectives' ms
+                  a step from a profile; then one NCCL rank (a one-rank
+                  group on the card): one step equal to the plain step.
+                  These are not multi-card scaling numbers.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -440,6 +461,7 @@ B16_IN_SHAPES = [(16, 224, 224, 32), (16, 112, 112, 64), (16, 56, 56, 128)]
 # "instance", 13 instance_norm_fwd and 13 instance_norm_bwd; each image's
 # target forward 16 gram_fwd (and 13 instance_norm_fwd)
 F3_STYLE_IMAGES, F3_STYLE_ITERS, F3_STYLE_LR = 2, 20, 0.01
+F3_STYLE_CPU_ITERS = 10  # the card-vs-CPU loop on image 0
 # with seeded weights an image's own Gram gives a loss of about 1e-11 and a
 # pixel gradient near 1e-15, far below Adam's eps (1e-8): the pixels would
 # not move. The card-vs-CPU loop chases the image's Gram plus this many
@@ -480,6 +502,7 @@ CS_BATCH, CS_ITERS, CS_SERVE_ITERS, CS_SERVE_REQUESTS = 4, 20, 5, 8
 # 8 steps of train_fast_style on one batch, 10 timed steps; the
 # CLI at b4 over 8 images, 2 epochs
 FST_BATCH, FST_CROP, FST_STEPS, FST_TIMED, FST_CLI_BATCH = 16, 224, 8, 10, 4
+FST_CPU_ROWS = 4  # the card-vs-CPU step takes this many rows of the batch
 # one training step, card vs CPU (f32): the loss, relative; each gradient
 # leaf's relative L2 error, where a pre-ReLU activation within f32 rounding
 # of zero can switch a local part of the data gradient; and the noise of
@@ -514,6 +537,9 @@ F2T_LR = 0.01
 # the running statistics after the step, relative to each leaf's largest
 # entry
 F2T_TOL_LOSS, F2T_TOL_GRAD, F2T_TOL_STATS = 1e-4, 5e-3, 1e-4
+# the training phases' card-vs-CPU steps take this many rows of the b32
+# batch (the CPU's float64 step is the smoke's costliest host work)
+CPU_CHECK_ROWS = 8
 
 # family-1 training at full width: truncate 8, dim 256, the CLI's batch 32,
 # 224² crops of 256² staged uint8, 4 classes; the identity and all 5 x 5
@@ -628,6 +654,24 @@ ND_IMAGES, ND_SIZE, ND_BATCH, ND_EPOCHS = 256, (480, 640), 32, 3
 # same code to 1e-12 in float64
 PF_K, PF_BATCH, PF_PER_CLASS, PF_TIMED = 2, 32, 32, 5
 PF_TOL_OP, PF_TOL_MOVE, PF_TOL_LOSS = 1e-5, 1e-2, 2e-4
+# data_parallel: DP_RANKS gloo ranks on the one card against one rank,
+# DP_STEPS steps of the b{DP_BATCH} global batch a run, whose halves (one a
+# rank) are dark and bright, so statistics of one rank's rows would miss.
+# After the first step the loss and the parameter and statistics trees
+# (values, whole-tree relative L2) lie within DP_TOL of one rank's and the
+# moves from the init within PF_TOL_MOVE; after DP_STEPS steps the losses
+# and trees within DP_TOL, the moves within PF_TOL_MOVE (the CPU tests hold
+# the same code to 1e-10 in float64), ZeRO-1 within
+# DP_TOL_ZERO1 of plain data parallelism (the same ops under cuDNN's
+# deterministic algorithms); the ranks' start and runs within DP_TIMEOUT_S
+DP_RANKS, DP_BATCH, DP_STEPS, DP_LR = 2, 32, 3, 0.01
+DP_TOL, DP_TOL_ZERO1, DP_TIMEOUT_S = 1e-4, 1e-6, 240
+# ...or, after DP_STEPS steps, within DP_SPREAD times the one rank's own
+# spread where that is larger: the same run on each batch's rows reversed (the same sums in
+# another order). Family 2's f32 steps are chaotic at these weights: on
+# the CPU one device alone, 4 threads against 1, ends 3 steps with its
+# moves 0.18 apart and its statistics 8.6e-4 (the layer-1 batch norms)
+DP_SPREAD = 3.0
 
 
 def _require(ok: bool, what: str) -> None:
@@ -2228,7 +2272,7 @@ def phase_family3_style_transfer(kernels, family3, timings: dict, tmp: str) -> d
     norm "batch", f32 at norm "instance"; 2 images of 20 iterations at
     threshold 0. Checks every launch count, then image 0 again on the card
     and on the CPU from the same noise: the first step's pixel gradient,
-    and a loop of 20 iterations towards the image's Gram plus an offset
+    and a loop of F3_STYLE_CPU_ITERS iterations towards the image's Gram plus an offset
     that makes the pixels move (every iteration's loss, and the pixels'
     change); and the device idle share over 5 profiled iterations."""
     import numpy as np
@@ -2301,7 +2345,7 @@ def phase_family3_style_transfer(kernels, family3, timings: dict, tmp: str) -> d
                 loss = torch.mean(torch.square(fn(nz)[0] - tg[0]), dim=(1, 2)).sum()
                 (grads[side],) = torch.autograd.grad(loss, nz)
             h = []
-            final = make_style_transfer_optimizer(fn, F3_STYLE_LR, iters, 0.0)(
+            final = make_style_transfer_optimizer(fn, F3_STYLE_LR, F3_STYLE_CPU_ITERS, 0.0)(
                 start.to(dev), [tg[0] + offset.to(dev)], h)[0]
             moves[side] = final.cpu() - start
             losses[side] = torch.stack([p.cpu() for p in h])
@@ -2340,7 +2384,8 @@ def phase_family3_style_transfer(kernels, family3, timings: dict, tmp: str) -> d
                  f"(against the CPU's f32 loop: gradient card {g32_errs['card']}, CPU "
                  f"{g32_errs['cpu']}; pixel change card {move32_errs['card']}, CPU "
                  f"{move32_errs['cpu']}; tol 1.5x the CPU's RMS)")
-              + f", all {iters} losses rel {loss_err:.3e} (tol {TOL_MODEL[name][0]}); "
+              + f", all {F3_STYLE_CPU_ITERS} losses rel {loss_err:.3e} (tol "
+              f"{TOL_MODEL[name][0]}); "
               f"CPU loops and gradients {t_cpu:.1f} s")
         print(f"[family3_style_transfer] norm {norm} {name}: {ips:.2f} image-iterations/s, "
               f"device idle share {prof['idle_share']:.3f} over 5 profiled iterations "
@@ -3012,19 +3057,20 @@ def phase_fast_style_train(kernels, model, seeded, tmp: str, timings: dict) -> d
             targets = encode_style_grams(extract, style_u8, FST_CROP, DEVICE)
             t0 = time.perf_counter()
             cpu_targets = encode_style_grams(cpu_extract, style_u8, FST_CROP, "cpu")
-            loss_cpu, g_cpu = _train_grads(cpu_extract, net_cpu, ab[0], cpu_targets, None, None)
+            rows = ab[0][:FST_CPU_ROWS]
+            loss_cpu, g_cpu = _train_grads(cpu_extract, net_cpu, rows, cpu_targets, None, None)
             # the CPU's own spread: the same step from weights nudged by
             # FST_NUDGE, about the card's distance from the CPU in the loss
             gen = torch.Generator().manual_seed(46)
             with torch.no_grad():
                 for p in net_cpu.parameters():
                     p.mul_(1 + FST_NUDGE * torch.randn(p.shape, generator=gen))
-            _, g_nudged = _train_grads(cpu_extract, net_cpu, ab[0], cpu_targets, None, None)
+            _, g_nudged = _train_grads(cpu_extract, net_cpu, rows, cpu_targets, None, None)
             t_cpu = time.perf_counter() - t0
             spread = _grads_vs_cpu(g_nudged, g_cpu)[0]
             tol_grad = max(FST_TOL_GRAD, 2 * spread)
             card, _ = _net_pair(41)
-            loss_card, g_card = _train_grads(extract, card, ab[0], targets, None, None)
+            loss_card, g_card = _train_grads(extract, card, rows, targets, None, None)
             worst, noise, finite = _grads_vs_cpu(g_card, g_cpu)
             rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
             print(f"[fast_style_train] one f32 step, card vs CPU ({t_cpu:.1f} s on the CPU): "
@@ -3379,9 +3425,17 @@ def _step_vs_cpu(tag: str, make_model, forward, augment, u8, labels, combos=None
     (``zero_grad``) by its largest entry against the largest gradient entry
     (FST_TOL_NOISE); the running statistics after the forward.
     ``step_grads`` (default ``_step_grads``, same arguments and results)
-    takes the step another way: ``_mixed_step``'s."""
+    takes the step another way: ``_mixed_step``'s. Both sides take
+    CPU_CHECK_ROWS rows of the batch, its last (the pad entry where it has
+    one) among them."""
+    import numpy as np
     import torch
 
+    if len(labels) > CPU_CHECK_ROWS:
+        rows = np.r_[0:CPU_CHECK_ROWS - 1, len(labels) - 1]
+        u8, labels = u8[rows], labels[rows]
+        combos = combos[rows] if combos is not None else None
+        draws = draws[rows] if draws is not None else None
     t0 = time.perf_counter()
     card = make_model(DEVICE)
     ref, f32 = make_model("cpu"), make_model("cpu")
@@ -4619,9 +4673,9 @@ def phase_auto_batch(kernels, tmp: str, timings: dict) -> dict:
     probes, first = {}, {}
     real_probe, real_epochs = autotune.train_step_peak_bytes, kfold.train_epochs
 
-    def probe(setup, batch, canvas, device):
+    def probe(setup, batch, canvas, device, mesh=None):
         t0 = time.perf_counter()
-        peak = real_probe(setup, batch, canvas, device)
+        peak = real_probe(setup, batch, canvas, device, mesh=mesh)
         probes[batch] = {"peak_bytes": peak, "seconds": time.perf_counter() - t0}
         return peak
 
@@ -6405,9 +6459,382 @@ def phase_parallel_folds(kernels, tmp: str, timings: dict) -> dict:
     return out
 
 
+def _dp_runs(mesh, profile: bool = False, reverse: bool = False,
+             names=("f2", "f2_zero1", "f3_instance")) -> dict:
+    """The data_parallel phase's runs on ``mesh`` (None: one rank): family
+    2 (truncate 7, S 7) plain and under ZeRO-1, family 3 (defaults,
+    "instance"), DP_STEPS f32 steps each from the same seeded weights on
+    this rank's rows of the same global batches (one pad entry in the
+    first), under cuDNN's deterministic algorithms. Each run: the global
+    losses, the tree after the first step and the final one (JAX layout),
+    the launches, the steps' seconds;
+    with ``profile`` one more step of the plain family-2 run under the
+    profiler (every rank runs it: it has collectives) and its collectives'
+    host ms. ``reverse`` (one rank) takes each batch's rows in reverse
+    order: the same sums in another order, the one-rank run's own f32
+    reduction-order spread."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.config.schema import (
+        GramAttentionConfig,
+        MultiPatchGANConfig,
+    )
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.train.factories import (
+        setup_gram_attention,
+        setup_multi_patchgan,
+    )
+
+    rng = np.random.RandomState(110)
+    half = (DP_BATCH // 2, 256, 256, 3)
+    u8 = [np.concatenate([rng.randint(0, 90, half), rng.randint(160, 256, half)]).astype(np.uint8)
+          for _ in range(DP_STEPS + 1)]
+    labels = [rng.randint(0, 4, (DP_BATCH,)).astype(np.int32) for _ in range(DP_STEPS + 1)]
+    labels[0][-1] = -1
+    if reverse:
+        u8, labels = [x[::-1].copy() for x in u8], [y[::-1].copy() for y in labels]
+    local = (lambda x: x) if mesh is None else mesh.local  # noqa: E731
+    combos = [(None, None)]
+    runs = {}
+    with _deterministic_cudnn():
+        for name in names:
+            if name.startswith("f2"):
+                cfg = GramAttentionConfig(batch_size=DP_BATCH, lr=DP_LR,
+                                          truncate_layer=F2T_TRUNCATE, gram_matrix_size=F2T_S,
+                                          seed=0)
+                setup = setup_gram_attention(cfg, 4, combos, device=DEVICE, mesh=mesh,
+                                             zero1=name.endswith("zero1"))
+            else:
+                cfg = MultiPatchGANConfig(batch_size=DP_BATCH, lr=DP_LR, norm="instance", seed=0)
+                setup = setup_multi_patchgan(cfg, 4, combos, device=DEVICE, mesh=mesh)
+            model, opt = setup.init(torch.Generator().manual_seed(111))
+            init = to_jax_tree(model)
+            losses, seconds = [], []
+            kernels.reset_launch_counts()
+            for i in range(DP_STEPS):
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, opt, loss = setup.train_step(model, opt, local(u8[i]), local(labels[i]))
+                losses.append(float(loss))  # the global loss: a sync
+                seconds.append(time.perf_counter() - t0)
+                if i == 0:
+                    first = to_jax_tree(model)
+            launches = kernels.launch_counts()
+            run = {"losses": losses, "seconds": seconds, "launches": launches,
+                   "init": init, "tree1": first, "tree": to_jax_tree(model)}
+            if "zero1" in opt:
+                split, repl = opt["zero1"].state_bytes(opt["trace"])
+                whole = sum(t.numel() * t.element_size() for t in opt["trace"].values())
+                run["state_bytes"] = {"rank_split": split, "rank_replicated": repl,
+                                      "rank_total": split + repl,
+                                      "replicated_state": whole if mesh is None else None}
+            elif name == "f2":
+                run["state_bytes"] = {"rank_total": sum(
+                    t.numel() * t.element_size() for t in opt["trace"].values())}
+            if profile and name == "f2":
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as torch_profile
+
+                activities = [ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    activities.append(ProfilerActivity.CUDA)
+                with torch_profile(activities=activities) as prof:
+                    model, opt, loss = setup.train_step(model, opt, local(u8[DP_STEPS]),
+                                                        local(labels[DP_STEPS]))
+                    float(loss)
+                coll = {}
+                for e in prof.key_averages():  # a CPU and a device entry a key
+                    if e.key.startswith("hst_dp::"):
+                        coll[e.key] = coll.get(e.key, 0.0) + e.cpu_time_total / 1e3
+                run["collectives_ms"] = coll
+                busy = sum(e.self_device_time_total for e in prof.key_averages()
+                           if e.device_type.name == "CUDA") / 1e3
+                run["profiled_step_device_busy_ms"] = busy
+            runs[name] = run
+            del model, opt, setup
+    return runs
+
+
+def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """A spawned gloo rank of the data_parallel phase on card 0: the runs of
+    ``_dp_runs`` on its mesh, then its results (rank 0's trees, every
+    rank's losses, launches, seconds and a checksum of each tree) in
+    ``out_dir``."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import save_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.core.device import resolve_device
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import create_mesh
+    from heuristique_style_transfer_code_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    t0 = time.perf_counter()
+    resolve_device(DEVICE)
+    initialize_distributed(rank, world, init_method, backend="gloo")
+    try:
+        card = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+        mesh = create_mesh(world, devices=[card] * world)
+        start_s = time.perf_counter() - t0
+        runs = _dp_runs(mesh, profile=True)
+        trees = {"final": {}, "step1": {}}
+        for name, run in runs.items():
+            run.pop("init")
+            trees["step1"][name] = run.pop("tree1")
+            tree = run.pop("tree")
+            trees["final"][name] = tree
+            run["checksum"] = float(sum(np.float64(np.sum(v, dtype=np.float64))
+                                        for v in _flat_tree(tree).values()))
+        if rank == 0:
+            save_pytree_npz(trees, os.path.join(out_dir, "rank0_trees.npz"))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "world": world, "backend": "gloo",
+                       "staged_on_host": mesh.stage_on_host, "start_s": start_s,
+                       "runs": runs}, f, default=str)
+    finally:
+        shutdown_distributed()
+
+
+def _flat_tree(tree, prefix: str = "") -> dict:
+    """{path: numpy leaf} of a JAX-layout tree (None leaves dropped)."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tree(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_tree(v, f"{prefix}/{i}"))
+        return out
+    return {} if tree is None else {prefix: np.asarray(tree)}
+
+
+def _tree_gaps(got, want, init) -> dict:
+    """Whole-tree relative L2 gaps of the parameters and of the batch-norm
+    statistics (values), and of the parameters' moves from ``init``, and
+    the worst move gap of a leaf that moved (printed, not gated)."""
+    import numpy as np
+
+    g, w, i = _flat_tree(got), _flat_tree(want), _flat_tree(init)
+    _require(g.keys() == w.keys(), "the two runs' trees have the same leaves")
+    stats = [k for k in w if k.endswith(("/mean", "/var"))]
+    params = [k for k in w if k not in stats]
+
+    def rel(keys, f):
+        num = sum(float(np.sum(np.square(f(g[k], k) - f(w[k], k)))) for k in keys)
+        den = sum(float(np.sum(np.square(f(w[k], k)))) for k in keys)
+        return float(np.sqrt(num / max(den, 1e-300)))
+
+    value = lambda a, k: a.astype(np.float64)  # noqa: E731
+    move = lambda a, k: a.astype(np.float64) - i[k]  # noqa: E731
+    total = np.sqrt(sum(float(np.sum(np.square(move(w[k], k)))) for k in params))
+    moved = [k for k in params  # a bias ahead of a norm has no gradient and moves by rounding
+             if np.linalg.norm(move(w[k], k)) > 1e-4 * total] or params
+    worst = max(moved, key=lambda k: rel([k], move))
+    return {"params": rel(params, value), "stats": rel(stats, value) if stats else 0.0,
+            "moves": rel(params, move), "worst_leaf": worst,
+            "worst_leaf_move": rel([worst], move)}
+
+
+def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
+    """Data-parallel training on the one card (see the module docstring):
+    (a) the one-rank runs of ``_dp_runs`` here; (b) DP_RANKS gloo ranks
+    spawned on card 0 (``parallel.multihost.launch``, ``_dp_rank``), held
+    to (a) and ZeRO-1 to plain data parallelism, with each rank's launches,
+    state bytes, images/s and collectives' ms; (c) one NCCL rank here (a
+    one-rank group: the data-parallel path with real collectives), one
+    family-3 "instance" step bit-equal to the plain step and one family-2
+    step within DP_TOL."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.io import load_pytree_npz
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import create_mesh
+    from heuristique_style_transfer_code_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    out = {"power": smi}
+    one = _dp_runs(None)
+    spread = _dp_runs(None, reverse=True, names=("f2", "f3_instance"))
+    t0 = time.perf_counter()
+    dp_dir = os.path.join(tmp, "data_parallel")
+    os.makedirs(dp_dir, exist_ok=True)
+    multihost.launch(DP_RANKS, None, [], target=_dp_rank, target_args=(dp_dir,),
+                     rendezvous_dir=tmp, deadline_s=DP_TIMEOUT_S)
+    out["spawn_and_runs_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(dp_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    saved = load_pytree_npz(os.path.join(dp_dir, "rank0_trees.npz"))
+    trees, trees1 = saved["final"], saved["step1"]
+    stages = F2T_TRUNCATE - 4
+    want_launches = {"f2": {"pooled_gram_fwd": stages * DP_STEPS,
+                            "pooled_gram_bwd": stages * DP_STEPS},
+                     "f3_instance": {"instance_norm_fwd": F3_NORMS * DP_STEPS,
+                                     "instance_norm_bwd": F3_NORMS * DP_STEPS}}
+    want_launches["f2_zero1"] = want_launches["f2"]
+    print(f"[data_parallel] backend gloo, world size {DP_RANKS}, both ranks on cuda:0, "
+          f"collectives staged through host memory: {ranks[0]['staged_on_host']}; spawn, "
+          f"start and runs {out['spawn_and_runs_s']:.1f} s ({smi})")
+    launches_total = {k: 0 for k in kernels.launch_counts()}
+    for name in ("f2", "f2_zero1", "f3_instance"):
+        ref = one[name]
+        r0 = ranks[0]["runs"][name]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"]))
+        gaps = _tree_gaps(trees[name], ref["tree"], ref["init"])
+        gaps1 = _tree_gaps(trees1[name], ref["tree1"], ref["init"])
+        gaps1["loss"] = abs(r0["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+        other = spread[name.replace("_zero1", "")]
+        own = _tree_gaps(other["tree"], ref["tree"], ref["init"])
+        own["loss"] = max(abs(a - b) / abs(b) for a, b in zip(other["losses"], ref["losses"]))
+        own1 = _tree_gaps(other["tree1"], ref["tree1"], ref["init"])
+        limit1_moves = max(PF_TOL_MOVE, DP_SPREAD * own1["moves"])
+        limit = {k: max(DP_TOL if k != "moves" else PF_TOL_MOVE, DP_SPREAD * own[k])
+                 for k in ("loss", "params", "stats", "moves")}
+        same = all(rk["runs"][name]["losses"] == r0["losses"]
+                   and rk["runs"][name]["checksum"] == r0["checksum"] for rk in ranks)
+        per_rank = [rk["runs"][name]["launches"] for rk in ranks]
+        want = {k: 0 for k in per_rank[0]}
+        want.update(want_launches[name])
+        for rk_launches in per_rank:
+            for k, v in rk_launches.items():
+                launches_total[k] += v
+        step_s = r0["seconds"][1:]
+        ips = DP_BATCH * len(step_s) / sum(step_s)
+        one_ips = DP_BATCH * len(step_s) / sum(ref["seconds"][1:])
+        print(f"[data_parallel] {name}, first step against one rank: loss {gaps1['loss']:.2e}, "
+              f"params {gaps1['params']:.2e}, stats {gaps1['stats']:.2e} (tol {DP_TOL}), moves "
+              f"{gaps1['moves']:.2e} (tol {limit1_moves:.2e}; worst leaf {gaps1['worst_leaf']} "
+              f"{gaps1['worst_leaf_move']:.2e}); one rank's own spread (rows reversed): params "
+              f"{own1['params']:.2e}, stats {own1['stats']:.2e}, moves {own1['moves']:.2e}")
+        print(f"[data_parallel] {name}: losses {r0['losses']} (one rank {ref['losses']}, "
+              f"worst {loss_gap:.2e}); trees vs one rank: params {gaps['params']:.2e}, stats "
+              f"{gaps['stats']:.2e}, moves {gaps['moves']:.2e} (worst leaf "
+              f"{gaps['worst_leaf']} {gaps['worst_leaf_move']:.2e}); one rank's own spread "
+              f"(rows reversed): loss {own['loss']:.2e}, params {own['params']:.2e}, stats "
+              f"{own['stats']:.2e}, moves {own['moves']:.2e}; ranks equal {same}; "
+              f"launches per rank {per_rank}; {ips:.1f} images/s global over steps 2-"
+              f"{DP_STEPS} (one rank {one_ips:.1f}) ({smi})")
+        _require(all(gaps1[k] <= DP_TOL for k in ("loss", "params", "stats"))
+                 and gaps1["moves"] <= limit1_moves,
+                 f"data-parallel {name}'s first step within {DP_TOL} of one rank's")
+        _require(loss_gap <= limit["loss"] and all(gaps[k] <= limit[k]
+                                                   for k in ("params", "stats", "moves")),
+                 f"data-parallel {name} within tolerance of one rank: {limit}")
+        _require(same, f"every rank ends {name} with the same losses and weights")
+        _require(all(rl == want for rl in per_rank),
+                 f"each rank's launches in {name}: {per_rank} (want {want})")
+        out[name] = {"losses": r0["losses"], "one_rank_losses": ref["losses"],
+                     "loss_gap": loss_gap, **gaps, "first_step": gaps1,
+                     "first_step_spread": own1,
+                     "one_rank_spread": own, "limit": limit,
+                     "launches_per_rank": per_rank,
+                     "images_per_s": ips, "one_rank_images_per_s": one_ips,
+                     "state_bytes": r0.get("state_bytes"),
+                     "one_rank_state_bytes": ref.get("state_bytes")}
+    z = _tree_gaps(trees["f2_zero1"], trees["f2"], one["f2"]["init"])
+    zb = ranks[0]["runs"]["f2_zero1"]["state_bytes"]
+    whole = one["f2"]["state_bytes"]["rank_total"]
+    print(f"[data_parallel] ZeRO-1 against plain data parallelism: params {z['params']:.2e}, "
+          f"moves {z['moves']:.2e}; a rank's momentum {zb['rank_total'] / 2**20:.2f} MiB "
+          f"({zb['rank_replicated'] / 2**20:.3f} MiB of it replicated) of "
+          f"{whole / 2**20:.2f} MiB replicated")
+    _require(z["params"] <= DP_TOL_ZERO1 and z["moves"] <= DP_TOL_ZERO1,
+             "ZeRO-1 equals plain data parallelism")
+    _require(zb["rank_split"] <= (whole - zb["rank_replicated"]) / DP_RANKS,
+             "ZeRO-1 keeps 1/N of the split leaves a rank")
+    out["zero1_vs_dp"] = z
+    f2r0 = ranks[0]["runs"]["f2"]
+    coll = f2r0.get("collectives_ms", {})
+    print(f"[data_parallel] one profiled family-2 b{DP_BATCH} step on rank 0, the collectives' "
+          f"host ms (gloo, staged through host memory, waits for the other rank included): "
+          f"{ {k: round(v, 3) for k, v in coll.items()} }; the step's device busy "
+          f"{f2r0.get('profiled_step_device_busy_ms', 0.0):.3f} ms, the timed steps "
+          f"{[round(x * 1e3, 1) for x in f2r0['seconds']]} ms ({smi})")
+    out["collectives_ms"] = coll
+    out["profiled_step_device_busy_ms"] = f2r0.get("profiled_step_device_busy_ms")
+    out["ranks_start_s"] = [rk["start_s"] for rk in ranks]
+
+    # (c) one NCCL rank: the data-parallel path with NCCL's collectives
+    from heuristique_style_transfer_code_tpu_torch.config.schema import (
+        GramAttentionConfig,
+        MultiPatchGANConfig,
+    )
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.train.factories import (
+        setup_gram_attention,
+        setup_multi_patchgan,
+    )
+
+    rng = np.random.RandomState(112)
+    u8 = rng.randint(0, 256, (DP_BATCH, 256, 256, 3)).astype(np.uint8)
+    labels = rng.randint(0, 4, (DP_BATCH,)).astype(np.int32)
+    multihost.initialize_distributed(0, 1, "file://" + os.path.join(tmp, "nccl_rendezvous"),
+                                     backend="nccl")
+    try:
+        mesh = create_mesh(1)
+        nccl = {}
+        kernels.reset_launch_counts()
+        with _deterministic_cudnn():
+            for name in ("f3_instance", "f2"):
+                result = []
+                for m in (None, mesh):
+                    if name == "f2":
+                        cfg = GramAttentionConfig(batch_size=DP_BATCH, lr=DP_LR,
+                                                  truncate_layer=F2T_TRUNCATE,
+                                                  gram_matrix_size=F2T_S, seed=0)
+                        setup = setup_gram_attention(cfg, 4, [(None, None)], device=DEVICE,
+                                                     mesh=m)
+                    else:
+                        cfg = MultiPatchGANConfig(batch_size=DP_BATCH, lr=DP_LR,
+                                                  norm="instance", seed=0)
+                        setup = setup_multi_patchgan(cfg, 4, [(None, None)], device=DEVICE,
+                                                     mesh=m)
+                    model, opt = setup.init(torch.Generator().manual_seed(113))
+                    init = to_jax_tree(model)
+                    model, opt, loss = setup.train_step(model, opt, u8, labels)
+                    result.append((float(loss), to_jax_tree(model)))
+                (plain_loss, plain), (dp_loss, dp) = result
+                gaps = _tree_gaps(dp, plain, init)
+                diff = [k for k, v in _flat_tree(plain).items()
+                        if not np.array_equal(v, _flat_tree(dp)[k])]
+                nccl[name] = {"loss": dp_loss, "plain_loss": plain_loss, **gaps,
+                              "leaves_differ": len(diff)}
+                print(f"[data_parallel] one NCCL rank (backend {mesh.backend}), {name}: loss "
+                      f"{dp_loss} against the plain step's {plain_loss}; params "
+                      f"{gaps['params']:.2e}, stats {gaps['stats']:.2e}, {len(diff)} leaves "
+                      "differ")
+                if name == "f3_instance":  # no batch norm: the same ops, sums of one rank
+                    _require(not diff and dp_loss == plain_loss,
+                             "one NCCL rank's family-3 step equals the plain step")
+                else:
+                    _require(abs(dp_loss - plain_loss) <= DP_TOL * abs(plain_loss)
+                             and gaps["params"] <= DP_TOL and gaps["stats"] <= DP_TOL,
+                             "one NCCL rank's family-2 step within DP_TOL of the plain step")
+        for k, v in kernels.launch_counts().items():
+            launches_total[k] += v
+    finally:
+        multihost.shutdown_distributed()
+    out["nccl"] = nccl
+    out["launches"] = launches_total
+    timings["data_parallel_phase_s"] = time.perf_counter() - t_phase
+    print(f"[data_parallel] {timings['data_parallel_phase_s']:.2f} s in all")
+    return out
+
+
 def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
     """``--only a,b``: the named later phases alone (artifact, style_int8,
-    native_decode, parallel_folds), their results in
+    native_decode, parallel_folds, data_parallel), their results in
     ``chiprun_out/chip_smoke_only.json``; no result line."""
     import torch
 
@@ -6420,7 +6847,7 @@ def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
         gram_attention_init,
     )
 
-    known = ("artifact", "style_int8", "native_decode", "parallel_folds")
+    known = ("artifact", "style_int8", "native_decode", "parallel_folds", "data_parallel")
     _require(set(phases) <= set(known), f"--only takes {known}: {phases}")
     out, timings = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6437,6 +6864,8 @@ def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
                 out[phase] = phase_style_int8(kernels, model, seeded, timings)
             elif phase == "native_decode":
                 out[phase] = phase_native_decode(tmp, timings)
+            elif phase == "data_parallel":
+                out[phase] = phase_data_parallel(kernels, tmp, timings, smi)
             else:
                 out[phase] = phase_parallel_folds(kernels, tmp, timings)
             print(f"[{phase}] {time.perf_counter() - t0:.2f} s")
@@ -6474,6 +6903,7 @@ def main() -> int:
     from heuristique_style_transfer_code_tpu_torch.ops.kernels import gram as kg
     from heuristique_style_transfer_code_tpu_torch.ops.kernels import instance_norm as kin
 
+    t_start = time.perf_counter()
     resolve_device("cuda")  # f32 stays f32: no TF32 in cuDNN or cuBLAS
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -6595,6 +7025,7 @@ def main() -> int:
         print(f"[style_int8+native_decode+parallel_folds] {timings['style_int8_phase_s']:.2f} + "
               f"{timings['native_decode_phase_s']:.2f} + "
               f"{timings['parallel_folds_phase_s']:.2f} s")
+        data_parallel = phase_data_parallel(kernels, tmp, timings, smi)
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
@@ -6618,7 +7049,7 @@ def main() -> int:
                 + remat["launches"]["instance_norm_bwd"]
                 + f3_serve["launches"]["instance_norm_bwd"]
                 + ema_mix["launches"]["instance_norm_bwd"]}
-    for part in (artifact, style_int8, parallel):
+    for part in (artifact, style_int8, parallel, data_parallel):
         for k, v in part["launches"].items():
             launches[k] += v
     idle = [k for k in launches if launches[k] == 0]
@@ -6646,6 +7077,7 @@ def main() -> int:
             **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
         })
+    timings["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"device": name, "power": smi, "rows": rows, "timings": timings,
@@ -6659,8 +7091,10 @@ def main() -> int:
                    "grad_accum": accum, "profile_debug": profile_debug, "ema_mix": ema_mix,
                    "auto_batch": auto_batch, "int8": int8, "serve": serving,
                    "recycle": recycle, "artifact": artifact, "style_int8": style_int8,
-                   "native_decode": native_decode, "parallel_folds": parallel}, f, indent=1,
+                   "native_decode": native_decode, "parallel_folds": parallel,
+                   "data_parallel": data_parallel}, f, indent=1,
                   default=str)
+    print(f"[chip_smoke] {timings['total_s']:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

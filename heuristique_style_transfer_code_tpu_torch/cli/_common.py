@@ -197,11 +197,16 @@ def weighted_auc_or_none(labels, probs, branch_on: str = "labels"):
 
 
 def add_device_args(parser, precisions=("float32", "bf16")) -> None:
-    """The JAX CLIs' ``add_tpu_args`` flags (``--devices`` parses but is
-    not ported yet) plus ``--device``."""
+    """The JAX CLIs' ``add_tpu_args`` flags plus ``--device``. ``--devices``
+    runs data-parallel training on the train CLIs (``build_mesh``); the
+    evaluation and serving CLIs still refuse a value other than 1."""
     parser.add_argument("--precision", choices=list(precisions), default="float32",
                         help="Compute precision policy")
-    parser.add_argument("--devices", type=int, default=None, help="Not ported yet")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="Number of devices for the data-parallel mesh (default: all on "
+                        "train CLIs, 1 on eval CLIs; one process a device: NCCL between "
+                        "cards, gloo on the CPU, where --devices N starts N processes; "
+                        "eval and serve CLIs: not ported yet)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of the run to this directory")
     parser.add_argument("--debug_nans", action="store_true",
@@ -267,7 +272,11 @@ def add_train_args(parser) -> None:
     parser.add_argument("--async_checkpoint", action="store_true",
                         help="With --resume: write the per-epoch in-progress checkpoint in "
                         "a background thread (a host copy at submit; the same atomic file)")
-    parser.add_argument("--zero1", action="store_true", help="Not ported yet")
+    parser.add_argument("--zero1", action="store_true",
+                        help="ZeRO-1 optimiser-state sharding: store the SGD momentum (and the "
+                        "EMA) 1/N over the --devices data mesh (grads reduce-scattered into the "
+                        "shards, params all-gathered). Same numerics as replicated state; no "
+                        "effect on a single device")
     parser.add_argument("--remat", action="store_true",
                         help="Recompute block-internal activations in the backward "
                         "(torch.utils.checkpoint per bottleneck / per discriminator unit): the "
@@ -324,26 +333,89 @@ def add_train_args(parser) -> None:
                         "artifacts then describe the best epoch's weights")
 
 
-# the train flags this port does not run yet -> their defaults: ZeRO-1
-# shards the optimiser state over several cards (data-parallel training is
-# not ported yet); orbax checkpoints need orbax.checkpoint, which imports jax
+# the train flags this port does not run yet -> their defaults: orbax
+# checkpoints need orbax.checkpoint, which imports jax
 TRAIN_NOT_PORTED = {
-    "zero1": False,
     "checkpoint_format": "npz",
 }
 
 
 def check_train_ported(args) -> None:
-    """``check_ported`` over ``TRAIN_NOT_PORTED``, and ``--devices`` other
-    than 1 (data-parallel training); first the JAX CLI's refusal of
-    ``--parallel_folds`` with ``--zero1``."""
+    """``check_ported`` over ``TRAIN_NOT_PORTED``, after the JAX CLI's
+    refusal of ``--parallel_folds`` with ``--zero1``; ``--parallel_folds``
+    with ``--devices`` > 1 (folds across cards) is not ported yet."""
     if getattr(args, "parallel_folds", False) and getattr(args, "zero1", False):
         raise SystemExit("--parallel_folds and --zero1 are exclusive (the optimiser "
                          "state is already sharded over the fold axis)")
     check_ported(args, TRAIN_NOT_PORTED)
-    if args.devices not in (None, 1):
-        raise NotImplementedError("--devices (data-parallel training) is not ported yet; "
-                                  "pass --devices 1 or leave it out")
+    if getattr(args, "parallel_folds", False) and args.devices not in (None, 1):
+        raise NotImplementedError("--parallel_folds with --devices > 1 (folds across cards) "
+                                  "is not ported yet; pass --devices 1 or leave it out")
+
+
+def clamp_devices(n_devices: Optional[int], batch_size: int, device: str = "cuda",
+                  grad_accum: int = 1) -> int:
+    """The JAX ``build_mesh`` clamp (``:644-656``): the devices asked for
+    (all by default: the cards, or 1 on the CPU), at most those available
+    (on the CPU a rank is a process, so any count), then the largest count
+    that divides the batch; under ``--grad_accum K`` (K dividing B) each
+    micro-batch of B / K rows is split over the ranks, so the count divides
+    B / K."""
+    if torch.device(device).type == "cuda":
+        avail = torch.cuda.device_count()
+    else:
+        avail = n_devices or 1
+    n = max(1, min(n_devices or avail, avail))
+    rows = batch_size // grad_accum
+    while n > 1 and rows % n:
+        n -= 1
+    return n
+
+
+def build_mesh(args, batch_size: int, module: str, argv: Optional[List[str]]):
+    """``--devices`` of a train CLI: ``(mesh, launched)``.
+
+    - In a rank (``torchrun``, or the ranks ``launch`` spawns): join the
+      process group (NCCL for ``--device cuda``, gloo for ``cpu``), and
+      return this rank's mesh; its standard output goes to ``os.devnull``
+      unless it is rank 0.
+    - Otherwise clamp the count (``clamp_devices``, the clamp printed);
+      at one device return ``(None, False)``, the single-device path; at N
+      > 1 run ``module.main(argv)`` in N spawned ranks
+      (``parallel/multihost.launch``) and return ``(None, True)`` once they
+      all exit 0 (a failing rank raises ``SystemExit``)."""
+    import sys
+
+    from ..core.mesh import create_mesh
+    from ..parallel.multihost import (
+        in_process_group_env,
+        initialize_distributed,
+        launch,
+        quiet_unless_main,
+    )
+
+    backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+    if in_process_group_env():
+        rank = initialize_distributed(backend=backend)
+        quiet_unless_main(rank)
+        mesh = create_mesh()
+        if mesh.device.type == "cpu":  # the ranks share the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.world_size))
+        return mesh, False
+    accum = int(getattr(args, "grad_accum", 1) or 1)
+    if accum > 1 and batch_size % accum:
+        raise SystemExit(f"--grad_accum {accum} does not divide batch_size {batch_size}")
+    n = clamp_devices(args.devices, batch_size, args.device, accum)
+    if args.devices not in (None, n):
+        print(f"--devices {args.devices}: using {n} device(s) (those available, then the "
+              f"largest count dividing the batch of {batch_size}"
+              + (f" in {accum} micro-batches" if accum > 1 else "") + ")")
+    if n == 1:
+        return None, False
+    print(f"Data-parallel training: {n} ranks ({backend}), {batch_size // n} images a rank "
+          "per step")
+    launch(n, module, sys.argv[1:] if argv is None else list(argv))
+    return None, True
 
 
 def apply_grad_accum(args, setup, batch_size: int) -> None:
@@ -398,12 +470,18 @@ def warn_partial_fold_sharding(k_folds: int) -> bool:
     return True
 
 
-def resolve_seed(config: dict, cli_seed: Optional[int]) -> int:
+def resolve_seed(config: dict, cli_seed: Optional[int], mesh=None) -> int:
     """config > CLI > random, the choice written back into ``config`` (the
-    JAX ``resolve_seed``); seeds Python's, numpy's and torch's generators."""
+    JAX ``resolve_seed``); seeds Python's, numpy's and torch's generators.
+    On a data-parallel mesh a random choice is rank 0's."""
+    from ..core.mesh import data_parallel
+
     seed = config.get("seed", cli_seed)
     if seed is None:
         seed = random.randint(0, 1_000_000)
+        dp = data_parallel(mesh)
+        if dp is not None:
+            seed = int(dp.max(seed if dp.is_main else -1))
         config["seed"] = seed
     random.seed(seed)
     np.random.seed(seed)
@@ -529,10 +607,12 @@ def _ema_eval_fn(args):
     return extract_ema_variables
 
 
-def apply_auto_batch(args, setup, cfg, hyperparameters=None, device="cuda") -> None:
+def apply_auto_batch(args, setup, cfg, hyperparameters=None, device="cuda", mesh=None) -> None:
     """``--auto_batch`` (the JAX ``apply_auto_batch``): probe the doubling
     ladder from ``cfg.batch_size`` with ``train/autotune`` on ``device``
-    and adopt the largest batch that fits the budget. Mutates
+    and adopt the largest batch that fits the budget (on a data-parallel
+    ``mesh`` multiples of its rank count, each rank probing its rows of
+    the step). Mutates
     ``cfg.batch_size`` and ``hyperparameters`` (the saved
     ``_hyperparameters.json`` files and the resume signature); call it
     before anything reads them."""
@@ -561,9 +641,10 @@ def apply_auto_batch(args, setup, cfg, hyperparameters=None, device="cuda") -> N
             "--auto_batch: this backend does not report a memory budget; "
             "pass --hbm_budget_gb"
         )
-    cands = batch_candidates(cfg.batch_size)
+    cands = batch_candidates(cfg.batch_size, mesh.world_size if mesh is not None else 1)
     chosen, report = autotune_batch(
-        lambda b: train_step_peak_bytes(setup, b, STAGING_SIZE, device), budget, cands)
+        lambda b: train_step_peak_bytes(setup, b, STAGING_SIZE, device, mesh=mesh), budget,
+        cands)
     print(describe_report(report, budget))
     if chosen is None:
         raise SystemExit(

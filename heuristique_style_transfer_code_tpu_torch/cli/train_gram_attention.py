@@ -25,8 +25,10 @@ EMA), ``--mixup``/``--cutmix`` (``train/mixing.py``), ``--auto_batch``
 with ``--hbm_budget_gb`` (``train/autotune.py``: on the CPU an estimate)
 and ``--parallel_folds`` (every fold as one vmapped program on the card,
 ``parallel/foldparallel.py``) run;
-the flags of ``cli/_common.TRAIN_NOT_PORTED`` and ``--devices`` other than
-1 raise "not ported yet".
+``--devices N`` (data-parallel training over N ranks, one process a
+device: NCCL between cards, gloo on the CPU; ``cli/_common.build_mesh``)
+and ``--zero1`` run; ``--checkpoint_format orbax`` and ``--parallel_folds``
+with ``--devices`` > 1 raise "not ported yet".
 
 Each fold's fresh weights come from ``torch.Generator().manual_seed(seed +
 fold)``, not from ``jax.random``: the two packages start a fold from
@@ -111,6 +113,7 @@ def main(argv=None):
         _ema_eval_fn,
         apply_auto_batch,
         apply_grad_accum,
+        build_mesh,
         make_save_fn,
         make_writer,
         resolve_compute_dtype,
@@ -123,15 +126,21 @@ def main(argv=None):
     )
 
     device = resolve_device(args.device)
-    os.makedirs(args.save_dir, exist_ok=True)
     cfg = GramAttentionConfig.from_json(args.config_path)
+    mesh, launched = build_mesh(args, cfg.batch_size, __spec__.name, argv)
+    if launched:
+        return
+    if mesh is not None:
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
+    os.makedirs(args.save_dir, exist_ok=True)
     hyperparameters = cfg.to_dict()
-    seed = resolve_seed(hyperparameters, args.seed)
+    seed = resolve_seed(hyperparameters, args.seed, mesh)
     save_fn = make_save_fn(args.checkpoint_format)
 
     dataset = ImageFolderIndex(os.path.join(args.data, "train"))
     num_classes = len(dataset.classes)
-    writer = make_writer(args.tensorboard, args.save_dir)
+    writer = make_writer(args.tensorboard and main_rank, args.save_dir)
     combos = [(None, None)]
 
     pretrained = None
@@ -143,8 +152,9 @@ def main(argv=None):
         cfg, num_classes, combos, pretrained=pretrained, freeze_encoder=args.freeze_layers,
         compute_dtype=resolve_compute_dtype(args.precision), lr_schedule=lr_schedule,
         clip_norm=clip_norm, label_smoothing=args.label_smoothing, ema_decay=args.ema_decay,
-        mix_fn=resolve_mix_fn(args), remat=args.remat, device=device)
-    apply_auto_batch(args, setup, cfg, hyperparameters, device)
+        mix_fn=resolve_mix_fn(args), remat=args.remat, device=device, mesh=mesh,
+        zero1=args.zero1)
+    apply_auto_batch(args, setup, cfg, hyperparameters, device, mesh)
     apply_grad_accum(args, setup, cfg.batch_size)
     foldwise_step = resolve_fold_parallel(args, setup, args.k_folds, device)
 
@@ -194,6 +204,8 @@ def main(argv=None):
                 signature_extra=signature_extra_from_args(args),
                 early_stop=args.early_stop,
                 eval_variables_fn=_ema_eval_fn(args),
+                mesh=mesh,
+                grad_accum=args.grad_accum,
                 on_fold_end=on_fold_end,
             )
     except PreemptedError as e:

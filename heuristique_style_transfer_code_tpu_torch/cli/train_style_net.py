@@ -12,8 +12,10 @@ CLI's keys, which ``serve_style --net`` of either package serves.
 ``--resume``, ``--checkpoint_every``, ``--async_checkpoint``, SIGTERM
 preemption, ``--lr_schedule``, ``--warmup_steps``, ``--min_lr_ratio``,
 ``--clip_grad_norm``, ``--style_sampling``, ``--stylize_dir`` and
-``--precision float32|bf16``, ``--profile_dir`` and ``--debug_nans`` run;
-``--devices`` other than 1 raises "not ported yet".
+``--precision float32|bf16``, ``--profile_dir`` and ``--debug_nans`` run, and
+``--devices N``: the batch split over N ranks (one process a device, NCCL
+between cards, gloo on the CPU; ``cli/_common.build_mesh``), the net
+replicated and Adam on the all-reduced gradients (``tasks/fast_style.py``).
 
 The net's random init comes from ``torch.Generator().manual_seed(seed)``,
 not from ``jax.random``: the two packages start from different weights.
@@ -105,12 +107,6 @@ def _content_samples(root: str):
     return ImageFolderIndex(chosen).samples
 
 
-def _check_ported(args) -> None:
-    if args.devices not in (None, 1):
-        raise NotImplementedError("--devices (data-parallel training) is not ported yet; "
-                                  "pass --devices 1 or leave it out")
-
-
 def _stylize_samples(args, net, loader, style_names, dtype) -> None:
     """``--stylize_dir``: one content batch through the trained net, the
     first 8 images as [original | stylised] PNGs (one set per style of a
@@ -145,7 +141,6 @@ def _stylize_samples(args, net, loader, style_names, dtype) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     if args.crop % 4:
         raise SystemExit("--crop must be a multiple of 4 (two 2x down/up stages)")
 
@@ -166,6 +161,7 @@ def main(argv=None):
     from ..tasks.style_transfer import make_extract_fn_gram_attention
     from ..train.preemption import PreemptedError
     from ._common import (
+        build_mesh,
         load_checkpoint_tree,
         maybe_subset,
         resolve_compute_dtype,
@@ -188,7 +184,15 @@ def main(argv=None):
     multi = len(style_names) > 1
 
     cfg = GramAttentionConfig.from_json(args.config_path)
+    # read on the host before any rank starts: a checkpoint it refuses
+    # is refused once, by the launching process
     tree = load_checkpoint_tree(args.model_path, "gram_attention", cfg.to_dict())
+    mesh, launched = build_mesh(args, args.batch_size, __spec__.name, argv)
+    if launched:
+        return
+    if mesh is not None:
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
     encoder = load_gram_attention(args.model_path, cfg.truncate_layer, None,
                                   cfg.gram_matrix_size, device, tree=tree)
     extract_fn = make_extract_fn_gram_attention(encoder, cfg.truncate_layer, layers=args.layers,
@@ -202,7 +206,8 @@ def main(argv=None):
         print(f"Nombre total de paramètres du modèle : {count_params(net)}")
 
     samples = maybe_subset(_content_samples(args.data), args.num_samples, seed=args.seed)
-    loader = HostLoader(samples, args.batch_size, shuffle=True, seed=args.seed)
+    loader = HostLoader(samples, args.batch_size, shuffle=True, seed=args.seed,
+                        rows=mesh.rows(args.batch_size) if mesh is not None else None)
     styles_u8 = [load_image_staged(p) for p in styles.values()]
 
     # the schedule's horizon is the whole fit; the plain float stays
@@ -267,6 +272,7 @@ def main(argv=None):
         checkpoint_every=args.checkpoint_every,
         async_checkpoint=args.async_checkpoint,
         signature=signature,
+        mesh=mesh,
     )
     if args.resume:
         os.makedirs(args.save_dir, exist_ok=True)
@@ -284,6 +290,8 @@ def main(argv=None):
         return
 
     hyper["final_loss"] = history[-1] if history else None
+    if not main_rank:
+        return
     save_model_and_hyperparameters(to_jax_tree(net), hyper, args.save_dir, "style_net")
     if args.resume:
         clear_net_inprogress(args.save_dir)  # the finished fit supersedes it
@@ -292,6 +300,9 @@ def main(argv=None):
           f"(loss finale {hyper['final_loss']}){gallery}")
 
     if args.stylize_dir:
+        if mesh is not None:  # rank 0 holds its rows only: the global batch
+            loader = HostLoader(samples, args.batch_size, shuffle=True, seed=args.seed)
+            loader.set_epoch(args.epochs)
         _stylize_samples(args, net, loader, style_names, dtype)
 
 

@@ -31,8 +31,10 @@ EMA), ``--mixup``/``--cutmix`` (``train/mixing.py``), ``--auto_batch``
 with ``--hbm_budget_gb`` (``train/autotune.py``: on the CPU an estimate)
 and ``--parallel_folds`` (every fold as one vmapped program on the card,
 ``parallel/foldparallel.py``) run;
-the flags of ``cli/_common.TRAIN_NOT_PORTED`` and ``--devices`` other than
-1 raise "not ported yet".
+``--devices N`` (data-parallel training over N ranks, one process a
+device: NCCL between cards, gloo on the CPU; ``cli/_common.build_mesh``)
+and ``--zero1`` run; ``--checkpoint_format orbax`` and ``--parallel_folds``
+with ``--devices`` > 1 raise "not ported yet".
 
 Each fold's fresh weights come from ``torch.Generator().manual_seed(seed +
 fold)``, and the augmentation's draws from a ``torch.Generator`` as well,
@@ -115,6 +117,7 @@ def main(argv=None):
         _ema_eval_fn,
         apply_auto_batch,
         apply_grad_accum,
+        build_mesh,
         load_checkpoint_tree,
         make_save_fn,
         make_writer,
@@ -129,10 +132,16 @@ def main(argv=None):
     )
 
     device = resolve_device(args.device)
-    os.makedirs(args.save_dir, exist_ok=True)
     cfg = TruncatedResNetConfig.from_json(args.config_path)
+    mesh, launched = build_mesh(args, cfg.batch_size, __spec__.name, argv)
+    if launched:
+        return
+    if mesh is not None:
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
+    os.makedirs(args.save_dir, exist_ok=True)
     hyperparameters = cfg.to_dict()
-    seed = resolve_seed(hyperparameters, args.seed)
+    seed = resolve_seed(hyperparameters, args.seed, mesh)
     cfg.seed = seed
     save_fn = make_save_fn(args.checkpoint_format)
 
@@ -141,7 +150,7 @@ def main(argv=None):
 
     dataset = ImageFolderIndex(os.path.join(args.data, "train"))
     num_classes = len(dataset.classes)
-    writer = make_writer(args.tensorboard, args.save_dir)
+    writer = make_writer(args.tensorboard and main_rank, args.save_dir)
 
     tree = (load_checkpoint_tree(args.model_path, "truncated_resnet50", hyperparameters)
             if args.model_path else None)
@@ -152,8 +161,9 @@ def main(argv=None):
         cfg, num_classes, combos, pretrained=pretrained, freeze_encoder=args.freeze_encoder,
         compute_dtype=resolve_compute_dtype(args.precision), lr_schedule=lr_schedule,
         clip_norm=clip_norm, label_smoothing=args.label_smoothing, ema_decay=args.ema_decay,
-        mix_fn=resolve_mix_fn(args), remat=args.remat, device=device)
-    apply_auto_batch(args, setup, cfg, hyperparameters, device)
+        mix_fn=resolve_mix_fn(args), remat=args.remat, device=device, mesh=mesh,
+        zero1=args.zero1)
+    apply_auto_batch(args, setup, cfg, hyperparameters, device, mesh)
     apply_grad_accum(args, setup, cfg.batch_size)
     foldwise_step = resolve_fold_parallel(args, setup, args.k_folds, device)
 
@@ -185,6 +195,8 @@ def main(argv=None):
                 signature_extra=signature_extra_from_args(args),
                 early_stop=args.early_stop,
                 eval_variables_fn=_ema_eval_fn(args),
+                mesh=mesh,
+                grad_accum=args.grad_accum,
             )
     except PreemptedError as e:
         # the last completed epoch is on disk; the same command continues

@@ -74,12 +74,19 @@ class HostLoader:
     batch index))``: the same numbers for a batch however the epoch was
     reached (``set_epoch``, ``set_position``), and ``"mix_key"``, that
     tuple itself, from which ``train/mixing.py`` draws the batch's mixing
-    on a generator of its own."""
+    on a generator of its own.
+
+    ``rows`` (a data-parallel rank's ``core.mesh.Mesh.rows(batch_size,
+    n_accum)``) keeps this rank's rows of every global batch: only those
+    are decoded, and "image", "label", "combo", "indices" and "draws" hold
+    them (the draws being those rows of the global batch's draws), while
+    "n_valid" stays the global batch's valid count."""
 
     def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int,
                  combo_ids: Optional[Sequence[int]] = None, shuffle: bool = False,
                  seed: int = 0, num_workers: int = DECODE_WORKERS,
-                 draw_key: Optional[Sequence[int]] = None):
+                 draw_key: Optional[Sequence[int]] = None,
+                 rows: Optional[Sequence[int]] = None):
         self.samples = list(samples)
         self.combo_ids = (list(combo_ids) if combo_ids is not None
                           else [0] * len(self.samples))
@@ -93,6 +100,7 @@ class HostLoader:
         self.num_workers = max(1, num_workers)
         self._epoch = 0
         self._skip = 0
+        self.rows = None if rows is None else np.asarray(rows, dtype=np.int64)
 
     def set_epoch(self, epoch: int) -> None:
         """The next ``__iter__`` gives the order of a fresh loader's
@@ -130,16 +138,19 @@ class HostLoader:
         decode_pool = cf.ThreadPoolExecutor(max_workers=self.num_workers)
         batch_pool = cf.ThreadPoolExecutor(max_workers=PREFETCH_BATCHES)
 
+        rows = self.rows if self.rows is not None else np.arange(bs)
+
         def make_batch(index: int, idxs: np.ndarray) -> dict:
             n = len(idxs)
             if n < bs:
                 idxs = np.concatenate([idxs, order[np.arange(bs - n) % len(order)]])
-            imgs = np.empty((bs, STAGING_SIZE, STAGING_SIZE, 3), dtype=np.uint8)
+            labels = np.full((bs,), -1, dtype=np.int32)
+            labels[:n] = [self.samples[i][1] for i in idxs[:n]]
+            idxs, labels = idxs[rows], labels[rows]
+            imgs = np.empty((len(idxs), STAGING_SIZE, STAGING_SIZE, 3), dtype=np.uint8)
             decoded = decode_pool.map(lambda i: load_image_staged(self.samples[i][0]), idxs)
             for j, arr in enumerate(decoded):
                 imgs[j] = arr
-            labels = np.full((bs,), -1, dtype=np.int32)
-            labels[:n] = [self.samples[i][1] for i in idxs[:n]]
             combos = np.asarray([self.combo_ids[i] for i in idxs], dtype=np.int32)
             batch = {"image": imgs, "label": labels, "combo": combos,
                      "indices": np.asarray(idxs), "n_valid": n}
@@ -147,7 +158,7 @@ class HostLoader:
                 from .augment import batch_draws
 
                 batch["mix_key"] = self.draw_key + (epoch, index)
-                batch["draws"] = batch_draws(batch["mix_key"], bs)
+                batch["draws"] = batch_draws(batch["mix_key"], bs)[rows]
             return batch
 
         pending = []

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import traced, transformed
+from ..core.mesh import active
 from ..core.remat import recomputing
 from .kernels.instance_norm import InstanceNormFunction
 
@@ -41,10 +42,16 @@ def batch_norm(
     block is recomputed for its backward (``core/remat.py``) the update
     goes to copies of the buffers, so a step updates them once. Under a
     ``torch.func`` transform (``--parallel_folds``) the same arithmetic is
-    written out on the NHWC tensor (``_batch_norm_train_nhwc``)."""
+    written out on the NHWC tensor (``_batch_norm_train_nhwc``). Within a
+    data-parallel train step (``core.mesh.activate``) the statistics are
+    those of the global batch (``GlobalBatchNorm``): no rank normalises by
+    its own rows' statistics."""
     if train:
         if recomputing():
             mean, var = mean.clone(), var.clone()
+        dp = active()
+        if dp is not None:
+            return GlobalBatchNorm.apply(x, scale, bias, mean, var, eps, dp[0])
         if transformed(x):
             return _batch_norm_train_nhwc(x, scale, bias, mean, var, eps)
         y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias, training=True,
@@ -74,6 +81,55 @@ def _batch_norm_train_nhwc(x, scale, bias, mean, var, eps):
     var.mul_(1.0 - MOMENTUM).add_(v.detach() * (MOMENTUM * n / max(n - 1, 1)))
     y = centred * (torch.rsqrt(v + eps) * scale.to(ctype)) + bias.to(ctype)
     return y.to(x.dtype)
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a data-parallel step
+    (the JAX package's ``batch_norm(train=True)`` on an array sharded over
+    ``data``, ``ops/norm.py:51-65``), on each rank's NHWC rows.
+
+    Forward, two-pass as JAX's (the mean first, then the mean of squared
+    deviations, which stays accurate where the mean is large next to the
+    spread): one all-reduce of the per-channel sums, one of the centred
+    sums of squares; the running mean and the unbiased
+    running variance (global n) updated in place. Backward: one all-reduce
+    of the per-channel sums of dy and dy x̂, so dx is the global batch's;
+    the scale's and bias's gradients stay this rank's partial sums, which
+    the step's gradient reduction adds up. Statistics and arithmetic in
+    f32 (f64 stays f64), the output in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean, var, eps, mesh):
+        ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xc = x.to(ctype)
+        c = xc.shape[-1]
+        n = float(xc.numel() // c * mesh.world_size)  # every rank holds B / N rows
+        (s,) = mesh.all_reduce([xc.sum(dim=(0, 1, 2))])
+        mu = s / n
+        centred = xc - mu
+        (ss,) = mesh.all_reduce([centred.square().sum(dim=(0, 1, 2))])
+        v = ss / n
+        invstd = torch.rsqrt(v + eps)
+        with torch.no_grad():
+            mean.mul_(1.0 - MOMENTUM).add_(mu * MOMENTUM)
+            var.mul_(1.0 - MOMENTUM).add_(v * (MOMENTUM * n / max(n - 1, 1)))
+        ctx.save_for_backward(x, scale, mu, invstd)
+        ctx.mesh, ctx.n = mesh, n
+        return (centred * (invstd * scale.to(ctype)) + bias.to(ctype)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, mu, invstd = ctx.saved_tensors
+        ctype = mu.dtype
+        xhat = (x.to(ctype) - mu) * invstd
+        dyc = dy.to(ctype)
+        sum_dy = dyc.sum(dim=(0, 1, 2))
+        sum_dy_xhat = (dyc * xhat).sum(dim=(0, 1, 2))
+        g_dy, g_dy_xhat = ctx.mesh.all_reduce([sum_dy, sum_dy_xhat])
+        n = ctx.n
+        dx = (scale.to(ctype) * invstd) * (dyc - g_dy / n - xhat * (g_dy_xhat / n))
+        return (dx.to(x.dtype), sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype),
+                None, None, None, None)
 
 
 @functools.lru_cache(maxsize=64)

@@ -17,6 +17,14 @@ carry; here the net and the Adam state are updated in place, so a caller
 that wants the initial weights copies them first. ``_drive_net_training``
 adds resume, SIGTERM preemption and checkpoints.
 
+``mesh=`` (``--devices N``; JAX ``:103-113``) splits each batch over the
+ranks of a data-parallel mesh (``core/mesh.py``): the net is replicated,
+each rank takes its rows' loss, the gradients and the loss are all-reduced
+in one bucket and divided by N, so the loss is the global batch's mean and
+Adam runs on its gradients on every rank alike. The instance norms are per
+image, so the forward needs no collective. The ranks agree on a preemption
+at each step; only rank 0 writes the in-progress file.
+
 Serving: ``make_stylize_fn`` is the program ``uint8 (B, H, W, 3) ->
 stylised uint8``; ``make_net_job_fn`` adapts it to
 ``StyleTransferService``'s job contract. On the card every instance norm of
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from ..checkpoint.convert import from_jax_tree, load_jax_tree, to_jax_tree
+from ..core.mesh import data_parallel
 from ..data.augment import eval_preprocess
 from ..nn.transformer_net import (
     TransformerNet,
@@ -124,11 +133,6 @@ def make_net_job_fn(
     return job
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh= (data-parallel fast-style training) is not ported yet")
-
-
 def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay ** count`` in float32, as optax computes it."""
     one, d = np.float32(1.0), np.float32(decay)
@@ -201,10 +205,12 @@ def _net_loss(extract_fn, net, images, targets, weights, compute_dtype, style_w=
     return loss
 
 
-def _make_step(extract_fn, update, weights, crop, compute_dtype, targets_of):
+def _make_step(extract_fn, update, weights, crop, compute_dtype, targets_of, mesh=None):
     """One training step; ``targets_of(device, *style_args)`` gives the
     per-layer targets and the (B, S) style rows (None for a single-style
-    net)."""
+    net). On a data-parallel ``mesh`` the arguments are this rank's rows
+    and the loss and gradients the global batch's (module docstring)."""
+    dp = data_parallel(mesh)
 
     def step(net, opt_state, images_u8, *style_args):
         device = next(net.parameters()).device
@@ -212,8 +218,13 @@ def _make_step(extract_fn, update, weights, crop, compute_dtype, targets_of):
         targets, style_w = targets_of(device, *style_args)
         loss = _net_loss(extract_fn, net, images, targets, weights, compute_dtype, style_w)
         grads = torch.autograd.grad(loss, list(net.parameters()))
+        loss = loss.detach()
+        if dp is not None:
+            *grads, loss = dp.all_reduce(list(grads) + [loss])
+            grads = [g / dp.world_size for g in grads]
+            loss = loss / dp.world_size
         update(net, grads, opt_state)
-        return net, opt_state, loss.detach()
+        return net, opt_state, loss
 
     return step
 
@@ -235,12 +246,12 @@ def make_fast_style_train_step(
     in place and returns the loss as a device tensor, without a sync;
     ``images_u8`` is a staged uint8 (B, H, W, 3) batch (numpy or tensor),
     ``style_grams`` the per-layer targets of one style image, leading dim 1
-    (``encode_style_grams``)."""
-    _refuse_mesh(mesh)
+    (``encode_style_grams``). ``mesh``: the data-parallel step (module
+    docstring)."""
     init, update = _make_optimizer(learning_rate, clip_norm)
     weights = (float(style_weight), float(content_weight), float(tv_weight))
     return init, _make_step(extract_fn, update, weights, crop, compute_dtype,
-                            lambda device, grams: (grams, None))
+                            lambda device, grams: (grams, None), mesh)
 
 
 def make_multi_style_train_step(
@@ -260,8 +271,8 @@ def make_multi_style_train_step(
     per-image (B, S) one-hot (or blend) row, which selects the net's
     instance-norm affines and the targets ``style_w @ stack`` per layer;
     ``gram_stacks`` the per-layer (S, ...) stacks of
-    ``encode_style_gram_stacks``."""
-    _refuse_mesh(mesh)
+    ``encode_style_gram_stacks``. On a data-parallel ``mesh`` ``style_w``
+    holds this rank's rows."""
     init, update = _make_optimizer(learning_rate, clip_norm)
     weights = (float(style_weight), float(content_weight), float(tv_weight))
 
@@ -269,7 +280,7 @@ def make_multi_style_train_step(
         w = torch.as_tensor(style_w, dtype=torch.float32).to(device)
         return [torch.einsum("bk,k...->b...", w, s.float()) for s in gram_stacks], w
 
-    return init, _make_step(extract_fn, update, weights, crop, compute_dtype, targets_of)
+    return init, _make_step(extract_fn, update, weights, crop, compute_dtype, targets_of, mesh)
 
 
 def encode_style_gram_stacks(extract_fn: Callable, styles_u8, crop: int = 224,
@@ -374,6 +385,7 @@ def _drive_net_training(
     checkpoint_every: int = 200,
     async_checkpoint: bool = False,
     signature=None,
+    mesh=None,
 ) -> Tuple[TransformerNet, List[float]]:
     """The loop behind ``train_fast_style`` and ``train_multi_style``.
 
@@ -386,21 +398,24 @@ def _drive_net_training(
     interrupted epoch's order and skips the consumed batches,
     ``HostLoader.set_position``). ``async_checkpoint`` writes them from a
     background thread. The loss is fetched every ``log_every`` steps, at
-    the first and at the end."""
+    the first and at the end. On a data-parallel ``mesh`` the ranks agree
+    on a preemption at each step and rank 0 alone writes."""
     from ..train.preemption import (
         PreemptedError,
         clear_preemption,
         install_sigterm_handler,
-        preemption_requested,
+        preemption_agreed,
     )
 
     acw = None
+    dp = data_parallel(mesh)
+    main = dp is None or dp.is_main
     clear_preemption()  # a stale flag from an earlier run in this process
     if resume:
         if save_dir is None:
             raise ValueError("resume=True requires save_dir")
         install_sigterm_handler()
-        if async_checkpoint:
+        if async_checkpoint and main:
             from ..checkpoint.async_io import AsyncCheckpointWriter
 
             acw = AsyncCheckpointWriter()
@@ -422,8 +437,9 @@ def _drive_net_training(
             )
 
     def save(epoch, step_in_epoch):
-        _save_net_inprogress(save_dir, net, opt_state, epoch, step_in_epoch, seen, history,
-                             signature, async_writer=acw)
+        if main:
+            _save_net_inprogress(save_dir, net, opt_state, epoch, step_in_epoch, seen, history,
+                                 signature, async_writer=acw)
 
     loss = None
     t0 = time.perf_counter()
@@ -442,7 +458,7 @@ def _drive_net_training(
             elif hasattr(loader, "set_epoch"):
                 loader.set_epoch(epoch)
             for batch in loader:
-                if resume and preemption_requested():
+                if resume and preemption_agreed(mesh):
                     if acw is not None:
                         acw.wait()
                     save(epoch, k)
@@ -537,7 +553,6 @@ def train_multi_style(
     if style_sampling not in ("balanced", "uniform"):
         raise ValueError(f"style_sampling must be 'balanced' or 'uniform', got "
                          f"{style_sampling!r}")
-    _refuse_mesh(mesh)
     n_styles = net_n_styles(net)
     if n_styles is None:
         raise ValueError("train_multi_style needs a conditional net "
@@ -547,20 +562,25 @@ def train_multi_style(
     init_opt, step = make_multi_style_train_step(
         extract_fn, style_weight=style_weight, content_weight=content_weight,
         tv_weight=tv_weight, learning_rate=learning_rate, crop=crop,
-        compute_dtype=compute_dtype, clip_norm=clip_norm,
+        compute_dtype=compute_dtype, clip_norm=clip_norm, mesh=mesh,
     )
     device = next(net.parameters()).device
     gram_stacks = encode_style_gram_stacks(extract_fn, styles_u8, crop, device)
+    dp = data_parallel(mesh)
 
     def dispatch(net, opt_state, images_u8, seen):
-        onehot = _style_onehot(seed, seen, images_u8.shape[0], n_styles, style_sampling)
+        if dp is None:
+            onehot = _style_onehot(seed, seen, images_u8.shape[0], n_styles, style_sampling)
+        else:  # the global batch's draw, this rank's rows of it
+            onehot = dp.local(_style_onehot(seed, seen, images_u8.shape[0] * dp.world_size,
+                                            n_styles, style_sampling))
         return step(net, opt_state, images_u8, onehot, gram_stacks)
 
     return _drive_net_training(
         dispatch, init_opt, net, loader, epochs=epochs, log_fn=log_fn, log_every=log_every,
         label=f"fast-style ({n_styles} styles)", save_dir=save_dir, resume=resume,
         checkpoint_every=checkpoint_every, async_checkpoint=async_checkpoint,
-        signature=signature,
+        signature=signature, mesh=mesh,
     )
 
 
@@ -592,12 +612,12 @@ def train_fast_style(
     are ignored) or tuples with the uint8 images first. Returns (the net,
     the logged loss history). The net is updated in place (copy it first
     to keep the initial weights); resume and preemption as in
-    ``_drive_net_training``."""
-    _refuse_mesh(mesh)
+    ``_drive_net_training``. ``mesh``: data-parallel training over its
+    ranks, the loader giving each rank its rows (module docstring)."""
     init_opt, step = make_fast_style_train_step(
         extract_fn, style_weight=style_weight, content_weight=content_weight,
         tv_weight=tv_weight, learning_rate=learning_rate, crop=crop,
-        compute_dtype=compute_dtype, clip_norm=clip_norm,
+        compute_dtype=compute_dtype, clip_norm=clip_norm, mesh=mesh,
     )
     style_grams = encode_style_grams(extract_fn, style_u8, crop, next(net.parameters()).device)
 
@@ -609,7 +629,7 @@ def train_fast_style(
         dispatch, init_opt, net, loader, epochs=epochs, log_fn=log_fn, log_every=log_every,
         label="fast-style", save_dir=save_dir, resume=resume,
         checkpoint_every=checkpoint_every, async_checkpoint=async_checkpoint,
-        signature=signature,
+        signature=signature, mesh=mesh,
     )
 
 

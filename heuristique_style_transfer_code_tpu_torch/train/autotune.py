@@ -22,6 +22,12 @@ Both grow with the batch, so the search stops at the first miss. Neither
 touches the run's own model, its batch-norm statistics or the generator
 its initialisation draws from: each probe builds its own model from a
 generator of its own.
+
+On a data-parallel mesh (``--devices N``) the candidates are multiples of
+N (``batch_candidates(divisor=N)``, JAX ``:80-92``), each rank probes the
+data-parallel step at its B / N rows, in step with the others (the step
+runs collectives), and the peak is the ranks' largest, so every rank
+adopts the same batch.
 """
 from __future__ import annotations
 
@@ -60,11 +66,17 @@ def _storage_bytes(tensors) -> int:
     return sum(seen.values())
 
 
-def train_step_peak_bytes(setup, batch: int, canvas: int, device="cuda") -> int:
+def train_step_peak_bytes(setup, batch: int, canvas: int, device="cuda", mesh=None) -> int:
     """Peak bytes of one train step of ``setup`` (a ``FamilySetup``) at
     ``batch`` on ``device``, on staged ``canvas``² uint8 images: the
     allocator's peak on the card, the estimate described above on the
-    CPU."""
+    CPU. On a data-parallel ``mesh`` the global ``batch``'s step, the
+    largest peak of the ranks (module docstring)."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    if dp is not None:
+        return int(dp.max(train_step_peak_bytes(setup, batch // dp.world_size, canvas, device)))
     device = torch.device(device)
     mix_key = (0, 0, 0, 0)
     if device.type == "cuda":

@@ -23,7 +23,10 @@ forward (``core/remat.py``); ``FamilySetup.accum_step`` is
 ``--grad_accum``'s step (JAX ``:88-99``). ``ema_decay`` (``--ema_decay``)
 keeps the parameter EMA in the optimiser state (``train/optim.py``);
 ``mix_fn`` (``--mixup``/``--cutmix``, ``train/mixing.make_mix_fn``) mixes
-each augmented batch in both steps.
+each augmented batch in both steps. ``mesh`` (``--devices``, a
+``core.mesh.Mesh``) makes both steps data-parallel (``train/train_loop.py``)
+and ``zero1`` (``--zero1``) shards the optimiser state over it (JAX
+``:101-140``); on one device neither changes anything.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ class FamilySetup:
 
     def __init__(self, init_model: Callable, optimizer, train_step: Callable,
                  eval_step: Callable, forward_train: Callable, augment: Callable,
-                 label_smoothing: float = 0.0, mix_fn: Optional[Callable] = None):
+                 label_smoothing: float = 0.0, mix_fn: Optional[Callable] = None,
+                 mesh=None):
         self._init_model = init_model
         self.optimizer = optimizer
         self.train_step = train_step
@@ -59,6 +63,7 @@ class FamilySetup:
         self._augment = augment
         self._label_smoothing = label_smoothing
         self.mix_fn = mix_fn
+        self.mesh = mesh
 
     def init(self, generator: Optional[torch.Generator]):
         model = self._init_model(generator)
@@ -77,7 +82,7 @@ class FamilySetup:
         """``--grad_accum``: one optimiser update from ``n_accum``
         micro-batches (``train_loop.make_train_step_accum``)."""
         return make_train_step_accum(self._forward_train, self.optimizer, self._augment,
-                                     n_accum, self._label_smoothing, self.mix_fn)
+                                     n_accum, self._label_smoothing, self.mix_fn, self.mesh)
 
 
 def _freeze(model, frozen_fn):
@@ -88,16 +93,17 @@ def _freeze(model, frozen_fn):
 
 
 def _assemble(init_model, forward, lr, combos, frozen_fn, compute_dtype, clip_norm,
-              label_smoothing, ema_decay, mix_fn) -> FamilySetup:
+              label_smoothing, ema_decay, mix_fn, mesh=None, zero1=False) -> FamilySetup:
     """``forward(model, images, train)`` -> logits; the JAX ``_setup``."""
-    optimizer = sgd_momentum(lr, frozen_fn=frozen_fn, clip_norm=clip_norm, ema_decay=ema_decay)
+    optimizer = sgd_momentum(lr, frozen_fn=frozen_fn, clip_norm=clip_norm, ema_decay=ema_decay,
+                             mesh=mesh, zero1=zero1)
     forward_train = cast_forward(lambda m, x: forward(m, x, True), compute_dtype)
     augment = make_augment_fn(combos)
     train_step = make_train_step_body(forward_train, optimizer, augment, label_smoothing,
-                                      mix_fn)
+                                      mix_fn, mesh)
     eval_step = make_eval_step(cast_forward(lambda m, x: forward(m, x, False), compute_dtype))
     return FamilySetup(init_model, optimizer, train_step, eval_step, forward_train, augment,
-                       label_smoothing, mix_fn)
+                       label_smoothing, mix_fn, mesh)
 
 
 def setup_truncated_resnet50(
@@ -114,6 +120,8 @@ def setup_truncated_resnet50(
     mix_fn: Optional[Callable] = None,
     remat: bool = False,
     device="cuda",
+    mesh=None,
+    zero1: bool = False,
 ) -> FamilySetup:
     """The family-1 setup on ``device``. ``pretrained``: a ``{moco,
     classifier}`` tree that each fold loads whole, or a ``{moco}`` one
@@ -138,7 +146,7 @@ def setup_truncated_resnet50(
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
                      combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay,
-                     mix_fn)
+                     mix_fn, mesh, zero1)
 
 
 def setup_multi_patchgan(
@@ -154,6 +162,8 @@ def setup_multi_patchgan(
     mix_fn: Optional[Callable] = None,
     remat: bool = False,
     device="cuda",
+    mesh=None,
+    zero1: bool = False,
 ) -> FamilySetup:
     """The family-3 setup (the train variant) on ``device``. ``pretrained``:
     a JAX-layout tree whose same-path, same-shape leaves overwrite each
@@ -175,7 +185,8 @@ def setup_multi_patchgan(
         return multiscale_apply(model, images, norm, train=train, remat=remat and train)
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
-                     combos, None, compute_dtype, clip_norm, label_smoothing, ema_decay, mix_fn)
+                     combos, None, compute_dtype, clip_norm, label_smoothing, ema_decay, mix_fn,
+                     mesh, zero1)
 
 
 def setup_gram_attention(
@@ -192,6 +203,8 @@ def setup_gram_attention(
     mix_fn: Optional[Callable] = None,
     remat: bool = False,
     device="cuda",
+    mesh=None,
+    zero1: bool = False,
 ) -> FamilySetup:
     """The family-2 setup on ``device``. ``pretrained``: a JAX-layout tree
     whose same-path, same-shape leaves overwrite each fold's fresh init
@@ -218,4 +231,4 @@ def setup_gram_attention(
 
     return _assemble(init_model, forward, lr_schedule if lr_schedule is not None else config.lr,
                      combos, frozen_fn, compute_dtype, clip_norm, label_smoothing, ema_decay,
-                     mix_fn)
+                     mix_fn, mesh, zero1)

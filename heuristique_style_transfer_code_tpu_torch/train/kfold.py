@@ -29,6 +29,17 @@ come from ``torch.Generator().manual_seed(seed + fold)``, not from
 augmentation parameters come from a CPU ``torch.Generator`` seeded from
 (seed, fold, epoch, batch index) (``data/augment.batch_draws``), not from
 the JAX run's key.
+
+On a data-parallel ``mesh`` (``--devices N``, JAX ``:495``) every rank runs
+the protocol on its rows of each batch: training (``train_epochs``),
+evaluation (gathered: every rank gets the single-device metrics, so an
+early stop is the same decision everywhere) and the stop at a preemption
+(the ranks agree on the step). Only rank 0 writes files: the fold
+checkpoints, the JSON files, ``events.jsonl`` and the in-progress files;
+under ZeRO-1 it writes the gathered optimiser state (``optim.full_state``),
+so the files are those of one device and a run saved under one device
+count resumes under another (each rank takes its shards of the whole
+state).
 """
 from __future__ import annotations
 
@@ -41,7 +52,9 @@ import torch
 
 from ..checkpoint.convert import from_jax_tree, load_jax_tree, to_jax_tree
 from ..checkpoint.io import load_pytree_npz, save_model_and_hyperparameters, save_pytree_npz
+from ..core.mesh import data_parallel
 from ..data.loader import HostLoader
+from .optim import full_state, load_full_state
 from .train_loop import evaluate, train_epochs
 
 _INPROGRESS_STATE = "_inprogress_state.npz"
@@ -98,7 +111,9 @@ def _run_signature(seed, k_folds, epochs, split_seed, hyperparameters, extra=Non
 def _inprogress_tree(model, opt_state, fold, epochs_done, signature, extra_leaves=None):
     """One file per epoch: the model and the SGD state in the JAX layout,
     the position and the signature, so no crash can pair one epoch's
-    weights with another's position. The port reads its own files."""
+    weights with another's position. The port reads its own files. A
+    ZeRO-1 state is gathered whole first (every rank calls this)."""
+    opt_state = full_state(opt_state)
     opt = {"count": np.int64(opt_state["count"]),
            "trace": to_jax_tree(model, opt_state["trace"])}
     if "ema" in opt_state:
@@ -119,11 +134,9 @@ def _restore(model, opt_state, st) -> None:
     """The in-progress file's model and SGD state (with its EMA) into
     ``model`` and ``opt_state``, in place."""
     load_jax_tree(model, st["variables"])
-    with torch.no_grad():
-        for part in ("trace", "ema"):
-            if part in opt_state:
-                for name, t in from_jax_tree(st["opt"][part]).items():
-                    opt_state[part][name].copy_(t)
+    for part in ("trace", "ema"):
+        if part in opt_state:
+            load_full_state(opt_state, part, from_jax_tree(st["opt"][part]))
     opt_state["count"] = int(np.asarray(st["opt"]["count"]))
 
 
@@ -165,6 +178,8 @@ def run_kfold(
     early_stop: Optional[int] = None,
     eval_variables_fn: Optional[Callable] = None,
     on_fold_end: Optional[Callable] = None,
+    mesh=None,
+    grad_accum: int = 1,
 ) -> Dict:
     """The cross-validation protocol; returns training_info.
 
@@ -183,7 +198,10 @@ def run_kfold(
     trains every fold at once first (``parallel.foldparallel``), each fold
     from its own init and loader as the sequential loop would; the fold
     loop then evaluates and writes the artifacts. It excludes
-    ``early_stop``, ``resume`` and ``steps_per_dispatch`` > 1."""
+    ``early_stop``, ``resume`` and ``steps_per_dispatch`` > 1. ``mesh``
+    runs it data-parallel (module docstring); ``grad_accum`` (the train
+    step's micro-batch count) picks each rank's rows of a batch
+    (``core.mesh.local_rows``)."""
     from ..utils.logging import StructuredLogger
     from .preemption import clear_preemption, install_sigterm_handler
 
@@ -197,8 +215,13 @@ def run_kfold(
             raise ValueError("fold-parallel training does not support --resume")
         if steps_per_dispatch > 1:
             raise ValueError("fold-parallel training and --steps_per_dispatch are exclusive")
+    dp = data_parallel(mesh)
+    if dp is not None and foldwise_step is not None:
+        raise NotImplementedError("--parallel_folds with --devices > 1 (folds across cards) "
+                                  "is not ported yet")
+    main = dp is None or dp.is_main
     os.makedirs(save_dir, exist_ok=True)
-    logger = StructuredLogger(save_dir)
+    logger = StructuredLogger(save_dir if main else None)
     split_seed = seed if kfold_random_state is None else kfold_random_state
     splits = kfold_split(len(dataset), k_folds, split_seed)
     num_classes = len(dataset.classes)
@@ -210,7 +233,7 @@ def run_kfold(
     signature = _run_signature(seed, k_folds, epochs, split_seed, hyperparameters,
                                signature_extra)
     acw = None
-    if resume and async_checkpoint:
+    if resume and async_checkpoint and main:
         from ..checkpoint.async_io import AsyncCheckpointWriter
 
         acw = AsyncCheckpointWriter()
@@ -259,6 +282,10 @@ def run_kfold(
             {"fold": i, **r} for i, r in enumerate(fold_results))
     if save_fn is None:
         save_fn = save_model_and_hyperparameters
+    if not main:  # the path rank 0 writes, for the records every rank keeps
+        save_fn = lambda tree, hp, d, name: os.path.join(d, f"{name}.npz")  # noqa: E731
+    train_rows = dp.rows(batch_size, grad_accum) if dp is not None else None
+    val_rows = dp.rows(batch_size) if dp is not None else None
 
     def _eval_model(m, o):
         return eval_variables_fn(m, o) if eval_variables_fn is not None else m
@@ -271,7 +298,7 @@ def run_kfold(
                 train_samples.append(dataset.samples[i])
                 combo_ids.append(c)
         return HostLoader(train_samples, batch_size, combo_ids=combo_ids, shuffle=True,
-                          seed=seed + fold, draw_key=(seed, fold))
+                          seed=seed + fold, draw_key=(seed, fold), rows=train_rows)
 
     trained_folds = None
     if foldwise_step is not None:
@@ -289,7 +316,8 @@ def run_kfold(
             if resume_fold is not None and fold < resume_fold:
                 continue  # done; its results were restored above
             print(f"FOLD {fold}")
-            val_loader = HostLoader([dataset.samples[i] for i in val_idx], batch_size)
+            val_loader = HostLoader([dataset.samples[i] for i in val_idx], batch_size,
+                                    rows=val_rows)
             if trained_folds is not None:
                 model, opt_state, _, eval_step = trained_folds[fold]
                 trained_folds[fold] = None
@@ -323,9 +351,9 @@ def run_kfold(
                         if _stopper is not None:
                             ev = _eval_model(m, o)
                             r = evaluate(_eval_step, ev, _val_loader, num_classes, fold=_fold,
-                                         writer=writer, step=epoch)
+                                         writer=writer, step=epoch, mesh=mesh)
                             stop = _stopper.update(r["val_loss"], to_jax_tree(ev), epoch)
-                            if resume and _stopper.improved_last:
+                            if resume and main and _stopper.improved_last:
                                 # the best file before the counters: a crash in
                                 # between reruns this epoch and rewrites it
                                 save_pytree_npz({"variables": _stopper.best_variables},
@@ -337,7 +365,7 @@ def run_kfold(
                             path = os.path.join(save_dir, _INPROGRESS_STATE)
                             if acw is not None:
                                 acw.submit(tree, path)
-                            else:
+                            elif main:
                                 save_pytree_npz(tree, path)
                         if stop:
                             print(f"Fold {_fold}: early stop after epoch {epoch + 1} (no val-loss "
@@ -349,7 +377,8 @@ def run_kfold(
                 model, opt_state = train_epochs(
                     train_step, model, opt_state, train_loader, epochs, fold=fold, writer=writer,
                     steps_per_dispatch=steps_per_dispatch,
-                    start_epoch=start_epoch, on_epoch_end=on_epoch_end, preemptible=resume)
+                    start_epoch=start_epoch, on_epoch_end=on_epoch_end, preemptible=resume,
+                    mesh=mesh)
                 if stopper is not None and stopper.best_variables is not None:
                     # the snapshot is already the evaluation model's (the EMA's)
                     load_jax_tree(model, stopper.best_variables)
@@ -358,15 +387,16 @@ def run_kfold(
                 else:
                     model = _eval_model(model, opt_state)
             result = evaluate(eval_step, model, val_loader, num_classes, fold=fold,
-                              writer=writer, step=max(epochs - 1, 0))
+                              writer=writer, step=max(epochs - 1, 0), mesh=mesh)
             fold_results.append(result)
             fold_result = {"fold": fold, **result}
             training_info["fold_results"].append(fold_result)
             logger.event("fold_result", **fold_result)
 
             fold_perf_path = os.path.join(save_dir, f"fold_{fold}_performance.json")
-            with open(fold_perf_path, "w") as f:
-                json.dump(fold_result, f, indent=4)
+            if main:
+                with open(fold_perf_path, "w") as f:
+                    json.dump(fold_result, f, indent=4)
             print(f"Fold {fold} performance saved to {fold_perf_path}")
 
             variables = to_jax_tree(model)
@@ -386,11 +416,11 @@ def run_kfold(
                 best_model_results.append({"fold": fold, "model_path": model_path, **result})
             else:
                 model_path = prev["model_path"]
-            if on_fold_end is not None:
+            if on_fold_end is not None and main:
                 # the retained record describes the checkpoint on disk
                 retained = next(m for m in best_model_results if m["fold"] == fold)
                 on_fold_end(fold, retained, model_path)
-            if resume:
+            if resume and main:
                 _save_inprogress_meta(save_dir, {
                     "fold_results": fold_results,
                     "best_model_results": best_model_results,
@@ -420,12 +450,13 @@ def run_kfold(
     )
     logger.event("average_results", **training_info["average_results"])
     logger.close()
-    if performance_filename:
-        with open(os.path.join(save_dir, performance_filename), "w") as f:
-            json.dump([{"fold": i, **r} for i, r in enumerate(fold_results)], f, indent=4)
-    save_training_info(training_info, save_dir, "training_info.json")
-    save_training_info(best_model_results, save_dir, "best_model_results.json")
-    _clear_inprogress(save_dir)
+    if main:
+        if performance_filename:
+            with open(os.path.join(save_dir, performance_filename), "w") as f:
+                json.dump([{"fold": i, **r} for i, r in enumerate(fold_results)], f, indent=4)
+        save_training_info(training_info, save_dir, "training_info.json")
+        save_training_info(best_model_results, save_dir, "best_model_results.json")
+        _clear_inprogress(save_dir)
     if best_global_path:
         print(f"Best global model saved at {best_global_path} "
               f"with validation loss: {best_performance:.4f}")

@@ -18,6 +18,13 @@ batch's key (the run's seed, the fold, the epoch, the batch's index) and
 draws (``data/augment.batch_draws``) do not change when mixing is on. The
 device side is ``torch.roll``, a blend and an iota box mask: nothing is
 read back to the host.
+
+In a data-parallel step (``core.mesh.activate``) each rank holds its rows
+of the global batch, and the partner of a row is the global batch's row
+``shift`` before it, often on another rank: the step all-gathers the
+augmented images and the labels into the global order, and each rank takes
+its rows' partners. The draws are the global batch's (its size B, not the
+rank's B / N).
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..core.mesh import active
 
 MIX_TAG = 0x6D6978  # "mix", the JAX package's _MIX_TAG
 
@@ -49,6 +58,18 @@ def roll_partner(images: torch.Tensor, labels: torch.Tensor, shift: int):
     """The partner batch and its labels: both rolled by ``shift`` along the
     batch axis."""
     return torch.roll(images, shift, 0), torch.roll(labels, shift, 0)
+
+
+def roll_partner_global(mesh, n_accum: int, images: torch.Tensor, labels: torch.Tensor,
+                        shift: int):
+    """``roll_partner`` of the global batch, at this rank's rows: the
+    global batch gathered (``Mesh.gather_rows``), then row ``(i - shift)
+    mod B`` for each of this rank's global rows i."""
+    b = images.shape[0] * mesh.world_size
+    rows = torch.as_tensor(mesh.rows(b, n_accum), device=images.device)
+    src = torch.remainder(rows - shift, b)
+    return (mesh.gather_rows(images, n_accum)[src],
+            mesh.gather_rows(labels, n_accum)[src.to(labels.device)])
 
 
 def mixup_images(images: torch.Tensor, partner: torch.Tensor, lam: float) -> torch.Tensor:
@@ -95,9 +116,15 @@ def make_mix_fn(mixup_alpha: Optional[float] = None, cutmix_alpha: Optional[floa
 
     def mix(images: torch.Tensor, labels: torch.Tensor, key: Sequence[int]):
         b, h, w = images.shape[0], images.shape[1], images.shape[2]
+        dp = active()
+        if dp is not None:
+            b *= dp[0].world_size
         cut, lam, shift, cy, cx = mix_draws(key, b, h, w, use_mixup, use_cutmix,
                                             mixup_alpha, cutmix_alpha, switch_prob)
-        partner, labels_b = roll_partner(images, labels, shift)
+        if dp is not None:
+            partner, labels_b = roll_partner_global(dp[0], dp[1], images, labels, shift)
+        else:
+            partner, labels_b = roll_partner(images, labels, shift)
         if cut:
             box, lam = cutmix_box(cy, cx, h, w, lam)
             return cutmix_images(images, partner, box), labels, labels_b, lam

@@ -13,6 +13,17 @@ with a schedule evaluated at the update count before its increment, and
 ``clip_by_global_norm`` over the trainable parameters only. ``ema_decay``
 keeps an exponential moving average of the updated trainable parameters
 in the same state, for evaluation (``--ema_decay``).
+
+On a data-parallel mesh (``core/mesh.py``) ``update`` takes each rank's
+own gradients and reduces them first: one bucketed all-reduce, so the clip
+sees the whole gradients; with ``zero1`` (``--zero1``) the trace and the
+EMA are split over the ranks (``parallel/sharding.Zero1Layout``) and the
+step reduce-scatters the gradients into each rank's shards, clips by the
+global norm (the all-reduced sum of the shards' squares), updates each
+rank's shards with the same arithmetic, and all-gathers the parameters.
+``full_state`` gathers such a state for a save; ``load_full_state`` takes
+each rank's shards from a whole one, so a run saved under one device
+count resumes under another.
 """
 from __future__ import annotations
 
@@ -46,7 +57,8 @@ def label_tree(model: torch.nn.Module,
 def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
                  frozen_fn: Optional[Callable[[str], bool]] = None,
                  clip_norm: Optional[float] = None,
-                 ema_decay: Optional[float] = None) -> Tuple[Callable, Callable]:
+                 ema_decay: Optional[float] = None, mesh=None,
+                 zero1: bool = False) -> Tuple[Callable, Callable]:
     """``torch.optim.SGD(momentum=0.9, dampening=0, nesterov=False)`` over
     the trainable parameters, as the JAX ``sgd_momentum``.
 
@@ -64,7 +76,12 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
     and after each update ``ema <- decay * ema + (1 - decay) * p_new``.
     A frozen parameter never moves, so its average would be its init,
     which is its live value: the state keeps none for it. A decay outside
-    (0, 1) raises JAX's ValueError."""
+    (0, 1) raises JAX's ValueError. ``mesh`` (a ``core.mesh.Mesh``) makes
+    ``update`` reduce each rank's gradients over it; ``zero1`` shards the
+    state over it (no effect on one device, as in JAX)."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
     if ema_decay is not None:
         ema_decay = float(ema_decay)
         if not 0.0 < ema_decay < 1.0:
@@ -78,6 +95,14 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
         if ema_decay is not None:
             # a real copy: the update writes the parameters in place
             state["ema"] = {n: p.detach().clone() for n, p in train}
+        if zero1 and dp is not None:
+            from ..parallel.sharding import Zero1Layout
+
+            layout = Zero1Layout(dp, {n: p.shape for n, p in train})
+            for part in ("trace", "ema"):
+                if part in state:
+                    state[part] = {n: layout.shard(n, t) for n, t in state[part].items()}
+            state["zero1"] = layout
         return state
 
     def update(model: torch.nn.Module, grads: Dict[str, torch.Tensor], state: dict) -> None:
@@ -86,7 +111,13 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
         count = state["count"]
         lr = schedule(count) if schedule is not None else learning_rate
         with torch.no_grad():
+            if "zero1" in state:
+                _zero1_step(state["zero1"], params, names, grads, state, lr)
+                state["count"] = count + 1
+                return
             gs = [grads[n] for n in names]
+            if dp is not None:  # one all-reduce a dtype
+                gs = dp.all_reduce(gs)
             if clip_norm is not None:
                 norm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
                 gs = [torch.where(norm < clip_norm, g, g / norm * clip_norm) for g in gs]
@@ -137,14 +168,68 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
                 ema.copy_(torch.where(lead(on_folds, ema), new, ema))
         state["count"] = [c + int(a) for c, a in zip(counts, active)]
 
+    def _zero1_step(layout, params, names, grads, state, lr) -> None:
+        """``update`` on ZeRO-1 state: gradients reduce-scattered into this
+        rank's shards (replicated leaves all-reduced), the global clip,
+        the trace and parameter update of this rank's part of each leaf,
+        the EMA of those parts, then the parameters all-gathered."""
+        shards, whole = layout.scatter_gradients({n: grads[n] for n in names})
+        gs = {**shards, **whole}
+        if clip_norm is not None:
+            mine = sum(torch.sum(g * g) for g in shards.values()) if shards else None
+            sq = layout.mesh.all_reduce([mine])[0] if mine is not None else 0.0
+            norm = torch.sqrt(sq + sum(torch.sum(g * g) for g in whole.values()))
+            gs = {n: torch.where(norm < clip_norm, g, g / norm * clip_norm)
+                  for n, g in gs.items()}
+        for n in names:
+            trace = state["trace"][n]
+            trace.mul_(momentum).add_(gs[n])
+            layout.part(n, params[n]).add_(trace * -lr)
+        if "ema" in state:
+            emas = list(state["ema"].values())
+            torch._foreach_mul_(emas, ema_decay)
+            torch._foreach_add_(emas, torch._foreach_mul(
+                [layout.part(n, params[n]) for n in state["ema"]], 1.0 - ema_decay))
+        for n, t in layout.gather({n: layout.part(n, params[n])
+                                   for n in layout.sharded}).items():
+            params[n].copy_(t)
+
     update.folds = update_folds
     return init, update
 
 
+def full_state(opt_state: dict) -> dict:
+    """The state with whole tensors: a ZeRO-1 state's trace and EMA
+    gathered from every rank (a collective: every rank calls it); any other
+    state as it is."""
+    layout = opt_state.get("zero1")
+    if layout is None:
+        return opt_state
+    out = {"count": opt_state["count"]}
+    with torch.no_grad():
+        for part in ("trace", "ema"):
+            if part in opt_state:
+                whole = layout.gather({n: opt_state[part][n] for n in layout.sharded})
+                out[part] = {n: whole.get(n, t) for n, t in opt_state[part].items()}
+    return out
+
+
+def load_full_state(opt_state: dict, part: str, tensors: Dict[str, torch.Tensor]) -> None:
+    """Whole tensors ({name: tensor}) into ``opt_state[part]`` in place:
+    each rank's shards under ZeRO-1."""
+    layout = opt_state.get("zero1")
+    with torch.no_grad():
+        for name, t in tensors.items():
+            dst = opt_state[part][name]
+            dst.copy_(layout.part(name, t.to(dst.device)) if layout is not None else t)
+
+
 def find_ema_state(opt_state) -> Optional[Dict[str, torch.Tensor]]:
     """The EMA ({parameter name: average}) an ``sgd_momentum`` state
-    carries, or None."""
-    return opt_state.get("ema") if isinstance(opt_state, dict) else None
+    carries, whole (gathered under ZeRO-1), or None."""
+    if not isinstance(opt_state, dict) or "ema" not in opt_state:
+        return None
+    return full_state(opt_state)["ema"]
 
 
 def extract_ema_variables(model: torch.nn.Module, opt_state) -> torch.nn.Module:

@@ -2,7 +2,13 @@
 SIGTERM sets a flag, the training loop checks it at the next batch
 boundary, checkpoints the exact position and raises
 :class:`PreemptedError`, which the CLI turns into a clean exit with the
-resume hint."""
+resume hint.
+
+On a data-parallel mesh the launching process forwards SIGTERM to every
+rank (``parallel/multihost.launch``), but the signal reaches the ranks at
+different steps; ``preemption_agreed`` all-reduces the flag at each step
+boundary, so every rank stops at the same step and the one checkpoint on
+disk is consistent."""
 from __future__ import annotations
 
 import signal
@@ -32,6 +38,17 @@ def request_preemption(signum=None, frame=None) -> None:
 
 def preemption_requested() -> bool:
     return _PREEMPT.is_set()
+
+
+def preemption_agreed(mesh=None) -> bool:
+    """Whether any rank of ``mesh`` has been asked to stop (this process
+    alone without a data-parallel mesh); a collective on a mesh: every
+    rank calls it at the same step."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    flag = preemption_requested()
+    return dp.any(flag) if dp is not None else flag
 
 
 def clear_preemption() -> None:

@@ -16,6 +16,18 @@ augmented batch is mixed with its rolled partner before the forward and
 the loss is ``lam * CE(y) + (1 - lam) * CE(y_partner)``, label smoothing
 applying to both terms; the batch's mixing key is the loader's
 ``"mix_key"``.
+
+Data parallelism (``mesh``, a ``core.mesh.Mesh`` of more than one rank,
+the JAX ``mesh=`` whose collectives GSPMD inserts): each rank runs the step
+on its rows of the global batch (the loader gives them) under
+``core.mesh.activate``, so the batch norms take the global batch's
+statistics and the mixing rolls the global batch. The loss is the global
+masked NLL sum over the global valid count (one all-reduce of the two
+after the forward), not a mean of per-rank means; a rank whose rows are
+all padding contributes nothing. The optimiser's ``update`` reduces the
+gradients (``train/optim.py``): one reduction a step, also under
+``--grad_accum``. The model is not wrapped in DDP: the loss's global
+count and the hand-written optimiser need the reduction written out.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..core.mesh import activate, data_parallel
 from ..data.augment import eval_preprocess
 from ..utils.debug import check_nan
 
@@ -67,9 +80,28 @@ def _mixed(mix_fn, images, labels, mix_key):
     return mix_fn(images, labels, mix_key)
 
 
+def _global_loss(dp, nll: torch.Tensor, cnt: torch.Tensor):
+    """(this rank's share of the global loss, for its gradients; the
+    global loss): its NLL sum and the global one over the global valid
+    count."""
+    g_nll, g_cnt = dp.all_reduce([nll.detach(), cnt])
+    denom = g_cnt.clamp_min(1.0)
+    return nll / denom, g_nll / denom
+
+
+def _mixed_nll(logits, labels_a, labels_b, lam, label_smoothing):
+    """(masked NLL sum, valid count) of the mixed loss: ``lam * nll(y) +
+    (1 - lam) * nll(y_partner)`` over the one count of ``labels_a``."""
+    nll, cnt = _masked_nll_parts(logits, labels_a, label_smoothing)
+    if lam is not None:
+        nll_b, _ = _masked_nll_parts(logits, labels_b, label_smoothing)
+        nll = lam * nll + (1.0 - lam) * nll_b
+    return nll, cnt
+
+
 def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callable,
                          label_smoothing: float = 0.0,
-                         mix_fn: Optional[Callable] = None) -> Callable:
+                         mix_fn: Optional[Callable] = None, mesh=None) -> Callable:
     """``step(model, opt_state, images_u8, labels, combos=None, draws=None,
     mix_key=None) -> (model, opt_state, loss)``, the JAX
     ``make_train_step_body`` (``:69-115``). ``optimizer`` is ``train/optim.sgd_momentum``'s
@@ -80,22 +112,31 @@ def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callabl
     draws (the loader's ``"combo"`` and ``"draws"``; the JAX step draws
     from its key instead). ``images_u8`` and ``labels`` are numpy arrays
     or tensors. ``mix_fn`` mixes the augmented batch (the JAX ``:86-103``)
-    with the draws of ``mix_key``."""
+    with the draws of ``mix_key``. On a ``mesh`` of several ranks the
+    arguments are this rank's rows and the loss is the global one (module
+    docstring)."""
     _, update = optimizer
+    dp = data_parallel(mesh)
 
     def step(model, opt_state, images_u8, labels, combos=None, draws=None, mix_key=None):
         params = dict(model.named_parameters())
         names = list(opt_state["trace"])
         device = params[names[0]].device
-        images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
-        images, labels_a, labels_b, lam = _mixed(mix_fn, images, _labels_on(labels, device),
-                                                 mix_key)
-        logits = forward_train(model, images)
-        loss = masked_cross_entropy(logits, labels_a, label_smoothing)
-        if lam is not None:
-            loss = lam * loss + (1.0 - lam) * masked_cross_entropy(logits, labels_b,
-                                                                   label_smoothing)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        with activate(dp):
+            images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
+            images, labels_a, labels_b, lam = _mixed(mix_fn, images, _labels_on(labels, device),
+                                                     mix_key)
+            logits = forward_train(model, images)
+            if dp is None:
+                loss = masked_cross_entropy(logits, labels_a, label_smoothing)
+                if lam is not None:
+                    loss = lam * loss + (1.0 - lam) * masked_cross_entropy(logits, labels_b,
+                                                                           label_smoothing)
+                mine = loss
+            else:
+                nll, cnt = _mixed_nll(logits, labels_a, labels_b, lam, label_smoothing)
+                mine, loss = _global_loss(dp, nll, cnt)
+            grads = torch.autograd.grad(mine, [params[n] for n in names])
         update(model, dict(zip(names, grads)), opt_state)
         return model, opt_state, loss.detach()
 
@@ -104,7 +145,7 @@ def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callabl
 
 def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callable,
                           n_accum: int, label_smoothing: float = 0.0,
-                          mix_fn: Optional[Callable] = None) -> Callable:
+                          mix_fn: Optional[Callable] = None, mesh=None) -> Callable:
     """``--grad_accum``: ``step`` as ``make_train_step_body``'s, with one
     optimiser update from ``n_accum`` micro-batches run one after the
     other (JAX ``make_train_step_accum``, ``:153-271``):
@@ -124,33 +165,41 @@ def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callab
       ``:190-200``, ``:233-235``), and each micro-batch's NLL is
       ``lam * nll(y) + (1 - lam) * nll(y_partner)`` over the one valid
       count of its own labels: the rolled labels are the batch's multiset.
+
+    On a ``mesh`` each rank holds its block of every micro-batch
+    (``core.mesh.local_rows``), so a micro-batch's statistics are the
+    single-device micro-batch's; the NLL sums and counts are all-reduced
+    once after the last micro-batch, and the optimiser reduces the summed
+    gradients once.
     """
     _, update = optimizer
     n_accum = int(n_accum)
+    dp = data_parallel(mesh)
 
     def step(model, opt_state, images_u8, labels, combos=None, draws=None, mix_key=None):
         params = dict(model.named_parameters())
         names = list(opt_state["trace"])
         device = params[names[0]].device
-        images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
-        images, labels_t, labels_b, lam = _mixed(mix_fn, images, _labels_on(labels, device),
-                                                 mix_key)
-        b = images.shape[0]
-        if b % n_accum:
-            raise ValueError(f"batch {b} not divisible by n_accum {n_accum}")
-        mb = b // n_accum
-        g_sum, nll_sum, cnt_sum = None, 0.0, 0.0
-        for i in range(n_accum):
-            part = slice(i * mb, (i + 1) * mb)
-            logits = forward_train(model, images[part])
-            nll, cnt = _masked_nll_parts(logits, labels_t[part], label_smoothing)
-            if lam is not None:
-                nll_b, _ = _masked_nll_parts(logits, labels_b[part], label_smoothing)
-                nll = lam * nll + (1.0 - lam) * nll_b
-            grads = torch.autograd.grad(nll, [params[n] for n in names])
-            g_sum = list(grads) if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
-            nll_sum = nll_sum + nll.detach()
-            cnt_sum = cnt_sum + cnt
+        with activate(dp, n_accum):
+            images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
+            images, labels_t, labels_b, lam = _mixed(mix_fn, images,
+                                                     _labels_on(labels, device), mix_key)
+            b = images.shape[0]
+            if b % n_accum:
+                raise ValueError(f"batch {b} not divisible by n_accum {n_accum}")
+            mb = b // n_accum
+            g_sum, nll_sum, cnt_sum = None, 0.0, 0.0
+            for i in range(n_accum):
+                part = slice(i * mb, (i + 1) * mb)
+                logits = forward_train(model, images[part])
+                nll, cnt = _mixed_nll(logits, labels_t[part], labels_b[part], lam,
+                                      label_smoothing)
+                grads = torch.autograd.grad(nll, [params[n] for n in names])
+                g_sum = list(grads) if g_sum is None else [a + g for a, g in zip(g_sum, grads)]
+                nll_sum = nll_sum + nll.detach()
+                cnt_sum = cnt_sum + cnt
+        if dp is not None:
+            nll_sum, cnt_sum = dp.all_reduce([nll_sum, cnt_sum])
         denom = cnt_sum.clamp_min(1.0)
         update(model, {n: g / denom for n, g in zip(names, g_sum)}, opt_state)
         return model, opt_state, nll_sum / denom
@@ -189,6 +238,7 @@ def train_epochs(
     start_epoch: int = 0,
     on_epoch_end: Optional[Callable] = None,
     preemptible: bool = False,
+    mesh=None,
 ):
     """The reference loop (``:378-482``): a print per batch, the epoch's
     mean loss (weighted by each batch's valid entries) and its TensorBoard
@@ -204,8 +254,13 @@ def train_epochs(
     at once, its K steps launched back to back with no host read between
     them, and their K losses fetched together. Each step is the K = 1
     step on the same batch and draws, so the prints, the epoch mean and
-    the weights are K = 1's."""
-    from .preemption import PreemptedError, preemption_requested
+    the weights are K = 1's.
+
+    On a data-parallel ``mesh`` the losses are the global ones, each
+    batch's ``n_valid`` is the global batch's, and the ranks agree on a
+    preemption before each step (an all-reduce of the flag), so all stop
+    at the same step."""
+    from .preemption import PreemptedError, preemption_agreed
 
     n_batches = len(loader)
     k = max(1, int(steps_per_dispatch))
@@ -223,7 +278,7 @@ def train_epochs(
 
         def dispatch(chunk, first_idx):
             nonlocal model, opt_state
-            if preemptible and preemption_requested():
+            if preemptible and preemption_agreed(mesh):
                 raise PreemptedError(fold, epoch)
             if len(chunk) == 1:
                 b = chunk[0]
@@ -261,19 +316,26 @@ def train_epochs(
 
 
 def evaluate(eval_step: Callable, model, loader, num_classes: int, fold: int = 0,
-             writer=None, step: int = 0) -> Dict[str, float]:
+             writer=None, step: int = 0, mesh=None) -> Dict[str, float]:
     """The reference eval loop (``:508-556``): the valid entries' mean loss,
     accuracy and weighted precision, recall and F1, one print line, and the
-    five TensorBoard scalars at ``step``."""
+    five TensorBoard scalars at ``step``. On a data-parallel ``mesh`` each
+    rank evaluates its rows and the losses, predictions and labels are
+    gathered, so every rank gets the single-device metrics."""
     from ..metrics.classification import classification_metrics
 
+    dp = data_parallel(mesh)
     losses, all_preds, all_labels = [], [], []
     for batch in loader:
         loss, _, preds = eval_step(model, batch["image"], batch["label"])
+        labels = np.asarray(batch["label"])
+        if dp is not None:
+            loss, preds = dp.gather_rows(loss), dp.gather_rows(preds)
+            labels = dp.gather_rows(torch.as_tensor(labels).to(dp.device)).cpu().numpy()
         n = batch["n_valid"]
         losses.append(loss.cpu().numpy()[:n])
         all_preds.append(preds.cpu().numpy()[:n])
-        all_labels.append(np.asarray(batch["label"])[:n])
+        all_labels.append(labels[:n])
     losses = np.concatenate(losses)
     preds = np.concatenate(all_preds)
     labels = np.concatenate(all_labels)

@@ -164,10 +164,59 @@ def test_net_job_fn_matches_jax_on_conditional_rows():
 
 @pytest.mark.parametrize("name", ["make_fast_style_train_step", "train_fast_style",
                                   "train_multi_style"])
-def test_training_is_not_ported_yet(name):
-    """Training is ported; its data-parallel path (``mesh=``) is not."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        if name == "make_fast_style_train_step":
-            getattr(pf, name)(None, mesh="data")
+def test_training_is_not_ported_yet(name, tmp_path):
+    """Training is ported, and so is its data-parallel path (``mesh=``;
+    two ranks in tests/test_torch_data_parallel.py): the mesh of a one-rank
+    gloo group runs that path (the gradients' all-reduce, the global mean
+    loss) and gives the numbers of ``mesh=None`` within f32 rounding."""
+    import torch.distributed as dist
+
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import create_mesh, data_parallel
+    from heuristique_style_transfer_code_tpu_torch.ops.gram import gram_matrix_nhwc
+    from heuristique_style_transfer_code_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    def extract(images):
+        return images, [gram_matrix_nhwc(images)]
+
+    u8 = np.random.RandomState(3).randint(0, 256, (2, 20, 20, 3)).astype(np.uint8)
+    styles = [np.random.RandomState(4 + k).randint(0, 256, (24, 24, 3)).astype(np.uint8)
+              for k in range(2)]
+
+    def run(mesh):
+        if name == "train_multi_style":
+            net = pf.net_from_tree(_cond_tree(2), "cpu")
         else:
-            getattr(pf, name)(None, None, None, None, mesh="data")
+            net = pt.transformer_net_init(torch.Generator().manual_seed(0), width=4, n_res=1,
+                                          device="cpu")
+        if name == "make_fast_style_train_step":
+            init, step = pf.make_fast_style_train_step(extract, crop=16, mesh=mesh)
+            grams = pf.encode_style_grams(extract, styles[0], 16, "cpu")
+            net, _, loss = step(net, init(net), u8, grams)
+            history = [float(loss)]
+        elif name == "train_fast_style":
+            net, history = pf.train_fast_style(net, extract, [{"image": u8}], styles[0],
+                                               epochs=1, crop=16, mesh=mesh,
+                                               log_fn=lambda s: None, log_every=1)
+        else:
+            net, history = pf.train_multi_style(net, extract, [{"image": u8}], styles,
+                                                epochs=1, crop=16, mesh=mesh,
+                                                log_fn=lambda s: None, log_every=1)
+        return history, {k: v.detach().clone() for k, v in net.state_dict().items()}
+
+    h0, p0 = run(None)
+    assert not dist.is_initialized()
+    initialize_distributed(0, 1, "file://" + str(tmp_path / "rendezvous"), backend="gloo")
+    try:
+        mesh = create_mesh(1)
+        assert data_parallel(mesh) is mesh and mesh.backend == "gloo"
+        h1, p1 = run(mesh)
+    finally:
+        shutdown_distributed()
+    np.testing.assert_allclose(h1, h0, rtol=1e-6)
+    assert np.isfinite(h0).all()
+    for k in p0:
+        np.testing.assert_allclose(p1[k].numpy(), p0[k].numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
