@@ -291,7 +291,19 @@ Phases, all run every time:
                   pooled_gram_fwd a batch, family 3: 13 instance_norm_fwd
                   a batch, family 1 none); images/s, p50 and p95, mean
                   occupancy, the card's busy share from the direct
-                  forwards' time.
+                  forwards' time. Then ``--devices`` (``devices``): family
+                  2 through two replicas on [cuda:0, cuda:0]
+                  (``core.mesh.DeviceGroup``, a block of 32 rows each) in
+                  rgb and yuv420, and a 2-device artifact (export batch
+                  64) served on them, every answer against one replica's
+                  on the same frames, 8 pooled_gram_fwd a batch, images/s
+                  beside one replica's (one card: a correctness cell, not
+                  a scaling one); and the style service's texture mode
+                  (family 2, layers 5, b4, 5 iterations) on two replicas,
+                  each with its own model from ``cli/serve_style``'s
+                  builder, every job's pixels, loss and iterations against
+                  one replica's, twice one replica's gram_fwd and gram_bwd
+                  launches.
   recycle         --recycle_after_requests with the proxy's parent in a
                   child process of this script (which has initialised
                   CUDA): family 1 f32 at b16, recycled every 48 requests
@@ -357,6 +369,25 @@ Phases, all run every time:
                   launches on every rank; images/s and the collectives' ms
                   a step from a profile; then one NCCL rank (a one-rank
                   group on the card): one step equal to the plain step.
+                  On the same two ranks, the evaluation paths of
+                  ``--devices N`` through the evaluation CLIs' task
+                  functions on 63 PNGs (``cli/_common.eval_loader``, a
+                  rank decoding its rows): family 1 at b32 through
+                  ``evaluate_classification``, its embeddings
+                  (``compute_embeddings_with_paths``) and
+                  ``run_inference``; family 2 at b8 through its CLI's
+                  ``run_classification`` (the JSON rank 0 writes) and
+                  ``evaluate_classification``; family 3 ("instance") at
+                  b32 through its CLI's ``evaluate``: losses,
+                  probabilities, predictions, labels, embeddings and
+                  paths gathered, against one rank; the
+                  family-2 texture loop (layers 5, b4) with rank 0's rows
+                  stopping at the first iteration and rank 1's at the
+                  cap: iterations and final losses against one rank;
+                  each rank's launches (4 pooled_gram_fwd, or 13
+                  instance_norm_fwd and 16 gram_fwd, a forward; a gram_fwd
+                  and a gram_bwd an iteration) and images/s beside one
+                  rank's.
                   These are not multi-card scaling numbers.
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
@@ -672,6 +703,38 @@ DP_TOL, DP_TOL_ZERO1, DP_TIMEOUT_S = 1e-4, 1e-6, 240
 # the CPU one device alone, 4 threads against 1, ends 3 steps with its
 # moves 0.18 apart and its statistics 8.6e-4 (the layer-1 batch norms)
 DP_SPREAD = 3.0
+# data_parallel's evaluation cases (``--devices N`` on the evaluation CLIs'
+# task functions, ``_eval_runs``) on the same two ranks: family 1 (full
+# width) at b{DPE_F1_BATCH}, family 2 (truncate 8, S 7) at b{DPE_F2_BATCH},
+# family 3 (defaults, norm "instance") at b{DPE_F3_BATCH}, DPE_BATCHES
+# batches each, the last with one pad row; the probabilities within
+# DPE_TOL of one rank's (the loss and the embeddings relative), the
+# argmax, predictions, labels, paths and the family-2 JSON's precision,
+# recall and F1 equal (its AUC needs scikit-learn, which the card's
+# machine lacks). The family-2 texture loop (layers
+# 5) at b{DPE_LOOP_BATCH}, DPE_ITERS iterations, whose rank-0 rows start
+# near their targets: a threshold between the rows' first losses stops
+# rank 0's rows at the first iteration while rank 1's run to the cap; the
+# iteration count equal to one rank's and the final losses within DPE_TOL
+# relative of one rank on the same b2 blocks (``drive_masked_adam_blocks``:
+# the ranks' arithmetic without their collectives), and of one rank at b4,
+# or within DP_SPREAD times that one-rank run's own run-to-run gap and its
+# b2 blocks' gap to b4 (cuDNN's f32 convolutions at another batch size),
+# where those are larger. A row that stops near its target has gradients
+# near Adam's eps, which its first step divides by: its loss carries any
+# rounding of the gradient, so the loop runs under cuDNN's deterministic
+# algorithms
+DPE_F1_BATCH, DPE_F2_BATCH, DPE_F3_BATCH, DPE_BATCHES = 32, 8, 32, 2
+DPE_LOOP_BATCH, DPE_ITERS, DPE_NEAR, DPE_TOL = 4, 5, 0.1, 1e-5
+# serve's devices piece: family 2 (truncate 8, S 7) through two replicas
+# on card 0 at b{SERVE_BATCH}, rgb and yuv420, and a 2-device artifact
+# (--export_batch {SERVE_BATCH}); SD_FRAMES frames each, every answer
+# within SERVE_TOL of one replica's on the same frames. Then the style
+# service's texture mode on two replicas at b{SD_STYLE_BATCH},
+# SD_STYLE_ITERS iterations under cuDNN's deterministic algorithms: each
+# job's loss within DPE_TOL relative of one replica's (a b2 block against
+# b4), its pixels within one uint8 level, its iterations equal
+SD_FRAMES, SD_THREADS, SD_STYLE_BATCH, SD_STYLE_ITERS = 256, 32, 4, 5
 
 
 def _require(ok: bool, what: str) -> None:
@@ -5117,7 +5180,158 @@ def _serve_inputs(tmp: str):
     return f1_cfg, f2_cfg, f3_cfg, f3_ckpt, cal, os.path.join(tmp, "serve_q.npz")
 
 
-def phase_serve(kernels, tmp: str, timings: dict) -> dict:
+def _served_frames(server, frames) -> tuple:
+    """Every frame through ``server`` from SD_THREADS client threads after
+    one warm frame: (probabilities in order, seconds, batches, batches with
+    the warm one)."""
+    import numpy as np
+
+    with server:
+        server.submit(frames[0]).result(timeout=600)  # cuDNN's plans, the pinned buffers
+        before = server.stats()["batches"]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SD_THREADS) as pool:
+            futs = list(pool.map(server.submit, frames))
+        probs = np.stack([f.result(timeout=600) for f in futs])
+        seconds = time.perf_counter() - t0
+        batches = server.stats()["batches"]
+    return probs, seconds, batches - before, batches
+
+
+def _serve_devices(kernels, tmp: str, f2_cfg: str, smi: str) -> dict:
+    """``--devices`` on the server (see the module docstring's serve
+    entry): family 2 through two replicas on card 0 in rgb and yuv420, and
+    a 2-device artifact served on them, against one replica."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import DeviceGroup
+    from heuristique_style_transfer_code_tpu_torch.deploy import artifact as dart
+    from heuristique_style_transfer_code_tpu_torch.tasks.serving import BatchingInferenceServer
+
+    t_piece = time.perf_counter()
+    args = serve.build_parser().parse_args([
+        "--family", "gram_attention", "--config_path", f2_cfg, "--model_path",
+        os.path.join(tmp, "family2.npz"), "--batch_size", str(SERVE_BATCH), "--device", DEVICE])
+    fwd, model, _, names = serve._resolve_forward(args)
+    card = torch.device(DEVICE, 0)
+    group = DeviceGroup([card, card])
+    frames = _serve_frames(350, SD_FRAMES, 0)
+    kw = dict(batch_size=SERVE_BATCH, max_delay_ms=50)
+    out, launches = {}, 0
+    t0 = time.perf_counter()
+    blobs, meta = dart.export_infer_artifact(fwd, model, batch_size=SERVE_BATCH, mesh=group,
+                                             class_names=names)
+    path = os.path.join(tmp, "serve_devices_artifact.npz")
+    dart.save_infer_artifact(path, blobs, meta)
+    art = dart.load_infer_artifact(path, devices=group.devices)
+    export_s = time.perf_counter() - t0
+    _require(meta["n_devices"] == 2 and meta["batch_size"] == SERVE_BATCH,
+             f"[serve] the 2-device artifact's meta: {meta}")
+    cases = [("rgb", "rgb", dict(mesh=group)), ("yuv420", "yuv420", dict(mesh=group)),
+             ("artifact_rgb", "rgb", dict(mesh=group, infer_fn=art.server_infer_fns()))]
+    ones = {}
+    for tag, transport, extra in cases:
+        if transport not in ones:
+            ones[transport] = _served_frames(BatchingInferenceServer(
+                fwd, model, transport=transport, **kw), frames)
+        one, one_s = ones[transport][:2]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        server = BatchingInferenceServer(None if "infer_fn" in extra else fwd,
+                                         None if "infer_fn" in extra else model,
+                                         transport=transport, device=card, **kw, **extra)
+        got, seconds, batches, all_batches = _served_frames(server, frames)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        gap = float(abs(got - one).max())
+        argmax = bool((got.argmax(1) == one.argmax(1)).all())
+        want = {k: 0 for k in counts}
+        want["pooled_gram_fwd"] = 4 * 2 * all_batches  # a forward a replica a batch
+        print(f"[serve] devices {tag}: two replicas on {[str(d) for d in server.devices]}, "
+              f"{len(frames)} frames in {batches} batches of {SERVE_BATCH} "
+              f"({SERVE_BATCH // 2} rows a replica): every answer vs one replica's max |dprob| "
+              f"{gap:.3e} (tol {SERVE_TOL['float32']}), argmax equal {argmax}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; {len(frames) / seconds:.1f} "
+              f"images/s against one replica's {len(frames) / one_s:.1f} (both on one card: a "
+              f"correctness cell, not a scaling one) ({smi})")
+        _require(gap <= SERVE_TOL["float32"] and argmax,
+                 f"[serve] devices {tag}: two replicas answer as one")
+        _require(counts == want, f"[serve] devices {tag}: launches {counts} (want {want})")
+        launches += counts["pooled_gram_fwd"]
+        out[tag] = {"gap": gap, "argmax_equal": argmax, "batches": batches,
+                    "images_per_s": len(frames) / seconds,
+                    "one_replica_images_per_s": len(frames) / one_s, "launches": counts}
+    out["artifact_export_and_load_s"] = export_s
+    out["pooled_gram_fwd_launches"] = launches
+    out["style"] = _serve_style_devices(kernels, tmp, f2_cfg, group, smi)
+    out["piece_s"] = time.perf_counter() - t_piece
+    print(f"[serve] devices piece {out['piece_s']:.2f} s (the 2-device artifact's export and "
+          f"load {export_s:.2f} s)")
+    return out
+
+
+def _serve_style_devices(kernels, tmp: str, f2_cfg: str, group, smi: str) -> dict:
+    """The style service's texture mode on the two replicas of ``group``,
+    each replica's Gram program built by ``cli/serve_style``'s builder on
+    its device (a model of its own), against one replica: SD_STYLE_BATCH
+    jobs submitted in order (the same job ids, so the same noise)."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_service import (
+        StyleTransferService,
+    )
+
+    args = serve_style.build_parser().parse_args([
+        "--config_path", f2_cfg, "--model_path", os.path.join(tmp, "family2.npz"),
+        "--layers", "5", "--device", DEVICE])
+    images = list(np.random.RandomState(351).randint(
+        0, 256, (SD_STYLE_BATCH, 224, 224, 3)).astype(np.uint8))
+
+    def jobs(mesh):
+        gram = (serve_style._build_gram_fn(args, group.devices[0]) if mesh is None
+                else mesh.per_device(lambda d: serve_style._build_gram_fn(args, d)))
+        service = StyleTransferService(gram, crop=224, batch_size=SD_STYLE_BATCH,
+                                       num_iterations=SD_STYLE_ITERS, threshold=0.0,
+                                       max_delay_ms=5000, seed=0, device=group.devices[0],
+                                       mesh=mesh)
+        with _deterministic_cudnn(), service:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            done = [f.result(timeout=600) for f in [service.submit(im) for im in images]]
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return done, kernels.launch_counts(), seconds, service.devices
+
+    one, one_counts, one_s, _ = jobs(None)
+    two, counts, seconds, devices = jobs(group)
+    loss_gap = max(abs(a.loss - b.loss) / abs(b.loss) for a, b in zip(two, one))
+    px_gap = max(_u8_gap(a.image, b.image) for a, b in zip(two, one))
+    iters = [r.iterations for r in two]
+    want = {k: 2 * v for k, v in one_counts.items()}
+    print(f"[serve] devices style: texture mode (family 2, layers 5) on two replicas on "
+          f"{[str(d) for d in devices]}, {SD_STYLE_BATCH} jobs in one batch "
+          f"({SD_STYLE_BATCH // 2} a replica), {SD_STYLE_ITERS} iterations, cuDNN's "
+          f"deterministic algorithms: losses {[r.loss for r in two]} against one replica's "
+          f"{[r.loss for r in one]}: {loss_gap:.2e} relative (tol {DPE_TOL}), pixels "
+          f"{px_gap} uint8 levels (tol 1), iterations {iters} (one replica "
+          f"{[r.iterations for r in one]}); launches { {k: v for k, v in counts.items() if v} } "
+          f"(one replica { {k: v for k, v in one_counts.items() if v} }); {seconds:.2f} s "
+          f"against one replica's {one_s:.2f} s (one card: a correctness cell) ({smi})")
+    _require(loss_gap <= DPE_TOL and px_gap <= 1
+             and iters == [r.iterations for r in one] == [SD_STYLE_ITERS] * SD_STYLE_BATCH,
+             "[serve] devices style: two replicas answer as one")
+    _require(counts == want and want["gram_fwd"] > 0 and want["gram_bwd"] > 0,
+             f"[serve] devices style: launches {counts} (want twice one replica's, {want})")
+    return {"loss_gap": loss_gap, "pixel_gap": px_gap, "iterations": iters,
+            "launches": counts, "one_replica_launches": one_counts, "seconds": seconds,
+            "one_replica_seconds": one_s}
+
+
+def phase_serve(kernels, tmp: str, timings: dict, smi: str) -> dict:
     """``cli/serve.start`` at full width, --batch_size 64: family 1 (its
     default config through the family1 phase's npz) in f32, bf16, int8
     (calibrated on a small ImageFolder and written to --quantized_path,
@@ -5179,9 +5393,14 @@ def phase_serve(kernels, tmp: str, timings: dict) -> dict:
     _require(same <= SERVE_TOL["int8"], "the int8 server from --quantized_path answers alike")
     for res in out.values():
         res.pop("probs")
+    out["devices"] = _serve_devices(kernels, tmp, f2_cfg, smi)
+    style = out["devices"]["style"]  # the style service, two replicas and one
     out["launches"] = {"pooled_gram_fwd": out["family2_float32"]["all_launches"][
-        "pooled_gram_fwd"], "instance_norm_fwd": out["family3_instance_float32"][
-        "all_launches"]["instance_norm_fwd"]}
+        "pooled_gram_fwd"] + out["devices"]["pooled_gram_fwd_launches"],
+        "instance_norm_fwd": out["family3_instance_float32"]["all_launches"][
+        "instance_norm_fwd"],
+        **{k: style["launches"][k] + style["one_replica_launches"][k]
+           for k in ("gram_fwd", "gram_bwd")}}
     return out
 
 
@@ -5786,7 +6005,8 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
     --artifact`` (family 2) under SERVE_REQUESTS concurrent POSTs, every
     answer against the direct forward, beside the serve phase's family-2
     run; ``--recycle_after_requests`` with ``--artifact`` (family 1, b16,
-    one recycle), its handover beside the recycle phase's; ``serve_style
+    one recycle, in a child process beside the style checks that follow),
+    its handover beside the recycle phase's; ``serve_style
     --export_artifact`` and ``--artifact`` for texture mode (family 2,
     layers 5, b2), family 3 (norm "instance", b1, with a live iteration's
     host time), content+style (b2) and the fast-style net (``--net``, the
@@ -5914,7 +6134,9 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
              f"[artifact] serve --artifact: 4 pooled_gram_fwd a batch: {run['all_launches']}")
     out["serve"] = run
 
-    # --recycle_after_requests with --artifact: the worker built from the file
+    # --recycle_after_requests with --artifact: the worker built from the file,
+    # in a child process that runs beside the style artifacts' checks below
+    # (their host times and its handover share the host's cores)
     rpaths = {k: os.path.join(tmp, f"artifact_recycle_{k}") for k in
              ("frames.npy", "probs.npy", "out.json", "spec.json")}
     rframes = np.stack(_serve_frames(361, ART_RECYCLE_REQUESTS, 0))
@@ -5927,11 +6149,19 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
                            "--request_timeout", str(RECYCLE_TIMEOUT_S)]}
     with open(rpaths["spec.json"], "w") as f:
         json.dump(spec, f)
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--recycle-parent",
-                           rpaths["spec.json"]], capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--recycle-parent",
+                             rpaths["spec.json"]], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        style_out = _artifact_style_checks(kernels, styles, paths, export_s, texture)
+        child_out, child_err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
-        print(proc.stdout[-4000:])
-        print(proc.stderr[-4000:], file=sys.stderr)
+        print(child_out[-4000:])
+        print(child_err[-4000:], file=sys.stderr)
     _require(proc.returncode == 0, f"the artifact recycling parent exited {proc.returncode}")
     with open(rpaths["out.json"]) as f:
         res = json.load(f)["serve"]
@@ -5959,25 +6189,7 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
                                           "first_build_s", "images_per_s", "p50_ms")}
     out["recycle"]["model_path_handovers_s"] = model_path
 
-    # serve_style artifacts: texture (family 2), family 3 (instance), content+style
-    out["style"] = {tag: _artifact_style(kernels, tag, argv, paths[tag], export_s[tag], batch, k,
-                                         iteration_host=tag == "texture_family3_instance",
-                                         net=tag == "net")
-                    for tag, (argv, batch, k) in styles.items()}
-    f3s = out["style"]["texture_family3_instance"]["launches"]
-    _require(f3s.get("instance_norm_fwd", 0) > 0 and f3s.get("instance_norm_bwd", 0) > 0,
-             f"[artifact] the family-3 style artifact runs K3 and K3': {f3s}")
-    srv, service, url = _serve(texture + ["--artifact", out["style"]["texture_family2"]["path"],
-                                          "--port", "0", "--device", DEVICE])
-    try:
-        status, _, headers = _post_raw(url, np.random.RandomState(390).randint(
-            0, 256, (224, 224, 3)).astype(np.uint8))
-    finally:
-        _stop(srv, service)
-    print(f"[artifact] serve_style --artifact (texture) over HTTP: {status}, X-Iterations "
-          f"{headers.get('X-Iterations')}")
-    _require(status == 200 and headers.get("X-Iterations") == str(ART_STYLE_ITERS),
-             "[artifact] serve_style --artifact answers a POST")
+    out["style"] = style_out
     launches = {k: 0 for k in kernels.launch_counts()}
     for res_ in infer.values():
         for row in res_["rows"]:
@@ -5988,6 +6200,35 @@ def phase_artifact(kernels, kg, kin, tmp: str, timings: dict, serving=None,
             launches[k] += v
     out["launches"] = launches
     timings["artifact_phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _artifact_style_checks(kernels, styles: dict, paths: dict, export_s: dict,
+                           texture: list) -> dict:
+    """The artifact phase's serve_style artifacts, each against live runs
+    (``_artifact_style``): texture (family 2), family 3 (instance),
+    content+style and the net; then one POST through the texture
+    artifact's server."""
+    import numpy as np
+
+    out = {tag: _artifact_style(kernels, tag, argv, paths[tag], export_s[tag], batch, k,
+                                iteration_host=tag == "texture_family3_instance",
+                                net=tag == "net")
+           for tag, (argv, batch, k) in styles.items()}
+    f3s = out["texture_family3_instance"]["launches"]
+    _require(f3s.get("instance_norm_fwd", 0) > 0 and f3s.get("instance_norm_bwd", 0) > 0,
+             f"[artifact] the family-3 style artifact runs K3 and K3': {f3s}")
+    srv, service, url = _serve(texture + ["--artifact", out["texture_family2"]["path"],
+                                          "--port", "0", "--device", DEVICE])
+    try:
+        status, _, headers = _post_raw(url, np.random.RandomState(390).randint(
+            0, 256, (224, 224, 3)).astype(np.uint8))
+    finally:
+        _stop(srv, service)
+    print(f"[artifact] serve_style --artifact (texture) over HTTP: {status}, X-Iterations "
+          f"{headers.get('X-Iterations')}")
+    _require(status == 200 and headers.get("X-Iterations") == str(ART_STYLE_ITERS),
+             "[artifact] serve_style --artifact answers a POST")
     return out
 
 
@@ -6558,6 +6799,220 @@ def _dp_runs(mesh, profile: bool = False, reverse: bool = False,
     return runs
 
 
+def _eval_models():
+    """The evaluation cases' models on the card, from seeded CPU weights
+    through the JAX-layout tree (as the CLIs' loaders read a checkpoint):
+    family 1 (full width), family 2 (truncate 8, S 7), family 3 (config
+    defaults, norm "instance")."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import (
+        load_jax_tree,
+        to_jax_tree,
+    )
+    from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.truncated_resnet50 import (
+        truncated_resnet50_init,
+    )
+
+    cfg3 = MultiPatchGANConfig(norm="instance")
+
+    def f1(gen):
+        return truncated_resnet50_init(gen, F1_TRUNCATE, F1_CLASSES, F1_DIM, device=DEVICE
+                                       if gen is None else "cpu")
+
+    def f2(gen):
+        return gram_attention_init(gen, 8, 4, POOL_S, device=DEVICE if gen is None else "cpu")
+
+    def f3(gen):
+        return multiscale_test_init(gen, cfg3.patch_sizes, ndf=cfg3.ndf,
+                                    num_classes=cfg3.num_classes,
+                                    gram_matrix_dim=cfg3.gram_matrix_dim, norm="instance",
+                                    device=DEVICE if gen is None else "cpu")
+
+    models = {}
+    for name, make, seed in (("f1", f1, 120), ("f2", f2, 121), ("f3", f3, 122)):
+        seeded = to_jax_tree(make(torch.Generator().manual_seed(seed)))
+        models[name] = load_jax_tree(make(None), seeded).eval()
+    return models, cfg3
+
+
+def _eval_loop_inputs(mesh, model):
+    """The texture loop's gram_fn, this rank's starting noise and targets:
+    rows of rank 0 (the first half) start near their targets (the Gram of
+    the noise moved by DPE_NEAR), those of rank 1 far (their images')."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.data.augment import eval_preprocess
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_gram_fn_gram_attention,
+    )
+
+    gram_fn = make_gram_fn_gram_attention(model, 8, layers=5)
+    rng = np.random.RandomState(124)
+    u8 = rng.randint(0, 256, (DPE_LOOP_BATCH, 224, 224, 3)).astype(np.uint8)
+    noise = torch.randn((DPE_LOOP_BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(125))
+    local = (lambda x: x) if mesh is None else mesh.local  # noqa: E731
+    images = eval_preprocess(torch.from_numpy(local(u8)).to(DEVICE))
+    noise = local(noise).to(DEVICE)
+    rows = np.arange(DPE_LOOP_BATCH) if mesh is None else mesh.rows(DPE_LOOP_BATCH)
+    with torch.no_grad():
+        near, far = gram_fn(noise + DPE_NEAR * images)[0], gram_fn(images)[0]
+    pick = torch.as_tensor(rows < DPE_LOOP_BATCH // 2, device=DEVICE)[:, None, None]
+    return gram_fn, noise, torch.where(pick, near, far)
+
+
+def _eval_data(root: str) -> str:
+    """The evaluation cases' ImageFolder: 63 random 256² PNGs under test/
+    (16 a class, the last class one short), so a b32 pass over them ends
+    on a batch with one pad row."""
+    _image_folder(root, 16, seed=126)
+    os.remove(os.path.join(root, "test", "sun", "img_015.png"))
+    return root
+
+
+def _eval_runs(mesh, threshold, data=None, out_dir=None) -> dict:
+    """The data_parallel phase's evaluation cases on ``mesh`` (None: one
+    rank), through the evaluation CLIs' task functions on the ImageFolder
+    at ``data``, each loader ``cli/_common.eval_loader`` (on a mesh
+    ``HostLoader(rows=)``: a rank decodes its rows of every batch alone):
+    family 1's ``tasks/classification.evaluate_classification`` (the step
+    ``run_classification_test`` runs: loss, probabilities, predictions,
+    labels), ``tasks/embeddings.compute_embeddings_with_paths`` and
+    ``tasks/inference.run_inference``; family 2's
+    ``cli/test_gram_attention.run_classification`` (its JSON, written by
+    rank 0 under ``out_dir``) and ``evaluate_classification`` on its
+    forward; family 3's ``cli/test_multi_patchgan.evaluate``. Each case
+    runs DPE_BATCHES batches, the last with one pad row, after a warm
+    batch. Then the texture loop (``make_style_transfer_optimizer(mesh=)``)
+    at ``threshold`` (None: one iteration at threshold 0, the rows' first
+    losses, and nothing else). Each case: its gathered results, this
+    rank's launches, its seconds."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.cli._common import eval_loader
+    from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import (
+        run_classification,
+    )
+    from heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan import evaluate
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import gather_valid
+    from heuristique_style_transfer_code_tpu_torch.data.imagefolder import ImageFolderIndex
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.truncated_resnet50 import (
+        combined_apply,
+        truncated_moco_apply,
+    )
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.tasks.classification import (
+        evaluate_classification,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.embeddings import (
+        compute_embeddings_with_paths,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks.inference import run_inference
+    from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+        make_style_transfer_optimizer,
+    )
+
+    models, cfg3 = _eval_models()
+    out = {}
+    if threshold is not None:
+        index = ImageFolderIndex(os.path.join(data, "test"))
+        f1, f2, f3 = models["f1"], models["f2"], models["f3"]
+
+        def fwd1(m, x):
+            return combined_apply(m.moco, m.classifier, x, F1_TRUNCATE)
+
+        def fwd2(m, x):
+            return gram_attention_apply(m, x, 8, POOL_S, 4)[1]
+
+        def classified(res):
+            return {"loss": float(res["loss"]), "probs": np.asarray(res["probs"]).tolist(),
+                    "preds": np.asarray(res["preds"]).tolist(),
+                    "labels": np.asarray(res["targets"]).tolist()}
+
+        spread = index.samples[::4]  # every class among family 2's few rows
+        cases = {
+            "f1": (DPE_F1_BATCH, index.samples, lambda ld, s: classified(
+                evaluate_classification(fwd1, f1, ld, 4, prob_threshold=0.0, mesh=mesh))),
+            "f1_embeddings": (DPE_F1_BATCH, index.samples, lambda ld, s: dict(zip(
+                ("embeddings", "labels", "paths"), (np.asarray(v).tolist() for v in
+                                                    compute_embeddings_with_paths(
+                                                        lambda m, x: truncated_moco_apply(
+                                                            m.moco, x, F1_TRUNCATE),
+                                                        f1, ld, s, mesh=mesh))))),
+            "f1_inference": (DPE_F1_BATCH, None, lambda ld, s: {"probs": [
+                [p["class_probabilities"][c] for c in index.classes] for p in run_inference(
+                    fwd1, f1, os.path.join(data, "test"), index.classes,
+                    os.path.join(out_dir, "f1_inference"), batch_size=DPE_F1_BATCH,
+                    mesh=mesh)["predictions"]]}),
+            "f2": (DPE_F2_BATCH, spread, lambda ld, s: run_classification(
+                f2, ld, os.path.join(out_dir, "f2"), truncate=8, gram_matrix_size=POOL_S,
+                num_classes=4, mesh=mesh)),  # its --compute_auc needs scikit-learn
+            "f2_probs": (DPE_F2_BATCH, spread, lambda ld, s: classified(
+                evaluate_classification(fwd2, f2, ld, 4, prob_threshold=0.0, mesh=mesh))),
+            "f3": (DPE_F3_BATCH, index.samples, lambda ld, s: {
+                k: np.asarray(v).tolist() for k, v in evaluate(
+                    f3, ld, gram_matrix_dim=cfg3.gram_matrix_dim, norm="instance",
+                    mesh=mesh).items() if k != "spans"}),
+        }
+        for name, (batch, samples, run) in cases.items():
+            if samples is not None:
+                samples = samples[:batch * DPE_BATCHES - 1]
+                run(eval_loader(samples[:batch], batch, mesh, shuffle=False),
+                    samples[:batch])  # cuDNN's plans
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = run(None if samples is None else eval_loader(samples, batch, mesh,
+                                                               shuffle=False), samples)
+            seconds = time.perf_counter() - t0
+            out[name] = {**res, "launches": kernels.launch_counts(), "seconds": seconds,
+                         "images_per_s": (batch * DPE_BATCHES - 1) / seconds}
+    gram_fn, noise, targets = _eval_loop_inputs(mesh, models["f2"])
+    iters = DPE_ITERS if threshold is not None else 1
+    run = make_style_transfer_optimizer(gram_fn, 0.01, iters, threshold or 0.0, mesh=mesh)
+    with _deterministic_cudnn():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, done, per = run(noise, [targets])
+        (per,) = gather_valid(mesh, [per])
+        out["loop"] = {"iters": int(done), "per": per.tolist(),
+                       "launches": kernels.launch_counts(), "seconds": time.perf_counter() - t0}
+        if mesh is None and threshold is not None:
+            # one rank on the two ranks' blocks (b2 each, the loop's end over
+            # both), twice: the ranks' arithmetic without their collectives,
+            # and its own run-to-run spread
+            import functools
+
+            from heuristique_style_transfer_code_tpu_torch.tasks.style_transfer import (
+                drive_masked_adam_blocks,
+                make_per_image_gram_loss,
+                masked_adam_step,
+            )
+
+            loss = make_per_image_gram_loss(gram_fn)
+            halves = (slice(0, DPE_LOOP_BATCH // 2), slice(DPE_LOOP_BATCH // 2, DPE_LOOP_BATCH))
+            steps = [functools.partial(masked_adam_step, lambda x, t=targets[h]: loss(x, t),
+                                       0.01, threshold) for h in halves]
+            for key in ("loop_blocks", "loop_blocks_again"):
+                _, done, per = drive_masked_adam_blocks(steps, [noise[h] for h in halves],
+                                                        DPE_ITERS)
+                out[key] = {"iters": int(done), "per": torch.cat(per).tolist()}
+    return out
+
+
 def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
     """A spawned gloo rank of the data_parallel phase on card 0: the runs of
     ``_dp_runs`` on its mesh, then its results (rank 0's trees, every
@@ -6583,6 +7038,10 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         mesh = create_mesh(world, devices=[card] * world)
         start_s = time.perf_counter() - t0
         runs = _dp_runs(mesh, profile=True)
+        with open(os.path.join(out_dir, "eval_threshold.json")) as f:
+            spec = json.load(f)
+        evals = _eval_runs(mesh, spec["threshold"], spec["data"],
+                           os.path.join(out_dir, "eval_two_ranks"))
         trees = {"final": {}, "step1": {}}
         for name, run in runs.items():
             run.pop("init")
@@ -6596,7 +7055,7 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "world": world, "backend": "gloo",
                        "staged_on_host": mesh.stage_on_host, "start_s": start_s,
-                       "runs": runs}, f, default=str)
+                       "runs": runs, "evals": evals}, f, default=str)
     finally:
         shutdown_distributed()
 
@@ -6645,6 +7104,101 @@ def _tree_gaps(got, want, init) -> dict:
             "worst_leaf_move": rel([worst], move)}
 
 
+def _check_evals(ranks, one, first, threshold: float, launches_total: dict, smi: str,
+                 dp_dir: str) -> dict:
+    """The evaluation cases of the two ranks against one rank's (see
+    DPE_*): every rank's gathered results, its exact launches, and the
+    images/s of the two ranks (rank 0's wall clock) beside one rank's."""
+    import numpy as np
+
+    out = {"threshold": threshold, "first_losses": first.tolist()}
+    k2 = {"pooled_gram_fwd": 4 * DPE_BATCHES}
+    want = {"f1": {}, "f1_embeddings": {}, "f1_inference": {}, "f2": k2, "f2_probs": k2,
+            "f3": {"instance_norm_fwd": F3_NORMS * DPE_BATCHES,
+                   "gram_fwd": F3_GRAMS * DPE_BATCHES},
+            "loop": {"gram_fwd": DPE_ITERS, "gram_bwd": DPE_ITERS}}
+    for name in want:
+        ref = one[name]
+        per_rank = [rk["evals"][name]["launches"] for rk in ranks]
+        for rk_launches in per_rank:
+            for k, v in rk_launches.items():
+                launches_total[k] += v
+        expect = {k: 0 for k in per_rank[0]}
+        expect.update(want[name])
+        _require(all(rl == expect for rl in per_rank),
+                 f"[data_parallel] eval {name}: each rank's launches {per_rank} (want {expect})")
+        if name == "loop":
+            iters = [rk["evals"][name]["iters"] for rk in ranks]
+            got = np.asarray(ranks[0]["evals"][name]["per"])
+            want_per, blocks = np.asarray(ref["per"]), np.asarray(one["loop_blocks"]["per"])
+
+            def rel(a, b):
+                return float(np.max(np.abs(a - b) / np.abs(b)))
+
+            again = np.asarray(one["loop_blocks_again"]["per"])
+            gap, like, spread = rel(got, want_per), rel(got, blocks), rel(blocks, want_per)
+            own = rel(again, blocks)
+            like_limit = max(DPE_TOL, DP_SPREAD * own)
+            limit = max(DPE_TOL, DP_SPREAD * max(spread, own))
+            print(f"[data_parallel] eval texture loop b{DPE_LOOP_BATCH} (layers 5, cuDNN's "
+                  f"deterministic algorithms): first losses {first.tolist()}, threshold "
+                  f"{threshold:.3e}; iterations per rank {iters} (one rank {ref['iters']}, one "
+                  f"rank on the ranks' b2 blocks {one['loop_blocks']['iters']}); final losses "
+                  f"{got.tolist()}: against one rank on the same b2 blocks {like:.2e} (tol "
+                  f"{like_limit:.2e}: DPE_TOL or {DP_SPREAD} times that run's own run-to-run "
+                  f"gap, {own:.2e}), against one rank at b{DPE_LOOP_BATCH} {gap:.2e} (tol "
+                  f"{limit:.2e}: or {DP_SPREAD} times the b2 blocks' gap to it, {spread:.2e}); "
+                  f"launches per rank {per_rank} ({smi})")
+            _require(iters == [ref["iters"]] * len(ranks) == [DPE_ITERS] * len(ranks)
+                     and one["loop_blocks"]["iters"] == DPE_ITERS and like <= like_limit
+                     and gap <= limit,
+                     "[data_parallel] the texture loop's two ranks end as one rank does")
+            out[name] = {"iters": iters, "per": got.tolist(), "one_rank_per": ref["per"],
+                         "one_rank_blocks_per": blocks.tolist(), "gap": gap,
+                         "gap_same_blocks": like, "blocks_spread": spread,
+                         "blocks_own_spread": own, "limit": limit, "like_limit": like_limit,
+                         "launches_per_rank": per_rank}
+            continue
+        got = ranks[0]["evals"][name]
+        same = all(rk["evals"][name] == {**got, "launches": rk["evals"][name]["launches"],
+                                         "seconds": rk["evals"][name]["seconds"],
+                                         "images_per_s": rk["evals"][name]["images_per_s"]}
+                   for rk in ranks)
+        checks, gaps = [], {}
+        if name == "f2":  # the family-2 CLI's JSON: its metrics, and rank 0 wrote it
+            path = os.path.join(dp_dir, "eval_two_ranks", "f2", "classification_results.json")
+            with open(path) as f:
+                written = json.load(f)
+            checks.append(all(written[k] == got[k] for k in written))
+            for k in ("precision", "recall", "f1_score"):
+                checks.append(got[k] == ref[k])
+        elif name == "f1_embeddings":
+            e, w = np.asarray(got["embeddings"]), np.asarray(ref["embeddings"])
+            gaps["embeddings_rel"] = float(np.abs(e - w).max() / np.abs(w).max())
+            checks += [got["labels"] == ref["labels"], got["paths"] == ref["paths"]]
+        else:
+            p, w = np.asarray(got["probs"]), np.asarray(ref["probs"])
+            gaps["probs"] = float(np.abs(p - w).max())
+            checks.append(bool((p.argmax(1) == w.argmax(1)).all()))
+            if "loss" in got:
+                gaps["loss_rel"] = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            checks += [got[k] == ref[k] for k in ("preds", "labels") if k in got]
+        ips = got["images_per_s"]
+        rows = DPE_F2_BATCH if name.startswith("f2") else DPE_F1_BATCH
+        print(f"[data_parallel] eval {name}: {rows * DPE_BATCHES - 1} valid rows in "
+              f"{DPE_BATCHES} batches, two ranks vs one: gaps "
+              f"{ {k: f'{v:.3e}' for k, v in gaps.items()} } (tol {DPE_TOL}), predictions, "
+              f"labels, argmax, paths or metrics equal {all(checks)}, ranks hold the same "
+              f"{same}; launches per rank {per_rank}; {ips:.1f} images/s on two ranks sharing "
+              f"the card against {ref['images_per_s']:.1f} on one (a correctness cell, not a "
+              f"scaling one) ({smi})")
+        _require(all(v <= DPE_TOL for v in gaps.values()) and all(checks) and same,
+                 f"[data_parallel] eval {name}: two ranks answer as one")
+        out[name] = {"gaps": gaps, "equal": all(checks), "launches_per_rank": per_rank,
+                     "images_per_s": ips, "one_rank_images_per_s": ref["images_per_s"]}
+    return out
+
+
 def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     """Data-parallel training on the one card (see the module docstring):
     (a) the one-rank runs of ``_dp_runs`` here; (b) DP_RANKS gloo ranks
@@ -6665,9 +7219,18 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     out = {"power": smi}
     one = _dp_runs(None)
     spread = _dp_runs(None, reverse=True, names=("f2", "f3_instance"))
-    t0 = time.perf_counter()
     dp_dir = os.path.join(tmp, "data_parallel")
     os.makedirs(dp_dir, exist_ok=True)
+    first = np.asarray(_eval_runs(None, None)["loop"]["per"])
+    half = DPE_LOOP_BATCH // 2
+    _require(first[:half].max() * 100 < first[half:].min(),
+             f"the texture loop's rank-0 rows start near their targets: {first.tolist()}")
+    threshold = float(np.sqrt(first[:half].max() * first[half:].min()))
+    data = _eval_data(os.path.join(dp_dir, "eval_data"))
+    with open(os.path.join(dp_dir, "eval_threshold.json"), "w") as f:
+        json.dump({"threshold": threshold, "data": data}, f)
+    one_eval = _eval_runs(None, threshold, data, os.path.join(dp_dir, "eval_one_rank"))
+    t0 = time.perf_counter()
     multihost.launch(DP_RANKS, None, [], target=_dp_rank, target_args=(dp_dir,),
                      rendezvous_dir=tmp, deadline_s=DP_TIMEOUT_S)
     out["spawn_and_runs_s"] = time.perf_counter() - t0
@@ -6765,6 +7328,8 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     out["profiled_step_device_busy_ms"] = f2r0.get("profiled_step_device_busy_ms")
     out["ranks_start_s"] = [rk["start_s"] for rk in ranks]
 
+    out["evals"] = _check_evals(ranks, one_eval, first, threshold, launches_total, smi, dp_dir)
+
     # (c) one NCCL rank: the data-parallel path with NCCL's collectives
     from heuristique_style_transfer_code_tpu_torch.config.schema import (
         GramAttentionConfig,
@@ -6834,7 +7399,8 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
 
 def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
     """``--only a,b``: the named later phases alone (artifact, style_int8,
-    native_decode, parallel_folds, data_parallel), their results in
+    native_decode, parallel_folds, data_parallel, serve_devices: the serve
+    phase's ``devices`` piece), their results in
     ``chiprun_out/chip_smoke_only.json``; no result line."""
     import torch
 
@@ -6847,7 +7413,8 @@ def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
         gram_attention_init,
     )
 
-    known = ("artifact", "style_int8", "native_decode", "parallel_folds", "data_parallel")
+    known = ("artifact", "style_int8", "native_decode", "parallel_folds", "data_parallel",
+             "serve_devices")
     _require(set(phases) <= set(known), f"--only takes {known}: {phases}")
     out, timings = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -6866,6 +7433,11 @@ def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
                 out[phase] = phase_native_decode(tmp, timings)
             elif phase == "data_parallel":
                 out[phase] = phase_data_parallel(kernels, tmp, timings, smi)
+            elif phase == "serve_devices":
+                save_pytree_npz(to_jax_tree(gram_attention_init(
+                    torch.Generator().manual_seed(0), 8, 4, POOL_S, device="cpu")),
+                    os.path.join(tmp, "family2.npz"))
+                out[phase] = _serve_devices(kernels, tmp, _serve_inputs(tmp)[1], smi)
             else:
                 out[phase] = phase_parallel_folds(kernels, tmp, timings)
             print(f"[{phase}] {time.perf_counter() - t0:.2f} s")
@@ -7010,7 +7582,7 @@ def main() -> int:
         print(f"[ema_mix+auto_batch+int8] {timings['ema_mix_auto_batch_int8_phases_s']:.2f} s "
               f"in all")
         t0 = time.perf_counter()
-        serving = phase_serve(kernels, tmp, timings)
+        serving = phase_serve(kernels, tmp, timings, smi)
         timings["serve_phase_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         recycle = phase_recycle(kernels, tmp, timings)
@@ -7035,9 +7607,11 @@ def main() -> int:
                 "pooled_gram_bwd": f2t["launches"]["pooled_gram_bwd"]
                 + ema_mix["launches"]["pooled_gram_bwd"],
                 "gram_fwd": st_launches["gram_fwd"] + cs_launches["gram_fwd"]
-                + fst_launches["gram_fwd"] + f3_serve["launches"]["gram_fwd"],
+                + fst_launches["gram_fwd"] + f3_serve["launches"]["gram_fwd"]
+                + serving["launches"]["gram_fwd"],
                 "gram_bwd": st_launches["gram_bwd"] + cs_launches["gram_bwd"]
-                + fst_launches["gram_bwd"] + f3_serve["launches"]["gram_bwd"],
+                + fst_launches["gram_bwd"] + f3_serve["launches"]["gram_bwd"]
+                + serving["launches"]["gram_bwd"],
                 "instance_norm_fwd": fs_launches["instance_norm_fwd"]
                 + fst_launches["instance_norm_fwd"] + f3t["launches"]["instance_norm_fwd"]
                 + remat["launches"]["instance_norm_fwd"]

@@ -196,17 +196,22 @@ def weighted_auc_or_none(labels, probs, branch_on: str = "labels"):
         return None
 
 
+DEVICES_HELP = ("Number of devices for the data-parallel mesh (default: all on train CLIs, 1 "
+                "on eval and serve CLIs). Train and eval CLIs: one process a device, NCCL "
+                "between cards, gloo on the CPU, where --devices N starts N processes. "
+                "Servers: one replica a device in the one process (on the CPU, N CPU "
+                "replicas)")
+
+
 def add_device_args(parser, precisions=("float32", "bf16")) -> None:
     """The JAX CLIs' ``add_tpu_args`` flags plus ``--device``. ``--devices``
-    runs data-parallel training on the train CLIs (``build_mesh``); the
-    evaluation and serving CLIs still refuse a value other than 1."""
+    runs data-parallel training on the train CLIs (``build_mesh``) and
+    data-parallel evaluation on the evaluation CLIs (``resolve_eval_mesh``),
+    one process a device, and one replica a device in the one process of
+    the servers (``resolve_serve_group``)."""
     parser.add_argument("--precision", choices=list(precisions), default="float32",
                         help="Compute precision policy")
-    parser.add_argument("--devices", type=int, default=None,
-                        help="Number of devices for the data-parallel mesh (default: all on "
-                        "train CLIs, 1 on eval CLIs; one process a device: NCCL between "
-                        "cards, gloo on the CPU, where --devices N starts N processes; "
-                        "eval and serve CLIs: not ported yet)")
+    parser.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of the run to this directory")
     parser.add_argument("--debug_nans", action="store_true",
@@ -372,50 +377,209 @@ def clamp_devices(n_devices: Optional[int], batch_size: int, device: str = "cuda
     return n
 
 
+def _backend(args) -> str:
+    return "nccl" if torch.device(args.device).type == "cuda" else "gloo"
+
+
+def _join_mesh(args):
+    """In a rank (``torchrun``, or the ranks ``launch`` spawns): join the
+    process group (NCCL for ``--device cuda``, gloo for ``cpu``) and
+    return this rank's mesh; its standard output goes to ``os.devnull``
+    unless it is rank 0."""
+    from ..core.mesh import create_mesh
+    from ..parallel.multihost import initialize_distributed, quiet_unless_main
+
+    rank = initialize_distributed(backend=_backend(args))
+    quiet_unless_main(rank)
+    mesh = create_mesh()
+    if mesh.device.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.world_size))
+    return mesh
+
+
+def _launch_ranks(n: int, module: str, argv: Optional[List[str]]) -> None:
+    import sys
+
+    from ..parallel.multihost import launch
+
+    launch(n, module, sys.argv[1:] if argv is None else list(argv))
+
+
+def _print_clamp(requested: Optional[int], n: int, batch_size: int, extra: str = "") -> None:
+    if requested not in (None, n):
+        print(f"--devices {requested}: using {n} device(s) (those available, then the "
+              f"largest count dividing the batch of {batch_size}{extra})")
+
+
 def build_mesh(args, batch_size: int, module: str, argv: Optional[List[str]]):
     """``--devices`` of a train CLI: ``(mesh, launched)``.
 
-    - In a rank (``torchrun``, or the ranks ``launch`` spawns): join the
-      process group (NCCL for ``--device cuda``, gloo for ``cpu``), and
-      return this rank's mesh; its standard output goes to ``os.devnull``
-      unless it is rank 0.
+    - In a rank: ``_join_mesh``.
     - Otherwise clamp the count (``clamp_devices``, the clamp printed);
       at one device return ``(None, False)``, the single-device path; at N
       > 1 run ``module.main(argv)`` in N spawned ranks
       (``parallel/multihost.launch``) and return ``(None, True)`` once they
       all exit 0 (a failing rank raises ``SystemExit``)."""
-    import sys
+    from ..parallel.multihost import in_process_group_env
 
-    from ..core.mesh import create_mesh
-    from ..parallel.multihost import (
-        in_process_group_env,
-        initialize_distributed,
-        launch,
-        quiet_unless_main,
-    )
-
-    backend = "nccl" if torch.device(args.device).type == "cuda" else "gloo"
     if in_process_group_env():
-        rank = initialize_distributed(backend=backend)
-        quiet_unless_main(rank)
-        mesh = create_mesh()
-        if mesh.device.type == "cpu":  # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.world_size))
-        return mesh, False
+        return _join_mesh(args), False
     accum = int(getattr(args, "grad_accum", 1) or 1)
     if accum > 1 and batch_size % accum:
         raise SystemExit(f"--grad_accum {accum} does not divide batch_size {batch_size}")
     n = clamp_devices(args.devices, batch_size, args.device, accum)
-    if args.devices not in (None, n):
-        print(f"--devices {args.devices}: using {n} device(s) (those available, then the "
-              f"largest count dividing the batch of {batch_size}"
-              + (f" in {accum} micro-batches" if accum > 1 else "") + ")")
+    _print_clamp(args.devices, n, batch_size, f" in {accum} micro-batches" if accum > 1 else "")
     if n == 1:
         return None, False
-    print(f"Data-parallel training: {n} ranks ({backend}), {batch_size // n} images a rank "
-          "per step")
-    launch(n, module, sys.argv[1:] if argv is None else list(argv))
+    print(f"Data-parallel training: {n} ranks ({_backend(args)}), {batch_size // n} images a "
+          "rank per step")
+    _launch_ranks(n, module, argv)
     return None, True
+
+
+def resolve_eval_mesh(args, batch_size: int, module: str, argv: Optional[List[str]]):
+    """``--devices`` of an evaluation CLI (the JAX ``resolve_eval_mesh``,
+    ``:890-898``): ``(mesh, launched)``, in the modes to which JAX passes
+    a mesh.
+
+    - Left out, or 1: one device, ``(None, False)`` (not the train CLIs'
+      "every card").
+    - In a rank: ``_join_mesh``; the world size must divide the batch.
+    - Otherwise clamp to the cards available (on the CPU a rank is a
+      process, so any count), then to the largest count dividing
+      ``batch_size``, the clamp printed; at one device ``(None, False)``;
+      at N > 1 run ``module.main(argv)`` in N spawned ranks and return
+      ``(None, True)`` once they all exit 0. Each rank decodes and runs its
+      rows of every batch; rank 0 writes every file."""
+    from ..parallel.multihost import in_process_group_env
+
+    if in_process_group_env():
+        mesh = _join_mesh(args)
+        if batch_size % mesh.world_size:
+            raise SystemExit(f"{mesh.world_size} ranks do not divide the batch of {batch_size}; "
+                             "run this mode with a dividing --batch_size or one process")
+        return mesh, False
+    if args.devices is None or args.devices <= 1:
+        return None, False
+    n = clamp_devices(args.devices, batch_size, args.device)
+    _print_clamp(args.devices, n, batch_size)
+    if n == 1:
+        return None, False
+    print(f"Data-parallel evaluation: {n} ranks ({_backend(args)}), {batch_size // n} images "
+          "a rank per batch")
+    _launch_ranks(n, module, argv)
+    return None, True
+
+
+def resolve_style_mesh(args, batch_size: int, module: str, argv: Optional[List[str]]):
+    """The style loops' mesh (the JAX ``resolve_style_mesh``, ``:901-926``):
+    the data axis as ``resolve_eval_mesh``; ``--shard_spatial`` > 1 (each
+    canvas's rows over devices) is not ported yet."""
+    if int(getattr(args, "shard_spatial", 1) or 1) > 1:
+        raise NotImplementedError("--shard_spatial is not ported yet")
+    return resolve_eval_mesh(args, batch_size, module, argv)
+
+
+def eval_loader(samples, batch_size: int, mesh, **kwargs):
+    """The evaluation CLIs' ``HostLoader``: on a data-parallel ``mesh``,
+    this rank's rows of every batch alone are decoded."""
+    from ..core.mesh import data_parallel
+    from ..data.loader import HostLoader
+
+    rows = None if data_parallel(mesh) is None else mesh.rows(batch_size)
+    return HostLoader(samples, batch_size, rows=rows, **kwargs)
+
+
+def agreed_seed(seed: Optional[int], mesh) -> Optional[int]:
+    """``seed``, or where it is None and the mesh has ranks, rank 0's random
+    draw, so that ``--num_samples`` picks the same samples on every rank."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    if seed is not None or dp is None:
+        return seed
+    return int(dp.max(random.randint(0, 2**31 - 1) if dp.is_main else -1))
+
+
+def resolve_serve_group(n_devices: Optional[int], batch_size: int, device):
+    """``--devices`` of the servers (the JAX ``resolve_eval_mesh`` on a
+    batch, ``:890-898``): None for one device (left out, or 1), else a
+    ``core.mesh.DeviceGroup`` of one replica a device in this process:
+    the first N cards (clamped to those visible), or N CPU replicas; then
+    the largest count dividing ``batch_size``, the clamp printed."""
+    from ..core.mesh import DeviceGroup
+
+    if n_devices is None or n_devices <= 1:
+        return None
+    dev = torch.device(device)
+    n = clamp_devices(n_devices, batch_size, dev.type)
+    _print_clamp(n_devices, n, batch_size)
+    if n == 1:
+        return None
+    return DeviceGroup([torch.device("cuda", k) for k in range(n)] if dev.type == "cuda"
+                       else ["cpu"] * n)
+
+
+def visible_devices(device) -> int:
+    """The devices of ``device``'s kind this host shows (the CPU: any count,
+    a replica being a copy of the model)."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1 << 30
+
+
+def export_group(args, batch: Optional[int], what: str):
+    """``--devices`` of a server's ``--export_artifact`` with the JAX CLI's
+    checks and messages (``cli/serve.py:238-262``): the group the artifact
+    seals, or None. ``batch``: the batch each device count must divide
+    (``serve``'s ``--export_batch``, None when symbolic; ``serve_style``'s
+    ladder gcd), ``what`` the flag it came from, as the messages name it."""
+    if not (args.devices and args.devices > 1):
+        return None
+    if batch is None:
+        raise ValueError("--devices with --export_artifact needs a "
+                         "concrete --export_batch (sharded SPMD export "
+                         "cannot use a symbolic batch)")
+    if batch % args.devices:
+        # never silently seal a smaller group than asked for: the artifact
+        # would then require that clamped device count forever
+        raise ValueError(
+            f"{what} is not divisible by --devices "
+            f"{args.devices}; pick a dividing batch (the device count "
+            "is sealed into the artifact)"
+        )
+    group = resolve_serve_group(args.devices, batch, args.device)
+    got = group.size if group is not None else 1
+    if got != args.devices:
+        # the clamp to the visible cards would seal the clamped count into
+        # the artifact forever
+        raise ValueError(
+            f"--devices {args.devices} requested but only a {got}-device "
+            f"mesh could be built here ({visible_devices(args.device)} visible); "
+            "export on a host that sees the target device count"
+        )
+    return group
+
+
+def artifact_group(args, path: str):
+    """``--devices`` of a server's ``--artifact`` (JAX ``cli/serve.py:301-323``):
+    an artifact of N devices seals N, so a group of N is rebuilt (refused
+    where fewer are visible, ``--devices`` ignored with JAX's note); None
+    for a one-device artifact, whose program ignores ``--devices``."""
+    from ..deploy.artifact import read_meta
+
+    n_dev = int(read_meta(path).get("n_devices", 1))
+    if n_dev == 1:
+        if args.devices:
+            print("Note: --devices is ignored with an unsharded --artifact "
+                  "(the program is sealed; shard at export time: "
+                  "--export_artifact with --devices N --export_batch B)")
+        return None
+    if visible_devices(args.device) < n_dev:
+        raise SystemExit(f"artifact was exported SPMD over {n_dev} devices but "
+                         f"only {visible_devices(args.device)} are visible")
+    if args.devices and args.devices != n_dev:
+        print(f"Note: artifact seals its sharding over {n_dev} "
+              f"devices (--devices {args.devices} ignored)")
+    return resolve_serve_group(n_dev, n_dev, args.device)
 
 
 def apply_grad_accum(args, setup, batch_size: int) -> None:
@@ -745,12 +909,41 @@ def collect_calibration_batches(loader, n: int = 2, with_labels: bool = False,
     return cal
 
 
-def calibration_inputs(args, batch_size: int, device):
+def _tree_to(tree, device):
+    """A tree of dicts and lists with its tensors on ``device`` (its other
+    leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def _tree_per_device(tree) -> Callable:
+    """``on(device)``: ``tree`` on ``device``, moved once a device, so a
+    forward that closes over it runs on each serving replica's device."""
+    made = {}
+
+    def on(device):
+        if device not in made:
+            made[device] = _tree_to(tree, device)
+        return made[device]
+
+    return on
+
+
+def calibration_inputs(args, batch_size: int, device, mesh=None):
     """(calibration batches, labelled batches or None) of the int8 CLIs:
     the first 2 batches of ``make_calibration_loader``, or with
     ``--qat_steps`` 4 labelled ones for the fine-tune, whose first 2
     calibrate (JAX's CLIs); (None, None) when ``--quantized_path`` exists
-    (nothing to calibrate)."""
+    (nothing to calibrate), and on a data-parallel ``mesh``'s ranks but
+    rank 0 (which quantises for them all)."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    if dp is not None and not dp.is_main:
+        return None, None
     if args.quantized_path and os.path.exists(args.quantized_path):
         return None, None
     loader = make_calibration_loader(args, batch_size)
@@ -761,12 +954,35 @@ def calibration_inputs(args, batch_size: int, device):
 
 
 def _quantized_encoder(model, encoder, truncate: int, cal_batches, quantized_path,
-                       qat_steps: int, qat_lr: float, labeled_batches, qat_logits):
+                       qat_steps: int, qat_lr: float, labeled_batches, qat_logits, mesh=None):
     """``encoder`` (a part of ``model``) quantised: loaded from
     ``quantized_path`` when it exists, else calibrated on ``cal_batches``,
     with ``qat_steps`` > 0 the whole ``model`` fine-tuned first through
     ``qat_logits(model, scales, images)`` on ``labeled_batches``, then
-    quantised and, with a path, saved."""
+    quantised and, with a path, saved. On a data-parallel ``mesh`` rank 0
+    alone does this (and writes the file); every other rank takes rank 0's
+    tree, and its fine-tuned weights, from one broadcast, so the ranks
+    quantise as one device does whatever the file's state."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    device = next(encoder.parameters()).device
+    if dp is None:
+        return _quantize_here(model, encoder, truncate, cal_batches, quantized_path, qat_steps,
+                              qat_lr, labeled_batches, qat_logits)
+    q, state = None, None
+    if dp.is_main:
+        q = _quantize_here(model, encoder, truncate, cal_batches, quantized_path, qat_steps,
+                           qat_lr, labeled_batches, qat_logits)
+        q, state = _tree_to(q, "cpu"), _tree_to(model.state_dict(), "cpu") if qat_steps else None
+    q, state = dp.broadcast((q, state))
+    if state is not None:
+        model.load_state_dict(state)
+    return _tree_to(q, device)
+
+
+def _quantize_here(model, encoder, truncate: int, cal_batches, quantized_path, qat_steps: int,
+                   qat_lr: float, labeled_batches, qat_logits):
     from ..nn.resnet_int8 import (
         calibrate_activation_scales,
         load_quantized,
@@ -796,15 +1012,17 @@ def _quantized_encoder(model, encoder, truncate: int, cal_batches, quantized_pat
 
 def build_int8_family1(model, truncate: int, cal_batches=None, keep_encoder: bool = False,
                        quantized_path: Optional[str] = None, qat_steps: int = 0,
-                       qat_lr: float = 1e-4, labeled_batches=None):
+                       qat_lr: float = 1e-4, labeled_batches=None, mesh=None):
     """The family-1 int8 setup (JAX ``build_int8_family1``): the encoder
     post-training quantised (or loaded from ``quantized_path``), the MoCo
     fc and the classifier kept in float. ``qat_steps`` > 0 first
     fine-tunes encoder and heads through the fake-quant forward on
     ``labeled_batches``. The float encoder is dropped from ``model`` unless
-    ``keep_encoder`` (Grad-CAM needs it). Returns (forward_eval, embed_fn,
-    model) with ``forward_eval(model, images) -> logits`` and
-    ``embed_fn(model, images) -> embeddings``."""
+    ``keep_encoder`` (Grad-CAM needs it). ``mesh``: the ranks' quantisation
+    (``_quantized_encoder``). Returns (forward_eval, embed_fn, model) with
+    ``forward_eval(model, images) -> logits`` and ``embed_fn(model,
+    images) -> embeddings``, each reading the quantised tree on the
+    images' device."""
     from ..models.truncated_resnet50 import combined_apply_int8, combined_apply_qat
     from ..nn.resnet_int8 import resnet50_apply_int8
     from ..ops.pooling import global_avg_pool
@@ -812,28 +1030,32 @@ def build_int8_family1(model, truncate: int, cal_batches=None, keep_encoder: boo
     q = _quantized_encoder(
         model, model.moco.encoder, truncate, cal_batches, quantized_path, qat_steps, qat_lr,
         labeled_batches,
-        lambda m, scales, x: combined_apply_qat(m.moco, m.classifier, scales, x, truncate))
+        lambda m, scales, x: combined_apply_qat(m.moco, m.classifier, scales, x, truncate),
+        mesh)
     if not keep_encoder:
         model.moco.encoder = None
+    q_on = _tree_per_device(q)
 
     def forward_eval(m, images):
-        return combined_apply_int8(q, m.moco, m.classifier, images.float())
+        return combined_apply_int8(q_on(images.device), m.moco, m.classifier, images.float())
 
     def embed_fn(m, images):
-        return m.moco.fc(global_avg_pool(resnet50_apply_int8(q, images.float())))
+        return m.moco.fc(global_avg_pool(resnet50_apply_int8(q_on(images.device),
+                                                             images.float())))
 
     return forward_eval, embed_fn, model
 
 
 def build_int8_family2(model, truncate: int, gram_matrix_size: int, num_classes: int,
                        cal_batches=None, quantized_path: Optional[str] = None,
-                       qat_steps: int = 0, qat_lr: float = 1e-4, labeled_batches=None):
+                       qat_steps: int = 0, qat_lr: float = 1e-4, labeled_batches=None,
+                       mesh=None):
     """The family-2 int8 setup (JAX ``build_int8_family2``): the encoder
     post-training quantised at ``min(truncate, 8)`` (or loaded), the
     pooled Grams (``pooled_gram_fwd`` on the card) of the dequantised
     stage maps, attention and classifier in float. ``qat_steps`` > 0
-    fine-tunes the whole model through the fake-quant forward first. The
-    float encoder is dropped. Returns (apply_eval, model) with
+    fine-tunes the whole model through the fake-quant forward first;
+    ``mesh`` as in ``build_int8_family1``. The float encoder is dropped. Returns (apply_eval, model) with
     ``apply_eval(model, images) -> (embeddings, logits)``."""
     from ..models.gram_attention import gram_attention_apply_int8, gram_attention_apply_qat
 
@@ -842,10 +1064,12 @@ def build_int8_family2(model, truncate: int, gram_matrix_size: int, num_classes:
     q = _quantized_encoder(
         model, model.encoder, min(truncate, 8), cal_batches, quantized_path, qat_steps, qat_lr,
         labeled_batches,
-        lambda m, scales, x: gram_attention_apply_qat(m, scales, x, truncate, s, num_classes)[1])
+        lambda m, scales, x: gram_attention_apply_qat(m, scales, x, truncate, s, num_classes)[1],
+        mesh)
     model.encoder = None
+    q_on = _tree_per_device(q)
 
     def apply_eval(m, images):
-        return gram_attention_apply_int8(q, m, images.float(), s, num_classes)
+        return gram_attention_apply_int8(q_on(images.device), m, images.float(), s, num_classes)
 
     return apply_eval, model

@@ -13,8 +13,12 @@ and ``--export_platforms``) and ``--artifact`` (``deploy/artifact.py``:
 one ``torch.export`` file, served with no config or checkpoint),
 ``--profile_dir``, ``--debug_nans``, the warmup (which on the card also
 builds the kernels and makes cuDNN's first choices before the port binds)
-and the SIGTERM drain. The flags listed in ``_NOT_PORTED`` raise a "not
-ported yet" error.
+and the SIGTERM drain. ``--devices N`` serves one replica a device in
+this one process (the first N cards, or N CPU replicas with ``--device
+cpu``), each batch split into N blocks; with ``--export_artifact`` it
+exports the per-device program and seals N into the artifact, which
+``--artifact`` then serves on N devices. The flags listed in
+``_NOT_PORTED`` raise a "not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.serve \\
         --family truncated_resnet50 --config_path cfg.json \\
@@ -32,21 +36,22 @@ import numpy as np
 
 from ._common import (
     add_device_args,
+    artifact_group,
     check_ported,
     close_on_stop,
     count_params,
+    export_group,
     load_checkpoint_tree,
     resolve_class_names,
     resolve_compute_dtype,
+    resolve_serve_group,
     runtime_flags,
 )
 
 FAMILIES = ["truncated_resnet50", "gram_attention", "multi_patchgan"]
 
 # flag -> its default; any other value raises "not ported yet"
-_NOT_PORTED = {
-    "devices": None,
-}
+_NOT_PORTED: dict = {}
 
 
 def build_parser():
@@ -222,17 +227,20 @@ def _resolve_forward(args):
 def export_artifact(args) -> None:
     """--export_artifact: export the exact serving program (the precision
     and transport of ``start``) and write one deployable file (JAX
-    ``:227-275`` without the mesh)."""
+    ``:227-275``); under ``--devices N`` the per-device program at B / N
+    rows, N sealed into the file."""
     from ..deploy import export_infer_artifact, save_infer_artifact
 
     check_ported(args, _NOT_PORTED)
-    forward_eval, model, _, class_names = _resolve_forward(args)
     batch = None if args.export_batch == "any" else int(args.export_batch)
+    group = export_group(args, batch, f"--export_batch {batch}")
+    forward_eval, model, _, class_names = _resolve_forward(args)
     platforms = ([p.strip() for p in args.export_platforms.split(",") if p.strip()]
                  if args.export_platforms else None)
     blobs, meta = export_infer_artifact(
         forward_eval, model, transport=args.transport, batch_size=batch, platforms=platforms,
-        class_names=class_names, extra_meta={"family": args.family, "precision": args.precision})
+        class_names=class_names, mesh=group,
+        extra_meta={"family": args.family, "precision": args.precision})
     save_infer_artifact(args.export_artifact, blobs, meta)
     print(f"Artifact exported to {args.export_artifact} (platforms {meta['platforms']}, batch "
           f"{'symbolic' if batch is None else batch}, "
@@ -249,7 +257,9 @@ def _build_batcher(args):
     if args.artifact:
         from ..deploy import load_infer_artifact
 
-        art = load_infer_artifact(args.artifact, device=args.device)
+        group = artifact_group(args, args.artifact)
+        art = load_infer_artifact(args.artifact, device=args.device,
+                                  devices=group.devices if group is not None else None)
         meta = art.meta
         if meta["batch_size"] is not None and meta["batch_size"] != args.batch_size:
             print(f"Note: artifact pins batch_size={meta['batch_size']} "
@@ -268,7 +278,8 @@ def _build_batcher(args):
             max_in_flight=args.max_in_flight,
             transport=meta["transport"],
             crop=meta["crop"],
-            infer_fn=art.server_infer_fn(),
+            mesh=group,
+            infer_fn=art.server_infer_fns() if group is not None else art.server_infer_fn(),
             device=art.device,
         ).start()
         served = f"artifact {args.artifact} [{meta.get('family', 'unknown')}]"
@@ -281,6 +292,7 @@ def _build_batcher(args):
             max_delay_ms=args.max_delay_ms,
             max_in_flight=args.max_in_flight,
             transport=args.transport,
+            mesh=resolve_serve_group(args.devices, args.batch_size, args.device),
         ).start()
     if not args.no_warmup:
         # the kernels' build and cuDNN's first choices are paid before the
@@ -315,9 +327,15 @@ def _recycle_worker(argv):
         "served": served,
         "count_key": "images",
         "max_queue": batcher.max_queue,
-        "device": str(batcher.device),
+        "device": _devices_text(batcher),
     }
     return batcher, info
+
+
+def _devices_text(batcher) -> str:
+    """The batcher's device, or its replicas' devices."""
+    devices = [str(d) for d in batcher.devices]
+    return devices[0] if len(devices) == 1 else f"{len(devices)} replicas on {devices}"
 
 
 def _recycle_preprocess(info):
@@ -375,7 +393,7 @@ def start(args):
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     host, port = srv.server_address
     print(f"Serving {served} on http://{host}:{port} "
-          f"(batch {batch_size}, deadline {args.max_delay_ms} ms, {batcher.device})",
+          f"(batch {batch_size}, deadline {args.max_delay_ms} ms, {_devices_text(batcher)})",
           flush=True)
     return srv, batcher
 

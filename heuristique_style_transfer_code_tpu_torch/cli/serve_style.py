@@ -16,8 +16,12 @@ float32|bf16``, ``--transport rgb|yuv420``, ``--remat`` (family 2),
 ``--export_platforms``) and ``--artifact`` (``deploy/artifact.py``: the
 service's programs, weights and style gallery in one file, served with no
 model code, checkpoint or style images), ``--profile_dir``,
-``--debug_nans`` and SIGTERM drain. The flags listed in ``_NOT_PORTED``
-raise a "not ported yet" error.
+``--debug_nans`` and SIGTERM drain. ``--devices N`` serves one replica a
+device in this one process (the first N cards, or N CPU replicas with
+``--device cpu``; N clamped to the gcd of the ``--batch_size`` ladder, as
+JAX's ``_sizes_gcd``), each job batch split over them; an artifact
+exported under it seals N, and ``--artifact`` serves it on N devices. The
+flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.serve_style \\
         --net style_net.npz --batch_size 4,8 --port 8001 [--device cpu]
@@ -33,20 +37,21 @@ import numpy as np
 
 from ._common import (
     add_device_args,
+    artifact_group,
     check_ported,
     close_on_stop,
     count_params,
+    export_group,
     load_checkpoint_tree,
     resolve_compute_dtype,
+    resolve_serve_group,
     runtime_flags,
 )
 
 FAMILIES = ["gram_attention", "multi_patchgan"]
 
 # flag -> its default; any other value raises "not ported yet"
-_NOT_PORTED = {
-    "devices": None,
-}
+_NOT_PORTED: dict = {}
 
 
 def build_parser():
@@ -131,13 +136,36 @@ def _sizes(args):
     return [int(s) for s in str(args.batch_size).split(",") if s.strip()]
 
 
-def _build_net_service(args, device, crop: int):
+def _sizes_gcd(sizes):
+    """The device count every ladder size divides (JAX ``:142-155``): a
+    dispatch at any size splits its rows over the same replicas, so the
+    usable count is bounded by the gcd of the sizes."""
+    import math
+
+    g = 0
+    for s in sizes:
+        g = math.gcd(g, int(s))
+    return max(1, g)
+
+
+def _group(args):
+    """``--devices`` of the live service: None, or one replica a device."""
+    return resolve_serve_group(args.devices, _sizes_gcd(_sizes(args)), args.device)
+
+
+def _per_device(group, device, build):
+    """``build(device)`` for one device, or one a replica of ``group``."""
+    return build(device) if group is None else group.per_device(build)
+
+
+def _build_net_service(args, device, crop: int, group=None):
     from ..checkpoint.io import load_hyperparameters, load_pytree_npz
     from ..nn.transformer_net import net_n_styles
     from ..tasks.fast_style import make_net_job_fn, net_from_tree
     from ..tasks.style_service import StyleTransferService
 
-    net = net_from_tree(load_pytree_npz(args.net), device)
+    tree = load_pytree_npz(args.net)
+    net = net_from_tree(tree, device)
     hyper_path = args.net.replace(".npz", "_hyperparameters.json")
     hyper = load_hyperparameters(hyper_path) if os.path.exists(hyper_path) else {}
     net_crop = int(hyper.get("crop", crop))
@@ -150,10 +178,17 @@ def _build_net_service(args, device, crop: int):
     kind = (f"conditional gallery {style_names}" if n_styles is not None
             else f"style {style_names[0]!r}")
     print(f"Feed-forward net: {kind}, crop {net_crop} (one forward per job)", flush=True)
-    net_job = make_net_job_fn(net, crop=net_crop,
-                              compute_dtype=resolve_compute_dtype(args.precision))
+    dtype = resolve_compute_dtype(args.precision)
+    spare = [net]  # replica 0 takes the net loaded above, every other its own
+
+    def job_on(d):
+        return make_net_job_fn(spare.pop() if spare else net_from_tree(tree, d),
+                               crop=net_crop, compute_dtype=dtype)
+
+    jobs = _per_device(group, device, job_on)
+    by_size = (lambda job: {s: job for s in _sizes(args)})  # noqa: E731
     return StyleTransferService(
-        job_fn={s: net_job for s in _sizes(args)},
+        job_fn=by_size(jobs) if group is None else [by_size(j) for j in jobs],
         style_names=style_names,
         crop=net_crop,
         num_iterations=1,
@@ -161,6 +196,7 @@ def _build_net_service(args, device, crop: int):
         max_in_flight=args.max_in_flight,
         transport=args.transport,
         device=device,
+        mesh=group,
     )
 
 
@@ -249,36 +285,22 @@ def build_service(args, crop: int = 224):
     check_ported(args, _NOT_PORTED)
     resolve_compute_dtype(args.precision)
     device = resolve_device(args.device)
+    if args.artifact and not args.net:  # --net first, as in the JAX CLI
+        return _artifact_service(args, device)
+    group = _group(args)
+    if group is not None:
+        device = group.devices[0]
     if args.net:
-        return _build_net_service(args, device, crop)
-    if args.artifact:
-        from ..deploy.artifact import load_style_artifact
-
-        art = load_style_artifact(args.artifact, device=device)
-        meta = art.meta
-        sizes = sorted(art.job_fns)
-        print(f"Artifact: batch sizes {sizes}, crop {meta['crop']}, "
-              f"{meta['num_iterations']} iters, gallery {meta['style_names']}, "
-              f"platforms {meta['platforms']}", flush=True)
-        # one program (or loop) a size: the dispatcher picks the smallest
-        # that fits, as live serving does
-        return StyleTransferService(
-            job_fn=art.job_fns,
-            style_names=meta["style_names"],
-            crop=meta["crop"],
-            num_iterations=meta["num_iterations"],
-            max_delay_ms=args.max_delay_ms,
-            max_in_flight=args.max_in_flight,
-            transport=args.transport,
-            device=device,
-        )
+        return _build_net_service(args, device, crop, group)
     if not args.config_path or not args.model_path:
         raise SystemExit("--config_path and --model_path are required unless --artifact "
                          "or --net is given")
     if args.style_image:
-        kwargs = _build_content_style_kwargs(args, device)
+        built = _per_device(group, device, lambda d: _build_content_style_kwargs(args, d))
+        kwargs = built if group is None else {
+            **built[0], "extract_fn": [k["extract_fn"] for k in built]}
     else:
-        kwargs = dict(gram_fn=_build_gram_fn(args, device))
+        kwargs = dict(gram_fn=_per_device(group, device, lambda d: _build_gram_fn(args, d)))
     sizes = _sizes(args)
     return StyleTransferService(
         crop=crop,
@@ -292,6 +314,37 @@ def build_service(args, crop: int = 224):
         seed=0,
         transport=args.transport,
         device=device,
+        mesh=group,
+    )
+
+
+def _artifact_service(args, device):
+    """The service of ``--artifact``: its programs on ``device``, or on as
+    many devices as it seals (``_common.artifact_group``), one replica a
+    device."""
+    from ..deploy.artifact import load_style_artifact
+    from ..tasks.style_service import StyleTransferService
+
+    group = artifact_group(args, args.artifact)
+    art = load_style_artifact(args.artifact, device=device,
+                              devices=group.devices if group is not None else None)
+    meta = art.meta
+    sizes = sorted(art.job_fns)
+    print(f"Artifact: batch sizes {sizes}, crop {meta['crop']}, "
+          f"{meta['num_iterations']} iters, gallery {meta['style_names']}, "
+          f"platforms {meta['platforms']}", flush=True)
+    # one program (or loop) a size: the dispatcher picks the smallest
+    # that fits, as live serving does
+    return StyleTransferService(
+        job_fn=art.job_fns if group is None else art.replica_job_fns,
+        style_names=meta["style_names"],
+        crop=meta["crop"],
+        num_iterations=meta["num_iterations"],
+        max_delay_ms=args.max_delay_ms,
+        max_in_flight=args.max_in_flight,
+        transport=args.transport,
+        device=art.device,
+        mesh=group,
     )
 
 
@@ -302,6 +355,8 @@ def export_artifact(args) -> None:
     ``:342-360``)."""
     from ..deploy.artifact import export_style_artifact, save_style_artifact
 
+    if not args.artifact:  # the JAX CLI's checks of serve --export_artifact
+        export_group(args, _sizes_gcd(_sizes(args)), f"--batch_size {args.batch_size}")
     service = build_service(args)
     platforms = ([p.strip() for p in args.export_platforms.split(",") if p.strip()]
                  if args.export_platforms else None)

@@ -18,8 +18,12 @@ t-SNE modes (the JAX CLI's): the encoder post-training quantised
 still through ``pooled_gram_fwd``), calibrated on ``--calib_data``
 (default the ``--data`` train/ split), loaded from ``--quantized_path``
 when that file exists and written there when it does not, with
-``--qat_steps``/``--qat_lr`` a quantization-aware fine-tune first. The
-flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
+``--qat_steps``/``--qat_lr`` a quantization-aware fine-tune first.
+``--devices N`` (classification, the t-SNE modes and style transfer, as
+JAX passes them a mesh; camera ignores it) runs N ranks, one process a
+device (NCCL between cards, gloo with ``--device cpu``), each decoding and
+running its rows of every batch; rank 0 writes the files of ``--devices
+1``. The flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
 ``--model_path`` takes the JAX package's ``.npz``, a reference ``.pth``
 (``checkpoint/pth_converter.py``) or a family-1 checkpoint, whose encoder
 is reused under a fresh gram/attention head.
@@ -42,27 +46,32 @@ from ..checkpoint.convert import load_jax_tree
 from ..config.schema import GramAttentionConfig
 from ..core.device import resolve_device
 from ..data.imagefolder import ImageFolderIndex
-from ..data.loader import HostLoader
 from ..models.gram_attention import GramAttention, gram_attention_apply, gram_attention_init
 from ._common import (
+    DEVICES_HELP,
     add_calib_data_arg,
+    agreed_seed,
     cast_forward,
     check_ported,
     count_params,
+    eval_loader,
     load_checkpoint_tree,
     maybe_subset,
     resolve_compute_dtype,
+    resolve_eval_mesh,
+    resolve_style_mesh,
     runtime_flags,
     weighted_auc_or_none,
 )
 
 MODES = ["tsne", "tsne_interactive", "classification", "camera", "style_transfer"]
 PORTED_MODES = ("classification", "style_transfer", "tsne", "tsne_interactive", "camera")
+# the modes to which the JAX CLI passes a mesh: --devices N runs them on N ranks
+MESH_MODES = ("classification", "tsne", "tsne_interactive", "style_transfer")
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
     "shard_spatial": 1,
-    "devices": None,
 }
 
 
@@ -117,7 +126,7 @@ def build_parser():
     parser.add_argument("--precision", choices=["float32", "bf16", "int8"], default="float32",
                         help="Compute precision: float32, bf16, or int8 (the post-training "
                         "quantised encoder; classification and t-SNE modes)")
-    parser.add_argument("--devices", type=int, default=None, help="Not ported yet")
+    parser.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of the run to this directory")
     parser.add_argument("--debug_nans", action="store_true",
@@ -191,6 +200,7 @@ def run_classification(
     compute_auc: bool = False,
     steps_per_dispatch: int = 1,
     apply_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> dict:
     """``--mode classification`` over any iterable of ``HostLoader``
     batches: weighted precision/recall/F1 (and AUC) of the valid entries,
@@ -198,7 +208,8 @@ def run_classification(
     argmax and probabilities come back in one fetch, or K batches' with
     ``steps_per_dispatch`` K (``core/dispatch.py``), the same values.
     ``apply_fn(model, images) -> (embeddings, logits)`` replaces the float
-    forward (the int8 one)."""
+    forward (the int8 one). On a data-parallel ``mesh`` the loader holds
+    this rank's rows, the results are gathered and rank 0 writes."""
     from ..core.dispatch import dispatched_eval_iter
     from ..data.augment import eval_preprocess
     from ..metrics.classification import weighted_precision_recall_f1
@@ -219,7 +230,8 @@ def run_classification(
     preds, labels, probs = [], [], []
     with torch.inference_mode():
         for batch, packed in dispatched_eval_iter(step, loader, device,
-                                                  steps_per_dispatch=steps_per_dispatch):
+                                                  steps_per_dispatch=steps_per_dispatch,
+                                                  mesh=mesh):
             n = batch["n_valid"]
             preds.extend(packed[:n, 0].astype(np.int64).tolist())
             labels.extend(np.asarray(batch["label"])[:n].tolist())
@@ -228,6 +240,8 @@ def run_classification(
     results = weighted_precision_recall_f1(labels, preds)
     if compute_auc:
         results["auc"] = weighted_auc_or_none(labels, np.concatenate(probs))
+    if mesh is not None and not mesh.is_main:
+        return results
     os.makedirs(save_dir, exist_ok=True)
     results_path = os.path.join(save_dir, "classification_results.json")
     with open(results_path, "w") as f:
@@ -236,7 +250,7 @@ def run_classification(
     return results
 
 
-def _int8(args, model, cfg, truncate: int, s: int, num_classes: int, device):
+def _int8(args, model, cfg, truncate: int, s: int, num_classes: int, device, mesh=None):
     """``--precision int8`` (JAX ``:159-195``), in the classification and
     t-SNE modes only: the PTQ encoder, calibrated on the calibration split
     (``calibration_inputs``) or loaded from ``--quantized_path``. Returns
@@ -248,25 +262,34 @@ def _int8(args, model, cfg, truncate: int, s: int, num_classes: int, device):
         )
     from ._common import build_int8_family2, calibration_inputs
 
-    cal, labeled = calibration_inputs(args, args.batch_size or cfg.batch_size, device)
+    cal, labeled = calibration_inputs(args, args.batch_size or cfg.batch_size, device, mesh)
     apply_eval, model = build_int8_family2(
         model, truncate, s, num_classes, cal, quantized_path=args.quantized_path,
-        qat_steps=args.qat_steps, qat_lr=args.qat_lr, labeled_batches=labeled)
+        qat_steps=args.qat_steps, qat_lr=args.qat_lr, labeled_batches=labeled, mesh=mesh)
     return model, apply_eval
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    cfg = GramAttentionConfig.from_json(args.config_path)
+    mesh = None
+    if args.mode in MESH_MODES:
+        resolve = resolve_style_mesh if args.mode == "style_transfer" else resolve_eval_mesh
+        mesh, launched = resolve(args, args.batch_size or cfg.batch_size, __spec__.name, argv)
+        if launched:
+            return
     with runtime_flags(args):
-        _run(args)
+        _run(args, cfg, mesh)
 
 
-def _run(args) -> None:
+def _run(args, cfg, mesh=None) -> None:
     device = resolve_device(args.device)
+    if mesh is not None:
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
     os.makedirs(args.save_dir, exist_ok=True)
 
-    cfg = GramAttentionConfig.from_json(args.config_path)
     idx = ImageFolderIndex(os.path.join(args.data, "test"))
     num_classes = len(idx.classes)
     truncate = cfg.truncate_layer
@@ -281,8 +304,8 @@ def _run(args) -> None:
     model = load_gram_attention(args.model_path, truncate, num_classes, s, device, tree=tree)
     del tree
 
-    samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
-    loader = HostLoader(samples, args.batch_size or cfg.batch_size)
+    samples = maybe_subset(idx.samples, args.num_samples, agreed_seed(cfg.seed, mesh))
+    loader = eval_loader(samples, args.batch_size or cfg.batch_size, mesh)
     dtype = resolve_compute_dtype(args.precision)
 
     def apply_eval(m, images):
@@ -290,20 +313,23 @@ def _run(args) -> None:
 
     int8_fn = None
     if args.precision == "int8":
-        model, int8_fn = _int8(args, model, cfg, truncate, s, num_classes, device)
+        model, int8_fn = _int8(args, model, cfg, truncate, s, num_classes, device, mesh)
         apply_eval = int8_fn
 
     if args.mode == "classification":
         run_classification(model, loader, args.save_dir, truncate=truncate,
                            gram_matrix_size=s, num_classes=num_classes,
                            compute_dtype=dtype, compute_auc=args.compute_auc,
-                           steps_per_dispatch=args.steps_per_dispatch, apply_fn=int8_fn)
+                           steps_per_dispatch=args.steps_per_dispatch, apply_fn=int8_fn,
+                           mesh=mesh)
     elif args.mode in ("tsne", "tsne_interactive"):
         from ..tasks.embeddings import compute_embeddings_with_paths
 
         emb, labels, img_paths = compute_embeddings_with_paths(
             cast_forward(lambda m, images: apply_eval(m, images)[0], dtype), model, loader,
-            samples, steps_per_dispatch=args.steps_per_dispatch)
+            samples, steps_per_dispatch=args.steps_per_dispatch, mesh=mesh)
+        if not main_rank:  # rank 0 runs t-SNE
+            return
         if args.mode == "tsne":
             from ..tasks.tsne import perform_tsne
 
@@ -342,6 +368,7 @@ def _run(args) -> None:
             num_iterations=args.num_iterations, learning_rate=args.learning_rate,
             init=args.style_init, compute_dtype=dtype,
             generator=torch.Generator().manual_seed(cfg.seed or 0), remat=args.remat,
+            mesh=mesh,
         )
     else:
         from ..tasks.style_transfer import style_transfer_gram_attention
@@ -352,6 +379,7 @@ def _run(args) -> None:
             num_iterations=args.num_iterations, learning_rate=args.learning_rate,
             truncate_layer=truncate, compute_dtype=dtype,
             generator=torch.Generator().manual_seed(cfg.seed or 0), remat=args.remat,
+            mesh=mesh,
         )
 
 

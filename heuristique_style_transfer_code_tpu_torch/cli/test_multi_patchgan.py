@@ -17,8 +17,13 @@ runs float32 whatever it says. ``--model_path`` takes an ``.npz`` or a
 reference ``.pth`` of the test variant, or a train-variant tree, which is
 loaded partially as the JAX CLI loads it (``shape_filtered_update``).
 ``--steps_per_dispatch`` (classification and the t-SNE modes),
-``--profile_dir`` and ``--debug_nans`` run. The flags listed in
-``_NOT_PORTED`` raise a "not ported yet" error.
+``--profile_dir`` and ``--debug_nans`` run. ``--devices N``
+(classification and the t-SNE modes; style transfer's loader is b1, so it
+stays on one device as JAX's clamp does; camera ignores it) runs N ranks,
+one process a device (NCCL between cards, gloo with ``--device cpu``),
+each decoding and running its rows of every batch; rank 0 writes the
+files of ``--devices 1``. The flags listed in ``_NOT_PORTED`` raise a "not
+ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan \\
         --data DATA --config_path cfg.json --model_path model.npz \\
@@ -29,7 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -41,29 +45,33 @@ from ..core.device import device_of, resolve_device
 from ..core.dispatch import dispatched_eval_iter
 from ..data.augment import eval_preprocess
 from ..data.imagefolder import ImageFolderIndex
-from ..data.loader import HostLoader
 from ..metrics.classification import confusion_matrix_np, weighted_precision_recall_f1
 from ..models.multi_patchgan import multiscale_test_apply
 from ._common import (
     add_device_args,
+    agreed_seed,
     cast_forward,
     check_ported,
     count_params,
+    eval_loader,
     load_checkpoint_tree,
     load_multi_patchgan,
     maybe_subset,
     resolve_compute_dtype,
+    resolve_eval_mesh,
+    resolve_style_mesh,
     runtime_flags,
     weighted_auc_or_none,
 )
 
 MODES = ["tsne", "tsne_interactive", "camera", "style_transfer", "classification"]
 PORTED_MODES = ("classification", "tsne", "tsne_interactive", "camera", "style_transfer")
+# the modes to which the JAX CLI passes a mesh: --devices N runs them on N ranks
+MESH_MODES = ("classification", "tsne", "tsne_interactive", "style_transfer")
 
 # flag -> its default; any other value raises "not ported yet"
 _NOT_PORTED = {
     "shard_spatial": 1,
-    "devices": None,
 }
 
 
@@ -113,13 +121,14 @@ def _check_ported(args) -> None:
 
 def evaluate(model, loader: Iterable[dict], *, gram_matrix_dim: int, norm: str,
              compute_dtype: Optional[torch.dtype] = None, measure_time: bool = False,
-             steps_per_dispatch: int = 1) -> dict:
+             steps_per_dispatch: int = 1, mesh=None) -> dict:
     """``--mode classification``'s device loop over ``HostLoader`` batches:
     staged uint8 up, ``eval_preprocess``, the three scales, the f32 softmax;
     argmax and probabilities come back in one fetch a batch. With
     ``measure_time`` one span a batch, from the upload to the fetch;
     otherwise ``steps_per_dispatch`` batches a round trip
-    (``core/dispatch.py``), the same values. Returns the valid rows' preds,
+    (``core/dispatch.py``), the same values. On a data-parallel ``mesh``
+    the loader holds this rank's rows and the results are gathered. Returns the valid rows' preds,
     labels and probs, and the spans with each batch's valid count."""
     device = device_of(model)
     preds, labels, probs, spans = [], [], [], []
@@ -132,16 +141,11 @@ def evaluate(model, loader: Iterable[dict], *, gram_matrix_dim: int, norm: str,
         pr = torch.softmax(logits.float(), dim=-1)
         return torch.cat([torch.argmax(logits, dim=-1, keepdim=True).float(), pr], dim=1)
 
-    def timed(batches):
-        for batch in batches:
-            t0 = time.perf_counter()
-            packed = step(torch.from_numpy(np.asarray(batch["image"])).to(device)).cpu().numpy()
-            spans.append((time.perf_counter() - t0, batch["n_valid"]))
-            yield batch, packed
-
     with torch.inference_mode():
-        outputs = (timed(loader) if measure_time else dispatched_eval_iter(
-            step, loader, device, steps_per_dispatch=steps_per_dispatch))
+        outputs = dispatched_eval_iter(
+            step, loader, device, steps_per_dispatch=1 if measure_time else steps_per_dispatch,
+            mesh=mesh, on_span=(lambda seconds, batch: spans.append((seconds, batch["n_valid"])))
+            if measure_time else None)
         for batch, packed in outputs:
             n = batch["n_valid"]
             preds.extend(packed[:n, 0].astype(np.int64).tolist())
@@ -192,20 +196,32 @@ def write_classification_results(results: dict, save_dir: str) -> str:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _check_ported(args)
+    cfg = MultiPatchGANConfig.from_json(args.config_path)
+    mesh = None
+    if args.mode in MESH_MODES:
+        if args.mode == "style_transfer":  # one image at a time: JAX's clamp gives 1 device
+            mesh, launched = resolve_style_mesh(args, 1, __spec__.name, argv)
+        else:
+            mesh, launched = resolve_eval_mesh(args, args.batch_size or cfg.batch_size,
+                                               __spec__.name, argv)
+        if launched:
+            return
     with runtime_flags(args):
-        _run(args)
+        _run(args, cfg, mesh)
 
 
-def _run(args) -> None:
+def _run(args, cfg, mesh=None) -> None:
     device = resolve_device(args.device)
+    if mesh is not None:
+        device = mesh.device
+    main_rank = mesh is None or mesh.is_main
     os.makedirs(args.save_dir, exist_ok=True)
 
-    cfg = MultiPatchGANConfig.from_json(args.config_path)
     gdim, norm = cfg.gram_matrix_dim, cfg.norm
     idx = ImageFolderIndex(os.path.join(args.data, "test"))
     classes = idx.classes
-    samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
-    loader = HostLoader(samples, args.batch_size or cfg.batch_size, shuffle=False)
+    samples = maybe_subset(idx.samples, args.num_samples, agreed_seed(cfg.seed, mesh))
+    loader = eval_loader(samples, args.batch_size or cfg.batch_size, mesh, shuffle=False)
 
     tree = load_checkpoint_tree(args.model_path, "multi_patchgan_test", cfg.to_dict())
     model = load_multi_patchgan(args.model_path, cfg, device, tree=tree)
@@ -240,10 +256,10 @@ def _run(args) -> None:
         from ..tasks.style_transfer import style_transfer_patches
 
         style_transfer_patches(
-            model, HostLoader(samples, 1, shuffle=False), args.save_dir,
+            model, eval_loader(samples, 1, mesh, shuffle=False), args.save_dir,
             gram_matrix_dim=gdim, norm=norm, layers=args.layers, threshold=args.threshold,
             num_iterations=args.num_iterations, learning_rate=args.learning_rate,
-            compute_dtype=dtype,
+            compute_dtype=dtype, mesh=mesh,
         )
 
     elif args.mode in ("tsne", "tsne_interactive"):
@@ -251,7 +267,9 @@ def _run(args) -> None:
 
         emb, labels, img_paths = compute_embeddings_with_paths(
             cast_forward(embed_fn, dtype), model, loader, samples,
-            steps_per_dispatch=args.steps_per_dispatch)
+            steps_per_dispatch=args.steps_per_dispatch, mesh=mesh)
+        if not main_rank:  # rank 0 runs t-SNE
+            return
         if args.mode == "tsne":
             from ..tasks.tsne import perform_tsne
 
@@ -273,7 +291,9 @@ def _run(args) -> None:
             )
         res = evaluate(model, loader, gram_matrix_dim=gdim, norm=norm, compute_dtype=dtype,
                        measure_time=args.measure_time,
-                       steps_per_dispatch=args.steps_per_dispatch)
+                       steps_per_dispatch=args.steps_per_dispatch, mesh=mesh)
+        if not main_rank:  # rank 0 writes the results
+            return
         if res["spans"]:  # per-image average, as the reference's evaluate_model_test
             print(f"Temps moyen par image: {np.mean([t / max(n, 1) for t, n in res['spans']]):.6f}"
                   " secondes")

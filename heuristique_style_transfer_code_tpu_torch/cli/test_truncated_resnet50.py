@@ -22,8 +22,12 @@ post-training quantised (``nn/resnet_int8.py``), calibrated on
 ``--quantized_path`` when that file exists and written there after
 calibration when it does not, with ``--qat_steps``/``--qat_lr`` a
 quantization-aware fine-tune before the export; Grad-CAM keeps the float
-encoder. The flags listed in ``_NOT_PORTED`` raise a "not ported yet"
-error.
+encoder. ``--devices N`` (classification, inference and the embedding
+modes, as JAX passes them a mesh; camera ignores it) runs N ranks, one
+process a device (NCCL between cards, gloo with ``--device cpu``; under
+``torchrun`` each process joins), each decoding and running its rows of
+every batch; rank 0 writes the files of ``--devices 1`` and runs Grad-CAM,
+t-SNE and HDBSCAN alone.
 ``--model_path`` takes the JAX package's ``.npz`` or a reference ``.pth``
 (``checkpoint/pth_converter.py``).
 
@@ -42,31 +46,33 @@ import numpy as np
 from ..config.schema import TruncatedResNetConfig
 from ..core.device import resolve_device
 from ..data.imagefolder import ImageFolderIndex
-from ..data.loader import HostLoader
 from ..models.truncated_resnet50 import combined_apply, truncated_moco_apply
 from ._common import (
     add_calib_data_arg,
     add_device_args,
+    agreed_seed,
     cast_forward,
     check_ported,
     count_params,
+    eval_loader,
     load_checkpoint_tree,
     load_truncated_resnet50,
     make_writer,
     maybe_subset,
     resolve_class_names,
     resolve_compute_dtype,
+    resolve_eval_mesh,
     runtime_flags,
 )
 
 MODES = ["classification", "tsne", "tsne_interactive", "camera", "inference", "clustering"]
 PORTED_MODES = ("classification", "inference", "camera", "tsne", "tsne_interactive",
                 "clustering")
+# the modes to which the JAX CLI passes a mesh: --devices N runs them on N ranks
+MESH_MODES = ("classification", "inference", "tsne", "tsne_interactive", "clustering")
 
 # flag -> its default; any other value raises "not ported yet"
-_NOT_PORTED = {
-    "devices": None,
-}
+_NOT_PORTED: dict = {}
 
 
 def build_parser():
@@ -164,10 +170,11 @@ def write_embeddings_json(emb, labels, model_path: str, save_dir: str) -> str:
     return path
 
 
-def _int8(args, model, truncate: int, device):
+def _int8(args, model, truncate: int, device, mesh=None):
     """``--precision int8`` (JAX ``:162-200``): the PTQ encoder, calibrated
     on the calibration split (``calibration_inputs``) or loaded from
-    ``--quantized_path``. Returns (forward_eval, embed_fn)."""
+    ``--quantized_path`` (on a mesh by rank 0 alone, its tree broadcast). Returns
+    (forward_eval, embed_fn)."""
     from ._common import build_int8_family1, calibration_inputs
 
     has_quantized = args.quantized_path and os.path.exists(args.quantized_path)
@@ -178,12 +185,12 @@ def _int8(args, model, truncate: int, device):
             "(--calib_data ou --data) ou un --quantized_path existant; "
             f"utilisez bf16 pour le mode {args.mode} sans dataset"
         )
-    cal, labeled = calibration_inputs(args, args.batch_size, device)
+    cal, labeled = calibration_inputs(args, args.batch_size, device, mesh)
     forward_eval, embed_fn, _ = build_int8_family1(
         model, truncate, cal,
         keep_encoder=args.visualize_gradcam or args.save_gradcam_images,
         quantized_path=args.quantized_path, qat_steps=args.qat_steps, qat_lr=args.qat_lr,
-        labeled_batches=labeled)
+        labeled_batches=labeled, mesh=mesh)
     return forward_eval, embed_fn
 
 
@@ -192,12 +199,18 @@ def main(argv=None):
     _check_ported(args)
     if args.mode == "inference":
         _inference_guards(args)
+    mesh = None
+    if args.mode in MESH_MODES and not args.list_cameras:
+        mesh, launched = resolve_eval_mesh(args, args.batch_size, __spec__.name, argv)
+        if launched:
+            return
     with runtime_flags(args):
-        _run(args)
+        _run(args, mesh)
 
 
-def _run(args) -> None:
-    writer = make_writer(args.tensorboard, args.save_dir, "TensorBoard")
+def _run(args, mesh=None) -> None:
+    main_rank = mesh is None or mesh.is_main
+    writer = make_writer(args.tensorboard and main_rank, args.save_dir, "TensorBoard")
 
     if args.list_cameras:
         from ..tasks.camera import list_available_cameras
@@ -206,6 +219,8 @@ def _run(args) -> None:
         return
 
     device = resolve_device(args.device)
+    if mesh is not None:
+        device = mesh.device
     cfg = TruncatedResNetConfig.from_json(args.config_path)
     class_names = resolve_class_names(args.classes, cfg.to_dict(), args.data)
     truncate = cfg.truncate_layer
@@ -226,15 +241,15 @@ def _run(args) -> None:
     forward_eval = cast_forward(forward_eval, dtype)
     embed_fn = cast_forward(embed_fn, dtype)
     if args.precision == "int8":
-        forward_eval, embed_fn = _int8(args, model, truncate, device)
+        forward_eval, embed_fn = _int8(args, model, truncate, device, mesh)
 
     def make_loader():
         if not args.data:
             raise ValueError("Le chemin du dataset doit être spécifié pour ce mode")
         idx = ImageFolderIndex(os.path.join(args.data, "test"))
-        samples = maybe_subset(idx.samples, args.num_samples, cfg.seed)
-        return samples, HostLoader(samples, args.batch_size, shuffle=False,
-                                   num_workers=args.num_workers)
+        samples = maybe_subset(idx.samples, args.num_samples, agreed_seed(cfg.seed, mesh))
+        return samples, eval_loader(samples, args.batch_size, mesh, shuffle=False,
+                                    num_workers=args.num_workers)
 
     if args.mode == "inference":
         from ..tasks.inference import run_inference
@@ -242,7 +257,7 @@ def _run(args) -> None:
         run_inference(forward_eval, model, args.inference_input, class_names, args.save_dir,
                       batch_size=args.batch_size, json_name=args.inference_json_name,
                       measure_time=args.measure_time, num_workers=args.num_workers,
-                      steps_per_dispatch=args.steps_per_dispatch)
+                      steps_per_dispatch=args.steps_per_dispatch, mesh=mesh)
 
     elif args.mode == "classification":
         from ..tasks.classification import run_classification_test
@@ -264,7 +279,7 @@ def _run(args) -> None:
             save_test_images=args.save_test_images, compute_auc=args.compute_auc,
             gradcam_fn=gradcam_fn, save_gradcam_images=args.save_gradcam_images,
             colormap=args.colormap, writer=writer,
-            steps_per_dispatch=args.steps_per_dispatch,
+            steps_per_dispatch=args.steps_per_dispatch, mesh=mesh,
         )
         print(
             f"Précision du test: {res['accuracy']}, Perte du test: {res['loss']}, "
@@ -278,7 +293,10 @@ def _run(args) -> None:
 
         samples, loader = make_loader()
         emb, labels, img_paths = compute_embeddings_with_paths(
-            embed_fn, model, loader, samples, steps_per_dispatch=args.steps_per_dispatch)
+            embed_fn, model, loader, samples, steps_per_dispatch=args.steps_per_dispatch,
+            mesh=mesh)
+        if not main_rank:  # rank 0 writes the JSON and runs t-SNE or HDBSCAN
+            return
         write_embeddings_json(emb, labels, args.model_path, args.save_dir)
         if args.mode == "tsne":
             from ..tasks.tsne import perform_tsne

@@ -22,6 +22,16 @@ copy to the CPU, the collective, a copy back). Only a caller that names
 gloo and CUDA devices gets such a mesh (``create_mesh(devices=)``, as the
 chip smoke's two ranks sharing one card do); the CLIs put NCCL on cards.
 
+An evaluation rank decodes its rows of each padded loader batch
+(``HostLoader(rows=mesh.rows(B))``), runs the eval step on them and
+``gather_valid`` puts the global batch back together on every rank, in
+the single-device order, trimmed to its valid rows.
+
+``DeviceGroup`` is the servers' ``--devices N``: one process holding one
+replica a device, with no process group and no collective (an eval
+forward exchanges nothing between rows), each batch split into N
+contiguous blocks of rows.
+
 ``activate(mesh, n_accum)`` makes the mesh the one that the batch norms
 and the batch mixing of a train step see (``active``), as GSPMD's mesh is
 implicit in the JAX step; it is a process-wide setting, not a
@@ -151,6 +161,18 @@ class Mesh:
         t = torch.tensor([float(value)], dtype=torch.float64, device=self.device)
         return float(self.all_reduce([t], op="max")[0].item())
 
+    def broadcast(self, obj):
+        """Rank 0's ``obj`` (any picklable value; tensors on the CPU) on
+        every rank; the other ranks' ``obj`` is ignored."""
+        if not self.distributed:
+            return obj
+        import torch.distributed as dist
+
+        box = [obj if self.is_main else None]
+        dist.broadcast_object_list(box, src=0, device=self.device if self.backend == "nccl"
+                                   else torch.device("cpu"))
+        return box[0]
+
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``t`` (same shape and dtype on all), in rank order."""
         if not self.distributed:
@@ -187,6 +209,76 @@ class Mesh:
             out = torch.empty(chunk, dtype=src.dtype, device=src.device)
             self._wait(dist.reduce_scatter_tensor(out, src, async_op=True))
         return out.to(flat.device) if self.stage_on_host else out
+
+
+def gather_valid(mesh: Optional[Mesh], parts: Sequence, n_valid: Optional[int] = None,
+                 n_accum: int = 1) -> List[np.ndarray]:
+    """The evaluation helper: each of ``parts`` (tensors or arrays, rows
+    first) holds this rank's rows (``Mesh.rows(B, n_accum)``) of a padded
+    loader batch; returns each part's rows of the global batch, in the
+    single-device order (``Mesh.gather_rows``), its first ``n_valid`` rows
+    (all with None), as numpy. The parts of a kind (floating, integer) go
+    as one flat buffer: one all_gather each. Without a data-parallel mesh,
+    the parts themselves, trimmed."""
+    dp = data_parallel(mesh)
+    cut = slice(None) if n_valid is None else slice(0, int(n_valid))
+    if dp is None:
+        return [(p.detach().cpu().numpy() if torch.is_tensor(p) else np.asarray(p))[cut]
+                for p in parts]
+    tensors = [p.detach() if torch.is_tensor(p) else torch.from_numpy(np.ascontiguousarray(p))
+               for p in parts]
+    out: List[Optional[np.ndarray]] = [None] * len(tensors)
+    kinds = {}
+    for i, t in enumerate(tensors):
+        kinds.setdefault(t.is_floating_point(), []).append(i)
+    for floating, idx in kinds.items():
+        dtypes = {tensors[i].dtype for i in idx}
+        wide = dtypes.pop() if len(dtypes) == 1 else (torch.float64 if floating
+                                                      else torch.int64)
+        rows = tensors[idx[0]].shape[0]
+        flat = torch.cat([tensors[i].to(dp.device, wide).reshape(rows, -1) for i in idx], dim=1)
+        whole = dp.gather_rows(flat, n_accum).cpu()
+        start = 0
+        for i in idx:
+            t = tensors[i]
+            width = int(np.prod(t.shape[1:], dtype=np.int64))
+            part = whole[:, start:start + width].reshape((whole.shape[0],) + tuple(t.shape[1:]))
+            out[i] = part.to(t.dtype).numpy()[cut]
+            start += width
+    return out
+
+
+def row_blocks(batch: int, n: int) -> List[slice]:
+    """The rows of each of ``n`` replicas in a batch of ``batch`` rows: ``n``
+    contiguous blocks, replica k taking block k."""
+    if batch % n:
+        raise ValueError(f"batch {batch} is not divisible by {n} devices")
+    b = batch // n
+    return [slice(k * b, (k + 1) * b) for k in range(n)]
+
+
+class DeviceGroup:
+    """The servers' ``--devices N``: one replica a device in this process
+    (a device may repeat: two replicas on one card). A batch of B rows goes
+    out as N contiguous blocks of B / N rows (``row_blocks``), replica k
+    taking block k, and the answers come back in the same order."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a device group needs at least one device")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self):
+        return f"DeviceGroup({[str(d) for d in self.devices]})"
+
+    def per_device(self, build) -> list:
+        """``build(device)`` once a replica: two replicas on one device get
+        one each, as replicas on two cards do."""
+        return [build(d) for d in self.devices]
 
 
 def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None) -> Mesh:

@@ -30,6 +30,18 @@ the exported graphs hold ``hst::gram_fwd``, ``hst::instance_norm_fwd`` and
 the rest as nodes and run the kernels on the card; this module imports
 ``ops.kernels`` so that :func:`torch.export.load` finds them.
 
+**Device count.** JAX seals an SPMD program over N devices into the file.
+The port's servers hold one replica a device (``core.mesh.DeviceGroup``),
+so an artifact exported with ``mesh=`` (a group of N) holds the per-device
+program at B / N rows, with ``n_devices`` N and the global ``batch_size``
+B (style: every ladder size) in ``meta`` under JAX's keys; a load with
+``devices=`` builds one program a device of the group, and the batchers
+split each batch over them. ``torch.export`` records the card a program
+was traced on, in its state, its constants and the device arguments of
+its factory calls: loading onto another card moves all of them there
+(``_retarget``) and raises if any reference to another device is left,
+so a program never runs on card 0 when another card was asked for.
+
 The container is JAX's: an npz written atomically, a ``meta`` JSON and the
 bytes of ``torch.export.save`` as uint8 arrays, one a platform (and for
 style a platform, batch size and program). The formats are
@@ -40,7 +52,7 @@ from __future__ import annotations
 
 import io
 import json
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +106,55 @@ def _serialize(ep) -> bytes:
 
 def _deserialize(blob: bytes):
     return torch.export.load(io.BytesIO(blob))
+
+
+def _devices_in(ep) -> set:
+    """Every device an ExportedProgram refers to: its state's and its
+    constants' tensors, and the ``torch.device`` arguments of its graph's
+    nodes (a factory call's ``device=``, a ``to``)."""
+    from torch.utils._pytree import tree_leaves
+
+    found = {t.device for t in list(ep.state_dict.values()) + list(ep.constants.values())
+             if torch.is_tensor(t)}
+    for node in ep.graph_module.graph.nodes:
+        for leaf in tree_leaves((node.args, node.kwargs)):
+            if isinstance(leaf, torch.device):
+                found.add(leaf)
+    return found
+
+
+def _stray_devices(ep, device: torch.device) -> list:
+    """The devices ``ep`` refers to other than ``device``, as strings."""
+    return sorted(str(d) for d in _devices_in(ep) if _concrete(d) != device)
+
+
+def _concrete(device) -> torch.device:
+    """``cuda`` -> ``cuda:<current card>`` (the card a bare ``cuda``
+    means), ``cpu:0`` -> ``cpu``: one name a device."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.device("cpu")
+    if device.type == "cuda" and device.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _retarget(ep, device: torch.device):
+    """``ep`` for ``device``: itself when it refers to no other device,
+    else its state, constants and device arguments moved there
+    (``move_to_device_pass``); a reference to another device that is left
+    raises."""
+    device = _concrete(device)
+    if not _stray_devices(ep, device):
+        return ep
+    from torch.export.passes import move_to_device_pass
+
+    ep = move_to_device_pass(ep, device)
+    stray = _stray_devices(ep, device)
+    if stray:
+        raise RuntimeError(f"the program still refers to {stray} after its move to {device}; "
+                           "it would not run on that device alone")
+    return ep
 
 
 def _module(ep) -> torch.nn.Module:
@@ -202,16 +263,27 @@ def export_infer_artifact(
     the artifact's metadata (JAX's keys, ``torch_version`` for
     ``jax_version``). ``batch_size=None`` exports a symbolic batch, an int
     pins it. ``platforms``: ``cuda`` (alias ``gpu``) and ``cpu``, one
-    program each; default the model's device. ``mesh=`` is not ported
-    yet."""
+    program each; default the model's device. ``mesh``, a
+    ``core.mesh.DeviceGroup`` of N, exports the per-device program at
+    ``batch_size`` / N rows (a concrete batch that N divides), served by a
+    load with ``devices=`` N devices (module docstring)."""
+    n_dev = 1
     if mesh is not None:
-        raise NotImplementedError("mesh= (a sharded artifact) is not ported yet")
+        if batch_size is None:
+            raise ValueError(
+                "mesh-sharded export needs a concrete batch_size (a symbolic "
+                "batch dimension cannot carry a sharding constraint)"
+            )
+        n_dev = mesh.size
+        if int(batch_size) % n_dev:
+            raise ValueError(f"batch_size {batch_size} is not divisible by the {n_dev} "
+                             "devices of the mesh")
     home = _model_device(model)
     targets = _platforms(platforms, home)
     body = _fused_infer(forward_eval, crop=crop, transport=transport,
                         compute_dtype=compute_dtype)
     tail = _input_shape_tail(crop, transport)
-    b = 2 if batch_size is None else int(batch_size)
+    b = 2 if batch_size is None else int(batch_size) // n_dev
     example = (torch.from_numpy(np.random.RandomState(0).randint(
         0, 256, (b,) + tail).astype(np.uint8)).to(home),)
     dynamic = None
@@ -230,7 +302,7 @@ def export_infer_artifact(
         "platforms": [name for name, _ in targets],
         "class_names": list(class_names) if class_names is not None else None,
         "compute_dtype": str(compute_dtype).replace("torch.", "") if compute_dtype else None,
-        "n_devices": 1,
+        "n_devices": n_dev,
         "torch_version": torch.__version__,
     }
     if extra_meta:
@@ -270,6 +342,13 @@ def save_infer_artifact(path: str, blobs: Dict[str, bytes], meta: dict) -> None:
     _write(path, blobs, meta)
 
 
+def read_meta(path: str) -> dict:
+    """The metadata of an artifact file, its programs left unread (the
+    device count a server must build before it loads them)."""
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(str(z["meta"])) if "meta" in z.files else {}
+
+
 def _read(path: str, fmt: str) -> Tuple[dict, Dict[str, bytes]]:
     """(meta, {key: program bytes}) of a port artifact of format ``fmt``;
     a JAX artifact, another format or another torch version raises."""
@@ -295,7 +374,23 @@ def _read(path: str, fmt: str) -> Tuple[dict, Dict[str, bytes]]:
 def _load_device(device) -> torch.device:
     from ..core.device import resolve_device
 
-    return resolve_device("cuda" if device is None else device)
+    return _concrete(resolve_device("cuda" if device is None else device))
+
+
+def _load_devices(meta: dict, device, devices) -> list:
+    """One device a program: ``devices`` (as many as ``meta["n_devices"]``),
+    else ``device`` for a one-device artifact."""
+    n = int(meta.get("n_devices", 1))
+    if devices is None:
+        if n != 1:
+            raise ValueError(f"this artifact holds the program of each of {n} devices; "
+                             f"load it with devices= {n} devices")
+        return [_load_device(device)]
+    devices = [_load_device(d) for d in devices]
+    if len(devices) != n:
+        raise ValueError(f"this artifact was exported over {n} device(s); "
+                         f"{len(devices)} given")
+    return devices
 
 
 class InferenceArtifact:
@@ -304,17 +399,30 @@ class InferenceArtifact:
     ``batch_u8`` is (B, crop, crop, 3) RGB for the ``rgb`` transport or
     (B, crop * 3 // 2, crop) planar I420 for ``yuv420``, the frames the
     batching server ships; it goes to ``device``. A symbolic-batch
-    artifact takes any B, a static one only its own."""
+    artifact takes any B, a static one only its own. An artifact of N
+    devices holds a program a device (``programs``, each for B / N rows),
+    served through ``server_infer_fns`` (the batcher splits the batch); a
+    call then raises."""
 
-    def __init__(self, exported, meta: dict, device: torch.device):
+    def __init__(self, exported, meta: dict, device: torch.device, programs=None):
         self.meta = dict(meta)
         self.exported = exported
         self.device = device
-        self._call = _module(exported)
+        # [(device, callable)], one a device of the artifact
+        self.programs = programs or [(device, _module(exported))]
+        self.devices = [d for d, _ in self.programs]
+
+    def _run(self, k: int, batch_u8):
+        device, call = self.programs[k]
+        with torch.inference_mode():
+            return call(torch.as_tensor(batch_u8).to(device))
 
     def __call__(self, batch_u8):
-        with torch.inference_mode():
-            return self._call(torch.as_tensor(batch_u8).to(self.device))
+        if len(self.programs) > 1:
+            raise ValueError(f"this artifact holds {len(self.programs)} devices' programs: "
+                             "serve it through BatchingInferenceServer(infer_fn="
+                             "server_infer_fns(), mesh=DeviceGroup(devices))")
+        return self._run(0, batch_u8)
 
     def server_infer_fn(self) -> Callable:
         """``fn(model, batch_u8) -> probs`` for
@@ -322,23 +430,35 @@ class InferenceArtifact:
         (the weights are in the program)."""
         return lambda _model, batch_u8: self(batch_u8)
 
+    def server_infer_fns(self) -> list:
+        """One ``server_infer_fn`` a device of the artifact, for
+        ``BatchingInferenceServer(infer_fn=..., mesh=DeviceGroup(
+        artifact.devices))``: the batcher gives each its block."""
+        return [(lambda _model, batch_u8, k=k: self._run(k, batch_u8))
+                for k in range(len(self.programs))]
+
 
 def _program_for(path: str, blobs: Dict[str, bytes], device: torch.device, key: str = ""):
+    """The program of ``device``'s platform, on ``device`` (``_retarget``)."""
     name = device.type + key
     if name not in blobs:
         have = sorted({k.split("_")[0] for k in blobs})
         raise ValueError(f"{path} holds no program for {device.type} (platforms {have}); "
                          f"export it with --export_platforms {device.type}")
-    return _deserialize(blobs[name])
+    return _retarget(_deserialize(blobs[name]), device)
 
 
-def load_infer_artifact(path: str, device=None) -> InferenceArtifact:
+def load_infer_artifact(path: str, device=None, devices=None) -> InferenceArtifact:
     """The artifact at ``path`` with its program for ``device`` (default
     ``cuda``: a host without a card raises; a file without a CUDA program
-    raises rather than serving its CPU one)."""
+    raises rather than serving its CPU one). An artifact exported over N
+    devices needs ``devices``, N of them (``core.mesh.DeviceGroup.devices``):
+    one program each."""
     meta, blobs = _read(path, ARTIFACT_FORMAT)
-    dev = _load_device(device)
-    return InferenceArtifact(_program_for(path, blobs, dev), meta, dev)
+    devs = _load_devices(meta, device, devices)
+    exported = [_program_for(path, blobs, d) for d in devs]
+    return InferenceArtifact(exported[0], meta, devs[0],
+                             [(d, _module(ep)) for d, ep in zip(devs, exported)])
 
 
 # ------------------------------------------------------------------- style
@@ -401,7 +521,9 @@ def export_style_artifact(
 ) -> Tuple[Dict[str, bytes], dict]:
     """Export a ``StyleTransferService``'s RGB jobs (whatever its
     transport), one entry a ladder size, with the model's weights and the
-    encoded style gallery in the programs. A net job (``--net``) is one
+    encoded style gallery in the programs. A service of N replicas
+    (``mesh=``) exports replica 0's programs at each size's B / N rows,
+    ``n_devices`` N in ``meta``. A net job (``--net``) is one
     program ``(images_u8, style_w) -> (u8, per_loss)``; an iterative job is
     ``prepare``, ``step`` and ``finish`` (module docstring), its iteration
     cap, threshold, learning rate and noise seed in ``meta``. Returns
@@ -410,16 +532,18 @@ def export_style_artifact(
     home = service.device
     targets = _platforms(platforms, home)
     mode = "net" if service.loop is None else "loop"
+    n_dev = len(service.devices)
     blobs = {}
     for b in service.batch_sizes:
         if mode == "loop":
-            programs = _export_loop(service, b)
+            programs = _export_loop(service, b // n_dev)
         else:
-            body = getattr(service._raw_jobs_by_size[b], "body", None)
+            job = service._raw_jobs_by_size[b]
+            body = getattr(getattr(job, "replicas", [job])[0], "body", None)
             if body is None:
                 raise ValueError("this service's job_fn has no exportable body "
                                  "(tasks/fast_style.make_net_job_fn gives one)")
-            programs = {"job": _export(body, None, _style_examples(service, b))[0]}
+            programs = {"job": _export(body, None, _style_examples(service, b // n_dev))[0]}
         for name, dev in targets:
             for prog, ep in programs.items():
                 blobs[f"{name}_{int(b)}_{prog}"] = _serialize(_on(ep, home, dev))
@@ -433,7 +557,7 @@ def export_style_artifact(
         "num_iterations": int(service.num_iterations),
         "style_names": list(service.style_names),
         "platforms": [name for name, _ in targets],
-        "n_devices": 1,
+        "n_devices": n_dev,
         "torch_version": torch.__version__,
     }
     if mode == "loop":
@@ -457,30 +581,35 @@ class StyleArtifact:
     for ``StyleTransferService(job_fn=artifact.job_fns,
     style_names=artifact.meta["style_names"], crop=...)``; ``job_fn`` is
     the largest size's. An iterative job is ``tasks/style_service.loop_job``
-    over the exported prepare, step and finish."""
+    over the exported prepare, step and finish. An artifact of N devices
+    holds such a mapping a device, ``replica_job_fns``, for
+    ``StyleTransferService(job_fn=artifact.replica_job_fns,
+    mesh=DeviceGroup(artifact.devices))``: the service splits each batch
+    over them (``job_fns`` is then replica 0's, at B / N rows)."""
 
-    def __init__(self, exported_by_size: Dict[int, Dict[str, object]], meta: dict,
-                 device: torch.device):
+    def __init__(self, programs_by_device: List[Dict[int, Dict[str, object]]], meta: dict,
+                 devices: List[torch.device]):
         from ..tasks.style_service import loop_job
 
         self.meta = dict(meta)
-        self.device = device
-        self.exported_by_size = exported_by_size
-        self.job_fns = {}
-        for b, programs in exported_by_size.items():
-            calls = {k: _module(ep) for k, ep in programs.items()}
-            if meta["mode"] == "net":
-                self.job_fns[b] = self._net_job(calls["job"])
-            else:
-                self.job_fns[b] = loop_job(
-                    calls["prepare"], calls["step"], calls["finish"],
-                    meta["seed"] if meta["noise"] else None, meta["num_iterations"],
-                    meta["crop"], device)
+        self.devices = list(devices)
+        self.device = self.devices[0]
+        self.exported_by_size = programs_by_device[0]  # replica 0's programs
+        seed = meta["seed"] if meta.get("noise") else None
+        self.replica_job_fns = []
+        for by_size, d in zip(programs_by_device, self.devices):
+            jobs = {}
+            for b, programs in by_size.items():
+                c = {k: _module(ep) for k, ep in programs.items()}
+                jobs[b] = (self._net_job(c["job"], d) if meta["mode"] == "net" else loop_job(
+                    c["prepare"], c["step"], c["finish"], seed, meta["num_iterations"],
+                    meta["crop"], d))
+            self.replica_job_fns.append(jobs)
+        self.job_fns = self.replica_job_fns[0]
         self.job_fn = self.job_fns[max(self.job_fns)]
 
-    def _net_job(self, call) -> Callable:
-        device = self.device
-
+    @staticmethod
+    def _net_job(call, device) -> Callable:
         def job(images_u8, style_w, job_ids):
             del job_ids
             with torch.inference_mode():
@@ -491,15 +620,20 @@ class StyleArtifact:
         return job
 
     def __call__(self, images_u8, style_w, job_ids):
+        if len(self.devices) > 1:
+            raise ValueError(f"this artifact holds {len(self.devices)} devices' programs: "
+                             "serve it through StyleTransferService(job_fn=replica_job_fns, "
+                             "mesh=DeviceGroup(devices))")
         return self.job_fns[int(np.shape(images_u8)[0])](images_u8, style_w, job_ids)
 
 
-def load_style_artifact(path: str, device=None) -> StyleArtifact:
+def load_style_artifact(path: str, device=None, devices=None) -> StyleArtifact:
     """The style artifact at ``path`` with its programs for ``device``
-    (default ``cuda``, as :func:`load_infer_artifact`)."""
+    (default ``cuda``, as :func:`load_infer_artifact`); one of N devices
+    needs ``devices``, N of them, and gets its programs once a device."""
     meta, blobs = _read(path, STYLE_ARTIFACT_FORMAT)
-    dev = _load_device(device)
-    by_size = {int(b): {name: _program_for(path, blobs, dev, f"_{int(b)}_{name}")
-                        for name in STYLE_PROGRAMS[meta["mode"]]}
-               for b in meta["batch_sizes"]}
-    return StyleArtifact(by_size, meta, dev)
+    devs = _load_devices(meta, device, devices)
+    programs = [{int(b): {name: _program_for(path, blobs, d, f"_{int(b)}_{name}")
+                          for name in STYLE_PROGRAMS[meta["mode"]]}
+                 for b in meta["batch_sizes"]} for d in devs]
+    return StyleArtifact(programs, meta, devs)

@@ -13,6 +13,12 @@ loop), ``write_metrics_text`` and ``write_auc_and_times`` (text), and the
 PNG writers ``write_test_images`` (cv2) and
 ``plot_and_save_confusion_matrix`` (matplotlib). ``run_classification_test``
 calls them all in the JAX order.
+
+On a data-parallel mesh (``--devices N``) each rank runs the device loop on
+its rows of every batch and gathers the losses, probabilities, labels and
+sample indices (``core/dispatch.py``), so every rank holds the one-device
+results; rank 0 alone writes the artifacts and runs Grad-CAM and
+TensorBoard, one saved image at a time on its own device.
 """
 from __future__ import annotations
 
@@ -71,15 +77,18 @@ def evaluate_classification(
     measure_time: bool = False,
     compute_auc: bool = False,
     steps_per_dispatch: int = 1,
+    mesh=None,
 ) -> Dict:
-    """The device loop over ``HostLoader`` batches. Per batch: staged uint8
+    """The device loop over ``HostLoader`` batches (on a data-parallel
+    ``mesh``, this rank's rows of each, the results gathered). Per batch: staged uint8
     to the device, ``eval_preprocess``, ``forward_eval(model, images)``,
     log-softmax in f32, the loss of each row at its label (clipped into
     range: pad rows carry -1), the probabilities; loss and probabilities
     come back in one fetch. The loss is the mean over a batch's valid rows,
     then over batches. With ``measure_time`` one span a batch, from the
-    upload to the fetch; otherwise ``steps_per_dispatch`` batches go up
-    and come back together (``core/dispatch.py``), with the same values.
+    upload to the (gathered) fetch; otherwise ``steps_per_dispatch``
+    batches go up and come back together (``core/dispatch.py``), with the
+    same values.
 
     Returns accuracy, loss, precision, recall, f1, confusion_matrix, auc,
     preds (thresholded), targets, probs, the ``timer``, and ``rows``:
@@ -98,18 +107,12 @@ def evaluate_classification(
         loss = -torch.gather(logp, 1, safe[:, None])
         return torch.cat([loss, torch.exp(logp)], dim=1)
 
-    def timed(batches):
-        for batch in batches:
-            timer.start()
-            packed = step(*(torch.from_numpy(np.asarray(batch[key])).to(device)
-                            for key in ("image", "label"))).cpu().numpy()
-            timer.stop()
-            yield batch, packed
-
     with torch.inference_mode():
-        outputs = (timed(loader) if measure_time else dispatched_eval_iter(
+        outputs = dispatched_eval_iter(
             step, loader, device, input_keys=("image", "label"),
-            steps_per_dispatch=steps_per_dispatch))
+            steps_per_dispatch=1 if measure_time else steps_per_dispatch, mesh=mesh,
+            on_span=(lambda seconds, batch: timer.times.append(seconds)) if measure_time
+            else None)
         for bi, (batch, packed) in enumerate(outputs):
             n = batch["n_valid"]
             labels = np.asarray(batch["label"])[:n]
@@ -249,10 +252,10 @@ def run_classification_test(
     image (``write_test_images``), after the device loop has left
     ``torch.inference_mode``. ``steps_per_dispatch`` K: K batches a
     device round trip, the same results (exclusive with ``measure_time``,
-    JAX's ValueError). Returns the JAX function's dict (``loss`` formatted
-    "%.4f")."""
-    if mesh is not None:
-        raise NotImplementedError("a data-parallel mesh is not ported yet")
+    JAX's ValueError). On a data-parallel ``mesh`` every rank returns the
+    one-device dict and rank 0 alone writes. Returns the JAX function's
+    dict (``loss`` formatted "%.4f")."""
+    main = mesh is None or mesh.is_main
     steps_per_dispatch = max(1, int(steps_per_dispatch))
     if steps_per_dispatch > 1 and measure_time:
         raise ValueError(
@@ -260,22 +263,24 @@ def run_classification_test(
             "per-batch times_test.json cannot be measured; use "
             "steps_per_dispatch=1 with measure_time"
         )
-    os.makedirs(save_dir, exist_ok=True)
-    for cls in class_names:
-        os.makedirs(os.path.join(save_dir, cls), exist_ok=True)
+    if main:
+        os.makedirs(save_dir, exist_ok=True)
+        for cls in class_names:
+            os.makedirs(os.path.join(save_dir, cls), exist_ok=True)
 
     res = evaluate_classification(forward_eval, model, loader, len(class_names),
                                   prob_threshold=prob_threshold, measure_time=measure_time,
                                   compute_auc=compute_auc,
-                                  steps_per_dispatch=steps_per_dispatch)
-    if save_test_images:
-        write_test_images(res, samples, class_names, save_dir, model=model,
-                          gradcam_fn=gradcam_fn, save_gradcam_images=save_gradcam_images,
-                          colormap=colormap, writer=writer)
-    write_metrics_text(res, save_dir, log_fn)
-    plot_and_save_confusion_matrix(res["confusion_matrix"], class_names, save_dir)
-    write_auc_and_times(res, save_dir, compute_auc=compute_auc, measure_time=measure_time,
-                        log_fn=log_fn)
+                                  steps_per_dispatch=steps_per_dispatch, mesh=mesh)
+    if main:
+        if save_test_images:
+            write_test_images(res, samples, class_names, save_dir, model=model,
+                              gradcam_fn=gradcam_fn, save_gradcam_images=save_gradcam_images,
+                              colormap=colormap, writer=writer)
+        write_metrics_text(res, save_dir, log_fn)
+        plot_and_save_confusion_matrix(res["confusion_matrix"], class_names, save_dir)
+        write_auc_and_times(res, save_dir, compute_auc=compute_auc, measure_time=measure_time,
+                            log_fn=log_fn)
     return {
         "accuracy": res["accuracy"],
         "loss": f"{res['loss']:.4f}",

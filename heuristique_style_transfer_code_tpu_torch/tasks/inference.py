@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Callable, List
 
 import numpy as np
@@ -57,22 +56,27 @@ def run_inference(
     span a batch from the upload to the probabilities on the host; the
     loader's decode stays outside). Without ``measure_time``,
     ``steps_per_dispatch`` batches go up and come back together
-    (``core/dispatch.py``; the CLI refuses the two together). Returns the
-    JSON's dict. A data-parallel ``mesh`` is not ported yet."""
+    (``core/dispatch.py``; the CLI refuses the two together). On a
+    data-parallel ``mesh`` the loader of image paths is split by rows
+    (each rank decodes its rows of every batch), the probabilities are
+    gathered and rank 0 alone writes the JSON (and prints). Returns the
+    JSON's dict, on every rank."""
     from ..core.device import device_of
     from ..core.dispatch import dispatched_eval_iter
+    from ..core.mesh import data_parallel
     from ..data.augment import eval_preprocess
     from ..data.loader import HostLoader
 
-    if mesh is not None:
-        raise NotImplementedError("a data-parallel mesh is not ported yet")
+    main = mesh is None or mesh.is_main
     image_paths = gather_inference_images(input_path)
     if len(image_paths) == 0:
         raise ValueError(f"Aucune image trouvée dans : {input_path}")
 
-    os.makedirs(save_dir, exist_ok=True)
+    if main:
+        os.makedirs(save_dir, exist_ok=True)
     loader = HostLoader([(p, 0) for p in image_paths], batch_size,
-                        shuffle=False, num_workers=num_workers)
+                        shuffle=False, num_workers=num_workers,
+                        rows=None if data_parallel(mesh) is None else mesh.rows(batch_size))
     device = device_of(model)
 
     results: List[dict] = []
@@ -82,17 +86,14 @@ def run_inference(
     def step(images_u8):
         return torch.softmax(forward_eval(model, eval_preprocess(images_u8)).float(), dim=-1)
 
-    def timed(batches):
+    def on_span(seconds, batch):
         nonlocal total_time
-        for batch in batches:
-            t0 = time.perf_counter()
-            probs = step(torch.from_numpy(batch["image"]).to(device)).cpu().numpy()
-            total_time += time.perf_counter() - t0
-            yield batch, probs
+        total_time += seconds
 
     with torch.inference_mode():
-        outputs = (timed(loader) if measure_time else dispatched_eval_iter(
-            step, loader, device, steps_per_dispatch=steps_per_dispatch))
+        outputs = dispatched_eval_iter(
+            step, loader, device, steps_per_dispatch=1 if measure_time else steps_per_dispatch,
+            mesh=mesh, on_span=on_span if measure_time else None)
         for batch, probs in outputs:
             n = batch["n_valid"]
             total_images += n
@@ -119,6 +120,8 @@ def run_inference(
             "average_time_per_image_seconds": float(total_time / total_images),
         }
 
+    if not main:
+        return output_json
     output_path = os.path.join(save_dir, json_name)
     with open(output_path, "w", encoding="utf-8") as f:
         json.dump(output_json, f, indent=2, ensure_ascii=False)

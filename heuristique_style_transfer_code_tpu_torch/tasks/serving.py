@@ -28,9 +28,17 @@ input buffer back: one pinned buffer per batch that can be alive at once
 buffer is refilled while its copy may still be pending. A CUDA error may
 surface only at the event: either loop fails that batch's futures and
 counts a failure; neither goes on to the CPU.
+
+``mesh=`` (a ``core.mesh.DeviceGroup``, ``--devices N``): one replica a
+device, each with its model (a copy on its device), its pinned staging
+buffers and its stream. A padded batch of B rows goes out as N blocks of
+B / N rows, replica k running block k, and the N results are copied into
+one pinned output, one event a replica; the fetcher waits on all N. On
+the CPU the replicas run one after the other in the dispatcher.
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from ..core.device import device_of, resolve_device
+from ..core.mesh import row_blocks
 from .camera import (
     downscale_frame,
     make_camera_infer_fn,
@@ -90,12 +99,15 @@ class BatchingInferenceServer:
         each frame to planar I420 in the submitting client's thread (cv2)
         and ships 1.5 bytes a pixel; the device converts it back to RGB
         before the forward.
-    mesh : multi-device serving; not ported yet.
+    mesh : a ``core.mesh.DeviceGroup``: one replica a device (module
+        docstring); B must be a multiple of its size.
     infer_fn : ``fn(model, batch_u8) -> probs`` used instead of building
         one from ``forward_eval`` (``model`` may then be None); it gets
-        the batch on ``device`` in the format of ``transport``.
+        the batch on ``device`` in the format of ``transport``. With a
+        ``mesh``, a sequence of them, one a replica (an artifact's
+        programs, one a device).
     device : where batches go; default the model's device, or ``cuda``
-        when there is no model.
+        when there is no model (with a ``mesh``, its devices).
     """
 
     def __init__(
@@ -116,10 +128,17 @@ class BatchingInferenceServer:
     ):
         if transport not in ("rgb", "yuv420"):
             raise ValueError("transport must be 'rgb' or 'yuv420'")
-        if mesh is not None:
-            raise NotImplementedError("mesh= (multi-device serving) is not ported yet")
+        if mesh is not None and int(batch_size) % mesh.size:
+            raise ValueError(f"batch_size {batch_size} is not divisible by the {mesh.size} "
+                             "devices of the mesh")
         self.transport = transport
-        if infer_fn is not None:
+        infer_fns = None
+        if infer_fn is not None and not callable(infer_fn):
+            infer_fns = list(infer_fn)
+            if mesh is None or len(infer_fns) != mesh.size:
+                raise ValueError("a sequence of infer_fn needs a mesh= of as many devices")
+            self._infer = infer_fns[0]
+        elif infer_fn is not None:
             self._infer = infer_fn
         elif transport == "yuv420":
             self._infer = make_camera_infer_fn_yuv(
@@ -131,9 +150,22 @@ class BatchingInferenceServer:
                 host_downscale=True,
             )
         self._model = model
-        if device is None:
-            device = device_of(model) if model is not None else "cuda"
-        self.device = resolve_device(device)
+        if mesh is not None:
+            devices = [resolve_device(d) for d in mesh.devices]
+        else:
+            if device is None:
+                device = device_of(model) if model is not None else "cuda"
+            devices = [resolve_device(device)]
+        # (device, model, infer) a replica: replica 0 keeps the model where it
+        # is on its device, every other replica gets its own copy (two
+        # replicas on one card too)
+        models = [model] * len(devices)
+        if mesh is not None and model is not None:
+            models = [model if k == 0 and device_of(model) == d else copy.deepcopy(model).to(d)
+                      for k, d in enumerate(devices)]
+        self._replicas = list(zip(devices, models, infer_fns or [self._infer] * len(devices)))
+        self.device = devices[0]
+        self.devices = devices
         self.batch_size = int(batch_size)
         self.max_delay = max_delay_ms / 1e3
         self.max_in_flight = int(max_in_flight)
@@ -143,10 +175,10 @@ class BatchingInferenceServer:
         # bounded: put() blocking is the dispatcher's backpressure
         self._in_flight: "queue.Queue" = queue.Queue(maxsize=self.max_in_flight)
         self._cuda = self.device.type == "cuda"
-        self._stream = None
-        # pinned input buffers, made at the first batch: max_in_flight
-        # queued, one being built, one being fetched
-        self._free_buffers: "queue.Queue" = queue.Queue()
+        self._streams = None
+        # pinned input buffers a replica, made at the first batch:
+        # max_in_flight queued, one being built, one being fetched
+        self._free_buffers = [queue.Queue() for _ in self._replicas]
         self._n_buffers = self.max_in_flight + 2
         self._stop = threading.Event()
         self._stats_lock = threading.Lock()
@@ -307,48 +339,64 @@ class BatchingInferenceServer:
         with self._stats_lock:
             self._consecutive_failures += 1
 
-    def _take_buffer(self, shape) -> torch.Tensor:
-        """A free pinned (B, ...) uint8 buffer; the pool is made at the first
-        batch, when the frame shape is known."""
+    def _take_buffer(self, k: int, shape) -> torch.Tensor:
+        """A free pinned uint8 buffer of replica ``k`` (its block's rows);
+        the pools are made at the first batch, when the frame shape is
+        known."""
         if self._n_buffers:
-            for _ in range(self._n_buffers):
-                self._free_buffers.put(torch.empty(shape, dtype=torch.uint8, pin_memory=True))
+            for pool in self._free_buffers:
+                for _ in range(self._n_buffers):
+                    pool.put(torch.empty(shape, dtype=torch.uint8, pin_memory=True))
             self._n_buffers = 0
-        return self._free_buffers.get()
+        return self._free_buffers[k].get()
 
     def _launch(self, frames: List[np.ndarray]):
-        """Stack, upload and run one padded batch. On the card: returns
-        (host probabilities being copied, the event after the copy, the
-        input buffer); on the CPU the probabilities are final."""
+        """Stack, upload and run one padded batch, a block a replica. On
+        the card: returns (host probabilities being copied, the events
+        after the copies, the input buffers); on the CPU the probabilities
+        are final."""
+        blocks = row_blocks(len(frames), len(self._replicas))
         if not self._cuda:
-            return self._infer(self._model, torch.from_numpy(np.stack(frames))), None, None
-        buf = self._take_buffer((len(frames),) + frames[0].shape)
+            x = torch.from_numpy(np.stack(frames))
+            outs = [infer(model, x[sl]) for (_, model, infer), sl in zip(self._replicas, blocks)]
+            return (outs[0] if len(outs) == 1 else torch.cat([o.cpu() for o in outs])), None, None
+        host, events, bufs = None, [], []
         try:
-            np.stack(frames, out=buf.numpy())
-            self._stream.wait_stream(torch.cuda.default_stream(self.device))
-            with torch.cuda.stream(self._stream):
-                batch = buf.to(self.device, non_blocking=True)
-                out = self._infer(self._model, batch)
-                if torch.is_tensor(out) and out.device.type == "cuda":
-                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                    host.copy_(out, non_blocking=True)
-                else:
-                    host = out
-                event = torch.cuda.Event()
-                event.record(self._stream)
+            for k, ((dev, model, infer), sl) in enumerate(zip(self._replicas, blocks)):
+                buf = self._take_buffer(k, (sl.stop - sl.start,) + frames[0].shape)
+                bufs.append((k, buf))
+                np.stack(frames[sl], out=buf.numpy())
+                stream = self._streams[k]
+                stream.wait_stream(torch.cuda.default_stream(dev))
+                with torch.cuda.stream(stream):
+                    out = infer(model, buf.to(dev, non_blocking=True))
+                    if len(blocks) == 1 and not (torch.is_tensor(out)
+                                                 and out.device.type == "cuda"):
+                        host = out
+                    else:
+                        if host is None:
+                            host = torch.empty((len(frames),) + tuple(out.shape[1:]),
+                                               dtype=out.dtype, pin_memory=True)
+                        host[sl].copy_(out, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                    events.append(event)
         except BaseException:
-            try:  # the upload may be queued: let it finish before the buffer is reused
-                self._stream.synchronize()
+            try:  # the uploads may be queued: let them finish before the buffers are reused
+                for stream in self._streams:
+                    stream.synchronize()
             finally:
-                self._free_buffers.put(buf)
+                for k, buf in bufs:
+                    self._free_buffers[k].put(buf)
             raise
-        return host, event, buf
+        return host, events, bufs
 
     def _dispatch_loop(self):
         if self._cuda:
             if self.device.index is not None:  # a thread starts on card 0
                 torch.cuda.set_device(self.device)
-            self._stream = torch.cuda.Stream(device=self.device)
+            # a stream a replica (replicas sharing a card get one each)
+            self._streams = [torch.cuda.Stream(device=dev) for dev, _, _ in self._replicas]
         with torch.inference_mode():
             while not self._stop.is_set():
                 batch = self._collect_batch()
@@ -362,28 +410,28 @@ class BatchingInferenceServer:
                 try:
                     # stacked inside the guard: a residual per-frame anomaly
                     # fails this batch only, never the dispatcher thread
-                    out, event, buf = self._launch(frames)
+                    out, events, bufs = self._launch(frames)
                 except Exception as e:  # a build, launch or CUDA error: fail the batch
                     self._fail(futures, e)
                     continue
-                self._in_flight.put((out, event, buf, futures, n))  # blocks = backpressure
+                self._in_flight.put((out, events, bufs, futures, n))  # blocks = backpressure
 
     def _fetch_loop(self):
         while True:
             item = self._in_flight.get()
             if item is None:
                 break
-            out, event, buf, futures, n = item
+            out, events, bufs, futures, n = item
             try:
-                if event is not None:
-                    event.synchronize()  # the batch's copy, and any late CUDA error
+                for event in events or ():
+                    event.synchronize()  # the batch's copies, and any late CUDA error
                 probs = out.numpy() if torch.is_tensor(out) else np.asarray(out)
             except Exception as e:
                 self._fail(futures, e)
                 continue
             finally:
-                if buf is not None:
-                    self._free_buffers.put(buf)
+                for k, buf in bufs or ():
+                    self._free_buffers[k].put(buf)
             now = time.perf_counter()
             lats = []
             for i, f in enumerate(futures):

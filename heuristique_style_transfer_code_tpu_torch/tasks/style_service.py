@@ -35,6 +35,15 @@ job, and the stylised uint8 canvas is packed to I420 on the device
 (``camera.rgb_to_yuv420_device``) before the fetch; the fetcher turns it
 back into RGB with cv2, so clients send and receive RGB whatever the
 transport. 4:2:0 chroma is lossy; the transport is opt-in.
+
+``mesh=`` (a ``core.mesh.DeviceGroup``, ``--devices N``): one replica a
+device. A batch's rows are split into N blocks, replica k running block k
+on its device with its own model (``gram_fn``, ``extract_fn`` or
+``job_fn`` given one a replica); each job's noise still comes from (seed,
+job id), so the split does not change it, and the iterative modes step
+every block each iteration and stop on the whole batch's ``any(active)``
+(``style_transfer.drive_masked_adam_blocks``), so each job's loss and the
+iteration count are those of one device.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import row_blocks
 from ..data.augment import eval_preprocess
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
 from .camera import (
@@ -61,7 +71,7 @@ from .camera import (
     yuv420_to_rgb_device,
 )
 from .style_transfer import (
-    drive_masked_adam,
+    drive_masked_adam_blocks,
     make_per_image_content_style_loss,
     make_per_image_gram_loss,
     masked_adam_step,
@@ -159,19 +169,75 @@ def loop_job(prepare: Callable, step: Callable, finish: Callable, noise_seed: Op
     and the loop's tensors, ``drive_masked_adam`` runs ``step(pixels, mu,
     nu, active, bc1, bc2, *loop)``, and ``finish`` makes the uint8
     canvases."""
+    inner = group_loop_job([(prepare, step, finish, device)], noise_seed, num_iterations, crop)
 
     def job(images_u8, style_w, job_ids):
-        images_u8 = torch.as_tensor(images_u8).to(device)
-        w = torch.as_tensor(style_w, dtype=torch.float32).to(device)
-        noise = () if noise_seed is None else (
-            job_noises(noise_seed, job_ids, (crop, crop, 3), device),)
-        pixels0, *rest = prepare(images_u8, w, *noise)
-        pixels, iters, per_loss = drive_masked_adam(
-            lambda *state: step(*state, *rest), pixels0, num_iterations)
-        return finish(pixels), iters, per_loss
+        (u8,), iters, (per_loss,) = inner(images_u8, style_w, job_ids)
+        return u8, iters, per_loss
 
     job.iterative = True  # a warm dispatch would run the whole iteration cap
+    # what ``group_jobs`` steps together with the other replicas' loops
+    job.replica = (prepare, step, finish, device)
+    job.loop_settings = (noise_seed, num_iterations, crop)
     return job
+
+
+def group_loop_job(replicas, noise_seed: Optional[int], num_iterations: int,
+                   crop: int) -> Callable:
+    """``loop_job`` over replicas, ``[(prepare, step, finish, device)]`` one
+    a device: a batch's rows split into as many blocks, block k prepared,
+    stepped and finished by replica k on its device, every block stepped
+    each iteration until no job of the batch is active. Returns ``([u8 a
+    block], iters, [per_loss a block])``."""
+
+    def job(images_u8, style_w, job_ids):
+        images_u8 = torch.as_tensor(images_u8)
+        w = torch.as_tensor(style_w, dtype=torch.float32)
+        job_ids = np.asarray(job_ids)
+        steps, starts = [], []
+        blocks = row_blocks(len(job_ids), len(replicas))
+        for (prepare, step, _, device), sl in zip(replicas, blocks):
+            noise = () if noise_seed is None else (
+                job_noises(noise_seed, job_ids[sl], (crop, crop, 3), device),)
+            pixels0, *rest = prepare(images_u8[sl].to(device), w[sl].to(device), *noise)
+            steps.append(functools.partial(_with_loop_args, step, rest))
+            starts.append(pixels0)
+        pixels, iters, per_loss = drive_masked_adam_blocks(steps, starts, num_iterations)
+        return [finish(p) for (_, _, finish, _), p in zip(replicas, pixels)], iters, per_loss
+
+    job.iterative = True
+    return job
+
+
+def _with_loop_args(step, rest, *state):
+    return step(*state, *rest)
+
+
+def group_jobs(jobs: list) -> Callable:
+    """The replicas' jobs of one batch size, one a device, as one batch
+    job, a batch's rows split into blocks, block k to ``jobs[k]``:
+    ``loop_job``s step their blocks together until no job of the batch is
+    active (``group_loop_job``); other jobs (a net's, an artifact's) each
+    run their block. Returns ``([u8 a block], iters, [per_loss a
+    block])``, read by the fetcher."""
+    if all(hasattr(j, "replica") for j in jobs):
+        return group_loop_job([j.replica for j in jobs], *jobs[0].loop_settings)
+
+    def job(images_u8, style_w, job_ids):
+        outs = [jobs[k](images_u8[sl], style_w[sl], job_ids[sl])
+                for k, sl in enumerate(row_blocks(len(job_ids), len(jobs)))]
+        return [o[0] for o in outs], outs[0][1], [o[2] for o in outs]
+
+    job.replicas = jobs  # replica 0's is what deploy/artifact.py exports
+    return job
+
+
+def _to_host(x) -> np.ndarray:
+    """A job's output (a tensor, or one a replica) on the host, as one
+    array."""
+    if isinstance(x, (list, tuple)):
+        return np.concatenate([_to_host(p) for p in x])
+    return torch.as_tensor(x).cpu().numpy()
 
 
 class StyleTransferService:
@@ -193,6 +259,11 @@ class StyleTransferService:
         takes the smallest that fits the collected jobs.
     device : where the iterative modes' jobs run and where job inputs are
         copied (``cuda`` unless the caller asks for ``cpu``).
+    mesh : a ``core.mesh.DeviceGroup``, one replica a device (module
+        docstring): ``gram_fn``, ``extract_fn`` and ``job_fn`` are then
+        sequences, one a replica (a single callable serves every replica
+        and must then run on each one's device); every batch size must be a
+        multiple of its size.
     The other parameters keep the JAX service's meaning.
     """
 
@@ -219,12 +290,25 @@ class StyleTransferService:
         seed: int = 0,
         transport: str = "rgb",
         device="cuda",
+        mesh=None,
     ):
         if transport not in ("rgb", "yuv420"):
             raise ValueError(f"transport must be 'rgb' or 'yuv420', got {transport!r}")
         if transport == "yuv420" and int(crop) % 4:
             raise ValueError("yuv420 transport needs crop % 4 == 0")
         self.transport = transport
+        n_rep = 1 if mesh is None else mesh.size
+
+        def per_replica(fn):
+            if fn is None or mesh is None or callable(fn) or isinstance(fn, Mapping):
+                return [fn] * n_rep
+            fns = list(fn)
+            if len(fns) != n_rep:
+                raise ValueError(f"{len(fns)} programs for a mesh of {n_rep} devices")
+            return fns
+
+        gram_fns, extract_fns, job_fns = (per_replica(f) for f in (gram_fn, extract_fn, job_fn))
+        gram_fn, extract_fn, job_fn = gram_fns[0], extract_fns[0], job_fns[0]
         if sum(f is not None for f in (gram_fn, extract_fn, job_fn)) != 1:
             raise ValueError("pass exactly one of gram_fn (texture mode), extract_fn "
                              "(content+style mode) or job_fn (a pre-built/AOT program)")
@@ -236,12 +320,13 @@ class StyleTransferService:
             raise ValueError("style_names= only applies with job_fn=")
         if init not in ("content", "noise"):
             raise ValueError(f"init must be 'content' or 'noise', got {init!r}")
-        self.device = resolve_device(device)
+        self.devices = ([resolve_device(d) for d in mesh.devices] if mesh is not None
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
         self.crop = int(crop)
 
         if isinstance(job_fn, Mapping):
-            jobs_by_size = {int(s): f for s, f in job_fn.items()}
-            sizes = sorted(jobs_by_size)
+            sizes = sorted(int(s) for s in job_fn)
         else:
             try:
                 sizes = sorted({int(b) for b in batch_size})
@@ -250,21 +335,16 @@ class StyleTransferService:
             if job_fn is not None and len(sizes) > 1:
                 raise ValueError("a bare job_fn= callable serves ONE batch size; for "
                                  "multi-size dispatch pass a mapping {batch_size: job_fn}")
-            jobs_by_size = None
         if not sizes or sizes[0] < 1:
             raise ValueError(f"batch sizes must be >= 1, got {batch_size}")
+        if any(s % n_rep for s in sizes):
+            raise ValueError(f"batch sizes {sizes} are not all divisible by the {n_rep} "
+                             "devices of the mesh")
         self.batch_sizes = sizes
         self.batch_size = sizes[-1]
         self.max_delay = max_delay_ms / 1e3
         self.num_iterations = int(num_iterations)
         self.style_names = list(styles or style_names or [])  # the two are exclusive
-
-        mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
-        std = torch.as_tensor(IMAGENET_STD, device=self.device)
-
-        def finish(pixels):
-            canvas = torch.clamp(pixels * std + mean, 0.0, 1.0)
-            return torch.round(canvas * 255.0).to(torch.uint8)
 
         # An iterative mode is three programs and the loop between them:
         # ``prepare(images_u8, style_w[, noise0]) -> (pixels0, *loop)`` on
@@ -272,51 +352,31 @@ class StyleTransferService:
         # ``loss(pixels, *loop) -> (B,)`` (``loop_job``), and
         # ``finish(pixels) -> uint8``.
         # The live job runs them here; ``deploy/artifact.py`` exports the
-        # same three (``self.loop``), and ``loop_job`` runs them as here.
+        # same three (``self.loop``, replica 0's), and ``loop_job`` runs
+        # them as here. A replica a device, each with its own loop.
+        settings = dict(styles=styles, style_weight=style_weight,
+                        content_weight=content_weight, tv_weight=tv_weight, init=init,
+                        learning_rate=learning_rate, threshold=threshold,
+                        num_iterations=num_iterations, seed=seed)
         self.loop = None
-        if gram_fn is not None:
-            def prepare(images_u8, style_w, noise0):
-                del style_w  # texture mode: the target is the job's own Gram
-                with torch.no_grad():
-                    targets = gram_fn(eval_preprocess(images_u8, self.crop))
-                return (noise0, *targets)
+        if gram_fn is not None or extract_fn is not None:
+            loops = [self._make_loop(g, e, dev, **settings)
+                     for dev, g, e in zip(self.devices, gram_fns, extract_fns)]
+            self.loop = loops[0]
+            job_fns = [loop_job(lp.prepare, functools.partial(
+                masked_adam_step, lp.loss, lp.learning_rate, lp.threshold), lp.finish,
+                lp.seed if lp.noise else None, lp.num_iterations, self.crop, dev)
+                for lp, dev in zip(loops, self.devices)]
 
-            self.loop = StyleLoop(prepare, make_per_image_gram_loss(gram_fn), finish, True, float(learning_rate),
-                                  float(threshold), int(num_iterations), int(seed))
-        elif extract_fn is not None:
-            style_u8 = np.stack([_to_canvas(im, self.crop) for im in styles.values()])
-            with torch.no_grad():  # per style layer, the (K, ...) gallery stack
-                gram_stacks = [g.float() for g in extract_fn(eval_preprocess(
-                    torch.as_tensor(style_u8).to(self.device), self.crop))[1]]
-            per_image_loss = make_per_image_content_style_loss(extract_fn, style_weight,
-                                                               content_weight, tv_weight)
+        def by_size(fn):
+            return ({int(k): f for k, f in fn.items()} if isinstance(fn, Mapping)
+                    else {s: fn for s in sizes})
 
-            def prepare(images_u8, style_w, *noise0):
-                images = eval_preprocess(images_u8, self.crop)
-                with torch.no_grad():
-                    content_feats = extract_fn(images)[0].float()
-                # each job's convex Gram blend; a one-hot row is exact in f32
-                grams = [torch.einsum("bk,k...->b...", style_w, gs) for gs in gram_stacks]
-                pixels0 = images.float() if init == "content" else noise0[0]
-                return (pixels0, *grams, content_feats)
-
-            def loss(pixels, *grams_and_feats):
-                return per_image_loss(pixels, grams_and_feats[:-1], grams_and_feats[-1])
-
-            self.loop = StyleLoop(prepare, loss, finish, init == "noise",
-                                  float(learning_rate), float(threshold), int(num_iterations),
-                                  int(seed))
-        if self.loop is not None:
-            loop = self.loop
-            job = loop_job(loop.prepare, functools.partial(masked_adam_step, loop.loss,
-                                                           loop.learning_rate, loop.threshold),
-                           loop.finish, loop.seed if loop.noise else None, loop.num_iterations,
-                           self.crop, self.device)
-            self._jobs_by_size = {s: job for s in sizes}
-        elif jobs_by_size is not None:
-            self._jobs_by_size = jobs_by_size
-        else:
-            self._jobs_by_size = {s: job_fn for s in sizes}
+        # a job a replica and a size; the service alone splits a batch over
+        # the replicas (``group_jobs``)
+        per = [by_size(f) for f in job_fns]
+        self._jobs_by_size = {s: per[0][s] if n_rep == 1 else group_jobs([p[s] for p in per])
+                              for s in sizes}
         # the RGB jobs, whatever the transport: what deploy/artifact.py
         # exports (an artifact is served with either transport)
         self._raw_jobs_by_size = dict(self._jobs_by_size)
@@ -328,6 +388,8 @@ class StyleTransferService:
                     yuv = torch.as_tensor(yuv_u8).to(self.device)
                     rgb_u8 = torch.round(yuv420_to_rgb_device(yuv, c, c) * 255.0).to(torch.uint8)
                     out_u8, iters, per_loss = inner(rgb_u8, style_w, job_ids)
+                    if isinstance(out_u8, list):  # a block a replica
+                        return [rgb_to_yuv420_device(o) for o in out_u8], iters, per_loss
                     return rgb_to_yuv420_device(out_u8), iters, per_loss
 
                 return yuv_job
@@ -351,6 +413,51 @@ class StyleTransferService:
         self._started = None
         self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
         self._fetcher = threading.Thread(target=self._fetch_loop, daemon=True)
+
+    def _make_loop(self, gram_fn, extract_fn, device, *, styles, style_weight, content_weight,
+                   tv_weight, init, learning_rate, threshold, num_iterations, seed) -> StyleLoop:
+        """The iterative mode's ``StyleLoop`` on ``device`` (texture mode
+        from ``gram_fn``, content+style from ``extract_fn`` and the gallery
+        ``styles``, encoded here on ``device``)."""
+        crop = self.crop
+        mean = torch.as_tensor(IMAGENET_MEAN, device=device)
+        std = torch.as_tensor(IMAGENET_STD, device=device)
+
+        def finish(pixels):
+            canvas = torch.clamp(pixels * std + mean, 0.0, 1.0)
+            return torch.round(canvas * 255.0).to(torch.uint8)
+
+        if gram_fn is not None:
+            def prepare(images_u8, style_w, noise0):
+                del style_w  # texture mode: the target is the job's own Gram
+                with torch.no_grad():
+                    targets = gram_fn(eval_preprocess(images_u8, crop))
+                return (noise0, *targets)
+
+            return StyleLoop(prepare, make_per_image_gram_loss(gram_fn), finish, True,
+                             float(learning_rate), float(threshold), int(num_iterations),
+                             int(seed))
+        style_u8 = np.stack([_to_canvas(im, crop) for im in styles.values()])
+        with torch.no_grad():  # per style layer, the (K, ...) gallery stack
+            gram_stacks = [g.float() for g in extract_fn(eval_preprocess(
+                torch.as_tensor(style_u8).to(device), crop))[1]]
+        per_image_loss = make_per_image_content_style_loss(extract_fn, style_weight,
+                                                           content_weight, tv_weight)
+
+        def prepare(images_u8, style_w, *noise0):
+            images = eval_preprocess(images_u8, crop)
+            with torch.no_grad():
+                content_feats = extract_fn(images)[0].float()
+            # each job's convex Gram blend; a one-hot row is exact in f32
+            grams = [torch.einsum("bk,k...->b...", style_w, gs) for gs in gram_stacks]
+            pixels0 = images.float() if init == "content" else noise0[0]
+            return (pixels0, *grams, content_feats)
+
+        def loss(pixels, *grams_and_feats):
+            return per_image_loss(pixels, grams_and_feats[:-1], grams_and_feats[-1])
+
+        return StyleLoop(prepare, loss, finish, init == "noise", float(learning_rate),
+                         float(threshold), int(num_iterations), int(seed))
 
     # ---- client API ----------------------------------------------------
 
@@ -379,7 +486,7 @@ class StyleTransferService:
             w[:, 0] = 1.0
             out = self._jobs_by_size[b](np.zeros((b,) + tail, np.uint8), w,
                                         np.zeros((b,), np.int32))
-            out[0].cpu()
+            _to_host(out[0])
 
     def submit(self, image: np.ndarray, style=None) -> Future:
         """Submit one RGB uint8 image; returns a Future resolving to a
@@ -548,9 +655,9 @@ class StyleTransferService:
                 break
             (pixels, iters, per_loss), futures, n, size = item
             try:
-                pixels = pixels.cpu().numpy()  # waits for the batch's kernels
+                pixels = _to_host(pixels)  # waits for the batch's kernels
                 iters = int(iters)
-                per_loss = torch.as_tensor(per_loss).cpu().numpy()
+                per_loss = _to_host(per_loss)
                 if self.transport == "yuv420":
                     # back to RGB on the host, inside this try: a decode
                     # failure answers the batch instead of killing the thread

@@ -26,6 +26,14 @@ at truncate 8).
 
 ``compute_dtype=torch.bfloat16`` runs the model in bf16 while the pixels,
 the Adam state and the loss stay f32.
+
+``mesh=`` (``--devices N``): each rank optimises its rows of every batch
+(its loader's ``rows``) from its rows of the global batch's noise, and the
+loop ends on the global ``any(active)`` (``Mesh.any``, one tiny collective
+beside the host sync each iteration has), as JAX's ``while_loop`` over the
+sharded batch does: an image that stopped keeps its pixels either way, but
+its reported loss is read again at them while any image of the batch, on
+any rank, is active. Rank 0 gathers the pixels and writes the PNGs.
 """
 from __future__ import annotations
 
@@ -91,32 +99,59 @@ def masked_adam_step(per_image_loss: Callable[..., torch.Tensor], learning_rate:
 
 
 def drive_masked_adam(step: Callable, pixels0: torch.Tensor, num_iterations: int,
-                      history: Optional[list] = None):
+                      history: Optional[list] = None, mesh=None):
     """The batched Adam-on-pixels loop: ``step(pixels, mu, nu, active, bc1,
     bc2) -> (pixels, mu, nu, active, per)`` (``masked_adam_step`` bound to
     its loss, or an exported step) while fewer than ``num_iterations``
     iterations ran and an image is active; returns (final_pixels,
     iterations_run, final_per_image_loss). Pixels and moments are f32
     whatever the model's dtype (f64 stays f64). ``history``, when a list,
-    receives each iteration's per-image losses (device tensors)."""
-    pixels = pixels0.detach().to(torch.float64 if pixels0.dtype == torch.float64
-                                 else torch.float32).clone()
-    mu = torch.zeros_like(pixels)
-    nu = torch.zeros_like(pixels)
-    b = pixels.shape[0]
-    active = torch.ones((b,), dtype=torch.bool, device=pixels.device)
-    per = torch.full((b,), float("inf"), device=pixels.device, dtype=pixels.dtype)
+    receives each iteration's per-image losses (device tensors). On a
+    data-parallel ``mesh`` ``pixels0`` is this rank's rows and an image is
+    active if any rank's is (``Mesh.any``)."""
+    (pixels,), i, (per,) = drive_masked_adam_blocks(
+        [step], [pixels0], num_iterations, history, mesh)
+    return pixels, i, per
+
+
+def drive_masked_adam_blocks(steps: Sequence[Callable], pixels0: Sequence[torch.Tensor],
+                             num_iterations: int, history: Optional[list] = None, mesh=None):
+    """``drive_masked_adam`` over blocks of one batch, each with its own
+    step (a server's replicas, ``core.mesh.DeviceGroup``, a block a
+    device): every iteration steps each block, and the loop goes on while
+    an image of any block (on a data-parallel ``mesh``, of any rank) is
+    active, so each block runs the batch's iteration count. Returns
+    ([final pixels a block], iterations_run, [final per-image loss a
+    block]); ``history`` receives each iteration's losses of the first
+    block."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    state = []
+    for p0 in pixels0:
+        pixels = p0.detach().to(torch.float64 if p0.dtype == torch.float64
+                                else torch.float32).clone()
+        b = pixels.shape[0]
+        state.append([pixels, torch.zeros_like(pixels), torch.zeros_like(pixels),
+                      torch.ones((b,), dtype=torch.bool, device=pixels.device),
+                      torch.full((b,), float("inf"), device=pixels.device,
+                                 dtype=pixels.dtype)])
+
+    def any_active() -> bool:
+        local = any(bool(s[3].any()) for s in state)
+        return dp.any(local) if dp is not None else local
+
     i = 0
     # One host sync per iteration for the exit test; capturing the step
     # in a CUDA graph and testing less often is the place to win it back.
-    while i < num_iterations and bool(active.any()):
-        pixels, mu, nu, active, per = step(pixels, mu, nu, active,
-                                         *bias_corrections(i + 1, pixels.dtype))
-        check_nan("the style loop's loss", per)  # reads it under --debug_nans only
+    while i < num_iterations and any_active():
+        for step, s in zip(steps, state):
+            s[:] = step(*s[:4], *bias_corrections(i + 1, s[0].dtype))
+            check_nan("the style loop's loss", s[4])  # reads it under --debug_nans only
         if history is not None:
-            history.append(per)
+            history.append(state[0][4])
         i += 1
-    return pixels, i, per
+    return [s[0] for s in state], i, [s[4] for s in state]
 
 
 def make_style_transfer_optimizer(
@@ -124,17 +159,21 @@ def make_style_transfer_optimizer(
     learning_rate: float = 0.01,
     num_iterations: int = 500,
     threshold: float = 1e-4,
+    mesh=None,
 ):
     """Build the batched texture optimiser ``run(noise0, targets,
     history=None) -> (final_noise, iterations_run, final_per_image_loss)``:
-    the masked Adam loop on ``make_per_image_gram_loss``'s loss."""
+    the masked Adam loop on ``make_per_image_gram_loss``'s loss. On a
+    data-parallel ``mesh`` each rank runs its rows and the loop ends on the
+    global ``any(active)``."""
     per_image_loss = make_per_image_gram_loss(gram_fn)
 
     def run(noise0: torch.Tensor, targets: Sequence[torch.Tensor],
             history: Optional[list] = None):
         return drive_masked_adam(
             functools.partial(masked_adam_step, lambda x: per_image_loss(x, *targets),
-                              learning_rate, threshold), noise0, num_iterations, history)
+                              learning_rate, threshold), noise0, num_iterations, history,
+            mesh)
 
     return run
 
@@ -369,12 +408,14 @@ def make_content_style_optimizer(
     num_iterations: int = 500,
     threshold: float = 1e-4,
     tv_weight: float = 0.0,
+    mesh=None,
 ):
     """Classic content+style transfer (Gatys et al.), batched like the
     texture loop: ``run(pixels0, style_grams, content_feats, history=None)
     -> (pixels, iterations_run, final_per_image_loss)``, the masked Adam
     loop on ``make_per_image_content_style_loss``'s loss, so the same
-    per-image early stop, iteration cap and frozen converged images."""
+    per-image early stop, iteration cap and frozen converged images (and
+    the same ``mesh=``)."""
     per_image_loss = make_per_image_content_style_loss(extract_fn, style_weight,
                                                        content_weight, tv_weight)
 
@@ -383,7 +424,8 @@ def make_content_style_optimizer(
         return drive_masked_adam(
             functools.partial(masked_adam_step,
                               lambda p: per_image_loss(p, style_grams, content_feats),
-                              learning_rate, threshold), pixels0, num_iterations, history)
+                              learning_rate, threshold), pixels0, num_iterations, history,
+            mesh)
 
     return run
 
@@ -430,6 +472,34 @@ def _save_side_by_side(original: np.ndarray, stylised: np.ndarray, path: str) ->
     write_png(path, np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1))
 
 
+def _batch_noise(generator: torch.Generator, images: torch.Tensor, mesh) -> torch.Tensor:
+    """The batch's starting noise: drawn at the global batch's shape (the
+    one-device draw), and on a data-parallel ``mesh`` cut to this rank's
+    rows of it."""
+    from ..core.mesh import data_parallel
+
+    dp = data_parallel(mesh)
+    shape = (images.shape[0] * (dp.world_size if dp is not None else 1),) + tuple(images.shape[1:])
+    noise = torch.randn(shape, generator=generator, dtype=torch.float32)
+    return noise if dp is None else dp.local(noise)
+
+
+def _valid_rows(mesh, batch: dict, *parts) -> list:
+    """The batch's valid rows of each part, then of its labels, as numpy:
+    on a data-parallel ``mesh`` every rank's rows, gathered in the
+    one-device order (``core.mesh.gather_valid``)."""
+    from ..core.mesh import gather_valid
+
+    return gather_valid(mesh, list(parts) + [np.asarray(batch["label"])], batch["n_valid"])
+
+
+def _out_dir(save_dir: str, main: bool) -> str:
+    out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
+    return out_dir
+
+
 def style_transfer_gram_attention(
     model,
     loader,
@@ -445,22 +515,25 @@ def style_transfer_gram_attention(
     compute_dtype: Optional[torch.dtype] = None,
     history: Optional[list] = None,
     remat: bool = False,
+    mesh=None,
 ) -> List[str]:
     """Family-2 style transfer over any iterable of ``HostLoader`` batches;
     returns the saved paths. Noise comes from ``generator`` (a CPU
     ``torch.Generator``; JAX's ``jax.random`` noise cannot be reproduced).
     ``history``, when a list, receives one list of per-iteration losses per
-    batch. ``remat`` checkpoints each bottleneck of the encoder."""
+    batch. ``remat`` checkpoints each bottleneck of the encoder. On a
+    data-parallel ``mesh`` the loader holds this rank's rows (module
+    docstring); every rank returns the paths rank 0 wrote."""
     from ..data.augment import eval_preprocess
 
     device = next(model.parameters()).device
+    main = mesh is None or mesh.is_main
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     gram_fn = make_gram_fn_gram_attention(model, truncate_layer, layers, compute_dtype, remat)
-    optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold)
-
-    out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
-    os.makedirs(out_dir, exist_ok=True)
+    optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold,
+                                             mesh=mesh)
+    out_dir = _out_dir(save_dir, main)
 
     saved = []
     img_counter = 0
@@ -469,22 +542,22 @@ def style_transfer_gram_attention(
         images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
         with torch.no_grad():
             targets = gram_fn(images)
-        noise0 = torch.randn(images.shape, generator=generator, dtype=torch.float32)
+        noise0 = _batch_noise(generator, images, mesh)
         trace = [] if history is not None else None
         noise, iters, per_loss = optimise(noise0.to(device), targets, trace)
         if history is not None:
             history.append(trace)
+        noise, originals, per_loss, labels = _valid_rows(mesh, batch, noise, images, per_loss)
         log_fn(
             f"Batch optimised in {iters} iterations, "
-            f"final losses: {per_loss.cpu().numpy()[:n].round(6).tolist()}"
+            f"final losses: {per_loss.round(6).tolist()}"
         )
-        noise = noise.cpu().numpy()
-        originals = images.cpu().numpy()
         for j in range(n):
-            label = int(batch["label"][j])
+            label = int(labels[j])
             path = os.path.join(out_dir, str(label), f"style_transfer_{img_counter}.png")
-            _save_side_by_side(denormalize_to_uint8(originals[j]),
-                               denormalize_to_uint8(noise[j]), path)
+            if main:
+                _save_side_by_side(denormalize_to_uint8(originals[j]),
+                                   denormalize_to_uint8(noise[j]), path)
             saved.append(path)
             log_fn(f"Style transferred for image {img_counter}, saved to {path}")
             img_counter += 1
@@ -512,6 +585,7 @@ def content_style_transfer_gram_attention(
     compute_dtype: Optional[torch.dtype] = None,
     history: Optional[list] = None,
     remat: bool = False,
+    mesh=None,
 ) -> List[str]:
     """Content+style transfer over any iterable of ``HostLoader`` batches:
     every content image re-rendered in the style of the one staged uint8
@@ -522,25 +596,25 @@ def content_style_transfer_gram_attention(
     ``style_transfer_<date>/<label>/content_style_<i>.png`` and returns
     their paths; ``history``, when a list, receives one list of
     per-iteration losses per batch. ``remat`` checkpoints each bottleneck
-    of the encoder."""
+    of the encoder. ``mesh`` as in ``style_transfer_gram_attention``."""
     from ..data.augment import eval_preprocess
 
     if init not in ("content", "noise"):
         raise ValueError(f"init must be 'content' or 'noise', got {init!r}")
     device = next(model.parameters()).device
+    main = mesh is None or mesh.is_main
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     extract_fn = make_extract_fn_gram_attention(model, truncate_layer, layers, compute_dtype,
                                                 style_layers, remat)
     optimise = make_content_style_optimizer(extract_fn, style_weight, content_weight,
                                             learning_rate, num_iterations, threshold,
-                                            tv_weight=tv_weight)
+                                            tv_weight=tv_weight, mesh=mesh)
     with torch.no_grad():
         style_pre = eval_preprocess(torch.tensor(np.asarray(style_image_u8))[None].to(device))
         style_grams = [g[0] for g in extract_fn(style_pre)[1]]
 
-    out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = _out_dir(save_dir, main)
 
     saved = []
     img_counter = 0
@@ -553,23 +627,22 @@ def content_style_transfer_gram_attention(
         if init == "content":
             pixels0 = images.float()
         else:
-            pixels0 = torch.randn(images.shape, generator=generator,
-                                  dtype=torch.float32).to(device)
+            pixels0 = _batch_noise(generator, images, mesh).to(device)
         trace = [] if history is not None else None
         pixels, iters, per_loss = optimise(pixels0, grams, content_feats, trace)
         if history is not None:
             history.append(trace)
+        pixels, originals, per_loss, labels = _valid_rows(mesh, batch, pixels, images, per_loss)
         log_fn(
             f"Batch optimised in {iters} iterations, "
-            f"final losses: {per_loss.cpu().numpy()[:n].round(6).tolist()}"
+            f"final losses: {per_loss.round(6).tolist()}"
         )
-        pixels = pixels.cpu().numpy()
-        originals = images.cpu().numpy()
         for j in range(n):
-            label = int(batch["label"][j])
+            label = int(labels[j])
             path = os.path.join(out_dir, str(label), f"content_style_{img_counter}.png")
-            _save_side_by_side(denormalize_to_uint8(originals[j]),
-                               denormalize_to_uint8(pixels[j]), path)
+            if main:
+                _save_side_by_side(denormalize_to_uint8(originals[j]),
+                                   denormalize_to_uint8(pixels[j]), path)
             saved.append(path)
             log_fn(f"Content+style transferred for image {img_counter}, saved to {path}")
             img_counter += 1
@@ -592,6 +665,7 @@ def style_transfer_patches(
     log_fn=print,
     compute_dtype: Optional[torch.dtype] = None,
     history: Optional[list] = None,
+    mesh=None,
 ) -> List[str]:
     """Family-3 style transfer over the embedding's outer-product Grams
     (the reference's ``functions_Multi_PatchGAN.py:211-306``, its working
@@ -599,7 +673,10 @@ def style_transfer_patches(
     rejected). Noise comes from ``generator`` (a CPU ``torch.Generator``;
     JAX's ``jax.random`` noise cannot be reproduced). ``history``, when a
     list, receives one list of per-iteration losses per batch. Returns the
-    saved paths, ``style_transfer_<date>/<label>/style_transfer_<label>_<n>_<ms>.png``."""
+    saved paths, ``style_transfer_<date>/<label>/style_transfer_<label>_<n>_<ms>.png``.
+    ``mesh`` as in ``style_transfer_gram_attention`` (the CLI's loader is
+    b1, which no mesh splits: it runs one device there, as JAX's clamp
+    does)."""
     from ..data.augment import eval_preprocess
 
     if layers is not None:
@@ -609,13 +686,13 @@ def style_transfer_patches(
             "functions_Multi_PatchGAN.py:242); run without --layers."
         )
     device = next(model.parameters()).device
+    main = mesh is None or mesh.is_main
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     gram_fn = make_gram_fn_patches(model, gram_matrix_dim, norm, compute_dtype)
-    optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold)
-
-    out_dir = os.path.join(save_dir, f"style_transfer_{datetime.now().strftime('%Y-%m-%d')}")
-    os.makedirs(out_dir, exist_ok=True)
+    optimise = make_style_transfer_optimizer(gram_fn, learning_rate, num_iterations, threshold,
+                                             mesh=mesh)
+    out_dir = _out_dir(save_dir, main)
 
     saved = []
     img_counter = 0
@@ -629,20 +706,20 @@ def style_transfer_patches(
         images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
         with torch.no_grad():
             targets = gram_fn(images)
-        noise0 = torch.randn(images.shape, generator=generator, dtype=torch.float32)
+        noise0 = _batch_noise(generator, images, mesh)
         trace = [] if history is not None else None
         noise, _, _ = optimise(noise0.to(device), targets, trace)
         if history is not None:
             history.append(trace)
-        noise = noise.cpu().numpy()
-        originals = images.cpu().numpy()
+        noise, originals, labels = _valid_rows(mesh, batch, noise, images)
         for j in range(n):
-            label = int(batch["label"][j])
+            label = int(labels[j])
             timestamp = int(time.time() * 1000)
             path = os.path.join(out_dir, str(label),
                                 f"style_transfer_{label}_{img_counter}_{timestamp}.png")
-            _save_side_by_side(denormalize_to_uint8(originals[j]),
-                               denormalize_to_uint8(noise[j]), path)
+            if main:
+                _save_side_by_side(denormalize_to_uint8(originals[j]),
+                                   denormalize_to_uint8(noise[j]), path)
             saved.append(path)
             img_counter += 1
         if max_images is not None and img_counter >= max_images:

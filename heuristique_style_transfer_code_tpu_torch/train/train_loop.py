@@ -36,7 +36,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core.mesh import activate, data_parallel
+from ..core.mesh import activate, data_parallel, gather_valid
 from ..data.augment import eval_preprocess
 from ..utils.debug import check_nan
 
@@ -324,18 +324,14 @@ def evaluate(eval_step: Callable, model, loader, num_classes: int, fold: int = 0
     gathered, so every rank gets the single-device metrics."""
     from ..metrics.classification import classification_metrics
 
-    dp = data_parallel(mesh)
     losses, all_preds, all_labels = [], [], []
     for batch in loader:
         loss, _, preds = eval_step(model, batch["image"], batch["label"])
-        labels = np.asarray(batch["label"])
-        if dp is not None:
-            loss, preds = dp.gather_rows(loss), dp.gather_rows(preds)
-            labels = dp.gather_rows(torch.as_tensor(labels).to(dp.device)).cpu().numpy()
-        n = batch["n_valid"]
-        losses.append(loss.cpu().numpy()[:n])
-        all_preds.append(preds.cpu().numpy()[:n])
-        all_labels.append(labels[:n])
+        loss, preds, labels = gather_valid(mesh, [loss, preds, batch["label"]],
+                                           batch["n_valid"])
+        losses.append(loss)
+        all_preds.append(preds)
+        all_labels.append(labels)
     losses = np.concatenate(losses)
     preds = np.concatenate(all_preds)
     labels = np.concatenate(all_labels)

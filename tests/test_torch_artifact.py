@@ -299,8 +299,13 @@ def test_platforms_and_mesh(models, tmp_path):
     fwd, model = _f2(models)
     with pytest.raises(ValueError, match="not one the port exports for"):
         tart.export_infer_artifact(fwd, model, platforms=["tpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tart.export_infer_artifact(fwd, model, mesh=object())
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import DeviceGroup
+
+    group = DeviceGroup(["cpu", "cpu"])
+    with pytest.raises(ValueError, match="needs a concrete batch_size"):  # JAX's words
+        tart.export_infer_artifact(fwd, model, mesh=group)
+    with pytest.raises(ValueError, match="not divisible by the 2 devices"):
+        tart.export_infer_artifact(fwd, model, mesh=group, batch_size=3)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tart.export_infer_artifact(fwd, model, platforms=["cpu", "gpu"])

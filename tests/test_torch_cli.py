@@ -138,11 +138,27 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
 @pytest.mark.parametrize("extra", [
     ["--shard_spatial", "2"], ["--devices", "2"],
 ])
-def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, extra):
+def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, capsys, extra):
+    """``--shard_spatial`` is not ported yet. ``--devices`` is (the
+    two-rank runs are ``tests/test_torch_eval_devices.py``): at
+    ``--batch_size 1`` JAX's clamp to the largest count dividing the batch
+    leaves 1 device, the clamp printed and no process started, and the
+    classification results are the ``--devices 1`` run's byte for byte."""
     from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(_args(tiny_imagefolder, f2_model, tmp_path, *extra, "--device", "cpu"))
+    if "--shard_spatial" in extra:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            main(_args(tiny_imagefolder, f2_model, tmp_path, *extra, "--device", "cpu"))
+        return
+    runs = {}
+    for tag, flags in (("one", []), ("clamped", extra)):
+        out = tmp_path / tag
+        main(_args(tiny_imagefolder, f2_model, out, "--mode", "classification", "--batch_size",
+                   "1", "--num_samples", "3", *flags, "--device", "cpu"))
+        runs[tag] = (out / "classification_results.json").read_bytes()
+    printed = capsys.readouterr().out
+    assert "--devices 2: using 1 device(s)" in printed
+    assert runs["clamped"] == runs["one"]
 
 
 def _png_pixels(root):

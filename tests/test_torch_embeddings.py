@@ -156,18 +156,22 @@ def test_embeddings_equal_jax(tiny_imagefolder, f1_checkpoint, family):
 
 
 def test_embeddings_raise_for_a_mesh_or_several_steps(tiny_imagefolder, f1_checkpoint):
-    """A data-parallel mesh is still refused; several steps a dispatch
-    (``steps_per_dispatch`` 2 over 3 batches: a chunk of 2, a tail of 1)
-    give the one-step embeddings, labels and paths bit for bit."""
+    """A mesh without ranks (``create_mesh()``, one device) runs the
+    one-device loop (the ranks' case is ``tests/test_torch_eval_devices.py``);
+    several steps a dispatch (``steps_per_dispatch`` 2 over 3 batches: a
+    chunk of 2, a tail of 1) give the one-step embeddings, labels and paths
+    bit for bit."""
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import create_mesh
+
     _, _, model, embed = _family1(f1_checkpoint)
     samples = _samples(tiny_imagefolder, 3 * BATCH - 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        compute_embeddings_with_paths(embed, model, HostLoader(samples, BATCH), samples,
-                                      mesh=object())
-    one, two = (compute_embeddings_with_paths(embed, model, HostLoader(samples, BATCH), samples,
-                                              steps_per_dispatch=k) for k in (1, 2))
-    assert np.array_equal(two[0], one[0]) and np.array_equal(two[1], one[1])
-    assert two[2] == one[2] and one[0].shape[0] == len(samples)
+    one, two, meshed = (compute_embeddings_with_paths(
+        embed, model, HostLoader(samples, BATCH), samples, steps_per_dispatch=k, mesh=m)
+        for k, m in ((1, None), (2, None), (1, create_mesh())))
+    for other in (two, meshed):
+        assert np.array_equal(other[0], one[0]) and np.array_equal(other[1], one[1])
+        assert other[2] == one[2]
+    assert one[0].shape[0] == len(samples)
 
 
 def _args(data, f1_checkpoint, save_dir, *extra):

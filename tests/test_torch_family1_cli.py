@@ -141,9 +141,24 @@ def test_parser_has_every_jax_flag():
 
 
 @pytest.mark.parametrize("extra", [["--devices", "2"]])
-def test_unported_modes_and_flags_raise(tiny_imagefolder, f1_checkpoint, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(_args(tiny_imagefolder, f1_checkpoint, tmp_path, *extra, "--device", "cpu"))
+def test_unported_modes_and_flags_raise(tiny_imagefolder, f1_checkpoint, tmp_path, capsys,
+                                        extra):
+    """``--devices`` is ported (the two-rank runs are
+    ``tests/test_torch_eval_devices.py``): at ``--batch_size 1`` it is
+    clamped, as JAX's ``resolve_eval_mesh`` clamps, to the largest count
+    dividing the batch, 1, the clamp printed and no process started, and
+    the run writes the ``--devices 1`` run's metrics.txt byte for byte."""
+    runs = {}
+    for tag, flags in (("one", []), ("clamped", extra)):
+        out = tmp_path / tag
+        main(_args(tiny_imagefolder, f1_checkpoint, out, "--mode", "classification",
+                   "--prob_threshold", "0.0", "--batch_size", "1", "--num_samples", "3",
+                   *flags, "--device", "cpu"))
+        runs[tag] = (out / "metrics.txt").read_bytes()
+    printed = capsys.readouterr().out
+    assert "--devices 2: using 1 device(s)" in printed
+    assert "Data-parallel evaluation" not in printed
+    assert runs["clamped"] == runs["one"]
 
 
 def test_steps_per_dispatch_gives_the_k1_metrics(tiny_imagefolder, f1_checkpoint, tmp_path):

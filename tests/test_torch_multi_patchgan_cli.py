@@ -146,9 +146,26 @@ def test_precision_int8_is_refused_as_by_the_jax_parser(tiny_imagefolder, f3_mod
     ["--mode", "style_transfer", "--shard_spatial", "2"], ["--devices", "2"],
     ["--shard_spatial", "2"],
 ])
-def test_unported_modes_and_flags_raise(tiny_imagefolder, f3_model, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(_args(tiny_imagefolder, f3_model, tmp_path, *extra, "--device", "cpu"))
+def test_unported_modes_and_flags_raise(tiny_imagefolder, f3_model, tmp_path, capfd, extra):
+    """``--shard_spatial`` is not ported yet. ``--devices 2 --device cpu``
+    is: the CLI starts two gloo processes (``parallel/multihost.launch``),
+    each decoding and classifying its rows of every batch, and rank 0
+    writes the ``--devices 1`` run's classification_results.json, byte for
+    byte, and its confusion matrix, each once."""
+    if "--shard_spatial" in extra:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            main(_args(tiny_imagefolder, f3_model, tmp_path, *extra, "--device", "cpu"))
+        return
+    runs = {}
+    for tag, flags in (("one", []), ("two", extra)):
+        out = tmp_path / tag
+        main(_args(tiny_imagefolder, f3_model, out, "--mode", "classification", *flags,
+                   "--device", "cpu"))
+        runs[tag] = sorted(os.listdir(out)), (out / "classification_results.json").read_bytes()
+    printed = capfd.readouterr().out
+    assert "Data-parallel evaluation: 2 ranks (gloo), 2 images a rank per batch" in printed
+    assert printed.count("Résultats de classification sauvegardés") == 2  # one a run
+    assert runs["two"] == runs["one"]
 
 
 @pytest.mark.parametrize("extra", [

@@ -213,20 +213,68 @@ def test_parser_has_every_jax_flag_with_its_default_and_choices():
     assert "TPU" not in helps and "MB" not in helps and "2.2x" not in helps
 
 
-@pytest.mark.parametrize("flag", [["--artifact", "a.npz", "--devices", "2"],
-                                  ["--export_artifact", "a.npz", "--devices", "2"],
-                                  ["--export_batch", "8", "--devices", "2"],
-                                  ["--export_platforms", "cpu", "--devices", "2"],
-                                  ["--devices", "2"]],
-                         ids=lambda f: f[0])
-def test_unported_flags_raise(models, flag):
-    """``--devices`` is not ported, alone or with the artifact flags (a
-    sharded artifact)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcli.main(_argv(models, "truncated_resnet50", "--device", "cpu", *flag))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcli.start(tcli.build_parser().parse_args(
-            _argv(models, "truncated_resnet50", "--device", "cpu", *flag)))
+def _answers(argv, frames, capsys=None):
+    """The frames' probabilities from ``cli/serve._build_batcher(argv)`` (no
+    warmup), the batcher's devices, and what it printed."""
+    if capsys is not None:
+        capsys.readouterr()
+    batcher = tcli._build_batcher(tcli.build_parser().parse_args(argv + ["--no_warmup"]))[0]
+    try:
+        probs = np.stack([f.result(timeout=120) for f in [batcher.submit(x) for x in frames]])
+    finally:
+        batcher.stop()
+    return probs, [str(d) for d in batcher.devices], capsys.readouterr().out if capsys else ""
+
+
+@pytest.mark.parametrize("flag", ["--artifact", "--export_artifact", "--export_batch",
+                                  "--export_platforms", "--devices"])
+def test_unported_flags_raise(models, tmp_path, capsys, flag):
+    """``--devices`` is ported, alone and with the artifact flags, each
+    case against one device on the same frames (within 1e-6: a replica
+    runs a block of the batch) or against the JAX CLI's error:
+
+    - ``--artifact`` of a one-device artifact under ``--devices 2``: JAX's
+      note that an unsharded artifact ignores it, one device;
+    - ``--export_artifact`` under ``--devices 2`` with a symbolic batch,
+      and ``--export_batch 3`` that 2 does not divide: JAX's ValueErrors,
+      word for word;
+    - ``--export_platforms cpu --export_batch 4 --devices 2``: an artifact
+      sealing 2 devices, served by ``--artifact`` on two CPU replicas;
+    - ``--devices 2``: two CPU replicas of the live model."""
+    base = _argv(models, "truncated_resnet50", "--device", "cpu", "--batch_size", "4")
+    frames = _frames(6, seed=9)
+    one = _answers(base, frames)[0]
+    path = str(tmp_path / "a.npz")
+    if flag in ("--export_artifact", "--export_batch"):
+        extra = ["--export_artifact", path, "--devices", "2"]
+        extra += ["--export_batch", "3"] if flag == "--export_batch" else []
+        jargv = _argv(models, "truncated_resnet50", *extra)
+        with pytest.raises(ValueError) as want:
+            jcli.export_artifact(jcli.build_parser().parse_args(jargv))
+        with pytest.raises(ValueError) as got:
+            tcli.main(base + extra)
+        assert str(got.value) == str(want.value)
+        assert not os.path.exists(path)
+        return
+    if flag == "--devices":
+        got, devices, _ = _answers(base + ["--devices", "2"], frames)
+    elif flag == "--artifact":
+        tcli.main(base + ["--export_artifact", path])
+        one = _answers(["--artifact", path, "--device", "cpu"], frames)[0]
+        got, devices, out = _answers(["--artifact", path, "--device", "cpu", "--devices", "2"],
+                                     frames, capsys)
+        assert "Note: --devices is ignored with an unsharded --artifact" in out
+    else:
+        tcli.main(base + ["--export_artifact", path, "--export_batch", "4", "--devices", "2",
+                          "--export_platforms", "cpu"])
+        from heuristique_style_transfer_code_tpu_torch.deploy.artifact import read_meta
+
+        meta = read_meta(path)
+        assert (meta["n_devices"], meta["batch_size"], meta["platforms"]) == (2, 4, ["cpu"])
+        got, devices, _ = _answers(["--artifact", path, "--device", "cpu"], frames)
+    assert devices == (["cpu"] if flag == "--artifact" else ["cpu", "cpu"])
+    np.testing.assert_allclose(got, one, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.argmax(1), one.argmax(1))
 
 
 def test_device_cuda_raises_without_a_card(models):

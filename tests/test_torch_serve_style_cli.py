@@ -181,16 +181,62 @@ def test_style_image_errors_keep_the_jax_messages(content_style_files, case):
         p_cli.build_service(p_cli.build_parser().parse_args(argv + ["--device", "cpu"]))
 
 
+def _style_answer(argv, img, capsys=None):
+    """One job through ``cli/serve_style.build_service(argv)``: its pixels,
+    loss and iterations, the service's devices, and what it printed."""
+    from heuristique_style_transfer_code_tpu_torch.cli import serve_style as p_cli
+
+    if capsys is not None:
+        capsys.readouterr()
+    service = p_cli.build_service(p_cli.build_parser().parse_args(argv)).start()
+    try:
+        res = service.submit(img).result(timeout=120)
+    finally:
+        service.stop()
+    return res, [str(d) for d in service.devices], capsys.readouterr().out if capsys else ""
+
+
 @pytest.mark.parametrize("extra", [
-    ["--artifact", "a.npz", "--devices", "2"], ["--export_artifact", "a.npz", "--devices", "2"],
+    ["--artifact", "ART", "--devices", "2"], ["--export_artifact", "ART", "--devices", "2"],
     ["--export_platforms", "cpu", "--devices", "2"], ["--devices", "1"], ["--devices", "2"],
 ])
-def test_unported_flags_raise(net_path, extra):
-    """``--devices`` is not ported, alone or with the artifact flags."""
+def test_unported_flags_raise(net_path, tmp_path, capsys, extra):
+    """``--devices`` is ported, alone and with the artifact flags, each
+    case's job against one device's: ``--artifact`` of a one-device
+    artifact prints JAX's note that it ignores ``--devices``;
+    ``--export_artifact`` under ``--devices 2`` seals 2 devices and the
+    global batch into the artifact, which ``--artifact`` serves on two CPU
+    replicas; ``--devices 1`` is one device, ``--devices 2`` (with or
+    without ``--export_platforms``, which only an export reads) two
+    replicas of the net, each a block of the batch of 2. The net's pixels
+    are a uint8 rounding of the same f32 rows: equal."""
     from heuristique_style_transfer_code_tpu_torch.cli.serve_style import main
+    from heuristique_style_transfer_code_tpu_torch.deploy.artifact import read_meta
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["--net", net_path, "--port", "0", "--device", "cpu", *extra])
+    img = np.random.RandomState(3).randint(0, 256, (40, 40, 3)).astype(np.uint8)
+    base = ["--net", net_path, "--port", "0", "--device", "cpu", "--batch_size", "2",
+            "--max_delay_ms", "5"]
+    one = _style_answer(base, img)[0]
+    art = str(tmp_path / "s.npz")
+    if extra[0] == "--artifact":
+        main(base + ["--export_artifact", art])
+        got, devices, out = _style_answer(["--artifact", art, "--port", "0", "--device", "cpu",
+                                           "--devices", "2"], img, capsys)
+        assert "Note: --devices is ignored with an unsharded --artifact" in out
+        want_devices = ["cpu"]
+    elif extra[0] == "--export_artifact":
+        main(base + ["--export_artifact", art, "--devices", "2"])
+        meta = read_meta(art)
+        assert (meta["n_devices"], meta["batch_sizes"]) == (2, [2])
+        got, devices, _ = _style_answer(["--artifact", art, "--port", "0", "--device", "cpu"],
+                                        img)
+        want_devices = ["cpu", "cpu"]
+    else:
+        got, devices, _ = _style_answer(base + extra, img)
+        want_devices = ["cpu"] * int(extra[-1])
+    assert devices == want_devices
+    np.testing.assert_array_equal(got.image, one.image)
+    assert (got.loss, got.iterations) == (one.loss, one.iterations)
 
 
 def _post_through_main(cli, argv, img, monkeypatch):

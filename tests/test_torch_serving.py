@@ -207,9 +207,25 @@ def test_dispatch_error_fails_the_batch_and_health_degrades_as_jax():
     assert health["port"][-1] == (False, "device path failing (3 consecutive batch errors)")
 
 
-def test_mesh_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _port(model, mesh=object())
+@pytest.mark.parametrize("transport", ["rgb", "yuv420"])
+def test_mesh_is_not_ported(model, transport):
+    """``mesh=`` is ported: two CPU replicas (``DeviceGroup(["cpu",
+    "cpu"])``, a block of 4 rows each) answer every frame as one replica
+    does, bit for bit (each row's forward is the same), and JAX's server
+    within ``PROBS``; a batch the group does not divide is refused."""
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import DeviceGroup
+
+    frames = rgb_frames(12, seed=11)
+    kw = dict(batch_size=8, max_delay_ms=20, transport=transport)
+    two, stats = _serve_all(_port(model, mesh=DeviceGroup(["cpu", "cpu"]), **kw), frames)
+    one, _ = _serve_all(_port(model, **kw), frames)
+    want, _ = _serve_all(_jax(**kw), frames)
+    for a, b, w in zip(two, one, want):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_allclose(a, w, **PROBS)
+    assert stats["images"] == 12
+    with pytest.raises(ValueError, match="not divisible by the 2 devices"):
+        _port(model, batch_size=5, mesh=DeviceGroup(["cpu", "cpu"]))
 
 
 def test_cuda_without_a_card_raises(model):
