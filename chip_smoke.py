@@ -238,7 +238,7 @@ Phases, all run every time:
                   (cuDNN deterministic), less peak memory, launches; both
                   steps timed.
   family3_serve   serve_style --family multi_patchgan over HTTP, 224², norm
-                  "instance" and "batch", rgb and yuv420, 2 POSTs each of 5
+                  "instance" and "batch", rgb and yuv420, a POST each of 5
                   iterations: exact launches, each reply against the
                   service's job run again in process, ms a request; the
                   device I420 packer against cv2 and the CPU.
@@ -389,6 +389,26 @@ Phases, all run every time:
                   and a gram_bwd an iteration) and images/s beside one
                   rank's.
                   These are not multi-card scaling numbers.
+  spatial         --shard_spatial (``parallel/spatial.py``): the four banded
+                  K3/K3' entry points (instance_norm_band_stats, _apply,
+                  _bwd_reduce, _bwd_apply) on the two bands of family 3's
+                  b1 maps (1,112,112,64) to (1,14,14,512), ReLU, f32 and
+                  bf16, each against its plain version and the bands' y
+                  and dx against the unbanded kernels on the whole map,
+                  timed with their plain versions and bounds; then two
+                  gloo ranks sharing card 0 with a spatial axis of 2
+                  (``create_mesh(spatial=2)``), beside one device here,
+                  both under cuDNN's deterministic algorithms, through the
+                  task functions at 224², b1, 3 iterations: the family-2
+                  texture loop through layer4, the content+style loop
+                  (every stage's Gram, TV) and family 3 (defaults,
+                  "instance"), each rank's final losses within 1e-4 of
+                  one device's and rank 0's PNGs against one device's;
+                  make_spatial_eval_step of family 1 (b2) within 1e-5;
+                  each band entry point, K1 and K1' launched on each rank
+                  and no unbanded K3/K3' on a band; image-iterations/s of
+                  the ranks beside one device (a correctness cell, the
+                  ranks share the card).
   Family 1 and its camera launch no hand-written kernel (their convs,
   norms and pools are cuDNN work, and so is Grad-CAM's gradient): a launch
   there fails the run.
@@ -507,7 +527,12 @@ N_IMAGES, STYLE_ITERS = 16, 20
 # the main-path shapes that the kernel records report
 MAIN_SHAPE = {"gram_fwd": (4, 56, 56, 256), "gram_bwd": (4, 56, 56, 256),
               "pooled_gram_fwd": (8, 56, 56, 256), "pooled_gram_bwd": (32, 56, 56, 256),
-              "instance_norm_fwd": (8, 224, 224, 32), "instance_norm_bwd": (1, 112, 112, 64)}
+              "instance_norm_fwd": (8, 224, 224, 32), "instance_norm_bwd": (1, 112, 112, 64),
+              # rank 0's band of the family-3 loop's first map (1, 112, 112, 64) at spatial 2
+              **{k: (1, 56 * 112, 64) for k in ("instance_norm_band_stats",
+                                                 "instance_norm_band_apply",
+                                                 "instance_norm_band_bwd_reduce",
+                                                 "instance_norm_band_bwd_apply")}}
 # the fast-style net's norms at crop 224, width 32, batch 8: in1 and in_up2,
 # in2 and in_up1, in3 and the residual blocks' 10
 IN_SHAPES = [(8, 224, 224, 32), (8, 112, 112, 64), (8, 56, 56, 128)]
@@ -570,7 +595,7 @@ F2T_LR = 0.01
 F2T_TOL_LOSS, F2T_TOL_GRAD, F2T_TOL_STATS = 1e-4, 5e-3, 1e-4
 # the training phases' card-vs-CPU steps take this many rows of the b32
 # batch (the CPU's float64 step is the smoke's costliest host work)
-CPU_CHECK_ROWS = 8
+CPU_CHECK_ROWS = 4
 
 # family-1 training at full width: truncate 8, dim 256, the CLI's batch 32,
 # 224² crops of 256² staged uint8, 4 classes; the identity and all 5 x 5
@@ -598,15 +623,15 @@ F3T_IN_SHAPES = [(32, 112, 112, 64), (32, 56, 56, 128), (32, 55, 55, 256),
 # each gradient leaf by relative L2 within REMAT_TOL_GRAD (the same cuDNN
 # ops run again under cuDNN's deterministic algorithms), the running
 # statistics bit for bit; REMAT_TIMED timed steps each (also --grad_accum's)
-REMAT_TOL_GRAD, REMAT_TIMED = 1e-5, 5
+REMAT_TOL_GRAD, REMAT_TIMED = 1e-5, 3
 # the Functions inside a remat block: (name, shape, S): K1, K2 at S 7 and on
 # its projection route (S 24), K3 with ReLU
 REMAT_FN_CASES = [("gram", (4, 56, 56, 256), None), ("pooled_gram", (8, 56, 56, 256), 7),
                   ("pooled_gram", (8, 7, 7, 2048), 24), ("instance_norm", (8, 112, 112, 64), None)]
 # family-3 serving: iterations a request (threshold 0) and POSTs per norm and transport
-F3S_ITERS, F3S_REQUESTS = 5, 2
+F3S_ITERS, F3S_REQUESTS = 5, 1
 # --steps_per_dispatch: K; family-1 eval batches timed; family-2 train batches
-DISPATCH_K, DISPATCH_EVAL_BATCHES, DISPATCH_TRAIN_BATCHES = 4, 8, 5
+DISPATCH_K, DISPATCH_EVAL_BATCHES, DISPATCH_TRAIN_BATCHES = 4, 4, 5
 # --grad_accum: micro-batches of a b32 step; family 3 (no batch statistics)
 # against the full batch in float64, each leaf's move by relative L2 within
 # max(ACCUM_TOL, 2x the card's f32 full-batch step's worst leaf): the
@@ -656,7 +681,7 @@ RECYCLE_TIMEOUT_S = 300
 # style artifacts' iterations, the calls timed a host cost, and
 # --recycle_after_requests with --artifact (every ART_RECYCLE_AFTER of
 # ART_RECYCLE_REQUESTS requests); the exports' time limit
-ART_BATCHES, ART_STYLE_ITERS, ART_OVERHEAD_CALLS = (1, 7, 64), 5, 2000
+ART_BATCHES, ART_STYLE_ITERS, ART_OVERHEAD_CALLS = (1, 7, 64), 3, 2000
 ART_EXPORT_TIMEOUT_S = 600
 ART_RECYCLE_AFTER, ART_RECYCLE_REQUESTS = 24, 40
 # a style artifact's per-image losses against the live service's, relative:
@@ -668,7 +693,7 @@ ART_STYLE_LOSS_RTOL = 1e-5
 ART_NET_BATCH = 8
 # style_int8: the family-2 texture loop at serve_style's texture job shape
 # (layers 5, b2, 224²), SI8_ITERS iterations, SI8_RUNS timed runs a side
-SI8_BATCH, SI8_ITERS, SI8_RUNS = 2, 20, 3
+SI8_BATCH, SI8_ITERS, SI8_RUNS = 2, 20, 2
 # native_decode: HostLoader at b32 over ND_IMAGES JPEGs of ND_SIZE (h, w),
 # ND_EPOCHS epochs a decoder
 ND_IMAGES, ND_SIZE, ND_BATCH, ND_EPOCHS = 256, (480, 640), 32, 3
@@ -683,7 +708,7 @@ ND_IMAGES, ND_SIZE, ND_BATCH, ND_EPOCHS = 256, (480, 640), 32, 3
 # batch-norm leaves lie 1-3e-2 from float64 on the card (F2T_TOL_GRAD's
 # note), so single leaves are printed, not gated; the CPU tests hold the
 # same code to 1e-12 in float64
-PF_K, PF_BATCH, PF_PER_CLASS, PF_TIMED = 2, 32, 32, 5
+PF_K, PF_BATCH, PF_PER_CLASS, PF_TIMED = 2, 32, 32, 3
 PF_TOL_OP, PF_TOL_MOVE, PF_TOL_LOSS = 1e-5, 1e-2, 2e-4
 # data_parallel: DP_RANKS gloo ranks on the one card against one rank,
 # DP_STEPS steps of the b{DP_BATCH} global batch a run, whose halves (one a
@@ -735,6 +760,30 @@ DPE_LOOP_BATCH, DPE_ITERS, DPE_NEAR, DPE_TOL = 4, 5, 0.1, 1e-5
 # job's loss within DPE_TOL relative of one replica's (a b2 block against
 # b4), its pixels within one uint8 level, its iterations equal
 SD_FRAMES, SD_THREADS, SD_STYLE_BATCH, SD_STYLE_ITERS = 256, 32, 4, 5
+# spatial (--shard_spatial): SP_RANKS gloo ranks on card 0 with a spatial
+# axis of SP_RANKS (a 1 x 2 mesh, create_mesh(devices=[cuda:0] * 2,
+# spatial=2), every collective staged through host memory) against one
+# device, both under cuDNN's deterministic algorithms, through the task
+# functions at 224² crops of 256² uint8, b1, SP_ITERS iterations, threshold
+# 0: the family-2 texture loop (truncate 8, layers 8: through layer4, whose
+# 7 rows are 4 + 3 a rank), the content+style loop (every stage's Gram, TV
+# 0.1, from the content) and family 3 (the config defaults, norm
+# "instance"); and make_spatial_eval_step of family 1 (truncate 8, dim 256,
+# b2). Each loop's final per-image loss within SP_TOL_LOSS relative of one
+# device's, its PNG within Adam's bound and 99% of it within one uint8
+# level, the iterations equal; the logits within SP_TOL_LOGITS of their
+# scale. A band's sums (the Grams,
+# the norms' statistics, the content and TV terms) are added in another
+# order than one device's, about 1e-7 relative a sum in f32.
+SP_RANKS, SP_ITERS, SP_TIMEOUT_S = 2, 3, 300
+SP_TOL_LOSS, SP_TOL_LOGITS = 1e-4, 1e-5
+# the banded K3/K3' entry points on the two bands of family 3's b1 maps
+# under norm "instance" (its first discriminator's four normed convs at
+# 224²), ReLU, f32 and bf16: each entry point against its plain version on
+# the same band (relative to the output's scale), and the bands' y and dx
+# put together against the unbanded kernels' on the whole map
+SP_IN_SHAPES = [(1, 112, 112, 64), (1, 56, 56, 128), (1, 28, 28, 256), (1, 14, 14, 512)]
+SP_TOL_IN = {"float32": 1e-5, "bfloat16": 1e-2}
 
 
 def _require(ok: bool, what: str) -> None:
@@ -7397,6 +7446,326 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     return out
 
 
+def _gap(got, want) -> float:
+    """``_rel_errs``' max of two tensors on the card."""
+    return _rel_errs(got.float().cpu(), want.float().cpu())[0]
+
+
+def _sp_kernel_rows(kin, peaks) -> list:
+    """The four banded K3/K3' entry points at SP_IN_SHAPES' bands (module
+    docstring); a row per (shape, dtype) and entry point: max_abs_err
+    against the plain version, relative error of the whole map against the
+    unbanded kernels, ms, plain_ms, bound_ms (bytes), library_ms
+    (``torch.var_mean`` for the statistics; no single library call
+    computes the other three)."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.parallel.spatial import _chan_merge, row_split
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for shape in SP_IN_SHAPES:
+        b, h, w, c = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "float32" if dtype == torch.float32 else "bfloat16"
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            bands_ = [(a * w, e * w) for a, e in row_split(h, SP_RANKS)]
+            flat, dflat = x.reshape(b, h * w, c), dy.reshape(b, h * w, c)
+            xs = [flat[:, a:e].contiguous() for a, e in bands_]
+            dys = [dflat[:, a:e].contiguous() for a, e in bands_]
+            stats = [kin.instance_norm_band_stats(t) for t in xs]
+            errs = {"instance_norm_band_stats": max(
+                _gap(st, kin.instance_norm_band_stats_plain(t)) for st, t in zip(stats, xs))}
+            n, mean, m2 = _chan_merge(stats).unbind(-1)
+            coef = torch.stack([mean, torch.rsqrt(m2 / n + kin.EPS), 1.0 / n,
+                                torch.zeros_like(n)], dim=-1).contiguous()
+            ys = [kin.instance_norm_band_apply(t, coef, True) for t in xs]
+            errs["instance_norm_band_apply"] = max(
+                _gap(y, kin.instance_norm_band_apply_plain(t, coef, True))
+                for y, t in zip(ys, xs))
+            sums = [kin.instance_norm_band_bwd_reduce(t, d, coef, True, y)
+                    for t, d, y in zip(xs, dys, ys)]
+            errs["instance_norm_band_bwd_reduce"] = max(
+                _gap(sm, kin.instance_norm_band_bwd_reduce_plain(t, d, coef, True, y))
+                for sm, t, d, y in zip(sums, xs, dys, ys))
+            total = sums[0] + sums[1]
+            dxs = [kin.instance_norm_band_bwd_apply(t, d, coef, total, True, y)
+                   for t, d, y in zip(xs, dys, ys)]
+            errs["instance_norm_band_bwd_apply"] = max(
+                _gap(dx, kin.instance_norm_band_bwd_apply_plain(t, d, coef, total, True, y))
+                for dx, t, d, y in zip(dxs, xs, dys, ys))
+            ones = torch.ones((b, c), device="cuda")
+            whole_y = kin.instance_norm_fwd(flat, ones, torch.zeros_like(ones), relu=True)
+            whole_dx = kin.instance_norm_bwd(flat, dflat, ones, torch.zeros_like(ones),
+                                             relu=True, y=whole_y)[0]
+            y_gap = _gap(torch.cat(ys, 1), whole_y)
+            dx_gap = _gap(torch.cat(dxs, 1), whole_dx)
+            tol = SP_TOL_IN[dname]
+            _require(all(e <= tol for e in errs.values()) and y_gap <= tol and dx_gap <= tol,
+                     f"[spatial] banded K3/K3' at {shape} {dname}: {errs}, whole map y "
+                     f"{y_gap:.3g}, dx {dx_gap:.3g} (tol {tol})")
+            x0, d0, y0, es = xs[0], dys[0], ys[0], x.element_size()
+            nb = x0.numel() * es
+            calls = {
+                "instance_norm_band_stats": (lambda: kin.instance_norm_band_stats(x0),
+                                             lambda: kin.instance_norm_band_stats_plain(x0),
+                                             lambda: torch.var_mean(x0, dim=1, correction=0),
+                                             nb + b * c * 12),
+                "instance_norm_band_apply": (lambda: kin.instance_norm_band_apply(x0, coef, True),
+                                             lambda: kin.instance_norm_band_apply_plain(
+                                                 x0, coef, True), None, 2 * nb + b * c * 16),
+                "instance_norm_band_bwd_reduce": (
+                    lambda: kin.instance_norm_band_bwd_reduce(x0, d0, coef, True, y0),
+                    lambda: kin.instance_norm_band_bwd_reduce_plain(x0, d0, coef, True, y0),
+                    None, 3 * nb + b * c * 24),
+                "instance_norm_band_bwd_apply": (
+                    lambda: kin.instance_norm_band_bwd_apply(x0, d0, coef, total, True, y0),
+                    lambda: kin.instance_norm_band_bwd_apply_plain(x0, d0, coef, total, True,
+                                                                   y0),
+                    None, 4 * nb + b * c * 24)}
+            for name, (kernel, plain, library, nbytes) in calls.items():
+                bound_ms, bound_by = _bound(0.0, nbytes, dtype, peaks)
+                rows.append({"name": name, "shape": [b, x0.shape[1], c], "image": list(shape),
+                             "dtype": dname, "relu": True, "max_abs_err": errs[name],
+                             "whole_map_gap": {"y": y_gap, "dx": dx_gap},
+                             "ms": _time_ms(kernel), "plain_ms": _time_ms(plain),
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": _time_ms(library) if library else None})
+            print(f"[spatial] {shape} {dname} bands {[e - a for a, e in bands_]} rows: "
+                  + ", ".join(f"{r['name'][19:]} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                              f"bound {r['bound_ms']:.4f}) err {r['max_abs_err']:.2e}"
+                              for r in rows[-4:]) + f"; whole map y {y_gap:.2e} dx {dx_gap:.2e}")
+    return rows
+
+
+def _sp_runs(mesh, out_dir: str) -> dict:
+    """The spatial phase's loops and eval step (module docstring) on
+    ``mesh`` (None: one device), under cuDNN's deterministic algorithms;
+    each case's final losses, iterations, seconds and launches; the PNGs
+    under ``out_dir/<case>`` (rank 0's on a mesh)."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.config.schema import MultiPatchGANConfig
+    from heuristique_style_transfer_code_tpu_torch.models.gram_attention import (
+        gram_attention_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.multi_patchgan import (
+        multiscale_test_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.models.truncated_resnet50 import (
+        combined_apply,
+        truncated_resnet50_init,
+    )
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.parallel.sharding import (
+        make_spatial_eval_step,
+    )
+    from heuristique_style_transfer_code_tpu_torch.tasks import style_transfer as pst
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = mesh.device if mesh is not None else torch.device(DEVICE)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    cfg3 = MultiPatchGANConfig(norm="instance")
+    f2 = gram_attention_init(torch.Generator().manual_seed(0), 8, 4, POOL_S, device=dev)
+    f3 = multiscale_test_init(torch.Generator().manual_seed(13), cfg3.patch_sizes, ndf=cfg3.ndf,
+                              num_classes=cfg3.num_classes,
+                              gram_matrix_dim=cfg3.gram_matrix_dim, norm="instance", device=dev)
+    f1 = truncated_resnet50_init(torch.Generator().manual_seed(2), 8, 4, 256, device=dev)
+    rng = np.random.RandomState(423)
+    images = rng.randint(0, 256, (2, 256, 256, 3)).astype(np.uint8)
+    style = rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+    batch = [{"image": images[:1], "label": np.array([1]), "n_valid": 1}]
+    loop = dict(threshold=0.0, num_iterations=SP_ITERS, learning_rate=0.01, mesh=mesh,
+                log_fn=lambda *a: None)
+    cases = {
+        "f2_texture": lambda d, h: pst.style_transfer_gram_attention(
+            f2, batch, d, layers=8, truncate_layer=8, generator=torch.Generator().manual_seed(5),
+            history=h, **loop),
+        "content_style": lambda d, h: pst.content_style_transfer_gram_attention(
+            f2, batch, style, d, layers=8, truncate_layer=8, style_layers="all",
+            tv_weight=0.1, init="content", history=h, **loop),
+        "f3_instance": lambda d, h: pst.style_transfer_patches(
+            f3, batch, d, gram_matrix_dim=cfg3.gram_matrix_dim, norm="instance",
+            generator=torch.Generator().manual_seed(6), history=h, **loop),
+    }
+    out = {}
+    for case, run in cases.items():
+        history = []
+        kernels.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        run(os.path.join(out_dir, case), history)
+        sync()
+        seconds = time.perf_counter() - t0
+        out[case] = {"iters": len(history[0]), "seconds": seconds,
+                     "first": history[0][0].float().cpu().tolist(),
+                     "final": history[0][-1].float().cpu().tolist(),
+                     "image_iterations_per_s": len(history[0]) / seconds,
+                     "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+    step = make_spatial_eval_step(lambda m, x: combined_apply(m.moco, m.classifier, x, 8), mesh)
+    staged = torch.from_numpy(images).to(dev)
+    step(f1, staged)  # warm
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = step(f1, staged)
+    out["eval_step"] = {"logits": logits.float().cpu().tolist(),
+                        "seconds": time.perf_counter() - t0,
+                        "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+    return out
+
+
+def _sp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """A spawned gloo rank of the spatial phase on card 0: ``_sp_runs`` on a
+    1 x world mesh (rank 0 writing the PNGs), its results in
+    ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.core.device import resolve_device
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import create_mesh
+    from heuristique_style_transfer_code_tpu_torch.parallel.multihost import (
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    t0 = time.perf_counter()
+    resolve_device(DEVICE)
+    initialize_distributed(rank, world, init_method, backend="gloo")
+    try:
+        mesh = create_mesh(world, devices=[torch.device(DEVICE, 0)] * world, spatial=world)
+        start_s = time.perf_counter() - t0
+        runs = _sp_runs(mesh, os.path.join(out_dir, "ranks"))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "spatial": mesh.spatial,
+                       "staged_on_host": mesh.stage_on_host, "start_s": start_s,
+                       "runs": runs}, f)
+    finally:
+        shutdown_distributed()
+
+
+def _png_levels(root: str) -> dict:
+    import numpy as np
+    from PIL import Image
+
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".png"):
+                key = os.path.relpath(os.path.join(dirpath, name), root)
+                if name.count("_") == 4:  # family 3's names end in a millisecond stamp
+                    key = key.rsplit("_", 1)[0]
+                with Image.open(os.path.join(dirpath, name)) as im:
+                    out[key] = np.asarray(im, np.int16)
+    return out
+
+
+def phase_spatial(kernels, kin, peaks, tmp: str, timings: dict, smi: str) -> dict:
+    """``--shard_spatial`` on the one card (module docstring): the banded
+    K3/K3' entry points against their plain versions and the unbanded
+    kernels; the loops and the eval step on SP_RANKS gloo ranks sharing
+    card 0 (spawned while this process runs them on one device), held to
+    one device, with each rank's launches and image-iterations/s."""
+    import numpy as np
+
+    from heuristique_style_transfer_code_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    out = {"power": smi, "kernel_rows": _sp_kernel_rows(kin, peaks)}
+    sp_dir = os.path.join(tmp, "spatial")
+    os.makedirs(sp_dir, exist_ok=True)
+    spawn = {}
+
+    def ranks_job():
+        t0 = time.perf_counter()
+        try:
+            multihost.launch(SP_RANKS, None, [], target=_sp_rank, target_args=(sp_dir,),
+                             rendezvous_dir=tmp, deadline_s=SP_TIMEOUT_S)
+        except SystemExit as e:
+            spawn["error"] = e
+        spawn["seconds"] = time.perf_counter() - t0
+
+    job = threading.Thread(target=ranks_job)
+    job.start()
+    try:
+        one = _sp_runs(None, os.path.join(sp_dir, "one"))
+    finally:
+        job.join()
+    _require("error" not in spawn, f"[spatial] a rank failed: {spawn}")
+    out["spawn_and_runs_s"] = spawn["seconds"]
+    ranks = []
+    for r in range(SP_RANKS):
+        with open(os.path.join(sp_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    pngs_one, pngs_ranks = _png_levels(os.path.join(sp_dir, "one")), \
+        _png_levels(os.path.join(sp_dir, "ranks"))
+    _require(sorted(pngs_one) == sorted(pngs_ranks) and len(pngs_one) == 3,
+             f"[spatial] rank 0 wrote one device's PNGs: {sorted(pngs_one)} {sorted(pngs_ranks)}")
+    out["cases"] = {}
+    for case in ("f2_texture", "content_style", "f3_instance"):
+        ref = one[case]
+        gaps = []
+        for rank in ranks:
+            got = rank["runs"][case]
+            _require(got["iters"] == ref["iters"] == SP_ITERS,
+                     f"[spatial] {case}: iterations {got['iters']} against {ref['iters']}")
+            gaps.append(max(abs(a - b) / abs(b) for a, b in zip(got["final"], ref["final"])))
+        rate = ranks[0]["runs"][case]["image_iterations_per_s"]
+        out["cases"][case] = {"loss_gap": max(gaps),
+                              "first": ref["first"], "final": ref["final"],
+                              "image_iterations_per_s": rate,
+                              "one_device_image_iterations_per_s": ref["image_iterations_per_s"],
+                              "launches_rank": [r["runs"][case]["launches"] for r in ranks],
+                              "launches_one": ref["launches"]}
+        print(f"[spatial] {case}: {SP_ITERS} iterations, final loss {ref['final']} (first "
+              f"{ref['first']}), ranks' gap {max(gaps):.3g} relative; {rate:.2f} "
+              f"image-iterations/s on the ranks against {ref['image_iterations_per_s']:.2f} "
+              f"on one device; launches rank 0 {ranks[0]['runs'][case]['launches']}, one "
+              f"device {ref['launches']}")
+        _require(max(gaps) <= SP_TOL_LOSS, f"[spatial] {case}: losses {max(gaps):.3g} from "
+                 f"one device's (tol {SP_TOL_LOSS})")
+    # a gradient component near 0 may take the other sign from a band's
+    # rounding, and Adam moves it by lr either way: at most 2 lr an
+    # iteration, Adam's bound in uint8 steps (as the recycle phase's)
+    bound = int(np.ceil(2 * 0.01 * SP_ITERS * 0.229 * 255))
+    levels = {k: int(np.abs(pngs_ranks[k] - pngs_one[k]).max()) for k in pngs_one}
+    within_one = {k: float((np.abs(pngs_ranks[k] - pngs_one[k]) <= 1).mean()) for k in pngs_one}
+    out["png_levels"], out["png_within_one"] = levels, within_one
+    _require(max(levels.values()) <= bound and min(within_one.values()) >= 0.99,
+             f"[spatial] the PNGs within Adam's bound ({bound} steps), 99% within one: "
+             f"{levels} {within_one}")
+    want = np.asarray(one["eval_step"]["logits"])
+    for rank in ranks:
+        got = np.asarray(rank["runs"]["eval_step"]["logits"])
+        gap = float(np.abs(got - want).max() / np.abs(want).max())
+        _require(gap <= SP_TOL_LOGITS, f"[spatial] eval step logits {gap:.3g} from one "
+                 f"device's (tol {SP_TOL_LOGITS})")
+    out["eval_step"] = {"gap": gap, "seconds_rank": ranks[0]["runs"]["eval_step"]["seconds"],
+                        "seconds_one": one["eval_step"]["seconds"]}
+    # every banded entry point and the Grams on a band launched on each rank
+    f3 = [r["runs"]["f3_instance"]["launches"] for r in ranks]
+    for name in kin.BAND_KERNELS + ("gram_fwd", "gram_bwd"):
+        _require(all(l.get(name, 0) > 0 for l in f3), f"[spatial] {name} launched on every "
+                 f"rank of the family-3 loop: {f3}")
+    for name in ("instance_norm_fwd", "instance_norm_bwd"):
+        _require(all(l.get(name, 0) == 0 for l in f3), f"[spatial] the unbanded {name} "
+                 f"never launched on a band: {f3}")
+    out["launches"] = {name: sum(ranks[0]["runs"][c]["launches"].get(name, 0)
+                                 for c in ("f2_texture", "content_style", "f3_instance",
+                                           "eval_step"))
+                       for name in [*kernels.launch_counts(), *kin.BAND_KERNELS]}
+    print(f"[spatial] eval step logits {gap:.3g} from one device; PNG levels {levels}; "
+          f"staged on host {ranks[0]['staged_on_host']}; spawn, start and runs "
+          f"{spawn['seconds']:.1f} s ({smi})")
+    timings["spatial_phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
     """``--only a,b``: the named later phases alone (artifact, style_int8,
     native_decode, parallel_folds, data_parallel, serve_devices: the serve
@@ -7414,7 +7783,7 @@ def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
     )
 
     known = ("artifact", "style_int8", "native_decode", "parallel_folds", "data_parallel",
-             "serve_devices")
+             "serve_devices", "spatial")
     _require(set(phases) <= set(known), f"--only takes {known}: {phases}")
     out, timings = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -7433,6 +7802,8 @@ def _only(phases: list, kernels, kg, kin, name: str, smi: str) -> int:
                 out[phase] = phase_native_decode(tmp, timings)
             elif phase == "data_parallel":
                 out[phase] = phase_data_parallel(kernels, tmp, timings, smi)
+            elif phase == "spatial":
+                out[phase] = phase_spatial(kernels, kin, _peaks(name), tmp, timings, smi)
             elif phase == "serve_devices":
                 save_pytree_npz(to_jax_tree(gram_attention_init(
                     torch.Generator().manual_seed(0), 8, 4, POOL_S, device="cpu")),
@@ -7598,6 +7969,9 @@ def main() -> int:
               f"{timings['native_decode_phase_s']:.2f} + "
               f"{timings['parallel_folds_phase_s']:.2f} s")
         data_parallel = phase_data_parallel(kernels, tmp, timings, smi)
+        spatial = phase_spatial(kernels, kin, peaks, tmp, timings, smi)
+        print(f"[data_parallel+spatial] {timings['data_parallel_phase_s']:.2f} + "
+              f"{timings['spatial_phase_s']:.2f} s")
     cs_launches = {k: content_style["launches"][k] + cs_serve["launches"][k]
                    for k in ("gram_fwd", "gram_bwd")}
     fst_launches = fst["launches"]
@@ -7623,7 +7997,8 @@ def main() -> int:
                 + remat["launches"]["instance_norm_bwd"]
                 + f3_serve["launches"]["instance_norm_bwd"]
                 + ema_mix["launches"]["instance_norm_bwd"]}
-    for part in (artifact, style_int8, parallel, data_parallel):
+    launches.update({k: 0 for k in kin.BAND_KERNELS})
+    for part in (artifact, style_int8, parallel, data_parallel, spatial):
         for k, v in part["launches"].items():
             launches[k] += v
     idle = [k for k in launches if launches[k] == 0]
@@ -7633,14 +8008,19 @@ def main() -> int:
     replaces = {"gram_fwd": f"{PALLAS}:60", "gram_bwd": f"{PALLAS}:60",
                 "pooled_gram_fwd": f"{PALLAS}:100", "pooled_gram_bwd": f"{PALLAS}:100",
                 "instance_norm_fwd": f"{PALLAS_IN}:192",
-                "instance_norm_bwd": f"{PALLAS_IN}:192"}
+                "instance_norm_bwd": f"{PALLAS_IN}:192",
+                **{k: f"{PALLAS_IN}:192" for k in kin.BAND_KERNELS}}
     sources = {"gram_fwd": SOURCE["gram"], "gram_bwd": SOURCE["gram"],
                "pooled_gram_fwd": SOURCE["gram"], "pooled_gram_bwd": SOURCE["gram"],
                "instance_norm_fwd": SOURCE["instance_norm"],
-               "instance_norm_bwd": SOURCE["instance_norm"]}
+               "instance_norm_bwd": SOURCE["instance_norm"],
+               **{k: SOURCE["instance_norm"] for k in kin.BAND_KERNELS}}
+    rows.update({k: [r for r in spatial["kernel_rows"] if r["name"] == k]
+                 for k in kin.BAND_KERNELS})
     for kname in launches:
         # the net's first norm (in1, with its ReLU) stands for K3's record, the
-        # style loop's first (b1, 112², ReLU) for its backward's
+        # style loop's first (b1, 112², ReLU) for its backward's; the banded
+        # entry points' by rank 0's band of the family-3 loop's first map
         main_row = next(r for r in rows[kname]
                         if tuple(r["shape"]) == MAIN_SHAPE[kname] and r["dtype"] == "float32"
                         and r.get("relu", True))
@@ -7666,7 +8046,7 @@ def main() -> int:
                    "auto_batch": auto_batch, "int8": int8, "serve": serving,
                    "recycle": recycle, "artifact": artifact, "style_int8": style_int8,
                    "native_decode": native_decode, "parallel_folds": parallel,
-                   "data_parallel": data_parallel}, f, indent=1,
+                   "data_parallel": data_parallel, "spatial": spatial}, f, indent=1,
                   default=str)
     print(f"[chip_smoke] {timings['total_s']:.1f} s in all, the kernels' build included")
     print(json.dumps({"kernels": records}))

@@ -8,7 +8,7 @@ from __future__ import annotations
 import contextlib
 import os
 import random
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -381,17 +381,17 @@ def _backend(args) -> str:
     return "nccl" if torch.device(args.device).type == "cuda" else "gloo"
 
 
-def _join_mesh(args):
+def _join_mesh(args, spatial: int = 1):
     """In a rank (``torchrun``, or the ranks ``launch`` spawns): join the
     process group (NCCL for ``--device cuda``, gloo for ``cpu``) and
-    return this rank's mesh; its standard output goes to ``os.devnull``
-    unless it is rank 0."""
+    return this rank's mesh (with a spatial axis of ``spatial`` ranks); its
+    standard output goes to ``os.devnull`` unless it is rank 0."""
     from ..core.mesh import create_mesh
     from ..parallel.multihost import initialize_distributed, quiet_unless_main
 
     rank = initialize_distributed(backend=_backend(args))
     quiet_unless_main(rank)
-    mesh = create_mesh()
+    mesh = create_mesh(spatial=spatial)
     if mesh.device.type == "cpu":  # the ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.world_size))
     return mesh
@@ -471,13 +471,59 @@ def resolve_eval_mesh(args, batch_size: int, module: str, argv: Optional[List[st
     return None, True
 
 
+def style_mesh_shape(n_devices: Optional[int], shard_spatial: int, batch_size: int,
+                     avail: Optional[int] = None) -> Tuple[int, int]:
+    """(data, spatial) of the style mesh, the JAX ``resolve_style_mesh``
+    clamp (``:899-926``) for ``shard_spatial`` > 1: the spatial factor at
+    most the ``avail`` devices (None: any count, as on the CPU, where a
+    rank is a process), the devices asked for (the spatial factor by
+    default) at most those available and cut to whole spatial groups, then
+    the data axis down to a divisor of the batch."""
+    sp = int(shard_spatial)
+    if avail is not None and sp > avail:
+        print(f"Warning: --shard_spatial {sp} > {avail} available devices; clamping to {avail}.")
+        sp = avail
+    n = n_devices or sp
+    if avail is not None:
+        n = min(n, avail)
+    n = max(n - n % sp, sp)  # whole spatial groups
+    data = n // sp
+    while data > 1 and batch_size % data != 0:
+        data -= 1
+    return data, sp
+
+
 def resolve_style_mesh(args, batch_size: int, module: str, argv: Optional[List[str]]):
-    """The style loops' mesh (the JAX ``resolve_style_mesh``, ``:901-926``):
-    the data axis as ``resolve_eval_mesh``; ``--shard_spatial`` > 1 (each
-    canvas's rows over devices) is not ported yet."""
-    if int(getattr(args, "shard_spatial", 1) or 1) > 1:
-        raise NotImplementedError("--shard_spatial is not ported yet")
-    return resolve_eval_mesh(args, batch_size, module, argv)
+    """The style loops' mesh (the JAX ``resolve_style_mesh``, ``:899-926``):
+    ``(mesh, launched)``. ``--shard_spatial`` left out or 1: the data axis
+    alone, as ``resolve_eval_mesh``. Greater: each canvas's H rows over a
+    spatial axis too (``parallel/spatial.py``), the mesh's shape from
+    ``style_mesh_shape`` (the cards available on CUDA, any count of gloo
+    processes on the CPU), printed; at one device ``(None, False)``;
+    otherwise ``data x spatial`` spawned ranks run ``module.main(argv)``
+    and ``(None, True)`` comes back once they all exit 0. In a rank
+    (``torchrun``, or the spawned ranks) the spatial factor is
+    ``min(--shard_spatial, world size)``, which must divide the world."""
+    from ..parallel.multihost import in_process_group_env
+
+    sp = int(getattr(args, "shard_spatial", 1) or 1)
+    if sp <= 1:
+        return resolve_eval_mesh(args, batch_size, module, argv)
+    if in_process_group_env():
+        sp = min(sp, int(os.environ["WORLD_SIZE"]))
+        mesh = _join_mesh(args, spatial=sp)
+        if batch_size % mesh.data_axis.world_size:
+            raise SystemExit(f"{mesh.data_axis.world_size} data ranks do not divide the batch "
+                             f"of {batch_size}")
+        return mesh, False
+    avail = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else None
+    data, sp = style_mesh_shape(args.devices, sp, batch_size, avail)
+    if data * sp == 1:
+        return None, False
+    print(f"Spatial sharding: {data * sp} ranks ({_backend(args)}), data {data} x spatial "
+          f"{sp}: each canvas's rows over {sp} ranks")
+    _launch_ranks(data * sp, module, argv)
+    return None, True
 
 
 def eval_loader(samples, batch_size: int, mesh, **kwargs):

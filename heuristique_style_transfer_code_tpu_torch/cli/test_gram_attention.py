@@ -23,7 +23,10 @@ when that file exists and written there when it does not, with
 JAX passes them a mesh; camera ignores it) runs N ranks, one process a
 device (NCCL between cards, gloo with ``--device cpu``), each decoding and
 running its rows of every batch; rank 0 writes the files of ``--devices
-1``. The flags listed in ``_NOT_PORTED`` raise a "not ported yet" error.
+1``. ``--shard_spatial S`` (style transfer) cuts each canvas's rows over
+S ranks as well (``cli/_common.resolve_style_mesh``: data x spatial ranks,
+``parallel/spatial.py``). The flags listed in ``_NOT_PORTED`` raise a "not
+ported yet" error.
 ``--model_path`` takes the JAX package's ``.npz``, a reference ``.pth``
 (``checkpoint/pth_converter.py``) or a family-1 checkpoint, whose encoder
 is reused under a fresh gram/attention head.
@@ -70,9 +73,7 @@ PORTED_MODES = ("classification", "style_transfer", "tsne", "tsne_interactive", 
 MESH_MODES = ("classification", "tsne", "tsne_interactive", "style_transfer")
 
 # flag -> its default; any other value raises "not ported yet"
-_NOT_PORTED = {
-    "shard_spatial": 1,
-}
+_NOT_PORTED: dict = {}
 
 
 def build_parser():
@@ -95,7 +96,10 @@ def build_parser():
     parser.add_argument("--num_iterations", default=500, type=int)
     parser.add_argument("--batch_size", type=int, default=None,
                         help="Override the config batch size")
-    parser.add_argument("--shard_spatial", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--shard_spatial", type=int, default=1,
+                        help="Style transfer: shard each canvas's H rows over this many "
+                        "devices (halo exchanges in the encoder's forward and backward; "
+                        "combines with --devices, which shards the batch axis)")
     parser.add_argument("--style_image", type=str, default=None,
                         help="Classic content+style transfer: re-render every test image in "
                         "this image's style (style Gram + content feature loss) instead of "

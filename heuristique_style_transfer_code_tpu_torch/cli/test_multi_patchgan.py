@@ -18,11 +18,13 @@ reference ``.pth`` of the test variant, or a train-variant tree, which is
 loaded partially as the JAX CLI loads it (``shape_filtered_update``).
 ``--steps_per_dispatch`` (classification and the t-SNE modes),
 ``--profile_dir`` and ``--debug_nans`` run. ``--devices N``
-(classification and the t-SNE modes; style transfer's loader is b1, so it
-stays on one device as JAX's clamp does; camera ignores it) runs N ranks,
-one process a device (NCCL between cards, gloo with ``--device cpu``),
-each decoding and running its rows of every batch; rank 0 writes the
-files of ``--devices 1``. The flags listed in ``_NOT_PORTED`` raise a "not
+(classification and the t-SNE modes; style transfer's loader is b1, so its
+data axis stays one device as JAX's clamp does; camera ignores it) runs N
+ranks, one process a device (NCCL between cards, gloo with ``--device
+cpu``), each decoding and running its rows of every batch; rank 0 writes
+the files of ``--devices 1``. ``--shard_spatial S`` cuts each style
+canvas's rows over S ranks (``cli/_common.resolve_style_mesh``,
+``parallel/spatial.py``). The flags listed in ``_NOT_PORTED`` raise a "not
 ported yet" error.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan \\
@@ -70,9 +72,7 @@ PORTED_MODES = ("classification", "tsne", "tsne_interactive", "camera", "style_t
 MESH_MODES = ("classification", "tsne", "tsne_interactive", "style_transfer")
 
 # flag -> its default; any other value raises "not ported yet"
-_NOT_PORTED = {
-    "shard_spatial": 1,
-}
+_NOT_PORTED: dict = {}
 
 
 def build_parser():
@@ -96,7 +96,11 @@ def build_parser():
     parser.add_argument("--threshold", default=1e-4, type=float)
     parser.add_argument("--learning_rate", default=0.01, type=float)
     parser.add_argument("--num_iterations", default=500, type=int)
-    parser.add_argument("--shard_spatial", type=int, default=1, help="Not ported yet")
+    parser.add_argument("--shard_spatial", type=int, default=1,
+                        help="Style transfer: shard each canvas's H rows over this many "
+                        "devices (halo exchanges in the discriminators' forward and "
+                        "backward; this family optimises one image at a time, so 'spatial' "
+                        "is the useful axis)")
     parser.add_argument("--afficher_params", action="store_true")
     parser.add_argument("--compute_auc", action="store_true",
                         help="Calculer le score AUC pour le modèle")
@@ -199,7 +203,7 @@ def main(argv=None):
     cfg = MultiPatchGANConfig.from_json(args.config_path)
     mesh = None
     if args.mode in MESH_MODES:
-        if args.mode == "style_transfer":  # one image at a time: JAX's clamp gives 1 device
+        if args.mode == "style_transfer":  # one image at a time: a data axis of 1 device
             mesh, launched = resolve_style_mesh(args, 1, __spec__.name, argv)
         else:
             mesh, launched = resolve_eval_mesh(args, args.batch_size or cfg.batch_size,

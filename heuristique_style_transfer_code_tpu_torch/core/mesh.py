@@ -37,13 +37,24 @@ and the batch mixing of a train step see (``active``), as GSPMD's mesh is
 implicit in the JAX step; it is a process-wide setting, not a
 thread-local one, since the autograd engine may run a remat block's
 recompute on another thread.
+
+The (data, spatial) mesh (``create_mesh(spatial=S)``, ``--shard_spatial``):
+rank r is (data r // S, spatial r % S), JAX's ``reshape(n // S, S)`` of
+the devices. ``data_axis`` and ``spatial_axis`` are meshes of their own
+over the ranks of this rank's data and spatial groups (every rank makes
+every group, in one order), with the same collectives and the group's
+timeout; the rows of a batch (``rows``, ``local``, ``gather_rows``) go
+over the data axis. ``bands(mesh)`` makes the spatial axis the one whose
+row bands the ops see (``active_bands``): inside it every NHWC activation
+is this rank's band of rows of its image (``parallel/spatial.py``), and
+``replicated()`` suspends that for work on whole, replicated maps.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,9 +89,12 @@ def local_rows(batch: int, rank: int, world: int, n_accum: int = 1) -> np.ndarra
 class Mesh:
     """One rank of a 1-D data-parallel mesh. Without a ``backend`` (no
     process group: one device) its collectives are the identity; with one,
-    they run, a one-rank group's included."""
+    they run, a one-rank group's included. ``group`` (a process group of
+    the members ``ranks``, by global rank) makes it the mesh of one axis of
+    a 2-D mesh; None is the whole world."""
 
-    def __init__(self, rank: int, world_size: int, device, backend: Optional[str] = None):
+    def __init__(self, rank: int, world_size: int, device, backend: Optional[str] = None,
+                 group=None, ranks: Optional[Sequence[int]] = None):
         self.rank = int(rank)
         self.world_size = int(world_size)
         self.device = torch.device(device)
@@ -89,18 +103,28 @@ class Mesh:
         self.timeout = collective_timeout()
         # gloo on a card: every collective goes through host memory
         self.stage_on_host = backend == "gloo" and self.device.type == "cuda"
+        self.group = group
+        self.ranks = list(range(self.world_size)) if ranks is None else [int(r) for r in ranks]
+        # a 1-D mesh is its own data axis; create_mesh(spatial=S) sets both
+        self.spatial = 1
+        self.data_axis: "Mesh" = self
+        self.spatial_axis: Optional["Mesh"] = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
     def __repr__(self):
+        extra = f", spatial={self.spatial}" if self.spatial > 1 else ""
         return (f"Mesh(rank={self.rank}, world_size={self.world_size}, device={self.device}, "
-                f"backend={self.backend})")
+                f"backend={self.backend}{extra})")
 
     # -- rows ---------------------------------------------------------------
     def rows(self, batch: int, n_accum: int = 1) -> np.ndarray:
-        return local_rows(batch, self.rank, self.world_size, n_accum)
+        """This rank's rows of a batch: its data rank's block (the ranks of
+        a spatial group hold the same rows)."""
+        data = self.data_axis
+        return local_rows(batch, data.rank, data.world_size, n_accum)
 
     def local(self, x, n_accum: int = 1):
         """This rank's rows of a global array or tensor (leading axis)."""
@@ -123,7 +147,7 @@ class Mesh:
         import torch.distributed as dist
 
         buf = self._staged(flat)
-        self._wait(dist.all_reduce(buf, op=op, async_op=True))
+        self._wait(dist.all_reduce(buf, op=op, async_op=True, group=self.group))
         return buf.to(flat.device) if buf.device != flat.device else buf
 
     def all_reduce(self, tensors: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
@@ -136,17 +160,8 @@ class Mesh:
         import torch.distributed as dist
 
         rop = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-        out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-        by_dtype = {}
-        for i, t in enumerate(tensors):
-            by_dtype.setdefault(t.dtype, []).append(i)
         with torch.profiler.record_function("hst_dp::all_reduce"):
-            for idx in by_dtype.values():
-                flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
-                red = self._flat_all_reduce(flat, rop)
-                for i, part in zip(idx, torch.split(red, [tensors[i].numel() for i in idx])):
-                    out[i] = part.view(tensors[i].shape)
-        return out
+            return _by_dtype(tensors, lambda flat: self._flat_all_reduce(flat, rop))
 
     def any(self, flag: bool) -> bool:
         """Whether any rank's ``flag`` is set (every rank gets the answer)."""
@@ -169,7 +184,8 @@ class Mesh:
         import torch.distributed as dist
 
         box = [obj if self.is_main else None]
-        dist.broadcast_object_list(box, src=0, device=self.device if self.backend == "nccl"
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group,
+                                   device=self.device if self.backend == "nccl"
                                    else torch.device("cpu"))
         return box[0]
 
@@ -182,12 +198,55 @@ class Mesh:
         with torch.profiler.record_function("hst_dp::all_gather"):
             src = self._staged(t.detach().contiguous())
             parts = [torch.empty_like(src) for _ in range(self.world_size)]
-            self._wait(dist.all_gather(parts, src, async_op=True))
+            self._wait(dist.all_gather(parts, src, async_op=True, group=self.group))
         return [p.to(t.device) for p in parts] if self.stage_on_host else parts
+
+    def sum_in_order(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The sum over the members of each tensor, added in member order
+        from one all-gather a dtype (one flat buffer each): the same bits on
+        every member, whatever the backend's reduction order. New tensors."""
+        tensors = list(tensors)
+        if not self.distributed:
+            return [t.clone() for t in tensors]
+
+        def ordered_sum(flat):
+            parts = self.all_gather(flat)
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            return total
+
+        with torch.profiler.record_function("hst_sp::sum_in_order"):
+            return _by_dtype(tensors, ordered_sum)
+
+    def exchange(self, sends: Dict[int, torch.Tensor],
+                 receives: Dict[int, Tuple[Tuple[int, ...], torch.dtype]]) -> Dict[int, torch.Tensor]:
+        """Point to point within the group: ``sends[q]`` goes to member q,
+        and a tensor of ``receives[q]``'s (shape, dtype) comes from member
+        q, on this mesh's device; every pair's messages in one batch
+        (``batch_isend_irecv``), each waited on with the timeout."""
+        if not sends and not receives:
+            return {}
+        import torch.distributed as dist
+
+        where = torch.device("cpu") if self.stage_on_host else self.device
+        ops, bufs = [], {}
+        with torch.profiler.record_function("hst_sp::exchange"):
+            for q, t in sends.items():
+                ops.append(dist.P2POp(dist.isend, self._staged(t.detach().contiguous()),
+                                      self.ranks[q], self.group))
+            for q, (shape, dtype) in receives.items():
+                bufs[q] = torch.empty(shape, dtype=dtype, device=where)
+                ops.append(dist.P2POp(dist.irecv, bufs[q], self.ranks[q], self.group))
+            for work in dist.batch_isend_irecv(ops):
+                self._wait(work)
+        return {q: b.to(self.device) for q, b in bufs.items()}
 
     def gather_rows(self, t: torch.Tensor, n_accum: int = 1) -> torch.Tensor:
         """The global batch whose rows the ranks hold (``rows``), in the
-        single-device order."""
+        single-device order (over the data axis)."""
+        if self.data_axis is not self:
+            return self.data_axis.gather_rows(t, n_accum)
         if not self.distributed:
             return t
         parts = torch.stack(self.all_gather(t))  # (N, K * lmb, ...)
@@ -207,8 +266,22 @@ class Mesh:
         with torch.profiler.record_function("hst_dp::reduce_scatter"):
             src = self._staged(flat.detach().contiguous())
             out = torch.empty(chunk, dtype=src.dtype, device=src.device)
-            self._wait(dist.reduce_scatter_tensor(out, src, async_op=True))
+            self._wait(dist.reduce_scatter_tensor(out, src, async_op=True, group=self.group))
         return out.to(flat.device) if self.stage_on_host else out
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor], reduce_flat) -> List[torch.Tensor]:
+    """``reduce_flat`` of one flat buffer a dtype of ``tensors``, cut back
+    into tensors of their shapes."""
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = reduce_flat(torch.cat([tensors[i].detach().reshape(-1) for i in idx]))
+        for i, part in zip(idx, torch.split(flat, [tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
 
 
 def gather_valid(mesh: Optional[Mesh], parts: Sequence, n_valid: Optional[int] = None,
@@ -281,7 +354,8 @@ class DeviceGroup:
         return [build(d) for d in self.devices]
 
 
-def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None) -> Mesh:
+def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None,
+                spatial: int = 1) -> Mesh:
     """This process's rank of the data-parallel mesh (the JAX
     ``create_mesh(n_devices, devices)``). Without a process group it is the
     one-device mesh on ``devices[0]`` (the CPU by default). With one
@@ -289,13 +363,16 @@ def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = N
     its world size, and ``devices`` lists each rank's device; a device may
     repeat where the backend allows it (gloo: two ranks on one card, whose
     collectives are staged through host memory). By default a NCCL rank
-    takes card ``LOCAL_RANK`` and a gloo rank the CPU."""
+    takes card ``LOCAL_RANK`` and a gloo rank the CPU. ``spatial`` > 1
+    makes it the (data, spatial) mesh of the world (module docstring),
+    which needs a process group whose size it divides."""
     import torch.distributed as dist
 
+    spatial = int(spatial)
     if not (dist.is_available() and dist.is_initialized()):
-        if n_devices not in (None, 1):
-            raise ValueError(f"a mesh of {n_devices} devices needs a process group "
-                             "(parallel.multihost.initialize_distributed)")
+        if n_devices not in (None, 1) or spatial != 1:
+            raise ValueError(f"a mesh of {n_devices} devices (spatial {spatial}) needs a "
+                             "process group (parallel.multihost.initialize_distributed)")
         return Mesh(0, 1, devices[0] if devices else "cpu")
     world, rank = dist.get_world_size(), dist.get_rank()
     if n_devices not in (None, world):
@@ -317,7 +394,35 @@ def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = N
         cards = [torch.device(d) for d in devices if d is not None]
         if len(set(cards)) < len(cards):
             raise ValueError("NCCL refuses two ranks on one card; name gloo for that")
-    return Mesh(rank, world, device, backend)
+    mesh = Mesh(rank, world, device, backend)
+    if spatial != 1:
+        _split_axes(mesh, spatial)
+    return mesh
+
+
+def _split_axes(mesh: Mesh, spatial: int) -> None:
+    """Make ``mesh`` (the world) the (data, spatial) mesh: rank r = d S + s.
+    Every rank makes every group (the spatial groups, then the data
+    groups, each in order), as ``dist.new_group`` requires."""
+    import torch.distributed as dist
+
+    world = mesh.world_size
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"a spatial axis of {spatial} does not divide {world} ranks")
+    data = world // spatial
+    made = {}
+    for d in range(data):
+        ranks = [d * spatial + s for s in range(spatial)]
+        made[("spatial", d)] = ranks, dist.new_group(ranks, timeout=mesh.timeout)
+    for s in range(spatial):
+        ranks = [d * spatial + s for d in range(data)]
+        made[("data", s)] = ranks, dist.new_group(ranks, timeout=mesh.timeout)
+    d, s = divmod(mesh.rank, spatial)
+    ranks, group = made[("spatial", d)]
+    mesh.spatial_axis = Mesh(s, spatial, mesh.device, mesh.backend, group, ranks)
+    ranks, group = made[("data", s)]
+    mesh.data_axis = Mesh(d, data, mesh.device, mesh.backend, group, ranks)
+    mesh.spatial = spatial
 
 
 _ACTIVE: Optional[Tuple[Mesh, int]] = None
@@ -339,6 +444,40 @@ def activate(mesh: Optional[Mesh], n_accum: int = 1):
 def active() -> Optional[Tuple[Mesh, int]]:
     """The ``(mesh, n_accum)`` of the train step being run, or None."""
     return _ACTIVE
+
+
+_BANDS: Optional[Mesh] = None
+
+
+@contextlib.contextmanager
+def _banded_by(axis: Optional[Mesh]):
+    global _BANDS
+    previous = _BANDS
+    _BANDS = axis
+    try:
+        yield
+    finally:
+        _BANDS = previous
+
+
+def bands(mesh: Optional[Mesh]):
+    """Within the block, ``active_bands()`` is the spatial axis of ``mesh``
+    when it has one of more than one rank (``--shard_spatial``), else None:
+    the ops then treat every NHWC activation as this rank's band of rows
+    of its image (``parallel/spatial.py``). Process-wide, as ``activate``."""
+    axis = getattr(mesh, "spatial_axis", None)
+    return _banded_by(axis if axis is not None and axis.world_size > 1 else None)
+
+
+def replicated():
+    """Within the block no band is active: work on whole maps that every
+    rank of a spatial group holds alike (family 3's pooled maps)."""
+    return _banded_by(None)
+
+
+def active_bands() -> Optional[Mesh]:
+    """The spatial axis whose row bands the ops see, or None."""
+    return _BANDS
 
 
 def data_parallel(mesh: Optional[Mesh]) -> Optional[Mesh]:

@@ -646,6 +646,325 @@ int bwd_dispatch(const void* x, const void* dy, const void* y, const void* scale
                                  rl, splits, groups, eps, st);
 }
 
+// ---- the banded entry points (--shard_spatial) ------------------------------
+//
+// Under spatial partitioning each rank holds a band of an image's rows
+// (parallel/spatial.py), and the statistics are the whole image's. The
+// split route already has the seam: its statistics pass ends in small
+// per-(image, channel) partials. So the band runs the split geometry on
+// its rows alone, the rank exchanges the partials with the other bands and
+// merges them in rank order (Chan, on the host side of the launch), and the
+// apply passes take the merged numbers:
+//   instance_norm_band_stats       in_stats_kernel on the band (shifted by
+//                                  the band's first row), then
+//                                  in_band_finalize_kernel: (n, mean, M2)
+//                                  of the band about its own mean
+//   instance_norm_band_apply       y = (x - mean) * rstd (+ ReLU)
+//   instance_norm_band_bwd_reduce  (sum g, sum g xhat) of the band, xhat =
+//                                  (x - mean) rstd, g = dy under y's mask:
+//                                  per block, then merged in block order
+//   instance_norm_band_bwd_apply   dx = rstd ((g - sum g / n) - xhat sum g xhat / n)
+// coef is (B, C) float4 (mean, rstd, 1 / n, 0) of the whole image. Bound on
+// an H100: bytes, as the split route: stats read the band once, apply
+// reads it and writes y, the backward reads x, dy (and y) twice and writes
+// dx.
+
+// Per (b, c), the band's blocks merged in a fixed order into (n, mean, M2)
+// about the band's own mean, mean = K + ubar (in_finalize_kernel's merge).
+template <typename T>
+__global__ void __launch_bounds__(FIN_C * FIN_S)
+in_band_finalize_kernel(const T* __restrict__ x, const float2* __restrict__ ws,
+                        float* __restrict__ stats, int hw, int c, int splits, int rows) {
+  __shared__ float red[FIN_S][FIN_C];
+  __shared__ float ubar_s[FIN_C];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ch = blockIdx.x * FIN_C + tx, b = blockIdx.y;
+  const bool valid = ch < c;
+  const float2* w = ws + static_cast<size_t>(b) * splits * c + ch;
+  float acc = 0.f;
+  if (valid)
+    for (int s = ty; s < splits; s += FIN_S) acc += w[static_cast<size_t>(s) * c].x;
+  red[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0) {
+    float t = 0.f;
+    for (int i = 0; i < FIN_S; ++i) t += red[i][tx];
+    ubar_s[tx] = t / static_cast<float>(hw);
+  }
+  __syncthreads();
+  const float ubar = ubar_s[tx];
+  float m2 = 0.f;
+  if (valid) {
+    for (int s = ty; s < splits; s += FIN_S) {
+      const float2 p = w[static_cast<size_t>(s) * c];
+      const float n_s = static_cast<float>(min(rows, hw - s * rows));
+      const float d = p.x / n_s - ubar;
+      m2 += p.y + n_s * d * d;
+    }
+  }
+  red[ty][tx] = m2;  // thread row 0 read `red` before the barrier above
+  __syncthreads();
+  if (ty == 0 && valid) {
+    float t = 0.f;
+    for (int i = 0; i < FIN_S; ++i) t += red[i][tx];
+    const size_t bc = static_cast<size_t>(b) * c + ch;
+    const float k = to_f32<T>(x[static_cast<size_t>(b) * hw * c + ch]);
+    stats[3 * bc] = static_cast<float>(hw);
+    stats[3 * bc + 1] = k + ubar;
+    stats[3 * bc + 2] = t;
+  }
+}
+
+// The mean, rstd and 1 / n of V channels from coef.
+template <int V>
+__device__ __forceinline__ void load_coef(const float4* __restrict__ coef, size_t bc0,
+                                          float (&mean)[V], float (&rstd)[V],
+                                          float (&inv_n)[V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float4 p = coef[bc0 + v];
+    mean[v] = p.x;
+    rstd[v] = p.y;
+    inv_n[v] = p.z;
+  }
+}
+
+// y = (x - mean) * rstd, ReLU when asked, in x's type.
+template <typename T, int V, bool RELU>
+__global__ void __launch_bounds__(THREADS)
+in_band_apply_kernel(const T* __restrict__ x, const float4* __restrict__ coef,
+                     T* __restrict__ y, Geometry g) {
+  const int split = blockIdx.x, group = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane_c = tid % g.cb, lane_r = tid / g.cb;
+  const int cvec = group * g.cb + lane_c;
+  if (lane_r >= g.rl || cvec * V >= g.c) return;
+  const int row0 = split * g.rl * ITEMS;
+  const int n_b = min(g.rl * ITEMS, g.hw - row0);
+  float mean[V], rstd[V], inv_n[V];
+  load_coef<V>(coef, static_cast<size_t>(b) * g.c + cvec * V, mean, rstd, inv_n);
+  const size_t base = static_cast<size_t>(b) * g.hw * g.c + cvec * V;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int r = i * g.rl + lane_r;
+    if (r < n_b) {
+      const size_t off = base + static_cast<size_t>(row0 + r) * g.c;
+      float v_[V];
+      load_vec<T, V>(x + off, v_);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float t = (v_[v] - mean[v]) * rstd[v];
+        v_[v] = RELU ? fmaxf(t, 0.f) : t;
+      }
+      store_vec<T, V>(y + off, v_);
+    }
+  }
+}
+
+// Per block and channel (sum g, sum g xhat) of the band.
+template <typename T, int V, bool RELU>
+__global__ void __launch_bounds__(THREADS)
+in_band_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const T* __restrict__ y, const float4* __restrict__ coef,
+                          float2* __restrict__ ws, Geometry g) {
+  extern __shared__ float smem[];
+  const int split = blockIdx.x, group = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane_c = tid % g.cb, lane_r = tid / g.cb;
+  const int cvec = group * g.cb + lane_c;
+  const bool active = lane_r < g.rl && cvec * V < g.c;
+  const int row0 = split * g.rl * BWD_ITEMS;
+  const int n_b = min(g.rl * BWD_ITEMS, g.hw - row0);
+  const int ncol = g.cb * V;
+  float* part = smem;                 // [rl][ncol]
+  float* sum_g = part + g.rl * ncol;  // [ncol] each
+  float* sum_h = sum_g + ncol;
+  float sg[V], sh[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) sg[v] = sh[v] = 0.f;
+  if (active) {
+    float mean[V], rstd[V], inv_n[V];
+    load_coef<V>(coef, static_cast<size_t>(b) * g.c + cvec * V, mean, rstd, inv_n);
+    const size_t base = static_cast<size_t>(b) * g.hw * g.c + cvec * V;
+#pragma unroll
+    for (int i = 0; i < BWD_ITEMS; ++i) {
+      const int r = i * g.rl + lane_r;
+      if (r < n_b) {
+        const size_t off = base + static_cast<size_t>(row0 + r) * g.c;
+        float xv[V], gv[V];
+        load_vec<T, V>(x + off, xv);
+        load_grad<T, V, RELU>(dy, y, off, gv);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          sg[v] += gv[v];
+          sh[v] = fmaf(gv[v], (xv[v] - mean[v]) * rstd[v], sh[v]);
+        }
+      }
+    }
+  }
+  column_sums<V>(part, sum_g, sg, g, lane_r, lane_c);
+  column_sums<V>(part, sum_h, sh, g, lane_r, lane_c);
+  for (int j = tid; j < ncol; j += THREADS) {
+    const int ch = group * ncol + j;
+    if (ch < g.c)
+      ws[(static_cast<size_t>(b) * gridDim.x + split) * g.c + ch] = make_float2(sum_g[j], sum_h[j]);
+  }
+}
+
+// Per (b, c), the band's blocks added in a fixed order: out = (sum g, sum g xhat).
+__global__ void __launch_bounds__(FIN_C * FIN_S)
+in_band_bwd_finalize_kernel(const float2* __restrict__ ws, float2* __restrict__ out, int c,
+                            int splits) {
+  __shared__ float red[2][FIN_S][FIN_C];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int ch = blockIdx.x * FIN_C + tx, b = blockIdx.y;
+  const bool valid = ch < c;
+  const float2* w = ws + static_cast<size_t>(b) * splits * c + ch;
+  float gs = 0.f, hs = 0.f;
+  if (valid) {
+    for (int s = ty; s < splits; s += FIN_S) {
+      const float2 p = w[static_cast<size_t>(s) * c];
+      gs += p.x;
+      hs += p.y;
+    }
+  }
+  red[0][ty][tx] = gs;
+  red[1][ty][tx] = hs;
+  __syncthreads();
+  if (ty == 0 && valid) {
+    float tg = 0.f, th = 0.f;
+    for (int i = 0; i < FIN_S; ++i) {
+      tg += red[0][i][tx];
+      th += red[1][i][tx];
+    }
+    out[static_cast<size_t>(b) * c + ch] = make_float2(tg, th);
+  }
+}
+
+// dx = rstd ((g - sum g / n) - xhat sum g xhat / n), sums the whole image's.
+template <typename T, int V, bool RELU>
+__global__ void __launch_bounds__(THREADS)
+in_band_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const T* __restrict__ y, const float4* __restrict__ coef,
+                         const float2* __restrict__ sums, T* __restrict__ dx, Geometry g) {
+  const int split = blockIdx.x, group = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane_c = tid % g.cb, lane_r = tid / g.cb;
+  const int cvec = group * g.cb + lane_c;
+  if (lane_r >= g.rl || cvec * V >= g.c) return;
+  const int row0 = split * g.rl * BWD_ITEMS;
+  const int n_b = min(g.rl * BWD_ITEMS, g.hw - row0);
+  const size_t bc0 = static_cast<size_t>(b) * g.c + cvec * V;
+  float mean[V], rstd[V], inv_n[V], mg[V], mh[V];
+  load_coef<V>(coef, bc0, mean, rstd, inv_n);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const float2 s = sums[bc0 + v];
+    mg[v] = s.x * inv_n[v];
+    mh[v] = s.y * inv_n[v];
+  }
+  const size_t base = static_cast<size_t>(b) * g.hw * g.c + cvec * V;
+#pragma unroll
+  for (int i = 0; i < BWD_ITEMS; ++i) {
+    const int r = i * g.rl + lane_r;
+    if (r < n_b) {
+      const size_t off = base + static_cast<size_t>(row0 + r) * g.c;
+      float xv[V], gv[V];
+      load_vec<T, V>(x + off, xv);
+      load_grad<T, V, RELU>(dy, y, off, gv);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        xv[v] = rstd[v] * ((gv[v] - mg[v]) - (xv[v] - mean[v]) * rstd[v] * mh[v]);
+      store_vec<T, V>(dx + off, xv);
+    }
+  }
+}
+
+template <typename T, int V>
+int band_stats_launch(const void* x_, void* ws, void* stats, int batch, int hw, int c, int cb,
+                      int rl, int splits, int groups, cudaStream_t st) {
+  const T* x = static_cast<const T*>(x_);
+  const Geometry g{hw, c, cb, rl};
+  const size_t smem = static_cast<size_t>(rl + 2) * cb * V * sizeof(float);
+  in_stats_kernel<T, V><<<dim3(splits, groups, batch), THREADS, smem, st>>>(
+      x, static_cast<float2*>(ws), g);
+  in_band_finalize_kernel<T><<<dim3((c + FIN_C - 1) / FIN_C, batch), dim3(FIN_C, FIN_S), 0, st>>>(
+      x, static_cast<const float2*>(ws), static_cast<float*>(stats), hw, c, splits, rl * ITEMS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V>
+int band_apply_launch(const void* x, const void* coef, void* y, int batch, int hw, int c, int cb,
+                      int rl, int splits, int groups, int relu, cudaStream_t st) {
+  const Geometry g{hw, c, cb, rl};
+  const dim3 grid(splits, groups, batch);
+  const float4* cf = static_cast<const float4*>(coef);
+  if (relu)
+    in_band_apply_kernel<T, V, true><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), cf,
+                                                               static_cast<T*>(y), g);
+  else
+    in_band_apply_kernel<T, V, false><<<grid, THREADS, 0, st>>>(static_cast<const T*>(x), cf,
+                                                                static_cast<T*>(y), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, bool RELU>
+int band_bwd_reduce_launch(const void* x, const void* dy, const void* y, const void* coef,
+                           void* ws, void* out, int batch, int hw, int c, int cb, int rl,
+                           int splits, int groups, cudaStream_t st) {
+  const Geometry g{hw, c, cb, rl};
+  const size_t smem = static_cast<size_t>(rl + 2) * cb * V * sizeof(float);
+  in_band_bwd_reduce_kernel<T, V, RELU><<<dim3(splits, groups, batch), THREADS, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(y),
+      static_cast<const float4*>(coef), static_cast<float2*>(ws), g);
+  in_band_bwd_finalize_kernel<<<dim3((c + FIN_C - 1) / FIN_C, batch), dim3(FIN_C, FIN_S), 0, st>>>(
+      static_cast<const float2*>(ws), static_cast<float2*>(out), c, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int V, bool RELU>
+int band_bwd_apply_launch(const void* x, const void* dy, const void* y, const void* coef,
+                          const void* sums, void* dx, int batch, int hw, int c, int cb, int rl,
+                          int splits, int groups, cudaStream_t st) {
+  const Geometry g{hw, c, cb, rl};
+  in_band_bwd_apply_kernel<T, V, RELU><<<dim3(splits, groups, batch), THREADS, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const T*>(y),
+      static_cast<const float4*>(coef), static_cast<const float2*>(sums), static_cast<T*>(dx), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 or bf16, 16-byte vectors or one channel a lane: the four instances of
+// a banded launch, with the ReLU's two where it has them.
+#define HST_BAND_DISPATCH(LAUNCH, ...)                                      \
+  do {                                                                      \
+    if (dtype == 0)                                                         \
+      return vec ? LAUNCH<float, 4>(__VA_ARGS__) : LAUNCH<float, 1>(__VA_ARGS__); \
+    return vec ? LAUNCH<__nv_bfloat16, 8>(__VA_ARGS__)                      \
+               : LAUNCH<__nv_bfloat16, 1>(__VA_ARGS__);                     \
+  } while (0)
+
+template <typename T, int V>
+int band_bwd_reduce_relu(const void* x, const void* dy, const void* y, const void* coef, void* ws,
+                         void* out, int batch, int hw, int c, int cb, int rl, int splits,
+                         int groups, int relu, cudaStream_t st) {
+  if (relu)
+    return band_bwd_reduce_launch<T, V, true>(x, dy, y, coef, ws, out, batch, hw, c, cb, rl,
+                                              splits, groups, st);
+  return band_bwd_reduce_launch<T, V, false>(x, dy, y, coef, ws, out, batch, hw, c, cb, rl, splits,
+                                             groups, st);
+}
+
+template <typename T, int V>
+int band_bwd_apply_relu(const void* x, const void* dy, const void* y, const void* coef,
+                        const void* sums, void* dx, int batch, int hw, int c, int cb, int rl,
+                        int splits, int groups, int relu, cudaStream_t st) {
+  if (relu)
+    return band_bwd_apply_launch<T, V, true>(x, dy, y, coef, sums, dx, batch, hw, c, cb, rl,
+                                             splits, groups, st);
+  return band_bwd_apply_launch<T, V, false>(x, dy, y, coef, sums, dx, batch, hw, c, cb, rl, splits,
+                                            groups, st);
+}
+
 // ---- route "cluster" -------------------------------------------------------
 
 constexpr int CL_THREADS = 256;
@@ -1761,6 +2080,48 @@ int hst_instance_norm_bwd_cluster_occupancy(int hw, int c, int g, int k, int rel
                 : bwd_cluster_occupancy<float, false>(p, clusters);
   return relu ? bwd_cluster_occupancy<__nv_bfloat16, true>(p, clusters)
               : bwd_cluster_occupancy<__nv_bfloat16, false>(p, clusters);
+}
+
+
+// The banded entry points (see "the banded entry points" above). cb, rl,
+// splits and groups are the split geometry of the band (ITEMS rows a
+// thread for stats and apply, BWD_ITEMS for the backward); vec and dtype
+// as for the split route. stats is (B, C, 3) f32, coef (B, C) float4,
+// sums and the reduce's out (B, C) float2, ws the split route's scratch
+// ((B, splits, C) float2).
+int hst_instance_norm_band_stats(const void* x, void* ws, void* stats, int batch, int hw, int c,
+                                 int cb, int rl, int splits, int groups, int vec, int dtype,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  HST_BAND_DISPATCH(band_stats_launch, x, ws, stats, batch, hw, c, cb, rl, splits, groups, st);
+}
+
+int hst_instance_norm_band_apply(const void* x, const void* coef, void* y, int batch, int hw,
+                                 int c, int cb, int rl, int splits, int groups, int relu, int vec,
+                                 int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  HST_BAND_DISPATCH(band_apply_launch, x, coef, y, batch, hw, c, cb, rl, splits, groups, relu,
+                    st);
+}
+
+int hst_instance_norm_band_bwd_reduce(const void* x, const void* dy, const void* y,
+                                      const void* coef, void* ws, void* out, int batch, int hw,
+                                      int c, int cb, int rl, int splits, int groups, int relu,
+                                      int vec, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (relu && y == nullptr) return cudaErrorInvalidValue;
+  HST_BAND_DISPATCH(band_bwd_reduce_relu, x, dy, y, coef, ws, out, batch, hw, c, cb, rl, splits,
+                    groups, relu, st);
+}
+
+int hst_instance_norm_band_bwd_apply(const void* x, const void* dy, const void* y,
+                                     const void* coef, const void* sums, void* dx, int batch,
+                                     int hw, int c, int cb, int rl, int splits, int groups,
+                                     int relu, int vec, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (relu && y == nullptr) return cudaErrorInvalidValue;
+  HST_BAND_DISPATCH(band_bwd_apply_relu, x, dy, y, coef, sums, dx, batch, hw, c, cb, rl, splits,
+                    groups, relu, st);
 }
 
 }  // extern "C"

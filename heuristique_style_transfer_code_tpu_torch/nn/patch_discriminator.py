@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mesh import replicated
 from ..core.remat import remat_call
 from ..models.gram_attention import MultiheadAttention
 from ..ops.conv import conv2d
@@ -195,14 +196,19 @@ def patch_discriminator_test_apply(
 
     per_layer, gram_norms = [], []
     length = POOL * POOL
-    for fm in maps:
-        pooled = layer_norm_tail(adaptive_avg_pool2d(fm, POOL)).contiguous()
-        f = pooled.reshape(n, length, gram_matrix_dim).transpose(1, 2)  # (N, C, L) view
-        g = gram_matrix_ncl(f, length + GRAM_EPS)
-        gram_norms.append(torch.linalg.vector_norm(g.float(), dim=(1, 2)).to(g.dtype))
-        per_layer.append(model.feature_projection(g.reshape(n, -1).to(x.dtype)))
+    # under core.mesh.bands the maps are row bands; the adaptive pool sums
+    # the bands' parts of each bin, and every map from it on is whole and
+    # the same on each rank
+    pooled_maps = [adaptive_avg_pool2d(fm, POOL) for fm in maps]
+    with replicated():
+        for pooled in pooled_maps:
+            pooled = layer_norm_tail(pooled).contiguous()
+            f = pooled.reshape(n, length, gram_matrix_dim).transpose(1, 2)  # (N, C, L) view
+            g = gram_matrix_ncl(f, length + GRAM_EPS)
+            gram_norms.append(torch.linalg.vector_norm(g.float(), dim=(1, 2)).to(g.dtype))
+            per_layer.append(model.feature_projection(g.reshape(n, -1).to(x.dtype)))
 
-    att = model.attention_per_layer(torch.stack(per_layer, dim=0))  # (L, N, ndf)
-    att = model.attention_per_patch(att)
-    embeddings = att.mean(dim=0)
-    return embeddings, model.classifier(embeddings), gram_norms
+        att = model.attention_per_layer(torch.stack(per_layer, dim=0))  # (L, N, ndf)
+        att = model.attention_per_patch(att)
+        embeddings = att.mean(dim=0)
+        return embeddings, model.classifier(embeddings), gram_norms

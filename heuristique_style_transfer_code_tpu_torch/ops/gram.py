@@ -13,6 +13,10 @@ the kernel's plain PyTorch version. There is no backend switch: on the card
 it is always the kernel. Activations stay ``channels_last``, so the NHWC
 tensor is contiguous and the view costs nothing; on the card a tensor that
 is not raises rather than being copied behind the caller's back.
+
+Under ``core.mesh.bands`` (``--shard_spatial``) the NHWC Grams are the
+whole image's, from the kernels on this rank's band
+(``parallel.spatial.gram``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 import torch
 
 from ..core.device import traced, transformed
+from ..core.mesh import active_bands
 from .kernels import gram as gram_kernels
 
 
@@ -38,6 +43,11 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
 def gram_matrix_nhwc(x: torch.Tensor) -> torch.Tensor:
     """x: (N, H, W, C) -> (N, C, C), differentiable (the style loop's
     Gram; its backward is the ``gram_bwd`` kernel)."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.gram(gram_kernels.GramFunction, _flat(x), axis)
     return gram_kernels.GramFunction.apply(_flat(x))
 
 
@@ -47,6 +57,11 @@ def pooled_gram_nhwc(x: torch.Tensor, out_size: int) -> torch.Tensor:
     ``pooled_gram_fwd`` kernel and whose backward, where a gradient flows
     (family-2 training with the encoder trainable), ``pooled_gram_bwd``.
     Evaluation and a frozen encoder launch the forward alone."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.gram(gram_kernels.PooledGramFunction, _flat(x), axis, int(out_size))
     return gram_kernels.PooledGramFunction.apply(_flat(x), out_size)
 
 

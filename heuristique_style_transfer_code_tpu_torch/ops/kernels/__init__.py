@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels: ``gram`` (K1, K2) and ``instance_norm``
 (K3). ``build_all`` compiles every source at once (one nvcc each);
-``reset_launch_counts`` and ``launch_counts`` cover every kernel.
+``reset_launch_counts`` and ``launch_counts`` cover every kernel (the
+banded K3/K3′ entry points of ``--shard_spatial`` where they launched).
 Importing this package registers the ``hst`` ``torch.library`` ops, which
 ``torch.export.load`` of a program holding them needs first."""
 from __future__ import annotations
@@ -28,4 +29,5 @@ def launch_counts() -> Dict[str, int]:
     out: Dict[str, int] = {}
     for m in _MODULES:
         out.update(m.LAUNCHES)
+    out.update({k: v for k, v in instance_norm.BAND_LAUNCHES.items() if v})
     return out

@@ -19,6 +19,16 @@ and ``LAUNCHES["instance_norm_bwd"]`` count calls that launched a kernel
 (one a call, whichever route). Both wrappers are also ``torch.library``
 ops (``hst::instance_norm_fwd``, ``hst::instance_norm_bwd``, end of this
 file; ``_library.py``), which ``InstanceNormFunction`` calls and ``torch.export`` records.
+
+The banded entry points (``--shard_spatial``: each rank holds a band of
+an image's rows, ``parallel.spatial.BandInstanceNorm``) split both
+kernels at the split route's seam: ``instance_norm_band_stats`` (the
+band's count, mean and M2 a (image, channel), about its own mean),
+``instance_norm_band_apply`` (from the whole image's merged mean, rstd and
+1 / n), ``instance_norm_band_bwd_reduce`` (Σg and Σg·x̂ of the band) and
+``instance_norm_band_bwd_apply`` (dx from the whole image's sums). Each
+has a plain version beside it, is an ``hst`` op, and counts its calls that
+launched in ``BAND_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -34,6 +44,11 @@ from ._nvcc import CudaLibrary, check
 
 KERNELS = ("instance_norm_fwd", "instance_norm_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# the banded entry points (--shard_spatial) count apart: no path without a
+# spatial axis launches them
+BAND_KERNELS = ("instance_norm_band_stats", "instance_norm_band_apply",
+                "instance_norm_band_bwd_reduce", "instance_norm_band_bwd_apply")
+BAND_LAUNCHES: Dict[str, int] = {name: 0 for name in BAND_KERNELS}
 EPS = 1e-5
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,6 +91,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hst_instance_norm_bwd_cluster.restype = i
     lib.hst_instance_norm_bwd_cluster_occupancy.argtypes = [i, i, i, i, i, i, ip, ip]
     lib.hst_instance_norm_bwd_cluster_occupancy.restype = i
+    lib.hst_instance_norm_band_stats.argtypes = [p, p, p] + [i] * 9 + [p]
+    lib.hst_instance_norm_band_apply.argtypes = [p, p, p] + [i] * 10 + [p]
+    lib.hst_instance_norm_band_bwd_reduce.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.hst_instance_norm_band_bwd_apply.argtypes = [p] * 6 + [i] * 10 + [p]
+    for fn in (lib.hst_instance_norm_band_stats, lib.hst_instance_norm_band_apply,
+               lib.hst_instance_norm_band_bwd_reduce, lib.hst_instance_norm_band_bwd_apply):
+        fn.restype = i
 
 
 LIBRARY = CudaLibrary("instance_norm", _bind)
@@ -84,6 +106,8 @@ LIBRARY = CudaLibrary("instance_norm", _bind)
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for name in BAND_KERNELS:
+        BAND_LAUNCHES[name] = 0
 
 
 def instance_norm_fwd_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -549,6 +573,199 @@ def instance_norm_bwd(x: torch.Tensor, dy: torch.Tensor, scale: torch.Tensor,
     return dx, dscale, dbias
 
 
+# ------------------------------------------------- banded entry points
+
+
+def instance_norm_band_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, hw, C) band -> (B, C, 3): its count, mean and M2 (the sum of
+    squared deviations from that mean) a (image, channel), in f32 (f64 for
+    f64 x)."""
+    acc = _stat_dtype(x.dtype)
+    xf = x.to(acc)
+    mean = xf.sum(dim=1) / max(x.shape[1], 1)  # an empty band: (0, 0, 0)
+    m2 = torch.square(xf - mean[:, None, :]).sum(dim=1)
+    return torch.stack([torch.full_like(mean, float(x.shape[1])), mean, m2], dim=-1)
+
+
+def _coef_parts(coef: torch.Tensor):
+    """(mean, rstd, 1 / n) of a (B, C, 4) coefficient tensor, as (B, 1, C)."""
+    return coef[..., 0][:, None, :], coef[..., 1][:, None, :], coef[..., 2][:, None, :]
+
+
+def instance_norm_band_apply_plain(x: torch.Tensor, coef: torch.Tensor,
+                                   relu: bool = False) -> torch.Tensor:
+    """y = (x - mean) * rstd (ReLU), the whole image's (mean, rstd, 1 / n, 0)
+    in ``coef`` (B, C, 4), in x's dtype."""
+    mean, rstd, _ = _coef_parts(coef)
+    y = (x.to(coef.dtype) - mean) * rstd
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x.dtype)
+
+
+def _band_grad(x, dy, coef, relu, y):
+    g = dy.to(coef.dtype)
+    if relu:
+        g = torch.where(y > 0, g, torch.zeros_like(g))
+    mean, rstd, inv_n = _coef_parts(coef)
+    return g, (x.to(coef.dtype) - mean) * rstd, rstd, inv_n
+
+
+def instance_norm_band_bwd_reduce_plain(x, dy, coef, relu=False, y=None) -> torch.Tensor:
+    """(B, C, 2): the band's Σg and Σg·x̂ a (image, channel), g = dy (under
+    ReLU where y > 0), x̂ = (x - mean) rstd."""
+    g, xhat, _, _ = _band_grad(x, dy, coef, relu, y)
+    return torch.stack([g.sum(dim=1), (g * xhat).sum(dim=1)], dim=-1)
+
+
+def instance_norm_band_bwd_apply_plain(x, dy, coef, sums, relu=False, y=None) -> torch.Tensor:
+    """dx = rstd ((g - Σg / n) - x̂ Σg·x̂ / n) in x's dtype, ``sums`` (B, C, 2)
+    the whole image's."""
+    g, xhat, rstd, inv_n = _band_grad(x, dy, coef, relu, y)
+    mg = sums[..., 0][:, None, :] * inv_n
+    mh = sums[..., 1][:, None, :] * inv_n
+    return (rstd * ((g - mg) - xhat * mh)).to(x.dtype)
+
+
+def _check_band(name: str, x: torch.Tensor, *others) -> None:
+    """A CUDA band (B, hw, C) of f32 or bf16, contiguous; ``others``: more
+    tensors of x's shape and dtype (dy, y)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported (float32 or bfloat16)")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: expected (B, HW, C), got shape {tuple(x.shape)}")
+    for t in (x,) + others:
+        if t.device != x.device or t.dtype != x.dtype or t.shape != x.shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if x.shape[0] > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: B={x.shape[0]} exceeds the kernel's grid")
+
+
+def _check_small(name: str, label: str, t: torch.Tensor, x: torch.Tensor, k: int) -> None:
+    b, _, c = x.shape
+    if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != (b, c, k) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: {label} must be contiguous ({b}, {c}, {k}) float32 on "
+                         f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _band_geometry(name: str, x: torch.Tensor, items: int, *others):
+    """(cb, rl, splits, groups, vec) of the split route over the band."""
+    b, hw, c = x.shape
+    width = 16 // x.element_size()
+    vec = c % width == 0 and all(t.data_ptr() % 16 == 0 for t in (x,) + others)
+    cb, rl, splits, groups = _geometry(c, hw, width if vec else 1, items)
+    if groups > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: C={c} exceeds the kernel's grid")
+    return cb, rl, splits, groups, int(vec)
+
+
+def _stream_of(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def instance_norm_band_stats(x: torch.Tensor) -> torch.Tensor:
+    """(B, hw, C) band -> (B, C, 3) (count, mean, M2). CPU: plain; CUDA: the
+    split route's statistics pass on the band, shifted by the band's first
+    row, and a merge of its blocks (two launches, one count); an empty band
+    launches nothing."""
+    if x.device.type == "cpu":
+        return instance_norm_band_stats_plain(x)
+    name = "instance_norm_band_stats"
+    _check_band(name, x)
+    b, hw, c = x.shape
+    stats = torch.zeros((b, c, 3), device=x.device, dtype=torch.float32)
+    if b == 0 or hw == 0 or c == 0:
+        return stats
+    cb, rl, splits, groups, vec = _band_geometry(name, x, _ITEMS)
+    ws = torch.empty((b, splits, c, 2), device=x.device, dtype=torch.float32)
+    check(name, LIBRARY.load().hst_instance_norm_band_stats(
+        x.data_ptr(), ws.data_ptr(), stats.data_ptr(), b, hw, c, cb, rl, splits, groups, vec,
+        _DTYPE_CODE[x.dtype], _stream_of(x)))
+    BAND_LAUNCHES[name] += 1
+    return stats
+
+
+def instance_norm_band_apply(x: torch.Tensor, coef: torch.Tensor, relu: bool = False
+                             ) -> torch.Tensor:
+    """y = (x - mean) * rstd (ReLU) on the band, ``coef`` (B, C, 4) f32 the
+    whole image's (mean, rstd, 1 / n, 0). CPU: plain; CUDA: one launch."""
+    if x.device.type == "cpu":
+        return instance_norm_band_apply_plain(x, coef, relu)
+    name = "instance_norm_band_apply"
+    _check_band(name, x)
+    _check_small(name, "coef", coef, x, 4)
+    y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y
+    b, hw, c = x.shape
+    cb, rl, splits, groups, vec = _band_geometry(name, x, _ITEMS, y)
+    check(name, LIBRARY.load().hst_instance_norm_band_apply(
+        x.data_ptr(), coef.data_ptr(), y.data_ptr(), b, hw, c, cb, rl, splits, groups, int(relu),
+        vec, _DTYPE_CODE[x.dtype], _stream_of(x)))
+    BAND_LAUNCHES[name] += 1
+    return y
+
+
+def instance_norm_band_bwd_reduce(x: torch.Tensor, dy: torch.Tensor, coef: torch.Tensor,
+                                  relu: bool = False, y: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """(B, C, 2) Σg and Σg·x̂ of the band (under ReLU the mask from the
+    forward's y). CPU: plain; CUDA: per-block sums and their merge in block
+    order (two launches, one count); an empty band launches nothing."""
+    if x.device.type == "cpu":
+        return instance_norm_band_bwd_reduce_plain(x, dy, coef, relu, y)
+    name = "instance_norm_band_bwd_reduce"
+    if relu and y is None:
+        raise ValueError(f"{name}: relu needs the forward's output y for its mask")
+    _check_band(name, x, dy, *((y,) if relu else ()))
+    _check_small(name, "coef", coef, x, 4)
+    b, hw, c = x.shape
+    out = torch.zeros((b, c, 2), device=x.device, dtype=torch.float32)
+    if b == 0 or hw == 0 or c == 0:
+        return out
+    cb, rl, splits, groups, vec = _band_geometry(name, x, _BWD_ITEMS, dy,
+                                                 *((y,) if relu else ()))
+    ws = torch.empty((b, splits, c, 2), device=x.device, dtype=torch.float32)
+    check(name, LIBRARY.load().hst_instance_norm_band_bwd_reduce(
+        x.data_ptr(), dy.data_ptr(), y.data_ptr() if relu else None, coef.data_ptr(),
+        ws.data_ptr(), out.data_ptr(), b, hw, c, cb, rl, splits, groups, int(relu), vec,
+        _DTYPE_CODE[x.dtype], _stream_of(x)))
+    BAND_LAUNCHES[name] += 1
+    return out
+
+
+def instance_norm_band_bwd_apply(x: torch.Tensor, dy: torch.Tensor, coef: torch.Tensor,
+                                 sums: torch.Tensor, relu: bool = False,
+                                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dx of the band in x's dtype from the whole image's ``coef`` and
+    ``sums`` (B, C, 2). CPU: plain; CUDA: one launch."""
+    if x.device.type == "cpu":
+        return instance_norm_band_bwd_apply_plain(x, dy, coef, sums, relu, y)
+    name = "instance_norm_band_bwd_apply"
+    if relu and y is None:
+        raise ValueError(f"{name}: relu needs the forward's output y for its mask")
+    _check_band(name, x, dy, *((y,) if relu else ()))
+    _check_small(name, "coef", coef, x, 4)
+    _check_small(name, "sums", sums, x, 2)
+    dx = torch.empty_like(x)
+    if dx.numel() == 0:
+        return dx
+    b, hw, c = x.shape
+    cb, rl, splits, groups, vec = _band_geometry(name, x, _BWD_ITEMS, dy, dx,
+                                                 *((y,) if relu else ()))
+    check(name, LIBRARY.load().hst_instance_norm_band_bwd_apply(
+        x.data_ptr(), dy.data_ptr(), y.data_ptr() if relu else None, coef.data_ptr(),
+        sums.data_ptr(), dx.data_ptr(), b, hw, c, cb, rl, splits, groups, int(relu), vec,
+        _DTYPE_CODE[x.dtype], _stream_of(x)))
+    BAND_LAUNCHES[name] += 1
+    return dx
+
+
 # ------------------------------------------------------- torch.library ops
 #
 # As in ``gram.py``: each wrapper is an operator of the ``hst`` namespace
@@ -586,6 +803,28 @@ INSTANCE_NORM_FWD = define(
     "instance_norm_fwd(Tensor x, Tensor scale, Tensor bias, float eps, bool relu) -> Tensor",
     lambda *a: instance_norm_fwd(*a),
     lambda x, scale, bias, eps, relu: torch.empty_like(x), _in_setup, _in_grad)
+
+
+def _small_fake(k: int):
+    return lambda x, *rest: x.new_empty((x.shape[0], x.shape[2], k),
+                                        dtype=_stat_dtype(x.dtype))
+
+
+INSTANCE_NORM_BAND_STATS = define(
+    "instance_norm_band_stats(Tensor x) -> Tensor",
+    lambda *a: instance_norm_band_stats(*a), _small_fake(3))
+INSTANCE_NORM_BAND_APPLY = define(
+    "instance_norm_band_apply(Tensor x, Tensor coef, bool relu) -> Tensor",
+    lambda *a: instance_norm_band_apply(*a), lambda x, coef, relu: torch.empty_like(x))
+INSTANCE_NORM_BAND_BWD_REDUCE = define(
+    "instance_norm_band_bwd_reduce(Tensor x, Tensor dy, Tensor coef, bool relu, Tensor? y) "
+    "-> Tensor",
+    lambda *a: instance_norm_band_bwd_reduce(*a), _small_fake(2))
+INSTANCE_NORM_BAND_BWD_APPLY = define(
+    "instance_norm_band_bwd_apply(Tensor x, Tensor dy, Tensor coef, Tensor sums, bool relu, "
+    "Tensor? y) -> Tensor",
+    lambda *a: instance_norm_band_bwd_apply(*a),
+    lambda x, dy, coef, sums, relu, y: torch.empty_like(x))
 
 
 class InstanceNormFunction:

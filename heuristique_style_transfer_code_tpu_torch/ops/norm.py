@@ -2,7 +2,9 @@
 in eval and train mode (``:29-67``), the non-affine instance norm
 (``:70``) and the layer norm over every non-batch dimension (``:78``).
 Statistics and arithmetic in f32 (f64 stays f64), one cast back to x's
-dtype."""
+dtype. Under ``core.mesh.bands`` (``--shard_spatial``) the instance norm
+and the layer norm take the statistics of the whole image from every
+rank's band (``parallel/spatial.py``)."""
 from __future__ import annotations
 
 import functools
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import traced, transformed
-from ..core.mesh import active
+from ..core.mesh import active, active_bands
 from ..core.remat import recomputing
 from .kernels.instance_norm import InstanceNormFunction
 
@@ -47,6 +49,9 @@ def batch_norm(
     those of the global batch (``GlobalBatchNorm``): no rank normalises by
     its own rows' statistics."""
     if train:
+        if active_bands() is not None:
+            raise NotImplementedError("train-mode batch norm has no banded route "
+                                      "(--shard_spatial)")
         if recomputing():
             mean, var = mean.clone(), var.clone()
         dp = active()
@@ -162,7 +167,15 @@ def instance_norm(x: torch.Tensor, eps: float = EPS, relu: bool = False) -> torc
     rows expanded in the program): on a CUDA tensor that launches
     ``instance_norm_fwd`` and, where a gradient flows (the family-3 style
     loop), ``instance_norm_bwd``; on a CPU tensor it takes the kernels'
-    plain versions (f32 two-pass statistics)."""
+    plain versions (f32 two-pass statistics). Under ``core.mesh.bands`` x
+    is this rank's band: ``parallel.spatial.BandInstanceNorm``, whose
+    statistics are the whole image's (the band entry points of both
+    kernels)."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.instance_norm(x, eps, relu, axis)
     n, h, w, c = x.shape
     if traced(x):
         ones, zeros = _unit_affine(c, x.device)
@@ -174,8 +187,16 @@ def instance_norm(x: torch.Tensor, eps: float = EPS, relu: bool = False) -> torc
 
 
 def layer_norm_tail(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """``F.layer_norm(x, x.shape[1:])`` without affine, in f32, cast back
-    once. It normalises H, W and C together, so the NHWC layout gives the
-    result of the reference's NCHW one. The JAX package computes it as an
-    XLA composition (no Pallas kernel), so PyTorch's own op serves here."""
-    return F.layer_norm(x.float(), x.shape[1:], eps=eps).to(x.dtype)
+    """``F.layer_norm(x, x.shape[1:])`` without affine, in f32 (f64 stays
+    f64), cast back once. It normalises H, W and C together, so the NHWC
+    layout gives the result of the reference's NCHW one. The JAX package
+    computes it as an XLA composition (no Pallas kernel), so PyTorch's own
+    op serves here. Under ``core.mesh.bands``: the whole map's statistics
+    from this rank's band."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.layer_norm_tail(x, eps, axis)
+    ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return F.layer_norm(x.to(ctype), x.shape[1:], eps=eps).to(x.dtype)

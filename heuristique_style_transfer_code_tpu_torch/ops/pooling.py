@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import active_bands
+
 
 @functools.lru_cache(maxsize=None)
 def _pool_matrix_np(in_size: int, out_size: int) -> np.ndarray:
@@ -45,7 +47,14 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
     """NHWC (N, H, W, C) -> (N, oh, ow, C), ``F.adaptive_avg_pool2d``'s
     bins (those of ``adaptive_pool_matrix``). The JAX package computes it
     as two XLA products with the averaging matrices, not as a kernel, so
-    PyTorch's op runs here, on the channels_last view of x."""
+    PyTorch's op runs here, on the channels_last view of x. Under
+    ``core.mesh.bands`` x is this rank's band and the pooled map, summed
+    over the ranks, is whole on each (``parallel/spatial.py``)."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.adaptive_avg_pool2d(x, output_size, axis)
     y = F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), output_size)
     return y.permute(0, 2, 3, 1)
 
@@ -53,6 +62,12 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """NHWC (N, H, W, C) -> (N, C): AdaptiveAvgPool2d((1, 1)) + Flatten.
     Reduces in f32 for f32 and bf16 inputs (f64 stays f64); returns x's
-    dtype."""
+    dtype. Under ``core.mesh.bands``: the whole map's mean from this
+    rank's band."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.global_avg_pool(x, axis)
     ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
     return x.to(ctype).mean(dim=(1, 2)).to(x.dtype)

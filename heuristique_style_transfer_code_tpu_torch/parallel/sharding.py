@@ -20,16 +20,25 @@ schedule is written out over the mesh's collectives (``core/mesh.py``):
   (all of them in one flat buffer), all-reduces the replicated ones, and,
   after the update of each rank's shards, all-gathers the parameters.
 
-The TP heads, FSDP, the 2-D and 3-D meshes and the spatial eval step of
-the JAX module are not ported yet.
+Spatial partitioning (``--shard_spatial``, JAX ``:100-143``): the
+(data, spatial) mesh (``make_mesh_spatial``, ``core.mesh.create_mesh(
+spatial=S)``), each rank's block of a batch of images (``image_sharding``:
+its data rows, and its band of their rows, JAX's ``P("data",
+"spatial")``) and the spatial eval step (``make_spatial_eval_step``). The
+bands of a layer's rows (``RowSharding``) and the banded ops are in
+``parallel/spatial.py``.
+
+Not ported yet: the TP heads, FSDP and the model axis of the 2-D and 3-D
+meshes (JAX ``:32-98,211-275``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.mesh import Mesh
+from ..core.mesh import Mesh, bands, create_mesh
+from .spatial import RowSharding, band_of  # noqa: F401 (RowSharding: this module's API)
 
 
 def zero1_leaf_dim(shape: Sequence[int], n: int) -> Optional[int]:
@@ -119,3 +128,65 @@ class Zero1Layout:
         split = sum(tensors[n].numel() * tensors[n].element_size() for n in self.sharded)
         repl = sum(tensors[n].numel() * tensors[n].element_size() for n in self.replicated)
         return int(split), int(repl)
+
+
+# ------------------------------------------------------------ spatial axis
+
+
+def _axis_factor(n: int) -> int:
+    """JAX's default size of a non-data axis: 2 on an even count, else 1."""
+    return 2 if n % 2 == 0 and n >= 2 else 1
+
+
+def make_mesh_spatial(n_devices: Optional[int] = None, spatial: Optional[int] = None,
+                      devices: Optional[Sequence] = None) -> Mesh:
+    """This rank of the (data, spatial) mesh of the process group's ranks
+    (JAX ``make_mesh_spatial``): the batch over ``data``, each image's H
+    rows over ``spatial`` (2 by default on an even count), rank r = (r // S,
+    r % S). ``n_devices`` must be the group's size; ``devices`` as
+    ``create_mesh``'s."""
+    import torch.distributed as dist
+
+    n = n_devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    if spatial is None:
+        spatial = _axis_factor(n)
+    if n % spatial:
+        raise ValueError(f"a spatial axis of {spatial} does not divide {n} devices")
+    return create_mesh(n, devices, spatial=spatial)
+
+
+def image_sharding(mesh: Optional[Mesh]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """JAX's ``image_sharding``: ``cut(images)`` gives this rank's block of
+    a global batch of NHWC images, its data rows (``Mesh.local``) and, on
+    a spatial axis, its band of their rows; the identity without a mesh."""
+
+    def cut(images: torch.Tensor) -> torch.Tensor:
+        if mesh is None or not mesh.distributed:
+            return images
+        x = mesh.local(images)
+        return band_of(x, mesh.spatial_axis) if mesh.spatial > 1 else x
+
+    return cut
+
+
+def make_spatial_eval_step(forward_eval, mesh: Mesh, crop: int = 224):
+    """JAX's ``make_spatial_eval_step``: ``step(model, images_u8) ->
+    outputs`` of a global uint8 batch (B, H, W, 3). Each rank takes its
+    data rows, ``eval_preprocess``es them on its device, cuts its band of
+    rows and runs ``forward_eval(model, band)`` under ``core.mesh.bands``
+    (the halos, the global pool a spatial sum); the outputs, whole on each
+    rank of a spatial group, are gathered over the data axis: every rank
+    returns the (B, ...) outputs in the batch's order, without a
+    gradient."""
+    from ..data.augment import eval_preprocess
+
+    cut = image_sharding(mesh)
+
+    def step(model, images_u8: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            images_u8 = images_u8.to(mesh.device)
+        with torch.no_grad(), bands(mesh):
+            out = forward_eval(model, cut(eval_preprocess(images_u8, crop)))
+        return out if mesh is None else mesh.gather_rows(out)
+
+    return step

@@ -34,6 +34,18 @@ beside the host sync each iteration has), as JAX's ``while_loop`` over the
 sharded batch does: an image that stopped keeps its pixels either way, but
 its reported loss is read again at them while any image of the batch, on
 any rank, is active. Rank 0 gathers the pixels and writes the PNGs.
+
+A mesh with a spatial axis (``--shard_spatial``, ``core.mesh.create_mesh(
+spatial=S)``) also cuts each canvas's rows: a rank holds its data rows'
+band of rows of the noise, the pixels and the Adam moments
+(``parallel/spatial.py``), and the loop runs under ``core.mesh.bands``, so
+every op of the encoder or the discriminators takes its banded route (the
+halo rows, and the group's sums of the Grams, the norms' statistics and
+the content and TV terms). The per-image loss is the group's and the same
+on every rank, so ``active`` and the loop's end agree; each rank
+differentiates its 1 / S share of it. The target Grams and content
+features are taken from the bands the same way; rank 0 puts the canvases
+back together for the PNGs.
 """
 from __future__ import annotations
 
@@ -48,6 +60,7 @@ import numpy as np
 import torch
 
 from ..core.functional import call_with
+from ..core.mesh import active_bands, bands
 from ..ops.gram import gram_matrix_nhwc
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
 from ..utils.debug import check_nan
@@ -89,7 +102,11 @@ def masked_adam_step(per_image_loss: Callable[..., torch.Tensor], learning_rate:
     with torch.enable_grad():
         x = pixels.detach().requires_grad_(True)
         per = per_image_loss(x, *loss_args)
-        (grad,) = torch.autograd.grad((per * active.to(per.dtype)).sum(), x)
+        objective = (per * active.to(per.dtype)).sum()
+        axis = active_bands()
+        if axis is not None:  # each band's share of the group's loss (parallel/spatial.py)
+            objective = objective / axis.world_size
+        (grad,) = torch.autograd.grad(objective, x)
     per = per.detach()
     mu = mu.mul(ADAM_B1).add(grad, alpha=1 - ADAM_B1)
     nu = nu.mul(ADAM_B2).addcmul(grad, grad, value=1 - ADAM_B2)
@@ -108,7 +125,9 @@ def drive_masked_adam(step: Callable, pixels0: torch.Tensor, num_iterations: int
     whatever the model's dtype (f64 stays f64). ``history``, when a list,
     receives each iteration's per-image losses (device tensors). On a
     data-parallel ``mesh`` ``pixels0`` is this rank's rows and an image is
-    active if any rank's is (``Mesh.any``)."""
+    active if any rank's is (``Mesh.any``); on a mesh with a spatial axis
+    it is this rank's band of those rows and the loop runs under
+    ``core.mesh.bands``."""
     (pixels,), i, (per,) = drive_masked_adam_blocks(
         [step], [pixels0], num_iterations, history, mesh)
     return pixels, i, per
@@ -144,13 +163,14 @@ def drive_masked_adam_blocks(steps: Sequence[Callable], pixels0: Sequence[torch.
     i = 0
     # One host sync per iteration for the exit test; capturing the step
     # in a CUDA graph and testing less often is the place to win it back.
-    while i < num_iterations and any_active():
-        for step, s in zip(steps, state):
-            s[:] = step(*s[:4], *bias_corrections(i + 1, s[0].dtype))
-            check_nan("the style loop's loss", s[4])  # reads it under --debug_nans only
-        if history is not None:
-            history.append(state[0][4])
-        i += 1
+    with bands(mesh):
+        while i < num_iterations and any_active():
+            for step, s in zip(steps, state):
+                s[:] = step(*s[:4], *bias_corrections(i + 1, s[0].dtype))
+                check_nan("the style loop's loss", s[4])  # reads it under --debug_nans only
+            if history is not None:
+                history.append(state[0][4])
+            i += 1
     return [s[0] for s in state], i, [s[4] for s in state]
 
 
@@ -362,10 +382,27 @@ def make_gram_fn_gram_attention(
     return gram_fn
 
 
+def _image_mean(t: torch.Tensor) -> torch.Tensor:
+    """(B,) per-image mean over the non-batch dimensions; under
+    ``core.mesh.bands`` of the whole image, from this rank's band."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel.spatial import image_mean
+
+        return image_mean(t, axis)
+    return torch.mean(t, dim=tuple(range(1, t.dim())))
+
+
 def total_variation(pixels: torch.Tensor) -> torch.Tensor:
     """Per-image anisotropic total variation, ``(B, H, W, C) -> (B,)``: the
     mean squared difference of vertically adjacent pixels plus that of
-    horizontally adjacent ones, in f32."""
+    horizontally adjacent ones, in f32. Under ``core.mesh.bands``: the
+    whole image's, the H differences crossing the band's top edge."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel.spatial import total_variation as band_total_variation
+
+        return band_total_variation(pixels, axis)
     p = pixels.float()
     dh = torch.square(p[:, 1:, :, :] - p[:, :-1, :, :])
     dw = torch.square(p[:, :, 1:, :] - p[:, :, :-1, :])
@@ -390,8 +427,7 @@ def make_per_image_content_style_loss(
         for g, t in zip(grams, style_grams):
             style = style + torch.mean(torch.square(g.float() - t.float()),
                                        dim=tuple(range(1, g.dim())))
-        content = torch.mean(torch.square(feats.float() - content_feats.float()),
-                             dim=tuple(range(1, feats.dim())))
+        content = _image_mean(torch.square(feats.float() - content_feats.float()))
         loss = sw * style + cw * content
         if tw != 0.0:
             loss = loss + tw * total_variation(pixels)
@@ -472,16 +508,39 @@ def _save_side_by_side(original: np.ndarray, stylised: np.ndarray, path: str) ->
     write_png(path, np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1))
 
 
+def _band(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's band of rows of whole images ``x`` on a mesh with a
+    spatial axis; x itself otherwise."""
+    axis = getattr(mesh, "spatial_axis", None)
+    if axis is None or axis.world_size == 1:
+        return x
+    from ..parallel.spatial import band_of
+
+    return band_of(x, axis)
+
+
+def _canvas(band: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole images from the spatial group's bands (``_band``'s
+    inverse), on every rank of the group."""
+    axis = getattr(mesh, "spatial_axis", None)
+    if axis is None or axis.world_size == 1:
+        return band
+    from ..parallel.spatial import gather_canvas
+
+    return gather_canvas(band, axis)
+
+
 def _batch_noise(generator: torch.Generator, images: torch.Tensor, mesh) -> torch.Tensor:
     """The batch's starting noise: drawn at the global batch's shape (the
     one-device draw), and on a data-parallel ``mesh`` cut to this rank's
-    rows of it."""
+    rows of it (its data rank's) and, on a spatial axis, to its band."""
     from ..core.mesh import data_parallel
 
     dp = data_parallel(mesh)
-    shape = (images.shape[0] * (dp.world_size if dp is not None else 1),) + tuple(images.shape[1:])
+    data = dp.data_axis.world_size if dp is not None else 1
+    shape = (images.shape[0] * data,) + tuple(images.shape[1:])
     noise = torch.randn(shape, generator=generator, dtype=torch.float32)
-    return noise if dp is None else dp.local(noise)
+    return _band(noise if dp is None else dp.local(noise), mesh)
 
 
 def _valid_rows(mesh, batch: dict, *parts) -> list:
@@ -540,14 +599,15 @@ def style_transfer_gram_attention(
     for batch in loader:
         n = batch["n_valid"]
         images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
-        with torch.no_grad():
-            targets = gram_fn(images)
+        with torch.no_grad(), bands(mesh):
+            targets = gram_fn(_band(images, mesh))
         noise0 = _batch_noise(generator, images, mesh)
         trace = [] if history is not None else None
         noise, iters, per_loss = optimise(noise0.to(device), targets, trace)
         if history is not None:
             history.append(trace)
-        noise, originals, per_loss, labels = _valid_rows(mesh, batch, noise, images, per_loss)
+        noise, originals, per_loss, labels = _valid_rows(mesh, batch, _canvas(noise, mesh),
+                                                         images, per_loss)
         log_fn(
             f"Batch optimised in {iters} iterations, "
             f"final losses: {per_loss.round(6).tolist()}"
@@ -621,18 +681,20 @@ def content_style_transfer_gram_attention(
     for batch in loader:
         n = batch["n_valid"]
         images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
-        with torch.no_grad():
-            content_feats = extract_fn(images)[0].float()
+        canvas = _band(images, mesh)
+        with torch.no_grad(), bands(mesh):
+            content_feats = extract_fn(canvas)[0].float()
         grams = [g.expand((images.shape[0],) + tuple(g.shape)) for g in style_grams]
         if init == "content":
-            pixels0 = images.float()
+            pixels0 = canvas.float()
         else:
             pixels0 = _batch_noise(generator, images, mesh).to(device)
         trace = [] if history is not None else None
         pixels, iters, per_loss = optimise(pixels0, grams, content_feats, trace)
         if history is not None:
             history.append(trace)
-        pixels, originals, per_loss, labels = _valid_rows(mesh, batch, pixels, images, per_loss)
+        pixels, originals, per_loss, labels = _valid_rows(mesh, batch, _canvas(pixels, mesh),
+                                                          images, per_loss)
         log_fn(
             f"Batch optimised in {iters} iterations, "
             f"final losses: {per_loss.round(6).tolist()}"
@@ -675,8 +737,8 @@ def style_transfer_patches(
     list, receives one list of per-iteration losses per batch. Returns the
     saved paths, ``style_transfer_<date>/<label>/style_transfer_<label>_<n>_<ms>.png``.
     ``mesh`` as in ``style_transfer_gram_attention`` (the CLI's loader is
-    b1, which no mesh splits: it runs one device there, as JAX's clamp
-    does)."""
+    b1, which no data axis splits: JAX's clamp leaves it one data rank, and
+    a spatial axis, ``--shard_spatial``, is the one that cuts its work)."""
     from ..data.augment import eval_preprocess
 
     if layers is not None:
@@ -704,14 +766,14 @@ def style_transfer_patches(
                 log_fn(f"Maximum number of images ({max_images}) reached.")
                 return saved
         images = eval_preprocess(torch.from_numpy(np.asarray(batch["image"])).to(device))
-        with torch.no_grad():
-            targets = gram_fn(images)
+        with torch.no_grad(), bands(mesh):
+            targets = gram_fn(_band(images, mesh))
         noise0 = _batch_noise(generator, images, mesh)
         trace = [] if history is not None else None
         noise, _, _ = optimise(noise0.to(device), targets, trace)
         if history is not None:
             history.append(trace)
-        noise, originals, labels = _valid_rows(mesh, batch, noise, images)
+        noise, originals, labels = _valid_rows(mesh, batch, _canvas(noise, mesh), images)
         for j in range(n):
             label = int(labels[j])
             timestamp = int(time.time() * 1000)

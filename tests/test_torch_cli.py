@@ -139,26 +139,26 @@ def test_cli_without_device_cpu_raises_on_a_host_without_cuda(tiny_imagefolder, 
     ["--shard_spatial", "2"], ["--devices", "2"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f2_model, tmp_path, capsys, extra):
-    """``--shard_spatial`` is not ported yet. ``--devices`` is (the
-    two-rank runs are ``tests/test_torch_eval_devices.py``): at
-    ``--batch_size 1`` JAX's clamp to the largest count dividing the batch
-    leaves 1 device, the clamp printed and no process started, and the
-    classification results are the ``--devices 1`` run's byte for byte."""
+    """Both flags are ported (the ranks' runs are
+    ``tests/test_torch_eval_devices.py`` and ``tests/test_torch_spatial.py``).
+    ``--shard_spatial`` acts in style transfer alone, as in the JAX CLI:
+    classification ignores it, no process started. ``--devices`` at
+    ``--batch_size 1``: JAX's clamp to the largest count dividing the batch
+    leaves 1 device, the clamp printed and no process started. Either way
+    the classification results are the plain run's byte for byte."""
     from heuristique_style_transfer_code_tpu_torch.cli.test_gram_attention import main
 
-    if "--shard_spatial" in extra:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            main(_args(tiny_imagefolder, f2_model, tmp_path, *extra, "--device", "cpu"))
-        return
     runs = {}
-    for tag, flags in (("one", []), ("clamped", extra)):
+    for tag, flags in (("one", []), ("flagged", extra)):
         out = tmp_path / tag
         main(_args(tiny_imagefolder, f2_model, out, "--mode", "classification", "--batch_size",
                    "1", "--num_samples", "3", *flags, "--device", "cpu"))
         runs[tag] = (out / "classification_results.json").read_bytes()
     printed = capsys.readouterr().out
-    assert "--devices 2: using 1 device(s)" in printed
-    assert runs["clamped"] == runs["one"]
+    if "--devices" in extra:
+        assert "--devices 2: using 1 device(s)" in printed
+    assert "ranks (gloo)" not in printed
+    assert runs["flagged"] == runs["one"]
 
 
 def _png_pixels(root):

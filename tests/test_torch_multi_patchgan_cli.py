@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from heuristique_style_transfer_code_tpu.cli.test_multi_patchgan import main as j_main
 from heuristique_style_transfer_code_tpu_torch.cli.test_multi_patchgan import build_parser, main
@@ -147,14 +148,28 @@ def test_precision_int8_is_refused_as_by_the_jax_parser(tiny_imagefolder, f3_mod
     ["--shard_spatial", "2"],
 ])
 def test_unported_modes_and_flags_raise(tiny_imagefolder, f3_model, tmp_path, capfd, extra):
-    """``--shard_spatial`` is not ported yet. ``--devices 2 --device cpu``
-    is: the CLI starts two gloo processes (``parallel/multihost.launch``),
-    each decoding and classifying its rows of every batch, and rank 0
-    writes the ``--devices 1`` run's classification_results.json, byte for
-    byte, and its confusion matrix, each once."""
-    if "--shard_spatial" in extra:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            main(_args(tiny_imagefolder, f3_model, tmp_path, *extra, "--device", "cpu"))
+    """Both flags are ported. ``--shard_spatial 2`` in style transfer starts
+    two gloo processes, each holding a band of every canvas's rows, and
+    rank 0 writes the one-device run's PNGs (one image, 2 iterations),
+    each once, within one uint8 level; in classification it is ignored, as
+    by the JAX CLI. ``--devices 2 --device cpu`` starts two gloo processes
+    (``parallel/multihost.launch``), each decoding and classifying its rows
+    of every batch, and rank 0 writes the ``--devices 1`` run's
+    classification_results.json, byte for byte, and its confusion matrix,
+    each once."""
+    if "style_transfer" in extra:
+        loop = ("--num_samples", "1", "--num_iterations", "2", "--threshold", "0")
+        pngs = {}
+        for tag, flags in (("one", ["--mode", "style_transfer"]), ("two", extra)):
+            out = tmp_path / tag
+            main(_args(tiny_imagefolder, f3_model, out, *flags, *loop, "--device", "cpu"))
+            pngs[tag] = {os.path.relpath(os.path.join(d, f), out).rsplit("_", 1)[0]:
+                         np.asarray(Image.open(os.path.join(d, f)), np.int16)
+                         for d, _, fs in os.walk(out) for f in fs if f.endswith(".png")}
+        assert "Spatial sharding: 2 ranks (gloo), data 1 x spatial 2" in capfd.readouterr().out
+        assert sorted(pngs["two"]) == sorted(pngs["one"]) and pngs["one"]
+        for name, img in pngs["one"].items():
+            assert np.abs(pngs["two"][name] - img).max() <= 1, name
         return
     runs = {}
     for tag, flags in (("one", []), ("two", extra)):
@@ -163,7 +178,8 @@ def test_unported_modes_and_flags_raise(tiny_imagefolder, f3_model, tmp_path, ca
                    "--device", "cpu"))
         runs[tag] = sorted(os.listdir(out)), (out / "classification_results.json").read_bytes()
     printed = capfd.readouterr().out
-    assert "Data-parallel evaluation: 2 ranks (gloo), 2 images a rank per batch" in printed
+    ranks = "Data-parallel evaluation: 2 ranks (gloo), 2 images a rank per batch" in printed
+    assert ranks == ("--devices" in extra)  # classification ignores --shard_spatial
     assert printed.count("Résultats de classification sauvegardés") == 2  # one a run
     assert runs["two"] == runs["one"]
 
