@@ -369,6 +369,12 @@ Phases, all run every time:
                   launches on every rank; images/s and the collectives' ms
                   a step from a profile; then one NCCL rank (a one-rank
                   group on the card): one step equal to the plain step.
+                  On the same two ranks, --parallel_folds over fold meshes
+                  (family 2 at b32 a fold: K = 2 on fold 2 x data 1, K = 3
+                  on fold 1 x data 2, the batch norms' collectives under
+                  vmap), 2 steps against one device's fold step: within
+                  1e-4 after the first, the shared fold states bit-equal
+                  on both ranks, K2/K2' 3 + 3 a step on each rank.
                   On the same two ranks, the evaluation paths of
                   ``--devices N`` through the evaluation CLIs' task
                   functions on 63 PNGs (``cli/_common.eval_loader``, a
@@ -728,6 +734,20 @@ DP_TOL, DP_TOL_ZERO1, DP_TIMEOUT_S = 1e-4, 1e-6, 240
 # the CPU one device alone, 4 threads against 1, ends 3 steps with its
 # moves 0.18 apart and its statistics 8.6e-4 (the layer-1 batch norms)
 DP_SPREAD = 3.0
+# data_parallel's fold-mesh cases (--parallel_folds --devices N) on the same
+# two ranks: family 2 (truncate 7, S 7) at b{DP_BATCH} a fold, f32,
+# PFM_STEPS steps of K folds from seeded inits (each fold's batches dark
+# and bright by halves), under cuDNN's deterministic algorithms, on each
+# (K, fold, data) of PFM_CASES: K = 2 on fold 2 x data 1 (a fold a rank)
+# and K = 3 on fold 1 x data 2 (16 rows a rank, the three folds vmapped on
+# each: the batch norms' collectives under vmap). Against one device's
+# --parallel_folds step on the same batches: after the first step each
+# fold's loss and parameter and statistics trees within DP_TOL and its
+# moves within PF_TOL_MOVE (or DP_SPREAD times one device's own spread,
+# the batches' rows reversed), after the last within DP_TOL or DP_SPREAD
+# times that spread; every rank's K2/K2' launches 3 + 3 a step (one folded
+# launch for its folds) and the shared fold states bit-equal on both ranks
+PFM_CASES, PFM_STEPS = ((2, 2, 1), (3, 1, 2)), 2
 # data_parallel's evaluation cases (``--devices N`` on the evaluation CLIs'
 # task functions, ``_eval_runs``) on the same two ranks: family 1 (full
 # width) at b{DPE_F1_BATCH}, family 2 (truncate 8, S 7) at b{DPE_F2_BATCH},
@@ -6848,6 +6868,154 @@ def _dp_runs(mesh, profile: bool = False, reverse: bool = False,
     return runs
 
 
+def _fold_mesh_runs(mesh, reverse: bool = False) -> dict:
+    """The data_parallel phase's fold-mesh cases (PFM_CASES) on ``mesh``,
+    the world of its ranks (None: one device, every fold and row;
+    ``reverse``: each batch's rows reversed, the one device's own f32
+    spread). Each case: this rank's folds and their losses a step, their
+    trees after the first step, every fold's tree after the last (shared
+    from its group's first rank on ranks), the launches, the steps'
+    seconds, a digest of the shared states, and on one device the inits."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.core.mesh import FoldMesh
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.parallel.foldparallel import (
+        broadcast_fold_states,
+        stack_fold_states,
+        unstack_fold_state,
+    )
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+
+    cfg = GramAttentionConfig(batch_size=DP_BATCH, lr=DP_LR, truncate_layer=F2T_TRUNCATE,
+                              gram_matrix_size=F2T_S, seed=0)
+    half = (DP_BATCH // 2, 256, 256, 3)
+    order = np.arange(DP_BATCH)[::-1] if reverse else np.arange(DP_BATCH)
+    out = {}
+    with _deterministic_cudnn():
+        for k, fold, data in PFM_CASES:
+            t_case = time.perf_counter()
+            rng = np.random.RandomState(120 + k)
+            u8 = [[np.concatenate([rng.randint(0, 90, half), rng.randint(160, 256, half)])
+                   .astype(np.uint8) for _ in range(k)] for _ in range(PFM_STEPS)]
+            labels = [[rng.randint(0, 4, (DP_BATCH,)).astype(np.int32) for _ in range(k)]
+                      for _ in range(PFM_STEPS)]
+            fm = FoldMesh(mesh, k, fold, data, mesh.world_size) if mesh is not None else None
+            local = list(fm.folds()) if fm is not None else list(range(k))
+            rows = order[fm.data_axis.rows(DP_BATCH)] if fm is not None and data > 1 else order
+            setup = setup_gram_attention(cfg, 4, [(None, None)], device=DEVICE)
+            states = [setup.init(torch.Generator().manual_seed(121 + i)) for i in range(k)]
+            run = {"local": local}
+            if mesh is None:
+                run["init"] = {f"fold{i}": to_jax_tree(m) for i, (m, _) in enumerate(states)}
+            step = setup.foldwise_step(fm.data_axis if fm is not None else None)
+            stacked = stack_fold_states([states[i] for i in local])
+            losses, seconds = [], []
+            kernels.reset_launch_counts()
+            for st in range(PFM_STEPS):
+                batches = [{"image": u8[st][i][rows], "label": labels[st][i][rows]}
+                           for i in local]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(stacked, batches, [True] * len(local)).cpu().tolist())
+                seconds.append(time.perf_counter() - t0)
+                if st == 0:
+                    unstack_fold_state(stacked, [states[i] for i in local])
+                    run["tree1"] = {f"fold{i}": to_jax_tree(states[i][0]) for i in local}
+            run["launches"] = kernels.launch_counts()
+            unstack_fold_state(stacked, [states[i] for i in local])
+            if fm is not None:
+                broadcast_fold_states(fm, states)
+            run["trees"] = {f"fold{i}": to_jax_tree(m) for i, (m, _) in enumerate(states)}
+            digest = hashlib.sha256()
+            for i in range(k):
+                for v in _flat_tree(run["trees"][f"fold{i}"]).values():
+                    digest.update(np.ascontiguousarray(v).tobytes())
+            run.update(losses=losses, seconds=seconds, digest=digest.hexdigest(),
+                       case_s=time.perf_counter() - t_case)
+            out[f"k{k}"] = run
+            del states, stacked, step, setup
+    return out
+
+
+def _check_fold_mesh(ranks, saved, one, spread, launches_total: dict, smi: str) -> dict:
+    """The fold-mesh cases of the two ranks against one device's (see
+    PFM_CASES): each fold's first step from the rank that holds it, every
+    fold's last from rank 0's shared states, the launches of every rank,
+    the digests, and the images/s of the two ranks beside one device's."""
+    out = {}
+    for k, fold, data in PFM_CASES:
+        name = f"k{k}"
+        ref, own = one[name], spread[name]
+        runs = [rk["folds"][name] for rk in ranks]
+        first, last, limits = {}, {}, {}
+        for r, run in enumerate(runs):
+            for j, i in enumerate(run["local"]):
+                f = f"fold{i}"
+                g = _tree_gaps(saved[r][name]["tree1"][f], ref["tree1"][f], ref["init"][f])
+                g["loss"] = abs(run["losses"][0][j] - ref["losses"][0][i]) / abs(
+                    ref["losses"][0][i])
+                o = _tree_gaps(own["tree1"][f], ref["tree1"][f], ref["init"][f])
+                first[f"rank{r}/{f}"] = g
+                limits[f"rank{r}/{f}"] = {"moves": max(PF_TOL_MOVE, DP_SPREAD * o["moves"])}
+                if f in last:  # a fold once: rank 0's shared state, its holder's loss
+                    continue
+                g = _tree_gaps(saved[0][name]["trees"][f], ref["trees"][f], ref["init"][f])
+                g["loss"] = abs(run["losses"][-1][j] - ref["losses"][-1][i]) / abs(
+                    ref["losses"][-1][i])
+                o = _tree_gaps(own["trees"][f], ref["trees"][f], ref["init"][f])
+                o["loss"] = abs(own["losses"][-1][i] - ref["losses"][-1][i]) / abs(
+                    ref["losses"][-1][i])
+                last[f] = g
+                limits[f] = {key: max(DP_TOL if key != "moves" else PF_TOL_MOVE,
+                                      DP_SPREAD * o[key])
+                             for key in ("loss", "params", "stats", "moves")}
+        stages = F2T_TRUNCATE - 4
+        want = {kk: 0 for kk in runs[0]["launches"]}
+        want.update({"pooled_gram_fwd": stages * PFM_STEPS, "pooled_gram_bwd": stages * PFM_STEPS})
+        per_rank = [run["launches"] for run in runs]
+        for rl in per_rank:
+            for kk, v in rl.items():
+                launches_total[kk] += v
+        same = all(run["digest"] == runs[0]["digest"] for run in runs)
+        ips = k * DP_BATCH * (PFM_STEPS - 1) / sum(runs[0]["seconds"][1:])
+        one_ips = k * DP_BATCH * (PFM_STEPS - 1) / sum(ref["seconds"][1:])
+        def worst(gaps, pick=max):  # each measure's worst (or tightest limit) over the folds
+            keys = next(iter(gaps.values()))
+            return {kk: f"{pick(g[kk] for g in gaps.values()):.2e}"
+                    for kk in ("loss", "params", "stats", "moves") if kk in keys}
+
+        print(f"[data_parallel] --parallel_folds, {k} folds on a fold {fold} x data {data} "
+              f"mesh of the two ranks (b{DP_BATCH} a fold, {DP_BATCH // data} rows a rank), "
+              f"family 2 f32 against one device, the worst fold: first step {worst(first)} "
+              f"(tol {DP_TOL}; moves {worst({t: limits[t] for t in first}, min)}); after "
+              f"{PFM_STEPS} steps {worst(last)} (tol {DP_TOL} or {DP_SPREAD} times one device's "
+              f"own spread, the tightest: {worst({f: limits[f] for f in last}, min)}); shared "
+              f"states bit-equal on both ranks {same}; launches per rank {per_rank}; "
+              f"{ips:.1f} images/s on two ranks sharing the card against {one_ips:.1f} on one "
+              f"(a correctness cell, not a scaling one) ({smi})")
+        _require(all(g[kk] <= DP_TOL for g in first.values() for kk in ("loss", "params", "stats"))
+                 and all(first[t]["moves"] <= limits[t]["moves"] for t in first),
+                 f"[data_parallel] fold mesh {fold} x {data}: the first step within {DP_TOL} of "
+                 "one device's")
+        _require(all(last[f][kk] <= limits[f][kk] for f in last
+                     for kk in ("loss", "params", "stats", "moves")),
+                 f"[data_parallel] fold mesh {fold} x {data}: the last step within tolerance")
+        _require(same, f"[data_parallel] fold mesh {fold} x {data}: the shared states agree")
+        _require(all(rl == want for rl in per_rank),
+                 f"[data_parallel] fold mesh {fold} x {data}: each rank's launches {per_rank} "
+                 f"(want {want})")
+        out[name] = {"mesh": [fold, data], "first_step": first, "last_step": last,
+                     "limits": limits, "launches_per_rank": per_rank, "states_equal": same,
+                     "images_per_s": ips, "one_device_images_per_s": one_ips}
+    return out
+
+
 def _eval_models():
     """The evaluation cases' models on the card, from seeded CPU weights
     through the JAX-layout tree (as the CLIs' loaders read a checkpoint):
@@ -7091,6 +7259,12 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             spec = json.load(f)
         evals = _eval_runs(mesh, spec["threshold"], spec["data"],
                            os.path.join(out_dir, "eval_two_ranks"))
+        t_folds = time.perf_counter()
+        folds = _fold_mesh_runs(mesh)
+        folds_s = time.perf_counter() - t_folds
+        save_pytree_npz({name: {"tree1": run.pop("tree1"), "trees": run.pop("trees")}
+                         for name, run in folds.items()},
+                        os.path.join(out_dir, f"rank{rank}_fold_trees.npz"))
         trees = {"final": {}, "step1": {}}
         for name, run in runs.items():
             run.pop("init")
@@ -7104,7 +7278,8 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "world": world, "backend": "gloo",
                        "staged_on_host": mesh.stage_on_host, "start_s": start_s,
-                       "runs": runs, "evals": evals}, f, default=str)
+                       "runs": runs, "evals": evals, "folds": folds, "folds_s": folds_s}, f,
+                      default=str)
     finally:
         shutdown_distributed()
 
@@ -7280,6 +7455,10 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
         json.dump({"threshold": threshold, "data": data}, f)
     one_eval = _eval_runs(None, threshold, data, os.path.join(dp_dir, "eval_one_rank"))
     t0 = time.perf_counter()
+    one_folds = _fold_mesh_runs(None)
+    spread_folds = _fold_mesh_runs(None, reverse=True)
+    out["fold_mesh_one_device_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     multihost.launch(DP_RANKS, None, [], target=_dp_rank, target_args=(dp_dir,),
                      rendezvous_dir=tmp, deadline_s=DP_TIMEOUT_S)
     out["spawn_and_runs_s"] = time.perf_counter() - t0
@@ -7378,6 +7557,18 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     out["ranks_start_s"] = [rk["start_s"] for rk in ranks]
 
     out["evals"] = _check_evals(ranks, one_eval, first, threshold, launches_total, smi, dp_dir)
+    saved = [load_pytree_npz(os.path.join(dp_dir, f"rank{r}_fold_trees.npz"))
+             for r in range(DP_RANKS)]
+    out["fold_mesh"] = _check_fold_mesh(ranks, saved, one_folds, spread_folds, launches_total,
+                                        smi)
+    out["fold_mesh"]["ranks_s"] = [rk["folds_s"] for rk in ranks]
+    out["fold_mesh"]["one_device_s"] = out.pop("fold_mesh_one_device_s")
+    cases = {f"{tag} {n}": [round(r["case_s"], 2), [round(x, 3) for x in r["seconds"]]]
+             for tag, runs in (("one", one_folds), ("reversed", spread_folds))
+             for n, r in runs.items()}
+    print(f"[data_parallel] the fold-mesh cases: {out['fold_mesh']['one_device_s']:.1f} s of one-"
+          f"device references (a case's seconds and its steps': {cases}), "
+          f"{max(out['fold_mesh']['ranks_s']):.1f} s on the ranks")
 
     # (c) one NCCL rank: the data-parallel path with NCCL's collectives
     from heuristique_style_transfer_code_tpu_torch.config.schema import (

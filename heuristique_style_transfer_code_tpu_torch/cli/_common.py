@@ -289,11 +289,11 @@ def add_train_args(parser) -> None:
                         "about a third more forward work")
     parser.add_argument("--parallel_folds", action="store_true",
                         help="Train all --k_folds CV folds SIMULTANEOUSLY as one vmapped "
-                        "program on the one card: per-fold trajectories those of sequential "
-                        "training, every hand-written kernel one launch for all folds "
-                        "(several cards: not ported yet); exclusive with --resume, "
-                        "--steps_per_dispatch, --zero1, --early_stop, --grad_accum, "
-                        "--auto_batch and --remat")
+                        "program: per-fold trajectories those of sequential training, every "
+                        "hand-written kernel one launch for a rank's folds; with --devices N "
+                        "over a (fold, data) mesh of ranks (fold axis gcd(k_folds, N)); "
+                        "exclusive with --resume, --steps_per_dispatch, --zero1, --early_stop, "
+                        "--grad_accum, --auto_batch and --remat")
     parser.add_argument("--auto_batch", action="store_true",
                         help="Probe doubling batch sizes and adopt the largest whose train "
                         "step fits the memory budget: on the card one real step each, read "
@@ -345,32 +345,59 @@ TRAIN_NOT_PORTED = {
 }
 
 
+AUTO_BATCH_EXCLUSIVE = ("--auto_batch is exclusive with --grad_accum>1 and --parallel_folds "
+                        "(those dispatch different step programs than the one the probe "
+                        "measures)")
+
+
 def check_train_ported(args) -> None:
-    """``check_ported`` over ``TRAIN_NOT_PORTED``, after the JAX CLI's
-    refusal of ``--parallel_folds`` with ``--zero1``; ``--parallel_folds``
-    with ``--devices`` > 1 (folds across cards) is not ported yet."""
-    if getattr(args, "parallel_folds", False) and getattr(args, "zero1", False):
+    """``check_fold_parallel``, then ``check_ported`` over
+    ``TRAIN_NOT_PORTED``, before any rank starts."""
+    check_fold_parallel(args)
+    check_ported(args, TRAIN_NOT_PORTED)
+
+
+def check_fold_parallel(args) -> None:
+    """``--parallel_folds``' exclusions, with the JAX CLI's messages, and the
+    port's of ``--remat`` (``torch.func.grad`` refuses checkpointing's
+    saved-tensor hooks); ``run_kfold`` refuses ``--resume`` and
+    ``--steps_per_dispatch`` > 1."""
+    if not getattr(args, "parallel_folds", False):
+        return
+    if getattr(args, "zero1", False):
         raise SystemExit("--parallel_folds and --zero1 are exclusive (the optimiser "
                          "state is already sharded over the fold axis)")
-    check_ported(args, TRAIN_NOT_PORTED)
-    if getattr(args, "parallel_folds", False) and args.devices not in (None, 1):
-        raise NotImplementedError("--parallel_folds with --devices > 1 (folds across cards) "
-                                  "is not ported yet; pass --devices 1 or leave it out")
+    if getattr(args, "early_stop", None) is not None:
+        raise SystemExit("--parallel_folds and --early_stop are exclusive (all folds "
+                         "run as one SPMD program — no per-fold stopping point)")
+    if getattr(args, "remat", False):
+        raise SystemExit("--parallel_folds and --remat are exclusive here: torch.func's "
+                         "grad, which takes each fold's gradients, refuses the saved-tensor "
+                         "hooks of activation checkpointing")
+    if int(getattr(args, "grad_accum", 1) or 1) > 1:
+        raise SystemExit("--grad_accum and --parallel_folds are exclusive")
+    if getattr(args, "auto_batch", False):
+        raise SystemExit(AUTO_BATCH_EXCLUSIVE)
 
 
-def clamp_devices(n_devices: Optional[int], batch_size: int, device: str = "cuda",
-                  grad_accum: int = 1) -> int:
-    """The JAX ``build_mesh`` clamp (``:644-656``): the devices asked for
-    (all by default: the cards, or 1 on the CPU), at most those available
-    (on the CPU a rank is a process, so any count), then the largest count
-    that divides the batch; under ``--grad_accum K`` (K dividing B) each
-    micro-batch of B / K rows is split over the ranks, so the count divides
-    B / K."""
+def requested_devices(n_devices: Optional[int], device: str = "cuda") -> int:
+    """The devices asked for (all by default: the cards, or 1 on the CPU),
+    at most those available (on the CPU a rank is a process, so any
+    count)."""
     if torch.device(device).type == "cuda":
         avail = torch.cuda.device_count()
     else:
         avail = n_devices or 1
-    n = max(1, min(n_devices or avail, avail))
+    return max(1, min(n_devices or avail, avail))
+
+
+def clamp_devices(n_devices: Optional[int], batch_size: int, device: str = "cuda",
+                  grad_accum: int = 1) -> int:
+    """The JAX ``build_mesh`` clamp (``:644-656``): ``requested_devices``,
+    then the largest count that divides the batch; under ``--grad_accum
+    K`` (K dividing B) each micro-batch of B / K rows is split over the
+    ranks, so the count divides B / K."""
+    n = requested_devices(n_devices, device)
     rows = batch_size // grad_accum
     while n > 1 and rows % n:
         n -= 1
@@ -419,11 +446,25 @@ def build_mesh(args, batch_size: int, module: str, argv: Optional[List[str]]):
       at one device return ``(None, False)``, the single-device path; at N
       > 1 run ``module.main(argv)`` in N spawned ranks
       (``parallel/multihost.launch``) and return ``(None, True)`` once they
-      all exit 0 (a failing rank raises ``SystemExit``)."""
+      all exit 0 (a failing rank raises ``SystemExit``).
+    - Under ``--parallel_folds`` the ranks are ``core.mesh.fold_world``'s:
+      enough for both the fold mesh and the evaluation mesh, each of JAX's
+      shape (``resolve_fold_parallel`` makes them in the ranks)."""
     from ..parallel.multihost import in_process_group_env
 
     if in_process_group_env():
         return _join_mesh(args), False
+    if getattr(args, "parallel_folds", False):
+        from ..core.mesh import fold_world
+
+        fold, data, n_eval, world = fold_world(
+            args.k_folds, requested_devices(args.devices, args.device), batch_size)
+        if world == 1:
+            return None, False
+        print(f"--parallel_folds over {world} ranks ({_backend(args)}): fold {fold} x data "
+              f"{data}, evaluation on the first {n_eval}")
+        _launch_ranks(world, module, argv)
+        return None, True
     accum = int(getattr(args, "grad_accum", 1) or 1)
     if accum > 1 and batch_size % accum:
         raise SystemExit(f"--grad_accum {accum} does not divide batch_size {batch_size}")
@@ -638,45 +679,52 @@ def apply_grad_accum(args, setup, batch_size: int) -> None:
     if getattr(args, "steps_per_dispatch", 1) > 1:
         raise SystemExit("--grad_accum and --steps_per_dispatch>1 are "
                          "exclusive (pick one batching of the dispatch)")
-    if getattr(args, "parallel_folds", False):
-        raise SystemExit("--grad_accum and --parallel_folds are exclusive")
     if batch_size % n:
         raise SystemExit(f"--grad_accum {n} does not divide batch_size {batch_size}")
     setup.train_step = setup.accum_step(n)
     print(f"Gradient accumulation: {n} micro-batches of {batch_size // n} per optimiser step")
 
 
-def resolve_fold_parallel(args, setup, k_folds: int, device) -> Optional[Callable]:
-    """``--parallel_folds`` (the JAX ``resolve_fold_parallel``): the
-    fold-parallel train step (``FamilySetup.foldwise_step``), after the
-    JAX CLI's refusal of ``--early_stop`` and the port's of ``--remat``
-    (``torch.func.grad`` refuses checkpointing's saved-tensor hooks);
-    None when the flag is off. The K folds run as one program on the one
-    card (the fold axis of the JAX mesh has one device here), so the
-    partial-sharding warning is always printed."""
+def resolve_fold_parallel(args, setup, k_folds: int, mesh, batch_size: int):
+    """``--parallel_folds`` (the JAX ``resolve_fold_parallel``, ``:846-869``):
+    ``(foldwise_step, fold_mesh)``, both None when the flag is off. On one
+    device the fold mesh is 1 x 1 and None is returned for it; in a rank
+    (``mesh``, the world) the ``core.mesh.FoldMesh`` of ``fold_world``'s
+    shape, which the world must have (as ``build_mesh`` launched it, or as
+    ``torchrun`` was asked to), and the step over its data axis. Prints
+    JAX's mesh line and its partial-sharding warning."""
     if not getattr(args, "parallel_folds", False):
-        return None
-    if getattr(args, "early_stop", None) is not None:
-        raise SystemExit("--parallel_folds and --early_stop are exclusive (all folds "
-                         "run as one SPMD program — no per-fold stopping point)")
-    if getattr(args, "remat", False):
-        raise SystemExit("--parallel_folds and --remat are exclusive here: torch.func's "
-                         "grad, which takes each fold's gradients, refuses the saved-tensor "
-                         "hooks of activation checkpointing")
-    print(f"Fold-parallel training: {k_folds} folds as one vmapped program on {device}")
-    warn_partial_fold_sharding(k_folds)
-    return setup.foldwise_step()
+        return None, None
+    from ..core.mesh import FoldMesh, fold_world
+
+    fold, data, fold_mesh = 1, 1, None
+    if mesh is not None:
+        cpu = torch.device(args.device).type != "cuda"
+        n = requested_devices(args.devices or (mesh.world_size if cpu else None), args.device)
+        fold, data, n_eval, world = fold_world(k_folds, n, batch_size)
+        if world != mesh.world_size:
+            raise SystemExit(f"--parallel_folds: the fold mesh {fold} x {data} and the "
+                             f"evaluation mesh of {n_eval} need {world} ranks; this process "
+                             f"group has {mesh.world_size}")
+        fold_mesh = FoldMesh(mesh, k_folds, fold, data, n_eval)
+    print(f"Fold-parallel training: mesh {{'fold': {fold}, 'data': {data}}}")
+    warn_partial_fold_sharding(fold, k_folds)
+    return setup.foldwise_step(fold_mesh.data_axis if fold_mesh is not None else None), fold_mesh
 
 
-def warn_partial_fold_sharding(k_folds: int) -> bool:
-    """The JAX CLI's warning that folds share a device, which on one card
-    they all do, with the card's own ratio of fold-parallel to sequential
-    images/s (``chip_smoke.py``'s ``parallel_folds`` phase; PERF.md), not
-    JAX's TPU one."""
-    print(f"WARNING: all {k_folds} folds share one device: their convolutions run as "
-          "grouped ones, and 2 folds of b32 f32 steps ran at 0.45x (family 2) and 0.57x "
-          "(family 3) the sequential images/s on an NVIDIA H100 80GB HBM3 at 700 W "
-          "(chip_smoke.py's parallel_folds phase; PERF.md).")
+def warn_partial_fold_sharding(fold: int, k_folds: int) -> bool:
+    """The JAX CLI's warning when the fold axis of ``fold`` devices cannot
+    hold one fold a device, with the card's own ratio of fold-parallel to
+    sequential images/s (``chip_smoke.py``'s ``parallel_folds`` phase;
+    PERF.md), not JAX's TPU one; quiet (False) when it can."""
+    if fold >= k_folds:
+        return False
+    print(f"WARNING: only {fold} of {k_folds} folds shard onto devices (fold axis = "
+          "gcd(k_folds, devices)): folds that share a device run their convolutions as "
+          "grouped ones, and 2 folds of b32 f32 steps sharing one ran at 0.45x (family 2) "
+          "and 0.57x (family 3) the sequential images/s on an NVIDIA H100 80GB HBM3 at 700 W "
+          "(chip_smoke.py's parallel_folds phase; PERF.md). Use a device count that k_folds "
+          "divides for the full win.")
     return True
 
 
@@ -828,12 +876,8 @@ def apply_auto_batch(args, setup, cfg, hyperparameters=None, device="cuda", mesh
     before anything reads them."""
     if not getattr(args, "auto_batch", False):
         return
-    if getattr(args, "grad_accum", 1) > 1 or getattr(args, "parallel_folds", False):
-        raise SystemExit(
-            "--auto_batch is exclusive with --grad_accum>1 and "
-            "--parallel_folds (those dispatch different step programs than "
-            "the one the probe measures)"
-        )
+    if getattr(args, "grad_accum", 1) > 1:
+        raise SystemExit(AUTO_BATCH_EXCLUSIVE)
     from ..data.loader import STAGING_SIZE
     from ..train.autotune import (
         GIB,

@@ -26,12 +26,13 @@ discriminators is ``instance_norm_fwd`` on the card and its gradient
 ``--debug_nans``, ``--ema_decay`` (every fold artifact from the weights'
 EMA), ``--mixup``/``--cutmix`` (``train/mixing.py``), ``--auto_batch``
 with ``--hbm_budget_gb`` (``train/autotune.py``: on the CPU an estimate)
-and ``--parallel_folds`` (every fold as one vmapped program on the card,
+and ``--parallel_folds`` (every fold as one vmapped program,
 ``parallel/foldparallel.py``) run;
 ``--devices N`` (data-parallel training over N ranks, one process a
-device: NCCL between cards, gloo on the CPU; ``cli/_common.build_mesh``)
-and ``--zero1`` run; ``--checkpoint_format orbax`` and ``--parallel_folds``
-with ``--devices`` > 1 raise "not ported yet". Each fold's fresh weights come from
+device: NCCL between cards, gloo on the CPU; ``cli/_common.build_mesh``;
+with ``--parallel_folds`` the folds over a (fold, data) mesh of ranks)
+and ``--zero1`` run; ``--checkpoint_format orbax`` raises "not ported
+yet". Each fold's fresh weights come from
 ``torch.Generator().manual_seed(seed + fold)``, not from ``jax.random``.
 
     python -m heuristique_style_transfer_code_tpu_torch.cli.train_multi_patchgan \\
@@ -135,7 +136,8 @@ def main(argv=None):
         zero1=args.zero1)
     apply_auto_batch(args, setup, cfg, hyperparameters, device, mesh)
     apply_grad_accum(args, setup, cfg.batch_size)
-    foldwise_step = resolve_fold_parallel(args, setup, args.k_folds, device)
+    foldwise_step, fold_mesh = resolve_fold_parallel(args, setup, args.k_folds, mesh,
+                                                     cfg.batch_size)
 
     def init_fn(fold):
         model, opt_state = setup.init(torch.Generator().manual_seed(seed + fold))
@@ -162,6 +164,7 @@ def main(argv=None):
                 early_stop=args.early_stop,
                 eval_variables_fn=_ema_eval_fn(args),
                 mesh=mesh,
+                fold_mesh=fold_mesh,
                 grad_accum=args.grad_accum,
                 kfold_random_state=KFOLD_RANDOM_STATE,
                 save_every_fold=True,

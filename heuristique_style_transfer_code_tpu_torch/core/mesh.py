@@ -48,11 +48,18 @@ over the data axis. ``bands(mesh)`` makes the spatial axis the one whose
 row bands the ops see (``active_bands``): inside it every NHWC activation
 is this rank's band of rows of its image (``parallel/spatial.py``), and
 ``replicated()`` suspends that for work on whole, replicated maps.
+
+The (fold, data) mesh of ``--parallel_folds`` (``FoldMesh``, JAX's
+``make_fold_mesh``): rank r < F D is (fold r // D, data r % D), each fold
+group holding K / F folds on D ranks; the evaluation mesh is the first
+ranks of the same world, of JAX's ``build_mesh`` size, so the world is the
+larger of the two (``fold_world``).
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -188,6 +195,25 @@ class Mesh:
                                    device=self.device if self.backend == "nccl"
                                    else torch.device("cpu"))
         return box[0]
+
+    def broadcast_tensors(self, tensors: Sequence[torch.Tensor], src: int) -> None:
+        """Member ``src``'s ``tensors`` written into every member's, in
+        place (same shapes and dtypes on all): one flat buffer per dtype,
+        one broadcast each."""
+        tensors = list(tensors)
+        if not self.distributed or not tensors:
+            return
+        import torch.distributed as dist
+
+        def bcast(flat):
+            buf = self._staged(flat)
+            self._wait(dist.broadcast(buf, src=self.ranks[src], group=self.group,
+                                      async_op=True))
+            return buf.to(flat.device) if buf.device != flat.device else buf
+
+        with torch.no_grad(), torch.profiler.record_function("hst_pf::broadcast"):
+            for t, got in zip(tensors, _by_dtype(tensors, bcast)):
+                t.copy_(got)
 
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``t`` (same shape and dtype on all), in rank order."""
@@ -423,6 +449,96 @@ def _split_axes(mesh: Mesh, spatial: int) -> None:
     ranks, group = made[("data", s)]
     mesh.data_axis = Mesh(d, data, mesh.device, mesh.backend, group, ranks)
     mesh.spatial = spatial
+
+
+def fold_mesh_shape(k_folds: int, n_devices: int, batch_size: Optional[int] = None
+                    ) -> Tuple[int, int]:
+    """(fold, data) of the JAX ``make_fold_mesh`` (``foldparallel.py:48-66``)
+    over ``n_devices``: the fold axis gcd(K, n), each fold group holding
+    K / F folds; the data axis n // F, lowered until it divides
+    ``batch_size``."""
+    fold = math.gcd(int(k_folds), int(n_devices))
+    data = int(n_devices) // fold
+    if batch_size is not None:
+        while data > 1 and batch_size % data:
+            data -= 1
+    return fold, data
+
+
+def fold_world(k_folds: int, n_devices: int, batch_size: int) -> Tuple[int, int, int, int]:
+    """(fold, data, evaluation ranks, world) of ``--parallel_folds`` over
+    ``n_devices``. JAX builds both meshes from one device list: the fold
+    mesh F x D (``fold_mesh_shape``) and the evaluation mesh, the count
+    lowered to a divisor of the batch (``build_mesh``); each starts at the
+    first device, so the world is the larger of the two, each mesh keeping
+    JAX's shape (8 devices, B = 6, K = 4: fold 4 x data 2 over 8 ranks,
+    evaluation over the first 6)."""
+    fold, data = fold_mesh_shape(k_folds, n_devices, batch_size)
+    n_eval = max(1, int(n_devices))
+    while n_eval > 1 and batch_size % n_eval:
+        n_eval -= 1
+    return fold, data, n_eval, max(fold * data, n_eval)
+
+
+class FoldMesh:
+    """This rank's place in the (fold, data) mesh of ``--parallel_folds``
+    over the ranks of ``world``: rank r < F D is (fold r // D, data r % D),
+    JAX's fold-major ``reshape(F, D)``; fold group f trains the folds
+    ``[f K/F, (f+1) K/F)`` (JAX's ``P("fold")`` blocks of the stacked axis)
+    on its D ranks, each holding its rows of every fold's batch. A rank at
+    or past F D holds no fold. ``data_axis`` (this rank's fold group) and
+    ``fold_axis`` (the F ranks of its data index) are meshes of their own,
+    None outside the grid; ``evaluation`` is the mesh of the first
+    ``n_eval`` ranks (a one-rank mesh without a process group on rank 0
+    when ``n_eval`` is 1), None on the ranks past it."""
+
+    def __init__(self, world: Mesh, k_folds: int, fold: int, data: int, n_eval: int):
+        import torch.distributed as dist
+
+        if k_folds % fold or fold * data > world.world_size or n_eval > world.world_size:
+            raise ValueError(f"a fold mesh {fold} x {data} (evaluation {n_eval}) of {k_folds} "
+                             f"folds over {world.world_size} ranks")
+        self.world, self.k_folds, self.fold, self.data = world, int(k_folds), int(fold), int(data)
+        self.index = world.rank // data if world.rank < fold * data else None
+        self.data_axis: Optional[Mesh] = None
+        self.fold_axis: Optional[Mesh] = None
+        if world.distributed:  # every rank makes every group, in one order
+            made = {}
+            for f in range(fold):
+                ranks = [f * data + d for d in range(data)]
+                made[("data", f)] = ranks, dist.new_group(ranks, timeout=world.timeout)
+            for d in range(data):
+                ranks = [f * data + d for f in range(fold)]
+                made[("fold", d)] = ranks, dist.new_group(ranks, timeout=world.timeout)
+            if 1 < n_eval < world.world_size:
+                ranks = list(range(n_eval))
+                made["evaluation"] = ranks, dist.new_group(ranks, timeout=world.timeout)
+            if self.index is not None:
+                d = world.rank % data
+                ranks, group = made[("data", self.index)]
+                self.data_axis = Mesh(d, data, world.device, world.backend, group, ranks)
+                ranks, group = made[("fold", d)]
+                self.fold_axis = Mesh(self.index, fold, world.device, world.backend, group, ranks)
+        elif self.index is not None:
+            self.data_axis = self.fold_axis = Mesh(0, 1, world.device)
+        if world.rank >= n_eval:
+            self.evaluation = None
+        elif n_eval == 1:
+            self.evaluation = Mesh(0, 1, world.device)
+        elif n_eval == world.world_size:
+            self.evaluation = world
+        else:
+            ranks, group = made["evaluation"]
+            self.evaluation = Mesh(world.rank, n_eval, world.device, world.backend, group, ranks)
+
+    def folds(self, f: Optional[int] = None) -> range:
+        """The folds of fold group ``f`` (this rank's by default; none
+        outside the grid)."""
+        f = self.index if f is None else f
+        if f is None:
+            return range(0)
+        per = self.k_folds // self.fold
+        return range(f * per, (f + 1) * per)
 
 
 _ACTIVE: Optional[Tuple[Mesh, int]] = None

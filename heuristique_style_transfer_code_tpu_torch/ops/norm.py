@@ -8,7 +8,7 @@ rank's band (``parallel/spatial.py``)."""
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,8 +46,9 @@ def batch_norm(
     ``torch.func`` transform (``--parallel_folds``) the same arithmetic is
     written out on the NHWC tensor (``_batch_norm_train_nhwc``). Within a
     data-parallel train step (``core.mesh.activate``) the statistics are
-    those of the global batch (``GlobalBatchNorm``): no rank normalises by
-    its own rows' statistics."""
+    those of the global batch (``GlobalBatchNorm``, under ``torch.func``
+    too: ``--parallel_folds`` over a data axis of several ranks): no rank
+    normalises by its own rows' statistics."""
     if train:
         if active_bands() is not None:
             raise NotImplementedError("train-mode batch norm has no banded route "
@@ -56,7 +57,7 @@ def batch_norm(
             mean, var = mean.clone(), var.clone()
         dp = active()
         if dp is not None:
-            return GlobalBatchNorm.apply(x, scale, bias, mean, var, eps, dp[0])
+            return _global_batch_norm(x, scale, bias, mean, var, eps, dp[0])
         if transformed(x):
             return _batch_norm_train_nhwc(x, scale, bias, mean, var, eps)
         y = F.batch_norm(x.permute(0, 3, 1, 2), mean, var, scale, bias, training=True,
@@ -88,53 +89,139 @@ def _batch_norm_train_nhwc(x, scale, bias, mean, var, eps):
     return y.to(x.dtype)
 
 
+def _global_batch_norm(x, scale, bias, mean, var, eps, mesh):
+    """``GlobalBatchNorm`` and the update of the running buffers in place
+    (the mean, and the variance unbiased over the global n), outside the
+    Function: under ``vmap`` ``mean`` and ``var`` are each fold's slice of
+    the stacked buffers."""
+    y, mu, v = GlobalBatchNorm.apply(x, scale, bias, eps, mesh)
+    n = _global_n(x, mesh)
+    mean.mul_(1.0 - MOMENTUM).add_(mu.detach() * MOMENTUM)
+    var.mul_(1.0 - MOMENTUM).add_(v.detach() * (MOMENTUM * n / max(n - 1, 1)))
+    return y
+
+
+_STAT_DIMS = (-4, -3, -2)  # N, H, W of (..., N, H, W, C): a leading fold axis is kept
+
+
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    """(..., C) statistics broadcast against (..., N, H, W, C)."""
+    return t[..., None, None, None, :]
+
+
+def _global_n(x: torch.Tensor, mesh) -> float:
+    """The entries a channel's statistics cover: N H W of a rank's rows
+    times the ranks (every rank holds B / N rows)."""
+    return float(x.shape[-4] * x.shape[-3] * x.shape[-2] * mesh.world_size)
+
+
+def _bn_forward(x, scale, bias, eps, mesh):
+    """(y, mean, biased variance) of the global batch: the per-channel sums
+    of every leading fold in one all-reduce, then their centred sums of
+    squares in another."""
+    ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xc = x.to(ctype)
+    n = _global_n(x, mesh)
+    (s,) = mesh.all_reduce([xc.sum(dim=_STAT_DIMS)])
+    mu = s / n
+    centred = xc - _per_channel(mu)
+    (ss,) = mesh.all_reduce([centred.square().sum(dim=_STAT_DIMS)])
+    v = ss / n
+    invstd = torch.rsqrt(v + eps)
+    y = centred * _per_channel(invstd * scale.to(ctype)) + _per_channel(bias.to(ctype))
+    return y.to(x.dtype), mu, v
+
+
+def _bn_backward(dy, x, scale, mu, v, eps, mesh):
+    """(dx, dscale, dbias): the per-channel sums of dy and dy x̂ of every
+    leading fold in one all-reduce; the scale's and bias's gradients this
+    rank's partial sums."""
+    ctype = mu.dtype
+    invstd = torch.rsqrt(v + eps)
+    xhat = (x.to(ctype) - _per_channel(mu)) * _per_channel(invstd)
+    dyc = dy.to(ctype)
+    sum_dy = dyc.sum(dim=_STAT_DIMS)
+    sum_dy_xhat = (dyc * xhat).sum(dim=_STAT_DIMS)
+    g_dy, g_dy_xhat = mesh.all_reduce([sum_dy, sum_dy_xhat])
+    n = _global_n(x, mesh)
+    dx = _per_channel(scale.to(ctype) * invstd) * (
+        dyc - _per_channel(g_dy / n) - xhat * _per_channel(g_dy_xhat / n))
+    return dx.to(x.dtype), sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype)
+
+
 class GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of a data-parallel step
     (the JAX package's ``batch_norm(train=True)`` on an array sharded over
-    ``data``, ``ops/norm.py:51-65``), on each rank's NHWC rows.
+    ``data``, ``ops/norm.py:51-65``), on each rank's NHWC rows:
+    ``apply(x, scale, bias, eps, mesh) -> (y, mean, biased variance)``.
 
     Forward, two-pass as JAX's (the mean first, then the mean of squared
     deviations, which stays accurate where the mean is large next to the
     spread): one all-reduce of the per-channel sums, one of the centred
-    sums of squares; the running mean and the unbiased
-    running variance (global n) updated in place. Backward: one all-reduce
-    of the per-channel sums of dy and dy x̂, so dx is the global batch's;
-    the scale's and bias's gradients stay this rank's partial sums, which
-    the step's gradient reduction adds up. Statistics and arithmetic in
-    f32 (f64 stays f64), the output in x's dtype."""
+    sums of squares. Backward (``GlobalBatchNormGrad``): one all-reduce of
+    the per-channel sums of dy and dy x̂, so dx is the global batch's; the
+    scale's and bias's gradients stay this rank's partial sums, which the
+    step's gradient reduction adds up. Statistics and arithmetic in f32
+    (f64 stays f64), the output in x's dtype.
+
+    Under ``torch.func`` (``--parallel_folds`` over a mesh whose data axis
+    has several ranks) the ``vmap`` rules take the K folds of a rank as one
+    leading axis: the (K, C) sums of all its folds go in one collective, so
+    a norm costs two collectives forward and one backward whatever K."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, mean, var, eps, mesh):
-        ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
-        xc = x.to(ctype)
-        c = xc.shape[-1]
-        n = float(xc.numel() // c * mesh.world_size)  # every rank holds B / N rows
-        (s,) = mesh.all_reduce([xc.sum(dim=(0, 1, 2))])
-        mu = s / n
-        centred = xc - mu
-        (ss,) = mesh.all_reduce([centred.square().sum(dim=(0, 1, 2))])
-        v = ss / n
-        invstd = torch.rsqrt(v + eps)
-        with torch.no_grad():
-            mean.mul_(1.0 - MOMENTUM).add_(mu * MOMENTUM)
-            var.mul_(1.0 - MOMENTUM).add_(v * (MOMENTUM * n / max(n - 1, 1)))
-        ctx.save_for_backward(x, scale, mu, invstd)
-        ctx.mesh, ctx.n = mesh, n
-        return (centred * (invstd * scale.to(ctype)) + bias.to(ctype)).to(x.dtype)
+    def forward(x, scale, bias, eps, mesh):
+        return _bn_forward(x, scale, bias, eps, mesh)
 
     @staticmethod
-    def backward(ctx, dy):
-        x, scale, mu, invstd = ctx.saved_tensors
-        ctype = mu.dtype
-        xhat = (x.to(ctype) - mu) * invstd
-        dyc = dy.to(ctype)
-        sum_dy = dyc.sum(dim=(0, 1, 2))
-        sum_dy_xhat = (dyc * xhat).sum(dim=(0, 1, 2))
-        g_dy, g_dy_xhat = ctx.mesh.all_reduce([sum_dy, sum_dy_xhat])
-        n = ctx.n
-        dx = (scale.to(ctype) * invstd) * (dyc - g_dy / n - xhat * (g_dy_xhat / n))
-        return (dx.to(x.dtype), sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype),
-                None, None, None, None)
+    def setup_context(ctx, inputs, output):
+        x, scale, _, eps, mesh = inputs
+        _, mu, v = output
+        ctx.save_for_backward(x, scale, mu, v)
+        ctx.eps, ctx.mesh = eps, mesh
+        ctx.mark_non_differentiable(mu, v)
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _dv):
+        x, scale, mu, v = ctx.saved_tensors
+        dx, dscale, dbias = GlobalBatchNormGrad.apply(dy, x, scale, mu, v, ctx.eps, ctx.mesh)
+        return dx, dscale, dbias, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, eps, mesh):
+        k = info.batch_size
+        x, scale, bias = (_leading(t, d, k) for t, d in zip((x, scale, bias), in_dims))
+        return _bn_forward(x, scale, bias, eps, mesh), (0, 0, 0)
+
+
+class GlobalBatchNormGrad(torch.autograd.Function):
+    """``GlobalBatchNorm``'s backward as a Function of its own, so that
+    ``vmap`` reaches it with every fold of the rank at once: ``apply(dy,
+    x, scale, mean, var, eps, mesh) -> (dx, dscale, dbias)``."""
+
+    @staticmethod
+    def forward(dy, x, scale, mu, v, eps, mesh):
+        return _bn_backward(dy, x, scale, mu, v, eps, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the global batch norm has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, dy, x, scale, mu, v, eps, mesh):
+        k = info.batch_size
+        args = (_leading(t, d, k) for t, d in zip((dy, x, scale, mu, v), in_dims))
+        return _bn_backward(*args, eps, mesh), (0, 0, 0)
+
+
+def _leading(t: torch.Tensor, dim: Optional[int], k: int) -> torch.Tensor:
+    """A vmap rule's argument with its fold axis first (expanded where it
+    has none)."""
+    return t.expand(k, *t.shape) if dim is None else t.movedim(dim, 0)
 
 
 @functools.lru_cache(maxsize=64)

@@ -69,14 +69,15 @@ class FamilySetup:
         model = self._init_model(generator)
         return model, self.optimizer[0](model)
 
-    def foldwise_step(self) -> Callable:
+    def foldwise_step(self, mesh=None) -> Callable:
         """``--parallel_folds``: the step of every fold at once over the same
         forward, optimiser, augmentation and mixing
-        (``parallel.foldparallel.make_foldwise_train_step``)."""
+        (``parallel.foldparallel.make_foldwise_train_step``); ``mesh`` the
+        data axis of this rank's fold group (``core.mesh.FoldMesh``)."""
         from ..parallel.foldparallel import make_foldwise_train_step
 
         return make_foldwise_train_step(self._forward_train, self.optimizer, self._augment,
-                                        self._label_smoothing, self.mix_fn)
+                                        self._label_smoothing, self.mix_fn, mesh)
 
     def accum_step(self, n_accum: int) -> Callable:
         """``--grad_accum``: one optimiser update from ``n_accum``

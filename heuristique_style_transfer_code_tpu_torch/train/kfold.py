@@ -30,6 +30,10 @@ augmentation parameters come from a CPU ``torch.Generator`` seeded from
 (seed, fold, epoch, batch index) (``data/augment.batch_draws``), not from
 the JAX run's key.
 
+Under ``--parallel_folds --devices N`` (JAX ``:349-380``) the folds train
+over the (fold, data) mesh (``parallel/foldparallel.py``), then every rank
+of the evaluation mesh evaluates them as below.
+
 On a data-parallel ``mesh`` (``--devices N``, JAX ``:495``) every rank runs
 the protocol on its rows of each batch: training (``train_epochs``),
 evaluation (gathered: every rank gets the single-device metrics, so an
@@ -180,7 +184,8 @@ def run_kfold(
     on_fold_end: Optional[Callable] = None,
     mesh=None,
     grad_accum: int = 1,
-) -> Dict:
+    fold_mesh=None,
+) -> Optional[Dict]:
     """The cross-validation protocol; returns training_info.
 
     ``init_fn(fold) -> (model, opt_state, train_step, eval_step)`` gives a
@@ -201,7 +206,12 @@ def run_kfold(
     ``early_stop``, ``resume`` and ``steps_per_dispatch`` > 1. ``mesh``
     runs it data-parallel (module docstring); ``grad_accum`` (the train
     step's micro-batch count) picks each rank's rows of a batch
-    (``core.mesh.local_rows``)."""
+    (``core.mesh.local_rows``). ``fold_mesh`` (a ``core.mesh.FoldMesh``,
+    ``--parallel_folds`` over several ranks, in place of ``mesh``) trains
+    each fold on its group's ranks, each rank loading its rows of the
+    group's data axis, then evaluates over the fold mesh's evaluation
+    mesh; a rank past that mesh returns None once the trained folds have
+    been shared."""
     from ..utils.logging import StructuredLogger
     from .preemption import clear_preemption, install_sigterm_handler
 
@@ -215,11 +225,13 @@ def run_kfold(
             raise ValueError("fold-parallel training does not support --resume")
         if steps_per_dispatch > 1:
             raise ValueError("fold-parallel training and --steps_per_dispatch are exclusive")
+    if fold_mesh is not None:
+        mesh = fold_mesh.evaluation  # None on a rank past the evaluation mesh
     dp = data_parallel(mesh)
-    if dp is not None and foldwise_step is not None:
-        raise NotImplementedError("--parallel_folds with --devices > 1 (folds across cards) "
-                                  "is not ported yet")
-    main = dp is None or dp.is_main
+    if dp is not None and foldwise_step is not None and fold_mesh is None:
+        raise ValueError("fold-parallel training over several ranks takes its mesh as "
+                         "fold_mesh (core.mesh.FoldMesh)")
+    main = (dp is None or dp.is_main) if fold_mesh is None else fold_mesh.world.is_main
     os.makedirs(save_dir, exist_ok=True)
     logger = StructuredLogger(save_dir if main else None)
     split_seed = seed if kfold_random_state is None else kfold_random_state
@@ -285,6 +297,9 @@ def run_kfold(
     if not main:  # the path rank 0 writes, for the records every rank keeps
         save_fn = lambda tree, hp, d, name: os.path.join(d, f"{name}.npz")  # noqa: E731
     train_rows = dp.rows(batch_size, grad_accum) if dp is not None else None
+    if fold_mesh is not None:  # each fold's rows come from its group's data axis
+        train_rows = (fold_mesh.data_axis.rows(batch_size)
+                      if fold_mesh.data_axis is not None and fold_mesh.data > 1 else None)
     val_rows = dp.rows(batch_size) if dp is not None else None
 
     def _eval_model(m, o):
@@ -309,7 +324,11 @@ def run_kfold(
         trained_folds = [init_fn(fold) for fold in range(k_folds)]
         train_folds_parallel(  # writes each fold's trained state back in place
             foldwise_step, [(m, o) for m, o, _, _ in trained_folds],
-            [make_train_loader(f, splits[f][0]) for f in range(k_folds)], epochs, writer=writer)
+            [make_train_loader(f, splits[f][0]) for f in range(k_folds)], epochs, writer=writer,
+            fold_mesh=fold_mesh)
+        if fold_mesh is not None and fold_mesh.evaluation is None:
+            logger.close()  # past the evaluation mesh: nothing to evaluate or write
+            return None
 
     try:
         for fold, (train_idx, val_idx) in enumerate(splits):

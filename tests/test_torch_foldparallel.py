@@ -15,7 +15,7 @@ sequential loop, on the CPU.
   inactive, in float64): every fold's checkpoint at rtol 1e-4, atol 1e-5
   and its validation results to 1e-9.
 - The three train CLIs run the flag; the exclusions refuse with the JAX
-  CLI's messages.
+  CLI's messages, and ``--devices 2`` runs the folds on two gloo ranks.
 
 Sizes: truncations 5 and 6, 32- and 48-pixel crops, b4, two folds; the
 run_kfold at 224² (the CLI's crop) with ndf 8 and b2."""
@@ -221,13 +221,13 @@ def _cli(family, folder, tmp_path, *extra):
 
 @pytest.mark.parametrize("family", sorted(CLIS))
 def test_cli_runs_parallel_folds(family, tiny_imagefolder, tmp_path, capsys):
-    """Each train CLI under ``--parallel_folds``: the JAX CLI's lines, the
-    per-fold batch lines interleaved in fold order, and every fold's
-    artifacts."""
+    """Each train CLI under ``--parallel_folds``: the JAX CLI's lines (the
+    1 x 1 mesh and its partial-sharding warning), the per-fold batch lines
+    interleaved in fold order, and every fold's artifacts."""
     _cli(family, tiny_imagefolder, tmp_path, "--parallel_folds")
     out = capsys.readouterr().out
-    assert "Fold-parallel training: 2 folds as one vmapped program on cpu" in out
-    assert "WARNING: all 2 folds share one device" in out
+    assert "Fold-parallel training: mesh {'fold': 1, 'data': 1}" in out
+    assert "WARNING: only 1 of 2 folds shard onto devices" in out
     batch_lines = [ln.split(",")[0] for ln in out.splitlines() if "Batch [" in ln]
     assert batch_lines[:4] == ["Fold 0", "Fold 1", "Fold 0", "Fold 1"]
     for fold in range(2):
@@ -246,8 +246,26 @@ def test_cli_runs_parallel_folds(family, tiny_imagefolder, tmp_path, capsys):
     (("--auto_batch",), SystemExit, "--auto_batch is exclusive with --grad_accum>1 and "
                                     "--parallel_folds"),
     (("--remat",), SystemExit, "--parallel_folds and --remat are exclusive"),
-    (("--devices", "2"), NotImplementedError, "not ported yet"),
+    (("--devices", "2"), None, "Fold-parallel training: mesh {'fold': 2, 'data': 1}"),
 ])
-def test_exclusions(extra, error, message, tiny_imagefolder, tmp_path):
-    with pytest.raises(error, match=message.replace("+", r"\+")):
-        _cli("family1", tiny_imagefolder, tmp_path, "--parallel_folds", *extra)
+def test_exclusions(extra, error, message, tiny_imagefolder, tmp_path, capfd):
+    """Each exclusion refuses with the JAX CLI's message (family 1);
+    ``--devices 2`` runs (family 3, the cheapest step): two gloo ranks,
+    one fold each (a 2 x 1 fold mesh), rank 0 printing the mesh line and
+    every fold's lines and writing every fold's artifacts."""
+    if error is not None:
+        with pytest.raises(error, match=message.replace("+", r"\+")):
+            _cli("family1", tiny_imagefolder, tmp_path, "--parallel_folds", *extra)
+        return
+    _cli("family3", tiny_imagefolder, tmp_path, "--parallel_folds", *extra)
+    out = capfd.readouterr().out
+    assert message in out and "WARNING" not in out
+    assert "--parallel_folds over 2 ranks (gloo): fold 2 x data 1, evaluation on the first 2" \
+        in out
+    assert [ln.split(",")[0] for ln in out.splitlines() if "Batch [" in ln][:2] == [
+        "Fold 0", "Fold 1"]
+    for fold in range(2):
+        got = _flatten(load_pytree_npz(str(tmp_path / "out" / f"best_model_fold_{fold}.npz")))
+        assert all(np.isfinite(v).all() for v in got.values())
+    info = json.loads((tmp_path / "out" / "training_info.json").read_text())
+    assert [r["fold"] for r in info["fold_results"]] == [0, 1]

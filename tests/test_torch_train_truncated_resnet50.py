@@ -304,9 +304,11 @@ def test_parser_has_every_jax_flag():
 
 
 @pytest.mark.parametrize("extra", [
-    # --zero1 and --devices now run (tests/test_torch_data_parallel.py): with
-    # orbax the launching process still refuses before it starts any rank
-    ("--zero1", "--checkpoint_format", "orbax"), ("--parallel_folds", "--devices", "2"),
+    # --zero1 and --devices now run (tests/test_torch_data_parallel.py), as
+    # does --parallel_folds with --devices (tests/test_torch_fold_ranks.py):
+    # with orbax the launching process still refuses before it starts any rank
+    ("--zero1", "--checkpoint_format", "orbax"), ("--parallel_folds", "--devices", "2",
+                                                  "--checkpoint_format", "orbax"),
     ("--devices", "2", "--checkpoint_format", "orbax"), ("--checkpoint_format", "orbax")])
 def test_unported_flags_raise(tiny_imagefolder, cfg_path, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
