@@ -375,6 +375,16 @@ Phases, all run every time:
                   vmap), 2 steps against one device's fold step: within
                   1e-4 after the first, the shared fold states bit-equal
                   on both ranks, K2/K2' 3 + 3 a step on each rank.
+                  On the same two ranks, the model axis
+                  (``parallel/sharding.py``'s factories): family 2 at its
+                  defaults (b32) on make_mesh_2d(2) (TP: the classifier's
+                  rows split), FSDP on a data mesh of 2, and
+                  make_mesh_3d(2) = (1, 1, 2) (rows in two bands, K2 and
+                  K2' on each) plain and under ZeRO-1, MA_STEPS steps against
+                  one rank: within 1e-4 after the first step, the
+                  replicated leaves bit-equal on both ranks, K2/K2' 3 + 3
+                  a step on each rank; images/s, peak memory and the
+                  bytes a rank stores.
                   On the same two ranks, the evaluation paths of
                   ``--devices N`` through the evaluation CLIs' task
                   functions on 63 PNGs (``cli/_common.eval_loader``, a
@@ -587,8 +597,8 @@ TOL_MODEL = {"float32": (1e-3, 1e-3), "bfloat16": (5e-2, 2e-2)}
 
 # family-2 training at full width: truncate 7, S 7, the CLI's batch 32, 224²
 # crops, 4 classes x 24 PNGs (2 folds: 48 train images a fold, 2 batches an
-# epoch), 2 epochs; the step timed over 10 steps, profiled over 3
-F2T_TRUNCATE, F2T_S, F2T_BATCH, F2T_PER_CLASS, F2T_TIMED = 7, 7, 32, 24, 10
+# epoch), 2 epochs; the step timed over F2T_TIMED steps, profiled over 3
+F2T_TRUNCATE, F2T_S, F2T_BATCH, F2T_PER_CLASS, F2T_TIMED = 7, 7, 32, 24, 5
 F2T_LR = 0.01
 # one b32 f32 step on the card against the same step on the CPU in float64:
 # the loss, relative; each gradient leaf by relative L2 within F2T_TOL_GRAD
@@ -607,15 +617,15 @@ CPU_CHECK_ROWS = 4
 # 224² crops of 256² staged uint8, 4 classes; the identity and all 5 x 5
 # (geometric, colour) combinations; the CLI on 4 classes x 6 PNGs with 2
 # geometric and 2 colour transforms picked (4 combinations), 2 folds, 2
-# epochs; the step timed over 10 steps, profiled over 3
-F1T_BATCH, F1T_PER_CLASS, F1T_TIMED, F1T_LR = 32, 6, 10, 0.01
+# epochs; the step timed over F1T_TIMED steps, profiled over 3
+F1T_BATCH, F1T_PER_CLASS, F1T_TIMED, F1T_LR = 32, 6, 5, 0.01
 # a transform on the card against the same code on the CPU, same
 # parameters: max |difference| of the normalised output (the gathers pick
 # the same pixels; FMA contraction differs, about 1e-6 a step)
 F1T_TOL_AUG = 1e-4
 # family-3 training at the config defaults (patch sizes 10/70/150, ndf 64,
 # 4 classes), b32, 224²; the CLI on 4 classes x 8 PNGs, 2 folds, 2 epochs
-F3T_BATCH, F3T_PER_CLASS, F3T_TIMED, F3T_LR = 32, 8, 10, 0.01
+F3T_BATCH, F3T_PER_CLASS, F3T_TIMED, F3T_LR = 32, 8, 5, 0.01
 # the train-variant discriminators' 13 instance norms a forward at b32 (no
 # ReLU: a separate LeakyReLU follows; unit scale, zero bias): small (224²
 # in), medium (112²), large (56²), from discriminator_layer_plan
@@ -699,7 +709,7 @@ ART_STYLE_LOSS_RTOL = 1e-5
 ART_NET_BATCH = 8
 # style_int8: the family-2 texture loop at serve_style's texture job shape
 # (layers 5, b2, 224²), SI8_ITERS iterations, SI8_RUNS timed runs a side
-SI8_BATCH, SI8_ITERS, SI8_RUNS = 2, 20, 2
+SI8_BATCH, SI8_ITERS, SI8_RUNS = 2, 20, 1
 # native_decode: HostLoader at b32 over ND_IMAGES JPEGs of ND_SIZE (h, w),
 # ND_EPOCHS epochs a decoder
 ND_IMAGES, ND_SIZE, ND_BATCH, ND_EPOCHS = 256, (480, 640), 32, 3
@@ -714,7 +724,7 @@ ND_IMAGES, ND_SIZE, ND_BATCH, ND_EPOCHS = 256, (480, 640), 32, 3
 # batch-norm leaves lie 1-3e-2 from float64 on the card (F2T_TOL_GRAD's
 # note), so single leaves are printed, not gated; the CPU tests hold the
 # same code to 1e-12 in float64
-PF_K, PF_BATCH, PF_PER_CLASS, PF_TIMED = 2, 32, 32, 3
+PF_K, PF_BATCH, PF_PER_CLASS, PF_TIMED = 2, 32, 32, 2
 PF_TOL_OP, PF_TOL_MOVE, PF_TOL_LOSS = 1e-5, 1e-2, 2e-4
 # data_parallel: DP_RANKS gloo ranks on the one card against one rank,
 # DP_STEPS steps of the b{DP_BATCH} global batch a run, whose halves (one a
@@ -748,6 +758,26 @@ DP_SPREAD = 3.0
 # times that spread; every rank's K2/K2' launches 3 + 3 a step (one folded
 # launch for its folds) and the shared fold states bit-equal on both ranks
 PFM_CASES, PFM_STEPS = ((2, 2, 1), (3, 1, 2)), 2
+# data_parallel's model-axis cases (parallel/sharding.py's factories) on the
+# same two ranks: family 2 at its config defaults (truncate 7, S 7,
+# b{DP_BATCH} global, 224 crop, f32) from the data_parallel runs' seeded
+# weights and batches, MA_STEPS steps under cuDNN's deterministic
+# algorithms, on each (name, mesh, factory) of MA_CASES: "tp" the (data 1,
+# model 2) mesh of make_mesh_2d(2) (the classifier's rows split), "fsdp" a
+# data mesh of 2 (parameters and momentum 1/2 a rank), "3d" and "3d_zero1"
+# make_mesh_3d(2) = (1, 1, 2) (each image's rows in two bands, K2 and K2'
+# on each band). Against the one-rank f2 run: after the first step the
+# loss and the parameter and statistics trees within DP_TOL and the moves
+# within PF_TOL_MOVE (or DP_SPREAD times one rank's own spread); the later
+# losses printed beside one rank's, not gated: these f32 steps are chaotic
+# (DP_SPREAD's note), and the banded convolutions round otherwise than the
+# whole image's, which the rows-reversed spread does not cover (the CPU
+# tests hold the same code to 1e-9 in float64 after two steps); each
+# rank's K2/K2' launches 3 + 3 a step; every leaf the mesh replicates
+# bit-equal on both ranks, and the gathered trees too
+MA_CASES = (("tp", "2d", "sharded"), ("fsdp", "data", "fsdp"), ("3d", "3d", "sharded"),
+            ("3d_zero1", "3d", "zero1"))
+MA_STEPS = 2
 # data_parallel's evaluation cases (``--devices N`` on the evaluation CLIs'
 # task functions, ``_eval_runs``) on the same two ranks: family 1 (full
 # width) at b{DPE_F1_BATCH}, family 2 (truncate 8, S 7) at b{DPE_F2_BATCH},
@@ -3705,7 +3735,7 @@ def phase_family1_train(kernels, tmp: str, timings: dict) -> dict:
     epochs, ``--geom_aug --color_aug`` with 2 transforms each: the
     reference's artifacts, run once more for the resume check (a real
     SIGTERM), both with cuDNN's deterministic algorithms.
-    (d) The b32 step alone, 10 timed steps and 3 profiled ones, augmented
+    (d) The b32 step alone, F1T_TIMED timed steps and 3 profiled ones, augmented
     in f32 and bf16, and with the identity combination in f32 (the
     augmentation's cost). No hand-written kernel launches anywhere here."""
     import numpy as np
@@ -3838,7 +3868,7 @@ def phase_family3_train(kernels, tmp: str, timings: dict) -> dict:
     "instance": exact launches and the reference's artifacts
     (``model_fold_<k>``, ``retrained_performance.json``,
     ``retrained_hyperparameters.json``). (d) The b32 step alone in each of
-    the four settings: 10 timed steps, 3 profiled."""
+    the four settings: F3T_TIMED timed steps, 3 profiled."""
     import numpy as np
     import torch
 
@@ -6769,6 +6799,115 @@ def phase_parallel_folds(kernels, tmp: str, timings: dict) -> dict:
     return out
 
 
+def _dp_batches(reverse: bool = False):
+    """The data_parallel runs' DP_STEPS + 1 global batches (each half dark,
+    half bright; one pad entry in the first) and their labels; with
+    ``reverse`` each batch's rows in reverse order."""
+    import numpy as np
+
+    rng = np.random.RandomState(110)
+    half = (DP_BATCH // 2, 256, 256, 3)
+    u8 = [np.concatenate([rng.randint(0, 90, half), rng.randint(160, 256, half)]).astype(np.uint8)
+          for _ in range(DP_STEPS + 1)]
+    labels = [rng.randint(0, 4, (DP_BATCH,)).astype(np.int32) for _ in range(DP_STEPS + 1)]
+    labels[0][-1] = -1
+    if reverse:
+        u8, labels = [x[::-1].copy() for x in u8], [y[::-1].copy() for y in labels]
+    return u8, labels
+
+
+def _model_axis_runs(world) -> dict:
+    """The data_parallel phase's model-axis cases (MA_CASES) on the ranks of
+    ``world`` (every rank builds every mesh, in one order). Each case: the
+    global losses, the gathered tree after the first step,
+    the launches, the steps' seconds, the peak of device memory, the bytes
+    a rank stores of the parameters and the optimiser state beside the
+    whole model's, and digests of the leaves the mesh replicates and of
+    the gathered tree."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.parallel import sharding
+    from heuristique_style_transfer_code_tpu_torch.parallel.tensor_parallel import gather_heads
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+    from heuristique_style_transfer_code_tpu_torch.train.optim import full_params, sgd_momentum
+
+    cards = [world.device] * world.world_size
+    meshes = {"2d": sharding.make_mesh_2d(world.world_size, devices=cards), "data": world,
+              "3d": sharding.make_mesh_3d(world.world_size, devices=cards)}
+    u8, labels = _dp_batches()
+    cfg = GramAttentionConfig(batch_size=DP_BATCH, lr=DP_LR, truncate_layer=F2T_TRUNCATE,
+                              gram_matrix_size=F2T_S, seed=0)
+    setup = setup_gram_attention(cfg, 4, [(None, None)], device=DEVICE)
+
+    def nbytes(tensors) -> int:
+        return int(sum(t.numel() * t.element_size() for t in tensors))
+
+    def gathered(model, state):
+        whole = full_params(model, state)
+        tensors = gather_heads(whole)
+        return whole, tensors, to_jax_tree(whole, tensors)
+
+    runs = {}
+    with _deterministic_cudnn():
+        for name, mesh_name, factory in MA_CASES:
+            t_case = time.perf_counter()
+            mesh = meshes[mesh_name]
+            model, _ = setup.init(torch.Generator().manual_seed(111))
+            whole_bytes = {"params": nbytes(model.parameters()),
+                           "state": nbytes(model.parameters())}  # the momentum: one a parameter
+            opt = sgd_momentum(DP_LR, mesh=mesh)
+            fwd, aug = setup._forward_train, setup._augment
+            if factory == "sharded":
+                step, _ = sharding.make_sharded_train_step(fwd, opt, aug, mesh, model)
+                state = opt[0](model)
+            elif factory == "zero1":
+                state = opt[0](model)
+                step, _ = sharding.make_zero1_train_step(fwd, opt, aug, mesh, model, state)
+            else:
+                state = opt[0](model)
+                step, _, _ = sharding.make_fsdp_train_step(fwd, opt, aug, mesh, model, state)
+            stored = {"params": nbytes(model.parameters()),
+                      "state": nbytes(state["trace"].values())}
+            losses, seconds = [], []
+            kernels.reset_launch_counts()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            for i in range(MA_STEPS):
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model, state, loss = step(model, state, mesh.local(u8[i]), mesh.local(labels[i]))
+                losses.append(float(loss))  # the global loss: a sync
+                seconds.append(time.perf_counter() - t0)
+                if i == 0:
+                    first = gathered(model, state)[2]
+            launches = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else None
+            tensors = gathered(model, state)[1]
+            local = model.state_dict()
+            replicated = hashlib.sha256()
+            for k in sorted(local):
+                if tuple(local[k].shape) == tuple(tensors[k].shape):
+                    replicated.update(local[k].detach().cpu().numpy().tobytes())
+            whole = hashlib.sha256()
+            for k in sorted(tensors):
+                whole.update(tensors[k].detach().cpu().numpy().tobytes())
+            runs[name] = {"losses": losses, "seconds": seconds, "launches": launches,
+                          "peak_bytes": peak, "stored_bytes": stored, "whole_bytes": whole_bytes,
+                          "replicated_digest": replicated.hexdigest(),
+                          "whole_digest": whole.hexdigest(), "tree1": first,
+                          "case_s": time.perf_counter() - t_case}
+            del model, state, step
+    return runs
+
+
 def _dp_runs(mesh, profile: bool = False, reverse: bool = False,
              names=("f2", "f2_zero1", "f3_instance")) -> dict:
     """The data_parallel phase's runs on ``mesh`` (None: one rank): family
@@ -6797,14 +6936,7 @@ def _dp_runs(mesh, profile: bool = False, reverse: bool = False,
         setup_multi_patchgan,
     )
 
-    rng = np.random.RandomState(110)
-    half = (DP_BATCH // 2, 256, 256, 3)
-    u8 = [np.concatenate([rng.randint(0, 90, half), rng.randint(160, 256, half)]).astype(np.uint8)
-          for _ in range(DP_STEPS + 1)]
-    labels = [rng.randint(0, 4, (DP_BATCH,)).astype(np.int32) for _ in range(DP_STEPS + 1)]
-    labels[0][-1] = -1
-    if reverse:
-        u8, labels = [x[::-1].copy() for x in u8], [y[::-1].copy() for y in labels]
+    u8, labels = _dp_batches(reverse)
     local = (lambda x: x) if mesh is None else mesh.local  # noqa: E731
     combos = [(None, None)]
     runs = {}
@@ -6940,6 +7072,64 @@ def _fold_mesh_runs(mesh, reverse: bool = False) -> dict:
                        case_s=time.perf_counter() - t_case)
             out[f"k{k}"] = run
             del states, stacked, step, setup
+    return out
+
+
+def _check_model_axis(ranks, trees, one, spread, launches_total: dict, smi: str) -> dict:
+    """The model-axis cases (MA_CASES) of the ranks against the one-rank
+    family-2 run ``one`` and its own spread ``spread`` (rows reversed)."""
+    stages = F2T_TRUNCATE - 4
+    own1 = _tree_gaps(spread["tree1"], one["tree1"], one["init"])
+    limit1_moves = max(PF_TOL_MOVE, DP_SPREAD * own1["moves"])
+    one_ips = DP_BATCH * (MA_STEPS - 1) / sum(one["seconds"][1:MA_STEPS])
+    out = {}
+    for name, mesh_name, factory in MA_CASES:
+        r0 = ranks[0]["model_axis"][name]
+        gaps1 = _tree_gaps(trees[name], one["tree1"], one["init"])
+        gaps1["loss"] = abs(r0["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+        later = [abs(a - b) / abs(b) for a, b in zip(r0["losses"][1:], one["losses"][1:])]
+        per_rank = [rk["model_axis"][name]["launches"] for rk in ranks]
+        want = {k: 0 for k in per_rank[0]}
+        want.update({"pooled_gram_fwd": stages * MA_STEPS, "pooled_gram_bwd": stages * MA_STEPS})
+        for rk_launches in per_rank:
+            for k, v in rk_launches.items():
+                launches_total[k] += v
+        same = all(rk["model_axis"][name]["replicated_digest"] == r0["replicated_digest"]
+                   and rk["model_axis"][name]["whole_digest"] == r0["whole_digest"]
+                   and rk["model_axis"][name]["losses"] == r0["losses"] for rk in ranks)
+        ips = DP_BATCH * (MA_STEPS - 1) / sum(r0["seconds"][1:])
+        peaks = [rk["model_axis"][name]["peak_bytes"] for rk in ranks]
+        stored = [rk["model_axis"][name]["stored_bytes"] for rk in ranks]
+        print(f"[data_parallel] model axis {name} ({factory} on the {mesh_name} mesh), first "
+              f"step against one rank: loss {gaps1['loss']:.2e}, params {gaps1['params']:.2e}, "
+              f"stats {gaps1['stats']:.2e} (tol {DP_TOL}), moves {gaps1['moves']:.2e} (tol "
+              f"{limit1_moves:.2e}); the later steps' losses {r0['losses'][1:]} against one "
+              f"rank's {one['losses'][1:MA_STEPS]} (relative {[f'{x:.2e}' for x in later]}, "
+              f"printed, not gated); replicated leaves and gathered trees bit-equal on the ranks "
+              f"{same}; launches per rank {per_rank}; {ips:.1f} images/s global over steps 2-"
+              f"{MA_STEPS} (one rank {one_ips:.1f}); peak device memory a rank "
+              f"{[round(p / 2**20, 1) if p else p for p in peaks]} MiB; stored a rank: parameters "
+              f"{[round(b['params'] / 2**20, 3) for b in stored]} MiB, momentum "
+              f"{[round(b['state'] / 2**20, 3) for b in stored]} MiB, of the whole model's "
+              f"{r0['whole_bytes']['params'] / 2**20:.3f} MiB each; "
+              f"{max(rk['model_axis'][name]['case_s'] for rk in ranks):.1f} s ({smi})")
+        _require(all(gaps1[k] <= DP_TOL for k in ("loss", "params", "stats"))
+                 and gaps1["moves"] <= limit1_moves,
+                 f"model axis {name}'s first step within {DP_TOL} of one rank's")
+        _require(same, f"model axis {name}: the replicated leaves bit-equal on every rank")
+        _require(all(rl == want for rl in per_rank),
+                 f"each rank's launches in model axis {name}: {per_rank} (want {want})")
+        if factory == "fsdp":
+            _require(all(b["params"] * DP_RANKS <= r0["whole_bytes"]["params"] * 1.01
+                         and b["state"] * DP_RANKS <= r0["whole_bytes"]["state"] * 1.01
+                         for b in stored), "FSDP keeps about 1/N of the parameters a rank")
+        out[name] = {"losses": r0["losses"], "one_rank_losses": one["losses"][:MA_STEPS],
+                     "first_step": gaps1, "later_loss_gaps": later,
+                     "launches_per_rank": per_rank,
+                     "images_per_s": ips, "one_rank_images_per_s": one_ips,
+                     "peak_bytes": peaks, "stored_bytes": stored,
+                     "whole_bytes": r0["whole_bytes"], "seconds": r0["seconds"],
+                     "case_s": [rk["model_axis"][name]["case_s"] for rk in ranks]}
     return out
 
 
@@ -7265,6 +7455,12 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         save_pytree_npz({name: {"tree1": run.pop("tree1"), "trees": run.pop("trees")}
                          for name, run in folds.items()},
                         os.path.join(out_dir, f"rank{rank}_fold_trees.npz"))
+        model_axis = _model_axis_runs(mesh)
+        if rank == 0:
+            save_pytree_npz({name: run["tree1"] for name, run in model_axis.items()},
+                            os.path.join(out_dir, "rank0_model_axis_trees.npz"))
+        for run in model_axis.values():
+            del run["tree1"]
         trees = {"final": {}, "step1": {}}
         for name, run in runs.items():
             run.pop("init")
@@ -7278,7 +7474,8 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "world": world, "backend": "gloo",
                        "staged_on_host": mesh.stage_on_host, "start_s": start_s,
-                       "runs": runs, "evals": evals, "folds": folds, "folds_s": folds_s}, f,
+                       "runs": runs, "evals": evals, "folds": folds, "folds_s": folds_s,
+                       "model_axis": model_axis}, f,
                       default=str)
     finally:
         shutdown_distributed()
@@ -7569,6 +7766,9 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     print(f"[data_parallel] the fold-mesh cases: {out['fold_mesh']['one_device_s']:.1f} s of one-"
           f"device references (a case's seconds and its steps': {cases}), "
           f"{max(out['fold_mesh']['ranks_s']):.1f} s on the ranks")
+    out["model_axis"] = _check_model_axis(ranks, load_pytree_npz(
+        os.path.join(dp_dir, "rank0_model_axis_trees.npz")), one["f2"], spread["f2"],
+        launches_total, smi)
 
     # (c) one NCCL rank: the data-parallel path with NCCL's collectives
     from heuristique_style_transfer_code_tpu_torch.config.schema import (

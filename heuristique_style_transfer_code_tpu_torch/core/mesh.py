@@ -44,7 +44,18 @@ the devices. ``data_axis`` and ``spatial_axis`` are meshes of their own
 over the ranks of this rank's data and spatial groups (every rank makes
 every group, in one order), with the same collectives and the group's
 timeout; the rows of a batch (``rows``, ``local``, ``gather_rows``) go
-over the data axis. ``bands(mesh)`` makes the spatial axis the one whose
+over the data axis.
+
+The (data, model, spatial) mesh (``create_mesh(model=M, spatial=S)``,
+``parallel.sharding.make_mesh_3d``; with S = 1 the (data, model) mesh of
+``make_mesh_2d``): rank r = (d M + m) S + s, JAX's ``reshape(data, model,
+spatial)``. ``model_axis`` is the M ranks of this rank's (d, s), over
+which the tensor-parallel heads split their columns
+(``parallel/tensor_parallel.py``); ``replica_axis`` is the (data,
+spatial) plane of its model index m, D S ranks in the order (d, s), over
+which gradients and batch-norm statistics reduce (the world on a mesh
+without a model axis, the data axis on one without a spatial axis). The
+ranks of a model or spatial group hold the same rows. ``bands(mesh)`` makes the spatial axis the one whose
 row bands the ops see (``active_bands``): inside it every NHWC activation
 is this rank's band of rows of its image (``parallel/spatial.py``), and
 ``replicated()`` suspends that for work on whole, replicated maps.
@@ -112,24 +123,34 @@ class Mesh:
         self.stage_on_host = backend == "gloo" and self.device.type == "cuda"
         self.group = group
         self.ranks = list(range(self.world_size)) if ranks is None else [int(r) for r in ranks]
-        # a 1-D mesh is its own data axis; create_mesh(spatial=S) sets both
+        # a 1-D mesh is its own data axis and replica plane; create_mesh(
+        # model=M, spatial=S) sets the axes
         self.spatial = 1
+        self.model = 1
         self.data_axis: "Mesh" = self
         self.spatial_axis: Optional["Mesh"] = None
+        self.model_axis: Optional["Mesh"] = None
+        self.replica_axis: "Mesh" = self
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    def __deepcopy__(self, memo):
+        # a handle on the process group, not data: a copied model (an
+        # EMA's, a gathered FSDP one) keeps its heads on the same axes
+        return self
+
     def __repr__(self):
-        extra = f", spatial={self.spatial}" if self.spatial > 1 else ""
+        extra = f", model={self.model}" if self.model > 1 else ""
+        extra += f", spatial={self.spatial}" if self.spatial > 1 else ""
         return (f"Mesh(rank={self.rank}, world_size={self.world_size}, device={self.device}, "
                 f"backend={self.backend}{extra})")
 
     # -- rows ---------------------------------------------------------------
     def rows(self, batch: int, n_accum: int = 1) -> np.ndarray:
         """This rank's rows of a batch: its data rank's block (the ranks of
-        a spatial group hold the same rows)."""
+        a model or spatial group hold the same rows)."""
         data = self.data_axis
         return local_rows(batch, data.rank, data.world_size, n_accum)
 
@@ -381,7 +402,7 @@ class DeviceGroup:
 
 
 def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None,
-                spatial: int = 1) -> Mesh:
+                spatial: int = 1, model: int = 1) -> Mesh:
     """This process's rank of the data-parallel mesh (the JAX
     ``create_mesh(n_devices, devices)``). Without a process group it is the
     one-device mesh on ``devices[0]`` (the CPU by default). With one
@@ -389,16 +410,17 @@ def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = N
     its world size, and ``devices`` lists each rank's device; a device may
     repeat where the backend allows it (gloo: two ranks on one card, whose
     collectives are staged through host memory). By default a NCCL rank
-    takes card ``LOCAL_RANK`` and a gloo rank the CPU. ``spatial`` > 1
-    makes it the (data, spatial) mesh of the world (module docstring),
-    which needs a process group whose size it divides."""
+    takes card ``LOCAL_RANK`` and a gloo rank the CPU. ``model`` M and
+    ``spatial`` S > 1 make it the (data, model, spatial) mesh of the world
+    (module docstring), which needs a process group whose size M S
+    divides."""
     import torch.distributed as dist
 
-    spatial = int(spatial)
+    spatial, model = int(spatial), int(model)
     if not (dist.is_available() and dist.is_initialized()):
-        if n_devices not in (None, 1) or spatial != 1:
-            raise ValueError(f"a mesh of {n_devices} devices (spatial {spatial}) needs a "
-                             "process group (parallel.multihost.initialize_distributed)")
+        if n_devices not in (None, 1) or spatial != 1 or model != 1:
+            raise ValueError(f"a mesh of {n_devices} devices (model {model}, spatial {spatial}) "
+                             "needs a process group (parallel.multihost.initialize_distributed)")
         return Mesh(0, 1, devices[0] if devices else "cpu")
     world, rank = dist.get_world_size(), dist.get_rank()
     if n_devices not in (None, world):
@@ -421,34 +443,63 @@ def create_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = N
         if len(set(cards)) < len(cards):
             raise ValueError("NCCL refuses two ranks on one card; name gloo for that")
     mesh = Mesh(rank, world, device, backend)
-    if spatial != 1:
-        _split_axes(mesh, spatial)
+    if spatial != 1 or model != 1:
+        _split_axes(mesh, spatial, model)
     return mesh
 
 
-def _split_axes(mesh: Mesh, spatial: int) -> None:
-    """Make ``mesh`` (the world) the (data, spatial) mesh: rank r = d S + s.
-    Every rank makes every group (the spatial groups, then the data
-    groups, each in order), as ``dist.new_group`` requires."""
+def _split_axes(mesh: Mesh, spatial: int, model: int = 1) -> None:
+    """Make ``mesh`` (the world) the (data, model, spatial) mesh: rank r =
+    (d M + m) S + s. Every rank makes every group, in one order, as
+    ``dist.new_group`` requires: the spatial groups (S > 1), the model
+    groups (M > 1), the data groups, then the (data, spatial) plane of
+    each model index (where M and S are both > 1; otherwise the plane is
+    the world or the data axis), each family in order of its indices."""
     import torch.distributed as dist
 
     world = mesh.world_size
-    if spatial < 1 or world % spatial:
-        raise ValueError(f"a spatial axis of {spatial} does not divide {world} ranks")
-    data = world // spatial
+    if spatial < 1 or model < 1 or world % (spatial * model):
+        raise ValueError(f"a model axis of {model} and a spatial axis of {spatial} do not "
+                         f"divide {world} ranks")
+    data = world // (spatial * model)
+
+    def rank_of(d: int, m: int, s: int) -> int:
+        return (d * model + m) * spatial + s
+
     made = {}
-    for d in range(data):
-        ranks = [d * spatial + s for s in range(spatial)]
-        made[("spatial", d)] = ranks, dist.new_group(ranks, timeout=mesh.timeout)
-    for s in range(spatial):
-        ranks = [d * spatial + s for d in range(data)]
-        made[("data", s)] = ranks, dist.new_group(ranks, timeout=mesh.timeout)
-    d, s = divmod(mesh.rank, spatial)
-    ranks, group = made[("spatial", d)]
-    mesh.spatial_axis = Mesh(s, spatial, mesh.device, mesh.backend, group, ranks)
-    ranks, group = made[("data", s)]
-    mesh.data_axis = Mesh(d, data, mesh.device, mesh.backend, group, ranks)
-    mesh.spatial = spatial
+
+    def make(key, ranks):
+        made[key] = ranks, dist.new_group(ranks, timeout=mesh.timeout)
+
+    if spatial > 1:
+        for d in range(data):
+            for m in range(model):
+                make(("spatial", d, m), [rank_of(d, m, s) for s in range(spatial)])
+    if model > 1:
+        for d in range(data):
+            for s in range(spatial):
+                make(("model", d, s), [rank_of(d, m, s) for m in range(model)])
+    for m in range(model):
+        for s in range(spatial):
+            make(("data", m, s), [rank_of(d, m, s) for d in range(data)])
+    if model > 1 and spatial > 1:
+        for m in range(model):
+            make(("replica", m), [rank_of(d, m, s) for d in range(data) for s in range(spatial)])
+    d, rest = divmod(mesh.rank, model * spatial)
+    m, s = divmod(rest, spatial)
+
+    def axis(key, rank, size):
+        ranks, group = made[key]
+        return Mesh(rank, size, mesh.device, mesh.backend, group, ranks)
+
+    mesh.data_axis = axis(("data", m, s), d, data)
+    if spatial > 1:
+        mesh.spatial_axis = axis(("spatial", d, m), s, spatial)
+    if model > 1:
+        mesh.model_axis = axis(("model", d, s), m, model)
+        mesh.replica_axis = (axis(("replica", m), d * spatial + s, data * spatial)
+                             if spatial > 1 else mesh.data_axis)
+    mesh.spatial, mesh.model = spatial, model
 
 
 def fold_mesh_shape(k_folds: int, n_devices: int, batch_size: Optional[int] = None

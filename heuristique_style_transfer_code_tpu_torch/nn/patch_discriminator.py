@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.mesh import replicated
+from ..core.mesh import active_bands, replicated
 from ..core.remat import remat_call
 from ..models.gram_attention import MultiheadAttention
 from ..ops.conv import conv2d
@@ -139,6 +139,11 @@ def patch_discriminator_apply(model: PatchDiscriminator, x: torch.Tensor,
             x = _conv_norm_lrelu(layer, x, 2, norm)
     x = _conv_norm_lrelu(model.final, x, 1, norm)
     x = conv2d(x, model.out_conv.weight, 1, 1, model.out_conv.bias)
+    axis = active_bands()
+    if axis is not None:  # the map's f32 mean as one device takes it
+        from ..parallel.spatial import whole_rows
+
+        x = whole_rows(x, axis)
     return x.float().mean(dim=(1, 2)).to(x.dtype)
 
 

@@ -84,10 +84,13 @@ def avg_pool2d(
     (``ops/conv.py:211-244`` of the JAX package): window sums in f32 over
     the count of taps, the padding counted or not, x's dtype back. The
     multi-scale discriminator's downsampler (3, 2, 1,
-    ``count_include_pad=False``). The train variant's, which no banded
-    path runs: under ``core.mesh.bands`` it raises."""
-    if active_bands() is not None:
-        raise NotImplementedError("avg_pool2d has no banded route (--shard_spatial)")
+    ``count_include_pad=False``), the train variant's. Under
+    ``core.mesh.bands`` x is this rank's band (``parallel.spatial.avg_pool2d``)."""
+    axis = active_bands()
+    if axis is not None:
+        from ..parallel import spatial
+
+        return spatial.avg_pool2d(x, kernel_size, stride, padding, count_include_pad, axis)
     y = F.avg_pool2d(x.permute(0, 3, 1, 2).float(), kernel_size, stride, padding,
                      count_include_pad=count_include_pad)
     return y.permute(0, 2, 3, 1).to(x.dtype)

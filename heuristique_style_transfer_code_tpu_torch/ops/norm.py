@@ -48,11 +48,11 @@ def batch_norm(
     data-parallel train step (``core.mesh.activate``) the statistics are
     those of the global batch (``GlobalBatchNorm``, under ``torch.func``
     too: ``--parallel_folds`` over a data axis of several ranks): no rank
-    normalises by its own rows' statistics."""
+    normalises by its own rows' statistics. They reduce over the mesh's
+    (data, spatial) plane (``Mesh.replica_axis``); under ``core.mesh.bands``
+    x is this rank's band of rows of its images, and n is the plane's
+    all-reduced count, since bands may be uneven or empty."""
     if train:
-        if active_bands() is not None:
-            raise NotImplementedError("train-mode batch norm has no banded route "
-                                      "(--shard_spatial)")
         if recomputing():
             mean, var = mean.clone(), var.clone()
         dp = active()
@@ -94,10 +94,14 @@ def _global_batch_norm(x, scale, bias, mean, var, eps, mesh):
     (the mean, and the variance unbiased over the global n), outside the
     Function: under ``vmap`` ``mean`` and ``var`` are each fold's slice of
     the stacked buffers."""
-    y, mu, v = GlobalBatchNorm.apply(x, scale, bias, eps, mesh)
-    n = _global_n(x, mesh)
+    plane = mesh.replica_axis
+    n = _global_n(x, plane)
+    y, mu, v = GlobalBatchNorm.apply(x, scale, bias, eps, plane, n)
     mean.mul_(1.0 - MOMENTUM).add_(mu.detach() * MOMENTUM)
-    var.mul_(1.0 - MOMENTUM).add_(v.detach() * (MOMENTUM * n / max(n - 1, 1)))
+    if torch.is_tensor(n):
+        var.mul_(1.0 - MOMENTUM).add_(v.detach() * (MOMENTUM * n / (n - 1).clamp_min(1)))
+    else:
+        var.mul_(1.0 - MOMENTUM).add_(v.detach() * (MOMENTUM * n / max(n - 1, 1)))
     return y
 
 
@@ -109,19 +113,26 @@ def _per_channel(t: torch.Tensor) -> torch.Tensor:
     return t[..., None, None, None, :]
 
 
-def _global_n(x: torch.Tensor, mesh) -> float:
-    """The entries a channel's statistics cover: N H W of a rank's rows
-    times the ranks (every rank holds B / N rows)."""
-    return float(x.shape[-4] * x.shape[-3] * x.shape[-2] * mesh.world_size)
+def _global_n(x: torch.Tensor, mesh):
+    """The entries a channel's statistics cover over ``mesh`` (the
+    plane): N H W of a rank's rows times the ranks, every rank holding
+    B / N rows of whole images; under ``core.mesh.bands``, where a rank's
+    band may be shorter or empty, the all-reduced sum of the ranks' N h W,
+    a one-element tensor in the statistics' dtype."""
+    local = x.shape[-4] * x.shape[-3] * x.shape[-2]
+    if active_bands() is None:
+        return float(local * mesh.world_size)
+    ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    (n,) = mesh.all_reduce([torch.full((1,), float(local), dtype=ctype, device=x.device)])
+    return n
 
 
-def _bn_forward(x, scale, bias, eps, mesh):
-    """(y, mean, biased variance) of the global batch: the per-channel sums
-    of every leading fold in one all-reduce, then their centred sums of
-    squares in another."""
+def _bn_forward(x, scale, bias, eps, mesh, n):
+    """(y, mean, biased variance) of the global batch of ``n`` entries a
+    channel: the per-channel sums of every leading fold in one all-reduce,
+    then their centred sums of squares in another."""
     ctype = torch.float64 if x.dtype == torch.float64 else torch.float32
     xc = x.to(ctype)
-    n = _global_n(x, mesh)
     (s,) = mesh.all_reduce([xc.sum(dim=_STAT_DIMS)])
     mu = s / n
     centred = xc - _per_channel(mu)
@@ -132,7 +143,7 @@ def _bn_forward(x, scale, bias, eps, mesh):
     return y.to(x.dtype), mu, v
 
 
-def _bn_backward(dy, x, scale, mu, v, eps, mesh):
+def _bn_backward(dy, x, scale, mu, v, eps, mesh, n):
     """(dx, dscale, dbias): the per-channel sums of dy and dy x̂ of every
     leading fold in one all-reduce; the scale's and bias's gradients this
     rank's partial sums."""
@@ -143,7 +154,6 @@ def _bn_backward(dy, x, scale, mu, v, eps, mesh):
     sum_dy = dyc.sum(dim=_STAT_DIMS)
     sum_dy_xhat = (dyc * xhat).sum(dim=_STAT_DIMS)
     g_dy, g_dy_xhat = mesh.all_reduce([sum_dy, sum_dy_xhat])
-    n = _global_n(x, mesh)
     dx = _per_channel(scale.to(ctype) * invstd) * (
         dyc - _per_channel(g_dy / n) - xhat * _per_channel(g_dy_xhat / n))
     return dx.to(x.dtype), sum_dy_xhat.to(scale.dtype), sum_dy.to(scale.dtype)
@@ -152,8 +162,10 @@ def _bn_backward(dy, x, scale, mu, v, eps, mesh):
 class GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of a data-parallel step
     (the JAX package's ``batch_norm(train=True)`` on an array sharded over
-    ``data``, ``ops/norm.py:51-65``), on each rank's NHWC rows:
-    ``apply(x, scale, bias, eps, mesh) -> (y, mean, biased variance)``.
+    ``data``, ``ops/norm.py:51-65``), on each rank's NHWC rows (or band
+    of rows): ``apply(x, scale, bias, eps, mesh, n) -> (y, mean, biased
+    variance)``, ``n`` the entries a channel's statistics cover
+    (``_global_n``).
 
     Forward, two-pass as JAX's (the mean first, then the mean of squared
     deviations, which stays accurate where the mean is large next to the
@@ -170,38 +182,39 @@ class GlobalBatchNorm(torch.autograd.Function):
     a norm costs two collectives forward and one backward whatever K."""
 
     @staticmethod
-    def forward(x, scale, bias, eps, mesh):
-        return _bn_forward(x, scale, bias, eps, mesh)
+    def forward(x, scale, bias, eps, mesh, n):
+        return _bn_forward(x, scale, bias, eps, mesh, n)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, scale, _, eps, mesh = inputs
+        x, scale, _, eps, mesh, n = inputs
         _, mu, v = output
         ctx.save_for_backward(x, scale, mu, v)
-        ctx.eps, ctx.mesh = eps, mesh
+        ctx.eps, ctx.mesh, ctx.n = eps, mesh, n
         ctx.mark_non_differentiable(mu, v)
 
     @staticmethod
     def backward(ctx, dy, _dmu, _dv):
         x, scale, mu, v = ctx.saved_tensors
-        dx, dscale, dbias = GlobalBatchNormGrad.apply(dy, x, scale, mu, v, ctx.eps, ctx.mesh)
-        return dx, dscale, dbias, None, None
+        dx, dscale, dbias = GlobalBatchNormGrad.apply(dy, x, scale, mu, v, ctx.eps, ctx.mesh,
+                                                      ctx.n)
+        return dx, dscale, dbias, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, scale, bias, eps, mesh):
+    def vmap(info, in_dims, x, scale, bias, eps, mesh, n):
         k = info.batch_size
         x, scale, bias = (_leading(t, d, k) for t, d in zip((x, scale, bias), in_dims))
-        return _bn_forward(x, scale, bias, eps, mesh), (0, 0, 0)
+        return _bn_forward(x, scale, bias, eps, mesh, n), (0, 0, 0)
 
 
 class GlobalBatchNormGrad(torch.autograd.Function):
     """``GlobalBatchNorm``'s backward as a Function of its own, so that
     ``vmap`` reaches it with every fold of the rank at once: ``apply(dy,
-    x, scale, mean, var, eps, mesh) -> (dx, dscale, dbias)``."""
+    x, scale, mean, var, eps, mesh, n) -> (dx, dscale, dbias)``."""
 
     @staticmethod
-    def forward(dy, x, scale, mu, v, eps, mesh):
-        return _bn_backward(dy, x, scale, mu, v, eps, mesh)
+    def forward(dy, x, scale, mu, v, eps, mesh, n):
+        return _bn_backward(dy, x, scale, mu, v, eps, mesh, n)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -212,10 +225,10 @@ class GlobalBatchNormGrad(torch.autograd.Function):
         raise NotImplementedError("the global batch norm has no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, dy, x, scale, mu, v, eps, mesh):
+    def vmap(info, in_dims, dy, x, scale, mu, v, eps, mesh, n):
         k = info.batch_size
         args = (_leading(t, d, k) for t, d in zip((dy, x, scale, mu, v), in_dims))
-        return _bn_backward(*args, eps, mesh), (0, 0, 0)
+        return _bn_backward(*args, eps, mesh, n), (0, 0, 0)
 
 
 def _leading(t: torch.Tensor, dim: Optional[int], k: int) -> torch.Tensor:

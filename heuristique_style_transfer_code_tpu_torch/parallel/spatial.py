@@ -35,7 +35,12 @@ activation an op sees is this rank's band of rows of its image.
   summed, divided by the image's H·W; ``gram_bwd`` on the band), and the
   instance norm (``BandInstanceNorm``: the four band entry points of K3
   and K3′, their small per-(image, channel) partials exchanged and merged
-  in rank order).
+  in rank order); in training (``parallel/sharding.make_sharded_train_step``
+  on a 3-D mesh) the batch norm (``ops.norm.GlobalBatchNorm`` over the
+  mesh's (data, spatial) plane) and, for the family-3 train variant's
+  f32 islands, ``WholeRows``: its 3-channel downsampler
+  (``avg_pool2d``) and its patch map's mean run on the whole map
+  gathered from the bands, so that their f32 sums are the one device's.
 
 Every op keeps its output connected to its input, an empty band's too, so
 the autograd graph, and with it the order of the collectives in the
@@ -48,7 +53,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.mesh import Mesh
+from ..core.mesh import Mesh, replicated
 from ..ops.kernels._library import call
 
 Rows = Tuple[int, int]
@@ -234,8 +239,9 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, stride, padding, bias, axis: M
         xh, rows = x, x.shape[1]
     else:
         xh, rows = halo(x, axis, kh, sh, ph, 0.0)
-    if rows == 0:
-        return _connected_empty(xh, (n, 0, w_out, weight.shape[0]))
+    if rows == 0:  # connected to the weights too: a train step differentiates them
+        y = _connected_empty(xh, (n, 0, w_out, weight.shape[0])) + weight.sum() * 0
+        return y if bias is None else y + bias.sum() * 0
     y = F.conv2d(xh.permute(0, 3, 1, 2), weight.to(x.dtype), b, stride=(sh, sw),
                  padding=(0, pw))
     return y.permute(0, 2, 3, 1)
@@ -387,6 +393,43 @@ def instance_norm(x: torch.Tensor, eps: float, relu: bool, axis: Mesh) -> torch.
     n, h, w, c = x.shape
     return BandInstanceNorm.apply(x.reshape(n, h * w, c), float(eps), bool(relu),
                                   axis).reshape(n, h, w, c)
+
+
+class WholeRows(torch.autograd.Function):
+    """``apply(band, axis)``: the whole NHWC maps from every member's band
+    (``gather_canvas``); backward the sum over the group of the whole
+    maps' gradients (in member order), of which this rank keeps its
+    band's rows."""
+
+    @staticmethod
+    def forward(ctx, band, axis):
+        whole = gather_canvas(band, axis)
+        ctx.axis = axis
+        ctx.rows = row_split(whole.shape[1], axis.world_size)[axis.rank]
+        return whole
+
+    @staticmethod
+    def backward(ctx, g):
+        (total,) = ctx.axis.sum_in_order([g.contiguous()])
+        lo, hi = ctx.rows
+        return total[:, lo:hi].contiguous(), None
+
+
+def whole_rows(x: torch.Tensor, axis: Mesh) -> torch.Tensor:
+    return WholeRows.apply(x, axis)
+
+
+def avg_pool2d(x: torch.Tensor, kernel_size, stride, padding, count_include_pad: bool,
+               axis: Mesh) -> torch.Tensor:
+    """``ops.conv.avg_pool2d`` (f32 window sums) on this rank's band: the
+    pool of the whole maps (``WholeRows``), whose output band this rank
+    keeps. The multi-scale downsampler reads the 3-channel image."""
+    from ..ops.conv import avg_pool2d as pool
+
+    with replicated():
+        y = pool(whole_rows(x, axis), kernel_size, stride, padding, count_include_pad)
+    start, stop = row_split(y.shape[1], axis.world_size)[axis.rank]
+    return y[:, start:stop]
 
 
 def band_of(x: torch.Tensor, axis: Mesh) -> torch.Tensor:

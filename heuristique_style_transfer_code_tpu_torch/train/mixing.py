@@ -65,7 +65,7 @@ def roll_partner_global(mesh, n_accum: int, images: torch.Tensor, labels: torch.
     """``roll_partner`` of the global batch, at this rank's rows: the
     global batch gathered (``Mesh.gather_rows``), then row ``(i - shift)
     mod B`` for each of this rank's global rows i."""
-    b = images.shape[0] * mesh.world_size
+    b = images.shape[0] * mesh.data_axis.world_size
     rows = torch.as_tensor(mesh.rows(b, n_accum), device=images.device)
     src = torch.remainder(rows - shift, b)
     return (mesh.gather_rows(images, n_accum)[src],
@@ -118,7 +118,7 @@ def make_mix_fn(mixup_alpha: Optional[float] = None, cutmix_alpha: Optional[floa
         b, h, w = images.shape[0], images.shape[1], images.shape[2]
         dp = active()
         if dp is not None:
-            b *= dp[0].world_size
+            b *= dp[0].data_axis.world_size
         cut, lam, shift, cy, cx = mix_draws(key, b, h, w, use_mixup, use_cutmix,
                                             mixup_alpha, cutmix_alpha, switch_prob)
         if dp is not None:

@@ -24,6 +24,20 @@ rank's shards with the same arithmetic, and all-gathers the parameters.
 ``full_state`` gathers such a state for a save; ``load_full_state`` takes
 each rank's shards from a whole one, so a run saved under one device
 count resumes under another.
+
+On a mesh with a model or spatial axis (``parallel/sharding.py``'s
+factories) the plain update reduces the gradients over the rank's (data,
+spatial) plane (``Mesh.replica_axis``), where the ranks' partial
+gradients of every leaf are; ZeRO-1 splits the state over the data axis
+(``Zero1Layout``: the gradients summed over the spatial axis first), and
+the clip's global norm adds the squares of a head split over the model
+axis (``parallel/tensor_parallel.py``) over that axis. ``shard_state``
+puts a whole state into the ZeRO-1 layout, and with ``fsdp`` the split
+parameters too (FSDP, ZeRO-3): between steps they hold only this rank's
+shards, ``gather_params`` puts the whole tensors back for a step's
+forward and backward, and the update (a reduce-scatter of the gradients
+into the shards, the shards' update) releases them again; ``full_params``
+gathers a copy of the model for evaluation and checkpoints.
 """
 from __future__ import annotations
 
@@ -77,9 +91,11 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
     A frozen parameter never moves, so its average would be its init,
     which is its live value: the state keeps none for it. A decay outside
     (0, 1) raises JAX's ValueError. ``mesh`` (a ``core.mesh.Mesh``) makes
-    ``update`` reduce each rank's gradients over it; ``zero1`` shards the
-    state over it (no effect on one device, as in JAX)."""
+    ``update`` reduce each rank's gradients over it (its (data, spatial)
+    plane); ``zero1`` shards the state over its data axis (no effect on
+    one device, as in JAX). ``update.mesh`` is ``mesh``."""
     from ..core.mesh import data_parallel
+    from ..parallel.tensor_parallel import split_leaves
 
     dp = data_parallel(mesh)
     if ema_decay is not None:
@@ -95,14 +111,11 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
         if ema_decay is not None:
             # a real copy: the update writes the parameters in place
             state["ema"] = {n: p.detach().clone() for n, p in train}
+        split = [n for n in split_leaves(model) if n in state["trace"]]
+        if split:
+            state["model_split"] = split
         if zero1 and dp is not None:
-            from ..parallel.sharding import Zero1Layout
-
-            layout = Zero1Layout(dp, {n: p.shape for n, p in train})
-            for part in ("trace", "ema"):
-                if part in state:
-                    state[part] = {n: layout.shard(n, t) for n, t in state[part].items()}
-            state["zero1"] = layout
+            shard_state(model, state, dp)
         return state
 
     def update(model: torch.nn.Module, grads: Dict[str, torch.Tensor], state: dict) -> None:
@@ -117,9 +130,10 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
                 return
             gs = [grads[n] for n in names]
             if dp is not None:  # one all-reduce a dtype
-                gs = dp.all_reduce(gs)
+                gs = dp.replica_axis.all_reduce(gs)
             if clip_norm is not None:
-                norm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
+                norm = _global_norm(dict(zip(names, gs)), (), state.get("model_split", ()),
+                                    None, dp.model_axis if dp is not None else None)
                 gs = [torch.where(norm < clip_norm, g, g / norm * clip_norm) for g in gs]
             for n, g in zip(names, gs):
                 trace = state["trace"][n]
@@ -176,9 +190,8 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
         shards, whole = layout.scatter_gradients({n: grads[n] for n in names})
         gs = {**shards, **whole}
         if clip_norm is not None:
-            mine = sum(torch.sum(g * g) for g in shards.values()) if shards else None
-            sq = layout.mesh.all_reduce([mine])[0] if mine is not None else 0.0
-            norm = torch.sqrt(sq + sum(torch.sum(g * g) for g in whole.values()))
+            norm = _global_norm({**shards, **whole}, shards, state.get("model_split", ()),
+                                layout.mesh, dp.model_axis if dp is not None else None)
             gs = {n: torch.where(norm < clip_norm, g, g / norm * clip_norm)
                   for n, g in gs.items()}
         for n in names:
@@ -190,12 +203,83 @@ def sgd_momentum(learning_rate, momentum: float = MOMENTUM,
             torch._foreach_mul_(emas, ema_decay)
             torch._foreach_add_(emas, torch._foreach_mul(
                 [layout.part(n, params[n]) for n in state["ema"]], 1.0 - ema_decay))
+        if state.get("fsdp"):  # keep the shards, release the whole tensors
+            for n in layout.sharded:
+                params[n].data = layout.shard(n, params[n].data)
+            return
         for n, t in layout.gather({n: layout.part(n, params[n])
                                    for n in layout.sharded}).items():
             params[n].copy_(t)
 
     update.folds = update_folds
+    update.mesh = mesh
     return init, update
+
+
+def _global_norm(gs: Dict[str, torch.Tensor], over_data, over_model, data_axis, model_axis):
+    """The global norm of the gradients ``gs`` ({name: this rank's
+    tensor}): the squares of the leaves in ``over_data`` (ZeRO-1 shards)
+    summed over ``data_axis``, then those of the leaves in ``over_model``
+    (heads split over the model axis) over ``model_axis``."""
+    sums = {}
+    for n, g in gs.items():
+        key = (n in over_data, n in over_model)
+        sums[key] = sums.get(key, 0.0) + torch.sum(g * g)
+    keys = [k for k in ((True, False), (True, True)) if k in sums]
+    for k, t in zip(keys, data_axis.all_reduce([sums[k] for k in keys]) if keys else ()):
+        sums[k] = t
+    keys = [k for k in ((False, True), (True, True)) if k in sums]
+    for k, t in zip(keys, model_axis.all_reduce([sums[k] for k in keys]) if keys else ()):
+        sums[k] = t
+    terms = [sums[k] for k in ((True, False), (False, False), (False, True), (True, True))
+             if k in sums]
+    return torch.sqrt(sum(terms[1:], terms[0]) if terms else torch.zeros(()))
+
+
+def shard_state(model: torch.nn.Module, opt_state: dict, mesh, fsdp: bool = False) -> dict:
+    """A whole ``sgd_momentum`` state put into the ZeRO-1 layout over
+    ``mesh``'s data axis, in place (``parallel.sharding.Zero1Layout`` of
+    the trainable leaves): the trace and the EMA keep this rank's shards.
+    With ``fsdp`` the split parameters of ``model`` too (their whole
+    tensors released), and the update keeps them so."""
+    from ..parallel.sharding import Zero1Layout
+
+    params = dict(model.named_parameters())
+    layout = Zero1Layout(mesh, {n: params[n].shape for n in opt_state["trace"]})
+    with torch.no_grad():
+        for part in ("trace", "ema"):
+            if part in opt_state:
+                opt_state[part] = {n: layout.shard(n, t) for n, t in opt_state[part].items()}
+        if fsdp:
+            for n in layout.sharded:
+                params[n].data = layout.shard(n, params[n].data)
+    opt_state["zero1"] = layout
+    if fsdp:
+        opt_state["fsdp"] = True
+    return opt_state
+
+
+def gather_params(model: torch.nn.Module, opt_state: dict) -> None:
+    """An FSDP state's split parameters made whole in place (one
+    all-gather; every rank calls it), for a step's forward and backward."""
+    if not opt_state.get("fsdp"):
+        return
+    layout = opt_state["zero1"]
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, t in layout.gather({n: params[n].data for n in layout.sharded}).items():
+            params[n].data = t
+
+
+def full_params(model: torch.nn.Module, opt_state: dict) -> torch.nn.Module:
+    """The model with whole parameters, for evaluation and checkpoints: a
+    copy gathered from an FSDP state's shards (a collective: every rank
+    calls it), else ``model`` itself."""
+    if not opt_state.get("fsdp"):
+        return model
+    out = copy.deepcopy(model)
+    gather_params(out, opt_state)
+    return out
 
 
 def full_state(opt_state: dict) -> dict:
@@ -241,7 +325,8 @@ def extract_ema_variables(model: torch.nn.Module, opt_state) -> torch.nn.Module:
     ema = find_ema_state(opt_state)
     if ema is None:
         return model
-    out = copy.deepcopy(model)
+    out = full_params(model, opt_state)
+    out = copy.deepcopy(model) if out is model else out
     params = dict(out.named_parameters())
     with torch.no_grad():
         for n, t in ema.items():

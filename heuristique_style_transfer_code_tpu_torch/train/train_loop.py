@@ -28,6 +28,17 @@ all padding contributes nothing. The optimiser's ``update`` reduces the
 gradients (``train/optim.py``): one reduction a step, also under
 ``--grad_accum``. The model is not wrapped in DDP: the loss's global
 count and the hand-written optimiser need the reduction written out.
+
+On a mesh with a model or a spatial axis (``core.mesh.create_mesh(model=,
+spatial=)``, ``parallel/sharding.py``'s factories) the ranks of a model
+or spatial group hold the same rows: the NLL sum and the valid count are
+all-reduced over the data axis only, and the optimiser reduces the
+gradients over the (data, spatial) plane of the rank's model index. On a
+spatial axis of S ranks the augmentation (and the mixing) runs on the
+rank's whole rows, then the rank keeps its band of their rows and runs
+the forward under ``core.mesh.bands``; each rank differentiates the
+replicated loss divided by S (``parallel/spatial.py``'s convention), so
+that one sum over the plane gives every leaf its whole gradient.
 """
 from __future__ import annotations
 
@@ -36,7 +47,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..core.mesh import activate, data_parallel, gather_valid
+from ..core.mesh import activate, bands, data_parallel, gather_valid
 from ..data.augment import eval_preprocess
 from ..utils.debug import check_nan
 
@@ -82,11 +93,13 @@ def _mixed(mix_fn, images, labels, mix_key):
 
 def _global_loss(dp, nll: torch.Tensor, cnt: torch.Tensor):
     """(this rank's share of the global loss, for its gradients; the
-    global loss): its NLL sum and the global one over the global valid
-    count."""
-    g_nll, g_cnt = dp.all_reduce([nll.detach(), cnt])
+    global loss): its NLL sum and the global one (over the data axis) over
+    the global valid count; on a spatial axis of S ranks, which hold the
+    same logits, the share is divided by S."""
+    g_nll, g_cnt = dp.data_axis.all_reduce([nll.detach(), cnt])
     denom = g_cnt.clamp_min(1.0)
-    return nll / denom, g_nll / denom
+    mine = nll / denom
+    return (mine / dp.spatial if dp.spatial > 1 else mine), g_nll / denom
 
 
 def _mixed_nll(logits, labels_a, labels_b, lam, label_smoothing):
@@ -114,9 +127,15 @@ def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callabl
     or tensors. ``mix_fn`` mixes the augmented batch (the JAX ``:86-103``)
     with the draws of ``mix_key``. On a ``mesh`` of several ranks the
     arguments are this rank's rows and the loss is the global one (module
-    docstring)."""
+    docstring); on a spatial axis each rank's arguments are still its whole
+    rows, of which it cuts its band after the augmentation."""
     _, update = optimizer
     dp = data_parallel(mesh)
+    cut = None
+    if dp is not None and dp.spatial > 1:
+        from ..parallel.spatial import band_of
+
+        cut = lambda images: band_of(images, dp.spatial_axis)  # noqa: E731
 
     def step(model, opt_state, images_u8, labels, combos=None, draws=None, mix_key=None):
         params = dict(model.named_parameters())
@@ -126,7 +145,10 @@ def make_train_step_body(forward_train: Callable, optimizer, augment_fn: Callabl
             images = augment_fn(torch.as_tensor(images_u8).to(device), combos, draws)
             images, labels_a, labels_b, lam = _mixed(mix_fn, images, _labels_on(labels, device),
                                                      mix_key)
-            logits = forward_train(model, images)
+            if cut is not None:
+                images = cut(images)
+            with bands(dp):
+                logits = forward_train(model, images)
             if dp is None:
                 loss = masked_cross_entropy(logits, labels_a, label_smoothing)
                 if lam is not None:
@@ -169,12 +191,15 @@ def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callab
     On a ``mesh`` each rank holds its block of every micro-batch
     (``core.mesh.local_rows``), so a micro-batch's statistics are the
     single-device micro-batch's; the NLL sums and counts are all-reduced
-    once after the last micro-batch, and the optimiser reduces the summed
-    gradients once.
+    once after the last micro-batch (over the data axis), and the
+    optimiser reduces the summed gradients once. A mesh with a spatial
+    axis raises: the step cuts no bands.
     """
     _, update = optimizer
     n_accum = int(n_accum)
     dp = data_parallel(mesh)
+    if dp is not None and dp.spatial > 1:
+        raise NotImplementedError("the gradient-accumulation step has no spatial axis")
 
     def step(model, opt_state, images_u8, labels, combos=None, draws=None, mix_key=None):
         params = dict(model.named_parameters())
@@ -199,7 +224,7 @@ def make_train_step_accum(forward_train: Callable, optimizer, augment_fn: Callab
                 nll_sum = nll_sum + nll.detach()
                 cnt_sum = cnt_sum + cnt
         if dp is not None:
-            nll_sum, cnt_sum = dp.all_reduce([nll_sum, cnt_sum])
+            nll_sum, cnt_sum = dp.data_axis.all_reduce([nll_sum, cnt_sum])
         denom = cnt_sum.clamp_min(1.0)
         update(model, {n: g / denom for n, g in zip(names, g_sum)}, opt_state)
         return model, opt_state, nll_sum / denom

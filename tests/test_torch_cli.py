@@ -223,7 +223,8 @@ def test_port_and_chip_smoke_import_no_jax():
                    "tasks/serving.py", "tasks/serving_http.py", "cli/serve.py",
                    "tasks/recycling.py", "deploy/artifact.py", "native/__init__.py",
                    "parallel/__init__.py", "parallel/foldparallel.py", "core/mesh.py",
-                   "parallel/multihost.py", "parallel/sharding.py"):
+                   "parallel/multihost.py", "parallel/sharding.py",
+                   "parallel/tensor_parallel.py"):
         assert os.path.join(PORT, module) in files, module
     bad = []
     for path in files:
