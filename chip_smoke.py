@@ -385,6 +385,17 @@ Phases, all run every time:
                   replicated leaves bit-equal on both ranks, K2/K2' 3 + 3
                   a step on each rank; images/s, peak memory and the
                   bytes a rank stores.
+                  On the same two ranks, sharded checkpoints
+                  (``checkpoint/sharded_io.py``): family 2 at its defaults
+                  under FSDP, the state after step 2 saved by the
+                  asynchronous writer while step 3 runs, each rank's
+                  reload bit-equal, the checkpoint resumed on one device
+                  in the parent, its step 3 within 1e-4 of the ranks'
+                  (elastic 2 -> 1); bytes a rank wrote, submit-to-commit
+                  and load seconds. And the loader's multi-host stride
+                  (``HostLoader(process_index=, process_count=)``,
+                  ``global_batch_dict``): one family-2 step of the two
+                  ranks against one device on their batches concatenated.
                   On the same two ranks, the evaluation paths of
                   ``--devices N`` through the evaluation CLIs' task
                   functions on 63 PNGs (``cli/_common.eval_loader``, a
@@ -778,6 +789,28 @@ PFM_CASES, PFM_STEPS = ((2, 2, 1), (3, 1, 2)), 2
 MA_CASES = (("tp", "2d", "sharded"), ("fsdp", "data", "fsdp"), ("3d", "3d", "sharded"),
             ("3d_zero1", "3d", "zero1"))
 MA_STEPS = 2
+# data_parallel's sharded-checkpoint case (checkpoint/sharded_io.py) on the
+# same two ranks: family 2 at its config defaults (b{DP_BATCH} global, 224
+# crop, S 7, f32) under FSDP on a data mesh of 2, from the data_parallel
+# runs' seeded weights and batches, under cuDNN's deterministic algorithms.
+# After step 2 each rank submits its state tree to
+# make_async_sharded_writer and runs step 3 at once, then waits; the state
+# after step 3 goes to a second directory, synchronously. Each rank reloads
+# the first under its own layout, bit-equal to the host copy it kept before
+# step 3. The parent restores the first, read whole, into a one-device
+# model and state on the card, runs step 3 on the same global batch and
+# holds its loss and its parameter, statistics and momentum trees within
+# DP_TOL of the second (the elastic handoff 2 -> 1). K2/K2' 3 + 3 a step
+# on each rank (3 steps) and in the resumed step.
+SC_STEPS = 3
+# data_parallel's loader-stride case: each rank draws the first batch of
+# HostLoader(process_index=its data index, process_count=2) over the
+# evaluation cases' 63 PNGs (shuffled, seed SC_SEED, b{DP_BATCH} // 2 a
+# rank), takes it through global_batch_dict and runs one plain
+# data-parallel family-2 step on it; the parent runs one device on the two
+# local batches concatenated: the loss and the trees within DP_TOL, K2/K2'
+# 3 + 3 on each rank and on one device.
+SC_SEED = 127
 # data_parallel's evaluation cases (``--devices N`` on the evaluation CLIs'
 # task functions, ``_eval_runs``) on the same two ranks: family 1 (full
 # width) at b{DPE_F1_BATCH}, family 2 (truncate 8, S 7) at b{DPE_F2_BATCH},
@@ -6908,6 +6941,128 @@ def _model_axis_runs(world) -> dict:
     return runs
 
 
+def _f2_defaults(mesh=None):
+    """Family 2 at its config defaults (truncate 7, S 7, b{DP_BATCH}) as the
+    data_parallel runs build it, on ``mesh`` (None: one device)."""
+    from heuristique_style_transfer_code_tpu_torch.config.schema import GramAttentionConfig
+    from heuristique_style_transfer_code_tpu_torch.train.factories import setup_gram_attention
+
+    cfg = GramAttentionConfig(batch_size=DP_BATCH, lr=DP_LR, truncate_layer=F2T_TRUNCATE,
+                              gram_matrix_size=F2T_S, seed=0)
+    return setup_gram_attention(cfg, 4, [(None, None)], device=DEVICE, mesh=mesh)
+
+
+def _sharded_ckpt_runs(world, out_dir: str) -> dict:
+    """The data_parallel phase's sharded-checkpoint case on this rank (see
+    SC_STEPS): FSDP on ``world``, the asynchronous save after step 2 while
+    step 3 runs, the synchronous save after step 3, the reload against
+    the copy kept before step 3; losses, launches, seconds, bytes."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint import sharded_io
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.parallel import sharding
+    from heuristique_style_transfer_code_tpu_torch.train.optim import sgd_momentum
+
+    t_case = time.perf_counter()
+    setup = _f2_defaults()
+    u8, labels = _dp_batches()
+
+    def fsdp(seed):
+        model, _ = setup.init(torch.Generator().manual_seed(seed))
+        opt = sgd_momentum(DP_LR, mesh=world)
+        state = opt[0](model)
+        step, _, _ = sharding.make_fsdp_train_step(setup._forward_train, opt, setup._augment,
+                                                   world, model, state)
+        return model, state, step
+
+    def local(model, state):
+        out = {f"variables/{k}": v for k, v in model.state_dict().items()}
+        out.update({f"trace/{k}": v for k, v in state["trace"].items()})
+        return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+    mid, fin = os.path.join(out_dir, "sharded_mid"), os.path.join(out_dir, "sharded_fin")
+    model, state, step = fsdp(111)
+    losses, seconds = [], {}
+    with _deterministic_cudnn():
+        kernels.reset_launch_counts()
+        for i in range(SC_STEPS - 1):
+            model, state, loss = step(model, state, world.local(u8[i]), world.local(labels[i]))
+            losses.append(float(loss))
+        kept = local(model, state)
+        writer = sharded_io.make_async_sharded_writer()
+        t0 = time.perf_counter()
+        writer.submit(sharded_io.state_tree(model, state, world), mid)
+        seconds["submit"] = time.perf_counter() - t0
+        model, state, loss = step(model, state, world.local(u8[SC_STEPS - 1]),
+                                  world.local(labels[SC_STEPS - 1]))
+        losses.append(float(loss))  # the global loss: a sync
+        seconds["submit_to_step_end"] = time.perf_counter() - t0
+        writer.close()
+        seconds["submit_to_commit"] = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        t0 = time.perf_counter()
+        sharded_io.save_sharded_pytree(sharded_io.state_tree(model, state, world), fin)
+        seconds["sync_save"] = time.perf_counter() - t0
+    fresh, fresh_state, _ = fsdp(5)
+    t0 = time.perf_counter()
+    sharded_io.load_state(mid, fresh, fresh_state)
+    seconds["load"] = time.perf_counter() - t0
+    got = local(fresh, fresh_state)
+    equal = got.keys() == kept.keys() and all(torch.equal(got[k], kept[k]) for k in kept)
+    stored = sum(t.numel() * t.element_size() for t in kept.values())
+    return {"losses": losses, "launches": launches, "seconds": seconds,
+            "reload_equal": bool(equal), "count": fresh_state["count"],
+            "bytes_written": os.path.getsize(os.path.join(mid, f"shards_p{world.rank:05d}.npz")),
+            "bytes_held": stored, "case_s": time.perf_counter() - t_case}
+
+
+def _stride_batch(data_root: str, index: int, count: int) -> dict:
+    """The first batch of process ``index`` of ``count`` of the loader's
+    stride over the evaluation cases' test split (see SC_SEED)."""
+    from heuristique_style_transfer_code_tpu_torch.data.imagefolder import ImageFolderIndex
+    from heuristique_style_transfer_code_tpu_torch.data.loader import HostLoader
+
+    loader = HostLoader(ImageFolderIndex(os.path.join(data_root, "test")).samples,
+                        DP_BATCH // count, shuffle=True, seed=SC_SEED, process_index=index,
+                        process_count=count)
+    batches = iter(loader)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
+def _stride_run(world, data_root: str) -> dict:
+    """The data_parallel phase's loader-stride case on this rank: its
+    stride's first batch through ``global_batch_dict``, one plain
+    data-parallel family-2 step; the loss, the tree after it, the batch's
+    indices and the launches."""
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+    from heuristique_style_transfer_code_tpu_torch.parallel.multihost import global_batch_dict
+    from heuristique_style_transfer_code_tpu_torch.parallel.sharding import (
+        batch_sharding,
+        image_sharding,
+    )
+
+    t_case = time.perf_counter()
+    batch = _stride_batch(data_root, world.data_index, world.data_axis.world_size)
+    g = global_batch_dict(batch, image_sharding(world), batch_sharding(world))
+    setup = _f2_defaults(world)
+    model, opt = setup.init(torch.Generator().manual_seed(111))
+    with _deterministic_cudnn():
+        kernels.reset_launch_counts()
+        model, opt, loss = setup.train_step(model, opt, g["image"], g["label"])
+        loss = float(loss)
+        launches = kernels.launch_counts()
+    return {"loss": loss, "tree": to_jax_tree(model), "indices": batch["indices"].tolist(),
+            "n_valid": batch["n_valid"], "launches": launches,
+            "case_s": time.perf_counter() - t_case}
+
+
 def _dp_runs(mesh, profile: bool = False, reverse: bool = False,
              names=("f2", "f2_zero1", "f3_instance")) -> dict:
     """The data_parallel phase's runs on ``mesh`` (None: one rank): family
@@ -7131,6 +7286,167 @@ def _check_model_axis(ranks, trees, one, spread, launches_total: dict, smi: str)
                      "whole_bytes": r0["whole_bytes"], "seconds": r0["seconds"],
                      "case_s": [rk["model_axis"][name]["case_s"] for rk in ranks]}
     return out
+
+
+def _rel_l2(got: dict, want: dict, keys) -> float:
+    """Relative L2 gap of the leaves ``keys`` of two flat trees."""
+    import numpy as np
+
+    num = sum(float(np.sum(np.square(np.asarray(got[k], np.float64) - want[k]))) for k in keys)
+    den = sum(float(np.sum(np.square(np.asarray(want[k], np.float64)))) for k in keys)
+    return float(np.sqrt(num / max(den, 1e-300)))
+
+
+def _check_sharded_ckpt(ranks, dp_dir: str, launches_total: dict, smi: str) -> dict:
+    """The sharded-checkpoint case (see SC_STEPS): the ranks' reloads, their
+    launches and bytes; then the first checkpoint, read whole, resumed on
+    one device here: step 3 against the ranks' second checkpoint."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint import sharded_io
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+
+    runs = [rk["sharded"] for rk in ranks]
+    stages = F2T_TRUNCATE - 4
+    want = {k: 0 for k in runs[0]["launches"]}
+    want.update({"pooled_gram_fwd": stages * SC_STEPS, "pooled_gram_bwd": stages * SC_STEPS})
+    per_rank = [run["launches"] for run in runs]
+    for rl in per_rank:
+        for k, v in rl.items():
+            launches_total[k] += v
+    mid, fin = os.path.join(dp_dir, "sharded_mid"), os.path.join(dp_dir, "sharded_fin")
+    setup = _f2_defaults()
+    u8, labels = _dp_batches()
+    t0 = time.perf_counter()
+    whole = sharded_io.load_sharded_pytree(mid)
+    load_s = time.perf_counter() - t0
+
+    def resumed(rows):
+        """Step 3 on one device from the checkpoint, on the batch's
+        ``rows``: (loss, trace tree, variables tree, launches)."""
+        model, state = setup.init(torch.Generator().manual_seed(7))
+        sharded_io.restore_state(model, state, whole)
+        with _deterministic_cudnn():
+            kernels.reset_launch_counts()
+            model, state, loss = setup.train_step(model, state, u8[SC_STEPS - 1][rows],
+                                                  labels[SC_STEPS - 1][rows])
+            loss = float(loss)
+            launches = kernels.launch_counts()
+        return (loss, _flat_tree(to_jax_tree(model, state["trace"])),
+                _flat_tree(to_jax_tree(model)), launches)
+
+    rows = np.arange(DP_BATCH)
+    loss, got_t, got_v, one_launches = resumed(rows)
+    for k, v in one_launches.items():
+        launches_total[k] += v
+    own_t = _rel_l2(resumed(rows[::-1].copy())[1], got_t, got_t)  # one device's own spread
+    limit_t = max(PF_TOL_MOVE, DP_SPREAD * own_t)
+    final = sharded_io.load_sharded_pytree(fin)
+    want_v, want_t = _flat_tree(final["variables"]), _flat_tree(final["opt"]["trace"])
+    _require(got_v.keys() == want_v.keys() and got_t.keys() == want_t.keys(),
+             "[data_parallel] the resumed state has the checkpoint's leaves")
+    stats = [k for k in want_v if k.endswith(("/mean", "/var"))]
+    gaps = {"loss": abs(loss - runs[0]["losses"][-1]) / abs(runs[0]["losses"][-1]),
+            "params": _rel_l2(got_v, want_v, [k for k in want_v if k not in stats]),
+            "stats": _rel_l2(got_v, want_v, stats), "trace": _rel_l2(got_t, want_t, want_t),
+            "trace_own_spread": own_t}
+    whole_bytes = sum(v.nbytes for v in _flat_tree(whole).values())
+    written = [run["bytes_written"] for run in runs]
+    one_want = {k: 0 for k in one_launches}
+    one_want.update({"pooled_gram_fwd": stages, "pooled_gram_bwd": stages})
+    print(f"[data_parallel] sharded checkpoint, family 2 b{DP_BATCH} f32 under FSDP on the two "
+          f"ranks: the asynchronous save after step 2 reloaded bit-equal on each rank "
+          f"{[run['reload_equal'] for run in runs]} (count {[run['count'] for run in runs]}); "
+          f"bytes written a rank {written} of the whole state's {whole_bytes} (sum "
+          f"{sum(written)}); seconds a rank: submit {[round(r['seconds']['submit'], 4) for r in runs]}, "
+          f"submit to the end of step 3 {[round(r['seconds']['submit_to_step_end'], 3) for r in runs]}, "
+          f"submit to commit {[round(r['seconds']['submit_to_commit'], 3) for r in runs]}, "
+          f"synchronous save {[round(r['seconds']['sync_save'], 3) for r in runs]}, load "
+          f"{[round(r['seconds']['load'], 3) for r in runs]}; the case "
+          f"{[round(r['case_s'], 2) for r in runs]} s; launches per rank {per_rank}. Resumed on "
+          f"one device (read whole in {load_s:.3f} s): step 3 against the ranks' loss "
+          f"{gaps['loss']:.2e}, params {gaps['params']:.2e}, stats {gaps['stats']:.2e} (tol "
+          f"{DP_TOL}), momentum {gaps['trace']:.2e} (tol {limit_t:.2e}: PF_TOL_MOVE or "
+          f"{DP_SPREAD} times one device's own spread, the batch's rows reversed, {own_t:.2e}); "
+          f"launches {one_launches} "
+          f"({smi})")
+    _require(all(run["reload_equal"] and run["count"] == SC_STEPS - 1 for run in runs),
+             "[data_parallel] each rank's reload of the asynchronous save is bit-equal")
+    _require(all(rl == want for rl in per_rank),
+             f"[data_parallel] sharded checkpoint: each rank's launches {per_rank} (want {want})")
+    _require(one_launches == one_want,
+             f"[data_parallel] the resumed step's launches {one_launches} (want {one_want})")
+    _require(all(gaps[k] <= DP_TOL for k in ("loss", "params", "stats"))
+             and gaps["trace"] <= limit_t,
+             f"[data_parallel] the checkpoint resumed on one device within {DP_TOL} of the ranks")
+    _require(all(w < whole_bytes for w in written) and sum(written) >= whole_bytes,
+             "[data_parallel] each rank wrote only its part of the state")
+    return {"gaps": gaps, "bytes_written": written, "whole_bytes": whole_bytes,
+            "seconds": [run["seconds"] for run in runs], "one_device_load_s": load_s,
+            "launches_per_rank": per_rank, "one_device_launches": one_launches,
+            "case_s": [run["case_s"] for run in runs]}
+
+
+def _check_stride(ranks, tree0, data_root: str, launches_total: dict, smi: str) -> dict:
+    """The loader-stride case (see SC_SEED): the ranks' step on their
+    strides against one device on the two batches concatenated."""
+    import numpy as np
+    import torch
+
+    from heuristique_style_transfer_code_tpu_torch.checkpoint.convert import to_jax_tree
+    from heuristique_style_transfer_code_tpu_torch.ops import kernels
+
+    batches = [_stride_batch(data_root, i, DP_RANKS) for i in range(DP_RANKS)]
+    runs = [rk["stride"] for rk in ranks]
+    same = all(run["indices"] == b["indices"].tolist() for run, b in zip(runs, batches))
+    setup = _f2_defaults()
+    images = np.concatenate([b["image"] for b in batches])
+    labels = np.concatenate([b["label"] for b in batches])
+
+    def one_device(rows):
+        """One device's step on the concatenated batch's ``rows``: (loss,
+        the init's tree, the tree after it, launches)."""
+        model, opt = setup.init(torch.Generator().manual_seed(111))
+        init = to_jax_tree(model)
+        with _deterministic_cudnn():
+            kernels.reset_launch_counts()
+            model, opt, loss = setup.train_step(model, opt, images[rows], labels[rows])
+            loss = float(loss)
+            launches = kernels.launch_counts()
+        return loss, init, to_jax_tree(model), launches
+
+    rows = np.arange(len(labels))
+    loss, init, tree, one_launches = one_device(rows)
+    own = _tree_gaps(one_device(rows[::-1].copy())[2], tree, init)  # its own spread
+    limit_moves = max(PF_TOL_MOVE, DP_SPREAD * own["moves"])
+    gaps = _tree_gaps(tree0, tree, init)
+    gaps["loss"] = abs(runs[0]["loss"] - loss) / abs(loss)
+    stages = F2T_TRUNCATE - 4
+    want = {k: 0 for k in one_launches}
+    want.update({"pooled_gram_fwd": stages, "pooled_gram_bwd": stages})
+    per_rank = [run["launches"] for run in runs]
+    for rl in per_rank + [one_launches]:
+        for k, v in rl.items():
+            launches_total[k] += v
+    print(f"[data_parallel] loader stride: HostLoader(process_index=rank, process_count=2) over "
+          f"63 PNGs, b{DP_BATCH // DP_RANKS} a rank, the same rows as the parent's loaders "
+          f"{same}, n_valid {[run['n_valid'] for run in runs]}; one family-2 step on the two "
+          f"ranks against one device on the two batches concatenated: loss {gaps['loss']:.2e}, "
+          f"params {gaps['params']:.2e}, stats {gaps['stats']:.2e} (tol {DP_TOL}), moves "
+          f"{gaps['moves']:.2e} (tol {limit_moves:.2e}: PF_TOL_MOVE or {DP_SPREAD} times one "
+          f"device's own spread, the rows reversed, {own['moves']:.2e}); launches per rank "
+          f"{per_rank}, one device "
+          f"{one_launches}; the case {[round(r['case_s'], 2) for r in runs]} s ({smi})")
+    _require(same, "[data_parallel] the ranks' strides are the parent's loaders'")
+    _require(all(gaps[k] <= DP_TOL for k in ("loss", "params", "stats"))
+             and gaps["moves"] <= limit_moves,
+             f"[data_parallel] the loader stride's step within {DP_TOL} of one device's")
+    _require(all(rl == want for rl in per_rank) and one_launches == want,
+             f"[data_parallel] loader stride: launches {per_rank}, {one_launches} (want {want})")
+    return {"gaps": gaps, "moves_limit": limit_moves, "launches_per_rank": per_rank,
+            "one_device_launches": one_launches, "case_s": [run["case_s"] for run in runs]}
 
 
 def _check_fold_mesh(ranks, saved, one, spread, launches_total: dict, smi: str) -> dict:
@@ -7461,6 +7777,11 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
                             os.path.join(out_dir, "rank0_model_axis_trees.npz"))
         for run in model_axis.values():
             del run["tree1"]
+        sharded = _sharded_ckpt_runs(mesh, out_dir)
+        stride = _stride_run(mesh, spec["data"])
+        if rank == 0:
+            save_pytree_npz(stride["tree"], os.path.join(out_dir, "rank0_stride_tree.npz"))
+        del stride["tree"]
         trees = {"final": {}, "step1": {}}
         for name, run in runs.items():
             run.pop("init")
@@ -7475,7 +7796,7 @@ def _dp_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             json.dump({"rank": rank, "world": world, "backend": "gloo",
                        "staged_on_host": mesh.stage_on_host, "start_s": start_s,
                        "runs": runs, "evals": evals, "folds": folds, "folds_s": folds_s,
-                       "model_axis": model_axis}, f,
+                       "model_axis": model_axis, "sharded": sharded, "stride": stride}, f,
                       default=str)
     finally:
         shutdown_distributed()
@@ -7769,6 +8090,9 @@ def phase_data_parallel(kernels, tmp: str, timings: dict, smi: str) -> dict:
     out["model_axis"] = _check_model_axis(ranks, load_pytree_npz(
         os.path.join(dp_dir, "rank0_model_axis_trees.npz")), one["f2"], spread["f2"],
         launches_total, smi)
+    out["sharded_checkpoint"] = _check_sharded_ckpt(ranks, dp_dir, launches_total, smi)
+    out["loader_stride"] = _check_stride(ranks, load_pytree_npz(
+        os.path.join(dp_dir, "rank0_stride_tree.npz")), data, launches_total, smi)
 
     # (c) one NCCL rank: the data-parallel path with NCCL's collectives
     from heuristique_style_transfer_code_tpu_torch.config.schema import (

@@ -3,8 +3,11 @@ of the JAX package): training does not wait on the disk.
 
 ``submit`` takes a host copy of every tensor and array of the tree before
 it returns, so a later in-place update of the parameters or the Adam
-moments cannot race the write; one worker thread then writes the files
-in FIFO order with ``save_pytree_npz``'s atomic rename. ``wait`` blocks
+moments cannot race the write; a ``sharded_io.Shard`` keeps its box and
+copies only its block, and only where this rank owns it. One worker
+thread then writes the files in FIFO order with ``save_pytree_npz``'s
+atomic rename (``save_fn``: ``sharded_io.save_sharded_pytree`` for
+``make_async_sharded_writer``). ``wait`` blocks
 until everything submitted is on disk and re-raises the first error of the
 worker; ``max_pending`` bounds the copies in flight by blocking
 ``submit``.
@@ -19,15 +22,21 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .sharded_io import Shard
+
 
 def _snapshot(tree: Any) -> Any:
-    """A copy of ``tree`` that owns its buffers, on the host."""
+    """A copy of ``tree`` that owns its buffers, on the host (a bfloat16
+    tensor stays a tensor: numpy has no such type)."""
+    if isinstance(tree, Shard):
+        return tree.snapshot()
     if isinstance(tree, dict):
         return {k: _snapshot(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_snapshot(v) for v in tree]
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True).numpy()
+        t = tree.detach().to("cpu", copy=True)
+        return t if t.dtype == torch.bfloat16 else t.numpy()
     if isinstance(tree, np.ndarray):
         return np.array(tree, copy=True)
     return tree  # python scalars and strings are immutable

@@ -19,12 +19,12 @@ on any leaf left over or missing, and on any shape mismatch.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.conv import hwio_to_oihw, oihw_to_hwio
+from ..ops.conv import hwio_to_oihw
 from .io import _flatten, _listify
 
 _RENAME = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
@@ -55,43 +55,68 @@ def from_jax_tree(tree: Any) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def norm_modules(module: torch.nn.Module) -> set:
+    """The names of ``module``'s submodules marked ``is_affine_norm``."""
+    return {name for name, m in module.named_modules() if getattr(m, "is_affine_norm", False)}
+
+
+def jax_path(key: str, ndim: int, norms: set) -> Tuple[List[str], Optional[Tuple[int, ...]]]:
+    """(the JAX tree's path, the permutation from the port's layout to
+    JAX's or None) of the state-dict entry ``key`` of rank ``ndim``
+    (module docstring; ``norms`` from ``norm_modules``)."""
+    parts = key.split(".")
+    leaf, perm = parts[-1], None
+    if leaf == "weight":
+        if ".".join(parts[:-1]) in norms or ndim not in (2, 4):
+            leaf = "scale"
+        else:
+            leaf, perm = "kernel", ((2, 3, 1, 0) if ndim == 4 else (1, 0))
+    leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
+    return parts[:-1] + [leaf], perm
+
+
+def none_paths(module: torch.nn.Module) -> List[List[str]]:
+    """The JAX paths of the None leaves: each child that a module names in
+    ``none_leaves`` and that is None."""
+    out = []
+    for name, m in module.named_modules():
+        for leaf in getattr(m, "none_leaves", ()):
+            if getattr(m, leaf) is None:
+                out.append((name.split(".") if name else []) + [leaf])
+    return out
+
+
+def _host_f32(key: str, t: torch.Tensor, perm: Optional[Tuple[int, ...]]) -> np.ndarray:
+    arr = t.detach().to("cpu", torch.float32, copy=True).numpy()  # owns its memory
+    return np.ascontiguousarray(arr if perm is None else arr.transpose(perm))
+
+
 def to_jax_tree(module: torch.nn.Module,
-                tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
+                tensors: Optional[Mapping[str, torch.Tensor]] = None,
+                leaf_fn: Callable = _host_f32) -> Dict[str, Any]:
     """The port's module -> the JAX package's tree of numpy float32 arrays
     (what its ``save_pytree_npz`` writes). The ``weight`` of a module marked
     ``is_affine_norm`` is a norm's scale whatever its rank: a conditional
     net's (S, C) table stays (S, C), untransposed. A child that a module
     names in ``none_leaves`` and that is None becomes a None leaf.
     ``tensors`` ({state-dict key: tensor}, such as an optimiser's moments)
-    is written in the layout of the module's own state, in its place."""
+    is written in the layout of the module's own state, in its place.
+    ``leaf_fn(key, tensor, perm)`` makes each leaf from its state-dict
+    key, its tensor and ``jax_path``'s permutation (by default a float32
+    host copy in JAX's layout)."""
     tree: Dict[str, Any] = {}
-    inverse = {"running_mean": "mean", "running_var": "var"}
-    norms = {name for name, m in module.named_modules() if getattr(m, "is_affine_norm", False)}
+    norms = norm_modules(module)
     for key, t in (module.state_dict() if tensors is None else tensors).items():
-        parts = key.split(".")
-        arr = t.detach().to("cpu", torch.float32, copy=True).numpy()  # owns its memory
-        leaf = parts[-1]
-        if leaf == "weight":
-            if ".".join(parts[:-1]) in norms:
-                leaf = "scale"
-            elif arr.ndim == 4:
-                leaf, arr = "kernel", oihw_to_hwio(arr)
-            elif arr.ndim == 2:
-                leaf, arr = "kernel", arr.T
-            else:  # batch-norm scale
-                leaf = "scale"
-        leaf = inverse.get(leaf, leaf)
+        path, perm = jax_path(key, t.dim(), norms)
         node = tree
-        for p in parts[:-1]:
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(arr)
-    for name, m in module.named_modules():
-        for leaf in getattr(m, "none_leaves", ()):
-            if getattr(m, leaf) is None:
-                node = tree
-                for p in name.split(".") if name else ():
-                    node = node.setdefault(p, {})
-                node[leaf] = None
+        node[path[-1]] = leaf_fn(key, t, perm)
+    for path in none_paths(module):
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = None
     return _listify(tree)
 
 

@@ -21,22 +21,25 @@ _SEP = "/"
 _MARKERS = {".__none__": None, ".__empty_dict__": dict, ".__empty_list__": list}
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    flat: Dict[str, np.ndarray] = {}
+def _flatten(tree: Any, prefix: str = "", coerce=np.asarray) -> Dict[str, Any]:
+    """{"/"-joined path: leaf} with the markers; ``coerce`` maps each real
+    leaf (``np.asarray`` by default; ``sharded_io`` passes the identity, so
+    a rank's shard stays what it is)."""
+    flat: Dict[str, Any] = {}
     if isinstance(tree, dict):
         if not tree:
             flat[prefix[: -len(_SEP)] + ".__empty_dict__"] = np.zeros(0)
         for k, v in tree.items():
-            flat.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+            flat.update(_flatten(v, f"{prefix}{k}{_SEP}", coerce))
     elif isinstance(tree, (list, tuple)):
         if not tree:
             flat[prefix[: -len(_SEP)] + ".__empty_list__"] = np.zeros(0)
         for i, v in enumerate(tree):
-            flat.update(_flatten(v, f"{prefix}{i}{_SEP}"))
+            flat.update(_flatten(v, f"{prefix}{i}{_SEP}", coerce))
     elif tree is None:
         flat[prefix[: -len(_SEP)] + ".__none__"] = np.zeros(0)
     else:
-        flat[prefix[: -len(_SEP)]] = np.asarray(tree)
+        flat[prefix[: -len(_SEP)]] = coerce(tree)
     return flat
 
 

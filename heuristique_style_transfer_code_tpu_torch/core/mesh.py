@@ -136,6 +136,14 @@ class Mesh:
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def data_index(self) -> int:
+        """This rank's index on the data axis: the process of a loader's
+        stride (``HostLoader(process_index=)``, over the data axis's
+        ``world_size`` processes). The ranks of a model or spatial group
+        share it, as they share their rows."""
+        return self.data_axis.rank
+
     def __deepcopy__(self, memo):
         # a handle on the process group, not data: a copied model (an
         # EMA's, a gathered FSDP one) keeps its heads on the same axes

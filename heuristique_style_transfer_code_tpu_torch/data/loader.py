@@ -1,5 +1,5 @@
 """Host-side image loading, staged for on-device preprocessing
-(``data/loader.py`` of the JAX package, single host).
+(``data/loader.py`` of the JAX package).
 
 The host decodes each image and resizes it to a fixed ``STAGING_SIZE``
 uint8 canvas (PIL bilinear shorter-side resize + center crop); the final
@@ -57,7 +57,7 @@ def load_image_staged(path: str) -> np.ndarray:
 
 class HostLoader:
     """Threaded prefetching batch loader over (path, label) pairs
-    (``data/loader.py:81-217`` of the JAX package, single host).
+    (``data/loader.py:60-217`` of the JAX package).
 
     Yields dicts ``{"image": uint8 (B, S, S, 3), "label": int32 (B,),
     "combo": int32 (B,), "indices": (B,), "n_valid": int}``. The last
@@ -80,13 +80,31 @@ class HostLoader:
     n_accum)``) keeps this rank's rows of every global batch: only those
     are decoded, and "image", "label", "combo", "indices" and "draws" hold
     them (the draws being those rows of the global batch's draws), while
-    "n_valid" stays the global batch's valid count."""
+    "n_valid" stays the global batch's valid count.
+
+    ``process_index``/``process_count`` (JAX's multi-host stride): every
+    process draws a disjoint stride of the same epoch order (seeded by
+    ``seed + epoch``, so the processes agree without communicating). The
+    order is first padded, cycling from its start, to a multiple of
+    ``process_count * batch_size``, so every process runs the same number
+    of batches; a padded entry carries label -1 and is not counted in
+    "n_valid", in a full batch as in the last. On a mesh the process is
+    the rank's data index (``core.mesh.Mesh.data_index``) and the count
+    the data axis's size: the ranks of a model or spatial group draw the
+    same stride (``parallel.multihost.global_batch_dict``). ``rows`` and a
+    ``process_count`` above 1 exclude each other."""
 
     def __init__(self, samples: Sequence[Tuple[str, int]], batch_size: int,
                  combo_ids: Optional[Sequence[int]] = None, shuffle: bool = False,
                  seed: int = 0, num_workers: int = DECODE_WORKERS,
                  draw_key: Optional[Sequence[int]] = None,
-                 rows: Optional[Sequence[int]] = None):
+                 rows: Optional[Sequence[int]] = None, process_index: int = 0,
+                 process_count: int = 1):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is outside [0, {process_count})")
+        if rows is not None and process_count > 1:
+            raise ValueError("rows= (a rank's rows of every global batch) and a process "
+                             "stride (process_count > 1) exclude each other")
         self.samples = list(samples)
         self.combo_ids = (list(combo_ids) if combo_ids is not None
                           else [0] * len(self.samples))
@@ -101,6 +119,8 @@ class HostLoader:
         self._epoch = 0
         self._skip = 0
         self.rows = None if rows is None else np.asarray(rows, dtype=np.int64)
+        self.process_index = int(process_index)
+        self.process_count = int(process_count)
 
     def set_epoch(self, epoch: int) -> None:
         """The next ``__iter__`` gives the order of a fresh loader's
@@ -115,22 +135,41 @@ class HostLoader:
         self.set_epoch(epoch)
         self._skip = int(skip_batches)
 
-    def __len__(self):
-        return (len(self.samples) + self.batch_size - 1) // self.batch_size
+    def _local_n(self) -> int:
+        """This process's sample count after the global padding."""
+        n = len(self.samples)
+        if self.process_count == 1:
+            return n
+        chunk = self.process_count * self.batch_size
+        return -(-n // chunk) * chunk // self.process_count
 
-    def _order(self) -> np.ndarray:
-        order = np.arange(len(self.samples))
+    def __len__(self):
+        return (self._local_n() + self.batch_size - 1) // self.batch_size
+
+    def _order(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(this process's sample indices, their validity) for this epoch."""
+        n = len(self.samples)
+        order = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(order)
-        return order
+        valid = np.ones(n, dtype=bool)
+        if self.process_count > 1:
+            total = self._local_n() * self.process_count
+            if total > n:  # pad by cycling from the start of the global order
+                order = np.concatenate([order, order[np.arange(total - n) % n]])
+                valid = np.concatenate([valid, np.zeros(total - n, dtype=bool)])
+            order = order[self.process_index::self.process_count]
+            valid = valid[self.process_index::self.process_count]
+        return order, valid
 
     def __iter__(self) -> Iterator[dict]:
-        order = self._order()
+        order, order_valid = self._order()
         epoch = self._epoch
         self._epoch += 1
         bs = self.batch_size
-        batches: List[Tuple[int, np.ndarray]] = list(
-            enumerate(order[i : i + bs] for i in range(0, len(order), bs)))
+        batches: List[Tuple[int, Tuple[np.ndarray, np.ndarray]]] = list(
+            enumerate((order[i : i + bs], order_valid[i : i + bs])
+                      for i in range(0, len(order), bs)))
         skip, self._skip = self._skip, 0
         batches = batches[skip:]
 
@@ -140,12 +179,14 @@ class HostLoader:
 
         rows = self.rows if self.rows is not None else np.arange(bs)
 
-        def make_batch(index: int, idxs: np.ndarray) -> dict:
+        def make_batch(index: int, part: Tuple[np.ndarray, np.ndarray]) -> dict:
+            idxs, valid = part
             n = len(idxs)
-            if n < bs:
+            if n < bs:  # pad by cycling samples from the start of the epoch order
                 idxs = np.concatenate([idxs, order[np.arange(bs - n) % len(order)]])
+                valid = np.concatenate([valid, np.zeros(bs - n, dtype=bool)])
             labels = np.full((bs,), -1, dtype=np.int32)
-            labels[:n] = [self.samples[i][1] for i in idxs[:n]]
+            labels[valid] = [self.samples[i][1] for i in idxs[valid]]
             idxs, labels = idxs[rows], labels[rows]
             imgs = np.empty((len(idxs), STAGING_SIZE, STAGING_SIZE, 3), dtype=np.uint8)
             decoded = decode_pool.map(lambda i: load_image_staged(self.samples[i][0]), idxs)
@@ -153,7 +194,7 @@ class HostLoader:
                 imgs[j] = arr
             combos = np.asarray([self.combo_ids[i] for i in idxs], dtype=np.int32)
             batch = {"image": imgs, "label": labels, "combo": combos,
-                     "indices": np.asarray(idxs), "n_valid": n}
+                     "indices": np.asarray(idxs), "n_valid": int(valid.sum())}
             if self.draw_key is not None:
                 from .augment import batch_draws
 
@@ -163,8 +204,8 @@ class HostLoader:
 
         pending = []
         try:
-            for index, idxs in batches:
-                pending.append(batch_pool.submit(make_batch, index, idxs))
+            for index, part in batches:
+                pending.append(batch_pool.submit(make_batch, index, part))
                 if len(pending) >= PREFETCH_BATCHES:
                     yield pending.pop(0).result()
             while pending:

@@ -1,14 +1,15 @@
 """The parallel paths of the port (``parallel/__init__.py`` of the JAX
-package): the fold-parallel step, the process group's start, and the
-meshes, layouts and sharded train steps of ``sharding.py``. The GPipe
-pipeline (JAX ``parallel/pipeline.py``) is not ported yet."""
+package): the fold-parallel step, the process group's start and the
+global batches of ``multihost.py``, and the meshes, layouts and sharded
+train steps of ``sharding.py``. The GPipe pipeline (JAX
+``parallel/pipeline.py``) is not ported yet."""
 from .foldparallel import (
     make_foldwise_train_step,
     stack_fold_states,
     train_folds_parallel,
     unstack_fold_state,
 )
-from .multihost import initialize_distributed
+from .multihost import global_batch_dict, initialize_distributed, make_global_batch
 from .sharding import (
     batch_sharding,
     fsdp_variable_shardings,

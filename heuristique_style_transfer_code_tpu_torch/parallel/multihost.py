@@ -15,6 +15,14 @@ the JAX package, which wraps ``jax.distributed.initialize``).
   exits non-zero; once one rank has finished, the others get the
   collective timeout plus a minute to finish too.
 - Under ``torchrun`` the CLI joins the group instead of spawning.
+- ``make_global_batch`` and ``global_batch_dict`` (JAX ``:59-75``, which
+  assemble each host's rows into one global ``jax.Array``): a port step
+  takes each rank's own rows of the global batch, so these only check the
+  rows (every data rank holds B_local of them: B_global = B_local times
+  the data axis's size, in data-rank order) and put them on the rank's
+  device. With ``HostLoader(process_index=mesh.data_index,
+  process_count=mesh.data_axis.world_size)`` a step on them is the
+  one-device step on the local batches concatenated in data-rank order.
 
 Only rank 0 prints: ``quiet_unless_main`` sends the other ranks' standard
 output to ``os.devnull`` (their errors still reach standard error).
@@ -183,3 +191,52 @@ def _end(procs) -> None:
         if p.is_alive():
             p.kill()
             p.join(5.0)
+
+
+def _mesh_of(where):
+    """The mesh itself, or the one a ``parallel.sharding.batch_sharding``/
+    ``image_sharding`` cut carries."""
+    return where.mesh if callable(where) else where
+
+
+def make_global_batch(local, mesh):
+    """This rank's rows (B_local, ...) of the global batch, a tensor on
+    ``mesh``'s device (``mesh``: a ``core.mesh.Mesh`` or a sharding cut
+    that carries one; None: the rows as a tensor). The port's steps take
+    each rank's own rows, so nothing is assembled; on a process group
+    every data rank must hold as many rows (one all-gather of the count
+    over the data axis), else ValueError. A step on a spatial axis cuts
+    the band of the rows itself."""
+    import numpy as np
+    import torch
+
+    mesh = _mesh_of(mesh)
+    rows = local if torch.is_tensor(local) else torch.as_tensor(np.asarray(local))
+    if mesh is None:
+        return rows
+    rows = rows.to(mesh.device)
+    if mesh.distributed:
+        counts = mesh.data_axis.all_gather(torch.tensor([rows.shape[0]], device=mesh.device))
+        counts = [int(c.item()) for c in counts]
+        if len(set(counts)) != 1:
+            raise ValueError(f"the data ranks hold {counts} rows: a global batch needs as many "
+                             "on each (B_global = B_local x the data axis's size)")
+    return rows
+
+
+def global_batch_dict(batch: dict, image_sharding, batch_sharding) -> dict:
+    """A ``HostLoader`` batch's "image", "label" and "combo" as this rank's
+    rows of the global batch (``make_global_batch``; one check of the row
+    count, on the images), on its device."""
+    import numpy as np
+    import torch
+
+    image = make_global_batch(batch["image"], image_sharding)
+    mesh = _mesh_of(batch_sharding)
+    out = {"image": image}
+    for key in ("label", "combo"):
+        t = torch.as_tensor(np.asarray(batch[key]))
+        if t.shape[0] != image.shape[0]:
+            raise ValueError(f"{t.shape[0]} {key}s for {image.shape[0]} images")
+        out[key] = t if mesh is None else t.to(mesh.device)
+    return out

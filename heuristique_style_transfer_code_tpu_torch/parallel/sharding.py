@@ -259,13 +259,15 @@ fsdp_variable_shardings = zero1_state_shardings
 def batch_sharding(mesh: Optional[Mesh]) -> Callable:
     """JAX's ``batch_sharding`` (``P("data")``): ``cut(x)`` gives this
     rank's data rows of a global batch (labels, combination ids: arrays
-    or tensors, rows first); the identity without a mesh."""
+    or tensors, rows first); the identity without a mesh. ``cut.mesh`` is
+    ``mesh``."""
 
     def cut(x):
         if mesh is None or not mesh.distributed:
             return x
         return mesh.local(x)
 
+    cut.mesh = mesh
     return cut
 
 
@@ -275,8 +277,7 @@ def image_sharding(mesh: Optional[Mesh]) -> Callable[[torch.Tensor], torch.Tenso
     a spatial axis, its band of their rows; the identity without a mesh.
     On a 3-D mesh the ranks of a model group get the same block. (The
     train steps cut the band themselves, after the augmentation: they take
-    each rank's whole rows.)"""
-
+    each rank's whole rows.) ``cut.mesh`` is ``mesh``."""
 
     def cut(images: torch.Tensor) -> torch.Tensor:
         if mesh is None or not mesh.distributed:
@@ -284,6 +285,7 @@ def image_sharding(mesh: Optional[Mesh]) -> Callable[[torch.Tensor], torch.Tenso
         x = mesh.local(images)
         return band_of(x, mesh.spatial_axis) if mesh.spatial > 1 else x
 
+    cut.mesh = mesh
     return cut
 
 

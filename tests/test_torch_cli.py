@@ -224,7 +224,8 @@ def test_port_and_chip_smoke_import_no_jax():
                    "tasks/recycling.py", "deploy/artifact.py", "native/__init__.py",
                    "parallel/__init__.py", "parallel/foldparallel.py", "core/mesh.py",
                    "parallel/multihost.py", "parallel/sharding.py",
-                   "parallel/tensor_parallel.py"):
+                   "parallel/tensor_parallel.py", "checkpoint/sharded_io.py",
+                   "checkpoint/async_io.py", "data/loader.py"):
         assert os.path.join(PORT, module) in files, module
     bad = []
     for path in files:
